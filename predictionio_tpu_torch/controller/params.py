@@ -1,0 +1,158 @@
+"""Params: typed component parameters parsed from engine-variant JSON.
+
+Copy of ``predictionio_tpu/controller/params.py`` (the port shares the
+engine-variant JSON format, so a stored engine instance parses the same
+in both packages). Rebuild of the reference's ``Params`` marker +
+reflective JSON extraction
+(``core/src/main/scala/io/prediction/controller/Params.scala:23-43`` and
+``workflow/WorkflowUtils.scala:130-209`` ``extractParams``): user parameter
+classes are plain dataclasses; :func:`extract_params` converts the
+``{name, params}`` blocks of an ``engine.json`` variant into instances by
+field-name matching — the explicit-registry replacement for Scala
+ctor-arg reflection (SURVEY §7 "typeless/typed boundary").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import types
+import typing
+from typing import Any, Dict, Mapping, Optional, Type, TypeVar
+
+T = TypeVar("T")
+
+_UNION_TYPES = (typing.Union, getattr(types, "UnionType", typing.Union))
+
+
+class ParamsError(ValueError):
+    """Raised when JSON cannot be converted into the target Params class."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Params:
+    """Base class for all component parameters (``Params.scala:23-33``).
+
+    Subclasses are frozen dataclasses; fields define the accepted JSON keys.
+    """
+
+
+@dataclasses.dataclass(frozen=True)
+class EmptyParams(Params):
+    """No parameters (``Params.scala:38-43``)."""
+
+
+def _convert(value: Any, annotation: Any, where: str) -> Any:
+    """Best-effort conversion of a JSON value to an annotated field type."""
+    if annotation is Any or annotation is dataclasses.MISSING:
+        return value
+    origin = typing.get_origin(annotation)
+    if origin in _UNION_TYPES:  # Optional[...], Union[...], and PEP 604 X | Y
+        args = typing.get_args(annotation)
+        if value is None and type(None) in args:
+            return None
+        errors = []
+        for arg in args:
+            if arg is type(None):
+                continue
+            try:
+                return _convert(value, arg, where)
+            except ParamsError as exc:
+                errors.append(str(exc))
+        raise ParamsError(
+            f"{where}: {value!r} matches no member of {annotation}"
+            + (f" ({'; '.join(errors)})" if errors else "")
+        )
+    if origin in (list, tuple):
+        if not isinstance(value, (list, tuple)):
+            raise ParamsError(f"{where}: expected a list, got {type(value).__name__}")
+        args = typing.get_args(annotation)
+        elem = args[0] if args else Any
+        converted = [
+            _convert(v, elem, f"{where}[{i}]") for i, v in enumerate(value)
+        ]
+        return tuple(converted) if origin is tuple else converted
+    if origin is dict:
+        if not isinstance(value, Mapping):
+            raise ParamsError(f"{where}: expected an object, got {type(value).__name__}")
+        args = typing.get_args(annotation)
+        vt = args[1] if len(args) == 2 else Any
+        return {k: _convert(v, vt, f"{where}.{k}") for k, v in value.items()}
+    if dataclasses.is_dataclass(annotation) and isinstance(annotation, type):
+        if not isinstance(value, Mapping):
+            raise ParamsError(
+                f"{where}: expected an object for {annotation.__name__}"
+            )
+        return extract_params(annotation, value)
+    if annotation is float:
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            raise ParamsError(f"{where}: expected a number, got {value!r}")
+        return float(value)
+    if annotation is int:
+        if isinstance(value, bool) or not isinstance(value, int):
+            raise ParamsError(f"{where}: expected an integer, got {value!r}")
+        return value
+    if annotation is bool:
+        if not isinstance(value, bool):
+            raise ParamsError(f"{where}: expected a boolean, got {value!r}")
+        return value
+    if annotation is str:
+        if not isinstance(value, str):
+            raise ParamsError(f"{where}: expected a string, got {value!r}")
+        return value
+    return value  # unconstrained annotation: pass through
+
+
+def extract_params(cls: Type[T], json_value: Optional[Mapping[str, Any]]) -> T:
+    """JSON object → dataclass instance (``WorkflowUtils.extractParams``).
+
+    Unknown keys are rejected (the reference fails on ctor mismatch); missing
+    keys fall back to dataclass defaults, and a missing required key raises.
+    """
+    if not dataclasses.is_dataclass(cls):
+        raise ParamsError(f"{cls!r} is not a dataclass Params type")
+    data = dict(json_value or {})
+    hints = typing.get_type_hints(cls)
+    kwargs: Dict[str, Any] = {}
+    field_names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(data) - field_names
+    if unknown:
+        raise ParamsError(
+            f"Unable to extract {cls.__name__}: unknown fields {sorted(unknown)}"
+        )
+    for f in dataclasses.fields(cls):
+        if f.name in data:
+            kwargs[f.name] = _convert(
+                data[f.name], hints.get(f.name, Any), f"{cls.__name__}.{f.name}"
+            )
+        elif (
+            f.default is dataclasses.MISSING
+            and f.default_factory is dataclasses.MISSING  # type: ignore[misc]
+        ):
+            raise ParamsError(
+                f"Unable to extract {cls.__name__}: missing required field "
+                f"{f.name!r}"
+            )
+    try:
+        return cls(**kwargs)  # type: ignore[return-value]
+    except (TypeError, ValueError) as exc:
+        raise ParamsError(f"Unable to construct {cls.__name__}: {exc}") from exc
+
+
+def params_to_json(params: Any) -> Dict[str, Any]:
+    """Dataclass instance → JSON dict (inverse of :func:`extract_params`)."""
+    if dataclasses.is_dataclass(params) and not isinstance(params, type):
+        return {
+            f.name: _value_to_json(getattr(params, f.name))
+            for f in dataclasses.fields(params)
+        }
+    raise ParamsError(f"{params!r} is not a Params dataclass instance")
+
+
+def _value_to_json(value: Any) -> Any:
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return params_to_json(value)
+    if isinstance(value, (list, tuple)):
+        return [_value_to_json(v) for v in value]
+    if isinstance(value, dict):
+        return {k: _value_to_json(v) for k, v in value.items()}
+    return value

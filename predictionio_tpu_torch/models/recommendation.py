@@ -1,0 +1,326 @@
+"""Recommendation engine template (ALS) — the serving side, on the card.
+
+Counterpart of ``predictionio_tpu/models/recommendation.py``: the same
+query/result types, the same ``ALSAlgorithmParams`` fields (so an engine
+instance written by either package parses in both), ``ALSModel``, and
+``ALSAlgorithm.predict``/``batch_predict`` — one device call per batch
+through :func:`..ops.scoring.top_k_for_users_fused`, which on the card
+streams the catalog through the hand-written CUDA top-k kernel.
+
+A live model's factor tables move to the algorithm's device once, when
+the model is attached (``prepare_serving`` at deploy, or the first
+query), and stay there; each batch copies only its user indices in and
+its ``[B, k]`` results out, in one copy each way.
+
+Training waits for the port's ALS slice (``ALSAlgorithm.train`` raises).
+Until then a model trained by the JAX package crosses over as arrays:
+:func:`als_model_from_numpy` builds the port's ``ALSModel`` from
+``user_factors``, ``item_factors`` and the two id maps' ``to_dict()``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import weakref
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..controller import (
+    Algorithm,
+    DataSource,
+    Engine,
+    FirstServing,
+    Params,
+    Preparator,
+)
+from ..device import DeviceLike, resolve_device
+from ..ops.scoring import (
+    pad_pow2,
+    resolve_topk_path,
+    top_k_for_users_fused,
+    use_streaming_topk,
+)
+from ..storage import BiMap
+
+#: where training lands in the port's plan (ROADMAP.md, queue 1)
+TRAINING_NOT_PORTED = (
+    "ALS training is not ported yet (ROADMAP.md, queue 1 item 1: "
+    "ops/als.py with the spd_solve_t and gramian_fused kernels); train "
+    "with predictionio_tpu and carry the factors over with "
+    "als_model_from_numpy"
+)
+
+
+# -- queries / results (template's Query.scala / PredictedResult) -----------
+@dataclasses.dataclass(frozen=True)
+class Query:
+    user: str
+    num: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class ItemScore:
+    item: str
+    score: float
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictedResult:
+    item_scores: Tuple[ItemScore, ...]
+
+    def to_json_dict(self) -> dict:
+        from .wire import item_scores_json
+
+        return item_scores_json(self.item_scores)
+
+
+# -- DASE components --------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RecDataSourceParams(Params):
+    app_id: int = 1
+    event_names: Tuple[str, ...] = ("rate", "buy")
+    buy_rating: float = 4.0
+
+
+class RecDataSource(DataSource):
+    """Declared so stored engine params parse; reading training events
+    waits for the port's event store."""
+
+    params_class = RecDataSourceParams
+
+    def __init__(self, params: RecDataSourceParams = RecDataSourceParams()):
+        self.params = params
+
+    def read_training(self, ctx):
+        raise NotImplementedError(TRAINING_NOT_PORTED)
+
+
+class RecPreparator(Preparator):
+    def prepare(self, ctx, td):
+        raise NotImplementedError(TRAINING_NOT_PORTED)
+
+
+@dataclasses.dataclass(frozen=True)
+class ALSAlgorithmParams(Params):
+    """The JAX package's fields, unchanged. The serving side reads
+    ``streaming_top_k`` (on the card "auto"/"always" stream through the
+    kernel and "never" is refused; see ``use_streaming_topk``) and refuses
+    ``quantized_serving`` (not ported yet); the training fields wait."""
+
+    rank: int = 10
+    num_iterations: int = 10
+    lambda_: float = 0.01
+    seed: int = 3
+    implicit_prefs: bool = False
+    alpha: float = 1.0
+    distributed: bool = False
+    factor_sharding: str = "replicated"
+    shards: Optional[int] = None
+    checkpoint_every: Optional[int] = None
+    solve_mode: str = "auto"
+    gather_dtype: str = "f32"
+    sort_gather_indices: Optional[bool] = None
+    fused_gather: Optional[bool] = None
+    streaming_top_k: str = "auto"
+    quantized_serving: Optional[bool] = None
+    quant_gate_min_match: float = 1.0
+
+
+@dataclasses.dataclass
+class ALSModel:
+    """Factor tables + id maps (``ALSModel.scala:1-63``). Plain numpy
+    arrays, so the blob never holds device memory; the serving copies
+    live on the algorithm that attached the model."""
+
+    rank: int
+    user_factors: np.ndarray  # [U, rank] float32
+    item_factors: np.ndarray  # [I, rank] float32
+    user_map: BiMap
+    item_map: BiMap
+
+
+IdsLike = Union[Mapping[str, int], Sequence[str]]
+
+
+def _as_bimap(ids: IdsLike, rows: int, what: str) -> BiMap:
+    mapping = dict(ids) if isinstance(ids, Mapping) else {
+        k: i for i, k in enumerate(ids)
+    }
+    if sorted(mapping.values()) != list(range(rows)):
+        raise ValueError(
+            f"{what} ids must map onto rows 0..{rows - 1} exactly once "
+            f"(got {len(mapping)} ids for {rows} rows)"
+        )
+    return BiMap(mapping)
+
+
+def als_model_from_numpy(
+    rank: int,
+    user_factors,
+    item_factors,
+    user_ids: IdsLike,
+    item_ids: IdsLike,
+) -> ALSModel:
+    """The port's ``ALSModel`` from plain arrays — the weight carry from
+    the JAX package: pass its model's ``user_factors``, ``item_factors``,
+    ``user_map.to_dict()`` and ``item_map.to_dict()`` (a list of ids in
+    row order works too). Copies into contiguous float32."""
+    uf = np.ascontiguousarray(np.asarray(user_factors, dtype=np.float32))
+    itf = np.ascontiguousarray(np.asarray(item_factors, dtype=np.float32))
+    for name, table in (("user_factors", uf), ("item_factors", itf)):
+        if table.ndim != 2 or table.shape[1] != rank:
+            raise ValueError(
+                f"{name} must be [n, {rank}], got {table.shape}"
+            )
+    return ALSModel(
+        rank=rank,
+        user_factors=uf,
+        item_factors=itf,
+        user_map=_as_bimap(user_ids, uf.shape[0], "user"),
+        item_map=_as_bimap(item_ids, itf.shape[0], "item"),
+    )
+
+
+def _quantized_serving_requested(flag: Optional[bool]) -> bool:
+    """The JAX package's tri-state: explicit flag, else
+    ``PIO_SERVE_QUANT``, else off."""
+    if flag is not None:
+        return flag
+    return os.environ.get("PIO_SERVE_QUANT", "0").strip() == "1"
+
+
+class ALSAlgorithm(Algorithm):
+    """ALS serving on the card (``ALSAlgorithm.scala:72-86``).
+
+    ``device`` is where the factor tables live; None takes the deploy
+    context's device at attach time (``cuda:0`` by default)."""
+
+    params_class = ALSAlgorithmParams
+
+    def __init__(
+        self,
+        params: ALSAlgorithmParams = ALSAlgorithmParams(),
+        device: DeviceLike = None,
+    ):
+        self.params = params
+        self.device: Optional[torch.device] = (
+            None if device is None else resolve_device(device)
+        )
+        #: the top-k path the LAST batch took ("streaming" | "dense";
+        #: None before the first query), read by /status.json
+        self._topk_path: Optional[str] = None
+        #: (weakref to the attached model, its device user/item tables)
+        self._tables = None
+        self._tables_lock = threading.Lock()
+
+    @property
+    def topk_path(self) -> Optional[str]:
+        return self._topk_path
+
+    def train(self, ctx, pd) -> ALSModel:
+        raise NotImplementedError(TRAINING_NOT_PORTED)
+
+    def prepare_serving(self, model: ALSModel, ctx) -> None:
+        """Deploy-time attach: validate the serving levers and move the
+        model's tables to the context's device, once."""
+        if self.device is None:
+            self.device = ctx.device
+        self._device_tables(model)
+
+    def _device_tables(self, model: ALSModel) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The model's (user, item) factor tables on this algorithm's
+        device, copied there once per model object and cached."""
+        with self._tables_lock:
+            cached = self._tables
+            if cached is not None and cached[0]() is model:
+                return cached[1], cached[2]
+            if _quantized_serving_requested(self.params.quantized_serving):
+                raise NotImplementedError(
+                    "quantized_serving is not ported yet (ROADMAP.md, "
+                    "queue 1); deploy with quantized_serving false"
+                )
+            if self.device is None:
+                self.device = resolve_device(None)
+            # a config typo fails at attach, not mid-serving
+            use_streaming_topk(self.params.streaming_top_k, self.device)
+            uf = torch.from_numpy(
+                np.ascontiguousarray(model.user_factors, dtype=np.float32)
+            ).to(self.device)
+            itf = torch.from_numpy(
+                np.ascontiguousarray(model.item_factors, dtype=np.float32)
+            ).to(self.device)
+            self._tables = (weakref.ref(model), uf, itf)
+            return uf, itf
+
+    def predict(self, model: ALSModel, query: Query) -> PredictedResult:
+        return self.batch_predict(model, [(0, query)])[0][1]
+
+    def batch_predict(
+        self, model: ALSModel, indexed_queries: Sequence[Tuple[int, Query]]
+    ) -> List[Tuple[int, PredictedResult]]:
+        """One device call for the whole batch: gather the known users'
+        rows, top-k against the catalog, one copy of ``[b, k]`` results
+        back to the host. Unknown users get an empty result."""
+        known = [
+            (i, q) for i, q in indexed_queries if model.user_map.get(q.user) is not None
+        ]
+        out: List[Tuple[int, PredictedResult]] = [
+            (i, PredictedResult(item_scores=()))
+            for i, q in indexed_queries
+            if model.user_map.get(q.user) is None
+        ]
+        if not known:
+            return out
+        uf, itf = self._device_tables(model)
+        n_items = itf.shape[0]
+        max_k = min(max(q.num for _, q in known), n_items)
+        user_idx = np.asarray([model.user_map[q.user] for _, q in known], dtype=np.int32)
+        # shape bucketing: pad B and k to powers of two so the kernel sees
+        # O(log^2) shapes; slice on the host
+        b = len(user_idx)
+        b_pad = pad_pow2(b)
+        k_pad = min(pad_pow2(max_k, lo=8), n_items)
+        padded = torch.from_numpy(np.pad(user_idx, (0, b_pad - b))).to(itf.device)
+        mode = self.params.streaming_top_k
+        self._topk_path = resolve_topk_path(mode, itf.device)
+        scores, items = top_k_for_users_fused(uf, itf, padded, k=k_pad, mode=mode)
+        # one device→host copy for both arrays: the int32 indices ride
+        # as float32 bit patterns beside the scores
+        packed = torch.cat(
+            [scores[:b, :max_k], items[:b, :max_k].view(torch.float32)], dim=1
+        ).cpu()
+        s_rows = packed[:, :max_k].tolist()
+        i_rows = packed[:, max_k:].view(torch.int32).tolist()
+        inv = model.item_map.inverse
+        for row, (i, q) in enumerate(known):
+            k = min(q.num, max_k)
+            s_row, i_row = s_rows[row], i_rows[row]
+            out.append(
+                (
+                    i,
+                    PredictedResult(
+                        item_scores=tuple(
+                            ItemScore(item=inv[i_row[j]], score=s_row[j])
+                            for j in range(k)
+                        )
+                    ),
+                )
+            )
+        return out
+
+    def query_class(self):
+        return Query
+
+
+def engine_factory() -> Engine:
+    """The template's EngineFactory (``RecommendationEngine``)."""
+    return Engine(
+        {"": RecDataSource},
+        {"": RecPreparator},
+        {"als": ALSAlgorithm, "": ALSAlgorithm},
+        {"": FirstServing},
+    )

@@ -1,0 +1,85 @@
+"""Bidirectional ID ↔ index map.
+
+Trimmed copy of ``predictionio_tpu/storage/bimap.py`` (``BiMap``, with
+the accessors serving uses; ``HashedIdMap``, ``EntityMap`` and the
+vectorized constructors wait): the boundary between host-side
+string ids and the device's dense indices — the forward map turns a
+query's user id into a factor row, the inverse decodes top-k indices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Generic, Mapping, Optional, TypeVar
+
+K = TypeVar("K")
+V = TypeVar("V")
+
+
+class BiMap(Generic[K, V]):
+    """Immutable bidirectional map (``BiMap.scala:25-105``).
+
+    Construction fails if values are not unique: the map must be
+    invertible."""
+
+    def __init__(self, forward: Mapping[K, V], _inverse: Optional[Mapping[V, K]] = None):
+        self._forward: Dict[K, V] = dict(forward)
+        if _inverse is None:
+            inverse: Dict[V, K] = {}
+            for k, v in self._forward.items():
+                if v in inverse:
+                    raise ValueError(
+                        f"BiMap values must be unique; duplicate value {v!r}"
+                    )
+                inverse[v] = k
+            self._inverse = inverse
+        else:
+            self._inverse = dict(_inverse)
+        self._inverse_view: Optional["BiMap[V, K]"] = None
+
+    def __getitem__(self, key: K) -> V:
+        return self._forward[key]
+
+    def get(self, key: K) -> Optional[V]:
+        return self._forward.get(key)
+
+    def __contains__(self, key: K) -> bool:
+        return key in self._forward
+
+    def __len__(self) -> int:
+        return len(self._forward)
+
+    @property
+    def inverse(self) -> "BiMap[V, K]":
+        """O(1) inverted view sharing this map's dicts (BiMaps are never
+        mutated after construction), cached so the serving path can take
+        ``.inverse`` per batch without copying the catalog. No
+        back-pointer: a map↔view cycle would keep catalog-sized dicts
+        alive past a ``/reload``."""
+        inv = self._inverse_view
+        if inv is None:
+            inv = BiMap.__new__(BiMap)
+            inv._forward = self._inverse
+            inv._inverse = self._forward
+            inv._inverse_view = None
+            self._inverse_view = inv
+        return inv
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_inverse_view", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._inverse_view = None
+
+    def to_dict(self) -> Dict[K, V]:
+        return dict(self._forward)
+
+    def __eq__(self, other: object) -> bool:
+        if isinstance(other, BiMap):
+            return self._forward == other._forward
+        return NotImplemented
+
+    def __repr__(self) -> str:
+        return f"BiMap({self._forward!r})"

@@ -1,0 +1,43 @@
+"""WorkflowContext: per-run compute context.
+
+Counterpart of ``predictionio_tpu/workflow/context.py``: where the JAX
+package hands every DASE component a device mesh, the port hands it one
+``torch.device`` (resolved once, with no fallback: see
+:func:`..device.resolve_device`), plus the mode/batch labels and the
+``PIO_*`` env passthrough of ``WorkflowContext.scala:78-97``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+from ..device import DeviceLike, resolve_device
+
+
+def pio_env_vars(env: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+    """Env vars starting with PIO_ (``WorkflowUtils.scala:212-217``)."""
+    source = env if env is not None else dict(os.environ)
+    return {k: v for k, v in source.items() if k.startswith("PIO_")}
+
+
+class WorkflowContext:
+    """Compute context: mode + batch labels, env, and the device."""
+
+    def __init__(
+        self,
+        mode: str = "Training",
+        batch: str = "",
+        executor_env: Optional[Dict[str, str]] = None,
+        device: DeviceLike = None,
+    ):
+        self.mode = mode
+        self.batch = batch
+        self.env = dict(executor_env if executor_env is not None else pio_env_vars())
+        #: where this run's tensors live (``cuda:0`` unless asked otherwise)
+        self.device = resolve_device(device)
+
+    @property
+    def app_name(self) -> str:
+        # "PredictionIO <mode>: <batch>" (WorkflowContext.scala:82-84)
+        return f"PredictionIO {self.mode}: {self.batch}"

@@ -1,0 +1,120 @@
+"""The port stands alone: no jax, no ``predictionio_tpu``, no quiet CPU.
+
+``tests/conftest.py`` imports jax into every test process, so the import
+check runs in a subprocess of its own.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from predictionio_tpu_torch import device as device_mod
+from predictionio_tpu_torch.kernels import build
+from predictionio_tpu_torch.ops import cuda_kernels
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "predictionio_tpu_torch"
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "predictionio_tpu"}
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_importing_every_port_module_pulls_in_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import predictionio_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20  # every module of the slice
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    found = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            found += [(path.name, r) for r in roots if r in FORBIDDEN_ROOTS]
+    assert not found
+
+
+def test_no_port_source_turns_tf32_on():
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Assign):
+                for target in node.targets:
+                    if isinstance(target, ast.Attribute) and target.attr == "allow_tf32":
+                        assert isinstance(node.value, ast.Constant)
+                        assert node.value.value is False, path
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "attr", "") == "set_float32_matmul_precision"):
+                assert node.args and node.args[0].value == "highest", path
+
+
+def test_default_device_is_the_card_and_never_the_cpu():
+    if torch.cuda.is_available():
+        assert device_mod.resolve_device() == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            device_mod.resolve_device()
+        with pytest.raises(RuntimeError):
+            device_mod.resolve_device("cuda")
+        from predictionio_tpu_torch.workflow import WorkflowContext
+
+        with pytest.raises(RuntimeError):
+            WorkflowContext()
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        device_mod.resolve_device("meta")
+
+
+def test_cpu_tensors_never_count_a_kernel_launch():
+    before = cuda_kernels.top_k_streaming.launches
+    q, items = torch.randn(3, 5), torch.randn(40, 5)
+    cuda_kernels.top_k_streaming(q, items, 4)
+    cuda_kernels.top_k_for_users_streaming(items, items, torch.tensor([1, 2]), 4)
+    assert cuda_kernels.top_k_streaming.launches == before
+
+
+def test_build_command_targets_sm90a_from_repo_sources():
+    cmd = build.build_command("topk_streaming", "out.so")
+    text = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in text
+    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+        assert flag in cmd
+    assert cmd[-1] == str(PORT / "kernels" / "csrc" / "topk_streaming.cu")
+    assert build.kernel_names() == ["topk_streaming"]
+    lib = pathlib.Path(build.library_path("topk_streaming"))
+    assert lib.parent == PORT / "kernels" / "_build"
+    assert "predictionio_tpu_torch/kernels/_build/" in (REPO / ".gitignore").read_text()
+
+
+def test_kernel_source_names_what_it_replaces_and_its_ceiling():
+    src = (PORT / "kernels" / "csrc" / "topk_streaming.cu").read_text()
+    assert "pallas_kernels.py::_topk_kernel" in src
+    assert f"constexpr int kMaxK = {cuda_kernels.TOPK_MAX_K};" in src
+    assert f"constexpr int kTileItems = {cuda_kernels.TOPK_TILE_ITEMS};" in src
