@@ -8,7 +8,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
 1. ``device``  — the card (``nvidia-smi`` name and power limit), torch
    and CUDA versions, the TF32 state (off).
 2. ``build``   — compiles every kernel under
-   ``predictionio_tpu_torch/kernels/csrc`` with nvcc (set-up time).
+   ``predictionio_tpu_torch/kernels/csrc`` with nvcc, one process per
+   source, all at once (set-up time).
 3. ``kernel``  — the streaming top-k kernel against its plain PyTorch
    version on the card at the serving slice's shapes (B in {1, 64, 1024},
    N = 27,000, R = 50, k = 16) and at the edge cases (64 exclusions,
@@ -16,27 +17,51 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    scores agree to rtol 1e-5 / atol 1e-5 and ids are equal or tied. Each
    shape prints the kernel's, the plain version's and ``torch.topk(q @
    items.T)``'s times (CUDA events) beside the bound.
-4. ``slice``   — the main path: a seeded rank-50 ALS model at ML-20M width
-   (138,000 users x 27,000 items) persisted as a COMPLETED engine instance
-   with the default ``streaming_top_k`` ("auto"), served by
-   ``create_query_server`` on the card; bursts of 64 concurrent
+4. ``data``    — ML-20M-shaped synthetic ratings (a copy of ``bench.py``'s
+   generator at scale 1 from ``--seed``, 5 % held out as the bench does),
+   bucketized both ways, index-sorted and staged on the card.
+5. ``train_kernels`` — the gather+Gramian kernel and the batched SPD
+   solve kernel against their plain versions on the card: every bucket of
+   both sides as training launches it (R = 50; the systems the build
+   kernel wrote are what the solve kernel solves), the solve at B in
+   {128, 16,384, 138,000}, and the edge cases (zero-weight rows, a YtY
+   base, a bf16-rounded table, R = 13, K = 1, a 32,768-rating row; zero
+   systems, a singular PSD system, n at the ceiling, n above it raises).
+   The build agrees to rtol/atol 1e-4, the solve to relative error 1e-4.
+6. ``train``   — the main path: ``workflow.run_train`` trains the port's
+   recommendation engine (ALS, rank 50, 10 iterations, λ 0.05, seed 0) on
+   the card from a DataSource over the training split. The two training
+   kernels' launch counts are reset just before it and read just after;
+   both must launch every iteration. Then: per-iteration times, train and
+   holdout RMSE (holdout ≤ 0.62, the bench's gate), one more iteration
+   under ``torch.profiler``, and 3 iterations through the kernels against
+   3 through their plain versions from one initial table (factors rtol
+   2e-3 / atol 2e-4, train RMSE within 1e-3).
+7. ``slice``   — serving: the instance ``run_train`` wrote, deployed by
+   ``create_query_server`` on the card with the default
+   ``streaming_top_k`` ("auto"); bursts of 64 concurrent
    ``POST /queries.json`` (two unknown users), every answer checked
    against the plain version — the last burst's requests (and nothing
    else) under ``torch.profiler``, to show how busy the device was — then
    ``/status.json`` ``topkPath`` is streaming and the HTTP bursts launched
    the kernel, and a direct 1,024-user ``batch_predict`` streams too. The
-   kernel's launch count is reset just before the first burst and read
-   after the last batch.
+   top-k kernel's launch count is reset just before the first burst and
+   read after the last batch.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
-and as the last line ``{"ok": true, "device": {...}}``. Any failed phase
-raises and exits non-zero before the last line; without CUDA (or outside
-a checkout of the repo) it exits non-zero and prints no result.
+Then the bound of the TPU kernel still to port (flash attention, at the
+sequence recommender's defaults), the phases' wall times, one
+``{"kernels": [...]}`` line, the
+``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
+"device": {...}}``. Any failed phase raises and exits non-zero before the
+last line; without CUDA (or outside a checkout of the repo) it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import http.client
 import json
 import subprocess
@@ -51,11 +76,23 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 RTOL = ATOL = 1e-5
-#: the serving slice: ML-20M width (bench.py's ALS shape) at rank 50
+#: ML-20M width (bench.py's ALS shape) at rank 50
 N_USERS, N_ITEMS, RANK = 138000, 27000, 50
 HTTP_QUERIES, HTTP_ROUNDS = 64, 2
 TOPK_SOURCE = "predictionio_tpu_torch/kernels/csrc/topk_streaming.cu"
 TOPK_REPLACES = "predictionio_tpu/ops/pallas_kernels.py:67"
+GRAMIAN_SOURCE = "predictionio_tpu_torch/kernels/csrc/gramian_fused.cu"
+GRAMIAN_REPLACES = "predictionio_tpu/ops/pallas_kernels.py:370"
+SPD_SOURCE = "predictionio_tpu_torch/kernels/csrc/spd_solve.cu"
+SPD_REPLACES = "predictionio_tpu/ops/pallas_kernels.py:248"
+#: training: bench.py's ALS configuration (bench.py:738-741)
+TRAIN_ITERS, PARITY_ITERS, LAMBDA, TRAIN_SEED = 10, 3, 0.05, 0
+KERNEL_TOL = 1e-4  # build rtol/atol and solve relative error, kernel vs plain
+FACTOR_RTOL, FACTOR_ATOL, RMSE_TOL = 2e-3, 2e-4, 1e-3
+HOLDOUT_GATE = 0.62  # bench.py:854
+#: batch sizes of the solve kernel's fixed-shape checks (the largest is
+#: every user system of one iteration)
+SPD_BATCHES = (128, 16384, 138000)
 
 
 def emit(obj) -> None:
@@ -70,6 +107,92 @@ def topk_bound(b: int, n: int, r: int, k: int, e: int = 0):
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = 2.0 * b * n * r / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gramian_bound(b: int, k: int, n: int, r: int, valid: int, yty: bool):
+    """Least time for one gather+Gramian build: every input read once
+    (the [N, R] table, idx/w2/rhs [B, K], ridge, yty) and A [B, R, R] and
+    b [B, R] written once, over the memory rate; the symmetric build's
+    R(R+1) + 2R FLOP for each rating that carries weight, over the fp32
+    peak. Returns (ms, "bytes" | "operations")."""
+    moved = 4.0 * (n * r + 3 * b * k + b + (r * r if yty else 0) + b * r * r + b * r)
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = valid * (r * (r + 1) + 2.0 * r) / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def spd_bound(b: int, n: int):
+    """Least time for one batched SPD solve: A [B, n, n] and b [B, n]
+    read once, x [B, n] written once; B·(n³/3 + 2n²) FLOP."""
+    t_bytes = 4.0 * (b * n * n + 2 * b * n) / HBM_BYTES_PER_S
+    t_ops = b * (n**3 / 3.0 + 2.0 * n * n) / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_attention_bound():
+    """Kernel 4, not ported yet (``predictionio_tpu/ops/attention.py:130``):
+    its least time at the sequence recommender's defaults
+    (``models/sequencerec.py``: batch 64, 4 heads, d_model 64 so head
+    width 16, seq_len 64, causal, f32). q, k, v read once and o written
+    once; QKᵀ and PV over the causal half, 2·B·H·D FLOP per (query, key)
+    pair each. Returns a dict for the ``bounds`` line."""
+    b, h, length, d = 64, 4, 64, 16
+    moved = 4 * b * h * length * d * 4.0
+    pairs = b * h * length * (length + 1) / 2
+    flops = 2 * 2.0 * d * pairs
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"kernel": "flash_attention_pallas", "shape": [b, h, length, d],
+            "causal": True, "bytes": moved, "flops": flops,
+            "bound_us": max(t_bytes, t_ops) * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def synth_ml20m(scale: float, seed: int = 0):
+    """ML-20M-shaped synthetic ratings: power-law user/item degrees,
+    rank-8 ground truth, sd-0.5 observation noise (a copy of
+    ``bench.py:126-212``'s generator, without its cache)."""
+    rng = np.random.default_rng(seed)
+    n_users = max(64, int(138_000 * min(1.0, scale)))
+    n_items = max(32, int(27_000 * min(1.0, scale)))
+    nnz = int(20_000_000 * scale)
+    u_w = 1.0 / np.arange(1, n_users + 1) ** 0.8
+    i_w = 1.0 / np.arange(1, n_items + 1) ** 0.9
+    users = rng.choice(n_users, size=nnz, p=u_w / u_w.sum()).astype(np.int64)
+    items = rng.choice(n_items, size=nnz, p=i_w / i_w.sum()).astype(np.int64)
+    gt_rank = 8
+    x = rng.normal(size=(n_users, gt_rank)) / np.sqrt(gt_rank)
+    y = rng.normal(size=(n_items, gt_rank)) / np.sqrt(gt_rank)
+    ratings = (
+        (x[users] * y[items]).sum(axis=1) + 3.5 + rng.normal(0, 0.5, nnz)
+    ).astype(np.float32)
+    return users, items, ratings, n_users, n_items
+
+
+def holdout_mask(nnz: int) -> np.ndarray:
+    """bench.py's holdout split (5 %, fixed seed; bench.py:215-220)."""
+    return np.random.default_rng(1).random(nnz) < 0.05
+
+
+@contextlib.contextmanager
+def gc_watch():
+    """Count the interpreter's garbage collections inside the block and
+    the host seconds they took (``gc.callbacks``): how much of a host-side
+    time is the collector's. Yields the dict it fills."""
+    out = {"collections": [0, 0, 0], "seconds": 0.0}
+    started = []
+
+    def callback(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            out["seconds"] += time.perf_counter() - started.pop()
+            out["collections"][info["generation"]] += 1
+
+    gc.callbacks.append(callback)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(callback)
 
 
 def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
@@ -246,6 +369,351 @@ def phase_kernel(torch, dev, rng) -> dict:
     return main
 
 
+def phase_data(torch, dev, seed: int, scale: float = 1.0) -> dict:
+    """The training data, and the staged copy of it that the kernel checks,
+    the profiled iteration and the parity runs use (run_train stages its
+    own)."""
+    from predictionio_tpu_torch.ops import als
+
+    t0 = time.monotonic()
+    users, items, ratings, n_users, n_items = synth_ml20m(scale, seed)
+    test = holdout_mask(len(users))
+    tr = ~test
+    u_tr = users[tr].astype(np.int32)
+    i_tr = items[tr].astype(np.int32)
+    r_tr = ratings[tr]
+    t1 = time.monotonic()
+    by_user = als.bucketize(u_tr, i_tr, r_tr, n_users, n_items)
+    by_item = als.bucketize(i_tr, u_tr, r_tr, n_items, n_users)
+    t2 = time.monotonic()
+    by_user = als.sort_bucket_indices(by_user)
+    by_item = als.sort_bucket_indices(by_item)
+    t3 = time.monotonic()
+    ub, ib = als.stage(by_user, dev), als.stage(by_item, dev)
+    torch.cuda.synchronize()
+    t4 = time.monotonic()
+    emit({
+        "phase": "data",
+        "users": n_users, "items": n_items, "ratings": int(len(users)),
+        "train": int(tr.sum()), "holdout": int(test.sum()),
+        "generate_s": t1 - t0, "bucketize_s": t2 - t1, "sort_s": t3 - t2,
+        "stage_s": t4 - t3,
+        "by_user_buckets": [list(b.idx.shape) for b in ub.buckets],
+        "by_item_buckets": [list(b.idx.shape) for b in ib.buckets],
+        "truncated_rows": {
+            "by_user": int(np.sum(np.bincount(u_tr, minlength=n_users) > 32768)),
+            "by_item": int(np.sum(np.bincount(i_tr, minlength=n_items) > 32768)),
+        },
+    })
+    return {
+        "users": users, "items": items, "ratings": ratings,
+        "n_users": n_users, "n_items": n_items, "train": tr, "test": test,
+        "ub": ub, "ib": ib, "generate_s": t1 - t0,
+    }
+
+
+def _gramian_library(torch, y, idx, w2, rhs):
+    """The library yardstick: the einsum build over the whole gather."""
+    g = y.float()[idx.long()]
+    return (torch.einsum("bkr,bk,bks->brs", g, w2, g),
+            torch.einsum("bkr,bk->br", g, rhs))
+
+
+def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        SPD_MAX_N,
+        gramian_fused,
+        gramian_fused_reference,
+        spd_solve,
+        spd_solve_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = {"gramian_fused": 0.0, "spd_solve": 0.0}
+
+    def check_gramian(case, y, idx, w2, rhs, ridge, yty=None, timed=False,
+                      valid=None):
+        before = gramian_fused.launches
+        a_k, b_k = gramian_fused(y, idx, w2, rhs, ridge, yty)
+        torch.cuda.synchronize()
+        a_p, b_p = gramian_fused_reference(y, idx, w2, rhs, ridge, yty)
+        ok = bool(
+            torch.isfinite(a_k).all() and torch.isfinite(b_k).all()
+            and torch.allclose(a_k, a_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+            and torch.allclose(b_k, b_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        )
+        err = max(float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max()))
+        b, k = idx.shape
+        n, r = y.shape
+        out = {"case": case, "B": b, "K": k, "N": n, "R": r,
+               "dtype": str(y.dtype).split(".")[-1], "yty": yty is not None,
+               "max_abs_err": err, "agree": ok}
+        if timed:
+            out["kernel_ms"] = time_ms(
+                torch, lambda: gramian_fused(y, idx, w2, rhs, ridge, yty), 10, 2)
+            out["plain_ms"] = time_ms(
+                torch, lambda: gramian_fused_reference(y, idx, w2, rhs, ridge, yty), 3, 1)
+            out["library_ms"] = time_ms(
+                torch, lambda: _gramian_library(torch, y, idx, w2, rhs), 3, 1)
+            bound_ms, out["bound_by"] = gramian_bound(
+                b, k, n, r, valid, yty is not None)
+            out["bound_us"] = bound_ms * 1e3
+        out["launches"] = gramian_fused.launches - before
+        emit({"phase": "train_kernels", "kernel": "gramian_fused", **out})
+        if not ok:
+            raise AssertionError(f"gramian_fused disagrees with plain: {out}")
+        worst["gramian_fused"] = max(worst["gramian_fused"], err)
+        return out, (a_k, b_k)
+
+    def check_spd(case, a, b, timed=False, live=None):
+        before = spd_solve.launches
+        x_k = spd_solve(a, b)
+        torch.cuda.synchronize()
+        x_p = spd_solve_reference(a, b)
+        rel = float(((x_k - x_p).norm(dim=1) / x_p.norm(dim=1).clamp_min(1e-30)).max())
+        ok = bool(torch.isfinite(x_k).all()) and rel < KERNEL_TOL
+        err = float((x_k - x_p).abs().max())
+        bsz, n, _ = a.shape
+        out = {"case": case, "B": bsz, "n": n, "max_rel_err": rel,
+               "max_abs_err": err, "agree": ok}
+        if timed:
+            out["kernel_ms"] = time_ms(torch, lambda: spd_solve(a, b), 10, 2)
+            out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 3, 1)
+            out["library_ms"] = time_ms(torch, lambda: torch.cholesky_solve(
+                b[:, :, None], torch.linalg.cholesky(a)), 3, 1)
+            bound_ms, out["bound_by"] = spd_bound(bsz, n)
+            out["bound_us"] = bound_ms * 1e3
+        out["launches"] = spd_solve.launches - before
+        emit({"phase": "train_kernels", "kernel": "spd_solve", **out})
+        if not ok:
+            raise AssertionError(f"spd_solve disagrees with plain: {out}")
+        worst["spd_solve"] = max(worst["spd_solve"], err)
+        return out, x_k
+
+    # every bucket of both sides, as one training iteration launches them
+    tables = {
+        "by_user": als.init_factors(data["n_items"], RANK, seed + 1, dev),
+        "by_item": als.init_factors(data["n_users"], RANK, seed + 2, dev),
+    }
+    per_iter = {name: {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "bound_ms": 0.0, "launches": 0,
+                       "by": {"bytes": 0.0, "operations": 0.0}}
+                for name in ("gramian_fused", "spd_solve")}
+    chunks = {}
+    for side_name, side in (("by_user", data["ub"]), ("by_item", data["ib"])):
+        y = tables[side_name]
+        for bucket in side.buckets:
+            w2, rhs, ridge = als._bucket_system_weights(bucket, False, LAMBDA, 1.0)
+            width = bucket.idx.shape[1]
+            case = f"{side_name}_K{width}"
+            valid = int(bucket.counts.sum())
+            g_out, (a, b) = check_gramian(case, y, bucket.idx, w2, rhs, ridge,
+                                          timed=True, valid=valid)
+            s_out, _ = check_spd(case, a, b, timed=True)
+            for name, out in (("gramian_fused", g_out), ("spd_solve", s_out)):
+                acc = per_iter[name]
+                for key in ("kernel_ms", "plain_ms", "library_ms"):
+                    acc[key] += out[key]
+                acc["bound_ms"] += out["bound_us"] / 1e3
+                acc["launches"] += 1
+                acc["by"][out["bound_by"]] += out["bound_us"] / 1e3
+            chunks[case] = (y, bucket.idx[:64], w2[:64], rhs[:64], ridge[:64])
+            del a, b, w2, rhs, ridge
+    torch.cuda.empty_cache()
+
+    # build edge cases, on real bucket rows
+    y, idx, w2, rhs, ridge = chunks[sorted(chunks)[0]]
+    w2, rhs, ridge = w2.clone(), rhs.clone(), ridge.clone()
+    w2[32:], rhs[32:], ridge[32:] = 0.0, 0.0, 0.0
+    _, (a, b) = check_gramian("zero_weight_rows", y, idx, w2, rhs, ridge)
+    if not (bool((a[32:] == 0).all()) and bool((b[32:] == 0).all())):
+        raise AssertionError("zero-weight rows did not give an exactly-zero system")
+    y, idx, w2, rhs, ridge = chunks[sorted(chunks)[-1]]
+    check_gramian("yty_base", y, idx, w2, rhs, ridge, y.T @ y)
+    check_gramian("bf16_table", y.to(torch.bfloat16), idx, w2, rhs, ridge)
+    y13 = torch.rand((y.shape[0], 13), generator=gen, device=dev)
+    check_gramian("R13", y13, idx, w2, rhs, ridge, y13.T @ y13)
+    check_gramian("K1", y, idx[:, :1].contiguous(), w2[:, :1].contiguous(),
+                  rhs[:, :1].contiguous(), ridge)
+    k = 32768
+    wide_idx = torch.randint(0, y.shape[0], (1, k), generator=gen, device=dev,
+                             dtype=torch.int32)
+    check_gramian("K32768_row", y, wide_idx, torch.ones((1, k), device=dev),
+                  1 + 4 * torch.rand((1, k), generator=gen, device=dev),
+                  torch.full((1,), LAMBDA * k, device=dev))
+
+    # the solve at fixed batch sizes, and its edge cases
+    def spd_systems(bsz, n, k=64):
+        g = torch.randn((bsz, k, n), generator=gen, device=dev)
+        a = torch.bmm(g.transpose(1, 2), g)
+        a += LAMBDA * k * torch.eye(n, device=dev)
+        return a, torch.randn((bsz, n), generator=gen, device=dev)
+
+    for bsz in SPD_BATCHES:
+        check_spd(f"B{bsz}", *spd_systems(bsz, RANK), timed=True)
+    torch.cuda.empty_cache()
+    a, b = spd_systems(256, RANK)
+    a[128:] = 0.0
+    _, x = check_spd("zero_systems", a, b)
+    if not bool((x[128:] == 0).all()):
+        raise AssertionError("all-zero systems did not solve to exact zeros")
+    a, b = spd_systems(256, RANK)
+    dead = [3, 17, 31, 49]
+    a[:, dead, :] = 0.0
+    a[:, :, dead] = 0.0
+    _, x = check_spd("singular_psd", a, b)
+    if not bool((x[:, dead] == 0).all()):
+        raise AssertionError("zero pivots did not give zero components")
+    check_spd(f"n{SPD_MAX_N}_ceiling", *spd_systems(1024, SPD_MAX_N, k=160))
+    try:
+        spd_solve(*spd_systems(2, SPD_MAX_N + 1))
+    except ValueError:
+        emit({"phase": "train_kernels", "kernel": "spd_solve",
+              "case": f"n{SPD_MAX_N + 1}_above_ceiling", "raised": True})
+    else:
+        raise AssertionError("n above the solve kernel's ceiling did not raise")
+    for acc in per_iter.values():
+        # what bounds most of the iteration's bound time
+        acc["bound_ms_by"] = acc.pop("by")
+        acc["by"] = max(acc["bound_ms_by"], key=acc["bound_ms_by"].get)
+    emit({"phase": "train_kernels", "per_iteration": per_iter})
+    return {"per_iteration": per_iter, "max_abs_err": worst}
+
+
+def phase_train(torch, dev, data: dict, registry) -> dict:
+    from predictionio_tpu_torch.controller import (
+        DataSource,
+        Engine,
+        EngineParams,
+        FirstServing,
+    )
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm,
+        ALSAlgorithmParams,
+        RecPreparator,
+        TrainingData,
+    )
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        gramian_fused,
+        gramian_fused_reference,
+        spd_solve,
+        spd_solve_reference,
+    )
+    from predictionio_tpu_torch.storage import BiMap
+    from predictionio_tpu_torch.workflow import WorkflowContext, load_models, run_train
+
+    users, items, ratings = data["users"], data["items"], data["ratings"]
+    tr, test = data["train"], data["test"]
+    n_users, n_items = data["n_users"], data["n_items"]
+    training = TrainingData(
+        users=users[tr].astype(np.int32), items=items[tr].astype(np.int32),
+        ratings=ratings[tr],
+        user_map=BiMap({f"u{i}": i for i in range(n_users)}),
+        item_map=BiMap({f"i{i}": i for i in range(n_items)}),
+    )
+
+    class SmokeDataSource(DataSource):
+        def read_training(self, ctx):
+            return training
+
+    engine = Engine({"": SmokeDataSource}, {"": RecPreparator},
+                    {"als": ALSAlgorithm}, {"": FirstServing})
+    params = ALSAlgorithmParams(rank=RANK, num_iterations=TRAIN_ITERS,
+                                lambda_=LAMBDA, seed=TRAIN_SEED)
+    ctx = WorkflowContext(device=dev)
+    ctx.profile = {}
+    gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+    t0 = time.monotonic()
+    instance_id = run_train(
+        engine, EngineParams(algorithm_params_list=[("als", params)]), registry,
+        ctx=ctx,
+    )
+    wall_s = time.monotonic() - t0
+    launches = {"gramian_fused": gramian_fused.launches,
+                "spd_solve": spd_solve.launches}  # main path ends here
+    prof = ctx.profile
+    per_iter = prof["launches"]
+    if (len(per_iter) != TRAIN_ITERS
+            or any(min(it.values()) < 1 for it in per_iter)
+            or min(launches.values()) < 1):
+        raise AssertionError(f"training did not launch both kernels every "
+                             f"iteration: {launches}, {per_iter}")
+
+    (model,) = load_models(registry, instance_id)
+    factors = als.ALSFactors(torch.from_numpy(model.user_factors).to(dev),
+                             torch.from_numpy(model.item_factors).to(dev), RANK)
+    train_rmse = als.rmse(factors, users[tr], items[tr], ratings[tr])
+    holdout_rmse = als.rmse(factors, users[test], items[test], ratings[test])
+    if not (np.isfinite(model.user_factors).all() and np.isfinite(model.item_factors).all()):
+        raise AssertionError("trained factors are not finite")
+    if not holdout_rmse <= HOLDOUT_GATE:
+        raise AssertionError(f"holdout RMSE {holdout_rmse} above {HOLDOUT_GATE}")
+
+    ub, ib = data["ub"], data["ib"]
+    one = als.ALSConfig(rank=RANK, iterations=1, lambda_=LAMBDA)
+    profiled = device_profile(torch, lambda: als._train_loop(
+        ub, ib, factors.item_factors, one, gramian_fused, spd_solve))
+    profiled.pop("result")
+
+    cfg = als.ALSConfig(rank=RANK, iterations=PARITY_ITERS, lambda_=LAMBDA)
+    y0 = als.init_factors(n_items, RANK, TRAIN_SEED, dev)
+    runs = {}
+    for name, build, solve in (
+        ("kernel", gramian_fused, spd_solve),
+        ("plain", gramian_fused_reference, spd_solve_reference),
+    ):
+        t = time.monotonic()
+        x, y = als._train_loop(ub, ib, y0, cfg, build, solve)
+        torch.cuda.synchronize()
+        f = als.ALSFactors(x, y, RANK)
+        runs[name] = (f, time.monotonic() - t,
+                      als.rmse(f, users[tr], items[tr], ratings[tr]))
+    (fk, kernel_s, rmse_k), (fp, plain_s, rmse_p) = runs["kernel"], runs["plain"]
+    parity = {"iterations": PARITY_ITERS, "kernel_s": kernel_s, "plain_s": plain_s,
+              "train_rmse_kernel": rmse_k, "train_rmse_plain": rmse_p}
+    ok = abs(rmse_k - rmse_p) <= RMSE_TOL
+    degrees = {"user": np.bincount(users[tr], minlength=n_users),
+               "item": np.bincount(items[tr], minlength=n_items)}
+    for name, got, want in (("user", fk.user_factors, fp.user_factors),
+                            ("item", fk.item_factors, fp.item_factors)):
+        diff = (got - want).abs()
+        excess = diff - (FACTOR_ATOL + FACTOR_RTOL * want.abs())
+        worst_row = int(excess.max(dim=1).values.argmax())
+        parity[name] = {
+            "max_abs_diff": float(diff.max()),
+            "rel_norm_diff": float(torch.linalg.norm(got - want) / torch.linalg.norm(want)),
+            "beyond_tol": int((excess > 0).sum()),
+            "entries": int(excess.numel()),
+            "worst_row_ratings": int(degrees[name][worst_row]),
+        }
+        ok = ok and parity[name]["beyond_tol"] == 0
+
+    out = {
+        "phase": "train",
+        "instance": instance_id,
+        "wall_s": wall_s,
+        "host_prep_s": {"generate": data["generate_s"],
+                        "bucketize": prof["bucketize_s"], "sort": prof["sort_s"],
+                        "stage": prof["stage_s"]},
+        "levers": prof["levers"],
+        "iteration_s": prof["iteration_s"],
+        "launches": launches,
+        "launches_per_iteration": per_iter,
+        "flops_per_iteration": prof["flops_per_iteration"],
+        "hbm_bytes_per_iteration": prof["hbm_bytes_per_iteration"],
+        "train_rmse": train_rmse,
+        "holdout_rmse": holdout_rmse,
+        "profiled_iteration": profiled,
+        "parity": parity,
+    }
+    emit(out)
+    if not ok:
+        raise AssertionError(f"kernel and plain training disagree: {parity}")
+    return out
+
+
 def _post_query(port: int, body: dict):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     try:
@@ -268,36 +736,28 @@ def _get_json(port: int, path: str) -> dict:
         conn.close()
 
 
-def phase_slice(torch, dev, seed: int) -> dict:
-    from predictionio_tpu_torch.controller import EngineParams
+def phase_slice(torch, dev, seed: int, registry, instance_id: str) -> dict:
     from predictionio_tpu_torch.models.recommendation import (
         ALSAlgorithm,
         ALSAlgorithmParams,
         Query,
-        als_model_from_numpy,
         engine_factory,
     )
     from predictionio_tpu_torch.ops.cuda_kernels import (
         top_k_streaming,
         top_k_streaming_reference,
     )
-    from predictionio_tpu_torch.storage import StorageRegistry
     from predictionio_tpu_torch.workflow import (
         ServerConfig,
         create_query_server,
-        persist_instance,
+        load_models,
     )
 
     rng = np.random.default_rng(seed)
-    n_users, n_items, rank = N_USERS, N_ITEMS, RANK
     t0 = time.monotonic()
-    model = als_model_from_numpy(
-        rank,
-        0.3 * rng.standard_normal((n_users, rank), dtype=np.float32),
-        0.3 * rng.standard_normal((n_items, rank), dtype=np.float32),
-        [f"u{i}" for i in range(n_users)],
-        [f"i{i}" for i in range(n_items)],
-    )
+    (model,) = load_models(registry, instance_id)  # what run_train wrote
+    rank = model.rank
+    n_users, n_items = model.user_factors.shape[0], model.item_factors.shape[0]
     uf = torch.from_numpy(model.user_factors).to(dev)
     itf = torch.from_numpy(model.item_factors).to(dev)
 
@@ -315,88 +775,85 @@ def phase_slice(torch, dev, seed: int) -> dict:
         close = np.isclose(got_s, want_s[:k], rtol=RTOL, atol=ATOL)
         return bool(close.all() and ((got_i == want_i[:k]) | close).all())
 
-    with tempfile.TemporaryDirectory(prefix="pio_chip_smoke_") as base:
-        registry = StorageRegistry({"PIO_FS_BASEDIR": base})
-        params = ALSAlgorithmParams(rank=rank)  # streaming_top_k "auto"
-        instance_id = persist_instance(
-            registry,
-            EngineParams(algorithm_params_list=[("als", params)]),
-            [model],
-        )
-        setup_s = time.monotonic() - t0
-        server = create_query_server(
-            engine_factory(),
-            ServerConfig(ip="127.0.0.1", port=0, device=dev),
-            registry=registry,
-            block=False,
-        )
-        try:
-            port = server.bound_port
+    setup_s = time.monotonic() - t0
+    server = create_query_server(
+        engine_factory(),
+        ServerConfig(ip="127.0.0.1", port=0, device=dev),
+        registry=registry,
+        block=False,
+    )
+    try:
+        port = server.bound_port
 
-            def burst():
-                """One burst of concurrent queries: (users, bodies,
-                answers, wall seconds)."""
-                users = rng.choice(n_users, size=HTTP_QUERIES - 2, replace=False)
-                bodies = [{"user": f"u{u}", "num": 1 + j % 50}
-                          for j, u in enumerate(users)]
-                bodies += [{"user": "nobody-1", "num": 5},
-                           {"user": "nobody-2", "num": 50}]
-                t_burst = time.monotonic()
-                with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
-                    answers = list(pool.map(lambda b: _post_query(port, b), bodies))
-                return users, bodies, answers, time.monotonic() - t_burst
+        def burst():
+            """One burst of concurrent queries: (users, bodies,
+            answers, wall seconds)."""
+            users = rng.choice(n_users, size=HTTP_QUERIES - 2, replace=False)
+            bodies = [{"user": f"u{u}", "num": 1 + j % 50}
+                      for j, u in enumerate(users)]
+            bodies += [{"user": "nobody-1", "num": 5},
+                       {"user": "nobody-2", "num": 50}]
+            t_burst = time.monotonic()
+            with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+                answers = list(pool.map(lambda b: _post_query(port, b), bodies))
+            return users, bodies, answers, time.monotonic() - t_burst
 
-            def checked(rnd, users, bodies, answers, wall):
-                """Every answer of a burst against the plain version."""
-                want_s, want_i = plain(users.tolist(), 50)
-                bad = []
-                for j, (body, (status, data, _)) in enumerate(zip(bodies, answers)):
-                    if status != 200:
-                        bad.append((body, status, data))
-                    elif j >= len(users):
-                        if data != {"itemScores": []}:
-                            bad.append((body, data))
-                    elif not same_answer(data["itemScores"], want_s[j], want_i[j],
-                                         body["num"]):
-                        bad.append((body, data["itemScores"][:3]))
-                if bad:
-                    raise AssertionError(f"served answers disagree: {bad[:3]}")
-                lat = np.array([a[2] for a in answers]) * 1e3
-                return {
-                    "round": rnd, "queries": len(bodies), "wrong": len(bad),
-                    "p50_ms": float(np.percentile(lat, 50)),
-                    "p99_ms": float(np.percentile(lat, 99)),
-                    "max_ms": float(lat.max()),
-                    "burst_wall_ms": wall * 1e3,
-                }
+        def checked(rnd, users, bodies, answers, wall):
+            """Every answer of a burst against the plain version."""
+            want_s, want_i = plain(users.tolist(), 50)
+            bad = []
+            for j, (body, (status, data, _)) in enumerate(zip(bodies, answers)):
+                if status != 200:
+                    bad.append((body, status, data))
+                elif j >= len(users):
+                    if data != {"itemScores": []}:
+                        bad.append((body, data))
+                elif not same_answer(data["itemScores"], want_s[j], want_i[j],
+                                     body["num"]):
+                    bad.append((body, data["itemScores"][:3]))
+            if bad:
+                raise AssertionError(f"served answers disagree: {bad[:3]}")
+            lat = np.array([a[2] for a in answers]) * 1e3
+            return {
+                "round": rnd, "queries": len(bodies), "wrong": len(bad),
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "max_ms": float(lat.max()),
+                "burst_wall_ms": wall * 1e3,
+            }
 
-            top_k_streaming.launches = 0  # main path starts here
-            rounds = [checked(rnd, *burst()) for rnd in range(HTTP_ROUNDS)]
-            # one more burst, its requests alone under the profiler: where
-            # the time goes; its answers are checked after the profiler
-            profiled = device_profile(torch, burst)
-            rounds.append(checked(HTTP_ROUNDS, *profiled.pop("result")))
-            http_launches = top_k_streaming.launches
-            status = _get_json(port, "/status.json")
-            paths = set((status.get("topkPath") or {}).values())
-            if paths != {"streaming"}:
-                raise AssertionError(f"topkPath {status.get('topkPath')}")
-            if http_launches < 1:
-                raise AssertionError("the HTTP path launched the kernel 0 times")
-        finally:
-            server.shutdown()
-            server.server_close()
+        top_k_streaming.launches = 0  # main path starts here
+        rounds = [checked(rnd, *burst()) for rnd in range(HTTP_ROUNDS)]
+        # one more burst, its requests alone under the profiler: where
+        # the time goes; its answers are checked after the profiler
+        profiled = device_profile(torch, burst)
+        rounds.append(checked(HTTP_ROUNDS, *profiled.pop("result")))
+        http_launches = top_k_streaming.launches
+        status = _get_json(port, "/status.json")
+        paths = set((status.get("topkPath") or {}).values())
+        if paths != {"streaming"}:
+            raise AssertionError(f"topkPath {status.get('topkPath')}")
+        if status.get("engineInstance") != instance_id:
+            raise AssertionError(
+                f"deployed {status.get('engineInstance')}, trained {instance_id}")
+        if http_launches < 1:
+            raise AssertionError("the HTTP path launched the kernel 0 times")
+    finally:
+        server.shutdown()
+        server.server_close()
 
     auto = ALSAlgorithm(ALSAlgorithmParams(rank=rank), device=dev)
     users = rng.choice(n_users, size=1024, replace=False)
     queries = [(j, Query(user=f"u{u}", num=10)) for j, u in enumerate(users)]
     before = top_k_streaming.launches
-    t1 = time.monotonic()
-    results = dict(auto.batch_predict(model, queries))  # attaches the model
-    attach_and_batch_s = time.monotonic() - t1
-    t2 = time.monotonic()
-    again = dict(auto.batch_predict(model, queries))
-    warm_batch_s = time.monotonic() - t2
+    with gc_watch() as first_gc:
+        t1 = time.monotonic()
+        results = dict(auto.batch_predict(model, queries))  # attaches the model
+        attach_and_batch_s = time.monotonic() - t1
+    with gc_watch() as warm_gc:
+        t2 = time.monotonic()
+        again = dict(auto.batch_predict(model, queries))
+        warm_batch_s = time.monotonic() - t2
     direct_launches = top_k_streaming.launches - before
     total_launches = top_k_streaming.launches  # main path ends here
     if auto.topk_path != "streaming" or direct_launches < 1:
@@ -428,7 +885,9 @@ def phase_slice(torch, dev, seed: int) -> dict:
         "direct_batch": {"users": len(users), "topk_path": auto.topk_path,
                          "launches": direct_launches,
                          "attach_and_batch_s": attach_and_batch_s,
-                         "warm_batch_s": warm_batch_s},
+                         "warm_batch_s": warm_batch_s,
+                         "gc": {"first": first_gc, "warm": warm_gc,
+                                "tracked_objects": len(gc.get_objects())}},
         "launches": total_launches,
     }
     emit(out)
@@ -452,14 +911,33 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
-    smi = phase_device(torch)
-    phase_build()
-    main_shapes = phase_kernel(torch, dev, np.random.default_rng(args.seed))
-    sliced = phase_slice(torch, dev, args.seed)
+    from predictionio_tpu_torch.storage import StorageRegistry
+
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.monotonic()
+        out = fn(*a)
+        seconds[name] = time.monotonic() - t0
+        return out
+
+    smi = timed("device", phase_device, torch)
+    timed("build", phase_build)
+    main_shapes = timed("kernel", phase_kernel, torch, dev,
+                        np.random.default_rng(args.seed))
+    data = timed("data", phase_data, torch, dev, args.seed)
+    kernels = timed("train_kernels", phase_train_kernels, torch, dev, data, args.seed)
+    with tempfile.TemporaryDirectory(prefix="pio_chip_smoke_") as base:
+        registry = StorageRegistry({"PIO_FS_BASEDIR": base})
+        trained = timed("train", phase_train, torch, dev, data, registry)
+        sliced = timed("slice", phase_slice, torch, dev, args.seed, registry,
+                       trained["instance"])
+    emit({"phase": "bounds", "not_ported": [flash_attention_bound()]})
+    emit({"phase_seconds": seconds})
 
     ref = main_shapes[1024]
     bound_ms, bound_by = topk_bound(ref["B"], ref["N"], ref["R"], ref["k"])
-    emit({"kernels": [{
+    lines = [{
         "name": "topk_streaming",
         "route": "cuda",
         "source": TOPK_SOURCE,
@@ -472,7 +950,28 @@ def main(argv=None) -> int:
         "bound_by": bound_by,
         "library_ms": ref["library_ms"],
         "shape": {k: ref[k] for k in ("B", "N", "R", "k")},
-    }]})
+    }]
+    for name, source, replaces in (
+        ("gramian_fused", GRAMIAN_SOURCE, GRAMIAN_REPLACES),
+        ("spd_solve", SPD_SOURCE, SPD_REPLACES),
+    ):
+        it = kernels["per_iteration"][name]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": trained["launches"][name],
+            "max_abs_err": kernels["max_abs_err"][name],
+            "ms": it["kernel_ms"],
+            "plain_ms": it["plain_ms"],
+            "bound_ms": it["bound_ms"],
+            "bound_by": it["by"],
+            "library_ms": it["library_ms"],
+            "shape": {"per": "iteration", "launches": it["launches"],
+                      "R": RANK, "users": data["n_users"], "items": data["n_items"]},
+        })
+    emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -1,4 +1,4 @@
-"""DASE controller API of the port (deploy side)."""
+"""DASE controller API of the port."""
 
 from .dase import (
     Algorithm,
@@ -8,8 +8,16 @@ from .dase import (
     Preparator,
     Serving,
     doer,
+    run_sanity_check,
 )
-from .engine import Engine, EngineParams, serialize_engine_params
+from .engine import (
+    Engine,
+    EngineParams,
+    StopAfterPrepareInterruption,
+    StopAfterReadInterruption,
+    WorkflowParams,
+    serialize_engine_params,
+)
 from .params import EmptyParams, Params, ParamsError, extract_params, params_to_json
 
 __all__ = [
@@ -24,8 +32,12 @@ __all__ = [
     "ParamsError",
     "Preparator",
     "Serving",
+    "StopAfterPrepareInterruption",
+    "StopAfterReadInterruption",
+    "WorkflowParams",
     "doer",
     "extract_params",
     "params_to_json",
+    "run_sanity_check",
     "serialize_engine_params",
 ]

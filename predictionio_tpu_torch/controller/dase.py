@@ -1,12 +1,12 @@
-"""DASE component contracts — the deploy side.
+"""DASE component contracts.
 
 Trimmed copy of ``predictionio_tpu/controller/dase.py``: the
-``Controller`` base, the ``doer`` constructor, and the contracts a
-deployed engine exercises (``Algorithm.predict``/``batch_predict``,
-``Serving.serve``/``supplement``, ``FirstServing``). ``DataSource`` and
-``Preparator`` keep only their shape, so engines declare their class maps
-and stored params still parse; training them, persistent-model
-manifests and ``RETRAIN`` wait for the training slice.
+``Controller`` base, the ``doer`` constructor, ``run_sanity_check``, and
+the contracts that training and a deployed engine exercise
+(``DataSource.read_training``, ``Preparator.prepare``,
+``Algorithm.train``/``predict``/``batch_predict``,
+``Serving.serve``/``supplement``, ``FirstServing``). Persistent-model
+manifests, ``RETRAIN`` and evaluation wait (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -21,6 +21,14 @@ PD = TypeVar("PD")  # prepared data
 M = TypeVar("M")  # model
 Q = TypeVar("Q")  # query
 P = TypeVar("P")  # predicted result
+
+
+def run_sanity_check(obj: Any, label: str) -> None:
+    """Invoke ``sanity_check`` if the object opts in (duck-typed, like the
+    reference's ``isInstanceOf[SanityCheck]`` test)."""
+    check = getattr(obj, "sanity_check", None)
+    if callable(check):
+        check()
 
 
 class Controller:

@@ -1,23 +1,47 @@
-"""Engine: DASE class maps and the deploy-time dataflow.
+"""Engine: DASE class maps, the train dataflow and the deploy side.
 
-Trimmed copy of ``predictionio_tpu/controller/engine.py`` — the deploy
-side: ``EngineParams``, component instantiation (``_algorithms``,
-``_serving``), ``prepare_deploy`` and the rebuild of ``EngineParams``
-from a stored engine instance (``Engine.scala:372-425``), plus
-``serialize_engine_params`` to write one. The train and eval dataflows
-wait for the training slice.
+Trimmed copy of ``predictionio_tpu/controller/engine.py``:
+``WorkflowParams``, ``EngineParams``, component instantiation,
+``Engine.train`` (read → sanity → prepare → sanity → train each
+algorithm → sanity, ``Engine.scala:499-586``),
+``make_serializable_models``, ``prepare_deploy`` and the rebuild of
+``EngineParams`` from a stored engine instance
+(``Engine.scala:372-425``), plus ``serialize_engine_params`` to write
+one. The eval dataflow and the per-phase timer wait (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, List, Mapping, Sequence, Tuple, Type, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Type, Union
 
-from .dase import Algorithm, Serving, doer
+from .dase import Algorithm, DataSource, Preparator, Serving, doer, run_sanity_check
 from .params import EmptyParams, Params, ParamsError, extract_params, params_to_json
 
 ClassMap = Dict[str, Type]
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkflowParams:
+    """Per-run workflow knobs (``workflow/WorkflowParams.scala``; CLI
+    flags in ``CreateWorkflow.scala:87-140``)."""
+
+    batch: str = ""
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
+    #: per-run checkpoint cadence (``pio train --checkpoint-every``);
+    #: checkpoint resume is not ported, so a cadence > 0 is refused
+    checkpoint_every: Optional[int] = None
+
+
+class StopAfterReadInterruption(Exception):
+    """``--stop-after-read`` (``Engine.scala:530-536``)."""
+
+
+class StopAfterPrepareInterruption(Exception):
+    """``--stop-after-prepare`` (``Engine.scala:548-554``)."""
 
 
 def _as_class_map(spec: Union[Type, Mapping[str, Type]]) -> ClassMap:
@@ -57,6 +81,18 @@ class Engine:
         self.algorithm_class_map = _as_class_map(algorithm_class_map)
         self.serving_class_map = _as_class_map(serving_class_map)
 
+    def _data_source(self, ep: EngineParams) -> DataSource:
+        name, params = ep.data_source_params
+        if name not in self.data_source_class_map:
+            raise KeyError(f"Unknown datasource name {name!r}")
+        return doer(self.data_source_class_map[name], params)
+
+    def _preparator(self, ep: EngineParams) -> Preparator:
+        name, params = ep.preparator_params
+        if name not in self.preparator_class_map:
+            raise KeyError(f"Unknown preparator name {name!r}")
+        return doer(self.preparator_class_map[name], params)
+
     def _algorithms(self, ep: EngineParams) -> List[Algorithm]:
         algos = []
         for name, params in ep.algorithm_params_list:
@@ -70,6 +106,53 @@ class Engine:
         if name not in self.serving_class_map:
             raise KeyError(f"Unknown serving name {name!r}")
         return doer(self.serving_class_map[name], params)
+
+    def train(
+        self,
+        ctx,
+        engine_params: EngineParams,
+        workflow_params: WorkflowParams = WorkflowParams(),
+    ) -> List[Any]:
+        """Run read → sanity → prepare → sanity → train(each algo) →
+        sanity; returns one trained model per algorithm."""
+        data_source = self._data_source(engine_params)
+        preparator = self._preparator(engine_params)
+        algorithms = self._algorithms(engine_params)
+        try:
+            training_data = data_source.read_training(ctx)
+        except Exception as exc:
+            # Engine.scala:517-524 wraps read errors with a storage hint
+            raise RuntimeError(
+                "Data is incomplete or data source reported an error. "
+                f"(reading training data failed: {exc})"
+            ) from exc
+        if not workflow_params.skip_sanity_check:
+            run_sanity_check(training_data, "training data")
+        if workflow_params.stop_after_read:
+            raise StopAfterReadInterruption()
+
+        prepared_data = preparator.prepare(ctx, training_data)
+        if not workflow_params.skip_sanity_check:
+            run_sanity_check(prepared_data, "prepared data")
+        if workflow_params.stop_after_prepare:
+            raise StopAfterPrepareInterruption()
+
+        models = []
+        for algo in algorithms:
+            model = algo.train(ctx, prepared_data)
+            if not workflow_params.skip_sanity_check:
+                run_sanity_check(model, "model")
+            models.append(model)
+        return models
+
+    def make_serializable_models(
+        self, ctx, engine_params: EngineParams, instance_id: str,
+        models: Sequence[Any],
+    ) -> List[Any]:
+        """The models as the blob stores them (``Engine.scala:254-272``):
+        every model of the port pickles as it is; self-persisting models
+        and ``RETRAIN`` wait (ROADMAP.md)."""
+        return list(models)
 
     def prepare_deploy(
         self,

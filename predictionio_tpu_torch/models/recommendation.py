@@ -1,9 +1,12 @@
-"""Recommendation engine template (ALS) — the serving side, on the card.
+"""Recommendation engine template (ALS) — training and serving on the card.
 
 Counterpart of ``predictionio_tpu/models/recommendation.py``: the same
 query/result types, the same ``ALSAlgorithmParams`` fields (so an engine
-instance written by either package parses in both), ``ALSModel``, and
-``ALSAlgorithm.predict``/``batch_predict`` — one device call per batch
+instance written by either package parses in both), ``TrainingData``,
+``PreparedData``, ``ALSModel``, ``ALSAlgorithm.train`` — single-device
+ALS through :func:`..ops.als.als_train_coo`, whose normal equations are
+built and solved on the card by the hand-written CUDA kernels — and
+``ALSAlgorithm.predict``/``batch_predict``: one device call per batch
 through :func:`..ops.scoring.top_k_for_users_fused`, which on the card
 streams the catalog through the hand-written CUDA top-k kernel.
 
@@ -12,10 +15,12 @@ the model is attached (``prepare_serving`` at deploy, or the first
 query), and stay there; each batch copies only its user indices in and
 its ``[B, k]`` results out, in one copy each way.
 
-Training waits for the port's ALS slice (``ALSAlgorithm.train`` raises).
-Until then a model trained by the JAX package crosses over as arrays:
-:func:`als_model_from_numpy` builds the port's ``ALSModel`` from
-``user_factors``, ``item_factors`` and the two id maps' ``to_dict()``.
+Reading training events waits for the port's event store
+(``RecDataSource.read_training`` raises): a caller hands ``run_train`` a
+DataSource of its own that returns :class:`TrainingData`. A model trained
+by the JAX package crosses over as arrays: :func:`als_model_from_numpy`
+builds the port's ``ALSModel`` from ``user_factors``, ``item_factors``
+and the two id maps' ``to_dict()``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..controller import (
     Preparator,
 )
 from ..device import DeviceLike, resolve_device
+from ..ops.als import ALSConfig, als_train_coo
 from ..ops.scoring import (
     pad_pow2,
     resolve_topk_path,
@@ -46,12 +52,16 @@ from ..ops.scoring import (
 )
 from ..storage import BiMap
 
-#: where training lands in the port's plan (ROADMAP.md, queue 1)
+#: where reading training events lands in the port's plan
 TRAINING_NOT_PORTED = (
-    "ALS training is not ported yet (ROADMAP.md, queue 1 item 1: "
-    "ops/als.py with the spd_solve_t and gramian_fused kernels); train "
-    "with predictionio_tpu and carry the factors over with "
-    "als_model_from_numpy"
+    "reading training events is not ported yet (ROADMAP.md, queue 1: the "
+    "event store, DataSource and infeed); hand run_train a DataSource "
+    "whose read_training returns TrainingData"
+)
+
+QUANT_NOT_PORTED = (
+    "quantized_serving is not ported yet (ROADMAP.md, queue 1); deploy "
+    "with quantized_serving false"
 )
 
 
@@ -78,6 +88,34 @@ class PredictedResult:
         return item_scores_json(self.item_scores)
 
 
+# -- training data ----------------------------------------------------------
+@dataclasses.dataclass
+class TrainingData:
+    """Pre-indexed ratings: dense user/item indices plus the BiMaps that
+    decode them (the JAX package's streamed form, SURVEY §7)."""
+
+    users: np.ndarray  # int32 [nnz]
+    items: np.ndarray  # int32 [nnz]
+    ratings: np.ndarray  # float32 [nnz]
+    user_map: BiMap
+    item_map: BiMap
+
+    def sanity_check(self):
+        if len(self.users) == 0:
+            raise ValueError(
+                "No rating events found; check app id and event names."
+            )
+
+
+@dataclasses.dataclass
+class PreparedData:
+    user_map: BiMap
+    item_map: BiMap
+    users: np.ndarray  # int32 [nnz]
+    items: np.ndarray  # int32 [nnz]
+    ratings: np.ndarray  # float32 [nnz]
+
+
 # -- DASE components --------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class RecDataSourceParams(Params):
@@ -100,16 +138,27 @@ class RecDataSource(DataSource):
 
 
 class RecPreparator(Preparator):
-    def prepare(self, ctx, td):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    """Hands the pre-indexed ratings to the algorithm: a re-shape, not a
+    copy."""
+
+    def prepare(self, ctx, td: TrainingData) -> PreparedData:
+        return PreparedData(
+            user_map=td.user_map,
+            item_map=td.item_map,
+            users=td.users,
+            items=td.items,
+            ratings=td.ratings,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
 class ALSAlgorithmParams(Params):
-    """The JAX package's fields, unchanged. The serving side reads
-    ``streaming_top_k`` (on the card "auto"/"always" stream through the
-    kernel and "never" is refused; see ``use_streaming_topk``) and refuses
-    ``quantized_serving`` (not ported yet); the training fields wait."""
+    """The JAX package's fields, unchanged. Training reads the ALS fields
+    (``ALSConfig.resolve_levers`` says what runs on the device) and
+    refuses ``shards > 1``, ``distributed`` and a checkpoint cadence (not
+    ported yet); serving reads ``streaming_top_k`` (on the card
+    "auto"/"always" stream through the kernel and "never" is refused; see
+    ``use_streaming_topk``) and refuses ``quantized_serving``."""
 
     rank: int = 10
     num_iterations: int = 10
@@ -194,10 +243,10 @@ def _quantized_serving_requested(flag: Optional[bool]) -> bool:
 
 
 class ALSAlgorithm(Algorithm):
-    """ALS serving on the card (``ALSAlgorithm.scala:72-86``).
+    """ALS training and serving on the card (``ALSAlgorithm.scala``).
 
-    ``device`` is where the factor tables live; None takes the deploy
-    context's device at attach time (``cuda:0`` by default)."""
+    ``device`` is where training runs and the factor tables live; None
+    takes the workflow context's device (``cuda:0`` by default)."""
 
     params_class = ALSAlgorithmParams
 
@@ -221,8 +270,55 @@ class ALSAlgorithm(Algorithm):
     def topk_path(self) -> Optional[str]:
         return self._topk_path
 
-    def train(self, ctx, pd) -> ALSModel:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    def train(self, ctx, pd: PreparedData) -> ALSModel:
+        """Single-device ALS on the context's device (``ALSAlgorithm.scala:
+        45-70``). A serving-lever typo or a lever that is not ported fails
+        the training run, not the first query after deploy. Returns the
+        factor tables as numpy arrays with the id maps."""
+        p = self.params
+        device = self.device or (ctx.device if ctx is not None else resolve_device(None))
+        use_streaming_topk(p.streaming_top_k, device)
+        if _quantized_serving_requested(p.quantized_serving):
+            raise NotImplementedError(QUANT_NOT_PORTED)
+        if (p.shards is not None and p.shards > 1) or p.distributed:
+            raise NotImplementedError(
+                "sharded and distributed ALS are not ported yet (ROADMAP.md, "
+                "queue 1: sharded ALS on torch.distributed)"
+            )
+        if p.checkpoint_every:
+            raise NotImplementedError(
+                "checkpointed training is not ported yet (ROADMAP.md, "
+                "queue 1: checkpoint resume in the port's trainer)"
+            )
+        cfg = ALSConfig(
+            rank=p.rank,
+            iterations=p.num_iterations,
+            lambda_=p.lambda_,
+            seed=p.seed,
+            implicit_prefs=p.implicit_prefs,
+            alpha=p.alpha,
+            solve_mode=p.solve_mode,
+            gather_dtype=p.gather_dtype,
+            sort_gather_indices=p.sort_gather_indices,
+            fused_gather=p.fused_gather,
+        )
+        factors = als_train_coo(
+            pd.users,
+            pd.items,
+            pd.ratings,
+            n_users=len(pd.user_map),
+            n_items=len(pd.item_map),
+            cfg=cfg,
+            device=device,
+            profile=getattr(ctx, "profile", None),
+        )
+        return ALSModel(
+            rank=p.rank,
+            user_factors=factors.user_factors.cpu().numpy(),
+            item_factors=factors.item_factors.cpu().numpy(),
+            user_map=pd.user_map,
+            item_map=pd.item_map,
+        )
 
     def prepare_serving(self, model: ALSModel, ctx) -> None:
         """Deploy-time attach: validate the serving levers and move the
@@ -239,10 +335,7 @@ class ALSAlgorithm(Algorithm):
             if cached is not None and cached[0]() is model:
                 return cached[1], cached[2]
             if _quantized_serving_requested(self.params.quantized_serving):
-                raise NotImplementedError(
-                    "quantized_serving is not ported yet (ROADMAP.md, "
-                    "queue 1); deploy with quantized_serving false"
-                )
+                raise NotImplementedError(QUANT_NOT_PORTED)
             if self.device is None:
                 self.device = resolve_device(None)
             # a config typo fails at attach, not mid-serving

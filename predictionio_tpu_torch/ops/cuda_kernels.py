@@ -3,7 +3,10 @@ PyTorch version.
 
 Counterpart of ``predictionio_tpu/ops/pallas_kernels.py`` for the kernels
 ported so far: the streaming top-k (``top_k_streaming``,
-``top_k_for_users_streaming``). A wrapper validates its inputs, then:
+``top_k_for_users_streaming``), the fused gather + Gramian of the ALS
+normal equations (``gramian_fused``) and the batched SPD solve
+(``spd_solve``, with ``spd_solve_t`` in the JAX package's transposed
+layout). A wrapper validates its inputs, then:
 
 - on CPU tensors it runs the plain version (the CPU tests hold that
   against the JAX kernel in interpret mode);
@@ -34,6 +37,26 @@ TOPK_MAX_K = 2048
 TOPK_MAX_ITEMS = 1 << 30
 #: stage 1 tiles queries by 8 on grid.y (at most 65,535 blocks)
 TOPK_MAX_BATCH = 8 * 65535
+
+
+def _configured(name: str, argtypes) -> ctypes.CDLL:
+    """Kernel library ``name`` with its entry point's ctypes signature set
+    (every pointer and the stream as ``c_void_p``, ints as ``c_int``)."""
+    lib = build.load_library(name)
+    if not getattr(lib, "_pio_configured", False):
+        entry = getattr(lib, f"pio_{name}")
+        entry.argtypes = argtypes
+        entry.restype = ctypes.c_int
+        lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.pio_cuda_error_string.restype = ctypes.c_char_p
+        lib._pio_configured = True
+    return lib
+
+
+def _raise_on_error(lib: ctypes.CDLL, name: str, code: int) -> None:
+    if code != 0:
+        msg = lib.pio_cuda_error_string(code).decode(errors="replace")
+        raise build.KernelLaunchError(f"{name} launch failed: {msg}")
 
 
 def _check_topk_inputs(query_vectors, item_factors, k, exclude_idx) -> None:
@@ -170,7 +193,8 @@ def top_k_streaming(
     cand_i = torch.empty((b, n_tiles, kt), dtype=torch.int32, device=device)
     out_s = torch.empty((b, k_eff), dtype=torch.float32, device=device)
     out_i = torch.empty((b, k_eff), dtype=torch.int32, device=device)
-    lib = _topk_library()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = _configured("topk_streaming", [p, p, p, i, i, i, i, i, i, i, p, p, p, p, p])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.pio_topk_streaming(
@@ -181,28 +205,12 @@ def top_k_streaming(
             out_s.data_ptr(), out_i.data_ptr(), stream,
         )
     top_k_streaming.launches += 1
-    if code != 0:
-        msg = lib.pio_cuda_error_string(code).decode(errors="replace")
-        raise build.KernelLaunchError(f"topk_streaming launch failed: {msg}")
+    _raise_on_error(lib, "topk_streaming", code)
     return _pad_k(out_s, out_i, k)
 
 
 #: kernel launches since the count was last reset (CUDA tensors only)
 top_k_streaming.launches = 0
-
-
-def _topk_library() -> ctypes.CDLL:
-    lib = build.load_library("topk_streaming")
-    if not getattr(lib, "_pio_configured", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pio_topk_streaming.argtypes = [
-            p, p, p, i, i, i, i, i, i, i, p, p, p, p, p,
-        ]
-        lib.pio_topk_streaming.restype = ctypes.c_int
-        lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.pio_cuda_error_string.restype = ctypes.c_char_p
-        lib._pio_configured = True
-    return lib
 
 
 def top_k_for_users_streaming(
@@ -217,3 +225,234 @@ def top_k_for_users_streaming(
         user_factors[user_idx.long()].contiguous(), item_factors, k,
         exclude_idx,
     )
+
+
+def _check_tensor(name, t, dims, dtypes, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dim() != dims:
+        raise ValueError(f"{name} must be {dims}-D, got shape {tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+
+
+# -- fused gather + Gramian (csrc/gramian_fused.cu) --------------------------
+#: the kernel's ceiling on the rank R (kMaxR); above it the wrapper raises
+GRAMIAN_MAX_RANK = 128
+#: the plain version gathers at most this many floats ([rows, K, R]) at once
+_PLAIN_GATHER_FLOATS = 1 << 24
+
+
+def _check_gramian_inputs(y, idx, w2, rhs, ridge, yty) -> None:
+    device = y.device if isinstance(y, torch.Tensor) else None
+    _check_tensor("y", y, 2, (torch.float32, torch.bfloat16), device)
+    _check_tensor("idx", idx, 2, (torch.int32,), device)
+    b, k = idx.shape
+    r = y.shape[1]
+    for name, t in (("w2", w2), ("rhs", rhs)):
+        _check_tensor(name, t, 2, (torch.float32,), device)
+        if t.shape != idx.shape:
+            raise ValueError(f"{name} must be [B, K] = {tuple(idx.shape)}, got {tuple(t.shape)}")
+    _check_tensor("ridge", ridge, 1, (torch.float32,), device)
+    if ridge.shape[0] != b:
+        raise ValueError(f"ridge must be [B] = [{b}], got {tuple(ridge.shape)}")
+    if yty is not None:
+        _check_tensor("yty", yty, 2, (torch.float32,), device)
+        if tuple(yty.shape) != (r, r):
+            raise ValueError(f"yty must be [R, R] = [{r}, {r}], got {tuple(yty.shape)}")
+    if r < 1 or y.shape[0] < 1:
+        raise ValueError(f"the factor table y is empty: {tuple(y.shape)}")
+
+
+def gramian_fused_reference(
+    y: torch.Tensor,  # [N, R] f32 (or bf16, upcast)
+    idx: torch.Tensor,  # [B, K] int32
+    w2: torch.Tensor,  # [B, K] f32
+    rhs: torch.Tensor,  # [B, K] f32
+    ridge: torch.Tensor,  # [B] f32
+    yty: Optional[torch.Tensor] = None,  # [R, R] f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the fused build, on any device:
+    gather ``y[idx]`` and contract with einsum, a block of rows at a
+    time so the ``[rows, K, R]`` gather stays bounded. Same contract as
+    the kernel (``A`` [B, R, R], ``b`` [B, R], f32; a slot with both
+    weights 0 contributes nothing, whatever its row holds)."""
+    _check_gramian_inputs(y, idx, w2, rhs, ridge, yty)
+    y = y.float()
+    b, k = idx.shape
+    r = y.shape[1]
+    a_out = torch.empty((b, r, r), dtype=torch.float32, device=y.device)
+    b_out = torch.empty((b, r), dtype=torch.float32, device=y.device)
+    step = max(1, _PLAIN_GATHER_FLOATS // max(1, k * r))
+    for s in range(0, b, step):
+        g = y[idx[s:s + step].long()]  # [rows, K, R]
+        # a slot whose weights are both 0 reads no row, as in the kernel
+        dead = (w2[s:s + step] == 0) & (rhs[s:s + step] == 0)
+        g.masked_fill_(dead[..., None], 0.0)
+        a_out[s:s + step] = torch.einsum("bkr,bk,bks->brs", g, w2[s:s + step], g)
+        b_out[s:s + step] = torch.einsum("bkr,bk->br", g, rhs[s:s + step])
+    a_out += ridge[:, None, None] * torch.eye(r, device=y.device)
+    if yty is not None:
+        a_out += yty
+    return a_out, b_out
+
+
+def gramian_fused(
+    y: torch.Tensor,  # [N, R] f32 or bf16 — opposite-side factor table
+    idx: torch.Tensor,  # [B, K] int32 — factor-row index per rating
+    w2: torch.Tensor,  # [B, K] f32 — Gramian weight (mask, or c-1 implicit)
+    rhs: torch.Tensor,  # [B, K] f32 — rhs weight (masked rating / c·p)
+    ridge: torch.Tensor,  # [B] f32 — per-row diagonal ridge (λ·n_u)
+    yty: Optional[torch.Tensor] = None,  # [R, R] f32 — implicit-mode base
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused normal-equation build: ``(A [B, R, R], b [B, R])`` with
+    ``A_b = yty + ridge_b·I + Σ_k w2[b,k]·y[idx[b,k]]⊗y[idx[b,k]]`` and
+    ``b_b = Σ_k rhs[b,k]·y[idx[b,k]]``, without a ``[B, K, R]`` gather in
+    device memory.
+
+    The counterpart of ``pallas_kernels.gramian_fused`` (same padding
+    contract: a slot with ``w2 = rhs = 0`` contributes nothing), without
+    its R % 8 rule, lane padding or K split. A bf16 table is upcast to
+    f32 first, as the TPU kernel does. CUDA tensors launch
+    ``csrc/gramian_fused.cu``; CPU tensors run
+    :func:`gramian_fused_reference`. Raises for R past
+    :data:`GRAMIAN_MAX_RANK`."""
+    _check_gramian_inputs(y, idx, w2, rhs, ridge, yty)
+    # the kernel's limit holds on every device, so a CPU run refuses what
+    # the card would
+    if y.shape[1] > GRAMIAN_MAX_RANK:
+        raise ValueError(
+            f"rank {y.shape[1]} exceeds the gramian_fused kernel's ceiling "
+            f"{GRAMIAN_MAX_RANK}"
+        )
+    device = y.device
+    if device.type == "cpu":
+        return gramian_fused_reference(y, idx, w2, rhs, ridge, yty)
+    if device.type != "cuda":
+        raise ValueError(f"gramian_fused runs on cuda or cpu, not {device}")
+    y = y.float().contiguous()
+    b, k = idx.shape
+    n, r = y.shape
+    a_out = torch.empty((b, r, r), dtype=torch.float32, device=device)
+    b_out = torch.empty((b, r), dtype=torch.float32, device=device)
+    if b == 0:
+        return a_out, b_out
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = _configured("gramian_fused", [p, p, p, p, p, p, i, i, i, i, p, p, p])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.pio_gramian_fused(
+            y.data_ptr(), idx.data_ptr(), w2.data_ptr(), rhs.data_ptr(),
+            ridge.data_ptr(), None if yty is None else yty.data_ptr(),
+            b, k, n, r, a_out.data_ptr(), b_out.data_ptr(), stream,
+        )
+    gramian_fused.launches += 1
+    _raise_on_error(lib, "gramian_fused", code)
+    return a_out, b_out
+
+
+#: kernel launches since the count was last reset (CUDA tensors only)
+gramian_fused.launches = 0
+
+
+# -- batched SPD solve (csrc/spd_solve.cu) -----------------------------------
+#: the kernel's ceiling on the system size n (kMaxN: one system per warp
+#: in shared memory, 66 KB at n = 128); above it the wrapper raises
+SPD_MAX_N = 128
+
+
+def _check_spd_inputs(a, b) -> None:
+    device = a.device if isinstance(a, torch.Tensor) else None
+    _check_tensor("a", a, 3, (torch.float32,), device)
+    _check_tensor("b", b, 2, (torch.float32,), device)
+    bsz, n, n2 = a.shape
+    if n != n2 or tuple(b.shape) != (bsz, n):
+        raise ValueError(
+            f"spd_solve needs a [B, n, n] and b [B, n], got {tuple(a.shape)} "
+            f"and {tuple(b.shape)}"
+        )
+    if n < 1:
+        raise ValueError("spd_solve needs n >= 1")
+
+
+def spd_solve_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the batched SPD solve, on any device:
+    the TPU kernel's right-looking Cholesky loop over batched tensor ops
+    (the whole block updated each step, as ``_spd_kernel`` does), with
+    forward substitution interleaved and the same zero-pivot guard, then
+    back substitution. Not ``torch.linalg.cholesky``, which fails on the
+    all-zero padding systems that must solve to exactly 0."""
+    _check_spd_inputs(a, b)
+    a = a.clone()
+    y = b.clone()
+    n = a.shape[-1]
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    for j in range(n):
+        colj = a[:, j, :].clone()  # row j = column j of the trailing block
+        d2 = colj[:, j]
+        inv_d = torch.where(d2 > 0, torch.rsqrt(d2), zero)
+        lj = colj * inv_d[:, None]
+        ljm = lj - eye[j]
+        a -= ljm[:, :, None] * lj[:, None, :]
+        y -= ljm * (y[:, j] * inv_d)[:, None]
+    x = torch.zeros_like(y)
+    for j in range(n - 1, -1, -1):
+        lrow = a[:, j, :]
+        d = lrow[:, j]
+        inv = torch.where(d > 0, 1.0 / d, zero)
+        dot = (lrow * x).sum(dim=1)  # x[:, j] is still 0 here
+        x[:, j] = (y[:, j] - dot) * inv
+    return x
+
+
+def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve ``a[s] x[s] = b[s]`` for ``a [B, n, n]``,
+    ``b [B, n]`` (f32, batch-major: the layout :func:`gramian_fused`
+    writes). An all-zero system solves to exactly 0; a zero pivot gives a
+    zero component. Any B and n up to :data:`SPD_MAX_N`. CUDA tensors
+    launch ``csrc/spd_solve.cu``; CPU tensors run
+    :func:`spd_solve_reference`."""
+    _check_spd_inputs(a, b)
+    if a.shape[-1] > SPD_MAX_N:
+        raise ValueError(
+            f"system size {a.shape[-1]} exceeds the spd_solve kernel's "
+            f"ceiling {SPD_MAX_N}"
+        )
+    device = a.device
+    if device.type == "cpu":
+        return spd_solve_reference(a, b)
+    if device.type != "cuda":
+        raise ValueError(f"spd_solve runs on cuda or cpu, not {device}")
+    bsz, n, _ = a.shape
+    x = torch.empty((bsz, n), dtype=torch.float32, device=device)
+    if bsz == 0:
+        return x
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = _configured("spd_solve", [p, p, p, i, i, p])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.pio_spd_solve(a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, n, stream)
+    spd_solve.launches += 1
+    _raise_on_error(lib, "spd_solve", code)
+    return x
+
+
+#: kernel launches since the count was last reset (CUDA tensors only)
+spd_solve.launches = 0
+
+
+def spd_solve_t(a_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """``spd_solve`` in the JAX package's transposed layout (``a_t
+    [n, n, B]``, ``b_t [n, B]`` → ``x_t [n, B]``), the counterpart of
+    ``pallas_kernels.spd_solve_t`` without its n % 8 and B % 128 rules."""
+    if not isinstance(a_t, torch.Tensor) or a_t.dim() != 3:
+        raise ValueError("spd_solve_t needs a_t [n, n, B]")
+    if not isinstance(b_t, torch.Tensor) or b_t.dim() != 2:
+        raise ValueError("spd_solve_t needs b_t [n, B]")
+    x = spd_solve(a_t.permute(2, 0, 1).contiguous(), b_t.T.contiguous())
+    return x.T.contiguous()

@@ -1,8 +1,8 @@
-"""Workflow runtime of the port: context, model persistence, the
-micro-batcher and the query server (deploy side)."""
+"""Workflow runtime of the port: context, the train workflow, model
+persistence, the micro-batcher and the query server."""
 
 from .context import WorkflowContext, pio_env_vars
-from .core_workflow import ForeignModelError, load_models, persist_instance
+from .core_workflow import ForeignModelError, load_models, persist_instance, run_train
 from .serving import (
     Deployment,
     QueryServer,
@@ -22,4 +22,5 @@ __all__ = [
     "persist_instance",
     "pio_env_vars",
     "prepare_deployment",
+    "run_train",
 ]

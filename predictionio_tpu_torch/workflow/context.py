@@ -36,6 +36,10 @@ class WorkflowContext:
         self.env = dict(executor_env if executor_env is not None else pio_env_vars())
         #: where this run's tensors live (``cuda:0`` unless asked otherwise)
         self.device = resolve_device(device)
+        #: set to a dict to have the trainer record its timings in it
+        #: (host prep, synchronised per-iteration seconds, kernel launches;
+        #: see ``ops.als.als_train``)
+        self.profile: Optional[dict] = None
 
     @property
     def app_name(self) -> str:

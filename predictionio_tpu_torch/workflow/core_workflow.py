@@ -1,12 +1,13 @@
-"""Model persistence for deployment.
+"""The train workflow and model persistence for deployment.
 
-Counterpart of ``predictionio_tpu/workflow/core_workflow.py``, deploy
-side: :func:`load_models` reads an engine instance's pickled model list,
-and :func:`persist_instance` writes one as a COMPLETED instance (the
-persistence tail of ``run_train``, used to deploy models whose weights
-were carried over from the JAX package — see
-``models.recommendation.als_model_from_numpy``). Training and
-evaluation runs wait for the training slice.
+Counterpart of ``predictionio_tpu/workflow/core_workflow.py``:
+:func:`run_train` trains an engine on the run's device and stores it as
+an engine instance (INIT → models → COMPLETED); :func:`load_models`
+reads an instance's pickled model list; :func:`persist_instance` writes
+models trained elsewhere (weights carried over from the JAX package, see
+``models.recommendation.als_model_from_numpy``) as a COMPLETED instance.
+Evaluation runs, the perf-ledger append, device traces and checkpoint
+directories wait (ROADMAP.md).
 
 A blob pickled by the JAX package names ``predictionio_tpu.`` classes,
 and unpickling it would import jax; :func:`load_models` refuses such a
@@ -18,10 +19,18 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import json
+import logging
 import pickle
-from typing import Any, List, Sequence
+import time
+from typing import Any, List, Optional, Sequence
 
-from ..controller.engine import EngineParams, serialize_engine_params
+from ..controller.engine import (
+    Engine,
+    EngineParams,
+    WorkflowParams,
+    serialize_engine_params,
+)
 from ..storage import (
     STATUS_COMPLETED,
     Model,
@@ -29,7 +38,12 @@ from ..storage import (
     new_engine_instance,
     utcnow,
 )
-from .context import pio_env_vars
+from .context import WorkflowContext, pio_env_vars
+
+logger = logging.getLogger(__name__)
+
+#: instance-env key of the run's profile (the JAX package's key and JSON)
+TRAIN_PROFILE_ENV_KEY = "PIO_TRAIN_PROFILE"
 
 #: top-level modules a port model blob may never load: the JAX package
 #: (its classes import jax) and jax itself
@@ -94,3 +108,67 @@ def persist_instance(
         dataclasses.replace(stored, status=STATUS_COMPLETED, end_time=utcnow())
     )
     return instance_id
+
+
+def run_train(
+    engine: Engine,
+    engine_params: EngineParams,
+    registry: StorageRegistry,
+    engine_id: str = "default",
+    engine_version: str = "1",
+    engine_variant: str = "engine.json",
+    engine_factory: str = "",
+    workflow_params: WorkflowParams = WorkflowParams(),
+    ctx: Optional[WorkflowContext] = None,
+) -> str:
+    """Train and persist; returns the engine instance id
+    (``CoreWorkflow.runTrain``, ``CoreWorkflow.scala:43-93``).
+
+    The context (default: a training context on ``cuda:0``, which raises
+    where there is no CUDA) is resolved before the instance row is
+    written. The row goes in as INIT, the models are trained
+    (``Engine.train``) and pickled into the model store, and the row
+    flips to COMPLETED with ``train_wall_s`` in its env. An interrupted
+    run leaves the INIT row behind (``CoreWorkflow.scala:83-88``)."""
+    if workflow_params.checkpoint_every:
+        raise NotImplementedError(
+            "checkpointed training is not ported yet (ROADMAP.md, queue 1: "
+            "checkpoint resume in the port's trainer)"
+        )
+    ctx = ctx or WorkflowContext(mode="Training", batch=workflow_params.batch)
+    md = registry.get_metadata()
+    instance = new_engine_instance(
+        engine_id=engine_id,
+        engine_version=engine_version,
+        engine_variant=engine_variant,
+        engine_factory=engine_factory,
+        batch=workflow_params.batch,
+        env=pio_env_vars(),
+        **serialize_engine_params(engine_params),
+    )
+    instance_id = md.engine_instance_insert(instance)
+    try:
+        t0 = time.monotonic()
+        models = engine.train(ctx, engine_params, workflow_params)
+        train_wall_s = time.monotonic() - t0
+        persisted = engine.make_serializable_models(
+            ctx, engine_params, instance_id, models
+        )
+        registry.get_models().insert(
+            Model(id=instance_id, models=pickle.dumps(persisted))
+        )
+        stored = md.engine_instance_get(instance_id)
+        env = dict(stored.env)
+        env[TRAIN_PROFILE_ENV_KEY] = json.dumps(
+            {"train_wall_s": round(train_wall_s, 3)}, sort_keys=True
+        )
+        md.engine_instance_update(
+            dataclasses.replace(
+                stored, status=STATUS_COMPLETED, end_time=utcnow(), env=env
+            )
+        )
+        logger.info("Training completed; engine instance %s", instance_id)
+        return instance_id
+    except KeyboardInterrupt:
+        logger.warning("Training interrupted; instance %s stays INIT", instance_id)
+        raise

@@ -101,20 +101,36 @@ def test_cpu_tensors_never_count_a_kernel_launch():
 
 
 def test_build_command_targets_sm90a_from_repo_sources():
-    cmd = build.build_command("topk_streaming", "out.so")
-    text = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in text
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    assert cmd[-1] == str(PORT / "kernels" / "csrc" / "topk_streaming.cu")
-    assert build.kernel_names() == ["topk_streaming"]
-    lib = pathlib.Path(build.library_path("topk_streaming"))
-    assert lib.parent == PORT / "kernels" / "_build"
+    sources = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
+    assert build.kernel_names() == [p.stem for p in sources] == [
+        "gramian_fused", "spd_solve", "topk_streaming"]
+    for src in sources:
+        cmd = build.build_command(src.stem, "out.so")
+        text = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in text
+        for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+            assert flag in cmd
+        assert cmd[-1] == str(src)
+        lib = pathlib.Path(build.library_path(src.stem))
+        assert lib.parent == PORT / "kernels" / "_build"
+        # a plain C entry returning the CUDA error code, and no PyTorch headers
+        text = src.read_text()
+        assert f'extern "C" int pio_{src.stem}(' in text
+        assert "torch/" not in text
     assert "predictionio_tpu_torch/kernels/_build/" in (REPO / ".gitignore").read_text()
 
 
-def test_kernel_source_names_what_it_replaces_and_its_ceiling():
-    src = (PORT / "kernels" / "csrc" / "topk_streaming.cu").read_text()
-    assert "pallas_kernels.py::_topk_kernel" in src
-    assert f"constexpr int kMaxK = {cuda_kernels.TOPK_MAX_K};" in src
-    assert f"constexpr int kTileItems = {cuda_kernels.TOPK_TILE_ITEMS};" in src
+@pytest.mark.parametrize("name,replaces,constants", [
+    ("topk_streaming", "pallas_kernels.py::_topk_kernel",
+     {"kMaxK": cuda_kernels.TOPK_MAX_K, "kTileItems": cuda_kernels.TOPK_TILE_ITEMS}),
+    ("gramian_fused", "pallas_kernels.py::_gramian_kernel",
+     {"kMaxR": cuda_kernels.GRAMIAN_MAX_RANK}),
+    ("spd_solve", "pallas_kernels.py::_spd_kernel",
+     {"kMaxN": cuda_kernels.SPD_MAX_N}),
+])
+def test_kernel_source_names_what_it_replaces_and_its_ceiling(name, replaces, constants):
+    src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+    assert replaces in src
+    assert "Bound at the" in src
+    for const, value in constants.items():
+        assert f"constexpr int {const} = {value};" in src

@@ -37,6 +37,7 @@ from predictionio_tpu_torch.models.recommendation import (
     ALSAlgorithm,
     ALSAlgorithmParams,
     Query,
+    RecDataSource,
     als_model_from_numpy,
     engine_factory,
 )
@@ -153,7 +154,11 @@ def test_algorithm_params_keep_the_jax_fields():
 
 
 def test_training_and_quantized_serving_are_refused(jax_model):
-    algo = ALSAlgorithm(ALSAlgorithmParams(rank=RANK), device="cpu")
+    """Training runs in the port now (tests/test_torch_train.py); what is
+    still refused is reading training events and the unported levers."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RecDataSource().read_training(None)
+    algo = ALSAlgorithm(ALSAlgorithmParams(rank=RANK, shards=2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         algo.train(None, None)
     quant = ALSAlgorithm(
