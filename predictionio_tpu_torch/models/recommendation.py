@@ -29,7 +29,7 @@ import dataclasses
 import os
 import threading
 import weakref
-from typing import List, Mapping, Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +50,7 @@ from ..ops.scoring import (
     top_k_for_users_fused,
     use_streaming_topk,
 )
-from ..storage import BiMap
+from ..storage import BiMap, IdsLike
 
 #: where reading training events lands in the port's plan
 TRAINING_NOT_PORTED = (
@@ -192,21 +192,6 @@ class ALSModel:
     item_map: BiMap
 
 
-IdsLike = Union[Mapping[str, int], Sequence[str]]
-
-
-def _as_bimap(ids: IdsLike, rows: int, what: str) -> BiMap:
-    mapping = dict(ids) if isinstance(ids, Mapping) else {
-        k: i for i, k in enumerate(ids)
-    }
-    if sorted(mapping.values()) != list(range(rows)):
-        raise ValueError(
-            f"{what} ids must map onto rows 0..{rows - 1} exactly once "
-            f"(got {len(mapping)} ids for {rows} rows)"
-        )
-    return BiMap(mapping)
-
-
 def als_model_from_numpy(
     rank: int,
     user_factors,
@@ -229,8 +214,8 @@ def als_model_from_numpy(
         rank=rank,
         user_factors=uf,
         item_factors=itf,
-        user_map=_as_bimap(user_ids, uf.shape[0], "user"),
-        item_map=_as_bimap(item_ids, itf.shape[0], "item"),
+        user_map=BiMap.from_ids(user_ids, uf.shape[0], "user"),
+        item_map=BiMap.from_ids(item_ids, itf.shape[0], "item"),
     )
 
 

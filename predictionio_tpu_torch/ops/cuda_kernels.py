@@ -2,11 +2,13 @@
 PyTorch version.
 
 Counterpart of ``predictionio_tpu/ops/pallas_kernels.py`` for the kernels
-ported so far: the streaming top-k (``top_k_streaming``,
+ported: the streaming top-k (``top_k_streaming``,
 ``top_k_for_users_streaming``), the fused gather + Gramian of the ALS
-normal equations (``gramian_fused``) and the batched SPD solve
+normal equations (``gramian_fused``), the batched SPD solve
 (``spd_solve``, with ``spd_solve_t`` in the JAX package's transposed
-layout). A wrapper validates its inputs, then:
+layout) and the flash-attention forward (``flash_attention_fwd``, the
+counterpart of ``ops/attention.py``'s Pallas kernel). A wrapper
+validates its inputs, then:
 
 - on CPU tensors it runs the plain version (the CPU tests hold that
   against the JAX kernel in interpret mode);
@@ -19,6 +21,7 @@ layout). A wrapper validates its inputs, then:
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -456,3 +459,106 @@ def spd_solve_t(a_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
         raise ValueError("spd_solve_t needs b_t [n, B]")
     x = spd_solve(a_t.permute(2, 0, 1).contiguous(), b_t.T.contiguous())
     return x.T.contiguous()
+
+
+# -- flash attention forward (csrc/flash_attention.cu) ------------------------
+#: query rows per block and keys per K/V tile of the kernel (kTile); the
+#: plain version walks the keys in tiles of the same width
+FLASH_TILE = 64
+#: the kernel's ceiling on the head width D (kMaxD); D must also be a
+#: multiple of FLASH_D_MULTIPLE
+FLASH_MAX_D = 128
+FLASH_D_MULTIPLE = 8
+#: query tiles go on grid.y (at most 65,535 of them)
+FLASH_MAX_Q_TILES = 65535
+#: the finite mask value of the TPU kernel (keeps fully masked rows NaN-free)
+FLASH_NEG_BIG = -1e30
+
+#: the serving path calls the wrapper from several batch threads at once
+_flash_launch_lock = threading.Lock()
+
+
+def _check_flash_inputs(q, k, v) -> None:
+    device = q.device if isinstance(q, torch.Tensor) else None
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_tensor(name, t, 4, (torch.float32,), device)
+    b, h, _, d = q.shape
+    if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape:
+        raise ValueError(
+            f"flash attention needs q [B, H, Lq, D] and k, v [B, H, Lk, D], "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if d % FLASH_D_MULTIPLE or not FLASH_D_MULTIPLE <= d <= FLASH_MAX_D:
+        raise ValueError(
+            f"head width D = {d}: the flash-attention kernel takes a multiple "
+            f"of {FLASH_D_MULTIPLE} from {FLASH_D_MULTIPLE} to {FLASH_MAX_D}"
+        )
+    if k.shape[2] < 1:
+        raise ValueError("flash attention needs at least one key")
+
+
+def flash_attention_fwd_reference(
+    q: torch.Tensor,  # [B, H, Lq, D] f32
+    k: torch.Tensor,  # [B, H, Lk, D] f32
+    v: torch.Tensor,  # [B, H, Lk, D] f32
+    causal: bool,
+) -> torch.Tensor:
+    """The plain PyTorch version of the flash-attention kernel, on any
+    device: ``attention.flash_attention`` with the kernel's arithmetic —
+    q scaled by 1/sqrt(D) before the dot, keys walked in ascending tiles
+    of :data:`FLASH_TILE` with the online softmax, the causal rule
+    ``q_pos >= k_pos`` from 0 as a finite -1e30 mask, ``o / max(l,
+    1e-30)``. It does not skip the tiles above the diagonal: once tile 0
+    has made the running max a real score, a fully masked tile adds
+    exactly 0 to l and o, so skipping changes no bit."""
+    from .attention import flash_attention  # that module imports this one
+
+    _check_flash_inputs(q, k, v)
+    return flash_attention(q, k, v, causal=causal, block_k=FLASH_TILE, prescale_q=True)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,  # [B, H, Lq, D] f32, contiguous
+    k: torch.Tensor,  # [B, H, Lk, D] f32, contiguous
+    v: torch.Tensor,  # [B, H, Lk, D] f32, contiguous
+    causal: bool,
+) -> torch.Tensor:
+    """Flash-attention forward ``o [B, H, Lq, D] = softmax(q kᵀ/√D,
+    masked) v`` without an ``[Lq, Lk]`` score matrix in device memory.
+
+    The counterpart of ``attention.py``'s ``_flash_pallas_call`` (same
+    rules: causal ``q_pos >= k_pos`` counted from 0, finite -1e30 mask,
+    ``o / max(l, 1e-30)``, causal tiles above the diagonal skipped),
+    without its host-side padding. CUDA tensors launch
+    ``csrc/flash_attention.cu``; CPU tensors run
+    :func:`flash_attention_fwd_reference`. Raises for a head width the
+    kernel does not take (see :data:`FLASH_MAX_D`), on either device."""
+    _check_flash_inputs(q, k, v)
+    device = q.device
+    if device.type == "cpu":
+        return flash_attention_fwd_reference(q, k, v, causal)
+    if device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {device}")
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    out = torch.empty_like(q)
+    if b * h == 0 or lq == 0:
+        return out
+    if -(-lq // FLASH_TILE) > FLASH_MAX_Q_TILES or b * h > 2**31 - 1:
+        raise ValueError(f"flash attention shape {tuple(q.shape)} is past the grid's limits")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = _configured("flash_attention", [p, p, p, p, i, i, i, i, i, p])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.pio_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b * h, lq, lk, d, int(bool(causal)), stream,
+        )
+    with _flash_launch_lock:
+        flash_attention_fwd.launches += 1
+    _raise_on_error(lib, "flash_attention", code)
+    return out
+
+
+#: kernel launches since the count was last reset (CUDA tensors only)
+flash_attention_fwd.launches = 0

@@ -1,7 +1,7 @@
 """Storage plane of the port: id maps, engine-instance metadata, model
 blobs and the environment-driven registry (deploy side only)."""
 
-from .bimap import BiMap
+from .bimap import BiMap, IdsLike
 from .metadata import (
     STATUS_COMPLETED,
     STATUS_EVALCOMPLETED,
@@ -19,6 +19,7 @@ from .registry import StorageError, StorageRegistry, base_dir, get_registry
 __all__ = [
     "BiMap",
     "EngineInstance",
+    "IdsLike",
     "LocalFSModelStore",
     "MetadataStore",
     "Model",

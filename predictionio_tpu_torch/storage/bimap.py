@@ -1,18 +1,23 @@
 """Bidirectional ID ↔ index map.
 
 Trimmed copy of ``predictionio_tpu/storage/bimap.py`` (``BiMap``, with
-the accessors serving uses; ``HashedIdMap``, ``EntityMap`` and the
-vectorized constructors wait): the boundary between host-side
+the accessors serving uses, the ``string_int`` constructor the
+sequence recommender indexes its items with and ``from_ids``, which the
+weight carries build their id maps with; ``HashedIdMap``, ``EntityMap``
+and the vectorized constructors wait): the boundary between host-side
 string ids and the device's dense indices — the forward map turns a
 query's user id into a factor row, the inverse decodes top-k indices.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Generic, Mapping, Optional, TypeVar
+from typing import Dict, Generic, Iterable, Mapping, Optional, Sequence, TypeVar, Union
 
 K = TypeVar("K")
 V = TypeVar("V")
+
+#: ids with their rows (``BiMap.to_dict()``), or ids listed in row order
+IdsLike = Union[Mapping[str, int], Sequence[str]]
 
 
 class BiMap(Generic[K, V]):
@@ -83,3 +88,29 @@ class BiMap(Generic[K, V]):
 
     def __repr__(self) -> str:
         return f"BiMap({self._forward!r})"
+
+    # -- constructors (BiMap.scala:110-164) -------------------------------
+    @staticmethod
+    def string_int(keys: Iterable[str]) -> "BiMap[str, int]":
+        """Distinct keys → dense [0, n) indices in first-seen order
+        (``BiMap.stringInt``)."""
+        seen: Dict[str, int] = {}
+        for k in keys:
+            if k not in seen:
+                seen[k] = len(seen)
+        return BiMap(seen)
+
+    @staticmethod
+    def from_ids(ids: IdsLike, rows: int, what: str) -> "BiMap[str, int]":
+        """The id map of a table with ``rows`` rows, from ids with their
+        rows or ids in row order; raises unless every row gets exactly
+        one id (``what`` names the ids in the message)."""
+        mapping = dict(ids) if isinstance(ids, Mapping) else {
+            k: i for i, k in enumerate(ids)
+        }
+        if sorted(mapping.values()) != list(range(rows)):
+            raise ValueError(
+                f"{what} ids must map onto rows 0..{rows - 1} exactly once "
+                f"(got {len(mapping)} ids for {rows} rows)"
+            )
+        return BiMap(mapping)

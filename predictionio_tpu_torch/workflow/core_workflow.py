@@ -5,7 +5,8 @@ Counterpart of ``predictionio_tpu/workflow/core_workflow.py``:
 an engine instance (INIT → models → COMPLETED); :func:`load_models`
 reads an instance's pickled model list; :func:`persist_instance` writes
 models trained elsewhere (weights carried over from the JAX package, see
-``models.recommendation.als_model_from_numpy``) as a COMPLETED instance.
+``models.recommendation.als_model_from_numpy`` and
+``models.sequencerec.seqrec_model_from_numpy``) as a COMPLETED instance.
 Evaluation runs, the perf-ledger append, device traces and checkpoint
 directories wait (ROADMAP.md).
 
@@ -61,7 +62,8 @@ class _PortUnpickler(pickle.Unpickler):
             raise ForeignModelError(
                 f"model blob references {module}.{name}: it was pickled by "
                 f"the JAX package ({module}); carry the arrays over instead "
-                "(models.recommendation.als_model_from_numpy)"
+                "(models.recommendation.als_model_from_numpy, "
+                "models.sequencerec.seqrec_model_from_numpy)"
             )
         return super().find_class(module, name)
 

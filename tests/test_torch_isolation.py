@@ -98,12 +98,16 @@ def test_cpu_tensors_never_count_a_kernel_launch():
     cuda_kernels.top_k_streaming(q, items, 4)
     cuda_kernels.top_k_for_users_streaming(items, items, torch.tensor([1, 2]), 4)
     assert cuda_kernels.top_k_streaming.launches == before
+    before = cuda_kernels.flash_attention_fwd.launches
+    qkv = torch.randn(3, 1, 2, 9, 8)
+    cuda_kernels.flash_attention_fwd(*qkv, causal=True)
+    assert cuda_kernels.flash_attention_fwd.launches == before
 
 
 def test_build_command_targets_sm90a_from_repo_sources():
     sources = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
     assert build.kernel_names() == [p.stem for p in sources] == [
-        "gramian_fused", "spd_solve", "topk_streaming"]
+        "flash_attention", "gramian_fused", "spd_solve", "topk_streaming"]
     for src in sources:
         cmd = build.build_command(src.stem, "out.so")
         text = " ".join(cmd)
@@ -127,6 +131,9 @@ def test_build_command_targets_sm90a_from_repo_sources():
      {"kMaxR": cuda_kernels.GRAMIAN_MAX_RANK}),
     ("spd_solve", "pallas_kernels.py::_spd_kernel",
      {"kMaxN": cuda_kernels.SPD_MAX_N}),
+    ("flash_attention", "attention.py::_flash_kernel",
+     {"kMaxD": cuda_kernels.FLASH_MAX_D, "kTile": cuda_kernels.FLASH_TILE,
+      "kMaxQTiles": cuda_kernels.FLASH_MAX_Q_TILES}),
 ])
 def test_kernel_source_names_what_it_replaces_and_its_ceiling(name, replaces, constants):
     src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
