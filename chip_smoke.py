@@ -13,10 +13,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
 3. ``kernel``  — the streaming top-k kernel against its plain PyTorch
    version on the card at the serving slice's shapes (B in {1, 64, 1024},
    N = 27,000, R = 50, k = 16) and at the edge cases (64 exclusions,
-   k > N, rows with every item excluded, duplicated item rows, k = 1024);
-   scores agree to rtol 1e-5 / atol 1e-5 and ids are equal or tied. Each
-   shape prints the kernel's, the plain version's and ``torch.topk(q @
-   items.T)``'s times (CUDA events) beside the bound.
+   k > N, rows with every item excluded, duplicated item rows, a catalog
+   whose scores rise with the index, a served batch of 512 at k = 128,
+   k = 1024, k at the ceiling of 2048); scores agree to rtol 1e-5 / atol
+   1e-5 and ids are equal or tied. Each case prints its launch plan (tiles
+   per stage-1 block, lists per query); each timed shape prints the
+   kernel's, the plain version's and ``torch.topk(q @ items.T)``'s times
+   per call (CUDA events) and, for the kernel and the library call, on
+   the device alone (``torch.profiler``), beside the bound.
 4. ``data``    — ML-20M-shaped synthetic ratings (a copy of ``bench.py``'s
    generator at scale 1 from ``--seed``, 5 % held out as the bench does),
    bucketized both ways, index-sorted and staged on the card.
@@ -370,7 +374,10 @@ def phase_kernel(torch, dev, rng) -> dict:
         TOPK_MAX_K,
         top_k_streaming,
         top_k_streaming_reference,
+        topk_launch_plan,
     )
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def tensors(b, n, r, dup=False):
         q = rng.standard_normal((b, r), dtype=np.float32)
@@ -388,15 +395,26 @@ def phase_kernel(torch, dev, rng) -> dict:
         b, r = q.shape
         n = items.shape[0]
         e = 0 if excl is None else excl.shape[1]
+        plan = topk_launch_plan(b, n, min(k, n), sm_count, r)
         out = {"case": name, "B": b, "N": n, "R": r, "k": k, "E": e,
+               "T": plan.tiles_per_block, "n_runs": plan.n_runs,
+               "stage1": "running_list" if plan.stage1_smem else "tile_sort",
+               "merge_in": "shared" if plan.merge_smem else "global",
                "max_abs_err": err, "agree": ok}
         if timed:
-            out["kernel_ms"] = time_ms(
-                torch, lambda: top_k_streaming(q, items, k, excl))
-            out["plain_ms"] = time_ms(
-                torch, lambda: top_k_streaming_reference(q, items, k, excl))
-            out["library_ms"] = time_ms(
-                torch, lambda: torch.topk(q @ items.T, k, dim=1))
+            calls = {
+                "kernel": lambda: top_k_streaming(q, items, k, excl),
+                "plain": lambda: top_k_streaming_reference(q, items, k, excl),
+                "library": lambda: torch.topk(q @ items.T, k, dim=1),
+            }
+            # per call (CUDA events: below about 25 us this is the host's
+            # launch time), then the card's busy time alone
+            for fn_name, fn in calls.items():
+                out[f"{fn_name}_ms"] = time_ms(torch, fn)
+            for fn_name in ("kernel", "library"):
+                on_card = device_time(torch, calls[fn_name])
+                out[f"{fn_name}_device_ms"] = on_card.pop("ms")
+                out[f"{fn_name}_device"] = on_card
             bound_ms, bound_by = topk_bound(b, n, r, k, e)
             out["bound_us"] = bound_ms * 1e3
             out["bound_by"] = bound_by
@@ -423,7 +441,22 @@ def phase_kernel(torch, dev, rng) -> dict:
     dq, ditems = tensors(32, 1000, r, dup=True)
     check("duplicated_rows_ties", dq, ditems, k)
     check("ragged_tile_N1000", *tensors(16, 1000, r), k)
+    # other ranks: odd, shorter than one chunk of 16, whole chunks only
+    for other_r in (33, 8, 64):
+        check(f"rank_{other_r}", *tensors(16, 3000, other_r), k)
+    # every later item outranks every earlier one (positive queries, rows
+    # that grow with the index): each candidate of each tile passes the
+    # threshold, the selection's worst case
+    rising = np.broadcast_to(
+        (np.arange(1, n + 1, dtype=np.float32) / 64.0)[:, None], (n, r)).copy()
+    rising = torch.from_numpy(rising).to(dev)
+    check("rising_scores", q_all[:16].abs().contiguous() + 0.5, rising, k)
+    check("rising_scores_long_runs", q_all[:512].abs().contiguous() + 0.5, rising, k)
+    # a full served batch (the server's batch_max rows) at k = 128, the
+    # widest k the running-list stage takes
+    check("B512_k128", q_all[:512].contiguous(), items, 128)
     check("k1024", q_all[:4].contiguous(), items, 1024, timed=True)
+    check("k2048_ceiling", q_all[:2].contiguous(), items, TOPK_MAX_K)
     try:
         top_k_streaming(q_all[:1].contiguous(), items, TOPK_MAX_K + 1)
     except ValueError:
@@ -431,6 +464,52 @@ def phase_kernel(torch, dev, rng) -> dict:
     else:
         raise AssertionError("k above the kernel ceiling did not raise")
     return main
+
+
+def topk_plan_variants(torch, dev, seed: int = 0, blocks_per_sm=(1, 2, 3, 4)) -> None:
+    """Not a phase of the run: times the top-k kernel's five timed shapes
+    under other launch plans in one process, for PERF.md. ``tile_sort``
+    forces stage 1 to sort every tile on its own (the tree merge alone
+    against the earlier kernel); then the running list at several caps on
+    the stage-1 blocks per SM (``TOPK_BLOCKS_PER_SM``, which sets the tiles
+    per block); the first variant is timed again at the end. Every variant
+    is held against the plain version first. Call it from ``python3 -c``
+    after :func:`phase_build`."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(seed)
+    n, r = 27000, 50
+    q_all = torch.from_numpy(rng.standard_normal((1024, r), dtype=np.float32)).to(dev)
+    items = torch.from_numpy(rng.standard_normal((n, r), dtype=np.float32)).to(dev)
+    excl = torch.from_numpy(rng.integers(-1, n, size=(64, 64)).astype(np.int32)).to(dev)
+    shapes = {"B1": (1, 16, None), "B64": (64, 16, None), "B1024": (1024, 16, None),
+              "B64_E64": (64, 16, excl), "B512_k128": (512, 128, None),
+              "B4_k1024": (4, 1024, None)}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    saved = ck.TOPK_RUN_MAX_KT, ck.TOPK_BLOCKS_PER_SM
+    variants = [("tile_sort", 0, saved[1])]
+    variants += [(f"running_list_{n_blocks}_per_sm", saved[0], n_blocks)
+                 for n_blocks in blocks_per_sm]
+    variants.append(variants[0])
+    try:
+        for label, run_max_kt, n_blocks in variants:
+            ck.TOPK_RUN_MAX_KT, ck.TOPK_BLOCKS_PER_SM = run_max_kt, n_blocks
+            ck.topk_launch_plan.cache_clear()
+            for name, (b, k, ex) in shapes.items():
+                q = q_all[:b].contiguous()
+                err, ok = agreement(ck.top_k_streaming(q, items, k, ex),
+                                    ck.top_k_streaming_reference(q, items, k, ex))
+                plan = ck.topk_launch_plan(b, n, k, sm_count, r)
+                fn = lambda: ck.top_k_streaming(q, items, k, ex)  # noqa: E731
+                emit({"variant": label, "shape": name, "T": plan.tiles_per_block,
+                      "n_runs": plan.n_runs, "agree": ok, "max_abs_err": err,
+                      "kernel_ms": time_ms(torch, fn),
+                      "kernel_device_ms": device_time(torch, fn)["ms"]})
+                if not ok:
+                    raise AssertionError(f"{label} disagrees with plain at {name}")
+    finally:
+        ck.TOPK_RUN_MAX_KT, ck.TOPK_BLOCKS_PER_SM = saved
+        ck.topk_launch_plan.cache_clear()
 
 
 def phase_data(torch, dev, seed: int, scale: float = 1.0) -> dict:
@@ -1372,7 +1451,9 @@ def main(argv=None) -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": ref["library_ms"],
-        "shape": {k: ref[k] for k in ("B", "N", "R", "k")},
+        "device_ms": ref["kernel_device_ms"],
+        "library_device_ms": ref["library_device_ms"],
+        "shape": {k: ref[k] for k in ("B", "N", "R", "k", "T", "n_runs")},
     }]
     for name, source, replaces in (
         ("gramian_fused", GRAMIAN_SOURCE, GRAMIAN_REPLACES),

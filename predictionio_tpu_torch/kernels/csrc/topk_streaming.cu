@@ -12,38 +12,75 @@
 //   - excl is [B, E] item ids, -1 padded; an excluded item scores -inf;
 //   - any slot whose score is -inf carries index -1;
 //   - the caller clamps k to N and pads back to the requested k;
-//   - any rank R (no padding of R), any N (the ragged last tile is masked).
+//   - any rank R (no padding of R), any N (the ragged last tile is masked);
+//   - each score is one chain of fp32 FMAs over ranks 0..R-1 (no tensor
+//     cores, no library product).
+//
+// Keys stay distinct until the last write. A candidate is the pair (score,
+// item index); a masked slot (excluded, or past N in the ragged tile) scores
+// -inf but keeps its own index, and only the padding of an empty running
+// list takes the sentinel indices above kSentinelBase. So within one query
+// no two keys ever compare equal, the rank of a key in a union of sorted
+// lists is its position plus one binary search per other list, the ranks are
+// a permutation, and every merge below is exact. Only the final store turns
+// -inf into index -1.
 //
 // Design. The TPU kernel walks item tiles in grid order and carries a running
 // [B, k] top-k in VMEM from one grid step to the next. Blocks on the card run
-// in parallel and in no order, so the selection is split in two launches:
-//   Stage 1 (topk_tile_kernel): one block per (8-query tile x 256-item tile).
-//     Each thread owns one item; the item tile is staged through shared memory
-//     16 ranks at a time (coalesced loads), each thread accumulates 8 fp32 dot
-//     products with FMAs in registers (no tensor cores, no library GEMM). The
-//     validity and exclusion masks apply, then a bitonic sort in shared memory
-//     orders each query's 256 candidates, and the best kt = min(k, 256) go to
-//     scratch [B, n_tiles, kt] allocated by the wrapper.
-//   Stage 2 (topk_merge_kernel): one block per query merges the n_tiles sorted
-//     lists into a running top-k kept in shared memory. Each merge step places
-//     every element at its rank in the merged order (its own position plus a
-//     binary search in the other list); ranks past k are dropped. All keys of
-//     one query are distinct (item indices are unique, and the running list is
-//     padded with distinct sentinel indices above every real one), so the
-//     ranks form a permutation and the merge is exact.
+// in no order, so the running list lives where an order exists: inside a
+// block, as a loop over a run of T consecutive 256-item tiles. The host's
+// launch plan (ops/cuda_kernels.py::topk_launch_plan) picks T so that the
+// blocks fill the card in one wave: at B = 1 every tile is a block, at
+// B = 1024 a block walks 27 tiles and a query leaves 4 lists, not 106.
+//   Stage 1, k <= 128 (topk_run_kernel): one block per (8-query tile x run).
+//     The q rows are staged in shared memory once, rank-major, so that a
+//     thread reads the eight q values of a rank as two 16-byte broadcasts.
+//     The item tile comes 16 ranks at a time, through registers: the loads of
+//     the next chunk are started before the FMAs of this one. Each thread owns
+//     one item of the tile and accumulates 8 dot products. Per query the
+//     block keeps a sorted running top-kt list, started at (-inf, sentinels)
+//     as the TPU kernel starts its output block. After masking, a candidate
+//     is tested against the list's last key (the threshold): only those that
+//     rank before it survive and are gathered (ballot + one shared counter
+//     per query). Then warp w merges query w:
+//       - sparse tile (at most 32 survivors in every query): each survivor
+//         ranks itself among the survivors by counting and in the list by
+//         binary search; each list element counts the survivors before it;
+//       - dense tile (the first of a run, or a catalog whose scores rise with
+//         the index): every warp sorts its 32 candidates in registers
+//         (shuffle bitonic network), the eight sorted heads merge pairwise in
+//         three rounds, and the result merges with the running list by rank.
+//     In random order tile t of a run expects about kt/(t-1) survivors per
+//     query, so a run of T tiles sorts one tile and filters the rest.
+//   Stage 1, k > 128 (topk_tile_kernel): one block per (8-query tile x item
+//     tile), T = 1: a bitonic sort of the 256 candidates in shared memory, the
+//     best kt = min(k, 256) kept.
+//   Stage 2: a query's n_runs sorted lists merge as a tree: all pairs of a
+//     round at once, each key placed at its position plus its rank in the
+//     sibling list and dropped past k, in ceil(log2(n_runs)) rounds. A node's
+//     list is written where its first leaf was, so storage never grows; an
+//     odd list out is copied through. When two copies of a query's lists fit
+//     in shared memory (227 KB) one block per query runs all rounds there with
+//     a barrier between them (topk_merge_kernel); else every round is a launch
+//     over all queries' keys between the scratch and a second scratch
+//     (topk_merge_round_kernel, then topk_store_kernel), so that a few long
+//     queries still fill the card.
+//   Query slots past B in the last query tile are neither sorted nor stored.
 //
-// Ceiling: k <= kMaxK = 2048, set by stage 2's shared memory (4k + 2kt
-// floats, 34.8 KB at the ceiling, under the 48 KB a block gets without an
-// opt-in). The wrapper raises above it; it never falls back.
+// Ceiling: k <= kMaxK = 2048 (the sentinel range and the wrapper's checks);
+// the merge takes any k up to it in either memory. The wrapper raises above
+// it; it never falls back.
 //
 // Bound at the serving slice's shapes (ML-20M width: N = 27,000 items, R = 50,
 // k = 16; H100 SXM data sheet: 3.35 TB/s, fp32 outside the tensor cores about
 // 67 TFLOP/s): one batch reads the 5.4 MB item table once (about 1.6 us);
 // B = 64 is 0.17 GFLOP (about 2.6 us), B = 1024 is 2.8 GFLOP (about 41 us), so
-// large batches are bound by fp32 FMAs. This first version is written to be
-// right, not fast: the per-tile bitonic sort and the sequential merge are its
-// known costs (measured times in PERF.md). Tensor cores on an exact split,
-// TMA staging and an early-exit merge are later work.
+// large batches are bound by fp32 FMAs. What holds stage 1 above that bound is
+// the shared-memory path, not the FMAs: a thread computes 1 item x 8 queries,
+// three shared-memory loads for every 8 FMAs, and stages every item value
+// with a load and a store of its own. Measured times are in PERF.md. A
+// register tile of 4 items x 8 queries, asynchronous tile copies and a
+// tensor-core product on an exact fp32 split are later work.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -51,17 +88,429 @@
 
 namespace {
 
-constexpr int kTileItems = 256;    // items per stage-1 block, one per thread
+constexpr int kTileItems = 256;    // items per stage-1 tile, one per thread
 constexpr int kTileQueries = 8;    // queries per stage-1 block
 constexpr int kRankChunk = 16;     // ranks staged in shared memory per step
-constexpr int kMergeThreads = 256;
+constexpr int kItemStride = kTileItems + 1;  // staged chunk row, bank-skewed
 constexpr int kMaxK = 2048;
+constexpr int kRunMaxKt = 128;     // the running-list path takes kt up to this
+constexpr int kSparseMax = 32;     // survivors per query a sparse merge takes
+constexpr int kMergeThreads = 256;        // per block of a merge round
+constexpr int kMergeThreadsLarge = 1024;  // the most the one-block merge takes
+constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may opt into
+constexpr int kOptInFrom = 48 * 1024;
+constexpr int kMaxDevices = 64;
 // Running-list padding takes indices above every real item index.
 constexpr int kSentinelBase = INT_MAX - kMaxK;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+static_assert(kTileItems / 32 == kTileQueries,
+              "stage 1 merges one query per warp");
+static_assert(kRankChunk == 16, "load_chunk splits a thread index by 16");
 
 // True when (sa, ia) ranks ahead of (sb, ib): higher score, then lower index.
 __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
+}
+
+// How many keys of the sorted list (ls, li)[0..len) rank before (s, i).
+__device__ __forceinline__ int count_before(const float* ls, const int* li,
+                                            int len, float s, int i) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (before(ls[mid], li[mid], s, i)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// A rank chunk goes from device memory to shared memory through registers,
+// so that the loads of the next chunk are in flight while this one is scored.
+// A full chunk is the tile's [256 items][16 ranks] block. Each half-warp
+// moves one item's 16 ranks (a 64-byte piece of its row) at a time: thread t
+// takes rank t % 16 of items chunk_item(t, m), m = 0..15. The two halves of a
+// warp take items 16 apart, so that their stores to s_items[rank][item] (row
+// stride 257) fall in different banks. Rows past N read as 0. A chunk of
+// fewer ranks (R < 16) splits element l = t + 256 m into item l / rc, rank
+// l % rc.
+__device__ __forceinline__ int chunk_item(int t, int m) {
+  return 32 * (t >> 5) + 16 * ((t >> 4) & 1) + m;
+}
+
+__device__ __forceinline__ void load_chunk(float (&pre)[kRankChunk],
+                                           const float* __restrict__ items,
+                                           int item0, int N, int R, int r0,
+                                           int rc, int t) {
+  if (rc == kRankChunk) {
+    const int rr = t & (kRankChunk - 1);
+#pragma unroll
+    for (int m = 0; m < kRankChunk; ++m) {
+      const int gi = item0 + chunk_item(t, m);
+      pre[m] = gi < N ? items[(size_t)gi * R + r0 + rr] : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kRankChunk; ++m) {
+      if (m < rc) {
+        const int l = t + m * kTileItems;
+        const int it = l / rc;
+        const int gi = item0 + it;
+        pre[m] = gi < N ? items[(size_t)gi * R + r0 + (l - it * rc)] : 0.f;
+      }
+    }
+  }
+}
+
+// Writes the chunk to s_items[rank][item] (row stride kItemStride).
+__device__ __forceinline__ void store_chunk(float* s_items,
+                                            const float (&pre)[kRankChunk],
+                                            int rc, int t) {
+  if (rc == kRankChunk) {
+    const int rr = t & (kRankChunk - 1);
+#pragma unroll
+    for (int m = 0; m < kRankChunk; ++m) {
+      s_items[rr * kItemStride + chunk_item(t, m)] = pre[m];
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kRankChunk; ++m) {
+      if (m < rc) {
+        const int l = t + m * kTileItems;
+        const int it = l / rc;
+        s_items[(l - it * rc) * kItemStride + it] = pre[m];
+      }
+    }
+  }
+}
+
+// Adds ranks [first, rc) of the staged chunk (which starts at rank r0) of the
+// calling thread's item to its dot products with the block's queries. q_t is
+// [R][8] (rank-major), so the eight q values of a rank are two 16-byte
+// broadcasts; with at most four live queries the second is skipped.
+__device__ __forceinline__ void score_chunk(float (&acc)[kTileQueries],
+                                            const float* s_items,
+                                            const float* q_t, int r0, int first,
+                                            int rc, int nq, int t) {
+  const float* qrow = q_t + (size_t)r0 * kTileQueries;
+  if (first == 0 && rc == kRankChunk) {
+#pragma unroll
+    for (int rr = 0; rr < kRankChunk; ++rr) {
+      const float x = s_items[rr * kItemStride + t];
+      const float4 a = *reinterpret_cast<const float4*>(qrow + rr * 8);
+      acc[0] = fmaf(a.x, x, acc[0]);
+      acc[1] = fmaf(a.y, x, acc[1]);
+      acc[2] = fmaf(a.z, x, acc[2]);
+      acc[3] = fmaf(a.w, x, acc[3]);
+      if (nq > 4) {
+        const float4 b = *reinterpret_cast<const float4*>(qrow + rr * 8 + 4);
+        acc[4] = fmaf(b.x, x, acc[4]);
+        acc[5] = fmaf(b.y, x, acc[5]);
+        acc[6] = fmaf(b.z, x, acc[6]);
+        acc[7] = fmaf(b.w, x, acc[7]);
+      }
+    }
+  } else {
+    for (int rr = first; rr < rc; ++rr) {
+      const float x = s_items[rr * kItemStride + t];
+      const float4 a = *reinterpret_cast<const float4*>(qrow + rr * 8);
+      const float4 b = *reinterpret_cast<const float4*>(qrow + rr * 8 + 4);
+      acc[0] = fmaf(a.x, x, acc[0]);
+      acc[1] = fmaf(a.y, x, acc[1]);
+      acc[2] = fmaf(a.z, x, acc[2]);
+      acc[3] = fmaf(a.w, x, acc[3]);
+      acc[4] = fmaf(b.x, x, acc[4]);
+      acc[5] = fmaf(b.y, x, acc[5]);
+      acc[6] = fmaf(b.z, x, acc[6]);
+      acc[7] = fmaf(b.w, x, acc[7]);
+    }
+  }
+}
+
+// The ranks are walked in chunks of 16. When R >= 16 is no multiple of 16 the
+// last chunk is staged from rank R - 16, full width like the others (it reads
+// again some ranks of the chunk before it), and scored from its first new
+// rank; so every staged chunk takes the fast split, and each score still sums
+// ranks 0..R-1 in order. chunk_start is where the chunk that covers the ranks
+// from r0 is staged from, chunk_width how many ranks it holds.
+__device__ __forceinline__ int chunk_start(int R, int r0) {
+  return (R >= kRankChunk && R - r0 < kRankChunk) ? R - kRankChunk : r0;
+}
+
+__device__ __forceinline__ int chunk_width(int R) { return min(kRankChunk, R); }
+
+// One key of one round of the pairwise tree merge. Sorted lists of `leaf` keys
+// lie side by side, list l at l * stride. In the round of `width`, node c
+// covers the leaves from c * width and holds min(K, leaves * leaf) keys at the
+// offset of its first leaf; w = c * cap + pos names key pos of node c (cap =
+// min(K, width * leaf), the most a node holds). The key goes to its position
+// plus its rank in the sibling node, dropped past K; a node without a sibling
+// is copied through. Each parent slot below K is written exactly once.
+__device__ __forceinline__ void merge_round_key(const float* src_s,
+                                                const int* src_i, float* dst_s,
+                                                int* dst_i, int w, int n_lists,
+                                                int leaf, int stride, int K,
+                                                int width, int cap) {
+  const int c = w / cap;
+  const int pos = w - c * cap;
+  const int len = min(K, min(width, n_lists - c * width) * leaf);
+  if (pos >= len) return;
+  const int off = c * width * stride;
+  const float s = src_s[off + pos];
+  const int i = src_i[off + pos];
+  const int sib = c ^ 1;
+  if (sib * width < n_lists) {
+    const int sib_len = min(K, min(width, n_lists - sib * width) * leaf);
+    const int sib_off = sib * width * stride;
+    const int rank =
+        pos + count_before(src_s + sib_off, src_i + sib_off, sib_len, s, i);
+    if (rank < K) {
+      const int o = (c >> 1) * 2 * width * stride + rank;
+      dst_s[o] = s;
+      dst_i[o] = i;
+    }
+  } else {
+    dst_s[off + pos] = s;
+    dst_i[off + pos] = i;
+  }
+}
+
+// Shared memory of topk_run_kernel, in bytes (the launch plan computes the
+// same number).
+__host__ __device__ constexpr int run_smem_bytes(int R, int kt) {
+  return 4 * (kTileQueries * R + kRankChunk * kItemStride +
+              4 * kTileQueries * kTileItems + 4 * kTileQueries * kt +
+              kTileQueries + kTileQueries * (kTileItems / 32));
+}
+
+__global__ void __launch_bounds__(kTileItems)
+topk_run_kernel(const float* __restrict__ q, const float* __restrict__ items,
+                const int* __restrict__ excl, int B, int N, int R, int E,
+                int kt, int n_tiles, int T, int n_runs,
+                float* __restrict__ cand_s, int* __restrict__ cand_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_qT = reinterpret_cast<float*>(smem);             // [R][8]
+  float* s_items = s_qT + kTileQueries * R;                 // [16][257]
+  float* s_cs = s_items + kRankChunk * kItemStride;         // [2][8][256]
+  int* s_ci = reinterpret_cast<int*>(s_cs + 2 * kTileQueries * kTileItems);
+  float* s_ls = reinterpret_cast<float*>(s_ci + 2 * kTileQueries * kTileItems);
+  int* s_li = reinterpret_cast<int*>(s_ls + 2 * kTileQueries * kt);  // [2][8][kt]
+  int* s_cnt = s_li + 2 * kTileQueries * kt;                // [8]
+  unsigned* s_ex = reinterpret_cast<unsigned*>(s_cnt + kTileQueries);  // [8][8]
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int run = blockIdx.x;
+  const int q0 = blockIdx.y * kTileQueries;
+  const int nq = min(kTileQueries, B - q0);  // live query slots of this block
+
+  for (int l = t; l < kTileQueries * R; l += kTileItems) {
+    const int r = l >> 3;
+    const int qi = l & 7;
+    s_qT[l] = qi < nq ? q[(size_t)(q0 + qi) * R + r] : 0.f;
+  }
+  for (int l = t; l < kTileQueries * kt; l += kTileItems) {
+    s_ls[l] = -CUDART_INF_F;
+    s_li[l] = kSentinelBase + l % kt;
+  }
+  int cur = 0;  // which of the two list buffers holds the running lists
+
+  const int tile_end = min(n_tiles, (run + 1) * T);
+  float pre[kRankChunk];  // the next rank chunk, on its way to shared memory
+  const int rc = chunk_width(R);
+  load_chunk(pre, items, run * T * kTileItems, N, R, 0, rc, t);
+  __syncthreads();
+
+  for (int tile = run * T; tile < tile_end; ++tile) {
+    const int item0 = tile * kTileItems;
+    const int j = item0 + t;
+    // Cleared here, used after the scoring loop's barriers.
+    if (t < kTileQueries) s_cnt[t] = 0;
+    if (E > 0 && t < kTileQueries * (kTileItems / 32)) s_ex[t] = 0u;
+
+    float acc[kTileQueries];
+#pragma unroll
+    for (int qi = 0; qi < kTileQueries; ++qi) acc[qi] = 0.f;
+
+    for (int r0 = 0; r0 < R; r0 += kRankChunk) {
+      store_chunk(s_items, pre, rc, t);
+      __syncthreads();
+      // start the loads of the next chunk (of this tile, or the first of the
+      // next tile) before the FMAs
+      const int r1 = r0 + kRankChunk;
+      if (r1 < R) {
+        load_chunk(pre, items, item0, N, R, chunk_start(R, r1), rc, t);
+      } else if (tile + 1 < tile_end) {
+        load_chunk(pre, items, item0 + kTileItems, N, R, 0, rc, t);
+      }
+      const int start = chunk_start(R, r0);
+      score_chunk(acc, s_items, s_qT, start, r0 - start, rc, nq, t);
+      // the barriers below order the last chunk's reads before the next store
+      if (r1 < R) __syncthreads();
+    }
+
+    if (E > 0) {  // one bit per (query, item of the tile) that is excluded
+      for (int l = t; l < nq * E; l += kTileItems) {
+        const int qi = l / E;
+        const int e = l - qi * E;
+        const int x = excl[(size_t)(q0 + qi) * E + e];
+        if (x >= item0 && x < item0 + kTileItems) {
+          const int d = x - item0;
+          atomicOr(&s_ex[qi * (kTileItems / 32) + (d >> 5)], 1u << (d & 31));
+        }
+      }
+      __syncthreads();
+    }
+
+    // Mask, test against the threshold, gather the survivors per query.
+    const float* cur_s = s_ls + cur * kTileQueries * kt;
+    const int* cur_i = s_li + cur * kTileQueries * kt;
+    float* nxt_s = s_ls + (cur ^ 1) * kTileQueries * kt;
+    int* nxt_i = s_li + (cur ^ 1) * kTileQueries * kt;
+#pragma unroll
+    for (int qi = 0; qi < kTileQueries; ++qi) {
+      if (qi < nq) {
+        float s = j < N ? acc[qi] : -CUDART_INF_F;
+        if (E > 0 && ((s_ex[qi * (kTileItems / 32) + warp] >> lane) & 1u)) {
+          s = -CUDART_INF_F;
+        }
+        acc[qi] = s;
+        const bool keep = before(s, j, cur_s[qi * kt + kt - 1],
+                                 cur_i[qi * kt + kt - 1]);
+        const unsigned m = __ballot_sync(kFullWarp, keep);
+        if (m != 0u) {
+          int base = 0;
+          if (lane == 0) base = atomicAdd(&s_cnt[qi], __popc(m));
+          base = __shfl_sync(kFullWarp, base, 0);
+          if (keep) {
+            const int p = base + __popc(m & ((1u << lane) - 1u));
+            s_cs[qi * kTileItems + p] = s;
+            s_ci[qi * kTileItems + p] = j;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    int n_max = 0;
+    for (int qi = 0; qi < nq; ++qi) n_max = max(n_max, s_cnt[qi]);
+
+    if (n_max <= kSparseMax) {
+      // Sparse tile: warp w merges query w's survivors (in arrival order,
+      // ranked by their full key) into its running list.
+      if (warp < nq) {
+        const int n = s_cnt[warp];
+        const float* cs = s_cs + warp * kTileItems;
+        const int* ci = s_ci + warp * kTileItems;
+        const float* ls = cur_s + warp * kt;
+        const int* li = cur_i + warp * kt;
+        float* ns = nxt_s + warp * kt;
+        int* ni = nxt_i + warp * kt;
+        if (lane < n) {
+          const float s = cs[lane];
+          const int i = ci[lane];
+          int rank = count_before(ls, li, kt, s, i);
+          for (int u = 0; u < n; ++u) rank += before(cs[u], ci[u], s, i);
+          if (rank < kt) {
+            ns[rank] = s;
+            ni[rank] = i;
+          }
+        }
+        for (int m = lane; m < kt; m += 32) {
+          const float s = ls[m];
+          const int i = li[m];
+          int rank = m;
+          for (int u = 0; u < n; ++u) rank += before(cs[u], ci[u], s, i);
+          if (rank < kt) {
+            ns[rank] = s;
+            ni[rank] = i;
+          }
+        }
+      }
+    } else {
+      // Dense tile: every warp sorts its 32 candidates of each query in
+      // registers, best first; the survivors gathered above are dropped.
+#pragma unroll
+      for (int qi = 0; qi < kTileQueries; ++qi) {
+        if (qi < nq) {
+          float s = acc[qi];
+          int i = j;
+#pragma unroll
+          for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+            for (int stride = size >> 1; stride > 0; stride >>= 1) {
+              const float os = __shfl_xor_sync(kFullWarp, s, stride);
+              const int oi = __shfl_xor_sync(kFullWarp, i, stride);
+              const bool lower = (lane & stride) == 0;
+              const bool best_first = (lane & size) == 0;
+              // the lower lane of a best-first pair keeps the better key
+              if ((lower == best_first) == before(os, oi, s, i)) {
+                s = os;
+                i = oi;
+              }
+            }
+          }
+          s_cs[qi * kTileItems + t] = s;
+          s_ci[qi * kTileItems + t] = i;
+        }
+      }
+      __syncthreads();
+      // Warp w merges query w: the eight sorted heads pairwise in three
+      // rounds between the two candidate buffers, then the result with the
+      // running list.
+      if (warp < nq) {
+        const int hl = min(kt, 32);
+        const float* ls = cur_s + warp * kt;
+        const int* li = cur_i + warp * kt;
+        float* ns = nxt_s + warp * kt;
+        int* ni = nxt_i + warp * kt;
+        float* src_s = s_cs + warp * kTileItems;
+        int* src_i = s_ci + warp * kTileItems;
+        float* dst_s = src_s + kTileQueries * kTileItems;
+        int* dst_i = src_i + kTileQueries * kTileItems;
+        for (int width = 1; width < kTileItems / 32; width <<= 1) {
+          const int cap = min(kt, width * hl);
+          const int n_keys = (kTileItems / 32 / width) * cap;
+          for (int w = lane; w < n_keys; w += 32) {
+            merge_round_key(src_s, src_i, dst_s, dst_i, w, kTileItems / 32, hl,
+                            32, kt, width, cap);
+          }
+          __syncwarp();
+          float* fs = src_s; src_s = dst_s; dst_s = fs;
+          int* fi = src_i; src_i = dst_i; dst_i = fi;
+        }
+        // src now holds the tile's best kt keys (8 * hl >= kt)
+        for (int m = lane; m < kt; m += 32) {
+          float s = src_s[m];
+          int i = src_i[m];
+          int rank = m + count_before(ls, li, kt, s, i);
+          if (rank < kt) {
+            ns[rank] = s;
+            ni[rank] = i;
+          }
+          s = ls[m];
+          i = li[m];
+          rank = m + count_before(src_s, src_i, kt, s, i);
+          if (rank < kt) {
+            ns[rank] = s;
+            ni[rank] = i;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  const float* fin_s = s_ls + cur * kTileQueries * kt;
+  const int* fin_i = s_li + cur * kTileQueries * kt;
+  for (int l = t; l < nq * kt; l += kTileItems) {
+    const int qi = l / kt;
+    const int m = l - qi * kt;
+    const size_t o = ((size_t)(q0 + qi) * n_runs + run) * kt + m;
+    cand_s[o] = fin_s[l];
+    cand_i[o] = fin_i[l];
+  }
 }
 
 __global__ void __launch_bounds__(kTileItems)
@@ -69,14 +518,15 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ items,
                  const int* __restrict__ excl, int B, int N, int R, int E,
                  int kt, int n_tiles, float* __restrict__ cand_s,
                  int* __restrict__ cand_i) {
-  __shared__ float s_items[kRankChunk][kTileItems + 1];
-  __shared__ float s_q[kTileQueries][kRankChunk];
+  __shared__ float s_items[kRankChunk * kItemStride];
+  __shared__ __align__(16) float s_qt[kRankChunk * kTileQueries];  // [rank][query]
   __shared__ float s_key[kTileQueries][kTileItems];
   __shared__ int s_idx[kTileQueries][kTileItems];
 
   const int t = threadIdx.x;
   const int tile = blockIdx.x;
   const int q0 = blockIdx.y * kTileQueries;
+  const int nq = min(kTileQueries, B - q0);  // live query slots of this block
   const int item0 = tile * kTileItems;
   const int j = item0 + t;
 
@@ -84,54 +534,43 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ items,
 #pragma unroll
   for (int qi = 0; qi < kTileQueries; ++qi) acc[qi] = 0.f;
 
+  const int rc = chunk_width(R);
   for (int r0 = 0; r0 < R; r0 += kRankChunk) {
-    const int rc = min(kRankChunk, R - r0);
-    for (int l = t; l < kTileItems * rc; l += kTileItems) {
-      const int it = l / rc;
-      const int rr = l - it * rc;
-      const int gi = item0 + it;
-      s_items[rr][it] = gi < N ? items[(size_t)gi * R + r0 + rr] : 0.f;
-    }
+    const int start = chunk_start(R, r0);
+    float pre[kRankChunk];
+    load_chunk(pre, items, item0, N, R, start, rc, t);
+    store_chunk(s_items, pre, rc, t);
     for (int l = t; l < kTileQueries * rc; l += kTileItems) {
-      const int qi = l / rc;
-      const int rr = l - qi * rc;
-      const int gq = q0 + qi;
-      s_q[qi][rr] = gq < B ? q[(size_t)gq * R + r0 + rr] : 0.f;
+      const int qi = l & 7;
+      s_qt[l] = qi < nq ? q[(size_t)(q0 + qi) * R + start + (l >> 3)] : 0.f;
     }
     __syncthreads();
-    for (int rr = 0; rr < rc; ++rr) {
-      const float x = s_items[rr][t];
-#pragma unroll
-      for (int qi = 0; qi < kTileQueries; ++qi) {
-        acc[qi] = fmaf(s_q[qi][rr], x, acc[qi]);
-      }
-    }
+    score_chunk(acc, s_items, s_qt, 0, r0 - start, rc, nq, t);
     __syncthreads();
   }
 
 #pragma unroll
   for (int qi = 0; qi < kTileQueries; ++qi) {
-    s_key[qi][t] = (j < N && q0 + qi < B) ? acc[qi] : -CUDART_INF_F;
-    s_idx[qi][t] = j;
+    if (qi < nq) {
+      s_key[qi][t] = j < N ? acc[qi] : -CUDART_INF_F;
+      s_idx[qi][t] = j;
+    }
   }
   __syncthreads();
 
   if (E > 0) {
-    for (int l = t; l < kTileQueries * E; l += kTileItems) {
+    for (int l = t; l < nq * E; l += kTileItems) {
       const int qi = l / E;
       const int e = l - qi * E;
-      const int gq = q0 + qi;
-      if (gq < B) {
-        const int x = excl[(size_t)gq * E + e];
-        if (x >= item0 && x < item0 + kTileItems) {
-          s_key[qi][x - item0] = -CUDART_INF_F;
-        }
+      const int x = excl[(size_t)(q0 + qi) * E + e];
+      if (x >= item0 && x < item0 + kTileItems) {
+        s_key[qi][x - item0] = -CUDART_INF_F;
       }
     }
     __syncthreads();
   }
 
-  // Bitonic sort of each query's row, best first.
+  // Bitonic sort of each live query's row, best first.
   for (int size = 2; size <= kTileItems; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       const int p = t ^ stride;
@@ -139,15 +578,17 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ items,
         const bool best_first = (t & size) == 0;
 #pragma unroll
         for (int qi = 0; qi < kTileQueries; ++qi) {
-          const float sa = s_key[qi][t];
-          const float sb = s_key[qi][p];
-          const int ia = s_idx[qi][t];
-          const int ib = s_idx[qi][p];
-          if (best_first ? before(sb, ib, sa, ia) : before(sa, ia, sb, ib)) {
-            s_key[qi][t] = sb;
-            s_key[qi][p] = sa;
-            s_idx[qi][t] = ib;
-            s_idx[qi][p] = ia;
+          if (qi < nq) {
+            const float sa = s_key[qi][t];
+            const float sb = s_key[qi][p];
+            const int ia = s_idx[qi][t];
+            const int ib = s_idx[qi][p];
+            if (best_first ? before(sb, ib, sa, ia) : before(sa, ia, sb, ib)) {
+              s_key[qi][t] = sb;
+              s_key[qi][p] = sa;
+              s_idx[qi][t] = ib;
+              s_idx[qi][p] = ia;
+            }
           }
         }
       }
@@ -155,121 +596,203 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ items,
     }
   }
 
-  for (int l = t; l < kTileQueries * kt; l += kTileItems) {
+  for (int l = t; l < nq * kt; l += kTileItems) {
     const int qi = l / kt;
     const int m = l - qi * kt;
-    const int gq = q0 + qi;
-    if (gq < B) {
-      const size_t o = ((size_t)gq * n_tiles + tile) * kt + m;
-      cand_s[o] = s_key[qi][m];
-      cand_i[o] = s_idx[qi][m];
-    }
+    const size_t o = ((size_t)(q0 + qi) * n_tiles + tile) * kt + m;
+    cand_s[o] = s_key[qi][m];
+    cand_i[o] = s_idx[qi][m];
   }
 }
 
-__global__ void __launch_bounds__(kMergeThreads)
-topk_merge_kernel(const float* __restrict__ cand_s,
-                  const int* __restrict__ cand_i, int n_tiles, int kt, int K,
-                  float* __restrict__ out_s, int* __restrict__ out_i) {
+// Stage 2 in shared memory: one block per query. The query's n_runs sorted
+// lists of kt keys sit side by side in cand; round `width` merges the nodes
+// of `width` leaves in pairs (merge_round_key), first from cand into one
+// shared buffer, then between the two shared buffers, a barrier after each
+// round. The pointers carry no __restrict__: a round reads what the round
+// before wrote.
+__global__ void __launch_bounds__(kMergeThreadsLarge)
+topk_merge_kernel(const float* cand_s, const int* cand_i, int n_runs, int kt,
+                  int K, float* out_s, int* out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* run_s = reinterpret_cast<float*>(smem);
-  int* run_i = reinterpret_cast<int*>(run_s + K);
-  float* nxt_s = reinterpret_cast<float*>(run_i + K);
-  int* nxt_i = reinterpret_cast<int*>(nxt_s + K);
-  float* til_s = reinterpret_cast<float*>(nxt_i + K);
-  int* til_i = reinterpret_cast<int*>(til_s + kt);
-
   const int t = threadIdx.x;
-  const size_t base = (size_t)blockIdx.x * n_tiles * kt;
+  const int nt = blockDim.x;
+  const size_t span = (size_t)n_runs * kt;
 
-  for (int m = t; m < K; m += kMergeThreads) {
-    if (m < kt) {
-      run_s[m] = cand_s[base + m];
-      run_i[m] = cand_i[base + m];
-    } else {
-      run_s[m] = -CUDART_INF_F;
-      run_i[m] = kSentinelBase + m;
-    }
-  }
+  const float* src_s = cand_s + blockIdx.x * span;
+  const int* src_i = cand_i + blockIdx.x * span;
+  float* a_s = reinterpret_cast<float*>(smem);
+  int* a_i = reinterpret_cast<int*>(a_s + span);
+  float* b_s = reinterpret_cast<float*>(a_i + span);
+  int* b_i = reinterpret_cast<int*>(b_s + span);
+  float* dst_s = a_s;
+  int* dst_i = a_i;
 
-  for (int tile = 1; tile < n_tiles; ++tile) {
-    const size_t off = base + (size_t)tile * kt;
-    for (int m = t; m < kt; m += kMergeThreads) {
-      til_s[m] = cand_s[off + m];
-      til_i[m] = cand_i[off + m];
+  for (int width = 1; width < n_runs; width <<= 1) {
+    const int cap = min(K, width * kt);
+    const int n_keys = ((n_runs + width - 1) / width) * cap;
+    for (int w = t; w < n_keys; w += nt) {
+      merge_round_key(src_s, src_i, dst_s, dst_i, w, n_runs, kt, kt, K, width, cap);
     }
     __syncthreads();
-    for (int m = t; m < K; m += kMergeThreads) {
-      const float s = run_s[m];
-      const int i = run_i[m];
-      int lo = 0, hi = kt;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (before(til_s[mid], til_i[mid], s, i)) lo = mid + 1; else hi = mid;
-      }
-      const int rank = m + lo;
-      if (rank < K) {
-        nxt_s[rank] = s;
-        nxt_i[rank] = i;
-      }
-    }
-    for (int m = t; m < kt; m += kMergeThreads) {
-      const float s = til_s[m];
-      const int i = til_i[m];
-      int lo = 0, hi = K;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (before(run_s[mid], run_i[mid], s, i)) lo = mid + 1; else hi = mid;
-      }
-      const int rank = m + lo;
-      if (rank < K) {
-        nxt_s[rank] = s;
-        nxt_i[rank] = i;
-      }
-    }
-    __syncthreads();
-    float* fs = run_s; run_s = nxt_s; nxt_s = fs;
-    int* fi = run_i; run_i = nxt_i; nxt_i = fi;
+    src_s = dst_s;
+    src_i = dst_i;
+    dst_s = dst_s == a_s ? b_s : a_s;
+    dst_i = dst_i == a_i ? b_i : a_i;
   }
-  __syncthreads();
 
   const size_t o = (size_t)blockIdx.x * K;
-  for (int m = t; m < K; m += kMergeThreads) {
-    const float s = run_s[m];
+  for (int m = t; m < K; m += nt) {
+    const float s = src_s[m];
     out_s[o + m] = s;
-    out_i[o + m] = s == -CUDART_INF_F ? -1 : run_i[m];
+    out_i[o + m] = s == -CUDART_INF_F ? -1 : src_i[m];
   }
 }
+
+// Stage 2 in device memory, for lists too long for shared memory: one launch
+// per round, the keys of a round spread over grid.y blocks per query
+// (blockIdx.x), so a few long queries still fill the card.
+__global__ void __launch_bounds__(kMergeThreads)
+topk_merge_round_kernel(const float* __restrict__ src_s,
+                        const int* __restrict__ src_i, float* __restrict__ dst_s,
+                        int* __restrict__ dst_i, int n_runs, int kt, int K,
+                        int width, int cap, int n_keys) {
+  const size_t base = (size_t)blockIdx.x * n_runs * kt;
+  for (int w = blockIdx.y * kMergeThreads + threadIdx.x; w < n_keys;
+       w += gridDim.y * kMergeThreads) {
+    merge_round_key(src_s + base, src_i + base, dst_s + base, dst_i + base, w,
+                    n_runs, kt, kt, K, width, cap);
+  }
+}
+
+// The last write: the K best keys of each query, -inf turned into index -1.
+__global__ void __launch_bounds__(kMergeThreads)
+topk_store_kernel(const float* __restrict__ src_s, const int* __restrict__ src_i,
+                  int n_runs, int kt, int K, float* __restrict__ out_s,
+                  int* __restrict__ out_i) {
+  const size_t base = (size_t)blockIdx.x * n_runs * kt;
+  const size_t o = (size_t)blockIdx.x * K;
+  for (int m = blockIdx.y * kMergeThreads + threadIdx.x; m < K;
+       m += gridDim.y * kMergeThreads) {
+    const float s = src_s[base + m];
+    out_s[o + m] = s;
+    out_i[o + m] = s == -CUDART_INF_F ? -1 : src_i[base + m];
+  }
+}
+
+// Opts `kernel` into `bytes` of dynamic shared memory on the current device,
+// once per device and size (granted[] remembers the largest size set).
+template <typename Kernel>
+cudaError_t allow_shared_memory(Kernel kernel, int bytes, int* granted) {
+  if (bytes <= kOptInFrom) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && granted[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && known) granted[dev] = bytes;
+  return err;
+}
+
+int g_run_smem[kMaxDevices];
+int g_merge_smem[kMaxDevices];
 
 }  // namespace
 
-// Launches both stages on `stream` and returns cudaGetLastError() (0 = ok).
+// Launches the stages on `stream` and returns the first CUDA error (0 = ok).
 // Pointers are device pointers: q [B, R] f32, items [N, R] f32, excl [B, E]
-// i32 (may be null when E == 0), scratch cand_s/cand_i [B, n_tiles, kt],
-// outputs out_s/out_i [B, K]. The caller guarantees 1 <= K <= 2048,
-// kt = min(K, 256), n_tiles = ceil(N / 256), B >= 1, N >= 1.
+// i32 (may be null when E == 0), scratch cand_s/cand_i [B, n_runs, kt], a
+// second scratch alt_s/alt_i of the same shape (may be null when the merge
+// runs in shared memory), outputs out_s/out_i [B, K]. The rest is the launch
+// plan of ops/cuda_kernels.py::topk_launch_plan, which is checked here:
+//   kt = min(K, 256); n_tiles = ceil(N / 256); T tiles per stage-1 block and
+//   n_runs = ceil(n_tiles / T) lists per query; stage1_smem = the running-list
+//   kernel's dynamic shared memory, or 0 for the per-tile kernel (then T = 1);
+//   merge_smem = 16 * n_runs * kt when the merge rounds run in shared memory
+//   (one launch, merge_threads a power of two from 32 to 1024), or 0 when they
+//   run between the two scratches (one launch per round).
+// Anything else returns cudaErrorInvalidValue and launches nothing.
 extern "C" int pio_topk_streaming(const void* q, const void* items,
                                   const void* excl, int B, int N, int R, int E,
-                                  int K, int kt, int n_tiles, void* cand_s,
-                                  void* cand_i, void* out_s, void* out_i,
-                                  void* stream) {
-  if (B < 1 || N < 1 || R < 1 || E < 0 || K < 1 || K > kMaxK || kt < 1 ||
-      kt > kTileItems || kt > K ||
-      n_tiles != (N + kTileItems - 1) / kTileItems) {
-    return static_cast<int>(cudaErrorInvalidValue);
+                                  int K, int kt, int n_tiles, int T, int n_runs,
+                                  int stage1_smem, int merge_smem,
+                                  int merge_threads, void* cand_s, void* cand_i,
+                                  void* alt_s, void* alt_i, void* out_s,
+                                  void* out_i, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || N < 1 || R < 1 || E < 0 || K < 1 || K > kMaxK || K > N ||
+      kt != (K < kTileItems ? K : kTileItems) ||
+      n_tiles != (N + kTileItems - 1) / kTileItems || T < 1 || T > n_tiles ||
+      n_runs != (n_tiles + T - 1) / T ||
+      B > kTileQueries * 65535 || (E > 0 && excl == nullptr)) {
+    return invalid;
   }
+  const long long span = static_cast<long long>(n_runs) * kt;
+  if (span > (1 << 29)) return invalid;  // the merge indexes keys with ints
+  if (stage1_smem == 0) {
+    if (T != 1) return invalid;
+  } else if (kt > kRunMaxKt || stage1_smem != run_smem_bytes(R, kt) ||
+             stage1_smem > kMaxSmem) {
+    return invalid;
+  }
+  if (merge_smem == 0) {
+    if (n_runs > 1 && (alt_s == nullptr || alt_i == nullptr)) return invalid;
+  } else if (merge_smem != 16 * span || merge_smem > kMaxSmem ||
+             merge_threads < 32 || merge_threads > kMergeThreadsLarge ||
+             (merge_threads & (merge_threads - 1)) != 0) {
+    return invalid;
+  }
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid1(n_tiles, (B + kTileQueries - 1) / kTileQueries);
-  topk_tile_kernel<<<grid1, kTileItems, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(items),
-      static_cast<const int*>(excl), B, N, R, E, kt, n_tiles,
-      static_cast<float*>(cand_s), static_cast<int*>(cand_i));
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid1(n_runs, (B + kTileQueries - 1) / kTileQueries);
+  cudaError_t err;
+  if (stage1_smem != 0) {
+    err = allow_shared_memory(topk_run_kernel, stage1_smem, g_run_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    topk_run_kernel<<<grid1, kTileItems, stage1_smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(items),
+        static_cast<const int*>(excl), B, N, R, E, kt, n_tiles, T, n_runs,
+        static_cast<float*>(cand_s), static_cast<int*>(cand_i));
+  } else {
+    topk_tile_kernel<<<grid1, kTileItems, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(items),
+        static_cast<const int*>(excl), B, N, R, E, kt, n_tiles,
+        static_cast<float*>(cand_s), static_cast<int*>(cand_i));
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(4 * K + 2 * kt) * sizeof(float);
-  topk_merge_kernel<<<B, kMergeThreads, smem, s>>>(
-      static_cast<const float*>(cand_s), static_cast<const int*>(cand_i),
-      n_tiles, kt, K, static_cast<float*>(out_s), static_cast<int*>(out_i));
+
+  if (merge_smem != 0) {
+    err = allow_shared_memory(topk_merge_kernel, merge_smem, g_merge_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    topk_merge_kernel<<<B, merge_threads, merge_smem, s>>>(
+        static_cast<const float*>(cand_s), static_cast<const int*>(cand_i),
+        n_runs, kt, K, static_cast<float*>(out_s), static_cast<int*>(out_i));
+    return static_cast<int>(cudaGetLastError());
+  }
+  float* src_s = static_cast<float*>(cand_s);
+  int* src_i = static_cast<int*>(cand_i);
+  float* dst_s = static_cast<float*>(alt_s);
+  int* dst_i = static_cast<int*>(alt_i);
+  for (int width = 1; width < n_runs; width <<= 1) {
+    const long long wide = static_cast<long long>(width) * kt;
+    const int cap = wide < K ? static_cast<int>(wide) : K;
+    const int n_keys = ((n_runs + width - 1) / width) * cap;
+    const int blocks = (n_keys + kMergeThreads - 1) / kMergeThreads;
+    const dim3 grid(B, blocks < 65535 ? blocks : 65535);
+    topk_merge_round_kernel<<<grid, kMergeThreads, 0, s>>>(
+        src_s, src_i, dst_s, dst_i, n_runs, kt, K, width, cap, n_keys);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    float* fs = src_s; src_s = dst_s; dst_s = fs;
+    int* fi = src_i; src_i = dst_i; dst_i = fi;
+  }
+  const dim3 grid(B, (K + kMergeThreads - 1) / kMergeThreads);
+  topk_store_kernel<<<grid, kMergeThreads, 0, s>>>(
+      src_s, src_i, n_runs, kt, K, static_cast<float*>(out_s),
+      static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,8 +21,9 @@ validates its inputs, then:
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,16 +31,116 @@ from ..kernels import build
 
 NEG_INF = float("-inf")
 
-#: items per stage-1 block of ``csrc/topk_streaming.cu`` (kTileItems)
+#: items per stage-1 tile of ``csrc/topk_streaming.cu`` (kTileItems)
 TOPK_TILE_ITEMS = 256
-#: the kernel's ceiling on k (kMaxK: stage-2 shared memory); above it the
-#: wrapper raises. pad_pow2 of any num <= 2048 stays under it.
+#: queries per stage-1 block (kTileQueries)
+TOPK_TILE_QUERIES = 8
+#: ranks staged per step (kRankChunk)
+TOPK_RANK_CHUNK = 16
+#: the kernel's ceiling on k (kMaxK); above it the wrapper raises.
+#: pad_pow2 of any num <= 2048 stays under it.
 TOPK_MAX_K = 2048
-#: the kernel's item indices are int32 and padding indices sit above
-#: 2**31 - 1 - TOPK_MAX_K, so the catalog is bounded well below that
-TOPK_MAX_ITEMS = 1 << 30
+#: stage 1 keeps a running list over a run of tiles for kt up to this
+#: (kRunMaxKt); above it every tile is sorted on its own
+TOPK_RUN_MAX_KT = 128
+#: dynamic shared memory a block may opt into on the card (kMaxSmem)
+TOPK_MAX_SMEM = 232448
+#: the most stage-1 blocks an SM holds at once (64 registers a thread, 256
+#: threads); their shared memory can lower it. The launch plan aims at one
+#: full wave of blocks.
+TOPK_BLOCKS_PER_SM = 4
+#: shared memory of an SM, and what the card keeps of it for each block
+TOPK_SM_SMEM, TOPK_BLOCK_SMEM_RESERVE = 233472, 1024
+#: the kernel's item indices are int32, padding indices sit above
+#: 2**31 - 1 - TOPK_MAX_K, and the merge indexes a query's keys with ints
+TOPK_MAX_ITEMS = 1 << 29
 #: stage 1 tiles queries by 8 on grid.y (at most 65,535 blocks)
-TOPK_MAX_BATCH = 8 * 65535
+TOPK_MAX_BATCH = TOPK_TILE_QUERIES * 65535
+
+
+class TopkPlan(NamedTuple):
+    """What one launch of ``csrc/topk_streaming.cu`` needs beyond its
+    tensors (see :func:`topk_launch_plan`)."""
+
+    kt: int  #: keys a stage-1 list holds, min(k, 256)
+    n_tiles: int  #: 256-item tiles of the catalog
+    tiles_per_block: int  #: T, consecutive tiles one stage-1 block walks
+    n_runs: int  #: lists per query that stage 1 writes, ceil(n_tiles / T)
+    query_tile: int  #: queries per stage-1 block
+    n_query_tiles: int
+    scratch_shape: Tuple[int, int, int]  #: [B, n_runs, kt], scores and ids
+    stage1_smem: int  #: bytes; 0 = the per-tile kernel (static memory)
+    merge_smem: int  #: bytes; 0 = the rounds run between two scratches
+    merge_threads: int  #: threads of the shared-memory merge's block
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def topk_launch_plan(b: int, n_items: int, k_eff: int, sm_count: int,
+                     rank: int) -> TopkPlan:
+    """The launch plan of the streaming top-k for ``b`` queries of width
+    ``rank`` over ``n_items`` items, ``k_eff = min(k, n_items)``, on a
+    card with ``sm_count`` SMs. Pure arithmetic (the C entry point checks
+    it and refuses a plan that does not match its own).
+
+    Stage 1 walks ``tiles_per_block`` (T) consecutive item tiles per
+    block with a running list, so a query leaves ``n_runs`` lists for the
+    tree merge instead of one per tile. T is 1 while one block per
+    (query tile, item tile) fits the card in one wave (the blocks an SM
+    holds at once: :data:`TOPK_BLOCKS_PER_SM`, or fewer by their shared
+    memory), and grows with the batch beyond that; the runs are then
+    evened out. For kt above :data:`TOPK_RUN_MAX_KT`, or a rank whose q
+    rows do not fit in shared memory, stage 1 sorts every tile (T = 1).
+    The merge rounds run in shared memory when two copies of a query's
+    lists fit, else between the scratch and a second one."""
+    if min(b, n_items, k_eff, sm_count, rank) < 1 or k_eff > n_items:
+        raise ValueError(
+            f"no launch plan for b={b}, n_items={n_items}, k_eff={k_eff}, "
+            f"sm_count={sm_count}, rank={rank}"
+        )
+    kt = min(k_eff, TOPK_TILE_ITEMS)
+    n_tiles = _cdiv(n_items, TOPK_TILE_ITEMS)
+    n_query_tiles = _cdiv(b, TOPK_TILE_QUERIES)
+    # topk_run_kernel's dynamic shared memory (run_smem_bytes in the .cu):
+    # q rows, one staged rank chunk, two candidate buffers, two copies of
+    # the running lists, the survivor counts and the exclusion bits
+    run_smem = 4 * (
+        TOPK_TILE_QUERIES * rank
+        + TOPK_RANK_CHUNK * (TOPK_TILE_ITEMS + 1)
+        + 4 * TOPK_TILE_QUERIES * TOPK_TILE_ITEMS
+        + 4 * TOPK_TILE_QUERIES * kt
+        + TOPK_TILE_QUERIES
+        + TOPK_TILE_QUERIES * (TOPK_TILE_ITEMS // 32)
+    )
+    if kt <= TOPK_RUN_MAX_KT and run_smem <= TOPK_MAX_SMEM:
+        stage1_smem = run_smem
+        # as many runs as fit the card in one wave of blocks, evened out
+        resident = min(TOPK_BLOCKS_PER_SM,
+                       TOPK_SM_SMEM // (run_smem + TOPK_BLOCK_SMEM_RESERVE))
+        n_runs = (resident * sm_count) // n_query_tiles
+        tiles_per_block = _cdiv(n_tiles, min(max(1, n_runs), n_tiles))
+        n_runs = _cdiv(n_tiles, tiles_per_block)
+    else:
+        stage1_smem, tiles_per_block, n_runs = 0, 1, n_tiles
+    keys = n_runs * kt
+    merge_smem = 16 * keys if 16 * keys <= TOPK_MAX_SMEM else 0
+    return TopkPlan(
+        kt=kt, n_tiles=n_tiles, tiles_per_block=tiles_per_block,
+        n_runs=n_runs, query_tile=TOPK_TILE_QUERIES,
+        n_query_tiles=n_query_tiles, scratch_shape=(b, n_runs, kt),
+        stage1_smem=stage1_smem, merge_smem=merge_smem,
+        # one block merges a query's lists in shared memory; in device
+        # memory every round is a launch of 256-thread blocks
+        merge_threads=64 if keys <= 128 else 256 if keys <= 1024 else 1024,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _configured(name: str, argtypes) -> ctypes.CDLL:
@@ -168,8 +269,7 @@ def top_k_streaming(
     # the card would
     if k_eff > TOPK_MAX_K:
         raise ValueError(
-            f"k = {k_eff} exceeds the streaming kernel's ceiling "
-            f"{TOPK_MAX_K} (stage-2 shared memory)"
+            f"k = {k_eff} exceeds the streaming kernel's ceiling {TOPK_MAX_K}"
         )
     if n_items > TOPK_MAX_ITEMS:
         raise ValueError(f"catalog of {n_items} items exceeds {TOPK_MAX_ITEMS}")
@@ -190,21 +290,32 @@ def top_k_streaming(
             torch.empty((b, 0), device=device, dtype=torch.int32), k,
         )
     e = 0 if exclude_idx is None else exclude_idx.shape[1]
-    kt = min(k_eff, TOPK_TILE_ITEMS)
-    n_tiles = -(-n_items // TOPK_TILE_ITEMS)
-    cand_s = torch.empty((b, n_tiles, kt), dtype=torch.float32, device=device)
-    cand_i = torch.empty((b, n_tiles, kt), dtype=torch.int32, device=device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    plan = topk_launch_plan(b, n_items, k_eff, _sm_count(index), r)
+    # one allocation: scores and ids of the stage-1 lists, and a second
+    # copy of both when the merge rounds do not fit in shared memory
+    keys = b * plan.n_runs * plan.kt
+    scratch = torch.empty(
+        (4 if plan.merge_smem == 0 else 2, keys), dtype=torch.float32, device=device
+    )
+    base, step = scratch.data_ptr(), 4 * keys
+    alt = (base + 2 * step, base + 3 * step) if plan.merge_smem == 0 else (None, None)
     out_s = torch.empty((b, k_eff), dtype=torch.float32, device=device)
     out_i = torch.empty((b, k_eff), dtype=torch.int32, device=device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib = _configured("topk_streaming", [p, p, p, i, i, i, i, i, i, i, p, p, p, p, p])
+    lib = _configured(
+        "topk_streaming",
+        [p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p],
+    )
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.pio_topk_streaming(
             query_vectors.data_ptr(), item_factors.data_ptr(),
             exclude_idx.data_ptr() if e else None,
-            b, n_items, r, e, k_eff, kt, n_tiles,
-            cand_s.data_ptr(), cand_i.data_ptr(),
+            b, n_items, r, e, k_eff, plan.kt, plan.n_tiles,
+            plan.tiles_per_block, plan.n_runs, plan.stage1_smem,
+            plan.merge_smem, plan.merge_threads,
+            base, base + step, alt[0], alt[1],
             out_s.data_ptr(), out_i.data_ptr(), stream,
         )
     top_k_streaming.launches += 1

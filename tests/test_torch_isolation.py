@@ -126,7 +126,11 @@ def test_build_command_targets_sm90a_from_repo_sources():
 
 @pytest.mark.parametrize("name,replaces,constants", [
     ("topk_streaming", "pallas_kernels.py::_topk_kernel",
-     {"kMaxK": cuda_kernels.TOPK_MAX_K, "kTileItems": cuda_kernels.TOPK_TILE_ITEMS}),
+     {"kMaxK": cuda_kernels.TOPK_MAX_K, "kTileItems": cuda_kernels.TOPK_TILE_ITEMS,
+      "kTileQueries": cuda_kernels.TOPK_TILE_QUERIES,
+      "kRankChunk": cuda_kernels.TOPK_RANK_CHUNK,
+      "kRunMaxKt": cuda_kernels.TOPK_RUN_MAX_KT,
+      "kMaxSmem": cuda_kernels.TOPK_MAX_SMEM}),
     ("gramian_fused", "pallas_kernels.py::_gramian_kernel",
      {"kMaxR": cuda_kernels.GRAMIAN_MAX_RANK}),
     ("spd_solve", "pallas_kernels.py::_spd_kernel",

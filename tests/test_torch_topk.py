@@ -7,6 +7,12 @@ interpret mode, as ``tests/test_pallas_kernels.py`` runs it. Both get the
 same numpy inputs from a seed. Tolerance: scores rtol 1e-5 / atol 1e-5
 (the two sum the dot products in different orders); ids equal, or the
 scores at that slot tied.
+
+Two more parts need no JAX: the kernel's launch plan
+(``topk_launch_plan``), and a step-by-step numpy emulation of the
+selection the CUDA kernel performs (runs of tiles with a running list
+and a threshold filter, then the pairwise tree merge), held exactly
+against the plain version.
 """
 
 import numpy as np
@@ -19,8 +25,14 @@ from predictionio_tpu.ops.pallas_kernels import (
 )
 from predictionio_tpu_torch.ops.cuda_kernels import (
     TOPK_MAX_K,
+    TOPK_MAX_SMEM,
+    TOPK_RUN_MAX_KT,
+    TOPK_TILE_ITEMS,
+    TOPK_TILE_QUERIES,
     top_k_for_users_streaming,
     top_k_streaming,
+    top_k_streaming_reference,
+    topk_launch_plan,
 )
 
 RTOL = ATOL = 1e-5
@@ -163,3 +175,306 @@ def test_k_above_the_kernel_ceiling_raises_on_every_device():
     # clamping to the catalog happens first: k past a small N is fine
     s, _ = top_k_streaming(q, items[:5], TOPK_MAX_K + 1)
     assert s.shape == (1, TOPK_MAX_K + 1)
+
+
+# -- the launch plan ----------------------------------------------------------
+
+PLAN_RANK, PLAN_SMS = 50, 132
+
+
+@pytest.mark.parametrize("n", [10, 1000, 27000, 1000000])
+@pytest.mark.parametrize("k", [8, 16, 128, 1024, 2048])
+@pytest.mark.parametrize("b", [1, 8, 64, 512, 1024, 4096])
+def test_launch_plan(b, k, n):
+    k_eff = min(k, n)
+    plan = topk_launch_plan(b, n, k_eff, PLAN_SMS, PLAN_RANK)
+    assert plan.kt == min(k_eff, TOPK_TILE_ITEMS)
+    assert plan.n_tiles == -(-n // TOPK_TILE_ITEMS)
+    assert 1 <= plan.tiles_per_block <= plan.n_tiles
+    assert plan.n_runs == -(-plan.n_tiles // plan.tiles_per_block)
+    assert plan.n_runs * plan.tiles_per_block >= plan.n_tiles
+    # every run holds at least one tile
+    assert (plan.n_runs - 1) * plan.tiles_per_block < plan.n_tiles
+    assert plan.query_tile == TOPK_TILE_QUERIES
+    assert plan.n_query_tiles == -(-b // TOPK_TILE_QUERIES)
+    assert plan.scratch_shape == (b, plan.n_runs, plan.kt)
+    assert 0 <= plan.stage1_smem <= TOPK_MAX_SMEM
+    assert 0 <= plan.merge_smem <= TOPK_MAX_SMEM
+    keys = plan.n_runs * plan.kt
+    assert plan.merge_smem in (0, 16 * keys)
+    # the merge leaves shared memory only when two copies do not fit
+    assert (plan.merge_smem == 0) == (16 * keys > TOPK_MAX_SMEM)
+    assert plan.merge_threads == (64 if keys <= 128 else 256 if keys <= 1024 else 1024)
+    if plan.kt > TOPK_RUN_MAX_KT:  # every tile sorted on its own
+        assert plan.stage1_smem == 0 and plan.tiles_per_block == 1
+    else:
+        assert plan.stage1_smem > 0
+    blocks = plan.n_runs * plan.n_query_tiles
+    # the blocks an SM holds at once: four by their registers, fewer by
+    # their shared memory
+    resident = min(4, 233472 // (plan.stage1_smem + 1024))
+    if plan.n_tiles * plan.n_query_tiles <= resident * PLAN_SMS:
+        # one block per (query tile, item tile) fits in one wave
+        assert plan.tiles_per_block == 1
+    elif plan.stage1_smem:
+        # runs grow with the batch: one wave of blocks, or one run a query
+        assert plan.tiles_per_block > 1
+        assert blocks <= resident * PLAN_SMS or plan.n_runs == 1
+    if b == 1 and n <= 27000:
+        assert plan.tiles_per_block == 1
+    if b == 1024 and n >= 27000 and k <= TOPK_RUN_MAX_KT:
+        assert plan.n_runs < plan.n_tiles
+        if n == 27000:
+            assert plan.n_runs == (4 if k <= 16 else 3)
+            assert plan.tiles_per_block == (27 if k <= 16 else 36)
+
+
+def test_launch_plan_follows_the_card_and_the_rank():
+    small = topk_launch_plan(1024, 27000, 16, 16, PLAN_RANK)
+    large = topk_launch_plan(1024, 27000, 16, PLAN_SMS, PLAN_RANK)
+    assert small.n_runs == 1 and small.tiles_per_block > large.tiles_per_block
+    # q rows that do not fit in shared memory: back to one tile a block
+    wide = topk_launch_plan(1024, 27000, 16, PLAN_SMS, 8000)
+    assert wide.stage1_smem == 0 and wide.tiles_per_block == 1
+    with pytest.raises(ValueError):
+        topk_launch_plan(0, 10, 1, PLAN_SMS, PLAN_RANK)
+    with pytest.raises(ValueError):
+        topk_launch_plan(1, 10, 11, PLAN_SMS, PLAN_RANK)
+
+
+# -- the kernel's selection, step by step in numpy -----------------------------
+#
+# What csrc/topk_streaming.cu does after the dot products, written out on
+# the [B, N] scores of the plain version: runs of T tiles with a running
+# list and a threshold filter (sparse tiles ranked by counting, dense tiles
+# by a warp bitonic network and a tree merge of the heads), the per-tile
+# sort for kt > 128, then the pairwise tree merge by rank. It must give the
+# plain version's answer exactly.
+
+SENTINEL_BASE = 2**31 - 1 - TOPK_MAX_K
+SPARSE_MAX, WARP = 32, 32
+
+
+def _before(sa, ia, sb, ib):
+    return (sa > sb) | ((sa == sb) & (ia < ib))
+
+
+def _assert_sorted(s, i):
+    assert _before(s[:-1], i[:-1], s[1:], i[1:]).all(), "list not strictly sorted"
+
+
+def _count_before(ls, li, s, i):
+    """Keys of the sorted list (ls, li) that rank before each of (s, i):
+    what the kernel's binary search returns on a strictly sorted list."""
+    _assert_sorted(ls, li)
+    return _before(ls[None, :], li[None, :], s[:, None], i[:, None]).sum(axis=1)
+
+
+def _warp_bitonic(s, i):
+    """The shuffle network of the dense path on [n_warps, 32] keys."""
+    s, i = s.copy(), i.copy()
+    lane = np.arange(WARP)
+    size = 2
+    while size <= WARP:
+        stride = size >> 1
+        while stride > 0:
+            os_, oi = s[:, lane ^ stride], i[:, lane ^ stride]
+            lower = (lane & stride) == 0
+            best_first = (lane & size) == 0
+            take = (lower == best_first)[None, :] == _before(os_, oi, s, i)
+            s, i = np.where(take, os_, s), np.where(take, oi, i)
+            stride >>= 1
+        size <<= 1
+    return s, i
+
+
+def _place(ns, ni, rank, s, i, kt):
+    keep = rank < kt
+    assert (ns[rank[keep]] != ns[rank[keep]]).all(), "a slot written twice"
+    ns[rank[keep]], ni[rank[keep]] = s[keep], i[keep]
+
+
+def _stage1_run(masked, q_rows, tiles, kt, n_items, rng):
+    """One stage-1 block of the running-list kernel: the query tile
+    ``q_rows`` over the item tiles ``tiles``. Returns [nq, kt] keys."""
+    nq = len(q_rows)
+    ls = np.full((nq, kt), -np.inf, np.float32)
+    li = np.tile(SENTINEL_BASE + np.arange(kt, dtype=np.int64), (nq, 1))
+    for tile in tiles:
+        j = tile * TOPK_TILE_ITEMS + np.arange(TOPK_TILE_ITEMS, dtype=np.int64)
+        cs = np.full((nq, TOPK_TILE_ITEMS), -np.inf, np.float32)
+        live = j < n_items
+        cs[:, live] = masked[np.ix_(q_rows, j[live])]
+        keep = _before(cs, j[None, :], ls[:, -1:], li[:, -1:])
+        ns = np.full((nq, kt), np.nan, np.float32)
+        ni = np.full((nq, kt), -7, np.int64)
+        if keep.sum(axis=1).max() <= SPARSE_MAX:
+            for qi in range(nq):
+                order = rng.permutation(np.flatnonzero(keep[qi]))  # arrival order
+                ss, si = cs[qi, order], j[order]
+                among = _before(ss[None, :], si[None, :], ss[:, None], si[:, None]).sum(1)
+                _place(ns[qi], ni[qi], among + _count_before(ls[qi], li[qi], ss, si),
+                       ss, si, kt)
+                ahead = _before(ss[None, :], si[None, :],
+                                ls[qi][:, None], li[qi][:, None]).sum(1)
+                _place(ns[qi], ni[qi], np.arange(kt) + ahead, ls[qi], li[qi], kt)
+        else:
+            hl = min(kt, WARP)
+            n_warps = TOPK_TILE_ITEMS // WARP
+            for qi in range(nq):
+                ws, wi = _warp_bitonic(cs[qi].reshape(-1, WARP), j.reshape(-1, WARP))
+                # the heads merge pairwise, each 32-slot segment a leaf
+                hs, hi = _tree_merge(ws.ravel(), wi.ravel(), n_warps, hl, WARP, kt)
+                assert len(hs) == kt
+                _place(ns[qi], ni[qi], np.arange(kt) + _count_before(ls[qi], li[qi], hs, hi),
+                       hs, hi, kt)
+                _place(ns[qi], ni[qi], np.arange(kt) + _count_before(hs, hi, ls[qi], li[qi]),
+                       ls[qi], li[qi], kt)
+        assert not np.isnan(ns).any(), "a list slot was never written"
+        ls, li = ns, ni
+    return ls, li
+
+
+def _tree_merge(cs, ci, n_lists, leaf, stride, k):
+    """The pairwise tree merge (merge_round_key, round by round) over
+    ``n_lists`` sorted lists of ``leaf`` keys, list l at ``l * stride``:
+    stage 2 on a query's flat scratch (leaf = stride = kt), and the dense
+    path's merge of the eight warp heads (stride 32)."""
+    src_s, src_i = cs.copy(), ci.copy()
+    width, rounds = 1, 0
+    while width < n_lists:
+        dst_s = np.full_like(src_s, np.nan)
+        dst_i = np.full_like(src_i, -7)
+        n_nodes = -(-n_lists // width)
+        for c in range(n_nodes):
+            length = min(k, min(width, n_lists - c * width) * leaf)
+            off = c * width * stride
+            s, i = src_s[off:off + length], src_i[off:off + length]
+            sib = c ^ 1
+            if sib * width < n_lists:
+                sib_len = min(k, min(width, n_lists - sib * width) * leaf)
+                so = sib * width * stride
+                rank = np.arange(length) + _count_before(
+                    src_s[so:so + sib_len], src_i[so:so + sib_len], s, i)
+                keep = rank < k
+                o = (c >> 1) * 2 * width * stride + rank[keep]
+                assert np.isnan(dst_s[o]).all()
+                dst_s[o], dst_i[o] = s[keep], i[keep]
+            else:
+                dst_s[off:off + length], dst_i[off:off + length] = s, i
+        src_s, src_i = dst_s, dst_i
+        width <<= 1
+        rounds += 1
+    assert rounds == (0 if n_lists == 1 else int(np.ceil(np.log2(n_lists))))
+    n_out = min(k, n_lists * leaf)
+    assert not np.isnan(src_s[:n_out]).any()
+    return src_s[:n_out], src_i[:n_out]
+
+
+def emulate_kernel_selection(scores, k, excl, plan, seed=0):
+    """(scores [B, k_eff] f32, ids [B, k_eff] i32) as the kernel selects
+    them from the plain version's ``[B, N]`` scores under ``plan``."""
+    rng = np.random.default_rng(seed)
+    b, n_items = scores.shape
+    masked = scores.copy()
+    if excl is not None:
+        for row in range(b):
+            hit = excl[row][(excl[row] >= 0) & (excl[row] < n_items)]
+            masked[row, hit] = -np.inf
+    kt, n_runs, t = plan.kt, plan.n_runs, plan.tiles_per_block
+    cand_s = np.full((b, n_runs, kt), np.nan, np.float32)
+    cand_i = np.full((b, n_runs, kt), -7, np.int64)
+    for q0 in range(0, b, TOPK_TILE_QUERIES):
+        q_rows = np.arange(q0, min(b, q0 + TOPK_TILE_QUERIES))
+        for run in range(n_runs):
+            tiles = range(run * t, min(plan.n_tiles, (run + 1) * t))
+            assert len(tiles) >= 1
+            if plan.stage1_smem:
+                ls, li = _stage1_run(masked, q_rows, tiles, kt, n_items, rng)
+            else:  # the per-tile kernel: a full sort of the tile, kt kept
+                (tile,) = tiles
+                j = tile * TOPK_TILE_ITEMS + np.arange(TOPK_TILE_ITEMS, dtype=np.int64)
+                cs = np.full((len(q_rows), TOPK_TILE_ITEMS), -np.inf, np.float32)
+                cs[:, j < n_items] = masked[np.ix_(q_rows, j[j < n_items])]
+                order = np.lexsort((np.broadcast_to(j, cs.shape), -cs), axis=1)[:, :kt]
+                ls, li = np.take_along_axis(cs, order, 1), j[order]
+            cand_s[q_rows, run], cand_i[q_rows, run] = ls, li
+    out_s = np.empty((b, k), np.float32)
+    out_i = np.empty((b, k), np.int32)
+    for row in range(b):
+        s, i = _tree_merge(cand_s[row].ravel(), cand_i[row].ravel(), n_runs, kt, kt, k)
+        out_s[row] = s
+        out_i[row] = np.where(np.isneginf(s), -1, i)  # only the last write
+    return out_s, out_i
+
+
+def _plan_with_runs(b, n, k_eff, tiles_per_block):
+    plan = topk_launch_plan(b, n, k_eff, PLAN_SMS, 8)
+    if tiles_per_block is None:
+        return plan
+    assert plan.stage1_smem, "only the running-list path takes runs"
+    n_runs = -(-plan.n_tiles // tiles_per_block)
+    return plan._replace(tiles_per_block=tiles_per_block, n_runs=n_runs,
+                         scratch_shape=(b, n_runs, plan.kt))
+
+
+def _selection_case(name):
+    """(q, items, k, excl, tiles per block or None for the plan's own)."""
+    rng = np.random.default_rng(11)
+    normal = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    if name.startswith("random_T"):
+        return normal(5, 8), normal(3000, 8), 16, None, int(name[len("random_T"):])
+    if name == "ties":
+        base = rng.integers(-3, 4, size=(250, 6)).astype(np.float32)
+        items = np.concatenate([base, base[::-1], base, base, base[::-1], base])
+        return rng.integers(-3, 4, size=(9, 6)).astype(np.float32), items, 16, None, 2
+    if name == "rising_scores":
+        q = np.abs(normal(3, 4)) + 0.5
+        items = np.arange(2000, dtype=np.float32)[:, None] * np.ones((1, 4), np.float32)
+        return q, items, 16, None, 8
+    if name == "exclusions_empty_a_row":
+        excl = np.full((3, 600), -1, np.int32)
+        excl[0] = np.arange(600)
+        excl[1, :590] = rng.permutation(600)[:590]
+        return normal(3, 8), normal(600, 8), 16, excl, 3
+    if name == "k_above_catalog":
+        return normal(2, 4), normal(10, 4), 16, None, None
+    if name == "odd_number_of_runs":
+        return normal(10, 8), normal(2817, 8), 8, None, 5  # 12 tiles: 5 + 5 + 2
+    if name == "single_item":
+        return normal(3, 4), normal(1, 4), 1, None, None
+    if name == "k128_sparse_and_dense":
+        return normal(2, 8), normal(4000, 8), 128, None, 8
+    if name == "k200_per_tile_sort":
+        return normal(2, 8), normal(1500, 8), 200, None, None
+    if name == "k300_lists_grow_in_the_merge":
+        return normal(2, 8), normal(3000, 8), 300, None, None
+    if name == "served_batch_plan":  # the plan of B = 1024, two of its rows
+        return normal(2, 8), normal(27000, 8), 16, None, 27
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "random_T1", "random_T4", "random_T12", "ties", "rising_scores",
+    "exclusions_empty_a_row", "k_above_catalog", "odd_number_of_runs",
+    "single_item", "k128_sparse_and_dense", "k200_per_tile_sort",
+    "k300_lists_grow_in_the_merge", "served_batch_plan",
+])
+def test_kernel_selection_emulated_equals_plain(name):
+    q, items, k, excl, tiles_per_block = _selection_case(name)
+    n = items.shape[0]
+    k_eff = min(k, n)
+    plan = _plan_with_runs(q.shape[0], n, k_eff, tiles_per_block)
+    if name == "odd_number_of_runs":
+        assert plan.n_runs == 3
+    scores = (_t(q) @ _t(items).T).numpy()  # the plain version's product
+    got_s, got_i = emulate_kernel_selection(scores, k_eff, excl, plan)
+    want_s, want_i = top_k_streaming_reference(
+        _t(q), _t(items), k, None if excl is None else _t(excl))
+    np.testing.assert_array_equal(got_s, want_s.numpy()[:, :k_eff])
+    np.testing.assert_array_equal(got_i, want_i.numpy()[:, :k_eff])  # ids equal
+    assert torch.isneginf(want_s[:, k_eff:]).all() and (want_i[:, k_eff:] == -1).all()
+    if name == "ties":
+        assert (got_s[:, 1:] == got_s[:, :-1]).any()
+    if name == "exclusions_empty_a_row":
+        assert (got_i[0] == -1).all() and (got_i[1, 10:] == -1).all()
