@@ -42,8 +42,10 @@ from ..controller import (
     Params,
     Preparator,
 )
+from ..ckpt import resolve_every
 from ..device import DeviceLike, resolve_device
 from ..ops.als import ALSConfig, als_train_coo
+from ..ops.als_sharded import resolve_shards
 from ..ops.scoring import (
     pad_pow2,
     resolve_topk_path,
@@ -156,7 +158,8 @@ class ALSAlgorithmParams(Params):
     """The JAX package's fields, unchanged. Training reads the ALS fields
     (``ALSConfig.resolve_levers`` says what runs on the device) and
     refuses ``shards > 1``, ``distributed`` and a checkpoint cadence (not
-    ported yet); serving reads ``streaming_top_k`` (on the card
+    ported yet), whether set here or through ``PIO_TRAIN_SHARDS`` /
+    ``PIO_CKPT_EVERY``; serving reads ``streaming_top_k`` (on the card
     "auto"/"always" stream through the kernel and "never" is refused; see
     ``use_streaming_topk``) and refuses ``quantized_serving``."""
 
@@ -190,6 +193,14 @@ class ALSModel:
     item_factors: np.ndarray  # [I, rank] float32
     user_map: BiMap
     item_map: BiMap
+
+    def sanity_check(self):
+        """``Engine.train`` calls this before the instance is stored: a
+        run whose factors went non-finite fails instead of deploying."""
+        if not np.isfinite(self.user_factors).all():
+            raise ValueError("ALS produced non-finite user factors")
+        if not np.isfinite(self.item_factors).all():
+            raise ValueError("ALS produced non-finite item factors")
 
 
 def als_model_from_numpy(
@@ -265,12 +276,15 @@ class ALSAlgorithm(Algorithm):
         use_streaming_topk(p.streaming_top_k, device)
         if _quantized_serving_requested(p.quantized_serving):
             raise NotImplementedError(QUANT_NOT_PORTED)
-        if (p.shards is not None and p.shards > 1) or p.distributed:
+        # the JAX package's resolution: params > PIO_TRAIN_SHARDS > 1, and
+        # params > workflow run > PIO_CKPT_EVERY > 0 for the cadence
+        if resolve_shards(p.shards) > 1 or p.distributed:
             raise NotImplementedError(
                 "sharded and distributed ALS are not ported yet (ROADMAP.md, "
                 "queue 1: sharded ALS on torch.distributed)"
             )
-        if p.checkpoint_every:
+        if resolve_every(p.checkpoint_every,
+                         workflow=getattr(ctx, "checkpoint_every", None)):
             raise NotImplementedError(
                 "checkpointed training is not ported yet (ROADMAP.md, "
                 "queue 1: checkpoint resume in the port's trainer)"

@@ -549,6 +549,16 @@ def seqrec_model_from_numpy(
     )
 
 
+def top_k_lower_index_first(scores: torch.Tensor, k: int):
+    """The k best of the ``[V]`` scores, descending, the lower index first
+    among equal scores: ``jax.lax.top_k``'s order, which the JAX package
+    serves. ``torch.topk`` leaves the order of ties unspecified; a stable
+    descending sort of one row of the catalog (a few thousand items)
+    keeps them in index order."""
+    top_s, top_i = torch.sort(scores, descending=True, stable=True)
+    return top_s[:k], top_i[:k]
+
+
 class SeqRecAlgorithm(Algorithm):
     """Causal-transformer next-item trainer and server.
 
@@ -621,10 +631,10 @@ class SeqRecAlgorithm(Algorithm):
             logits = module(tokens, flash_impl=self.params.flash_impl)[0, -1]
             # Next-item prediction keeps previously-seen items eligible
             # (Markov semantics: the next state may be a revisit) — only
-            # PAD is masked. Top-k on the device: no full-catalog sort.
+            # PAD is masked.
             scores = torch.log_softmax(logits, dim=-1)
             scores[pad_id] = float("-inf")
-            top_s, top_i = torch.topk(scores, k)
+            top_s, top_i = top_k_lower_index_first(scores, k)
         inv = model.item_map.inverse
         return PredictedResult(
             item_scores=tuple(

@@ -357,6 +357,99 @@ def _check_tensor(name, t, dims, dtypes, device) -> None:
 # -- fused gather + Gramian (csrc/gramian_fused.cu) --------------------------
 #: the kernel's ceiling on the rank R (kMaxR); above it the wrapper raises
 GRAMIAN_MAX_RANK = 128
+#: ratings staged in shared memory per step (kKTile); a chunk is a whole
+#: number of them
+GRAMIAN_K_TILE = 32
+#: each thread owns a 4 x 4 block of the system (kTile)
+GRAMIAN_BLOCK_TILE = 4
+#: registers a thread of the chunk kernel takes (``-Xptxas -v``; chip_smoke
+#: holds it against ``cudaFuncGetAttributes``): with the threads and the
+#: shared memory of a block it sets how many blocks an SM holds at once
+GRAMIAN_REGS = 69
+#: a split row's chunks aim at this many waves of resident blocks
+GRAMIAN_WAVES = 4
+#: no chunk is narrower than this many ratings (kMinChunk)
+GRAMIAN_MIN_CHUNK = 256
+#: an SM's registers, shared memory, and what the card keeps of the latter
+#: for each block; the most blocks and threads an SM holds (H100)
+_SM_REGS, _SM_SMEM, _BLOCK_SMEM_RESERVE = 65536, 233472, 1024
+_SM_MAX_BLOCKS, _SM_MAX_THREADS = 32, 2048
+#: threads of a block of the reduce pass
+GRAMIAN_REDUCE_THREADS = 256
+
+
+class GramianPlan(NamedTuple):
+    """What one launch of ``csrc/gramian_fused.cu`` needs beyond its
+    tensors (see :func:`gramian_launch_plan`)."""
+
+    threads: int  #: threads of a chunk block
+    chunk: int  #: kc, ratings of a row one chunk block walks (a multiple of 32)
+    n_chunks: int  #: S = ceil(K / kc), chunk blocks per row
+    blocks: int  #: chunk blocks, B * S
+    chunk_smem: int  #: dynamic shared memory of a chunk block, bytes
+    partial: int  #: P = R(R+1)/2 + R floats of a chunk's partial system
+    scratch_shape: Tuple[int, int, int]  #: [B, S, P] f32; (0, 0, 0) when S = 1
+    reduce_smem: int  #: dynamic shared memory of a reduce block, bytes
+    blocks_per_sm: int  #: chunk blocks an SM holds at once
+
+
+@functools.lru_cache(maxsize=256)
+def gramian_launch_plan(b: int, k: int, r: int, sm_count: int) -> GramianPlan:
+    """The launch plan of the gather + Gramian build for ``b`` rows of
+    ``k`` rating slots at rank ``r`` on a card of ``sm_count`` SMs. Pure
+    arithmetic (the C entry point checks it and refuses a plan that does
+    not match its own).
+
+    A row is cut into ``S`` chunks of ``kc`` slots, one block each. While
+    ``b`` blocks already fill every SM (the blocks an SM holds, from the
+    kernel's registers and shared memory), ``S = 1``: one pass writes the
+    systems. Otherwise ``S`` grows until ``b * S`` blocks make
+    :data:`GRAMIAN_WAVES` waves, with chunks no narrower than
+    :data:`GRAMIAN_MIN_CHUNK`; each chunk block writes its partial system
+    to a ``[B, S, P]`` scratch and a second pass adds the ``S`` partials
+    of each row in chunk order."""
+    if min(b, sm_count, r) < 1 or k < 0 or r > GRAMIAN_MAX_RANK:
+        raise ValueError(
+            f"no gramian launch plan for b={b}, k={k}, r={r}, sm_count={sm_count}"
+        )
+    tile, kt = GRAMIAN_BLOCK_TILE, GRAMIAN_K_TILE
+    # 4 x 4 blocks: rows of A by columns of [A | b] (b is column R)
+    t, tc = _cdiv(r, tile), _cdiv(r + 1, tile)
+    # one thread per block of A's upper triangle, plus (i, T) when column R
+    # needs a block column of its own
+    blocks = t * (t + 1) // 2 + (t if tc > t else 0)
+    threads = _cdiv(blocks, 32) * 32
+    # shared memory: the two operands of a tile, two slots of its weights
+    tiles = kt * (t + tc) * tile + 6 * kt + 4
+    partial = r * (r + 1) // 2 + r
+    warp_regs = 32 * _cdiv(GRAMIAN_REGS, 8) * 8
+    blocks_per_sm = min(
+        _SM_REGS // (threads // 32 * warp_regs),
+        _SM_SMEM // (4 * tiles + _BLOCK_SMEM_RESERVE),
+        _SM_MAX_BLOCKS,
+        _SM_MAX_THREADS // threads,
+    )
+    resident = blocks_per_sm * sm_count
+    n_chunks = 1
+    if b < resident and k > GRAMIAN_MIN_CHUNK:
+        want = _cdiv(GRAMIAN_WAVES * resident, b)
+        kc = max(GRAMIAN_MIN_CHUNK, _cdiv(_cdiv(k, want), kt) * kt)
+        n_chunks = _cdiv(k, kc)
+    # the same number of chunks, evened out (a split chunk stays at least
+    # GRAMIAN_MIN_CHUNK wide)
+    kc = _cdiv(max(k, 1), n_chunks * kt) * kt
+    if n_chunks > 1:
+        kc = max(GRAMIAN_MIN_CHUNK, kc)
+    n_chunks = max(1, _cdiv(k, kc))
+    split = n_chunks > 1
+    # the finished system (or partial) is staged where the tiles were
+    chunk_smem = 4 * max(tiles, partial if split else r * r + r)
+    return GramianPlan(
+        threads=threads, chunk=kc, n_chunks=n_chunks,
+        blocks=b * n_chunks, chunk_smem=chunk_smem, partial=partial,
+        scratch_shape=(b, n_chunks, partial) if split else (0, 0, 0),
+        reduce_smem=4 * partial if split else 0, blocks_per_sm=blocks_per_sm,
+    )
 #: the plain version gathers at most this many floats ([rows, K, R]) at once
 _PLAIN_GATHER_FLOATS = 1 << 24
 
@@ -430,11 +523,12 @@ def gramian_fused(
 
     The counterpart of ``pallas_kernels.gramian_fused`` (same padding
     contract: a slot with ``w2 = rhs = 0`` contributes nothing), without
-    its R % 8 rule, lane padding or K split. A bf16 table is upcast to
-    f32 first, as the TPU kernel does. CUDA tensors launch
-    ``csrc/gramian_fused.cu``; CPU tensors run
-    :func:`gramian_fused_reference`. Raises for R past
-    :data:`GRAMIAN_MAX_RANK`."""
+    its R % 8 rule or lane padding. A bf16 table is upcast to f32 first,
+    as the TPU kernel does. CUDA tensors launch ``csrc/gramian_fused.cu``
+    by :func:`gramian_launch_plan` (wide rows are split into chunks whose
+    partial systems a second kernel adds in chunk order; one launch is
+    counted either way); CPU tensors run :func:`gramian_fused_reference`.
+    Raises for R past :data:`GRAMIAN_MAX_RANK`."""
     _check_gramian_inputs(y, idx, w2, rhs, ridge, yty)
     # the kernel's limit holds on every device, so a CPU run refuses what
     # the card would
@@ -455,14 +549,24 @@ def gramian_fused(
     b_out = torch.empty((b, r), dtype=torch.float32, device=device)
     if b == 0:
         return a_out, b_out
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    plan = gramian_launch_plan(b, k, r, _sm_count(index))
+    if b * plan.n_chunks > 2**31 - 1:
+        raise ValueError(f"gramian_fused: {b} rows x {plan.n_chunks} chunks is past the grid")
+    # the chunk partials of a split row, from PyTorch's caching allocator
+    part = (torch.empty(plan.scratch_shape, dtype=torch.float32, device=device)
+            if plan.n_chunks > 1 else None)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib = _configured("gramian_fused", [p, p, p, p, p, p, i, i, i, i, p, p, p])
+    lib = _configured("gramian_fused", [p] * 6 + [i] * 10 + [p] * 4)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.pio_gramian_fused(
             y.data_ptr(), idx.data_ptr(), w2.data_ptr(), rhs.data_ptr(),
             ridge.data_ptr(), None if yty is None else yty.data_ptr(),
-            b, k, n, r, a_out.data_ptr(), b_out.data_ptr(), stream,
+            b, k, n, r, plan.chunk, plan.n_chunks, plan.threads,
+            plan.chunk_smem, GRAMIAN_REDUCE_THREADS, plan.reduce_smem,
+            None if part is None else part.data_ptr(),
+            a_out.data_ptr(), b_out.data_ptr(), stream,
         )
     gramian_fused.launches += 1
     _raise_on_error(lib, "gramian_fused", code)
@@ -471,6 +575,21 @@ def gramian_fused(
 
 #: kernel launches since the count was last reset (CUDA tensors only)
 gramian_fused.launches = 0
+
+
+def gramian_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of the build's two chunk kernels (one pass, split), as
+    ``cudaFuncGetAttributes`` reports them on the card."""
+    lib = _configured("gramian_fused", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                      + [ctypes.c_void_p] * 4)
+    lib.pio_gramian_fused_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.pio_gramian_fused_attrs.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "gramian_fused_attrs", lib.pio_gramian_fused_attrs(out))
+    keys = ("regs", "local_bytes", "static_smem")
+    return {"one_pass": dict(zip(keys, out[:3])), "split": dict(zip(keys, out[3:]))}
 
 
 # -- batched SPD solve (csrc/spd_solve.cu) -----------------------------------

@@ -40,6 +40,10 @@ class WorkflowContext:
         #: (host prep, synchronised per-iteration seconds, kernel launches;
         #: see ``ops.als.als_train``)
         self.profile: Optional[dict] = None
+        #: the workflow run's checkpoint cadence (``run_train`` sets it
+        #: from ``WorkflowParams``); it sits between the engine params and
+        #: ``PIO_CKPT_EVERY`` in ``ckpt.resolve_every``
+        self.checkpoint_every: Optional[int] = None
 
     @property
     def app_name(self) -> str:

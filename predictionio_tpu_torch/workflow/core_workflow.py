@@ -26,6 +26,7 @@ import pickle
 import time
 from typing import Any, List, Optional, Sequence
 
+from ..ckpt import resolve_every
 from ..controller.engine import (
     Engine,
     EngineParams,
@@ -132,12 +133,16 @@ def run_train(
     (``Engine.train``) and pickled into the model store, and the row
     flips to COMPLETED with ``train_wall_s`` in its env. An interrupted
     run leaves the INIT row behind (``CoreWorkflow.scala:83-88``)."""
-    if workflow_params.checkpoint_every:
+    # the run's own cadence is refused here, before the instance row; the
+    # algorithm resolves it against its params and PIO_CKPT_EVERY
+    if resolve_every(None, workflow=workflow_params.checkpoint_every, env={}):
         raise NotImplementedError(
             "checkpointed training is not ported yet (ROADMAP.md, queue 1: "
             "checkpoint resume in the port's trainer)"
         )
     ctx = ctx or WorkflowContext(mode="Training", batch=workflow_params.batch)
+    if ctx.checkpoint_every is None:
+        ctx.checkpoint_every = workflow_params.checkpoint_every
     md = registry.get_metadata()
     instance = new_engine_instance(
         engine_id=engine_id,

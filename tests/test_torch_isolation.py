@@ -132,7 +132,8 @@ def test_build_command_targets_sm90a_from_repo_sources():
       "kRunMaxKt": cuda_kernels.TOPK_RUN_MAX_KT,
       "kMaxSmem": cuda_kernels.TOPK_MAX_SMEM}),
     ("gramian_fused", "pallas_kernels.py::_gramian_kernel",
-     {"kMaxR": cuda_kernels.GRAMIAN_MAX_RANK}),
+     {"kMaxR": cuda_kernels.GRAMIAN_MAX_RANK, "kKTile": cuda_kernels.GRAMIAN_K_TILE,
+      "kTile": cuda_kernels.GRAMIAN_BLOCK_TILE, "kMinChunk": cuda_kernels.GRAMIAN_MIN_CHUNK}),
     ("spd_solve", "pallas_kernels.py::_spd_kernel",
      {"kMaxN": cuda_kernels.SPD_MAX_N}),
     ("flash_attention", "attention.py::_flash_kernel",

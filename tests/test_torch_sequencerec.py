@@ -398,6 +398,43 @@ def test_top_k_ties_are_compared_as_tied(jax_model):
     assert len(set(np.round(scores, 5))) < len(scores)  # ties are really there
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("k", [1, 5, 17])
+def test_top_k_breaks_ties_by_the_lower_index_like_jax(seed, k):
+    """Scores with planted ties (values drawn from a few levels, -inf
+    among them): the port's selection gives exactly ``jax.lax.top_k``'s
+    ids and scores."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+    levels = np.array([-np.inf, -3.5, -2.0, -2.0 + 1e-6, -1.25, 0.0], np.float32)
+    scores = levels[rng.integers(0, len(levels), 40)]
+    scores[rng.integers(0, 40, 3)] = -np.inf
+    want_s, want_i = jax.lax.top_k(jnp.asarray(scores), k)
+    got_s, got_i = tseq.top_k_lower_index_first(torch.from_numpy(scores), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+def test_served_ties_are_the_jax_ids(jax_model):
+    """Every item's embedding row duplicated into its odd neighbour: the
+    served scores tie in pairs, and the port serves exactly the JAX
+    package's items in its order."""
+    params = {**jax_model.params, "embed": np.asarray(jax_model.params["embed"]).copy()}
+    params["embed"][1:-1:2] = params["embed"][0:-2:2]
+    model_t = tseq.seqrec_model_from_numpy(
+        params, jax_model.item_map.to_dict(), jax_model.user_recent,
+        jax_model.seq_len, jax_model.n_heads)
+    model_j = dataclasses.replace(jax_model, params=_jax_tree(params))
+    talgo = tseq.SeqRecAlgorithm(tseq.SeqRecAlgorithmParams(**SMALL), device="cpu")
+    jalgo = jseq.SeqRecAlgorithm(jseq.SeqRecAlgorithmParams(**SMALL))
+    for user in ("u0", "u3", "solo"):
+        got = talgo.predict(model_t, tseq.Query(user=user, num=8)).item_scores
+        want = jalgo.predict(model_j, jseq.Query(user=user, num=8)).item_scores
+        assert [s.item for s in got] == [s.item for s in want]
+        _same_or_tied(got, want)
+
+
 def test_weight_carry_round_trips_a_jax_model(jax_model, carried):
     for (name, a), (_, b) in zip(tseq._leaves(carried.params), tseq._leaves(jax_model.params)):
         assert np.array_equal(a, np.asarray(b)), name
