@@ -25,20 +25,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    generator at scale 1 from ``--seed``, 5 % held out as the bench does),
    bucketized both ways, index-sorted and staged on the card.
 5. ``train_kernels`` — the gather+Gramian kernel and the batched SPD
-   solve kernel against their plain versions on the card: the build
-   kernels' registers and spills (``cudaFuncGetAttributes``: they must
-   match the launch plan's), every bucket of both sides as training
-   launches it (R = 50; the systems the build kernel wrote are what the
-   solve kernel solves; each build line with its launch plan and its
-   event and device times beside the einsum build's), the solve at B in
-   {128, 16,384, 138,000}, and the edge cases (zero-weight rows, a YtY
-   base, a bf16-rounded table, R = 13, K = 1, a 32,768-rating row; split
-   rows at K = 8,193 ending inside a chunk and a tile, weights in the last
-   chunk only, zero-weight slots inside the prefix, empty rows exactly
-   zero, a NaN factor row kept in its row, K = 32,768 split, two calls
-   bit-identical; zero systems, a singular PSD system, n at the ceiling, n
-   above it raises). The build agrees to rtol/atol 1e-4 with A exactly
-   symmetric, the solve to relative error 1e-4.
+   solve kernel against their plain versions on the card: both kernels'
+   registers and spills (``cudaFuncGetAttributes``: they must match the
+   launch plans' ``GRAMIAN_REGS`` and ``SPD_REGS``, with no local memory
+   in any kernel), every bucket of both sides as training launches it (R
+   = 50; the systems the build kernel wrote are what the solve kernel
+   solves; each line with its launch plan and its event and device times
+   beside the einsum build's or ``cholesky_solve``'s, the solve's with
+   its bound (A's upper triangle, what it reads) and, for comparison
+   with the first version's rows, the whole A's), the solve
+   at B in {128, 16,384, 138,000}, and the edge cases (zero-weight rows,
+   a YtY base, a bf16-rounded table, R = 13, K = 1, a 32,768-rating row;
+   split rows at K = 8,193 ending inside a chunk and a tile, weights in
+   the last chunk only, zero-weight slots inside the prefix, empty rows
+   exactly zero, a NaN factor row kept in its row, K = 32,768 split, two
+   calls bit-identical; zero systems, a singular PSD system, n at the
+   ceiling, n in {1, 8, 13, 33, 64} on the registers path and 65 on the
+   shared one, B = 1, a NaN lower triangle solving as its symmetric
+   twin, a NaN system kept in its system, two calls bit-identical, n
+   above the ceiling raises). The build agrees to rtol/atol 1e-4 with A
+   exactly symmetric, the solve to relative error 1e-4.
 6. ``train``   — the main path: ``workflow.run_train`` trains the port's
    recommendation engine (ALS, rank 50, 10 iterations, λ 0.05, seed 0) on
    the card from a DataSource over the training split. The two training
@@ -179,10 +185,14 @@ def gramian_bound(b: int, k: int, n: int, r: int, valid: int, yty: bool):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def spd_bound(b: int, n: int):
-    """Least time for one batched SPD solve: A [B, n, n] and b [B, n]
-    read once, x [B, n] written once; B·(n³/3 + 2n²) FLOP."""
-    t_bytes = 4.0 * (b * n * n + 2 * b * n) / HBM_BYTES_PER_S
+def spd_bound(b: int, n: int, whole_a: bool = False):
+    """Least time for one batched SPD solve: A's upper triangle [B,
+    n(n+1)/2] (what the kernel needs) and b [B, n] read once, x [B, n]
+    written once; B·(n³/3 + 2n²) FLOP. ``whole_a`` counts all of A
+    [B, n, n] instead, as the first version read it (the bound PR 3's
+    rows were held to)."""
+    a_floats = n * n if whole_a else n * (n + 1) / 2
+    t_bytes = 4.0 * b * (a_floats + 2 * n) / HBM_BYTES_PER_S
     t_ops = b * (n**3 / 3.0 + 2.0 * n * n) / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -266,20 +276,24 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time(torch, fn, iters: int = 30) -> dict:
+def device_time(torch, fn, iters: int = 30, attempts: int = 3) -> dict:
     """Device time of one ``fn`` call (``ms``): the time the card was busy
     (:func:`device_profile`) over ``iters`` calls, divided by ``iters``,
     with the device ops it ran per call. Unlike :func:`time_ms` it leaves
     out the host's time to launch the work, which sets the pace of a call
-    whose kernels take a few microseconds."""
+    whose kernels take a few microseconds. The profiler has returned an
+    empty device trace for calls that ran kernels (``cholesky_solve``), so
+    an empty profile is taken again, up to ``attempts`` times, before it
+    fails."""
     fn()
     torch.cuda.synchronize()
-    prof = device_profile(torch, lambda: [fn() for _ in range(iters)], top=3)
-    if prof["device_busy_ms"] is None:
-        raise AssertionError("the profiler saw no device activity")
-    return {"ms": prof["device_busy_ms"] / iters,
-            "ops_per_call": prof["device_ops"] / iters,
-            "top_device_ops": prof["top_device_ops"]}
+    for _ in range(attempts):
+        prof = device_profile(torch, lambda: [fn() for _ in range(iters)], top=3)
+        if prof["device_busy_ms"] is not None:
+            return {"ms": prof["device_busy_ms"] / iters,
+                    "ops_per_call": prof["device_ops"] / iters,
+                    "top_device_ops": prof["top_device_ops"]}
+    raise AssertionError("the profiler saw no device activity")
 
 
 def device_profile(torch, fn, top: int = 6) -> dict:
@@ -596,6 +610,35 @@ def check_gramian_attributes(torch, dev) -> dict:
     return attrs
 
 
+def spd_plan(torch, dev, b: int, n: int) -> dict:
+    """The solve's launch plan for one call, as a plan line prints it."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ck.spd_launch_plan(b, n, sm_count)
+    return {"path": plan.path, "np": plan.np_, "slots": plan.slots,
+            "warps": plan.warps, "blocks": plan.blocks, "smem": plan.smem,
+            "blocks_per_sm": plan.blocks_per_sm,
+            "warps_per_sm": plan.warps * plan.blocks_per_sm, "waves": plan.waves}
+
+
+def check_spd_attributes(torch, dev) -> dict:
+    """Every solve kernel's registers, spills and static shared memory on
+    the card; the launch plan's occupancy assumes SPD_REGS[np_] registers
+    allocated (the count rounded up to 8) for the registers kernel at each
+    padded width."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    attrs = ck.spd_kernel_attributes(dev)
+    regs = {np_: -(-attrs[f"registers_np{np_}"]["regs"] // 8) * 8 for np_ in ck.SPD_REGS}
+    emit({"phase": "train_kernels", "kernel": "spd_solve", "attributes": attrs,
+          "plan_regs": ck.SPD_REGS, "plan_n50": spd_plan(torch, dev, N_USERS, RANK)})
+    if regs != ck.SPD_REGS or any(a["local_bytes"] for a in attrs.values()):
+        raise AssertionError(f"the solve kernels take {attrs}, the launch plan "
+                             f"assumes {ck.SPD_REGS} registers and no spills")
+    return attrs
+
+
 def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
     from predictionio_tpu_torch.ops import als
     from predictionio_tpu_torch.ops.cuda_kernels import (
@@ -609,6 +652,7 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst = {"gramian_fused": 0.0, "spd_solve": 0.0}
     attrs = check_gramian_attributes(torch, dev)
+    spd_attrs = check_spd_attributes(torch, dev)
 
     def check_gramian(case, y, idx, w2, rhs, ridge, yty=None, timed=False,
                       valid=None, rows=None):
@@ -652,24 +696,33 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
         worst["gramian_fused"] = max(worst["gramian_fused"], err)
         return out, (a_k, b_k)
 
-    def check_spd(case, a, b, timed=False, live=None):
+    def check_spd(case, a, b, timed=False, rows=None, plain_a=None):
+        """Kernel against plain (on ``plain_a`` when given); ``rows``
+        (default all) are the systems that must be finite and agree."""
         before = spd_solve.launches
         x_k = spd_solve(a, b)
         torch.cuda.synchronize()
-        x_p = spd_solve_reference(a, b)
-        rel = float(((x_k - x_p).norm(dim=1) / x_p.norm(dim=1).clamp_min(1e-30)).max())
-        ok = bool(torch.isfinite(x_k).all()) and rel < KERNEL_TOL
-        err = float((x_k - x_p).abs().max())
+        x_p = spd_solve_reference(a if plain_a is None else plain_a, b)
+        sel = slice(None) if rows is None else rows
+        xk, xp = x_k[sel], x_p[sel]
+        rel = float(((xk - xp).norm(dim=1) / xp.norm(dim=1).clamp_min(1e-30)).max())
+        ok = bool(torch.isfinite(xk).all()) and rel < KERNEL_TOL
+        err = float((xk - xp).abs().max())
         bsz, n, _ = a.shape
-        out = {"case": case, "B": bsz, "n": n, "max_rel_err": rel,
-               "max_abs_err": err, "agree": ok}
+        out = {"case": case, "B": bsz, "n": n, "plan": spd_plan(torch, dev, bsz, n),
+               "max_rel_err": rel, "max_abs_err": err, "agree": ok}
         if timed:
-            out["kernel_ms"] = time_ms(torch, lambda: spd_solve(a, b), 10, 2)
+            kernel = lambda: spd_solve(a, b)  # noqa: E731
+            library = lambda: torch.cholesky_solve(  # noqa: E731
+                b[:, :, None], torch.linalg.cholesky(a))
+            out["kernel_ms"] = time_ms(torch, kernel, 10, 2)
             out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 3, 1)
-            out["library_ms"] = time_ms(torch, lambda: torch.cholesky_solve(
-                b[:, :, None], torch.linalg.cholesky(a)), 3, 1)
+            out["library_ms"] = time_ms(torch, library, 3, 1)
+            out["kernel_device_ms"] = device_time(torch, kernel, 10)["ms"]
+            out["library_device_ms"] = device_time(torch, library, 3)["ms"]
             bound_ms, out["bound_by"] = spd_bound(bsz, n)
             out["bound_us"] = bound_ms * 1e3
+            out["bound_whole_a_us"] = spd_bound(bsz, n, whole_a=True)[0] * 1e3
         out["launches"] = spd_solve.launches - before
         emit({"phase": "train_kernels", "kernel": "spd_solve", **out})
         if not ok:
@@ -686,8 +739,9 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
                        "bound_ms": 0.0, "launches": 0,
                        "by": {"bytes": 0.0, "operations": 0.0}}
                 for name in ("gramian_fused", "spd_solve")}
-    for key in ("kernel_device_ms", "library_device_ms"):
-        per_iter["gramian_fused"][key] = 0.0
+    for name in per_iter:
+        per_iter[name].update(kernel_device_ms=0.0, library_device_ms=0.0)
+    per_iter["spd_solve"]["bound_whole_a_ms"] = 0.0
     chunks, widest = {}, None
     for side_name, side in (("by_user", data["ub"]), ("by_item", data["ib"])):
         y = tables[side_name]
@@ -709,11 +763,11 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
                 del a2, b2
             for name, out in (("gramian_fused", g_out), ("spd_solve", s_out)):
                 acc = per_iter[name]
-                for key in ("kernel_ms", "plain_ms", "library_ms"):
+                for key in ("kernel_ms", "plain_ms", "library_ms",
+                            "kernel_device_ms", "library_device_ms"):
                     acc[key] += out[key]
-                if name == "gramian_fused":
-                    for key in ("kernel_device_ms", "library_device_ms"):
-                        acc[key] += out[key]
+                if name == "spd_solve":
+                    acc["bound_whole_a_ms"] += out["bound_whole_a_us"] / 1e3
                 acc["bound_ms"] += out["bound_us"] / 1e3
                 acc["launches"] += 1
                 acc["by"][out["bound_by"]] += out["bound_us"] / 1e3
@@ -766,6 +820,26 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
     if not bool((x[:, dead] == 0).all()):
         raise AssertionError("zero pivots did not give zero components")
     check_spd(f"n{SPD_MAX_N}_ceiling", *spd_systems(1024, SPD_MAX_N, k=160))
+    for n in (1, 8, 13, 33, 64, 65):  # both sides of the registers path's edge
+        out, _ = check_spd(f"n{n}", *spd_systems(1024, n))
+        if out["plan"]["path"] != ("registers" if n <= 64 else "shared"):
+            raise AssertionError(f"n = {n} took the {out['plan']['path']} path")
+    check_spd("B1", *spd_systems(1, RANK))
+    # only the upper triangle is read: NaN below it solves as the twin does
+    a, b = spd_systems(256, RANK)
+    low = torch.tril(torch.ones(RANK, RANK, dtype=torch.bool, device=dev), -1)
+    check_spd("lower_triangle_nan", a.masked_fill(low, float("nan")), b, plain_a=a)
+    # one NaN system among finite ones stays in its own system
+    a, b = spd_systems(256, RANK)
+    a[77, 5, 9] = float("nan")
+    _, x = check_spd("nan_system", a, b, rows=torch.arange(256, device=dev) != 77)
+    if not bool(torch.isnan(x[77]).any()):
+        raise AssertionError("the NaN system did not reach its own solution")
+    a, b = spd_systems(4096, RANK)
+    if not torch.equal(spd_solve(a, b), spd_solve(a, b)):
+        raise AssertionError("two solve calls on the same inputs differ")
+    emit({"phase": "train_kernels", "kernel": "spd_solve", "case": "two_calls",
+          "bit_identical": True})
     try:
         spd_solve(*spd_systems(2, SPD_MAX_N + 1))
     except ValueError:
@@ -779,7 +853,7 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
         acc["by"] = max(acc["bound_ms_by"], key=acc["bound_ms_by"].get)
     emit({"phase": "train_kernels", "per_iteration": per_iter})
     return {"per_iteration": per_iter, "max_abs_err": worst, "widest": widest,
-            "attributes": attrs}
+            "attributes": attrs, "spd_attributes": spd_attrs}
 
 
 def gramian_split_edges(torch, dev, y, gen, check_gramian) -> None:
@@ -1631,11 +1705,15 @@ def main(argv=None) -> int:
             "shape": {"per": "iteration", "launches": it["launches"],
                       "R": RANK, "users": data["n_users"], "items": data["n_items"]},
         })
+        lines[-1].update(device_ms=it["kernel_device_ms"],
+                         library_device_ms=it["library_device_ms"])
         if name == "gramian_fused":
-            lines[-1].update(device_ms=it["kernel_device_ms"],
-                             library_device_ms=it["library_device_ms"],
-                             widest_bucket=kernels["widest"],
+            lines[-1].update(widest_bucket=kernels["widest"],
                              attributes=kernels["attributes"])
+        else:
+            lines[-1].update(bound_whole_a_ms=it["bound_whole_a_ms"],
+                             plan_n50=spd_plan(torch, dev, data["n_users"], RANK),
+                             attributes=kernels["spd_attributes"])
     ref = attn["shapes"]["train"]
     lines.append({
         "name": "flash_attention",

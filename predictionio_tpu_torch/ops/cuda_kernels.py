@@ -593,9 +593,75 @@ def gramian_kernel_attributes(device=None) -> dict:
 
 
 # -- batched SPD solve (csrc/spd_solve.cu) -----------------------------------
-#: the kernel's ceiling on the system size n (kMaxN: one system per warp
-#: in shared memory, 66 KB at n = 128); above it the wrapper raises
+#: the kernel's ceiling on the system size n (kMaxN); above it the wrapper
+#: raises
 SPD_MAX_N = 128
+#: n up to this solves on the registers path (kRegMaxN: each system held in
+#: one warp's registers); above it on the shared path, the first version
+SPD_REG_MAX_N = 64
+#: registers a thread of the registers kernel at each padded width np_, as
+#: the card allocates them: ``cudaFuncGetAttributes``' count rounded up to
+#: the granule of 8 (chip_smoke holds the card to every entry). The count
+#: itself varies between builds of the same source (145 or 149 at np_ =
+#: 56, 154 or 158 at 64); what the card allocates, and so the occupancy,
+#: does not. With a block's shared memory they set the systems an SM holds.
+SPD_REGS = {8: 40, 16: 64, 24: 72, 32: 88, 40: 112, 48: 152, 56: 152, 64: 160}
+#: the shared path's systems a block and its default shared memory
+#: (kMaxWarps, 48 KB)
+_SPD_SHARED_MAX_WARPS, _SPD_DEFAULT_SMEM = 8, 48 * 1024
+#: a block's shared memory on the registers path holds np_ rows of U, each
+#: 32 · slots + SPD_HIST_PAD floats (kHistPad)
+SPD_HIST_PAD = 4
+
+
+class SpdPlan(NamedTuple):
+    """What one launch of ``csrc/spd_solve.cu`` needs beyond its tensors
+    (see :func:`spd_launch_plan`)."""
+
+    path: str  #: "registers" (n <= 64) or "shared"
+    np_: int  #: the padded width, a multiple of 8 and at least n
+    slots: int  #: column slots a lane holds, ceil(np_ / 32)
+    warps: int  #: systems (one warp each) a block holds; 1 on the registers path
+    blocks: int  #: ceil(B / warps)
+    smem: int  #: dynamic shared memory of a block, bytes
+    blocks_per_sm: int  #: blocks an SM holds at once
+    waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
+
+
+def _spd_blocks_per_sm(warps: int, smem: int, regs: Optional[int]) -> int:
+    fits = [_SM_SMEM // (smem + _BLOCK_SMEM_RESERVE), _SM_MAX_BLOCKS,
+            _SM_MAX_THREADS // (32 * warps)]
+    if regs is not None:
+        fits.append(_SM_REGS // (warps * 32 * _cdiv(regs, 8) * 8))
+    return min(fits)
+
+
+@functools.lru_cache(maxsize=256)
+def spd_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
+    """The launch plan of the batched SPD solve for ``b`` systems of size
+    ``n`` on a card of ``sm_count`` SMs. Pure arithmetic (the C entry
+    point checks it and refuses a plan that does not match its own).
+
+    n <= :data:`SPD_REG_MAX_N` takes the registers path: one system a
+    block of one warp, padded to ``np_``; the blocks an SM holds follow
+    from :data:`SPD_REGS` and the block's shared memory. Larger n take
+    the shared path, whose warps a block follow from 48 KB of shared
+    memory."""
+    if min(b, n, sm_count) < 1 or n > SPD_MAX_N:
+        raise ValueError(f"no spd launch plan for b={b}, n={n}, sm_count={sm_count}")
+    np_ = _cdiv(n, 8) * 8
+    if n > SPD_REG_MAX_N:
+        path, regs = "shared", None
+        per_warp = 4 * (n * n + 2 * n)
+        warps = min(_SPD_SHARED_MAX_WARPS, max(1, _SPD_DEFAULT_SMEM // per_warp))
+    else:
+        path, regs, warps = "registers", SPD_REGS[np_], 1
+        per_warp = 4 * np_ * (32 * _cdiv(np_, 32) + SPD_HIST_PAD)
+    blocks, smem = _cdiv(b, warps), per_warp * warps
+    per_sm = _spd_blocks_per_sm(warps, smem, regs)
+    return SpdPlan(path=path, np_=np_, slots=_cdiv(np_, 32), warps=warps,
+                   blocks=blocks, smem=smem, blocks_per_sm=per_sm,
+                   waves=_cdiv(blocks, sm_count * per_sm))
 
 
 def _check_spd_inputs(a, b) -> None:
@@ -647,8 +713,11 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched SPD solve ``a[s] x[s] = b[s]`` for ``a [B, n, n]``,
     ``b [B, n]`` (f32, batch-major: the layout :func:`gramian_fused`
     writes). An all-zero system solves to exactly 0; a zero pivot gives a
-    zero component. Any B and n up to :data:`SPD_MAX_N`. CUDA tensors
-    launch ``csrc/spd_solve.cu``; CPU tensors run
+    zero component. Only the upper triangle of each system is read. Any B
+    and n up to :data:`SPD_MAX_N`. CUDA tensors launch
+    ``csrc/spd_solve.cu`` by :func:`spd_launch_plan` (n <= 64 with each
+    system in one warp's registers, larger n through shared memory; one
+    launch is counted either way); CPU tensors run
     :func:`spd_solve_reference`."""
     _check_spd_inputs(a, b)
     if a.shape[-1] > SPD_MAX_N:
@@ -665,11 +734,16 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x = torch.empty((bsz, n), dtype=torch.float32, device=device)
     if bsz == 0:
         return x
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib = _configured("spd_solve", [p, p, p, i, i, p])
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    plan = spd_launch_plan(bsz, n, _sm_count(index))
+    lib = _configured("spd_solve", _SPD_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.pio_spd_solve(a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, n, stream)
+        code = lib.pio_spd_solve(
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, n,
+            0 if plan.path == "registers" else 1, plan.np_, plan.warps,
+            plan.blocks, plan.smem, stream,
+        )
     spd_solve.launches += 1
     _raise_on_error(lib, "spd_solve", code)
     return x
@@ -677,6 +751,25 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 #: kernel launches since the count was last reset (CUDA tensors only)
 spd_solve.launches = 0
+
+_SPD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+#: the kernels ``pio_spd_solve_attrs`` reports on, in its order
+SPD_KERNELS = (*(f"registers_np{w}" for w in SPD_REGS), "shared")
+
+
+def spd_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of every solve kernel (:data:`SPD_KERNELS`), as
+    ``cudaFuncGetAttributes`` reports them on the card."""
+    lib = _configured("spd_solve", _SPD_ARGTYPES)
+    lib.pio_spd_solve_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.pio_spd_solve_attrs.restype = ctypes.c_int
+    out = (ctypes.c_int * (3 * len(SPD_KERNELS)))()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "spd_solve_attrs", lib.pio_spd_solve_attrs(out))
+    keys = ("regs", "local_bytes", "static_smem")
+    return {name: dict(zip(keys, out[3 * k:3 * k + 3]))
+            for k, name in enumerate(SPD_KERNELS)}
 
 
 def spd_solve_t(a_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
