@@ -67,14 +67,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
 
 8. ``attention_kernel`` — the flash-attention kernel against its plain
    PyTorch version on the card (rtol 2e-4 / atol 2e-5, the JAX
-   ``TestFlashPallas`` tolerance): the training shape (64, 4, 64, 16) and
-   the serving shape (1, 4, 64, 16), causal; ``TestFlashPallas``'s four
-   shapes causal and not; cross-attention Lq != Lk; D in {8, 16, 24, 32,
-   64, 120, 128}; (8, 4, 2048, 64) causal and not (many tiles, causal skipping);
-   D = 136 raises. The timed shapes print the kernel's, the plain
-   version's and ``F.scaled_dot_product_attention``'s times beside the
-   bound, each both per call (CUDA events) and on the device alone
-   (``torch.profiler``); SDPA is a yardstick only: the port never calls it.
+   ``TestFlashPallas`` tolerance). First every instantiation's registers
+   and local bytes (``flash_kernel_attributes``; any local memory fails).
+   Then, each case with its launch plan (``bq``, threads, micro-tiles,
+   shared bytes, blocks an SM, waves): the training shape (64, 4, 64, 16)
+   and the serving shape (1, 4, 64, 16), causal; ``TestFlashPallas``'s
+   four shapes causal and not; cross-attention Lq != Lk (70/300, 300/70,
+   2048/1000, 1000/2048); a ragged last tile after many (L = 2049); (8,
+   4, 2048, 64) causal and not (many tiles, causal skipping, heavy tiles
+   first); every head width 8..128 at both query tiles; D = 136 raises.
+   Two calls are compared bit for bit at the training and long shapes.
+   The timed shapes print the kernel's, the plain version's and
+   ``F.scaled_dot_product_attention``'s times beside the bound, each both
+   per call (CUDA events) and on the device alone (``torch.profiler``);
+   SDPA is a yardstick only: the port never calls it.
 9. ``seqrec_train`` — the main path of the sequence recommender:
    ``workflow.run_train`` of the port's seqrec engine at the template's
    defaults (d_model 64, 4 heads, 2 layers, seq_len 64, stride 32, batch
@@ -1272,33 +1278,66 @@ def phase_slice(torch, dev, seed: int, registry, instance_id: str) -> dict:
     return out
 
 
+def flash_plan_line(plan) -> dict:
+    """A flash launch plan as a case line prints it."""
+    return {k: list(v) if isinstance(v, tuple) else v for k, v in plan._asdict().items()}
+
+
+def check_flash_attributes(torch, dev) -> dict:
+    """Every flash instantiation's registers, spills and static shared
+    memory on the card (the launch plan reads the registers from there);
+    fails on any local memory."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    attrs = ck.flash_kernel_attributes(dev)
+    line = {f"D{d}_bq{bq}": [a["regs"], a["local_bytes"]] for (d, bq), a in attrs.items()}
+    emit({"phase": "attention_kernel", "attributes": "[regs, local_bytes]", **line})
+    spilled = {key: a for key, a in attrs.items() if a["local_bytes"]}
+    if spilled:
+        raise AssertionError(f"flash instantiations use local memory: {spilled}")
+    return line
+
+
 def phase_attention_kernel(torch, dev, seed: int) -> dict:
     """The flash-attention kernel against its plain version on the card,
     at the slice's shapes and the edge cases."""
     import torch.nn.functional as F
 
     from predictionio_tpu_torch.ops.cuda_kernels import (
+        FLASH_BQS,
+        FLASH_D_MULTIPLE,
         FLASH_MAX_D,
+        FLASH_MAX_SMEM,
         flash_attention_fwd,
         flash_attention_fwd_reference,
+        flash_plan_for,
+        flash_smem_bytes,
     )
 
+    attributes = check_flash_attributes(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst = {"max_abs_err": 0.0}
 
-    def check(case, b, h, lq, lk, d, causal, timed=False):
+    def check(case, b, h, lq, lk, d, causal, timed=False, bq=None, repeat=False):
         q = torch.randn((b, h, lq, d), generator=gen, device=dev)
         k = torch.randn((b, h, lk, d), generator=gen, device=dev)
         v = torch.randn((b, h, lk, d), generator=gen, device=dev)
+        plan = flash_plan_for(q, k, causal, bq)  # bq: an instantiation to force
         before = flash_attention_fwd.launches
-        got = flash_attention_fwd(q, k, v, causal)
+        got = flash_attention_fwd(q, k, v, causal, plan=plan)
         torch.cuda.synchronize()
         want = flash_attention_fwd_reference(q, k, v, causal)
         ok = bool(torch.isfinite(got).all()
                   and torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL))
         err = float((got - want).abs().max())
         out = {"case": case, "B": b, "H": h, "Lq": lq, "Lk": lk, "D": d,
-               "causal": causal, "max_abs_err": err, "agree": ok}
+               "causal": causal, "max_abs_err": err, "agree": ok,
+               "plan": flash_plan_line(plan)}
+        if repeat:  # no atomics: a second call gives the same bits
+            again = flash_attention_fwd(q, k, v, causal, plan=plan)
+            torch.cuda.synchronize()
+            out["bit_identical"] = bool(torch.equal(got, again))
+            ok = ok and out["bit_identical"]
         if timed:
             calls = {
                 "kernel": lambda: flash_attention_fwd(q, k, v, causal),
@@ -1313,6 +1352,8 @@ def phase_attention_kernel(torch, dev, seed: int) -> dict:
                 out[f"{name}_device"] = on_card
             bound_ms, out["bound_by"] = flash_attention_bound(b, h, lq, lk, d, causal)
             out["bound_us"] = bound_ms * 1e3
+            out["device_over_bound"] = out["kernel_device_ms"] / bound_ms
+            out["device_over_library"] = out["kernel_device_ms"] / out["library_device_ms"]
         out["launches"] = flash_attention_fwd.launches - before
         emit({"phase": "attention_kernel", **out})
         if not ok:
@@ -1321,7 +1362,7 @@ def phase_attention_kernel(torch, dev, seed: int) -> dict:
         return out
 
     main = {
-        "train": check("train_B64", 64, 4, 64, 64, 16, True, timed=True),
+        "train": check("train_B64", 64, 4, 64, 64, 16, True, timed=True, repeat=True),
         "serve": check("serve_B1", 1, 4, 64, 64, 16, True, timed=True),
     }
     for causal in (True, False):
@@ -1330,10 +1371,17 @@ def phase_attention_kernel(torch, dev, seed: int) -> dict:
             check(f"flash_pallas_{b}x{h}x{lq}x{lk}x{d}", b, h, lq, lk, d, causal)
         check("cross_Lq70_Lk300", 2, 2, 70, 300, 64, causal)
         check("cross_Lq300_Lk70", 2, 2, 300, 70, 64, causal)
+        check("cross_Lq2048_Lk1000", 2, 4, 2048, 1000, 64, causal)
+        check("cross_Lq1000_Lk2048", 2, 4, 1000, 2048, 64, causal)
+        check("ragged_L2049", 2, 4, 2049, 2049, 64, causal)
         main[f"long_causal_{causal}"] = check(
-            f"long_L2048_causal_{causal}", 8, 4, 2048, 2048, 64, causal, timed=True)
-    for d in (8, 16, 24, 32, 64, 120, 128):  # one instance of the kernel each
-        check(f"D{d}", 2, 4, 160, 160, d, True)
+            f"long_L2048_causal_{causal}", 8, 4, 2048, 2048, 64, causal, timed=True,
+            repeat=True)
+    # every instantiation: each head width at both query tiles
+    for d in range(FLASH_D_MULTIPLE, FLASH_MAX_D + 1, FLASH_D_MULTIPLE):
+        for bq in FLASH_BQS:
+            if flash_smem_bytes(bq, d) <= FLASH_MAX_SMEM:  # not 128 rows at D = 128
+                check(f"D{d}_bq{bq}", 2, 4, 160, 200, d, True, bq=bq)
     try:
         z = torch.zeros((1, 1, 8, FLASH_MAX_D + 8), device=dev)
         flash_attention_fwd(z, z, z, True)
@@ -1342,7 +1390,30 @@ def phase_attention_kernel(torch, dev, seed: int) -> dict:
               "raised": True})
     else:
         raise AssertionError("D above the kernel's ceiling did not raise")
-    return {"shapes": main, **worst}
+    return {"shapes": main, "attributes": attributes, **worst}
+
+
+def flash_plan_variants(torch, dev, seed: int = 0) -> None:
+    """The timed long shapes under both query tiles (device time), to
+    check the plan's choice of ``bq``; not part of the main run."""
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        FLASH_BQS,
+        flash_attention_fwd,
+        flash_plan_for,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for b, h, lq, d in ((8, 4, 2048, 64), (64, 4, 64, 16), (1, 4, 64, 16)):
+        q, k, v = (torch.randn((b, h, lq, d), generator=gen, device=dev) for _ in range(3))
+        for causal in (True, False):
+            chosen = flash_plan_for(q, k, causal)
+            for bq in FLASH_BQS:
+                plan = flash_plan_for(q, k, causal, bq)
+                fn = lambda: flash_attention_fwd(q, k, v, causal, plan=plan)  # noqa: E731
+                emit({"phase": "attention_variant", "B": b, "H": h, "L": lq, "D": d,
+                      "causal": causal, "bq": bq, "chosen_bq": chosen.bq,
+                      "blocks_per_sm": plan.blocks_per_sm,
+                      "ms": time_ms(torch, fn), "device_ms": device_time(torch, fn)["ms"]})
 
 
 def synth_ml1m_histories(seed: int):
@@ -1730,7 +1801,15 @@ def main(argv=None) -> int:
         "bound_by": ref["bound_by"],
         "library_ms": ref["library_ms"],
         "device_ms": ref["kernel_device_ms"],
+        "library_device_ms": ref["library_device_ms"],
+        "bound_us": ref["bound_us"],
         "shape": {k: ref[k] for k in ("B", "H", "Lq", "Lk", "D", "causal")},
+        "plan": ref["plan"],
+        "long_causal": {k: attn["shapes"]["long_causal_True"][k] for k in (
+            "kernel_device_ms", "library_device_ms", "bound_us", "plan")},
+        "long_not_causal": {k: attn["shapes"]["long_causal_False"][k] for k in (
+            "kernel_device_ms", "library_device_ms", "bound_us", "plan")},
+        "attributes": attn["attributes"],
     })
     emit({"kernels": lines})
     print(smi, flush=True)

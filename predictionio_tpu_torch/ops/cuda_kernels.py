@@ -785,20 +785,122 @@ def spd_solve_t(a_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
 
 # -- flash attention forward (csrc/flash_attention.cu) ------------------------
-#: query rows per block and keys per K/V tile of the kernel (kTile); the
-#: plain version walks the keys in tiles of the same width
+#: keys per K/V tile of the kernel (kTile, the plan's ``bk``) and the smaller
+#: of its two query tiles; the plain version walks the keys in tiles of the
+#: same width
 FLASH_TILE = 64
+#: the query rows a block may take (the plan's ``bq``): one instantiation each
+FLASH_BQS = (64, 128)
 #: the kernel's ceiling on the head width D (kMaxD); D must also be a
 #: multiple of FLASH_D_MULTIPLE
 FLASH_MAX_D = 128
 FLASH_D_MULTIPLE = 8
-#: query tiles go on grid.y (at most 65,535 of them)
+#: query tiles of one (batch · head) (kMaxQTiles); the grid is one-dimensional
 FLASH_MAX_Q_TILES = 65535
 #: the finite mask value of the TPU kernel (keeps fully masked rows NaN-free)
 FLASH_NEG_BIG = -1e30
+#: a thread's micro-tile: query rows (kRows) × keys of S (kTile / kKeyThreads);
+#: its O tile is the same rows × D / FLASH_KEY_THREADS columns
+FLASH_ROWS, FLASH_KEY_THREADS = 4, 8
+#: floats after each Q and K row in shared memory (kPad), and the floats of a
+#: probability row (kPStride)
+FLASH_PAD, FLASH_P_STRIDE = 4, FLASH_TILE + 8
+#: the most dynamic shared memory a block may opt into on the card
+FLASH_MAX_SMEM = 232448
+#: every instantiation, in the order ``pio_flash_attention_attrs`` reports them
+FLASH_KERNELS = tuple((d, bq) for d in range(FLASH_D_MULTIPLE, FLASH_MAX_D + 1,
+                                             FLASH_D_MULTIPLE) for bq in FLASH_BQS)
+
+
+class FlashPlan(NamedTuple):
+    """What one launch of ``csrc/flash_attention.cu`` needs beyond its
+    tensors (see :func:`flash_launch_plan`)."""
+
+    bq: int  #: query rows a block, 64 or 128
+    bk: int  #: keys a tile, FLASH_TILE
+    threads: int  #: threads a block, 2 · bq
+    s_tile: Tuple[int, int]  #: a thread's micro-tile of S, rows × keys
+    o_tile: Tuple[int, int]  #: a thread's micro-tile of O, rows × columns
+    smem: int  #: dynamic shared memory of a block, bytes
+    regs: int  #: registers a thread of the (D, bq) instantiation, from the card
+    blocks_per_sm: int  #: blocks an SM holds at once
+    q_tiles: int  #: query tiles of one (batch · head), ceil(Lq / bq)
+    kv_tiles: int  #: key tiles, ceil(Lk / bk)
+    blocks: int  #: the grid, BH · q_tiles, heaviest query tiles first
+    waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
+
+
+def flash_smem_bytes(bq: int, d: int) -> int:
+    """Dynamic shared memory of a block (``smem_floats`` in the .cu): the
+    Q tile and two K tiles at a row stride of D + FLASH_PAD floats, two V
+    tiles, and the probabilities [bq, FLASH_P_STRIDE]."""
+    return 4 * ((bq + 2 * FLASH_TILE) * (d + FLASH_PAD) + 2 * FLASH_TILE * d
+                + bq * FLASH_P_STRIDE)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_launch_plan(b: int, h: int, lq: int, lk: int, d: int, causal: bool,
+                      sm_count: int, regs: Tuple[int, int],
+                      bq: Optional[int] = None) -> FlashPlan:
+    """The launch plan of the flash-attention forward for q ``[b, h, lq,
+    d]`` and k, v ``[b, h, lk, d]`` on a card of ``sm_count`` SMs, where
+    ``regs`` are the registers a thread of the (d, 64) and (d, 128)
+    instantiations take (:func:`flash_kernel_attributes`, read off the
+    card). Pure arithmetic (the C entry point checks it and refuses a plan
+    that does not match its own).
+
+    A block takes 128 query rows when Lq is longer than one 64-row tile,
+    the 128-row grid still fills every block slot of the card once, and
+    an SM holds more threads of 128-row blocks than of 64-row ones (wide
+    heads, where shared memory sets the blocks an SM) or as many without
+    causal masking; else 64. At the same threads an SM, 128 rows were
+    faster on the card without the mask (each K/V tile in shared memory
+    serves twice the rows) and 64 with it (the heavy-first order has
+    finer blocks to balance). The blocks an SM holds follow from the
+    registers, the shared memory and the threads of a block. ``bq``
+    forces the query tile (to check or time the other one)."""
+    if (min(b, h, lq, lk, d, sm_count) < 1 or d > FLASH_MAX_D
+            or d % FLASH_D_MULTIPLE or len(regs) != len(FLASH_BQS)
+            or bq not in (None, *FLASH_BQS)
+            or (bq is not None and flash_smem_bytes(bq, d) > FLASH_MAX_SMEM)):
+        raise ValueError(
+            f"no flash launch plan for b={b}, h={h}, lq={lq}, lk={lk}, d={d}, "
+            f"sm_count={sm_count}, regs={regs}"
+        )
+    bh, n_kv = b * h, _cdiv(lk, FLASH_TILE)
+
+    def per_sm(bq: int, r: int) -> int:
+        threads = 2 * bq
+        return min(_SM_REGS // (threads * (_cdiv(r, 8) * 8)),
+                   _SM_SMEM // (flash_smem_bytes(bq, d) + _BLOCK_SMEM_RESERVE),
+                   _SM_MAX_BLOCKS, _SM_MAX_THREADS // threads)
+
+    narrow, wide = FLASH_BQS
+    if bq is None:
+        bq = narrow
+        if lq > narrow and flash_smem_bytes(wide, d) <= FLASH_MAX_SMEM:
+            threads = (wide * per_sm(wide, regs[1]), narrow * per_sm(narrow, regs[0]))
+            if ((threads[0] > threads[1] or (threads[0] == threads[1] and not causal))
+                    and bh * _cdiv(lq, wide) >= sm_count * per_sm(wide, regs[1])):
+                bq = wide
+    r = regs[FLASH_BQS.index(bq)]
+    blocks_per_sm = per_sm(bq, r)
+    q_tiles = _cdiv(lq, bq)
+    blocks = bh * q_tiles
+    return FlashPlan(
+        bq=bq, bk=FLASH_TILE, threads=2 * bq,
+        s_tile=(FLASH_ROWS, FLASH_TILE // FLASH_KEY_THREADS),
+        o_tile=(FLASH_ROWS, d // FLASH_KEY_THREADS),
+        smem=flash_smem_bytes(bq, d), regs=r, blocks_per_sm=blocks_per_sm,
+        q_tiles=q_tiles, kv_tiles=n_kv, blocks=blocks,
+        waves=_cdiv(blocks, sm_count * blocks_per_sm),
+    )
+
 
 #: the serving path calls the wrapper from several batch threads at once
 _flash_launch_lock = threading.Lock()
+
+_FLASH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def _check_flash_inputs(q, k, v) -> None:
@@ -840,11 +942,43 @@ def flash_attention_fwd_reference(
     return flash_attention(q, k, v, causal=causal, block_k=FLASH_TILE, prescale_q=True)
 
 
+def flash_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of every instantiation (:data:`FLASH_KERNELS`, keyed ``(d,
+    bq)``), as ``cudaFuncGetAttributes`` reports them on the card."""
+    lib = _configured("flash_attention", _FLASH_ARGTYPES)
+    lib.pio_flash_attention_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.pio_flash_attention_attrs.restype = ctypes.c_int
+    out = (ctypes.c_int * (3 * len(FLASH_KERNELS)))()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "flash_attention_attrs", lib.pio_flash_attention_attrs(out))
+    keys = ("regs", "local_bytes", "static_smem")
+    return {key: dict(zip(keys, out[3 * n:3 * n + 3]))
+            for n, key in enumerate(FLASH_KERNELS)}
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_regs(index: int) -> dict:
+    return {key: a["regs"] for key, a in flash_kernel_attributes(index).items()}
+
+
+def flash_plan_for(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   bq: Optional[int] = None) -> FlashPlan:
+    """:func:`flash_launch_plan` for these CUDA tensors, with the SM count
+    and the registers read off their card."""
+    b, h, lq, d = q.shape
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    regs = _flash_regs(index)
+    return flash_launch_plan(b, h, lq, k.shape[2], d, bool(causal), _sm_count(index),
+                             tuple(regs[(d, n)] for n in FLASH_BQS), bq)
+
+
 def flash_attention_fwd(
     q: torch.Tensor,  # [B, H, Lq, D] f32, contiguous
     k: torch.Tensor,  # [B, H, Lk, D] f32, contiguous
     v: torch.Tensor,  # [B, H, Lk, D] f32, contiguous
     causal: bool,
+    plan: Optional[FlashPlan] = None,
 ) -> torch.Tensor:
     """Flash-attention forward ``o [B, H, Lq, D] = softmax(q kᵀ/√D,
     masked) v`` without an ``[Lq, Lk]`` score matrix in device memory.
@@ -853,7 +987,8 @@ def flash_attention_fwd(
     rules: causal ``q_pos >= k_pos`` counted from 0, finite -1e30 mask,
     ``o / max(l, 1e-30)``, causal tiles above the diagonal skipped),
     without its host-side padding. CUDA tensors launch
-    ``csrc/flash_attention.cu``; CPU tensors run
+    ``csrc/flash_attention.cu`` by :func:`flash_launch_plan` (``plan``
+    overrides it: the C entry point still checks it); CPU tensors run
     :func:`flash_attention_fwd_reference`. Raises for a head width the
     kernel does not take (see :data:`FLASH_MAX_D`), on either device."""
     _check_flash_inputs(q, k, v)
@@ -867,15 +1002,19 @@ def flash_attention_fwd(
     out = torch.empty_like(q)
     if b * h == 0 or lq == 0:
         return out
-    if -(-lq // FLASH_TILE) > FLASH_MAX_Q_TILES or b * h > 2**31 - 1:
+    if plan is None:
+        plan = flash_plan_for(q, k, causal)
+    if plan.q_tiles > FLASH_MAX_Q_TILES or plan.blocks > 2**31 - 1:
         raise ValueError(f"flash attention shape {tuple(q.shape)} is past the grid's limits")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib = _configured("flash_attention", [p, p, p, p, i, i, i, i, i, p])
+    # the kernel reads 16-byte vectors: a contiguous view at an odd offset is copied
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    lib = _configured("flash_attention", _FLASH_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.pio_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, lq, lk, d, int(bool(causal)), stream,
+            b * h, lq, lk, d, int(bool(causal)), plan.bq, plan.threads,
+            plan.smem, plan.blocks, stream,
         )
     with _flash_launch_lock:
         flash_attention_fwd.launches += 1
