@@ -8,8 +8,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
 1. ``device``  — the card (``nvidia-smi`` name and power limit), torch
    and CUDA versions, the TF32 state (off).
 2. ``build``   — compiles every kernel under
-   ``predictionio_tpu_torch/kernels/csrc`` with nvcc, one process per
-   source, all at once (set-up time).
+   ``predictionio_tpu_torch/kernels/csrc`` with nvcc and every host
+   library under ``predictionio_tpu_torch/native`` (bucketize, eventlog,
+   idhash) with g++, one process per source, all at once (set-up time).
+   A library that does not build fails the run.
 3. ``kernel``  — the streaming top-k kernel against its plain PyTorch
    version on the card at the serving slice's shapes (B in {1, 64, 1024},
    N = 27,000, R = 50, k = 16) and at the edge cases (64 exclusions,
@@ -23,7 +25,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    the device alone (``torch.profiler``), beside the bound.
 4. ``data``    — ML-20M-shaped synthetic ratings (a copy of ``bench.py``'s
    generator at scale 1 from ``--seed``, 5 % held out as the bench does),
-   bucketized both ways, index-sorted and staged on the card.
+   bucketized both ways and index-sorted by the native library (its
+   thread count printed), staged on the card; then the numpy bucketize
+   and sort once on the same arrays, timed, and held bit for bit against
+   the native slabs, both sides, every bucket.
 5. ``train_kernels`` — the gather+Gramian kernel and the batched SPD
    solve kernel against their plain versions on the card: both kernels'
    registers and spills (``cudaFuncGetAttributes``: they must match the
@@ -49,7 +54,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    recommendation engine (ALS, rank 50, 10 iterations, λ 0.05, seed 0) on
    the card from a DataSource over the training split. The two training
    kernels' launch counts are reset just before it and read just after;
-   both must launch every iteration. Then: per-iteration times, train and
+   both must launch every iteration, and its host preparation must have
+   taken the native path (``host_prep_s.path``). Then: per-iteration times, train and
    holdout RMSE (holdout ≤ 0.62, the bench's gate), one more iteration
    under ``torch.profiler``, and 3 iterations through the kernels against
    3 through their plain versions from one initial table (factors rtol
@@ -104,6 +110,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    (the same items in the same order, scores rtol 1e-4 / atol 1e-5). The
    attention launch count, reset just before the first burst and read
    after the last, must be 2 × the forwards served.
+
+11. ``events`` — the training infeed from events: ML-1M-shaped ``rate``
+   events from ``synth_ml1m_histories(--seed)`` (6,040 users ``u<n>``,
+   3,706 items ``i<n>``, 1,000,209 events, a seeded rating each, event
+   times rising by one second) bulk-written into a native event log
+   through the registry's ``native`` family (``PIO_STORAGE_*`` pointing
+   EVENTDATA at it); 1,010 of them through ``create_event_server`` over a
+   SQLite app with an access key (20 batch POSTs of 50, 10 single POSTs,
+   one repeated with its ``idempotencyKey``), read back by filter and by
+   id, one deleted, the 401 path and ``/stats.json``; ``stream_ratings``
+   on the log (the C++ ratings scan) held exactly against the chunked
+   path and the events written; ALS at rank 50 trained by ``run_train``
+   through ``RecDataSource`` (build and solve launches counted), deployed
+   and a burst of 64 queries by string user id held to the plain top-k
+   (top-k launches counted); ``SeqDataSource.read_training`` equal to the
+   generator's histories, then a seqrec ``run_train`` of 20 steps from it
+   (2 × 20 attention launches). Each stage's seconds are printed.
 
 Then the phases' wall times, one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
@@ -163,6 +186,11 @@ SEQ_PARITY_STEPS = 3
 SEQ_TRAIN_RTOL, SEQ_TRAIN_ATOL = 1e-3, 1e-4  # test_sequencerec.py:240-244
 SEQ_SERVE_RTOL, SEQ_SERVE_ATOL = 1e-4, 1e-5
 HR_USERS, SEQ_HTTP_ROUNDS = 1000, 2
+#: the events phase: the app of the bulk-written native log and of the
+#: Event Server's SQLite store, its HTTP traffic (batches of 50, single
+#: POSTs), the seqrec steps trained from the store, queries served
+EVENTS_APP, HTTP_BATCHES, HTTP_BATCH, HTTP_SINGLES = 1, 20, 50, 10
+EVENTS_SEQ_STEPS, EVENTS_WRITE_CHUNK = 20, 100_000
 
 
 def emit(obj) -> None:
@@ -383,15 +411,24 @@ def phase_device(torch) -> str:
 
 
 def phase_build() -> None:
+    """nvcc for every kernel and g++ for every host library of
+    ``predictionio_tpu_torch/native``, all started at once."""
+    from predictionio_tpu_torch import native
     from predictionio_tpu_torch.kernels import build
 
     t0 = time.monotonic()
-    compiled = build.build_all()
+    with ThreadPoolExecutor(max_workers=len(native.LIBRARIES)) as pool:
+        host = {name: pool.submit(native.build_library, name) for name in native.LIBRARIES}
+        compiled = build.build_all()
+        host_libs = {name: f.result().split("/")[-1] for name, f in host.items()}
     libs = {name: build.load_library(name)._name for name in build.kernel_names()}
+    for name in native.LIBRARIES:
+        native.load_library(name)
     emit({
         "phase": "build",
         "compiled": compiled,
         "libraries": {k: v.split("/")[-1] for k, v in libs.items()},
+        "host_libraries": host_libs,
         "seconds": time.monotonic() - t0,
     })
 
@@ -552,22 +589,30 @@ def phase_data(torch, dev, seed: int, scale: float = 1.0) -> dict:
     u_tr = users[tr].astype(np.int32)
     i_tr = items[tr].astype(np.int32)
     r_tr = ratings[tr]
+    if als.host_prep_path() != "native":
+        raise AssertionError("PIO_NO_NATIVE_BUCKETIZE=1 is set: the main path "
+                             "runs the native bucketize and sort")
     t1 = time.monotonic()
     by_user = als.bucketize(u_tr, i_tr, r_tr, n_users, n_items)
     by_item = als.bucketize(i_tr, u_tr, r_tr, n_items, n_users)
     t2 = time.monotonic()
-    by_user = als.sort_bucket_indices(by_user)
-    by_item = als.sort_bucket_indices(by_item)
+    als.sort_bucket_indices(by_user)  # in place
+    als.sort_bucket_indices(by_item)
     t3 = time.monotonic()
     ub, ib = als.stage(by_user, dev), als.stage(by_item, dev)
     torch.cuda.synchronize()
     t4 = time.monotonic()
+    numpy_path = host_prep_against_numpy(als, u_tr, i_tr, r_tr, n_users, n_items,
+                                         by_user, by_item)
     emit({
         "phase": "data",
         "users": n_users, "items": n_items, "ratings": int(len(users)),
         "train": int(tr.sum()), "holdout": int(test.sum()),
         "generate_s": t1 - t0, "bucketize_s": t2 - t1, "sort_s": t3 - t2,
         "stage_s": t4 - t3,
+        "host_prep_path": als.host_prep_path(),
+        "native_threads": als.native_threads(),
+        "numpy_path": numpy_path,
         "by_user_buckets": [list(b.idx.shape) for b in ub.buckets],
         "by_item_buckets": [list(b.idx.shape) for b in ib.buckets],
         "truncated_rows": {
@@ -580,6 +625,34 @@ def phase_data(torch, dev, seed: int, scale: float = 1.0) -> dict:
         "n_users": n_users, "n_items": n_items, "train": tr, "test": test,
         "ub": ub, "ib": ib, "generate_s": t1 - t0,
     }
+
+
+def host_prep_against_numpy(als, u_tr, i_tr, r_tr, n_users, n_items,
+                            by_user, by_item) -> dict:
+    """The numpy bucketize and sort (the path ``PIO_NO_NATIVE_BUCKETIZE=1``
+    selects) once on the same arrays, timed, and held bit for bit (dtype,
+    shape, every byte of rows, idx, val and counts) against the native
+    output, both sides, every bucket."""
+    t0 = time.monotonic()
+    np_user = als._bucketize_numpy(u_tr, i_tr, r_tr, n_users, n_items)
+    np_item = als._bucketize_numpy(i_tr, u_tr, r_tr, n_items, n_users)
+    t1 = time.monotonic()
+    als._sort_bucket_indices_numpy(np_user)
+    als._sort_bucket_indices_numpy(np_item)
+    t2 = time.monotonic()
+    buckets = 0
+    for side, got, want in (("by_user", by_user, np_user), ("by_item", by_item, np_item)):
+        if len(got.buckets) != len(want.buckets):
+            raise AssertionError(f"{side}: {len(got.buckets)} native buckets, "
+                                 f"{len(want.buckets)} numpy")
+        for g, w in zip(got.buckets, want.buckets):
+            for field in ("rows", "idx", "val", "counts"):
+                a, b = getattr(g, field), getattr(w, field)
+                if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+                    raise AssertionError(f"{side} width {g.width}: native {field} "
+                                         "differs from the numpy path")
+            buckets += 1
+    return {"bucketize_s": t1 - t0, "sort_s": t2 - t1, "buckets_identical": buckets}
 
 
 def _gramian_library(torch, y, idx, w2, rhs):
@@ -1018,6 +1091,9 @@ def phase_train(torch, dev, data: dict, registry) -> dict:
     launches = {"gramian_fused": gramian_fused.launches,
                 "spd_solve": spd_solve.launches}  # main path ends here
     prof = ctx.profile
+    if prof["host_prep_path"] != "native":
+        raise AssertionError(f"run_train prepared its slabs on the "
+                             f"{prof['host_prep_path']} path")
     per_iter = prof["launches"]
     if (len(per_iter) != TRAIN_ITERS
             or any(min(it.values()) < 1 for it in per_iter)
@@ -1078,7 +1154,8 @@ def phase_train(torch, dev, data: dict, registry) -> dict:
         "phase": "train",
         "instance": instance_id,
         "wall_s": wall_s,
-        "host_prep_s": {"generate": data["generate_s"],
+        "host_prep_s": {"path": prof["host_prep_path"],
+                        "generate": data["generate_s"],
                         "bucketize": prof["bucketize_s"], "sort": prof["sort_s"],
                         "stage": prof["stage_s"]},
         "levers": prof["levers"],
@@ -1693,6 +1770,330 @@ def phase_seqrec_slice(torch, dev, seed: int, registry, instance_id: str,
     return out
 
 
+def _http(port: int, method: str, path: str, body=None):
+    """One request to a local server: (status, decoded JSON body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        data = None if body is None else json.dumps(body)
+        conn.request(method, path, data, {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def synth_ml1m_events(seed: int):
+    """``synth_ml1m_histories(seed)`` as ``rate`` events: string ids
+    ``u<n>`` / ``i<n>``, a seeded rating in {0.5, 1.0, ..., 5.0}, and
+    event times that rise by one second an event, user after user, so each
+    user's history is its events in time order. Returns (events, user
+    ids, histories, ratings)."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.storage import Event
+
+    user_ids, seqs = synth_ml1m_histories(seed)
+    ratings = np.random.default_rng(seed + 3).integers(
+        1, 11, sum(map(len, seqs))).astype(np.float64) / 2
+    t0 = dt.datetime(2000, 1, 1, tzinfo=dt.timezone.utc)
+    second = dt.timedelta(seconds=1)
+    events, k = [], 0
+    for user, items in zip(user_ids, seqs):
+        for item in items:
+            events.append(Event(
+                event="rate", entity_type="user", entity_id=user,
+                target_entity_type="item", target_entity_id=item,
+                properties={"rating": float(ratings[k])},
+                event_time=t0 + k * second, creation_time=t0))
+            k += 1
+    return events, user_ids, seqs, ratings
+
+
+def events_through_the_server(base: str, events) -> dict:
+    """The Event Server over a SQLite app with an access key: 20 batch
+    POSTs of 50 events, single POSTs (one twice with one
+    ``idempotencyKey``), then reads by filter and by id, a DELETE, the
+    401 path and ``/stats.json``."""
+    from predictionio_tpu_torch.api import EventServerConfig, create_event_server
+    from predictionio_tpu_torch.storage import AccessKey, App, StorageRegistry
+
+    registry = StorageRegistry({"PIO_FS_BASEDIR": f"{base}/event_server"})
+    md = registry.get_metadata()
+    app_id = md.app_insert(App(id=0, name="chip-smoke"))
+    key = md.access_key_insert(AccessKey(key="", appid=app_id))
+    server = create_event_server(EventServerConfig(ip="127.0.0.1", port=0, stats=True),
+                                 registry=registry, block=False)
+    sent = events[: HTTP_BATCHES * HTTP_BATCH + HTTP_SINGLES]
+    wire = [e.to_json_dict() for e in sent]
+    seconds = {}
+    try:
+        port, q = server.bound_port, f"?accessKey={key}"
+        t = time.monotonic()
+        for b in range(HTTP_BATCHES):
+            status, results = _http(port, "POST", f"/batches/events.json{q}",
+                                    wire[b * HTTP_BATCH:(b + 1) * HTTP_BATCH])
+            if status != 200 or [r["status"] for r in results] != [201] * HTTP_BATCH:
+                raise AssertionError(f"batch {b}: {status} {results[:2]}")
+        seconds["batches"] = time.monotonic() - t
+        t = time.monotonic()
+        ids = []
+        for j, body in enumerate(wire[HTTP_BATCHES * HTTP_BATCH:]):
+            body = dict(body, idempotencyKey=f"smoke-{j}")
+            status, out = _http(port, "POST", f"/events.json{q}", body)
+            if status != 201:
+                raise AssertionError(f"single POST {j}: {status} {out}")
+            ids.append(out["eventId"])
+        status, again = _http(port, "POST", f"/events.json{q}",
+                              dict(wire[-HTTP_SINGLES], idempotencyKey="smoke-0"))
+        if status != 201 or again["eventId"] != ids[0]:
+            raise AssertionError(f"a repeated idempotencyKey gave {status} {again}")
+        seconds["singles"] = time.monotonic() - t
+        t = time.monotonic()
+        status, stored = _http(port, "GET", f"/events.json{q}&limit=-1")
+        key_of = lambda e: (e["entityId"], e["targetEntityId"], e["eventTime"],  # noqa: E731
+                            e["properties"]["rating"])
+        if status != 200 or sorted(map(key_of, stored)) != sorted(map(key_of, wire)):
+            raise AssertionError(f"read back {len(stored)} events of {len(wire)} sent")
+        status, one = _http(port, "GET", f"/events/{ids[1]}.json{q}")
+        if status != 200 or key_of(one) != key_of(wire[-HTTP_SINGLES + 1]):
+            raise AssertionError(f"GET by id: {status} {one}")
+        deleted = _http(port, "DELETE", f"/events/{ids[1]}.json{q}")
+        gone = _http(port, "GET", f"/events/{ids[1]}.json{q}")[0]
+        left = len(_http(port, "GET", f"/events.json{q}&limit=-1")[1])
+        unauthorized = _http(port, "POST", "/events.json?accessKey=wrong", wire[0])
+        _, stats = _http(port, "GET", f"/stats.json{q}")
+        seconds["reads"] = time.monotonic() - t
+    finally:
+        server.shutdown()
+        server.server_close()
+    posted = len(sent) + 1
+    codes = {c["key"]: c["value"] for c in stats["longLive"]["statusCode"]}
+    if (deleted != (200, {"message": "Found"}) or gone != 404 or left != len(sent) - 1
+            or unauthorized != (401, {"message": "Invalid accessKey."})
+            or codes != {201: posted}):
+        raise AssertionError(f"delete {deleted}, then {gone}, {left} left, "
+                             f"401 path {unauthorized}, stats {codes}")
+    return {"sent": len(sent), "posts": posted, "stored": len(stored),
+            "after_delete": left, "stats_201": codes[201], "seconds": seconds}
+
+
+def phase_events(torch, dev, seed: int, base: str) -> dict:
+    """The training infeed from events: ML-1M-shaped rate events bulk
+    written into the native event log through the registry's ``native``
+    family, 1,000 of them through the Event Server, the ratings scan
+    against the chunked path, then ALS (rank 50) and the sequence
+    recommender trained by ``run_train`` through the templates' own
+    DataSources and the ALS instance served over HTTP."""
+    import os
+
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.models import sequencerec as seq
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        flash_attention_fwd,
+        gramian_fused,
+        spd_solve,
+        top_k_streaming,
+        top_k_streaming_reference,
+    )
+    from predictionio_tpu_torch.storage import NativeEventStore, get_registry
+    from predictionio_tpu_torch.workflow import (
+        ServerConfig,
+        WorkflowContext,
+        create_query_server,
+        load_models,
+        run_train,
+        stream_ratings,
+    )
+    from predictionio_tpu_torch.workflow.infeed import _stream_ratings_chunked
+
+    seconds = {}
+    t = time.monotonic()
+    events, user_ids, seqs, ratings = synth_ml1m_events(seed)
+    seconds["generate"] = time.monotonic() - t
+
+    env = {
+        "PIO_STORAGE_SOURCES_EVENTLOG_TYPE": "native",
+        "PIO_STORAGE_SOURCES_EVENTLOG_PATH": f"{base}/event_log",
+        "PIO_STORAGE_SOURCES_LOCAL_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_LOCAL_PATH": f"{base}/events_phase",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "EVENTLOG",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "LOCAL",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "LOCAL",
+    }
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        registry = get_registry(refresh=True)
+        store = registry.get_events()
+        if not isinstance(store, NativeEventStore):
+            raise AssertionError(f"EVENTDATA resolved to {type(store).__name__}")
+        t = time.monotonic()
+        for j in range(0, len(events), EVENTS_WRITE_CHUNK):
+            store.write(events[j:j + EVENTS_WRITE_CHUNK], EVENTS_APP)
+        seconds["bulk_write"] = time.monotonic() - t
+        ingest = {"events": len(events), "seconds": seconds["bulk_write"],
+                  "events_per_s": len(events) / seconds["bulk_write"]}
+
+        t = time.monotonic()
+        served_events = events_through_the_server(base, events)
+        seconds["event_server"] = time.monotonic() - t
+
+        # the infeed: the C++ ratings scan against the chunked path
+        rules = {"rate": "rating"}
+        t = time.monotonic()
+        fast = stream_ratings(store, EVENTS_APP, rules)
+        seconds["scan_native"] = time.monotonic() - t
+        t = time.monotonic()
+        chunked = _stream_ratings_chunked(store, EVENTS_APP, rules)
+        seconds["scan_chunked"] = time.monotonic() - t
+        for name in ("users", "items", "ratings"):
+            a, b = getattr(fast, name), getattr(chunked, name)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"native scan {name} differs from the chunked path")
+        if (fast.user_map.to_dict() != chunked.user_map.to_dict()
+                or fast.item_map.to_dict() != chunked.item_map.to_dict()):
+            raise AssertionError("native scan id maps differ from the chunked path")
+        u_names = np.array([fast.user_map.inverse[i] for i in range(len(fast.user_map))])
+        i_names = np.array([fast.item_map.inverse[i] for i in range(len(fast.item_map))])
+        gen_users = np.repeat(np.array(user_ids), [len(s) for s in seqs])
+        gen_items = np.array([i for s in seqs for i in s])
+        if not (np.array_equal(u_names[fast.users], gen_users)
+                and np.array_equal(i_names[fast.items], gen_items)
+                and np.array_equal(fast.ratings, ratings.astype(np.float32))):
+            raise AssertionError("the scanned ratings are not the events written")
+
+        # ALS from the store: run_train through RecDataSource
+        params = rec.ALSAlgorithmParams(rank=RANK, num_iterations=TRAIN_ITERS,
+                                        lambda_=LAMBDA, seed=TRAIN_SEED)
+        ep = EngineParams(
+            data_source_params=("", rec.RecDataSourceParams(app_id=EVENTS_APP,
+                                                            event_names=("rate",))),
+            algorithm_params_list=[("als", params)])
+        ctx = WorkflowContext(device=dev)
+        ctx.profile = {}
+        gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+        t = time.monotonic()
+        als_instance = run_train(rec.engine_factory(), ep, registry,
+                                 engine_id="events-als", ctx=ctx)
+        seconds["als_run_train"] = time.monotonic() - t
+        als_launches = {"gramian_fused": gramian_fused.launches,
+                        "spd_solve": spd_solve.launches}  # main path ends here
+        if min(als_launches.values()) < 1 or ctx.profile["host_prep_path"] != "native":
+            raise AssertionError(f"ALS from events: {als_launches}, "
+                                 f"{ctx.profile['host_prep_path']}")
+        (model,) = load_models(registry, als_instance)
+        factors = als.ALSFactors(torch.from_numpy(model.user_factors).to(dev),
+                                 torch.from_numpy(model.item_factors).to(dev), RANK)
+        train_rmse = als.rmse(factors, fast.users, fast.items, fast.ratings)
+        if not np.isfinite(train_rmse):
+            raise AssertionError(f"ALS from events: train RMSE {train_rmse}")
+
+        # serve it: a burst of queries by string user id, held to the plain top-k
+        rng = np.random.default_rng(seed + 4)
+        users = [str(u) for u in rng.choice(user_ids, size=HTTP_QUERIES - 2, replace=False)]
+        bodies = [{"user": u, "num": 1 + j % 50} for j, u in enumerate(users)]
+        bodies += [{"user": "nobody-1", "num": 5}, {"user": "nobody-2", "num": 50}]
+        rows = torch.tensor([model.user_map[u] for u in users], device=dev)
+        want_s, want_i = (x.cpu().numpy() for x in top_k_streaming_reference(
+            factors.user_factors[rows].contiguous(), factors.item_factors, 50))
+        inv = model.item_map.inverse
+        server = create_query_server(
+            rec.engine_factory(),
+            ServerConfig(ip="127.0.0.1", port=0, device=dev,
+                         engine_instance_id=als_instance),
+            registry=registry, block=False)
+        try:
+            top_k_streaming.launches = 0  # main path starts here
+            t = time.monotonic()
+            with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+                answers = list(pool.map(lambda b: _post_query(server.bound_port, b),
+                                        bodies))
+            seconds["serve_burst"] = time.monotonic() - t
+            topk_launches = top_k_streaming.launches  # main path ends here
+        finally:
+            server.shutdown()
+            server.server_close()
+        bad = []
+        for j, (body, (status, data, _)) in enumerate(zip(bodies, answers)):
+            if status != 200:
+                bad.append((body, status))
+            elif j >= len(users):
+                if data != {"itemScores": []}:
+                    bad.append((body, data))
+            else:
+                k = min(body["num"], len(inv))
+                got = data["itemScores"]
+                got_s = np.array([x["score"] for x in got], dtype=np.float32)
+                close = len(got) == k and np.isclose(got_s, want_s[j][:k],
+                                                     rtol=RTOL, atol=ATOL)
+                same = np.array([x["item"] == inv[int(i)] for x, i in zip(got, want_i[j])])
+                if not (len(got) == k and np.all(close) and np.all(same | close)):
+                    bad.append((body, got[:3]))
+        if bad or topk_launches < 1:
+            raise AssertionError(f"served answers disagree: {bad[:3]}; "
+                                 f"{topk_launches} top-k launches")
+
+        # the sequence recommender from the store
+        seq_source = seq.SeqDataSource(seq.SeqDataSourceParams(
+            app_id=EVENTS_APP, event_names=("rate",)))
+        t = time.monotonic()
+        td = seq_source.read_training(None)
+        seconds["seq_read"] = time.monotonic() - t
+        if dict(zip(td.user_ids, td.sequences)) != dict(zip(user_ids, seqs)):
+            raise AssertionError("SeqDataSource histories differ from the generator's")
+        seq_params = seq.SeqRecAlgorithmParams(**dict(SEQ_PARAMS, steps=EVENTS_SEQ_STEPS))
+        seq_ep = EngineParams(
+            data_source_params=("", seq_source.params),
+            preparator_params=("", seq.SeqPreparatorParams(seq_len=SEQ_LEN,
+                                                           window_stride=SEQ_STRIDE)),
+            algorithm_params_list=[("transformer", seq_params)])
+        seq_ctx = WorkflowContext(device=dev)
+        seq_ctx.profile = {}
+        flash_attention_fwd.launches = 0  # main path starts here
+        t = time.monotonic()
+        seq_instance = run_train(seq.engine_factory(), seq_ep, registry,
+                                 engine_id="events-seqrec", ctx=seq_ctx)
+        seconds["seq_run_train"] = time.monotonic() - t
+        flash_launches = flash_attention_fwd.launches  # main path ends here
+        if flash_launches != seq_params.n_layers * EVENTS_SEQ_STEPS:
+            raise AssertionError(f"seqrec from events: {flash_launches} attention launches")
+        losses = seq_ctx.profile["losses"]
+        (seq_model,) = load_models(registry, seq_instance)
+        seq_model.sanity_check()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        get_registry(refresh=True)
+    out = {
+        "phase": "events",
+        "events": len(events), "users": len(user_ids), "items": len(fast.item_map),
+        "bulk_write": ingest,
+        "event_server": served_events,
+        "scan": {"native_s": seconds["scan_native"], "chunked_s": seconds["scan_chunked"],
+                 "ratings": int(len(fast.users)), "identical": True},
+        "als": {"instance": als_instance, "wall_s": seconds["als_run_train"],
+                "host_prep_s": {"path": ctx.profile["host_prep_path"],
+                                "bucketize": ctx.profile["bucketize_s"],
+                                "sort": ctx.profile["sort_s"],
+                                "stage": ctx.profile["stage_s"]},
+                "iteration_s": ctx.profile["iteration_s"], "launches": als_launches,
+                "train_rmse": train_rmse},
+        "serve": {"queries": len(bodies), "wrong": len(bad),
+                  "burst_s": seconds["serve_burst"], "launches": topk_launches},
+        "seqrec": {"instance": seq_instance, "wall_s": seconds["seq_run_train"],
+                   "steps": EVENTS_SEQ_STEPS, "launches": flash_launches,
+                   "loss_first": losses[0], "loss_last": losses[-1]},
+        "seconds": seconds,
+    }
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1736,6 +2137,7 @@ def main(argv=None) -> int:
                             registry)
         seq_sliced = timed("seqrec_slice", phase_seqrec_slice, torch, dev, args.seed,
                            registry, seq_trained["out"]["instance"], seq_trained["seqs"])
+        events = timed("events", phase_events, torch, dev, args.seed, base)
     emit({"phase_seconds": seconds})
 
     ref = main_shapes[1024]
@@ -1745,7 +2147,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": TOPK_SOURCE,
         "replaces": TOPK_REPLACES,
-        "launches": sliced["launches"],
+        "launches": sliced["launches"] + events["serve"]["launches"],
+        "launches_by_path": {"slice": sliced["launches"],
+                             "events_serve": events["serve"]["launches"]},
         "max_abs_err": max(m["max_abs_err"] for m in main_shapes.values()),
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
@@ -1766,7 +2170,9 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": trained["launches"][name],
+            "launches": trained["launches"][name] + events["als"]["launches"][name],
+            "launches_by_path": {"train": trained["launches"][name],
+                                 "events_als": events["als"]["launches"][name]},
             "max_abs_err": kernels["max_abs_err"][name],
             "ms": it["kernel_ms"],
             "plain_ms": it["plain_ms"],
@@ -1791,9 +2197,11 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": seq_trained["out"]["launches"] + seq_sliced["launches"],
+        "launches": (seq_trained["out"]["launches"] + seq_sliced["launches"]
+                     + events["seqrec"]["launches"]),
         "launches_by_path": {"seqrec_train": seq_trained["out"]["launches"],
-                             "seqrec_slice": seq_sliced["launches"]},
+                             "seqrec_slice": seq_sliced["launches"],
+                             "events_seqrec": events["seqrec"]["launches"]},
         "max_abs_err": attn["max_abs_err"],
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],

@@ -15,9 +15,11 @@ the model is attached (``prepare_serving`` at deploy, or the first
 query), and stay there; each batch copies only its user indices in and
 its ``[B, k]`` results out, in one copy each way.
 
-Reading training events waits for the port's event store
-(``RecDataSource.read_training`` raises): a caller hands ``run_train`` a
-DataSource of its own that returns :class:`TrainingData`. A model trained
+``RecDataSource.read_training`` reads the rate/buy events of its app
+from the registry's event store (``get_registry().get_events()``)
+through :func:`..workflow.infeed.stream_ratings` — on the native event
+log, one C++ pass — into :class:`TrainingData`; a caller may also hand
+``run_train`` a DataSource of its own. A model trained
 by the JAX package crosses over as arrays: :func:`als_model_from_numpy`
 builds the port's ``ALSModel`` from ``user_factors``, ``item_factors``
 and the two id maps' ``to_dict()``.
@@ -52,14 +54,8 @@ from ..ops.scoring import (
     top_k_for_users_fused,
     use_streaming_topk,
 )
-from ..storage import BiMap, IdsLike
-
-#: where reading training events lands in the port's plan
-TRAINING_NOT_PORTED = (
-    "reading training events is not ported yet (ROADMAP.md, queue 1: the "
-    "event store, DataSource and infeed); hand run_train a DataSource "
-    "whose read_training returns TrainingData"
-)
+from ..storage import BiMap, IdsLike, get_registry
+from ..workflow.infeed import stream_ratings
 
 QUANT_NOT_PORTED = (
     "quantized_serving is not ported yet (ROADMAP.md, queue 1); deploy "
@@ -127,16 +123,41 @@ class RecDataSourceParams(Params):
 
 
 class RecDataSource(DataSource):
-    """Declared so stored engine params parse; reading training events
-    waits for the port's event store."""
+    """Reads rate/buy events through the streaming infeed (reference
+    ``DataSource.scala:25-55`` via ``Storage.getPEvents().find``)."""
 
     params_class = RecDataSourceParams
 
     def __init__(self, params: RecDataSourceParams = RecDataSourceParams()):
         self.params = params
 
-    def read_training(self, ctx):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    def _value_rules(self) -> dict:
+        """Per-event value rule (the template's rate/buy pattern-match):
+        'rate' reads the required 'rating' property, 'buy' maps to a fixed
+        implicit rating."""
+        rules: dict = {}
+        for name in self.params.event_names:
+            if name == "rate":
+                rules[name] = "rating"
+            elif name == "buy":
+                rules[name] = self.params.buy_rating
+            else:
+                raise ValueError(
+                    f"Unsupported event {name!r} in recommendation "
+                    "DataSource (supported: 'rate', 'buy')"
+                )
+        return rules
+
+    def read_training(self, ctx) -> TrainingData:
+        rules = self._value_rules()  # a bad event name fails before any I/O
+        batch = stream_ratings(get_registry().get_events(), self.params.app_id, rules)
+        return TrainingData(
+            users=batch.users,
+            items=batch.items,
+            ratings=batch.ratings,
+            user_map=batch.user_map,
+            item_map=batch.item_map,
+        )
 
 
 class RecPreparator(Preparator):

@@ -19,8 +19,9 @@ custom VJP does. Serving runs one forward per query (the default
 ``batch_predict`` maps ``predict``, as in JAX) on a device copy of the
 weights built once, at ``prepare_serving``.
 
-Reading events waits for the port's event store
-(``SeqDataSource.read_training`` raises): a caller hands ``run_train`` a
+``SeqDataSource.read_training`` reads the app's view/buy events from
+the registry's event store (``get_registry().get_events()``) and orders
+each user's items by event time; a caller may also hand ``run_train`` a
 DataSource of its own that returns :class:`TrainingData`. A model
 trained by the JAX package crosses over as arrays:
 :func:`seqrec_model_from_numpy`.
@@ -49,14 +50,7 @@ from ..controller import (
 )
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import attention, check_dispatch
-from ..storage import BiMap, IdsLike
-
-#: where reading sequence events lands in the port's plan
-TRAINING_NOT_PORTED = (
-    "reading sequence events is not ported yet (ROADMAP.md, queue 1 item 2: "
-    "the event store, DataSource and infeed); hand run_train a DataSource "
-    "whose read_training returns sequencerec.TrainingData"
-)
+from ..storage import BiMap, EventFilter, IdsLike, get_registry
 
 #: inside the rsqrt, as ``_layer_norm`` in the JAX package (not torch's 1e-5)
 LN_EPS = 1e-6
@@ -131,8 +125,8 @@ class SeqDataSourceParams(Params):
 
 
 class SeqDataSource(DataSource):
-    """Declared so stored engine params parse; reading view/buy events
-    waits for the port's event store."""
+    """Orders each user's view/buy events by event time into one sequence
+    (the registry's event store, one columnar scan)."""
 
     params_class = SeqDataSourceParams
 
@@ -140,7 +134,25 @@ class SeqDataSource(DataSource):
         self.params = params
 
     def read_training(self, ctx) -> TrainingData:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+        store = get_registry().get_events()
+        cols = store.scan_columnar(
+            self.params.app_id,
+            EventFilter(event_names=list(self.params.event_names)),
+        )
+        by_user: Dict[str, List[Tuple[int, str]]] = {}
+        for uid, tid, tms in zip(
+            cols["entity_id"], cols["target_entity_id"],
+            cols["event_time_ms"].tolist(),
+        ):
+            if tid is None:
+                continue
+            by_user.setdefault(uid, []).append((tms, tid))
+        users, seqs = [], []
+        for uid, pairs in by_user.items():
+            pairs.sort(key=lambda p: p[0])  # stable: ties keep scan order
+            users.append(uid)
+            seqs.append([tid for _, tid in pairs])
+        return TrainingData(user_ids=users, sequences=seqs)
 
     def read_eval(self, ctx):
         """Leave-one-out: last item of each ≥2-length sequence is the label."""

@@ -6,9 +6,12 @@ Counterpart of ``predictionio_tpu/ops/als.py`` (single device): MLlib
 row's rating count — and the implicit-preference variant (Hu-Koren-
 Volinsky, ``c = 1 + α|r|``, ``p = 1[r > 0]``, with the global ``YᵀY``).
 
-Ratings are grouped into degree buckets (``bucketize``, the JAX
-package's numpy path, bit-identical): every row of a bucket is padded to
-the bucket's width K, so a bucket is one dense ``[B, K]`` problem. On a
+Ratings are grouped into degree buckets (``bucketize``: a threaded C++
+scatter, ``native/bucketize.cc``, bit-identical to the JAX package's
+numpy path, which stays here as its oracle): every row of a bucket is
+padded to the bucket's width K, so a bucket is one dense ``[B, K]``
+problem, and each row's ratings are then sorted by column index on the
+host, in place (``sort_bucket_indices``, the same library). On a
 CUDA device each bucket of a side is one launch of each hand-written
 kernel: ``gramian_fused`` builds the ``[B, R, R]`` systems from the
 ratings and the opposite factor table (no ``[B, K, R]`` gather in device
@@ -17,14 +20,16 @@ the build writes — so the TPU path's ``[B, R, R] → [R, R, B]`` transpose,
 and the width ≥ rank gate that priced it, do not exist here. On the CPU
 the plain PyTorch versions of both kernels run.
 
-Not ported here (ROADMAP.md): the native C++ bucketizer, meshes and
-sharded training, checkpoint resume, the jit telemetry and the
-first-iteration half split of the JAX trainer (the same math).
+Not ported here (ROADMAP.md): meshes and sharded training, checkpoint
+resume, the jit telemetry and the first-iteration half split of the JAX
+trainer (the same math).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..native import load_library
 from .cuda_kernels import (
     GRAMIAN_MAX_RANK,
     SPD_MAX_N,
@@ -82,6 +88,14 @@ class BucketedMatrix:
     buckets: List[Bucket]
 
 
+def host_prep_path() -> str:
+    """``"native"`` when ``bucketize`` and ``sort_bucket_indices`` take
+    the native library (the default), ``"numpy"`` when
+    ``PIO_NO_NATIVE_BUCKETIZE=1`` (the JAX package's switch) selects
+    their numpy paths; the trainer's profile records it."""
+    return "numpy" if os.environ.get("PIO_NO_NATIVE_BUCKETIZE") == "1" else "native"
+
+
 def bucketize(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -91,23 +105,60 @@ def bucketize(
     bucket_widths: Sequence[int] = DEFAULT_BUCKET_WIDTHS,
     pad_to_blocks: bool = False,
 ) -> BucketedMatrix:
-    """COO → degree-bucketed padded CSR (the JAX package's numpy path).
+    """COO → degree-bucketed padded CSR.
 
     Rows with degree above the largest width are truncated to it, keeping
     the first ratings in input order (with the default widths: beyond
     32,768 ratings per row). ``pad_to_blocks=True`` rounds each bucket up
     to its block size (``_BLOCK_ROWS``, right-sized by ``_alloc_block``)
     with sentinel rows. Column indices are uint16 whenever ``n_cols``
-    fits, as in the JAX package; :func:`stage` widens them to int32."""
+    fits, as in the JAX package; :func:`stage` widens them to int32.
+
+    Runs the native two-pass scatter (``native/bucketize.cc``) unless
+    ``PIO_NO_NATIVE_BUCKETIZE=1`` selects the numpy (argsort) path; both
+    give bit-identical arrays. A library that fails to build raises
+    ``NativeBuildError`` with the compiler's output: there is no quiet
+    downgrade to numpy."""
     nnz = len(rows)
     if nnz >= 2**31 or n_rows >= 2**31 or n_cols >= 2**31:
         raise ValueError("bucketize supports up to 2^31-1 ratings/ids")
     rows = np.ascontiguousarray(np.asarray(rows), dtype=np.int32)
     cols = np.ascontiguousarray(np.asarray(cols), dtype=np.int32)
     vals = np.ascontiguousarray(np.asarray(vals), dtype=np.float32)
+    if nnz and host_prep_path() == "native":
+        return _bucketize_native(
+            rows, cols, vals, n_rows, n_cols, bucket_widths, pad_to_blocks
+        )
     return _bucketize_numpy(
         rows, cols, vals, n_rows, n_cols, bucket_widths, pad_to_blocks
     )
+
+
+def _native_lib() -> ctypes.CDLL:
+    """The bucketize library with its entry points declared."""
+    lib = load_library("bucketize")
+    if not getattr(lib, "_pio_configured", False):
+        vp = ctypes.c_void_p
+        i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+        lib.pio_bucketize_fill.restype = ctypes.c_int
+        lib.pio_bucketize_fill.argtypes = [
+            i32p, i32p, f32p, ctypes.c_int64, ctypes.c_int64, i32p, i32p,
+            i32p, ctypes.c_int32, ctypes.POINTER(vp), ctypes.POINTER(f32p),
+            ctypes.c_int32,
+        ]
+        lib.pio_sort_rows.restype = ctypes.c_int
+        lib.pio_sort_rows.argtypes = [
+            vp, vp, vp, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ]
+        lib.pio_native_threads.restype = ctypes.c_int32
+        lib.pio_native_threads.argtypes = []
+        lib._pio_configured = True
+    return lib
+
+
+def native_threads() -> int:
+    """The most threads a native bucketize or sort call starts here."""
+    return int(_native_lib().pio_native_threads())
 
 
 def _idx_dtype(n_cols: int):
@@ -149,6 +200,76 @@ def _alloc_rows(sel, counts_clip, n_rows, width, pad_to_blocks):
     cnt = np.zeros(b_alloc, dtype=np.int32)
     cnt[:b] = counts_clip
     return rows_arr, cnt, b_alloc
+
+
+def _bucketize_native(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_rows: int,
+    n_cols: int,
+    bucket_widths: Sequence[int] = DEFAULT_BUCKET_WIDTHS,
+    pad_to_blocks: bool = False,
+) -> BucketedMatrix:
+    """Threaded two-pass scatter (no sort): numpy computes the O(n_rows)
+    bucket/slot assignment, C++ fills the padded slabs deterministically
+    (the JAX package's ``_bucketize_native``)."""
+    lib = _native_lib()
+    nnz = len(rows)
+    widths = np.asarray(sorted(bucket_widths), dtype=np.int32)
+    max_w = int(widths[-1])
+    idx_dtype = _idx_dtype(n_cols)
+    if nnz and (int(rows.min()) < 0 or int(rows.max()) >= n_rows):
+        raise ValueError(f"row ids must lie in [0, {n_rows})")
+    if nnz and (int(cols.min()) < 0 or int(cols.max()) >= n_cols):
+        raise ValueError(f"column ids must lie in [0, {n_cols})")
+    counts = np.bincount(rows, minlength=n_rows).astype(np.int32)
+    present = np.nonzero(counts)[0].astype(np.int32)  # ascending row ids
+    assignment = np.searchsorted(
+        widths, np.minimum(counts[present], max_w), side="left"
+    )
+
+    bucket_of = np.zeros(n_rows, dtype=np.int32)
+    slot_of = np.zeros(n_rows, dtype=np.int32)
+    slabs = []  # (rows, counts, idx, val, n_present) per width, empties too
+    for wi, width in enumerate(widths):
+        sel = present[assignment == wi]
+        bucket_of[sel] = wi
+        slot_of[sel] = np.arange(len(sel), dtype=np.int32)
+        cnt = np.minimum(counts[sel], int(width)).astype(np.int32)
+        rows_arr, cnt, b_alloc = _alloc_rows(sel, cnt, n_rows, width, pad_to_blocks)
+        slabs.append((
+            rows_arr,
+            cnt,
+            np.zeros(b_alloc * width, dtype=idx_dtype),
+            np.zeros(b_alloc * width, dtype=np.float32),
+            len(sel),
+        ))
+
+    i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+    voidp = ctypes.c_void_p
+    idx_ptrs = (voidp * len(widths))(*[s[2].ctypes.data_as(voidp) for s in slabs])
+    val_ptrs = (f32p * len(widths))(*[s[3].ctypes.data_as(f32p) for s in slabs])
+    rc = lib.pio_bucketize_fill(
+        rows.ctypes.data_as(i32p), cols.ctypes.data_as(i32p),
+        vals.ctypes.data_as(f32p), nnz, n_rows,
+        bucket_of.ctypes.data_as(i32p), slot_of.ctypes.data_as(i32p),
+        widths.ctypes.data_as(i32p), len(widths), idx_ptrs, val_ptrs,
+        1 if idx_dtype == np.uint16 else 0,
+    )
+    if rc != 0:
+        raise RuntimeError(f"pio_bucketize_fill failed rc={rc}")
+    buckets = [
+        Bucket(
+            rows=rows_arr,
+            idx=idx.reshape(len(rows_arr), int(w)),
+            val=val.reshape(len(rows_arr), int(w)),
+            counts=cnt,
+        )
+        for w, (rows_arr, cnt, idx, val, n_present) in zip(widths, slabs)
+        if n_present
+    ]
+    return BucketedMatrix(n_rows=n_rows, n_cols=n_cols, nnz=int(nnz), buckets=buckets)
 
 
 def _bucketize_numpy(
@@ -218,15 +339,56 @@ def _bucketize_numpy(
 
 def sort_bucket_indices(side: BucketedMatrix) -> BucketedMatrix:
     """Reorder each row's valid (idx, val) pairs ascending by column
-    index, so the build reads neighbouring factor rows together. The
-    per-row sums are permutation-invariant (the result changes only by
-    float reassociation). Padding past ``counts[i]`` keeps its place."""
+    index, stably and in place, so the build reads neighbouring factor
+    rows together; returns ``side``. The matrix the slabs hold does not
+    change, and the per-row sums are permutation-invariant (the result
+    changes only by float reassociation). Padding past ``counts[i]``
+    keeps its place.
+
+    The native per-row sort (``pio_sort_rows``, threaded over rows) runs
+    unless ``PIO_NO_NATIVE_BUCKETIZE=1`` selects the numpy argsort; both
+    leave bit-identical slabs. The sort stays on the host: the build
+    kernel's sum order, and so every parity test, rests on this order."""
+    if host_prep_path() == "numpy":
+        return _sort_bucket_indices_numpy(side)
+    lib = _native_lib()
+    for b in _sortable(side):
+        n, k = b.idx.shape
+        counts = np.ascontiguousarray(b.counts, dtype=np.int32)
+        rc = lib.pio_sort_rows(
+            b.idx.ctypes.data, b.val.ctypes.data, counts.ctypes.data, n, k,
+            1 if b.idx.dtype == np.uint16 else 0,
+        )
+        if rc != 0:
+            raise ValueError(f"bucket counts must lie in [0, {k}]")
+    return side
+
+
+def _sortable(side: BucketedMatrix) -> List[Bucket]:
+    """The buckets with rows to sort, checked for an in-place sort."""
     out = []
     for b in side.buckets:
         n, k = b.idx.shape
         if n == 0 or k <= 1:
-            out.append(b)
             continue
+        if b.idx.dtype not in (np.uint16, np.int32) or b.val.dtype != np.float32:
+            raise TypeError("bucket idx must be uint16 or int32 and val float32, "
+                            f"got {b.idx.dtype} and {b.val.dtype}")
+        for a in (b.idx, b.val):
+            if not (a.flags.c_contiguous and a.flags.writeable):
+                raise ValueError("bucket slabs must be C-contiguous and writeable")
+        out.append(b)
+    return out
+
+
+def _sort_bucket_indices_numpy(side: BucketedMatrix) -> BucketedMatrix:
+    """The numpy path of :func:`sort_bucket_indices` (a stable argsort
+    per bucket, padding keyed last, written back in place) — the native
+    sort's oracle."""
+    for b in _sortable(side):
+        k = b.idx.shape[1]
+        if np.any((b.counts < 0) | (b.counts > k)):
+            raise ValueError(f"bucket counts must lie in [0, {k}]")
         pos = np.arange(k, dtype=np.int64)[None, :]
         key = np.where(
             pos < b.counts[:, None].astype(np.int64),
@@ -234,14 +396,9 @@ def sort_bucket_indices(side: BucketedMatrix) -> BucketedMatrix:
             np.iinfo(np.int64).max,
         )
         order = np.argsort(key, axis=1, kind="stable")
-        out.append(
-            dataclasses.replace(
-                b,
-                idx=np.take_along_axis(b.idx, order, axis=1),
-                val=np.take_along_axis(b.val, order, axis=1),
-            )
-        )
-    return dataclasses.replace(side, buckets=out)
+        b.idx[...] = np.take_along_axis(b.idx, order, axis=1)
+        b.val[...] = np.take_along_axis(b.val, order, axis=1)
+    return side
 
 
 @dataclasses.dataclass(frozen=True)
@@ -474,8 +631,8 @@ def als_train(
 ) -> ALSFactors:
     """Alternating solves, items initialised and users solved first, for
     ``cfg.iterations``. ``by_user``/``by_item`` are both
-    :class:`BucketedMatrix` (host; sorted if the levers say so, then
-    staged to ``device``, default ``cuda:0``) or both
+    :class:`BucketedMatrix` (host; sorted in place if the levers say so,
+    then staged to ``device``, default ``cuda:0``) or both
     :class:`StagedMatrix` (already on a device, which is then the run's).
 
     ``init_item_factors`` (array or tensor ``[n_items, rank]``) replaces
@@ -557,12 +714,15 @@ def als_train_coo(
 ) -> ALSFactors:
     """COO triplets → bucketized both ways → :func:`als_train`. Buckets
     are not padded to blocks: the port launches one kernel per bucket,
-    so sentinel rows would be work for nothing (the result is the same)."""
+    so sentinel rows would be work for nothing (the result is the same).
+    ``profile`` also receives ``bucketize_s`` and ``host_prep_path``
+    (``"native"`` or ``"numpy"``, for the bucketize and the sort)."""
     t0 = time.monotonic()
     by_user = bucketize(users, items, ratings, n_users, n_items)
     by_item = bucketize(items, users, ratings, n_items, n_users)
     if profile is not None:
         profile["bucketize_s"] = time.monotonic() - t0
+        profile["host_prep_path"] = host_prep_path()
     return als_train(by_user, by_item, cfg, device=device,
                      init_item_factors=init_item_factors, profile=profile)
 

@@ -3,15 +3,22 @@
 Trimmed copy of ``predictionio_tpu/storage/bimap.py`` (``BiMap``, with
 the accessors serving uses, the ``string_int`` constructor the
 sequence recommender indexes its items with and ``from_ids``, which the
-weight carries build their id maps with; ``HashedIdMap``, ``EntityMap``
-and the vectorized constructors wait): the boundary between host-side
-string ids and the device's dense indices — the forward map turns a
-query's user id into a factor row, the inverse decodes top-k indices.
+weight carries build their id maps with, and the native batch id hash
+``_fnv1a64_batch`` the event log indexes its records by; ``HashedIdMap``,
+``EntityMap`` and the vectorized constructors wait): the boundary
+between host-side string ids and the device's dense indices — the
+forward map turns a query's user id into a factor row, the inverse
+decodes top-k indices.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Generic, Iterable, Mapping, Optional, Sequence, TypeVar, Union
+
+import numpy as np
+
+from ..native import load_library
 
 K = TypeVar("K")
 V = TypeVar("V")
@@ -114,3 +121,29 @@ class BiMap(Generic[K, V]):
                 f"(got {len(mapping)} ids for {rows} rows)"
             )
         return BiMap(mapping)
+
+
+def _fnv1a64_batch(keys: Sequence[str]) -> np.ndarray:
+    """uint64 FNV-1a hashes of ``keys`` (UTF-8) in one threaded native
+    call (``native/idhash.cc``): the event log's ``evlog_fnv1a64``. A
+    hash of 0 reads as 1 (0 means "no value" in a log header). The
+    library's salt stays 0 until ``HashedIdMap`` (ROADMAP.md, queue 1
+    item 7) needs it. A library that fails to build raises
+    ``NativeBuildError``: there is no slower Python path."""
+    lib = load_library("idhash")
+    if not getattr(lib, "_pio_configured", False):
+        lib.pio_fnv1a64_batch.restype = None
+        lib.pio_fnv1a64_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_uint64, ctypes.c_void_p,
+        ]
+        lib._pio_configured = True
+    encoded = [k.encode("utf-8") for k in keys]
+    buf = np.frombuffer(b"".join(encoded) or b"\0", dtype=np.uint8)
+    ends = np.cumsum([len(e) for e in encoded], dtype=np.int64)
+    out = np.empty(len(encoded), dtype=np.uint64)
+    if encoded:
+        lib.pio_fnv1a64_batch(
+            buf.ctypes.data, ends.ctypes.data, len(encoded), 0, out.ctypes.data
+        )
+    return out

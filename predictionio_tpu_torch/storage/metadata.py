@@ -1,11 +1,12 @@
-"""Engine-instance metadata on SQLite.
+"""Apps, access keys and engine-instance metadata on SQLite.
 
-Trimmed copy of ``predictionio_tpu/storage/metadata.py``: the
-``EngineInstance`` record, its status constants, ``new_engine_instance``
-and the engine-instance table of ``MetadataStore`` — what deploying
-needs. Apps, access keys, manifests, rollout plans and evaluation
-instances wait for their slices. The table layout is the JAX package's,
-so both packages can share one metadata file.
+Trimmed copy of ``predictionio_tpu/storage/metadata.py``: the ``App``
+and ``AccessKey`` records with their DAOs (what the Event Server
+authenticates against), the ``EngineInstance`` record, its status
+constants, ``new_engine_instance`` and the engine-instance table of
+``MetadataStore`` (what training and deploying need). Manifests, rollout
+plans and evaluation instances wait for their slices. The table layout
+is the JAX package's, so both packages can share one metadata file.
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ import dataclasses
 import datetime as _dt
 import json
 import os
+import secrets
 import sqlite3
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 UTC = _dt.timezone.utc
 
@@ -45,6 +47,24 @@ def _from_ms(ms: int) -> _dt.datetime:
 
 
 @dataclasses.dataclass(frozen=True)
+class App:
+    """``Apps.scala:15-30``."""
+
+    id: int
+    name: str
+    description: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class AccessKey:
+    """``AccessKeys.scala:17-22``; empty ``events`` allows all event names."""
+
+    key: str
+    appid: int
+    events: Sequence[str] = ()
+
+
+@dataclasses.dataclass(frozen=True)
 class EngineInstance:
     """Full record of one train/deploy run (``EngineInstances.scala:21-47``)."""
 
@@ -65,6 +85,11 @@ class EngineInstance:
 
 
 _SCHEMA = """
+CREATE TABLE IF NOT EXISTS pio_apps (
+  id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT UNIQUE NOT NULL,
+  description TEXT);
+CREATE TABLE IF NOT EXISTS pio_access_keys (
+  key TEXT PRIMARY KEY, appid INTEGER NOT NULL, events TEXT NOT NULL);
 CREATE TABLE IF NOT EXISTS pio_engine_instances (
   id TEXT PRIMARY KEY, status TEXT NOT NULL,
   start_time_ms INTEGER NOT NULL, end_time_ms INTEGER NOT NULL,
@@ -81,8 +106,9 @@ CREATE TABLE IF NOT EXISTS pio_sequences (
 
 
 class MetadataStore:
-    """The engine-instance DAO over one SQLite database (WAL, so a
-    training process and a query server can share the file)."""
+    """The app, access-key and engine-instance DAOs over one SQLite
+    database (WAL, so a training process, an Event Server and a query
+    server can share the file)."""
 
     def __init__(self, path: str = ":memory:"):
         self._path = path
@@ -118,6 +144,99 @@ class MetadataStore:
             self._conn.commit()
             return int(value)
 
+    # -- apps (Apps.scala DAO) --------------------------------------------
+    def app_insert(self, app: App) -> Optional[int]:
+        """Insert an app (``id`` 0 takes the next free id); None when the
+        id or name is taken."""
+        with self._lock:
+            try:
+                cur = self._conn.execute(
+                    "INSERT INTO pio_apps (id, name, description) VALUES (?,?,?)",
+                    (app.id if app.id else None, app.name, app.description),
+                )
+                self._conn.commit()
+                return int(cur.lastrowid)
+            except sqlite3.IntegrityError:
+                return None
+
+    def app_get(self, app_id: int) -> Optional[App]:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT id, name, description FROM pio_apps WHERE id = ?",
+                (app_id,),
+            ).fetchone()
+        return App(*row) if row else None
+
+    def app_get_by_name(self, name: str) -> Optional[App]:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT id, name, description FROM pio_apps WHERE name = ?",
+                (name,),
+            ).fetchone()
+        return App(*row) if row else None
+
+    def app_get_all(self) -> List[App]:
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT id, name, description FROM pio_apps ORDER BY id"
+            ).fetchall()
+        return [App(*r) for r in rows]
+
+    def app_update(self, app: App) -> bool:
+        with self._lock:
+            cur = self._conn.execute(
+                "UPDATE pio_apps SET name = ?, description = ? WHERE id = ?",
+                (app.name, app.description, app.id),
+            )
+            self._conn.commit()
+            return cur.rowcount > 0
+
+    def app_delete(self, app_id: int) -> bool:
+        with self._lock:
+            cur = self._conn.execute("DELETE FROM pio_apps WHERE id = ?", (app_id,))
+            self._conn.commit()
+            return cur.rowcount > 0
+
+    # -- access keys ------------------------------------------------------
+    def access_key_insert(self, ak: AccessKey) -> Optional[str]:
+        """Insert a key (an empty ``key`` is minted); None when taken."""
+        key = ak.key or secrets.token_urlsafe(48)
+        with self._lock:
+            try:
+                self._conn.execute(
+                    "INSERT INTO pio_access_keys (key, appid, events) VALUES (?,?,?)",
+                    (key, ak.appid, json.dumps(list(ak.events))),
+                )
+                self._conn.commit()
+                return key
+            except sqlite3.IntegrityError:
+                return None
+
+    def access_key_get(self, key: str) -> Optional[AccessKey]:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT key, appid, events FROM pio_access_keys WHERE key = ?",
+                (key,),
+            ).fetchone()
+        return AccessKey(row[0], row[1], tuple(json.loads(row[2]))) if row else None
+
+    def access_key_get_by_app(self, app_id: int) -> List[AccessKey]:
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT key, appid, events FROM pio_access_keys WHERE appid = ?",
+                (app_id,),
+            ).fetchall()
+        return [AccessKey(r[0], r[1], tuple(json.loads(r[2]))) for r in rows]
+
+    def access_key_delete(self, key: str) -> bool:
+        with self._lock:
+            cur = self._conn.execute(
+                "DELETE FROM pio_access_keys WHERE key = ?", (key,)
+            )
+            self._conn.commit()
+            return cur.rowcount > 0
+
+    # -- engine instances -------------------------------------------------
     def engine_instance_insert(self, inst: EngineInstance) -> str:
         iid = inst.id or f"EI-{self.gen_next('engine_instances'):08d}"
         with self._lock:

@@ -1,8 +1,10 @@
-"""Workflow runtime of the port: context, the train workflow, model
-persistence, the micro-batcher and the query server."""
+"""Workflow runtime of the port: context, the training infeed, the
+train workflow, model persistence, the micro-batcher and the query
+server."""
 
 from .context import WorkflowContext, pio_env_vars
 from .core_workflow import ForeignModelError, load_models, persist_instance, run_train
+from .infeed import RatingBatch, StreamingIndexer, stream_ratings
 from .serving import (
     Deployment,
     QueryServer,
@@ -15,7 +17,9 @@ __all__ = [
     "Deployment",
     "ForeignModelError",
     "QueryServer",
+    "RatingBatch",
     "ServerConfig",
+    "StreamingIndexer",
     "WorkflowContext",
     "create_query_server",
     "load_models",
@@ -23,4 +27,5 @@ __all__ = [
     "pio_env_vars",
     "prepare_deployment",
     "run_train",
+    "stream_ratings",
 ]

@@ -146,3 +146,26 @@ def test_kernel_source_names_what_it_replaces_and_its_ceiling(name, replaces, co
     assert "Bound at the" in src
     for const, value in constants.items():
         assert f"constexpr int {const} = {value};" in src
+
+
+def test_the_native_loader_builds_only_the_ports_own_sources():
+    from predictionio_tpu_torch import native
+
+    native_dir = PORT / "native"
+    assert pathlib.Path(native._HERE) == native_dir
+    assert pathlib.Path(native._BUILD_DIR) == native_dir / "_build"
+    listed = set()
+    for name in native.LIBRARIES:
+        for src in map(pathlib.Path, native.source_paths(name)):
+            assert src.parent == native_dir and src.exists(), src
+            listed.add(src.name)
+    assert listed == {p.name for p in native_dir.glob("*.cc")}
+    assert "predictionio_tpu_torch/native/_build/" in (REPO / ".gitignore").read_text()
+
+
+def test_no_port_file_names_the_jax_packages_native_sources():
+    files = [p for p in PORT.rglob("*") if p.is_file() and "_build" not in p.parts
+             and p.suffix in (".py", ".cc", ".h", ".cu", ".cuh")]
+    files.append(REPO / "chip_smoke.py")
+    offenders = [str(p) for p in files if "predictionio_tpu/native" in p.read_text()]
+    assert not offenders

@@ -353,7 +353,7 @@ def test_training_leaves_tf32_off():
     assert torch.get_float32_matmul_precision() == "highest"
 
 
-def test_what_the_port_cannot_train_is_refused():
+def test_what_the_port_cannot_train_is_refused(tmp_path, monkeypatch):
     _, pd_t = _prepared()
     for bad, exc in ((dict(schedule="ring"), NotImplementedError),
                      (dict(schedule="ulysses"), NotImplementedError),
@@ -362,8 +362,16 @@ def test_what_the_port_cannot_train_is_refused():
                                     device="cpu")
         with pytest.raises(exc):
             algo.train(None, pd_t)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tseq.SeqDataSource().read_training(None)
+    # reading events is ported (tests/test_torch_infeed.py): an app with
+    # no view/buy events reads as empty training data, which is refused
+    from predictionio_tpu_torch.storage import StorageRegistry, registry
+
+    monkeypatch.setattr(registry, "_default_registry",
+                        StorageRegistry({"PIO_FS_BASEDIR": str(tmp_path)}))
+    empty = tseq.SeqDataSource().read_training(None)
+    assert empty.user_ids == [] and empty.sequences == []
+    with pytest.raises(ValueError, match="No interaction sequences"):
+        empty.sanity_check()
 
 
 # -- serving ------------------------------------------------------------------

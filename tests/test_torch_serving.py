@@ -38,6 +38,7 @@ from predictionio_tpu_torch.models.recommendation import (
     ALSAlgorithmParams,
     Query,
     RecDataSource,
+    RecDataSourceParams,
     als_model_from_numpy,
     engine_factory,
 )
@@ -154,10 +155,12 @@ def test_algorithm_params_keep_the_jax_fields():
 
 
 def test_training_and_quantized_serving_are_refused(jax_model):
-    """Training runs in the port now (tests/test_torch_train.py); what is
-    still refused is reading training events and the unported levers."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RecDataSource().read_training(None)
+    """Training runs in the port now (tests/test_torch_train.py), from the
+    event store too (tests/test_torch_infeed.py); what is still refused is
+    an event name the template has no rule for, before any read, and the
+    unported levers."""
+    with pytest.raises(ValueError, match="Unsupported event 'like'"):
+        RecDataSource(RecDataSourceParams(event_names=("like",))).read_training(None)
     algo = ALSAlgorithm(ALSAlgorithmParams(rank=RANK, shards=2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         algo.train(None, None)
