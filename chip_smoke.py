@@ -127,6 +127,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    (top-k launches counted); ``SeqDataSource.read_training`` equal to the
    generator's histories, then a seqrec ``run_train`` of 20 steps from it
    (2 × 20 attention launches). Each stage's seconds are printed.
+12. ``eval`` — evaluation over the same store: ``tools.run_workflow.run``
+   (``pio eval``'s entry point) sweeps the recommendation template's
+   ``RecEvaluation`` × ``RecParamsGenerator`` from an engine project's
+   ``evaluation.py`` (rank 8 and 16 × λ 0.01 and 0.1, 10 iterations; 1 of
+   every 4 ratings held out, 250,053 queries from 1,000,209 events). The
+   top-k, build and solve launch counts are reset just before the call
+   and read just after. Each stage's seconds (``read_eval``, train and
+   ``batch_predict`` per candidate, the top-k call, the metric, the whole
+   run), Precision@10 per candidate and the best one; the evaluation
+   instance is EVALCOMPLETED and ``best.json`` names the best candidate.
+   Held: every served answer against ``torch.topk(uf[idx] @ itf.T)`` on
+   the card (0 wrong ids outside ties, rtol/atol 1e-5), Precision@10 from
+   the oracle's ids equal to the evaluator's but for queries whose actual
+   item ties the 10th score, the build and the solve at ranks 8 and 16
+   against their plain versions on every users' bucket (the tolerances of
+   ``train_kernels``), and the top-k at the padded B = 262,144 timed
+   beside its bound. Then ``Engine.eval`` of the sequence template's
+   leave-one-out split (6,040 queries, 300 training steps): attention
+   launches = 2 × (steps + forwards), the first 64 answers equal the
+   plain forward's, ids exactly; HR@10 for information.
+13. ``kernel_large`` — the top-k at B = 262,144 and at B = 600,000 (above
+   one launch's 524,280 queries: two launches into one output), N =
+   3,706, R = 16, k = 16, held against the plain version in chunks of
+   65,536 rows (0 wrong ids outside ties) and timed beside the plain
+   version (in those chunks), ``torch.topk(q @ items.T)`` and the bound.
 
 Then the phases' wall times, one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
@@ -146,6 +171,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -191,6 +217,32 @@ HR_USERS, SEQ_HTTP_ROUNDS = 1000, 2
 #: POSTs), the seqrec steps trained from the store, queries served
 EVENTS_APP, HTTP_BATCHES, HTTP_BATCH, HTTP_SINGLES = 1, 20, 50, 10
 EVENTS_SEQ_STEPS, EVENTS_WRITE_CHUNK = 20, 100_000
+#: the top-k batches above and near one launch's cap: the eval phase's
+#: padded batch of held-out queries and one that takes two launches, at
+#: ML-1M's catalog, rank 16, k 16 (B, N, R, k); the plain version and the
+#: oracle run in chunks of this many rows
+TOPK_LARGE = ((262144, 3706, 16, 16), (600000, 3706, 16, 16))
+ORACLE_CHUNK = 65536
+#: the eval phase: the metric's cut-off and relevance threshold (the
+#: template's), the seqrec answers held to the plain forward
+EVAL_K, EVAL_THRESHOLD, EVAL_SEQ_HELD = 10, 4.0, 64
+#: the eval phase's engine project: the recommendation template's
+#: evaluation module as ``pio template get`` lays it out, writing the best
+#: variant to best.json beside it
+EVALUATION_PY = '''"""Precision@10 over the template's rank x lambda grid."""
+
+import os
+
+from predictionio_tpu_torch.models.recommendation import RecParamsGenerator  # noqa: F401
+from predictionio_tpu_torch.models.recommendation import RecEvaluation as _Template
+
+
+class RecEvaluation(_Template):
+    def __init__(self):
+        super().__init__()
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.evaluator.output_path = os.path.join(here, "best.json")
+'''
 
 
 def emit(obj) -> None:
@@ -390,6 +442,14 @@ def agreement(got, want):
     return err, ok
 
 
+def wrong_outside_ties(got, want) -> int:
+    """Slots whose id differs from the plain version's while their scores
+    do not tie (rtol/atol 1e-5)."""
+    s_k, i_k = (t.cpu().numpy() for t in got)
+    s_p, i_p = (t.cpu().numpy() for t in want)
+    return int(((i_k != i_p) & ~np.isclose(s_k, s_p, rtol=RTOL, atol=ATOL)).sum())
+
+
 def phase_device(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -528,6 +588,79 @@ def phase_kernel(torch, dev, rng) -> dict:
     else:
         raise AssertionError("k above the kernel ceiling did not raise")
     return main
+
+
+def traced_device_ms(torch, fn, iters: int, ops_per_call: int):
+    """:func:`device_time`'s ms for a call of several milliseconds, or None
+    (not measured) when the profiler's trace holds fewer device ops a call
+    than the call launches: at these shapes it has dropped some of the
+    top-k launches made through ``ctypes`` (0.405 ms read for a 13.4 ms
+    call) and once all of them. The CUDA-event time stands beside it."""
+    try:
+        on_card = device_time(torch, fn, iters)
+    except AssertionError:  # the trace held no device op at all
+        return None
+    return on_card["ms"] if on_card["ops_per_call"] >= ops_per_call else None
+
+
+def topk_large_batches(torch, dev, rng) -> dict:
+    """The top-k at the batches of ``TOPK_LARGE``: one call of the wrapper
+    (B = 600,000 is cut into two launches of at most ``TOPK_MAX_BATCH``
+    rows), held against the plain version in chunks of ``ORACLE_CHUNK``
+    rows (scores rtol/atol 1e-5, ids equal or tied), then timed beside the
+    plain version (in the same chunks) and ``torch.topk(q @ items.T)``."""
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        top_k_streaming,
+        top_k_streaming_reference,
+        topk_batch_slices,
+        topk_launch_plan,
+    )
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for b, n, r, k in TOPK_LARGE:
+        q = torch.from_numpy(rng.standard_normal((b, r), dtype=np.float32)).to(dev)
+        items = torch.from_numpy(rng.standard_normal((n, r), dtype=np.float32)).to(dev)
+        slices = topk_batch_slices(b)
+        before = top_k_streaming.launches
+        got = top_k_streaming(q, items, k)
+        torch.cuda.synchronize()
+        launches = top_k_streaming.launches - before
+        err, ok, wrong = 0.0, True, 0
+        for start in range(0, b, ORACLE_CHUNK):
+            stop = min(start + ORACLE_CHUNK, b)
+            want = top_k_streaming_reference(q[start:stop], items, k)
+            part = (got[0][start:stop], got[1][start:stop])
+            e, agree = agreement(part, want)
+            err, ok = max(err, e), ok and agree
+            wrong += wrong_outside_ties(part, want)
+
+        def plain():
+            return [top_k_streaming_reference(q[s:s + ORACLE_CHUNK], items, k)
+                    for s in range(0, b, ORACLE_CHUNK)]
+
+        kernel = lambda: top_k_streaming(q, items, k)  # noqa: E731
+        library = lambda: torch.topk(q @ items.T, k, dim=1)  # noqa: E731
+        bound_ms, bound_by = topk_bound(b, n, r, k)
+        plan = topk_launch_plan(slices[0][1] - slices[0][0], n, min(k, n), sm_count, r)
+        line = {"case": f"large_B{b}", "B": b, "N": n, "R": r, "k": k,
+                "slices": slices, "launches": launches,
+                "T": plan.tiles_per_block, "n_runs": plan.n_runs,
+                "stage1": "running_list" if plan.stage1_smem else "tile_sort",
+                "max_abs_err": err, "agree": ok, "wrong_ids_outside_ties": wrong,
+                "kernel_ms": time_ms(torch, kernel, 10, 2),
+                "kernel_device_ms": traced_device_ms(torch, kernel, 5, 2 * len(slices)),
+                "plain_chunked_ms": time_ms(torch, plain, 2, 1),
+                "library_ms": time_ms(torch, library, 5, 1),
+                "library_device_ms": traced_device_ms(torch, library, 3, 2),
+                "bound_us": bound_ms * 1e3, "bound_by": bound_by}
+        emit({"phase": "kernel", **line})
+        if not ok or launches != len(slices):
+            raise AssertionError(f"top-k at B = {b} disagrees with plain: {line}")
+        out[b] = line
+        del q, items, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def topk_plan_variants(torch, dev, seed: int = 0, blocks_per_sm=(1, 2, 3, 4)) -> None:
@@ -1877,41 +2010,16 @@ def events_through_the_server(base: str, events) -> dict:
             "after_delete": left, "stats_201": codes[201], "seconds": seconds}
 
 
-def phase_events(torch, dev, seed: int, base: str) -> dict:
-    """The training infeed from events: ML-1M-shaped rate events bulk
-    written into the native event log through the registry's ``native``
-    family, 1,000 of them through the Event Server, the ratings scan
-    against the chunked path, then ALS (rank 50) and the sequence
-    recommender trained by ``run_train`` through the templates' own
-    DataSources and the ALS instance served over HTTP."""
+@contextlib.contextmanager
+def events_store(base: str):
+    """The process-wide registry of the events phase's store for the
+    block: EVENTDATA on the native event log under ``base`` (the same
+    log in every block), metadata and models on SQLite beside it. The
+    ``PIO_STORAGE_*`` variables are restored, and the registry rebuilt,
+    after it."""
     import os
 
-    from predictionio_tpu_torch.models import recommendation as rec
-    from predictionio_tpu_torch.models import sequencerec as seq
-    from predictionio_tpu_torch.controller import EngineParams
-    from predictionio_tpu_torch.ops import als
-    from predictionio_tpu_torch.ops.cuda_kernels import (
-        flash_attention_fwd,
-        gramian_fused,
-        spd_solve,
-        top_k_streaming,
-        top_k_streaming_reference,
-    )
     from predictionio_tpu_torch.storage import NativeEventStore, get_registry
-    from predictionio_tpu_torch.workflow import (
-        ServerConfig,
-        WorkflowContext,
-        create_query_server,
-        load_models,
-        run_train,
-        stream_ratings,
-    )
-    from predictionio_tpu_torch.workflow.infeed import _stream_ratings_chunked
-
-    seconds = {}
-    t = time.monotonic()
-    events, user_ids, seqs, ratings = synth_ml1m_events(seed)
-    seconds["generate"] = time.monotonic() - t
 
     env = {
         "PIO_STORAGE_SOURCES_EVENTLOG_TYPE": "native",
@@ -1929,6 +2037,51 @@ def phase_events(torch, dev, seed: int, base: str) -> dict:
         store = registry.get_events()
         if not isinstance(store, NativeEventStore):
             raise AssertionError(f"EVENTDATA resolved to {type(store).__name__}")
+        yield registry
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        get_registry(refresh=True)
+
+
+def phase_events(torch, dev, seed: int, base: str) -> dict:
+    """The training infeed from events: ML-1M-shaped rate events bulk
+    written into the native event log through the registry's ``native``
+    family, 1,000 of them through the Event Server, the ratings scan
+    against the chunked path, then ALS (rank 50) and the sequence
+    recommender trained by ``run_train`` through the templates' own
+    DataSources and the ALS instance served over HTTP."""
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.models import sequencerec as seq
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        flash_attention_fwd,
+        gramian_fused,
+        spd_solve,
+        top_k_streaming,
+        top_k_streaming_reference,
+    )
+    from predictionio_tpu_torch.workflow import (
+        ServerConfig,
+        WorkflowContext,
+        create_query_server,
+        load_models,
+        run_train,
+        stream_ratings,
+    )
+    from predictionio_tpu_torch.workflow.infeed import _stream_ratings_chunked
+
+    seconds = {}
+    t = time.monotonic()
+    events, user_ids, seqs, ratings = synth_ml1m_events(seed)
+    seconds["generate"] = time.monotonic() - t
+
+    with events_store(base) as registry:
+        store = registry.get_events()
         t = time.monotonic()
         for j in range(0, len(events), EVENTS_WRITE_CHUNK):
             store.write(events[j:j + EVENTS_WRITE_CHUNK], EVENTS_APP)
@@ -2062,13 +2215,6 @@ def phase_events(torch, dev, seed: int, base: str) -> dict:
         losses = seq_ctx.profile["losses"]
         (seq_model,) = load_models(registry, seq_instance)
         seq_model.sanity_check()
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        get_registry(refresh=True)
     out = {
         "phase": "events",
         "events": len(events), "users": len(user_ids), "items": len(fast.item_map),
@@ -2089,6 +2235,375 @@ def phase_events(torch, dev, seed: int, base: str) -> dict:
                    "steps": EVENTS_SEQ_STEPS, "launches": flash_launches,
                    "loss_first": losses[0], "loss_last": losses[-1]},
         "seconds": seconds,
+    }
+    emit(out)
+    return out
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, wrap):
+    """``owner.name`` replaced by ``wrap(original)`` for the block (an
+    attribute inherited from a base class is removed again after it)."""
+    own = name in vars(owner)
+    original = getattr(owner, name)
+    setattr(owner, name, wrap(original))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(owner, name, original)
+        else:
+            delattr(owner, name)
+
+
+def eval_oracle(torch, dev, cand: dict, qa) -> dict:
+    """One candidate's served answers to every held-out query against
+    ``torch.topk(uf[idx] @ itf.T)`` on the card, in chunks of
+    ``ORACLE_CHUNK`` rows: a served slot is wrong when its id is not the
+    oracle's and its true score does not tie the oracle's at that slot
+    (rtol/atol 1e-5), or when its served score is not its true score.
+    Then Precision@K from the oracle's ids: a query's point may differ
+    from the served one only where the actual item's score ties the k-th
+    (counted as ``tie_queries``)."""
+    model, answers = cand["model"], cand["answers"]
+    umap, imap = model.user_map, model.item_map
+    uf = torch.from_numpy(model.user_factors).to(dev)
+    itf = torch.from_numpy(model.item_factors).to(dev)
+    relevant = np.array([a.score >= EVAL_THRESHOLD for _, a in qa])
+    known = np.array([umap.get(q.user) is not None for q, _ in qa])
+    for j, (q, _) in enumerate(qa):
+        n_got = len(answers[j].item_scores)
+        if n_got != (min(q.num, len(imap)) if known[j] else 0):
+            raise AssertionError(f"query {j} ({q.user}) answered {n_got} items")
+    rows = np.array([umap[q.user] for (q, _), k in zip(qa, known) if k], dtype=np.int64)
+    idx = np.flatnonzero(known)
+    served = np.array([[imap[x.item] for x in answers[j].item_scores] for j in idx],
+                      dtype=np.int64)
+    served_s = np.array([[x.score for x in answers[j].item_scores] for j in idx],
+                        dtype=np.float32)
+    actual = np.array([-1 if imap.get(qa[j][1].item) is None else imap[qa[j][1].item]
+                       for j in idx], dtype=np.int64)
+    wrong = ties = bad_scores = duplicates = 0
+    oracle_hit = np.zeros(len(idx), dtype=bool)
+    boundary = np.zeros(len(idx), dtype=bool)
+    for start in range(0, len(idx), ORACLE_CHUNK):
+        stop = min(start + ORACLE_CHUNK, len(idx))
+        scores = uf[torch.from_numpy(rows[start:stop]).to(dev)] @ itf.T
+        vals, ids = torch.topk(scores, EVAL_K, dim=1)
+        got = torch.from_numpy(served[start:stop]).to(dev)
+        true = scores.gather(1, got)
+        same = ids == got
+        tied = torch.isclose(true, vals, rtol=RTOL, atol=ATOL)
+        wrong += int((~(same | tied)).sum())
+        ties += int((~same & tied).sum())
+        bad_scores += int((~torch.isclose(torch.from_numpy(served_s[start:stop]).to(dev),
+                                          true, rtol=RTOL, atol=ATOL)).sum())
+        ordered = torch.sort(got, dim=1).values
+        duplicates += int((ordered[:, 1:] == ordered[:, :-1]).sum())
+        act = torch.from_numpy(actual[start:stop]).to(dev)
+        oracle_hit[start:stop] = ((ids == act[:, None]).any(dim=1) & (act >= 0)).cpu().numpy()
+        s_act = scores.gather(1, act.clamp_min(0)[:, None])[:, 0]
+        boundary[start:stop] = ((act >= 0) & torch.isclose(
+            s_act, vals[:, -1], rtol=RTOL, atol=ATOL)).cpu().numpy()
+        del scores
+    served_hit = np.array([qa[j][1].item in {x.item for x in answers[j].item_scores[:EVAL_K]}
+                           for j in idx])
+    rel_known = relevant[idx]
+    n_relevant = int(relevant.sum())
+    differ = rel_known & (served_hit != oracle_hit)
+    return {
+        "queries": len(qa), "known_users": int(known.sum()), "relevant": n_relevant,
+        "wrong_ids_outside_ties": wrong, "tied_slots": ties, "bad_scores": bad_scores,
+        "duplicate_ids": duplicates,
+        "precision_served": float(served_hit[rel_known].sum()) / n_relevant,
+        "precision_oracle": float(oracle_hit[rel_known].sum()) / n_relevant,
+        "differing_points": int(differ.sum()),
+        "tie_queries": int((differ & boundary).sum()),
+        "untied_differing_points": int((differ & ~boundary).sum()),
+    }
+
+
+def eval_train_kernels(torch, dev, cand: dict) -> dict:
+    """The build and the solve at a candidate's rank, held against their
+    plain versions on the card as ``phase_train_kernels`` holds them (the
+    build to rtol/atol 1e-4 with A exactly symmetric, the solve to
+    relative error 1e-4): every bucket of the users' side of its training
+    split, built from its trained item factors."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        gramian_fused,
+        gramian_fused_reference,
+        spd_solve,
+        spd_solve_reference,
+    )
+
+    pd, model = cand["pd"], cand["model"]
+    side = als.sort_bucket_indices(als.bucketize(
+        pd.users, pd.items, pd.ratings, len(pd.user_map), len(pd.item_map)))
+    staged = als.stage(side, dev)
+    y = torch.from_numpy(model.item_factors).to(dev)
+    build_err = solve_rel = 0.0
+    widths = []
+    for bucket in staged.buckets:
+        w2, rhs, ridge = als._bucket_system_weights(bucket, False, cand["lambda"], 1.0)
+        a_k, b_k = gramian_fused(y, bucket.idx, w2, rhs, ridge)
+        x_k = spd_solve(a_k, b_k)
+        torch.cuda.synchronize()
+        a_p, b_p = gramian_fused_reference(y, bucket.idx, w2, rhs, ridge)
+        x_p = spd_solve_reference(a_k, b_k)
+        built = bool(torch.isfinite(a_k).all() and torch.isfinite(b_k).all()
+                     and torch.allclose(a_k, a_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+                     and torch.allclose(b_k, b_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+                     and torch.equal(a_k, a_k.transpose(1, 2)))
+        rel = float(((x_k - x_p).norm(dim=1) / x_p.norm(dim=1).clamp_min(1e-30)).max())
+        if not (built and torch.isfinite(x_k).all() and rel < KERNEL_TOL):
+            raise AssertionError(f"rank {cand['rank']} bucket K={bucket.idx.shape[1]}: "
+                                 f"build agrees {built}, solve relative error {rel}")
+        build_err = max(build_err, float((a_k - a_p).abs().max()),
+                        float((b_k - b_p).abs().max()))
+        solve_rel = max(solve_rel, rel)
+        widths.append(list(bucket.idx.shape))
+    return {"rank": cand["rank"], "buckets": widths, "build_max_abs_err": build_err,
+            "solve_max_rel_err": solve_rel}
+
+
+def phase_eval(torch, dev, seed: int, base: str) -> dict:
+    """Evaluation over the events phase's store (1,000,209 rate events of
+    6,040 users and 3,706 items): ``tools.run_workflow.run`` sweeps the
+    recommendation template's ``RecEvaluation`` × ``RecParamsGenerator``
+    (rank 8 and 16 × λ 0.01 and 0.1, 10 iterations) on the card, every
+    served answer held to ``torch.topk`` and Precision@10 to the oracle's;
+    then ``Engine.eval`` of the sequence template's leave-one-out split."""
+    import os
+
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.models import sequencerec as seq
+    from predictionio_tpu_torch.ops.attention import flash_attention
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        flash_attention_fwd,
+        gramian_fused,
+        spd_solve,
+        top_k_streaming,
+        topk_launch_plan,
+    )
+    from predictionio_tpu_torch.ops.scoring import pad_pow2
+    from predictionio_tpu_torch.storage import STATUS_EVALCOMPLETED
+    from predictionio_tpu_torch.tools import run_workflow
+    from predictionio_tpu_torch.workflow import WorkflowContext
+
+    engine_dir = os.path.join(base, "eval_engine")
+    os.makedirs(engine_dir, exist_ok=True)
+    with open(os.path.join(engine_dir, "evaluation.py"), "w") as fh:
+        fh.write(EVALUATION_PY)
+    if rec.RecParamsGenerator().engine_params_list[0].data_source_params[1].app_id != EVENTS_APP:
+        raise AssertionError("the generator's app is not the events phase's")
+    seconds = {"read_eval": [], "train": [], "batch_predict": [], "topk_call": [],
+               "metric": []}
+    cands, state, lock = [], {}, threading.Lock()
+
+    def stamp(key, fn, *a):
+        t = time.monotonic()
+        out = fn(*a)
+        with lock:
+            seconds[key].append(time.monotonic() - t)
+        return out
+
+    def read_eval(orig):
+        def wrapped(self, ctx):
+            folds = stamp("read_eval", orig, self, ctx)
+            state.setdefault("qa", folds[0][2])
+            return folds
+        return wrapped
+
+    def train(orig):
+        def wrapped(self, ctx, pd):
+            model = stamp("train", orig, self, ctx, pd)
+            with lock:
+                cands.append({"rank": self.params.rank, "lambda": self.params.lambda_,
+                              "pd": pd, "model": model,
+                              "thread": threading.current_thread().name})
+            return model
+        return wrapped
+
+    def batch_predict(orig):
+        def wrapped(self, model, indexed):
+            out = stamp("batch_predict", orig, self, model, indexed)
+            with lock:
+                cand = next(c for c in cands if c["model"] is model)
+                cand["answers"] = dict(out)
+            return out
+        return wrapped
+
+    def fused_topk(orig):
+        def wrapped(*a, **kw):
+            return stamp("topk_call", lambda: (orig(*a, **kw), torch.cuda.synchronize())[0])
+        return wrapped
+
+    def calculate(orig):
+        def wrapped(self, ctx, data):
+            return stamp("metric", orig, self, ctx, data)
+        return wrapped
+
+    args = run_workflow.build_parser().parse_args([
+        "--engine-dir", engine_dir,
+        "--evaluation-class", "evaluation:RecEvaluation",
+        "--engine-params-generator-class", "evaluation:RecParamsGenerator"])
+    with events_store(base) as registry:
+        with contextlib.ExitStack() as stack:
+            for owner, name, wrap in (
+                    (rec.RecDataSource, "read_eval", read_eval),
+                    (rec.ALSAlgorithm, "train", train),
+                    (rec.ALSAlgorithm, "batch_predict", batch_predict),
+                    (rec, "top_k_for_users_fused", fused_topk),
+                    (rec.PrecisionAtK, "calculate", calculate)):
+                stack.enter_context(patched(owner, name, wrap))
+            # main path starts here
+            top_k_streaming.launches = gramian_fused.launches = spd_solve.launches = 0
+            t = time.monotonic()
+            instance_id = run_workflow.run(args, registry, device=dev)
+            seconds["run"] = time.monotonic() - t
+            launches = {"topk_streaming": top_k_streaming.launches,
+                        "gramian_fused": gramian_fused.launches,
+                        "spd_solve": spd_solve.launches}  # main path ends here
+        row = registry.get_metadata().evaluation_instance_get(instance_id)
+        if row is None or row.status != STATUS_EVALCOMPLETED or not row.evaluator_results_json:
+            raise AssertionError(f"evaluation instance {instance_id}: {row}")
+        result = json.loads(row.evaluator_results_json)
+        with open(os.path.join(engine_dir, "best.json")) as fh:
+            best = json.load(fh)
+        if best["algorithms"] != result["bestEngineParams"]["algorithms"]:
+            raise AssertionError(f"best.json {best['algorithms']} is not the best "
+                                 f"candidate {result['bestEngineParams']['algorithms']}")
+        if min(launches.values()) < 1 or len(cands) != 4:
+            raise AssertionError(f"eval launches {launches}, {len(cands)} candidates")
+
+        qa = state["qa"]
+        by_params = {(s["engineParams"]["algorithms"][0]["params"]["rank"],
+                      s["engineParams"]["algorithms"][0]["params"]["lambda_"]): s["score"]
+                     for s in result["scores"]}
+        sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+        candidates, held = [], {}
+        for j, cand in enumerate(cands):
+            check = eval_oracle(torch, dev, cand, qa)
+            score = by_params[(cand["rank"], cand["lambda"])]
+            check.update(rank=cand["rank"], lambda_=cand["lambda"], precision=score,
+                         thread=cand["thread"],
+                         train_s=seconds["train"][j],
+                         batch_predict_s=seconds["batch_predict"][j],
+                         topk_call_s=seconds["topk_call"][j])
+            model = cand["model"]
+            b = check["known_users"]
+            b_pad = pad_pow2(b)
+            plan = topk_launch_plan(b_pad, model.item_factors.shape[0], 16, sm_count,
+                                    cand["rank"])
+            q = torch.from_numpy(model.user_factors).to(dev)[
+                torch.from_numpy(np.resize(np.arange(model.user_factors.shape[0]), b_pad))
+                .to(dev)].contiguous()
+            itf = torch.from_numpy(model.item_factors).to(dev)
+            kernel = lambda: top_k_streaming(q, itf, 16)  # noqa: E731
+            bound_ms, bound_by = topk_bound(b_pad, itf.shape[0], cand["rank"], 16)
+            check["topk"] = {"B": b_pad, "N": itf.shape[0], "R": cand["rank"], "k": 16,
+                             "T": plan.tiles_per_block, "n_runs": plan.n_runs,
+                             "kernel_ms": time_ms(torch, kernel, 10, 2),
+                             "kernel_device_ms": traced_device_ms(torch, kernel, 5, 2),
+                             "bound_us": bound_ms * 1e3, "bound_by": bound_by}
+            ok = (check["wrong_ids_outside_ties"] == 0 and check["bad_scores"] == 0
+                  and check["duplicate_ids"] == 0
+                  and check["untied_differing_points"] == 0
+                  and check["precision_served"] == score)
+            emit({"phase": "eval", "candidate": j, **check})
+            if not ok:
+                raise AssertionError(f"candidate {j} disagrees with the oracle: {check}")
+            candidates.append(check)
+            if cand["rank"] not in held:
+                held[cand["rank"]] = eval_train_kernels(torch, dev, cand)
+                emit({"phase": "eval", "train_kernels": held[cand["rank"]]})
+            del q, itf
+        del cands[:]
+        torch.cuda.empty_cache()
+
+        # the sequence recommender's leave-one-out evaluation
+        seq_params = seq.SeqRecAlgorithmParams(**SEQ_PARAMS)
+        seq_ep = EngineParams(
+            data_source_params=("", seq.SeqDataSourceParams(app_id=EVENTS_APP,
+                                                             event_names=("rate",))),
+            preparator_params=("", seq.SeqPreparatorParams(seq_len=SEQ_LEN,
+                                                           window_stride=SEQ_STRIDE)),
+            algorithm_params_list=[("transformer", seq_params)])
+        trained = {}
+
+        def seq_train(orig):
+            def wrapped(self, ctx, pd):
+                trained["model"] = stamp_seq("train", orig, self, ctx, pd)
+                return trained["model"]
+            return wrapped
+
+        seq_seconds = {}
+
+        def stamp_seq(key, fn, *a):
+            t = time.monotonic()
+            out = fn(*a)
+            seq_seconds[key] = time.monotonic() - t
+            return out
+
+        def seq_read_eval(orig):
+            def wrapped(self, ctx):
+                return stamp_seq("read_eval", orig, self, ctx)
+            return wrapped
+
+        with patched(seq.SeqRecAlgorithm, "train", seq_train), \
+                patched(seq.SeqDataSource, "read_eval", seq_read_eval):
+            flash_attention_fwd.launches = 0  # main path starts here
+            t = time.monotonic()
+            [(_, qpa)] = seq.engine_factory().eval(
+                WorkflowContext(mode="Evaluation", device=dev), seq_ep)
+            seq_seconds["eval"] = time.monotonic() - t
+            flash_launches = flash_attention_fwd.launches  # main path ends here
+    model = trained["model"]
+    algo = seq.SeqRecAlgorithm(seq_params, device=dev)
+    forwards = sum(bool(algo._tokens_for(model, q)) for q, _, _ in qpa)
+    if flash_launches != seq_params.n_layers * (seq_params.steps + forwards):
+        raise AssertionError(f"{flash_launches} attention launches for "
+                             f"{seq_params.steps} steps and {forwards} forwards")
+    module, pad_id, inv = model.device_module(dev), len(model.item_map), model.item_map.inverse
+    bad = []
+    for q, p, _ in qpa[:EVAL_SEQ_HELD]:
+        tokens = algo._tokens_for(model, q)
+        padded = [pad_id] * (model.seq_len - len(tokens)) + list(tokens)
+        scores = _seq_scores(torch, module, torch.tensor([padded], device=dev), pad_id,
+                             attention_fn=flash_attention)[0]
+        want_s, want_i = (t.cpu().numpy() for t in seq.top_k_lower_index_first(
+            scores, min(q.num, len(model.item_map))))
+        got_s = np.array([x.score for x in p.item_scores], dtype=np.float32)
+        if ([x.item for x in p.item_scores] != [inv[int(i)] for i in want_i]
+                or not np.allclose(got_s, want_s, rtol=SEQ_SERVE_RTOL, atol=SEQ_SERVE_ATOL)):
+            bad.append((q.recent_items[-3:], p.item_scores[:3]))
+    if bad:
+        raise AssertionError(f"seqrec eval answers disagree with the plain forward: {bad[:3]}")
+    hits = sum(a.item in {x.item for x in p.item_scores} for _, p, a in qpa)
+    out = {
+        "phase": "eval",
+        "instance": instance_id,
+        "evaluator_results": row.evaluator_results,
+        "best": {"idx": result["bestIdx"], "score": result["bestScore"],
+                 "params": result["bestEngineParams"]["algorithms"][0]["params"]},
+        "queries": len(qa),
+        "launches": launches,
+        "precision": {f"rank{c['rank']}_lambda{c['lambda_']}": c["precision"]
+                      for c in candidates},
+        "oracle": [{k: c[k] for k in ("rank", "lambda_", "thread", "wrong_ids_outside_ties",
+                                       "tied_slots", "precision_oracle",
+                                       "differing_points", "tie_queries")}
+                   for c in candidates],
+        "train_kernels_held": held,
+        "seconds": {"run": seconds["run"], "read_eval": seconds["read_eval"],
+                    "train": seconds["train"], "batch_predict": seconds["batch_predict"],
+                    "topk_call": seconds["topk_call"], "metric": seconds["metric"]},
+        "topk_at_eval_shape": [c["topk"] for c in candidates],
+        "seqrec": {"queries": len(qpa), "forwards": forwards, "launches": flash_launches,
+                   "held": EVAL_SEQ_HELD, "hr_at_10": hits / len(qpa),
+                   "seconds": seq_seconds},
     }
     emit(out)
     return out
@@ -2138,6 +2653,9 @@ def main(argv=None) -> int:
         seq_sliced = timed("seqrec_slice", phase_seqrec_slice, torch, dev, args.seed,
                            registry, seq_trained["out"]["instance"], seq_trained["seqs"])
         events = timed("events", phase_events, torch, dev, args.seed, base)
+        evaluated = timed("eval", phase_eval, torch, dev, args.seed, base)
+    large = timed("kernel_large", topk_large_batches, torch, dev,
+                  np.random.default_rng(args.seed + 7))
     emit({"phase_seconds": seconds})
 
     ref = main_shapes[1024]
@@ -2147,10 +2665,13 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": TOPK_SOURCE,
         "replaces": TOPK_REPLACES,
-        "launches": sliced["launches"] + events["serve"]["launches"],
+        "launches": (sliced["launches"] + events["serve"]["launches"]
+                     + evaluated["launches"]["topk_streaming"]),
         "launches_by_path": {"slice": sliced["launches"],
-                             "events_serve": events["serve"]["launches"]},
-        "max_abs_err": max(m["max_abs_err"] for m in main_shapes.values()),
+                             "events_serve": events["serve"]["launches"],
+                             "eval": evaluated["launches"]["topk_streaming"]},
+        "max_abs_err": max(m["max_abs_err"] for m in [*main_shapes.values(),
+                                                      *large.values()]),
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
         "bound_ms": bound_ms,
@@ -2159,6 +2680,11 @@ def main(argv=None) -> int:
         "device_ms": ref["kernel_device_ms"],
         "library_device_ms": ref["library_device_ms"],
         "shape": {k: ref[k] for k in ("B", "N", "R", "k", "T", "n_runs")},
+        "large_batches": {b: {k: v[k] for k in (
+            "slices", "launches", "kernel_ms", "kernel_device_ms", "plain_chunked_ms",
+            "library_ms", "library_device_ms", "bound_us", "bound_by",
+            "wrong_ids_outside_ties")} for b, v in large.items()},
+        "eval_shape": evaluated["topk_at_eval_shape"],
     }]
     for name, source, replaces in (
         ("gramian_fused", GRAMIAN_SOURCE, GRAMIAN_REPLACES),
@@ -2170,9 +2696,11 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": trained["launches"][name] + events["als"]["launches"][name],
+            "launches": (trained["launches"][name] + events["als"]["launches"][name]
+                         + evaluated["launches"][name]),
             "launches_by_path": {"train": trained["launches"][name],
-                                 "events_als": events["als"]["launches"][name]},
+                                 "events_als": events["als"]["launches"][name],
+                                 "eval": evaluated["launches"][name]},
             "max_abs_err": kernels["max_abs_err"][name],
             "ms": it["kernel_ms"],
             "plain_ms": it["plain_ms"],
@@ -2198,10 +2726,11 @@ def main(argv=None) -> int:
         "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": (seq_trained["out"]["launches"] + seq_sliced["launches"]
-                     + events["seqrec"]["launches"]),
+                     + events["seqrec"]["launches"] + evaluated["seqrec"]["launches"]),
         "launches_by_path": {"seqrec_train": seq_trained["out"]["launches"],
                              "seqrec_slice": seq_sliced["launches"],
-                             "events_seqrec": events["seqrec"]["launches"]},
+                             "events_seqrec": events["seqrec"]["launches"],
+                             "eval": evaluated["seqrec"]["launches"]},
         "max_abs_err": attn["max_abs_err"],
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],

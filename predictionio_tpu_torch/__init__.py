@@ -17,7 +17,11 @@ Rules the package keeps:
 
 Ported so far: the recommendation query-serving path
 (:func:`.workflow.serving.create_query_server` → ``ALSAlgorithm`` →
-:func:`.ops.scoring.top_k_for_users_fused` → the CUDA streaming top-k).
+:func:`.ops.scoring.top_k_for_users_fused` → the CUDA streaming top-k),
+ALS and sequence-recommender training (:func:`.workflow.run_train`), the
+Event Server, event stores and training infeed, and evaluation with the
+train/eval entry point (:func:`.workflow.run_evaluation`,
+``python -m predictionio_tpu_torch.tools.run_workflow``).
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,10 @@ from typing import Mapping, Optional
 
 #: checkpoint cadence in iterations (0 = off)
 EVERY_ENV = "PIO_CKPT_EVERY"
+#: resume from the newest checkpoint ("1") or train fresh ("0"); ``pio
+#: train --resume/--no-resume`` sets it. Nothing reads it until
+#: checkpointed training is ported (a cadence > 0 is refused before then)
+RESUME_ENV = "PIO_CKPT_RESUME"
 
 
 def _env_int(env: Mapping[str, str], name: str) -> Optional[int]:

@@ -2,11 +2,11 @@
 
 Trimmed copy of ``predictionio_tpu/controller/dase.py``: the
 ``Controller`` base, the ``doer`` constructor, ``run_sanity_check``, and
-the contracts that training and a deployed engine exercise
-(``DataSource.read_training``, ``Preparator.prepare``,
+the contracts that training, evaluation and a deployed engine exercise
+(``DataSource.read_training``/``read_eval``, ``Preparator.prepare``,
 ``Algorithm.train``/``predict``/``batch_predict``,
 ``Serving.serve``/``supplement``, ``FirstServing``). Persistent-model
-manifests, ``RETRAIN`` and evaluation wait (ROADMAP.md, queue 1).
+manifests and ``RETRAIN`` wait (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from typing import Any, Generic, List, Optional, Sequence, Tuple, Type, TypeVar
 from .params import EmptyParams, Params
 
 TD = TypeVar("TD")  # training data
+EI = TypeVar("EI")  # evaluation info
+A = TypeVar("A")  # actual result
 PD = TypeVar("PD")  # prepared data
 M = TypeVar("M")  # model
 Q = TypeVar("Q")  # query
@@ -65,11 +67,16 @@ def doer(cls: Type, params: Params) -> Any:
     return instance
 
 
-class DataSource(Controller, Generic[TD]):
+class DataSource(Controller, Generic[TD, EI, Q, A]):
     """Reads training data (``controller/DataSource.scala:38-107``)."""
 
     def read_training(self, ctx) -> TD:
         raise NotImplementedError
+
+    def read_eval(self, ctx) -> List[Tuple[TD, EI, List[Tuple[Q, A]]]]:
+        """Evaluation path: (train split, eval info, (query, actual) set) per
+        fold (``PDataSource.readEval``, ``DataSource.scala:48-56``)."""
+        return []
 
 
 class Preparator(Controller, Generic[TD, PD]):

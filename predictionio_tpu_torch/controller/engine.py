@@ -1,19 +1,24 @@
-"""Engine: DASE class maps, the train dataflow and the deploy side.
+"""Engine: DASE class maps, the train and eval dataflows and the deploy
+side.
 
 Trimmed copy of ``predictionio_tpu/controller/engine.py``:
 ``WorkflowParams``, ``EngineParams``, component instantiation,
 ``Engine.train`` (read → sanity → prepare → sanity → train each
-algorithm → sanity, ``Engine.scala:499-586``),
-``make_serializable_models``, ``prepare_deploy`` and the rebuild of
-``EngineParams`` from a stored engine instance
+algorithm → sanity, ``Engine.scala:499-586``), ``Engine.eval`` and
+``batch_eval`` (per fold: train on the split, one ``batch_predict`` per
+algorithm, serve each query, ``Engine.scala:588-672``),
+``make_serializable_models``, ``prepare_deploy``, the engine-variant
+JSON parser ``json_to_engine_params`` (``Engine.scala:313-370``) and the
+rebuild of ``EngineParams`` from a stored engine instance
 (``Engine.scala:372-425``), plus ``serialize_engine_params`` to write
-one. The eval dataflow and the per-phase timer wait (ROADMAP.md).
+one. The per-phase timer waits (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+from collections import defaultdict
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Type, Union
 
 from .dase import Algorithm, DataSource, Preparator, Serving, doer, run_sanity_check
@@ -31,6 +36,9 @@ class WorkflowParams:
     skip_sanity_check: bool = False
     stop_after_read: bool = False
     stop_after_prepare: bool = False
+    #: hyperparameter-sweep parallelism: 0 = auto (one sweep thread per
+    #: candidate, bounded by ``WorkflowContext.slices``), 1 = serial
+    eval_parallelism: int = 0
     #: per-run checkpoint cadence (``pio train --checkpoint-every``);
     #: checkpoint resume is not ported, so a cadence > 0 is refused
     checkpoint_every: Optional[int] = None
@@ -172,6 +180,87 @@ class Engine:
             )
         return list(persisted_models)
 
+    def eval(
+        self,
+        ctx,
+        engine_params: EngineParams,
+        workflow_params: WorkflowParams = WorkflowParams(),
+    ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """Per eval fold: train on the split, batch-predict all algorithms,
+        combine per query through serving → (eval info, [(q, p, a)]).
+
+        Each trained model is attached with ``prepare_serving`` before its
+        ``batch_predict``, so device algorithms score on ``ctx.device``
+        (the deploy path's attach; the JAX package has no such step)."""
+        data_source = self._data_source(engine_params)
+        preparator = self._preparator(engine_params)
+        algorithms = self._algorithms(engine_params)
+        serving = self._serving(engine_params)
+
+        results = []
+        for training_data, eval_info, qa_pairs in data_source.read_eval(ctx):
+            prepared_data = preparator.prepare(ctx, training_data)
+            models = [algo.train(ctx, prepared_data) for algo in algorithms]
+            # serving.supplement is a serve-time hook and is not applied
+            # here, as in the reference's eval dataflow
+            indexed = list(enumerate(q for q, _ in qa_pairs))
+            per_algo = []
+            for algo, model in zip(algorithms, models):
+                algo.prepare_serving(model, ctx)
+                per_algo.append(algo.batch_predict(model, indexed))
+            results.append((eval_info, serve_eval_queries(serving, qa_pairs, per_algo)))
+        return results
+
+    def batch_eval(
+        self,
+        ctx,
+        engine_params_list: Sequence[EngineParams],
+        workflow_params: WorkflowParams = WorkflowParams(),
+        parallelism: int = 1,
+    ) -> List[Tuple[EngineParams, List[Tuple[Any, List[Tuple[Any, Any, Any]]]]]]:
+        """Evaluate every EngineParams (``BaseEngine.batchEval``,
+        ``core/BaseEngine.scala:47-55``); ``FastEvalEngine`` overrides it
+        with prefix memoization. ``parallelism > 1`` runs the candidates
+        on the sweep threads of :func:`..parallel.sweep.run_sliced`, one
+        per slice of the context (one, on one card)."""
+        if parallelism > 1 and len(engine_params_list) > 1:
+            from ..parallel.sweep import run_sliced
+
+            tasks = [
+                (lambda sliced, ep=ep: self.eval(sliced, ep, workflow_params))
+                for ep in engine_params_list
+            ]
+            return list(zip(engine_params_list, run_sliced(ctx, tasks, parallelism)))
+        return [(ep, self.eval(ctx, ep, workflow_params)) for ep in engine_params_list]
+
+    def json_to_engine_params(self, variant: Mapping[str, Any]) -> EngineParams:
+        """Parse an engine-variant JSON object into typed EngineParams."""
+        ds = _named_params(variant, "datasource", self.data_source_class_map)
+        prep = _named_params(variant, "preparator", self.preparator_class_map)
+        serv = _named_params(variant, "serving", self.serving_class_map)
+        algorithms = variant.get("algorithms")
+        if algorithms is None:
+            algo_list: List[Tuple[str, Params]] = [
+                ("", _default_params(self.algorithm_class_map, ""))
+            ]
+        else:
+            algo_list = []
+            for block in algorithms:
+                name = block.get("name", "")
+                if name not in self.algorithm_class_map:
+                    raise ParamsError(
+                        f"Unable to find algorithm class with name {name!r} "
+                        "defined in Engine."
+                    )
+                params_cls = _component_params_class(self.algorithm_class_map[name])
+                algo_list.append((name, extract_params(params_cls, block.get("params"))))
+        return EngineParams(
+            data_source_params=ds,
+            preparator_params=prep,
+            algorithm_params_list=algo_list,
+            serving_params=serv,
+        )
+
     def engine_instance_to_engine_params(self, instance) -> EngineParams:
         """Rebuild EngineParams from a stored EngineInstance row
         (``Engine.scala:372-425``) — the deploy path's parameter source."""
@@ -240,10 +329,45 @@ def serialize_engine_params(ep: EngineParams) -> Dict[str, str]:
     }
 
 
+def serve_eval_queries(serving: Serving, qa_pairs, per_algo) -> List[Tuple[Any, Any, Any]]:
+    """Combine one fold's per-algorithm indexed predictions into
+    ``(query, served prediction, actual)`` triples, in query order
+    (``Engine.scala:636-660``). ``per_algo`` holds, per algorithm, the
+    ``(query index, prediction)`` pairs its ``batch_predict`` returned."""
+    by_query: Dict[int, Dict[int, Any]] = defaultdict(dict)
+    for ai, indexed_preds in enumerate(per_algo):
+        for qi, p in indexed_preds:
+            by_query[qi][ai] = p
+    qpa = []
+    for qi, (q, a) in enumerate(qa_pairs):
+        preds = by_query.get(qi, {})
+        qpa.append((q, serving.serve(q, [preds[ai] for ai in sorted(preds)]), a))
+    return qpa
+
+
 def _component_params_class(component_cls: Type) -> Type:
     """A component's Params dataclass: its ``params_class``, else
     EmptyParams."""
     return getattr(component_cls, "params_class", EmptyParams)
+
+
+def _named_params(
+    variant: Mapping[str, Any], field: str, class_map: ClassMap
+) -> Tuple[str, Params]:
+    """``WorkflowUtils.getParamsFromJsonByFieldAndClass``
+    (``WorkflowUtils.scala:169-209``)."""
+    block = variant.get(field)
+    if block is None:
+        return ("", _default_params(class_map, ""))
+    name = block.get("name", "")
+    if name not in class_map:
+        raise ParamsError(
+            f"Unable to find {field} class with name {name!r} defined in Engine."
+        )
+    params_json = block.get("params")
+    if params_json is None:
+        return (name, _default_params(class_map, name))
+    return (name, extract_params(_component_params_class(class_map[name]), params_json))
 
 
 def _default_params(class_map: ClassMap, name: str) -> Params:

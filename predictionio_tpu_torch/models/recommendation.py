@@ -19,7 +19,12 @@ its ``[B, k]`` results out, in one copy each way.
 from the registry's event store (``get_registry().get_events()``)
 through :func:`..workflow.infeed.stream_ratings` — on the native event
 log, one C++ pass — into :class:`TrainingData`; a caller may also hand
-``run_train`` a DataSource of its own. A model trained
+``run_train`` a DataSource of its own. ``RecDataSource.read_eval`` holds
+every fourth rating out, and ``RecEvaluation`` × ``RecParamsGenerator``
+sweep rank × λ by Precision@K over the held-out queries (``pio eval``,
+:func:`..workflow.core_workflow.run_evaluation`): each candidate trains
+through the build and solve kernels and answers all its queries in one
+``batch_predict``, one streaming top-k. A model trained
 by the JAX package crosses over as arrays: :func:`als_model_from_numpy`
 builds the port's ``ALSModel`` from ``user_factors``, ``item_factors``
 and the two id maps' ``to_dict()``.
@@ -40,7 +45,11 @@ from ..controller import (
     Algorithm,
     DataSource,
     Engine,
+    EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
     FirstServing,
+    OptionAverageMetric,
     Params,
     Preparator,
 )
@@ -158,6 +167,39 @@ class RecDataSource(DataSource):
             user_map=batch.user_map,
             item_map=batch.item_map,
         )
+
+    def read_eval(self, ctx):
+        """One fold: every fourth rating (by position in the scan) is held
+        out as a ``(Query(user, 10), ItemScore(item, rating))`` pair; the
+        rest is the training split, re-indexed over the entities it holds
+        (a user or item seen only in held-out ratings is absent from the
+        model's maps, so it takes the unknown-user path instead of a
+        never-solved zero row)."""
+        td = self.read_training(ctx)
+        n = len(td.users)
+        idx = np.arange(n)
+        test = idx % 4 == 0
+        u_inv, i_inv = td.user_map.inverse, td.item_map.inverse
+        tr_users, tr_items = td.users[~test], td.items[~test]
+        uniq_u = np.unique(tr_users)
+        uniq_i = np.unique(tr_items)
+        u_remap = np.full(len(td.user_map), -1, dtype=np.int32)
+        u_remap[uniq_u] = np.arange(len(uniq_u), dtype=np.int32)
+        i_remap = np.full(len(td.item_map), -1, dtype=np.int32)
+        i_remap[uniq_i] = np.arange(len(uniq_i), dtype=np.int32)
+        train_td = TrainingData(
+            users=u_remap[tr_users],
+            items=i_remap[tr_items],
+            ratings=td.ratings[~test],
+            user_map=BiMap({u_inv[int(old)]: new for new, old in enumerate(uniq_u)}),
+            item_map=BiMap({i_inv[int(old)]: new for new, old in enumerate(uniq_i)}),
+        )
+        qa = [
+            (Query(user=u_inv[int(td.users[i])], num=10),
+             ItemScore(item=i_inv[int(td.items[i])], score=float(td.ratings[i])))
+            for i in idx[test]
+        ]
+        return [(train_td, None, qa)]
 
 
 class RecPreparator(Preparator):
@@ -437,3 +479,60 @@ def engine_factory() -> Engine:
         {"als": ALSAlgorithm, "": ALSAlgorithm},
         {"": FirstServing},
     )
+
+
+# -- evaluation (the reference's MovieLens example: Precision@K,
+#    examples/experimental/scala-local-movielens-evaluation/src/main/scala/
+#    Evaluation.scala:83,115) --------------------------------------------
+class PrecisionAtK(OptionAverageMetric):
+    """Fraction of relevant held-out interactions recovered in the top-k.
+
+    A held-out (query, actual) row counts only when the actual rating meets
+    ``rating_threshold`` (the others are skipped: the Option part); its
+    point is 1.0 when the actual item is among the first ``k`` predicted."""
+
+    def __init__(self, k: int = 10, rating_threshold: float = 4.0):
+        self.k = k
+        self.rating_threshold = rating_threshold
+
+    @property
+    def header(self) -> str:
+        return f"Precision@{self.k} (threshold={self.rating_threshold})"
+
+    def calculate_point(self, q, p, a) -> Optional[float]:
+        if a.score < self.rating_threshold:
+            return None
+        top = [s.item for s in p.item_scores[: self.k]]
+        return 1.0 if a.item in top else 0.0
+
+
+class RecEvaluation(Evaluation):
+    """``pio eval`` target for this template."""
+
+    def __init__(self, k: int = 10, rating_threshold: float = 4.0):
+        super().__init__()
+        self.engine_metric = (
+            engine_factory(),
+            PrecisionAtK(k=k, rating_threshold=rating_threshold),
+        )
+
+
+class RecParamsGenerator(EngineParamsGenerator):
+    """Hyperparameter grid over rank × λ (the reference example's
+    EngineParamsGenerator pattern)."""
+
+    def __init__(
+        self,
+        app_id: int = 1,
+        ranks: Sequence[int] = (8, 16),
+        lambdas: Sequence[float] = (0.01, 0.1),
+    ):
+        base_ds = RecDataSourceParams(app_id=app_id)
+        super().__init__([
+            EngineParams(
+                data_source_params=("", base_ds),
+                algorithm_params_list=[("als", ALSAlgorithmParams(rank=r, lambda_=lam))],
+            )
+            for r in ranks
+            for lam in lambdas
+        ])

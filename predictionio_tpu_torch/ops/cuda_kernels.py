@@ -54,7 +54,9 @@ TOPK_SM_SMEM, TOPK_BLOCK_SMEM_RESERVE = 233472, 1024
 #: the kernel's item indices are int32, padding indices sit above
 #: 2**31 - 1 - TOPK_MAX_K, and the merge indexes a query's keys with ints
 TOPK_MAX_ITEMS = 1 << 29
-#: stage 1 tiles queries by 8 on grid.y (at most 65,535 blocks)
+#: stage 1 tiles queries by 8 on grid.y (at most 65,535 blocks), so one
+#: launch takes at most this many queries; a larger batch is cut into
+#: consecutive slices of at most this many (:func:`topk_batch_slices`)
 TOPK_MAX_BATCH = TOPK_TILE_QUERIES * 65535
 
 
@@ -246,6 +248,16 @@ def top_k_streaming_reference(
     return _pad_k(top_s, top_i, k)
 
 
+def topk_batch_slices(b: int, max_batch: int = TOPK_MAX_BATCH):
+    """The ``[start, stop)`` row ranges one call of ``b`` queries is cut
+    into: consecutive, at most ``max_batch`` rows each, covering every
+    row once (none for ``b = 0``). Each range is one launch of the kernel
+    (or one call of the plain version on the CPU)."""
+    if b < 0 or max_batch < 1:
+        raise ValueError(f"no batch slices for b={b}, max_batch={max_batch}")
+    return [(s, min(s + max_batch, b)) for s in range(0, b, max_batch)]
+
+
 def top_k_streaming(
     query_vectors: torch.Tensor,  # [B, R] float32
     item_factors: torch.Tensor,  # [N, R] float32
@@ -259,36 +271,49 @@ def top_k_streaming(
     contract: a slot with fewer than k valid candidates holds -inf and
     index -1, which callers must treat as absent). CUDA tensors launch
     ``csrc/topk_streaming.cu``; CPU tensors run
-    :func:`top_k_streaming_reference`. Raises for k past
-    :data:`TOPK_MAX_K` (after clamping to N)."""
+    :func:`top_k_streaming_reference`. Any batch is answered: one above
+    :data:`TOPK_MAX_BATCH` queries is cut by :func:`topk_batch_slices`,
+    each slice written into its rows of one ``[B, k]`` output. Raises for
+    k past :data:`TOPK_MAX_K` (after clamping to N)."""
     _check_topk_inputs(query_vectors, item_factors, k, exclude_idx)
     b, r = query_vectors.shape
     n_items = item_factors.shape[0]
     k_eff = min(k, n_items)
-    # the kernel's limits hold on every device, so a CPU run refuses what
-    # the card would
+    # the kernel's limits on k and the catalog hold on every device, so a
+    # CPU run refuses what the card would; the batch is sliced on both
     if k_eff > TOPK_MAX_K:
         raise ValueError(
             f"k = {k_eff} exceeds the streaming kernel's ceiling {TOPK_MAX_K}"
         )
     if n_items > TOPK_MAX_ITEMS:
         raise ValueError(f"catalog of {n_items} items exceeds {TOPK_MAX_ITEMS}")
-    if b > TOPK_MAX_BATCH:
-        raise ValueError(f"batch of {b} queries exceeds {TOPK_MAX_BATCH}")
     if r == 0:
         raise ValueError("the streaming kernel needs rank >= 1")
     device = query_vectors.device
-    if device.type == "cpu":
-        return top_k_streaming_reference(
-            query_vectors, item_factors, k, exclude_idx
-        )
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"top_k_streaming runs on cuda or cpu, not {device}")
-    if b == 0 or k_eff == 0:  # nothing to score: every slot is a sentinel
-        return _pad_k(
-            torch.empty((b, 0), device=device),
-            torch.empty((b, 0), device=device, dtype=torch.int32), k,
-        )
+    out_s = torch.empty((b, k_eff), dtype=torch.float32, device=device)
+    out_i = torch.empty((b, k_eff), dtype=torch.int32, device=device)
+    if k_eff > 0:  # else nothing to score: every slot is a sentinel
+        for start, stop in topk_batch_slices(b):
+            excl = None if exclude_idx is None else exclude_idx[start:stop]
+            _topk_slice(query_vectors[start:stop], item_factors, k_eff, excl,
+                        out_s[start:stop], out_i[start:stop])
+    return _pad_k(out_s, out_i, k)
+
+
+def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i) -> None:
+    """One slice of at most :data:`TOPK_MAX_BATCH` queries into its rows
+    ``out_s``/``out_i`` (contiguous views of the call's output): the
+    plain version on the CPU, one launch of the kernel on the card."""
+    if q.device.type == "cpu":
+        s, i = top_k_streaming_reference(q, item_factors, k_eff, exclude_idx)
+        out_s.copy_(s)
+        out_i.copy_(i)
+        return
+    b, r = q.shape
+    n_items = item_factors.shape[0]
+    device = q.device
     e = 0 if exclude_idx is None else exclude_idx.shape[1]
     index = device.index if device.index is not None else torch.cuda.current_device()
     plan = topk_launch_plan(b, n_items, k_eff, _sm_count(index), r)
@@ -300,8 +325,6 @@ def top_k_streaming(
     )
     base, step = scratch.data_ptr(), 4 * keys
     alt = (base + 2 * step, base + 3 * step) if plan.merge_smem == 0 else (None, None)
-    out_s = torch.empty((b, k_eff), dtype=torch.float32, device=device)
-    out_i = torch.empty((b, k_eff), dtype=torch.int32, device=device)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = _configured(
         "topk_streaming",
@@ -310,7 +333,7 @@ def top_k_streaming(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.pio_topk_streaming(
-            query_vectors.data_ptr(), item_factors.data_ptr(),
+            q.data_ptr(), item_factors.data_ptr(),
             exclude_idx.data_ptr() if e else None,
             b, n_items, r, e, k_eff, plan.kt, plan.n_tiles,
             plan.tiles_per_block, plan.n_runs, plan.stage1_smem,
@@ -320,7 +343,6 @@ def top_k_streaming(
         )
     top_k_streaming.launches += 1
     _raise_on_error(lib, "topk_streaming", code)
-    return _pad_k(out_s, out_i, k)
 
 
 #: kernel launches since the count was last reset (CUDA tensors only)

@@ -1,6 +1,7 @@
 """Storage plane of the port: the event model and event stores (SQLite
-and the native C++ log), id maps, app/access-key and engine-instance
-metadata, model blobs and the environment-driven registry."""
+and the native C++ log), id maps, app/access-key, manifest, engine- and
+evaluation-instance metadata, model blobs and the environment-driven
+registry."""
 
 from .aggregator import aggregate_properties, aggregate_single
 from .bimap import BiMap, IdsLike
@@ -16,6 +17,8 @@ from .metadata import (
     AccessKey,
     App,
     EngineInstance,
+    EngineManifest,
+    EvaluationInstance,
     MetadataStore,
     new_engine_instance,
     utcnow,
@@ -32,6 +35,8 @@ __all__ = [
     "DataMap",
     "DataMapException",
     "EngineInstance",
+    "EngineManifest",
+    "EvaluationInstance",
     "Event",
     "EventFilter",
     "EventStore",

@@ -1,12 +1,16 @@
-"""Apps, access keys and engine-instance metadata on SQLite.
+"""Apps, access keys, engine manifests, engine and evaluation instances
+on SQLite.
 
 Trimmed copy of ``predictionio_tpu/storage/metadata.py``: the ``App``
 and ``AccessKey`` records with their DAOs (what the Event Server
-authenticates against), the ``EngineInstance`` record, its status
-constants, ``new_engine_instance`` and the engine-instance table of
-``MetadataStore`` (what training and deploying need). Manifests, rollout
-plans and evaluation instances wait for their slices. The table layout
-is the JAX package's, so both packages can share one metadata file.
+authenticates against), the ``EngineManifest`` record of a registered
+engine project (``manifest_update``/``manifest_get``), the
+``EngineInstance`` record, its status constants, ``new_engine_instance``
+and the engine-instance table (what training and deploying need), and
+the ``EvaluationInstance`` record of a ``pio eval`` run with its table
+(``evaluation_instance_*``). Rollout plans wait for their slice. The
+table layout is the JAX package's, so both packages can share one
+metadata file.
 """
 
 from __future__ import annotations
@@ -65,6 +69,18 @@ class AccessKey:
 
 
 @dataclasses.dataclass(frozen=True)
+class EngineManifest:
+    """``EngineManifests.scala:20-35``."""
+
+    id: str
+    version: str
+    name: str
+    description: Optional[str] = None
+    files: Sequence[str] = ()
+    engine_factory: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
 class EngineInstance:
     """Full record of one train/deploy run (``EngineInstances.scala:21-47``)."""
 
@@ -84,12 +100,33 @@ class EngineInstance:
     serving_params: str = ""
 
 
+@dataclasses.dataclass(frozen=True)
+class EvaluationInstance:
+    """Record of one evaluation run (``EvaluationInstances.scala:21-49``)."""
+
+    id: str
+    status: str
+    start_time: _dt.datetime
+    end_time: _dt.datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: Dict[str, str] = dataclasses.field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS pio_apps (
   id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT UNIQUE NOT NULL,
   description TEXT);
 CREATE TABLE IF NOT EXISTS pio_access_keys (
   key TEXT PRIMARY KEY, appid INTEGER NOT NULL, events TEXT NOT NULL);
+CREATE TABLE IF NOT EXISTS pio_engine_manifests (
+  id TEXT NOT NULL, version TEXT NOT NULL, name TEXT NOT NULL,
+  description TEXT, files TEXT NOT NULL, engine_factory TEXT NOT NULL,
+  PRIMARY KEY (id, version));
 CREATE TABLE IF NOT EXISTS pio_engine_instances (
   id TEXT PRIMARY KEY, status TEXT NOT NULL,
   start_time_ms INTEGER NOT NULL, end_time_ms INTEGER NOT NULL,
@@ -100,14 +137,23 @@ CREATE TABLE IF NOT EXISTS pio_engine_instances (
   preparator_params TEXT NOT NULL DEFAULT '',
   algorithms_params TEXT NOT NULL DEFAULT '',
   serving_params TEXT NOT NULL DEFAULT '');
+CREATE TABLE IF NOT EXISTS pio_evaluation_instances (
+  id TEXT PRIMARY KEY, status TEXT NOT NULL,
+  start_time_ms INTEGER NOT NULL, end_time_ms INTEGER NOT NULL,
+  evaluation_class TEXT NOT NULL DEFAULT '',
+  engine_params_generator_class TEXT NOT NULL DEFAULT '',
+  batch TEXT NOT NULL DEFAULT '', env TEXT NOT NULL DEFAULT '{}',
+  evaluator_results TEXT NOT NULL DEFAULT '',
+  evaluator_results_html TEXT NOT NULL DEFAULT '',
+  evaluator_results_json TEXT NOT NULL DEFAULT '');
 CREATE TABLE IF NOT EXISTS pio_sequences (
   name TEXT PRIMARY KEY, value INTEGER NOT NULL);
 """
 
 
 class MetadataStore:
-    """The app, access-key and engine-instance DAOs over one SQLite
-    database (WAL, so a training process, an Event Server and a query
+    """The app, access-key, manifest, engine-instance and
+    evaluation-instance DAOs over one SQLite database (WAL, so a training process, an Event Server and a query
     server can share the file)."""
 
     def __init__(self, path: str = ":memory:"):
@@ -236,6 +282,39 @@ class MetadataStore:
             self._conn.commit()
             return cur.rowcount > 0
 
+    # -- engine manifests -------------------------------------------------
+    def manifest_update(self, m: EngineManifest, upsert: bool = True) -> bool:
+        """Update a manifest; with ``upsert=False``, only overwrite an
+        existing (id, version) row (``EngineManifests.update``)."""
+        with self._lock:
+            if not upsert:
+                exists = self._conn.execute(
+                    "SELECT 1 FROM pio_engine_manifests WHERE id=? AND version=?",
+                    (m.id, m.version),
+                ).fetchone()
+                if not exists:
+                    return False
+            self._conn.execute(
+                "INSERT OR REPLACE INTO pio_engine_manifests VALUES (?,?,?,?,?,?)",
+                (m.id, m.version, m.name, m.description,
+                 json.dumps(list(m.files)), m.engine_factory),
+            )
+            self._conn.commit()
+            return True
+
+    def manifest_get(self, id: str, version: str) -> Optional[EngineManifest]:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT * FROM pio_engine_manifests WHERE id=? AND version=?",
+                (id, version),
+            ).fetchone()
+        if not row:
+            return None
+        return EngineManifest(
+            id=row[0], version=row[1], name=row[2], description=row[3],
+            files=tuple(json.loads(row[4])), engine_factory=row[5],
+        )
+
     # -- engine instances -------------------------------------------------
     def engine_instance_insert(self, inst: EngineInstance) -> str:
         iid = inst.id or f"EI-{self.gen_next('engine_instances'):08d}"
@@ -320,6 +399,68 @@ class MetadataStore:
             )
             self._conn.commit()
             return cur.rowcount > 0
+
+
+    # -- evaluation instances ---------------------------------------------
+    def evaluation_instance_insert(self, inst: EvaluationInstance) -> str:
+        iid = inst.id or f"EVI-{self.gen_next('evaluation_instances'):08d}"
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR REPLACE INTO pio_evaluation_instances "
+                "VALUES (?,?,?,?,?,?,?,?,?,?,?)",
+                (
+                    iid,
+                    inst.status,
+                    _to_ms(inst.start_time),
+                    _to_ms(inst.end_time),
+                    inst.evaluation_class,
+                    inst.engine_params_generator_class,
+                    inst.batch,
+                    json.dumps(inst.env),
+                    inst.evaluator_results,
+                    inst.evaluator_results_html,
+                    inst.evaluator_results_json,
+                ),
+            )
+            self._conn.commit()
+        return iid
+
+    @staticmethod
+    def _row_to_evaluation_instance(row) -> EvaluationInstance:
+        return EvaluationInstance(
+            id=row[0],
+            status=row[1],
+            start_time=_from_ms(row[2]),
+            end_time=_from_ms(row[3]),
+            evaluation_class=row[4],
+            engine_params_generator_class=row[5],
+            batch=row[6],
+            env=json.loads(row[7]),
+            evaluator_results=row[8],
+            evaluator_results_html=row[9],
+            evaluator_results_json=row[10],
+        )
+
+    def evaluation_instance_get(self, id: str) -> Optional[EvaluationInstance]:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT * FROM pio_evaluation_instances WHERE id = ?", (id,)
+            ).fetchone()
+        return self._row_to_evaluation_instance(row) if row else None
+
+    def evaluation_instance_get_completed(self) -> List[EvaluationInstance]:
+        """Completed evaluations, newest first (``Dashboard.scala``)."""
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT * FROM pio_evaluation_instances WHERE status = ? "
+                "ORDER BY start_time_ms DESC",
+                (STATUS_EVALCOMPLETED,),
+            ).fetchall()
+        return [self._row_to_evaluation_instance(r) for r in rows]
+
+    def evaluation_instance_update(self, inst: EvaluationInstance) -> bool:
+        self.evaluation_instance_insert(inst)
+        return True
 
 
 def new_engine_instance(

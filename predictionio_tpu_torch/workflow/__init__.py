@@ -1,9 +1,15 @@
 """Workflow runtime of the port: context, the training infeed, the
-train workflow, model persistence, the micro-batcher and the query
-server."""
+train and evaluation workflows, model persistence, the micro-batcher and
+the query server."""
 
 from .context import WorkflowContext, pio_env_vars
-from .core_workflow import ForeignModelError, load_models, persist_instance, run_train
+from .core_workflow import (
+    ForeignModelError,
+    load_models,
+    persist_instance,
+    run_evaluation,
+    run_train,
+)
 from .infeed import RatingBatch, StreamingIndexer, stream_ratings
 from .serving import (
     Deployment,
@@ -26,6 +32,7 @@ __all__ = [
     "persist_instance",
     "pio_env_vars",
     "prepare_deployment",
+    "run_evaluation",
     "run_train",
     "stream_ratings",
 ]

@@ -49,3 +49,13 @@ class WorkflowContext:
     def app_name(self) -> str:
         # "PredictionIO <mode>: <batch>" (WorkflowContext.scala:82-84)
         return f"PredictionIO {self.mode}: {self.batch}"
+
+    def slices(self, n: int) -> list:
+        """Up to ``n`` contexts over disjoint devices for a parallel
+        hyperparameter sweep (``parallel.sweep``). One context holds one
+        card, so this is ``[self]`` — what the JAX package returns for a
+        one-device mesh — and a sweep with ``parallelism > 1`` runs its
+        candidates one after another on one sweep thread. Slicing across
+        several cards waits for sharded ALS (ROADMAP.md, queue 1 item
+        11)."""
+        return [self]

@@ -1,14 +1,17 @@
-"""The train workflow and model persistence for deployment.
+"""The train and evaluation workflows and model persistence for
+deployment.
 
 Counterpart of ``predictionio_tpu/workflow/core_workflow.py``:
 :func:`run_train` trains an engine on the run's device and stores it as
-an engine instance (INIT → models → COMPLETED); :func:`load_models`
+an engine instance (INIT → models → COMPLETED); :func:`run_evaluation`
+sweeps an evaluation's candidate grid and stores the evaluator's result
+as an evaluation instance (EVALUATING → EVALCOMPLETED); :func:`load_models`
 reads an instance's pickled model list; :func:`persist_instance` writes
 models trained elsewhere (weights carried over from the JAX package, see
 ``models.recommendation.als_model_from_numpy`` and
 ``models.sequencerec.seqrec_model_from_numpy``) as a COMPLETED instance.
-Evaluation runs, the perf-ledger append, device traces and checkpoint
-directories wait (ROADMAP.md).
+The perf-ledger append, device traces and checkpoint directories wait
+(ROADMAP.md).
 
 A blob pickled by the JAX package names ``predictionio_tpu.`` classes,
 and unpickling it would import jax; :func:`load_models` refuses such a
@@ -33,14 +36,19 @@ from ..controller.engine import (
     WorkflowParams,
     serialize_engine_params,
 )
+from ..controller.evaluation import EngineParamsGenerator, Evaluation
 from ..storage import (
     STATUS_COMPLETED,
+    STATUS_EVALCOMPLETED,
+    STATUS_EVALUATING,
+    EvaluationInstance,
     Model,
     StorageRegistry,
     new_engine_instance,
     utcnow,
 )
 from .context import WorkflowContext, pio_env_vars
+from .version_check import check_upgrade
 
 logger = logging.getLogger(__name__)
 
@@ -113,6 +121,16 @@ def persist_instance(
     return instance_id
 
 
+def _refuse_run_cadence(workflow_params: WorkflowParams) -> None:
+    """The run's own checkpoint cadence is refused before any instance
+    row; the algorithm resolves its params and ``PIO_CKPT_EVERY``."""
+    if resolve_every(None, workflow=workflow_params.checkpoint_every, env={}):
+        raise NotImplementedError(
+            "checkpointed training is not ported yet (ROADMAP.md, queue 1: "
+            "checkpoint resume in the port's trainer)"
+        )
+
+
 def run_train(
     engine: Engine,
     engine_params: EngineParams,
@@ -133,14 +151,9 @@ def run_train(
     (``Engine.train``) and pickled into the model store, and the row
     flips to COMPLETED with ``train_wall_s`` in its env. An interrupted
     run leaves the INIT row behind (``CoreWorkflow.scala:83-88``)."""
-    # the run's own cadence is refused here, before the instance row; the
-    # algorithm resolves it against its params and PIO_CKPT_EVERY
-    if resolve_every(None, workflow=workflow_params.checkpoint_every, env={}):
-        raise NotImplementedError(
-            "checkpointed training is not ported yet (ROADMAP.md, queue 1: "
-            "checkpoint resume in the port's trainer)"
-        )
+    _refuse_run_cadence(workflow_params)
     ctx = ctx or WorkflowContext(mode="Training", batch=workflow_params.batch)
+    check_upgrade("training", engine_factory)  # CoreWorkflow.scala:51
     if ctx.checkpoint_every is None:
         ctx.checkpoint_every = workflow_params.checkpoint_every
     md = registry.get_metadata()
@@ -179,3 +192,58 @@ def run_train(
     except KeyboardInterrupt:
         logger.warning("Training interrupted; instance %s stays INIT", instance_id)
         raise
+
+
+def run_evaluation(
+    evaluation: Evaluation,
+    engine_params_generator: EngineParamsGenerator,
+    registry: StorageRegistry,
+    workflow_params: WorkflowParams = WorkflowParams(),
+    ctx: Optional[WorkflowContext] = None,
+) -> str:
+    """Full evaluation run; returns the evaluation instance id
+    (``CoreWorkflow.runEvaluation``, ``CoreWorkflow.scala:95-144`` +
+    ``EvaluationWorkflow.scala:68-81``).
+
+    The context (default: an evaluation context on ``cuda:0``, which
+    raises where there is no CUDA) is resolved before the instance row
+    is written. The row goes in as EVALUATING; every candidate of the
+    generator is evaluated (``Engine.batch_eval``, ``eval_parallelism``
+    sweep threads, 0 = one per candidate), the evaluator scores them and
+    picks the best, and the row flips to EVALCOMPLETED with the result's
+    one-liner, HTML and JSON. A failed run leaves the EVALUATING row. A
+    run checkpoint cadence above 0 is refused, as in :func:`run_train`."""
+    _refuse_run_cadence(workflow_params)
+    ctx = ctx or WorkflowContext(mode="Evaluation", batch=workflow_params.batch)
+    check_upgrade("evaluation", type(evaluation).__name__)  # CoreWorkflow.scala:108
+    md = registry.get_metadata()
+    now = utcnow()
+    instance_id = md.evaluation_instance_insert(EvaluationInstance(
+        id="",
+        status=STATUS_EVALUATING,
+        start_time=now,
+        end_time=now,
+        evaluation_class=type(evaluation).__name__,
+        engine_params_generator_class=type(engine_params_generator).__name__,
+        batch=workflow_params.batch,
+        env=pio_env_vars(),
+    ))
+    engine, evaluator = evaluation.engine_evaluator
+    params_list = engine_params_generator.engine_params_list
+    parallelism = (workflow_params.eval_parallelism
+                   if workflow_params.eval_parallelism > 0 else len(params_list))
+    engine_eval_data = engine.batch_eval(ctx, params_list, workflow_params,
+                                         parallelism=parallelism)
+    result = evaluator.evaluate_base(ctx, evaluation, engine_eval_data,
+                                     workflow_params, parallelism=parallelism)
+    stored = md.evaluation_instance_get(instance_id)
+    md.evaluation_instance_update(dataclasses.replace(
+        stored,
+        status=STATUS_EVALCOMPLETED,
+        end_time=utcnow(),
+        evaluator_results=result.one_liner(),
+        evaluator_results_html=result.to_html(),
+        evaluator_results_json=result.to_json(),
+    ))
+    logger.info("Evaluation completed; instance %s", instance_id)
+    return instance_id

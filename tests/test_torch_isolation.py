@@ -26,6 +26,13 @@ def _port_sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
+def test_the_source_scan_reaches_the_evaluation_slice():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert {"utils/durability.py", "controller/metrics.py", "controller/evaluation.py",
+            "controller/fast_eval.py", "parallel/sweep.py", "workflow/version_check.py",
+            "workflow/loader.py", "tools/register.py", "tools/run_workflow.py"} <= scanned
+
+
 def test_importing_every_port_module_pulls_in_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -36,7 +43,7 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
@@ -44,7 +51,13 @@ def test_importing_every_port_module_pulls_in_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20  # every module of the slice
+    names = set(proc.stdout.split())
+    assert len(names) >= 20
+    # the evaluation slice's modules are among those imported and scanned
+    assert {f"predictionio_tpu_torch.{m}" for m in (
+        "utils.durability", "controller.metrics", "controller.evaluation",
+        "controller.fast_eval", "parallel.sweep", "workflow.version_check",
+        "workflow.loader", "tools.register", "tools.run_workflow")} <= names
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():

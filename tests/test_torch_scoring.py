@@ -64,6 +64,28 @@ class TestRaggedGather:
         assert got.dtype == torch.float32
 
 
+def test_a_batch_above_one_launch_is_answered_like_jax(monkeypatch):
+    """B = 524,281 queries, one more than a launch of the kernel takes
+    (``TOPK_MAX_BATCH``): the port's streaming entry cuts the batch into
+    two slices (counted here) and answers like the JAX package's fused
+    top-k, which has no cap. N = 8, R = 2, k = 4."""
+    from predictionio_tpu_torch.ops import cuda_kernels
+
+    b = cuda_kernels.TOPK_MAX_BATCH + 1
+    rng = np.random.default_rng(29)
+    uf = rng.normal(size=(1000, 2)).astype(np.float32)
+    itf = rng.normal(size=(8, 2)).astype(np.float32)
+    uidx = rng.integers(0, 1000, b).astype(np.int32)
+    split, sliced = cuda_kernels.topk_batch_slices, []
+    monkeypatch.setattr(cuda_kernels, "topk_batch_slices",
+                        lambda n: sliced.append(split(n)) or sliced[-1])
+    port = scoring.top_k_for_users_fused(_t(uf), _t(itf), _t(uidx), k=4, mode="always")
+    ref = jax_scoring.top_k_for_users_fused(uf, itf, uidx, k=4)
+    assert sliced == [[(0, b - 1), (b - 1, b)]]
+    assert port[0].shape == (b, 4)
+    assert_agree(port, ref)
+
+
 class TestFusedTopK:
     rng = np.random.default_rng(11)
     uf = rng.normal(size=(40, 10)).astype(np.float32)
