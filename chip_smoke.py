@@ -17,8 +17,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    N = 27,000, R = 50, k = 16) and at the edge cases (64 exclusions,
    k > N, rows with every item excluded, duplicated item rows, a catalog
    whose scores rise with the index, a served batch of 512 at k = 128,
-   k = 1024, k at the ceiling of 2048); scores agree to rtol 1e-5 / atol
-   1e-5 and ids are equal or tied. Each case prints its launch plan (tiles
+   k = 1024, k = 2048; k = 4096 on 5,000 items, its lists merged in
+   shared memory, and k = N = 27,000 with 64 exclusions a query, merged in
+   device memory); scores agree to rtol 1e-5 / atol 1e-5 and ids are
+   equal or tied. Each case prints its launch plan (tiles
    per stage-1 block, lists per query); each timed shape prints the
    kernel's, the plain version's and ``torch.topk(q @ items.T)``'s times
    per call (CUDA events) and, for the kernel and the library call, on
@@ -81,7 +83,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    four shapes causal and not; cross-attention Lq != Lk (70/300, 300/70,
    2048/1000, 1000/2048); a ragged last tile after many (L = 2049); (8,
    4, 2048, 64) causal and not (many tiles, causal skipping, heavy tiles
-   first); every head width 8..128 at both query tiles; D = 136 raises.
+   first); every head width 8..128 at both query tiles; head widths that
+   are not a multiple of 8 (D = 6, 12, 15, 100, zero-padded by the wrapper
+   and scaled by the true D), the training shape at D = 6 and 15 timed;
+   D = 136 raises.
    Two calls are compared bit for bit at the training and long shapes.
    The timed shapes print the kernel's, the plain version's and
    ``F.scaled_dot_product_attention``'s times beside the bound, each both
@@ -147,11 +152,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    leave-one-out split (6,040 queries, 300 training steps): attention
    launches = 2 × (steps + forwards), the first 64 answers equal the
    plain forward's, ids exactly; HR@10 for information.
-13. ``kernel_large`` — the top-k at B = 262,144 and at B = 600,000 (above
+13. ``persist`` — the DASE persistence contract over the same store,
+   with a user's ``engine.py`` loaded through ``workflow/loader.py``
+   (ALS rank 50, 10 iterations, seed 0): (a) an algorithm whose
+   ``make_persistent`` returns ``RETRAIN`` is stored as the sentinel
+   alone and trained again when ``create_query_server`` deploys it (the
+   build and solve launches reset just before the deploy and read just
+   after it equal training's; the retrained factors equal the trained
+   ones bit for bit); (b) a model that saves its own tables (atomically)
+   is stored as a ``PersistentModelManifest`` and deploys with no build
+   and no solve, its factors equal to the saved ones; each serves 64
+   queries held to the plain top-k. Then implicit-preference and bf16
+   ALS trained by ``run_train`` (3 iterations) against 3 iterations of
+   the plain build and solve (rtol 2e-3 / atol 2e-4; bf16 within the JAX
+   package's own spread, max |Δ| 8.8e-3 and relative norm 2e-3); seqrec
+   at d_model 24 / 4 heads (D = 6), 20 steps, served for 64 queries
+   against the plain forward; and one ``POST /queries.json`` with ``num``
+   = 4096 to the slice phase's ML-20M-shaped instance, its 4,096 items
+   held to the plain top-k. Each stage's seconds are printed.
+14. ``kernel_large`` — the top-k at B = 262,144 and at B = 600,000 (above
    one launch's 524,280 queries: two launches into one output), N =
-   3,706, R = 16, k = 16, held against the plain version in chunks of
-   65,536 rows (0 wrong ids outside ties) and timed beside the plain
-   version (in those chunks), ``torch.topk(q @ items.T)`` and the bound.
+   3,706, R = 16, k = 16, and at B = 32,768, k = 256 over 27,000 items
+   (the per-tile path, cut into launches whose scratch stays within the
+   wrapper's 2 GiB budget), held against the plain version in chunks (0
+   wrong ids outside ties) and timed beside the plain version (in those
+   chunks), ``torch.topk(q @ items.T)`` and the bound.
 
 Then the phases' wall times, one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
@@ -219,9 +244,13 @@ EVENTS_APP, HTTP_BATCHES, HTTP_BATCH, HTTP_SINGLES = 1, 20, 50, 10
 EVENTS_SEQ_STEPS, EVENTS_WRITE_CHUNK = 20, 100_000
 #: the top-k batches above and near one launch's cap: the eval phase's
 #: padded batch of held-out queries and one that takes two launches, at
-#: ML-1M's catalog, rank 16, k 16 (B, N, R, k); the plain version and the
-#: oracle run in chunks of this many rows
-TOPK_LARGE = ((262144, 3706, 16, 16), (600000, 3706, 16, 16))
+#: ML-1M's catalog, rank 16 (and the eval's rank 8), k 16; then one whose
+#: per-tile scratch (k =
+#: 256 at ML-20M's catalog, 434 KB a query) is cut by the wrapper's
+#: budget into several launches (B, N, R, k); the plain version and the
+#: oracle run in chunks of at most this many rows (and 2^28 scores)
+TOPK_LARGE = ((262144, 3706, 16, 16), (262144, 3706, 8, 16), (600000, 3706, 16, 16),
+              (32768, 27000, 50, 256))
 ORACLE_CHUNK = 65536
 #: the eval phase: the metric's cut-off and relevance threshold (the
 #: template's), the seqrec answers held to the plain forward
@@ -243,6 +272,81 @@ class RecEvaluation(_Template):
         here = os.path.dirname(os.path.abspath(__file__))
         self.evaluator.output_path = os.path.join(here, "best.json")
 '''
+
+
+#: the persist phase's engine project: a user's ``engine.py`` with two
+#: persistence choices, loaded through ``workflow/loader.py``
+PERSIST_ENGINE_PY = '''"""The recommendation template with two persistence choices of a user's.
+
+``retrain``: the template's ALS, whose model is not stored; deploy trains
+it again from the event store. ``saved``: the template's ALS, whose model
+writes its factor tables and id maps under ``models/`` beside this file
+(each file replaced atomically) and reads them back at deploy.
+"""
+
+import io
+import json
+import os
+
+import numpy as np
+
+from predictionio_tpu_torch.controller import RETRAIN, Engine, FirstServing, PersistentModel
+from predictionio_tpu_torch.models import recommendation as rec
+from predictionio_tpu_torch.utils.durability import atomic_write_bytes
+
+MODEL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "models")
+
+
+class RetrainALS(rec.ALSAlgorithm):
+    def make_persistent(self, instance_id, model, ctx):
+        return RETRAIN
+
+
+def _npy(array):
+    buf = io.BytesIO()
+    np.save(buf, array)
+    return buf.getvalue()
+
+
+class SavedALSModel(rec.ALSModel, PersistentModel):
+    def save(self, instance_id, params, ctx):
+        where = os.path.join(MODEL_DIR, instance_id)
+        os.makedirs(where, exist_ok=True)
+        ids = {"users": [self.user_map.inverse[i] for i in range(len(self.user_map))],
+               "items": [self.item_map.inverse[i] for i in range(len(self.item_map))]}
+        atomic_write_bytes(os.path.join(where, "user_factors.npy"), _npy(self.user_factors))
+        atomic_write_bytes(os.path.join(where, "item_factors.npy"), _npy(self.item_factors))
+        atomic_write_bytes(os.path.join(where, "ids.json"), json.dumps(ids).encode())
+        return True
+
+    @classmethod
+    def load(cls, instance_id, params, ctx):
+        where = os.path.join(MODEL_DIR, instance_id)
+        with open(os.path.join(where, "ids.json")) as fh:
+            ids = json.load(fh)
+        m = rec.als_model_from_numpy(
+            params.rank, np.load(os.path.join(where, "user_factors.npy")),
+            np.load(os.path.join(where, "item_factors.npy")), ids["users"], ids["items"])
+        return cls(m.rank, m.user_factors, m.item_factors, m.user_map, m.item_map)
+
+
+class SavingALS(rec.ALSAlgorithm):
+    def train(self, ctx, pd):
+        m = super().train(ctx, pd)
+        return SavedALSModel(m.rank, m.user_factors, m.item_factors, m.user_map, m.item_map)
+
+
+def engine_factory():
+    return Engine({"": rec.RecDataSource}, {"": rec.RecPreparator},
+                  {"retrain": RetrainALS, "saved": SavingALS}, {"": FirstServing})
+'''
+#: the persist phase: the served num of fault B's end-to-end query; the
+#: seqrec head width that is not a multiple of 8 (d_model 24 / 4 heads);
+#: the JAX package's own spread between its bf16 ALS paths
+#: (test_torch_als.py), which the bf16 run's factors are held to after its
+#: iterations (its first user solve to rtol 2e-3 / atol 2e-4)
+PERSIST_NUM, PERSIST_SEQ = 4096, dict(d_model=24, n_heads=4)
+BF16_MAX_ABS = 8.8e-3
 
 
 def emit(obj) -> None:
@@ -495,7 +599,6 @@ def phase_build() -> None:
 
 def phase_kernel(torch, dev, rng) -> dict:
     from predictionio_tpu_torch.ops.cuda_kernels import (
-        TOPK_MAX_K,
         top_k_streaming,
         top_k_streaming_reference,
         topk_launch_plan,
@@ -580,13 +683,14 @@ def phase_kernel(torch, dev, rng) -> dict:
     # widest k the running-list stage takes
     check("B512_k128", q_all[:512].contiguous(), items, 128)
     check("k1024", q_all[:4].contiguous(), items, 1024, timed=True)
-    check("k2048_ceiling", q_all[:2].contiguous(), items, TOPK_MAX_K)
-    try:
-        top_k_streaming(q_all[:1].contiguous(), items, TOPK_MAX_K + 1)
-    except ValueError:
-        emit({"phase": "kernel", "case": "k_above_ceiling", "raised": True})
-    else:
-        raise AssertionError("k above the kernel ceiling did not raise")
+    check("k2048", q_all[:2].contiguous(), items, 2048)
+    # k above the old ceiling of 2048, up to the catalog: a served num of
+    # 4096 (20 lists of 256 merged in shared memory), then k = N with 64
+    # exclusions a query (106 lists, merged in device memory)
+    k_q, k_items = tensors(64, 5000, r)
+    main["k4096_N5000"] = check("k4096_N5000", k_q, k_items, 4096, timed=True)
+    main["k_eq_N27000_E64"] = check("k_eq_N27000_E64", q_all[:64].contiguous(), items, n,
+                                    torch.from_numpy(excl).to(dev), timed=True)
     return main
 
 
@@ -606,14 +710,16 @@ def traced_device_ms(torch, fn, iters: int, ops_per_call: int):
 def topk_large_batches(torch, dev, rng) -> dict:
     """The top-k at the batches of ``TOPK_LARGE``: one call of the wrapper
     (B = 600,000 is cut into two launches of at most ``TOPK_MAX_BATCH``
-    rows), held against the plain version in chunks of ``ORACLE_CHUNK``
-    rows (scores rtol/atol 1e-5, ids equal or tied), then timed beside the
+    rows; k = 256 on 27,000 items into launches whose scratch stays within
+    ``TOPK_MAX_SCRATCH_BYTES``), held against the plain version in chunks
+    (scores rtol/atol 1e-5, ids equal or tied), then timed beside the
     plain version (in the same chunks) and ``torch.topk(q @ items.T)``."""
     from predictionio_tpu_torch.ops.cuda_kernels import (
         top_k_streaming,
         top_k_streaming_reference,
         topk_batch_slices,
         topk_launch_plan,
+        topk_scratch_bytes,
     )
 
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -621,14 +727,16 @@ def topk_large_batches(torch, dev, rng) -> dict:
     for b, n, r, k in TOPK_LARGE:
         q = torch.from_numpy(rng.standard_normal((b, r), dtype=np.float32)).to(dev)
         items = torch.from_numpy(rng.standard_normal((n, r), dtype=np.float32)).to(dev)
-        slices = topk_batch_slices(b)
+        slices = topk_batch_slices(b, n_items=n, k_eff=min(k, n), rank=r,
+                                   sm_count=sm_count)
+        chunk = min(ORACLE_CHUNK, (1 << 28) // n)
         before = top_k_streaming.launches
         got = top_k_streaming(q, items, k)
         torch.cuda.synchronize()
         launches = top_k_streaming.launches - before
         err, ok, wrong = 0.0, True, 0
-        for start in range(0, b, ORACLE_CHUNK):
-            stop = min(start + ORACLE_CHUNK, b)
+        for start in range(0, b, chunk):
+            stop = min(start + chunk, b)
             want = top_k_streaming_reference(q[start:stop], items, k)
             part = (got[0][start:stop], got[1][start:stop])
             e, agree = agreement(part, want)
@@ -636,15 +744,16 @@ def topk_large_batches(torch, dev, rng) -> dict:
             wrong += wrong_outside_ties(part, want)
 
         def plain():
-            return [top_k_streaming_reference(q[s:s + ORACLE_CHUNK], items, k)
-                    for s in range(0, b, ORACLE_CHUNK)]
+            return [top_k_streaming_reference(q[s:s + chunk], items, k)
+                    for s in range(0, b, chunk)]
 
         kernel = lambda: top_k_streaming(q, items, k)  # noqa: E731
         library = lambda: torch.topk(q @ items.T, k, dim=1)  # noqa: E731
         bound_ms, bound_by = topk_bound(b, n, r, k)
         plan = topk_launch_plan(slices[0][1] - slices[0][0], n, min(k, n), sm_count, r)
-        line = {"case": f"large_B{b}", "B": b, "N": n, "R": r, "k": k,
+        line = {"case": f"large_B{b}_R{r}_k{k}", "B": b, "N": n, "R": r, "k": k,
                 "slices": slices, "launches": launches,
+                "scratch_bytes_per_launch": topk_scratch_bytes(plan),
                 "T": plan.tiles_per_block, "n_runs": plan.n_runs,
                 "stage1": "running_list" if plan.stage1_smem else "tile_sort",
                 "max_abs_err": err, "agree": ok, "wrong_ids_outside_ties": wrong,
@@ -657,7 +766,7 @@ def topk_large_batches(torch, dev, rng) -> dict:
         emit({"phase": "kernel", **line})
         if not ok or launches != len(slices):
             raise AssertionError(f"top-k at B = {b} disagrees with plain: {line}")
-        out[b] = line
+        out[line["case"]] = line
         del q, items, got
         torch.cuda.empty_cache()
     return out
@@ -1532,7 +1641,11 @@ def phase_attention_kernel(torch, dev, seed: int) -> dict:
         q = torch.randn((b, h, lq, d), generator=gen, device=dev)
         k = torch.randn((b, h, lk, d), generator=gen, device=dev)
         v = torch.randn((b, h, lk, d), generator=gen, device=dev)
-        plan = flash_plan_for(q, k, causal, bq)  # bq: an instantiation to force
+        # the plan of the width the kernel runs at: D padded to a multiple
+        # of 8 (the wrapper pads an odd width); bq: an instantiation to force
+        d_pad = -(-d // FLASH_D_MULTIPLE) * FLASH_D_MULTIPLE
+        plan = flash_plan_for(q.new_empty((b, h, lq, d_pad)),
+                              k.new_empty((b, h, lk, d_pad)), causal, bq)
         before = flash_attention_fwd.launches
         got = flash_attention_fwd(q, k, v, causal, plan=plan)
         torch.cuda.synchronize()
@@ -1541,7 +1654,7 @@ def phase_attention_kernel(torch, dev, seed: int) -> dict:
                   and torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL))
         err = float((got - want).abs().max())
         out = {"case": case, "B": b, "H": h, "Lq": lq, "Lk": lk, "D": d,
-               "causal": causal, "max_abs_err": err, "agree": ok,
+               "D_kernel": d_pad, "causal": causal, "max_abs_err": err, "agree": ok,
                "plan": flash_plan_line(plan)}
         if repeat:  # no atomics: a second call gives the same bits
             again = flash_attention_fwd(q, k, v, causal, plan=plan)
@@ -1574,7 +1687,14 @@ def phase_attention_kernel(torch, dev, seed: int) -> dict:
     main = {
         "train": check("train_B64", 64, 4, 64, 64, 16, True, timed=True, repeat=True),
         "serve": check("serve_B1", 1, 4, 64, 64, 16, True, timed=True),
+        # head widths that are not a multiple of 8: seqrec at d_model 24 /
+        # 4 heads (D = 6) and 60 / 4 (D = 15), the training shape
+        "train_D6": check("train_B64_D6", 64, 4, 64, 64, 6, True, timed=True, repeat=True),
+        "train_D15": check("train_B64_D15", 64, 4, 64, 64, 15, True, timed=True),
     }
+    for causal in (True, False):
+        for d in (6, 12, 15, 100):
+            check(f"odd_D{d}", 2, 4, 160, 200, d, causal)
     for causal in (True, False):
         for b, h, lq, lk, d in ((2, 4, 64, 64, 16), (1, 2, 60, 60, 8),
                                 (1, 1, 7, 13, 8), (2, 2, 128, 96, 32)):
@@ -2047,6 +2167,55 @@ def events_store(base: str):
         get_registry(refresh=True)
 
 
+def als_burst(torch, dev, server, model, user_ids, rng, max_num: int = 50) -> dict:
+    """``HTTP_QUERIES`` concurrent ``POST /queries.json`` to a deployed ALS
+    ``model`` (known users drawn from ``user_ids``, two unknown ones),
+    every answer held to the plain top-k on the model's tables (scores
+    rtol/atol 1e-5, ids equal or tied; unknown users answer no items).
+    The top-k launch count is reset just before the burst and read just
+    after it. Fails on any wrong answer or when the kernel never ran."""
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        top_k_streaming,
+        top_k_streaming_reference,
+    )
+
+    users = [str(u) for u in rng.choice(user_ids, size=HTTP_QUERIES - 2, replace=False)]
+    bodies = [{"user": u, "num": 1 + j % max_num} for j, u in enumerate(users)]
+    bodies += [{"user": "nobody-1", "num": 5}, {"user": "nobody-2", "num": max_num}]
+    uf = torch.from_numpy(model.user_factors).to(dev)
+    itf = torch.from_numpy(model.item_factors).to(dev)
+    rows = torch.tensor([model.user_map[u] for u in users], device=dev)
+    want_s, want_i = (x.cpu().numpy() for x in top_k_streaming_reference(
+        uf[rows].contiguous(), itf, max_num))
+    inv = model.item_map.inverse
+    top_k_streaming.launches = 0  # main path starts here
+    t = time.monotonic()
+    with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+        answers = list(pool.map(lambda b: _post_query(server.bound_port, b), bodies))
+    burst_s = time.monotonic() - t
+    launches = top_k_streaming.launches  # main path ends here
+    bad = []
+    for j, (body, (status, data, _)) in enumerate(zip(bodies, answers)):
+        if status != 200:
+            bad.append((body, status))
+        elif j >= len(users):
+            if data != {"itemScores": []}:
+                bad.append((body, data))
+        else:
+            k = min(body["num"], len(inv))
+            got = data["itemScores"]
+            got_s = np.array([x["score"] for x in got], dtype=np.float32)
+            close = len(got) == k and np.isclose(got_s, want_s[j][:k],
+                                                 rtol=RTOL, atol=ATOL)
+            same = np.array([x["item"] == inv[int(i)] for x, i in zip(got, want_i[j])])
+            if not (len(got) == k and np.all(close) and np.all(same | close)):
+                bad.append((body, got[:3]))
+    if bad or launches < 1:
+        raise AssertionError(f"served answers disagree: {bad[:3]}; "
+                             f"{launches} top-k launches")
+    return {"bodies": bodies, "bad": bad, "burst_s": burst_s, "launches": launches}
+
+
 def phase_events(torch, dev, seed: int, base: str) -> dict:
     """The training infeed from events: ML-1M-shaped rate events bulk
     written into the native event log through the registry's ``native``
@@ -2062,8 +2231,6 @@ def phase_events(torch, dev, seed: int, base: str) -> dict:
         flash_attention_fwd,
         gramian_fused,
         spd_solve,
-        top_k_streaming,
-        top_k_streaming_reference,
     )
     from predictionio_tpu_torch.workflow import (
         ServerConfig,
@@ -2144,49 +2311,19 @@ def phase_events(torch, dev, seed: int, base: str) -> dict:
             raise AssertionError(f"ALS from events: train RMSE {train_rmse}")
 
         # serve it: a burst of queries by string user id, held to the plain top-k
-        rng = np.random.default_rng(seed + 4)
-        users = [str(u) for u in rng.choice(user_ids, size=HTTP_QUERIES - 2, replace=False)]
-        bodies = [{"user": u, "num": 1 + j % 50} for j, u in enumerate(users)]
-        bodies += [{"user": "nobody-1", "num": 5}, {"user": "nobody-2", "num": 50}]
-        rows = torch.tensor([model.user_map[u] for u in users], device=dev)
-        want_s, want_i = (x.cpu().numpy() for x in top_k_streaming_reference(
-            factors.user_factors[rows].contiguous(), factors.item_factors, 50))
-        inv = model.item_map.inverse
         server = create_query_server(
             rec.engine_factory(),
             ServerConfig(ip="127.0.0.1", port=0, device=dev,
                          engine_instance_id=als_instance),
             registry=registry, block=False)
         try:
-            top_k_streaming.launches = 0  # main path starts here
-            t = time.monotonic()
-            with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
-                answers = list(pool.map(lambda b: _post_query(server.bound_port, b),
-                                        bodies))
-            seconds["serve_burst"] = time.monotonic() - t
-            topk_launches = top_k_streaming.launches  # main path ends here
+            burst = als_burst(torch, dev, server, model, user_ids,
+                              np.random.default_rng(seed + 4))
         finally:
             server.shutdown()
             server.server_close()
-        bad = []
-        for j, (body, (status, data, _)) in enumerate(zip(bodies, answers)):
-            if status != 200:
-                bad.append((body, status))
-            elif j >= len(users):
-                if data != {"itemScores": []}:
-                    bad.append((body, data))
-            else:
-                k = min(body["num"], len(inv))
-                got = data["itemScores"]
-                got_s = np.array([x["score"] for x in got], dtype=np.float32)
-                close = len(got) == k and np.isclose(got_s, want_s[j][:k],
-                                                     rtol=RTOL, atol=ATOL)
-                same = np.array([x["item"] == inv[int(i)] for x, i in zip(got, want_i[j])])
-                if not (len(got) == k and np.all(close) and np.all(same | close)):
-                    bad.append((body, got[:3]))
-        if bad or topk_launches < 1:
-            raise AssertionError(f"served answers disagree: {bad[:3]}; "
-                                 f"{topk_launches} top-k launches")
+        seconds["serve_burst"] = burst["burst_s"]
+        bodies, bad, topk_launches = burst["bodies"], burst["bad"], burst["launches"]
 
         # the sequence recommender from the store
         seq_source = seq.SeqDataSource(seq.SeqDataSourceParams(
@@ -2609,6 +2746,333 @@ def phase_eval(torch, dev, seed: int, base: str) -> dict:
     return out
 
 
+def als_against_plain(torch, dev, model, td, cfg) -> dict:
+    """A trained ALS model's factors against ``cfg.iterations`` of the
+    plain build and solve from the same initial table, on the same
+    ratings (the data of ``td``), as ``phase_train`` holds its own run;
+    and the first user solve (before any solved table is rounded to the
+    gather's dtype) through the kernels against the plain versions."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        gramian_fused,
+        gramian_fused_reference,
+        spd_solve,
+        spd_solve_reference,
+    )
+
+    n_u, n_i = len(td.user_map), len(td.item_map)
+    ub = als.stage(als.sort_bucket_indices(
+        als.bucketize(td.users, td.items, td.ratings, n_u, n_i)), dev)
+    ib = als.stage(als.sort_bucket_indices(
+        als.bucketize(td.items, td.users, td.ratings, n_i, n_u)), dev)
+    y0 = als.init_factors(n_i, cfg.rank, cfg.seed, dev)
+    x, y = als._train_loop(ub, ib, y0, cfg, gramian_fused_reference, spd_solve_reference)
+    first = [als._solve_side(y0, ub, cfg.rank, cfg.implicit_prefs, cfg.lambda_, cfg.alpha,
+                             y0.T @ y0 if cfg.implicit_prefs else None, cfg.gather_dtype,
+                             build, solve)
+             for build, solve in ((gramian_fused, spd_solve),
+                                  (gramian_fused_reference, spd_solve_reference))]
+    torch.cuda.synchronize()
+    diff = (first[0] - first[1]).abs()
+    out = {"first_user_solve": {
+        "max_abs_diff": float(diff.max()),
+        "beyond_tol": int((diff > FACTOR_ATOL + FACTOR_RTOL * first[1].abs()).sum())}}
+    for name, got, want in (("user", model.user_factors, x), ("item", model.item_factors, y)):
+        got = torch.from_numpy(got).to(dev)
+        diff = (got - want).abs()
+        out[name] = {
+            "max_abs_diff": float(diff.max()),
+            "rel_norm_diff": float(torch.linalg.norm(got - want) / torch.linalg.norm(want)),
+            "beyond_tol": int((diff > FACTOR_ATOL + FACTOR_RTOL * want.abs()).sum()),
+            "finite": bool(torch.isfinite(got).all()),
+        }
+    return out
+
+
+def phase_persist(torch, dev, seed: int, base: str, registry, slice_instance: str) -> dict:
+    """The DASE persistence contract on the card, over the events phase's
+    store (1,000,209 rate events), with a user's ``engine.py`` loaded
+    through ``workflow/loader.py``: (a) an ALS whose ``make_persistent``
+    returns ``RETRAIN`` is stored as the sentinel alone and retrained at
+    deploy (build and solve launches counted; the factors equal the
+    trained ones bit for bit), then serves a burst; (b) an ALS model that
+    saves its own tables is stored as a manifest and deploys with no build
+    and no solve, its factors equal to the saved ones, then serves a
+    burst; implicit-preference and bf16-gather ALS trained by
+    ``run_train`` against their plain versions; seqrec at 4 heads of
+    width 6 trained and served. Then (c): one ``POST /queries.json`` with
+    ``num`` = 4096 to the slice phase's ML-20M-shaped instance, held to
+    the plain top-k."""
+    import os
+
+    from predictionio_tpu_torch.controller import (
+        RETRAIN,
+        EngineParams,
+        PersistentModelManifest,
+    )
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.models import sequencerec as seq
+    from predictionio_tpu_torch.ops.attention import flash_attention
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        flash_attention_fwd,
+        gramian_fused,
+        spd_solve,
+        top_k_streaming,
+        top_k_streaming_reference,
+    )
+    from predictionio_tpu_torch.workflow import (
+        ServerConfig,
+        WorkflowContext,
+        create_query_server,
+        load_models,
+        run_train,
+    )
+    from predictionio_tpu_torch.workflow.loader import get_engine
+
+    engine_dir = os.path.join(base, "persist_engine")
+    os.makedirs(engine_dir, exist_ok=True)
+    with open(os.path.join(engine_dir, "engine.py"), "w") as fh:
+        fh.write(PERSIST_ENGINE_PY)
+    engine = get_engine("engine:engine_factory", engine_dir)
+    retrain_cls = engine.algorithm_class_map["retrain"]
+    seconds, launches, checks = {}, {}, {}
+    params = rec.ALSAlgorithmParams(rank=RANK, num_iterations=TRAIN_ITERS,
+                                    lambda_=LAMBDA, seed=TRAIN_SEED)
+    source = ("", rec.RecDataSourceParams(app_id=EVENTS_APP, event_names=("rate",)))
+
+    def engine_params(name, p=params):
+        return EngineParams(data_source_params=source, algorithm_params_list=[(name, p)])
+
+    def build_solve():
+        return {"gramian_fused": gramian_fused.launches, "spd_solve": spd_solve.launches}
+
+    def deploy(eng, instance_id, reg):
+        return create_query_server(
+            eng, ServerConfig(ip="127.0.0.1", port=0, device=dev,
+                              engine_instance_id=instance_id),
+            registry=reg, block=False)
+
+    trained = []
+
+    def keep(orig):
+        def wrapped(self, ctx, pd):
+            model = orig(self, ctx, pd)
+            trained.append(model)
+            return model
+        return wrapped
+
+    rng = np.random.default_rng(seed + 11)
+    with events_store(base) as ev_registry:
+        # (a) deploy-time retrain
+        with patched(retrain_cls, "train", keep):
+            gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+            t = time.monotonic()
+            a_instance = run_train(engine, engine_params("retrain"), ev_registry,
+                                   engine_id="persist-retrain",
+                                   ctx=WorkflowContext(device=dev))
+            seconds["retrain_run_train"] = time.monotonic() - t
+            launches["retrain_run_train"] = build_solve()  # main path ends here
+            blob = ev_registry.get_models().get(a_instance).models
+            if load_models(ev_registry, a_instance) != [RETRAIN] or len(blob) > 200:
+                raise AssertionError(f"instance {a_instance} stored {len(blob)} bytes")
+            gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+            t = time.monotonic()
+            server = deploy(engine, a_instance, ev_registry)
+            seconds["retrain_deploy"] = time.monotonic() - t
+            launches["retrain_deploy"] = build_solve()  # main path ends here
+        try:
+            model = server.deployment.models[0]
+            if len(trained) != 2 or model is not trained[1]:
+                raise AssertionError(f"{len(trained)} trainings for the RETRAIN instance")
+            same = (np.array_equal(model.user_factors, trained[0].user_factors)
+                    and np.array_equal(model.item_factors, trained[0].item_factors))
+            users = list(model.user_map.to_dict())
+            burst = als_burst(torch, dev, server, model, users, rng)
+        finally:
+            server.shutdown()
+            server.server_close()
+        want = launches["retrain_run_train"]
+        checks["retrain"] = {
+            "instance": a_instance, "blob_bytes": len(blob),
+            "deploy_launches_equal_training": launches["retrain_deploy"] == want,
+            "factors_bit_identical": same, "served": len(burst["bodies"]),
+            "wrong": len(burst["bad"]), "topk_launches": burst["launches"]}
+        launches["retrain_serve"] = burst["launches"]
+        emit({"phase": "persist", "stage": "retrain", **checks["retrain"],
+              "launches": {k: launches[k] for k in ("retrain_run_train", "retrain_deploy")},
+              "seconds": {k: seconds[k] for k in ("retrain_run_train", "retrain_deploy")}})
+        if (not same or launches["retrain_deploy"] != want
+                or min(want.values()) < TRAIN_ITERS):
+            raise AssertionError(f"deploy-time retrain: {checks['retrain']}, {launches}")
+
+        # (b) a self-persisting model deploys from its manifest
+        t = time.monotonic()
+        b_instance = run_train(engine, engine_params("saved"), ev_registry,
+                               engine_id="persist-saved", ctx=WorkflowContext(device=dev))
+        seconds["saved_run_train"] = time.monotonic() - t
+        (manifest,) = load_models(ev_registry, b_instance)
+        if not isinstance(manifest, PersistentModelManifest):
+            raise AssertionError(f"instance {b_instance} stored {manifest!r}")
+        where = os.path.join(engine_dir, "models", b_instance)
+        saved = {n: np.load(os.path.join(where, f"{n}.npy"))
+                 for n in ("user_factors", "item_factors")}
+        gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+        t = time.monotonic()
+        server = deploy(engine, b_instance, ev_registry)
+        seconds["manifest_deploy"] = time.monotonic() - t
+        launches["manifest_deploy"] = build_solve()  # main path ends here
+        try:
+            model = server.deployment.models[0]
+            same = all(np.array_equal(getattr(model, n), a) for n, a in saved.items())
+            burst = als_burst(torch, dev, server, model, users, rng)
+        finally:
+            server.shutdown()
+            server.server_close()
+        checks["manifest"] = {
+            "instance": b_instance, "class_path": manifest.class_path,
+            "model": type(model).__name__, "factors_bit_identical": same,
+            "served": len(burst["bodies"]), "wrong": len(burst["bad"]),
+            "topk_launches": burst["launches"]}
+        launches["manifest_serve"] = burst["launches"]
+        emit({"phase": "persist", "stage": "manifest", **checks["manifest"],
+              "launches": launches["manifest_deploy"],
+              "seconds": {k: seconds[k] for k in ("saved_run_train", "manifest_deploy")}})
+        if not same or max(launches["manifest_deploy"].values()) != 0:
+            raise AssertionError(f"manifest deploy: {checks['manifest']}, {launches}")
+
+        # the ALS configurations not trained end to end on the card before
+        td = rec.RecDataSource(source[1]).read_training(None)
+        for name, extra in (("implicit", dict(implicit_prefs=True, alpha=1.0)),
+                            ("bf16", dict(gather_dtype="bf16"))):
+            p = dataclasses.replace(params, num_iterations=PARITY_ITERS, **extra)
+            gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+            t = time.monotonic()
+            instance = run_train(rec.engine_factory(), engine_params("als", p), ev_registry,
+                                 engine_id=f"persist-{name}", ctx=WorkflowContext(device=dev))
+            seconds[f"{name}_run_train"] = time.monotonic() - t
+            launches[f"{name}_run_train"] = build_solve()  # main path ends here
+            (model,) = load_models(ev_registry, instance)
+            held = als_against_plain(torch, dev, model, td, rec.als_config(p))
+            checks[name] = held
+            emit({"phase": "persist", "stage": name, "instance": instance,
+                  "launches": launches[f"{name}_run_train"],
+                  "seconds": seconds[f"{name}_run_train"], **held})
+            ok = held["first_user_solve"]["beyond_tol"] == 0
+            for side in (held["user"], held["item"]):
+                # bf16 rounds each solved table, so one float reassociation
+                # flips whole bf16 ulps that grow over the iterations
+                ok = ok and side["finite"] and (side["max_abs_diff"] <= BF16_MAX_ABS
+                                                if name == "bf16" else side["beyond_tol"] == 0)
+            if not ok or min(launches[f"{name}_run_train"].values()) < 1:
+                raise AssertionError(f"{name} ALS disagrees with plain: {held}")
+
+        # seqrec at a head width that is not a multiple of 8
+        seq_params = seq.SeqRecAlgorithmParams(**dict(SEQ_PARAMS, **PERSIST_SEQ,
+                                                      steps=EVENTS_SEQ_STEPS))
+        seq_ep = EngineParams(
+            data_source_params=("", seq.SeqDataSourceParams(app_id=EVENTS_APP,
+                                                             event_names=("rate",))),
+            preparator_params=("", seq.SeqPreparatorParams(seq_len=SEQ_LEN,
+                                                           window_stride=SEQ_STRIDE)),
+            algorithm_params_list=[("transformer", seq_params)])
+        flash_attention_fwd.launches = 0  # main path starts here
+        t = time.monotonic()
+        seq_instance = run_train(seq.engine_factory(), seq_ep, ev_registry,
+                                 engine_id="persist-seqrec-d6",
+                                 ctx=WorkflowContext(device=dev))
+        seconds["seqrec_d6_run_train"] = time.monotonic() - t
+        launches["seqrec_d6_run_train"] = flash_attention_fwd.launches  # main path ends here
+        (seq_model,) = load_models(ev_registry, seq_instance)
+        server = deploy(seq.engine_factory(), seq_instance, ev_registry)
+        try:
+            seq_users = list(seq_model.user_recent)
+            bodies = [{"user": str(u), "num": 1 + j % 20} for j, u in enumerate(
+                rng.choice(seq_users, size=HTTP_QUERIES - 2, replace=False))]
+            bodies += [{"user": "nobody-1", "num": 5},
+                       {"recent_items": ["ghost-1", "ghost-2"], "num": 5}]
+            flash_attention_fwd.launches = 0  # main path starts here
+            with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+                answers = list(pool.map(lambda b: _post_query(server.bound_port, b), bodies))
+            launches["seqrec_d6_serve"] = flash_attention_fwd.launches  # main path ends here
+        finally:
+            server.shutdown()
+            server.server_close()
+    algo = seq.SeqRecAlgorithm(seq_params, device=dev)
+    module, pad_id = seq_model.device_module(dev), len(seq_model.item_map)
+    inv, bad, forwards = seq_model.item_map.inverse, [], 0
+    for body, (status, data, _) in zip(bodies, answers):
+        tokens = algo._tokens_for(seq_model, seq.Query(**body))
+        if status != 200 or (not tokens and data != {"itemScores": []}):
+            bad.append((body, status, data))
+            continue
+        if not tokens:
+            continue
+        forwards += 1
+        row = [pad_id] * (seq_model.seq_len - len(tokens)) + list(tokens)
+        scores = _seq_scores(torch, module, torch.tensor([row], device=dev), pad_id,
+                             attention_fn=flash_attention)[0]
+        want_s, want_i = (x.cpu().numpy() for x in seq.top_k_lower_index_first(
+            scores, min(body["num"], pad_id)))
+        got = data["itemScores"]
+        got_s = np.array([x["score"] for x in got], dtype=np.float32)
+        if ([x["item"] for x in got] != [inv[int(i)] for i in want_i]
+                or not np.allclose(got_s, want_s, rtol=SEQ_SERVE_RTOL, atol=SEQ_SERVE_ATOL)):
+            bad.append((body, got[:3]))
+    checks["seqrec_d6"] = {"instance": seq_instance,
+                           "head_width": PERSIST_SEQ["d_model"] // PERSIST_SEQ["n_heads"],
+                           "served": len(bodies), "forwards": forwards, "wrong": len(bad)}
+    n_layers = seq_params.n_layers
+    emit({"phase": "persist", "stage": "seqrec_d6", **checks["seqrec_d6"],
+          "launches": {k: launches[k] for k in ("seqrec_d6_run_train", "seqrec_d6_serve")},
+          "seconds": seconds["seqrec_d6_run_train"]})
+    if (bad or launches["seqrec_d6_run_train"] != n_layers * EVENTS_SEQ_STEPS
+            or launches["seqrec_d6_serve"] != n_layers * forwards):
+        raise AssertionError(f"seqrec at D = 6: {bad[:3]}, {launches}")
+
+    # (c) fault B end to end: num = 4096 over 27,000 items, one HTTP query
+    (model,) = load_models(registry, slice_instance)
+    user = "u7"
+    row = torch.tensor([model.user_map[user]], device=dev)
+    want_s, want_i = (x.cpu().numpy()[0] for x in top_k_streaming_reference(
+        torch.from_numpy(model.user_factors).to(dev)[row].contiguous(),
+        torch.from_numpy(model.item_factors).to(dev), PERSIST_NUM))
+    server = deploy(rec.engine_factory(), slice_instance, registry)
+    try:
+        top_k_streaming.launches = 0  # main path starts here
+        t = time.monotonic()
+        status, data, _ = _post_query(server.bound_port, {"user": user, "num": PERSIST_NUM})
+        seconds["num4096_query"] = time.monotonic() - t
+        launches["num4096_query"] = top_k_streaming.launches  # main path ends here
+    finally:
+        server.shutdown()
+        server.server_close()
+    got = data.get("itemScores", []) if status == 200 else []
+    inv = model.item_map.inverse
+    got_s = np.array([x["score"] for x in got], dtype=np.float32)
+    close = len(got) == PERSIST_NUM and np.isclose(got_s, want_s, rtol=RTOL, atol=ATOL)
+    same = len(got) == PERSIST_NUM and np.array(
+        [x["item"] == inv[int(i)] for x, i in zip(got, want_i)])
+    wrong = PERSIST_NUM if len(got) != PERSIST_NUM else int((~(same | close)).sum())
+    checks["num4096"] = {"status": status, "items": len(got), "catalog": len(inv),
+                         "wrong_ids_outside_ties": wrong,
+                         "tied_slots": int((~same & close).sum()) if len(got) else 0,
+                         "max_abs_err": float(np.abs(got_s - want_s).max()) if len(got) else None,
+                         "launches": launches["num4096_query"]}
+    if status != 200 or wrong or not np.all(close) or launches["num4096_query"] != 1:
+        raise AssertionError(f"num = {PERSIST_NUM}: {checks['num4096']}")
+
+    out = {"phase": "persist", "checks": checks, "launches": launches, "seconds": seconds,
+           "by_kernel": {
+               "topk_streaming": (launches["retrain_serve"] + launches["manifest_serve"]
+                                  + launches["num4096_query"]),
+               **{name: sum(v[name] for k, v in launches.items()
+                            if isinstance(v, dict)) for name in ("gramian_fused", "spd_solve")},
+               "flash_attention": (launches["seqrec_d6_run_train"]
+                                   + launches["seqrec_d6_serve"])}}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2654,6 +3118,8 @@ def main(argv=None) -> int:
                            registry, seq_trained["out"]["instance"], seq_trained["seqs"])
         events = timed("events", phase_events, torch, dev, args.seed, base)
         evaluated = timed("eval", phase_eval, torch, dev, args.seed, base)
+        persisted = timed("persist", phase_persist, torch, dev, args.seed, base, registry,
+                          trained["instance"])
     large = timed("kernel_large", topk_large_batches, torch, dev,
                   np.random.default_rng(args.seed + 7))
     emit({"phase_seconds": seconds})
@@ -2666,10 +3132,12 @@ def main(argv=None) -> int:
         "source": TOPK_SOURCE,
         "replaces": TOPK_REPLACES,
         "launches": (sliced["launches"] + events["serve"]["launches"]
-                     + evaluated["launches"]["topk_streaming"]),
+                     + evaluated["launches"]["topk_streaming"]
+                     + persisted["by_kernel"]["topk_streaming"]),
         "launches_by_path": {"slice": sliced["launches"],
                              "events_serve": events["serve"]["launches"],
-                             "eval": evaluated["launches"]["topk_streaming"]},
+                             "eval": evaluated["launches"]["topk_streaming"],
+                             "persist": persisted["by_kernel"]["topk_streaming"]},
         "max_abs_err": max(m["max_abs_err"] for m in [*main_shapes.values(),
                                                       *large.values()]),
         "ms": ref["kernel_ms"],
@@ -2685,6 +3153,10 @@ def main(argv=None) -> int:
             "library_ms", "library_device_ms", "bound_us", "bound_by",
             "wrong_ids_outside_ties")} for b, v in large.items()},
         "eval_shape": evaluated["topk_at_eval_shape"],
+        "k_above_2048": {name: {k: main_shapes[name][k] for k in (
+            "B", "N", "k", "E", "T", "n_runs", "merge_in", "kernel_ms", "kernel_device_ms",
+            "plain_ms", "library_ms", "library_device_ms", "bound_us", "bound_by",
+            "max_abs_err")} for name in ("k4096_N5000", "k_eq_N27000_E64")},
     }]
     for name, source, replaces in (
         ("gramian_fused", GRAMIAN_SOURCE, GRAMIAN_REPLACES),
@@ -2697,10 +3169,11 @@ def main(argv=None) -> int:
             "source": source,
             "replaces": replaces,
             "launches": (trained["launches"][name] + events["als"]["launches"][name]
-                         + evaluated["launches"][name]),
+                         + evaluated["launches"][name] + persisted["by_kernel"][name]),
             "launches_by_path": {"train": trained["launches"][name],
                                  "events_als": events["als"]["launches"][name],
-                                 "eval": evaluated["launches"][name]},
+                                 "eval": evaluated["launches"][name],
+                                 "persist": persisted["by_kernel"][name]},
             "max_abs_err": kernels["max_abs_err"][name],
             "ms": it["kernel_ms"],
             "plain_ms": it["plain_ms"],
@@ -2726,11 +3199,13 @@ def main(argv=None) -> int:
         "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": (seq_trained["out"]["launches"] + seq_sliced["launches"]
-                     + events["seqrec"]["launches"] + evaluated["seqrec"]["launches"]),
+                     + events["seqrec"]["launches"] + evaluated["seqrec"]["launches"]
+                     + persisted["by_kernel"]["flash_attention"]),
         "launches_by_path": {"seqrec_train": seq_trained["out"]["launches"],
                              "seqrec_slice": seq_sliced["launches"],
                              "events_seqrec": events["seqrec"]["launches"],
-                             "eval": evaluated["seqrec"]["launches"]},
+                             "eval": evaluated["seqrec"]["launches"],
+                             "persist": persisted["by_kernel"]["flash_attention"]},
         "max_abs_err": attn["max_abs_err"],
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
@@ -2747,6 +3222,10 @@ def main(argv=None) -> int:
         "long_not_causal": {k: attn["shapes"]["long_causal_False"][k] for k in (
             "kernel_device_ms", "library_device_ms", "bound_us", "plan")},
         "attributes": attn["attributes"],
+        "odd_widths": {name: {k: attn["shapes"][name][k] for k in (
+            "D", "D_kernel", "kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_us", "bound_by", "max_abs_err")}
+            for name in ("train_D6", "train_D15")},
     })
     emit({"kernels": lines})
     print(smi, flush=True)

@@ -1,16 +1,25 @@
 """DASE component contracts.
 
 Trimmed copy of ``predictionio_tpu/controller/dase.py``: the
-``Controller`` base, the ``doer`` constructor, ``run_sanity_check``, and
-the contracts that training, evaluation and a deployed engine exercise
-(``DataSource.read_training``/``read_eval``, ``Preparator.prepare``,
+``Controller`` base, the ``doer`` constructor, ``SanityCheck`` and
+``run_sanity_check``, the contracts that training, evaluation and a
+deployed engine exercise (``DataSource.read_training``/``read_eval``,
+``Preparator.prepare``, ``IdentityPreparator``,
 ``Algorithm.train``/``predict``/``batch_predict``,
-``Serving.serve``/``supplement``, ``FirstServing``). Persistent-model
-manifests and ``RETRAIN`` wait (ROADMAP.md, queue 1).
+``Serving.serve``/``supplement``, ``FirstServing``, ``AverageServing``),
+and the persistence protocol of ``makeSerializableModels``
+(``Engine.scala:254-272``): an algorithm's ``make_persistent`` returns a
+:class:`PersistentModelManifest` for a :class:`PersistentModel` that saved
+itself (``IPersistentModel.scala:60-137``), :data:`RETRAIN` to store
+nothing and retrain at deploy (the ``Unit`` model of
+``Algorithm.scala:80-101``), or the model itself, which the workflow
+pickles into the model store.
 """
 
 from __future__ import annotations
 
+import abc
+import importlib
 import inspect
 from typing import Any, Generic, List, Optional, Sequence, Tuple, Type, TypeVar
 
@@ -23,6 +32,44 @@ PD = TypeVar("PD")  # prepared data
 M = TypeVar("M")  # model
 Q = TypeVar("Q")  # query
 P = TypeVar("P")  # predicted result
+
+
+class _RetrainSentinel:
+    """Marker: model not persisted; retrain at deploy (``Engine.scala:180``)."""
+
+    def __repr__(self) -> str:
+        return "RETRAIN"
+
+    def __reduce__(self):
+        # unpickles as the module-level singleton (through this module's
+        # own path), so ``is RETRAIN`` survives the model store
+        return (_retrain_instance, ())
+
+
+def _retrain_instance() -> "_RetrainSentinel":
+    return RETRAIN
+
+
+#: Return this from ``make_persistent`` to request deploy-time retraining.
+RETRAIN = _RetrainSentinel()
+
+#: top-level modules a manifest may never import: the JAX package (its
+#: classes import jax) and jax itself
+FOREIGN_ROOTS = ("predictionio_tpu", "jax", "jaxlib")
+
+
+class ForeignModelError(ValueError):
+    """A stored model names the JAX package (or jax): the port cannot load
+    it without importing jax."""
+
+
+class SanityCheck(abc.ABC):
+    """Optional hook run on data and models after each stage unless
+    skipped (``controller/SanityCheck.scala``; ``Engine.scala:526-582``)."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None:
+        """Raise on inconsistent data."""
 
 
 def run_sanity_check(obj: Any, label: str) -> None:
@@ -87,6 +134,13 @@ class Preparator(Controller, Generic[TD, PD]):
         raise NotImplementedError
 
 
+class IdentityPreparator(Preparator[TD, TD]):
+    """Pass-through (``IdentityPreparator``, ``Preparator.scala:76-96``)."""
+
+    def prepare(self, ctx, training_data: TD) -> TD:
+        return training_data
+
+
 class Algorithm(Controller, Generic[PD, M, Q, P]):
     """Train + predict (``controller/Algorithm.scala``). Device
     algorithms override ``batch_predict`` with one batched device call;
@@ -103,6 +157,21 @@ class Algorithm(Controller, Generic[PD, M, Q, P]):
     ) -> List[Tuple[int, P]]:
         return [(i, self.predict(model, q)) for i, q in indexed_queries]
 
+    def make_persistent(self, instance_id: str, model: M, ctx) -> Any:
+        """How the trained model persists (``Engine.scala:254-272``):
+
+        - a :class:`PersistentModel` saves itself, and its
+          :class:`PersistentModelManifest` is stored instead of its bytes
+          (:data:`RETRAIN` when its ``save`` declines);
+        - :data:`RETRAIN`: nothing is stored, deploy trains again;
+        - anything else is pickled into the model store by the workflow.
+        """
+        if isinstance(model, PersistentModel):
+            if model.save(instance_id, self.params, ctx):
+                return PersistentModelManifest.of(model)
+            return RETRAIN
+        return model
+
     def prepare_serving(self, model: M, ctx) -> None:
         """Deploy-time hook, run once per live model before the first
         query: device algorithms move the model's tables to
@@ -112,6 +181,56 @@ class Algorithm(Controller, Generic[PD, M, Q, P]):
         """Query dataclass for JSON decoding at the query server (the
         per-algorithm ``querySerializer``, ``CreateServer.scala:475-478``)."""
         return None
+
+
+class PersistentModel(abc.ABC):
+    """Self-persisting model (``IPersistentModel.scala:60-96``), with a
+    ``load`` classmethod (the ``IPersistentModelLoader`` companion,
+    ``IPersistentModel.scala:98-117``)."""
+
+    @abc.abstractmethod
+    def save(self, instance_id: str, params: Params, ctx) -> bool:
+        """Persist; return False to fall back to deploy-time retraining."""
+
+    @classmethod
+    @abc.abstractmethod
+    def load(cls, instance_id: str, params: Params, ctx) -> "PersistentModel":
+        ...
+
+
+class PersistentModelManifest:
+    """The class path of a self-persisted model
+    (``workflow/PersistentModelManifest.scala``), stored in its place."""
+
+    def __init__(self, class_path: str):
+        self.class_path = class_path
+
+    @staticmethod
+    def of(model: PersistentModel) -> "PersistentModelManifest":
+        cls = type(model)
+        return PersistentModelManifest(f"{cls.__module__}:{cls.__qualname__}")
+
+    def resolve(self) -> Type[PersistentModel]:
+        """Import the model class by name. A path into the JAX package or
+        jax is refused before any import (:class:`ForeignModelError`): a
+        manifest written by the JAX package would import jax here."""
+        module_name, _, qualname = self.class_path.partition(":")
+        if module_name.split(".")[0] in FOREIGN_ROOTS:
+            raise ForeignModelError(
+                f"persistent-model manifest {self.class_path!r} names a class of "
+                "the JAX package; the port loads only its own models"
+            )
+        obj: Any = importlib.import_module(module_name)
+        for part in qualname.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    def __repr__(self) -> str:
+        return f"PersistentModelManifest({self.class_path!r})"
+
+    def __eq__(self, other: object) -> bool:
+        return (isinstance(other, PersistentModelManifest)
+                and self.class_path == other.class_path)
 
 
 class Serving(Controller, Generic[Q, P]):
@@ -132,3 +251,11 @@ class FirstServing(Serving[Q, P]):
 
     def serve(self, query: Q, predictions: Sequence[P]) -> P:
         return predictions[0]
+
+
+class AverageServing(Serving[Q, float]):
+    """Averages numeric predictions (``LAverageServing``,
+    ``Serving.scala:83-102``)."""
+
+    def serve(self, query: Q, predictions: Sequence[float]) -> float:
+        return sum(predictions) / len(predictions)

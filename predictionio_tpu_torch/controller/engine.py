@@ -7,7 +7,9 @@ Trimmed copy of ``predictionio_tpu/controller/engine.py``:
 algorithm → sanity, ``Engine.scala:499-586``), ``Engine.eval`` and
 ``batch_eval`` (per fold: train on the split, one ``batch_predict`` per
 algorithm, serve each query, ``Engine.scala:588-672``),
-``make_serializable_models``, ``prepare_deploy``, the engine-variant
+``make_serializable_models`` (each algorithm's ``make_persistent``),
+``prepare_deploy`` (manifests loaded, ``RETRAIN`` trained again, blobbed
+models passed through), the engine-variant
 JSON parser ``json_to_engine_params`` (``Engine.scala:313-370``) and the
 rebuild of ``EngineParams`` from a stored engine instance
 (``Engine.scala:372-425``), plus ``serialize_engine_params`` to write
@@ -18,11 +20,23 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 from collections import defaultdict
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Type, Union
 
-from .dase import Algorithm, DataSource, Preparator, Serving, doer, run_sanity_check
+from .dase import (
+    RETRAIN,
+    Algorithm,
+    DataSource,
+    PersistentModelManifest,
+    Preparator,
+    Serving,
+    doer,
+    run_sanity_check,
+)
 from .params import EmptyParams, Params, ParamsError, extract_params, params_to_json
+
+logger = logging.getLogger(__name__)
 
 ClassMap = Dict[str, Type]
 
@@ -157,10 +171,15 @@ class Engine:
         self, ctx, engine_params: EngineParams, instance_id: str,
         models: Sequence[Any],
     ) -> List[Any]:
-        """The models as the blob stores them (``Engine.scala:254-272``):
-        every model of the port pickles as it is; self-persisting models
-        and ``RETRAIN`` wait (ROADMAP.md)."""
-        return list(models)
+        """The models as the blob stores them (``Engine.scala:254-272``),
+        one per algorithm: a :class:`PersistentModelManifest`,
+        :data:`RETRAIN`, or the model to pickle, as each algorithm's
+        ``make_persistent`` decides."""
+        algorithms = self._algorithms(engine_params)
+        return [
+            algo.make_persistent(instance_id, model, ctx)
+            for algo, model in zip(algorithms, models)
+        ]
 
     def prepare_deploy(
         self,
@@ -169,16 +188,34 @@ class Engine:
         instance_id: str,
         persisted_models: Sequence[Any],
     ) -> List[Any]:
-        """Persisted models → live ones (``Engine.scala:168-237``). The
-        port deploys blobbed models as they are; an instance whose blob
-        does not hold one model per algorithm is refused."""
+        """Persisted models → live ones (``Engine.scala:168-237``): a
+        manifest's class loads its model, a blobbed model passes through,
+        and if any entry is :data:`RETRAIN` the engine trains once on
+        ``ctx`` (its device, the DataSource's store, the stored params and
+        their seed; ``Engine.scala:180-198``) and each such entry takes
+        its algorithm's retrained model. An instance whose blob does not
+        hold one entry per algorithm is refused."""
         n_algos = len(engine_params.algorithm_params_list)
         if len(persisted_models) != n_algos:
             raise ValueError(
                 f"engine instance {instance_id} persisted "
                 f"{len(persisted_models)} models for {n_algos} algorithms"
             )
-        return list(persisted_models)
+        algorithms = self._algorithms(engine_params)
+        retrained: Optional[List[Any]] = None
+        if any(m is RETRAIN for m in persisted_models):
+            logger.info("Engine instance %s stored RETRAIN: training again at deploy",
+                        instance_id)
+            retrained = self.train(ctx, engine_params)
+        live = []
+        for i, (algo, pm) in enumerate(zip(algorithms, persisted_models)):
+            if isinstance(pm, PersistentModelManifest):
+                live.append(pm.resolve().load(instance_id, algo.params, ctx))
+            elif pm is RETRAIN:
+                live.append(retrained[i])
+            else:
+                live.append(pm)
+        return live
 
     def eval(
         self,

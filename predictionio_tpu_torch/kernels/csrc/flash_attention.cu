@@ -30,7 +30,9 @@
 // the plain PyTorch version on the card): q [BH, Lq, D], k and v [BH, Lk, D], o
 // [BH, Lq, D], all f32, contiguous and 16-byte aligned; D a multiple of 8 from
 // 8 to kMaxD = 128; Lq, Lk >= 1. The wrapper
-// (ops/cuda_kernels.py::flash_attention_fwd) raises on anything else.
+// (ops/cuda_kernels.py::flash_attention_fwd) takes any head width from 1 to
+// 128: it zero-pads q, k and v to the next multiple of 8, passes the true width
+// for the scale, and slices o back. It raises on anything else.
 //
 // Design. A block takes BQ = 64 or 128 query rows of one (batch * head) and
 // walks the keys in tiles of kTile = 64, with 2 * BQ threads. Thread (ry, kx)
@@ -357,7 +359,7 @@ __global__ void __launch_bounds__(2 * BQ, (min_blocks<D, BQ>()))
 
 template <int D, int BQ>
 int launch(const float* q, const float* k, const float* v, float* o, int BH,
-           int Lq, int Lk, int causal, int blocks, int smem,
+           int Lq, int Lk, int causal, int blocks, int smem, float qscale,
            cudaStream_t stream) {
   if (static_cast<size_t>(smem) > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -365,14 +367,13 @@ int launch(const float* q, const float* k, const float* v, float* o, int BH,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const float qscale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   flash_attention_kernel<D, BQ><<<blocks, 2 * BQ, smem, stream>>>(
       q, k, v, o, BH, Lq, Lk, (Lq + BQ - 1) / BQ, causal, qscale);
   return static_cast<int>(cudaGetLastError());
 }
 
 using LaunchFn = int (*)(const float*, const float*, const float*, float*, int,
-                         int, int, int, int, int, cudaStream_t);
+                         int, int, int, int, int, float, cudaStream_t);
 
 #define PIO_FLASH_ROW(d) {launch<d, 64>, launch<d, 128>}
 // [D / 8 - 1][BQ == 128]
@@ -400,19 +401,25 @@ const void* const kKernels[2 * kMaxD / 8] = {
 
 // Launches the forward on `stream` and returns cudaGetLastError() (0 = ok).
 // Device pointers: q [BH, Lq, D], k and v [BH, Lk, D], o [BH, Lq, D] (output),
-// all f32, contiguous and 16-byte aligned. The plan (ops/cuda_kernels.py::
+// all f32, contiguous and 16-byte aligned. D_true is the head width the
+// caller's tensors had before the wrapper zero-padded them to D, the next
+// multiple of 8 (D_true = D when they needed no padding): q is scaled by
+// 1/sqrt(D_true), so a padded head answers as the unpadded one would and a
+// width that needs no padding keeps the factor it always had. The plan
+// (ops/cuda_kernels.py::
 // flash_launch_plan): query rows a block bq (64 or 128), threads a block,
 // dynamic shared memory in bytes, and blocks. A plan that does not match this
 // arithmetic is refused (cudaErrorInvalidValue), as are BH, Lq, Lk < 1, a D
-// that is not a multiple of 8 from 8 to 128, more than 65,535 query tiles,
+// that is not a multiple of 8 from 8 to 128, a D_true that does not round up
+// to D, more than 65,535 query tiles,
 // more than 2^31 - 1 blocks, and more shared memory than a block may have
 // (bq = 128 at D = 128).
 extern "C" int pio_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, int BH, int Lq, int Lk, int D,
-                                   int causal, int bq, int threads, int smem,
-                                   int blocks, void* stream) {
+                                   int D_true, int causal, int bq, int threads,
+                                   int smem, int blocks, void* stream) {
   if (BH < 1 || Lq < 1 || Lk < 1 || D < 8 || D > kMaxD || D % 8 != 0 ||
-      (bq != kTile && bq != 2 * kTile)) {
+      D_true < D - 7 || D_true > D || (bq != kTile && bq != 2 * kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long q_tiles = (Lq + bq - 1) / bq;
@@ -425,7 +432,9 @@ extern "C" int pio_flash_attention(const void* q, const void* k, const void* v,
   return kLaunch[D / 8 - 1][bq == 2 * kTile](
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), BH, Lq, Lk,
-      causal != 0, blocks, smem, static_cast<cudaStream_t>(stream));
+      causal != 0, blocks, smem,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D_true))),
+      static_cast<cudaStream_t>(stream));
 }
 
 // Registers a thread, local (spilled) bytes and static shared memory of every

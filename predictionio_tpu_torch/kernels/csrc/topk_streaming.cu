@@ -67,9 +67,15 @@
 //     queries still fill the card.
 //   Query slots past B in the last query tile are neither sorted nor stored.
 //
-// Ceiling: k <= kMaxK = 2048 (the sentinel range and the wrapper's checks);
-// the merge takes any k up to it in either memory. The wrapper raises above
-// it; it never falls back.
+// Ceiling: k <= kMaxK = 2^29, the catalog's own ceiling, so any k clamped to N
+// is taken. The sentinel indices start at INT_MAX - kMaxK, above every real
+// index (N <= 2^29); within one query the merge indexes keys with ints, and a
+// query's lists hold at most span = n_runs * kt <= 2^29 keys (a round's key
+// count stays below 2^30); every offset across queries is size_t. The store
+// strides over at most 65,535 blocks a query, so K is not bound by the grid.
+// At kt > 128 stage 1 keeps every tile's list, about 8 N bytes a query: the
+// wrapper cuts the batch so that one launch's scratch stays within a fixed
+// budget (ops/cuda_kernels.py::topk_batch_slices).
 //
 // Bound at the serving slice's shapes (ML-20M width: N = 27,000 items, R = 50,
 // k = 16; H100 SXM data sheet: 3.35 TB/s, fp32 outside the tensor cores about
@@ -92,7 +98,7 @@ constexpr int kTileItems = 256;    // items per stage-1 tile, one per thread
 constexpr int kTileQueries = 8;    // queries per stage-1 block
 constexpr int kRankChunk = 16;     // ranks staged in shared memory per step
 constexpr int kItemStride = kTileItems + 1;  // staged chunk row, bank-skewed
-constexpr int kMaxK = 2048;
+constexpr int kMaxK = 536870912;  // 2^29
 constexpr int kRunMaxKt = 128;     // the running-list path takes kt up to this
 constexpr int kSparseMax = 32;     // survivors per query a sparse merge takes
 constexpr int kMergeThreads = 256;        // per block of a merge round
@@ -789,7 +795,8 @@ extern "C" int pio_topk_streaming(const void* q, const void* items,
     float* fs = src_s; src_s = dst_s; dst_s = fs;
     int* fi = src_i; src_i = dst_i; dst_i = fi;
   }
-  const dim3 grid(B, (K + kMergeThreads - 1) / kMergeThreads);
+  const int store_blocks = (K + kMergeThreads - 1) / kMergeThreads;
+  const dim3 grid(B, store_blocks < 65535 ? store_blocks : 65535);
   topk_store_kernel<<<grid, kMergeThreads, 0, s>>>(
       src_s, src_i, n_runs, kt, K, static_cast<float*>(out_s),
       static_cast<int*>(out_i));

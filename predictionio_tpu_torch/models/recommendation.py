@@ -266,6 +266,23 @@ class ALSModel:
             raise ValueError("ALS produced non-finite item factors")
 
 
+def als_config(p: ALSAlgorithmParams) -> ALSConfig:
+    """The trainer's configuration for the template's params (what
+    ``ALSAlgorithm.train`` runs)."""
+    return ALSConfig(
+        rank=p.rank,
+        iterations=p.num_iterations,
+        lambda_=p.lambda_,
+        seed=p.seed,
+        implicit_prefs=p.implicit_prefs,
+        alpha=p.alpha,
+        solve_mode=p.solve_mode,
+        gather_dtype=p.gather_dtype,
+        sort_gather_indices=p.sort_gather_indices,
+        fused_gather=p.fused_gather,
+    )
+
+
 def als_model_from_numpy(
     rank: int,
     user_factors,
@@ -352,18 +369,7 @@ class ALSAlgorithm(Algorithm):
                 "checkpointed training is not ported yet (ROADMAP.md, "
                 "queue 1: checkpoint resume in the port's trainer)"
             )
-        cfg = ALSConfig(
-            rank=p.rank,
-            iterations=p.num_iterations,
-            lambda_=p.lambda_,
-            seed=p.seed,
-            implicit_prefs=p.implicit_prefs,
-            alpha=p.alpha,
-            solve_mode=p.solve_mode,
-            gather_dtype=p.gather_dtype,
-            sort_gather_indices=p.sort_gather_indices,
-            fused_gather=p.fused_gather,
-        )
+        cfg = als_config(p)
         factors = als_train_coo(
             pd.users,
             pd.items,

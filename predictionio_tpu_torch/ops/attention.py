@@ -20,8 +20,10 @@ Counterpart of the single-device half of
   :func:`flash_attention_pallas`: the port has one implementation per
   device, so the template's default (``"xla"``) reaches the kernel.
 
+Any head width D from 1 to 128 is taken (the kernel's wrapper pads D to
+a multiple of 8 on the card and scales by the true D); wider heads raise.
 Ring and Ulysses attention (sequence parallelism over a mesh) wait for
-``torch.distributed`` (ROADMAP.md, queue 1 item 8); asking for them
+``torch.distributed`` (ROADMAP.md, queue 1 item 11); asking for them
 raises.
 """
 
@@ -157,8 +159,8 @@ def flash_attention_pallas(
 
     The kernel's tiles are fixed at 64 rows and 64 keys
     (:data:`.cuda_kernels.FLASH_TILE`), so the JAX version's
-    ``block_q``/``block_k`` have no counterpart. Raises for a head width
-    the kernel does not take (a multiple of 8 up to 128)."""
+    ``block_q``/``block_k`` have no counterpart. Takes any head width
+    from 1 to 128 and raises above it."""
     return _FlashAttention.apply(q, k, v, causal)
 
 

@@ -37,9 +37,9 @@ TOPK_TILE_ITEMS = 256
 TOPK_TILE_QUERIES = 8
 #: ranks staged per step (kRankChunk)
 TOPK_RANK_CHUNK = 16
-#: the kernel's ceiling on k (kMaxK); above it the wrapper raises.
-#: pad_pow2 of any num <= 2048 stays under it.
-TOPK_MAX_K = 2048
+#: the kernel's ceiling on k (kMaxK): the catalog's, :data:`TOPK_MAX_ITEMS`,
+#: so that any k clamped to N is taken
+TOPK_MAX_K = 1 << 29
 #: stage 1 keeps a running list over a run of tiles for kt up to this
 #: (kRunMaxKt); above it every tile is sorted on its own
 TOPK_RUN_MAX_KT = 128
@@ -58,6 +58,10 @@ TOPK_MAX_ITEMS = 1 << 29
 #: launch takes at most this many queries; a larger batch is cut into
 #: consecutive slices of at most this many (:func:`topk_batch_slices`)
 TOPK_MAX_BATCH = TOPK_TILE_QUERIES * 65535
+#: the most scratch one launch may allocate on the card: its stage-1 lists
+#: (8 bytes a key) and, when the merge runs in device memory, their second
+#: copy. A slice is cut to stay within it, but never below one query tile.
+TOPK_MAX_SCRATCH_BYTES = 2 << 30
 
 
 class TopkPlan(NamedTuple):
@@ -248,14 +252,48 @@ def top_k_streaming_reference(
     return _pad_k(top_s, top_i, k)
 
 
-def topk_batch_slices(b: int, max_batch: int = TOPK_MAX_BATCH):
+def topk_scratch_bytes(plan: TopkPlan) -> int:
+    """Device memory the launch of ``plan`` allocates for its stage-1
+    lists: scores and ids (8 bytes a key), twice when the merge rounds
+    run between two scratches (``merge_smem == 0``)."""
+    b, n_runs, kt = plan.scratch_shape
+    return b * n_runs * kt * (16 if plan.merge_smem == 0 else 8)
+
+
+def topk_batch_slices(b: int, max_batch: int = TOPK_MAX_BATCH, *,
+                      n_items: Optional[int] = None, k_eff: Optional[int] = None,
+                      rank: Optional[int] = None, sm_count: Optional[int] = None):
     """The ``[start, stop)`` row ranges one call of ``b`` queries is cut
-    into: consecutive, at most ``max_batch`` rows each, covering every
-    row once (none for ``b = 0``). Each range is one launch of the kernel
-    (or one call of the plain version on the CPU)."""
+    into: consecutive, covering every row once (none for ``b = 0``), at
+    most ``max_batch`` rows each. Each range is one launch of the kernel
+    (or one call of the plain version on the CPU).
+
+    Given the catalog (``n_items``, with ``k_eff``, ``rank`` and the
+    card's ``sm_count``: what :func:`topk_launch_plan` reads), a range is
+    also cut so that its launch's scratch (:func:`topk_scratch_bytes`)
+    stays within :data:`TOPK_MAX_SCRATCH_BYTES` — but never below one query tile of
+    :data:`TOPK_TILE_QUERIES` rows, whatever one query's lists take. At
+    kt <= :data:`TOPK_RUN_MAX_KT` a launch keeps about one wave of lists,
+    far below the budget, so those plans keep the ``max_batch`` ranges;
+    the per-tile path (kt above it) keeps every tile's list, about 8·N
+    bytes a query (16·N with the merge in device memory), and is cut.
+    Pure arithmetic."""
     if b < 0 or max_batch < 1:
         raise ValueError(f"no batch slices for b={b}, max_batch={max_batch}")
-    return [(s, min(s + max_batch, b)) for s in range(0, b, max_batch)]
+    rows = max_batch
+    if n_items is not None and b > 0:
+        rows = min(rows, b)
+        # a smaller slice can only keep as many lists a query or more, so
+        # the rows shrink until the slice fits (or reach one query tile)
+        while rows > TOPK_TILE_QUERIES:
+            plan = topk_launch_plan(rows, n_items, k_eff, sm_count, rank)
+            scratch = topk_scratch_bytes(plan)
+            if scratch <= TOPK_MAX_SCRATCH_BYTES:
+                break
+            per_query = _cdiv(scratch, rows)
+            fit = (TOPK_MAX_SCRATCH_BYTES // per_query) // TOPK_TILE_QUERIES * TOPK_TILE_QUERIES
+            rows = max(TOPK_TILE_QUERIES, min(fit, rows - TOPK_TILE_QUERIES))
+    return [(s, min(s + rows, b)) for s in range(0, b, rows)]
 
 
 def top_k_streaming(
@@ -273,8 +311,10 @@ def top_k_streaming(
     ``csrc/topk_streaming.cu``; CPU tensors run
     :func:`top_k_streaming_reference`. Any batch is answered: one above
     :data:`TOPK_MAX_BATCH` queries is cut by :func:`topk_batch_slices`,
-    each slice written into its rows of one ``[B, k]`` output. Raises for
-    k past :data:`TOPK_MAX_K` (after clamping to N)."""
+    each slice written into its rows of one ``[B, k]`` output; on the
+    card a slice is also cut so that its scratch stays within
+    :data:`TOPK_MAX_SCRATCH_BYTES`. Any k is taken: it is clamped to N,
+    and N may reach :data:`TOPK_MAX_ITEMS`."""
     _check_topk_inputs(query_vectors, item_factors, k, exclude_idx)
     b, r = query_vectors.shape
     n_items = item_factors.shape[0]
@@ -295,7 +335,13 @@ def top_k_streaming(
     out_s = torch.empty((b, k_eff), dtype=torch.float32, device=device)
     out_i = torch.empty((b, k_eff), dtype=torch.int32, device=device)
     if k_eff > 0:  # else nothing to score: every slot is a sentinel
-        for start, stop in topk_batch_slices(b):
+        if device.type == "cuda":
+            index = device.index if device.index is not None else torch.cuda.current_device()
+            slices = topk_batch_slices(b, n_items=n_items, k_eff=k_eff, rank=r,
+                                       sm_count=_sm_count(index))
+        else:  # the plain version keeps no scratch
+            slices = topk_batch_slices(b)
+        for start, stop in slices:
             excl = None if exclude_idx is None else exclude_idx[start:stop]
             _topk_slice(query_vectors[start:stop], item_factors, k_eff, excl,
                         out_s[start:stop], out_i[start:stop])
@@ -303,7 +349,7 @@ def top_k_streaming(
 
 
 def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i) -> None:
-    """One slice of at most :data:`TOPK_MAX_BATCH` queries into its rows
+    """One slice of :func:`topk_batch_slices` into its rows
     ``out_s``/``out_i`` (contiguous views of the call's output): the
     plain version on the CPU, one launch of the kernel on the card."""
     if q.device.type == "cpu":
@@ -813,8 +859,9 @@ def spd_solve_t(a_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 FLASH_TILE = 64
 #: the query rows a block may take (the plan's ``bq``): one instantiation each
 FLASH_BQS = (64, 128)
-#: the kernel's ceiling on the head width D (kMaxD); D must also be a
-#: multiple of FLASH_D_MULTIPLE
+#: the kernel's ceiling on the head width D (kMaxD). The kernel is built
+#: at the multiples of FLASH_D_MULTIPLE; the wrapper takes any D from 1 to
+#: FLASH_MAX_D and zero-pads q, k and v up to the next multiple.
 FLASH_MAX_D = 128
 FLASH_D_MULTIPLE = 8
 #: query tiles of one (batch · head) (kMaxQTiles); the grid is one-dimensional
@@ -922,7 +969,7 @@ def flash_launch_plan(b: int, h: int, lq: int, lk: int, d: int, causal: bool,
 #: the serving path calls the wrapper from several batch threads at once
 _flash_launch_lock = threading.Lock()
 
-_FLASH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_FLASH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def _check_flash_inputs(q, k, v) -> None:
@@ -935,10 +982,11 @@ def _check_flash_inputs(q, k, v) -> None:
             f"flash attention needs q [B, H, Lq, D] and k, v [B, H, Lk, D], "
             f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if d % FLASH_D_MULTIPLE or not FLASH_D_MULTIPLE <= d <= FLASH_MAX_D:
+    if not 1 <= d <= FLASH_MAX_D:
         raise ValueError(
-            f"head width D = {d}: the flash-attention kernel takes a multiple "
-            f"of {FLASH_D_MULTIPLE} from {FLASH_D_MULTIPLE} to {FLASH_MAX_D}"
+            f"head width D = {d}: the flash-attention kernel takes D from 1 to "
+            f"{FLASH_MAX_D} (wider heads wait for a kernel path of their own: "
+            "ROADMAP.md, queue 3)"
         )
     if k.shape[2] < 1:
         raise ValueError("flash attention needs at least one key")
@@ -1008,11 +1056,14 @@ def flash_attention_fwd(
     The counterpart of ``attention.py``'s ``_flash_pallas_call`` (same
     rules: causal ``q_pos >= k_pos`` counted from 0, finite -1e30 mask,
     ``o / max(l, 1e-30)``, causal tiles above the diagonal skipped),
-    without its host-side padding. CUDA tensors launch
+    without its padding of L. CUDA tensors launch
     ``csrc/flash_attention.cu`` by :func:`flash_launch_plan` (``plan``
     overrides it: the C entry point still checks it); CPU tensors run
-    :func:`flash_attention_fwd_reference`. Raises for a head width the
-    kernel does not take (see :data:`FLASH_MAX_D`), on either device."""
+    :func:`flash_attention_fwd_reference`. Any head width D from 1 to
+    :data:`FLASH_MAX_D` is taken: on the card q, k and v are zero-padded
+    to the next multiple of :data:`FLASH_D_MULTIPLE` (zero columns add
+    nothing to q·k nor to the columns kept), the kernel scales by the
+    true D, and o is sliced back. Wider heads raise, on either device."""
     _check_flash_inputs(q, k, v)
     device = q.device
     if device.type == "cpu":
@@ -1021,9 +1072,12 @@ def flash_attention_fwd(
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {device}")
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    out = torch.empty_like(q)
     if b * h == 0 or lq == 0:
-        return out
+        return torch.empty_like(q)
+    d_pad = _cdiv(d, FLASH_D_MULTIPLE) * FLASH_D_MULTIPLE
+    if d_pad != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, d_pad - d)) for t in (q, k, v))
+    out = torch.empty_like(q)
     if plan is None:
         plan = flash_plan_for(q, k, causal)
     if plan.q_tiles > FLASH_MAX_Q_TILES or plan.blocks > 2**31 - 1:
@@ -1035,13 +1089,13 @@ def flash_attention_fwd(
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.pio_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, lq, lk, d, int(bool(causal)), plan.bq, plan.threads,
+            b * h, lq, lk, d_pad, d, int(bool(causal)), plan.bq, plan.threads,
             plan.smem, plan.blocks, stream,
         )
     with _flash_launch_lock:
         flash_attention_fwd.launches += 1
     _raise_on_error(lib, "flash_attention", code)
-    return out
+    return out if d_pad == d else out[..., :d].contiguous()
 
 
 #: kernel launches since the count was last reset (CUDA tensors only)

@@ -10,6 +10,8 @@ reads an instance's pickled model list; :func:`persist_instance` writes
 models trained elsewhere (weights carried over from the JAX package, see
 ``models.recommendation.als_model_from_numpy`` and
 ``models.sequencerec.seqrec_model_from_numpy``) as a COMPLETED instance.
+What the blob holds for each algorithm is its ``make_persistent``'s
+answer: the model, a persistent-model manifest, or ``RETRAIN``.
 The perf-ledger append, device traces and checkpoint directories wait
 (ROADMAP.md).
 
@@ -30,6 +32,7 @@ import time
 from typing import Any, List, Optional, Sequence
 
 from ..ckpt import resolve_every
+from ..controller.dase import FOREIGN_ROOTS, ForeignModelError
 from ..controller.engine import (
     Engine,
     EngineParams,
@@ -55,19 +58,13 @@ logger = logging.getLogger(__name__)
 #: instance-env key of the run's profile (the JAX package's key and JSON)
 TRAIN_PROFILE_ENV_KEY = "PIO_TRAIN_PROFILE"
 
-#: top-level modules a port model blob may never load: the JAX package
-#: (its classes import jax) and jax itself
-_FOREIGN_ROOTS = ("predictionio_tpu", "jax", "jaxlib")
-
-
-class ForeignModelError(ValueError):
-    """The model blob was written by the JAX package (or holds jax
-    arrays); the port cannot unpickle it without importing jax."""
-
-
 class _PortUnpickler(pickle.Unpickler):
+    """Unpickles the port's own blobs (models, the ``RETRAIN`` sentinel,
+    persistent-model manifests) and refuses any class of the JAX package
+    or jax before importing it."""
+
     def find_class(self, module: str, name: str):
-        if module.split(".")[0] in _FOREIGN_ROOTS:
+        if module.split(".")[0] in FOREIGN_ROOTS:
             raise ForeignModelError(
                 f"model blob references {module}.{name}: it was pickled by "
                 f"the JAX package ({module}); carry the arrays over instead "

@@ -174,8 +174,13 @@ def prepare_deployment(
 ) -> Deployment:
     """Load the target engine instance and make its models live on
     ``ctx.device`` (``CreateServer.scala:184-248`` +
-    ``Engine.prepareDeploy``): each algorithm's ``prepare_serving``
-    moves its model's tables to the device once, here."""
+    ``Engine.prepareDeploy``): a manifest's model loads itself, and an
+    instance that stored ``RETRAIN`` is trained again here, under this
+    serving context — on ``ctx.device``, from the DataSource's store
+    (the process-wide registry's, as in training), with the instance's
+    stored params and so their seed; ``/reload`` does it again. Then each
+    algorithm's ``prepare_serving`` moves its model's tables to the
+    device once."""
     md = registry.get_metadata()
     if config.engine_instance_id:
         instance = md.engine_instance_get(config.engine_instance_id)

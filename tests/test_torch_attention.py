@@ -163,7 +163,7 @@ def test_sequence_parallel_schedules_are_not_ported(schedule):
 
 
 @pytest.mark.parametrize("case", [
-    "D136", "D12", "float64", "rank3", "non_contiguous", "k_shape", "no_keys",
+    "D136", "D0", "float64", "rank3", "non_contiguous", "k_shape", "no_keys",
 ])
 def test_the_wrapper_refuses_what_the_kernel_does_not_take(case):
     def t(*shape, dtype=torch.float32):
@@ -172,8 +172,8 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(case):
     q, k, v = t(1, 2, 8, 16), t(1, 2, 8, 16), t(1, 2, 8, 16)
     if case == "D136":
         q, k, v = t(1, 1, 4, 136), t(1, 1, 4, 136), t(1, 1, 4, 136)
-    elif case == "D12":
-        q, k, v = t(1, 1, 4, 12), t(1, 1, 4, 12), t(1, 1, 4, 12)
+    elif case == "D0":
+        q, k, v = t(1, 1, 4, 0), t(1, 1, 4, 0), t(1, 1, 4, 0)
     elif case == "float64":
         q = t(1, 2, 8, 16, dtype=torch.float64)
     elif case == "rank3":
@@ -206,3 +206,37 @@ def test_the_plain_path_matches_the_jax_plain_path_at_every_block():
         got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
                               causal=True, block_k=block_k).numpy()
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# -- head widths that are not a multiple of 8 (the kernel pads them) -------------
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [1, 6, 12, 15, 100])
+def test_odd_head_widths_are_answered_like_jax(d, causal):
+    """``attention`` answers at any head width up to 128, as the JAX
+    template does (the Pallas kernel takes the whole D as one block)."""
+    q, k, v = _qkv(2, 2, 5 if d < 100 else 70, 5 if d < 100 else 70, d, seed=d)
+    want = np.asarray(jax_flash_attention_pallas(q, k, v, causal=causal, block_q=8,
+                                                 block_k=8))
+    got = attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_odd_head_width_gradients_match_jax():
+    q, k, v = _qkv(1, 2, 16, 16, 6, seed=5)
+
+    def loss(q, k, v):
+        return (jax_flash_attention(q, k, v, causal=True) ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    (flash_attention_pallas(*leaves, causal=True) ** 2).sum().backward()
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_a_head_wider_than_128_still_raises_with_the_limit_named():
+    q = torch.zeros((1, 2, 5, 136))
+    with pytest.raises(ValueError, match="from 1 to 128.*ROADMAP.md, queue 3"):
+        attention(q, q, q)

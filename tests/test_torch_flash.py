@@ -215,7 +215,7 @@ def test_plan_refuses_bad_inputs(args):
 def test_wrapper_passes_as_many_arguments_as_the_c_entry_takes():
     params = re.search(r'extern "C" int pio_flash_attention\(([^)]*)\)', SRC).group(1)
     names = [p.split()[-1].lstrip("*") for p in params.split(",")]
-    assert names == ["q", "k", "v", "o", "BH", "Lq", "Lk", "D", "causal", "bq",
+    assert names == ["q", "k", "v", "o", "BH", "Lq", "Lk", "D", "D_true", "causal", "bq",
                      "threads", "smem", "blocks", "stream"]
     kinds = ["p" if "void*" in p else "i" for p in params.split(",")]
     want = ["p" if t is cuda_kernels.ctypes.c_void_p else "i"
@@ -345,15 +345,16 @@ def _fma(a, b, c):
     return (a.astype(np.float64) * b + c).astype(np.float32)
 
 
-def emulate_flash(q, k, v, causal, bq):
+def emulate_flash(q, k, v, causal, bq, d_true=None):
     """The kernel's forward of ``q [B, H, Lq, D]``, ``k, v [B, H, Lk, D]``
     at ``bq`` query rows a block, in its order (every head and row of a
-    query tile at once). The card's expf is within 2 ulp; here it is
+    query tile at once), q scaled by 1/sqrt(``d_true``) (default D: the
+    C entry's true width). The card's expf is within 2 ulp; here it is
     numpy's."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     bh, bk = b * h, FLASH_TILE
-    qscale = np.float32(1.0 / np.sqrt(np.float64(d)))
+    qscale = np.float32(1.0 / np.sqrt(np.float64(d if d_true is None else d_true)))
     q = (np.asarray(q, np.float32).reshape(bh, lq, d) * qscale).astype(np.float32)
     k = np.asarray(k, np.float32).reshape(bh, lk, d)
     v = np.asarray(v, np.float32).reshape(bh, lk, d)
@@ -489,3 +490,49 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_nothing():
     got = flash_attention_fwd(q, k, v, True)
     assert flash_attention_fwd.launches == before
     assert torch.equal(got, flash_attention_fwd_reference(q, k, v, True))
+
+
+# -- head widths that are not a multiple of 8 ------------------------------------
+ODD_WIDTHS = [1, 6, 12, 15, 100]
+
+
+@pytest.mark.parametrize("bq", FLASH_BQS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", ODD_WIDTHS)
+def test_zero_padded_heads_give_the_true_widths_answer(d, causal, bq):
+    """What the card runs for an odd width: q, k and v zero-padded to the
+    next multiple of 8, the kernel at that width scaled by the true D,
+    o sliced back. The zero columns add exact zeros to every FMA chain,
+    so the answer is the kernel's at the true width bit for bit, and it
+    agrees with the JAX kernel and the plain version at the true D."""
+    q, k, v = _qkv(1, 2, 70, 70, d, seed=d)
+    d_pad = -(-d // 8) * 8
+    pad = lambda a: np.pad(a, ((0, 0), (0, 0), (0, 0), (0, d_pad - d)))  # noqa: E731
+    padded = emulate_flash(pad(q), pad(k), pad(v), causal, bq, d_true=d)
+    assert not padded[..., d:].any()  # the padded columns of o stay zero
+    got = padded[..., :d]
+    assert np.array_equal(got, emulate_flash(q, k, v, causal, bq))
+    want = np.asarray(jax_flash_attention_pallas(q, k, v, causal=causal, block_q=32,
+                                                 block_k=32))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    plain = flash_attention_fwd_reference(*(torch.from_numpy(a) for a in (q, k, v)), causal)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_the_c_entry_scales_by_the_true_width():
+    """The factor is today's expression with the true width, so a width
+    that needs no padding (D_true = D) keeps its bits; a D_true that does
+    not round up to D is refused."""
+    assert "static_cast<float>(1.0 / std::sqrt(static_cast<double>(D_true)))" in SRC
+    assert "D_true < D - 7 || D_true > D" in SRC
+    assert "std::sqrt(static_cast<double>(D))" not in SRC
+    assert "int Lq, int Lk, int causal, int blocks, int smem, float qscale," in SRC
+
+
+@pytest.mark.parametrize("d", [0, FLASH_MAX_D + 1, 136, 256])
+def test_heads_wider_than_the_kernel_still_raise_naming_the_limit(d):
+    q = torch.zeros((1, 1, 4, d))
+    with pytest.raises(ValueError, match=rf"from 1 to {FLASH_MAX_D}.*queue 3"):
+        flash_attention_fwd(q, q, q, True)
+    with pytest.raises(ValueError, match="queue 3"):
+        flash_attention_fwd_reference(q, q, q, True)

@@ -531,3 +531,55 @@ def test_run_train_then_the_query_server_answers_like_predict(tmp_path):
         load_models(registry, "EI-jax")
     persisted = persist_instance(registry, ep, [model])
     assert load_models(registry, persisted)[0].item_map == model.item_map
+
+
+# -- head widths that are not a multiple of 8 (d_model / n_heads = 6, 15) ---------
+@pytest.mark.parametrize("d_model,n_heads", [(24, 4), (60, 4)])
+def test_odd_head_widths_train_and_serve_like_jax(d_model, n_heads, tmp_path):
+    """Seqrec at D = 6 and 15: three steps through ``run_train`` against
+    the JAX template's training (the training tolerances), then the
+    instance served over HTTP against the JAX template's ``predict`` on
+    the port's trained weights (the forward tolerances)."""
+    users, seqs = _histories()
+    training = tseq.TrainingData(user_ids=users, sequences=seqs)
+
+    class HistoriesSource(DataSource):
+        def read_training(self, ctx):
+            return training
+
+    small = dict(SMALL, d_model=d_model, n_heads=n_heads)
+    pd_j, pd_t = _prepared()
+    want = jseq.SeqRecAlgorithm(jseq.SeqRecAlgorithmParams(**small)).train(None, pd_j)
+    engine = Engine({"": HistoriesSource}, {"": tseq.SeqPreparator},
+                    {"transformer": tseq.SeqRecAlgorithm}, {"": FirstServing})
+    params = tseq.SeqRecAlgorithmParams(**small)
+    ep = EngineParams(preparator_params=("", tseq.SeqPreparatorParams(seq_len=8, window_stride=4)),
+                      algorithm_params_list=[("transformer", params)])
+    registry = StorageRegistry({"PIO_FS_BASEDIR": str(tmp_path)})
+    instance_id = run_train(engine, ep, registry, ctx=WorkflowContext(device="cpu"))
+    (got,) = load_models(registry, instance_id)
+    for key in ("embed", "pos"):
+        np.testing.assert_allclose(got.params[key], np.asarray(want.params[key]),
+                                   rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+    batch = pd_t.windows[:6, :-1]
+    logits_j = np.asarray(jseq.forward(want.params, jnp.asarray(batch), n_heads))
+    logits_t = tseq.forward(_torch_tree(got.params), torch.from_numpy(batch), n_heads)
+    np.testing.assert_allclose(logits_t.numpy(), logits_j, rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+    jax_on_ours = dataclasses.replace(want, params=_jax_tree(got.params))
+    jalgo = jseq.SeqRecAlgorithm(jseq.SeqRecAlgorithmParams(**small))
+    server = create_query_server(
+        tseq.engine_factory(), ServerConfig(ip="127.0.0.1", port=0, device="cpu"),
+        registry=registry, block=False)
+    try:
+        for q in QUERIES:
+            body = {k: list(v) if isinstance(v, tuple) else v for k, v in q.items()}
+            status, data = _post(server.bound_port, body)
+            assert status == 200
+            served = tseq.PredictedResult(item_scores=tuple(
+                tseq.ItemScore(**x) for x in data["itemScores"]))
+            jq = jseq.Query(**{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in body.items()})
+            _same_or_tied(served.item_scores, jalgo.predict(jax_on_ours, jq).item_scores)
+    finally:
+        server.shutdown()
+        server.server_close()

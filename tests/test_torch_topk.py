@@ -23,8 +23,13 @@ from predictionio_tpu.ops.pallas_kernels import (
     top_k_for_users_streaming as jax_users_streaming,
     top_k_streaming as jax_streaming,
 )
+from predictionio_tpu.ops import scoring as jax_scoring
+from predictionio_tpu_torch.ops import scoring
 from predictionio_tpu_torch.ops.cuda_kernels import (
+    TOPK_MAX_BATCH,
+    TOPK_MAX_ITEMS,
     TOPK_MAX_K,
+    TOPK_MAX_SCRATCH_BYTES,
     TOPK_MAX_SMEM,
     TOPK_RUN_MAX_KT,
     TOPK_TILE_ITEMS,
@@ -32,7 +37,9 @@ from predictionio_tpu_torch.ops.cuda_kernels import (
     top_k_for_users_streaming,
     top_k_streaming,
     top_k_streaming_reference,
+    topk_batch_slices,
     topk_launch_plan,
+    topk_scratch_bytes,
 )
 
 RTOL = ATOL = 1e-5
@@ -168,13 +175,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_k_above_the_kernel_ceiling_raises_on_every_device():
-    q = torch.zeros((1, 2))
-    items = torch.zeros((TOPK_MAX_K + 1, 2))
-    with pytest.raises(ValueError, match="ceiling"):
+    # the ceiling on k is the catalog's (TOPK_MAX_ITEMS), so k can pass it
+    # only with a catalog past it, which is refused before any work (meta
+    # tensors: nothing is allocated)
+    assert TOPK_MAX_K == TOPK_MAX_ITEMS
+    q = torch.zeros((1, 2), device="meta")
+    items = torch.zeros((TOPK_MAX_ITEMS + 1, 2), device="meta")
+    with pytest.raises(ValueError, match="exceeds"):
         top_k_streaming(q, items, TOPK_MAX_K + 1)
     # clamping to the catalog happens first: k past a small N is fine
-    s, _ = top_k_streaming(q, items[:5], TOPK_MAX_K + 1)
-    assert s.shape == (1, TOPK_MAX_K + 1)
+    s, _ = top_k_streaming(torch.zeros((1, 2)), torch.zeros((5, 2)), 4097)
+    assert s.shape == (1, 4097)
 
 
 # -- the launch plan ----------------------------------------------------------
@@ -451,6 +462,11 @@ def _selection_case(name):
         return normal(2, 8), normal(3000, 8), 300, None, None
     if name == "served_batch_plan":  # the plan of B = 1024, two of its rows
         return normal(2, 8), normal(27000, 8), 16, None, 27
+    if name == "k4096_merge_in_shared_memory":  # 20 lists of 256, 80 KB
+        return normal(2, 8), normal(5000, 8), 4096, None, None
+    if name == "k_equals_catalog_merge_in_device_memory":  # 59 lists, 241 KB
+        excl = rng.integers(-1, 15000, size=(2, 64)).astype(np.int32)
+        return normal(2, 8), normal(15000, 8), 15000, excl, None
     raise KeyError(name)
 
 
@@ -459,6 +475,7 @@ def _selection_case(name):
     "exclusions_empty_a_row", "k_above_catalog", "odd_number_of_runs",
     "single_item", "k128_sparse_and_dense", "k200_per_tile_sort",
     "k300_lists_grow_in_the_merge", "served_batch_plan",
+    "k4096_merge_in_shared_memory", "k_equals_catalog_merge_in_device_memory",
 ])
 def test_kernel_selection_emulated_equals_plain(name):
     q, items, k, excl, tiles_per_block = _selection_case(name)
@@ -467,6 +484,10 @@ def test_kernel_selection_emulated_equals_plain(name):
     plan = _plan_with_runs(q.shape[0], n, k_eff, tiles_per_block)
     if name == "odd_number_of_runs":
         assert plan.n_runs == 3
+    if name.startswith("k4096"):
+        assert plan.merge_smem == 16 * 20 * 256
+    if name.startswith("k_equals_catalog"):
+        assert plan.merge_smem == 0 and plan.n_runs == 59
     scores = (_t(q) @ _t(items).T).numpy()  # the plain version's product
     got_s, got_i = emulate_kernel_selection(scores, k_eff, excl, plan)
     want_s, want_i = top_k_streaming_reference(
@@ -478,3 +499,123 @@ def test_kernel_selection_emulated_equals_plain(name):
         assert (got_s[:, 1:] == got_s[:, :-1]).any()
     if name == "exclusions_empty_a_row":
         assert (got_i[0] == -1).all() and (got_i[1, 10:] == -1).all()
+
+
+# -- k above the old ceiling of 2048, up to the catalog --------------------------
+def _fused_case(n, b=3, r=8, seed=21):
+    rng = np.random.default_rng(seed)
+    uf = rng.normal(size=(10, r)).astype(np.float32)
+    itf = rng.normal(size=(n, r)).astype(np.float32)
+    uidx = rng.integers(0, 10, b).astype(np.int32)
+    return uf, itf, uidx
+
+
+def test_k4096_on_5000_items_is_answered_like_jax():
+    """A served ``num`` of 4096 pads to k = 4096: the port's streaming
+    entry answers as the JAX package's fused top-k does (ids equal but
+    for near-ties, scores rtol/atol 1e-5)."""
+    uf, itf, uidx = _fused_case(5000)
+    port = scoring.top_k_for_users_fused(_t(uf), _t(itf), _t(uidx), k=4096, mode="always")
+    ref = jax_scoring.top_k_for_users_fused(uf, itf, uidx, k=4096, mode="auto")
+    assert port[0].shape == (3, 4096)
+    assert_agree(port, ref)
+
+
+def test_k_equal_to_the_catalog_with_exclusions_is_answered_like_jax():
+    """k = N with 64 exclusions a query (some -1, some repeated): every
+    item is ranked, each excluded one last as (-inf, -1)."""
+    n = 15000
+    uf, itf, uidx = _fused_case(n, seed=22)
+    rng = np.random.default_rng(23)
+    excl = rng.integers(-1, n, size=(3, 64)).astype(np.int32)
+    port = scoring.top_k_for_users_fused(_t(uf), _t(itf), _t(uidx), k=n,
+                                         exclude_idx=_t(excl), mode="always")
+    ref = jax_scoring.top_k_for_users_fused(uf, itf, uidx, k=n, exclude_idx=excl,
+                                            mode="auto")
+    assert_agree(port, ref)
+    ids = port[1].numpy()
+    for row in range(3):
+        n_excl = len(set(excl[row][excl[row] >= 0].tolist()))
+        assert (ids[row] == -1).sum() == n_excl
+        assert sorted(ids[row][ids[row] >= 0].tolist()) == sorted(
+            set(range(n)) - set(excl[row].tolist()))
+
+
+# -- the batch slices under the scratch budget -------------------------------------
+SLICE_SMS = 132
+
+
+def _slices_cover(slices, b):
+    starts = [s for s, _ in slices]
+    assert starts == sorted(starts) and (not slices or starts[0] == 0)
+    assert all(e == nxt for (_, e), nxt in zip(slices, starts[1:] + [b]))
+
+
+@pytest.mark.parametrize("b,n,r,k", [
+    (262144, 3706, 16, 16),   # eval's padded batch: one launch
+    (600000, 3706, 16, 16),   # two launches, as before
+    (1024, 27000, 50, 16),    # a served batch
+    (524280, 27000, 50, 128),  # the most a launch takes, at the running list's top kt
+    (3 * TOPK_MAX_BATCH + 7, 1000, 8, 1),
+])
+def test_plans_that_ran_before_keep_their_slices(b, n, r, k):
+    """At kt <= 128 the scratch stays far below the budget, so the
+    slices are the batch cap's alone, as before the budget."""
+    got = topk_batch_slices(b, n_items=n, k_eff=min(k, n), rank=r, sm_count=SLICE_SMS)
+    assert got == topk_batch_slices(b)
+    for start, stop in got:
+        plan = topk_launch_plan(stop - start, n, min(k, n), SLICE_SMS, r)
+        assert topk_scratch_bytes(plan) <= TOPK_MAX_SCRATCH_BYTES
+    if (b, k) == (262144, 16):
+        assert got == [(0, b)]
+        assert topk_scratch_bytes(topk_launch_plan(b, n, k, SLICE_SMS, r)) == b * 16 * 8
+    if b == 600000:
+        assert len(got) == 2
+
+
+@pytest.mark.parametrize("b,n,k", [
+    (262144, 27000, 256), (262144, 27000, 27000), (100000, 5000, 4096),
+    (9, 27000, 27000), (17, 1 << 22, 300),
+])
+def test_per_tile_plans_are_cut_to_the_scratch_budget(b, n, k):
+    got = topk_batch_slices(b, n_items=n, k_eff=k, rank=50, sm_count=SLICE_SMS)
+    _slices_cover(got, b)
+    assert {stop - start for start, stop in got[:-1]} <= {got[0][1]}  # equal but the last
+    for start, stop in got:
+        plan = topk_launch_plan(stop - start, n, k, SLICE_SMS, 50)
+        assert plan.stage1_smem == 0
+        assert topk_scratch_bytes(plan) <= TOPK_MAX_SCRATCH_BYTES
+    rows = got[0][1]
+    assert rows % TOPK_TILE_QUERIES == 0 or rows == b
+    per_query = topk_scratch_bytes(topk_launch_plan(8, n, k, SLICE_SMS, 50)) // 8
+    if rows < b:  # the budget binds: as many query tiles as fit it, no fewer
+        assert (rows + TOPK_TILE_QUERIES) * per_query > TOPK_MAX_SCRATCH_BYTES
+    if (n, k) == (27000, 27000):
+        assert per_query == 106 * 256 * 16  # the merge in device memory
+
+
+def test_one_query_tile_is_the_least_slice():
+    """Near the catalog's ceiling one query's lists pass the budget alone
+    (2^21 tiles × 256 keys × 16 bytes): the slices stay one query tile."""
+    n = TOPK_MAX_ITEMS
+    got = topk_batch_slices(20, n_items=n, k_eff=n, rank=4, sm_count=SLICE_SMS)
+    assert got == [(0, 8), (8, 16), (16, 20)]
+    plan = topk_launch_plan(8, n, n, SLICE_SMS, 4)
+    assert plan.n_runs * plan.kt == n  # the merge's int key offsets reach 2^29
+    assert topk_scratch_bytes(plan) > TOPK_MAX_SCRATCH_BYTES
+    with pytest.raises(ValueError):
+        topk_batch_slices(-1, n_items=n, k_eff=n, rank=4, sm_count=SLICE_SMS)
+    assert topk_batch_slices(0, n_items=n, k_eff=n, rank=4, sm_count=SLICE_SMS) == []
+
+
+def test_the_c_entry_takes_k_up_to_the_catalog_and_clamps_the_store_grid():
+    import pathlib
+
+    src = (pathlib.Path(__file__).resolve().parents[1] / "predictionio_tpu_torch"
+           / "kernels" / "csrc" / "topk_streaming.cu").read_text()
+    assert f"constexpr int kMaxK = {TOPK_MAX_ITEMS};" in src
+    assert "K > kMaxK" in src and "span > (1 << 29)" in src
+    store = src[src.index("const int store_blocks"):src.index("topk_store_kernel<<<")]
+    assert "store_blocks < 65535 ? store_blocks : 65535" in store
+    # the sentinels stay above every real index
+    assert 2**31 - 1 - TOPK_MAX_K > TOPK_MAX_ITEMS
