@@ -46,11 +46,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    split rows at K = 8,193 ending inside a chunk and a tile, weights in
    the last chunk only, zero-weight slots inside the prefix, empty rows
    exactly zero, a NaN factor row kept in its row, K = 32,768 split, two
-   calls bit-identical; zero systems, a singular PSD system, n at the
-   ceiling, n in {1, 8, 13, 33, 64} on the registers path and 65 on the
+   calls bit-identical; zero systems, a singular PSD system, n = 128,
+   n in {1, 8, 13, 33, 64} on the registers path and 65 on the
    shared one, B = 1, a NaN lower triangle solving as its symmetric
-   twin, a NaN system kept in its system, two calls bit-identical, n
-   above the ceiling raises). The build agrees to rtol/atol 1e-4 with A
+   twin, a NaN system kept in its system, two calls bit-identical, n =
+   129 on the wide path). The build agrees to rtol/atol 1e-4 with A
    exactly symmetric, the solve to relative error 1e-4.
 6. ``train``   — the main path: ``workflow.run_train`` trains the port's
    recommendation engine (ALS, rank 50, 10 iterations, λ 0.05, seed 0) on
@@ -86,7 +86,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    first); every head width 8..128 at both query tiles; head widths that
    are not a multiple of 8 (D = 6, 12, 15, 100, zero-padded by the wrapper
    and scaled by the true D), the training shape at D = 6 and 15 timed;
-   D = 136 raises.
+   D = 136 on the wide-head path.
    Two calls are compared bit for bit at the training and long shapes.
    The timed shapes print the kernel's, the plain version's and
    ``F.scaled_dot_product_attention``'s times beside the bound, each both
@@ -177,6 +177,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    wrapper's 2 GiB budget), held against the plain version in chunks (0
    wrong ids outside ties) and timed beside the plain version (in those
    chunks), ``torch.topk(q @ items.T)`` and the bound.
+
+15. ``wide`` — the general-width paths, over the events phase's store:
+   the build at R = 129, 200, 256 at ML-20M's bucket shapes (the users'
+   K = 128 bucket of 97,972 rows in the slices the systems budget cuts it
+   into, the items' K = 32,768 bucket of 216 rows), each timed whole and
+   held to the plain version on its first 4,096 rows (rtol/atol 1e-4, A
+   exactly symmetric, two calls bit-identical), a split bucket; the solve
+   at n = 129, 200, 256 (B = 4,096, relative error 1e-4, bit-identical),
+   zero and singular systems, n = 400 through the device-memory scratch;
+   attention at D = 136, 192, 256 at the training shape and at L = 2,048
+   causal and not (rtol 2e-4 / atol 2e-5, bit-identical), each timed beside
+   the plain version, the library call and the bound; every general-width
+   kernel's registers and local bytes (no local memory). Then ALS at rank
+   200 by ``run_train`` from the store (3 iterations, build and solve
+   launches counted) held to 3 plain iterations (rtol 2e-3 / atol 2e-4),
+   with the holdout RMSE of 3 iterations on 95 % of the ratings; seqrec at
+   d_model 256 / 1 head (D = 256) by ``run_train`` (20 steps) and served
+   for a burst held to the plain forward, attention launches counted.
+16. ``console`` — the quickstart's lifecycle through ``python -m
+   predictionio_tpu_torch.tools.console``, each command its own process:
+   ``app new``, ``import`` of ``examples/movielens_quickstart/gen_events.py``'s
+   events, ``template get recommendation``, ``build``, ``train`` (rank 50,
+   10 iterations; its build and solve launches are the process's own),
+   ``deploy --spawn``, 64 queries whose ids equal ``torch.topk`` over the
+   stored factors (ties allowed; the top-k launches read off the server's
+   ``/status.json`` before and after), ``undeploy`` and the port free
+   again; beside it, at the same time, the sequence template at its
+   defaults over the events phase's app, deployed and its burst held to
+   the plain forward.
 
 Then the phases' wall times, one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power line, and as the last line ``{"ok": true,
@@ -694,7 +723,7 @@ def phase_kernel(torch, dev, rng) -> dict:
     return main
 
 
-def traced_device_ms(torch, fn, iters: int, ops_per_call: int):
+def traced_device_ms(torch, fn, iters: int, ops_per_call: int = 1):
     """:func:`device_time`'s ms for a call of several milliseconds, or None
     (not measured) when the profiler's trace holds fewer device ops a call
     than the call launches: at these shapes it has dropped some of the
@@ -909,8 +938,8 @@ def gramian_plan(torch, dev, b: int, k: int, r: int) -> dict:
     from predictionio_tpu_torch.ops import cuda_kernels as ck
 
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = ck.gramian_launch_plan(b, k, r, sm_count)
-    return {"kc": plan.chunk, "S": plan.n_chunks, "blocks": plan.blocks,
+    plan = ck.gramian_plan(b, k, r, sm_count)
+    return {"path": plan.path, "kc": plan.chunk, "S": plan.n_chunks, "blocks": plan.blocks,
             "passes": 2 if plan.n_chunks > 1 else 1, "threads": plan.threads,
             "regs": ck.GRAMIAN_REGS, "smem": plan.chunk_smem,
             "blocks_per_sm": plan.blocks_per_sm}
@@ -924,7 +953,8 @@ def check_gramian_attributes(torch, dev) -> dict:
     attrs = ck.gramian_kernel_attributes(dev)
     emit({"phase": "train_kernels", "kernel": "gramian_fused", "attributes": attrs,
           "plan_regs": ck.GRAMIAN_REGS})
-    if (max(a["regs"] for a in attrs.values()) != ck.GRAMIAN_REGS
+    tuned = [attrs["one_pass"], attrs["split"]]
+    if (max(a["regs"] for a in tuned) != ck.GRAMIAN_REGS
             or any(a["local_bytes"] for a in attrs.values())):
         raise AssertionError(f"the build kernels take {attrs}, the launch plan "
                              f"assumes {ck.GRAMIAN_REGS} registers and no spills")
@@ -1161,13 +1191,9 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
         raise AssertionError("two solve calls on the same inputs differ")
     emit({"phase": "train_kernels", "kernel": "spd_solve", "case": "two_calls",
           "bit_identical": True})
-    try:
-        spd_solve(*spd_systems(2, SPD_MAX_N + 1))
-    except ValueError:
-        emit({"phase": "train_kernels", "kernel": "spd_solve",
-              "case": f"n{SPD_MAX_N + 1}_above_ceiling", "raised": True})
-    else:
-        raise AssertionError("n above the solve kernel's ceiling did not raise")
+    out, _ = check_spd(f"n{SPD_MAX_N + 1}", *spd_systems(1024, SPD_MAX_N + 1, k=260))
+    if out["plan"]["path"] != "wide":  # picked by n alone
+        raise AssertionError(f"n = {SPD_MAX_N + 1} took the {out['plan']['path']} path")
     for acc in per_iter.values():
         # what bounds most of the iteration's bound time
         acc["bound_ms_by"] = acc.pop("by")
@@ -1712,14 +1738,10 @@ def phase_attention_kernel(torch, dev, seed: int) -> dict:
         for bq in FLASH_BQS:
             if flash_smem_bytes(bq, d) <= FLASH_MAX_SMEM:  # not 128 rows at D = 128
                 check(f"D{d}_bq{bq}", 2, 4, 160, 200, d, True, bq=bq)
-    try:
-        z = torch.zeros((1, 1, 8, FLASH_MAX_D + 8), device=dev)
-        flash_attention_fwd(z, z, z, True)
-    except ValueError:
-        emit({"phase": "attention_kernel", "case": f"D{FLASH_MAX_D + 8}_above_ceiling",
-              "raised": True})
-    else:
-        raise AssertionError("D above the kernel's ceiling did not raise")
+    # above the tuned path: the wide-head path, picked by D alone
+    wide = check(f"D{FLASH_MAX_D + 8}", 2, 4, 160, 200, FLASH_MAX_D + 8, True)
+    if wide["plan"]["passes"] < 2:
+        raise AssertionError(f"D = {FLASH_MAX_D + 8} did not take the wide-head path")
     return {"shapes": main, "attributes": attributes, **worst}
 
 
@@ -2985,42 +3007,15 @@ def phase_persist(torch, dev, seed: int, base: str, registry, slice_instance: st
         (seq_model,) = load_models(ev_registry, seq_instance)
         server = deploy(seq.engine_factory(), seq_instance, ev_registry)
         try:
-            seq_users = list(seq_model.user_recent)
-            bodies = [{"user": str(u), "num": 1 + j % 20} for j, u in enumerate(
-                rng.choice(seq_users, size=HTTP_QUERIES - 2, replace=False))]
-            bodies += [{"user": "nobody-1", "num": 5},
-                       {"recent_items": ["ghost-1", "ghost-2"], "num": 5}]
-            flash_attention_fwd.launches = 0  # main path starts here
-            with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
-                answers = list(pool.map(lambda b: _post_query(server.bound_port, b), bodies))
-            launches["seqrec_d6_serve"] = flash_attention_fwd.launches  # main path ends here
+            burst = seq_burst(torch, dev, server.bound_port, seq_model, seq_params, rng)
         finally:
             server.shutdown()
             server.server_close()
-    algo = seq.SeqRecAlgorithm(seq_params, device=dev)
-    module, pad_id = seq_model.device_module(dev), len(seq_model.item_map)
-    inv, bad, forwards = seq_model.item_map.inverse, [], 0
-    for body, (status, data, _) in zip(bodies, answers):
-        tokens = algo._tokens_for(seq_model, seq.Query(**body))
-        if status != 200 or (not tokens and data != {"itemScores": []}):
-            bad.append((body, status, data))
-            continue
-        if not tokens:
-            continue
-        forwards += 1
-        row = [pad_id] * (seq_model.seq_len - len(tokens)) + list(tokens)
-        scores = _seq_scores(torch, module, torch.tensor([row], device=dev), pad_id,
-                             attention_fn=flash_attention)[0]
-        want_s, want_i = (x.cpu().numpy() for x in seq.top_k_lower_index_first(
-            scores, min(body["num"], pad_id)))
-        got = data["itemScores"]
-        got_s = np.array([x["score"] for x in got], dtype=np.float32)
-        if ([x["item"] for x in got] != [inv[int(i)] for i in want_i]
-                or not np.allclose(got_s, want_s, rtol=SEQ_SERVE_RTOL, atol=SEQ_SERVE_ATOL)):
-            bad.append((body, got[:3]))
+    launches["seqrec_d6_serve"] = burst["launches"]
+    bad, forwards = burst["bad"], burst["forwards"]
     checks["seqrec_d6"] = {"instance": seq_instance,
                            "head_width": PERSIST_SEQ["d_model"] // PERSIST_SEQ["n_heads"],
-                           "served": len(bodies), "forwards": forwards, "wrong": len(bad)}
+                           "served": burst["served"], "forwards": forwards, "wrong": len(bad)}
     n_layers = seq_params.n_layers
     emit({"phase": "persist", "stage": "seqrec_d6", **checks["seqrec_d6"],
           "launches": {k: launches[k] for k in ("seqrec_d6_run_train", "seqrec_d6_serve")},
@@ -3073,6 +3068,649 @@ def phase_persist(torch, dev, seed: int, base: str, registry, slice_instance: st
     return out
 
 
+#: the wide phase: ranks above the build's and the solve's tuned paths (R, n
+#: = 129, 200, 256) at ML-20M's bucket shapes (the users' K = 128 bucket of
+#: 97,972 rows, cut by the wrapper's systems budget as training cuts it, over
+#: the item table; the items' K = 32,768 bucket of 216 rows, over the user
+#: table), held on its first WIDE_CHECK_ROWS rows; the solve's batch; head
+#: widths above the tuned attention path at the training shape and at L =
+#: 2,048; ALS at rank 200 and seqrec at d_model 256 / 1 head (D = 256)
+#: trained from the events store
+WIDE_RANKS = (129, 200, 256)
+WIDE_BUCKETS = (("by_user", 97972, 128, N_ITEMS), ("by_item", 216, 32768, N_USERS))
+WIDE_CHECK_ROWS, WIDE_SPD_B = 4096, 4096
+WIDE_HEADS = (136, 192, 256)
+WIDE_ATTN_SHAPES = ((64, 4, 64, 64, True), (8, 4, 2048, 2048, True),
+                    (8, 4, 2048, 2048, False))
+WIDE_ALS_RANK, WIDE_SEQ = 200, dict(d_model=256, n_heads=1)
+
+
+def wide_bucket(torch, gen, dev, b: int, k: int, n: int, r: int):
+    """A bucket of ``b`` rows of width ``k`` over an ``[n, r]`` table, as
+    the ALS buckets lay it out: each row's ratings are a prefix of
+    between k/4 and k slots (the rest padding), ratings 1..5, ridge λ·n_u."""
+    y = torch.rand((n, r), generator=gen, device=dev) / r ** 0.5
+    idx = torch.randint(0, n, (b, k), generator=gen, device=dev, dtype=torch.int32)
+    counts = torch.randint(k // 4 + 1, k + 1, (b,), generator=gen, device=dev)
+    mask = (torch.arange(k, device=dev)[None, :] < counts[:, None]).float()
+    rhs = torch.randint(1, 6, (b, k), generator=gen, device=dev).float() * mask
+    return y, idx, mask, rhs, LAMBDA * counts.float()
+
+
+def wide_kernels(torch, dev, seed: int) -> dict:
+    """The three general-width paths against their plain versions: the
+    build at R = 129, 200, 256 at both ML-20M bucket shapes (the users'
+    bucket in the slices training cuts it into) and a split bucket, the
+    solve at n = 129, 200, 256 with its edge cases, attention at D = 136,
+    192, 256 causal and not. Each kernel's registers and local bytes
+    first (no local memory); each case prints its plan and its error, the
+    timed ones the kernel's event and device time beside the plain
+    version's, the library call's and the bound."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        flash_attention_fwd,
+        flash_attention_fwd_reference,
+        gramian_fused,
+        gramian_fused_reference,
+        spd_solve,
+        spd_solve_reference,
+    )
+
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    attrs = {"gramian_fused": {k: v for k, v in ck.gramian_kernel_attributes(dev).items()
+                               if k.startswith("wide")},
+             "spd_solve": ck.spd_kernel_attributes(dev)["wide"],
+             "flash_attention": ck.flash_wide_kernel_attributes(dev)}
+    flat = [*attrs["gramian_fused"].values(), attrs["spd_solve"], attrs["flash_attention"]]
+    emit({"phase": "wide", "attributes": attrs})
+    if any(a["local_bytes"] for a in flat) or max(a["regs"] for a in flat) > 64:
+        raise AssertionError(f"the general-width kernels take {attrs}")
+    worst = {"gramian_fused": 0.0, "spd_solve": 0.0, "flash_attention": 0.0}
+    cases = {}
+
+    def held(name, case, out, ok):
+        emit({"phase": "wide", "kernel": name, "case": case, **out})
+        if not ok:
+            raise AssertionError(f"{name} {case} disagrees with plain: {out}")
+        worst[name] = max(worst[name], out["max_abs_err"])
+        cases[f"{name}:{case}"] = out
+
+    # the build, at both bucket shapes, every wide rank
+    for r in WIDE_RANKS:
+        for side, b, k, n in WIDE_BUCKETS:
+            y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, b, k, n, r)
+            slices = ck.gramian_row_slices(b, k, r, sm)
+
+            def whole():
+                for s0, s1 in slices:
+                    gramian_fused(y, idx[s0:s1], w2[s0:s1], rhs[s0:s1], ridge[s0:s1])
+
+            before = gramian_fused.launches
+            whole()
+            torch.cuda.synchronize()
+            launches = gramian_fused.launches - before
+            rows = min(b, WIDE_CHECK_ROWS)
+            part = (y, idx[:rows], w2[:rows], rhs[:rows], ridge[:rows])
+            a_k, b_k = gramian_fused(*part)
+            a_2, b_2 = gramian_fused(*part)
+            a_p, b_p = gramian_fused_reference(*part)
+            ok = bool(torch.isfinite(a_k).all() and torch.isfinite(b_k).all()
+                      and torch.allclose(a_k, a_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+                      and torch.allclose(b_k, b_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+                      and torch.equal(a_k, a_k.transpose(1, 2)))
+            same = bool(torch.equal(a_k, a_2) and torch.equal(b_k, b_2))
+            err = max(float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max()))
+            del a_k, b_k, a_2, b_2, a_p, b_p
+            valid = int(w2.sum())
+            plan = ck.gramian_plan(slices[0][1] - slices[0][0], k, r, sm)
+            out = {"R": r, "side": side, "B": b, "K": k, "N": n, "slices": len(slices),
+                   "launches": launches, "check_rows": rows,
+                   "plan": {"path": plan.path, "tiles": plan.tiles, "kc": plan.chunk,
+                            "S": plan.n_chunks, "blocks": plan.blocks,
+                            "blocks_per_sm": plan.blocks_per_sm},
+                   "max_abs_err": err, "symmetric": ok, "bit_identical": same}
+            out["kernel_ms"] = time_ms(torch, whole, 2, 1)
+            out["kernel_device_ms"] = traced_device_ms(
+                torch, whole, 2, len(slices) * (2 if plan.n_chunks > 1 else 1))
+            bound_ms, out["bound_by"] = gramian_bound(b, k, n, r, valid, False)
+            out["bound_us"] = bound_ms * 1e3
+            # the check rows alone: kernel, plain and library on the same inputs
+            sub_valid = int(w2[:rows].sum())
+            out["rows_kernel_ms"] = time_ms(torch, lambda: gramian_fused(*part), 3, 1)
+            out["rows_plain_ms"] = time_ms(torch, lambda: gramian_fused_reference(*part), 2, 1)
+            out["rows_library_ms"] = time_ms(
+                torch, lambda: _gramian_library(torch, *part[:4]), 2, 1)
+            out["rows_bound_us"] = gramian_bound(rows, k, n, r, sub_valid, False)[0] * 1e3
+            held("gramian_fused", f"{side}_R{r}", out, ok and same and launches == len(slices))
+            del y, idx, w2, rhs, ridge
+            torch.cuda.empty_cache()
+    # a bucket of a few rows is split into chunks and reduced in chunk order
+    y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, 16, 8193, 5000, 200)
+    w2[3], rhs[3], ridge[3] = 0.0, 0.0, 0.0
+    a_k, b_k = gramian_fused(y, idx, w2, rhs, ridge, y.T @ y)
+    a_p, b_p = gramian_fused_reference(y, idx, w2, rhs, ridge, y.T @ y)
+    plan = ck.gramian_plan(16, 8193, 200, sm)
+    ok = bool(torch.allclose(a_k, a_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+              and torch.allclose(b_k, b_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+              and torch.equal(a_k, a_k.transpose(1, 2)) and plan.n_chunks > 1
+              and torch.equal(b_k[3], torch.zeros_like(b_k[3])))
+    held("gramian_fused", "split_R200_K8193", {
+        "S": plan.n_chunks, "kc": plan.chunk,
+        "max_abs_err": max(float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max()))},
+        ok)
+
+    # the solve
+    def spd_systems(bsz, n, k):
+        g = torch.randn((bsz, k, n), generator=gen, device=dev)
+        a = torch.bmm(g.transpose(1, 2), g)
+        a += LAMBDA * k * torch.eye(n, device=dev)
+        return a, torch.randn((bsz, n), generator=gen, device=dev)
+
+    def rel_err(x, ref):
+        return float(((x - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)).max())
+
+    for n in WIDE_RANKS:
+        a, b = spd_systems(WIDE_SPD_B, n, 2 * n)
+        x_k = spd_solve(a, b)
+        x_p = spd_solve_reference(a, b)
+        rel = rel_err(x_k, x_p)
+        plan = ck.spd_launch_plan(WIDE_SPD_B, n, sm)
+        out = {"n": n, "B": WIDE_SPD_B, "max_rel_err": rel,
+               "max_abs_err": float((x_k - x_p).abs().max()),
+               "plan": {"path": plan.path, "threads": 32 * plan.warps, "smem": plan.smem,
+                        "scratch": plan.scratch, "blocks_per_sm": plan.blocks_per_sm,
+                        "waves": plan.waves},
+               "bit_identical": bool(torch.equal(x_k, spd_solve(a, b)))}
+        kernel = lambda: spd_solve(a, b)  # noqa: E731
+        library = lambda: torch.cholesky_solve(b[:, :, None], torch.linalg.cholesky(a))  # noqa: E731
+        out["kernel_ms"] = time_ms(torch, kernel, 5, 1)
+        out["kernel_device_ms"] = traced_device_ms(torch, kernel, 5)
+        out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 2, 1)
+        out["library_ms"] = time_ms(torch, library, 3, 1)
+        bound_ms, out["bound_by"] = spd_bound(WIDE_SPD_B, n)
+        out["bound_us"] = bound_ms * 1e3
+        held("spd_solve", f"n{n}", out,
+             rel < KERNEL_TOL and out["bit_identical"] and plan.path == "wide"
+             and bool(torch.isfinite(x_k).all()))
+    a, b = spd_systems(256, 200, 400)
+    a[128:] = 0.0
+    dead = [0, 77, 199]
+    a[:64, dead, :] = 0.0
+    a[:64, :, dead] = 0.0
+    x_k, x_p = spd_solve(a, b), spd_solve_reference(a, b)
+    ok = (bool((x_k[128:] == 0).all()) and bool((x_k[:64, dead] == 0).all())
+          and bool(torch.isfinite(x_k).all()) and rel_err(x_k[:128], x_p[:128]) < KERNEL_TOL)
+    held("spd_solve", "n200_zero_and_singular",
+         {"max_abs_err": float((x_k - x_p).abs().max()),
+          "max_rel_err": rel_err(x_k[:128], x_p[:128])}, ok)
+    a, b = spd_systems(64, 400, 800)  # the packed triangle in device memory
+    x_k, x_p = spd_solve(a, b), spd_solve_reference(a, b)
+    held("spd_solve", "n400_scratch",
+         {"scratch": ck.spd_launch_plan(64, 400, sm).scratch, "max_rel_err": rel_err(x_k, x_p),
+          "max_abs_err": float((x_k - x_p).abs().max())},
+         rel_err(x_k, x_p) < KERNEL_TOL)
+    del a, b, x_k, x_p
+    torch.cuda.empty_cache()
+
+    # attention
+    import torch.nn.functional as F
+
+    for d in WIDE_HEADS:
+        for b, h, lq, lk, causal in WIDE_ATTN_SHAPES:
+            q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
+                       for n_ in (lq, lk, lk))
+            before = flash_attention_fwd.launches
+            o_k = flash_attention_fwd(q, k, v, causal)
+            launched = flash_attention_fwd.launches - before
+            o_p = flash_attention_fwd_reference(q, k, v, causal)
+            ok = bool(torch.isfinite(o_k).all()
+                      and torch.allclose(o_k, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL))
+            plan = ck.flash_plan_for(q, k, causal)
+            out = {"D": d, "B": b, "H": h, "Lq": lq, "Lk": lk, "causal": causal,
+                   "plan": flash_plan_line(plan), "launches": launched,
+                   "max_abs_err": float((o_k - o_p).abs().max()),
+                   "bit_identical": bool(torch.equal(o_k, flash_attention_fwd(q, k, v, causal)))}
+            kernel = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
+            library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+            out["kernel_ms"] = time_ms(torch, kernel, 10, 2)
+            out["kernel_device_ms"] = traced_device_ms(torch, kernel, 10)
+            out["plain_ms"] = time_ms(
+                torch, lambda: flash_attention_fwd_reference(q, k, v, causal), 3, 1)
+            out["library_ms"] = time_ms(torch, library, 10, 2)
+            out["library_device_ms"] = traced_device_ms(torch, library, 10)
+            bound_ms, out["bound_by"] = flash_attention_bound(b, h, lq, lk, d, causal)
+            out["bound_us"] = bound_ms * 1e3
+            held("flash_attention", f"D{d}_{b}x{h}x{lq}_causal_{causal}", out,
+                 ok and out["bit_identical"] and launched == 1 and plan.passes > 1)
+            del q, k, v, o_k, o_p
+    return {"cases": cases, "max_abs_err": worst, "attributes": attrs}
+
+
+def seq_burst(torch, dev, port: int, seq_model, seq_params, rng, launch_count=None) -> dict:
+    """A burst of ``HTTP_QUERIES`` concurrent seqrec queries (by user, and
+    an unknown user and unknown items) to the server on ``port``, each
+    answer held to the plain attention's forward on the card: the same
+    items in the same order, scores within the serving tolerance. The
+    attention launches of the burst are counted: this process's count,
+    reset just before and read just after, or, for a server in another
+    process, the difference of ``launch_count()`` read before and after."""
+    from predictionio_tpu_torch.models import sequencerec as seq
+    from predictionio_tpu_torch.ops.attention import flash_attention
+    from predictionio_tpu_torch.ops.cuda_kernels import flash_attention_fwd
+
+    seq_users = list(seq_model.user_recent)
+    bodies = [{"user": str(u), "num": 1 + j % 20} for j, u in enumerate(
+        rng.choice(seq_users, size=HTTP_QUERIES - 2, replace=False))]
+    bodies += [{"user": "nobody-1", "num": 5},
+               {"recent_items": ["ghost-1", "ghost-2"], "num": 5}]
+    if launch_count is None:
+        flash_attention_fwd.launches = 0
+        launch_count = lambda: flash_attention_fwd.launches  # noqa: E731
+    before = launch_count()  # main path starts here
+    with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+        answers = list(pool.map(lambda b: _post_query(port, b), bodies))
+    launches = launch_count() - before  # main path ends here
+    algo = seq.SeqRecAlgorithm(seq_params, device=dev)
+    module, pad_id = seq_model.device_module(dev), len(seq_model.item_map)
+    inv, bad, forwards = seq_model.item_map.inverse, [], 0
+    for body, (status, data, _) in zip(bodies, answers):
+        tokens = algo._tokens_for(seq_model, seq.Query(**body))
+        if status != 200 or (not tokens and data != {"itemScores": []}):
+            bad.append((body, status, data))
+            continue
+        if not tokens:
+            continue
+        forwards += 1
+        row = [pad_id] * (seq_model.seq_len - len(tokens)) + list(tokens)
+        scores = _seq_scores(torch, module, torch.tensor([row], device=dev), pad_id,
+                             attention_fn=flash_attention)[0]
+        want_s, want_i = (x.cpu().numpy() for x in seq.top_k_lower_index_first(
+            scores, min(body["num"], pad_id)))
+        got = data["itemScores"]
+        got_s = np.array([x["score"] for x in got], dtype=np.float32)
+        if ([x["item"] for x in got] != [inv[int(i)] for i in want_i]
+                or not np.allclose(got_s, want_s, rtol=SEQ_SERVE_RTOL, atol=SEQ_SERVE_ATOL)):
+            bad.append((body, got[:3]))
+    return {"served": len(bodies), "forwards": forwards, "wrong": len(bad), "bad": bad,
+            "launches": launches}
+
+
+def phase_wide(torch, dev, seed: int, base: str) -> dict:
+    """The general-width paths: :func:`wide_kernels`, then over the events
+    phase's store ALS at rank 200 trained by ``run_train`` (3 iterations;
+    build and solve launches reset just before and read just after) held
+    to 3 iterations of the plain build and solve, with its holdout RMSE
+    (3 iterations through the kernels on 95 % of the ratings), and seqrec
+    at d_model 256 / 1 head (D = 256) trained by ``run_train`` (20 steps)
+    and served for a burst held to the plain forward (attention launches
+    counted on both)."""
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.models import sequencerec as seq
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        flash_attention_fwd,
+        gramian_fused,
+        spd_solve,
+    )
+    from predictionio_tpu_torch.workflow import (
+        ServerConfig,
+        WorkflowContext,
+        create_query_server,
+        load_models,
+        run_train,
+    )
+
+    t0 = time.monotonic()
+    kernels = wide_kernels(torch, dev, seed)
+    seconds = {"kernels": time.monotonic() - t0}
+    launches = {}
+    rng = np.random.default_rng(seed + 13)
+    source = ("", rec.RecDataSourceParams(app_id=EVENTS_APP, event_names=("rate",)))
+    with events_store(base) as registry:
+        params = rec.ALSAlgorithmParams(rank=WIDE_ALS_RANK, num_iterations=PARITY_ITERS,
+                                        lambda_=LAMBDA, seed=TRAIN_SEED)
+        gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+        t = time.monotonic()
+        instance = run_train(rec.engine_factory(),
+                             EngineParams(data_source_params=source,
+                                          algorithm_params_list=[("als", params)]),
+                             registry, engine_id="wide-als", ctx=WorkflowContext(device=dev))
+        seconds["als_run_train"] = time.monotonic() - t
+        launches["als_run_train"] = {"gramian_fused": gramian_fused.launches,
+                                     "spd_solve": spd_solve.launches}  # main path ends here
+        (model,) = load_models(registry, instance)
+        td = rec.RecDataSource(source[1]).read_training(None)
+        cfg = rec.als_config(params)
+        against = als_against_plain(torch, dev, model, td, cfg)
+        keep = ~holdout_mask(len(td.users))
+        n_u, n_i = len(td.user_map), len(td.item_map)
+        split = als.als_train_coo(td.users[keep], td.items[keep], td.ratings[keep],
+                                  n_u, n_i, cfg, device=dev)
+        holdout = als.rmse(split, td.users[~keep], td.items[~keep], td.ratings[~keep])
+        train_rmse = als.rmse(split, td.users[keep], td.items[keep], td.ratings[keep])
+        als_out = {"instance": instance, "rank": WIDE_ALS_RANK, "iterations": PARITY_ITERS,
+                   "launches": launches["als_run_train"], "holdout_rmse": holdout,
+                   "train_rmse": train_rmse, **against}
+        emit({"phase": "wide", "stage": "als_rank200", **als_out,
+              "seconds": seconds["als_run_train"]})
+        ok = (against["first_user_solve"]["beyond_tol"] == 0
+              and all(against[s]["finite"] and against[s]["beyond_tol"] == 0
+                      for s in ("user", "item"))
+              and min(launches["als_run_train"].values()) >= 2 * PARITY_ITERS
+              and np.isfinite(holdout))
+        if not ok:
+            raise AssertionError(f"ALS at rank {WIDE_ALS_RANK}: {als_out}")
+
+        seq_params = seq.SeqRecAlgorithmParams(**dict(SEQ_PARAMS, **WIDE_SEQ,
+                                                      steps=EVENTS_SEQ_STEPS))
+        seq_ep = EngineParams(
+            data_source_params=("", seq.SeqDataSourceParams(app_id=EVENTS_APP,
+                                                             event_names=("rate",))),
+            preparator_params=("", seq.SeqPreparatorParams(seq_len=SEQ_LEN,
+                                                           window_stride=SEQ_STRIDE)),
+            algorithm_params_list=[("transformer", seq_params)])
+        flash_attention_fwd.launches = 0  # main path starts here
+        t = time.monotonic()
+        seq_instance = run_train(seq.engine_factory(), seq_ep, registry,
+                                 engine_id="wide-seqrec", ctx=WorkflowContext(device=dev))
+        seconds["seqrec_run_train"] = time.monotonic() - t
+        launches["seqrec_run_train"] = flash_attention_fwd.launches  # main path ends here
+        (seq_model,) = load_models(registry, seq_instance)
+        server = create_query_server(
+            seq.engine_factory(), ServerConfig(ip="127.0.0.1", port=0, device=dev,
+                                               engine_instance_id=seq_instance),
+            registry=registry, block=False)
+        try:
+            burst = seq_burst(torch, dev, server.bound_port, seq_model, seq_params, rng)
+        finally:
+            server.shutdown()
+            server.server_close()
+    launches["seqrec_serve"] = burst["launches"]
+    n_layers = seq_params.n_layers
+    seq_out = {"instance": seq_instance, "head_width": WIDE_SEQ["d_model"] // WIDE_SEQ["n_heads"],
+               **{k: burst[k] for k in ("served", "forwards", "wrong")},
+               "launches": {k: launches[k] for k in ("seqrec_run_train", "seqrec_serve")}}
+    emit({"phase": "wide", "stage": "seqrec_d256", **seq_out,
+          "seconds": seconds["seqrec_run_train"]})
+    if (burst["bad"] or launches["seqrec_run_train"] != n_layers * EVENTS_SEQ_STEPS
+            or launches["seqrec_serve"] != n_layers * burst["forwards"]):
+        raise AssertionError(f"seqrec at D = 256: {burst['bad'][:3]}, {launches}")
+    out = {"phase": "wide", "kernels": kernels, "als": als_out, "seqrec": seq_out,
+           "seconds": seconds, "by_kernel": {
+               "gramian_fused": launches["als_run_train"]["gramian_fused"],
+               "spd_solve": launches["als_run_train"]["spd_solve"],
+               "flash_attention": launches["seqrec_run_train"] + launches["seqrec_serve"]}}
+    emit({k: v for k, v in out.items() if k != "kernels"})
+    return out
+
+
+#: the console phase: the quickstart's lifecycle through ``python -m
+#: predictionio_tpu_torch.tools.console`` over the quickstart's generated
+#: events (rank 50, 10 iterations), and beside it the sequence template
+#: at its defaults over the events phase's app; the seconds a spawned server may
+#: take to answer, and the seconds the port may take to come free
+CONSOLE_RANK, CONSOLE_ITERS, CONSOLE_UP_S, CONSOLE_DOWN_S = 50, 10, 120, 30
+QUICKSTART_EVENTS = "examples/movielens_quickstart/gen_events.py"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pio(env: dict, *args: str, timeout: float = 600) -> dict:
+    """``python -m predictionio_tpu_torch.tools.console args`` as a user
+    runs it, in ``env``; its JSON output, or a failure with its output."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.tools.console", *args],
+        env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"pio {' '.join(args)}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout)
+
+
+def console_deploy(env: dict, engine_dir: str) -> tuple:
+    """``pio deploy --spawn`` on a free port, waited for until its
+    ``/status.json`` answers; returns (port, the deploy's output)."""
+    port = _free_port()
+    spawned = pio(env, "deploy", "--engine-dir", engine_dir, "--ip", "127.0.0.1",
+                  "--port", str(port), "--spawn")
+    deadline = time.monotonic() + CONSOLE_UP_S
+    while True:
+        try:
+            _get_json(port, "/status.json")
+            return port, spawned
+        except OSError:
+            if time.monotonic() > deadline:
+                with open(spawned["log"]) as fh:
+                    raise AssertionError(f"the spawned server did not answer: {fh.read()[-3000:]}")
+            time.sleep(0.5)
+
+
+def console_undeploy(env: dict, port: int) -> float:
+    """``pio undeploy``; then the seconds until a server could bind the
+    port again (as ``HTTPServer`` binds, with ``SO_REUSEADDR``)."""
+    import socket
+
+    pio(env, "undeploy", "--ip", "127.0.0.1", "--port", str(port))
+    t = time.monotonic()
+    while True:
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind(("127.0.0.1", port))
+                return time.monotonic() - t
+            except OSError:
+                if time.monotonic() - t > CONSOLE_DOWN_S:
+                    raise AssertionError(f"port {port} still taken after undeploy")
+                time.sleep(0.2)
+
+
+def _console_steps(env: dict, seconds: dict):
+    """``pio`` in ``env``, each command's seconds kept under its name."""
+    def step(name, *args):
+        t = time.monotonic()
+        out = pio(env, *args)
+        seconds[name] = time.monotonic() - t
+        return out
+    return step
+
+
+def console_recommendation(torch, dev, rng, base: str, env: dict) -> dict:
+    """The quickstart's lifecycle: ``app new``, ``import`` of the
+    quickstart's generated events, ``template get recommendation``,
+    ``build``, ``train`` (rank 50, 10 iterations; the build and solve
+    launches are the process's own), ``deploy --spawn``, a burst of
+    queries whose ids equal ``torch.topk`` over the stored factors (ties
+    allowed; the top-k launches read off the server's ``/status.json``
+    before and after the burst, whose ``topkPath`` names the kernel),
+    ``undeploy`` (the port then free)."""
+    import os
+
+    from predictionio_tpu_torch.storage import StorageRegistry
+    from predictionio_tpu_torch.workflow import load_models
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    seconds = {}
+    step = _console_steps(env, seconds)
+    app = step("app_new", "app", "new", "quickstart")
+    events = os.path.join(base, "quickstart_events.jsonl")
+    with open(events, "w") as fh:
+        subprocess.run([sys.executable, os.path.join(here, QUICKSTART_EVENTS)],
+                       stdout=fh, check=True, timeout=120)
+    imported = step("import", "import", "--appid", str(app["id"]), "--input", events)
+    engine_dir = os.path.join(base, "quickstart_engine")
+    step("template_get", "template", "get", "recommendation", engine_dir)
+    variant_path = os.path.join(engine_dir, "engine.json")
+    with open(variant_path) as fh:
+        variant = json.load(fh)
+    variant["datasource"]["params"]["app_id"] = app["id"]
+    variant["algorithms"][0]["params"].update(rank=CONSOLE_RANK,
+                                              num_iterations=CONSOLE_ITERS)
+    with open(variant_path, "w") as fh:
+        json.dump(variant, fh)
+    step("build", "build", "--engine-dir", engine_dir)
+    trained = step("train", "train", "--engine-dir", engine_dir)
+    train_launches = trained["kernelLaunches"]  # the process's own: its run
+    if min(train_launches[k] for k in ("gramian_fused", "spd_solve")) < 2 * CONSOLE_ITERS:
+        raise AssertionError(f"console train: {train_launches}")
+    (model,) = load_models(StorageRegistry({"PIO_FS_BASEDIR": env["PIO_FS_BASEDIR"]}),
+                           trained["engineInstanceId"])
+    t = time.monotonic()
+    port, _ = console_deploy(env, engine_dir)
+    seconds["deploy"] = time.monotonic() - t
+    try:
+        users = [str(u) for u in rng.choice(list(model.user_map.to_dict()),
+                                            size=HTTP_QUERIES, replace=False)]
+        bodies = [{"user": u, "num": 1 + j % 20} for j, u in enumerate(users)]
+        before = _get_json(port, "/status.json")["kernelLaunches"]["topk_streaming"]
+        t = time.monotonic()  # main path starts here
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            answers = list(pool.map(lambda b: _post_query(port, b), bodies))
+        seconds["burst"] = time.monotonic() - t
+        status = _get_json(port, "/status.json")  # main path ends here
+        serve_launches = status["kernelLaunches"]["topk_streaming"] - before
+    finally:
+        seconds["undeploy_port_free"] = console_undeploy(env, port)
+    uf = torch.from_numpy(model.user_factors).to(dev)
+    itf = torch.from_numpy(model.item_factors).to(dev)
+    rows = torch.tensor([model.user_map[u] for u in users], device=dev)
+    want_s, want_i = (x.cpu().numpy() for x in torch.topk(uf[rows] @ itf.T, 20, dim=1))
+    inv, wrong, off = model.item_map.inverse, 0, 0
+    for j, (body, (code, data, _)) in enumerate(zip(bodies, answers)):
+        got = data.get("itemScores", []) if code == 200 else []
+        k = body["num"]
+        if len(got) != k:
+            wrong += k
+            continue
+        got_s = np.array([x["score"] for x in got], dtype=np.float32)
+        close = np.isclose(got_s, want_s[j][:k], rtol=RTOL, atol=ATOL)
+        same = np.array([x["item"] == inv[int(i)] for x, i in zip(got, want_i[j][:k])])
+        wrong += int((~(same | close)).sum())
+        off += int((~close).sum())
+    paths = set(status["topkPath"].values()) if isinstance(status.get("topkPath"), dict) \
+        else {status.get("topkPath")}
+    out = {"app": app["id"], "events": imported["events"],
+           "instance": trained["engineInstanceId"], "queries": len(bodies),
+           "wrong_ids_outside_ties": wrong, "scores_off": off,
+           "topk_path": sorted(map(str, paths)),
+           "launches": {"train": train_launches, "serve": serve_launches},
+           "seconds": seconds}
+    if wrong or off or serve_launches < 1 or paths != {"streaming"}:
+        raise AssertionError(f"console recommendation: {out}")
+    return out
+
+
+def console_sequencerec(torch, dev, rng, base: str, env: dict) -> dict:
+    """The sequence template's lifecycle at its defaults over the events
+    phase's app: ``template get sequencerec``, ``build``, ``train`` (the
+    attention launches are the process's own), ``deploy --spawn``, a burst
+    held to the plain forward (launches read off ``/status.json``),
+    ``undeploy``."""
+    import os
+
+    from predictionio_tpu_torch.models import sequencerec as seq
+    from predictionio_tpu_torch.storage import StorageRegistry
+    from predictionio_tpu_torch.workflow import load_models
+
+    env = dict(env, PIO_STORAGE_SOURCES_EVENTLOG_TYPE="native",
+               PIO_STORAGE_SOURCES_EVENTLOG_PATH=f"{base}/event_log",
+               PIO_STORAGE_SOURCES_LOCAL_TYPE="sqlite",
+               PIO_STORAGE_SOURCES_LOCAL_PATH=f"{base}/events_phase",
+               PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE="EVENTLOG",
+               PIO_STORAGE_REPOSITORIES_METADATA_SOURCE="LOCAL",
+               PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE="LOCAL")
+    seconds = {}
+    step = _console_steps(env, seconds)
+    seq_dir = os.path.join(base, "sequencerec_engine")
+    step("template_get", "template", "get", "sequencerec", seq_dir)
+    variant_path = os.path.join(seq_dir, "engine.json")
+    with open(variant_path) as fh:
+        variant = json.load(fh)
+    variant["datasource"]["params"].update(app_id=EVENTS_APP, event_names=["rate"])
+    with open(variant_path, "w") as fh:
+        json.dump(variant, fh)
+    step("build", "build", "--engine-dir", seq_dir)
+    trained = step("train", "train", "--engine-dir", seq_dir)
+    train_launches = trained["kernelLaunches"]["flash_attention"]
+    params = seq.SeqRecAlgorithmParams(**variant["algorithms"][0]["params"])
+    if train_launches != params.n_layers * params.steps:
+        raise AssertionError(f"console seqrec train: {trained}")
+    registry = StorageRegistry({k: v for k, v in env.items() if k.startswith("PIO_")})
+    (model,) = load_models(registry, trained["engineInstanceId"])
+    t = time.monotonic()
+    port, _ = console_deploy(env, seq_dir)
+    seconds["deploy"] = time.monotonic() - t
+    try:
+        t = time.monotonic()
+        burst = seq_burst(torch, dev, port, model, params, rng,
+                          launch_count=lambda: _get_json(port, "/status.json")[
+                              "kernelLaunches"]["flash_attention"])
+        seconds["burst_and_check"] = time.monotonic() - t
+    finally:
+        seconds["undeploy_port_free"] = console_undeploy(env, port)
+    out = {"instance": trained["engineInstanceId"],
+           **{k: burst[k] for k in ("served", "forwards", "wrong")},
+           "launches": {"train": train_launches, "serve": burst["launches"]},
+           "seconds": seconds}
+    if burst["bad"] or burst["launches"] != params.n_layers * burst["forwards"]:
+        raise AssertionError(f"console seqrec: {burst['bad'][:3]}, {out}")
+    return out
+
+
+def phase_console(torch, dev, seed: int, base: str) -> dict:
+    """Both bundled templates' lifecycles through the port's console, each
+    command a ``python -m predictionio_tpu_torch.tools.console`` process
+    on the card: :func:`console_recommendation` and
+    :func:`console_sequencerec`, run side by side as two operators would
+    (each in its own processes, storage and server), so the phase takes
+    the longer lifecycle's time."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    clean = {k: v for k, v in os.environ.items() if not k.startswith("PIO_")}
+
+    def env(name):
+        return dict(clean, PIO_FS_BASEDIR=os.path.join(base, name),
+                    PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+
+    t = time.monotonic()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        rec_job = pool.submit(console_recommendation, torch, dev,
+                              np.random.default_rng(seed + 17), base, env("console"))
+        seq_job = pool.submit(console_sequencerec, torch, dev,
+                              np.random.default_rng(seed + 19), base, env("console_seq"))
+        rec_out, seq_out = rec_job.result(), seq_job.result()
+    wall = time.monotonic() - t
+    emit({"phase": "console", "stage": "recommendation", **rec_out})
+    emit({"phase": "console", "stage": "sequencerec", **seq_out})
+    out = {"phase": "console", "recommendation": rec_out, "sequencerec": seq_out,
+           "seconds": wall, "by_kernel": {
+               "topk_streaming": rec_out["launches"]["serve"],
+               "gramian_fused": rec_out["launches"]["train"]["gramian_fused"],
+               "spd_solve": rec_out["launches"]["train"]["spd_solve"],
+               "flash_attention": seq_out["launches"]["train"] + seq_out["launches"]["serve"]}}
+    emit({k: v for k, v in out.items() if k not in ("recommendation", "sequencerec")})
+    return out
+
+
+def wide_lines(wide: dict, name: str) -> dict:
+    """The general-width path's timed cases of one kernel, for the
+    ``kernels`` line: each case's measured times, bound and launches."""
+    keys = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_us", "bound_by", "launches", "slices", "rows_kernel_ms", "rows_plain_ms",
+            "rows_library_ms", "rows_bound_us", "max_abs_err", "max_rel_err")
+    return {case.split(":", 1)[1]: {k: out[k] for k in keys if k in out}
+            for case, out in wide["kernels"]["cases"].items()
+            if case.startswith(name + ":") and "kernel_ms" in out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3117,9 +3755,11 @@ def main(argv=None) -> int:
         seq_sliced = timed("seqrec_slice", phase_seqrec_slice, torch, dev, args.seed,
                            registry, seq_trained["out"]["instance"], seq_trained["seqs"])
         events = timed("events", phase_events, torch, dev, args.seed, base)
+        wide = timed("wide", phase_wide, torch, dev, args.seed, base)
         evaluated = timed("eval", phase_eval, torch, dev, args.seed, base)
         persisted = timed("persist", phase_persist, torch, dev, args.seed, base, registry,
                           trained["instance"])
+        consoled = timed("console", phase_console, torch, dev, args.seed, base)
     large = timed("kernel_large", topk_large_batches, torch, dev,
                   np.random.default_rng(args.seed + 7))
     emit({"phase_seconds": seconds})
@@ -3133,11 +3773,13 @@ def main(argv=None) -> int:
         "replaces": TOPK_REPLACES,
         "launches": (sliced["launches"] + events["serve"]["launches"]
                      + evaluated["launches"]["topk_streaming"]
-                     + persisted["by_kernel"]["topk_streaming"]),
+                     + persisted["by_kernel"]["topk_streaming"]
+                     + consoled["by_kernel"]["topk_streaming"]),
         "launches_by_path": {"slice": sliced["launches"],
                              "events_serve": events["serve"]["launches"],
                              "eval": evaluated["launches"]["topk_streaming"],
-                             "persist": persisted["by_kernel"]["topk_streaming"]},
+                             "persist": persisted["by_kernel"]["topk_streaming"],
+                             "console": consoled["by_kernel"]["topk_streaming"]},
         "max_abs_err": max(m["max_abs_err"] for m in [*main_shapes.values(),
                                                       *large.values()]),
         "ms": ref["kernel_ms"],
@@ -3169,11 +3811,14 @@ def main(argv=None) -> int:
             "source": source,
             "replaces": replaces,
             "launches": (trained["launches"][name] + events["als"]["launches"][name]
-                         + evaluated["launches"][name] + persisted["by_kernel"][name]),
+                         + evaluated["launches"][name] + persisted["by_kernel"][name]
+                         + wide["by_kernel"][name] + consoled["by_kernel"][name]),
             "launches_by_path": {"train": trained["launches"][name],
                                  "events_als": events["als"]["launches"][name],
                                  "eval": evaluated["launches"][name],
-                                 "persist": persisted["by_kernel"][name]},
+                                 "persist": persisted["by_kernel"][name],
+                                 "wide": wide["by_kernel"][name],
+                                 "console": consoled["by_kernel"][name]},
             "max_abs_err": kernels["max_abs_err"][name],
             "ms": it["kernel_ms"],
             "plain_ms": it["plain_ms"],
@@ -3184,7 +3829,8 @@ def main(argv=None) -> int:
                       "R": RANK, "users": data["n_users"], "items": data["n_items"]},
         })
         lines[-1].update(device_ms=it["kernel_device_ms"],
-                         library_device_ms=it["library_device_ms"])
+                         library_device_ms=it["library_device_ms"],
+                         wide_path=wide_lines(wide, name))
         if name == "gramian_fused":
             lines[-1].update(widest_bucket=kernels["widest"],
                              attributes=kernels["attributes"])
@@ -3200,12 +3846,16 @@ def main(argv=None) -> int:
         "replaces": FLASH_REPLACES,
         "launches": (seq_trained["out"]["launches"] + seq_sliced["launches"]
                      + events["seqrec"]["launches"] + evaluated["seqrec"]["launches"]
-                     + persisted["by_kernel"]["flash_attention"]),
+                     + persisted["by_kernel"]["flash_attention"]
+                     + wide["by_kernel"]["flash_attention"]
+                     + consoled["by_kernel"]["flash_attention"]),
         "launches_by_path": {"seqrec_train": seq_trained["out"]["launches"],
                              "seqrec_slice": seq_sliced["launches"],
                              "events_seqrec": events["seqrec"]["launches"],
                              "eval": evaluated["seqrec"]["launches"],
-                             "persist": persisted["by_kernel"]["flash_attention"]},
+                             "persist": persisted["by_kernel"]["flash_attention"],
+                             "wide": wide["by_kernel"]["flash_attention"],
+                             "console": consoled["by_kernel"]["flash_attention"]},
         "max_abs_err": attn["max_abs_err"],
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
@@ -3226,6 +3876,7 @@ def main(argv=None) -> int:
             "D", "D_kernel", "kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
             "library_device_ms", "bound_us", "bound_by", "max_abs_err")}
             for name in ("train_D6", "train_D15")},
+        "wide_path": wide_lines(wide, "flash_attention"),
     })
     emit({"kernels": lines})
     print(smi, flush=True)

@@ -30,9 +30,32 @@
 // the plain PyTorch version on the card): q [BH, Lq, D], k and v [BH, Lk, D], o
 // [BH, Lq, D], all f32, contiguous and 16-byte aligned; D a multiple of 8 from
 // 8 to kMaxD = 128; Lq, Lk >= 1. The wrapper
-// (ops/cuda_kernels.py::flash_attention_fwd) takes any head width from 1 to
-// 128: it zero-pads q, k and v to the next multiple of 8, passes the true width
-// for the scale, and slices o back. It raises on anything else.
+// (ops/cuda_kernels.py::flash_attention_fwd) takes any head width: from 1 to
+// 128 it zero-pads q, k and v to the next multiple of 8, passes the true width
+// for the scale, and slices o back; above 128 it takes the wide-head path
+// below (pio_flash_attention_wide), unpadded. It raises on anything else.
+//
+// Wide-head path (D > kMaxD), the first version. Of the two designs at hand
+// (O's columns in passes with the scores recomputed each pass, or one warp a
+// query row with O spread over its lanes) it takes the passes: a thread's O
+// columns stay a fixed 16 registers whatever D is, so one instantiation takes
+// every width, where a warp a row needs D / 32 registers of O a lane, one
+// instantiation a width, and runs out of registers as D grows. A block takes
+// kWRows = 32 query rows of one (batch * head) and one pass of at most kWCols
+// = 128 of O's columns (a grid dimension: the passes of a query tile run as
+// separate blocks), with kWThreads = 256 threads: thread (ry, kx) = (tid / 8,
+// tid % 8) owns row ry, the keys kx + 8 t of a kWKeys = 32 key tile and the
+// columns kx + 8 g of its pass. Per key tile, S over the whole D is summed in
+// ascending order from Q and K staged kWChunk = 64 columns at a time (one fmaf
+// a column), so every pass of a tile computes the same scores, m and l bit
+// for bit; then the masks, the row max and sum over the row's 8 threads (three
+// shuffles each, a fixed order), p to shared memory, and O's pass columns
+// from the tile's V. Key tiles ascending from tile 0, causal tiles above the
+// diagonal skipped, the finite -1e30 mask, masked and padded values read as
+// 0, o / max(l, 1e-30), q scaled by 1/sqrt(D) before the dot, heaviest query
+// tiles first; no atomics, and every register array is indexed by constants.
+// Its cost over the tuned path: QK^T once per pass (twice at D = 256), one
+// shared load per FMA in QK^T, and 32-key tiles; speed work comes later.
 //
 // Design. A block takes BQ = 64 or 128 query rows of one (batch * head) and
 // walks the keys in tiles of kTile = 64, with 2 * BQ threads. Thread (ry, kx)
@@ -91,6 +114,13 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;        // dynamic shared memory a block may opt into
 constexpr int kSmSmem = 233472;         // shared memory of an SM, bytes
 constexpr int kBlockSmemReserve = 1024;  // what the card keeps of it a block
+// the wide-head path (D > kMaxD)
+constexpr int kWRows = 32;     // query rows a block
+constexpr int kWKeys = 32;     // keys a tile
+constexpr int kWThreads = 256;  // kWRows x kKeyThreads
+constexpr int kWChunk = 64;    // columns of Q and K staged a step
+constexpr int kWCols = 128;    // O's columns a pass (a block)
+constexpr int kWMinBlocks = 4;  // launch bound: at most 64 registers a thread
 
 // Floats of shared memory of a block of BQ rows at head width d: the Q tile
 // [bq][d + kPad], two K tiles [kTile][d + kPad] and two V tiles [kTile][d]
@@ -357,6 +387,117 @@ __global__ void __launch_bounds__(2 * BQ, (min_blocks<D, BQ>()))
   }
 }
 
+// The wide-head path: one block per (query tile, batch * head, pass), block
+// index (q_tiles - 1 - q_tile) * BH * passes + bh * passes + pass.
+__global__ void __launch_bounds__(kWThreads, kWMinBlocks)
+    flash_attention_wide_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                float* __restrict__ o, int BH, int Lq, int Lk,
+                                int D, int q_tiles, int passes, int causal,
+                                float qscale) {
+  constexpr int kKeysT = kWKeys / kKeyThreads;  // keys a thread: 4
+  constexpr int kColsT = kWCols / kKeyThreads;  // O columns a thread: 16
+  __shared__ float s_q[kWRows][kWChunk + 1];  // pre-scaled
+  __shared__ float s_k[kWKeys][kWChunk + 1];
+  __shared__ float s_v[kWKeys][kWCols];
+  __shared__ float s_p[kWRows][kWKeys + 1];
+
+  const int tid = threadIdx.x;
+  const int kx = tid % kKeyThreads;
+  const int ry = tid / kKeyThreads;
+  size_t blk = blockIdx.x;
+  const int pass = static_cast<int>(blk % passes);
+  blk /= passes;
+  const int bh = static_cast<int>(blk % BH);
+  const int q_tile = q_tiles - 1 - static_cast<int>(blk / BH);
+  const int q0 = q_tile * kWRows;
+  const int c0 = pass * kWCols;
+  const int q_pos = q0 + ry;
+  const float* q_bh = q + static_cast<size_t>(bh) * Lq * D;
+  const float* k_bh = k + static_cast<size_t>(bh) * Lk * D;
+  const float* v_bh = v + static_cast<size_t>(bh) * Lk * D;
+
+  float m = kNegBig, l = 0.f, acc[kColsT];
+#pragma unroll
+  for (int c = 0; c < kColsT; ++c) acc[c] = 0.f;
+  const int n_kv = (Lk + kWKeys - 1) / kWKeys;
+  const int hi = causal ? min((q0 + kWRows + kWKeys - 1) / kWKeys, n_kv) : n_kv;
+
+  for (int j = 0; j < hi; ++j) {
+    const int k0 = j * kWKeys;
+    __syncthreads();  // every thread is done with the last tile's V and P
+    for (int e = tid; e < kWKeys * kWCols; e += kWThreads) {
+      const int r = e / kWCols, c = e - r * kWCols;
+      const bool in = k0 + r < Lk && c0 + c < D;
+      s_v[r][c] = in ? v_bh[static_cast<size_t>(k0 + r) * D + c0 + c] : 0.f;
+    }
+    float s[kKeysT];
+#pragma unroll
+    for (int t = 0; t < kKeysT; ++t) s[t] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWChunk) {
+      if (d0 > 0) __syncthreads();  // the last chunk is read
+      for (int e = tid; e < kWRows * kWChunk; e += kWThreads) {
+        const int r = e / kWChunk, c = e - r * kWChunk;
+        const bool qin = q0 + r < Lq && d0 + c < D;
+        s_q[r][c] = qin ? q_bh[static_cast<size_t>(q0 + r) * D + d0 + c] * qscale : 0.f;
+        const bool kin = k0 + r < Lk && d0 + c < D;
+        s_k[r][c] = kin ? k_bh[static_cast<size_t>(k0 + r) * D + d0 + c] : 0.f;
+      }
+      __syncthreads();
+      const int width = min(kWChunk, D - d0);
+      for (int c = 0; c < width; ++c) {
+        const float qv = s_q[ry][c];
+#pragma unroll
+        for (int t = 0; t < kKeysT; ++t) s[t] = fmaf(qv, s_k[kx + kKeyThreads * t][c], s[t]);
+      }
+    }
+    float mx = kNegBig;
+#pragma unroll
+    for (int t = 0; t < kKeysT; ++t) {
+      const int k_pos = k0 + kx + kKeyThreads * t;
+      const bool keep = k_pos < Lk && (!causal || q_pos >= k_pos);
+      s[t] = keep ? s[t] : kNegBig;
+      mx = fmaxf(mx, s[t]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float m_new = fmaxf(m, mx);
+    const float corr = expf(m - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int t = 0; t < kKeysT; ++t) {
+      const float p = expf(s[t] - m_new);
+      s_p[ry][kx + kKeyThreads * t] = p;
+      sum += p;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    l = fmaf(l, corr, sum);
+    m = m_new;
+#pragma unroll
+    for (int c = 0; c < kColsT; ++c) acc[c] *= corr;
+    __syncwarp();  // a row's probabilities are written and read by one warp
+    for (int kk = 0; kk < kWKeys; ++kk) {
+      const float p = s_p[ry][kk];
+#pragma unroll
+      for (int c = 0; c < kColsT; ++c) acc[c] = fmaf(p, s_v[kk][kx + kKeyThreads * c], acc[c]);
+    }
+  }
+
+  if (q_pos < Lq) {
+    const float denom = fmaxf(l, 1e-30f);
+    float* o_row = o + (static_cast<size_t>(bh) * Lq + q_pos) * D;
+#pragma unroll
+    for (int c = 0; c < kColsT; ++c) {
+      const int col = c0 + kx + kKeyThreads * c;
+      if (col < D) o_row[col] = acc[c] / denom;
+    }
+  }
+}
+
 template <int D, int BQ>
 int launch(const float* q, const float* k, const float* v, float* o, int BH,
            int Lq, int Lk, int causal, int blocks, int smem, float qscale,
@@ -435,6 +576,49 @@ extern "C" int pio_flash_attention(const void* q, const void* k, const void* v,
       causal != 0, blocks, smem,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D_true))),
       static_cast<cudaStream_t>(stream));
+}
+
+// Launches the wide-head path (D > kMaxD) on `stream` and returns
+// cudaGetLastError() (0 = ok). Device pointers: q [BH, Lq, D], k and v
+// [BH, Lk, D], o [BH, Lq, D], f32 and contiguous, unpadded; q is scaled by
+// 1/sqrt(D). The plan (ops/cuda_kernels.py::flash_wide_launch_plan): threads
+// a block (kWThreads) and blocks (ceil(Lq / kWRows) * BH * ceil(D / kWCols)).
+// A plan that does not match this arithmetic is refused
+// (cudaErrorInvalidValue), as are BH, Lq, Lk < 1, D <= kMaxD and more than
+// 2^31 - 1 blocks.
+extern "C" int pio_flash_attention_wide(const void* q, const void* k,
+                                        const void* v, void* o, int BH, int Lq,
+                                        int Lk, int D, int causal, int threads,
+                                        int blocks, void* stream) {
+  if (BH < 1 || Lq < 1 || Lk < 1 || D <= kMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long q_tiles = (Lq + kWRows - 1) / kWRows;
+  const long long passes = (D + kWCols - 1) / kWCols;
+  const long long want_blocks = q_tiles * BH * passes;
+  if (want_blocks > kMaxBlocks || blocks != want_blocks || threads != kWThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const double width = D;  // unpadded: the true head width
+  flash_attention_wide_kernel<<<blocks, kWThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), BH, Lq, Lk, D,
+      static_cast<int>(q_tiles), static_cast<int>(passes), causal != 0,
+      static_cast<float>(1.0 / std::sqrt(width)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, local (spilled) bytes and static shared memory of the
+// wide-head kernel, three ints. Returns the error of cudaFuncGetAttributes.
+extern "C" int pio_flash_attention_wide_attrs(int* out) {
+  cudaFuncAttributes at;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &at, reinterpret_cast<const void*>(flash_attention_wide_kernel));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = static_cast<int>(at.sharedSizeBytes);
+  return 0;
 }
 
 // Registers a thread, local (spilled) bytes and static shared memory of every

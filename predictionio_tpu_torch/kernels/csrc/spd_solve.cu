@@ -19,9 +19,11 @@
 // tests/test_torch_spd.py against the JAX kernel and np.linalg.solve, and by
 // chip_smoke.py against the plain PyTorch version on the card): a [B, n, n]
 // and b [B, n] f32, batch-major (the layout the gramian_fused kernel writes),
-// any B and any n from 1 to kMaxN = 128. The launch plan (path, padded width,
-// warps a block, blocks, shared memory) is spd_launch_plan's in
-// ops/cuda_kernels.py; pio_spd_solve checks it against its own arithmetic.
+// any B and any n >= 1: n up to kMaxN = 128 through pio_spd_solve, wider n
+// through pio_spd_solve_wide (the general-n path). The launch plan (path,
+// padded width, warps a block, blocks, shared memory) is spd_launch_plan's in
+// ops/cuda_kernels.py, which picks the path by n alone; each entry checks it
+// against its own arithmetic.
 //
 // Design, n <= 64 (the "registers" path; ALS at rank 50). One warp owns one
 // system, held in registers: lane c owns column c (slot 0) and column c + 32
@@ -53,6 +55,18 @@
 // walked one after another; back substitution reduces each row's dot product
 // across the warp with shuffles. Picked by n alone, never on a failure.
 //
+// Design, n > 128 (the "wide" path, the first version): one block a system,
+// min(256, n rounded up to 32) threads, thread t owning columns t, t + T, ...
+// of U. The upper triangle is packed row by row (n(n+1)/2 floats) in shared
+// memory while it fits beside y and L's column (n <= 338 at 227 KB), and in
+// a per-system slice of a device-memory scratch above that; the input is
+// never written. The steps are the TPU kernel's, right-looking: step j forms
+// L's column l_c = U[j][c] * inv_d (c >= j) in shared memory, then the owner
+// of column c updates U[r][c] -= m_r * l_c for j <= r <= c and its y_c, two
+// barriers a step. Back substitution runs column by column, as on the
+// registers path: x_j = y_j * (d > 0 ? 1/d : 0), then every r < j takes
+// U[r][j] x_j off y_r, one barrier a step. Picked by n alone.
+//
 // Bound at the training slice's shapes (165,000 systems an iteration at
 // n = 50; H100 SXM data sheet: 3.35 TB/s, about 67 TFLOP/s fp32): reading
 // the upper triangle, b and x is B * (n(n+1)/2 + 2n) * 4 bytes, 0.91 GB an
@@ -67,6 +81,10 @@
 namespace {
 
 constexpr int kMaxN = 128;
+constexpr int kWideThreads = 256;    // the most threads a block, wide path
+constexpr int kWideMinBlocks = 4;    // launch bound: at most 64 registers
+constexpr int kWideMaxN = 46340;     // n(n+1)/2 stays an int
+constexpr int kMaxSmem = 232448;     // dynamic shared memory a block may opt into
 constexpr int kRegMaxN = 64;     // the registers path takes n <= 64
 constexpr int kWarp = 32;
 constexpr int kMaxWarps = 8;     // systems a block, shared path
@@ -280,6 +298,59 @@ __global__ void spd_shared_kernel(const float* __restrict__ a,
   }
 }
 
+// ---- the wide path (n > kMaxN): the first version ---------------------------
+// Index of (r, c), r <= c < n, in the row-major packed upper triangle.
+__device__ __forceinline__ size_t packed(int r, int c, int n) {
+  return static_cast<size_t>(r) * n - static_cast<size_t>(r) * (r - 1) / 2 + (c - r);
+}
+
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks)
+spd_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                float* __restrict__ x, float* __restrict__ scratch, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t sys = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  float* s_y = smem;      // [n] the right-hand side, then the forward result
+  float* s_l = smem + n;  // [n] L's column of the step
+  const size_t tri = static_cast<size_t>(n) * (n + 1) / 2;
+  float* u = scratch != nullptr ? scratch + sys * tri : smem + 2 * n;
+
+  const float* a_g = a + sys * n * n;
+  for (int r = 0; r < n; ++r) {  // the upper triangle only
+    for (int c = r + tid; c < n; c += T) u[packed(r, c, n)] = a_g[static_cast<size_t>(r) * n + c];
+  }
+  for (int r = tid; r < n; r += T) s_y[r] = b[sys * n + r];
+  __syncthreads();
+
+  for (int j = 0; j < n; ++j) {
+    const float d2 = u[packed(j, j, n)];
+    const float inv_d = d2 > 0.f ? rsqrtf(d2) : 0.f;
+    const float zj = s_y[j] * inv_d;
+    for (int c = j + tid; c < n; c += T) s_l[c] = u[packed(j, c, n)] * inv_d;
+    __syncthreads();
+    const float mj = s_l[j] - 1.f;
+    for (int c = j + tid; c < n; c += T) {
+      const float lc = s_l[c];
+      for (int r = j; r <= c; ++r) {
+        const float m = r == j ? mj : s_l[r];
+        const size_t e = packed(r, c, n);
+        u[e] = __fmaf_rn(-m, lc, u[e]);
+      }
+      s_y[c] = __fmaf_rn(-(c == j ? mj : lc), zj, s_y[c]);
+    }
+    __syncthreads();
+  }
+
+  for (int j = n - 1; j >= 0; --j) {
+    const float d = u[packed(j, j, n)];
+    const float xj = s_y[j] * (d > 0.f ? 1.f / d : 0.f);
+    if (tid == 0) x[sys * n + j] = xj;
+    for (int r = tid; r < j; r += T) s_y[r] = __fmaf_rn(-u[packed(r, j, n)], xj, s_y[r]);
+    __syncthreads();
+  }
+}
+
 template <int NP>
 cudaError_t launch_reg(const float* a, const float* b, float* x, int B, int n,
                        int smem, cudaStream_t st) {
@@ -340,9 +411,40 @@ extern "C" int pio_spd_solve(const void* a, const void* b, void* x, int B,
   return static_cast<int>(err);
 }
 
+// Launches the wide path (n > kMaxN) on `stream` and returns
+// cudaGetLastError() (0 = ok). Device pointers as pio_spd_solve's, plus
+// scratch [B, n(n+1)/2] f32 when the packed triangle does not fit in shared
+// memory (else null). The plan: threads a block, blocks (= B) and dynamic
+// shared memory in bytes; a plan that does not match this arithmetic is
+// refused (cudaErrorInvalidValue).
+extern "C" int pio_spd_solve_wide(const void* a, const void* b, void* x,
+                                  void* scratch, int B, int n, int threads,
+                                  int blocks, int smem, void* stream) {
+  if (B < 1 || n <= kMaxN || n > kWideMaxN) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long tri = static_cast<long long>(n) * (n + 1) / 2;
+  const long long in_smem = 4 * (tri + 2LL * n);
+  const bool fits = in_smem <= kMaxSmem;
+  const int want_threads = (n + 31) / 32 * 32 < kWideThreads ? (n + 31) / 32 * 32 : kWideThreads;
+  const bool ok = threads == want_threads && blocks == B &&
+                  smem == (fits ? in_smem : 8LL * n) &&
+                  (fits ? scratch == nullptr : scratch != nullptr);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<size_t>(smem) > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  spd_wide_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(x), static_cast<float*>(scratch), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Registers a thread, local (spilled) bytes and static shared memory of every
 // solve kernel, three ints each, in this order: the registers kernel at
-// np = 8, 16, ..., 64, then the shared kernel. Returns the first error of
+// np = 8, 16, ..., 64, the shared kernel, then the wide kernel. Returns the first error of
 // cudaFuncGetAttributes.
 extern "C" int pio_spd_solve_attrs(int* out) {
   const void* kernels[] = {
@@ -355,6 +457,7 @@ extern "C" int pio_spd_solve_attrs(int* out) {
       reinterpret_cast<const void*>(spd_reg_kernel<56>),
       reinterpret_cast<const void*>(spd_reg_kernel<64>),
       reinterpret_cast<const void*>(spd_shared_kernel),
+      reinterpret_cast<const void*>(spd_wide_kernel),
   };
   int i = 0;
   for (const void* k : kernels) {

@@ -39,10 +39,10 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..native import load_library
 from .cuda_kernels import (
-    GRAMIAN_MAX_RANK,
-    SPD_MAX_N,
+    _sm_count,
     gramian_fused,
     gramian_fused_reference,
+    gramian_row_slices,
     spd_solve,
     spd_solve_reference,
 )
@@ -54,9 +54,6 @@ DEFAULT_BUCKET_WIDTHS = (8, 32, 128, 512, 2048, 8192, 32768)
 #: pad_to_blocks=True)`` rounds a bucket up to it with sentinel rows. The
 #: port launches one kernel per bucket, so its own trainer does not pad.
 _BLOCK_ROWS = {8: 16384, 32: 8192, 128: 4096, 512: 1024, 2048: 256, 8192: 64, 32768: 16}
-
-#: the rank the CUDA path takes: both kernels' stated ceilings
-KERNEL_MAX_RANK = min(GRAMIAN_MAX_RANK, SPD_MAX_N)
 
 SOLVE_MODES = ("auto", "chunked", "two_phase", "pallas")
 
@@ -458,11 +455,8 @@ class ALSConfig:
                     "fused_gather=False names the einsum build; on a CUDA "
                     "device every system is built by the gramian_fused kernel"
                 )
-            if not 1 <= self.rank <= KERNEL_MAX_RANK:
-                raise ValueError(
-                    f"rank {self.rank} outside the CUDA kernels' range "
-                    f"1..{KERNEL_MAX_RANK}"
-                )
+            if self.rank < 1:
+                raise ValueError(f"rank {self.rank}: ALS needs a rank >= 1")
             solve_mode, fused, kernels = "pallas", True, "cuda"
         else:
             solve_mode = "chunked" if self.solve_mode == "auto" else self.solve_mode
@@ -578,15 +572,27 @@ def _bucket_system_weights(bucket: _StagedBucket, implicit: bool, lam: float,
 def _solve_side(y, side: StagedMatrix, rank, implicit, lam, alpha, yty,
                 gather_dtype, build, solve) -> torch.Tensor:
     """Solve every row of one side from the opposite factors ``y``: per
-    bucket one ``build`` and one ``solve``. Each side starts from a zero
-    table, so a row with no ratings gets zero factors; sentinel padding
-    rows land in a spare last row that is dropped."""
+    bucket one ``build`` and one ``solve`` for each slice of its rows
+    (:func:`.cuda_kernels.gramian_row_slices`: a slice's ``[rows, R, R]``
+    systems and the build's split scratch stay within
+    :data:`.cuda_kernels.ALS_SYSTEMS_MAX_BYTES`; every bucket of ML-20M is
+    one slice up to rank 128, as the JAX ``chunked`` path maps over
+    blocks of rows above it). Each side starts from a zero table, so a row
+    with no ratings gets zero factors; sentinel padding rows land in a
+    spare last row that is dropped."""
     x = torch.zeros((side.n_rows + 1, rank), dtype=torch.float32, device=y.device)
     y_g = y.to(torch.bfloat16) if gather_dtype == "bf16" else y
+    sm_count = None
+    if y.device.type == "cuda":
+        index = y.device.index if y.device.index is not None else torch.cuda.current_device()
+        sm_count = _sm_count(index)
     for bucket in side.buckets:
         w2, rhs, ridge = _bucket_system_weights(bucket, implicit, lam, alpha)
-        a, b = build(y_g, bucket.idx, w2, rhs, ridge, yty)
-        x.index_copy_(0, bucket.rows, solve(a, b))
+        n, k = bucket.idx.shape
+        for s0, s1 in gramian_row_slices(n, k, rank, sm_count):
+            a, b = build(y_g, bucket.idx[s0:s1], w2[s0:s1], rhs[s0:s1], ridge[s0:s1], yty)
+            x.index_copy_(0, bucket.rows[s0:s1], solve(a, b))
+            del a, b  # one slice's systems on the card at a time
     return x[: side.n_rows]
 
 

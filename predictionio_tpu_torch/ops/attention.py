@@ -20,9 +20,9 @@ Counterpart of the single-device half of
   :func:`flash_attention_pallas`: the port has one implementation per
   device, so the template's default (``"xla"``) reaches the kernel.
 
-Any head width D from 1 to 128 is taken (the kernel's wrapper pads D to
-a multiple of 8 on the card and scales by the true D); wider heads raise.
-Ring and Ulysses attention (sequence parallelism over a mesh) wait for
+Any head width D is taken: up to 128 the kernel's wrapper pads D to a
+multiple of 8 on the card and scales by the true D, and wider heads take
+the kernel's wide-head path, unpadded. Ring and Ulysses attention (sequence parallelism over a mesh) wait for
 ``torch.distributed`` (ROADMAP.md, queue 1 item 11); asking for them
 raises.
 """
@@ -45,7 +45,7 @@ SINGLE_DEVICE_SCHEDULES = ("auto", "flash")
 
 SEQUENCE_PARALLEL_NOT_PORTED = (
     "ring and Ulysses attention are not ported yet (ROADMAP.md, queue 1 "
-    "item 8: sequence parallelism on torch.distributed); use the "
+    "item 11: sequence parallelism on torch.distributed); use the "
     "single-device schedule (\"flash\" or \"auto\" without a mesh)"
 )
 
@@ -159,8 +159,7 @@ def flash_attention_pallas(
 
     The kernel's tiles are fixed at 64 rows and 64 keys
     (:data:`.cuda_kernels.FLASH_TILE`), so the JAX version's
-    ``block_q``/``block_k`` have no counterpart. Takes any head width
-    from 1 to 128 and raises above it."""
+    ``block_q``/``block_k`` have no counterpart. Takes any head width."""
     return _FlashAttention.apply(q, k, v, causal)
 
 

@@ -150,17 +150,30 @@ def _sm_count(index: int) -> int:
 
 
 def _configured(name: str, argtypes) -> ctypes.CDLL:
-    """Kernel library ``name`` with its entry point's ctypes signature set
-    (every pointer and the stream as ``c_void_p``, ints as ``c_int``)."""
+    """Kernel library ``name`` with its entry points' ctypes signatures set
+    (every pointer and the stream as ``c_void_p``, ints as ``c_int``): its
+    ``pio_<name>`` and, where :data:`_WIDE_ARGTYPES` lists one, its
+    ``pio_<name>_wide``."""
     lib = build.load_library(name)
     if not getattr(lib, "_pio_configured", False):
-        entry = getattr(lib, f"pio_{name}")
-        entry.argtypes = argtypes
-        entry.restype = ctypes.c_int
+        entries = {f"pio_{name}": argtypes}
+        if name in _WIDE_ARGTYPES:
+            entries[f"pio_{name}_wide"] = _WIDE_ARGTYPES[name]
+        for entry_name, types in entries.items():
+            entry = getattr(lib, entry_name)
+            entry.argtypes = types
+            entry.restype = ctypes.c_int
         lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pio_cuda_error_string.restype = ctypes.c_char_p
         lib._pio_configured = True
     return lib
+
+
+#: the wide paths' entries (``pio_<name>_wide``), declared with the rest
+_WIDE_ARGTYPES = {
+    "spd_solve": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+}
 
 
 def _raise_on_error(lib: ctypes.CDLL, name: str, code: int) -> None:
@@ -423,7 +436,8 @@ def _check_tensor(name, t, dims, dtypes, device) -> None:
 
 
 # -- fused gather + Gramian (csrc/gramian_fused.cu) --------------------------
-#: the kernel's ceiling on the rank R (kMaxR); above it the wrapper raises
+#: the widest rank R of the tuned path (kMaxR: one thread per 4 x 4 block of
+#: [A | b], at most 576 threads a block); wider R take the general-rank path
 GRAMIAN_MAX_RANK = 128
 #: ratings staged in shared memory per step (kKTile); a chunk is a whole
 #: number of them
@@ -459,6 +473,8 @@ class GramianPlan(NamedTuple):
     scratch_shape: Tuple[int, int, int]  #: [B, S, P] f32; (0, 0, 0) when S = 1
     reduce_smem: int  #: dynamic shared memory of a reduce block, bytes
     blocks_per_sm: int  #: chunk blocks an SM holds at once
+    path: str = "tuned"  #: "tuned" (R <= GRAMIAN_MAX_RANK) or "wide"
+    tiles: int = 1  #: output tiles of a row's [A | b] (the wide path's blocks a chunk)
 
 
 @functools.lru_cache(maxsize=256)
@@ -518,6 +534,114 @@ def gramian_launch_plan(b: int, k: int, r: int, sm_count: int) -> GramianPlan:
         scratch_shape=(b, n_chunks, partial) if split else (0, 0, 0),
         reduce_smem=4 * partial if split else 0, blocks_per_sm=blocks_per_sm,
     )
+
+
+# the general-rank path (R > GRAMIAN_MAX_RANK)
+#: side of an output tile of [A | b] (kWTile) and threads a block (kWThreads,
+#: a 4 x 4 block each)
+GRAMIAN_WIDE_TILE, GRAMIAN_WIDE_THREADS = 64, 256
+#: registers a thread at most: the kernel's launch bound of 4 blocks an SM
+GRAMIAN_WIDE_REGS = 64
+#: static shared memory of a block: the two staged operands [32][64], the
+#: finished tile [64][65] and two slots of a tile's weights, indices and counts
+GRAMIAN_WIDE_SMEM = 4 * (2 * GRAMIAN_K_TILE * GRAMIAN_WIDE_TILE
+                         + GRAMIAN_WIDE_TILE * (GRAMIAN_WIDE_TILE + 1)
+                         + 6 * GRAMIAN_K_TILE + 3)
+#: the widest R the general-rank path takes (kWMaxR: R * R stays an int)
+GRAMIAN_WIDE_MAX_RANK = 46340
+
+
+def gramian_wide_tiles(r: int) -> int:
+    """Output tiles of the upper triangle of one row's ``[A | b]`` (R
+    rows, R + 1 columns) on the general-rank path."""
+    tr, tcw = _cdiv(r, GRAMIAN_WIDE_TILE), _cdiv(r + 1, GRAMIAN_WIDE_TILE)
+    return tr * tcw - tr * (tr - 1) // 2
+
+
+@functools.lru_cache(maxsize=256)
+def gramian_wide_launch_plan(b: int, k: int, r: int, sm_count: int) -> GramianPlan:
+    """The launch plan of the build's general-rank path (``r`` above
+    :data:`GRAMIAN_MAX_RANK`): one block of :data:`GRAMIAN_WIDE_THREADS`
+    per (row, output tile, chunk). The chunks follow
+    :func:`gramian_launch_plan`'s rule with ``b * tiles`` blocks in place
+    of ``b``: one pass while they fill every SM, else ``S`` chunks a row
+    of at least :data:`GRAMIAN_MIN_CHUNK` ratings and the chunk-order
+    reduce. Pure arithmetic, checked again by the C entry point."""
+    if (min(b, sm_count) < 1 or k < 0 or not GRAMIAN_MAX_RANK < r <= GRAMIAN_WIDE_MAX_RANK):
+        raise ValueError(
+            f"no gramian wide launch plan for b={b}, k={k}, r={r}, sm_count={sm_count}"
+        )
+    kt, threads = GRAMIAN_K_TILE, GRAMIAN_WIDE_THREADS
+    tiles = gramian_wide_tiles(r)
+    partial = r * (r + 1) // 2 + r
+    blocks_per_sm = min(
+        _SM_REGS // (threads * GRAMIAN_WIDE_REGS),
+        _SM_SMEM // (GRAMIAN_WIDE_SMEM + _BLOCK_SMEM_RESERVE),
+        _SM_MAX_BLOCKS, _SM_MAX_THREADS // threads,
+    )
+    resident = blocks_per_sm * sm_count
+    n_chunks = 1
+    if b * tiles < resident and k > GRAMIAN_MIN_CHUNK:
+        want = _cdiv(GRAMIAN_WAVES * resident, b * tiles)
+        kc = max(GRAMIAN_MIN_CHUNK, _cdiv(_cdiv(k, want), kt) * kt)
+        n_chunks = _cdiv(k, kc)
+    kc = _cdiv(max(k, 1), n_chunks * kt) * kt
+    if n_chunks > 1:
+        kc = max(GRAMIAN_MIN_CHUNK, kc)
+    n_chunks = max(1, _cdiv(k, kc))
+    split = n_chunks > 1
+    return GramianPlan(
+        threads=threads, chunk=kc, n_chunks=n_chunks,
+        blocks=b * tiles * n_chunks, chunk_smem=0, partial=partial,
+        scratch_shape=(b, n_chunks, partial) if split else (0, 0, 0),
+        reduce_smem=0, blocks_per_sm=blocks_per_sm, path="wide", tiles=tiles,
+    )
+
+
+def gramian_plan(b: int, k: int, r: int, sm_count: int) -> GramianPlan:
+    """The build's launch plan, its path picked by the rank alone: the
+    tuned path (:func:`gramian_launch_plan`) up to
+    :data:`GRAMIAN_MAX_RANK`, the general-rank path
+    (:func:`gramian_wide_launch_plan`) above it."""
+    if r > GRAMIAN_MAX_RANK:
+        return gramian_wide_launch_plan(b, k, r, sm_count)
+    return gramian_launch_plan(b, k, r, sm_count)
+
+
+#: the most bytes of systems (A and b) and split-path scratch that one build
+#: launch of a bucket may hold on the card. Every bucket of ML-20M stays one
+#: slice up to rank 128 (the users' K = 128 bucket, 97,972 rows, holds 6.5
+#: GB of systems at R = 128), and a slice leaves the card's 80 GB room for
+#: the tables, the solve and a second slice in flight.
+ALS_SYSTEMS_MAX_BYTES = 8 << 30
+
+
+def gramian_row_slices(b: int, k: int, r: int, sm_count: Optional[int] = None) -> list:
+    """Cut a bucket of ``b`` rows of width ``k`` at rank ``r`` into
+    consecutive ``(start, stop)`` slices whose systems (``[rows, R, R]``
+    and ``[rows, R]`` f32) and, on the card (``sm_count`` given), the split
+    path's ``[rows, S, P]`` scratch stay within ``ALS_SYSTEMS_MAX_BYTES``,
+    evened out, never below one row. A bucket within the budget is one slice."""
+    if b < 1:
+        return []
+    budget = ALS_SYSTEMS_MAX_BYTES
+
+    def per_row(rows: int) -> int:
+        n = r * r + r
+        if sm_count is not None:
+            plan = gramian_plan(rows, k, r, sm_count)
+            if plan.n_chunks > 1:
+                n += plan.n_chunks * plan.partial
+        return 4 * n
+
+    rows = b
+    while rows > 1 and rows * per_row(rows) > budget:
+        rows = max(1, min(rows - 1, budget // per_row(rows)))
+    n = _cdiv(b, rows)
+    step = _cdiv(b, n)
+    return [(s, min(b, s + step)) for s in range(0, b, step)]
+
+
 #: the plain version gathers at most this many floats ([rows, K, R]) at once
 _PLAIN_GATHER_FLOATS = 1 << 24
 
@@ -596,14 +720,13 @@ def gramian_fused(
     by :func:`gramian_launch_plan` (wide rows are split into chunks whose
     partial systems a second kernel adds in chunk order; one launch is
     counted either way); CPU tensors run :func:`gramian_fused_reference`.
-    Raises for R past :data:`GRAMIAN_MAX_RANK`."""
+    Any R: up to :data:`GRAMIAN_MAX_RANK` the tuned path, above it the
+    general-rank path (:func:`gramian_plan` picks by R alone)."""
     _check_gramian_inputs(y, idx, w2, rhs, ridge, yty)
-    # the kernel's limit holds on every device, so a CPU run refuses what
-    # the card would
-    if y.shape[1] > GRAMIAN_MAX_RANK:
+    if y.shape[1] > GRAMIAN_WIDE_MAX_RANK:
         raise ValueError(
             f"rank {y.shape[1]} exceeds the gramian_fused kernel's ceiling "
-            f"{GRAMIAN_MAX_RANK}"
+            f"{GRAMIAN_WIDE_MAX_RANK} (R * R must stay an int)"
         )
     device = y.device
     if device.type == "cpu":
@@ -618,9 +741,9 @@ def gramian_fused(
     if b == 0:
         return a_out, b_out
     index = device.index if device.index is not None else torch.cuda.current_device()
-    plan = gramian_launch_plan(b, k, r, _sm_count(index))
-    if b * plan.n_chunks > 2**31 - 1:
-        raise ValueError(f"gramian_fused: {b} rows x {plan.n_chunks} chunks is past the grid")
+    plan = gramian_plan(b, k, r, _sm_count(index))
+    if plan.blocks > 2**31 - 1:
+        raise ValueError(f"gramian_fused: {plan.blocks} blocks are past the grid")
     # the chunk partials of a split row, from PyTorch's caching allocator
     part = (torch.empty(plan.scratch_shape, dtype=torch.float32, device=device)
             if plan.n_chunks > 1 else None)
@@ -645,25 +768,37 @@ def gramian_fused(
 gramian_fused.launches = 0
 
 
+#: the chunk kernels ``pio_gramian_fused_attrs`` reports on, in its order
+GRAMIAN_KERNELS = ("one_pass", "split", "wide_one_pass", "wide_split")
+
+
 def gramian_kernel_attributes(device=None) -> dict:
     """Registers per thread, spilled (local) bytes and static shared
-    memory of the build's two chunk kernels (one pass, split), as
+    memory of the build's chunk kernels (:data:`GRAMIAN_KERNELS`: the
+    tuned path's one pass and split, the general-rank path's), as
     ``cudaFuncGetAttributes`` reports them on the card."""
     lib = _configured("gramian_fused", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                       + [ctypes.c_void_p] * 4)
     lib.pio_gramian_fused_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.pio_gramian_fused_attrs.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * (3 * len(GRAMIAN_KERNELS)))()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
         _raise_on_error(lib, "gramian_fused_attrs", lib.pio_gramian_fused_attrs(out))
     keys = ("regs", "local_bytes", "static_smem")
-    return {"one_pass": dict(zip(keys, out[:3])), "split": dict(zip(keys, out[3:]))}
+    return {name: dict(zip(keys, out[3 * n:3 * n + 3]))
+            for n, name in enumerate(GRAMIAN_KERNELS)}
 
 
 # -- batched SPD solve (csrc/spd_solve.cu) -----------------------------------
-#: the kernel's ceiling on the system size n (kMaxN); above it the wrapper
-#: raises
+#: the widest system of the tuned paths (kMaxN, ``pio_spd_solve``); wider
+#: systems take the wide path (``pio_spd_solve_wide``)
 SPD_MAX_N = 128
+#: the wide path: the most threads a block (kWideThreads, one column each
+#: while n <= 256), registers a thread at most (its launch bound of 4 blocks
+#: an SM), the widest n (kWideMaxN: n(n+1)/2 stays an int), and the most
+#: dynamic shared memory a block may opt into (kMaxSmem)
+SPD_WIDE_THREADS, SPD_WIDE_REGS, SPD_WIDE_MAX_N = 256, 64, 46340
+SPD_MAX_SMEM = 232448
 #: n up to this solves on the registers path (kRegMaxN: each system held in
 #: one warp's registers); above it on the shared path, the first version
 SPD_REG_MAX_N = 64
@@ -686,14 +821,16 @@ class SpdPlan(NamedTuple):
     """What one launch of ``csrc/spd_solve.cu`` needs beyond its tensors
     (see :func:`spd_launch_plan`)."""
 
-    path: str  #: "registers" (n <= 64) or "shared"
-    np_: int  #: the padded width, a multiple of 8 and at least n
-    slots: int  #: column slots a lane holds, ceil(np_ / 32)
-    warps: int  #: systems (one warp each) a block holds; 1 on the registers path
-    blocks: int  #: ceil(B / warps)
+    path: str  #: "registers" (n <= 64), "shared" (n <= 128) or "wide"
+    np_: int  #: the padded width, a multiple of 8 and at least n (wide: n)
+    slots: int  #: column slots a lane holds, ceil(np_ / 32) (wide: columns a thread)
+    warps: int  #: systems (one warp each) a block holds; 1 on the registers
+    #: path; on the wide path the warps of its one system's block
+    blocks: int  #: ceil(B / warps) (wide: B)
     smem: int  #: dynamic shared memory of a block, bytes
     blocks_per_sm: int  #: blocks an SM holds at once
     waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
+    scratch: int = 0  #: floats a system in device memory (wide path, large n)
 
 
 def _spd_blocks_per_sm(warps: int, smem: int, regs: Optional[int]) -> int:
@@ -714,9 +851,21 @@ def spd_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
     block of one warp, padded to ``np_``; the blocks an SM holds follow
     from :data:`SPD_REGS` and the block's shared memory. Larger n take
     the shared path, whose warps a block follow from 48 KB of shared
-    memory."""
-    if min(b, n, sm_count) < 1 or n > SPD_MAX_N:
+    memory, up to :data:`SPD_MAX_N`; wider n the wide path: one block a
+    system, its packed upper triangle in shared memory while it fits
+    (beside y and L's column), else in a ``[B, n(n+1)/2]`` scratch."""
+    if min(b, n, sm_count) < 1 or n > SPD_WIDE_MAX_N:
         raise ValueError(f"no spd launch plan for b={b}, n={n}, sm_count={sm_count}")
+    if n > SPD_MAX_N:
+        threads = min(SPD_WIDE_THREADS, _cdiv(n, 32) * 32)
+        tri = n * (n + 1) // 2
+        fits = 4 * (tri + 2 * n) <= SPD_MAX_SMEM
+        smem = 4 * (tri + 2 * n) if fits else 8 * n
+        per_sm = min(_SM_SMEM // (smem + _BLOCK_SMEM_RESERVE), _SM_MAX_BLOCKS,
+                     _SM_MAX_THREADS // threads, _SM_REGS // (threads * SPD_WIDE_REGS))
+        return SpdPlan(path="wide", np_=n, slots=_cdiv(n, threads), warps=threads // 32,
+                       blocks=b, smem=smem, blocks_per_sm=per_sm,
+                       waves=_cdiv(b, sm_count * per_sm), scratch=0 if fits else tri)
     np_ = _cdiv(n, 8) * 8
     if n > SPD_REG_MAX_N:
         path, regs = "shared", None
@@ -782,16 +931,16 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``b [B, n]`` (f32, batch-major: the layout :func:`gramian_fused`
     writes). An all-zero system solves to exactly 0; a zero pivot gives a
     zero component. Only the upper triangle of each system is read. Any B
-    and n up to :data:`SPD_MAX_N`. CUDA tensors launch
-    ``csrc/spd_solve.cu`` by :func:`spd_launch_plan` (n <= 64 with each
-    system in one warp's registers, larger n through shared memory; one
-    launch is counted either way); CPU tensors run
-    :func:`spd_solve_reference`."""
+    and any n. CUDA tensors launch ``csrc/spd_solve.cu`` by
+    :func:`spd_launch_plan` (n <= 64 with each system in one warp's
+    registers, n <= 128 through shared memory, wider n on the wide path,
+    one block a system; one launch is counted either way); CPU tensors
+    run :func:`spd_solve_reference`."""
     _check_spd_inputs(a, b)
-    if a.shape[-1] > SPD_MAX_N:
+    if a.shape[-1] > SPD_WIDE_MAX_N:
         raise ValueError(
             f"system size {a.shape[-1]} exceeds the spd_solve kernel's "
-            f"ceiling {SPD_MAX_N}"
+            f"ceiling {SPD_WIDE_MAX_N} (n(n+1)/2 must stay an int)"
         )
     device = a.device
     if device.type == "cpu":
@@ -807,11 +956,20 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = _configured("spd_solve", _SPD_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.pio_spd_solve(
-            a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, n,
-            0 if plan.path == "registers" else 1, plan.np_, plan.warps,
-            plan.blocks, plan.smem, stream,
-        )
+        if plan.path == "wide":
+            scratch = (torch.empty((bsz, plan.scratch), dtype=torch.float32, device=device)
+                       if plan.scratch else None)
+            code = lib.pio_spd_solve_wide(
+                a.data_ptr(), b.data_ptr(), x.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), bsz, n,
+                32 * plan.warps, plan.blocks, plan.smem, stream,
+            )
+        else:
+            code = lib.pio_spd_solve(
+                a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, n,
+                0 if plan.path == "registers" else 1, plan.np_, plan.warps,
+                plan.blocks, plan.smem, stream,
+            )
     spd_solve.launches += 1
     _raise_on_error(lib, "spd_solve", code)
     return x
@@ -822,7 +980,7 @@ spd_solve.launches = 0
 
 _SPD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 #: the kernels ``pio_spd_solve_attrs`` reports on, in its order
-SPD_KERNELS = (*(f"registers_np{w}" for w in SPD_REGS), "shared")
+SPD_KERNELS = (*(f"registers_np{w}" for w in SPD_REGS), "shared", "wide")
 
 
 def spd_kernel_attributes(device=None) -> dict:
@@ -859,9 +1017,10 @@ def spd_solve_t(a_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 FLASH_TILE = 64
 #: the query rows a block may take (the plan's ``bq``): one instantiation each
 FLASH_BQS = (64, 128)
-#: the kernel's ceiling on the head width D (kMaxD). The kernel is built
-#: at the multiples of FLASH_D_MULTIPLE; the wrapper takes any D from 1 to
-#: FLASH_MAX_D and zero-pads q, k and v up to the next multiple.
+#: the widest head D of the tuned path (kMaxD). It is built at the multiples
+#: of FLASH_D_MULTIPLE; the wrapper takes any D from 1 to FLASH_MAX_D there
+#: and zero-pads q, k and v up to the next multiple. Wider heads take the
+#: wide-head path, unpadded.
 FLASH_MAX_D = 128
 FLASH_D_MULTIPLE = 8
 #: query tiles of one (batch · head) (kMaxQTiles); the grid is one-dimensional
@@ -876,6 +1035,13 @@ FLASH_ROWS, FLASH_KEY_THREADS = 4, 8
 FLASH_PAD, FLASH_P_STRIDE = 4, FLASH_TILE + 8
 #: the most dynamic shared memory a block may opt into on the card
 FLASH_MAX_SMEM = 232448
+#: the wide-head path: query rows and keys a tile (kWRows, kWKeys), threads a
+#: block (kWThreads), O's columns a pass (kWCols), registers a thread at most
+#: (its launch bound of 4 blocks an SM), and its static shared memory (Q and K
+#: chunks [32][65], V [32][128], P [32][33])
+FLASH_WIDE_ROWS = FLASH_WIDE_KEYS = 32
+FLASH_WIDE_THREADS, FLASH_WIDE_COLS, FLASH_WIDE_REGS = 256, 128, 64
+FLASH_WIDE_SMEM = 4 * (2 * 32 * 65 + 32 * FLASH_WIDE_COLS + 32 * 33)
 #: every instantiation, in the order ``pio_flash_attention_attrs`` reports them
 FLASH_KERNELS = tuple((d, bq) for d in range(FLASH_D_MULTIPLE, FLASH_MAX_D + 1,
                                              FLASH_D_MULTIPLE) for bq in FLASH_BQS)
@@ -895,8 +1061,9 @@ class FlashPlan(NamedTuple):
     blocks_per_sm: int  #: blocks an SM holds at once
     q_tiles: int  #: query tiles of one (batch · head), ceil(Lq / bq)
     kv_tiles: int  #: key tiles, ceil(Lk / bk)
-    blocks: int  #: the grid, BH · q_tiles, heaviest query tiles first
+    blocks: int  #: the grid, BH · q_tiles (· passes), heaviest query tiles first
     waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
+    passes: int = 1  #: blocks a query tile, each taking FLASH_WIDE_COLS of O (wide path)
 
 
 def flash_smem_bytes(bq: int, d: int) -> int:
@@ -966,6 +1133,35 @@ def flash_launch_plan(b: int, h: int, lq: int, lk: int, d: int, causal: bool,
     )
 
 
+@functools.lru_cache(maxsize=256)
+def flash_wide_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
+                           sm_count: int) -> FlashPlan:
+    """The launch plan of the wide-head path (``d`` above
+    :data:`FLASH_MAX_D`): one block of :data:`FLASH_WIDE_THREADS` per
+    (query tile of :data:`FLASH_WIDE_ROWS` rows, batch · head, pass of
+    :data:`FLASH_WIDE_COLS` of O's columns). Pure arithmetic, checked
+    again by the C entry point."""
+    if min(b, h, lq, lk, sm_count) < 1 or d <= FLASH_MAX_D:
+        raise ValueError(
+            f"no flash wide launch plan for b={b}, h={h}, lq={lq}, lk={lk}, d={d}, "
+            f"sm_count={sm_count}"
+        )
+    threads = FLASH_WIDE_THREADS
+    per_sm = min(_SM_REGS // (threads * FLASH_WIDE_REGS),
+                 _SM_SMEM // (FLASH_WIDE_SMEM + _BLOCK_SMEM_RESERVE),
+                 _SM_MAX_BLOCKS, _SM_MAX_THREADS // threads)
+    q_tiles, passes = _cdiv(lq, FLASH_WIDE_ROWS), _cdiv(d, FLASH_WIDE_COLS)
+    blocks = b * h * q_tiles * passes
+    return FlashPlan(
+        bq=FLASH_WIDE_ROWS, bk=FLASH_WIDE_KEYS, threads=threads,
+        s_tile=(1, FLASH_WIDE_KEYS // FLASH_KEY_THREADS),
+        o_tile=(1, FLASH_WIDE_COLS // FLASH_KEY_THREADS),
+        smem=FLASH_WIDE_SMEM, regs=FLASH_WIDE_REGS, blocks_per_sm=per_sm,
+        q_tiles=q_tiles, kv_tiles=_cdiv(lk, FLASH_WIDE_KEYS), blocks=blocks,
+        waves=_cdiv(blocks, sm_count * per_sm), passes=passes,
+    )
+
+
 #: the serving path calls the wrapper from several batch threads at once
 _flash_launch_lock = threading.Lock()
 
@@ -982,12 +1178,8 @@ def _check_flash_inputs(q, k, v) -> None:
             f"flash attention needs q [B, H, Lq, D] and k, v [B, H, Lk, D], "
             f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if not 1 <= d <= FLASH_MAX_D:
-        raise ValueError(
-            f"head width D = {d}: the flash-attention kernel takes D from 1 to "
-            f"{FLASH_MAX_D} (wider heads wait for a kernel path of their own: "
-            "ROADMAP.md, queue 3)"
-        )
+    if d < 1:
+        raise ValueError(f"head width D = {d}: the flash-attention kernel takes D >= 1")
     if k.shape[2] < 1:
         raise ValueError("flash attention needs at least one key")
 
@@ -1032,12 +1224,30 @@ def _flash_regs(index: int) -> dict:
     return {key: a["regs"] for key, a in flash_kernel_attributes(index).items()}
 
 
+def flash_wide_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of the wide-head kernel, as ``cudaFuncGetAttributes`` reports
+    them on the card."""
+    lib = _configured("flash_attention", _FLASH_ARGTYPES)
+    lib.pio_flash_attention_wide_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.pio_flash_attention_wide_attrs.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "flash_attention_wide_attrs",
+                        lib.pio_flash_attention_wide_attrs(out))
+    return dict(zip(("regs", "local_bytes", "static_smem"), out))
+
+
 def flash_plan_for(q: torch.Tensor, k: torch.Tensor, causal: bool,
                    bq: Optional[int] = None) -> FlashPlan:
     """:func:`flash_launch_plan` for these CUDA tensors, with the SM count
-    and the registers read off their card."""
+    and the registers read off their card; for a head wider than
+    :data:`FLASH_MAX_D`, :func:`flash_wide_launch_plan` (picked by D
+    alone; ``bq`` does not apply)."""
     b, h, lq, d = q.shape
     index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    if d > FLASH_MAX_D:
+        return flash_wide_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index))
     regs = _flash_regs(index)
     return flash_launch_plan(b, h, lq, k.shape[2], d, bool(causal), _sm_count(index),
                              tuple(regs[(d, n)] for n in FLASH_BQS), bq)
@@ -1059,11 +1269,12 @@ def flash_attention_fwd(
     without its padding of L. CUDA tensors launch
     ``csrc/flash_attention.cu`` by :func:`flash_launch_plan` (``plan``
     overrides it: the C entry point still checks it); CPU tensors run
-    :func:`flash_attention_fwd_reference`. Any head width D from 1 to
-    :data:`FLASH_MAX_D` is taken: on the card q, k and v are zero-padded
-    to the next multiple of :data:`FLASH_D_MULTIPLE` (zero columns add
-    nothing to q·k nor to the columns kept), the kernel scales by the
-    true D, and o is sliced back. Wider heads raise, on either device."""
+    :func:`flash_attention_fwd_reference`. Any head width D is taken: up
+    to :data:`FLASH_MAX_D` on the tuned path, where on the card q, k and v
+    are zero-padded to the next multiple of :data:`FLASH_D_MULTIPLE` (zero
+    columns add nothing to q·k nor to the columns kept), the kernel scales
+    by the true D, and o is sliced back; wider heads on the wide-head path
+    (:func:`flash_wide_launch_plan`), unpadded, picked by D alone."""
     _check_flash_inputs(q, k, v)
     device = q.device
     if device.type == "cpu":
@@ -1074,6 +1285,8 @@ def flash_attention_fwd(
     lk = k.shape[2]
     if b * h == 0 or lq == 0:
         return torch.empty_like(q)
+    if d > FLASH_MAX_D:
+        return _flash_attention_wide(q, k, v, causal, plan)
     d_pad = _cdiv(d, FLASH_D_MULTIPLE) * FLASH_D_MULTIPLE
     if d_pad != d:
         q, k, v = (torch.nn.functional.pad(t, (0, d_pad - d)) for t in (q, k, v))
@@ -1098,5 +1311,41 @@ def flash_attention_fwd(
     return out if d_pad == d else out[..., :d].contiguous()
 
 
+def _flash_attention_wide(q, k, v, causal, plan) -> torch.Tensor:
+    """The wide-head path of :func:`flash_attention_fwd` (CUDA tensors,
+    D above :data:`FLASH_MAX_D`): one launch of
+    ``pio_flash_attention_wide``, counted on the wrapper."""
+    b, h, lq, d = q.shape
+    device = q.device
+    out = torch.empty_like(q)
+    if plan is None:
+        plan = flash_plan_for(q, k, causal)
+    if plan.blocks > 2**31 - 1:
+        raise ValueError(f"flash attention shape {tuple(q.shape)} is past the grid's limits")
+    lib = _configured("flash_attention", _FLASH_ARGTYPES)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.pio_flash_attention_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b * h, lq, k.shape[2], d, int(bool(causal)), plan.threads, plan.blocks,
+            stream,
+        )
+    with _flash_launch_lock:
+        flash_attention_fwd.launches += 1
+    _raise_on_error(lib, "flash_attention_wide", code)
+    return out
+
+
+
 #: kernel launches since the count was last reset (CUDA tensors only)
 flash_attention_fwd.launches = 0
+
+
+def kernel_launches() -> dict:
+    """The launches of every kernel wrapper in this process so far (CUDA
+    tensors only), by kernel: what a child process of the console
+    reports, since its counts are its own."""
+    return {"topk_streaming": top_k_streaming.launches,
+            "gramian_fused": gramian_fused.launches,
+            "spd_solve": spd_solve.launches,
+            "flash_attention": flash_attention_fwd.launches}

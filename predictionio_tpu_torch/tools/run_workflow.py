@@ -7,8 +7,9 @@ Copy of ``predictionio_tpu/tools/run_workflow.py``, a rebuild of
 to train the engine of ``DIR/engine.json``, or with
 ``--evaluation-class`` (and ``--engine-params-generator-class``) to sweep
 an evaluation; or call :func:`run` in process. It prints
-``{"engineInstanceId": ...}`` (the evaluation instance's id for an
-evaluation).
+``{"engineInstanceId": ..., "kernelLaunches": {...}}`` (the evaluation
+instance's id for an evaluation; the launches of each CUDA kernel in
+the run).
 
 ``--device`` picks the card or the host (default: ``cuda:0``, which
 raises where there is no CUDA; ``--device cpu`` runs on the host). The
@@ -31,6 +32,7 @@ from ..ckpt import RESUME_ENV
 from ..controller.engine import WorkflowParams
 from ..controller.evaluation import EngineParamsGenerator
 from ..device import DeviceLike
+from ..ops.cuda_kernels import kernel_launches
 from ..ops.als_sharded import SHARDS_ENV
 from ..storage import StorageRegistry, get_registry
 from ..workflow import loader
@@ -173,7 +175,8 @@ def _run_inner(args: argparse.Namespace, registry: Optional[StorageRegistry],
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     instance_id = run(args)
-    print(json.dumps({"engineInstanceId": instance_id}))
+    # this process's kernel launches: the run's own (a fresh process)
+    print(json.dumps({"engineInstanceId": instance_id, "kernelLaunches": kernel_launches()}))
     return 0
 
 

@@ -34,7 +34,7 @@ from ..api.http import BackgroundHTTPServer, JsonHTTPHandler
 from ..controller.engine import Engine, EngineParams
 from ..device import DeviceLike, describe_device
 from ..obs.metrics import MetricsRegistry
-from ..ops.cuda_kernels import top_k_streaming
+from ..ops.cuda_kernels import kernel_launches, top_k_streaming
 from ..storage import StorageRegistry, utcnow
 from ..storage.metadata import STATUS_COMPLETED, EngineInstance
 from .batching import MicroBatcher
@@ -446,7 +446,7 @@ class QueryServer(BackgroundHTTPServer):
             "startTime": str(self.server_start_time),
             "maxQueue": self._max_queue,
             "stats": self.stats.snapshot(),
-            "topkKernelLaunches": top_k_streaming.launches,
+            "kernelLaunches": kernel_launches(),
         }
         # resolved top-k path per algorithm ("streaming" = the CUDA
         # kernel, "dense" = matmul + sort; absent until the first query)

@@ -155,14 +155,21 @@ def test_gramian_reference_chunks_match_one_block(monkeypatch):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
-def test_gramian_rank_above_the_ceiling_raises():
-    r = GRAMIAN_MAX_RANK + 1
-    args = (torch.zeros(4, r), torch.zeros(2, 3, dtype=torch.int32),
-            torch.zeros(2, 3), torch.zeros(2, 3), torch.zeros(2))
+@pytest.mark.parametrize("r", [GRAMIAN_MAX_RANK + 8, 200])
+def test_gramian_rank_above_the_tuned_path_is_answered_like_jax(r):
+    """Above the tuned path's 128 the build answers (the general-rank path
+    on the card; here its plain version) as the JAX kernel does."""
+    data = _gram_data(6, 40, 60, r, seed=r)
+    got = _port_gramian(*data)
+    want = _jax_gramian(*data)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL)
+    np.testing.assert_array_equal(got[0], np.transpose(got[0], (0, 2, 1)))
     with pytest.raises(ValueError, match="ceiling"):
-        gramian_fused(*args)
-    a, _ = gramian_fused_reference(*args)  # the plain version has no ceiling
-    assert a.shape == (2, r, r)
+        gramian_fused(torch.zeros(4, cuda_kernels.GRAMIAN_WIDE_MAX_RANK + 1, device="meta"),
+                      *(torch.zeros(2, 3, dtype=t, device="meta")
+                        for t in (torch.int32, torch.float32, torch.float32)),
+                      torch.zeros(2, device="meta"))
     with pytest.raises(TypeError, match="idx"):
         gramian_fused(torch.zeros(4, 3), torch.zeros(2, 3), torch.zeros(2, 3),
                       torch.zeros(2, 3), torch.zeros(2))
@@ -242,12 +249,22 @@ def test_spd_singular_psd_system_gives_finite_zeroed_components():
     assert _rel_err(x[:, live], ref) < 1e-4
 
 
-def test_spd_solve_above_the_ceiling_raises():
-    n = SPD_MAX_N + 1
+@pytest.mark.parametrize("r,n", [(SPD_MAX_N + 1, SPD_MAX_N + 8), (200, 200)])
+def test_spd_solve_above_the_tuned_paths_is_answered_like_jax_and_numpy(r, n):
+    """Above the tuned paths' 128 the solve answers (the wide path on the
+    card; here its plain version), padding columns solving to 0."""
+    a, b = _spd_systems(128, r, k=2 * r, seed=r)
+    ref = np.linalg.solve(a, b[..., None])[..., 0]
+    a_t, b_t = _to_t(a, b, n)
+    x_t = spd_solve_t(torch.from_numpy(a_t), torch.from_numpy(b_t)).numpy()
+    x_j = np.asarray(jax_spd_solve_t(jnp.asarray(a_t), jnp.asarray(b_t)))
+    assert _rel_err(x_t[:r].T, ref) < 1e-4
+    assert _rel_err(x_t[:r].T, x_j[:r].T) < 1e-4
+    np.testing.assert_array_equal(x_t[r:], 0.0)
     with pytest.raises(ValueError, match="ceiling"):
-        spd_solve(torch.zeros(2, n, n), torch.zeros(2, n))
-    with pytest.raises(ValueError, match="ceiling"):
-        spd_solve_t(torch.zeros(n, n, 2), torch.zeros(n, 2))
+        n_big = cuda_kernels.SPD_WIDE_MAX_N + 1
+        spd_solve(torch.zeros(2, n_big, n_big, device="meta"),
+                  torch.zeros(2, n_big, device="meta"))
     with pytest.raises(ValueError):
         spd_solve(torch.zeros(2, 4, 5), torch.zeros(2, 4))
 

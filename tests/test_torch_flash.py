@@ -530,9 +530,165 @@ def test_the_c_entry_scales_by_the_true_width():
 
 
 @pytest.mark.parametrize("d", [0, FLASH_MAX_D + 1, 136, 256])
-def test_heads_wider_than_the_kernel_still_raise_naming_the_limit(d):
-    q = torch.zeros((1, 1, 4, d))
-    with pytest.raises(ValueError, match=rf"from 1 to {FLASH_MAX_D}.*queue 3"):
-        flash_attention_fwd(q, q, q, True)
-    with pytest.raises(ValueError, match="queue 3"):
-        flash_attention_fwd_reference(q, q, q, True)
+def test_heads_wider_than_the_tuned_path_are_answered_and_zero_width_raises(d):
+    """D = 0 is refused on either device; wider heads than the tuned
+    path's 128 are answered (the wide-head path on the card, the plain
+    version here) as the JAX kernel answers."""
+    if d == 0:
+        q = torch.zeros((1, 1, 4, 0))
+        with pytest.raises(ValueError, match="D >= 1"):
+            flash_attention_fwd(q, q, q, True)
+        with pytest.raises(ValueError, match="D >= 1"):
+            flash_attention_fwd_reference(q, q, q, True)
+        return
+    q, k, v = _qkv(1, 2, 20, 20, d, seed=d)
+    want = np.asarray(jax_flash_attention_pallas(q, k, v, causal=True, block_q=8,
+                                                 block_k=8))
+    got = flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)), True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+# -- the wide-head path (D > 128) ---------------------------------------------------
+def _wide_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
+
+
+def _wide_c_entry_accepts(plan, bh, lq, d):
+    """``pio_flash_attention_wide``'s check of a plan, transcribed, with
+    the source's own constants."""
+    rows, cols = _wide_const("kWRows"), _wide_const("kWCols")
+    blocks = -(-lq // rows) * bh * -(-d // cols)
+    return (d > _const("kMaxD") and plan.blocks == blocks <= 2**31 - 1
+            and plan.threads == _wide_const("kWThreads"))
+
+
+def test_wide_constants_are_the_kernels():
+    assert _wide_const("kWRows") == cuda_kernels.FLASH_WIDE_ROWS
+    assert _wide_const("kWKeys") == cuda_kernels.FLASH_WIDE_KEYS
+    assert _wide_const("kWThreads") == cuda_kernels.FLASH_WIDE_THREADS
+    assert _wide_const("kWCols") == cuda_kernels.FLASH_WIDE_COLS
+    assert _wide_const("kWChunk") == 64
+    assert 65536 // (_wide_const("kWThreads") * _wide_const("kWMinBlocks")) \
+        == cuda_kernels.FLASH_WIDE_REGS
+    chunk = _wide_const("kWChunk")
+    assert cuda_kernels.FLASH_WIDE_SMEM == 4 * (
+        2 * cuda_kernels.FLASH_WIDE_ROWS * (chunk + 1)
+        + cuda_kernels.FLASH_WIDE_KEYS * cuda_kernels.FLASH_WIDE_COLS
+        + cuda_kernels.FLASH_WIDE_ROWS * (cuda_kernels.FLASH_WIDE_KEYS + 1))
+    assert 'extern "C" int pio_flash_attention_wide(' in SRC
+    params = re.search(r'extern "C" int pio_flash_attention_wide\(([^)]*)\)', SRC).group(1)
+    assert len(params.split(",")) == len(cuda_kernels._WIDE_ARGTYPES["flash_attention"])
+
+
+@pytest.mark.parametrize("sm_count", [132, 114])
+@pytest.mark.parametrize("d", [129, 136, 192, 200, 256, 300, 384, 512])
+def test_wide_plan_is_accepted_by_the_c_entry(d, sm_count):
+    for b, h, lq, lk in ((64, 4, 64, 64), (8, 4, 2048, 2048), (1, 1, 1, 1), (3, 2, 70, 300)):
+        plan = cuda_kernels.flash_wide_launch_plan(b, h, lq, lk, d, sm_count)
+        assert plan.passes == -(-d // 128) and plan.q_tiles == -(-lq // 32)
+        assert plan.kv_tiles == -(-lk // 32) and plan.blocks_per_sm >= 1
+        assert plan.waves == -(-plan.blocks // (sm_count * plan.blocks_per_sm))
+        assert _wide_c_entry_accepts(plan, b * h, lq, d), (b, h, lq, d, plan)
+
+
+@pytest.mark.parametrize("d", [1, 8, 100, 128])
+def test_wide_plan_refuses_the_tuned_widths(d):
+    with pytest.raises(ValueError, match="no flash wide launch plan"):
+        cuda_kernels.flash_wide_launch_plan(1, 1, 8, 8, d, 132)
+
+
+@pytest.mark.parametrize("d", [6, 64, 128, 129, 136, 256, 512])
+def test_the_path_is_picked_by_the_head_width_alone(d, monkeypatch):
+    """``flash_plan_for`` takes the wide-head plan exactly above 128,
+    whatever the other dimensions are."""
+    monkeypatch.setattr(cuda_kernels, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(cuda_kernels, "_flash_regs",
+                        lambda index: {key: 96 for key in FLASH_KERNELS})
+    for b, h, lq, lk in ((64, 4, 64, 64), (1, 1, 1, 1), (8, 4, 2048, 2048)):
+        q = torch.zeros((b, h, lq, d), device="meta")
+        k = torch.zeros((b, h, lk, d), device="meta")
+        d_k = -(-d // 8) * 8
+        if d > FLASH_MAX_D:
+            plan = cuda_kernels.flash_plan_for(q, k, True)
+            assert plan.passes >= 2 and plan.threads == cuda_kernels.FLASH_WIDE_THREADS
+        else:
+            qp = torch.zeros((b, h, lq, d_k), device="meta")
+            plan = cuda_kernels.flash_plan_for(qp, k, True)
+            assert plan.passes == 1 and plan.bq in FLASH_BQS
+
+
+def emulate_flash_wide(q, k, v, causal):
+    """The wide-head kernel's forward in its order: 32 query rows and 32
+    keys a tile, q scaled by 1/sqrt(D), each score one FMA chain over D in
+    ascending order (the 64-column chunks continue one chain), every tile
+    masked, the row max, ``exp``, the sum of a thread's keys kx + 8 t in
+    t order then across kx by three xor shuffles, ``l = fma(l, corr,
+    sum)``, O scaled by ``corr`` and then P·V key by key; key tiles
+    ascending, the causal ones above the diagonal skipped."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    bh, rows, bk = b * h, 32, 32
+    qscale = np.float32(1.0 / np.sqrt(np.float64(d)))
+    q = (np.asarray(q, np.float32).reshape(bh, lq, d) * qscale).astype(np.float32)
+    k = np.asarray(k, np.float32).reshape(bh, lk, d)
+    v = np.asarray(v, np.float32).reshape(bh, lk, d)
+    n_kv = -(-lk // bk)
+    neg = np.float32(-1e30)
+    lane = np.arange(8)
+    out = np.zeros((bh, lq, d), np.float32)
+    for qt in range(-(-lq // rows)):
+        q0 = qt * rows
+        n_rows = min(rows, lq - q0)
+        q_tile = np.zeros((bh, rows, d), np.float32)
+        q_tile[:, :n_rows] = q[:, q0:q0 + n_rows]
+        m = np.full((bh, rows), neg, np.float32)
+        l = np.zeros((bh, rows), np.float32)
+        acc = np.zeros((bh, rows, d), np.float32)
+        hi = min((q0 + rows + bk - 1) // bk, n_kv) if causal else n_kv
+        for kt in range(hi):
+            k0 = kt * bk
+            valid = min(bk, lk - k0)
+            k_tile = np.zeros((bh, bk, d), np.float32)
+            v_tile = np.zeros((bh, bk, d), np.float32)
+            k_tile[:, :valid] = k[:, k0:k0 + valid]
+            v_tile[:, :valid] = v[:, k0:k0 + valid]
+            s = np.zeros((bh, rows, bk), np.float32)
+            for c in range(d):
+                s = _fma(q_tile[:, :, c, None], k_tile[:, None, :, c], s)
+            q_pos = q0 + np.arange(rows)[:, None]
+            k_pos = k0 + np.arange(bk)[None, :]
+            keep = (k_pos < lk) & ((q_pos >= k_pos) if causal else True)
+            s = np.where(keep, s, neg)
+            m_new = np.maximum(m, s.max(axis=-1))
+            corr = np.exp(m - m_new).astype(np.float32)
+            p = np.exp(s - m_new[..., None]).astype(np.float32)
+            by_thread = p.reshape(bh, rows, 4, 8)  # [t, kx]: key kx + 8 t
+            part = np.zeros((bh, rows, 8), np.float32)
+            for t in range(4):
+                part = (part + by_thread[:, :, t, :]).astype(np.float32)
+            for shift in (1, 2, 4):  # __shfl_xor_sync across kx
+                part = (part + part[..., lane ^ shift]).astype(np.float32)
+            l = _fma(l, corr, part[..., 0])
+            m = m_new
+            acc = (acc * corr[..., None]).astype(np.float32)
+            for key in range(bk):
+                acc = _fma(p[:, :, key, None], v_tile[:, None, key, :], acc)
+        o = (acc / np.maximum(l, np.float32(1e-30))[..., None]).astype(np.float32)
+        out[:, q0:q0 + n_rows] = o[:, :n_rows]
+    return out.reshape(b, h, lq, d)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 2, 40, 40, 136), (2, 1, 33, 70, 200),
+                                   (1, 1, 70, 33, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wide_emulation_matches_jax_and_the_plain_version(shape, causal):
+    b, h, lq, lk, d = shape
+    q, k, v = _qkv(b, h, lq, lk, d, seed=d)
+    got = emulate_flash_wide(q, k, v, causal)
+    want = np.asarray(jax_flash_attention_pallas(q, k, v, causal=causal, block_q=8,
+                                                 block_k=8))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    plain = flash_attention_fwd_reference(*(torch.from_numpy(a) for a in (q, k, v)), causal)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=RTOL, atol=ATOL)

@@ -28,6 +28,9 @@ from predictionio_tpu_torch.ops.cuda_kernels import (
     GRAMIAN_MIN_CHUNK,
     gramian_fused_reference,
     gramian_launch_plan,
+    gramian_plan,
+    gramian_row_slices,
+    gramian_wide_launch_plan,
 )
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -308,3 +311,119 @@ def test_emulation_keeps_zero_rows_exact_and_nan_in_its_row():
     # no atomics, one order: two runs give the same bits
     np.testing.assert_array_equal(runs[0][0], runs[1][0])
     np.testing.assert_array_equal(runs[0][1], runs[1][1])
+
+
+# -- the general-rank path (R > 128) -------------------------------------------------
+def _wide_c_entry_accepts(plan, b, k, r):
+    """``launch_wide``'s check of a plan (csrc/gramian_fused.cu),
+    transcribed, with the source's own constants."""
+    src = (pathlib.Path(cuda_kernels.__file__).parent.parent
+           / "kernels" / "csrc" / "gramian_fused.cu").read_text()
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+             for name in ("kKTile", "kMinChunk", "kWTile", "kWThreads", "kWMaxR", "kMaxR")}
+    wt = const["kWTile"]
+    tr, tcw = -(-r // wt), (r + wt) // wt
+    n_tiles = tr * tcw - tr * (tr - 1) // 2
+    s, kc = plan.n_chunks, plan.chunk
+    return (const["kMaxR"] < r <= const["kWMaxR"] and kc >= const["kKTile"]
+            and kc % const["kKTile"] == 0 and s == (-(-k // kc) if k > 0 else 1)
+            and (s == 1 or kc >= const["kMinChunk"]) and plan.threads == const["kWThreads"]
+            and plan.chunk_smem == 0 and plan.reduce_smem == 0
+            and b * n_tiles * s <= 2**31 - 1 and plan.blocks == b * n_tiles * s
+            and plan.tiles == n_tiles)
+
+
+@pytest.mark.parametrize("b", [1, 3, 64, 216, 5000, 97972])
+def test_wide_plan_passes_the_c_entry_points_check(b):
+    for k in (0, 1, 33, 128, 257, 8193, 32768):
+        for r in (129, 136, 150, 191, 192, 200, 255, 256, 257, 300, 384, 511, 512):
+            plan = gramian_wide_launch_plan(b, k, r, 132)
+            assert plan.path == "wide"
+            assert _wide_c_entry_accepts(plan, b, k, r), (b, k, r, plan)
+            if plan.n_chunks > 1:
+                assert plan.scratch_shape == (b, plan.n_chunks, r * (r + 1) // 2 + r)
+                assert b * plan.tiles < 4 * 132  # only when the tiles do not fill the card
+
+
+def test_wide_tiles_cover_the_upper_triangle_of_a_and_b_once():
+    for r in (129, 200, 256, 257, 320):
+        wt = cuda_kernels.GRAMIAN_WIDE_TILE
+        tcw = -(-(r + 1) // wt)
+        seen = np.zeros((r, r + 1), int)
+        t = 0
+        for ti in range(-(-r // wt)):
+            for tj in range(ti, tcw):
+                t += 1
+                block = seen[ti * wt:(ti + 1) * wt, tj * wt:(tj + 1) * wt]
+                i = np.arange(ti * wt, ti * wt + block.shape[0])[:, None]
+                j = np.arange(tj * wt, tj * wt + block.shape[1])[None, :]
+                block += (i <= j) | (j == r)
+        assert t == cuda_kernels.gramian_wide_tiles(r)
+        upper = np.triu(np.ones((r, r + 1), bool))
+        upper[:, r] = True
+        assert (seen[upper] == 1).all() and (seen[~upper] == 0).all()
+
+
+@pytest.mark.parametrize("r", [1, 50, 128, 129, 200, 256, 512])
+def test_the_path_is_picked_by_the_rank_alone(r):
+    for b, k in BUCKETS + [(1, 1), (3, 0)]:
+        plan = gramian_plan(b, k, r, 132)
+        assert plan.path == ("wide" if r > GRAMIAN_MAX_RANK else "tuned")
+        if r <= GRAMIAN_MAX_RANK:
+            assert plan == gramian_launch_plan(b, k, r, 132)  # today's plan, unchanged
+
+
+@pytest.mark.parametrize("args", [(4, 8, 128, 132), (4, 8, 50, 132), (0, 8, 200, 132),
+                                  (4, -1, 200, 132), (4, 8, 200, 0), (4, 8, 46341, 132)])
+def test_wide_plan_refuses_bad_inputs(args):
+    with pytest.raises(ValueError, match="no gramian wide launch plan"):
+        gramian_wide_launch_plan(*args)
+
+
+@pytest.mark.parametrize("sm_count", [132, None])
+def test_rank_50_and_128_buckets_stay_one_slice(sm_count):
+    """Every bucket of ML-20M (both sides) keeps its one launch up to rank
+    128, so today's shapes keep their launch counts (90 + 90 a run)."""
+    for r in (50, 128):
+        for b, k in BUCKETS:
+            assert gramian_row_slices(b, k, r, sm_count) == [(0, b)], (b, k, r)
+
+
+@pytest.mark.parametrize("sm_count", [132, None])
+def test_rank_256_users_bucket_is_cut_to_the_budget(sm_count, monkeypatch):
+    budget = cuda_kernels.ALS_SYSTEMS_MAX_BYTES
+    for r, want in ((200, 2), (256, 4)):
+        slices = gramian_row_slices(97972, 128, r, sm_count)
+        assert len(slices) == want
+        assert slices[0][0] == 0 and slices[-1][1] == 97972
+        assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+        sizes = [s1 - s0 for s0, s1 in slices]
+        assert max(sizes) - min(sizes) <= 1  # evened out
+        assert max(sizes) * 4 * (r * r + r) <= budget
+    # a split bucket counts its scratch: tiny budgets cut to one row, never below
+    assert gramian_row_slices(0, 8, 200) == []
+    monkeypatch.setattr(cuda_kernels, "ALS_SYSTEMS_MAX_BYTES", 1)
+    assert gramian_row_slices(3, 32768, 200, 132) == [(0, 1), (1, 2), (2, 3)]
+
+
+@pytest.mark.parametrize("b,k,n,r,with_yty", [
+    (3, 300, 30, 136, False),
+    (2, 70, 25, 200, True),
+])
+def test_wide_emulation_matches_plain_and_the_jax_kernel(b, k, n, r, with_yty):
+    """The general-rank path sums each entry as the tuned path does (the
+    same per-rating fmaf, 32-rating tiles from zero, chunks in order), so
+    the same emulation holds it, at its own plan's chunks."""
+    y, idx, w2, rhs, ridge = _data(b, k, n, r, seed=r)
+    yty = (y.T @ y).astype(np.float32) if with_yty else None
+    for plan in (gramian_wide_launch_plan(b, k, r, 132),
+                 gramian_wide_launch_plan(b, k, r, 132)._replace(chunk=128)):
+        a, bv, _ = emulate_gramian(y, idx, w2, rhs, ridge, yty, plan.chunk)
+        np.testing.assert_array_equal(a, np.transpose(a, (0, 2, 1)))
+        a_p, b_p = _plain(y, idx, w2, rhs, ridge, yty)
+        np.testing.assert_allclose(a, a_p, **TOL)
+        np.testing.assert_allclose(bv, b_p, **TOL)
+    if r % 8 == 0:
+        a_j, b_j = _jax(y, idx, w2, rhs, ridge, yty)
+        np.testing.assert_allclose(a, a_j, **TOL)
+        np.testing.assert_allclose(bv, b_j, **TOL)

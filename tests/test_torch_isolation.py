@@ -30,7 +30,9 @@ def test_the_source_scan_reaches_the_evaluation_slice():
     scanned = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
     assert {"utils/durability.py", "controller/metrics.py", "controller/evaluation.py",
             "controller/fast_eval.py", "parallel/sweep.py", "workflow/version_check.py",
-            "workflow/loader.py", "tools/register.py", "tools/run_workflow.py"} <= scanned
+            "workflow/loader.py", "tools/register.py", "tools/run_workflow.py",
+            "tools/console.py", "tools/run_server.py", "tools/templates.py",
+            "tools/import_events.py", "tools/export_events.py"} <= scanned
 
 
 def test_importing_every_port_module_pulls_in_no_jax():
@@ -57,7 +59,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
     assert {f"predictionio_tpu_torch.{m}" for m in (
         "utils.durability", "controller.metrics", "controller.evaluation",
         "controller.fast_eval", "parallel.sweep", "workflow.version_check",
-        "workflow.loader", "tools.register", "tools.run_workflow")} <= names
+        "workflow.loader", "tools.register", "tools.run_workflow", "tools.console",
+        "tools.run_server", "tools.templates", "tools.import_events",
+        "tools.export_events")} <= names
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
@@ -146,12 +150,16 @@ def test_build_command_targets_sm90a_from_repo_sources():
       "kMaxSmem": cuda_kernels.TOPK_MAX_SMEM}),
     ("gramian_fused", "pallas_kernels.py::_gramian_kernel",
      {"kMaxR": cuda_kernels.GRAMIAN_MAX_RANK, "kKTile": cuda_kernels.GRAMIAN_K_TILE,
-      "kTile": cuda_kernels.GRAMIAN_BLOCK_TILE, "kMinChunk": cuda_kernels.GRAMIAN_MIN_CHUNK}),
+      "kTile": cuda_kernels.GRAMIAN_BLOCK_TILE, "kMinChunk": cuda_kernels.GRAMIAN_MIN_CHUNK,
+      "kWTile": cuda_kernels.GRAMIAN_WIDE_TILE, "kWThreads": cuda_kernels.GRAMIAN_WIDE_THREADS,
+      "kWMaxR": cuda_kernels.GRAMIAN_WIDE_MAX_RANK}),
     ("spd_solve", "pallas_kernels.py::_spd_kernel",
-     {"kMaxN": cuda_kernels.SPD_MAX_N}),
+     {"kMaxN": cuda_kernels.SPD_MAX_N, "kWideThreads": cuda_kernels.SPD_WIDE_THREADS,
+      "kWideMaxN": cuda_kernels.SPD_WIDE_MAX_N}),
     ("flash_attention", "attention.py::_flash_kernel",
      {"kMaxD": cuda_kernels.FLASH_MAX_D, "kTile": cuda_kernels.FLASH_TILE,
-      "kMaxQTiles": cuda_kernels.FLASH_MAX_Q_TILES}),
+      "kMaxQTiles": cuda_kernels.FLASH_MAX_Q_TILES, "kWRows": cuda_kernels.FLASH_WIDE_ROWS,
+      "kWCols": cuda_kernels.FLASH_WIDE_COLS}),
 ])
 def test_kernel_source_names_what_it_replaces_and_its_ceiling(name, replaces, constants):
     src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()

@@ -257,7 +257,7 @@ def test_both_flash_impls_reach_the_kernel_wrapper(monkeypatch):
     assert calls == [True] * 4  # one per layer, each impl
     with pytest.raises(ValueError, match="impl"):
         tseq.forward(tree, tokens, 2, flash_impl="bogus")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         tseq.forward(tree, tokens, 2, schedule="ring")
 
 
@@ -540,6 +540,18 @@ def test_odd_head_widths_train_and_serve_like_jax(d_model, n_heads, tmp_path):
     the JAX template's training (the training tolerances), then the
     instance served over HTTP against the JAX template's ``predict`` on
     the port's trained weights (the forward tolerances)."""
+    _train_and_serve_like_jax(d_model, n_heads, tmp_path)
+
+
+# -- heads wider than 128 (the kernel's wide-head path on the card) -------------
+@pytest.mark.parametrize("d_model,n_heads", [(256, 1), (272, 2)])
+def test_wide_head_widths_train_and_serve_like_jax(d_model, n_heads, tmp_path):
+    """Seqrec at D = 256 and 136, as at the odd widths: trained through
+    ``run_train`` and served over HTTP against the JAX template."""
+    _train_and_serve_like_jax(d_model, n_heads, tmp_path)
+
+
+def _train_and_serve_like_jax(d_model, n_heads, tmp_path):
     users, seqs = _histories()
     training = tseq.TrainingData(user_ids=users, sequences=seqs)
 

@@ -219,7 +219,7 @@ def test_query_server_answers_like_jax(served, jax_answers):
     assert data["device"] == "cpu"
     assert data["topkPath"] == {"0:ALSAlgorithm": "streaming"}
     assert data["stats"]["requests"] == len(QUERIES)
-    assert data["topkKernelLaunches"] == 0  # CPU tensors: the plain version
+    assert data["kernelLaunches"]["topk_streaming"] == 0  # CPU tensors: the plain version
     status, data, _ = _request(port, "POST", "/queries.json", {"num": 3})
     assert status == 400
 

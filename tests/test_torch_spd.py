@@ -90,8 +90,8 @@ def test_plan_passes_the_c_entry_points_check_at_every_size():
             assert _c_entry_accepts(spd_launch_plan(b, n, 132), b, n), (b, n)
 
 
-@pytest.mark.parametrize("args", [(0, 50, 132), (4, 0, 132), (4, SPD_MAX_N + 1, 132),
-                                  (4, 50, 0)])
+@pytest.mark.parametrize("args", [(0, 50, 132), (4, 0, 132),
+                                  (4, cuda_kernels.SPD_WIDE_MAX_N + 1, 132), (4, 50, 0)])
 def test_plan_refuses_bad_inputs(args):
     with pytest.raises(ValueError, match="no spd launch plan"):
         spd_launch_plan(*args)
@@ -283,3 +283,119 @@ def test_cpu_wrapper_runs_the_plain_version_on_both_paths():
         x = spd_solve(torch.from_numpy(a), torch.from_numpy(b)).numpy()
         np.testing.assert_array_equal(x, _plain(a, b))
     assert spd_launch_plan(4, 65, 132).path == "shared"
+
+
+# -- the wide path (n > 128) -----------------------------------------------------
+def _wide_c_entry_accepts(plan, b, n):
+    """``pio_spd_solve_wide``'s check of a plan, transcribed, with the
+    source's own constants."""
+    if not _const("kMaxN") < n <= _const("kWideMaxN"):
+        return False
+    tri = n * (n + 1) // 2
+    in_smem = 4 * (tri + 2 * n)
+    fits = in_smem <= _const("kMaxSmem")
+    threads = min((n + 31) // 32 * 32, _const("kWideThreads"))
+    return (32 * plan.warps == threads and plan.blocks == b
+            and plan.smem == (in_smem if fits else 8 * n)
+            and plan.scratch == (0 if fits else tri))
+
+
+@pytest.mark.parametrize("sm_count", [132, 114])
+def test_wide_plan_passes_the_c_entry_points_check(sm_count):
+    for n in list(range(129, 513)) + [1000, 4096]:
+        for b in (1, 3, 4096, 97972):
+            plan = spd_launch_plan(b, n, sm_count)
+            assert plan.path == "wide" and plan.np_ == n
+            assert plan.blocks_per_sm >= 1
+            assert plan.waves == -(-b // (sm_count * plan.blocks_per_sm))
+            assert _wide_c_entry_accepts(plan, b, n), (b, n, plan)
+    # the packed triangle sits in shared memory up to n = 338, in scratch above
+    assert spd_launch_plan(8, 338, 132).scratch == 0
+    assert spd_launch_plan(8, 339, 132).scratch == 339 * 340 // 2
+
+
+def test_wide_constants_are_the_kernels():
+    assert _const("kWideThreads") == cuda_kernels.SPD_WIDE_THREADS
+    assert _const("kWideMaxN") == cuda_kernels.SPD_WIDE_MAX_N
+    assert _const("kMaxSmem") == cuda_kernels.SPD_MAX_SMEM
+    assert 65536 // (_const("kWideThreads") * _const("kWideMinBlocks")) \
+        == cuda_kernels.SPD_WIDE_REGS
+    params = re.search(r'extern "C" int pio_spd_solve_wide\(([^)]*)\)', SRC).group(1)
+    assert len(params.split(",")) == len(cuda_kernels._WIDE_ARGTYPES["spd_solve"])
+    assert cuda_kernels.SPD_KERNELS[-1] == "wide"
+
+
+@pytest.mark.parametrize("n", [1, 50, 64, 65, 128, 129, 200, 256, 512])
+def test_the_path_is_picked_by_the_system_size_alone(n):
+    want = "registers" if n <= 64 else ("shared" if n <= SPD_MAX_N else "wide")
+    for b in BUCKET_SIZES + [1, 3]:
+        assert spd_launch_plan(b, n, 132).path == want
+
+
+def emulate_spd_wide(a, b):
+    """The wide kernel's solve of ``a [B, n, n]``, ``b [B, n]`` in its
+    order (all systems at once along axis 0): the upper triangle only;
+    step j forms l_c = U[j][c] * inv_d (c >= j), then U[r][c] =
+    fma(-m_r, l_c, U[r][c]) for j <= r <= c with m = l - e_j, and y_c =
+    fma(-m_c, z_j, y_c); back substitution column by column, x_j = y_j *
+    (d > 0 ? 1/d : 0), then y_r = fma(-U[r][j], x_j, y_r) for r < j."""
+    a = np.asarray(a, np.float32)
+    bsz, n = np.asarray(b).shape
+    u = np.where(np.triu(np.ones((n, n), bool)), a, np.float32(0)).astype(np.float32)
+    y = np.asarray(b, np.float32).copy()
+    cols = np.arange(n)
+    upper = np.triu(np.ones((n, n), bool))
+    one = np.float32(1)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        for j in range(n):
+            d2 = u[:, j, j].copy()
+            inv_d = np.where(d2 > 0, 1.0 / np.sqrt(d2.astype(np.float64)), 0.0
+                             ).astype(np.float32)
+            zj = y[:, j] * inv_d
+            l = np.where(cols >= j, u[:, j, :] * inv_d[:, None], np.float32(0))
+            m = np.where(cols == j, l - one, l).astype(np.float32)
+            blk = _fma(-m[:, j:, None], l[:, None, j:], u[:, j:, j:])
+            u[:, j:, j:] = np.where(upper[j:, j:], blk, u[:, j:, j:])
+            y[:, j:] = _fma(-m[:, j:], zj[:, None], y[:, j:])
+        x = np.zeros((bsz, n), np.float32)
+        for j in range(n - 1, -1, -1):
+            d = u[:, j, j]
+            xj = (y[:, j] * np.where(d > 0, one / d, np.float32(0))).astype(np.float32)
+            x[:, j] = xj
+            y[:, :j] = _fma(-u[:, :j, j], xj[:, None], y[:, :j])
+    return x
+
+
+@pytest.mark.parametrize("n", [129, 136, 200])
+def test_wide_emulation_matches_plain_numpy_and_jax(n):
+    a, b = _systems(8, n, k=2 * n, seed=n)
+    x = emulate_spd_wide(a, b)
+    ref = np.linalg.solve(a.astype(np.float64), b[..., None].astype(np.float64))[..., 0]
+    assert _rel_err(x, ref) < REL_TOL
+    assert _rel_err(x, _plain(a, b)) < REL_TOL
+    if n % 8 == 0:
+        assert _rel_err(x, _jax(a, b)) < REL_TOL
+
+
+def test_wide_zero_dead_pivot_lower_triangle_and_nan_cases():
+    n = 140
+    a, b = _systems(6, n, k=200, seed=5)
+    a[5] = 0.0  # a zero system solves to exact zeros
+    dead = [0, 70, 139]
+    a[4, dead, :] = 0.0
+    a[4, :, dead] = 0.0
+    x = emulate_spd_wide(a, b)
+    assert np.all(np.isfinite(x))
+    np.testing.assert_array_equal(x[5], 0.0)
+    np.testing.assert_array_equal(x[4, dead], 0.0)
+    assert _rel_err(x[:5], _plain(a[:5], b[:5])) < REL_TOL
+    garbage = a.copy()
+    low = np.tril_indices(n, -1)
+    garbage[:, low[0], low[1]] = np.nan
+    np.testing.assert_array_equal(emulate_spd_wide(garbage, b), x)
+    a_nan = a.copy()
+    a_nan[2, 5, 9] = np.nan
+    x_nan = emulate_spd_wide(a_nan, b)
+    assert np.isnan(x_nan[2]).any()
+    others = [0, 1, 3, 4, 5]
+    np.testing.assert_array_equal(x_nan[others], x[others])
