@@ -1738,10 +1738,10 @@ def phase_attention_kernel(torch, dev, seed: int) -> dict:
         for bq in FLASH_BQS:
             if flash_smem_bytes(bq, d) <= FLASH_MAX_SMEM:  # not 128 rows at D = 128
                 check(f"D{d}_bq{bq}", 2, 4, 160, 200, d, True, bq=bq)
-    # above the tuned path: the wide-head path, picked by D alone
+    # above the tuned path: the resident wide-head path, picked by D alone
     wide = check(f"D{FLASH_MAX_D + 8}", 2, 4, 160, 200, FLASH_MAX_D + 8, True)
-    if wide["plan"]["passes"] < 2:
-        raise AssertionError(f"D = {FLASH_MAX_D + 8} did not take the wide-head path")
+    if wide["plan"]["path"] != "resident":
+        raise AssertionError(f"D = {FLASH_MAX_D + 8} did not take the resident path")
     return {"shapes": main, "attributes": attributes, **worst}
 
 
@@ -3082,6 +3082,11 @@ WIDE_CHECK_ROWS, WIDE_SPD_B = 4096, 4096
 WIDE_HEADS = (136, 192, 256)
 WIDE_ATTN_SHAPES = ((64, 4, 64, 64, True), (8, 4, 2048, 2048, True),
                     (8, 4, 2048, 2048, False))
+#: a head above the resident path's widest (FLASH_WIDE_RES_MAX_D), so the
+#: passes path is still launched and held: the training shape and L = 2,048
+#: causal
+WIDE_PASSES_HEAD = 320
+WIDE_PASSES_SHAPES = WIDE_ATTN_SHAPES[:2]
 WIDE_ALS_RANK, WIDE_SEQ = 200, dict(d_model=256, n_heads=1)
 
 
@@ -3098,14 +3103,17 @@ def wide_bucket(torch, gen, dev, b: int, k: int, n: int, r: int):
 
 
 def wide_kernels(torch, dev, seed: int) -> dict:
-    """The three general-width paths against their plain versions: the
-    build at R = 129, 200, 256 at both ML-20M bucket shapes (the users'
-    bucket in the slices training cuts it into) and a split bucket, the
-    solve at n = 129, 200, 256 with its edge cases, attention at D = 136,
-    192, 256 causal and not. Each kernel's registers and local bytes
-    first (no local memory); each case prints its plan and its error, the
-    timed ones the kernel's event and device time beside the plain
-    version's, the library call's and the bound."""
+    """The general-width paths against their plain versions: the build at
+    R = 129, 200, 256 at both ML-20M bucket shapes (the users' bucket in
+    the slices training cuts it into) and a split bucket, the solve at n =
+    129, 200, 256 with its edge cases, attention at D = 136, 192, 256
+    causal and not on the resident path and at D = 320 on the passes
+    path. Each kernel's registers and local bytes first (no local memory;
+    the attention kernels' registers equal to their plan constants, the
+    build's and the solve's within their launch bounds); each case prints
+    its plan and its error, the timed ones the kernel's event and device
+    time beside the plain version's, the library call's and the bound, and
+    the resident cases the passes kernel's time on the same tensors."""
     from predictionio_tpu_torch.ops import cuda_kernels as ck
     from predictionio_tpu_torch.ops.cuda_kernels import (
         flash_attention_fwd,
@@ -3121,10 +3129,17 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     attrs = {"gramian_fused": {k: v for k, v in ck.gramian_kernel_attributes(dev).items()
                                if k.startswith("wide")},
              "spd_solve": ck.spd_kernel_attributes(dev)["wide"],
-             "flash_attention": ck.flash_wide_kernel_attributes(dev)}
-    flat = [*attrs["gramian_fused"].values(), attrs["spd_solve"], attrs["flash_attention"]]
+             "flash_attention": ck.flash_wide_kernel_attributes(dev),
+             "flash_attention_resident": ck.flash_resident_kernel_attributes(dev)}
+    flat = [*attrs["gramian_fused"].values(), attrs["spd_solve"], attrs["flash_attention"],
+            *attrs["flash_attention_resident"].values()]
     emit({"phase": "wide", "attributes": attrs})
-    if any(a["local_bytes"] for a in flat) or max(a["regs"] for a in flat) > 64:
+    regs_ok = (all(a["regs"] <= ck.GRAMIAN_WIDE_REGS for a in attrs["gramian_fused"].values())
+               and attrs["spd_solve"]["regs"] <= ck.SPD_WIDE_REGS
+               and attrs["flash_attention"]["regs"] == ck.FLASH_WIDE_REGS
+               and all(a["regs"] == ck.FLASH_WIDE_RES_REGS[g]
+                       for g, a in attrs["flash_attention_resident"].items()))
+    if any(a["local_bytes"] for a in flat) or not regs_ok:
         raise AssertionError(f"the general-width kernels take {attrs}")
     worst = {"gramian_fused": 0.0, "spd_solve": 0.0, "flash_attention": 0.0}
     cases = {}
@@ -3256,34 +3271,54 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     # attention
     import torch.nn.functional as F
 
+    def attention_case(d, b, h, lq, lk, causal):
+        q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
+                   for n_ in (lq, lk, lk))
+        before = flash_attention_fwd.launches
+        o_k = flash_attention_fwd(q, k, v, causal)
+        launched = flash_attention_fwd.launches - before
+        o_p = flash_attention_fwd_reference(q, k, v, causal)
+        ok = bool(torch.isfinite(o_k).all()
+                  and torch.allclose(o_k, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL))
+        plan = ck.flash_plan_for(q, k, causal)
+        out = {"D": d, "B": b, "H": h, "Lq": lq, "Lk": lk, "causal": causal,
+               "plan": flash_plan_line(plan), "launches": launched,
+               "max_abs_err": float((o_k - o_p).abs().max()),
+               "bit_identical": bool(torch.equal(o_k, flash_attention_fwd(q, k, v, causal)))}
+        kernel = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        out["kernel_ms"] = time_ms(torch, kernel, 10, 2)
+        out["kernel_device_ms"] = traced_device_ms(torch, kernel, 10)
+        if plan.path == "resident":  # the passes kernel on the same tensors
+            passes = ck.flash_wide_launch_plan(b, h, lq, lk, d, sm)
+            earlier = lambda: flash_attention_fwd(q, k, v, causal, plan=passes)  # noqa: E731
+            o_e = earlier()
+            ok = ok and bool(torch.allclose(o_e, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL))
+            out["earlier_max_abs_err"] = float((o_e - o_p).abs().max())
+            out["earlier_kernel_ms"] = time_ms(torch, earlier, 10, 2)
+            out["earlier_kernel_device_ms"] = traced_device_ms(torch, earlier, 10)
+            del o_e
+        out["plain_ms"] = time_ms(
+            torch, lambda: flash_attention_fwd_reference(q, k, v, causal), 3, 1)
+        out["library_ms"] = time_ms(torch, library, 10, 2)
+        out["library_device_ms"] = traced_device_ms(torch, library, 10)
+        bound_ms, out["bound_by"] = flash_attention_bound(b, h, lq, lk, d, causal)
+        out["bound_us"] = bound_ms * 1e3
+        on_card = out["kernel_device_ms"]
+        if on_card is not None:
+            out["device_over_bound"] = on_card / bound_ms
+            for key in ("library", "earlier_kernel"):
+                if out.get(f"{key}_device_ms"):
+                    out[f"device_over_{key}"] = on_card / out[f"{key}_device_ms"]
+        path = "resident" if d <= ck.FLASH_WIDE_RES_MAX_D else "passes"
+        held("flash_attention", f"D{d}_{b}x{h}x{lq}_causal_{causal}", out,
+             ok and out["bit_identical"] and launched == 1 and plan.path == path)
+
     for d in WIDE_HEADS:
-        for b, h, lq, lk, causal in WIDE_ATTN_SHAPES:
-            q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
-                       for n_ in (lq, lk, lk))
-            before = flash_attention_fwd.launches
-            o_k = flash_attention_fwd(q, k, v, causal)
-            launched = flash_attention_fwd.launches - before
-            o_p = flash_attention_fwd_reference(q, k, v, causal)
-            ok = bool(torch.isfinite(o_k).all()
-                      and torch.allclose(o_k, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL))
-            plan = ck.flash_plan_for(q, k, causal)
-            out = {"D": d, "B": b, "H": h, "Lq": lq, "Lk": lk, "causal": causal,
-                   "plan": flash_plan_line(plan), "launches": launched,
-                   "max_abs_err": float((o_k - o_p).abs().max()),
-                   "bit_identical": bool(torch.equal(o_k, flash_attention_fwd(q, k, v, causal)))}
-            kernel = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
-            library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
-            out["kernel_ms"] = time_ms(torch, kernel, 10, 2)
-            out["kernel_device_ms"] = traced_device_ms(torch, kernel, 10)
-            out["plain_ms"] = time_ms(
-                torch, lambda: flash_attention_fwd_reference(q, k, v, causal), 3, 1)
-            out["library_ms"] = time_ms(torch, library, 10, 2)
-            out["library_device_ms"] = traced_device_ms(torch, library, 10)
-            bound_ms, out["bound_by"] = flash_attention_bound(b, h, lq, lk, d, causal)
-            out["bound_us"] = bound_ms * 1e3
-            held("flash_attention", f"D{d}_{b}x{h}x{lq}_causal_{causal}", out,
-                 ok and out["bit_identical"] and launched == 1 and plan.passes > 1)
-            del q, k, v, o_k, o_p
+        for shape in WIDE_ATTN_SHAPES:
+            attention_case(d, *shape)
+    for shape in WIDE_PASSES_SHAPES:
+        attention_case(WIDE_PASSES_HEAD, *shape)
     return {"cases": cases, "max_abs_err": worst, "attributes": attrs}
 
 
@@ -3705,7 +3740,9 @@ def wide_lines(wide: dict, name: str) -> dict:
     ``kernels`` line: each case's measured times, bound and launches."""
     keys = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms", "library_device_ms",
             "bound_us", "bound_by", "launches", "slices", "rows_kernel_ms", "rows_plain_ms",
-            "rows_library_ms", "rows_bound_us", "max_abs_err", "max_rel_err")
+            "rows_library_ms", "rows_bound_us", "max_abs_err", "max_rel_err",
+            "earlier_kernel_ms", "earlier_kernel_device_ms", "device_over_bound",
+            "device_over_library", "device_over_earlier_kernel")
     return {case.split(":", 1)[1]: {k: out[k] for k in keys if k in out}
             for case, out in wide["kernels"]["cases"].items()
             if case.startswith(name + ":") and "kernel_ms" in out}

@@ -121,6 +121,12 @@ constexpr int kWThreads = 256;  // kWRows x kKeyThreads
 constexpr int kWChunk = 64;    // columns of Q and K staged a step
 constexpr int kWCols = 128;    // O's columns a pass (a block)
 constexpr int kWMinBlocks = 4;  // launch bound: at most 64 registers a thread
+// the resident wide-head path (kMaxD < D <= kRMaxD)
+constexpr int kRRows = 64;      // query rows a block (bq)
+constexpr int kRKeys = 64;      // keys a tile (bk)
+constexpr int kRThreads = 256;
+constexpr int kRPStride = kRKeys + 4;  // floats of a probability row
+constexpr int kRMaxD = 272;     // the widest head whose resident tiles fit a block
 
 // Floats of shared memory of a block of BQ rows at head width d: the Q tile
 // [bq][d + kPad], two K tiles [kTile][d + kPad] and two V tiles [kTile][d]
@@ -498,6 +504,198 @@ __global__ void __launch_bounds__(kWThreads, kWMinBlocks)
   }
 }
 
+// The resident path's shared row width: D rounded up to 8 floats (zeros past
+// D), so that a row of D + kPad floats is an odd number of 16-byte groups.
+__host__ __device__ constexpr int res_width(int d) { return (d + 7) / 8 * 8; }
+
+// Floats of shared memory of a resident-path block: the Q tile and the K tile
+// [64][res_width + kPad], the V tile [64][res_width], the probabilities
+// [64][kRPStride], and two [64] row vectors (the rescale factor and l).
+__host__ __device__ constexpr int res_smem_floats(int d) {
+  return (kRRows + kRKeys) * (res_width(d) + kPad) + kRKeys * res_width(d) +
+         kRRows * kRPStride + 2 * kRRows;
+}
+
+// O's float4 column groups a thread owns on the resident path (16 threads
+// share a row): the instantiation that takes head width d.
+__host__ __device__ constexpr int res_groups(int d) { return ((d + 3) / 4 + 15) / 16; }
+
+// One 4-byte cp.async (L1 and L2); with `valid` false it writes a zero.
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Starts the copy of `rows` rows of a [*, D] device array (row r at src + r *
+// D) into shared rows of `stride` floats, res_width(D) columns each: zeros at
+// or past `valid` rows and past D columns. 16-byte copies when `vec` (D a
+// multiple of 4 and the array 16-byte aligned), else 4-byte ones.
+__device__ __forceinline__ void res_copy(const float* __restrict__ src, float* dst,
+                                         int rows, int stride, int valid, int D,
+                                         bool vec, int tid) {
+  const int w = res_width(D);
+  if (vec) {
+    for (int e = tid; e < rows * (w / 4); e += kRThreads) {
+      const int r = e / (w / 4), c = (e % (w / 4)) * 4;
+      const bool in = r < valid && c < D;
+      copy16(dst + r * stride + c, in ? src + static_cast<size_t>(r) * D + c : src, in);
+    }
+  } else {
+    for (int e = tid; e < rows * w; e += kRThreads) {
+      const int r = e / w, c = e % w;
+      const bool in = r < valid && c < D;
+      copy4(dst + r * stride + c, in ? src + static_cast<size_t>(r) * D + c : src, in);
+    }
+  }
+}
+
+// Scales the Q tile's elements this thread copied (res_copy's split of the
+// work) by `qscale`, after its copies have landed.
+__device__ __forceinline__ void res_scale(float* s_q, int stride, int D, bool vec,
+                                          float qscale, int tid) {
+  const int w = res_width(D);
+  if (vec) {
+    for (int e = tid; e < kRRows * (w / 4); e += kRThreads) {
+      float4* x = reinterpret_cast<float4*>(s_q + (e / (w / 4)) * stride + (e % (w / 4)) * 4);
+      x->x *= qscale; x->y *= qscale; x->z *= qscale; x->w *= qscale;
+    }
+  } else {
+    for (int e = tid; e < kRRows * w; e += kRThreads) s_q[(e / w) * stride + e % w] *= qscale;
+  }
+}
+
+// The resident path: one block per (query tile of kRRows, batch * head),
+// heaviest query tiles first (block b takes query tile q_tiles - 1 - b / BH
+// of head b % BH), taking all of D.
+template <int G>
+__global__ void __launch_bounds__(kRThreads, 1)
+    flash_attention_resident_kernel(const float* __restrict__ q,
+                                    const float* __restrict__ k,
+                                    const float* __restrict__ v,
+                                    float* __restrict__ o, int BH, int Lq, int Lk,
+                                    int D, int q_tiles, int causal, int vec,
+                                    float qscale) {
+  constexpr int kKeysT = kRKeys / 4;  // keys a thread: kx + 4 t
+  constexpr int kColsT = 16 * G;      // O columns a thread: kx + 4 c
+  const int w = res_width(D), ds = w + kPad;
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                    // [kRRows][ds], pre-scaled
+  float* s_k = s_q + kRRows * ds;       // [kRKeys][ds]
+  float* s_v = s_k + kRKeys * ds;       // [kRKeys][w]
+  float* s_p = s_v + kRKeys * w;        // [kRRows][kRPStride]
+
+  const int tid = threadIdx.x;
+  const int kx = tid % 4;
+  const int ry = tid / 4;
+  const int bh = static_cast<int>(blockIdx.x % static_cast<unsigned>(BH));
+  const int q_tile = q_tiles - 1 - static_cast<int>(blockIdx.x / static_cast<unsigned>(BH));
+  const int q0 = q_tile * kRRows;
+  const int q_pos = q0 + ry;
+  const float* q_bh = q + static_cast<size_t>(bh) * Lq * D;
+  const float* k_bh = k + static_cast<size_t>(bh) * Lk * D;
+  const float* v_bh = v + static_cast<size_t>(bh) * Lk * D;
+
+  float m = kNegBig, l = 0.f, acc[kColsT];
+#pragma unroll
+  for (int c = 0; c < kColsT; ++c) acc[c] = 0.f;
+  const int n_kv = (Lk + kRKeys - 1) / kRKeys;
+  const int hi = causal ? min((q0 + kRRows + kRKeys - 1) / kRKeys, n_kv) : n_kv;
+
+  for (int j = 0; j < hi; ++j) {
+    const int k0 = j * kRKeys;
+    __syncthreads();  // every thread is done with the last tile's K, V and P
+    if (j == 0) res_copy(q_bh + static_cast<size_t>(q0) * D, s_q, kRRows, ds, Lq - q0, D, vec, tid);
+    res_copy(k_bh + static_cast<size_t>(k0) * D, s_k, kRKeys, ds, Lk - k0, D, vec, tid);
+    res_copy(v_bh + static_cast<size_t>(k0) * D, s_v, kRKeys, w, Lk - k0, D, vec, tid);
+    copies_commit();
+    copies_wait();
+    if (j == 0) res_scale(s_q, ds, D, vec, qscale, tid);
+    __syncthreads();
+
+    float s[kKeysT];
+#pragma unroll
+    for (int t = 0; t < kKeysT; ++t) s[t] = 0.f;
+    for (int c = 0; c < w; ++c) {
+      const float qv = s_q[ry * ds + c];
+#pragma unroll
+      for (int t = 0; t < kKeysT; ++t) s[t] = fmaf(qv, s_k[(kx + 4 * t) * ds + c], s[t]);
+    }
+    float mx = kNegBig;
+#pragma unroll
+    for (int t = 0; t < kKeysT; ++t) {
+      const int k_pos = k0 + kx + 4 * t;
+      const bool keep = k_pos < Lk && (!causal || q_pos >= k_pos);
+      s[t] = keep ? s[t] : kNegBig;
+      mx = fmaxf(mx, s[t]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    const float corr = expf(m - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int t = 0; t < kKeysT; ++t) {
+      const float p = expf(s[t] - m_new);
+      s_p[ry * kRPStride + kx + 4 * t] = p;
+      sum += p;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l = fmaf(l, corr, sum);
+    m = m_new;
+#pragma unroll
+    for (int c = 0; c < kColsT; ++c) acc[c] *= corr;
+    __syncwarp();  // a row's probabilities are written and read by one warp
+    for (int kk = 0; kk < kRKeys; ++kk) {
+      const float p = s_p[ry * kRPStride + kk];
+#pragma unroll
+      for (int c = 0; c < kColsT; ++c)
+        if (kx + 4 * c < w) acc[c] = fmaf(p, s_v[kk * w + kx + 4 * c], acc[c]);
+    }
+  }
+
+  if (q_pos < Lq) {
+    const float denom = fmaxf(l, 1e-30f);
+    float* o_row = o + (static_cast<size_t>(bh) * Lq + q_pos) * D;
+#pragma unroll
+    for (int c = 0; c < kColsT; ++c) {
+      const int col = kx + 4 * c;
+      if (col < D) o_row[col] = acc[c] / denom;
+    }
+  }
+}
+
+template <int G>
+int launch_resident(const float* q, const float* k, const float* v, float* o, int BH,
+                    int Lq, int Lk, int D, int causal, int vec, int blocks, int smem,
+                    float qscale, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_resident_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_resident_kernel<G><<<blocks, kRThreads, smem, stream>>>(
+      q, k, v, o, BH, Lq, Lk, D, (Lq + kRRows - 1) / kRRows, causal, vec, qscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the resident path's instantiations, G = 3, 4, 5 (D up to 192, 256, kRMaxD)
+constexpr int kRGroupsMin = 3, kRGroupsMax = 5;
+using ResLaunchFn = int (*)(const float*, const float*, const float*, float*, int, int,
+                            int, int, int, int, int, int, float, cudaStream_t);
+const ResLaunchFn kResLaunch[] = {launch_resident<3>, launch_resident<4>, launch_resident<5>};
+const void* const kResKernels[] = {
+    reinterpret_cast<const void*>(flash_attention_resident_kernel<3>),
+    reinterpret_cast<const void*>(flash_attention_resident_kernel<4>),
+    reinterpret_cast<const void*>(flash_attention_resident_kernel<5>),
+};
+static_assert(res_groups(kMaxD + 1) == kRGroupsMin && res_groups(kRMaxD) == kRGroupsMax &&
+                  sizeof(kResLaunch) / sizeof(kResLaunch[0]) == kRGroupsMax - kRGroupsMin + 1,
+              "one instantiation per G from D = kMaxD + 1 to kRMaxD");
+static_assert(res_smem_floats(kRMaxD) * 4 <= kMaxSmem &&
+                  res_smem_floats(kRMaxD + 8) * 4 > kMaxSmem,
+              "kRMaxD is the widest head whose resident tiles fit a block");
+
 template <int D, int BQ>
 int launch(const float* q, const float* k, const float* v, float* o, int BH,
            int Lq, int Lk, int causal, int blocks, int smem, float qscale,
@@ -618,6 +816,54 @@ extern "C" int pio_flash_attention_wide_attrs(int* out) {
   out[0] = at.numRegs;
   out[1] = static_cast<int>(at.localSizeBytes);
   out[2] = static_cast<int>(at.sharedSizeBytes);
+  return 0;
+}
+
+// Launches the resident wide-head path (kMaxD < D <= kRMaxD) on `stream` and
+// returns cudaGetLastError() (0 = ok). Device pointers: q [BH, Lq, D], k and v
+// [BH, Lk, D], o [BH, Lq, D], f32 and contiguous, unpadded (16-byte copies
+// when D is a multiple of 4 and all four are 16-byte aligned, else 4-byte
+// ones); q is scaled by 1/sqrt(D). The plan (ops/cuda_kernels.py::
+// flash_resident_launch_plan): threads a block (kRThreads), dynamic shared
+// memory in bytes (res_smem_floats(D) floats) and blocks (ceil(Lq / kRRows) *
+// BH). A plan that does not match this arithmetic is refused
+// (cudaErrorInvalidValue), as are BH, Lq, Lk < 1, D outside (kMaxD, kRMaxD]
+// and more than 2^31 - 1 blocks.
+extern "C" int pio_flash_attention_resident(const void* q, const void* k,
+                                            const void* v, void* o, int BH, int Lq,
+                                            int Lk, int D, int causal, int threads,
+                                            int smem, int blocks, void* stream) {
+  if (BH < 1 || Lq < 1 || Lk < 1 || D <= kMaxD || D > kRMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long want_blocks = static_cast<long long>((Lq + kRRows - 1) / kRRows) * BH;
+  if (want_blocks > kMaxBlocks || blocks != want_blocks || threads != kRThreads ||
+      smem != res_smem_floats(D) * static_cast<int>(sizeof(float)) || smem > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  const int vec = D % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(o);
+  const double width = D;  // unpadded: the true head width
+  return kResLaunch[res_groups(D) - kRGroupsMin](
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), BH, Lq, Lk, D, causal != 0,
+      vec, blocks, smem, static_cast<float>(1.0 / std::sqrt(width)),
+      static_cast<cudaStream_t>(stream));
+}
+
+// Registers a thread, local (spilled) bytes and static shared memory of the
+// resident path's instantiations, three ints each, G = 3, 4, 5 in order.
+// Returns the first error of cudaFuncGetAttributes.
+extern "C" int pio_flash_attention_resident_attrs(int* out) {
+  int i = 0;
+  for (const void* kernel : kResKernels) {
+    cudaFuncAttributes at;
+    const cudaError_t err = cudaFuncGetAttributes(&at, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[i++] = at.numRegs;
+    out[i++] = static_cast<int>(at.localSizeBytes);
+    out[i++] = static_cast<int>(at.sharedSizeBytes);
+  }
   return 0;
 }
 

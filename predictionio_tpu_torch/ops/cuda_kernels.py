@@ -152,13 +152,15 @@ def _sm_count(index: int) -> int:
 def _configured(name: str, argtypes) -> ctypes.CDLL:
     """Kernel library ``name`` with its entry points' ctypes signatures set
     (every pointer and the stream as ``c_void_p``, ints as ``c_int``): its
-    ``pio_<name>`` and, where :data:`_WIDE_ARGTYPES` lists one, its
-    ``pio_<name>_wide``."""
+    ``pio_<name>``, where :data:`_WIDE_ARGTYPES` lists one its
+    ``pio_<name>_wide``, and flash attention's ``pio_flash_attention_resident``."""
     lib = build.load_library(name)
     if not getattr(lib, "_pio_configured", False):
         entries = {f"pio_{name}": argtypes}
         if name in _WIDE_ARGTYPES:
             entries[f"pio_{name}_wide"] = _WIDE_ARGTYPES[name]
+        if name == "flash_attention":
+            entries["pio_flash_attention_resident"] = _FLASH_RESIDENT_ARGTYPES
         for entry_name, types in entries.items():
             entry = getattr(lib, entry_name)
             entry.argtypes = types
@@ -174,6 +176,8 @@ _WIDE_ARGTYPES = {
     "spd_solve": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
+#: the resident wide-head attention path's entry (``pio_flash_attention_resident``)
+_FLASH_RESIDENT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _raise_on_error(lib: ctypes.CDLL, name: str, code: int) -> None:
@@ -1035,13 +1039,24 @@ FLASH_ROWS, FLASH_KEY_THREADS = 4, 8
 FLASH_PAD, FLASH_P_STRIDE = 4, FLASH_TILE + 8
 #: the most dynamic shared memory a block may opt into on the card
 FLASH_MAX_SMEM = 232448
-#: the wide-head path: query rows and keys a tile (kWRows, kWKeys), threads a
-#: block (kWThreads), O's columns a pass (kWCols), registers a thread at most
-#: (its launch bound of 4 blocks an SM), and its static shared memory (Q and K
-#: chunks [32][65], V [32][128], P [32][33])
+#: the passes path (heads wider than FLASH_WIDE_RES_MAX_D): query rows and
+#: keys a tile (kWRows, kWKeys), threads a block (kWThreads), O's columns a
+#: pass (kWCols), registers a thread (its launch bound of 4 blocks an SM caps
+#: it there, and the card reports that many), and its static shared memory (Q
+#: and K chunks [32][65], V [32][128], P [32][33])
 FLASH_WIDE_ROWS = FLASH_WIDE_KEYS = 32
 FLASH_WIDE_THREADS, FLASH_WIDE_COLS, FLASH_WIDE_REGS = 256, 128, 64
 FLASH_WIDE_SMEM = 4 * (2 * 32 * 65 + 32 * FLASH_WIDE_COLS + 32 * 33)
+#: the resident path (FLASH_MAX_D < D <= FLASH_WIDE_RES_MAX_D): query rows and
+#: keys a tile (kRRows, kRKeys), threads a block (kRThreads), the floats of a
+#: probability row (kRPStride), and the widest head whose resident tiles fit
+#: a block's shared memory (kRMaxD)
+FLASH_WIDE_RES_ROWS = FLASH_WIDE_RES_KEYS = 64
+FLASH_WIDE_RES_THREADS, FLASH_WIDE_RES_P_STRIDE, FLASH_WIDE_RES_MAX_D = 256, 68, 272
+#: the resident path's instantiations, by G = ceil(ceil(D / 4) / 16), the
+#: float4 column groups of O a thread owns, and the registers a thread of each
+#: takes on the card (chip_smoke.py holds the card's count to these)
+FLASH_WIDE_RES_REGS = {3: 168, 4: 208, 5: 208}
 #: every instantiation, in the order ``pio_flash_attention_attrs`` reports them
 FLASH_KERNELS = tuple((d, bq) for d in range(FLASH_D_MULTIPLE, FLASH_MAX_D + 1,
                                              FLASH_D_MULTIPLE) for bq in FLASH_BQS)
@@ -1063,7 +1078,8 @@ class FlashPlan(NamedTuple):
     kv_tiles: int  #: key tiles, ceil(Lk / bk)
     blocks: int  #: the grid, BH · q_tiles (· passes), heaviest query tiles first
     waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
-    passes: int = 1  #: blocks a query tile, each taking FLASH_WIDE_COLS of O (wide path)
+    passes: int = 1  #: blocks a query tile, each taking FLASH_WIDE_COLS of O (passes path)
+    path: str = "tuned"  #: the kernel: "tuned" (D <= 128), "resident" or "passes"
 
 
 def flash_smem_bytes(bq: int, d: int) -> int:
@@ -1158,7 +1174,53 @@ def flash_wide_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
         o_tile=(1, FLASH_WIDE_COLS // FLASH_KEY_THREADS),
         smem=FLASH_WIDE_SMEM, regs=FLASH_WIDE_REGS, blocks_per_sm=per_sm,
         q_tiles=q_tiles, kv_tiles=_cdiv(lk, FLASH_WIDE_KEYS), blocks=blocks,
-        waves=_cdiv(blocks, sm_count * per_sm), passes=passes,
+        waves=_cdiv(blocks, sm_count * per_sm), passes=passes, path="passes",
+    )
+
+
+def flash_resident_groups(d: int) -> int:
+    """G, the float4 column groups of O a thread of the resident path owns
+    at head width ``d`` (``res_groups`` in the .cu): the instantiation."""
+    return _cdiv(_cdiv(d, 4), 16)
+
+
+def flash_resident_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of a resident-path block (``res_smem_floats``
+    in the .cu): the Q and K tiles at a row stride of D rounded up to 8 plus
+    FLASH_PAD floats, the V tile, the probabilities [64, 68] and two row
+    vectors."""
+    w = _cdiv(d, 8) * 8
+    return 4 * ((FLASH_WIDE_RES_ROWS + FLASH_WIDE_RES_KEYS) * (w + FLASH_PAD)
+                + FLASH_WIDE_RES_KEYS * w + FLASH_WIDE_RES_ROWS * FLASH_WIDE_RES_P_STRIDE
+                + 2 * FLASH_WIDE_RES_ROWS)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_resident_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
+                               sm_count: int, regs: int) -> FlashPlan:
+    """The launch plan of the resident path (``FLASH_MAX_D < d <=
+    FLASH_WIDE_RES_MAX_D``) on a card of ``sm_count`` SMs, where ``regs``
+    are the registers a thread of the width's instantiation takes (read
+    off the card): one block of :data:`FLASH_WIDE_RES_THREADS` per (query
+    tile of :data:`FLASH_WIDE_RES_ROWS` rows, batch · head), taking all of
+    D. Pure arithmetic, checked again by the C entry point."""
+    if (min(b, h, lq, lk, sm_count, regs) < 1
+            or not FLASH_MAX_D < d <= FLASH_WIDE_RES_MAX_D):
+        raise ValueError(
+            f"no flash resident launch plan for b={b}, h={h}, lq={lq}, lk={lk}, d={d}, "
+            f"sm_count={sm_count}, regs={regs}"
+        )
+    threads, smem = FLASH_WIDE_RES_THREADS, flash_resident_smem_bytes(d)
+    per_sm = min(_SM_REGS // (threads * _cdiv(regs, 8) * 8),
+                 _SM_SMEM // (smem + _BLOCK_SMEM_RESERVE),
+                 _SM_MAX_BLOCKS, _SM_MAX_THREADS // threads)
+    q_tiles = _cdiv(lq, FLASH_WIDE_RES_ROWS)
+    blocks = b * h * q_tiles
+    return FlashPlan(
+        bq=FLASH_WIDE_RES_ROWS, bk=FLASH_WIDE_RES_KEYS, threads=threads,
+        s_tile=(4, 4), o_tile=(4, 4 * flash_resident_groups(d)), smem=smem, regs=regs,
+        blocks_per_sm=per_sm, q_tiles=q_tiles, kv_tiles=_cdiv(lk, FLASH_WIDE_RES_KEYS),
+        blocks=blocks, waves=_cdiv(blocks, sm_count * per_sm), path="resident",
     )
 
 
@@ -1238,16 +1300,43 @@ def flash_wide_kernel_attributes(device=None) -> dict:
     return dict(zip(("regs", "local_bytes", "static_smem"), out))
 
 
+def flash_resident_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of the resident path's instantiations, keyed by G
+    (:data:`FLASH_WIDE_RES_REGS`' keys), as ``cudaFuncGetAttributes``
+    reports them on the card."""
+    lib = _configured("flash_attention", _FLASH_ARGTYPES)
+    lib.pio_flash_attention_resident_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.pio_flash_attention_resident_attrs.restype = ctypes.c_int
+    out = (ctypes.c_int * (3 * len(FLASH_WIDE_RES_REGS)))()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "flash_attention_resident_attrs",
+                        lib.pio_flash_attention_resident_attrs(out))
+    keys = ("regs", "local_bytes", "static_smem")
+    return {g: dict(zip(keys, out[3 * n:3 * n + 3]))
+            for n, g in enumerate(FLASH_WIDE_RES_REGS)}
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_resident_regs(index: int) -> dict:
+    return {g: a["regs"] for g, a in flash_resident_kernel_attributes(index).items()}
+
+
 def flash_plan_for(q: torch.Tensor, k: torch.Tensor, causal: bool,
                    bq: Optional[int] = None) -> FlashPlan:
-    """:func:`flash_launch_plan` for these CUDA tensors, with the SM count
-    and the registers read off their card; for a head wider than
-    :data:`FLASH_MAX_D`, :func:`flash_wide_launch_plan` (picked by D
-    alone; ``bq`` does not apply)."""
+    """The launch plan for these CUDA tensors, with the SM count and the
+    registers read off their card, picked by the head width D alone: up
+    to :data:`FLASH_MAX_D` :func:`flash_launch_plan` (``bq`` forces its
+    query tile), up to :data:`FLASH_WIDE_RES_MAX_D`
+    :func:`flash_resident_launch_plan`, above it
+    :func:`flash_wide_launch_plan` (``bq`` does not apply to either)."""
     b, h, lq, d = q.shape
     index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    if d > FLASH_MAX_D:
+    if d > FLASH_WIDE_RES_MAX_D:
         return flash_wide_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index))
+    if d > FLASH_MAX_D:
+        regs = _flash_resident_regs(index)[flash_resident_groups(d)]
+        return flash_resident_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index), regs)
     regs = _flash_regs(index)
     return flash_launch_plan(b, h, lq, k.shape[2], d, bool(causal), _sm_count(index),
                              tuple(regs[(d, n)] for n in FLASH_BQS), bq)
@@ -1267,14 +1356,16 @@ def flash_attention_fwd(
     rules: causal ``q_pos >= k_pos`` counted from 0, finite -1e30 mask,
     ``o / max(l, 1e-30)``, causal tiles above the diagonal skipped),
     without its padding of L. CUDA tensors launch
-    ``csrc/flash_attention.cu`` by :func:`flash_launch_plan` (``plan``
+    ``csrc/flash_attention.cu`` by :func:`flash_plan_for` (``plan``
     overrides it: the C entry point still checks it); CPU tensors run
     :func:`flash_attention_fwd_reference`. Any head width D is taken: up
     to :data:`FLASH_MAX_D` on the tuned path, where on the card q, k and v
     are zero-padded to the next multiple of :data:`FLASH_D_MULTIPLE` (zero
     columns add nothing to q·k nor to the columns kept), the kernel scales
-    by the true D, and o is sliced back; wider heads on the wide-head path
-    (:func:`flash_wide_launch_plan`), unpadded, picked by D alone."""
+    by the true D, and o is sliced back; wider heads unpadded, up to
+    :data:`FLASH_WIDE_RES_MAX_D` on the resident path
+    (:func:`flash_resident_launch_plan`), above it on the passes path
+    (:func:`flash_wide_launch_plan`), picked by D alone."""
     _check_flash_inputs(q, k, v)
     device = q.device
     if device.type == "cpu":
@@ -1312,27 +1403,32 @@ def flash_attention_fwd(
 
 
 def _flash_attention_wide(q, k, v, causal, plan) -> torch.Tensor:
-    """The wide-head path of :func:`flash_attention_fwd` (CUDA tensors,
-    D above :data:`FLASH_MAX_D`): one launch of
-    ``pio_flash_attention_wide``, counted on the wrapper."""
+    """The paths of :func:`flash_attention_fwd` above :data:`FLASH_MAX_D`
+    (CUDA tensors): one launch of ``pio_flash_attention_resident`` or,
+    where the plan names the passes path, ``pio_flash_attention_wide``,
+    counted on the wrapper."""
     b, h, lq, d = q.shape
     device = q.device
     out = torch.empty_like(q)
     if plan is None:
         plan = flash_plan_for(q, k, causal)
+    if plan.path not in ("resident", "passes"):
+        raise ValueError(f"a {plan.path} plan does not take a head of width {d}")
     if plan.blocks > 2**31 - 1:
         raise ValueError(f"flash attention shape {tuple(q.shape)} is past the grid's limits")
     lib = _configured("flash_attention", _FLASH_ARGTYPES)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, lq, k.shape[2],
+            d, int(bool(causal)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.pio_flash_attention_wide(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, lq, k.shape[2], d, int(bool(causal)), plan.threads, plan.blocks,
-            stream,
-        )
+        if plan.path == "resident":
+            code = lib.pio_flash_attention_resident(*args, plan.threads, plan.smem,
+                                                    plan.blocks, stream)
+        else:
+            code = lib.pio_flash_attention_wide(*args, plan.threads, plan.blocks, stream)
     with _flash_launch_lock:
         flash_attention_fwd.launches += 1
-    _raise_on_error(lib, "flash_attention_wide", code)
+    _raise_on_error(lib, f"flash_attention_{plan.path}", code)
     return out
 
 

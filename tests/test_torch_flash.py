@@ -599,23 +599,31 @@ def test_wide_plan_refuses_the_tuned_widths(d):
 
 @pytest.mark.parametrize("d", [6, 64, 128, 129, 136, 256, 512])
 def test_the_path_is_picked_by_the_head_width_alone(d, monkeypatch):
-    """``flash_plan_for`` takes the wide-head plan exactly above 128,
+    """``flash_plan_for`` takes a wide-head plan exactly above 128 (the
+    resident path up to FLASH_WIDE_RES_MAX_D, the passes path above it),
     whatever the other dimensions are."""
     monkeypatch.setattr(cuda_kernels, "_sm_count", lambda index: 132)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(cuda_kernels, "_flash_regs",
                         lambda index: {key: 96 for key in FLASH_KERNELS})
+    monkeypatch.setattr(cuda_kernels, "_flash_resident_regs",
+                        lambda index: {g: 168 for g in cuda_kernels.FLASH_WIDE_RES_REGS})
     for b, h, lq, lk in ((64, 4, 64, 64), (1, 1, 1, 1), (8, 4, 2048, 2048)):
         q = torch.zeros((b, h, lq, d), device="meta")
         k = torch.zeros((b, h, lk, d), device="meta")
         d_k = -(-d // 8) * 8
-        if d > FLASH_MAX_D:
+        if d > cuda_kernels.FLASH_WIDE_RES_MAX_D:
             plan = cuda_kernels.flash_plan_for(q, k, True)
             assert plan.passes >= 2 and plan.threads == cuda_kernels.FLASH_WIDE_THREADS
+            assert plan.path == "passes"
+        elif d > FLASH_MAX_D:
+            plan = cuda_kernels.flash_plan_for(q, k, True)
+            assert plan.passes == 1 and plan.path == "resident"
+            assert plan.threads == cuda_kernels.FLASH_WIDE_RES_THREADS
         else:
             qp = torch.zeros((b, h, lq, d_k), device="meta")
             plan = cuda_kernels.flash_plan_for(qp, k, True)
-            assert plan.passes == 1 and plan.bq in FLASH_BQS
+            assert plan.passes == 1 and plan.bq in FLASH_BQS and plan.path == "tuned"
 
 
 def emulate_flash_wide(q, k, v, causal):
