@@ -568,7 +568,7 @@ __device__ __forceinline__ void res_scale(float* s_q, int stride, int D, bool ve
 
 // The resident path: one block per (query tile of kRRows, batch * head),
 // heaviest query tiles first (block b takes query tile q_tiles - 1 - b / BH
-// of head b % BH), taking all of D.
+// of head b % BH), taking all of D. G = res_groups(D) sizes O's registers.
 template <int G>
 __global__ void __launch_bounds__(kRThreads, 1)
     flash_attention_resident_kernel(const float* __restrict__ q,
@@ -577,29 +577,44 @@ __global__ void __launch_bounds__(kRThreads, 1)
                                     float* __restrict__ o, int BH, int Lq, int Lk,
                                     int D, int q_tiles, int causal, int vec,
                                     float qscale) {
-  constexpr int kKeysT = kRKeys / 4;  // keys a thread: kx + 4 t
-  constexpr int kColsT = 16 * G;      // O columns a thread: kx + 4 c
-  const int w = res_width(D), ds = w + kPad;
+  const int w = res_width(D), ds = w + kPad, d4 = (D + 3) / 4;
   extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;                    // [kRRows][ds], pre-scaled
-  float* s_k = s_q + kRRows * ds;       // [kRKeys][ds]
-  float* s_v = s_k + kRKeys * ds;       // [kRKeys][w]
-  float* s_p = s_v + kRKeys * w;        // [kRRows][kRPStride]
+  float* s_q = smem;                          // [kRRows][ds], pre-scaled
+  float* s_k = s_q + kRRows * ds;             // [kRKeys][ds]
+  float* s_v = s_k + kRKeys * ds;             // [kRKeys][w]
+  float* s_p = s_v + kRKeys * w;              // [kRRows][kRPStride]
+  float* s_corr = s_p + kRRows * kRPStride;   // [kRRows]: this tile's rescale
+  float* s_l = s_corr + kRRows;               // [kRRows]: l after the last tile
 
-  const int tid = threadIdx.x;
-  const int kx = tid % 4;
-  const int ry = tid / 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // S: warp w owns rows 8w .. 8w + 7; the thread (h, kx) = (lane / 16, lane %
+  // 16) rows s_row0 + i and keys kx + 16 t, so a row sits in one half-warp
+  const int kx = lane & 15;
+  const int s_row0 = warp * 8 + (lane >> 4) * 4;
+  // O: rows pr + 16 i and float4 column groups cx + 16 g; a warp takes 8 rows
+  // (one 16-byte probability load of 8 distinct rows) by 4 column groups (one
+  // 64-byte run of a V row)
+  const int pr = (warp >> 2) * 8 + (lane >> 2);
+  const int cx = (warp & 3) * 4 + (lane & 3);
   const int bh = static_cast<int>(blockIdx.x % static_cast<unsigned>(BH));
   const int q_tile = q_tiles - 1 - static_cast<int>(blockIdx.x / static_cast<unsigned>(BH));
   const int q0 = q_tile * kRRows;
-  const int q_pos = q0 + ry;
   const float* q_bh = q + static_cast<size_t>(bh) * Lq * D;
   const float* k_bh = k + static_cast<size_t>(bh) * Lk * D;
   const float* v_bh = v + static_cast<size_t>(bh) * Lk * D;
 
-  float m = kNegBig, l = 0.f, acc[kColsT];
+  float m[4], l[4];
+  float4 acc[4][G];
 #pragma unroll
-  for (int c = 0; c < kColsT; ++c) acc[c] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegBig;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  bool live[G];  // the column group holds columns below D
+#pragma unroll
+  for (int g = 0; g < G; ++g) live[g] = cx + 16 * g < d4;
   const int n_kv = (Lk + kRKeys - 1) / kRKeys;
   const int hi = causal ? min((q0 + kRRows + kRKeys - 1) / kRKeys, n_kv) : n_kv;
 
@@ -614,55 +629,125 @@ __global__ void __launch_bounds__(kRThreads, 1)
     if (j == 0) res_scale(s_q, ds, D, vec, qscale, tid);
     __syncthreads();
 
-    float s[kKeysT];
+    // S = Q K^T, 4 rows x 4 keys a thread, each score one FMA chain over D
+    float s[4][4];
 #pragma unroll
-    for (int t = 0; t < kKeysT; ++t) s[t] = 0.f;
-    for (int c = 0; c < w; ++c) {
-      const float qv = s_q[ry * ds + c];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int t = 0; t < kKeysT; ++t) s[t] = fmaf(qv, s_k[(kx + 4 * t) * ds + c], s[t]);
+      for (int t = 0; t < 4; ++t) s[i][t] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < w; c += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(s_q + (s_row0 + i) * ds + c);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        kv[t] = *reinterpret_cast<const float4*>(s_k + (kx + 16 * t) * ds + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          s[i][t] = fmaf(qv[i].x, kv[t].x, s[i][t]);
+          s[i][t] = fmaf(qv[i].y, kv[t].y, s[i][t]);
+          s[i][t] = fmaf(qv[i].z, kv[t].z, s[i][t]);
+          s[i][t] = fmaf(qv[i].w, kv[t].w, s[i][t]);
+        }
     }
-    float mx = kNegBig;
+    // the masks, the row's max and sum over its 16 threads (a fixed order:
+    // a thread's keys in t order, then four xor shuffles), p to shared memory
 #pragma unroll
-    for (int t = 0; t < kKeysT; ++t) {
-      const int k_pos = k0 + kx + 4 * t;
-      const bool keep = k_pos < Lk && (!causal || q_pos >= k_pos);
-      s[t] = keep ? s[t] : kNegBig;
-      mx = fmaxf(mx, s[t]);
+    for (int i = 0; i < 4; ++i) {
+      const int q_pos = q0 + s_row0 + i;
+      float mx = kNegBig;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int k_pos = k0 + kx + 16 * t;
+        const bool keep = k_pos < Lk && (!causal || q_pos >= k_pos);
+        s[i][t] = keep ? s[i][t] : kNegBig;
+        mx = fmaxf(mx, s[i][t]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float* p_row = s_p + (s_row0 + i) * kRPStride + kx;
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float p = expf(s[i][t] - m_new);
+        p_row[16 * t] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+      l[i] = fmaf(l[i], corr, sum);
+      m[i] = m_new;
+      if (kx == 0) s_corr[s_row0 + i] = corr;
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float sum = 0.f;
+    __syncthreads();  // P and the rescale factors are visible to every warp
+
+    // O = corr * O + P V, 4 rows x G float4 columns a thread, keys ascending
 #pragma unroll
-    for (int t = 0; t < kKeysT; ++t) {
-      const float p = expf(s[t] - m_new);
-      s_p[ry * kRPStride + kx + 4 * t] = p;
-      sum += p;
+    for (int i = 0; i < 4; ++i) {
+      const float corr = s_corr[pr + 16 * i];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        acc[i][g].x *= corr; acc[i][g].y *= corr; acc[i][g].z *= corr; acc[i][g].w *= corr;
+      }
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l = fmaf(l, corr, sum);
-    m = m_new;
+#pragma unroll 2
+    for (int kk = 0; kk < kRKeys; kk += 4) {
+      float pv[4][4];
 #pragma unroll
-    for (int c = 0; c < kColsT; ++c) acc[c] *= corr;
-    __syncwarp();  // a row's probabilities are written and read by one warp
-    for (int kk = 0; kk < kRKeys; ++kk) {
-      const float p = s_p[ry * kRPStride + kk];
+      for (int i = 0; i < 4; ++i) load_vec<4>(s_p + (pr + 16 * i) * kRPStride + kk, pv[i]);
 #pragma unroll
-      for (int c = 0; c < kColsT; ++c)
-        if (kx + 4 * c < w) acc[c] = fmaf(p, s_v[kk * w + kx + 4 * c], acc[c]);
+      for (int u = 0; u < 4; ++u) {
+        const float* v_row = s_v + (kk + u) * w + 4 * cx;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (!live[g]) continue;
+          const float4 vv = *reinterpret_cast<const float4*>(v_row + 64 * g);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][g].x = fmaf(pv[i][u], vv.x, acc[i][g].x);
+            acc[i][g].y = fmaf(pv[i][u], vv.y, acc[i][g].y);
+            acc[i][g].z = fmaf(pv[i][u], vv.z, acc[i][g].z);
+            acc[i][g].w = fmaf(pv[i][u], vv.w, acc[i][g].w);
+          }
+        }
+      }
     }
   }
 
-  if (q_pos < Lq) {
-    const float denom = fmaxf(l, 1e-30f);
+  if (kx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s_l[s_row0 + i] = l[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q_pos = q0 + pr + 16 * i;
+    if (q_pos >= Lq) continue;
+    const float denom = fmaxf(s_l[pr + 16 * i], 1e-30f);
     float* o_row = o + (static_cast<size_t>(bh) * Lq + q_pos) * D;
 #pragma unroll
-    for (int c = 0; c < kColsT; ++c) {
-      const int col = kx + 4 * c;
-      if (col < D) o_row[col] = acc[c] / denom;
+    for (int g = 0; g < G; ++g) {
+      if (!live[g]) continue;
+      const int c = 4 * (cx + 16 * g);
+      const float out[4] = {acc[i][g].x / denom, acc[i][g].y / denom, acc[i][g].z / denom,
+                            acc[i][g].w / denom};
+      if (vec) {
+        store_vec<4>(o_row + c, out);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (c + x < D) o_row[c + x] = out[x];
+      }
     }
   }
 }
