@@ -618,16 +618,19 @@ __global__ void __launch_bounds__(kRThreads, 1)
   const int n_kv = (Lk + kRKeys - 1) / kRKeys;
   const int hi = causal ? min((q0 + kRRows + kRKeys - 1) / kRKeys, n_kv) : n_kv;
 
+  // the Q tile and key tile 0 in flight together
+  res_copy(q_bh + static_cast<size_t>(q0) * D, s_q, kRRows, ds, Lq - q0, D, vec, tid);
+  res_copy(k_bh, s_k, kRKeys, ds, Lk, D, vec, tid);
+  copies_commit();
   for (int j = 0; j < hi; ++j) {
     const int k0 = j * kRKeys;
-    __syncthreads();  // every thread is done with the last tile's K, V and P
-    if (j == 0) res_copy(q_bh + static_cast<size_t>(q0) * D, s_q, kRRows, ds, Lq - q0, D, vec, tid);
-    res_copy(k_bh + static_cast<size_t>(k0) * D, s_k, kRKeys, ds, Lk - k0, D, vec, tid);
+    copies_wait();  // this thread's copies of K tile j (and at j = 0 of Q) landed
+    if (j == 0) res_scale(s_q, ds, D, vec, qscale, tid);
+    // K tile j is visible to every thread, and every thread is done with
+    // tile j - 1's V and P: V tile j is copied while QK^T of tile j runs
+    __syncthreads();
     res_copy(v_bh + static_cast<size_t>(k0) * D, s_v, kRKeys, w, Lk - k0, D, vec, tid);
     copies_commit();
-    copies_wait();
-    if (j == 0) res_scale(s_q, ds, D, vec, qscale, tid);
-    __syncthreads();
 
     // S = Q K^T, 4 rows x 4 keys a thread, each score one FMA chain over D
     float s[4][4];
@@ -689,7 +692,16 @@ __global__ void __launch_bounds__(kRThreads, 1)
       m[i] = m_new;
       if (kx == 0) s_corr[s_row0 + i] = corr;
     }
-    __syncthreads();  // P and the rescale factors are visible to every warp
+    copies_wait();  // this thread's copies of V tile j landed
+    // P, the rescale factors and V tile j are visible to every warp, and
+    // every thread is done with K tile j: K tile j + 1 is copied while PV of
+    // tile j runs
+    __syncthreads();
+    if (j + 1 < hi) {
+      res_copy(k_bh + static_cast<size_t>(k0 + kRKeys) * D, s_k, kRKeys, ds,
+               Lk - k0 - kRKeys, D, vec, tid);
+      copies_commit();
+    }
 
     // O = corr * O + P V, 4 rows x G float4 columns a thread, keys ascending
 #pragma unroll
