@@ -1056,7 +1056,7 @@ FLASH_WIDE_RES_THREADS, FLASH_WIDE_RES_P_STRIDE, FLASH_WIDE_RES_MAX_D = 256, 68,
 #: the resident path's instantiations, by G = ceil(ceil(D / 4) / 16), the
 #: float4 column groups of O a thread owns, and the registers a thread of each
 #: takes on the card (chip_smoke.py holds the card's count to these)
-FLASH_WIDE_RES_REGS = {3: 188, 4: 206, 5: 222}
+FLASH_WIDE_RES_REGS = {3: 168, 4: 234, 5: 254}
 #: every instantiation, in the order ``pio_flash_attention_attrs`` reports them
 FLASH_KERNELS = tuple((d, bq) for d in range(FLASH_D_MULTIPLE, FLASH_MAX_D + 1,
                                              FLASH_D_MULTIPLE) for bq in FLASH_BQS)
