@@ -587,14 +587,10 @@ __global__ void __launch_bounds__(kRThreads, 1)
   float* s_l = s_corr + kRRows;               // [kRRows]: l after the last tile
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // S: the block's two halves split D (half 0 columns [0, w / 2), half 1 the
-  // rest); in each, warp w owns rows 16w .. 16w + 15, and the thread (rt, kx)
-  // = (lane / 8, lane % 8) rows s_row0 + i and keys kx + 8 t, so a row sits
-  // in eight lanes of one warp
-  const bool upper = tid >= kRThreads / 2;
-  const int kx = lane & 7;
-  const int s_row0 = (warp & 3) * 16 + (lane >> 3) * 4;
-  const int c_lo = upper ? w / 2 : 0, c_hi = upper ? w : w / 2;
+  // S: warp w owns rows 8w .. 8w + 7; the thread (h, kx) = (lane / 16, lane %
+  // 16) rows s_row0 + i and keys kx + 16 t, so a row sits in one half-warp
+  const int kx = lane & 15;
+  const int s_row0 = warp * 8 + (lane >> 4) * 4;
   // O: rows pr + 16 i and float4 column groups cx + 16 g; a warp takes 8 rows
   // (one 16-byte probability load of 8 distinct rows) by 4 column groups (one
   // 64-byte run of a V row)
@@ -640,92 +636,76 @@ __global__ void __launch_bounds__(kRThreads, 1)
     res_copy(v_bh + static_cast<size_t>(k0) * D, s_v, kRKeys, w, Lk - k0, D, vec, tid);
     copies_commit();
 
-    // S = Q K^T over this half's columns, 4 rows x 8 keys a thread, each
-    // partial score one FMA chain in ascending column order
-    float s[4][8];
+    // S = Q K^T, 4 rows x 4 keys a thread, each score one FMA chain over D
+    float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int t = 0; t < 8; ++t) s[i][t] = 0.f;
+      for (int t = 0; t < 4; ++t) s[i][t] = 0.f;
 #pragma unroll 2
-    for (int c = c_lo; c < c_hi; c += 4) {
-      float4 qv[4], kv[8];
+    for (int c = 0; c < w; c += 4) {
+      float4 qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         qv[i] = *reinterpret_cast<const float4*>(s_q + (s_row0 + i) * ds + c);
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
-        kv[t] = *reinterpret_cast<const float4*>(s_k + (kx + 8 * t) * ds + c);
+      for (int t = 0; t < 4; ++t)
+        kv[t] = *reinterpret_cast<const float4*>(s_k + (kx + 16 * t) * ds + c);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
+        for (int t = 0; t < 4; ++t) {
           s[i][t] = fmaf(qv[i].x, kv[t].x, s[i][t]);
           s[i][t] = fmaf(qv[i].y, kv[t].y, s[i][t]);
           s[i][t] = fmaf(qv[i].z, kv[t].z, s[i][t]);
           s[i][t] = fmaf(qv[i].w, kv[t].w, s[i][t]);
         }
     }
-    // the upper half hands its partial scores to the lower half through the
-    // probability rows
-    if (upper) {
+    // the masks, the row's max and sum over its 16 threads (a fixed order:
+    // a thread's keys in t order, then four xor shuffles), p to shared memory
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
+      const int q_pos = q0 + s_row0 + i;
+      float mx = kNegBig;
 #pragma unroll
-        for (int t = 0; t < 8; ++t) s_p[(s_row0 + i) * kRPStride + kx + 8 * t] = s[i][t];
+      for (int t = 0; t < 4; ++t) {
+        const int k_pos = k0 + kx + 16 * t;
+        const bool keep = k_pos < Lk && (!causal || q_pos >= k_pos);
+        s[i][t] = keep ? s[i][t] : kNegBig;
+        mx = fmaxf(mx, s[i][t]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float* p_row = s_p + (s_row0 + i) * kRPStride + kx;
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float p = expf(s[i][t] - m_new);
+        p_row[16 * t] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+      l[i] = fmaf(l[i], corr, sum);
+      m[i] = m_new;
+      if (kx == 0) s_corr[s_row0 + i] = corr;
     }
-    // the partial scores are visible, and every thread is done with K tile
-    // j: K tile j + 1 is copied while the softmax and PV of tile j run
+    copies_wait();  // this thread's copies of V tile j landed
+    // P, the rescale factors and V tile j are visible to every warp, and
+    // every thread is done with K tile j: K tile j + 1 is copied while PV of
+    // tile j runs
     __syncthreads();
     if (j + 1 < hi) {
       res_copy(k_bh + static_cast<size_t>(k0 + kRKeys) * D, s_k, kRKeys, ds,
                Lk - k0 - kRKeys, D, vec, tid);
       copies_commit();
     }
-    // the lower half: the two partial sums (lower + upper), the masks, the
-    // row's max and sum over its 8 threads (a fixed order: a thread's keys in
-    // t order, then three xor shuffles), p over the upper half's partials
-    if (!upper) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q_pos = q0 + s_row0 + i;
-        float* p_row = s_p + (s_row0 + i) * kRPStride + kx;
-        float mx = kNegBig;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int k_pos = k0 + kx + 8 * t;
-          const bool keep = k_pos < Lk && (!causal || q_pos >= k_pos);
-          s[i][t] = keep ? s[i][t] + p_row[8 * t] : kNegBig;
-          mx = fmaxf(mx, s[i][t]);
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-        const float m_new = fmaxf(m[i], mx);
-        const float corr = expf(m[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const float p = expf(s[i][t] - m_new);
-          p_row[8 * t] = p;
-          sum += p;
-        }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-        l[i] = fmaf(l[i], corr, sum);
-        m[i] = m_new;
-        if (kx == 0) s_corr[s_row0 + i] = corr;
-      }
-    }
-    // this thread's copies of V tile j landed (K tile j + 1's may still fly)
-    if (j + 1 < hi) {
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      copies_wait();
-    }
-    // P, the rescale factors and V tile j are visible to every warp
-    __syncthreads();
 
     // O = corr * O + P V, 4 rows x G float4 columns a thread, keys ascending
 #pragma unroll
@@ -759,7 +739,7 @@ __global__ void __launch_bounds__(kRThreads, 1)
     }
   }
 
-  if (!upper && kx == 0) {
+  if (kx == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) s_l[s_row0 + i] = l[i];
   }
