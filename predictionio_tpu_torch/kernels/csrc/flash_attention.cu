@@ -32,15 +32,50 @@
 // 8 to kMaxD = 128; Lq, Lk >= 1. The wrapper
 // (ops/cuda_kernels.py::flash_attention_fwd) takes any head width: from 1 to
 // 128 it zero-pads q, k and v to the next multiple of 8, passes the true width
-// for the scale, and slices o back; above 128 it takes the wide-head path
-// below (pio_flash_attention_wide), unpadded. It raises on anything else.
+// for the scale, and slices o back; above 128, unpadded, it takes the resident
+// path below up to kRMaxD = 272 (pio_flash_attention_resident) and the passes
+// path above it (pio_flash_attention_wide), picked by D alone. It raises on
+// anything else.
 //
-// Wide-head path (D > kMaxD), the first version. Of the two designs at hand
-// (O's columns in passes with the scores recomputed each pass, or one warp a
-// query row with O spread over its lanes) it takes the passes: a thread's O
-// columns stay a fixed 16 registers whatever D is, so one instantiation takes
-// every width, where a warp a row needs D / 32 registers of O a lane, one
-// instantiation a width, and runs out of registers as D grows. A block takes
+// Resident path (kMaxD < D <= kRMaxD). A block takes kRRows = 64 query rows of
+// one (batch * head) and all of D, with kRThreads = 256 threads, walking the
+// keys in tiles of kRKeys = 64. What is hard: O's registers grow with D, and
+// the Q, K and V tiles with it (a [64][D] tile is 64 KB at D = 256), so the
+// tuned path's two K/V buffers do not fit beside a resident Q tile. Design:
+//   - the Q tile is copied once, scaled by 1/sqrt(D) of the true width, and
+//     stays in shared memory across all key tiles; each tile's scores are
+//     computed once and serve every output column;
+//   - register micro-tiles: S in 4 rows x 4 keys a thread (rows s_row0 + i,
+//     keys kx + 16 t; a row in one half-warp, so its max and sum take four
+//     xor shuffles in a fixed order), with 16-byte loads along D (8 loads a
+//     64 FMAs); O in 4 rows x G float4 column groups (rows pr + 16 i, groups
+//     cx + 16 g, a warp 8 rows by 4 groups), G = res_groups(D) an
+//     instantiation (3, 4, 5: D up to 192, 256, 272), so O stays in registers
+//     (4 P and 4 G V loads a 64 G FMAs);
+//   - one K and one V buffer, copied ahead in turn with cp.async: V of tile j
+//     while QK^T of tile j runs, K of tile j + 1 while PV of tile j runs, two
+//     barriers a tile; the rescale factor of each row and, at the end, l pass
+//     from the S threads to the O threads through shared memory;
+//   - rows in shared memory are D rounded up to 8 floats (zeros past D; a row
+//     of w + 4 floats is an odd number of 16-byte groups, so the keys of one
+//     load fall in distinct banks), copied 16 bytes at a time when D is a
+//     multiple of 4 and the tensors 16-byte aligned, else 4 bytes at a time.
+// Shared memory is 768 * res_width(D) + 19,968 bytes: 211.5 KB at D = 256, so
+// one block an SM, and kRMaxD = 272 is the widest head that fits. The same
+// rules as the tuned path: the finite -1e30 mask on every tile, key tiles
+// ascending from tile 0 and causal tiles above the diagonal skipped, a masked
+// key's V row zero, o / max(l, 1e-30), heaviest query tiles first, fp32 FMAs
+// on the CUDA cores, no atomics. Bound at (8, 4, 2048, 256): 137 GFLOP not
+// causal, 2.05 ms at 67 TFLOP/s; it is set by operations at every timed shape
+// but the sequence recommender's training batch, where bytes set it.
+//
+// Passes path (D > kRMaxD), the first wide-head design. Of the two designs
+// at hand (O's columns in passes with the scores recomputed each pass, or one
+// warp a query row with O spread over its lanes) it takes the passes: a
+// thread's O columns stay a fixed 16 registers whatever D is, so one
+// instantiation takes every width, where a warp a row needs D / 32 registers
+// of O a lane, one instantiation a width, and runs out of registers as D
+// grows. A block takes
 // kWRows = 32 query rows of one (batch * head) and one pass of at most kWCols
 // = 128 of O's columns (a grid dimension: the passes of a query tile run as
 // separate blocks), with kWThreads = 256 threads: thread (ry, kx) = (tid / 8,
@@ -55,7 +90,8 @@
 // 0, o / max(l, 1e-30), q scaled by 1/sqrt(D) before the dot, heaviest query
 // tiles first; no atomics, and every register array is indexed by constants.
 // Its cost over the tuned path: QK^T once per pass (twice at D = 256), one
-// shared load per FMA in QK^T, and 32-key tiles; speed work comes later.
+// shared load per FMA in QK^T, and 32-key tiles; the resident path took its
+// place wherever its tiles fit.
 //
 // Design. A block takes BQ = 64 or 128 query rows of one (batch * head) and
 // walks the keys in tiles of kTile = 64, with 2 * BQ threads. Thread (ry, kx)
@@ -114,7 +150,7 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;        // dynamic shared memory a block may opt into
 constexpr int kSmSmem = 233472;         // shared memory of an SM, bytes
 constexpr int kBlockSmemReserve = 1024;  // what the card keeps of it a block
-// the wide-head path (D > kMaxD)
+// the passes path (D > kRMaxD)
 constexpr int kWRows = 32;     // query rows a block
 constexpr int kWKeys = 32;     // keys a tile
 constexpr int kWThreads = 256;  // kWRows x kKeyThreads
@@ -393,7 +429,7 @@ __global__ void __launch_bounds__(2 * BQ, (min_blocks<D, BQ>()))
   }
 }
 
-// The wide-head path: one block per (query tile, batch * head, pass), block
+// The passes path: one block per (query tile, batch * head, pass), block
 // index (q_tiles - 1 - q_tile) * BH * passes + bh * passes + pass.
 __global__ void __launch_bounds__(kWThreads, kWMinBlocks)
     flash_attention_wide_kernel(const float* __restrict__ q,
@@ -577,7 +613,7 @@ __global__ void __launch_bounds__(kRThreads, 1)
                                     float* __restrict__ o, int BH, int Lq, int Lk,
                                     int D, int q_tiles, int causal, int vec,
                                     float qscale) {
-  const int w = res_width(D), ds = w + kPad, d4 = (D + 3) / 4;
+  const int w = res_width(D), ds = w + kPad;
   extern __shared__ __align__(16) float smem[];
   float* s_q = smem;                          // [kRRows][ds], pre-scaled
   float* s_k = s_q + kRRows * ds;             // [kRKeys][ds]
@@ -612,13 +648,6 @@ __global__ void __launch_bounds__(kRThreads, 1)
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  // the column groups that hold columns below D, the ones stored. PV runs
-  // on every group without a test: a branch around each group's load left
-  // its latency exposed (PV 1.5x slower on the card); a dead group reads
-  // zeros or a neighbouring row inside shared memory, and is never stored.
-  bool live[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) live[g] = cx + 16 * g < d4;
   const int n_kv = (Lk + kRKeys - 1) / kRKeys;
   const int hi = causal ? min((q0 + kRRows + kRKeys - 1) / kRKeys, n_kv) : n_kv;
 
@@ -707,7 +736,11 @@ __global__ void __launch_bounds__(kRThreads, 1)
       copies_commit();
     }
 
-    // O = corr * O + P V, 4 rows x G float4 columns a thread, keys ascending
+    // O = corr * O + P V, 4 rows x G float4 columns a thread, keys ascending.
+    // Every column group runs, also one that starts at or past D: a branch
+    // around each group's load left its latency exposed (PV 1.5x slower on
+    // the card); such a group reads zeros or a neighbouring row inside
+    // shared memory, and is never stored.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float corr = s_corr[pr + 16 * i];
@@ -752,8 +785,8 @@ __global__ void __launch_bounds__(kRThreads, 1)
     float* o_row = o + (static_cast<size_t>(bh) * Lq + q_pos) * D;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      if (!live[g]) continue;
       const int c = 4 * (cx + 16 * g);
+      if (c >= D) continue;
       const float out[4] = {acc[i][g].x / denom, acc[i][g].y / denom, acc[i][g].z / denom,
                             acc[i][g].w / denom};
       if (vec) {
@@ -876,8 +909,9 @@ extern "C" int pio_flash_attention(const void* q, const void* k, const void* v,
       static_cast<cudaStream_t>(stream));
 }
 
-// Launches the wide-head path (D > kMaxD) on `stream` and returns
-// cudaGetLastError() (0 = ok). Device pointers: q [BH, Lq, D], k and v
+// Launches the passes path on `stream` (it takes any D > kMaxD; the wrapper
+// picks it above kRMaxD, and on request to compare it with the resident
+// path) and returns cudaGetLastError() (0 = ok). Device pointers: q [BH, Lq, D], k and v
 // [BH, Lk, D], o [BH, Lq, D], f32 and contiguous, unpadded; q is scaled by
 // 1/sqrt(D). The plan (ops/cuda_kernels.py::flash_wide_launch_plan): threads
 // a block (kWThreads) and blocks (ceil(Lq / kWRows) * BH * ceil(D / kWCols)).
@@ -907,7 +941,7 @@ extern "C" int pio_flash_attention_wide(const void* q, const void* k,
 }
 
 // Registers a thread, local (spilled) bytes and static shared memory of the
-// wide-head kernel, three ints. Returns the error of cudaFuncGetAttributes.
+// passes kernel, three ints. Returns the error of cudaFuncGetAttributes.
 extern "C" int pio_flash_attention_wide_attrs(int* out) {
   cudaFuncAttributes at;
   const cudaError_t err = cudaFuncGetAttributes(

@@ -21,10 +21,10 @@ Counterpart of the single-device half of
   device, so the template's default (``"xla"``) reaches the kernel.
 
 Any head width D is taken: up to 128 the kernel's wrapper pads D to a
-multiple of 8 on the card and scales by the true D, and wider heads take
-the kernel's wide-head path, unpadded. Ring and Ulysses attention (sequence parallelism over a mesh) wait for
-``torch.distributed`` (ROADMAP.md, queue 1 item 11); asking for them
-raises.
+multiple of 8 on the card and scales by the true D; wider heads take, unpadded,
+the kernel's resident path up to 272 and its passes path above. Ring and
+Ulysses attention (sequence parallelism over a mesh) wait for
+``torch.distributed`` (ROADMAP.md, queue 1 item 11); asking for them raises.
 """
 
 from __future__ import annotations

@@ -176,7 +176,7 @@ _WIDE_ARGTYPES = {
     "spd_solve": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
-#: the resident wide-head attention path's entry (``pio_flash_attention_resident``)
+#: the resident attention path's entry (``pio_flash_attention_resident``)
 _FLASH_RESIDENT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
@@ -1024,7 +1024,8 @@ FLASH_BQS = (64, 128)
 #: the widest head D of the tuned path (kMaxD). It is built at the multiples
 #: of FLASH_D_MULTIPLE; the wrapper takes any D from 1 to FLASH_MAX_D there
 #: and zero-pads q, k and v up to the next multiple. Wider heads take the
-#: wide-head path, unpadded.
+#: resident path up to FLASH_WIDE_RES_MAX_D and the passes path above it,
+#: unpadded.
 FLASH_MAX_D = 128
 FLASH_D_MULTIPLE = 8
 #: query tiles of one (batch · head) (kMaxQTiles); the grid is one-dimensional
@@ -1152,11 +1153,12 @@ def flash_launch_plan(b: int, h: int, lq: int, lk: int, d: int, causal: bool,
 @functools.lru_cache(maxsize=256)
 def flash_wide_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
                            sm_count: int) -> FlashPlan:
-    """The launch plan of the wide-head path (``d`` above
-    :data:`FLASH_MAX_D`): one block of :data:`FLASH_WIDE_THREADS` per
-    (query tile of :data:`FLASH_WIDE_ROWS` rows, batch · head, pass of
-    :data:`FLASH_WIDE_COLS` of O's columns). Pure arithmetic, checked
-    again by the C entry point."""
+    """The launch plan of the passes path (``d`` above
+    :data:`FLASH_WIDE_RES_MAX_D`, or any ``d`` above :data:`FLASH_MAX_D`
+    to compare it with the resident path): one block of
+    :data:`FLASH_WIDE_THREADS` per (query tile of :data:`FLASH_WIDE_ROWS`
+    rows, batch · head, pass of :data:`FLASH_WIDE_COLS` of O's columns).
+    Pure arithmetic, checked again by the C entry point."""
     if min(b, h, lq, lk, sm_count) < 1 or d <= FLASH_MAX_D:
         raise ValueError(
             f"no flash wide launch plan for b={b}, h={h}, lq={lq}, lk={lk}, d={d}, "
@@ -1288,7 +1290,7 @@ def _flash_regs(index: int) -> dict:
 
 def flash_wide_kernel_attributes(device=None) -> dict:
     """Registers per thread, spilled (local) bytes and static shared
-    memory of the wide-head kernel, as ``cudaFuncGetAttributes`` reports
+    memory of the passes kernel, as ``cudaFuncGetAttributes`` reports
     them on the card."""
     lib = _configured("flash_attention", _FLASH_ARGTYPES)
     lib.pio_flash_attention_wide_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
