@@ -499,24 +499,29 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time(torch, fn, iters: int = 30, attempts: int = 3) -> dict:
+# traces taken of one call before its device time is given up on
+PROFILE_ATTEMPTS = 3
+
+
+def device_time(torch, fn, iters: int = 30, ops_per_call: int = 0) -> dict:
     """Device time of one ``fn`` call (``ms``): the time the card was busy
     (:func:`device_profile`) over ``iters`` calls, divided by ``iters``,
     with the device ops it ran per call. Unlike :func:`time_ms` it leaves
     out the host's time to launch the work, which sets the pace of a call
     whose kernels take a few microseconds. The profiler has returned an
-    empty device trace for calls that ran kernels (``cholesky_solve``), so
-    an empty profile is taken again, up to ``attempts`` times, before it
-    fails."""
+    empty device trace for calls that ran kernels (``cholesky_solve``), and
+    traces missing some of a call's launches (:func:`traced_device_ms`), so
+    a trace with no device op, or with fewer than ``ops_per_call`` a call,
+    is taken again, up to ``PROFILE_ATTEMPTS`` times, before it fails."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for _ in range(PROFILE_ATTEMPTS):
         prof = device_profile(torch, lambda: [fn() for _ in range(iters)], top=3)
-        if prof["device_busy_ms"] is not None:
+        if prof["device_busy_ms"] is not None and prof["device_ops"] >= ops_per_call * iters:
             return {"ms": prof["device_busy_ms"] / iters,
                     "ops_per_call": prof["device_ops"] / iters,
                     "top_device_ops": prof["top_device_ops"]}
-    raise AssertionError("the profiler saw no device activity")
+    raise AssertionError("the profiler saw fewer device ops than the call launches")
 
 
 def device_profile(torch, fn, top: int = 6) -> dict:
@@ -727,22 +732,17 @@ def phase_kernel(torch, dev, rng) -> dict:
     return main
 
 
-def traced_device_ms(torch, fn, iters: int, ops_per_call: int = 1, attempts: int = 3):
+def traced_device_ms(torch, fn, iters: int, ops_per_call: int = 1):
     """:func:`device_time`'s ms for a call of several milliseconds, or None
-    (not measured) when, in each of ``attempts`` traces, the profiler held
-    fewer device ops a call than the call launches: at these shapes it has
-    dropped some of the top-k launches made through ``ctypes`` (0.405 ms
-    read for a 13.4 ms call), once all of them, and late in a long run most
-    of the attention and SDPA ops of a trace. The CUDA-event time stands
-    beside it."""
-    for _ in range(attempts):
-        try:
-            on_card = device_time(torch, fn, iters)
-        except AssertionError:  # the trace held no device op at all
-            continue
-        if on_card["ops_per_call"] >= ops_per_call:
-            return on_card["ms"]
-    return None
+    (not measured) when no trace held as many device ops a call as the call
+    launches: at these shapes the profiler has dropped some of the top-k
+    launches made through ``ctypes`` (0.405 ms read for a 13.4 ms call),
+    once all of them, and late in a long run most of the attention and SDPA
+    ops of a trace. The CUDA-event time stands beside it."""
+    try:
+        return device_time(torch, fn, iters, ops_per_call)["ms"]
+    except AssertionError:
+        return None
 
 
 def topk_large_batches(torch, dev, rng) -> dict:

@@ -152,15 +152,10 @@ def _sm_count(index: int) -> int:
 def _configured(name: str, argtypes) -> ctypes.CDLL:
     """Kernel library ``name`` with its entry points' ctypes signatures set
     (every pointer and the stream as ``c_void_p``, ints as ``c_int``): its
-    ``pio_<name>``, where :data:`_WIDE_ARGTYPES` lists one its
-    ``pio_<name>_wide``, and flash attention's ``pio_flash_attention_resident``."""
+    ``pio_<name>`` and the entries :data:`_EXTRA_ENTRIES` lists for it."""
     lib = build.load_library(name)
     if not getattr(lib, "_pio_configured", False):
-        entries = {f"pio_{name}": argtypes}
-        if name in _WIDE_ARGTYPES:
-            entries[f"pio_{name}_wide"] = _WIDE_ARGTYPES[name]
-        if name == "flash_attention":
-            entries["pio_flash_attention_resident"] = _FLASH_RESIDENT_ARGTYPES
+        entries = {f"pio_{name}": argtypes, **_EXTRA_ENTRIES.get(name, {})}
         for entry_name, types in entries.items():
             entry = getattr(lib, entry_name)
             entry.argtypes = types
@@ -171,13 +166,25 @@ def _configured(name: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
-#: the wide paths' entries (``pio_<name>_wide``), declared with the rest
-_WIDE_ARGTYPES = {
-    "spd_solve": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+_ATTRS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
+#: each library's entries beside ``pio_<name>``: the wide paths, the
+#: resident attention path and the ``cudaFuncGetAttributes`` reports
+_EXTRA_ENTRIES = {
+    "gramian_fused": {"pio_gramian_fused_attrs": _ATTRS_ARGTYPES},
+    "spd_solve": {
+        "pio_spd_solve_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "pio_spd_solve_attrs": _ATTRS_ARGTYPES,
+    },
+    "flash_attention": {
+        "pio_flash_attention_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        + [ctypes.c_void_p],
+        "pio_flash_attention_resident": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        + [ctypes.c_void_p],
+        "pio_flash_attention_attrs": _ATTRS_ARGTYPES,
+        "pio_flash_attention_wide_attrs": _ATTRS_ARGTYPES,
+        "pio_flash_attention_resident_attrs": _ATTRS_ARGTYPES,
+    },
 }
-#: the resident attention path's entry (``pio_flash_attention_resident``)
-_FLASH_RESIDENT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _raise_on_error(lib: ctypes.CDLL, name: str, code: int) -> None:
@@ -783,8 +790,6 @@ def gramian_kernel_attributes(device=None) -> dict:
     ``cudaFuncGetAttributes`` reports them on the card."""
     lib = _configured("gramian_fused", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                       + [ctypes.c_void_p] * 4)
-    lib.pio_gramian_fused_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.pio_gramian_fused_attrs.restype = ctypes.c_int
     out = (ctypes.c_int * (3 * len(GRAMIAN_KERNELS)))()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
         _raise_on_error(lib, "gramian_fused_attrs", lib.pio_gramian_fused_attrs(out))
@@ -992,8 +997,6 @@ def spd_kernel_attributes(device=None) -> dict:
     memory of every solve kernel (:data:`SPD_KERNELS`), as
     ``cudaFuncGetAttributes`` reports them on the card."""
     lib = _configured("spd_solve", _SPD_ARGTYPES)
-    lib.pio_spd_solve_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.pio_spd_solve_attrs.restype = ctypes.c_int
     out = (ctypes.c_int * (3 * len(SPD_KERNELS)))()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
         _raise_on_error(lib, "spd_solve_attrs", lib.pio_spd_solve_attrs(out))
@@ -1273,8 +1276,6 @@ def flash_kernel_attributes(device=None) -> dict:
     memory of every instantiation (:data:`FLASH_KERNELS`, keyed ``(d,
     bq)``), as ``cudaFuncGetAttributes`` reports them on the card."""
     lib = _configured("flash_attention", _FLASH_ARGTYPES)
-    lib.pio_flash_attention_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.pio_flash_attention_attrs.restype = ctypes.c_int
     out = (ctypes.c_int * (3 * len(FLASH_KERNELS)))()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
         _raise_on_error(lib, "flash_attention_attrs", lib.pio_flash_attention_attrs(out))
@@ -1293,8 +1294,6 @@ def flash_wide_kernel_attributes(device=None) -> dict:
     memory of the passes kernel, as ``cudaFuncGetAttributes`` reports
     them on the card."""
     lib = _configured("flash_attention", _FLASH_ARGTYPES)
-    lib.pio_flash_attention_wide_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.pio_flash_attention_wide_attrs.restype = ctypes.c_int
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
         _raise_on_error(lib, "flash_attention_wide_attrs",
@@ -1308,8 +1307,6 @@ def flash_resident_kernel_attributes(device=None) -> dict:
     (:data:`FLASH_WIDE_RES_REGS`' keys), as ``cudaFuncGetAttributes``
     reports them on the card."""
     lib = _configured("flash_attention", _FLASH_ARGTYPES)
-    lib.pio_flash_attention_resident_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.pio_flash_attention_resident_attrs.restype = ctypes.c_int
     out = (ctypes.c_int * (3 * len(FLASH_WIDE_RES_REGS)))()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
         _raise_on_error(lib, "flash_attention_resident_attrs",

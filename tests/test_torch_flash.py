@@ -577,7 +577,8 @@ def test_wide_constants_are_the_kernels():
         + cuda_kernels.FLASH_WIDE_ROWS * (cuda_kernels.FLASH_WIDE_KEYS + 1))
     assert 'extern "C" int pio_flash_attention_wide(' in SRC
     params = re.search(r'extern "C" int pio_flash_attention_wide\(([^)]*)\)', SRC).group(1)
-    assert len(params.split(",")) == len(cuda_kernels._WIDE_ARGTYPES["flash_attention"])
+    assert len(params.split(",")) == len(
+        cuda_kernels._EXTRA_ENTRIES["flash_attention"]["pio_flash_attention_wide"])
 
 
 @pytest.mark.parametrize("sm_count", [132, 114])

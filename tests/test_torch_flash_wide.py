@@ -58,7 +58,18 @@ def test_constants_are_the_kernels():
             "         kRRows * kRPStride + 2 * kRRows;") in SRC
     assert "return ((d + 3) / 4 + 15) / 16;" in SRC
     params = re.search(r'extern "C" int pio_flash_attention_resident\(([^)]*)\)', SRC).group(1)
-    assert len(params.split(",")) == len(ck._FLASH_RESIDENT_ARGTYPES)
+    assert len(params.split(",")) == len(ck._EXTRA_ENTRIES["flash_attention"]["pio_flash_attention_resident"])
+
+
+@pytest.mark.parametrize("lib,entry", [(lib, entry) for lib, entries in ck._EXTRA_ENTRIES.items()
+                                       for entry in entries])
+def test_every_extra_entry_is_declared_with_its_sources_arity(lib, entry):
+    """``_configured`` declares each entry once for the library: its
+    argument count is the C signature's."""
+    src = (pathlib.Path(ck.__file__).parent.parent / "kernels" / "csrc"
+           / f"{lib}.cu").read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
+    assert len(params.split(",")) == len(ck._EXTRA_ENTRIES[lib][entry])
 
 
 def _c_entry_accepts(plan, bh, lq, d):

@@ -321,7 +321,7 @@ def test_wide_constants_are_the_kernels():
     assert 65536 // (_const("kWideThreads") * _const("kWideMinBlocks")) \
         == cuda_kernels.SPD_WIDE_REGS
     params = re.search(r'extern "C" int pio_spd_solve_wide\(([^)]*)\)', SRC).group(1)
-    assert len(params.split(",")) == len(cuda_kernels._WIDE_ARGTYPES["spd_solve"])
+    assert len(params.split(",")) == len(cuda_kernels._EXTRA_ENTRIES["spd_solve"]["pio_spd_solve_wide"])
     assert cuda_kernels.SPD_KERNELS[-1] == "wide"
 
 
