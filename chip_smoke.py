@@ -1201,7 +1201,7 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
     emit({"phase": "train_kernels", "kernel": "spd_solve", "case": "two_calls",
           "bit_identical": True})
     out, _ = check_spd(f"n{SPD_MAX_N + 1}", *spd_systems(1024, SPD_MAX_N + 1, k=260))
-    if out["plan"]["path"] != "wide":  # picked by n alone
+    if out["plan"]["path"] != "blocked":  # picked by n alone
         raise AssertionError(f"n = {SPD_MAX_N + 1} took the {out['plan']['path']} path")
     for acc in per_iter.values():
         # what bounds most of the iteration's bound time
@@ -3088,6 +3088,8 @@ def phase_persist(torch, dev, seed: int, base: str, registry, slice_instance: st
 WIDE_RANKS = (129, 200, 256)
 WIDE_BUCKETS = (("by_user", 97972, 128, N_ITEMS), ("by_item", 216, 32768, N_USERS))
 WIDE_CHECK_ROWS, WIDE_SPD_B = 4096, 4096
+#: systems of the solve's cases on both sides of the blocked path's ceiling
+WIDE_CEIL_B = 1024
 WIDE_HEADS = (136, 192, 256)
 WIDE_ATTN_SHAPES = ((64, 4, 64, 64, True), (8, 4, 2048, 2048, True),
                     (8, 4, 2048, 2048, False))
@@ -3111,6 +3113,151 @@ def wide_bucket(torch, gen, dev, b: int, k: int, n: int, r: int):
     return y, idx, mask, rhs, LAMBDA * counts.float()
 
 
+def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
+    """The solve above n = 128, each case handed to ``held(name, case, out,
+    ok)``: at n = 129, 200, 256 (B = 4,096) the plan, the blocked kernel
+    bit for bit against PR 12's wide kernel on the same tensors (launched
+    through ``plan=``) and within KERNEL_TOL of the plain version, then
+    event and device times of the blocked kernel and ``cholesky_solve`` in
+    the order A B B A after a warm-up, PR 12's kernel's and the plain
+    version's beside them; both sides of the blocked path's ceiling; the
+    zero-and-singular case; n = 400 on the wide path's scratch; and the
+    users' K = 128 bucket at rank 200, built by ``gramian_fused`` in
+    ``gramian_row_slices``' slices as ALS builds it, solved slice by slice
+    by each of the three."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        gramian_fused,
+        spd_solve,
+        spd_solve_reference,
+    )
+
+    def spd_systems(bsz, n, k):
+        g = torch.randn((bsz, k, n), generator=gen, device=dev)
+        a = torch.bmm(g.transpose(1, 2), g)
+        a += LAMBDA * k * torch.eye(n, device=dev)
+        return a, torch.randn((bsz, n), generator=gen, device=dev)
+
+    def rel_err(x, ref):
+        return float(((x - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)).max())
+
+    def library(a, b):
+        return torch.cholesky_solve(b[:, :, None], torch.linalg.cholesky(a))
+
+    def plan_line(plan):
+        return {"path": plan.path, "nb": plan.nb, "tiles": plan.tiles, "np": plan.np_,
+                "threads": 32 * plan.warps, "smem": plan.smem, "scratch": plan.scratch,
+                "blocks_per_sm": plan.blocks_per_sm, "waves": plan.waves}
+
+    def against_wide(a, b, n):
+        """The plan, the solve, PR 12's kernel's solve on the same tensors
+        and the plain version's, with the checks every case holds."""
+        bsz = a.shape[0]
+        plan, wide = ck.spd_launch_plan(bsz, n, sm), ck.spd_wide_launch_plan(bsz, n, sm)
+        before = spd_solve.launches
+        x_k = spd_solve(a, b)
+        launches = spd_solve.launches - before
+        x_w, x_p = spd_solve(a, b, plan=wide), spd_solve_reference(a, b)
+        out = {"n": n, "B": bsz, "plan": plan_line(plan), "launches": launches,
+               "max_rel_err": rel_err(x_k, x_p), "max_abs_err": float((x_k - x_p).abs().max()),
+               "equal_to_wide_kernel": bool(torch.equal(x_k, x_w)),
+               "bit_identical": bool(torch.equal(x_k, spd_solve(a, b)))}
+        ok = (out["max_rel_err"] < KERNEL_TOL and out["bit_identical"] and launches == 1
+              and bool(torch.isfinite(x_k).all()))
+        return out, ok, plan, wide
+
+    for n in WIDE_RANKS:
+        a, b = spd_systems(WIDE_SPD_B, n, 2 * n)
+        out, ok, plan, wide = against_wide(a, b, n)
+        kernel = lambda: spd_solve(a, b)  # noqa: E731
+        earlier = lambda: spd_solve(a, b, plan=wide)  # noqa: E731
+        lib = lambda: library(a, b)  # noqa: E731
+        kernel(), lib()  # warm-up, then A B B A
+        abba = [time_ms(torch, kernel, 5, 1), time_ms(torch, lib, 3, 1),
+                time_ms(torch, lib, 3, 1), time_ms(torch, kernel, 5, 1)]
+        out["abba_ms"] = abba
+        out["kernel_ms"], out["library_ms"] = (abba[0] + abba[3]) / 2, (abba[1] + abba[2]) / 2
+        out["kernel_device_ms"] = traced_device_ms(torch, kernel, 5)
+        out["library_device_ms"] = traced_device_ms(torch, lib, 3)
+        out["earlier_kernel_ms"] = time_ms(torch, earlier, 2, 1)
+        out["earlier_kernel_device_ms"] = traced_device_ms(torch, earlier, 2)
+        out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 2, 1)
+        bound_ms, out["bound_by"] = spd_bound(WIDE_SPD_B, n)
+        out["bound_us"] = bound_ms * 1e3
+        if out["kernel_device_ms"] is not None:
+            out["device_over_bound"] = out["kernel_device_ms"] / bound_ms
+            for key in ("library", "earlier_kernel"):
+                if out.get(f"{key}_device_ms"):
+                    out[f"device_over_{key}"] = out["kernel_device_ms"] / out[f"{key}_device_ms"]
+        held("spd_solve", f"n{n}", out,
+             ok and out["equal_to_wide_kernel"] and plan.path == "blocked")
+        del a, b
+    # both sides of the blocked path's ceiling
+    for n in (ck.SPD_BLOCKED_MAX_N, ck.SPD_BLOCKED_MAX_N + 1):
+        a, b = spd_systems(WIDE_CEIL_B, n, 2 * n)
+        out, ok, plan, _ = against_wide(a, b, n)
+        blocked = n <= ck.SPD_BLOCKED_MAX_N
+        held("spd_solve", f"n{n}_{plan.path}", out,
+             ok and plan.path == ("blocked" if blocked else "wide")
+             and (out["equal_to_wide_kernel"] or not blocked))
+    a, b = spd_systems(256, 200, 400)
+    a[128:] = 0.0
+    dead = [0, 77, 199]
+    a[:64, dead, :] = 0.0
+    a[:64, :, dead] = 0.0
+    x_k, x_p = spd_solve(a, b), spd_solve_reference(a, b)
+    ok = (bool((x_k[128:] == 0).all()) and bool((x_k[:64, dead] == 0).all())
+          and bool(torch.isfinite(x_k).all()) and rel_err(x_k[:128], x_p[:128]) < KERNEL_TOL
+          and ck.spd_launch_plan(256, 200, sm).path == "blocked")
+    held("spd_solve", "n200_zero_and_singular",
+         {"max_abs_err": float((x_k - x_p).abs().max()),
+          "max_rel_err": rel_err(x_k[:128], x_p[:128]),
+          "equal_to_wide_kernel": bool(torch.equal(
+              x_k, spd_solve(a, b, plan=ck.spd_wide_launch_plan(256, 200, sm))))}, ok)
+    a, b = spd_systems(64, 400, 800)  # the packed triangle in device memory
+    x_k, x_p = spd_solve(a, b), spd_solve_reference(a, b)
+    held("spd_solve", "n400_scratch",
+         {"scratch": ck.spd_launch_plan(64, 400, sm).scratch, "max_rel_err": rel_err(x_k, x_p),
+          "max_abs_err": float((x_k - x_p).abs().max())},
+         rel_err(x_k, x_p) < KERNEL_TOL)
+    del a, b, x_k, x_p
+    torch.cuda.empty_cache()
+
+    # the users' bucket at rank 200, as ALS builds and solves it
+    _, rows, k, n_tab = WIDE_BUCKETS[0]
+    r = WIDE_ALS_RANK
+    y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, rows, k, n_tab, r)
+    slices = ck.gramian_row_slices(rows, k, r, sm)
+    totals = {"kernel": 0.0, "earlier_kernel": 0.0, "library": 0.0}
+    measured, same, worst = True, True, 0.0
+    for s0, s1 in slices:
+        a, b = gramian_fused(y, idx[s0:s1], w2[s0:s1], rhs[s0:s1], ridge[s0:s1])
+        wide = ck.spd_wide_launch_plan(s1 - s0, r, sm)
+        x_k = spd_solve(a, b)
+        same = same and bool(torch.equal(x_k, spd_solve(a, b, plan=wide)))
+        x_l = library(a, b)[:, :, 0]
+        worst = max(worst, rel_err(x_k, x_l))
+        del x_k, x_l
+        for key, fn, iters in (("kernel", lambda: spd_solve(a, b), 3),
+                               ("earlier_kernel", lambda: spd_solve(a, b, plan=wide), 1),
+                               ("library", lambda: library(a, b), 2)):
+            ms = traced_device_ms(torch, fn, iters)
+            measured = measured and ms is not None
+            totals[key] += ms or 0.0
+        del a, b
+        torch.cuda.empty_cache()
+    out = {"R": r, "B": rows, "K": k, "slices": len(slices),
+           "plan": plan_line(ck.spd_launch_plan(slices[0][1] - slices[0][0], r, sm)),
+           "equal_to_wide_kernel": same, "max_rel_err_vs_library": worst,
+           **({f"{key}_device_ms": v for key, v in totals.items()} if measured
+              else {"device_ms": "not measured (a trace was short)"})}
+    bound_ms, out["bound_by"] = spd_bound(rows, r)
+    out["bound_us"] = bound_ms * 1e3
+    held("spd_solve", "users_bucket_R200", out, same and worst < 1e-3)
+    del y, idx, w2, rhs, ridge
+    torch.cuda.empty_cache()
+
+
 def wide_kernels(torch, dev, seed: int) -> dict:
     """The general-width paths against their plain versions: the build at
     R = 129, 200, 256 at both ML-20M bucket shapes (the users' bucket in
@@ -3118,8 +3265,9 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     129, 200, 256 with its edge cases, attention at D = 136, 192, 256
     causal and not on the resident path and at D = 320 on the passes
     path. Each kernel's registers and local bytes first (no local memory;
-    the attention kernels' registers equal to their plan constants, the
-    build's and the solve's within their launch bounds); each case prints
+    the attention kernels' and the blocked solve's registers equal to their
+    plan constants, the build's and the wide solve's within their launch
+    bounds); each case prints
     its plan and its error, the timed ones the kernel's event and device
     time beside the plain version's, the library call's and the bound, and
     the resident cases the passes kernel's time on the same tensors."""
@@ -3129,22 +3277,22 @@ def wide_kernels(torch, dev, seed: int) -> dict:
         flash_attention_fwd_reference,
         gramian_fused,
         gramian_fused_reference,
-        spd_solve,
-        spd_solve_reference,
     )
 
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    spd_attrs = ck.spd_kernel_attributes(dev)
     attrs = {"gramian_fused": {k: v for k, v in ck.gramian_kernel_attributes(dev).items()
                                if k.startswith("wide")},
-             "spd_solve": ck.spd_kernel_attributes(dev)["wide"],
+             "spd_solve": {k: spd_attrs[k] for k in ("blocked", "wide")},
              "flash_attention": ck.flash_wide_kernel_attributes(dev),
              "flash_attention_resident": ck.flash_resident_kernel_attributes(dev)}
-    flat = [*attrs["gramian_fused"].values(), attrs["spd_solve"], attrs["flash_attention"],
-            *attrs["flash_attention_resident"].values()]
+    flat = [*attrs["gramian_fused"].values(), *attrs["spd_solve"].values(),
+            attrs["flash_attention"], *attrs["flash_attention_resident"].values()]
     emit({"phase": "wide", "attributes": attrs})
     regs_ok = (all(a["regs"] <= ck.GRAMIAN_WIDE_REGS for a in attrs["gramian_fused"].values())
-               and attrs["spd_solve"]["regs"] <= ck.SPD_WIDE_REGS
+               and attrs["spd_solve"]["wide"]["regs"] <= ck.SPD_WIDE_REGS
+               and attrs["spd_solve"]["blocked"]["regs"] == ck.SPD_BLOCKED_REGS
                and attrs["flash_attention"]["regs"] == ck.FLASH_WIDE_REGS
                and all(a["regs"] == ck.FLASH_WIDE_RES_REGS[g]
                        for g, a in attrs["flash_attention_resident"].items()))
@@ -3224,58 +3372,7 @@ def wide_kernels(torch, dev, seed: int) -> dict:
         "max_abs_err": max(float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max()))},
         ok)
 
-    # the solve
-    def spd_systems(bsz, n, k):
-        g = torch.randn((bsz, k, n), generator=gen, device=dev)
-        a = torch.bmm(g.transpose(1, 2), g)
-        a += LAMBDA * k * torch.eye(n, device=dev)
-        return a, torch.randn((bsz, n), generator=gen, device=dev)
-
-    def rel_err(x, ref):
-        return float(((x - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)).max())
-
-    for n in WIDE_RANKS:
-        a, b = spd_systems(WIDE_SPD_B, n, 2 * n)
-        x_k = spd_solve(a, b)
-        x_p = spd_solve_reference(a, b)
-        rel = rel_err(x_k, x_p)
-        plan = ck.spd_launch_plan(WIDE_SPD_B, n, sm)
-        out = {"n": n, "B": WIDE_SPD_B, "max_rel_err": rel,
-               "max_abs_err": float((x_k - x_p).abs().max()),
-               "plan": {"path": plan.path, "threads": 32 * plan.warps, "smem": plan.smem,
-                        "scratch": plan.scratch, "blocks_per_sm": plan.blocks_per_sm,
-                        "waves": plan.waves},
-               "bit_identical": bool(torch.equal(x_k, spd_solve(a, b)))}
-        kernel = lambda: spd_solve(a, b)  # noqa: E731
-        library = lambda: torch.cholesky_solve(b[:, :, None], torch.linalg.cholesky(a))  # noqa: E731
-        out["kernel_ms"] = time_ms(torch, kernel, 5, 1)
-        out["kernel_device_ms"] = traced_device_ms(torch, kernel, 5)
-        out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 2, 1)
-        out["library_ms"] = time_ms(torch, library, 3, 1)
-        bound_ms, out["bound_by"] = spd_bound(WIDE_SPD_B, n)
-        out["bound_us"] = bound_ms * 1e3
-        held("spd_solve", f"n{n}", out,
-             rel < KERNEL_TOL and out["bit_identical"] and plan.path == "wide"
-             and bool(torch.isfinite(x_k).all()))
-    a, b = spd_systems(256, 200, 400)
-    a[128:] = 0.0
-    dead = [0, 77, 199]
-    a[:64, dead, :] = 0.0
-    a[:64, :, dead] = 0.0
-    x_k, x_p = spd_solve(a, b), spd_solve_reference(a, b)
-    ok = (bool((x_k[128:] == 0).all()) and bool((x_k[:64, dead] == 0).all())
-          and bool(torch.isfinite(x_k).all()) and rel_err(x_k[:128], x_p[:128]) < KERNEL_TOL)
-    held("spd_solve", "n200_zero_and_singular",
-         {"max_abs_err": float((x_k - x_p).abs().max()),
-          "max_rel_err": rel_err(x_k[:128], x_p[:128])}, ok)
-    a, b = spd_systems(64, 400, 800)  # the packed triangle in device memory
-    x_k, x_p = spd_solve(a, b), spd_solve_reference(a, b)
-    held("spd_solve", "n400_scratch",
-         {"scratch": ck.spd_launch_plan(64, 400, sm).scratch, "max_rel_err": rel_err(x_k, x_p),
-          "max_abs_err": float((x_k - x_p).abs().max())},
-         rel_err(x_k, x_p) < KERNEL_TOL)
-    del a, b, x_k, x_p
-    torch.cuda.empty_cache()
+    wide_spd_cases(torch, dev, gen, sm, held)
 
     # attention
     import torch.nn.functional as F

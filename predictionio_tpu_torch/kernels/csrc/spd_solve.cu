@@ -351,6 +351,164 @@ spd_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// ---- the blocked path (kMaxN < n <= the blocked ceiling) --------------------
+constexpr int kBlkNb = 16;         // the tile width nb: a panel's columns
+constexpr int kBlkThreads = 256;   // threads a block
+constexpr int kBlkMinBlocks = 4;   // launch bound: at most 64 registers
+
+// tiles of the upper triangle at t tiles a side, and the block's dynamic
+// shared memory in bytes: the tiles, L's panel rows [nb][t nb], y [t nb],
+// inv_d and z_j of the panel's steps [nb] each, and the tile table [tiles]
+__host__ __device__ constexpr long long blk_tiles(int t) {
+  return static_cast<long long>(t) * (t + 1) / 2;
+}
+__host__ __device__ constexpr long long blk_smem_bytes(int t, int nb) {
+  return 4 * (blk_tiles(t) * nb * nb + static_cast<long long>(nb) * t * nb + t * nb + 2LL * nb +
+              blk_tiles(t));
+}
+// index of tile (i, j), i <= j, row-major over the upper triangle of tiles
+__device__ __forceinline__ int blk_tile(int i, int j, int t) {
+  return i * t - i * (i - 1) / 2 + (j - i);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kBlkThreads, kBlkMinBlocks)
+spd_blocked_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   float* __restrict__ x, int n, int t) {
+  constexpr int TF = NB * NB;  // floats a tile, row-major
+  constexpr int kWarps = kBlkThreads / kWarp;
+  extern __shared__ __align__(16) float smem[];
+  const int np = t * NB;
+  const int ntiles = t * (t + 1) / 2;
+  float* s_u = smem;                   // the tiles of U
+  float* s_l = s_u + ntiles * TF;      // [NB][np]: row k holds l_c of the panel's step k
+  float* s_y = s_l + NB * np;          // [np]
+  float* s_inv = s_y + np;             // [NB] inv_d of the panel's steps
+  float* s_z = s_inv + NB;             // [NB] z_j of the panel's steps
+  int* s_ij = reinterpret_cast<int*>(s_z + NB);  // [ntiles] (I << 16) | J
+  const size_t sys = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+
+  for (int q = tid; q < ntiles; q += kBlkThreads) {
+    int i = 0, r = q;
+    while (r >= t - i) r -= t - i++;
+    s_ij[q] = (i << 16) | (i + r);
+  }
+  for (int c = tid; c < np; c += kBlkThreads) s_y[c] = c < n ? b[sys * n + c] : 0.f;
+  // the upper triangle, a warp a row; padding is the identity, and the part
+  // of a diagonal tile below the diagonal is 0 (never read)
+  const float* a_g = a + sys * n * n;
+  for (int r = warp; r < np; r += kWarps) {
+    const int ti = r / NB;
+    for (int c = ti * NB + lane; c < np; c += kWarp) {
+      float v = r == c ? 1.f : 0.f;
+      if (c >= r && c < n) v = __ldg(a_g + static_cast<size_t>(r) * n + c);
+      s_u[blk_tile(ti, c / NB, t) * TF + (r % NB) * NB + c % NB] = v;
+    }
+  }
+  __syncthreads();
+
+  for (int p = 0; p < t; ++p) {
+    const int s = p * NB;
+    const int e = s + NB;
+    // the panel's diagonal tile: one warp, lane c on column c, the TPU
+    // kernel's NB steps with L's row published to s_l once a step
+    if (warp == 0) {
+      float* diag = s_u + blk_tile(p, p, t) * TF;
+      const bool live = lane < NB;
+      float col[NB];
+#pragma unroll
+      for (int r = 0; r < NB; ++r) col[r] = live ? diag[r * NB + lane] : 0.f;
+      float yv = live ? s_y[s + lane] : 0.f;
+      float d2 = __shfl_sync(kFull, col[0], 0);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float inv_d = d2 > 0.f ? rsqrtf(d2) : 0.f;
+        const float zj = __shfl_sync(kFull, yv, j) * inv_d;
+        const float l = lane >= j ? col[j] * inv_d : 0.f;
+        float* lrow = s_l + j * np + s;
+        if (live) lrow[lane] = l;
+        if (lane == 0) s_inv[j] = inv_d, s_z[j] = zj;
+        __syncwarp();
+        const float mj = lrow[j] - 1.f;
+#pragma unroll
+        for (int r = j; r < NB; ++r) {
+          const float m = r == j ? mj : lrow[r];
+          if (r <= lane) col[r] = __fmaf_rn(-m, l, col[r]);
+        }
+        if (lane >= j) yv = __fmaf_rn(-(lane == j ? mj : l), zj, yv);
+        if (j + 1 < NB) d2 = __shfl_sync(kFull, col[j + 1], j + 1);
+      }
+      if (live) {
+#pragma unroll
+        for (int r = 0; r < NB; ++r) {
+          if (r <= lane) diag[r * NB + lane] = col[r];
+        }
+        s_y[s + lane] = yv;
+      }
+    }
+    __syncthreads();
+    // the strip: the panel's rows right of it, a thread a column, the same
+    // steps against the diagonal warp's l and m, and y right of the panel
+    for (int c = e + tid; c < np; c += kBlkThreads) {
+      float* tcol = s_u + blk_tile(p, c / NB, t) * TF + c % NB;
+      float col[NB];
+#pragma unroll
+      for (int r = 0; r < NB; ++r) col[r] = tcol[r * NB];
+      float yc = s_y[c];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        float* lrow = s_l + j * np;
+        const float lc = col[j] * s_inv[j];
+        lrow[c] = lc;
+        const float mj = lrow[s + j] - 1.f;
+#pragma unroll
+        for (int r = j; r < NB; ++r) col[r] = __fmaf_rn(-(r == j ? mj : lrow[s + r]), lc, col[r]);
+        yc = __fmaf_rn(-lc, s_z[j], yc);
+      }
+#pragma unroll
+      for (int r = 0; r < NB; ++r) tcol[r * NB] = col[r];
+      s_y[c] = yc;
+    }
+    __syncthreads();
+    // the trailing update: every element right of and below the panel, k
+    // over the panel's steps ascending
+    if (p + 1 < t) {
+      const int q0 = blk_tile(p + 1, p + 1, t);
+      const int count = (ntiles - q0) * TF;
+      for (int f = tid; f < count; f += kBlkThreads) {
+        const int q = q0 + f / TF;
+        const int w = f % TF;
+        const int ij = s_ij[q];
+        const int rr = w / NB, cc = w % NB;
+        if ((ij >> 16) == (ij & 0xffff) && rr > cc) continue;
+        const int r = (ij >> 16) * NB + rr;
+        const int c = (ij & 0xffff) * NB + cc;
+        float v = s_u[q * TF + w];
+#pragma unroll
+        for (int k = 0; k < NB; ++k) v = __fmaf_rn(-s_l[k * np + r], s_l[k * np + c], v);
+        s_u[q * TF + w] = v;
+      }
+    }
+    __syncthreads();
+  }
+
+  // back substitution, column by column
+  for (int j = np - 1; j >= 0; --j) {
+    const int tj = j / NB;
+    const float d = s_u[blk_tile(tj, tj, t) * TF + (j % NB) * (NB + 1)];
+    const float xj = s_y[j] * (d > 0.f ? 1.f / d : 0.f);
+    if (tid == 0 && j < n) x[sys * n + j] = xj;
+    for (int r = tid; r < j; r += kBlkThreads) {
+      const float u = s_u[blk_tile(r / NB, tj, t) * TF + (r % NB) * NB + j % NB];
+      s_y[r] = __fmaf_rn(-u, xj, s_y[r]);
+    }
+    __syncthreads();
+  }
+}
+
 template <int NP>
 cudaError_t launch_reg(const float* a, const float* b, float* x, int B, int n,
                        int smem, cudaStream_t st) {
@@ -442,10 +600,37 @@ extern "C" int pio_spd_solve_wide(const void* a, const void* b, void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches the blocked path (kMaxN < n, as long as its shared memory fits)
+// on `stream` and returns cudaGetLastError() (0 = ok). Device pointers as
+// pio_spd_solve's. The plan: the tile width nb, threads a block, tiles of the
+// upper triangle (t(t+1)/2 at t = ceil(n / nb)), blocks (= B) and dynamic
+// shared memory in bytes; a plan that does not match this arithmetic is
+// refused (cudaErrorInvalidValue).
+extern "C" int pio_spd_solve_blocked(const void* a, const void* b, void* x, int B,
+                                     int n, int nb, int threads, int tiles,
+                                     int blocks, int smem, void* stream) {
+  if (B < 1 || n <= kMaxN || n > kWideMaxN || nb != kBlkNb || threads != kBlkThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int t = (n + nb - 1) / nb;
+  const long long want = blk_smem_bytes(t, nb);
+  if (want > kMaxSmem || tiles != blk_tiles(t) || blocks != B || smem != want) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (static_cast<size_t>(smem) > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spd_blocked_kernel<kBlkNb>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  spd_blocked_kernel<kBlkNb><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(x), n, t);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Registers a thread, local (spilled) bytes and static shared memory of every
 // solve kernel, three ints each, in this order: the registers kernel at
-// np = 8, 16, ..., 64, the shared kernel, then the wide kernel. Returns the first error of
-// cudaFuncGetAttributes.
+// np = 8, 16, ..., 64, the shared kernel, the blocked kernel, then the wide kernel. Returns
+// the first error of cudaFuncGetAttributes.
 extern "C" int pio_spd_solve_attrs(int* out) {
   const void* kernels[] = {
       reinterpret_cast<const void*>(spd_reg_kernel<8>),
@@ -457,6 +642,7 @@ extern "C" int pio_spd_solve_attrs(int* out) {
       reinterpret_cast<const void*>(spd_reg_kernel<56>),
       reinterpret_cast<const void*>(spd_reg_kernel<64>),
       reinterpret_cast<const void*>(spd_shared_kernel),
+      reinterpret_cast<const void*>(spd_blocked_kernel<kBlkNb>),
       reinterpret_cast<const void*>(spd_wide_kernel),
   };
   int i = 0;

@@ -173,6 +173,7 @@ _EXTRA_ENTRIES = {
     "gramian_fused": {"pio_gramian_fused_attrs": _ATTRS_ARGTYPES},
     "spd_solve": {
         "pio_spd_solve_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "pio_spd_solve_blocked": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         "pio_spd_solve_attrs": _ATTRS_ARGTYPES,
     },
     "flash_attention": {
@@ -824,22 +825,53 @@ _SPD_SHARED_MAX_WARPS, _SPD_DEFAULT_SMEM = 8, 48 * 1024
 #: a block's shared memory on the registers path holds np_ rows of U, each
 #: 32 · slots + SPD_HIST_PAD floats (kHistPad)
 SPD_HIST_PAD = 4
+#: the blocked path: the tile width nb (kBlkNb, a panel's columns), threads a
+#: block (kBlkThreads) and the registers a thread of its kernel takes, read off
+#: the card (chip_smoke holds the card to it; its launch bound allows 64)
+SPD_BLOCKED_NB, SPD_BLOCKED_THREADS, SPD_BLOCKED_REGS = 16, 256, 64
+
+
+def spd_blocked_smem(n: int, nb: int = SPD_BLOCKED_NB) -> int:
+    """Dynamic shared memory of a blocked-path block at system size ``n``
+    (``blk_smem_bytes`` in the .cu): the t(t+1)/2 tiles of nb × nb floats of
+    the upper triangle at t = ceil(n / nb), L's panel rows ``[nb, t·nb]``, y
+    ``[t·nb]``, the panel's inv_d and z_j ``[nb]`` each, and the tile table
+    (an int a tile)."""
+    t = _cdiv(n, nb)
+    tiles = t * (t + 1) // 2
+    return 4 * (tiles * nb * nb + nb * t * nb + t * nb + 2 * nb + tiles)
+
+
+def _spd_blocked_max_n(nb: int) -> int:
+    t = 1
+    while spd_blocked_smem((t + 1) * nb, nb) <= SPD_MAX_SMEM:
+        t += 1
+    return t * nb
+
+
+#: the widest system of the blocked path: the widest n whose block fits in
+#: SPD_MAX_SMEM; wider systems take the wide path
+SPD_BLOCKED_MAX_N = _spd_blocked_max_n(SPD_BLOCKED_NB)
 
 
 class SpdPlan(NamedTuple):
     """What one launch of ``csrc/spd_solve.cu`` needs beyond its tensors
     (see :func:`spd_launch_plan`)."""
 
-    path: str  #: "registers" (n <= 64), "shared" (n <= 128) or "wide"
-    np_: int  #: the padded width, a multiple of 8 and at least n (wide: n)
-    slots: int  #: column slots a lane holds, ceil(np_ / 32) (wide: columns a thread)
+    path: str  #: "registers" (n <= 64), "shared" (n <= 128), "blocked" or "wide"
+    np_: int  #: the padded width, a multiple of 8 and at least n (blocked: of
+    #: nb; wide: n)
+    slots: int  #: column slots a lane holds, ceil(np_ / 32) (blocked, wide:
+    #: columns a thread)
     warps: int  #: systems (one warp each) a block holds; 1 on the registers
-    #: path; on the wide path the warps of its one system's block
-    blocks: int  #: ceil(B / warps) (wide: B)
+    #: path; on the blocked and wide paths the warps of its one system's block
+    blocks: int  #: ceil(B / warps) (blocked, wide: B)
     smem: int  #: dynamic shared memory of a block, bytes
     blocks_per_sm: int  #: blocks an SM holds at once
     waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
     scratch: int = 0  #: floats a system in device memory (wide path, large n)
+    nb: int = 0  #: the tile width (blocked path)
+    tiles: int = 0  #: tiles of the upper triangle, t(t+1)/2 (blocked path)
 
 
 def _spd_blocks_per_sm(warps: int, smem: int, regs: Optional[int]) -> int:
@@ -856,25 +888,19 @@ def spd_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
     ``n`` on a card of ``sm_count`` SMs. Pure arithmetic (the C entry
     point checks it and refuses a plan that does not match its own).
 
-    n <= :data:`SPD_REG_MAX_N` takes the registers path: one system a
-    block of one warp, padded to ``np_``; the blocks an SM holds follow
-    from :data:`SPD_REGS` and the block's shared memory. Larger n take
-    the shared path, whose warps a block follow from 48 KB of shared
-    memory, up to :data:`SPD_MAX_N`; wider n the wide path: one block a
-    system, its packed upper triangle in shared memory while it fits
-    (beside y and L's column), else in a ``[B, n(n+1)/2]`` scratch."""
+    The path follows from n alone: n <= :data:`SPD_REG_MAX_N` takes the
+    registers path (one system a block of one warp, padded to ``np_``; the
+    blocks an SM holds follow from :data:`SPD_REGS` and the block's shared
+    memory), n <= :data:`SPD_MAX_N` the shared path (warps a block from 48
+    KB of shared memory), n <= :data:`SPD_BLOCKED_MAX_N` the blocked path
+    (:func:`spd_blocked_launch_plan`) and wider n the wide path
+    (:func:`spd_wide_launch_plan`)."""
     if min(b, n, sm_count) < 1 or n > SPD_WIDE_MAX_N:
         raise ValueError(f"no spd launch plan for b={b}, n={n}, sm_count={sm_count}")
+    if n > SPD_BLOCKED_MAX_N:
+        return spd_wide_launch_plan(b, n, sm_count)
     if n > SPD_MAX_N:
-        threads = min(SPD_WIDE_THREADS, _cdiv(n, 32) * 32)
-        tri = n * (n + 1) // 2
-        fits = 4 * (tri + 2 * n) <= SPD_MAX_SMEM
-        smem = 4 * (tri + 2 * n) if fits else 8 * n
-        per_sm = min(_SM_SMEM // (smem + _BLOCK_SMEM_RESERVE), _SM_MAX_BLOCKS,
-                     _SM_MAX_THREADS // threads, _SM_REGS // (threads * SPD_WIDE_REGS))
-        return SpdPlan(path="wide", np_=n, slots=_cdiv(n, threads), warps=threads // 32,
-                       blocks=b, smem=smem, blocks_per_sm=per_sm,
-                       waves=_cdiv(b, sm_count * per_sm), scratch=0 if fits else tri)
+        return spd_blocked_launch_plan(b, n, sm_count)
     np_ = _cdiv(n, 8) * 8
     if n > SPD_REG_MAX_N:
         path, regs = "shared", None
@@ -888,6 +914,46 @@ def spd_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
     return SpdPlan(path=path, np_=np_, slots=_cdiv(np_, 32), warps=warps,
                    blocks=blocks, smem=smem, blocks_per_sm=per_sm,
                    waves=_cdiv(blocks, sm_count * per_sm))
+
+
+@functools.lru_cache(maxsize=256)
+def spd_blocked_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
+    """The blocked path's plan (``SPD_MAX_N < n <= SPD_BLOCKED_MAX_N``): one
+    block of :data:`SPD_BLOCKED_THREADS` a system, its upper triangle in
+    shared memory as tiles of :data:`SPD_BLOCKED_NB` (padded to ``np_`` =
+    t·nb with identity columns), a panel of nb columns a step. The blocks
+    an SM holds follow from the shared memory, :data:`SPD_BLOCKED_REGS` and
+    the threads. Pure arithmetic, checked again by the C entry point."""
+    if min(b, sm_count) < 1 or not SPD_MAX_N < n <= SPD_BLOCKED_MAX_N:
+        raise ValueError(f"no spd blocked plan for b={b}, n={n}, sm_count={sm_count}")
+    nb, threads = SPD_BLOCKED_NB, SPD_BLOCKED_THREADS
+    t = _cdiv(n, nb)
+    smem = spd_blocked_smem(n, nb)
+    per_sm = _spd_blocks_per_sm(threads // 32, smem, SPD_BLOCKED_REGS)
+    return SpdPlan(path="blocked", np_=t * nb, slots=_cdiv(t * nb, threads),
+                   warps=threads // 32, blocks=b, smem=smem, blocks_per_sm=per_sm,
+                   waves=_cdiv(b, sm_count * per_sm), nb=nb, tiles=t * (t + 1) // 2)
+
+
+@functools.lru_cache(maxsize=256)
+def spd_wide_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
+    """The wide path's plan, the first version (the path above
+    :data:`SPD_BLOCKED_MAX_N`; any n > :data:`SPD_MAX_N` to compare it with
+    the blocked path): one block a system, its packed upper triangle in
+    shared memory while it fits (beside y and L's column), else in a ``[B,
+    n(n+1)/2]`` scratch. Pure arithmetic, checked again by the C entry
+    point."""
+    if min(b, sm_count) < 1 or not SPD_MAX_N < n <= SPD_WIDE_MAX_N:
+        raise ValueError(f"no spd wide plan for b={b}, n={n}, sm_count={sm_count}")
+    threads = min(SPD_WIDE_THREADS, _cdiv(n, 32) * 32)
+    tri = n * (n + 1) // 2
+    fits = 4 * (tri + 2 * n) <= SPD_MAX_SMEM
+    smem = 4 * (tri + 2 * n) if fits else 8 * n
+    per_sm = min(_SM_SMEM // (smem + _BLOCK_SMEM_RESERVE), _SM_MAX_BLOCKS,
+                 _SM_MAX_THREADS // threads, _SM_REGS // (threads * SPD_WIDE_REGS))
+    return SpdPlan(path="wide", np_=n, slots=_cdiv(n, threads), warps=threads // 32,
+                   blocks=b, smem=smem, blocks_per_sm=per_sm,
+                   waves=_cdiv(b, sm_count * per_sm), scratch=0 if fits else tri)
 
 
 def _check_spd_inputs(a, b) -> None:
@@ -935,16 +1001,19 @@ def spd_solve_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def spd_solve(a: torch.Tensor, b: torch.Tensor, plan: Optional[SpdPlan] = None) -> torch.Tensor:
     """Batched SPD solve ``a[s] x[s] = b[s]`` for ``a [B, n, n]``,
     ``b [B, n]`` (f32, batch-major: the layout :func:`gramian_fused`
     writes). An all-zero system solves to exactly 0; a zero pivot gives a
     zero component. Only the upper triangle of each system is read. Any B
     and any n. CUDA tensors launch ``csrc/spd_solve.cu`` by
     :func:`spd_launch_plan` (n <= 64 with each system in one warp's
-    registers, n <= 128 through shared memory, wider n on the wide path,
-    one block a system; one launch is counted either way); CPU tensors
-    run :func:`spd_solve_reference`."""
+    registers, n <= 128 through shared memory, n <= SPD_BLOCKED_MAX_N on
+    the blocked path, wider n on the wide path; one launch is counted
+    either way); ``plan`` overrides it (a :func:`spd_wide_launch_plan` at
+    any n > 128 launches the wide kernel, to compare it with the blocked
+    one; the C entry point still checks it). CPU tensors run
+    :func:`spd_solve_reference`."""
     _check_spd_inputs(a, b)
     if a.shape[-1] > SPD_WIDE_MAX_N:
         raise ValueError(
@@ -960,8 +1029,9 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x = torch.empty((bsz, n), dtype=torch.float32, device=device)
     if bsz == 0:
         return x
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    plan = spd_launch_plan(bsz, n, _sm_count(index))
+    if plan is None:
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        plan = spd_launch_plan(bsz, n, _sm_count(index))
     lib = _configured("spd_solve", _SPD_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -972,6 +1042,11 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                 a.data_ptr(), b.data_ptr(), x.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), bsz, n,
                 32 * plan.warps, plan.blocks, plan.smem, stream,
+            )
+        elif plan.path == "blocked":
+            code = lib.pio_spd_solve_blocked(
+                a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, n, plan.nb,
+                32 * plan.warps, plan.tiles, plan.blocks, plan.smem, stream,
             )
         else:
             code = lib.pio_spd_solve(
@@ -989,7 +1064,7 @@ spd_solve.launches = 0
 
 _SPD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 #: the kernels ``pio_spd_solve_attrs`` reports on, in its order
-SPD_KERNELS = (*(f"registers_np{w}" for w in SPD_REGS), "shared", "wide")
+SPD_KERNELS = (*(f"registers_np{w}" for w in SPD_REGS), "shared", "blocked", "wide")
 
 
 def spd_kernel_attributes(device=None) -> dict:

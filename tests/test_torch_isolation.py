@@ -155,7 +155,8 @@ def test_build_command_targets_sm90a_from_repo_sources():
       "kWMaxR": cuda_kernels.GRAMIAN_WIDE_MAX_RANK}),
     ("spd_solve", "pallas_kernels.py::_spd_kernel",
      {"kMaxN": cuda_kernels.SPD_MAX_N, "kWideThreads": cuda_kernels.SPD_WIDE_THREADS,
-      "kWideMaxN": cuda_kernels.SPD_WIDE_MAX_N}),
+      "kWideMaxN": cuda_kernels.SPD_WIDE_MAX_N, "kBlkNb": cuda_kernels.SPD_BLOCKED_NB,
+      "kBlkThreads": cuda_kernels.SPD_BLOCKED_THREADS}),
     ("flash_attention", "attention.py::_flash_kernel",
      {"kMaxD": cuda_kernels.FLASH_MAX_D, "kTile": cuda_kernels.FLASH_TILE,
       "kMaxQTiles": cuda_kernels.FLASH_MAX_Q_TILES, "kWRows": cuda_kernels.FLASH_WIDE_ROWS,
