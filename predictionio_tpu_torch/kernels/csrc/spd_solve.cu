@@ -473,37 +473,95 @@ spd_blocked_kernel(const float* __restrict__ a, const float* __restrict__ b,
       s_y[c] = yc;
     }
     __syncthreads();
-    // the trailing update: every element right of and below the panel, k
-    // over the panel's steps ascending
+    // the trailing update: every tile right of and below the panel, a 4 x 4
+    // register tile a thread, k over the panel's steps ascending; a warp
+    // takes two tiles' 32 register tiles, so its 16-byte loads of L's rows
+    // touch 16 + 32 consecutive floats
     if (p + 1 < t) {
+      constexpr int G = NB / 4;  // register tiles a tile side
       const int q0 = blk_tile(p + 1, p + 1, t);
-      const int count = (ntiles - q0) * TF;
+      const int count = (ntiles - q0) * G * G;
       for (int f = tid; f < count; f += kBlkThreads) {
-        const int q = q0 + f / TF;
-        const int w = f % TF;
+        const int q = q0 + f / (G * G);
+        const int rg = f / G % G, cg = f % G;
         const int ij = s_ij[q];
-        const int rr = w / NB, cc = w % NB;
-        if ((ij >> 16) == (ij & 0xffff) && rr > cc) continue;
-        const int r = (ij >> 16) * NB + rr;
-        const int c = (ij & 0xffff) * NB + cc;
-        float v = s_u[q * TF + w];
+        const int ti = ij >> 16, tj = ij & 0xffff;
+        if (ti == tj && rg > cg) continue;  // below the diagonal
+        float* tu = s_u + q * TF + 4 * rg * NB + 4 * cg;
+        const float* lr = s_l + ti * NB + 4 * rg;
+        const float* lc = s_l + tj * NB + 4 * cg;
+        float acc[4][4];
 #pragma unroll
-        for (int k = 0; k < NB; ++k) v = __fmaf_rn(-s_l[k * np + r], s_l[k * np + c], v);
-        s_u[q * TF + w] = v;
+        for (int i = 0; i < 4; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(tu + i * NB);
+          acc[i][0] = v.x, acc[i][1] = v.y, acc[i][2] = v.z, acc[i][3] = v.w;
+        }
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+          const float4 r4 = *reinterpret_cast<const float4*>(lr + k * np);
+          const float4 c4 = *reinterpret_cast<const float4*>(lc + k * np);
+          const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
+          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int jx = 0; jx < 4; ++jx) acc[i][jx] = __fmaf_rn(-rv[i], cv[jx], acc[i][jx]);
+          }
+        }
+        if (ti == tj && rg == cg) {  // only the upper part of the diagonal
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int jx = i; jx < 4; ++jx) tu[i * NB + jx] = acc[i][jx];
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            *reinterpret_cast<float4*>(tu + i * NB) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          }
+        }
       }
     }
     __syncthreads();
   }
 
-  // back substitution, column by column
-  for (int j = np - 1; j >= 0; --j) {
-    const int tj = j / NB;
-    const float d = s_u[blk_tile(tj, tj, t) * TF + (j % NB) * (NB + 1)];
-    const float xj = s_y[j] * (d > 0.f ? 1.f / d : 0.f);
-    if (tid == 0 && j < n) x[sys * n + j] = xj;
-    for (int r = tid; r < j; r += kBlkThreads) {
-      const float u = s_u[blk_tile(r / NB, tj, t) * TF + (r % NB) * NB + j % NB];
-      s_y[r] = __fmaf_rn(-u, xj, s_y[r]);
+  // Back substitution by panels from the last, one barrier a panel: warp 0
+  // takes panel p + 1's x off the rows of panel p and then solves panel p,
+  // x_j = y_j * (d > 0 ? 1/d : 0) with j descending, each x_j taken off the
+  // panel's rows above j; meanwhile the other warps take panel p + 1's x off
+  // every row above panel p. Each y_r takes its x_j with j descending, as on
+  // the wide path. L's buffer holds x.
+  float* s_x = s_l;
+  for (int p = t - 1; p >= 0; --p) {
+    const int s = p * NB;
+    const int e = s + NB;
+    if (warp == 0) {
+      const float* diag = s_u + blk_tile(p, p, t) * TF;
+      float yv = lane < NB ? s_y[s + lane] : 0.f;
+      if (p + 1 < t && lane < NB) {
+        const float* urow = s_u + blk_tile(p, p + 1, t) * TF + lane * NB;
+#pragma unroll
+        for (int j = NB - 1; j >= 0; --j) yv = __fmaf_rn(-urow[j], s_x[e + j], yv);
+      }
+#pragma unroll
+      for (int j = NB - 1; j >= 0; --j) {
+        const float d = diag[j * NB + j];
+        const float xj = __shfl_sync(kFull, yv, j) * (d > 0.f ? 1.f / d : 0.f);
+        if (lane == j) {
+          s_x[s + j] = xj;
+          if (s + j < n) x[sys * n + s + j] = xj;
+        }
+        if (lane < j) yv = __fmaf_rn(-diag[lane * NB + j], xj, yv);
+      }
+    } else if (p + 1 < t) {
+      for (int r = tid - kWarp; r < s; r += kBlkThreads - kWarp) {
+        const float* urow = s_u + blk_tile(r / NB, p + 1, t) * TF + (r % NB) * NB;
+        float yr = s_y[r];
+#pragma unroll
+        for (int j = NB - 1; j >= 0; --j) yr = __fmaf_rn(-urow[j], s_x[e + j], yr);
+        s_y[r] = yr;
+      }
     }
     __syncthreads();
   }
