@@ -226,6 +226,8 @@ import dataclasses
 import gc
 import http.client
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3113,6 +3115,130 @@ def wide_bucket(torch, gen, dev, b: int, k: int, n: int, r: int):
     return y, idx, mask, rhs, LAMBDA * counts.float()
 
 
+def wide_spd_systems(torch, gen, dev, bsz: int, n: int, k: int):
+    """``bsz`` SPD systems of size ``n``: a Gramian of ``k`` random rows
+    plus the ridge λ·k, and a right-hand side."""
+    g = torch.randn((bsz, k, n), generator=gen, device=dev)
+    a = torch.bmm(g.transpose(1, 2), g)
+    a += LAMBDA * k * torch.eye(n, device=dev)
+    return a, torch.randn((bsz, n), generator=gen, device=dev)
+
+
+def spd_blocked_variants(torch, dev, seed: int = 0) -> None:
+    """The blocked solve alone at n = WIDE_RANKS (B = WIDE_SPD_B): its
+    registers, the plan, its bits against PR 12's wide kernel, and event
+    and device ms. Builds only the solve's library. To compare two kernel
+    versions in one call, unpack the other tree under ``chip_compare/``
+    (gitignored) and run this in each, A B B A: the inputs come from the
+    seed, so both see the same tensors."""
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    build.build_all(["spd_solve"])
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    attrs = ck.spd_kernel_attributes(dev)["blocked"]
+    for n in WIDE_RANKS:
+        a, b = wide_spd_systems(torch, gen, dev, WIDE_SPD_B, n, 2 * n)
+        plan = ck.spd_launch_plan(WIDE_SPD_B, n, sm)
+        x = ck.spd_solve(a, b)
+        wide = ck.spd_solve(a, b, plan=ck.spd_wide_launch_plan(WIDE_SPD_B, n, sm))
+        kernel = lambda: ck.spd_solve(a, b)  # noqa: E731
+        emit({"phase": "spd_variant", "tree": os.path.basename(os.getcwd()), "n": n,
+              "attributes": attrs, "plan": {"nb": plan.nb, "threads": 32 * plan.warps,
+                                            "smem": plan.smem,
+                                            "blocks_per_sm": plan.blocks_per_sm},
+              "equal_to_wide_kernel": bool(torch.equal(x, wide)),
+              "kernel_ms": time_ms(torch, kernel, 10, 2),
+              "kernel_device_ms": traced_device_ms(torch, kernel, 10)})
+        del a, b, x, wide
+
+
+#: the blocked solve's phases as the knock-outs cut them: the comment or
+#: line that marks each in ``spd_solve.cu``; the statement after a marker
+#: (an ``if`` or ``for`` and its braces) is removed, the load's copy
+#: replaced by a store
+SPD_BLOCKED_PHASES = {"diagonal_warp": "float d2 = __shfl_sync(kFull, col[0], 0);",
+                      "strip": "// the strip: ",
+                      "trailing": "const int count = (ntiles - qd - 1) * G * G;",
+                      "back_substitution": "float* s_x = s_l;"}
+
+
+def _without_statement(src: str, marker: str) -> str:
+    """``src`` with the first ``if``/``for`` statement after ``marker`` cut."""
+    at = src.index(marker)
+    start = min(i for i in (src.find("  if (", at), src.find("  for (", at)) if i >= 0)
+    depth, i = 0, src.index("{", start)
+    while True:
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[:start] + src[i + 1:]
+        i += 1
+
+
+def spd_blocked_knockouts(torch, dev, source: str = SPD_SOURCE) -> None:
+    """Where the blocked solve's time goes: ``source`` built as it is and
+    once without each phase (SPD_BLOCKED_PHASES, and the copy of A), all
+    with ``nvcc -Xptxas -v`` at once, then each timed at n = WIDE_RANKS (B
+    = WIDE_SPD_B, CUDA events). A knock-out's answer is wrong; its time
+    less the whole kernel's is what that phase costs where nothing hides
+    it. Prints each build's registers and spills."""
+    import ctypes
+    import re
+
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    text = open(source).read()
+    variants = {"whole": text,
+                "load": text.replace("copy4(dst, a_g + static_cast<size_t>(r) * n + c);",
+                                     "*dst = 1.f;"),
+                **{name: _without_statement(text, marker)
+                   for name, marker in SPD_BLOCKED_PHASES.items()}}
+    tmp = tempfile.mkdtemp(prefix="spd_knockouts_")
+    procs = {}
+    for name, src in variants.items():
+        path = os.path.join(tmp, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"lib{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"knock-out {name} did not build: {log[-2000:]}")
+        blocked = log[log.index("spd_blocked_kernel"):]
+        emit({"phase": "spd_knockout", "variant": name,
+              "ptxas": re.findall(r"(\d+ bytes spill stores|Used \d+ registers)", blocked)[:2]})
+        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
+        lib.pio_spd_solve_blocked.argtypes = (
+            ck._EXTRA_ENTRIES["spd_solve"]["pio_spd_solve_blocked"])
+        libs[name] = lib
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for n in WIDE_RANKS:
+        a, b = wide_spd_systems(torch, gen, dev, WIDE_SPD_B, n, 2 * n)
+        x = torch.empty_like(b)
+        plan = ck.spd_launch_plan(WIDE_SPD_B, n, sm)
+        times = {}
+        for name, lib in libs.items():
+            def launch(lib=lib):
+                code = lib.pio_spd_solve_blocked(
+                    a.data_ptr(), b.data_ptr(), x.data_ptr(), WIDE_SPD_B, n, plan.nb,
+                    32 * plan.warps, plan.tiles, plan.blocks, plan.smem,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if code:
+                    raise AssertionError(f"knock-out {name} failed to launch: {code}")
+            times[name] = time_ms(torch, launch, 10, 2)
+        emit({"phase": "spd_knockout", "n": n, "ms": times,
+              "phase_ms": {k: times["whole"] - v for k, v in times.items() if k != "whole"}})
+        del a, b, x
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
     """The solve above n = 128, each case handed to ``held(name, case, out,
     ok)``: at n = 129, 200, 256 (B = 4,096) the plan, the blocked kernel
@@ -3133,10 +3259,7 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
     )
 
     def spd_systems(bsz, n, k):
-        g = torch.randn((bsz, k, n), generator=gen, device=dev)
-        a = torch.bmm(g.transpose(1, 2), g)
-        a += LAMBDA * k * torch.eye(n, device=dev)
-        return a, torch.randn((bsz, n), generator=gen, device=dev)
+        return wide_spd_systems(torch, gen, dev, bsz, n, k)
 
     def rel_err(x, ref):
         return float(((x - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)).max())

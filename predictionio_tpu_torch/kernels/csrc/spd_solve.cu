@@ -357,18 +357,162 @@ constexpr int kBlkThreads = 256;   // threads a block
 constexpr int kBlkMinBlocks = 4;   // launch bound: at most 64 registers
 
 // tiles of the upper triangle at t tiles a side, and the block's dynamic
-// shared memory in bytes: the tiles, L's panel rows [nb][t nb], y [t nb],
-// inv_d and z_j of the panel's steps [nb] each, and the tile table [tiles]
+// shared memory in bytes: the tiles, L's strip rows [nb][t nb], y [t nb], the
+// diagonal tile's L rows [nb][nb], inv_d and z_j of the panel's steps [nb]
+// each, and the tile table [tiles]
 __host__ __device__ constexpr long long blk_tiles(int t) {
   return static_cast<long long>(t) * (t + 1) / 2;
 }
 __host__ __device__ constexpr long long blk_smem_bytes(int t, int nb) {
-  return 4 * (blk_tiles(t) * nb * nb + static_cast<long long>(nb) * t * nb + t * nb + 2LL * nb +
-              blk_tiles(t));
+  return 4 * (blk_tiles(t) * nb * nb + static_cast<long long>(nb) * t * nb + t * nb + nb * nb +
+              2LL * nb + blk_tiles(t));
 }
 // index of tile (i, j), i <= j, row-major over the upper triangle of tiles
 __device__ __forceinline__ int blk_tile(int i, int j, int t) {
   return i * t - i * (i - 1) / 2 + (j - i);
+}
+
+// One 4-byte copy from device memory into shared memory (cp.async, L1 and
+// L2), so that a block has every copy of its system in flight at once.
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(src) : "memory");
+}
+
+// The lane's index in its warp, read from the hardware where it is used.
+__device__ __forceinline__ int lane_id() {
+  int id;
+  asm volatile("mov.u32 %0, %%laneid;" : "=r"(id));
+  return id;
+}
+
+// The 4-float group g of a shared row as four floats (16-byte aligned).
+__device__ __forceinline__ void load4(const float* row, int g, float* out) {
+  const float4 v = reinterpret_cast<const float4*>(row)[g];
+  out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+}
+
+// y_r with a panel's x taken off, j descending: y_r = fma(-U[r][j], x_j, y_r)
+// over the panel's NB columns of row r (urow) and its x (16-byte aligned).
+template <int NB>
+__device__ __forceinline__ float take_panel(const float* urow, const float* xp, float yr) {
+#pragma unroll
+  for (int g = NB / 4 - 1; g >= 0; --g) {
+    float u[4], xv[4];
+    load4(urow, g, u);
+    load4(xp, g, xv);
+#pragma unroll
+    for (int i = 3; i >= 0; --i) yr = __fmaf_rn(-u[i], xv[i], yr);
+  }
+  return yr;
+}
+
+// One panel's diagonal tile on one warp, lane c on column c (rows 0..c
+// held in registers): the TPU kernel's NB right-looking steps. Step j
+// publishes L's row j of the tile (l_c, 0 left of j) to s_ld for the strip,
+// and the step's inv_d and z_j; the lanes take each other's l by shuffle, and
+// the next pivot comes from its owner's own l (m_{j+1} = l_{j+1}: the bits of
+// its row update), so no step waits on shared memory. The tile's rows go back to shared memory (row j as updated by step j,
+// which back substitution reads), and y_p to s_yp.
+template <int NB>
+__device__ __forceinline__ void blk_panel(float* diag, float* s_yp, float* s_ld, float* s_inv,
+                                          float* s_z, int lane) {
+  const bool live = lane < NB;
+  float col[NB];
+#pragma unroll
+  for (int r = 0; r < NB; ++r) col[r] = live ? diag[r * NB + lane] : 0.f;
+  float yv = live ? s_yp[lane] : 0.f;
+  float d2 = __shfl_sync(kFull, col[0], 0);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float inv_d = d2 > 0.f ? rsqrtf(d2) : 0.f;
+    const float zj = __shfl_sync(kFull, yv, j) * inv_d;
+    const float l = lane >= j ? col[j] * inv_d : 0.f;
+    float* lrow = s_ld + j * NB;
+    if (live) lrow[lane] = l;
+    if (lane == 0) s_inv[j] = inv_d, s_z[j] = zj;
+    if (j + 1 < NB) d2 = __shfl_sync(kFull, __fmaf_rn(-l, l, col[j + 1]), j + 1);
+    const float mj = __shfl_sync(kFull, l, j) - 1.f;
+#pragma unroll
+    for (int r = j; r < NB; ++r) {
+      const float m = r == j ? mj : __shfl_sync(kFull, l, r);
+      if (r <= lane) col[r] = __fmaf_rn(-m, l, col[r]);
+    }
+    if (lane >= j) yv = __fmaf_rn(-(lane == j ? mj : l), zj, yv);
+  }
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < NB; ++r) {
+      if (r <= lane) diag[r * NB + lane] = col[r];
+    }
+    s_yp[lane] = yv;
+  }
+}
+
+// One strip column c of panel p (the panel's NB rows of column c, at tcol
+// with row pitch NB): the panel's NB steps against the diagonal tile's L rows
+// (s_ld), l_c of step j = U[j][c] * inv_d into L's buffer (lcol, row pitch
+// np), y_c = fma(-l_c, z_j, y_c). The regions are disjoint, so the next
+// step's loads need not wait on this step's stores.
+template <int NB>
+__device__ __forceinline__ float blk_strip(float* __restrict__ tcol, float* __restrict__ lcol,
+                                           int np, const float* __restrict__ s_ld,
+                                           const float* __restrict__ s_inv,
+                                           const float* __restrict__ s_z, float yc) {
+  float col[NB];
+#pragma unroll
+  for (int r = 0; r < NB; ++r) col[r] = tcol[r * NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float lc = col[j] * s_inv[j];
+    lcol[j * np] = lc;
+    float m[NB];
+#pragma unroll
+    for (int g = j / 4; g < NB / 4; ++g) load4(s_ld + j * NB, g, m + 4 * g);
+    const float mj = m[j] - 1.f;
+#pragma unroll
+    for (int r = j; r < NB; ++r) col[r] = __fmaf_rn(-(r == j ? mj : m[r]), lc, col[r]);
+    yc = __fmaf_rn(-lc, s_z[j], yc);
+  }
+#pragma unroll
+  for (int r = 0; r < NB; ++r) tcol[r * NB] = col[r];
+  return yc;
+}
+
+// One 4 x 4 register tile of the trailing update at tu (row pitch NB): U[r][c]
+// = fma(-l_r(k), l_c(k), U[r][c]) for k over the panel's NB steps ascending,
+// l_r from lr and l_c from lc (L's buffer, row pitch np); on the diagonal
+// (`upper`) only its upper part is stored.
+template <int NB>
+__device__ __forceinline__ void blk_update4(float* tu, const float* lr, const float* lc, int np,
+                                            bool upper) {
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) load4(tu + i * NB, 0, acc[i]);
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    float rv[4], cv[4];
+    load4(lr + k * np, 0, rv);
+    load4(lc + k * np, 0, cv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int jx = 0; jx < 4; ++jx) acc[i][jx] = __fmaf_rn(-rv[i], cv[jx], acc[i][jx]);
+    }
+  }
+  if (upper) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int jx = i; jx < 4; ++jx) tu[i * NB + jx] = acc[i][jx];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<float4*>(tu + i * NB) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  }
 }
 
 template <int NB>
@@ -376,14 +520,16 @@ __global__ void __launch_bounds__(kBlkThreads, kBlkMinBlocks)
 spd_blocked_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    float* __restrict__ x, int n, int t) {
   constexpr int TF = NB * NB;  // floats a tile, row-major
+  constexpr int G = NB / 4;    // 4 x 4 register tiles a tile side
   constexpr int kWarps = kBlkThreads / kWarp;
   extern __shared__ __align__(16) float smem[];
   const int np = t * NB;
   const int ntiles = t * (t + 1) / 2;
   float* s_u = smem;                   // the tiles of U
-  float* s_l = s_u + ntiles * TF;      // [NB][np]: row k holds l_c of the panel's step k
+  float* s_l = s_u + ntiles * TF;      // [NB][np]: row k, l_c of the panel's step k (strip)
   float* s_y = s_l + NB * np;          // [np]
-  float* s_inv = s_y + np;             // [NB] inv_d of the panel's steps
+  float* s_ld = s_y + np;              // [NB][NB]: row k, l_c of step k in the diagonal tile
+  float* s_inv = s_ld + TF;            // [NB] inv_d of the panel's steps
   float* s_z = s_inv + NB;             // [NB] z_j of the panel's steps
   int* s_ij = reinterpret_cast<int*>(s_z + NB);  // [ntiles] (I << 16) | J
   const size_t sys = blockIdx.x;
@@ -397,129 +543,66 @@ spd_blocked_kernel(const float* __restrict__ a, const float* __restrict__ b,
     s_ij[q] = (i << 16) | (i + r);
   }
   for (int c = tid; c < np; c += kBlkThreads) s_y[c] = c < n ? b[sys * n + c] : 0.f;
-  // the upper triangle, a warp a row; padding is the identity, and the part
-  // of a diagonal tile below the diagonal is 0 (never read)
+  // the upper triangle, a warp a row, copied without waiting on each load;
+  // padding is the identity, and the part of a diagonal tile below the
+  // diagonal is 0 (never read)
   const float* a_g = a + sys * n * n;
   for (int r = warp; r < np; r += kWarps) {
     const int ti = r / NB;
     for (int c = ti * NB + lane; c < np; c += kWarp) {
-      float v = r == c ? 1.f : 0.f;
-      if (c >= r && c < n) v = __ldg(a_g + static_cast<size_t>(r) * n + c);
-      s_u[blk_tile(ti, c / NB, t) * TF + (r % NB) * NB + c % NB] = v;
+      float* dst = s_u + blk_tile(ti, c / NB, t) * TF + (r % NB) * NB + c % NB;
+      if (c >= r && c < n) {
+        copy4(dst, a_g + static_cast<size_t>(r) * n + c);
+      } else {
+        *dst = r == c ? 1.f : 0.f;
+      }
     }
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  for (int p = 0; p < t; ++p) {
-    const int s = p * NB;
-    const int e = s + NB;
-    // the panel's diagonal tile: one warp, lane c on column c, the TPU
-    // kernel's NB steps with L's row published to s_l once a step
-    if (warp == 0) {
-      float* diag = s_u + blk_tile(p, p, t) * TF;
-      const bool live = lane < NB;
-      float col[NB];
-#pragma unroll
-      for (int r = 0; r < NB; ++r) col[r] = live ? diag[r * NB + lane] : 0.f;
-      float yv = live ? s_y[s + lane] : 0.f;
-      float d2 = __shfl_sync(kFull, col[0], 0);
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const float inv_d = d2 > 0.f ? rsqrtf(d2) : 0.f;
-        const float zj = __shfl_sync(kFull, yv, j) * inv_d;
-        const float l = lane >= j ? col[j] * inv_d : 0.f;
-        float* lrow = s_l + j * np + s;
-        if (live) lrow[lane] = l;
-        if (lane == 0) s_inv[j] = inv_d, s_z[j] = zj;
-        __syncwarp();
-        const float mj = lrow[j] - 1.f;
-#pragma unroll
-        for (int r = j; r < NB; ++r) {
-          const float m = r == j ? mj : lrow[r];
-          if (r <= lane) col[r] = __fmaf_rn(-m, l, col[r]);
-        }
-        if (lane >= j) yv = __fmaf_rn(-(lane == j ? mj : l), zj, yv);
-        if (j + 1 < NB) d2 = __shfl_sync(kFull, col[j + 1], j + 1);
+  // Panel p: its diagonal tile was stepped by warp 0 already (during panel
+  // p - 1's trailing update; panel 0's in the pass p = -1); the strip, then
+  // the trailing update by warps 1.. while warp 0 brings panel p + 1's
+  // diagonal tile up to date and steps it. Two barriers a panel.
+  for (int p = -1; p < t; ++p) {
+    const int e = (p + 1) * NB;  // the first column right of panel p
+    if (p >= 0) {
+      // the strip: the panel's rows right of it, a thread a column, the same
+      // steps against the diagonal warp's l and m, and y right of the panel
+      for (int c = e + tid; c < np; c += kBlkThreads) {
+        s_y[c] = blk_strip<NB>(s_u + blk_tile(p, c / NB, t) * TF + c % NB, s_l + c, np, s_ld,
+                               s_inv, s_z, s_y[c]);
       }
-      if (live) {
-#pragma unroll
-        for (int r = 0; r < NB; ++r) {
-          if (r <= lane) diag[r * NB + lane] = col[r];
-        }
-        s_y[s + lane] = yv;
-      }
+      __syncthreads();
     }
-    __syncthreads();
-    // the strip: the panel's rows right of it, a thread a column, the same
-    // steps against the diagonal warp's l and m, and y right of the panel
-    for (int c = e + tid; c < np; c += kBlkThreads) {
-      float* tcol = s_u + blk_tile(p, c / NB, t) * TF + c % NB;
-      float col[NB];
-#pragma unroll
-      for (int r = 0; r < NB; ++r) col[r] = tcol[r * NB];
-      float yc = s_y[c];
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        float* lrow = s_l + j * np;
-        const float lc = col[j] * s_inv[j];
-        lrow[c] = lc;
-        const float mj = lrow[s + j] - 1.f;
-#pragma unroll
-        for (int r = j; r < NB; ++r) col[r] = __fmaf_rn(-(r == j ? mj : lrow[s + r]), lc, col[r]);
-        yc = __fmaf_rn(-lc, s_z[j], yc);
-      }
-#pragma unroll
-      for (int r = 0; r < NB; ++r) tcol[r * NB] = col[r];
-      s_y[c] = yc;
-    }
-    __syncthreads();
     // the trailing update: every tile right of and below the panel, a 4 x 4
     // register tile a thread, k over the panel's steps ascending; a warp
     // takes two tiles' 32 register tiles, so its 16-byte loads of L's rows
     // touch 16 + 32 consecutive floats
     if (p + 1 < t) {
-      constexpr int G = NB / 4;  // register tiles a tile side
-      const int q0 = blk_tile(p + 1, p + 1, t);
-      const int count = (ntiles - q0) * G * G;
-      for (int f = tid; f < count; f += kBlkThreads) {
-        const int q = q0 + f / (G * G);
-        const int rg = f / G % G, cg = f % G;
-        const int ij = s_ij[q];
-        const int ti = ij >> 16, tj = ij & 0xffff;
-        if (ti == tj && rg > cg) continue;  // below the diagonal
-        float* tu = s_u + q * TF + 4 * rg * NB + 4 * cg;
-        const float* lr = s_l + ti * NB + 4 * rg;
-        const float* lc = s_l + tj * NB + 4 * cg;
-        float acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 v = *reinterpret_cast<const float4*>(tu + i * NB);
-          acc[i][0] = v.x, acc[i][1] = v.y, acc[i][2] = v.z, acc[i][3] = v.w;
+      const int qd = blk_tile(p + 1, p + 1, t);  // the next diagonal tile
+      if (warp == 0) {
+        // the lane id read here, not kept across the panel loop (64
+        // registers hold nothing more)
+        const int me = lane_id();
+        const int rg = me / G, cg = me % G;
+        if (p >= 0 && me < G * G && rg <= cg) {
+          blk_update4<NB>(s_u + qd * TF + 4 * rg * NB + 4 * cg, s_l + e + 4 * rg,
+                          s_l + e + 4 * cg, np, rg == cg);
         }
-#pragma unroll
-        for (int k = 0; k < NB; ++k) {
-          const float4 r4 = *reinterpret_cast<const float4*>(lr + k * np);
-          const float4 c4 = *reinterpret_cast<const float4*>(lc + k * np);
-          const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
-          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int jx = 0; jx < 4; ++jx) acc[i][jx] = __fmaf_rn(-rv[i], cv[jx], acc[i][jx]);
-          }
-        }
-        if (ti == tj && rg == cg) {  // only the upper part of the diagonal
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int jx = i; jx < 4; ++jx) tu[i * NB + jx] = acc[i][jx];
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            *reinterpret_cast<float4*>(tu + i * NB) =
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-          }
+        __syncwarp();
+        blk_panel<NB>(s_u + qd * TF, s_y + e, s_ld, s_inv, s_z, lane);
+      } else if (p >= 0) {
+        const int count = (ntiles - qd - 1) * G * G;
+        for (int f = tid - kWarp; f < count; f += kBlkThreads - kWarp) {
+          const int q = qd + 1 + f / (G * G);
+          const int rg = f / G % G, cg = f % G;
+          const int ij = s_ij[q];
+          const int ti = ij >> 16, tj = ij & 0xffff;
+          if (ti == tj && rg > cg) continue;  // below the diagonal
+          blk_update4<NB>(s_u + q * TF + 4 * rg * NB + 4 * cg, s_l + ti * NB + 4 * rg,
+                          s_l + tj * NB + 4 * cg, np, ti == tj && rg == cg);
         }
       }
     }
@@ -528,39 +611,43 @@ spd_blocked_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
   // Back substitution by panels from the last, one barrier a panel: warp 0
   // takes panel p + 1's x off the rows of panel p and then solves panel p,
-  // x_j = y_j * (d > 0 ? 1/d : 0) with j descending, each x_j taken off the
-  // panel's rows above j; meanwhile the other warps take panel p + 1's x off
-  // every row above panel p. Each y_r takes its x_j with j descending, as on
-  // the wide path. L's buffer holds x.
+  // x_j = y_j * (d > 0 ? 1/d : 0) with j descending (lane j forms its 1/d
+  // before the chain), each x_j taken off the panel's rows above j;
+  // meanwhile the other warps take panel p + 1's x off every row above panel
+  // p. Each y_r takes its x_j with j descending, as on the wide path. L's
+  // buffer holds x.
   float* s_x = s_l;
   for (int p = t - 1; p >= 0; --p) {
     const int s = p * NB;
     const int e = s + NB;
     if (warp == 0) {
+      // lane r holds row r of the diagonal tile (lanes past NB a copy of row
+      // 0, unused), so the chain is shuffles and FMAs only
       const float* diag = s_u + blk_tile(p, p, t) * TF;
-      float yv = lane < NB ? s_y[s + lane] : 0.f;
-      if (p + 1 < t && lane < NB) {
-        const float* urow = s_u + blk_tile(p, p + 1, t) * TF + lane * NB;
+      float urow[NB];
 #pragma unroll
-        for (int j = NB - 1; j >= 0; --j) yv = __fmaf_rn(-urow[j], s_x[e + j], yv);
+      for (int g = 0; g < NB / 4; ++g) load4(diag + (lane % NB) * NB, g, urow + 4 * g);
+      float yv = lane < NB ? s_y[s + lane] : 0.f;
+      const float d = lane < NB ? diag[lane * (NB + 1)] : 0.f;
+      const float dinv = d > 0.f ? 1.f / d : 0.f;
+      if (p + 1 < t && lane < NB) {
+        yv = take_panel<NB>(s_u + blk_tile(p, p + 1, t) * TF + lane * NB, s_x + e, yv);
       }
+      float xs = 0.f;
 #pragma unroll
       for (int j = NB - 1; j >= 0; --j) {
-        const float d = diag[j * NB + j];
-        const float xj = __shfl_sync(kFull, yv, j) * (d > 0.f ? 1.f / d : 0.f);
-        if (lane == j) {
-          s_x[s + j] = xj;
-          if (s + j < n) x[sys * n + s + j] = xj;
-        }
-        if (lane < j) yv = __fmaf_rn(-diag[lane * NB + j], xj, yv);
+        const float xj = __shfl_sync(kFull, yv * dinv, j);
+        if (lane == j) xs = xj;
+        if (lane < j) yv = __fmaf_rn(-urow[j], xj, yv);
+      }
+      if (lane < NB) {
+        s_x[s + lane] = xs;
+        if (s + lane < n) x[sys * n + s + lane] = xs;
       }
     } else if (p + 1 < t) {
       for (int r = tid - kWarp; r < s; r += kBlkThreads - kWarp) {
-        const float* urow = s_u + blk_tile(r / NB, p + 1, t) * TF + (r % NB) * NB;
-        float yr = s_y[r];
-#pragma unroll
-        for (int j = NB - 1; j >= 0; --j) yr = __fmaf_rn(-urow[j], s_x[e + j], yr);
-        s_y[r] = yr;
+        s_y[r] = take_panel<NB>(s_u + blk_tile(r / NB, p + 1, t) * TF + (r % NB) * NB, s_x + e,
+                                s_y[r]);
       }
     }
     __syncthreads();

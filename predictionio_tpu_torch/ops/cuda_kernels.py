@@ -834,12 +834,12 @@ SPD_BLOCKED_NB, SPD_BLOCKED_THREADS, SPD_BLOCKED_REGS = 16, 256, 64
 def spd_blocked_smem(n: int, nb: int = SPD_BLOCKED_NB) -> int:
     """Dynamic shared memory of a blocked-path block at system size ``n``
     (``blk_smem_bytes`` in the .cu): the t(t+1)/2 tiles of nb × nb floats of
-    the upper triangle at t = ceil(n / nb), L's panel rows ``[nb, t·nb]``, y
-    ``[t·nb]``, the panel's inv_d and z_j ``[nb]`` each, and the tile table
-    (an int a tile)."""
+    the upper triangle at t = ceil(n / nb), L's strip rows ``[nb, t·nb]``, y
+    ``[t·nb]``, the diagonal tile's L rows ``[nb, nb]``, the panel's inv_d and
+    z_j ``[nb]`` each, and the tile table (an int a tile)."""
     t = _cdiv(n, nb)
     tiles = t * (t + 1) // 2
-    return 4 * (tiles * nb * nb + nb * t * nb + t * nb + 2 * nb + tiles)
+    return 4 * (tiles * nb * nb + nb * t * nb + t * nb + nb * nb + 2 * nb + tiles)
 
 
 def _spd_blocked_max_n(nb: int) -> int:
