@@ -3969,7 +3969,8 @@ def wide_lines(wide: dict, name: str) -> dict:
     ``kernels`` line: each case's measured times, bound and launches."""
     keys = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms", "library_device_ms",
             "bound_us", "bound_by", "launches", "slices", "rows_kernel_ms", "rows_plain_ms",
-            "rows_library_ms", "rows_bound_us", "max_abs_err", "max_rel_err",
+            "rows_library_ms", "rows_bound_us", "max_abs_err", "max_rel_err", "abba_ms",
+            "equal_to_wide_kernel",
             "earlier_kernel_ms", "earlier_kernel_device_ms", "device_over_bound",
             "device_over_library", "device_over_earlier_kernel")
     return {case.split(":", 1)[1]: {k: out[k] for k in keys if k in out}
@@ -4103,7 +4104,9 @@ def main(argv=None) -> int:
         else:
             lines[-1].update(bound_whole_a_ms=it["bound_whole_a_ms"],
                              plan_n50=spd_plan(torch, dev, data["n_users"], RANK),
-                             attributes=kernels["spd_attributes"])
+                             attributes=kernels["spd_attributes"],
+                             users_bucket_R200=wide["kernels"]["cases"][
+                                 "spd_solve:users_bucket_R200"])
     ref = attn["shapes"]["train"]
     lines.append({
         "name": "flash_attention",
