@@ -20,10 +20,11 @@
 // chip_smoke.py against the plain PyTorch version on the card): a [B, n, n]
 // and b [B, n] f32, batch-major (the layout the gramian_fused kernel writes),
 // any B and any n >= 1: n up to kMaxN = 128 through pio_spd_solve, wider n
-// through pio_spd_solve_wide (the general-n path). The launch plan (path,
-// padded width, warps a block, blocks, shared memory) is spd_launch_plan's in
-// ops/cuda_kernels.py, which picks the path by n alone; each entry checks it
-// against its own arithmetic.
+// through pio_spd_solve_blocked while its tiles fit in shared memory (n <=
+// 304) and pio_spd_solve_wide above (the general-n path). The launch plan
+// (path, padded width, warps a block, blocks, shared memory) is
+// spd_launch_plan's in ops/cuda_kernels.py, which picks the path by n alone;
+// each entry checks it against its own arithmetic.
 //
 // Design, n <= 64 (the "registers" path; ALS at rank 50). One warp owns one
 // system, held in registers: lane c owns column c (slot 0) and column c + 32
@@ -55,7 +56,31 @@
 // walked one after another; back substitution reduces each row's dot product
 // across the warp with shuffles. Picked by n alone, never on a failure.
 //
-// Design, n > 128 (the "wide" path, the first version): one block a system,
+// Design, 128 < n <= 304 (the "blocked" path; ALS at ranks 129-304): one
+// block of 256 threads a system. The upper triangle, padded to t * 16
+// columns with the identity (b = 0 there: the first n components keep their
+// bits), sits in shared memory as 16 x 16 tiles (I <= J, each contiguous),
+// copied in with cp.async, every copy in flight at once. A panel is 16
+// columns: one warp runs the TPU kernel's 16 right-looking steps on the
+// diagonal tile in registers, lane c on column c, taking the other lanes' l
+// by shuffle; every thread then steps one column of the strip right of the
+// panel against the warp's l and m, writing L's rows to a buffer of their
+// own (row j of U after step j is not l: back substitution reads the stored
+// row, the trailing update l); then the trailing tiles take fma(-l_r(k),
+// l_c(k), U[r][c]) for k ascending, a 4 x 4 register tile a thread, while the
+// warp brings the next diagonal tile up to date first and steps it
+// (lookahead): two barriers a panel where the wide path has 2n. Back
+// substitution runs by panels, one barrier a panel: warp 0 solves the panel
+// (x_j = y_j * (d > 0 ? 1/d : 0), j descending, by shuffles), the others take
+// the previous panel's x off the rows above. Every element of U and y takes
+// the wide path's FMAs in the wide path's order, so the answer is the wide
+// kernel's bit for bit (chip_smoke.py holds them equal). What sets the pace
+// at n = 256 (one 157 KB block an SM): the warp's chain of 16 dependent steps
+// a panel, shuffle and rsqrt each, and the trailing update at about 60 % of
+// the FP32 rate (chip_smoke.py::spd_blocked_knockouts times each phase).
+// 64 registers, no local memory (its launch bound; 4 blocks an SM at n = 129).
+//
+// Design, n > 304 (the "wide" path, the first version): one block a system,
 // min(256, n rounded up to 32) threads, thread t owning columns t, t + T, ...
 // of U. The upper triangle is packed row by row (n(n+1)/2 floats) in shared
 // memory while it fits beside y and L's column (n <= 338 at 227 KB), and in
@@ -72,8 +97,10 @@
 // the upper triangle, b and x is B * (n(n+1)/2 + 2n) * 4 bytes, 0.91 GB an
 // iteration (0.271 ms, the bound); the whole A, which the first version read,
 // 1.72 GB (0.512 ms); the solve needs about B * (n^3/3 + 2n^2) FLOP, 7.7
-// GFLOP (0.11 ms). chip_smoke.py prints the bound of each launch, and the
-// whole A's for comparison, beside its time.
+// GFLOP (0.11 ms). At the wider systems the operations bound: 4,096 systems
+// take 45.8 / 168 / 350 us at n = 129 / 200 / 256, and the users' bucket of
+// ML-20M at rank 200 (97,972 systems) 4.02 ms. chip_smoke.py prints the
+// bound of each launch, and the whole A's for comparison, beside its time.
 // All arithmetic is fp32 on the CUDA cores.
 
 #include <cuda_runtime.h>

@@ -160,7 +160,10 @@ def emulate_spd_blocked(a, b, nb):
 
     then back substitution by panels from the last: rows r < e take panel
     p + 1's x (j descending), then the panel's own x_j = y_j·(d > 0 ? 1/d
-    : 0), j descending, each taken off the panel's rows above it."""
+    : 0), j descending, each taken off the panel's rows above it. (The
+    kernel steps panel p + 1's diagonal tile during panel p's trailing
+    update, once that tile's own trailing update is done: no element's
+    order changes.)"""
     a = np.asarray(a, np.float32)
     bsz, n = np.asarray(b).shape
     t = -(-n // nb)
