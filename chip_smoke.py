@@ -3126,7 +3126,7 @@ def wide_spd_systems(torch, gen, dev, bsz: int, n: int, k: int):
 
 def spd_blocked_variants(torch, dev, seed: int = 0) -> None:
     """The blocked solve alone at n = WIDE_RANKS (B = WIDE_SPD_B): its
-    registers, the plan, its bits against PR 12's wide kernel, and event
+    registers, the plan, its bits against the wide kernel, and event
     and device ms. Builds only the solve's library. To compare two kernel
     versions in one call, unpack the other tree under ``chip_compare/``
     (gitignored) and run this in each, A B B A: the inputs come from the
@@ -3242,10 +3242,10 @@ def spd_blocked_knockouts(torch, dev, source: str = SPD_SOURCE) -> None:
 def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
     """The solve above n = 128, each case handed to ``held(name, case, out,
     ok)``: at n = 129, 200, 256 (B = 4,096) the plan, the blocked kernel
-    bit for bit against PR 12's wide kernel on the same tensors (launched
+    bit for bit against the wide kernel on the same tensors (launched
     through ``plan=``) and within KERNEL_TOL of the plain version, then
     event and device times of the blocked kernel and ``cholesky_solve`` in
-    the order A B B A after a warm-up, PR 12's kernel's and the plain
+    the order A B B A after a warm-up, the wide kernel's and the plain
     version's beside them; both sides of the blocked path's ceiling; the
     zero-and-singular case; n = 400 on the wide path's scratch; and the
     users' K = 128 bucket at rank 200, built by ``gramian_fused`` in
@@ -3273,7 +3273,7 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
                 "blocks_per_sm": plan.blocks_per_sm, "waves": plan.waves}
 
     def against_wide(a, b, n):
-        """The plan, the solve, PR 12's kernel's solve on the same tensors
+        """The plan, the solve, the wide kernel's solve on the same tensors
         and the plain version's, with the checks every case holds."""
         bsz = a.shape[0]
         plan, wide = ck.spd_launch_plan(bsz, n, sm), ck.spd_wide_launch_plan(bsz, n, sm)
