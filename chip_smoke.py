@@ -1046,8 +1046,8 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
             out["plain_ms"] = time_ms(
                 torch, lambda: gramian_fused_reference(y, idx, w2, rhs, ridge, yty), 3, 1)
             out["library_ms"] = time_ms(torch, library, 3, 1)
-            out["kernel_device_ms"] = device_time(torch, kernel, 10)["ms"]
-            out["library_device_ms"] = device_time(torch, library, 3)["ms"]
+            out["kernel_device_ms"] = traced_device_ms(torch, kernel, 10)
+            out["library_device_ms"] = traced_device_ms(torch, library, 3)
             bound_ms, out["bound_by"] = gramian_bound(
                 b, k, n, r, valid, yty is not None)
             out["bound_us"] = bound_ms * 1e3
@@ -1080,8 +1080,8 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
             out["kernel_ms"] = time_ms(torch, kernel, 10, 2)
             out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 3, 1)
             out["library_ms"] = time_ms(torch, library, 3, 1)
-            out["kernel_device_ms"] = device_time(torch, kernel, 10)["ms"]
-            out["library_device_ms"] = device_time(torch, library, 3)["ms"]
+            out["kernel_device_ms"] = traced_device_ms(torch, kernel, 10)
+            out["library_device_ms"] = traced_device_ms(torch, library, 3)
             bound_ms, out["bound_by"] = spd_bound(bsz, n)
             out["bound_us"] = bound_ms * 1e3
             out["bound_whole_a_us"] = spd_bound(bsz, n, whole_a=True)[0] * 1e3
@@ -1125,9 +1125,10 @@ def phase_train_kernels(torch, dev, data: dict, seed: int) -> dict:
                 del a2, b2
             for name, out in (("gramian_fused", g_out), ("spd_solve", s_out)):
                 acc = per_iter[name]
-                for key in ("kernel_ms", "plain_ms", "library_ms",
-                            "kernel_device_ms", "library_device_ms"):
+                for key in ("kernel_ms", "plain_ms", "library_ms"):
                     acc[key] += out[key]
+                for key in ("kernel_device_ms", "library_device_ms"):  # null: a short trace
+                    acc[key] = None if None in (acc[key], out[key]) else acc[key] + out[key]
                 if name == "spd_solve":
                     acc["bound_whole_a_ms"] += out["bound_whole_a_us"] / 1e3
                 acc["bound_ms"] += out["bound_us"] / 1e3
