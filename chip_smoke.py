@@ -12,19 +12,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    library under ``predictionio_tpu_torch/native`` (bucketize, eventlog,
    idhash) with g++, one process per source, all at once (set-up time).
    A library that does not build fails the run.
-3. ``kernel``  — the streaming top-k kernel against its plain PyTorch
-   version on the card at the serving slice's shapes (B in {1, 64, 1024},
-   N = 27,000, R = 50, k = 16) and at the edge cases (64 exclusions,
-   k > N, rows with every item excluded, duplicated item rows, a catalog
-   whose scores rise with the index, a served batch of 512 at k = 128,
-   k = 1024, k = 2048; k = 4096 on 5,000 items, its lists merged in
-   shared memory, and k = N = 27,000 with 64 exclusions a query, merged in
-   device memory); scores agree to rtol 1e-5 / atol 1e-5 and ids are
-   equal or tied. Each case prints its launch plan (tiles
-   per stage-1 block, lists per query); each timed shape prints the
-   kernel's, the plain version's and ``torch.topk(q @ items.T)``'s times
-   per call (CUDA events) and, for the kernel and the library call, on
-   the device alone (``torch.profiler``), beside the bound.
+3. ``kernel``  — the top-k kernels' registers and local bytes
+   (``cudaFuncGetAttributes``: no local memory), then the streaming top-k
+   against its plain PyTorch version on the card at the serving slice's
+   shapes (B in {1, 64, 1024}, N = 27,000, R = 50, k = 16) and at the edge
+   cases (64 exclusions, k > N, rows with every item excluded, duplicated
+   item rows, a catalog whose scores rise with the index, a served batch
+   of 512 at k = 128; 128 < k <= 256 on the tiled running list: B = 64
+   and 1,024 at k = 256, k = 129, k = 200 with exclusions, ties, rising
+   scores, excluded rows, ranks 33 and 8; k = 1024, k = 2048; k = 4096 on
+   5,000 items, its lists merged in shared memory, and k = N = 27,000 with
+   64 exclusions a query, merged in device memory); scores agree to rtol
+   1e-5 / atol 1e-5 and ids are equal or tied, and every case equals bit
+   for bit the same call with stage 1 forced to sort every tile. Each
+   case prints its launch plan (stage-1 kernel, tiles per stage-1 block,
+   lists per query); each timed shape prints the kernel's, the plain
+   version's and ``torch.topk(q @ items.T)``'s times per call (CUDA
+   events) and, for the kernel, the per-tile sort and the library call,
+   on the device alone (``torch.profiler``), beside the bound.
 4. ``data``    — ML-20M-shaped synthetic ratings (a copy of ``bench.py``'s
    generator at scale 1 from ``--seed``, 5 % held out as the bench does),
    bucketized both ways and index-sorted by the native library (its
@@ -69,7 +74,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    against the plain version — the last burst's requests (and nothing
    else) under ``torch.profiler``, to show how busy the device was — then
    ``/status.json`` ``topkPath`` is streaming and the HTTP bursts launched
-   the kernel, and a direct 1,024-user ``batch_predict`` streams too. The
+   the kernel; one more burst whose ``num`` is drawn from 129–256 (k pads
+   to 256: the tiled running list) is held to the plain top-k with its
+   launches counted; a direct 1,024-user ``batch_predict`` streams too. The
    top-k kernel's launch count is reset just before the first burst and
    read after the last batch.
 
@@ -173,10 +180,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
 14. ``kernel_large`` — the top-k at B = 262,144 and at B = 600,000 (above
    one launch's 524,280 queries: two launches into one output), N =
    3,706, R = 16, k = 16, and at B = 32,768, k = 256 over 27,000 items
-   (the per-tile path, cut into launches whose scratch stays within the
-   wrapper's 2 GiB budget), held against the plain version in chunks (0
-   wrong ids outside ties) and timed beside the plain version (in those
-   chunks), ``torch.topk(q @ items.T)`` and the bound.
+   (one launch of the tiled running list, bit for bit the per-tile path's
+   answer, which is cut into launches whose scratch stays within the
+   wrapper's 2 GiB budget and timed beside it), held against the plain
+   version in chunks (0 wrong ids outside ties) and timed beside the
+   plain version (in those chunks), ``torch.topk(q @ items.T)`` and the
+   bound.
 
 15. ``wide`` — the general-width paths, over the events phase's store:
    the build at R = 129, 200, 256 at ML-20M's bucket shapes (the users'
@@ -637,6 +646,21 @@ def phase_build() -> None:
     })
 
 
+def check_topk_attributes(torch, dev) -> dict:
+    """Registers and spilled bytes of every top-k kernel
+    (``cudaFuncGetAttributes``); fails if any has local memory or the
+    tiled kernel more registers than two blocks an SM allow."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    attrs = ck.topk_kernel_attributes(dev)
+    emit({"phase": "kernel", "attributes": attrs})
+    spilled = {k: v["local_bytes"] for k, v in attrs.items() if v["local_bytes"]}
+    if spilled or attrs["running_list_tiled"]["regs"] > 65536 // (
+            ck.TOPK_TILED_BLOCKS_PER_SM * ck.TOPK_TILE_ITEMS):
+        raise AssertionError(f"top-k kernels spill or exceed their bound: {attrs}")
+    return attrs
+
+
 def phase_kernel(torch, dev, rng) -> dict:
     from predictionio_tpu_torch.ops.cuda_kernels import (
         top_k_streaming,
@@ -645,6 +669,7 @@ def phase_kernel(torch, dev, rng) -> dict:
     )
 
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    check_topk_attributes(torch, dev)
 
     def tensors(b, n, r, dup=False):
         q = rng.standard_normal((b, r), dtype=np.float32)
@@ -663,22 +688,29 @@ def phase_kernel(torch, dev, rng) -> dict:
         n = items.shape[0]
         e = 0 if excl is None else excl.shape[1]
         plan = topk_launch_plan(b, n, min(k, n), sm_count, r)
+        # the same call with stage 1 forced to sort every tile: one order
+        # of keys, one FMA chain a score, so the same bits
+        per_tile = top_k_streaming(q, items, k, excl, stage1="tile_sort")
+        equal = bool(torch.equal(got[0], per_tile[0]) and torch.equal(got[1], per_tile[1]))
         out = {"case": name, "B": b, "N": n, "R": r, "k": k, "E": e,
-               "T": plan.tiles_per_block, "n_runs": plan.n_runs,
-               "stage1": "running_list" if plan.stage1_smem else "tile_sort",
+               "T": plan.tiles_per_block, "n_runs": plan.n_runs, "stage1": plan.stage1,
                "merge_in": "shared" if plan.merge_smem else "global",
-               "max_abs_err": err, "agree": ok}
+               "max_abs_err": err, "agree": ok, "equal_to_tile_sort": equal}
+        ok = ok and equal
         if timed:
             calls = {
                 "kernel": lambda: top_k_streaming(q, items, k, excl),
                 "plain": lambda: top_k_streaming_reference(q, items, k, excl),
                 "library": lambda: torch.topk(q @ items.T, k, dim=1),
             }
+            if plan.stage1 != "tile_sort":
+                calls["tile_sort"] = lambda: top_k_streaming(q, items, k, excl,
+                                                             stage1="tile_sort")
             # per call (CUDA events: below about 25 us this is the host's
             # launch time), then the card's busy time alone
             for fn_name, fn in calls.items():
                 out[f"{fn_name}_ms"] = time_ms(torch, fn)
-            for fn_name in ("kernel", "library"):
+            for fn_name in [c for c in calls if c != "plain"]:
                 on_card = device_time(torch, calls[fn_name])
                 out[f"{fn_name}_device_ms"] = on_card.pop("ms")
                 out[f"{fn_name}_device"] = on_card
@@ -720,8 +752,20 @@ def phase_kernel(torch, dev, rng) -> dict:
     check("rising_scores", q_all[:16].abs().contiguous() + 0.5, rising, k)
     check("rising_scores_long_runs", q_all[:512].abs().contiguous() + 0.5, rising, k)
     # a full served batch (the server's batch_max rows) at k = 128, the
-    # widest k the running-list stage takes
+    # widest k of the one-item-a-thread running list
     check("B512_k128", q_all[:512].contiguous(), items, 128)
+    # 128 < k <= 256: the tiled running list (a served num of 129-256 pads
+    # to 256), each case also bit for bit the per-tile sort's answer
+    for b in (64, 1024):
+        main[f"k256_B{b}"] = check(f"k256_B{b}", q_all[:b].contiguous(), items, 256,
+                                   timed=True)
+    check("k129_B1024", q_all, items, 129)
+    check("k200_E64", q_all[:64].contiguous(), items, 200, torch.from_numpy(excl).to(dev))
+    check("k256_duplicated_rows_ties", dq, ditems, 256)
+    check("k256_rising_scores", q_all[:64].abs().contiguous() + 0.5, rising, 256)
+    check("k256_all_excluded_rows", eq, eitems, 256, torch.from_numpy(all_excl).to(dev))
+    for other_r in (33, 8):
+        check(f"k256_rank_{other_r}", *tensors(16, 3000, other_r), 256)
     check("k1024", q_all[:4].contiguous(), items, 1024, timed=True)
     check("k2048", q_all[:2].contiguous(), items, 2048)
     # k above the old ceiling of 2048, up to the catalog: a served num of
@@ -794,15 +838,29 @@ def topk_large_batches(torch, dev, rng) -> dict:
         line = {"case": f"large_B{b}_R{r}_k{k}", "B": b, "N": n, "R": r, "k": k,
                 "slices": slices, "launches": launches,
                 "scratch_bytes_per_launch": topk_scratch_bytes(plan),
-                "T": plan.tiles_per_block, "n_runs": plan.n_runs,
-                "stage1": "running_list" if plan.stage1_smem else "tile_sort",
-                "max_abs_err": err, "agree": ok, "wrong_ids_outside_ties": wrong,
+                "T": plan.tiles_per_block, "n_runs": plan.n_runs, "stage1": plan.stage1,
+                "max_abs_err": err, "agree": ok, "wrong_ids_outside_ties": wrong}
+        if plan.stage1 == "running_list_tiled":
+            # one launch at 128 < k <= 256, bit for bit the per-tile sort's
+            # answer, which is timed beside it
+            per_tile = lambda: top_k_streaming(q, items, k, stage1="tile_sort")  # noqa: E731
+            forced = per_tile()
+            line["equal_to_tile_sort"] = bool(torch.equal(got[0], forced[0])
+                                              and torch.equal(got[1], forced[1]))
+            ok = ok and line["equal_to_tile_sort"] and len(slices) == 1
+            del forced
+            n_slices = len(topk_batch_slices(b, n_items=n, k_eff=k, rank=r,
+                                             sm_count=sm_count, stage1="tile_sort"))
+            line["tile_sort_ms"] = time_ms(torch, per_tile, 3, 1)
+            line["tile_sort_device_ms"] = traced_device_ms(torch, per_tile, 2,
+                                                           9 * n_slices)
+        line.update({
                 "kernel_ms": time_ms(torch, kernel, 10, 2),
                 "kernel_device_ms": traced_device_ms(torch, kernel, 5, 2 * len(slices)),
                 "plain_chunked_ms": time_ms(torch, plain, 2, 1),
                 "library_ms": time_ms(torch, library, 5, 1),
                 "library_device_ms": traced_device_ms(torch, library, 3, 2),
-                "bound_us": bound_ms * 1e3, "bound_by": bound_by}
+                "bound_us": bound_ms * 1e3, "bound_by": bound_by})
         emit({"phase": "kernel", **line})
         if not ok or launches != len(slices):
             raise AssertionError(f"top-k at B = {b} disagrees with plain: {line}")
@@ -832,21 +890,21 @@ def topk_plan_variants(torch, dev, seed: int = 0, blocks_per_sm=(1, 2, 3, 4)) ->
               "B64_E64": (64, 16, excl), "B512_k128": (512, 128, None),
               "B4_k1024": (4, 1024, None)}
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    saved = ck.TOPK_RUN_MAX_KT, ck.TOPK_BLOCKS_PER_SM
-    variants = [("tile_sort", 0, saved[1])]
-    variants += [(f"running_list_{n_blocks}_per_sm", saved[0], n_blocks)
+    saved = ck.TOPK_BLOCKS_PER_SM
+    variants = [("tile_sort", "tile_sort", saved)]
+    variants += [(f"running_list_{n_blocks}_per_sm", None, n_blocks)
                  for n_blocks in blocks_per_sm]
     variants.append(variants[0])
     try:
-        for label, run_max_kt, n_blocks in variants:
-            ck.TOPK_RUN_MAX_KT, ck.TOPK_BLOCKS_PER_SM = run_max_kt, n_blocks
+        for label, stage1, n_blocks in variants:
+            ck.TOPK_BLOCKS_PER_SM = n_blocks
             ck.topk_launch_plan.cache_clear()
             for name, (b, k, ex) in shapes.items():
                 q = q_all[:b].contiguous()
-                err, ok = agreement(ck.top_k_streaming(q, items, k, ex),
+                err, ok = agreement(ck.top_k_streaming(q, items, k, ex, stage1),
                                     ck.top_k_streaming_reference(q, items, k, ex))
-                plan = ck.topk_launch_plan(b, n, k, sm_count, r)
-                fn = lambda: ck.top_k_streaming(q, items, k, ex)  # noqa: E731
+                plan = ck.topk_launch_plan(b, n, k, sm_count, r, stage1)
+                fn = lambda: ck.top_k_streaming(q, items, k, ex, stage1)  # noqa: E731
                 emit({"variant": label, "shape": name, "T": plan.tiles_per_block,
                       "n_runs": plan.n_runs, "agree": ok, "max_abs_err": err,
                       "kernel_ms": time_ms(torch, fn),
@@ -854,8 +912,200 @@ def topk_plan_variants(torch, dev, seed: int = 0, blocks_per_sm=(1, 2, 3, 4)) ->
                 if not ok:
                     raise AssertionError(f"{label} disagrees with plain at {name}")
     finally:
-        ck.TOPK_RUN_MAX_KT, ck.TOPK_BLOCKS_PER_SM = saved
+        ck.TOPK_BLOCKS_PER_SM = saved
         ck.topk_launch_plan.cache_clear()
+
+
+#: the shapes of :func:`topk_k256_variants`: (name, B, k) over ML-20M's
+#: catalog at rank 50, and the k <= 128 shapes whose times must not move
+TOPK_K256_SHAPES = (("B64_k256", 64, 256), ("B1024_k256", 1024, 256),
+                    ("B1024_k129", 1024, 129), ("B32768_k256", 32768, 256),
+                    ("B1024_k16", 1024, 16), ("B512_k128", 512, 128))
+#: the stage-1 kernels it times, A B B A (the first one again at the end)
+TOPK_K256_ORDER = ("tile_sort", "running_list", "running_list_tiled",
+                   "running_list_tiled", "running_list", "tile_sort")
+
+
+def topk_k256_variants(torch, dev, seed: int = 0) -> None:
+    """Not a phase of the run: the top-k at 128 < k <= 256 under each
+    stage-1 kernel, for PERF.md. Builds only the top-k library, prints its
+    kernels' registers and local bytes, then for each of
+    ``TOPK_K256_SHAPES`` (N = 27,000, R = 50) holds the plan's answer bit
+    for bit to every forced kernel's (``torch.equal``) and to the plain
+    version, and times the kernels in the order ``TOPK_K256_ORDER`` (event
+    and device ms). At k <= 128 the plan's own kernel is the one-item
+    running list; the tiled kernel is timed there too. To compare two trees
+    in one call, unpack the other under ``chip_compare/`` and run this in
+    each, A B B A."""
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    build.build_all(["topk_streaming"])
+    emit({"phase": "topk_variant", "tree": os.path.basename(os.getcwd()),
+          "attributes": ck.topk_kernel_attributes(dev),
+          "blocks_per_sm_at_k256_R50": {
+              stage1: ck.topk_blocks_per_sm(stage1, ck.topk_launch_plan(
+                  64, 27000, 256, 132, 50, stage1).stage1_smem, dev)
+              for stage1 in ck.TOPK_STAGE1[1:]}})
+    rng = np.random.default_rng(seed)
+    n, r = 27000, 50
+    q_all = torch.from_numpy(rng.standard_normal((32768, r), dtype=np.float32)).to(dev)
+    items = torch.from_numpy(rng.standard_normal((n, r), dtype=np.float32)).to(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, b, k in TOPK_K256_SHAPES:
+        q = q_all[:b].contiguous()
+        got = ck.top_k_streaming(q, items, k)
+        want = ck.top_k_streaming_reference(q, items, k)
+        err, ok = agreement(got, want)
+        line = {"phase": "topk_variant", "tree": os.path.basename(os.getcwd()),
+                "shape": name, "B": b, "k": k, "agree": ok, "max_abs_err": err,
+                "wrong_ids_outside_ties": wrong_outside_ties(got, want),
+                "plan": ck.topk_launch_plan(b, n, k, sm, r).stage1, "stage1": {}}
+        del want
+        for stage1 in TOPK_K256_ORDER[:3]:
+            other = ck.top_k_streaming(q, items, k, stage1=stage1)
+            plan = ck.topk_launch_plan(b, n, k, sm, r, stage1)
+            line["stage1"][stage1] = {
+                "T": plan.tiles_per_block, "n_runs": plan.n_runs,
+                "slices": len(ck.topk_batch_slices(b, n_items=n, k_eff=k, rank=r,
+                                                   sm_count=sm, stage1=stage1)),
+                "equal": bool(torch.equal(got[0], other[0]) and torch.equal(got[1], other[1])),
+                "ms": [], "device_ms": []}
+            del other
+        try:  # where the plan's call spends the card's time
+            line["top_device_ops"] = device_time(
+                torch, lambda: ck.top_k_streaming(q, items, k), 3)["top_device_ops"]
+        except AssertionError:
+            line["top_device_ops"] = None
+        for stage1 in TOPK_K256_ORDER:
+            fn = lambda: ck.top_k_streaming(q, items, k, stage1=stage1)  # noqa: E731
+            big = b * k > (1 << 22)
+            line["stage1"][stage1]["ms"].append(time_ms(torch, fn, 5 if big else 30,
+                                                        1 if big else 3))
+            line["stage1"][stage1]["device_ms"].append(
+                traced_device_ms(torch, fn, 3 if big else 20))
+        emit(line)
+        if not ok or not all(v["equal"] for v in line["stage1"].values()):
+            raise AssertionError(f"top-k stage-1 kernels disagree at {name}: {line}")
+        del got
+
+
+#: the tiled kernel's phases as the knock-outs cut them: (anchor, marker,
+#: replacement) — the first ``marker`` after ``anchor`` in the .cu is
+#: replaced, or with no replacement the first ``if``/``for`` statement after
+#: it is removed. ``scoring`` keeps one rank of each staged chunk (the scores
+#: stay random, so the selection sees the same traffic), ``load`` reads a
+#: hash of the index instead of the item table.
+TOPK_TILED_PHASES = {
+    "scoring": ("topk_run_tiled_kernel(",
+                "score_step_chunk(acc, s_items, s_qT, start, r0 - start, rc, t);",
+                "score_step_chunk(acc, s_items, s_qT, start, rc - 1, rc, t);"),
+    "load": ("void load_step_chunk(", "items[(size_t)gi * R + r0 + rr]",
+             "__int_as_float(0x3f800000u | ((gi * 2654435761u + rr * 40503u) >> 9))"),
+    "gather": ("void select_slice(", "int* nxt_i = s_li + (cur ^ 1) * kTileQueries * kt;",
+               None),
+    "flush": ("void select_slice(", "p_max = max(p_max, pending(pend, qi));", None),
+    "dense_sort": ("void dense_slice(", "warp_sort<H>(s, i, lane);", ""),
+    "dense_merge": ("void dense_slice(",
+                    "place_four(cs, ci, ls, li, kt, ns, ni, kt, 0, lane);\n"
+                    "  place_four(cs, ci, ls, li, kt, ns, ni, kt, 4, lane);\n"
+                    "  place_four(ls, li, cs, ci, kt, ns, ni, kt, 0, lane);\n"
+                    "  place_four(ls, li, cs, ci, kt, ns, ni, kt, 4, lane);", ""),
+    "store": ("topk_run_tiled_kernel(", "const float* fin_s = s_ls", None),
+}
+
+
+def topk_k256_knockouts(torch, dev, source: str = TOPK_SOURCE) -> None:
+    """Where the tiled kernel's time goes at k = 256 (N = 27,000, R = 50,
+    B = 64, 1,024 and 32,768): ``source`` built as it is and once without each
+    phase, all with ``nvcc -Xptxas -v`` at once, then each launched with
+    the plan's own tiled plan (CUDA events). ``scoring`` keeps one rank of
+    each staged chunk (the scores stay random, so the selection sees the
+    same traffic), ``load`` reads a hash of the index instead of the item
+    table, the rest cut or replace a statement (``TOPK_TILED_PHASES``). A knock-out's
+    answer is wrong; its time less the whole kernel's is what that phase
+    costs where nothing hides it. The one-item running list and the
+    per-tile sort are timed beside them from the whole build."""
+    import ctypes
+    import re
+
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    text = open(source).read()
+    variants = {"whole": text}
+    for name, (anchor, marker, replacement) in TOPK_TILED_PHASES.items():
+        at = text.index(marker, text.index(anchor))
+        if replacement is not None:
+            variants[name] = text[:at] + replacement + text[at + len(marker):]
+            continue
+        cut = text[:at] + _without_statement(text[at:], marker)
+        # a loop cut after its unroll pragma leaves the pragma on no loop
+        variants[name] = re.sub(r"#pragma unroll\n(?!\s*for)", "", cut)
+    tmp = tempfile.mkdtemp(prefix="topk_knockouts_")
+    procs = {}
+    for name, src in variants.items():
+        path = os.path.join(tmp, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"lib{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"knock-out {name} did not build: {log[-2000:]}")
+        tiled = log[log.index("topk_run_tiled_kernel"):]
+        emit({"phase": "topk_knockout", "variant": name,
+              "ptxas": re.findall(r"(\d+ bytes spill stores|Used \d+ registers)", tiled)[:2]})
+        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
+        lib.pio_topk_streaming.argtypes = ck._TOPK_ARGTYPES
+        libs[name] = lib
+    rng = np.random.default_rng(0)
+    n, r, k = 27000, 50, 256
+    items = torch.from_numpy(rng.standard_normal((n, r), dtype=np.float32)).to(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in (64, 1024, 32768):
+        q = torch.from_numpy(rng.standard_normal((b, r), dtype=np.float32)).to(dev)
+        out_s = torch.empty((b, k), device=dev)
+        out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+        times = {}
+        for stage1 in ck.TOPK_STAGE1:
+            plan = ck.topk_launch_plan(b, n, k, sm, r, stage1)
+            if topk_scratch_fits(plan):
+                scratch = torch.empty((4, b * plan.n_runs * plan.kt), device=dev)
+                for name, lib in (libs.items() if stage1 == "running_list_tiled"
+                                  else [("whole", libs["whole"])]):
+                    def launch(lib=lib, plan=plan, scratch=scratch, name=name):
+                        step = 4 * scratch.shape[1]
+                        base = scratch.data_ptr()
+                        code = lib.pio_topk_streaming(
+                            q.data_ptr(), items.data_ptr(), None, b, n, r, 0, k, plan.kt,
+                            plan.n_tiles, plan.tiles_per_block, plan.n_runs,
+                            ck.TOPK_STAGE1.index(plan.stage1), plan.stage1_smem,
+                            plan.merge_smem, plan.merge_threads, base, base + step,
+                            base + 2 * step, base + 3 * step, out_s.data_ptr(),
+                            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                        if code:
+                            raise AssertionError(f"knock-out {name} failed to launch: {code}")
+                    label = name if stage1 == "running_list_tiled" else stage1
+                    times[label] = time_ms(torch, launch, 5 if b > 1024 else 20, 1)
+                del scratch
+        emit({"phase": "topk_knockout", "B": b, "k": k, "ms": times,
+              "phase_ms": {name: times["whole"] - times[name]
+                           for name in variants if name != "whole"}})
+        del q, out_s, out_i
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def topk_scratch_fits(plan) -> bool:
+    """Whether one launch of ``plan`` keeps its scratch within the
+    wrapper's budget (the knock-outs launch whole batches, unsliced)."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    return ck.topk_scratch_bytes(plan) <= ck.TOPK_MAX_SCRATCH_BYTES
 
 
 def phase_data(torch, dev, seed: int, scale: float = 1.0) -> dict:
@@ -1526,22 +1776,22 @@ def phase_slice(torch, dev, seed: int, registry, instance_id: str) -> dict:
     try:
         port = server.bound_port
 
-        def burst():
-            """One burst of concurrent queries: (users, bodies,
-            answers, wall seconds)."""
+        def burst(num_of=lambda j: 1 + j % 50, max_num=50):
+            """One burst of concurrent queries (``num_of(j)`` items for
+            the j-th known user): (users, bodies, answers, wall seconds)."""
             users = rng.choice(n_users, size=HTTP_QUERIES - 2, replace=False)
-            bodies = [{"user": f"u{u}", "num": 1 + j % 50}
+            bodies = [{"user": f"u{u}", "num": num_of(j)}
                       for j, u in enumerate(users)]
             bodies += [{"user": "nobody-1", "num": 5},
-                       {"user": "nobody-2", "num": 50}]
+                       {"user": "nobody-2", "num": max_num}]
             t_burst = time.monotonic()
             with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
                 answers = list(pool.map(lambda b: _post_query(port, b), bodies))
             return users, bodies, answers, time.monotonic() - t_burst
 
-        def checked(rnd, users, bodies, answers, wall):
+        def checked(rnd, users, bodies, answers, wall, max_num=50):
             """Every answer of a burst against the plain version."""
-            want_s, want_i = plain(users.tolist(), 50)
+            want_s, want_i = plain(users.tolist(), max_num)
             bad = []
             for j, (body, (status, data, _)) in enumerate(zip(bodies, answers)):
                 if status != 200:
@@ -1569,6 +1819,14 @@ def phase_slice(torch, dev, seed: int, registry, instance_id: str) -> dict:
         # the time goes; its answers are checked after the profiler
         profiled = device_profile(torch, burst)
         rounds.append(checked(HTTP_ROUNDS, *profiled.pop("result")))
+        # a burst whose num is drawn from 129-256: the micro-batcher pads k
+        # to 256, the tiled running list's path
+        nums = rng.integers(129, 257, size=HTTP_QUERIES)
+        before = top_k_streaming.launches
+        wide_k = checked("num_129_256", *burst(lambda j: int(nums[j]), 256), max_num=256)
+        wide_k["launches"] = top_k_streaming.launches - before
+        if wide_k["launches"] < 1:
+            raise AssertionError("the num 129-256 burst launched the kernel 0 times")
         http_launches = top_k_streaming.launches
         status = _get_json(port, "/status.json")
         paths = set((status.get("topkPath") or {}).values())
@@ -1620,6 +1878,7 @@ def phase_slice(torch, dev, seed: int, registry, instance_id: str) -> dict:
         "http": rounds,
         "http_profiled": profiled,
         "http_launches": http_launches,
+        "http_num_129_256": wide_k,
         "status_topkPath": status.get("topkPath"),
         "status_stats": status.get("stats"),
         "batching": status.get("batching"),
@@ -4038,6 +4297,8 @@ def main(argv=None) -> int:
                   np.random.default_rng(args.seed + 7))
     emit({"phase_seconds": seconds})
 
+    from predictionio_tpu_torch.ops.cuda_kernels import topk_kernel_attributes
+
     ref = main_shapes[1024]
     bound_ms, bound_by = topk_bound(ref["B"], ref["N"], ref["R"], ref["k"])
     lines = [{
@@ -4073,6 +4334,17 @@ def main(argv=None) -> int:
             "B", "N", "k", "E", "T", "n_runs", "merge_in", "kernel_ms", "kernel_device_ms",
             "plain_ms", "library_ms", "library_device_ms", "bound_us", "bound_by",
             "max_abs_err")} for name in ("k4096_N5000", "k_eq_N27000_E64")},
+        # 128 < k <= 256 on the tiled running list, the per-tile sort of
+        # the same call beside it
+        "k256": {**{name: {k: main_shapes[name][k] for k in (
+            "B", "N", "k", "T", "n_runs", "stage1", "kernel_ms", "kernel_device_ms",
+            "tile_sort_ms", "tile_sort_device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_us", "bound_by", "max_abs_err",
+            "equal_to_tile_sort")} for name in ("k256_B64", "k256_B1024")},
+            "large_B32768": {k: v for k, v in large["large_B32768_R50_k256"].items()
+                             if k not in ("case", "agree", "slices")},
+            "served_num_129_256": sliced["http_num_129_256"]},
+        "attributes": topk_kernel_attributes(dev),
     }]
     for name, source, replaces in (
         ("gramian_fused", GRAMIAN_SOURCE, GRAMIAN_REPLACES),

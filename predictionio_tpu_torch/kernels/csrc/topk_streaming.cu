@@ -52,9 +52,34 @@
 //         three rounds, and the result merges with the running list by rank.
 //     In random order tile t of a run expects about kt/(t-1) survivors per
 //     query, so a run of T tiles sorts one tile and filters the rest.
-//   Stage 1, k > 128 (topk_tile_kernel): one block per (8-query tile x item
+//   Stage 1, 128 < k <= 256 (topk_run_tiled_kernel): the same running list,
+//     up to kt = 256 (kRunMaxKt), with a register-tiled scoring core and a
+//     lazy merge. A block scores a step of 4 tiles (1,024 items) at a time:
+//     each thread owns 4 consecutive items x 8 queries (32 accumulators),
+//     reads its 4 item values of a rank as one 16-byte load and the 8 q values
+//     as two broadcasts, so 32 FMAs take 3 shared loads (8 per 3 in
+//     topk_run_kernel). The step's ranks come 8 at a time (a [8][1028] chunk,
+//     32 values a thread in flight; a step's first chunk comes by cp.async
+//     while the step before is selected). The step's 1,024 candidates are
+//     then selected as 4 slices of 256 (slice c: items 4t + c), in order, into
+//     one list of kt keys a query for the whole run (select_slice). Rewriting
+//     a list of 256 for every sparse slice is what bound this path when it
+//     ran topk_run_kernel's merge (knock-outs in PERF.md), so a sparse
+//     slice's survivors wait in a pending buffer of 128 a query, and the
+//     lists are rewritten only once some query holds more than 64 of them, or
+//     at the end of the run (merge_pending: the pending keys sorted in
+//     registers, every key placed by binary search). The threshold stays the
+//     list's last key, so no pending key is lost. A slice that only gathers
+//     takes one barrier. A slice is dense only above 64 survivors in some
+//     query: then warp w sorts query w's 256 candidates in registers (a
+//     bitonic network, eight a lane) and merges them with the list by rank;
+//     the run's first slice becomes the list directly. A run is a whole
+//     number of steps (T a multiple of 4) or the whole catalog. Either
+//     running-list kernel can be launched at any k <= 256 (the plan picks
+//     topk_run_kernel up to 128 and this one above).
+//   Stage 1, k > 256 (topk_tile_kernel): one block per (8-query tile x item
 //     tile), T = 1: a bitonic sort of the 256 candidates in shared memory, the
-//     best kt = min(k, 256) kept.
+//     best kt = 256 kept. It also answers any smaller kt when the plan asks.
 //   Stage 2: a query's n_runs sorted lists merge as a tree: all pairs of a
 //     round at once, each key placed at its position plus its rank in the
 //     sibling list and dropped past k, in ceil(log2(n_runs)) rounds. A node's
@@ -73,7 +98,7 @@
 // query's lists hold at most span = n_runs * kt <= 2^29 keys (a round's key
 // count stays below 2^30); every offset across queries is size_t. The store
 // strides over at most 65,535 blocks a query, so K is not bound by the grid.
-// At kt > 128 stage 1 keeps every tile's list, about 8 N bytes a query: the
+// At kt > 256 stage 1 keeps every tile's list, about 8 N bytes a query: the
 // wrapper cuts the batch so that one launch's scratch stays within a fixed
 // budget (ops/cuda_kernels.py::topk_batch_slices).
 //
@@ -81,12 +106,15 @@
 // k = 16; H100 SXM data sheet: 3.35 TB/s, fp32 outside the tensor cores about
 // 67 TFLOP/s): one batch reads the 5.4 MB item table once (about 1.6 us);
 // B = 64 is 0.17 GFLOP (about 2.6 us), B = 1024 is 2.8 GFLOP (about 41 us), so
-// large batches are bound by fp32 FMAs. What holds stage 1 above that bound is
-// the shared-memory path, not the FMAs: a thread computes 1 item x 8 queries,
-// three shared-memory loads for every 8 FMAs, and stages every item value
-// with a load and a store of its own. Measured times are in PERF.md. A
-// register tile of 4 items x 8 queries, asynchronous tile copies and a
-// tensor-core product on an exact fp32 split are later work.
+// large batches are bound by fp32 FMAs. What holds topk_run_kernel above that
+// bound is the shared-memory path, not the FMAs: a thread computes 1 item x 8
+// queries, three shared-memory loads for every 8 FMAs, and stages every item
+// value with a load and a store of its own. Each block of 8 queries reads the
+// whole table from L2 once a run, 4 bytes for 16 FLOP, and at large batches
+// that traffic, not the FMAs, bounds topk_run_tiled_kernel. Measured times
+// are in PERF.md.
+// Asynchronous tile copies and a tensor-core product on an exact fp32 split
+// are later work.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -99,7 +127,7 @@ constexpr int kTileQueries = 8;    // queries per stage-1 block
 constexpr int kRankChunk = 16;     // ranks staged in shared memory per step
 constexpr int kItemStride = kTileItems + 1;  // staged chunk row, bank-skewed
 constexpr int kMaxK = 536870912;  // 2^29
-constexpr int kRunMaxKt = 128;     // the running-list path takes kt up to this
+constexpr int kRunMaxKt = 256;     // the running-list kernels take kt up to this
 constexpr int kSparseMax = 32;     // survivors per query a sparse merge takes
 constexpr int kMergeThreads = 256;        // per block of a merge round
 constexpr int kMergeThreadsLarge = 1024;  // the most the one-block merge takes
@@ -113,6 +141,23 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 static_assert(kTileItems / 32 == kTileQueries,
               "stage 1 merges one query per warp");
 static_assert(kRankChunk == 16, "load_chunk splits a thread index by 16");
+
+// topk_run_tiled_kernel: a step of kStepTiles tiles, 4 items a thread, its
+// ranks staged kTiledChunk at a time in rows of kStepStride floats (the
+// 4-float skew puts the 8 ranks x 4 items of a warp's store in 32 banks).
+constexpr int kStepTiles = 4;
+constexpr int kStepItems = kStepTiles * kTileItems;
+constexpr int kTiledChunk = 8;
+constexpr int kStepStride = kStepItems + 4;
+constexpr int kTiledLoads = kStepItems * kTiledChunk / kTileItems;  // a thread's
+constexpr int kTiledBlocksPerSm = 2;  // its launch bound: up to 128 registers
+constexpr int kExWordsTiled = kStepItems / 32;  // exclusion words a query a step
+// A slice of the tiled kernel is dense above kTiledSparseMax survivors in some
+// query; up to 2 x that many keys a query wait in its pending buffer.
+constexpr int kTiledSparseMax = 64;
+constexpr int kPendMax = 2 * kTiledSparseMax;
+static_assert(kStepTiles == 4 && kTiledChunk == 8,
+              "load_step_chunk splits a thread index by 8, 4 items a thread");
 
 // True when (sa, ia) ranks ahead of (sb, ib): higher score, then lower index.
 __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
@@ -232,17 +277,129 @@ __device__ __forceinline__ void score_chunk(float (&acc)[kTileQueries],
   }
 }
 
-// The ranks are walked in chunks of 16. When R >= 16 is no multiple of 16 the
-// last chunk is staged from rank R - 16, full width like the others (it reads
-// again some ranks of the chunk before it), and scored from its first new
-// rank; so every staged chunk takes the fast split, and each score still sums
-// ranks 0..R-1 in order. chunk_start is where the chunk that covers the ranks
-// from r0 is staged from, chunk_width how many ranks it holds.
+// The ranks are walked in chunks of C (16, or 8 in the tiled kernel). When
+// R >= C is no multiple of C the last chunk is staged from rank R - C, full
+// width like the others (it reads again some ranks of the chunk before it),
+// and scored from its first new rank; so every staged chunk takes the fast
+// split, and each score still sums ranks 0..R-1 in order. chunk_start is where
+// the chunk that covers the ranks from r0 is staged from, chunk_width how many
+// ranks it holds.
+template <int C>
 __device__ __forceinline__ int chunk_start(int R, int r0) {
-  return (R >= kRankChunk && R - r0 < kRankChunk) ? R - kRankChunk : r0;
+  return (R >= C && R - r0 < C) ? R - C : r0;
 }
 
-__device__ __forceinline__ int chunk_width(int R) { return min(kRankChunk, R); }
+template <int C>
+__device__ __forceinline__ int chunk_width(int R) { return min(C, R); }
+
+// The tiled kernel's rank chunk: [1024 items][8 ranks] of the step, through
+// registers like load_chunk's. Thread t takes rank t % 8 of items t / 8 + 32 m,
+// m = 0..31: eight lanes read one item's 32-byte piece of its row, a warp four
+// items. Rows past N read as 0. A chunk of fewer ranks (R < 8) splits element
+// l = t + 256 m (m < 4 rc) into item l / rc, rank l % rc.
+__device__ __forceinline__ void load_step_chunk(float (&pre)[kTiledLoads],
+                                                const float* __restrict__ items,
+                                                int step0, int N, int R, int r0,
+                                                int rc, int t) {
+  if (rc == kTiledChunk) {
+    const int rr = t & (kTiledChunk - 1);
+#pragma unroll
+    for (int m = 0; m < kTiledLoads; ++m) {
+      const int gi = step0 + (t >> 3) + 32 * m;
+      pre[m] = gi < N ? items[(size_t)gi * R + r0 + rr] : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kTiledLoads; ++m) {
+      if (m < 4 * rc) {
+        const int l = t + m * kTileItems;
+        const int it = l / rc;
+        const int gi = step0 + it;
+        pre[m] = gi < N ? items[(size_t)gi * R + r0 + (l - it * rc)] : 0.f;
+      }
+    }
+  }
+}
+
+// Writes the step's chunk to s_items[rank][item] (row stride kStepStride).
+__device__ __forceinline__ void store_step_chunk(float* s_items,
+                                                 const float (&pre)[kTiledLoads],
+                                                 int rc, int t) {
+  if (rc == kTiledChunk) {
+    const int rr = t & (kTiledChunk - 1);
+#pragma unroll
+    for (int m = 0; m < kTiledLoads; ++m) {
+      s_items[rr * kStepStride + (t >> 3) + 32 * m] = pre[m];
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kTiledLoads; ++m) {
+      if (m < 4 * rc) {
+        const int l = t + m * kTileItems;
+        const int it = l / rc;
+        s_items[(l - it * rc) * kStepStride + it] = pre[m];
+      }
+    }
+  }
+}
+
+// The step's first rank chunk (ranks 0..rc-1) straight to shared memory with
+// cp.async, in store_step_chunk's places, 4 bytes an element (rows past N are
+// zero-filled). It is issued after the previous step's last chunk was read and
+// lands while that step's slices are selected, so no register holds it then.
+__device__ __forceinline__ void copy_first_chunk_async(float* s_items,
+                                                       const float* items,
+                                                       int step0, int N, int R,
+                                                       int rc, int t) {
+#pragma unroll
+  for (int m = 0; m < kTiledLoads; ++m) {
+    int it = (t >> 3) + 32 * m;
+    int rr = t & (kTiledChunk - 1);
+    if (rc != kTiledChunk) {
+      if (m >= 4 * rc) break;
+      const int l = t + m * kTileItems;
+      it = l / rc;
+      rr = l - it * rc;
+    }
+    const int gi = step0 + it;
+    const float* src = items + (gi < N ? (size_t)gi * R + rr : 0);
+    const unsigned dst = static_cast<unsigned>(
+        __cvta_generic_to_shared(s_items + rr * kStepStride + it));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(gi < N ? 4 : 0));
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Adds ranks [first, rc) of the staged step chunk (which starts at rank r0) to
+// the calling thread's 4 x 8 dot products: items 4t..4t+3 (one 16-byte load a
+// rank) with the block's 8 queries (two 16-byte broadcasts).
+__device__ __forceinline__ void score_step_chunk(
+    float (&acc)[kStepTiles][kTileQueries], const float* s_items,
+    const float* q_t, int r0, int first, int rc, int t) {
+  const float* qrow = q_t + (size_t)r0 * kTileQueries;
+#pragma unroll
+  for (int rr = 0; rr < kTiledChunk; ++rr) {
+    if (rr >= first && rr < rc) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(s_items + rr * kStepStride + 4 * t);
+      const float4 a = *reinterpret_cast<const float4*>(qrow + rr * 8);
+      const float4 b = *reinterpret_cast<const float4*>(qrow + rr * 8 + 4);
+      const float xs[kStepTiles] = {x.x, x.y, x.z, x.w};
+      const float qs[kTileQueries] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int c = 0; c < kStepTiles; ++c) {
+#pragma unroll
+        for (int qi = 0; qi < kTileQueries; ++qi) {
+          acc[c][qi] = fmaf(qs[qi], xs[c], acc[c][qi]);
+        }
+      }
+    }
+  }
+}
 
 // One key of one round of the pairwise tree merge. Sorted lists of `leaf` keys
 // lie side by side, list l at l * stride. In the round of `width`, node c
@@ -277,6 +434,277 @@ __device__ __forceinline__ void merge_round_key(const float* src_s,
   } else {
     dst_s[off + pos] = s;
     dst_i[off + pos] = i;
+  }
+}
+
+// The tiled kernel's selection. Warp w merges query w, as in topk_run_kernel,
+// but a sparse slice does not rewrite the list: its survivors wait in a
+// pending buffer (kPendMax a query) and the list is rewritten only when some
+// query holds more than kTiledSparseMax of them, or at the end of the run.
+// The threshold stays the list's last key, so a pending key is never lost:
+// the best kt of all keys seen are always among the list and the pending
+// keys. A slice is dense, and sorts all its candidates, only when some query
+// has more than kTiledSparseMax survivors: in random order the first few
+// slices of a run.
+
+// Sorts the 32 H keys held H a lane (key e = lane + 32 h in (s[h], i[h]))
+// best first with a bitonic network: strides below 32 by shuffles, the others
+// between a lane's own keys.
+template <int H>
+__device__ __forceinline__ void warp_sort(float (&s)[H], int (&i)[H], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * H; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32) {
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const int g = h ^ (stride >> 5);
+          if (g > h) {  // the pair (h, g) of this lane, h the lower key
+            const bool best_first = ((32 * h) & size) == 0;
+            if (best_first == before(s[g], i[g], s[h], i[h])) {
+              const float fs = s[h]; s[h] = s[g]; s[g] = fs;
+              const int fi = i[h]; i[h] = i[g]; i[g] = fi;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const float os = __shfl_xor_sync(kFullWarp, s[h], stride);
+          const int oi = __shfl_xor_sync(kFullWarp, i[h], stride);
+          const bool lower = (lane & stride) == 0;
+          const bool best_first = ((lane + 32 * h) & size) == 0;
+          // the lower key of a best-first pair keeps the better one
+          if ((lower == best_first) == before(os, oi, s[h], i[h])) {
+            s[h] = os;
+            i[h] = oi;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Places key m of the sorted list (as, ai) of length kt, m = lane + 32 u for
+// u in [u0, u0 + 4), at m plus its rank in the sorted list (bs, bi) of len
+// keys, into (ns, ni) if below kt. The four ranks are computed before any
+// store, so that their searches overlap.
+__device__ __forceinline__ void place_four(const float* as, const int* ai,
+                                           const float* bs, const int* bi,
+                                           int len, float* ns, int* ni, int kt,
+                                           int u0, int lane) {
+  float ks[4];
+  int ki[4], kr[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int m = lane + 32 * (u0 + u);
+    kr[u] = kt;
+    if (m < kt) {
+      ks[u] = as[m];
+      ki[u] = ai[m];
+      kr[u] = m + count_before(bs, bi, len, ks[u], ki[u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (kr[u] < kt) {
+      ns[kr[u]] = ks[u];
+      ni[kr[u]] = ki[u];
+    }
+  }
+}
+
+// Merges the n (<= kPendMax) unsorted pending keys (ps, pi) of one query into
+// its list (ls, li) -> (ns, ni): the 128 slots sorted in registers (slots past
+// n as (-inf, INT_MAX), after every key), the sorted keys written to (ss, si)
+// for the list's binary searches, each key placed at its rank in the union
+// and dropped past kt. One warp.
+__device__ __forceinline__ void merge_pending(const float* ps, const int* pi,
+                                              int n, const float* ls,
+                                              const int* li, float* ns, int* ni,
+                                              float* ss, int* si, int kt,
+                                              int lane) {
+  constexpr int H = kPendMax / 32;
+  float s[H];
+  int i[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int e = lane + 32 * h;
+    s[h] = e < n ? ps[e] : -CUDART_INF_F;
+    i[h] = e < n ? pi[e] : INT_MAX;
+  }
+  warp_sort<H>(s, i, lane);
+  int r[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    ss[lane + 32 * h] = s[h];
+    si[lane + 32 * h] = i[h];
+    r[h] = lane + 32 * h < n ? lane + 32 * h + count_before(ls, li, kt, s[h], i[h])
+                             : kt;
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    if (r[h] < kt) {
+      ns[r[h]] = s[h];
+      ni[r[h]] = i[h];
+    }
+  }
+  __syncwarp();
+  place_four(ls, li, ss, si, n, ns, ni, kt, 0, lane);
+  place_four(ls, li, ss, si, n, ns, ni, kt, 4, lane);
+}
+
+// The dense slice: every thread writes its candidate of each query to s_cs;
+// after a barrier warp w sorts query w's 256 candidates in registers (eight
+// a lane, warp_sort) and merges the best kt with the list, or, on the run's
+// first slice (`fresh`: the list holds only sentinels, which rank after
+// every key), takes them as the list. A slice key beyond the best kt cannot
+// enter the list, so the list's keys are ranked among the best kt only.
+__device__ __forceinline__ void dense_slice(const float (&acc)[kTileQueries],
+                                            int j, int nq, int kt, bool fresh,
+                                            float* s_cs, int* s_ci,
+                                            const float* cur_s, const int* cur_i,
+                                            float* nxt_s, int* nxt_i, int t) {
+  const int lane = t & 31;
+  const int warp = t >> 5;
+#pragma unroll
+  for (int qi = 0; qi < kTileQueries; ++qi) {
+    if (qi < nq) {
+      s_cs[qi * kTileItems + t] = acc[qi];
+      s_ci[qi * kTileItems + t] = j;
+    }
+  }
+  __syncthreads();
+  if (warp >= nq) return;
+  constexpr int H = kTileItems / 32;
+  float* cs = s_cs + warp * kTileItems;
+  int* ci = s_ci + warp * kTileItems;
+  float s[H];
+  int i[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    s[h] = cs[lane + 32 * h];
+    i[h] = ci[lane + 32 * h];
+  }
+  warp_sort<H>(s, i, lane);
+  float* ns = nxt_s + warp * kt;
+  int* ni = nxt_i + warp * kt;
+  if (fresh) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      if (lane + 32 * h < kt) {
+        ns[lane + 32 * h] = s[h];
+        ni[lane + 32 * h] = i[h];
+      }
+    }
+    return;
+  }
+  // the sorted slice goes back to its query's row (every lane has read it)
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    cs[lane + 32 * h] = s[h];
+    ci[lane + 32 * h] = i[h];
+  }
+  __syncwarp();
+  const float* ls = cur_s + warp * kt;
+  const int* li = cur_i + warp * kt;
+  place_four(cs, ci, ls, li, kt, ns, ni, kt, 0, lane);
+  place_four(cs, ci, ls, li, kt, ns, ni, kt, 4, lane);
+  place_four(ls, li, cs, ci, kt, ns, ni, kt, 0, lane);
+  place_four(ls, li, cs, ci, kt, ns, ni, kt, 4, lane);
+}
+
+// A query's pending count, 8 bits of pend[qi / 4] (at most kPendMax).
+__device__ __forceinline__ int pending(const unsigned (&pend)[2], int qi) {
+  return static_cast<int>(((qi >> 2) ? pend[1] : pend[0]) >> (8 * (qi & 3))) & 0xff;
+}
+
+// Warp w merges query w's pending keys into its list (buffer cur into
+// cur ^ 1; the caller flips cur), then a barrier; every count returns to 0.
+__device__ __forceinline__ void flush_pending(
+    int nq, int kt, float* s_cs, int* s_ci, const float* cur_s,
+    const int* cur_i, float* nxt_s, int* nxt_i, const float* s_ps,
+    const int* s_pi, unsigned (&pend)[2], int t) {
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (warp < nq) {
+    merge_pending(s_ps + warp * kPendMax, s_pi + warp * kPendMax,
+                  pending(pend, warp), cur_s + warp * kt, cur_i + warp * kt,
+                  nxt_s + warp * kt, nxt_i + warp * kt, s_cs + warp * kTileItems,
+                  s_ci + warp * kTileItems, kt, lane);
+  }
+  pend[0] = pend[1] = 0u;
+  __syncthreads();
+}
+
+// One slice of the tiled kernel: candidate j of the calling thread t, acc[qi]
+// its score for query qi. A j past N, or excluded (bit ex_bit of
+// ex_word[qi * kExWordsTiled] when E > 0), scores -inf and keeps its index.
+// The survivors of query qi (keys ranking before its list's last) are counted
+// in cnt[qi], zeroed by the caller, and gathered into the pending buffer
+// after its pending keys. Then, block-uniformly: a dense slice merges its
+// candidates into the lists (pending keys wait on); else the survivors join
+// the pending keys, which merge into the lists once some query holds more
+// than kTiledSparseMax. A merge writes list buffer cur ^ 1, flips cur and
+// ends with a barrier; a slice that only gathers has one barrier.
+__device__ __forceinline__ void select_slice(
+    float (&acc)[kTileQueries], int j, int N, int nq, int kt, int E,
+    bool fresh, const unsigned* ex_word, int ex_bit, float* s_cs, int* s_ci,
+    float* s_ls, int* s_li, float* s_ps, int* s_pi, int* cnt,
+    unsigned (&pend)[2], int& cur, int t) {
+  const int lane = t & 31;
+  const float* cur_s = s_ls + cur * kTileQueries * kt;
+  const int* cur_i = s_li + cur * kTileQueries * kt;
+  float* nxt_s = s_ls + (cur ^ 1) * kTileQueries * kt;
+  int* nxt_i = s_li + (cur ^ 1) * kTileQueries * kt;
+#pragma unroll
+  for (int qi = 0; qi < kTileQueries; ++qi) {
+    if (qi < nq) {
+      float s = j < N ? acc[qi] : -CUDART_INF_F;
+      if (E > 0 && ((ex_word[qi * kExWordsTiled] >> ex_bit) & 1u)) {
+        s = -CUDART_INF_F;
+      }
+      acc[qi] = s;
+      const bool keep = before(s, j, cur_s[qi * kt + kt - 1],
+                               cur_i[qi * kt + kt - 1]);
+      const unsigned m = __ballot_sync(kFullWarp, keep);
+      if (m != 0u) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(&cnt[qi], __popc(m));
+        base = __shfl_sync(kFullWarp, base, 0);
+        const int p = pending(pend, qi) + base + __popc(m & ((1u << lane) - 1u));
+        if (keep && p < kPendMax) {  // a dense slice's survivors are dropped
+          s_ps[qi * kPendMax + p] = s;
+          s_pi[qi * kPendMax + p] = j;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  int n_max = 0;
+  for (int qi = 0; qi < nq; ++qi) n_max = max(n_max, cnt[qi]);
+  if (n_max > kTiledSparseMax) {
+    dense_slice(acc, j, nq, kt, fresh, s_cs, s_ci, cur_s, cur_i, nxt_s, nxt_i, t);
+    __syncthreads();
+    cur ^= 1;
+    return;
+  }
+  int p_max = 0;
+#pragma unroll
+  for (int qi = 0; qi < kTileQueries; ++qi) {
+    if (qi < nq) {
+      if (qi < 4) pend[0] += static_cast<unsigned>(cnt[qi]) << (8 * qi);
+      else pend[1] += static_cast<unsigned>(cnt[qi]) << (8 * (qi - 4));
+    }
+    p_max = max(p_max, pending(pend, qi));
+  }
+  if (p_max > kTiledSparseMax) {
+    flush_pending(nq, kt, s_cs, s_ci, cur_s, cur_i, nxt_s, nxt_i, s_ps, s_pi,
+                  pend, t);
+    cur ^= 1;
   }
 }
 
@@ -323,7 +751,7 @@ topk_run_kernel(const float* __restrict__ q, const float* __restrict__ items,
 
   const int tile_end = min(n_tiles, (run + 1) * T);
   float pre[kRankChunk];  // the next rank chunk, on its way to shared memory
-  const int rc = chunk_width(R);
+  const int rc = chunk_width<kRankChunk>(R);
   load_chunk(pre, items, run * T * kTileItems, N, R, 0, rc, t);
   __syncthreads();
 
@@ -345,11 +773,11 @@ topk_run_kernel(const float* __restrict__ q, const float* __restrict__ items,
       // next tile) before the FMAs
       const int r1 = r0 + kRankChunk;
       if (r1 < R) {
-        load_chunk(pre, items, item0, N, R, chunk_start(R, r1), rc, t);
+        load_chunk(pre, items, item0, N, R, chunk_start<kRankChunk>(R, r1), rc, t);
       } else if (tile + 1 < tile_end) {
         load_chunk(pre, items, item0 + kTileItems, N, R, 0, rc, t);
       }
-      const int start = chunk_start(R, r0);
+      const int start = chunk_start<kRankChunk>(R, r0);
       score_chunk(acc, s_items, s_qT, start, r0 - start, rc, nq, t);
       // the barriers below order the last chunk's reads before the next store
       if (r1 < R) __syncthreads();
@@ -519,6 +947,146 @@ topk_run_kernel(const float* __restrict__ q, const float* __restrict__ items,
   }
 }
 
+// Shared memory of topk_run_tiled_kernel, in bytes: q rows, the step's rank
+// chunk, one candidate buffer, two copies of the running lists, three sets
+// of survivor counts (slice g uses set g % 3 and zeroes set (g + 1) % 3, so
+// that one barrier a slice suffices), the step's exclusion bits and the
+// pending keys.
+__host__ __device__ constexpr int run_tiled_smem_bytes(int R, int kt) {
+  return 4 * (kTileQueries * R + kTiledChunk * kStepStride +
+              2 * kTileQueries * kTileItems + 4 * kTileQueries * kt +
+              3 * kTileQueries + kTileQueries * kExWordsTiled +
+              2 * kTileQueries * kPendMax);
+}
+
+__global__ void __launch_bounds__(kTileItems, kTiledBlocksPerSm)
+topk_run_tiled_kernel(const float* __restrict__ q,
+                      const float* __restrict__ items,
+                      const int* __restrict__ excl, int B, int N, int R, int E,
+                      int kt, int n_tiles, int T, int n_runs,
+                      float* __restrict__ cand_s, int* __restrict__ cand_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_qT = reinterpret_cast<float*>(smem);              // [R][8]
+  float* s_items = s_qT + kTileQueries * R;                  // [8][1028]
+  float* s_cs = s_items + kTiledChunk * kStepStride;         // [8][256]
+  int* s_ci = reinterpret_cast<int*>(s_cs + kTileQueries * kTileItems);
+  float* s_ls = reinterpret_cast<float*>(s_ci + kTileQueries * kTileItems);
+  int* s_li = reinterpret_cast<int*>(s_ls + 2 * kTileQueries * kt);  // [2][8][kt]
+  int* s_cnt = s_li + 2 * kTileQueries * kt;                 // [3][8]
+  unsigned* s_ex = reinterpret_cast<unsigned*>(s_cnt + 3 * kTileQueries);  // [8][32]
+  float* s_ps = reinterpret_cast<float*>(s_ex + kTileQueries * kExWordsTiled);
+  int* s_pi = reinterpret_cast<int*>(s_ps + kTileQueries * kPendMax);  // [8][128]
+
+  const int t = threadIdx.x;
+  const int run = blockIdx.x;
+  const int q0 = blockIdx.y * kTileQueries;
+  const int nq = min(kTileQueries, B - q0);  // live query slots of this block
+
+  for (int l = t; l < kTileQueries * R; l += kTileItems) {
+    const int r = l >> 3;
+    const int qi = l & 7;
+    s_qT[l] = qi < nq ? q[(size_t)(q0 + qi) * R + r] : 0.f;
+  }
+  for (int l = t; l < kTileQueries * kt; l += kTileItems) {
+    s_ls[l] = -CUDART_INF_F;
+    s_li[l] = kSentinelBase + l % kt;
+  }
+  if (t < 3 * kTileQueries) s_cnt[t] = 0;
+  int cur = 0;  // which of the two list buffers holds the running lists
+  unsigned pend[2] = {0u, 0u};  // pending keys of each query (8 bits each),
+                                // alike in every thread
+  int g = 0;  // the slice's set of survivor counts
+
+  // A run is a whole number of steps, or ends with the catalog: a step never
+  // takes items of the next run, and items past N are masked.
+  const int run_begin = run * T * kTileItems;
+  const int run_end = min(n_tiles, (run + 1) * T) * kTileItems;
+  float pre[kTiledLoads];  // the next rank chunk, on its way to shared memory
+  const int rc = chunk_width<kTiledChunk>(R);
+  copy_first_chunk_async(s_items, items, run_begin, N, R, rc, t);
+
+  for (int step0 = run_begin; step0 < run_end; step0 += kStepItems) {
+    // Cleared here, set after the scoring loop's barriers.
+    if (E > 0) {
+      for (int l = t; l < kTileQueries * kExWordsTiled; l += kTileItems) s_ex[l] = 0u;
+    }
+
+    float acc[kStepTiles][kTileQueries];
+#pragma unroll
+    for (int c = 0; c < kStepTiles; ++c) {
+#pragma unroll
+      for (int qi = 0; qi < kTileQueries; ++qi) acc[c][qi] = 0.f;
+    }
+
+    for (int r0 = 0; r0 < R; r0 += kTiledChunk) {
+      if (r0 == 0) {
+        cp_async_wait_all();  // the first chunk, copied during the last selection
+      } else {
+        store_step_chunk(s_items, pre, rc, t);
+      }
+      __syncthreads();
+      // start the loads of the step's next chunk before the FMAs
+      const int r1 = r0 + kTiledChunk;
+      if (r1 < R) {
+        load_step_chunk(pre, items, step0, N, R, chunk_start<kTiledChunk>(R, r1),
+                        rc, t);
+      }
+      const int start = chunk_start<kTiledChunk>(R, r0);
+      score_step_chunk(acc, s_items, s_qT, start, r0 - start, rc, t);
+      if (r1 < R) __syncthreads();
+    }
+    // every read of the step's last chunk is done: the next step's first
+    // chunk may land while the slices are selected
+    __syncthreads();
+    if (step0 + kStepItems < run_end) {
+      copy_first_chunk_async(s_items, items, step0 + kStepItems, N, R, rc, t);
+    }
+
+    if (E > 0) {  // one bit per (query, item of the step) that is excluded
+      for (int l = t; l < nq * E; l += kTileItems) {
+        const int qi = l / E;
+        const int e = l - qi * E;
+        const int x = excl[(size_t)(q0 + qi) * E + e];
+        if (x >= step0 && x < step0 + kStepItems) {
+          const int d = x - step0;
+          atomicOr(&s_ex[qi * kExWordsTiled + (d >> 5)], 1u << (d & 31));
+        }
+      }
+      __syncthreads();
+    }
+
+    // Slice c holds items 4t + c of the step (thread t's c-th item): four
+    // selections of 256 candidates, in this order, into the same lists. The
+    // loop is unrolled so that a slice's scores die once it is selected.
+#pragma unroll
+    for (int c = 0; c < kStepTiles; ++c) {
+      const int g_next = g == 2 ? 0 : g + 1;
+      if (t < kTileQueries) s_cnt[g_next * kTileQueries + t] = 0;
+      select_slice(acc[c], step0 + kStepTiles * t + c, N, nq, kt, E,
+                   step0 == run_begin && c == 0, s_ex + (t >> 3),
+                   kStepTiles * (t & 7) + c, s_cs, s_ci, s_ls, s_li, s_ps, s_pi,
+                   s_cnt + g * kTileQueries, pend, cur, t);
+      g = g_next;
+    }
+  }
+  if (pend[0] != 0u || pend[1] != 0u) {  // the run's last pending keys
+    flush_pending(nq, kt, s_cs, s_ci, s_ls + cur * kTileQueries * kt,
+                  s_li + cur * kTileQueries * kt, s_ls + (cur ^ 1) * kTileQueries * kt,
+                  s_li + (cur ^ 1) * kTileQueries * kt, s_ps, s_pi, pend, t);
+    cur ^= 1;
+  }
+
+  const float* fin_s = s_ls + cur * kTileQueries * kt;
+  const int* fin_i = s_li + cur * kTileQueries * kt;
+  for (int l = t; l < nq * kt; l += kTileItems) {
+    const int qi = l / kt;
+    const int m = l - qi * kt;
+    const size_t o = ((size_t)(q0 + qi) * n_runs + run) * kt + m;
+    cand_s[o] = fin_s[l];
+    cand_i[o] = fin_i[l];
+  }
+}
+
 __global__ void __launch_bounds__(kTileItems)
 topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ items,
                  const int* __restrict__ excl, int B, int N, int R, int E,
@@ -540,9 +1108,9 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ items,
 #pragma unroll
   for (int qi = 0; qi < kTileQueries; ++qi) acc[qi] = 0.f;
 
-  const int rc = chunk_width(R);
+  const int rc = chunk_width<kRankChunk>(R);
   for (int r0 = 0; r0 < R; r0 += kRankChunk) {
-    const int start = chunk_start(R, r0);
+    const int start = chunk_start<kRankChunk>(R, r0);
     float pre[kRankChunk];
     load_chunk(pre, items, item0, N, R, start, rc, t);
     store_chunk(s_items, pre, rc, t);
@@ -703,6 +1271,18 @@ cudaError_t allow_shared_memory(Kernel kernel, int bytes, int* granted) {
 }
 
 int g_run_smem[kMaxDevices];
+int g_run_tiled_smem[kMaxDevices];
+
+// The tiled kernel's launch setup, once per device: its dynamic shared memory
+// and the largest shared-memory carveout, so that kTiledBlocksPerSm blocks of
+// about 107 KB fit an SM.
+cudaError_t prepare_run_tiled(int bytes) {
+  cudaError_t err = allow_shared_memory(topk_run_tiled_kernel, bytes, g_run_tiled_smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(topk_run_tiled_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              static_cast<int>(cudaSharedmemCarveoutMaxShared));
+}
 int g_merge_smem[kMaxDevices];
 
 }  // namespace
@@ -714,16 +1294,24 @@ int g_merge_smem[kMaxDevices];
 // runs in shared memory), outputs out_s/out_i [B, K]. The rest is the launch
 // plan of ops/cuda_kernels.py::topk_launch_plan, which is checked here:
 //   kt = min(K, 256); n_tiles = ceil(N / 256); T tiles per stage-1 block and
-//   n_runs = ceil(n_tiles / T) lists per query; stage1_smem = the running-list
-//   kernel's dynamic shared memory, or 0 for the per-tile kernel (then T = 1);
-//   merge_smem = 16 * n_runs * kt when the merge rounds run in shared memory
-//   (one launch, merge_threads a power of two from 32 to 1024), or 0 when they
-//   run between the two scratches (one launch per round).
+//   n_runs = ceil(n_tiles / T) lists per query; stage1 the stage-1 kernel
+//   (kStage1TileSort: topk_tile_kernel, T = 1, stage1_smem = 0;
+//   kStage1Run: topk_run_kernel; kStage1RunTiled: topk_run_tiled_kernel, T a
+//   multiple of 4 or n_tiles; a running list keeps kt = K keys, so both take
+//   K <= kRunMaxKt) and
+//   stage1_smem its dynamic shared memory; merge_smem = 16 * n_runs * kt when
+//   the merge rounds run in shared memory (one launch, merge_threads a power
+//   of two from 32 to 1024), or 0 when they run between the two scratches (one
+//   launch per round).
 // Anything else returns cudaErrorInvalidValue and launches nothing.
+constexpr int kStage1TileSort = 0;
+constexpr int kStage1Run = 1;
+constexpr int kStage1RunTiled = 2;
+
 extern "C" int pio_topk_streaming(const void* q, const void* items,
                                   const void* excl, int B, int N, int R, int E,
                                   int K, int kt, int n_tiles, int T, int n_runs,
-                                  int stage1_smem, int merge_smem,
+                                  int stage1, int stage1_smem, int merge_smem,
                                   int merge_threads, void* cand_s, void* cand_i,
                                   void* alt_s, void* alt_i, void* out_s,
                                   void* out_i, void* stream) {
@@ -737,10 +1325,19 @@ extern "C" int pio_topk_streaming(const void* q, const void* items,
   }
   const long long span = static_cast<long long>(n_runs) * kt;
   if (span > (1 << 29)) return invalid;  // the merge indexes keys with ints
-  if (stage1_smem == 0) {
-    if (T != 1) return invalid;
-  } else if (kt > kRunMaxKt || stage1_smem != run_smem_bytes(R, kt) ||
-             stage1_smem > kMaxSmem) {
+  if (stage1 == kStage1TileSort) {
+    if (T != 1 || stage1_smem != 0) return invalid;
+  } else if (stage1 == kStage1Run) {
+    if (K > kRunMaxKt || stage1_smem != run_smem_bytes(R, kt) ||
+        stage1_smem > kMaxSmem) {
+      return invalid;
+    }
+  } else if (stage1 == kStage1RunTiled) {
+    if (K > kRunMaxKt || stage1_smem != run_tiled_smem_bytes(R, kt) ||
+        stage1_smem > kMaxSmem || (T % kStepTiles != 0 && T != n_tiles)) {
+      return invalid;
+    }
+  } else {
     return invalid;
   }
   if (merge_smem == 0) {
@@ -754,18 +1351,24 @@ extern "C" int pio_topk_streaming(const void* q, const void* items,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid1(n_runs, (B + kTileQueries - 1) / kTileQueries);
   cudaError_t err;
-  if (stage1_smem != 0) {
+  const float* qf = static_cast<const float*>(q);
+  const float* itf = static_cast<const float*>(items);
+  const int* ex = static_cast<const int*>(excl);
+  float* cs = static_cast<float*>(cand_s);
+  int* ci = static_cast<int*>(cand_i);
+  if (stage1 == kStage1Run) {
     err = allow_shared_memory(topk_run_kernel, stage1_smem, g_run_smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     topk_run_kernel<<<grid1, kTileItems, stage1_smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(items),
-        static_cast<const int*>(excl), B, N, R, E, kt, n_tiles, T, n_runs,
-        static_cast<float*>(cand_s), static_cast<int*>(cand_i));
+        qf, itf, ex, B, N, R, E, kt, n_tiles, T, n_runs, cs, ci);
+  } else if (stage1 == kStage1RunTiled) {
+    err = prepare_run_tiled(stage1_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    topk_run_tiled_kernel<<<grid1, kTileItems, stage1_smem, s>>>(
+        qf, itf, ex, B, N, R, E, kt, n_tiles, T, n_runs, cs, ci);
   } else {
-    topk_tile_kernel<<<grid1, kTileItems, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(items),
-        static_cast<const int*>(excl), B, N, R, E, kt, n_tiles,
-        static_cast<float*>(cand_s), static_cast<int*>(cand_i));
+    topk_tile_kernel<<<grid1, kTileItems, 0, s>>>(qf, itf, ex, B, N, R, E, kt,
+                                                  n_tiles, cs, ci);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -801,6 +1404,54 @@ extern "C" int pio_topk_streaming(const void* q, const void* items,
       src_s, src_i, n_runs, kt, K, static_cast<float*>(out_s),
       static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
+}
+
+// cudaFuncGetAttributes of every kernel here, in this order: topk_run_kernel,
+// topk_run_tiled_kernel, topk_tile_kernel, topk_merge_kernel,
+// topk_merge_round_kernel, topk_store_kernel; three ints each (registers a
+// thread, local bytes a thread, static shared bytes).
+extern "C" int pio_topk_streaming_attrs(int* out) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(topk_run_kernel),
+      reinterpret_cast<const void*>(topk_run_tiled_kernel),
+      reinterpret_cast<const void*>(topk_tile_kernel),
+      reinterpret_cast<const void*>(topk_merge_kernel),
+      reinterpret_cast<const void*>(topk_merge_round_kernel),
+      reinterpret_cast<const void*>(topk_store_kernel),
+  };
+  int i = 0;
+  for (const void* k : kernels) {
+    cudaFuncAttributes at;
+    const cudaError_t err = cudaFuncGetAttributes(&at, k);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[i++] = at.numRegs;
+    out[i++] = static_cast<int>(at.localSizeBytes);
+    out[i++] = static_cast<int>(at.sharedSizeBytes);
+  }
+  return 0;
+}
+
+// Blocks of a running-list kernel (stage1 = kStage1Run or kStage1RunTiled)
+// an SM holds at `smem` bytes of dynamic shared memory, set up as a launch
+// sets it up (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
+extern "C" int pio_topk_streaming_occupancy(int stage1, int smem, int* blocks) {
+  cudaError_t err;
+  if (stage1 == kStage1Run) {
+    err = allow_shared_memory(topk_run_kernel, smem, g_run_smem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, topk_run_kernel,
+                                                          kTileItems, smem);
+    }
+  } else if (stage1 == kStage1RunTiled) {
+    err = prepare_run_tiled(smem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, topk_run_tiled_kernel, kTileItems, smem);
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* pio_cuda_error_string(int code) {

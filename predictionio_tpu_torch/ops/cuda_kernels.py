@@ -40,15 +40,37 @@ TOPK_RANK_CHUNK = 16
 #: the kernel's ceiling on k (kMaxK): the catalog's, :data:`TOPK_MAX_ITEMS`,
 #: so that any k clamped to N is taken
 TOPK_MAX_K = 1 << 29
-#: stage 1 keeps a running list over a run of tiles for kt up to this
-#: (kRunMaxKt); above it every tile is sorted on its own
-TOPK_RUN_MAX_KT = 128
+#: stage 1 keeps a running list of k keys over a run of tiles for k up to
+#: this (kRunMaxKt); above it every tile is sorted on its own
+TOPK_RUN_MAX_KT = 256
+#: stage 1's kernels by the name a plan gives them (the C entry's ``stage1``
+#: code is the index): the per-tile sort (``topk_tile_kernel``), the running
+#: list with one item a thread (``topk_run_kernel``) and the running list
+#: with a register tile of 4 items x 8 queries a thread
+#: (``topk_run_tiled_kernel``)
+TOPK_STAGE1 = ("tile_sort", "running_list", "running_list_tiled")
+#: the plan's own pick: ``running_list`` for k up to this, the tiled
+#: running list above it up to :data:`TOPK_RUN_MAX_KT`
+TOPK_RUN_NARROW_MAX_K = 128
+#: plan tiles a step of the tiled kernel scores at once (kStepTiles), one
+#: item of each a thread: its T is a multiple of this, or the whole catalog
+TOPK_STEP_TILES = 4
+#: the tiled kernel's staged rank chunk (kTiledChunk) and its row stride in
+#: floats (kStepStride)
+TOPK_TILED_CHUNK, TOPK_STEP_STRIDE = 8, 4 * 256 + 4
+#: a slice of the tiled kernel is dense (sorts all its candidates) above
+#: this many survivors in some query (kTiledSparseMax); up to twice as many
+#: keys a query wait pending before they merge into its list (kPendMax)
+TOPK_TILED_SPARSE_MAX = 64
+TOPK_PEND_MAX = 2 * TOPK_TILED_SPARSE_MAX
 #: dynamic shared memory a block may opt into on the card (kMaxSmem)
 TOPK_MAX_SMEM = 232448
 #: the most stage-1 blocks an SM holds at once (64 registers a thread, 256
 #: threads); their shared memory can lower it. The launch plan aims at one
 #: full wave of blocks.
 TOPK_BLOCKS_PER_SM = 4
+#: the same for the tiled kernel, its launch bound (up to 128 registers)
+TOPK_TILED_BLOCKS_PER_SM = 2
 #: shared memory of an SM, and what the card keeps of it for each block
 TOPK_SM_SMEM, TOPK_BLOCK_SMEM_RESERVE = 233472, 1024
 #: the kernel's item indices are int32, padding indices sit above
@@ -75,6 +97,7 @@ class TopkPlan(NamedTuple):
     query_tile: int  #: queries per stage-1 block
     n_query_tiles: int
     scratch_shape: Tuple[int, int, int]  #: [B, n_runs, kt], scores and ids
+    stage1: str  #: the stage-1 kernel, one of :data:`TOPK_STAGE1`
     stage1_smem: int  #: bytes; 0 = the per-tile kernel (static memory)
     merge_smem: int  #: bytes; 0 = the rounds run between two scratches
     merge_threads: int  #: threads of the shared-memory merge's block
@@ -84,24 +107,54 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def topk_run_smem(rank: int, kt: int) -> int:
+    """``topk_run_kernel``'s dynamic shared memory (run_smem_bytes in the
+    .cu): q rows, one staged rank chunk of 16, two candidate buffers, two
+    copies of the running lists, the survivor counts and the exclusion
+    bits."""
+    return 4 * (TOPK_TILE_QUERIES * rank + TOPK_RANK_CHUNK * (TOPK_TILE_ITEMS + 1)
+                + 4 * TOPK_TILE_QUERIES * TOPK_TILE_ITEMS + 4 * TOPK_TILE_QUERIES * kt
+                + TOPK_TILE_QUERIES + TOPK_TILE_QUERIES * (TOPK_TILE_ITEMS // 32))
+
+
+def topk_run_tiled_smem(rank: int, kt: int) -> int:
+    """``topk_run_tiled_kernel``'s (run_tiled_smem_bytes in the .cu): q
+    rows, the step's rank chunk (:data:`TOPK_TILED_CHUNK` rows of
+    :data:`TOPK_STEP_STRIDE` floats), one candidate buffer, two copies of
+    the running lists, three sets of survivor counts, a step's exclusion
+    bits and :data:`TOPK_PEND_MAX` pending keys a query."""
+    return 4 * (TOPK_TILE_QUERIES * rank + TOPK_TILED_CHUNK * TOPK_STEP_STRIDE
+                + 2 * TOPK_TILE_QUERIES * TOPK_TILE_ITEMS + 4 * TOPK_TILE_QUERIES * kt
+                + 3 * TOPK_TILE_QUERIES
+                + TOPK_TILE_QUERIES * (TOPK_STEP_TILES * TOPK_TILE_ITEMS // 32)
+                + 2 * TOPK_TILE_QUERIES * TOPK_PEND_MAX)
+
+
 @functools.lru_cache(maxsize=256)
 def topk_launch_plan(b: int, n_items: int, k_eff: int, sm_count: int,
-                     rank: int) -> TopkPlan:
+                     rank: int, stage1: Optional[str] = None) -> TopkPlan:
     """The launch plan of the streaming top-k for ``b`` queries of width
     ``rank`` over ``n_items`` items, ``k_eff = min(k, n_items)``, on a
     card with ``sm_count`` SMs. Pure arithmetic (the C entry point checks
     it and refuses a plan that does not match its own).
 
     Stage 1 walks ``tiles_per_block`` (T) consecutive item tiles per
-    block with a running list, so a query leaves ``n_runs`` lists for the
-    tree merge instead of one per tile. T is 1 while one block per
-    (query tile, item tile) fits the card in one wave (the blocks an SM
-    holds at once: :data:`TOPK_BLOCKS_PER_SM`, or fewer by their shared
-    memory), and grows with the batch beyond that; the runs are then
-    evened out. For kt above :data:`TOPK_RUN_MAX_KT`, or a rank whose q
-    rows do not fit in shared memory, stage 1 sorts every tile (T = 1).
-    The merge rounds run in shared memory when two copies of a query's
-    lists fit, else between the scratch and a second one."""
+    block with a running list of k keys, so a query leaves ``n_runs``
+    lists for the tree merge instead of one per tile: ``running_list`` up
+    to k = :data:`TOPK_RUN_NARROW_MAX_K`, ``running_list_tiled`` above it
+    up to :data:`TOPK_RUN_MAX_KT`. T is 1 while one block per (query tile,
+    item tile) fits the card in one wave (the blocks an SM holds at once:
+    :data:`TOPK_BLOCKS_PER_SM`, or :data:`TOPK_TILED_BLOCKS_PER_SM`, or
+    fewer by their shared memory), and grows with the batch beyond that;
+    the runs are then evened out, and the tiled kernel's T is rounded up
+    to whole steps of :data:`TOPK_STEP_TILES` tiles (or the whole
+    catalog). For k above :data:`TOPK_RUN_MAX_KT`, or a rank whose q rows
+    do not fit in shared memory, stage 1 sorts every tile (``tile_sort``,
+    T = 1). ``stage1`` names the kernel instead of the plan's pick (any
+    of them takes k up to :data:`TOPK_RUN_MAX_KT`); it raises where that
+    kernel cannot run. The merge rounds run in shared memory when two
+    copies of a query's lists fit, else between the scratch and a second
+    one."""
     if min(b, n_items, k_eff, sm_count, rank) < 1 or k_eff > n_items:
         raise ValueError(
             f"no launch plan for b={b}, n_items={n_items}, k_eff={k_eff}, "
@@ -110,34 +163,37 @@ def topk_launch_plan(b: int, n_items: int, k_eff: int, sm_count: int,
     kt = min(k_eff, TOPK_TILE_ITEMS)
     n_tiles = _cdiv(n_items, TOPK_TILE_ITEMS)
     n_query_tiles = _cdiv(b, TOPK_TILE_QUERIES)
-    # topk_run_kernel's dynamic shared memory (run_smem_bytes in the .cu):
-    # q rows, one staged rank chunk, two candidate buffers, two copies of
-    # the running lists, the survivor counts and the exclusion bits
-    run_smem = 4 * (
-        TOPK_TILE_QUERIES * rank
-        + TOPK_RANK_CHUNK * (TOPK_TILE_ITEMS + 1)
-        + 4 * TOPK_TILE_QUERIES * TOPK_TILE_ITEMS
-        + 4 * TOPK_TILE_QUERIES * kt
-        + TOPK_TILE_QUERIES
-        + TOPK_TILE_QUERIES * (TOPK_TILE_ITEMS // 32)
-    )
-    if kt <= TOPK_RUN_MAX_KT and run_smem <= TOPK_MAX_SMEM:
-        stage1_smem = run_smem
+    smem = {"running_list": topk_run_smem(rank, kt),
+            "running_list_tiled": topk_run_tiled_smem(rank, kt)}
+    if stage1 is None:
+        stage1 = ("tile_sort" if k_eff > TOPK_RUN_MAX_KT
+                  else "running_list" if k_eff <= TOPK_RUN_NARROW_MAX_K
+                  else "running_list_tiled")
+        if stage1 != "tile_sort" and smem[stage1] > TOPK_MAX_SMEM:
+            stage1 = "tile_sort"
+    elif stage1 not in TOPK_STAGE1 or (stage1 != "tile_sort" and (
+            k_eff > TOPK_RUN_MAX_KT or smem[stage1] > TOPK_MAX_SMEM)):
+        raise ValueError(f"stage 1 {stage1!r} cannot take k={k_eff} at rank {rank}")
+    if stage1 == "tile_sort":
+        stage1_smem, tiles_per_block, n_runs = 0, 1, n_tiles
+    else:
+        stage1_smem = smem[stage1]
+        per_sm = TOPK_BLOCKS_PER_SM if stage1 == "running_list" else TOPK_TILED_BLOCKS_PER_SM
         # as many runs as fit the card in one wave of blocks, evened out
-        resident = min(TOPK_BLOCKS_PER_SM,
-                       TOPK_SM_SMEM // (run_smem + TOPK_BLOCK_SMEM_RESERVE))
+        resident = min(per_sm, TOPK_SM_SMEM // (stage1_smem + TOPK_BLOCK_SMEM_RESERVE))
         n_runs = (resident * sm_count) // n_query_tiles
         tiles_per_block = _cdiv(n_tiles, min(max(1, n_runs), n_tiles))
+        if stage1 == "running_list_tiled":  # whole steps, or the whole catalog
+            tiles_per_block = min(n_tiles, _cdiv(tiles_per_block, TOPK_STEP_TILES)
+                                  * TOPK_STEP_TILES)
         n_runs = _cdiv(n_tiles, tiles_per_block)
-    else:
-        stage1_smem, tiles_per_block, n_runs = 0, 1, n_tiles
     keys = n_runs * kt
     merge_smem = 16 * keys if 16 * keys <= TOPK_MAX_SMEM else 0
     return TopkPlan(
         kt=kt, n_tiles=n_tiles, tiles_per_block=tiles_per_block,
         n_runs=n_runs, query_tile=TOPK_TILE_QUERIES,
         n_query_tiles=n_query_tiles, scratch_shape=(b, n_runs, kt),
-        stage1_smem=stage1_smem, merge_smem=merge_smem,
+        stage1=stage1, stage1_smem=stage1_smem, merge_smem=merge_smem,
         # one block merges a query's lists in shared memory; in device
         # memory every round is a launch of 256-thread blocks
         merge_threads=64 if keys <= 128 else 256 if keys <= 1024 else 1024,
@@ -170,6 +226,11 @@ _ATTRS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
 #: each library's entries beside ``pio_<name>``: the wide paths, the
 #: resident attention path and the ``cudaFuncGetAttributes`` reports
 _EXTRA_ENTRIES = {
+    "topk_streaming": {
+        "pio_topk_streaming_attrs": _ATTRS_ARGTYPES,
+        "pio_topk_streaming_occupancy": [ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)],
+    },
     "gramian_fused": {"pio_gramian_fused_attrs": _ATTRS_ARGTYPES},
     "spd_solve": {
         "pio_spd_solve_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
@@ -287,22 +348,24 @@ def topk_scratch_bytes(plan: TopkPlan) -> int:
 
 def topk_batch_slices(b: int, max_batch: int = TOPK_MAX_BATCH, *,
                       n_items: Optional[int] = None, k_eff: Optional[int] = None,
-                      rank: Optional[int] = None, sm_count: Optional[int] = None):
+                      rank: Optional[int] = None, sm_count: Optional[int] = None,
+                      stage1: Optional[str] = None):
     """The ``[start, stop)`` row ranges one call of ``b`` queries is cut
     into: consecutive, covering every row once (none for ``b = 0``), at
     most ``max_batch`` rows each. Each range is one launch of the kernel
     (or one call of the plain version on the CPU).
 
     Given the catalog (``n_items``, with ``k_eff``, ``rank`` and the
-    card's ``sm_count``: what :func:`topk_launch_plan` reads), a range is
+    card's ``sm_count``, and ``stage1``: what :func:`topk_launch_plan`
+    reads), a range is
     also cut so that its launch's scratch (:func:`topk_scratch_bytes`)
     stays within :data:`TOPK_MAX_SCRATCH_BYTES` — but never below one query tile of
-    :data:`TOPK_TILE_QUERIES` rows, whatever one query's lists take. At
-    kt <= :data:`TOPK_RUN_MAX_KT` a launch keeps about one wave of lists,
-    far below the budget, so those plans keep the ``max_batch`` ranges;
-    the per-tile path (kt above it) keeps every tile's list, about 8·N
-    bytes a query (16·N with the merge in device memory), and is cut.
-    Pure arithmetic."""
+    :data:`TOPK_TILE_QUERIES` rows, whatever one query's lists take. On
+    a running list (k <= :data:`TOPK_RUN_MAX_KT`) a launch keeps about one
+    wave of lists, far below the budget, so those plans keep the
+    ``max_batch`` ranges; the per-tile path (k above it, or forced) keeps
+    every tile's list, about 8·N bytes a query (16·N with the merge in
+    device memory), and is cut. Pure arithmetic."""
     if b < 0 or max_batch < 1:
         raise ValueError(f"no batch slices for b={b}, max_batch={max_batch}")
     rows = max_batch
@@ -311,7 +374,7 @@ def topk_batch_slices(b: int, max_batch: int = TOPK_MAX_BATCH, *,
         # a smaller slice can only keep as many lists a query or more, so
         # the rows shrink until the slice fits (or reach one query tile)
         while rows > TOPK_TILE_QUERIES:
-            plan = topk_launch_plan(rows, n_items, k_eff, sm_count, rank)
+            plan = topk_launch_plan(rows, n_items, k_eff, sm_count, rank, stage1)
             scratch = topk_scratch_bytes(plan)
             if scratch <= TOPK_MAX_SCRATCH_BYTES:
                 break
@@ -326,6 +389,7 @@ def top_k_streaming(
     item_factors: torch.Tensor,  # [N, R] float32
     k: int,
     exclude_idx: Optional[torch.Tensor] = None,  # [B, E] int32, -1 padded
+    stage1: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming top-k gather-dot: (scores ``[B, k]`` f32, item indices
     ``[B, k]`` i32) without materializing ``[B, N]`` scores on the card.
@@ -339,7 +403,9 @@ def top_k_streaming(
     each slice written into its rows of one ``[B, k]`` output; on the
     card a slice is also cut so that its scratch stays within
     :data:`TOPK_MAX_SCRATCH_BYTES`. Any k is taken: it is clamped to N,
-    and N may reach :data:`TOPK_MAX_ITEMS`."""
+    and N may reach :data:`TOPK_MAX_ITEMS`. ``stage1`` forces a stage-1
+    kernel on the card (:func:`topk_launch_plan`); the answer is the same
+    bit for bit, only the time differs. The CPU ignores it."""
     _check_topk_inputs(query_vectors, item_factors, k, exclude_idx)
     b, r = query_vectors.shape
     n_items = item_factors.shape[0]
@@ -354,6 +420,8 @@ def top_k_streaming(
         raise ValueError(f"catalog of {n_items} items exceeds {TOPK_MAX_ITEMS}")
     if r == 0:
         raise ValueError("the streaming kernel needs rank >= 1")
+    if stage1 is not None and stage1 not in TOPK_STAGE1:
+        raise ValueError(f"stage1 must be one of {TOPK_STAGE1}, got {stage1!r}")
     device = query_vectors.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"top_k_streaming runs on cuda or cpu, not {device}")
@@ -363,17 +431,18 @@ def top_k_streaming(
         if device.type == "cuda":
             index = device.index if device.index is not None else torch.cuda.current_device()
             slices = topk_batch_slices(b, n_items=n_items, k_eff=k_eff, rank=r,
-                                       sm_count=_sm_count(index))
+                                       sm_count=_sm_count(index), stage1=stage1)
         else:  # the plain version keeps no scratch
             slices = topk_batch_slices(b)
         for start, stop in slices:
             excl = None if exclude_idx is None else exclude_idx[start:stop]
             _topk_slice(query_vectors[start:stop], item_factors, k_eff, excl,
-                        out_s[start:stop], out_i[start:stop])
+                        out_s[start:stop], out_i[start:stop], stage1)
     return _pad_k(out_s, out_i, k)
 
 
-def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i) -> None:
+def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i,
+                stage1: Optional[str] = None) -> None:
     """One slice of :func:`topk_batch_slices` into its rows
     ``out_s``/``out_i`` (contiguous views of the call's output): the
     plain version on the CPU, one launch of the kernel on the card."""
@@ -387,7 +456,7 @@ def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i) -> None:
     device = q.device
     e = 0 if exclude_idx is None else exclude_idx.shape[1]
     index = device.index if device.index is not None else torch.cuda.current_device()
-    plan = topk_launch_plan(b, n_items, k_eff, _sm_count(index), r)
+    plan = topk_launch_plan(b, n_items, k_eff, _sm_count(index), r, stage1)
     # one allocation: scores and ids of the stage-1 lists, and a second
     # copy of both when the merge rounds do not fit in shared memory
     keys = b * plan.n_runs * plan.kt
@@ -396,19 +465,15 @@ def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i) -> None:
     )
     base, step = scratch.data_ptr(), 4 * keys
     alt = (base + 2 * step, base + 3 * step) if plan.merge_smem == 0 else (None, None)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib = _configured(
-        "topk_streaming",
-        [p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p, p],
-    )
+    lib = _configured("topk_streaming", _TOPK_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.pio_topk_streaming(
             q.data_ptr(), item_factors.data_ptr(),
             exclude_idx.data_ptr() if e else None,
             b, n_items, r, e, k_eff, plan.kt, plan.n_tiles,
-            plan.tiles_per_block, plan.n_runs, plan.stage1_smem,
-            plan.merge_smem, plan.merge_threads,
+            plan.tiles_per_block, plan.n_runs, TOPK_STAGE1.index(plan.stage1),
+            plan.stage1_smem, plan.merge_smem, plan.merge_threads,
             base, base + step, alt[0], alt[1],
             out_s.data_ptr(), out_i.data_ptr(), stream,
         )
@@ -418,6 +483,36 @@ def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i) -> None:
 
 #: kernel launches since the count was last reset (CUDA tensors only)
 top_k_streaming.launches = 0
+
+_TOPK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 7
+#: the kernels ``pio_topk_streaming_attrs`` reports on, in its order
+TOPK_KERNELS = ("running_list", "running_list_tiled", "tile_sort", "merge",
+                "merge_round", "store")
+
+
+def topk_blocks_per_sm(stage1: str, smem: int, device=None) -> int:
+    """Blocks of the running-list kernel ``stage1`` an SM holds at
+    ``smem`` bytes of dynamic shared memory, set up as its launch sets it
+    up (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _configured("topk_streaming", _TOPK_ARGTYPES)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "topk_streaming_occupancy", lib.pio_topk_streaming_occupancy(
+            TOPK_STAGE1.index(stage1), smem, ctypes.byref(out)))
+    return out.value
+
+
+def topk_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of every top-k kernel (:data:`TOPK_KERNELS`), as
+    ``cudaFuncGetAttributes`` reports them on the card."""
+    lib = _configured("topk_streaming", _TOPK_ARGTYPES)
+    out = (ctypes.c_int * (3 * len(TOPK_KERNELS)))()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "topk_streaming_attrs", lib.pio_topk_streaming_attrs(out))
+    keys = ("regs", "local_bytes", "static_smem")
+    return {name: dict(zip(keys, out[3 * n:3 * n + 3]))
+            for n, name in enumerate(TOPK_KERNELS)}
 
 
 def top_k_for_users_streaming(

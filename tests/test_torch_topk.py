@@ -11,8 +11,9 @@ scores at that slot tied.
 Two more parts need no JAX: the kernel's launch plan
 (``topk_launch_plan``), and a step-by-step numpy emulation of the
 selection the CUDA kernel performs (runs of tiles with a running list
-and a threshold filter, then the pairwise tree merge), held exactly
-against the plain version.
+and a threshold filter, in the tiled kernel slices of its 1,024-item
+steps, then the pairwise tree merge), held exactly against the plain
+version.
 """
 
 import numpy as np
@@ -31,9 +32,16 @@ from predictionio_tpu_torch.ops.cuda_kernels import (
     TOPK_MAX_K,
     TOPK_MAX_SCRATCH_BYTES,
     TOPK_MAX_SMEM,
+    TOPK_PEND_MAX,
     TOPK_RUN_MAX_KT,
+    TOPK_RUN_NARROW_MAX_K,
+    TOPK_STAGE1,
+    TOPK_STEP_STRIDE,
+    TOPK_STEP_TILES,
     TOPK_TILE_ITEMS,
     TOPK_TILE_QUERIES,
+    TOPK_TILED_CHUNK,
+    TOPK_TILED_SPARSE_MAX,
     top_k_for_users_streaming,
     top_k_streaming,
     top_k_streaming_reference,
@@ -193,8 +201,20 @@ def test_k_above_the_kernel_ceiling_raises_on_every_device():
 PLAN_RANK, PLAN_SMS = 50, 132
 
 
+#: stage-1 shared memory at rank 50 as the .cu's run_smem_bytes and
+#: run_tiled_smem_bytes give it, written out: q rows, the staged chunk, two
+#: candidate buffers, two copies of the lists, counts, exclusion bits
+def _run_smem(kt):
+    return 4 * (8 * PLAN_RANK + 16 * 257 + 4 * 8 * 256 + 4 * 8 * kt + 8 + 8 * 8)
+
+
+def _run_tiled_smem(kt):
+    return 4 * (8 * PLAN_RANK + 8 * 1028 + 2 * 8 * 256 + 4 * 8 * kt + 24 + 8 * 32
+                + 2 * 8 * 128)
+
+
 @pytest.mark.parametrize("n", [10, 1000, 27000, 1000000])
-@pytest.mark.parametrize("k", [8, 16, 128, 1024, 2048])
+@pytest.mark.parametrize("k", [8, 16, 128, 129, 200, 256, 1024, 2048])
 @pytest.mark.parametrize("b", [1, 8, 64, 512, 1024, 4096])
 def test_launch_plan(b, k, n):
     k_eff = min(k, n)
@@ -216,28 +236,87 @@ def test_launch_plan(b, k, n):
     # the merge leaves shared memory only when two copies do not fit
     assert (plan.merge_smem == 0) == (16 * keys > TOPK_MAX_SMEM)
     assert plan.merge_threads == (64 if keys <= 128 else 256 if keys <= 1024 else 1024)
-    if plan.kt > TOPK_RUN_MAX_KT:  # every tile sorted on its own
+    if k_eff > TOPK_RUN_MAX_KT:  # every tile sorted on its own
+        assert plan.stage1 == "tile_sort"
         assert plan.stage1_smem == 0 and plan.tiles_per_block == 1
-    else:
-        assert plan.stage1_smem > 0
+    elif k_eff <= TOPK_RUN_NARROW_MAX_K:  # one item a thread
+        assert plan.stage1 == "running_list"
+        assert plan.stage1_smem == _run_smem(plan.kt)
+    else:  # 128 < k <= 256: the tiled running list, whole steps of 4 tiles
+        assert plan.stage1 == "running_list_tiled"
+        assert plan.kt == k_eff
+        assert plan.stage1_smem == _run_tiled_smem(plan.kt)
+        assert (plan.tiles_per_block % TOPK_STEP_TILES == 0
+                or plan.tiles_per_block == plan.n_tiles)
     blocks = plan.n_runs * plan.n_query_tiles
-    # the blocks an SM holds at once: four by their registers, fewer by
-    # their shared memory
-    resident = min(4, 233472 // (plan.stage1_smem + 1024))
+    # the blocks an SM holds at once: four (two for the tiled kernel) by
+    # their registers, fewer by their shared memory
+    per_sm = 2 if plan.stage1 == "running_list_tiled" else 4
+    resident = min(per_sm, 233472 // (plan.stage1_smem + 1024))
+    if plan.stage1 == "running_list_tiled":
+        assert resident == 2  # at R = 50, by its shared memory as well
     if plan.n_tiles * plan.n_query_tiles <= resident * PLAN_SMS:
-        # one block per (query tile, item tile) fits in one wave
-        assert plan.tiles_per_block == 1
+        # one block per (query tile, item tile) fits in one wave: one
+        # tile a block, one step for the tiled kernel
+        assert plan.tiles_per_block == (min(TOPK_STEP_TILES, plan.n_tiles)
+                                        if plan.stage1 == "running_list_tiled" else 1)
     elif plan.stage1_smem:
         # runs grow with the batch: one wave of blocks, or one run a query
         assert plan.tiles_per_block > 1
         assert blocks <= resident * PLAN_SMS or plan.n_runs == 1
-    if b == 1 and n <= 27000:
+    if b == 1 and n <= 27000 and k_eff <= TOPK_RUN_NARROW_MAX_K:
         assert plan.tiles_per_block == 1
-    if b == 1024 and n >= 27000 and k <= TOPK_RUN_MAX_KT:
+    if b == 1024 and n >= 27000 and k <= TOPK_RUN_NARROW_MAX_K:
         assert plan.n_runs < plan.n_tiles
         if n == 27000:
             assert plan.n_runs == (4 if k <= 16 else 3)
             assert plan.tiles_per_block == (27 if k <= 16 else 36)
+    if b == 1024 and n == 27000 and TOPK_RUN_NARROW_MAX_K < k <= TOPK_RUN_MAX_KT:
+        assert (plan.n_runs, plan.tiles_per_block) == (2, 56)  # 53 rounded up to steps
+
+
+@pytest.mark.parametrize("k", [129, 200, 256])
+def test_k_up_to_256_keeps_one_list_a_query_at_a_large_batch(k):
+    """B = 32,768 over ML-20M's catalog at 128 < k <= 256: 4,096 query
+    tiles fill two waves of two blocks an SM alone, so each walks all 106
+    tiles and a query leaves one list (67 MB of scratch at k = 256, one
+    launch); the running list forced at one item a thread plans the same
+    runs (two blocks an SM at k = 256, three below), the per-tile sort 106
+    lists."""
+    b, n = 32768, 27000
+    plan = topk_launch_plan(b, n, k, PLAN_SMS, PLAN_RANK)
+    assert plan.stage1 == "running_list_tiled"
+    assert (plan.n_runs, plan.tiles_per_block) == (1, 106)
+    assert plan.merge_smem == 16 * k
+    assert topk_scratch_bytes(plan) == b * k * 8
+    narrow = topk_launch_plan(b, n, k, PLAN_SMS, PLAN_RANK, "running_list")
+    assert narrow.stage1_smem == _run_smem(k) and narrow.n_runs == 1
+    assert 233472 // (narrow.stage1_smem + 1024) == (2 if k == 256 else 3)
+    per_tile = topk_launch_plan(b, n, k, PLAN_SMS, PLAN_RANK, "tile_sort")
+    assert per_tile.stage1_smem == 0 and per_tile.n_runs == 106
+    assert topk_batch_slices(b, n_items=n, k_eff=k, rank=PLAN_RANK,
+                             sm_count=PLAN_SMS) == [(0, b)]
+
+
+def test_a_forced_stage1_kernel_is_planned_or_refused():
+    for stage1 in TOPK_STAGE1:
+        plan = topk_launch_plan(64, 27000, 16, PLAN_SMS, PLAN_RANK, stage1)
+        assert plan.stage1 == stage1
+        if stage1 == "running_list_tiled":
+            assert plan.tiles_per_block % TOPK_STEP_TILES == 0
+    # the running lists keep k keys a run: none above 256
+    for stage1 in TOPK_STAGE1[1:]:
+        with pytest.raises(ValueError):
+            topk_launch_plan(64, 27000, 257, PLAN_SMS, PLAN_RANK, stage1)
+    with pytest.raises(ValueError):
+        topk_launch_plan(64, 27000, 16, PLAN_SMS, PLAN_RANK, "bitonic")
+    with pytest.raises(ValueError):
+        top_k_streaming(torch.zeros((2, 4)), torch.zeros((6, 4)), 3, stage1="bitonic")
+    # the CPU answers every forced kernel with the plain version
+    q, items = torch.ones((2, 4)), torch.arange(24.0).reshape(6, 4)
+    for stage1 in TOPK_STAGE1:
+        got = top_k_streaming(q, items, 3, stage1=stage1)
+        assert torch.equal(got[1], torch.tensor([[5, 4, 3]] * 2, dtype=torch.int32))
 
 
 def test_launch_plan_follows_the_card_and_the_rank():
@@ -305,20 +384,97 @@ def _place(ns, ni, rank, s, i, kt):
     ns[rank[keep]], ni[rank[keep]] = s[keep], i[keep]
 
 
-def _stage1_run(masked, q_rows, tiles, kt, n_items, rng):
-    """One stage-1 block of the running-list kernel: the query tile
-    ``q_rows`` over the item tiles ``tiles``. Returns [nq, kt] keys."""
+def _run_slices(plan, run):
+    """The item indices one stage-1 block selects from, in its order, one
+    array of 256 (thread t's candidate at position t) a selection: a tile
+    at a time for ``running_list``; for the tiled kernel four slices of
+    each 1,024-item step, slice c holding items 4t + c."""
+    t = plan.tiles_per_block
+    tiles = range(run * t, min(plan.n_tiles, (run + 1) * t))
+    assert len(tiles) >= 1
+    lane = np.arange(TOPK_TILE_ITEMS, dtype=np.int64)
+    if plan.stage1 == "running_list":
+        return [tile * TOPK_TILE_ITEMS + lane for tile in tiles]
+    step = TOPK_STEP_TILES * TOPK_TILE_ITEMS
+    # a run is whole steps, or ends with the catalog
+    assert len(tiles) % TOPK_STEP_TILES == 0 or tiles[-1] == plan.n_tiles - 1
+    return [step0 + TOPK_STEP_TILES * lane + c
+            for step0 in range(tiles[0] * TOPK_TILE_ITEMS, (tiles[-1] + 1) * TOPK_TILE_ITEMS,
+                               step)
+            for c in range(TOPK_STEP_TILES)]
+
+
+def _warp_sort(s, i):
+    """warp_sort: the bitonic network on 32 H keys held H a lane (key e =
+    lane + 32 h), best first; strides of 32 and more compare keys of one
+    lane."""
+    s, i = s.copy(), i.copy()
+    e = np.arange(len(s))
+    size = 2
+    while size <= len(s):
+        stride = size >> 1
+        while stride > 0:
+            os_, oi = s[e ^ stride], i[e ^ stride]
+            take = ((e & stride) == 0) == ((e & size) == 0)
+            take = take == _before(os_, oi, s, i)
+            s, i = np.where(take, os_, s), np.where(take, oi, i)
+            stride >>= 1
+        size <<= 1
+    return s, i
+
+
+def _merge_pending(ls, li, ps, pi, kt):
+    """merge_pending: n <= TOPK_PEND_MAX unsorted pending keys into one
+    sorted list."""
+    n = len(ps)
+    assert n <= TOPK_PEND_MAX
+    s = np.full(TOPK_PEND_MAX, -np.inf, np.float32)
+    i = np.full(TOPK_PEND_MAX, 2**31 - 1, np.int64)
+    s[:n], i[:n] = ps, pi
+    s, i = _warp_sort(s, i)
+    s, i = s[:n], i[:n]
+    _assert_sorted(s, i)
+    ns = np.full(kt, np.nan, np.float32)
+    ni = np.full(kt, -7, np.int64)
+    _place(ns, ni, np.arange(n) + _count_before(ls, li, s, i), s, i, kt)
+    _place(ns, ni, np.arange(kt) + _count_before(s, i, ls, li), ls, li, kt)
+    assert not np.isnan(ns).any(), "a list slot was never written"
+    return ns, ni
+
+
+def _stage1_run(masked, q_rows, selections, kt, n_items, rng, lazy=False):
+    """One stage-1 block of a running-list kernel: the query tile
+    ``q_rows`` over the item index arrays ``selections``
+    (:func:`_run_slices`). Returns [nq, kt] keys. ``lazy`` is the tiled
+    kernel's selection: a sparse slice's survivors wait in a pending
+    buffer, merged into the lists once some query holds more than 32 of
+    them, and at the end of the run; a slice is dense only above 64
+    survivors in some query."""
     nq = len(q_rows)
     ls = np.full((nq, kt), -np.inf, np.float32)
     li = np.tile(SENTINEL_BASE + np.arange(kt, dtype=np.int64), (nq, 1))
-    for tile in tiles:
-        j = tile * TOPK_TILE_ITEMS + np.arange(TOPK_TILE_ITEMS, dtype=np.int64)
+    pend = [(np.empty(0, np.float32), np.empty(0, np.int64)) for _ in range(nq)]
+
+    def flush(ls, li):
+        out = [_merge_pending(ls[qi], li[qi], *pend[qi], kt) for qi in range(nq)]
+        return np.stack([o[0] for o in out]), np.stack([o[1] for o in out])
+
+    for j in selections:
         cs = np.full((nq, TOPK_TILE_ITEMS), -np.inf, np.float32)
         live = j < n_items
         cs[:, live] = masked[np.ix_(q_rows, j[live])]
         keep = _before(cs, j[None, :], ls[:, -1:], li[:, -1:])
         ns = np.full((nq, kt), np.nan, np.float32)
         ni = np.full((nq, kt), -7, np.int64)
+        if keep.sum(axis=1).max() <= TOPK_TILED_SPARSE_MAX and lazy:
+            for qi in range(nq):
+                order = rng.permutation(np.flatnonzero(keep[qi]))  # arrival order
+                pend[qi] = (np.concatenate([pend[qi][0], cs[qi, order]]),
+                            np.concatenate([pend[qi][1], j[order]]))
+            if max(len(p[0]) for p in pend) > TOPK_TILED_SPARSE_MAX:
+                ls, li = flush(ls, li)
+                pend = [(p[0][:0], p[1][:0]) for p in pend]
+            continue
         if keep.sum(axis=1).max() <= SPARSE_MAX:
             for qi in range(nq):
                 order = rng.permutation(np.flatnonzero(keep[qi]))  # arrival order
@@ -329,7 +485,21 @@ def _stage1_run(masked, q_rows, tiles, kt, n_items, rng):
                 ahead = _before(ss[None, :], si[None, :],
                                 ls[qi][:, None], li[qi][:, None]).sum(1)
                 _place(ns[qi], ni[qi], np.arange(kt) + ahead, ls[qi], li[qi], kt)
-        else:
+        elif lazy:  # dense: warp w sorts query w's 256 candidates; pending keys wait
+            fresh = ls[:, -1] == -np.inf
+            for qi in range(nq):
+                hs, hi = _warp_sort(cs[qi], j)
+                _assert_sorted(hs, hi)
+                hs, hi = hs[:kt], hi[:kt]
+                if (li[qi] >= SENTINEL_BASE).all():  # the run's first slice
+                    assert fresh[qi]
+                    ns[qi], ni[qi] = hs, hi
+                    continue
+                _place(ns[qi], ni[qi], np.arange(kt) + _count_before(ls[qi], li[qi], hs, hi),
+                       hs, hi, kt)
+                _place(ns[qi], ni[qi], np.arange(kt) + _count_before(hs, hi, ls[qi], li[qi]),
+                       ls[qi], li[qi], kt)
+        else:  # dense: the slice's survivors are dropped
             hl = min(kt, WARP)
             n_warps = TOPK_TILE_ITEMS // WARP
             for qi in range(nq):
@@ -343,6 +513,8 @@ def _stage1_run(masked, q_rows, tiles, kt, n_items, rng):
                        ls[qi], li[qi], kt)
         assert not np.isnan(ns).any(), "a list slot was never written"
         ls, li = ns, ni
+    if max(len(p[0]) for p in pend):  # the run's last pending keys
+        ls, li = flush(ls, li)
     return ls, li
 
 
@@ -398,12 +570,12 @@ def emulate_kernel_selection(scores, k, excl, plan, seed=0):
     for q0 in range(0, b, TOPK_TILE_QUERIES):
         q_rows = np.arange(q0, min(b, q0 + TOPK_TILE_QUERIES))
         for run in range(n_runs):
-            tiles = range(run * t, min(plan.n_tiles, (run + 1) * t))
-            assert len(tiles) >= 1
-            if plan.stage1_smem:
-                ls, li = _stage1_run(masked, q_rows, tiles, kt, n_items, rng)
+            if plan.stage1 != "tile_sort":
+                ls, li = _stage1_run(masked, q_rows, _run_slices(plan, run), kt,
+                                     n_items, rng, lazy=plan.stage1 == "running_list_tiled")
             else:  # the per-tile kernel: a full sort of the tile, kt kept
-                (tile,) = tiles
+                assert t == 1
+                tile = run
                 j = tile * TOPK_TILE_ITEMS + np.arange(TOPK_TILE_ITEMS, dtype=np.int64)
                 cs = np.full((len(q_rows), TOPK_TILE_ITEMS), -np.inf, np.float32)
                 cs[:, j < n_items] = masked[np.ix_(q_rows, j[j < n_items])]
@@ -419,11 +591,11 @@ def emulate_kernel_selection(scores, k, excl, plan, seed=0):
     return out_s, out_i
 
 
-def _plan_with_runs(b, n, k_eff, tiles_per_block):
-    plan = topk_launch_plan(b, n, k_eff, PLAN_SMS, 8)
+def _plan_with_runs(b, n, k_eff, tiles_per_block, stage1=None):
+    plan = topk_launch_plan(b, n, k_eff, PLAN_SMS, 8, stage1)
     if tiles_per_block is None:
         return plan
-    assert plan.stage1_smem, "only the running-list path takes runs"
+    assert plan.stage1_smem, "only the running-list paths take runs"
     n_runs = -(-plan.n_tiles // tiles_per_block)
     return plan._replace(tiles_per_block=tiles_per_block, n_runs=n_runs,
                          scratch_shape=(b, n_runs, plan.kt))
@@ -456,8 +628,38 @@ def _selection_case(name):
         return normal(3, 4), normal(1, 4), 1, None, None
     if name == "k128_sparse_and_dense":
         return normal(2, 8), normal(4000, 8), 128, None, 8
-    if name == "k200_per_tile_sort":
+    if name == "k200_per_tile_sort":  # forced, as chip_smoke.py holds the kernels to it
         return normal(2, 8), normal(1500, 8), 200, None, None
+    if name == "k200_running_list":  # the plan's own: the tiled kernel, one step
+        return normal(2, 8), normal(1500, 8), 200, None, None
+    if name == "k256_tiled_sparse_and_dense":  # 3 runs of 2 steps, 8 slices each
+        return normal(9, 8), normal(6000, 8), 256, None, 8
+    if name == "k256_tiled_rising_scores":  # every slice dense
+        q = np.abs(normal(3, 4)) + 0.5
+        items = np.arange(3000, dtype=np.float32)[:, None] * np.ones((1, 4), np.float32)
+        return q, items, 256, None, 4
+    if name == "k256_tiled_ties":
+        base = rng.integers(-3, 4, size=(300, 6)).astype(np.float32)
+        items = np.concatenate([base, base[::-1], base, base, base[::-1], base])
+        return rng.integers(-3, 4, size=(9, 6)).astype(np.float32), items, 256, None, 4
+    if name == "k256_tiled_exclusions_empty_a_row":
+        excl = np.full((3, 1300), -1, np.int32)
+        excl[0] = np.arange(1300)
+        excl[1, :1100] = rng.permutation(1300)[:1100]
+        return normal(3, 8), normal(1300, 8), 256, excl, 4
+    if name == "k129_tiled_odd_number_of_runs":  # 11 tiles: 4 + 4 + 3, the last step ragged
+        return normal(10, 8), normal(2600, 8), 129, None, 4
+    if name == "k256_tiled_one_run":  # B = 32,768's plan: one run of 106 tiles
+        return normal(3, 8), normal(27000, 8), 256, None, 106
+    if name == "k256_tiled_late_dense":  # dense slices while keys are pending
+        items = normal(12000, 8)
+        items[9216:10240] *= 6
+        excl = rng.integers(-1, 12000, size=(4, 40)).astype(np.int32)
+        return normal(4, 8), items, 256, excl, 47
+    if name == "k256_running_list_forced":  # topk_run_kernel at kt = 256
+        return normal(2, 8), normal(4000, 8), 256, None, 8
+    if name == "k16_tiled_forced":  # the tiled kernel at a small kt
+        return normal(5, 8), normal(3000, 8), 16, None, 8
     if name == "k300_lists_grow_in_the_merge":
         return normal(2, 8), normal(3000, 8), 300, None, None
     if name == "served_batch_plan":  # the plan of B = 1024, two of its rows
@@ -470,19 +672,33 @@ def _selection_case(name):
     raise KeyError(name)
 
 
+#: cases whose stage-1 kernel is forced, not the plan's pick
+_FORCED_STAGE1 = {"k200_per_tile_sort": "tile_sort",
+                  "k256_running_list_forced": "running_list",
+                  "k16_tiled_forced": "running_list_tiled"}
+
+
 @pytest.mark.parametrize("name", [
     "random_T1", "random_T4", "random_T12", "ties", "rising_scores",
     "exclusions_empty_a_row", "k_above_catalog", "odd_number_of_runs",
     "single_item", "k128_sparse_and_dense", "k200_per_tile_sort",
     "k300_lists_grow_in_the_merge", "served_batch_plan",
     "k4096_merge_in_shared_memory", "k_equals_catalog_merge_in_device_memory",
+    "k200_running_list", "k256_tiled_sparse_and_dense", "k256_tiled_rising_scores",
+    "k256_tiled_ties", "k256_tiled_exclusions_empty_a_row",
+    "k129_tiled_odd_number_of_runs", "k256_running_list_forced", "k16_tiled_forced",
+    "k256_tiled_one_run", "k256_tiled_late_dense",
 ])
 def test_kernel_selection_emulated_equals_plain(name):
     q, items, k, excl, tiles_per_block = _selection_case(name)
     n = items.shape[0]
     k_eff = min(k, n)
-    plan = _plan_with_runs(q.shape[0], n, k_eff, tiles_per_block)
-    if name == "odd_number_of_runs":
+    plan = _plan_with_runs(q.shape[0], n, k_eff, tiles_per_block, _FORCED_STAGE1.get(name))
+    if name in _FORCED_STAGE1:
+        assert plan.stage1 == _FORCED_STAGE1[name]
+    elif "tiled" in name or name == "k200_running_list":
+        assert plan.stage1 == "running_list_tiled"
+    if name in ("odd_number_of_runs", "k129_tiled_odd_number_of_runs"):
         assert plan.n_runs == 3
     if name.startswith("k4096"):
         assert plan.merge_smem == 16 * 20 * 256
@@ -497,8 +713,9 @@ def test_kernel_selection_emulated_equals_plain(name):
     assert torch.isneginf(want_s[:, k_eff:]).all() and (want_i[:, k_eff:] == -1).all()
     if name == "ties":
         assert (got_s[:, 1:] == got_s[:, :-1]).any()
-    if name == "exclusions_empty_a_row":
-        assert (got_i[0] == -1).all() and (got_i[1, 10:] == -1).all()
+    if name in ("exclusions_empty_a_row", "k256_tiled_exclusions_empty_a_row"):
+        kept = 10 if name == "exclusions_empty_a_row" else 200
+        assert (got_i[0] == -1).all() and (got_i[1, kept:] == -1).all()
 
 
 # -- k above the old ceiling of 2048, up to the catalog --------------------------
@@ -519,6 +736,24 @@ def test_k4096_on_5000_items_is_answered_like_jax():
     ref = jax_scoring.top_k_for_users_fused(uf, itf, uidx, k=4096, mode="auto")
     assert port[0].shape == (3, 4096)
     assert_agree(port, ref)
+
+
+def test_k256_on_27000_items_is_answered_like_jax():
+    """A served ``num`` from 129 to 256 pads to k = 256, the tiled running
+    list's path on the card: the port answers as the JAX package's fused
+    top-k does on ML-20M's catalog, with exclusions."""
+    n = 27000
+    uf, itf, uidx = _fused_case(n, b=4, seed=24)
+    excl = np.random.default_rng(25).integers(-1, n, size=(4, 32)).astype(np.int32)
+    assert topk_launch_plan(4, n, 256, PLAN_SMS, 8).stage1 == "running_list_tiled"
+    port = scoring.top_k_for_users_fused(_t(uf), _t(itf), _t(uidx), k=256,
+                                         exclude_idx=_t(excl), mode="always")
+    ref = jax_scoring.top_k_for_users_fused(uf, itf, uidx, k=256, exclude_idx=excl,
+                                            mode="auto")
+    assert port[0].shape == (4, 256)
+    assert_agree(port, ref)
+    for row in range(4):
+        assert not set(port[1][row].tolist()) & set(excl[row][excl[row] >= 0].tolist())
 
 
 def test_k_equal_to_the_catalog_with_exclusions_is_answered_like_jax():
@@ -574,7 +809,7 @@ def test_plans_that_ran_before_keep_their_slices(b, n, r, k):
 
 
 @pytest.mark.parametrize("b,n,k", [
-    (262144, 27000, 256), (262144, 27000, 27000), (100000, 5000, 4096),
+    (262144, 27000, 512), (262144, 27000, 27000), (100000, 5000, 4096),
     (9, 27000, 27000), (17, 1 << 22, 300),
 ])
 def test_per_tile_plans_are_cut_to_the_scratch_budget(b, n, k):
@@ -592,6 +827,25 @@ def test_per_tile_plans_are_cut_to_the_scratch_budget(b, n, k):
         assert (rows + TOPK_TILE_QUERIES) * per_query > TOPK_MAX_SCRATCH_BYTES
     if (n, k) == (27000, 27000):
         assert per_query == 106 * 256 * 16  # the merge in device memory
+
+
+def test_k256_at_the_largest_batch_stays_one_launch_on_the_running_list():
+    """k = 256 keeps one list of 256 a query on the tiled running list:
+    B = 262,144 over 27,000 items is one launch with 537 MB of scratch,
+    where the per-tile sort (forced) is cut into launches of 2 GiB."""
+    b, n, k = 262144, 27000, 256
+    got = topk_batch_slices(b, n_items=n, k_eff=k, rank=50, sm_count=SLICE_SMS)
+    assert got == [(0, b)]
+    plan = topk_launch_plan(b, n, k, SLICE_SMS, 50)
+    assert plan.stage1 == "running_list_tiled" and plan.n_runs == 1
+    assert topk_scratch_bytes(plan) == b * 256 * 8 <= TOPK_MAX_SCRATCH_BYTES
+    forced = topk_batch_slices(b, n_items=n, k_eff=k, rank=50, sm_count=SLICE_SMS,
+                               stage1="tile_sort")
+    _slices_cover(forced, b)
+    assert len(forced) > 1
+    for start, stop in forced:
+        plan = topk_launch_plan(stop - start, n, k, SLICE_SMS, 50, "tile_sort")
+        assert topk_scratch_bytes(plan) <= TOPK_MAX_SCRATCH_BYTES
 
 
 def test_one_query_tile_is_the_least_slice():
@@ -619,3 +873,44 @@ def test_the_c_entry_takes_k_up_to_the_catalog_and_clamps_the_store_grid():
     assert "store_blocks < 65535 ? store_blocks : 65535" in store
     # the sentinels stay above every real index
     assert 2**31 - 1 - TOPK_MAX_K > TOPK_MAX_ITEMS
+
+
+def _cu_constants(src):
+    """The ``constexpr int`` constants of a .cu, evaluated in order."""
+    import re
+
+    env = {"INT_MAX": 2**31 - 1}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))  # noqa: S307
+    return env
+
+
+def test_the_c_entry_and_the_plan_agree_on_the_running_lists():
+    """The .cu's ceiling of the running lists, its tiled kernel's step and
+    both kernels' shared memory (run_smem_bytes, run_tiled_smem_bytes,
+    evaluated from the source) are the plan's."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(__file__).resolve().parents[1] / "predictionio_tpu_torch"
+           / "kernels" / "csrc" / "topk_streaming.cu").read_text()
+    env = _cu_constants(src)
+    assert env["kRunMaxKt"] == TOPK_RUN_MAX_KT == 256
+    assert env["kStepTiles"] == TOPK_STEP_TILES
+    assert env["kTiledChunk"] == TOPK_TILED_CHUNK
+    assert env["kStepStride"] == TOPK_STEP_STRIDE
+    assert env["kTiledBlocksPerSm"] == 2
+    assert env["kTiledSparseMax"] == TOPK_TILED_SPARSE_MAX == 2 * SPARSE_MAX
+    assert env["kPendMax"] == TOPK_PEND_MAX == 2 * TOPK_TILED_SPARSE_MAX
+    assert [env[f"kStage1{n}"] for n in ("TileSort", "Run", "RunTiled")] == [0, 1, 2]
+    assert TOPK_STAGE1 == ("tile_sort", "running_list", "running_list_tiled")
+    for fn, plan_name in (("run_smem_bytes", "running_list"),
+                          ("run_tiled_smem_bytes", "running_list_tiled")):
+        body = re.search(fn + r"\(int R, int kt\) \{\s*return ([^;]+);", src).group(1)
+        for rank, kt in ((50, 256), (50, 129), (8, 16), (4000, 200)):
+            want = eval(body.replace("/", "//"), {}, {**env, "R": rank, "kt": kt})  # noqa: S307
+            plan = topk_launch_plan(64, 27000, kt, PLAN_SMS, rank, plan_name)
+            assert plan.stage1_smem == want
+    # the running lists are refused above K = kRunMaxKt, not kt (= min(K, 256))
+    assert src.count("if (K > kRunMaxKt ||") == 2
+    assert "T % kStepTiles != 0 && T != n_tiles" in src
