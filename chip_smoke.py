@@ -647,17 +647,26 @@ def phase_build() -> None:
 
 
 def check_topk_attributes(torch, dev) -> dict:
-    """Registers and spilled bytes of every top-k kernel
-    (``cudaFuncGetAttributes``); fails if any has local memory or the
-    tiled kernel more registers than two blocks an SM allow."""
+    """Registers and local bytes of every top-k kernel
+    (``cudaFuncGetAttributes``), and the blocks an SM holds of each
+    running-list kernel at k = 256, R = 50 against the launch plan's count.
+    Fails if the tiled kernel has local memory (``topk_run_kernel``'s 16
+    bytes of stack are its parent's, unchanged), or the card holds another
+    number of blocks than the plan assumes."""
     from predictionio_tpu_torch.ops import cuda_kernels as ck
 
     attrs = ck.topk_kernel_attributes(dev)
-    emit({"phase": "kernel", "attributes": attrs})
-    spilled = {k: v["local_bytes"] for k, v in attrs.items() if v["local_bytes"]}
-    if spilled or attrs["running_list_tiled"]["regs"] > 65536 // (
-            ck.TOPK_TILED_BLOCKS_PER_SM * ck.TOPK_TILE_ITEMS):
-        raise AssertionError(f"top-k kernels spill or exceed their bound: {attrs}")
+    resident = {}
+    for stage1, per_sm in (("running_list", ck.TOPK_BLOCKS_PER_SM),
+                           ("running_list_tiled", ck.TOPK_TILED_BLOCKS_PER_SM)):
+        smem = ck.topk_launch_plan(64, N_ITEMS, 256, 132, RANK, stage1).stage1_smem
+        planned = min(per_sm, ck.TOPK_SM_SMEM // (smem + ck.TOPK_BLOCK_SMEM_RESERVE))
+        resident[stage1] = {"card": ck.topk_blocks_per_sm(stage1, smem, dev),
+                            "plan": planned}
+    emit({"phase": "kernel", "attributes": attrs, "blocks_per_sm_k256_R50": resident})
+    if attrs["running_list_tiled"]["local_bytes"] or any(
+            v["card"] != v["plan"] for v in resident.values()):
+        raise AssertionError(f"top-k kernel attributes: {attrs}, {resident}")
     return attrs
 
 
@@ -928,8 +937,8 @@ TOPK_K256_ORDER = ("tile_sort", "running_list", "running_list_tiled",
 
 def topk_k256_variants(torch, dev, seed: int = 0) -> None:
     """Not a phase of the run: the top-k at 128 < k <= 256 under each
-    stage-1 kernel, for PERF.md. Builds only the top-k library, prints its
-    kernels' registers and local bytes, then for each of
+    stage-1 kernel, for PERF.md. Builds only the top-k library, checks its
+    kernels' attributes (:func:`check_topk_attributes`), then for each of
     ``TOPK_K256_SHAPES`` (N = 27,000, R = 50) holds the plan's answer bit
     for bit to every forced kernel's (``torch.equal``) and to the plain
     version, and times the kernels in the order ``TOPK_K256_ORDER`` (event
@@ -941,12 +950,7 @@ def topk_k256_variants(torch, dev, seed: int = 0) -> None:
     from predictionio_tpu_torch.ops import cuda_kernels as ck
 
     build.build_all(["topk_streaming"])
-    emit({"phase": "topk_variant", "tree": os.path.basename(os.getcwd()),
-          "attributes": ck.topk_kernel_attributes(dev),
-          "blocks_per_sm_at_k256_R50": {
-              stage1: ck.topk_blocks_per_sm(stage1, ck.topk_launch_plan(
-                  64, 27000, 256, 132, 50, stage1).stage1_smem, dev)
-              for stage1 in ck.TOPK_STAGE1[1:]}})
+    check_topk_attributes(torch, dev)
     rng = np.random.default_rng(seed)
     n, r = 27000, 50
     q_all = torch.from_numpy(rng.standard_normal((32768, r), dtype=np.float32)).to(dev)
@@ -1074,7 +1078,7 @@ def topk_k256_knockouts(torch, dev, source: str = TOPK_SOURCE) -> None:
         times = {}
         for stage1 in ck.TOPK_STAGE1:
             plan = ck.topk_launch_plan(b, n, k, sm, r, stage1)
-            if topk_scratch_fits(plan):
+            if ck.topk_scratch_bytes(plan) <= ck.TOPK_MAX_SCRATCH_BYTES:  # unsliced
                 scratch = torch.empty((4, b * plan.n_runs * plan.kt), device=dev)
                 for name, lib in (libs.items() if stage1 == "running_list_tiled"
                                   else [("whole", libs["whole"])]):
@@ -1098,14 +1102,6 @@ def topk_k256_knockouts(torch, dev, source: str = TOPK_SOURCE) -> None:
                            for name in variants if name != "whole"}})
         del q, out_s, out_i
     shutil.rmtree(tmp, ignore_errors=True)
-
-
-def topk_scratch_fits(plan) -> bool:
-    """Whether one launch of ``plan`` keeps its scratch within the
-    wrapper's budget (the knock-outs launch whole batches, unsliced)."""
-    from predictionio_tpu_torch.ops import cuda_kernels as ck
-
-    return ck.topk_scratch_bytes(plan) <= ck.TOPK_MAX_SCRATCH_BYTES
 
 
 def phase_data(torch, dev, seed: int, scale: float = 1.0) -> dict:

@@ -98,7 +98,7 @@
 // query's lists hold at most span = n_runs * kt <= 2^29 keys (a round's key
 // count stays below 2^30); every offset across queries is size_t. The store
 // strides over at most 65,535 blocks a query, so K is not bound by the grid.
-// At kt > 256 stage 1 keeps every tile's list, about 8 N bytes a query: the
+// Above k = 256 stage 1 keeps every tile's list, about 8 N bytes a query: the
 // wrapper cuts the batch so that one launch's scratch stays within a fixed
 // budget (ops/cuda_kernels.py::topk_batch_slices).
 //
@@ -110,11 +110,11 @@
 // bound is the shared-memory path, not the FMAs: a thread computes 1 item x 8
 // queries, three shared-memory loads for every 8 FMAs, and stages every item
 // value with a load and a store of its own. Each block of 8 queries reads the
-// whole table from L2 once a run, 4 bytes for 16 FLOP, and at large batches
-// that traffic, not the FMAs, bounds topk_run_tiled_kernel. Measured times
-// are in PERF.md.
-// Asynchronous tile copies and a tensor-core product on an exact fp32 split
-// are later work.
+// whole table from L2 once a run, 4 bytes for 16 FLOP: at large batches that
+// traffic and the selection, not the FMAs, bound topk_run_tiled_kernel
+// (knock-outs and measured times in PERF.md). More queries a block, copies of
+// every chunk by cp.async and a tensor-core product on an exact fp32 split are
+// later work.
 
 #include <climits>
 #include <cuda_runtime.h>
