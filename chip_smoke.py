@@ -3351,12 +3351,23 @@ WIDE_CEIL_B = 1024
 WIDE_HEADS = (136, 192, 256)
 WIDE_ATTN_SHAPES = ((64, 4, 64, 64, True), (8, 4, 2048, 2048, True),
                     (8, 4, 2048, 2048, False))
-#: a head above the resident path's widest (FLASH_WIDE_RES_MAX_D), so the
-#: passes path is still launched and held: the training shape and L = 2,048
-#: causal
-WIDE_PASSES_HEAD = 320
-WIDE_PASSES_SHAPES = WIDE_ATTN_SHAPES[:2]
+#: heads above the resident path's widest (FLASH_WIDE_RES_MAX_D) on the
+#: streamed path: its widest, timed at WIDE_ATTN_SHAPES beside the passes
+#: kernel on the same tensors, and two more held at a ragged cross shape,
+#: causal and not (the last chunk 24 and 48 columns wide; 302 is copied 4
+#: bytes at a time)
+WIDE_STREAMED_HEAD = 320
+WIDE_STREAMED_CHECKS = (280, 302)
+WIDE_CHECK_SHAPES = ((3, 2, 130, 200, True), (2, 3, 200, 130, False))
+#: a head above the streamed path's widest (FLASH_STREAMED_MAX_D), so the
+#: passes path is still launched and held: the training shape, timed
+WIDE_PASSES_HEAD = 384
+WIDE_PASSES_SHAPES = WIDE_ATTN_SHAPES[:1]
 WIDE_ALS_RANK, WIDE_SEQ = 200, dict(d_model=256, n_heads=1)
+#: seqrec on the streamed path (D = 320) from the events store: steps
+#: trained and queries served
+WIDE_SEQ_STREAMED, WIDE_SEQ_STREAMED_STEPS, WIDE_SEQ_STREAMED_QUERIES = (
+    dict(d_model=320, n_heads=1), 10, 16)
 
 
 def wide_bucket(torch, gen, dev, b: int, k: int, n: int, r: int):
@@ -3378,6 +3389,88 @@ def wide_spd_systems(torch, gen, dev, bsz: int, n: int, k: int):
     a = torch.bmm(g.transpose(1, 2), g)
     a += LAMBDA * k * torch.eye(n, device=dev)
     return a, torch.randn((bsz, n), generator=gen, device=dev)
+
+
+def gramian_wide_case(torch, dev, gen, sm: int, b: int, k: int, n: int, r: int):
+    """One bucket of the build's general-rank path (``b`` rows of width
+    ``k`` over an ``[n, r]`` table) as training launches it, in the row
+    slices the systems budget cuts: held to the plain version on its first
+    WIDE_CHECK_ROWS rows, timed whole (events and device) beside the bound,
+    and the check rows alone beside the plain version and the library call;
+    the library call also over the whole bucket in slices of the check
+    rows, their times summed. Returns (the case's line, whether it held)."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+    from predictionio_tpu_torch.ops.cuda_kernels import gramian_fused, gramian_fused_reference
+
+    y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, b, k, n, r)
+    slices = ck.gramian_row_slices(b, k, r, sm)
+
+    def whole():
+        for s0, s1 in slices:
+            gramian_fused(y, idx[s0:s1], w2[s0:s1], rhs[s0:s1], ridge[s0:s1])
+
+    before = gramian_fused.launches
+    whole()
+    torch.cuda.synchronize()
+    launches = gramian_fused.launches - before
+    rows = min(b, WIDE_CHECK_ROWS)
+    part = (y, idx[:rows], w2[:rows], rhs[:rows], ridge[:rows])
+    a_k, b_k = gramian_fused(*part)
+    a_2, b_2 = gramian_fused(*part)
+    a_p, b_p = gramian_fused_reference(*part)
+    ok = bool(torch.isfinite(a_k).all() and torch.isfinite(b_k).all()
+              and torch.allclose(a_k, a_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+              and torch.allclose(b_k, b_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+              and torch.equal(a_k, a_k.transpose(1, 2)))
+    same = bool(torch.equal(a_k, a_2) and torch.equal(b_k, b_2))
+    err = max(float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max()))
+    del a_k, b_k, a_2, b_2, a_p, b_p
+    valid = int(w2.sum())
+    plan = ck.gramian_plan(slices[0][1] - slices[0][0], k, r, sm)
+    out = {"B": b, "K": k, "N": n, "slices": len(slices),
+           "launches": launches, "check_rows": rows,
+           "plan": {"path": plan.path, "tiles": plan.tiles, "kc": plan.chunk,
+                    "S": plan.n_chunks, "blocks": plan.blocks,
+                    "blocks_per_sm": plan.blocks_per_sm},
+           "max_abs_err": err, "symmetric": ok, "bit_identical": same}
+    out["kernel_ms"] = time_ms(torch, whole, 2, 1)
+    out["kernel_device_ms"] = traced_device_ms(
+        torch, whole, 2, len(slices) * (2 if plan.n_chunks > 1 else 1))
+    bound_ms, out["bound_by"] = gramian_bound(b, k, n, r, valid, False)
+    out["bound_us"] = bound_ms * 1e3
+    # the check rows alone: kernel, plain and library on the same inputs
+    sub_valid = int(w2[:rows].sum())
+    out["rows_kernel_ms"] = time_ms(torch, lambda: gramian_fused(*part), 3, 1)
+    out["rows_plain_ms"] = time_ms(torch, lambda: gramian_fused_reference(*part), 2, 1)
+    out["rows_library_ms"] = time_ms(
+        torch, lambda: _gramian_library(torch, *part[:4]), 2, 1)
+    out["rows_bound_us"] = gramian_bound(rows, k, n, r, sub_valid, False)[0] * 1e3
+    # the library over the whole bucket: its time in slices of the check rows, summed
+    out["library_ms"] = sum(time_ms(torch, lambda s0=s0: _gramian_library(
+        torch, y, idx[s0:s0 + rows], w2[s0:s0 + rows], rhs[s0:s0 + rows]), 2, 1)
+        for s0 in range(0, b, rows))
+    del y, idx, w2, rhs, ridge
+    torch.cuda.empty_cache()
+    return out, ok and same and launches == len(slices)
+
+
+def gramian_wide_variants(torch, dev, seed: int = 0,
+                          cases=(("by_user", 200), ("by_item", 129), ("by_item", 256))) -> None:
+    """The build's general-rank path alone at some of ``wide_kernels``'
+    buckets (side, rank): the same tensors from the same seed, a fresh
+    process's traces. Builds only the build's library."""
+    from predictionio_tpu_torch.kernels import build
+
+    build.build_all(["gramian_fused"])
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    for r in WIDE_RANKS:
+        for side, b, k, n in WIDE_BUCKETS:
+            if (side, r) not in cases:  # the same draws, so each case's tensors are wide_kernels'
+                wide_bucket(torch, gen, dev, b, k, n, r)
+                continue
+            out, ok = gramian_wide_case(torch, dev, gen, sm, b, k, n, r)
+            emit({"phase": "gramian_wide_variant", "case": f"{side}_R{r}", "held": ok, **out})
 
 
 def spd_blocked_variants(torch, dev, seed: int = 0) -> None:
@@ -3648,14 +3741,16 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     R = 129, 200, 256 at both ML-20M bucket shapes (the users' bucket in
     the slices training cuts it into) and a split bucket, the solve at n =
     129, 200, 256 with its edge cases, attention at D = 136, 192, 256
-    causal and not on the resident path and at D = 320 on the passes
-    path. Each kernel's registers and local bytes first (no local memory;
-    the attention kernels' and the blocked solve's registers equal to their
-    plan constants, the build's and the wide solve's within their launch
-    bounds); each case prints
-    its plan and its error, the timed ones the kernel's event and device
-    time beside the plain version's, the library call's and the bound, and
-    the resident cases the passes kernel's time on the same tensors."""
+    causal and not on the resident path, at D = 320 causal and not and at
+    D = 280 and 302 on the streamed path, a plan forcing the streamed path
+    at D = 256 (``torch.equal`` to the resident kernel), and at D = 384 on
+    the passes path. Each kernel's registers and local bytes first (no
+    local memory; the attention kernels' and the blocked solve's registers
+    equal to their plan constants, the build's and the wide solve's within
+    their launch bounds); each case prints its plan and its error, the
+    timed ones the kernel's event and device time beside the plain
+    version's, the library call's and the bound, and the resident and
+    streamed cases the passes kernel's time on the same tensors."""
     from predictionio_tpu_torch.ops import cuda_kernels as ck
     from predictionio_tpu_torch.ops.cuda_kernels import (
         flash_attention_fwd,
@@ -3671,16 +3766,19 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                                if k.startswith("wide")},
              "spd_solve": {k: spd_attrs[k] for k in ("blocked", "wide")},
              "flash_attention": ck.flash_wide_kernel_attributes(dev),
-             "flash_attention_resident": ck.flash_resident_kernel_attributes(dev)}
+             "flash_attention_resident": ck.flash_resident_kernel_attributes(dev),
+             "flash_attention_streamed": ck.flash_streamed_kernel_attributes(dev)}
     flat = [*attrs["gramian_fused"].values(), *attrs["spd_solve"].values(),
-            attrs["flash_attention"], *attrs["flash_attention_resident"].values()]
+            attrs["flash_attention"], *attrs["flash_attention_resident"].values(),
+            attrs["flash_attention_streamed"]]
     emit({"phase": "wide", "attributes": attrs})
     regs_ok = (all(a["regs"] <= ck.GRAMIAN_WIDE_REGS for a in attrs["gramian_fused"].values())
                and attrs["spd_solve"]["wide"]["regs"] <= ck.SPD_WIDE_REGS
                and attrs["spd_solve"]["blocked"]["regs"] == ck.SPD_BLOCKED_REGS
                and attrs["flash_attention"]["regs"] == ck.FLASH_WIDE_REGS
                and all(a["regs"] == ck.FLASH_WIDE_RES_REGS[g]
-                       for g, a in attrs["flash_attention_resident"].items()))
+                       for g, a in attrs["flash_attention_resident"].items())
+               and attrs["flash_attention_streamed"]["regs"] == ck.FLASH_STREAMED_REGS)
     if any(a["local_bytes"] for a in flat) or not regs_ok:
         raise AssertionError(f"the general-width kernels take {attrs}")
     worst = {"gramian_fused": 0.0, "spd_solve": 0.0, "flash_attention": 0.0}
@@ -3696,52 +3794,8 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     # the build, at both bucket shapes, every wide rank
     for r in WIDE_RANKS:
         for side, b, k, n in WIDE_BUCKETS:
-            y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, b, k, n, r)
-            slices = ck.gramian_row_slices(b, k, r, sm)
-
-            def whole():
-                for s0, s1 in slices:
-                    gramian_fused(y, idx[s0:s1], w2[s0:s1], rhs[s0:s1], ridge[s0:s1])
-
-            before = gramian_fused.launches
-            whole()
-            torch.cuda.synchronize()
-            launches = gramian_fused.launches - before
-            rows = min(b, WIDE_CHECK_ROWS)
-            part = (y, idx[:rows], w2[:rows], rhs[:rows], ridge[:rows])
-            a_k, b_k = gramian_fused(*part)
-            a_2, b_2 = gramian_fused(*part)
-            a_p, b_p = gramian_fused_reference(*part)
-            ok = bool(torch.isfinite(a_k).all() and torch.isfinite(b_k).all()
-                      and torch.allclose(a_k, a_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
-                      and torch.allclose(b_k, b_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
-                      and torch.equal(a_k, a_k.transpose(1, 2)))
-            same = bool(torch.equal(a_k, a_2) and torch.equal(b_k, b_2))
-            err = max(float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max()))
-            del a_k, b_k, a_2, b_2, a_p, b_p
-            valid = int(w2.sum())
-            plan = ck.gramian_plan(slices[0][1] - slices[0][0], k, r, sm)
-            out = {"R": r, "side": side, "B": b, "K": k, "N": n, "slices": len(slices),
-                   "launches": launches, "check_rows": rows,
-                   "plan": {"path": plan.path, "tiles": plan.tiles, "kc": plan.chunk,
-                            "S": plan.n_chunks, "blocks": plan.blocks,
-                            "blocks_per_sm": plan.blocks_per_sm},
-                   "max_abs_err": err, "symmetric": ok, "bit_identical": same}
-            out["kernel_ms"] = time_ms(torch, whole, 2, 1)
-            out["kernel_device_ms"] = traced_device_ms(
-                torch, whole, 2, len(slices) * (2 if plan.n_chunks > 1 else 1))
-            bound_ms, out["bound_by"] = gramian_bound(b, k, n, r, valid, False)
-            out["bound_us"] = bound_ms * 1e3
-            # the check rows alone: kernel, plain and library on the same inputs
-            sub_valid = int(w2[:rows].sum())
-            out["rows_kernel_ms"] = time_ms(torch, lambda: gramian_fused(*part), 3, 1)
-            out["rows_plain_ms"] = time_ms(torch, lambda: gramian_fused_reference(*part), 2, 1)
-            out["rows_library_ms"] = time_ms(
-                torch, lambda: _gramian_library(torch, *part[:4]), 2, 1)
-            out["rows_bound_us"] = gramian_bound(rows, k, n, r, sub_valid, False)[0] * 1e3
-            held("gramian_fused", f"{side}_R{r}", out, ok and same and launches == len(slices))
-            del y, idx, w2, rhs, ridge
-            torch.cuda.empty_cache()
+            out, ok = gramian_wide_case(torch, dev, gen, sm, b, k, n, r)
+            held("gramian_fused", f"{side}_R{r}", {"R": r, "side": side, **out}, ok)
     # a bucket of a few rows is split into chunks and reduced in chunk order
     y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, 16, 8193, 5000, 200)
     w2[3], rhs[3], ridge[3] = 0.0, 0.0, 0.0
@@ -3762,7 +3816,7 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     # attention
     import torch.nn.functional as F
 
-    def attention_case(d, b, h, lq, lk, causal):
+    def attention_case(d, b, h, lq, lk, causal, timed=True):
         q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
                    for n_ in (lq, lk, lk))
         before = flash_attention_fwd.launches
@@ -3776,45 +3830,211 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                "plan": flash_plan_line(plan), "launches": launched,
                "max_abs_err": float((o_k - o_p).abs().max()),
                "bit_identical": bool(torch.equal(o_k, flash_attention_fwd(q, k, v, causal)))}
-        kernel = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
-        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
-        out["kernel_ms"] = time_ms(torch, kernel, 10, 2)
-        out["kernel_device_ms"] = traced_device_ms(torch, kernel, 10)
-        if plan.path == "resident":  # the passes kernel on the same tensors
-            passes = ck.flash_wide_launch_plan(b, h, lq, lk, d, sm)
-            earlier = lambda: flash_attention_fwd(q, k, v, causal, plan=passes)  # noqa: E731
-            o_e = earlier()
-            ok = ok and bool(torch.allclose(o_e, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL))
-            out["earlier_max_abs_err"] = float((o_e - o_p).abs().max())
-            out["earlier_kernel_ms"] = time_ms(torch, earlier, 10, 2)
-            out["earlier_kernel_device_ms"] = traced_device_ms(torch, earlier, 10)
-            del o_e
-        out["plain_ms"] = time_ms(
-            torch, lambda: flash_attention_fwd_reference(q, k, v, causal), 3, 1)
-        out["library_ms"] = time_ms(torch, library, 10, 2)
-        out["library_device_ms"] = traced_device_ms(torch, library, 10)
-        bound_ms, out["bound_by"] = flash_attention_bound(b, h, lq, lk, d, causal)
-        out["bound_us"] = bound_ms * 1e3
-        on_card = out["kernel_device_ms"]
-        if on_card is not None:
-            out["device_over_bound"] = on_card / bound_ms
-            for key in ("library", "earlier_kernel"):
-                if out.get(f"{key}_device_ms"):
-                    out[f"device_over_{key}"] = on_card / out[f"{key}_device_ms"]
-        path = "resident" if d <= ck.FLASH_WIDE_RES_MAX_D else "passes"
-        held("flash_attention", f"D{d}_{b}x{h}x{lq}_causal_{causal}", out,
+        if timed:
+            kernel = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
+            library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+            out["kernel_ms"] = time_ms(torch, kernel, 10, 2)
+            out["kernel_device_ms"] = traced_device_ms(torch, kernel, 10)
+            if plan.path != "passes":  # the passes kernel on the same tensors
+                passes = ck.flash_wide_launch_plan(b, h, lq, lk, d, sm)
+                earlier = lambda: flash_attention_fwd(q, k, v, causal, plan=passes)  # noqa: E731
+                o_e = earlier()
+                ok = ok and bool(torch.allclose(o_e, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL))
+                out["earlier_max_abs_err"] = float((o_e - o_p).abs().max())
+                out["earlier_kernel_ms"] = time_ms(torch, earlier, 10, 2)
+                out["earlier_kernel_device_ms"] = traced_device_ms(torch, earlier, 10)
+                del o_e
+            out["plain_ms"] = time_ms(
+                torch, lambda: flash_attention_fwd_reference(q, k, v, causal), 3, 1)
+            out["library_ms"] = time_ms(torch, library, 10, 2)
+            out["library_device_ms"] = traced_device_ms(torch, library, 10)
+            bound_ms, out["bound_by"] = flash_attention_bound(b, h, lq, lk, d, causal)
+            out["bound_us"] = bound_ms * 1e3
+            on_card = out["kernel_device_ms"]
+            if on_card is not None:
+                out["device_over_bound"] = on_card / bound_ms
+                for key in ("library", "earlier_kernel"):
+                    if out.get(f"{key}_device_ms"):
+                        out[f"device_over_{key}"] = on_card / out[f"{key}_device_ms"]
+        path = ("resident" if d <= ck.FLASH_WIDE_RES_MAX_D else
+                "streamed" if d <= ck.FLASH_STREAMED_MAX_D else "passes")
+        shape = f"{b}x{h}x{lq}" if timed else f"{b}x{h}x{lq}x{lk}"
+        held("flash_attention", f"D{d}_{shape}_causal_{causal}", out,
              ok and out["bit_identical"] and launched == 1 and plan.path == path)
+
+    def streamed_at_resident_width(d, b, h, lq, lk, causal):
+        """A plan forcing the streamed path at a resident width: the
+        resident kernel's bits, and both kernels' times on the same tensors."""
+        q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
+                   for n_ in (lq, lk, lk))
+        streamed = ck.flash_streamed_launch_plan(
+            b, h, lq, lk, d, sm, attrs["flash_attention_streamed"]["regs"])
+        o_r = flash_attention_fwd(q, k, v, causal)
+        o_s = flash_attention_fwd(q, k, v, causal, plan=streamed)
+        o_p = flash_attention_fwd_reference(q, k, v, causal)
+        forced = lambda: flash_attention_fwd(q, k, v, causal, plan=streamed)  # noqa: E731
+        resident = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
+        out = {"D": d, "B": b, "H": h, "Lq": lq, "Lk": lk, "causal": causal,
+               "plan": flash_plan_line(streamed),
+               "max_abs_err": float((o_s - o_p).abs().max()),
+               "equal_to_resident": bool(torch.equal(o_s, o_r)),
+               "streamed_ms": time_ms(torch, forced, 10, 2),
+               "streamed_device_ms": traced_device_ms(torch, forced, 10),
+               "resident_ms": time_ms(torch, resident, 10, 2),
+               "resident_device_ms": traced_device_ms(torch, resident, 10)}
+        held("flash_attention", f"D{d}_forced_streamed_{b}x{h}x{lq}_causal_{causal}", out,
+             out["equal_to_resident"] and bool(torch.allclose(o_s, o_p, rtol=ATTN_RTOL,
+                                                              atol=ATTN_ATOL)))
 
     for d in WIDE_HEADS:
         for shape in WIDE_ATTN_SHAPES:
             attention_case(d, *shape)
+    for shape in WIDE_ATTN_SHAPES:
+        attention_case(WIDE_STREAMED_HEAD, *shape)
+    for d in WIDE_STREAMED_CHECKS:
+        for shape in WIDE_CHECK_SHAPES:
+            attention_case(d, *shape, timed=False)
+    for shape in WIDE_ATTN_SHAPES[:2]:
+        streamed_at_resident_width(256, *shape)
     for shape in WIDE_PASSES_SHAPES:
         attention_case(WIDE_PASSES_HEAD, *shape)
     return {"cases": cases, "max_abs_err": worst, "attributes": attrs}
 
 
-def seq_burst(torch, dev, port: int, seq_model, seq_params, rng, launch_count=None) -> dict:
-    """A burst of ``HTTP_QUERIES`` concurrent seqrec queries (by user, and
+def flash_streamed_variants(torch, dev, seed: int = 0) -> None:
+    """The streamed path alone at D = WIDE_STREAMED_HEAD and the shapes of
+    WIDE_ATTN_SHAPES: the kernel's attributes, then at each shape its
+    answer against the plain version and the passes kernel's, and the
+    event and device ms of both on the same tensors, passes, streamed,
+    streamed, passes; last a plan forcing the streamed path at D = 256
+    against the resident kernel (bits, and both kernels' device ms). Builds
+    only the attention library. To compare two kernel versions in one call,
+    unpack the other tree under ``chip_compare/`` (gitignored) and run this
+    in each: the inputs come from the seed, so both see the same tensors."""
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        flash_attention_fwd,
+        flash_attention_fwd_reference,
+    )
+
+    build.build_all(["flash_attention"])
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    attrs = ck.flash_streamed_kernel_attributes(dev)
+    tree = os.path.basename(os.getcwd())
+    emit({"phase": "flash_streamed_variant", "tree": tree, "attributes": attrs})
+    for d, shapes in ((WIDE_STREAMED_HEAD, WIDE_ATTN_SHAPES), (256, WIDE_ATTN_SHAPES[:2])):
+        for b, h, lq, lk, causal in shapes:
+            q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
+                       for n_ in (lq, lk, lk))
+            streamed = ck.flash_streamed_launch_plan(b, h, lq, lk, d, sm, attrs["regs"])
+            other = (ck.flash_wide_launch_plan(b, h, lq, lk, d, sm) if d > ck.FLASH_WIDE_RES_MAX_D
+                     else ck.flash_plan_for(q, k, causal))
+            o_s = flash_attention_fwd(q, k, v, causal, plan=streamed)
+            o_o = flash_attention_fwd(q, k, v, causal, plan=other)
+            o_p = flash_attention_fwd_reference(q, k, v, causal)
+            kernel = lambda: flash_attention_fwd(q, k, v, causal, plan=streamed)  # noqa: E731
+            earlier = lambda: flash_attention_fwd(q, k, v, causal, plan=other)  # noqa: E731
+            line = {"phase": "flash_streamed_variant", "tree": tree, "D": d, "B": b, "H": h,
+                    "L": lq, "causal": causal, "other": other.path,
+                    "max_abs_err": float((o_s - o_p).abs().max()),
+                    "held": bool(torch.allclose(o_s, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL)),
+                    "bit_identical": bool(torch.equal(o_s, kernel())),
+                    "equal_to_other": bool(torch.equal(o_s, o_o))}
+            order = (("other", earlier), ("streamed", kernel), ("streamed", kernel),
+                     ("other", earlier))
+            for name, fn in order:
+                line.setdefault(f"{name}_ms", []).append(time_ms(torch, fn, 10, 2))
+                line.setdefault(f"{name}_device_ms", []).append(traced_device_ms(torch, fn, 10))
+            emit(line)
+            del q, k, v, o_s, o_o, o_p
+
+
+#: the streamed kernel's phases as the knock-outs cut them: text of its body
+#: and what replaces it (a knock-out's answer is wrong; only its time counts)
+FLASH_STREAMED_PHASES = {
+    "chunk_copies": ("const int j = n / steps, r = n - j * steps;",
+                     "return;\n    const int j = n / steps, r = n - j * steps;"),
+    "qk_fmas": ("= fmaf(qv[i].", "= (qv[i]."),
+    "softmax_exps": ("expf(", "("),
+    "pv_fmas": ("= fmaf(pv[i][u]", "= (pv[i][u]"),
+    "barriers": ("__syncthreads();  // every thread", "// __syncthreads();  // every thread"),
+}
+
+
+def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE) -> None:
+    """Where the streamed kernel's time goes: ``source`` built as it is and
+    once without each phase (FLASH_STREAMED_PHASES, cut inside the streamed
+    kernel's body only), all with ``nvcc -Xptxas -v`` at once, then each
+    launched through its own ``pio_flash_attention_streamed`` at D =
+    WIDE_STREAMED_HEAD and the shapes of WIDE_ATTN_SHAPES (CUDA events).
+    A knock-out's time less the whole kernel's is what that phase costs
+    where nothing hides it. Prints each build's registers and spills."""
+    import ctypes
+    import re
+
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    text = open(source).read()
+    start = text.index("flash_attention_streamed_kernel(const")
+    end = text.index("\nstatic_assert(kSRows", start)
+    variants = {"whole": text}
+    for name, (old, new) in FLASH_STREAMED_PHASES.items():
+        body = text[start:end]
+        if old not in body:
+            raise AssertionError(f"knock-out {name}: {old!r} is not in the streamed kernel")
+        variants[name] = text[:start] + body.replace(old, new) + text[end:]
+    tmp = tempfile.mkdtemp(prefix="flash_knockouts_")
+    procs = {}
+    for name, src in variants.items():
+        path = os.path.join(tmp, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"lib{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"knock-out {name} did not build: {log[-2000:]}")
+        kernel_log = log[log.index("flash_attention_streamed_kernel"):]
+        emit({"phase": "flash_streamed_knockout", "variant": name, "ptxas": re.findall(
+            r"(\d+ bytes spill stores|Used \d+ registers)", kernel_log)[:2]})
+        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
+        lib.pio_flash_attention_streamed.argtypes = (
+            ck._EXTRA_ENTRIES["flash_attention"]["pio_flash_attention_streamed"])
+        libs[name] = lib
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(21)
+    d = WIDE_STREAMED_HEAD
+    for b, h, lq, lk, causal in WIDE_ATTN_SHAPES:
+        q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev) for n_ in (lq, lk, lk))
+        o = torch.empty_like(q)
+        plan = ck.flash_streamed_launch_plan(b, h, lq, lk, d, sm, ck.FLASH_STREAMED_REGS)
+        times = {}
+        for name, lib in libs.items():
+            def launch(lib=lib):
+                code = lib.pio_flash_attention_streamed(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, lq, lk, d,
+                    int(causal), plan.threads, plan.smem, plan.blocks,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if code:
+                    raise AssertionError(f"knock-out {name} failed to launch: {code}")
+            times[name] = time_ms(torch, launch, 10, 2)
+        emit({"phase": "flash_streamed_knockout", "B": b, "L": lq, "causal": causal,
+              "ms": times,
+              "phase_ms": {k_: times["whole"] - t for k_, t in times.items() if k_ != "whole"}})
+        del q, k, v, o
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def seq_burst(torch, dev, port: int, seq_model, seq_params, rng, launch_count=None,
+              n_queries: int = HTTP_QUERIES) -> dict:
+    """A burst of ``n_queries`` concurrent seqrec queries (by user, and
     an unknown user and unknown items) to the server on ``port``, each
     answer held to the plain attention's forward on the card: the same
     items in the same order, scores within the serving tolerance. The
@@ -3827,7 +4047,7 @@ def seq_burst(torch, dev, port: int, seq_model, seq_params, rng, launch_count=No
 
     seq_users = list(seq_model.user_recent)
     bodies = [{"user": str(u), "num": 1 + j % 20} for j, u in enumerate(
-        rng.choice(seq_users, size=HTTP_QUERIES - 2, replace=False))]
+        rng.choice(seq_users, size=n_queries - 2, replace=False))]
     bodies += [{"user": "nobody-1", "num": 5},
                {"recent_items": ["ghost-1", "ghost-2"], "num": 5}]
     if launch_count is None:
@@ -3868,25 +4088,14 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
     build and solve launches reset just before and read just after) held
     to 3 iterations of the plain build and solve, with its holdout RMSE
     (3 iterations through the kernels on 95 % of the ratings), and seqrec
-    at d_model 256 / 1 head (D = 256) trained by ``run_train`` (20 steps)
-    and served for a burst held to the plain forward (attention launches
-    counted on both)."""
+    by :func:`seqrec_wide` at d_model 256 / 1 head (D = 256, the resident
+    path; 20 steps, 64 queries) and at d_model 320 / 1 head (D = 320, the
+    streamed path; 10 steps, 16 queries)."""
     from predictionio_tpu_torch.controller import EngineParams
     from predictionio_tpu_torch.models import recommendation as rec
-    from predictionio_tpu_torch.models import sequencerec as seq
     from predictionio_tpu_torch.ops import als
-    from predictionio_tpu_torch.ops.cuda_kernels import (
-        flash_attention_fwd,
-        gramian_fused,
-        spd_solve,
-    )
-    from predictionio_tpu_torch.workflow import (
-        ServerConfig,
-        WorkflowContext,
-        create_query_server,
-        load_models,
-        run_train,
-    )
+    from predictionio_tpu_torch.ops.cuda_kernels import gramian_fused, spd_solve
+    from predictionio_tpu_torch.workflow import WorkflowContext, load_models, run_train
 
     t0 = time.monotonic()
     kernels = wide_kernels(torch, dev, seed)
@@ -3929,46 +4138,89 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
         if not ok:
             raise AssertionError(f"ALS at rank {WIDE_ALS_RANK}: {als_out}")
 
-        seq_params = seq.SeqRecAlgorithmParams(**dict(SEQ_PARAMS, **WIDE_SEQ,
-                                                      steps=EVENTS_SEQ_STEPS))
-        seq_ep = EngineParams(
-            data_source_params=("", seq.SeqDataSourceParams(app_id=EVENTS_APP,
-                                                             event_names=("rate",))),
-            preparator_params=("", seq.SeqPreparatorParams(seq_len=SEQ_LEN,
-                                                           window_stride=SEQ_STRIDE)),
-            algorithm_params_list=[("transformer", seq_params)])
-        flash_attention_fwd.launches = 0  # main path starts here
-        t = time.monotonic()
-        seq_instance = run_train(seq.engine_factory(), seq_ep, registry,
-                                 engine_id="wide-seqrec", ctx=WorkflowContext(device=dev))
-        seconds["seqrec_run_train"] = time.monotonic() - t
-        launches["seqrec_run_train"] = flash_attention_fwd.launches  # main path ends here
-        (seq_model,) = load_models(registry, seq_instance)
-        server = create_query_server(
-            seq.engine_factory(), ServerConfig(ip="127.0.0.1", port=0, device=dev,
-                                               engine_instance_id=seq_instance),
-            registry=registry, block=False)
-        try:
-            burst = seq_burst(torch, dev, server.bound_port, seq_model, seq_params, rng)
-        finally:
-            server.shutdown()
-            server.server_close()
-    launches["seqrec_serve"] = burst["launches"]
-    n_layers = seq_params.n_layers
-    seq_out = {"instance": seq_instance, "head_width": WIDE_SEQ["d_model"] // WIDE_SEQ["n_heads"],
-               **{k: burst[k] for k in ("served", "forwards", "wrong")},
-               "launches": {k: launches[k] for k in ("seqrec_run_train", "seqrec_serve")}}
-    emit({"phase": "wide", "stage": "seqrec_d256", **seq_out,
-          "seconds": seconds["seqrec_run_train"]})
-    if (burst["bad"] or launches["seqrec_run_train"] != n_layers * EVENTS_SEQ_STEPS
-            or launches["seqrec_serve"] != n_layers * burst["forwards"]):
-        raise AssertionError(f"seqrec at D = 256: {burst['bad'][:3]}, {launches}")
+        seq_out = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ, EVENTS_SEQ_STEPS,
+                              HTTP_QUERIES, "wide-seqrec")
+        seq_streamed = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ_STREAMED,
+                                   WIDE_SEQ_STREAMED_STEPS, WIDE_SEQ_STREAMED_QUERIES,
+                                   "wide-seqrec-d320")
+    seconds.update(seqrec_run_train=seq_out["train_s"],
+                   seqrec_d320_run_train=seq_streamed["train_s"],
+                   seqrec_d320_serve=seq_streamed["serve_s"])
     out = {"phase": "wide", "kernels": kernels, "als": als_out, "seqrec": seq_out,
-           "seconds": seconds, "by_kernel": {
+           "seqrec_d320": seq_streamed, "seconds": seconds, "by_kernel": {
                "gramian_fused": launches["als_run_train"]["gramian_fused"],
                "spd_solve": launches["als_run_train"]["spd_solve"],
-               "flash_attention": launches["seqrec_run_train"] + launches["seqrec_serve"]}}
+               "flash_attention": sum(sum(x["launches"].values())
+                                      for x in (seq_out, seq_streamed)),
+               "flash_attention_streamed": sum(seq_streamed["path_launches"].values())}}
     emit({k: v for k, v in out.items() if k != "kernels"})
+    return out
+
+
+def seqrec_wide(torch, dev, registry, rng, shape: dict, steps: int, queries: int,
+                engine_id: str) -> dict:
+    """Seqrec at a wide head over the events phase's store: trained by
+    ``run_train`` for ``steps`` steps and served for a burst of ``queries``
+    held to the plain forward (the same items in the same order). The
+    attention launches of each, reset just before and read just after, in
+    all and on the path the head width takes, must be ``n_layers`` a step
+    and a forward."""
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.models import sequencerec as seq
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+    from predictionio_tpu_torch.ops.cuda_kernels import flash_attention_fwd
+    from predictionio_tpu_torch.workflow import (
+        ServerConfig,
+        WorkflowContext,
+        create_query_server,
+        load_models,
+        run_train,
+    )
+
+    head = shape["d_model"] // shape["n_heads"]
+    path = ("resident" if head <= ck.FLASH_WIDE_RES_MAX_D else
+            "streamed" if head <= ck.FLASH_STREAMED_MAX_D else "passes")
+    seq_params = seq.SeqRecAlgorithmParams(**dict(SEQ_PARAMS, **shape, steps=steps))
+    seq_ep = EngineParams(
+        data_source_params=("", seq.SeqDataSourceParams(app_id=EVENTS_APP,
+                                                         event_names=("rate",))),
+        preparator_params=("", seq.SeqPreparatorParams(seq_len=SEQ_LEN,
+                                                       window_stride=SEQ_STRIDE)),
+        algorithm_params_list=[("transformer", seq_params)])
+    by_path = flash_attention_fwd.launches_by_path
+    flash_attention_fwd.launches = by_path[path] = 0  # main path starts here
+    t = time.monotonic()
+    instance = run_train(seq.engine_factory(), seq_ep, registry, engine_id=engine_id,
+                         ctx=WorkflowContext(device=dev))
+    train_s = time.monotonic() - t
+    launches = {"run_train": flash_attention_fwd.launches}  # main path ends here
+    path_launches = {"run_train": by_path[path]}
+    (model,) = load_models(registry, instance)
+    server = create_query_server(
+        seq.engine_factory(), ServerConfig(ip="127.0.0.1", port=0, device=dev,
+                                           engine_instance_id=instance),
+        registry=registry, block=False)
+    try:
+        by_path[path] = 0  # the burst's main path starts here (seq_burst resets the total)
+        t = time.monotonic()
+        burst = seq_burst(torch, dev, server.bound_port, model, seq_params, rng,
+                          n_queries=queries)
+        serve_s = time.monotonic() - t
+        path_launches["serve"] = by_path[path]  # and ends here
+    finally:
+        server.shutdown()
+        server.server_close()
+    launches["serve"] = burst["launches"]
+    n_layers = seq_params.n_layers
+    out = {"instance": instance, "head_width": head, "path": path, "steps": steps,
+           **{k: burst[k] for k in ("served", "forwards", "wrong")},
+           "launches": launches, "path_launches": path_launches,
+           "train_s": train_s, "serve_s": serve_s}
+    emit({"phase": "wide", "stage": f"seqrec_d{head}", **out})
+    want = {"run_train": n_layers * steps, "serve": n_layers * burst["forwards"]}
+    if burst["bad"] or launches != want or path_launches != want:
+        raise AssertionError(f"seqrec at D = {head}: {burst['bad'][:3]}, {launches}, "
+                             f"{path_launches} on the {path} path")
     return out
 
 
@@ -4234,10 +4486,11 @@ def wide_lines(wide: dict, name: str) -> dict:
             "rows_library_ms", "rows_bound_us", "max_abs_err", "max_rel_err", "abba_ms",
             "equal_to_wide_kernel",
             "earlier_kernel_ms", "earlier_kernel_device_ms", "device_over_bound",
-            "device_over_library", "device_over_earlier_kernel")
+            "device_over_library", "device_over_earlier_kernel", "equal_to_resident",
+            "streamed_ms", "streamed_device_ms", "resident_ms", "resident_device_ms")
     return {case.split(":", 1)[1]: {k: out[k] for k in keys if k in out}
             for case, out in wide["kernels"]["cases"].items()
-            if case.startswith(name + ":") and "kernel_ms" in out}
+            if case.startswith(name + ":") and ("kernel_ms" in out or "streamed_ms" in out)}
 
 
 def main(argv=None) -> int:
@@ -4421,7 +4674,36 @@ def main(argv=None) -> int:
         "wide_path": wide_lines(wide, "flash_attention"),
         "wide_attributes": {
             "resident": wide["kernels"]["attributes"]["flash_attention_resident"],
+            "streamed": wide["kernels"]["attributes"]["flash_attention_streamed"],
             "passes": wide["kernels"]["attributes"]["flash_attention"]},
+    })
+    # the streamed path (272 < D <= 320) on its own line: launched by seqrec at
+    # D = 320 in the wide phase, timed at D = 320, L = 2,048 causal
+    cases = wide["kernels"]["cases"]
+    ref = cases[f"flash_attention:D{WIDE_STREAMED_HEAD}_8x4x2048_causal_True"]
+    streamed = {name: out for name, out in cases.items()
+                if name.startswith("flash_attention:") and out["plan"]["path"] == "streamed"}
+    lines.append({
+        "name": "flash_attention_streamed",
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": wide["by_kernel"]["flash_attention_streamed"],
+        "launches_by_path": wide["seqrec_d320"]["path_launches"],
+        "max_abs_err": max(out["max_abs_err"] for out in streamed.values()),
+        "ms": ref["kernel_ms"],
+        "plain_ms": ref["plain_ms"],
+        "bound_ms": ref["bound_us"] / 1e3,
+        "bound_by": ref["bound_by"],
+        "library_ms": ref["library_ms"],
+        "device_ms": ref["kernel_device_ms"],
+        "library_device_ms": ref["library_device_ms"],
+        "passes_ms": ref["earlier_kernel_ms"],
+        "passes_device_ms": ref["earlier_kernel_device_ms"],
+        "shape": {k: ref[k] for k in ("B", "H", "Lq", "Lk", "D", "causal")},
+        "plan": ref["plan"],
+        "cases": sorted(name.split(":", 1)[1] for name in streamed),
+        "attributes": wide["kernels"]["attributes"]["flash_attention_streamed"],
     })
     emit({"kernels": lines})
     print(smi, flush=True)

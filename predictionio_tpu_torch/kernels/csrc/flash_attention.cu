@@ -163,6 +163,16 @@ constexpr int kRKeys = 64;      // keys a tile (bk)
 constexpr int kRThreads = 256;
 constexpr int kRPStride = kRKeys + 4;  // floats of a probability row
 constexpr int kRMaxD = 272;     // the widest head whose resident tiles fit a block
+// the streamed path (kRMaxD < D <= kSMaxD): the resident path's block with K
+// and V streamed in column chunks
+constexpr int kSRows = 64;      // query rows a block (bq)
+constexpr int kSKeys = 64;      // keys a tile (bk)
+constexpr int kSThreads = 256;
+constexpr int kSChunk = 64;     // columns of a K or V chunk
+constexpr int kSCStride = 68;   // floats of a chunk row
+constexpr int kSStages = 1;     // chunk buffers
+constexpr int kSGroups = 5;     // O's float4 column groups a thread
+constexpr int kSMaxD = 320;     // the widest head of kSGroups
 
 // Floats of shared memory of a block of BQ rows at head width d: the Q tile
 // [bq][d + kPad], two K tiles [kTile][d + kPad] and two V tiles [kTile][d]
@@ -829,6 +839,258 @@ static_assert(res_smem_floats(kRMaxD) * 4 <= kMaxSmem &&
                   res_smem_floats(kRMaxD + 8) * 4 > kMaxSmem,
               "kRMaxD is the widest head whose resident tiles fit a block");
 
+// Floats of shared memory of a streamed-path block: the Q tile [64][res_width
+// + kPad], kSStages chunk buffers [64][kSCStride] that K's and V's column
+// chunks take in turn, the probabilities [64][kRPStride], and two [64] row
+// vectors (the rescale factor and l).
+__host__ __device__ constexpr int str_smem_floats(int d) {
+  return kSRows * (res_width(d) + kPad) + kSStages * kSKeys * kSCStride +
+         kSRows * kRPStride + 2 * kSRows;
+}
+
+// Starts the copy of one column chunk of a key tile: columns c0 .. c0 +
+// kSChunk - 1 of the kSKeys rows of a [*, D] device array (row r at src + r *
+// D) into shared rows of kSCStride floats, zeros at or past `valid` rows and
+// at or past column D. 16-byte copies when `vec`, else 4-byte ones.
+__device__ __forceinline__ void chunk_copy(const float* __restrict__ src, float* dst,
+                                           int valid, int c0, int D, bool vec, int tid) {
+  if (vec) {
+#pragma unroll
+    for (int x = 0; x < kSKeys * kSChunk / 4 / kSThreads; ++x) {
+      const int e = tid + x * kSThreads;
+      const int r = e / (kSChunk / 4), c = (e % (kSChunk / 4)) * 4;
+      const bool in = r < valid && c0 + c < D;
+      copy16(dst + r * kSCStride + c, in ? src + static_cast<size_t>(r) * D + c0 + c : src,
+             in);
+    }
+  } else {
+#pragma unroll 4
+    for (int x = 0; x < kSKeys * kSChunk / kSThreads; ++x) {
+      const int e = tid + x * kSThreads;
+      const int r = e / kSChunk, c = e % kSChunk;
+      const bool in = r < valid && c0 + c < D;
+      copy4(dst + r * kSCStride + c, in ? src + static_cast<size_t>(r) * D + c0 + c : src, in);
+    }
+  }
+}
+
+// The streamed path: one block per (query tile of kSRows, batch * head),
+// heaviest query tiles first, taking all of D with the resident path's
+// thread maps and arithmetic. A key tile is walked as a sequence of chunks:
+// K's nc column chunks (S summed over them in ascending D), then V's nc
+// (chunk g feeds O's column group g). G sizes O's registers.
+template <int G>
+__global__ void __launch_bounds__(kSThreads, 1)
+    flash_attention_streamed_kernel(const float* __restrict__ q,
+                                    const float* __restrict__ k,
+                                    const float* __restrict__ v,
+                                    float* __restrict__ o, int BH, int Lq, int Lk,
+                                    int D, int q_tiles, int causal, int vec,
+                                    float qscale) {
+  const int w = res_width(D), ds = w + kPad;
+  const int nc = (w + kSChunk - 1) / kSChunk;  // column chunks of K, and of V, a tile
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                                 // [kSRows][ds], pre-scaled
+  float* s_c = s_q + kSRows * ds;                    // kSStages x [kSKeys][kSCStride]
+  float* s_p = s_c + kSStages * kSKeys * kSCStride;  // [kSRows][kRPStride]
+  float* s_corr = s_p + kSRows * kRPStride;          // [kSRows]: this tile's rescale
+  float* s_l = s_corr + kSRows;                      // [kSRows]: l after the last tile
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the resident path's maps: S rows s_row0 + i, keys kx + 16 t (a row in one
+  // half-warp); O rows pr + 16 i, float4 column groups cx + 16 g
+  const int kx = lane & 15;
+  const int s_row0 = warp * 8 + (lane >> 4) * 4;
+  const int pr = (warp >> 2) * 8 + (lane >> 2);
+  const int cx = (warp & 3) * 4 + (lane & 3);
+  const int bh = static_cast<int>(blockIdx.x % static_cast<unsigned>(BH));
+  const int q_tile = q_tiles - 1 - static_cast<int>(blockIdx.x / static_cast<unsigned>(BH));
+  const int q0 = q_tile * kSRows;
+  const float* q_bh = q + static_cast<size_t>(bh) * Lq * D;
+  const float* k_bh = k + static_cast<size_t>(bh) * Lk * D;
+  const float* v_bh = v + static_cast<size_t>(bh) * Lk * D;
+
+  float m[4], l[4];
+  float4 acc[4][G];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegBig;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int n_kv = (Lk + kSKeys - 1) / kSKeys;
+  const int hi = causal ? min((q0 + kSRows + kSKeys - 1) / kSKeys, n_kv) : n_kv;
+  const int steps = 2 * nc;  // a key tile's chunks: K's nc, then V's nc
+
+  // Starts the copy of chunk n of the block's sequence into its buffer.
+  const auto issue = [&](int n) {
+    const int j = n / steps, r = n - j * steps;
+    const int k0 = j * kSKeys;
+    const bool is_k = r < nc;
+    chunk_copy((is_k ? k_bh : v_bh) + static_cast<size_t>(k0) * D,
+               s_c + (n % kSStages) * (kSKeys * kSCStride), Lk - k0,
+               (is_k ? r : r - nc) * kSChunk, D, vec != 0, tid);
+  };
+  // Copies chunk n (at n = 0 after the Q tile has landed and been scaled)
+  // and returns its buffer once every thread can read it.
+  const auto next_chunk = [&](int n) -> const float* {
+    __syncthreads();  // every thread is done with chunk n - 1's buffer
+    issue(n);
+    copies_commit();
+    copies_wait();  // this thread's copies of chunk n (and at n = 0 of Q) landed
+    if (n == 0) res_scale(s_q, ds, D, vec, qscale, tid);
+    __syncthreads();
+    return s_c + (n % kSStages) * (kSKeys * kSCStride);
+  };
+
+  res_copy(q_bh + static_cast<size_t>(q0) * D, s_q, kSRows, ds, Lq - q0, D, vec, tid);
+  copies_commit();
+  for (int j = 0; j < hi; ++j) {
+    const int k0 = j * kSKeys, n0 = j * steps;
+    // S = Q K^T, 4 rows x 4 keys a thread, each score one FMA chain over D
+    // ascending, continued from chunk to chunk
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) s[i][t] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const float* s_k = next_chunk(n0 + c);
+      const float* q_c = s_q + c * kSChunk;
+      const int cw = min(kSChunk, w - c * kSChunk);
+#pragma unroll 2
+      for (int x = 0; x < cw; x += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(q_c + (s_row0 + i) * ds + x);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          kv[t] = *reinterpret_cast<const float4*>(s_k + (kx + 16 * t) * kSCStride + x);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            s[i][t] = fmaf(qv[i].x, kv[t].x, s[i][t]);
+            s[i][t] = fmaf(qv[i].y, kv[t].y, s[i][t]);
+            s[i][t] = fmaf(qv[i].z, kv[t].z, s[i][t]);
+            s[i][t] = fmaf(qv[i].w, kv[t].w, s[i][t]);
+          }
+      }
+    }
+    // the masks, the row's max and sum over its 16 threads (a thread's keys
+    // in t order, then four xor shuffles), p to shared memory: as the
+    // resident path
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q_pos = q0 + s_row0 + i;
+      float mx = kNegBig;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int k_pos = k0 + kx + 16 * t;
+        const bool keep = k_pos < Lk && (!causal || q_pos >= k_pos);
+        s[i][t] = keep ? s[i][t] : kNegBig;
+        mx = fmaxf(mx, s[i][t]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float* p_row = s_p + (s_row0 + i) * kRPStride + kx;
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float p = expf(s[i][t] - m_new);
+        p_row[16 * t] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+      l[i] = fmaf(l[i], corr, sum);
+      m[i] = m_new;
+      if (kx == 0) s_corr[s_row0 + i] = corr;
+    }
+
+    // O = corr * O + P V, 4 rows x one float4 of column group g a thread from
+    // V's chunk g, keys ascending. The first chunk's barrier also makes P and
+    // the rescale factors visible to every warp.
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g >= nc) break;
+      const float* s_v = next_chunk(n0 + nc + g);
+      if (g == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float corr = s_corr[pr + 16 * i];
+#pragma unroll
+          for (int h = 0; h < G; ++h) {
+            acc[i][h].x *= corr; acc[i][h].y *= corr; acc[i][h].z *= corr; acc[i][h].w *= corr;
+          }
+        }
+      }
+#pragma unroll 2
+      for (int kk = 0; kk < kSKeys; kk += 4) {
+        float pv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_vec<4>(s_p + (pr + 16 * i) * kRPStride + kk, pv[i]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 vv = *reinterpret_cast<const float4*>(s_v + (kk + u) * kSCStride + 4 * cx);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][g].x = fmaf(pv[i][u], vv.x, acc[i][g].x);
+            acc[i][g].y = fmaf(pv[i][u], vv.y, acc[i][g].y);
+            acc[i][g].z = fmaf(pv[i][u], vv.z, acc[i][g].z);
+            acc[i][g].w = fmaf(pv[i][u], vv.w, acc[i][g].w);
+          }
+        }
+      }
+    }
+  }
+
+  if (kx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s_l[s_row0 + i] = l[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q_pos = q0 + pr + 16 * i;
+    if (q_pos >= Lq) continue;
+    const float denom = fmaxf(s_l[pr + 16 * i], 1e-30f);
+    float* o_row = o + (static_cast<size_t>(bh) * Lq + q_pos) * D;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int c = 4 * (cx + 16 * g);
+      if (c >= D) continue;
+      const float out[4] = {acc[i][g].x / denom, acc[i][g].y / denom, acc[i][g].z / denom,
+                            acc[i][g].w / denom};
+      if (vec) {
+        store_vec<4>(o_row + c, out);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (c + x < D) o_row[c + x] = out[x];
+      }
+    }
+  }
+}
+
+static_assert(kSRows == kRRows && kSThreads == kRThreads,
+              "the streamed path copies and scales its Q tile as the resident path does");
+static_assert(kSKeys * kSChunk % (4 * kSThreads) == 0 && kSCStride % 8 == 4,
+              "a chunk is whole 16-byte copies a thread; a chunk row is an odd number of "
+              "16-byte groups");
+static_assert(str_smem_floats(kSMaxD) * 4 <= kMaxSmem && res_groups(kSMaxD) == kSGroups &&
+                  res_groups(kSMaxD + 8) > kSGroups && kSGroups * 64 >= kSMaxD,
+              "kSMaxD is the widest head of the streamed path's register plan, and its "
+              "tiles fit a block");
+
 template <int D, int BQ>
 int launch(const float* q, const float* k, const float* v, float* o, int BH,
            int Lq, int Lk, int causal, int blocks, int smem, float qscale,
@@ -998,6 +1260,58 @@ extern "C" int pio_flash_attention_resident_attrs(int* out) {
     out[i++] = static_cast<int>(at.localSizeBytes);
     out[i++] = static_cast<int>(at.sharedSizeBytes);
   }
+  return 0;
+}
+
+// Launches the streamed path (kMaxD < D <= kSMaxD; the wrapper picks it above
+// kRMaxD, and on request to compare it with the resident path) on `stream`
+// and returns cudaGetLastError() (0 = ok). Device pointers: q [BH, Lq, D], k
+// and v [BH, Lk, D], o [BH, Lq, D], f32 and contiguous, unpadded (16-byte
+// copies when D is a multiple of 4 and all four are 16-byte aligned, else
+// 4-byte ones); q is scaled by 1/sqrt(D). The plan (ops/cuda_kernels.py::
+// flash_streamed_launch_plan): threads a block (kSThreads), dynamic shared
+// memory in bytes (str_smem_floats(D) floats) and blocks (ceil(Lq / kSRows) *
+// BH). A plan that does not match this arithmetic is refused
+// (cudaErrorInvalidValue), as are BH, Lq, Lk < 1, D outside (kMaxD, kSMaxD]
+// and more than 2^31 - 1 blocks.
+extern "C" int pio_flash_attention_streamed(const void* q, const void* k,
+                                            const void* v, void* o, int BH, int Lq,
+                                            int Lk, int D, int causal, int threads,
+                                            int smem, int blocks, void* stream) {
+  if (BH < 1 || Lq < 1 || Lk < 1 || D <= kMaxD || D > kSMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long want_blocks = static_cast<long long>((Lq + kSRows - 1) / kSRows) * BH;
+  if (want_blocks > kMaxBlocks || blocks != want_blocks || threads != kSThreads ||
+      smem != str_smem_floats(D) * static_cast<int>(sizeof(float)) || smem > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_streamed_kernel<kSGroups>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  const int vec = D % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(o);
+  const double width = D;  // unpadded: the true head width
+  flash_attention_streamed_kernel<kSGroups>
+      <<<blocks, kSThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), BH, Lq, Lk, D,
+          (Lq + kSRows - 1) / kSRows, causal != 0, vec,
+          static_cast<float>(1.0 / std::sqrt(width)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, local (spilled) bytes and static shared memory of the
+// streamed kernel, three ints. Returns the error of cudaFuncGetAttributes.
+extern "C" int pio_flash_attention_streamed_attrs(int* out) {
+  cudaFuncAttributes at;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &at, reinterpret_cast<const void*>(flash_attention_streamed_kernel<kSGroups>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = static_cast<int>(at.sharedSizeBytes);
   return 0;
 }
 

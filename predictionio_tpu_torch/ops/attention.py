@@ -22,7 +22,8 @@ Counterpart of the single-device half of
 
 Any head width D is taken: up to 128 the kernel's wrapper pads D to a
 multiple of 8 on the card and scales by the true D; wider heads take, unpadded,
-the kernel's resident path up to 272 and its passes path above. Ring and
+the kernel's resident path up to 272, its streamed path up to 320 and its
+passes path above. Ring and
 Ulysses attention (sequence parallelism over a mesh) wait for
 ``torch.distributed`` (ROADMAP.md, queue 1 item 11); asking for them raises.
 """

@@ -242,9 +242,12 @@ _EXTRA_ENTRIES = {
         + [ctypes.c_void_p],
         "pio_flash_attention_resident": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
         + [ctypes.c_void_p],
+        "pio_flash_attention_streamed": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        + [ctypes.c_void_p],
         "pio_flash_attention_attrs": _ATTRS_ARGTYPES,
         "pio_flash_attention_wide_attrs": _ATTRS_ARGTYPES,
         "pio_flash_attention_resident_attrs": _ATTRS_ARGTYPES,
+        "pio_flash_attention_streamed_attrs": _ATTRS_ARGTYPES,
     },
 }
 
@@ -1197,8 +1200,8 @@ FLASH_BQS = (64, 128)
 #: the widest head D of the tuned path (kMaxD). It is built at the multiples
 #: of FLASH_D_MULTIPLE; the wrapper takes any D from 1 to FLASH_MAX_D there
 #: and zero-pads q, k and v up to the next multiple. Wider heads take the
-#: resident path up to FLASH_WIDE_RES_MAX_D and the passes path above it,
-#: unpadded.
+#: resident path up to FLASH_WIDE_RES_MAX_D, the streamed path up to
+#: FLASH_STREAMED_MAX_D and the passes path above it, unpadded.
 FLASH_MAX_D = 128
 FLASH_D_MULTIPLE = 8
 #: query tiles of one (batch · head) (kMaxQTiles); the grid is one-dimensional
@@ -1231,9 +1234,27 @@ FLASH_WIDE_RES_THREADS, FLASH_WIDE_RES_P_STRIDE, FLASH_WIDE_RES_MAX_D = 256, 68,
 #: float4 column groups of O a thread owns, and the registers a thread of each
 #: takes on the card (chip_smoke.py holds the card's count to these)
 FLASH_WIDE_RES_REGS = {3: 168, 4: 234, 5: 254}
+#: the streamed path (FLASH_WIDE_RES_MAX_D < D <= FLASH_STREAMED_MAX_D): the
+#: resident path's block (query rows and keys a tile, kSRows and kSKeys;
+#: threads, kSThreads) with K and V streamed through shared memory in column
+#: chunks of FLASH_STREAMED_CHUNK (kSChunk) at a row stride of
+#: FLASH_STREAMED_C_STRIDE floats (kSCStride), in FLASH_STREAMED_STAGES
+#: buffers (kSStages); one instantiation, FLASH_STREAMED_GROUPS float4 column
+#: groups of O a thread (kSGroups), which sets its widest head (kSMaxD), and
+#: the registers a thread takes on the card (chip_smoke.py holds the card's
+#: count to it)
+FLASH_STREAMED_ROWS = FLASH_STREAMED_KEYS = 64
+FLASH_STREAMED_THREADS, FLASH_STREAMED_CHUNK, FLASH_STREAMED_C_STRIDE = 256, 64, 68
+FLASH_STREAMED_STAGES = 1
+FLASH_STREAMED_GROUPS, FLASH_STREAMED_MAX_D = 5, 320
+FLASH_STREAMED_REGS = 254
 #: every instantiation, in the order ``pio_flash_attention_attrs`` reports them
 FLASH_KERNELS = tuple((d, bq) for d in range(FLASH_D_MULTIPLE, FLASH_MAX_D + 1,
                                              FLASH_D_MULTIPLE) for bq in FLASH_BQS)
+
+
+#: the kernel paths a plan names (``FlashPlan.path``), by head width
+FLASH_PATHS = ("tuned", "resident", "streamed", "passes")
 
 
 class FlashPlan(NamedTuple):
@@ -1253,7 +1274,7 @@ class FlashPlan(NamedTuple):
     blocks: int  #: the grid, BH · q_tiles (· passes), heaviest query tiles first
     waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
     passes: int = 1  #: blocks a query tile, each taking FLASH_WIDE_COLS of O (passes path)
-    path: str = "tuned"  #: the kernel: "tuned" (D <= 128), "resident" or "passes"
+    path: str = "tuned"  #: the kernel: "tuned" (D <= 128), "resident", "streamed" or "passes"
 
 
 def flash_smem_bytes(bq: int, d: int) -> int:
@@ -1399,6 +1420,48 @@ def flash_resident_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
     )
 
 
+def flash_streamed_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of a streamed-path block (``str_smem_floats``
+    in the .cu): the Q tile at a row stride of D rounded up to 8 plus
+    FLASH_PAD floats, FLASH_STREAMED_STAGES chunk buffers [64,
+    FLASH_STREAMED_C_STRIDE] that K's and V's column chunks take in turn,
+    the probabilities [64, 68] and two row vectors."""
+    w = _cdiv(d, 8) * 8
+    return 4 * (FLASH_STREAMED_ROWS * (w + FLASH_PAD)
+                + FLASH_STREAMED_STAGES * FLASH_STREAMED_KEYS * FLASH_STREAMED_C_STRIDE
+                + FLASH_STREAMED_ROWS * FLASH_WIDE_RES_P_STRIDE + 2 * FLASH_STREAMED_ROWS)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_streamed_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
+                               sm_count: int, regs: int) -> FlashPlan:
+    """The launch plan of the streamed path (``FLASH_MAX_D < d <=
+    FLASH_STREAMED_MAX_D``; :func:`flash_plan_for` picks it above
+    :data:`FLASH_WIDE_RES_MAX_D`) on a card of ``sm_count`` SMs, where
+    ``regs`` are the registers a thread of its kernel takes (read off the
+    card): one block of :data:`FLASH_STREAMED_THREADS` per (query tile of
+    :data:`FLASH_STREAMED_ROWS` rows, batch · head), taking all of D. Pure
+    arithmetic, checked again by the C entry point."""
+    if (min(b, h, lq, lk, sm_count, regs) < 1
+            or not FLASH_MAX_D < d <= FLASH_STREAMED_MAX_D):
+        raise ValueError(
+            f"no flash streamed launch plan for b={b}, h={h}, lq={lq}, lk={lk}, d={d}, "
+            f"sm_count={sm_count}, regs={regs}"
+        )
+    threads, smem = FLASH_STREAMED_THREADS, flash_streamed_smem_bytes(d)
+    per_sm = min(_SM_REGS // (threads * _cdiv(regs, 8) * 8),
+                 _SM_SMEM // (smem + _BLOCK_SMEM_RESERVE),
+                 _SM_MAX_BLOCKS, _SM_MAX_THREADS // threads)
+    q_tiles = _cdiv(lq, FLASH_STREAMED_ROWS)
+    blocks = b * h * q_tiles
+    return FlashPlan(
+        bq=FLASH_STREAMED_ROWS, bk=FLASH_STREAMED_KEYS, threads=threads,
+        s_tile=(4, 4), o_tile=(4, 4 * FLASH_STREAMED_GROUPS), smem=smem, regs=regs,
+        blocks_per_sm=per_sm, q_tiles=q_tiles, kv_tiles=_cdiv(lk, FLASH_STREAMED_KEYS),
+        blocks=blocks, waves=_cdiv(blocks, sm_count * per_sm), path="streamed",
+    )
+
+
 #: the serving path calls the wrapper from several batch threads at once
 _flash_launch_lock = threading.Lock()
 
@@ -1491,18 +1554,39 @@ def _flash_resident_regs(index: int) -> dict:
     return {g: a["regs"] for g, a in flash_resident_kernel_attributes(index).items()}
 
 
+def flash_streamed_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of the streamed kernel, as ``cudaFuncGetAttributes`` reports
+    them on the card."""
+    lib = _configured("flash_attention", _FLASH_ARGTYPES)
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "flash_attention_streamed_attrs",
+                        lib.pio_flash_attention_streamed_attrs(out))
+    return dict(zip(("regs", "local_bytes", "static_smem"), out))
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_streamed_regs(index: int) -> int:
+    return flash_streamed_kernel_attributes(index)["regs"]
+
+
 def flash_plan_for(q: torch.Tensor, k: torch.Tensor, causal: bool,
                    bq: Optional[int] = None) -> FlashPlan:
     """The launch plan for these CUDA tensors, with the SM count and the
     registers read off their card, picked by the head width D alone: up
     to :data:`FLASH_MAX_D` :func:`flash_launch_plan` (``bq`` forces its
     query tile), up to :data:`FLASH_WIDE_RES_MAX_D`
-    :func:`flash_resident_launch_plan`, above it
-    :func:`flash_wide_launch_plan` (``bq`` does not apply to either)."""
+    :func:`flash_resident_launch_plan`, up to :data:`FLASH_STREAMED_MAX_D`
+    :func:`flash_streamed_launch_plan`, above it
+    :func:`flash_wide_launch_plan` (``bq`` applies to none of the three)."""
     b, h, lq, d = q.shape
     index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    if d > FLASH_WIDE_RES_MAX_D:
+    if d > FLASH_STREAMED_MAX_D:
         return flash_wide_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index))
+    if d > FLASH_WIDE_RES_MAX_D:
+        return flash_streamed_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index),
+                                          _flash_streamed_regs(index))
     if d > FLASH_MAX_D:
         regs = _flash_resident_regs(index)[flash_resident_groups(d)]
         return flash_resident_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index), regs)
@@ -1533,8 +1617,9 @@ def flash_attention_fwd(
     columns add nothing to q·k nor to the columns kept), the kernel scales
     by the true D, and o is sliced back; wider heads unpadded, up to
     :data:`FLASH_WIDE_RES_MAX_D` on the resident path
-    (:func:`flash_resident_launch_plan`), above it on the passes path
-    (:func:`flash_wide_launch_plan`), picked by D alone."""
+    (:func:`flash_resident_launch_plan`), up to :data:`FLASH_STREAMED_MAX_D`
+    on the streamed path (:func:`flash_streamed_launch_plan`), above it on
+    the passes path (:func:`flash_wide_launch_plan`), picked by D alone."""
     _check_flash_inputs(q, k, v)
     device = q.device
     if device.type == "cpu":
@@ -1567,21 +1652,23 @@ def flash_attention_fwd(
         )
     with _flash_launch_lock:
         flash_attention_fwd.launches += 1
+        flash_attention_fwd.launches_by_path[plan.path] += 1
     _raise_on_error(lib, "flash_attention", code)
     return out if d_pad == d else out[..., :d].contiguous()
 
 
 def _flash_attention_wide(q, k, v, causal, plan) -> torch.Tensor:
     """The paths of :func:`flash_attention_fwd` above :data:`FLASH_MAX_D`
-    (CUDA tensors): one launch of ``pio_flash_attention_resident`` or,
-    where the plan names the passes path, ``pio_flash_attention_wide``,
-    counted on the wrapper."""
+    (CUDA tensors): one launch of the entry the plan's path names
+    (``pio_flash_attention_resident``, ``pio_flash_attention_streamed`` or,
+    for the passes path, ``pio_flash_attention_wide``), counted on the
+    wrapper."""
     b, h, lq, d = q.shape
     device = q.device
     out = torch.empty_like(q)
     if plan is None:
         plan = flash_plan_for(q, k, causal)
-    if plan.path not in ("resident", "passes"):
+    if plan.path not in ("resident", "streamed", "passes"):
         raise ValueError(f"a {plan.path} plan does not take a head of width {d}")
     if plan.blocks > 2**31 - 1:
         raise ValueError(f"flash attention shape {tuple(q.shape)} is past the grid's limits")
@@ -1590,20 +1677,23 @@ def _flash_attention_wide(q, k, v, causal, plan) -> torch.Tensor:
             d, int(bool(causal)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if plan.path == "resident":
-            code = lib.pio_flash_attention_resident(*args, plan.threads, plan.smem,
-                                                    plan.blocks, stream)
+        if plan.path in ("resident", "streamed"):
+            entry = getattr(lib, f"pio_flash_attention_{plan.path}")
+            code = entry(*args, plan.threads, plan.smem, plan.blocks, stream)
         else:
             code = lib.pio_flash_attention_wide(*args, plan.threads, plan.blocks, stream)
     with _flash_launch_lock:
         flash_attention_fwd.launches += 1
+        flash_attention_fwd.launches_by_path[plan.path] += 1
     _raise_on_error(lib, f"flash_attention_{plan.path}", code)
     return out
 
 
 
-#: kernel launches since the count was last reset (CUDA tensors only)
+#: kernel launches since the count was last reset (CUDA tensors only), in
+#: all and by the plan's path
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_path = dict.fromkeys(FLASH_PATHS, 0)
 
 
 def kernel_launches() -> dict:
