@@ -3959,7 +3959,7 @@ FLASH_STREAMED_PHASES = {
     "qk_fmas": ("= fmaf(qv[i].", "= (qv[i]."),
     "softmax_exps": ("expf(", "("),
     "pv_fmas": ("= fmaf(pv[i][u]", "= (pv[i][u]"),
-    "barriers": ("__syncthreads();  // every thread", "// __syncthreads();  // every thread"),
+    "barriers": ("__syncthreads();\n    issue(", "issue("),
 }
 
 

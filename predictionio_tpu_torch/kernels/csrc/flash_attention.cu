@@ -170,7 +170,7 @@ constexpr int kSKeys = 64;      // keys a tile (bk)
 constexpr int kSThreads = 256;
 constexpr int kSChunk = 64;     // columns of a K or V chunk
 constexpr int kSCStride = 68;   // floats of a chunk row
-constexpr int kSStages = 1;     // chunk buffers
+constexpr int kSStages = 2;     // chunk buffers: chunks are copied kSStages - 1 ahead
 constexpr int kSGroups = 5;     // O's float4 column groups a thread
 constexpr int kSMaxD = 320;     // the widest head of kSGroups
 
@@ -848,6 +848,12 @@ __host__ __device__ constexpr int str_smem_floats(int d) {
          kSRows * kRPStride + 2 * kSRows;
 }
 
+// Waits until at most N of this thread's groups of copies are in flight.
+template <int N>
+__device__ __forceinline__ void copies_wait_until() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Starts the copy of one column chunk of a key tile: columns c0 .. c0 +
 // kSChunk - 1 of the kSKeys rows of a [*, D] device array (row r at src + r *
 // D) into shared rows of kSCStride floats, zeros at or past `valid` rows and
@@ -922,30 +928,38 @@ __global__ void __launch_bounds__(kSThreads, 1)
   const int n_kv = (Lk + kSKeys - 1) / kSKeys;
   const int hi = causal ? min((q0 + kSRows + kSKeys - 1) / kSKeys, n_kv) : n_kv;
   const int steps = 2 * nc;  // a key tile's chunks: K's nc, then V's nc
+  const int total = hi * steps;
 
-  // Starts the copy of chunk n of the block's sequence into its buffer.
+  // Starts the copy of chunk n of the block's sequence into its buffer (none
+  // past the last) and commits it as one group.
   const auto issue = [&](int n) {
-    const int j = n / steps, r = n - j * steps;
-    const int k0 = j * kSKeys;
-    const bool is_k = r < nc;
-    chunk_copy((is_k ? k_bh : v_bh) + static_cast<size_t>(k0) * D,
-               s_c + (n % kSStages) * (kSKeys * kSCStride), Lk - k0,
-               (is_k ? r : r - nc) * kSChunk, D, vec != 0, tid);
-  };
-  // Copies chunk n (at n = 0 after the Q tile has landed and been scaled)
-  // and returns its buffer once every thread can read it.
-  const auto next_chunk = [&](int n) -> const float* {
-    __syncthreads();  // every thread is done with chunk n - 1's buffer
-    issue(n);
+    if (n < total) {
+      const int j = n / steps, r = n - j * steps;
+      const int k0 = j * kSKeys;
+      const bool is_k = r < nc;
+      chunk_copy((is_k ? k_bh : v_bh) + static_cast<size_t>(k0) * D,
+                 s_c + (n % kSStages) * (kSKeys * kSCStride), Lk - k0,
+                 (is_k ? r : r - nc) * kSChunk, D, vec != 0, tid);
+    }
     copies_commit();
-    copies_wait();  // this thread's copies of chunk n (and at n = 0 of Q) landed
+  };
+  // Returns chunk n's buffer once every thread can read it (at n = 0 the Q
+  // tile too, scaled), and starts the copy of chunk n + kSStages - 1 into
+  // the buffer that chunk n - 1 used.
+  const auto next_chunk = [&](int n) -> const float* {
+    copies_wait_until<kSStages - 2>();  // this thread's copies of chunk n (and Q) landed
     if (n == 0) res_scale(s_q, ds, D, vec, qscale, tid);
+    // chunk n is visible to every thread, and every thread is done with
+    // chunk n - 1
     __syncthreads();
+    issue(n + kSStages - 1);
     return s_c + (n % kSStages) * (kSKeys * kSCStride);
   };
 
+  // the Q tile and the first kSStages - 1 chunks in flight, Q with chunk 0
   res_copy(q_bh + static_cast<size_t>(q0) * D, s_q, kSRows, ds, Lq - q0, D, vec, tid);
-  copies_commit();
+#pragma unroll
+  for (int n = 0; n < kSStages - 1; ++n) issue(n);
   for (int j = 0; j < hi; ++j) {
     const int k0 = j * kSKeys, n0 = j * steps;
     // S = Q K^T, 4 rows x 4 keys a thread, each score one FMA chain over D

@@ -1245,7 +1245,7 @@ FLASH_WIDE_RES_REGS = {3: 168, 4: 234, 5: 254}
 #: count to it)
 FLASH_STREAMED_ROWS = FLASH_STREAMED_KEYS = 64
 FLASH_STREAMED_THREADS, FLASH_STREAMED_CHUNK, FLASH_STREAMED_C_STRIDE = 256, 64, 68
-FLASH_STREAMED_STAGES = 1
+FLASH_STREAMED_STAGES = 2
 FLASH_STREAMED_GROUPS, FLASH_STREAMED_MAX_D = 5, 320
 FLASH_STREAMED_REGS = 254
 #: every instantiation, in the order ``pio_flash_attention_attrs`` reports them
