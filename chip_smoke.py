@@ -3901,16 +3901,52 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     return {"cases": cases, "max_abs_err": worst, "attributes": attrs}
 
 
+def flash_path_times(torch, dev, seed: int = 0) -> None:
+    """The tuned and resident attention paths alone at their timed shapes
+    (D = 16 and 64, and WIDE_HEADS, at WIDE_ATTN_SHAPES), each through the
+    plan ``flash_plan_for`` picks: the plan, the registers of the kernels
+    the plans read, and the event and device ms. It uses only what the
+    package has had since the resident path came (PR 13), so it times an
+    older tree too: from that tree's root, load this file by path
+    (``importlib.util.spec_from_file_location``) and call it there, A B B A
+    with this tree."""
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    build.build_all(["flash_attention"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    tree = os.path.basename(os.getcwd())
+    emit({"phase": "flash_path_times", "tree": tree, "regs": {
+        "tuned": {f"D{d}_bq{bq}": a["regs"] for (d, bq), a in ck.flash_kernel_attributes(dev).items()
+                  if d in (16, 64)},
+        "resident": {g: a["regs"] for g, a in ck.flash_resident_kernel_attributes(dev).items()}}})
+    for d in (16, 64, *WIDE_HEADS):
+        for b, h, lq, lk, causal in WIDE_ATTN_SHAPES:
+            q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
+                       for n_ in (lq, lk, lk))
+            plan = ck.flash_plan_for(q, k, causal)
+            kernel = lambda: ck.flash_attention_fwd(q, k, v, causal)  # noqa: E731
+            emit({"phase": "flash_path_times", "tree": tree, "D": d, "B": b, "L": lq,
+                  "causal": causal, "path": getattr(plan, "path", "tuned"), "bq": plan.bq,
+                  "smem": plan.smem, "blocks_per_sm": plan.blocks_per_sm,
+                  "ms": time_ms(torch, kernel, 10, 2),
+                  "device_ms": traced_device_ms(torch, kernel, 10)})
+            del q, k, v
+
+
 def flash_streamed_variants(torch, dev, seed: int = 0) -> None:
     """The streamed path alone at D = WIDE_STREAMED_HEAD and the shapes of
     WIDE_ATTN_SHAPES: the kernel's attributes, then at each shape its
-    answer against the plain version and the passes kernel's, and the
-    event and device ms of both on the same tensors, passes, streamed,
-    streamed, passes; last a plan forcing the streamed path at D = 256
-    against the resident kernel (bits, and both kernels' device ms). Builds
+    answer against the plain version and the passes kernel's, the event
+    and device ms of both and of SDPA on the same tensors (SDPA, passes,
+    streamed, streamed, passes, SDPA), the plain version's event ms and the
+    bound; last a plan forcing the streamed path at D = 256 against the
+    resident kernel (bits, and both kernels' and SDPA's ms). Builds
     only the attention library. To compare two kernel versions in one call,
     unpack the other tree under ``chip_compare/`` (gitignored) and run this
     in each: the inputs come from the seed, so both see the same tensors."""
+    import torch.nn.functional as F
+
     from predictionio_tpu_torch.kernels import build
     from predictionio_tpu_torch.ops import cuda_kernels as ck
     from predictionio_tpu_torch.ops.cuda_kernels import (
@@ -3936,14 +3972,19 @@ def flash_streamed_variants(torch, dev, seed: int = 0) -> None:
             o_p = flash_attention_fwd_reference(q, k, v, causal)
             kernel = lambda: flash_attention_fwd(q, k, v, causal, plan=streamed)  # noqa: E731
             earlier = lambda: flash_attention_fwd(q, k, v, causal, plan=other)  # noqa: E731
+            library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+            bound_ms, bound_by = flash_attention_bound(b, h, lq, lk, d, causal)
             line = {"phase": "flash_streamed_variant", "tree": tree, "D": d, "B": b, "H": h,
                     "L": lq, "causal": causal, "other": other.path,
                     "max_abs_err": float((o_s - o_p).abs().max()),
                     "held": bool(torch.allclose(o_s, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL)),
                     "bit_identical": bool(torch.equal(o_s, kernel())),
-                    "equal_to_other": bool(torch.equal(o_s, o_o))}
-            order = (("other", earlier), ("streamed", kernel), ("streamed", kernel),
-                     ("other", earlier))
+                    "equal_to_other": bool(torch.equal(o_s, o_o)),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "plain_ms": time_ms(
+                        torch, lambda: flash_attention_fwd_reference(q, k, v, causal), 3, 1)}
+            order = (("library", library), ("other", earlier), ("streamed", kernel),
+                     ("streamed", kernel), ("other", earlier), ("library", library))
             for name, fn in order:
                 line.setdefault(f"{name}_ms", []).append(time_ms(torch, fn, 10, 2))
                 line.setdefault(f"{name}_device_ms", []).append(traced_device_ms(torch, fn, 10))
@@ -3951,26 +3992,39 @@ def flash_streamed_variants(torch, dev, seed: int = 0) -> None:
             del q, k, v, o_s, o_o, o_p
 
 
-#: the streamed kernel's phases as the knock-outs cut them: text of its body
-#: and what replaces it (a knock-out's answer is wrong; only its time counts)
+#: the streamed kernel's phases as the knock-outs cut them: pairs of text
+#: of its body and what replaces it (a knock-out's answer is wrong; only its
+#: time counts)
 FLASH_STREAMED_PHASES = {
-    "chunk_copies": ("const int j = n / steps, r = n - j * steps;",
-                     "return;\n    const int j = n / steps, r = n - j * steps;"),
-    "qk_fmas": ("= fmaf(qv[i].", "= (qv[i]."),
-    "softmax_exps": ("expf(", "("),
-    "pv_fmas": ("= fmaf(pv[i][u]", "= (pv[i][u]"),
-    "barriers": ("__syncthreads();\n    issue(", "issue("),
+    "chunk_copies": [("const int j = n / steps, r = n - j * steps;",
+                      "return;\n      const int j = n / steps, r = n - j * steps;")],
+    "qk_fmas": [("= fmaf(qv[i].", "= (qv[i].")],
+    "softmax_exps": [("expf(", "(")],
+    "pv_fmas": [("= fmaf(pv[i][u]", "= (pv[i][u]")],
+    "barriers": [("__syncthreads();\n    issue(", "issue(")],
+}
+#: variants of the streamed kernel tried against it in one call, the same
+#: way (text outside its body, such as kSStages, is replaced in the file):
+#: the chunks copied two ahead, and the QK^T and PV loops unrolled by 4
+FLASH_STREAMED_TRIALS = {
+    "stages3": [("constexpr int kSStages = 2;", "constexpr int kSStages = 3;")],
+    "unroll4": [("#pragma unroll 2", "#pragma unroll 4")],
+    "stages3_unroll4": [("constexpr int kSStages = 2;", "constexpr int kSStages = 3;"),
+                        ("#pragma unroll 2", "#pragma unroll 4")],
 }
 
 
-def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE) -> None:
+def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE,
+                             variants: dict = FLASH_STREAMED_PHASES) -> None:
     """Where the streamed kernel's time goes: ``source`` built as it is and
-    once without each phase (FLASH_STREAMED_PHASES, cut inside the streamed
-    kernel's body only), all with ``nvcc -Xptxas -v`` at once, then each
-    launched through its own ``pio_flash_attention_streamed`` at D =
-    WIDE_STREAMED_HEAD and the shapes of WIDE_ATTN_SHAPES (CUDA events).
-    A knock-out's time less the whole kernel's is what that phase costs
-    where nothing hides it. Prints each build's registers and spills."""
+    once for each of ``variants`` (FLASH_STREAMED_PHASES cuts a phase; text
+    found in the streamed kernel's body is replaced there only), all with
+    ``nvcc -Xptxas -v`` at once, then each launched through its own
+    ``pio_flash_attention_streamed`` at D = WIDE_STREAMED_HEAD and the
+    shapes of WIDE_ATTN_SHAPES (CUDA events, and whether its answer equals
+    the whole kernel's bit for bit). A knock-out's time less the whole
+    kernel's is what that phase costs where nothing hides it. Prints each
+    build's registers and spills."""
     import ctypes
     import re
 
@@ -3980,15 +4034,23 @@ def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE) -> None:
     text = open(source).read()
     start = text.index("flash_attention_streamed_kernel(const")
     end = text.index("\nstatic_assert(kSRows", start)
-    variants = {"whole": text}
-    for name, (old, new) in FLASH_STREAMED_PHASES.items():
-        body = text[start:end]
-        if old not in body:
-            raise AssertionError(f"knock-out {name}: {old!r} is not in the streamed kernel")
-        variants[name] = text[:start] + body.replace(old, new) + text[end:]
+    sources = {"whole": text}
+    for name, pairs in variants.items():
+        src = text
+        for old, new in pairs:
+            body = src[start:end]
+            if old in body:
+                src = src[:start] + body.replace(old, new) + src[end:]
+            elif old in src:
+                src = src.replace(old, new)
+            else:
+                raise AssertionError(f"variant {name}: {old!r} is not in {source}")
+            end = src.index("\nstatic_assert(kSRows", start)
+        sources[name] = src
+        end = text.index("\nstatic_assert(kSRows", start)
     tmp = tempfile.mkdtemp(prefix="flash_knockouts_")
     procs = {}
-    for name, src in variants.items():
+    for name, src in sources.items():
         path = os.path.join(tmp, f"{name}.cu")
         with open(path, "w") as f:
             f.write(src)
@@ -3996,11 +4058,11 @@ def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE) -> None:
             [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
              os.path.join(tmp, f"lib{name}.so"), path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
+    libs, stages = {}, {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise AssertionError(f"knock-out {name} did not build: {log[-2000:]}")
+            raise AssertionError(f"variant {name} did not build: {log[-2000:]}")
         kernel_log = log[log.index("flash_attention_streamed_kernel"):]
         emit({"phase": "flash_streamed_knockout", "variant": name, "ptxas": re.findall(
             r"(\d+ bytes spill stores|Used \d+ registers)", kernel_log)[:2]})
@@ -4008,27 +4070,34 @@ def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE) -> None:
         lib.pio_flash_attention_streamed.argtypes = (
             ck._EXTRA_ENTRIES["flash_attention"]["pio_flash_attention_streamed"])
         libs[name] = lib
+        stages[name] = int(re.search(r"constexpr int kSStages = (\d+);", sources[name]).group(1))
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(21)
     d = WIDE_STREAMED_HEAD
     for b, h, lq, lk, causal in WIDE_ATTN_SHAPES:
         q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev) for n_ in (lq, lk, lk))
-        o = torch.empty_like(q)
         plan = ck.flash_streamed_launch_plan(b, h, lq, lk, d, sm, ck.FLASH_STREAMED_REGS)
-        times = {}
+        times, outs = {}, {}
         for name, lib in libs.items():
-            def launch(lib=lib):
+            o = torch.empty_like(q)
+            smem = plan.smem + (stages[name] - ck.FLASH_STREAMED_STAGES) * 4 * (
+                ck.FLASH_STREAMED_KEYS * ck.FLASH_STREAMED_C_STRIDE)
+
+            def launch(lib=lib, o=o, smem=smem, name=name):
                 code = lib.pio_flash_attention_streamed(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, lq, lk, d,
-                    int(causal), plan.threads, plan.smem, plan.blocks,
+                    int(causal), plan.threads, smem, plan.blocks,
                     torch.cuda.current_stream(dev).cuda_stream)
                 if code:
-                    raise AssertionError(f"knock-out {name} failed to launch: {code}")
+                    raise AssertionError(f"variant {name} failed to launch: {code}")
             times[name] = time_ms(torch, launch, 10, 2)
+            outs[name] = o
         emit({"phase": "flash_streamed_knockout", "B": b, "L": lq, "causal": causal,
               "ms": times,
-              "phase_ms": {k_: times["whole"] - t for k_, t in times.items() if k_ != "whole"}})
-        del q, k, v, o
+              "phase_ms": {k_: times["whole"] - t for k_, t in times.items() if k_ != "whole"},
+              "equal_to_whole": {k_: bool(torch.equal(o_, outs["whole"]))
+                                 for k_, o_ in outs.items() if k_ != "whole"}})
+        del q, k, v, outs
     shutil.rmtree(tmp, ignore_errors=True)
 
 

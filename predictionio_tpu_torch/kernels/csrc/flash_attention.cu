@@ -33,8 +33,9 @@
 // (ops/cuda_kernels.py::flash_attention_fwd) takes any head width: from 1 to
 // 128 it zero-pads q, k and v to the next multiple of 8, passes the true width
 // for the scale, and slices o back; above 128, unpadded, it takes the resident
-// path below up to kRMaxD = 272 (pio_flash_attention_resident) and the passes
-// path above it (pio_flash_attention_wide), picked by D alone. It raises on
+// path below up to kRMaxD = 272 (pio_flash_attention_resident), the streamed
+// path up to kSMaxD = 320 (pio_flash_attention_streamed) and the passes path
+// above it (pio_flash_attention_wide), picked by D alone. It raises on
 // anything else.
 //
 // Resident path (kMaxD < D <= kRMaxD). A block takes kRRows = 64 query rows of
@@ -69,7 +70,43 @@
 // causal, 2.05 ms at 67 TFLOP/s; it is set by operations at every timed shape
 // but the sequence recommender's training batch, where bytes set it.
 //
-// Passes path (D > kRMaxD), the first wide-head design. Of the two designs
+// Streamed path (kRMaxD < D <= kSMaxD). What is hard: at D = 320 the
+// resident path's whole-width K and V tiles no longer fit beside its Q tile
+// (768 * 320 + 19,968 bytes against a block's 232,448), while its O registers
+// (G = 5 float4 column groups a thread) still do. Design: the resident
+// path's block, thread maps and arithmetic (64 query rows, 256 threads, key
+// tiles of 64, the Q tile scaled once and kept in shared memory, S in 4 rows
+// x 4 keys a thread, O in 4 rows x G float4 groups), with K and V streamed
+// through shared memory in column chunks of kSChunk = 64:
+//   - a key tile is a sequence of chunks, K's nc = ceil(w / 64) column chunks
+//     then V's nc (w = D rounded up to 8); each score is one FMA chain over D
+//     ascending, carried in registers from one K chunk to the next, so each
+//     tile's scores are computed once for all of O's columns; V's chunk g
+//     feeds O's column group g (4 rows x one float4 a thread), one
+//     compile-time-unrolled step over g, so no register array is indexed at
+//     run time;
+//   - the chunks of the whole block, tile after tile, go through a ring of
+//     kSStages = 2 buffers [64][kSCStride = 68] that K's and V's chunks take in
+//     turn (a row of 17 16-byte groups, so the keys of one load fall in
+//     distinct banks): chunk n + 1 is copied with cp.async while chunk n is
+//     used, one barrier a chunk, which also publishes P and the rescale
+//     factors before V's first chunk;
+//   - the masks, the row max and sum, P and l as the resident path does them,
+//     so a plan that forces this path at D <= kRMaxD gives the resident
+//     kernel's answer bit for bit.
+// Shared memory at D = 320 is 135,680 bytes (the Q tile 82,944, the ring
+// 34,816, P 17,408, two row vectors), one block an SM, as its registers (216
+// a thread on the card) also allow. One instantiation, G = kSGroups = 5,
+// sets kSMaxD = 320; wider heads take the passes path. The same rules as the
+// other paths: the finite -1e30 mask on every tile, key tiles ascending from
+// tile 0 and causal tiles above the diagonal skipped, a masked key's V row
+// zero, o / max(l, 1e-30), heaviest query tiles first, fp32 FMAs on the CUDA
+// cores, no atomics; 16-byte copies when D is a multiple of 4 and the tensors
+// 16-byte aligned, else 4-byte ones. Bound at (8, 4, 2048, 320): 85.9 GFLOP
+// causal, 1.28 ms at 67 TFLOP/s, set by operations; bytes set it at the
+// sequence recommender's training batch.
+//
+// Passes path (D > kSMaxD), the first wide-head design. Of the two designs
 // at hand (O's columns in passes with the scores recomputed each pass, or one
 // warp a query row with O spread over its lanes) it takes the passes: a
 // thread's O columns stay a fixed 16 registers whatever D is, so one
@@ -91,7 +128,7 @@
 // tiles first; no atomics, and every register array is indexed by constants.
 // Its cost over the tuned path: QK^T once per pass (twice at D = 256), one
 // shared load per FMA in QK^T, and 32-key tiles; the resident path took its
-// place wherever its tiles fit.
+// place wherever its tiles fit, and the streamed path up to kSMaxD.
 //
 // Design. A block takes BQ = 64 or 128 query rows of one (batch * head) and
 // walks the keys in tiles of kTile = 64, with 2 * BQ threads. Thread (ry, kx)

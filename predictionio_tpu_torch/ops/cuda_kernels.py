@@ -1247,7 +1247,7 @@ FLASH_STREAMED_ROWS = FLASH_STREAMED_KEYS = 64
 FLASH_STREAMED_THREADS, FLASH_STREAMED_CHUNK, FLASH_STREAMED_C_STRIDE = 256, 64, 68
 FLASH_STREAMED_STAGES = 2
 FLASH_STREAMED_GROUPS, FLASH_STREAMED_MAX_D = 5, 320
-FLASH_STREAMED_REGS = 254
+FLASH_STREAMED_REGS = 216
 #: every instantiation, in the order ``pio_flash_attention_attrs`` reports them
 FLASH_KERNELS = tuple((d, bq) for d in range(FLASH_D_MULTIPLE, FLASH_MAX_D + 1,
                                              FLASH_D_MULTIPLE) for bq in FLASH_BQS)

@@ -76,7 +76,8 @@ PLAN_SHAPES = [(64, 4, 64, 64), (8, 4, 2048, 2048), (1, 1, 1, 1), (3, 2, 70, 300
 def test_plan_is_accepted_by_the_c_entry_at_every_width(sm_count):
     for d in range(D_RES + 1, D_MAX + 1):
         for b, h, lq, lk in PLAN_SHAPES:
-            plan = ck.flash_streamed_launch_plan(b, h, lq, lk, d, sm_count, 254)
+            plan = ck.flash_streamed_launch_plan(b, h, lq, lk, d, sm_count,
+                                                 ck.FLASH_STREAMED_REGS)
             assert plan.path == "streamed" and plan.passes == 1
             assert plan.q_tiles == -(-lq // 64) and plan.kv_tiles == -(-lk // 64)
             assert plan.blocks == b * h * plan.q_tiles and plan.blocks_per_sm == 1
@@ -85,7 +86,7 @@ def test_plan_is_accepted_by_the_c_entry_at_every_width(sm_count):
             assert _c_entry_accepts(plan, b * h, lq, d), (b, h, lq, d, plan)
 
 
-@pytest.mark.parametrize("regs,sm_count,per_sm", [(254, 132, 1), (128, 132, 1), (64, 78, 1)])
+@pytest.mark.parametrize("regs,sm_count,per_sm", [(216, 132, 1), (128, 132, 1), (64, 78, 1)])
 def test_plan_follows_the_card_and_the_registers(regs, sm_count, per_sm):
     """Blocks an SM from the registers read off the card and the shared
     memory, waves from the card's SMs: at D = 320 one block an SM even at
@@ -114,7 +115,7 @@ def test_the_widest_head_fits_a_block_and_its_register_plan():
 @pytest.mark.parametrize("d", [1, 64, 128, D_MAX + 1, 512])
 def test_plan_refuses_widths_outside_the_path(d):
     with pytest.raises(ValueError, match="no flash streamed launch plan"):
-        ck.flash_streamed_launch_plan(1, 1, 8, 8, d, 132, 254)
+        ck.flash_streamed_launch_plan(1, 1, 8, 8, d, 132, ck.FLASH_STREAMED_REGS)
 
 
 @pytest.mark.parametrize("d,path", [(128, "tuned"), (129, "resident"), (272, "resident"),
@@ -300,6 +301,8 @@ def test_the_c_entry_scales_by_the_true_width_and_copies_by_alignment():
 def test_cpu_wrapper_runs_the_plain_version_and_counts_nothing(d):
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 20, 30, d, seed=d))
     before = ck.flash_attention_fwd.launches
+    by_path = dict(ck.flash_attention_fwd.launches_by_path)
     got = ck.flash_attention_fwd(q, k, v, True)
     assert ck.flash_attention_fwd.launches == before
+    assert ck.flash_attention_fwd.launches_by_path == by_path
     assert torch.equal(got, ck.flash_attention_fwd_reference(q, k, v, True))
