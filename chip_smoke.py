@@ -192,22 +192,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    K = 128 bucket of 97,972 rows in the slices the systems budget cuts it
    into, the items' K = 32,768 bucket of 216 rows), each timed whole and
    held to the plain version on its first 4,096 rows (rtol/atol 1e-4, A
-   exactly symmetric, two calls bit-identical), a split bucket; the solve
+   exactly symmetric, two calls bit-identical) and beside the einsum build
+   over the whole bucket in 4,096-row slices, a split bucket; the solve
    at n = 129, 200, 256 (B = 4,096, relative error 1e-4, bit-identical),
    zero and singular systems, n = 400 through the device-memory scratch;
-   attention at D = 136, 192, 256 (the resident path) at the training shape
-   and at L = 2,048 causal and not, and at D = 320 (the passes path) at the
-   training shape and L = 2,048 causal (rtol 2e-4 / atol 2e-5,
-   bit-identical, one launch), each timed beside the plain version, the
-   library call and the bound, and the resident cases beside the passes
-   kernel on the same tensors; every general-width kernel's registers and
-   local bytes (no local memory; each attention kernel's registers equal to
-   its plan constant). Then ALS at rank
-   200 by ``run_train`` from the store (3 iterations, build and solve
-   launches counted) held to 3 plain iterations (rtol 2e-3 / atol 2e-4),
-   with the holdout RMSE of 3 iterations on 95 % of the ratings; seqrec at
-   d_model 256 / 1 head (D = 256) by ``run_train`` (20 steps) and served
-   for a burst held to the plain forward, attention launches counted.
+   attention at D = 136, 192, 256 (the resident path) and D = 320 (the
+   streamed path) at the training shape and at L = 2,048 causal and not,
+   and at D = 384 (the passes path) at the training shape (rtol 2e-4 /
+   atol 2e-5, bit-identical, one launch), each timed beside the plain
+   version, the library call and the bound, and the resident and streamed
+   cases beside the passes kernel on the same tensors; D = 280 and 302 on
+   the streamed path at two ragged cross shapes; a plan forcing the
+   streamed path at D = 256, ``torch.equal`` to the resident kernel;
+   every general-width kernel's registers and local bytes (no local
+   memory; each attention kernel's registers equal to its plan constant).
+   Then ALS at rank 200 by ``run_train`` from the store (3 iterations,
+   build and solve launches counted) held to 3 plain iterations (rtol
+   2e-3 / atol 2e-4), with the holdout RMSE of 3 iterations on 95 % of
+   the ratings; seqrec at d_model 256 / 1 head (D = 256, 20 steps, 64
+   queries) and at d_model 320 / 1 head (D = 320, 10 steps, 16 queries)
+   by ``run_train`` and served for a burst held to the plain forward,
+   attention launches counted in all and on the head's path.
 16. ``console`` — the quickstart's lifecycle through ``python -m
    predictionio_tpu_torch.tools.console``, each command its own process:
    ``app new``, ``import`` of ``examples/movielens_quickstart/gen_events.py``'s

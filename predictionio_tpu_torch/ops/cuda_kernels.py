@@ -1522,16 +1522,22 @@ def _flash_regs(index: int) -> dict:
     return {key: a["regs"] for key, a in flash_kernel_attributes(index).items()}
 
 
+def _flash_one_kernel_attributes(path: str, device) -> dict:
+    """``pio_flash_attention_<path>_attrs``: registers per thread, spilled
+    (local) bytes and static shared memory of that path's one kernel."""
+    lib = _configured("flash_attention", _FLASH_ARGTYPES)
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, f"flash_attention_{path}_attrs",
+                        getattr(lib, f"pio_flash_attention_{path}_attrs")(out))
+    return dict(zip(("regs", "local_bytes", "static_smem"), out))
+
+
 def flash_wide_kernel_attributes(device=None) -> dict:
     """Registers per thread, spilled (local) bytes and static shared
     memory of the passes kernel, as ``cudaFuncGetAttributes`` reports
     them on the card."""
-    lib = _configured("flash_attention", _FLASH_ARGTYPES)
-    out = (ctypes.c_int * 3)()
-    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        _raise_on_error(lib, "flash_attention_wide_attrs",
-                        lib.pio_flash_attention_wide_attrs(out))
-    return dict(zip(("regs", "local_bytes", "static_smem"), out))
+    return _flash_one_kernel_attributes("wide", device)
 
 
 def flash_resident_kernel_attributes(device=None) -> dict:
@@ -1558,12 +1564,7 @@ def flash_streamed_kernel_attributes(device=None) -> dict:
     """Registers per thread, spilled (local) bytes and static shared
     memory of the streamed kernel, as ``cudaFuncGetAttributes`` reports
     them on the card."""
-    lib = _configured("flash_attention", _FLASH_ARGTYPES)
-    out = (ctypes.c_int * 3)()
-    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        _raise_on_error(lib, "flash_attention_streamed_attrs",
-                        lib.pio_flash_attention_streamed_attrs(out))
-    return dict(zip(("regs", "local_bytes", "static_smem"), out))
+    return _flash_one_kernel_attributes("streamed", device)
 
 
 @functools.lru_cache(maxsize=None)
