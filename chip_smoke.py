@@ -3911,7 +3911,7 @@ def flash_path_times(torch, dev, seed: int = 0) -> None:
     (D = 16 and 64, and WIDE_HEADS, at WIDE_ATTN_SHAPES), each through the
     plan ``flash_plan_for`` picks: the plan, the registers of the kernels
     the plans read, and the event and device ms. It uses only what the
-    package has had since the resident path came (PR 13), so it times an
+    package has had since it gained the resident path, so it times an
     older tree too: from that tree's root, load this file by path
     (``importlib.util.spec_from_file_location``) and call it there, A B B A
     with this tree."""
