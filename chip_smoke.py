@@ -655,9 +655,10 @@ def check_topk_attributes(torch, dev) -> dict:
     """Registers and local bytes of every top-k kernel
     (``cudaFuncGetAttributes``), and the blocks an SM holds of each
     running-list kernel at k = 256, R = 50 against the launch plan's count.
-    Fails if the tiled kernel has local memory (``topk_run_kernel``'s 16
-    bytes of stack are its parent's, unchanged), or the card holds another
-    number of blocks than the plan assumes."""
+    Fails if the tiled kernel or either kernel of the select path has
+    local memory (``topk_run_kernel``'s 16 bytes of stack are its
+    parent's, unchanged), or the card holds another number of blocks than
+    the plan assumes."""
     from predictionio_tpu_torch.ops import cuda_kernels as ck
 
     attrs = ck.topk_kernel_attributes(dev)
@@ -669,7 +670,8 @@ def check_topk_attributes(torch, dev) -> dict:
         resident[stage1] = {"card": ck.topk_blocks_per_sm(stage1, smem, dev),
                             "plan": planned}
     emit({"phase": "kernel", "attributes": attrs, "blocks_per_sm_k256_R50": resident})
-    if attrs["running_list_tiled"]["local_bytes"] or any(
+    if any(attrs[name]["local_bytes"] for name in (
+            "running_list_tiled", "select_score", "select")) or any(
             v["card"] != v["plan"] for v in resident.values()):
         raise AssertionError(f"top-k kernel attributes: {attrs}, {resident}")
     return attrs
@@ -706,11 +708,15 @@ def phase_kernel(torch, dev, rng) -> dict:
         # of keys, one FMA chain a score, so the same bits
         per_tile = top_k_streaming(q, items, k, excl, stage1="tile_sort")
         equal = bool(torch.equal(got[0], per_tile[0]) and torch.equal(got[1], per_tile[1]))
+        again = top_k_streaming(q, items, k, excl)
+        same = bool(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
         out = {"case": name, "B": b, "N": n, "R": r, "k": k, "E": e,
                "T": plan.tiles_per_block, "n_runs": plan.n_runs, "stage1": plan.stage1,
-               "merge_in": "shared" if plan.merge_smem else "global",
-               "max_abs_err": err, "agree": ok, "equal_to_tile_sort": equal}
-        ok = ok and equal
+               "merge_in": ("select" if plan.stage1 == "select"
+                            else "shared" if plan.merge_smem else "global"),
+               "max_abs_err": err, "agree": ok, "equal_to_tile_sort": equal,
+               "bit_identical": same}
+        ok = ok and equal and same
         if timed:
             calls = {
                 "kernel": lambda: top_k_streaming(q, items, k, excl),
@@ -780,11 +786,37 @@ def phase_kernel(torch, dev, rng) -> dict:
     check("k256_all_excluded_rows", eq, eitems, 256, torch.from_numpy(all_excl).to(dev))
     for other_r in (33, 8):
         check(f"k256_rank_{other_r}", *tensors(16, 3000, other_r), 256)
-    check("k1024", q_all[:4].contiguous(), items, 1024, timed=True)
+    # 256 < k <= 16,384: the threshold select (every score stored and
+    # counted, the keys from the k-th key's bin up sorted), each case also
+    # bit for bit the per-tile sort's answer and a second call's
+    main["k1024"] = check("k1024", q_all[:4].contiguous(), items, 1024, timed=True)
     check("k2048", q_all[:2].contiguous(), items, 2048)
+    main["k1024_B1024"] = check("k1024_B1024", q_all, items, 1024, timed=True)
+    check("k1024_E64", q_all[:64].contiguous(), items, 1024, torch.from_numpy(excl).to(dev))
+    check("k512_duplicated_rows_ties", dq, ditems, 512)
+    check("k300_rising_scores", q_all[:16].abs().contiguous() + 0.5, rising, 300)
+    check("k300_ragged_N1000", *tensors(16, 1000, r), 300)
+    for other_r in (33, 8):
+        check(f"k512_rank_{other_r}", *tensors(16, 3000, other_r), 512)
+    fq, fitems = tensors(8, 600, r)
+    few = np.tile(np.arange(600, dtype=np.int32), (8, 1))
+    few[1::2, 100:] = -1  # odd rows keep 500 items, even rows none
+    check("k300_fewer_finite_than_k", fq, fitems, 300, torch.from_numpy(few).to(dev))
+    # ties at the k-th key: every score equal (all three levels of the
+    # histogram, then index order), and +0.0 / -0.0 factors scoring exact
+    # zeros across the boundary (10,000 keys from the zero bin up, more
+    # than the 4,096 survivors at k = 2,500)
+    same_q, _ = tensors(8, 1, r)
+    one_row = np.tile(rng.standard_normal((1, r), dtype=np.float32), (5000, 1))
+    check("k300_identical_rows", same_q, torch.from_numpy(one_row).to(dev), 300)
+    pos = np.abs(rng.standard_normal((2000, r), dtype=np.float32)) + 0.05
+    zeros = np.where(rng.random((8000, r)) < 0.5, np.float32(-0.0), np.float32(0.0))
+    signed = np.concatenate([pos, zeros, -pos])[rng.permutation(12000)]
+    check("k2500_signed_zeros", same_q.abs() + 0.1, torch.from_numpy(signed).to(dev), 2500)
     # k above the old ceiling of 2048, up to the catalog: a served num of
-    # 4096 (20 lists of 256 merged in shared memory), then k = N with 64
-    # exclusions a query (106 lists, merged in device memory)
+    # 4096 (the select path; the per-tile sort's 20 lists of 256 merged in
+    # shared memory beside it), then k = N with 64 exclusions a query (above
+    # the select path's ceiling: 106 lists, merged in device memory)
     k_q, k_items = tensors(64, 5000, r)
     main["k4096_N5000"] = check("k4096_N5000", k_q, k_items, 4096, timed=True)
     main["k_eq_N27000_E64"] = check("k_eq_N27000_E64", q_all[:64].contiguous(), items, n,
@@ -1081,7 +1113,7 @@ def topk_k256_knockouts(torch, dev, source: str = TOPK_SOURCE) -> None:
         out_s = torch.empty((b, k), device=dev)
         out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
         times = {}
-        for stage1 in ck.TOPK_STAGE1:
+        for stage1 in ("tile_sort", "running_list", "running_list_tiled"):
             plan = ck.topk_launch_plan(b, n, k, sm, r, stage1)
             if ck.topk_scratch_bytes(plan) <= ck.TOPK_MAX_SCRATCH_BYTES:  # unsliced
                 scratch = torch.empty((4, b * plan.n_runs * plan.kt), device=dev)
@@ -1107,6 +1139,298 @@ def topk_k256_knockouts(torch, dev, source: str = TOPK_SOURCE) -> None:
                            for name in variants if name != "whole"}})
         del q, out_s, out_i
     shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: the k > 256 shapes of :func:`topk_large_k_grid`: (name, B, N, k) at R = 50,
+#: candidate generation's k over ML-20M's catalog at served batches, and the
+#: main path's k = 4,096 on 5,000 items
+TOPK_GRID = tuple((f"B{b}_k{k}", b, 27000, k) for k in (512, 1024, 4096)
+                  for b in (1, 64, 1024)) + (("k4096_N5000", 64, 5000, 4096),)
+
+
+def topk_large_k_grid(torch, dev, seed: int = 0, shapes=TOPK_GRID) -> dict:
+    """The top-k at k > 256 on ``shapes`` (R = 50): the per-tile sort
+    (``stage1="tile_sort"``), the select path, ``torch.topk(q @ items.T,
+    k)`` and the plain version, timed in one call A B B A (the list of
+    variants, then the same list reversed), event ms and device ms for
+    each reading. Before timing, every variant's answer is held to the
+    plain version, the select path's to the per-tile sort's bit for bit
+    (``torch.equal``) and to a second call of its own. Returns the lines
+    by shape; fails if an answer disagrees."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(seed + 17)
+    r = 50
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    stage1s = ("tile_sort", "select")
+    order = [*stage1s, "library", "plain"]
+    order += order[::-1]
+    out = {}
+    items_by_n = {}
+    for name, b, n, k in shapes:
+        if n not in items_by_n:
+            items_by_n[n] = torch.from_numpy(
+                rng.standard_normal((n, r), dtype=np.float32)).to(dev)
+        items = items_by_n[n]
+        q = torch.from_numpy(rng.standard_normal((b, r), dtype=np.float32)).to(dev)
+        calls = {s: (lambda s=s: ck.top_k_streaming(q, items, k, stage1=s)) for s in stage1s}
+        calls["library"] = lambda: torch.topk(q @ items.T, k, dim=1)
+        calls["plain"] = lambda: ck.top_k_streaming_reference(q, items, k)
+        want = calls["plain"]()
+        per_tile = calls["tile_sort"]()
+        err, ok = agreement(per_tile, want)
+        line = {"phase": "topk_grid", "shape": name, "B": b, "N": n, "R": r, "k": k,
+                "plan": ck.topk_launch_plan(b, n, min(k, n), sm, r).stage1,
+                "tile_sort_max_abs_err": err, "tile_sort_agree": ok}
+        got = calls["select"]()
+        again = calls["select"]()
+        line["select_max_abs_err"], line["select_agree"] = agreement(got, want)
+        line["select_equal_to_tile_sort"] = bool(
+            torch.equal(got[0], per_tile[0]) and torch.equal(got[1], per_tile[1]))
+        line["select_bit_identical"] = bool(
+            torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+        ok = (ok and line["select_agree"] and line["select_equal_to_tile_sort"]
+              and line["select_bit_identical"])
+        del got, again, want, per_tile
+        iters, device_iters = (5, 3) if b >= 1024 else (20, 10)
+        line["ms"] = {v: [] for v in calls}
+        line["device_ms"] = {v: [] for v in calls}
+        for variant in order:
+            line["ms"][variant].append(time_ms(torch, calls[variant], iters, 2))
+            line["device_ms"][variant].append(
+                traced_device_ms(torch, calls[variant], device_iters, 2))
+        bound_ms, line["bound_by"] = topk_bound(b, n, r, k)
+        line["bound_us"] = bound_ms * 1e3
+        emit(line)
+        if not ok:
+            raise AssertionError(f"top-k at k > 256 disagrees at {name}: {line}")
+        out[name] = line
+        del q
+    del items_by_n
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the select path's phases as its knock-outs cut them, in the form of
+#: ``TOPK_TILED_PHASES``: ``scoring`` keeps one rank of each staged chunk,
+#: ``hist`` drops the score kernel's per-key count, ``store`` its 16-byte score
+#: stores, ``refine`` the select kernel's second and third counts (the keys
+#: past the buffer are dropped), ``gather`` and ``sort`` what they name. A
+#: knock-out's answer is wrong; the select kernel guards every index, so none
+#: reads or writes out of bounds.
+TOPK_SELECT_PHASES = {
+    "scoring": ("topk_select_score_kernel(",
+                "score_step_chunk(acc, s_items, s_qT, start, r0 - start, rc, t);",
+                "score_step_chunk(acc, s_items, s_qT, start, rc - 1, rc, t);"),
+    "hist": ("topk_select_score_kernel(",
+             "if (j0 + c < N) atomicAdd(&s_hist[qi * kSelectBins + (order_key(v[c]) >> 21)], 1u);",
+             ""),
+    "store": ("topk_select_score_kernel(",
+              "*reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);", ""),
+    "refine": ("topk_select_kernel(", "if (count > static_cast<unsigned>(cap)) {  // the next",
+               "if (false) {  // the next"),
+    "gather": ("topk_select_kernel(", "// Gather: 16 keys a thread a pass", None),
+    "sort": ("topk_select_kernel(", "block_sort(s_keys, P);", ""),
+}
+#: trials of the select path, each a list of (old, new) replacements in the
+#: .cu; a trial must give the whole kernel's answer bit for bit
+TOPK_SELECT_TRIALS = {
+    # one shared atomic a run of equal bins in a warp (__match_any_sync)
+    "match_any_hist": [(
+        "if (j0 + c < N) atomicAdd(&s_hist[qi * kSelectBins + (order_key(v[c]) >> 21)], 1u);",
+        "const unsigned bin = j0 + c < N ? order_key(v[c]) >> 21 : 0xffffffffu;\n"
+        "          const unsigned peers = __match_any_sync(kFullWarp, bin);\n"
+        "          if (bin != 0xffffffffu && (t & 31) == __ffs(peers) - 1) {\n"
+        "            atomicAdd(&s_hist[qi * kSelectBins + bin], static_cast<unsigned>(__popc(peers)));\n"
+        "          }")],
+}
+#: the shapes the knock-outs and trials are timed at: (name, B, N, k), R = 50
+TOPK_SELECT_KNOCKOUT_SHAPES = (("B1_k4096", 1, 27000, 4096), ("k4096_N5000", 64, 5000, 4096),
+                               ("B1024_k1024", 1024, 27000, 1024),
+                               ("B1024_k4096", 1024, 27000, 4096))
+
+
+def topk_select_knockouts(torch, dev, source: str = TOPK_SOURCE) -> None:
+    """Where the select path's time goes: ``source`` built as it is, once
+    without each phase (``TOPK_SELECT_PHASES``) and once with each trial
+    (``TOPK_SELECT_TRIALS``), all with ``nvcc -Xptxas -v`` at once; each
+    launched through ``pio_topk_select`` with the plan's own select plan
+    at ``TOPK_SELECT_KNOCKOUT_SHAPES`` (event ms a call, and device ms a
+    call of each of its kernels under the profiler). The whole build is
+    timed first and again last; a trial is held to it bit for bit. A
+    knock-out's time less the whole kernel's is what that phase costs
+    where nothing hides it."""
+    import ctypes
+    import re
+
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    text = open(source).read()
+    variants = {"whole": text}
+    for name, (anchor, marker, replacement) in TOPK_SELECT_PHASES.items():
+        at = text.index(marker, text.index(anchor))
+        if replacement is not None:
+            variants[name] = text[:at] + replacement + text[at + len(marker):]
+            continue
+        cut = text[:at] + _without_statement(text[at:], marker)
+        variants[name] = re.sub(r"#pragma unroll\n(?!\s*for)", "", cut)
+    for name, swaps in TOPK_SELECT_TRIALS.items():
+        src = text
+        for old, new in swaps:
+            if old not in src:
+                raise AssertionError(f"trial {name}: {old!r} is not in the source")
+            src = src.replace(old, new)
+        variants[name] = src
+    tmp = tempfile.mkdtemp(prefix="topk_select_knockouts_")
+    procs = {}
+    for name, src in variants.items():
+        path = os.path.join(tmp, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"lib{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"knock-out {name} did not build: {log[-2000:]}")
+        regs = {}
+        for kernel in ("topk_select_score_kernel", "topk_select_kernel"):
+            part = log[log.index(kernel + "E"):]
+            regs[kernel] = re.findall(r"(\d+ bytes spill stores|Used \d+ registers)", part)[:2]
+        emit({"phase": "topk_select_knockout", "variant": name, "ptxas": regs})
+        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
+        lib.pio_topk_select.argtypes = ck._EXTRA_ENTRIES["topk_streaming"]["pio_topk_select"]
+        libs[name] = lib
+    rng = np.random.default_rng(0)
+    r = 50
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    order = [*variants, "whole"]
+    for shape, b, n, k in TOPK_SELECT_KNOCKOUT_SHAPES:
+        items = torch.from_numpy(rng.standard_normal((n, r), dtype=np.float32)).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, r), dtype=np.float32)).to(dev)
+        plan = ck.topk_launch_plan(b, n, k, sm, r)
+        ld = plan.scratch_shape[2] - ck.TOPK_SELECT_BINS
+        scratch = torch.empty((b, plan.scratch_shape[2]), device=dev)
+        outs = {}
+        line = {"phase": "topk_select_knockout", "shape": shape, "B": b, "N": n, "k": k,
+                "ms": {}, "device_ms": {}}
+        for name in order:
+            out_s = torch.empty((b, k), device=dev)
+            out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+
+            def launch(lib=libs[name], out_s=out_s, out_i=out_i, name=name):
+                base = scratch.data_ptr()
+                code = lib.pio_topk_select(
+                    q.data_ptr(), items.data_ptr(), None, b, n, r, 0, k, plan.n_tiles,
+                    plan.tiles_per_block, plan.n_runs, ld, plan.stage1_smem,
+                    plan.merge_smem, plan.survivors, base, base + 4 * b * ld,
+                    out_s.data_ptr(), out_i.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if code:
+                    raise AssertionError(f"knock-out {name} failed to launch: {code}")
+            launch()
+            torch.cuda.synchronize()
+            outs.setdefault(name, (out_s, out_i))
+            line["ms"].setdefault(name, []).append(time_ms(torch, launch, 5 if b > 64 else 20, 1))
+            try:
+                ops = device_time(torch, launch, 3 if b > 64 else 10, 2)["top_device_ops"]
+                per = {o["name"].split("::")[-1][:24]: o["ms"] / o["count"] for o in ops}
+            except AssertionError:
+                per = None
+            line["device_ms"].setdefault(name, []).append(per)
+        whole = outs["whole"]
+        line["trials_equal"] = {name: bool(torch.equal(outs[name][0], whole[0])
+                                           and torch.equal(outs[name][1], whole[1]))
+                                for name in TOPK_SELECT_TRIALS}
+        emit(line)
+        del items, q, scratch, outs
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: the shapes of :func:`topk_path_times`: (name, B, k, exclusions) at N =
+#: 27,000, R = 50, the plans k <= 256 takes
+TOPK_PATH_SHAPES = (("B1_k16", 1, 16, 0), ("B64_k16", 64, 16, 0), ("B1024_k16", 1024, 16, 0),
+                    ("B64_k16_E64", 64, 16, 64), ("B512_k128", 512, 128, 0),
+                    ("B64_k256", 64, 256, 0), ("B1024_k256", 1024, 256, 0),
+                    ("B1024_k129", 1024, 129, 0), ("B32768_k256", 32768, 256, 0))
+
+
+def topk_path_times(torch, dev, seed: int = 0) -> None:
+    """The top-k at k <= 256 alone at ``TOPK_PATH_SHAPES``, each through
+    the plan's own kernel: the plan, the registers of every top-k kernel
+    and the event and device ms. It uses only what the package has had
+    since the tiled running list, so it times an older tree too: from
+    that tree's root, load this file by path
+    (``importlib.util.spec_from_file_location``) and call it there, A B B
+    A with this tree."""
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    build.build_all(["topk_streaming"])
+    tree = os.path.basename(os.getcwd())
+    emit({"phase": "topk_path_times", "tree": tree,
+          "regs": {name: a["regs"] for name, a in ck.topk_kernel_attributes(dev).items()}})
+    rng = np.random.default_rng(seed + 31)
+    n, r = 27000, 50
+    items = torch.from_numpy(rng.standard_normal((n, r), dtype=np.float32)).to(dev)
+    q_all = torch.from_numpy(rng.standard_normal((32768, r), dtype=np.float32)).to(dev)
+    excl = torch.from_numpy(rng.integers(-1, n, size=(64, 64)).astype(np.int32)).to(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, b, k, e in TOPK_PATH_SHAPES:
+        q = q_all[:b].contiguous()
+        ex = excl if e else None
+        plan = ck.topk_launch_plan(b, n, k, sm, r)
+        kernel = lambda: ck.top_k_streaming(q, items, k, ex)  # noqa: E731
+        big = b > 1024
+        emit({"phase": "topk_path_times", "tree": tree, "shape": name, "stage1": plan.stage1,
+              "T": plan.tiles_per_block, "n_runs": plan.n_runs,
+              "ms": time_ms(torch, kernel, 5 if big else 30, 1 if big else 3),
+              "device_ms": traced_device_ms(torch, kernel, 3 if big else 20)})
+        del q
+
+
+def library_times_alone(torch, dev, seed: int = 0) -> None:
+    """Not a phase of the run: two library times that earlier full runs
+    left open, each in a call of its own, A B B A beside the kernel of
+    the same shape: SDPA (fp32) against the passes attention kernel at
+    D = ``WIDE_PASSES_HEAD`` on the training shape, and ``torch.topk(q @
+    items.T, 256)`` against the tiled running list at B = 32,768, N =
+    27,000, R = 50 (event and device ms each)."""
+    import torch.nn.functional as F
+
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    build.build_all(["flash_attention", "topk_streaming"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    b, h, lq, lk, causal = WIDE_ATTN_SHAPES[0]
+    d = WIDE_PASSES_HEAD
+    q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev) for n_ in (lq, lk, lk))
+    calls = {"passes": lambda: ck.flash_attention_fwd(q, k, v, causal),
+             "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)}
+    line = {"phase": "library_alone", "case": f"attention_D{d}_{b}x{h}x{lq}_causal_{causal}",
+            "path": ck.flash_plan_for(q, k, causal).path, "ms": {}, "device_ms": {}}
+    for name in ("passes", "sdpa", "sdpa", "passes"):
+        line["ms"].setdefault(name, []).append(time_ms(torch, calls[name], 20, 3))
+        line["device_ms"].setdefault(name, []).append(traced_device_ms(torch, calls[name], 20))
+    emit(line)
+    del q, k, v
+    rng = np.random.default_rng(seed + 29)
+    b, n, r, kk = 32768, 27000, 50, 256
+    q = torch.from_numpy(rng.standard_normal((b, r), dtype=np.float32)).to(dev)
+    items = torch.from_numpy(rng.standard_normal((n, r), dtype=np.float32)).to(dev)
+    calls = {"running_list_tiled": lambda: ck.top_k_streaming(q, items, kk),
+             "library": lambda: torch.topk(q @ items.T, kk, dim=1)}
+    line = {"phase": "library_alone", "case": f"topk_B{b}_N{n}_k{kk}", "ms": {},
+            "device_ms": {}}
+    for name in ("running_list_tiled", "library", "library", "running_list_tiled"):
+        line["ms"].setdefault(name, []).append(time_ms(torch, calls[name], 5, 1))
+        line["device_ms"].setdefault(name, []).append(traced_device_ms(torch, calls[name], 3))
+    emit(line)
 
 
 def phase_data(torch, dev, seed: int, scale: float = 1.0) -> dict:
@@ -3113,6 +3437,7 @@ def phase_persist(torch, dev, seed: int, base: str, registry, slice_instance: st
         spd_solve,
         top_k_streaming,
         top_k_streaming_reference,
+        topk_launch_plan,
     )
     from predictionio_tpu_torch.workflow import (
         ServerConfig,
@@ -3304,15 +3629,34 @@ def phase_persist(torch, dev, seed: int, base: str, registry, slice_instance: st
         torch.from_numpy(model.user_factors).to(dev)[row].contiguous(),
         torch.from_numpy(model.item_factors).to(dev), PERSIST_NUM))
     server = deploy(rec.engine_factory(), slice_instance, registry)
+    by_stage1 = top_k_streaming.launches_by_stage1
     try:
         top_k_streaming.launches = 0  # main path starts here
+        by_stage1.update(dict.fromkeys(by_stage1, 0))
         t = time.monotonic()
         status, data, _ = _post_query(server.bound_port, {"user": user, "num": PERSIST_NUM})
         seconds["num4096_query"] = time.monotonic() - t
         launches["num4096_query"] = top_k_streaming.launches  # main path ends here
+        launches["num4096_select"] = by_stage1["select"]
     finally:
         server.shutdown()
         server.server_close()
+    # the same query row on the card: the select path's answer, bit for bit
+    # the per-tile sort's and a second call's, is the one served
+    q_row = torch.from_numpy(model.user_factors).to(dev)[row].contiguous()
+    table = torch.from_numpy(model.item_factors).to(dev)
+    direct = top_k_streaming(q_row, table, PERSIST_NUM)
+    again = top_k_streaming(q_row, table, PERSIST_NUM)
+    per_tile = top_k_streaming(q_row, table, PERSIST_NUM, stage1="tile_sort")
+    select_checks = {
+        "stage1": topk_launch_plan(1, table.shape[0], PERSIST_NUM,
+                                   torch.cuda.get_device_properties(dev).multi_processor_count,
+                                   table.shape[1]).stage1,
+        "select_launches": launches["num4096_select"],
+        "equal_to_tile_sort": bool(torch.equal(direct[0], per_tile[0])
+                                   and torch.equal(direct[1], per_tile[1])),
+        "bit_identical": bool(torch.equal(direct[0], again[0]) and torch.equal(direct[1], again[1]))}
+    del again, per_tile, table
     got = data.get("itemScores", []) if status == 200 else []
     inv = model.item_map.inverse
     got_s = np.array([x["score"] for x in got], dtype=np.float32)
@@ -3320,12 +3664,19 @@ def phase_persist(torch, dev, seed: int, base: str, registry, slice_instance: st
     same = len(got) == PERSIST_NUM and np.array(
         [x["item"] == inv[int(i)] for x, i in zip(got, want_i)])
     wrong = PERSIST_NUM if len(got) != PERSIST_NUM else int((~(same | close)).sum())
+    direct_s, direct_i = (x.cpu().numpy()[0] for x in direct)
+    select_checks["served_equal_to_select"] = bool(
+        len(got) == PERSIST_NUM and np.array_equal(got_s, direct_s)
+        and all(x["item"] == inv[int(i)] for x, i in zip(got, direct_i)))
     checks["num4096"] = {"status": status, "items": len(got), "catalog": len(inv),
                          "wrong_ids_outside_ties": wrong,
                          "tied_slots": int((~same & close).sum()) if len(got) else 0,
                          "max_abs_err": float(np.abs(got_s - want_s).max()) if len(got) else None,
-                         "launches": launches["num4096_query"]}
-    if status != 200 or wrong or not np.all(close) or launches["num4096_query"] != 1:
+                         "launches": launches["num4096_query"], **select_checks}
+    if (status != 200 or wrong or not np.all(close) or launches["num4096_query"] != 1
+            or select_checks["stage1"] != "select" or launches["num4096_select"] != 1
+            or not all(select_checks[c] for c in ("equal_to_tile_sort", "bit_identical",
+                                                  "served_equal_to_select"))):
         raise AssertionError(f"num = {PERSIST_NUM}: {checks['num4096']}")
 
     out = {"phase": "persist", "checks": checks, "launches": launches, "seconds": seconds,
@@ -4669,6 +5020,38 @@ def main(argv=None) -> int:
             "served_num_129_256": sliced["http_num_129_256"]},
         "attributes": topk_kernel_attributes(dev),
     }]
+    # the select path (256 < k <= 16,384) on its own line: launched by the
+    # served num = 4,096 query, timed at k = 4,096 on 5,000 items (B = 64)
+    ref = main_shapes["k4096_N5000"]
+    bound_ms, bound_by = topk_bound(ref["B"], ref["N"], ref["R"], ref["k"])
+    select_keys = ("B", "N", "k", "T", "n_runs", "kernel_ms", "kernel_device_ms",
+                   "tile_sort_ms", "tile_sort_device_ms", "plain_ms", "library_ms",
+                   "library_device_ms", "bound_us", "bound_by", "max_abs_err",
+                   "equal_to_tile_sort", "bit_identical")
+    lines.append({
+        "name": "topk_select",
+        "route": "cuda",
+        "source": TOPK_SOURCE,
+        "replaces": TOPK_REPLACES,
+        "launches": persisted["launches"]["num4096_select"],
+        "launches_by_path": {"persist_num4096": persisted["launches"]["num4096_select"]},
+        "max_abs_err": max(main_shapes[name]["max_abs_err"]
+                           for name in ("k1024", "k1024_B1024", "k4096_N5000")),
+        "ms": ref["kernel_ms"],
+        "plain_ms": ref["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": ref["library_ms"],
+        "device_ms": ref["kernel_device_ms"],
+        "library_device_ms": ref["library_device_ms"],
+        "tile_sort_ms": ref["tile_sort_ms"],
+        "tile_sort_device_ms": ref["tile_sort_device_ms"],
+        "shape": {k: ref[k] for k in ("B", "N", "R", "k", "T", "n_runs")},
+        "timed": {name: {k: main_shapes[name][k] for k in select_keys}
+                  for name in ("k1024", "k1024_B1024")},
+        "served_num4096": persisted["checks"]["num4096"],
+        "attributes": {name: lines[0]["attributes"][name] for name in ("select_score", "select")},
+    })
     for name, source, replaces in (
         ("gramian_fused", GRAMIAN_SOURCE, GRAMIAN_REPLACES),
         ("spd_solve", SPD_SOURCE, SPD_REPLACES),

@@ -4,8 +4,10 @@
 // body of top_k_streaming, with its selection helper _select_topk). For each
 // query row b it returns the k best (score, item) pairs of q[b] . items[n]
 // over the whole catalog, ordered by score descending and, on equal scores,
-// by item index ascending. The [B, N] score matrix never reaches device
-// memory: scores live in registers and shared memory only.
+// by item index ascending. Up to k = 256 the [B, N] score matrix never
+// reaches device memory: scores live in registers and shared memory only.
+// Above it the select path stores each score once (4 bytes) and reads it
+// back once, which costs less than sorting and merging every key.
 //
 // Contract (the JAX kernel's, checked by tests/test_torch_topk.py against it
 // and by chip_smoke.py against the plain PyTorch version on the card):
@@ -77,9 +79,32 @@
 //     number of steps (T a multiple of 4) or the whole catalog. Either
 //     running-list kernel can be launched at any k <= 256 (the plan picks
 //     topk_run_kernel up to 128 and this one above).
-//   Stage 1, k > 256 (topk_tile_kernel): one block per (8-query tile x item
-//     tile), T = 1: a bitonic sort of the 256 candidates in shared memory, the
-//     best kt = 256 kept. It also answers any smaller kt when the plan asks.
+//   256 < k <= kSelectMaxKeys = 16,384: the threshold select (pio_topk_select).
+//     Sorting every tile and merging every list moves all N keys of a query
+//     through shared memory, device memory and ceil(log2 n_tiles) rounds of
+//     binary searches, when the answer needs only k of them. Instead:
+//     (1) topk_select_score_kernel scores as topk_run_tiled_kernel does, masks,
+//     canonicalises (-0.0 -> +0.0) and stores each score to a [B, N] scratch
+//     (4 bytes a key, half the per-tile path's lists) and counts its
+//     order-preserving 32-bit key in a per-query histogram of the top 11 bits,
+//     in shared memory, added to device memory with integer atomics (exact in
+//     any order). (2) topk_select_kernel, one block of 1,024 threads a query,
+//     finds the bin that holds the k-th key (a block scan of the histogram from
+//     the top); when that bin's keys and those above it do not fit the
+//     survivor buffer it counts that bin's keys again on the next 11 bits, and
+//     then on the last 10 (the boundary is then the k-th key itself). It
+//     gathers every key from the boundary up as a packed 8-byte key (~score
+//     bits, index: one ascending order for score desc, index asc), in any
+//     order; at an exact key the ties are taken in index order by a block scan
+//     until k are held. The survivors (k plus about one bin) are sorted in
+//     shared memory by a bitonic network whose strides below 256 run in
+//     registers, 8 keys a lane, and the first k are stored. Above the ceiling
+//     (whose packed keys no longer fit a block's shared memory) the per-tile
+//     sort below stays: at k = N = 27,000 it beats torch.topk.
+//   Stage 1, k > 16,384 (topk_tile_kernel): one block per (8-query tile x
+//     item tile), T = 1: a bitonic sort of the 256 candidates in shared
+//     memory, the best kt = 256 kept. It also answers any smaller kt when the
+//     plan asks (the card's checks force it beside every other path).
 //   Stage 2: a query's n_runs sorted lists merge as a tree: all pairs of a
 //     round at once, each key placed at its position plus its rank in the
 //     sibling list and dropped past k, in ceil(log2(n_runs)) rounds. A node's
@@ -98,9 +123,10 @@
 // query's lists hold at most span = n_runs * kt <= 2^29 keys (a round's key
 // count stays below 2^30); every offset across queries is size_t. The store
 // strides over at most 65,535 blocks a query, so K is not bound by the grid.
-// Above k = 256 stage 1 keeps every tile's list, about 8 N bytes a query: the
-// wrapper cuts the batch so that one launch's scratch stays within a fixed
-// budget (ops/cuda_kernels.py::topk_batch_slices).
+// The select path keeps 4 N bytes and 8 KB of counts a query, the per-tile
+// sort every tile's list, about 8 N bytes a query: the wrapper cuts the batch
+// so that one launch's scratch stays within a fixed budget
+// (ops/cuda_kernels.py::topk_batch_slices).
 //
 // Bound at the serving slice's shapes (ML-20M width: N = 27,000 items, R = 50,
 // k = 16; H100 SXM data sheet: 3.35 TB/s, fp32 outside the tensor cores about
@@ -158,6 +184,38 @@ constexpr int kTiledSparseMax = 64;
 constexpr int kPendMax = 2 * kTiledSparseMax;
 static_assert(kStepTiles == 4 && kTiledChunk == 8,
               "load_step_chunk splits a thread index by 8, 4 items a thread");
+
+// The select path (k > 256): a query's order keys are counted by their top
+// kSelectBins (11 bits), then in the boundary bin by the next 11 and the last
+// kSelectLastBins (10 bits). A select block of kSelectThreads holds up to
+// kSelectMaxKeys survivors as packed 8-byte keys and sorts them in place;
+// kSelectMisc ints of shared memory hold its scan and counters.
+constexpr int kSelectBins = 2048;
+constexpr int kSelectLastBins = 1024;
+constexpr int kSelectThreads = 1024;
+constexpr int kSelectMaxKeys = 16384;
+constexpr int kSelectMisc = 64;
+constexpr int kSortSegment = 256;  // keys a warp sorts in registers, 8 a lane
+constexpr int kSortMin = 512;      // the shortest sort: two segments
+// topk_select_score_kernel's launch bound (up to 128 registers a thread): its
+// histogram holds it to two blocks an SM by shared memory in any case
+constexpr int kSelectScoreBlocksPerSm = 2;
+
+// Shared memory of topk_select_score_kernel and topk_select_kernel, in bytes
+// (the launch plan computes the same numbers).
+__host__ __device__ constexpr int select_score_smem_bytes(int R) {
+  return 4 * (kTileQueries * R + kTiledChunk * kStepStride +
+              kTileQueries * kSelectBins + kTileQueries * kExWordsTiled);
+}
+__host__ __device__ constexpr int select_smem_bytes(int survivors) {
+  return 8 * survivors + 4 * (kSelectBins + kSelectMisc);
+}
+static_assert(select_smem_bytes(kSelectMaxKeys) <= kMaxSmem &&
+                  select_smem_bytes(2 * kSelectMaxKeys) > kMaxSmem,
+              "kSelectMaxKeys: the longest power of two whose keys fit");
+static_assert(kSelectBins % kSelectThreads == 0 &&
+                  kSelectLastBins % kSelectThreads == 0,
+              "find_boundary gives each thread whole bins");
 
 // True when (sa, ia) ranks ahead of (sb, ib): higher score, then lower index.
 __device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
@@ -1254,6 +1312,483 @@ topk_store_kernel(const float* __restrict__ src_s, const int* __restrict__ src_i
   }
 }
 
+// ---- The select path (k > 256) ----------------------------------------------
+// The canonical score (-0.0 as +0.0: before() treats them as equal, their bits
+// differ) as a 32-bit key whose unsigned order is the scores' order; and back.
+__device__ __forceinline__ float canonical(float s) { return s == 0.f ? 0.f : s; }
+
+__device__ __forceinline__ unsigned order_key(float s) {
+  const unsigned u = __float_as_uint(canonical(s));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_score(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// A survivor as one 8-byte key whose ascending order is the contract's:
+// score descending, then index ascending.
+__device__ __forceinline__ unsigned long long pack_key(unsigned key, int j) {
+  return (static_cast<unsigned long long>(~key) << 32) | static_cast<unsigned>(j);
+}
+
+// The select path's scoring: one block per (8-query tile x run of T tiles,
+// T a multiple of kStepTiles or the whole catalog), scored as
+// topk_run_tiled_kernel scores: a step of 1,024 items, 4 consecutive items x 8
+// queries a thread (one 16-byte item load and two q broadcasts a rank), the
+// step's ranks 8 at a time, its first chunk copied by cp.async while the step
+// before is stored and counted. Each live score is masked (-inf when
+// excluded), canonicalised, stored to its query's row of `scores` (row stride
+// ld; 16 bytes a thread a query) and counted in the query's histogram of
+// top-11-bit keys in shared memory; items past N are neither stored nor
+// counted. The block then adds its counts to `hist` ([B][kSelectBins], zeroed
+// by the entry) with integer atomics, so the sums are exact in any order.
+__global__ void __launch_bounds__(kTileItems, kSelectScoreBlocksPerSm)
+topk_select_score_kernel(const float* __restrict__ q,
+                         const float* __restrict__ items,
+                         const int* __restrict__ excl, int B, int N, int R,
+                         int E, int n_tiles, int T, int ld,
+                         float* __restrict__ scores, unsigned* __restrict__ hist) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_qT = reinterpret_cast<float*>(smem);              // [R][8]
+  float* s_items = s_qT + kTileQueries * R;                  // [8][1028]
+  unsigned* s_hist = reinterpret_cast<unsigned*>(s_items + kTiledChunk * kStepStride);
+  unsigned* s_ex = s_hist + kTileQueries * kSelectBins;      // [8][32]
+
+  const int t = threadIdx.x;
+  const int run = blockIdx.x;
+  const int q0 = blockIdx.y * kTileQueries;
+  const int nq = min(kTileQueries, B - q0);  // live query slots of this block
+
+  for (int l = t; l < kTileQueries * R; l += kTileItems) {
+    const int r = l >> 3;
+    const int qi = l & 7;
+    s_qT[l] = qi < nq ? q[(size_t)(q0 + qi) * R + r] : 0.f;
+  }
+  for (int l = t; l < nq * kSelectBins; l += kTileItems) s_hist[l] = 0u;
+
+  // A run is a whole number of steps, or ends with the catalog: a step never
+  // takes items of the next run, and items past N are masked.
+  const int run_begin = run * T * kTileItems;
+  const int run_end = min(n_tiles, (run + 1) * T) * kTileItems;
+  float pre[kTiledLoads];  // the next rank chunk, on its way to shared memory
+  const int rc = chunk_width<kTiledChunk>(R);
+  copy_first_chunk_async(s_items, items, run_begin, N, R, rc, t);
+
+  for (int step0 = run_begin; step0 < run_end; step0 += kStepItems) {
+    // Cleared here, set after the scoring loop's barriers.
+    if (E > 0) {
+      for (int l = t; l < kTileQueries * kExWordsTiled; l += kTileItems) s_ex[l] = 0u;
+    }
+
+    float acc[kStepTiles][kTileQueries];
+#pragma unroll
+    for (int c = 0; c < kStepTiles; ++c) {
+#pragma unroll
+      for (int qi = 0; qi < kTileQueries; ++qi) acc[c][qi] = 0.f;
+    }
+
+    for (int r0 = 0; r0 < R; r0 += kTiledChunk) {
+      if (r0 == 0) {
+        cp_async_wait_all();  // the first chunk, copied during the last step's stores
+      } else {
+        store_step_chunk(s_items, pre, rc, t);
+      }
+      __syncthreads();
+      const int r1 = r0 + kTiledChunk;
+      if (r1 < R) {
+        load_step_chunk(pre, items, step0, N, R, chunk_start<kTiledChunk>(R, r1), rc, t);
+      }
+      const int start = chunk_start<kTiledChunk>(R, r0);
+      score_step_chunk(acc, s_items, s_qT, start, r0 - start, rc, t);
+      if (r1 < R) __syncthreads();
+    }
+    // every read of the step's last chunk is done: the next step's first
+    // chunk may land while this step's scores are stored and counted
+    __syncthreads();
+    if (step0 + kStepItems < run_end) {
+      copy_first_chunk_async(s_items, items, step0 + kStepItems, N, R, rc, t);
+    }
+
+    if (E > 0) {  // one bit per (query, item of the step) that is excluded
+      for (int l = t; l < nq * E; l += kTileItems) {
+        const int qi = l / E;
+        const int e = l - qi * E;
+        const int x = excl[(size_t)(q0 + qi) * E + e];
+        if (x >= step0 && x < step0 + kStepItems) {
+          const int d = x - step0;
+          atomicOr(&s_ex[qi * kExWordsTiled + (d >> 5)], 1u << (d & 31));
+        }
+      }
+      __syncthreads();
+    }
+
+    const int j0 = step0 + kStepTiles * t;  // this thread's 4 items
+#pragma unroll
+    for (int qi = 0; qi < kTileQueries; ++qi) {
+      if (qi < nq) {
+        float v[kStepTiles];
+#pragma unroll
+        for (int c = 0; c < kStepTiles; ++c) {
+          float s = acc[c][qi];
+          if (E > 0 && ((s_ex[qi * kExWordsTiled + (t >> 3)] >> (kStepTiles * (t & 7) + c)) & 1u)) {
+            s = -CUDART_INF_F;
+          }
+          v[c] = canonical(s);
+        }
+        float* dst = scores + (size_t)(q0 + qi) * ld + j0;
+        if (j0 + kStepTiles <= N) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < kStepTiles; ++c) {
+            if (j0 + c < N) dst[c] = v[c];
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kStepTiles; ++c) {
+          if (j0 + c < N) atomicAdd(&s_hist[qi * kSelectBins + (order_key(v[c]) >> 21)], 1u);
+        }
+      }
+    }
+    // the step's exclusion bits are read before the next step clears them
+    if (E > 0) __syncthreads();
+  }
+
+  __syncthreads();
+  for (int l = t; l < nq * kSelectBins; l += kTileItems) {
+    const unsigned v = s_hist[l];
+    if (v != 0u) atomicAdd(&hist[(size_t)q0 * kSelectBins + l], v);
+  }
+}
+
+// The exclusive prefix sum of v over the block's threads in thread order, and
+// the block's total in *total. s_warp holds 32 words; ends with a barrier, so
+// that the block may call it again at once.
+__device__ __forceinline__ unsigned block_exclusive_sum(unsigned v, unsigned* s_warp,
+                                                        unsigned* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  unsigned x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(kFullWarp, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned w = lane < n_warps ? s_warp[lane] : 0u;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(kFullWarp, w, o);
+      if (lane >= o) w += y;
+    }
+    s_warp[lane] = w;
+  }
+  __syncthreads();
+  const unsigned before_me = (warp > 0 ? s_warp[warp - 1] : 0u) + x - v;
+  *total = s_warp[n_warps - 1];
+  __syncthreads();
+  return before_me;
+}
+
+// The bin of the histogram s_h (nb counts in shared memory) that holds the
+// need-th key counted from the top bin down, into res[0], and how many keys
+// the bins above it hold, into res[1]. The histogram holds at least need >= 1
+// keys. Thread t sums nb / blockDim bins from the top, the sums are scanned,
+// and the one thread whose bins reach need finds the bin (res stays (0, 0)
+// on a histogram that does not hold need keys, so nothing reads out of
+// bounds). Ends with a barrier.
+__device__ __forceinline__ void find_boundary(const unsigned* s_h, int nb,
+                                              unsigned need, unsigned* s_warp,
+                                              unsigned* res) {
+  if (threadIdx.x == 0) res[0] = res[1] = 0u;  // ordered by the scan's barriers
+  const int per = nb / blockDim.x;
+  const int top = nb - 1 - threadIdx.x * per;  // this thread's highest bin
+  unsigned sum = 0u;
+  for (int i = 0; i < per; ++i) sum += s_h[top - i];
+  unsigned total;
+  unsigned above = block_exclusive_sum(sum, s_warp, &total);
+  if (above < need && above + sum >= need) {
+    for (int i = 0; i < per; ++i) {
+      const unsigned c = s_h[top - i];
+      if (above + c >= need) {
+        res[0] = static_cast<unsigned>(top - i);
+        res[1] = above;
+        break;
+      }
+      above += c;
+    }
+  }
+  __syncthreads();
+}
+
+// A select block walks a query's row kRowLoads 16-byte pieces a thread a
+// pass, all loads issued before any is used (a pass at N = 27,000 is two
+// round trips to memory, not 27): piece u of thread t in the pass from base
+// starts at base + 4 (t + u blockDim). Keys past N read as 0 and are masked.
+constexpr int kRowLoads = 4;
+
+__device__ __forceinline__ void load_row(float (&v)[4 * kRowLoads], const float* row,
+                                         int N, int base) {
+#pragma unroll
+  for (int u = 0; u < kRowLoads; ++u) {
+    const int j4 = base + 4 * (threadIdx.x + u * blockDim.x);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j4 < N) x = *reinterpret_cast<const float4*>(row + j4);
+    v[4 * u] = x.x;
+    v[4 * u + 1] = x.y;
+    v[4 * u + 2] = x.z;
+    v[4 * u + 3] = x.w;
+  }
+}
+
+// The index of key e (0..15) of the calling thread's pass from base.
+__device__ __forceinline__ int row_index(int base, int e) {
+  return base + 4 * (threadIdx.x + (e >> 2) * blockDim.x) + (e & 3);
+}
+
+// Counts into s_h the keys of the row whose bits from `shift` up equal
+// `prefix`, by their next bits: those from `sub` up to `shift`.
+__device__ __forceinline__ void refine_counts(const float* row, int N, unsigned prefix,
+                                              int shift, int sub, unsigned* s_h) {
+  const unsigned mask = (1u << (shift - sub)) - 1u;
+  for (int base = 0; base < N; base += 4 * kRowLoads * blockDim.x) {
+    float v[4 * kRowLoads];
+    load_row(v, row, N, base);
+#pragma unroll
+    for (int e = 0; e < 4 * kRowLoads; ++e) {
+      const unsigned key = order_key(v[e]);
+      if (row_index(base, e) < N && (key >> shift) == prefix) {
+        atomicAdd(&s_h[(key >> sub) & mask], 1u);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ unsigned long long min64(unsigned long long a,
+                                                    unsigned long long b) {
+  return a < b ? a : b;
+}
+__device__ __forceinline__ unsigned long long max64(unsigned long long a,
+                                                    unsigned long long b) {
+  return a < b ? b : a;
+}
+
+// The stages of one bitonic merge of `size` with strides from `top` down to 1
+// on the 256 keys of one segment, held 8 a lane (global index g0 + lane + 32 h
+// in v[h]): strides of 32 and more between a lane's own keys, the others by
+// shuffles. A pair ascends when its global index has the `size` bit clear.
+__device__ __forceinline__ void segment_stages(unsigned long long (&v)[8], int lane,
+                                               int g0, int size, int top) {
+#pragma unroll
+  for (int stride = kSortSegment / 2; stride > 0; stride >>= 1) {
+    if (stride > top) continue;
+    if (stride >= 32) {
+#pragma unroll
+      for (int h = 0; h < 8; ++h) {
+        const int g = h ^ (stride >> 5);
+        if (g > h) {
+          const bool up = ((g0 + 32 * h + lane) & size) == 0;
+          const unsigned long long lo = min64(v[h], v[g]);
+          const unsigned long long hi = max64(v[h], v[g]);
+          v[h] = up ? lo : hi;
+          v[g] = up ? hi : lo;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 8; ++h) {
+        const unsigned long long o = __shfl_xor_sync(kFullWarp, v[h], stride);
+        const bool up = ((g0 + 32 * h + lane) & size) == 0;
+        const bool lower = (lane & stride) == 0;
+        v[h] = (lower == up) ? min64(v[h], o) : max64(v[h], o);
+      }
+    }
+  }
+}
+
+// Sorts s[0..P) ascending in place, P a power of two >= kSortMin, with a
+// bitonic network: each warp sorts 256-key segments in registers (merge
+// sizes 2..256, no block barrier), then for each merge size from 512 up the
+// strides of 256 and more run across the block in shared memory, a barrier
+// after each, and the strides below 256 in registers again, a segment a warp.
+__device__ __forceinline__ void block_sort(unsigned long long* s, int P) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int n_warps = blockDim.x >> 5;
+  const int segs = P / kSortSegment;
+  for (int seg = t >> 5; seg < segs; seg += n_warps) {
+    unsigned long long v[8];
+    const int g0 = seg * kSortSegment;
+#pragma unroll
+    for (int h = 0; h < 8; ++h) v[h] = s[g0 + lane + 32 * h];
+#pragma unroll
+    for (int size = 2; size <= kSortSegment; size <<= 1) {
+      segment_stages(v, lane, g0, size, size >> 1);
+    }
+#pragma unroll
+    for (int h = 0; h < 8; ++h) s[g0 + lane + 32 * h] = v[h];
+  }
+  __syncthreads();
+  for (int size = 2 * kSortSegment; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride >= kSortSegment; stride >>= 1) {
+      for (int i = t; i < P / 2; i += blockDim.x) {
+        const int a = 2 * (i & ~(stride - 1)) + (i & (stride - 1));
+        const unsigned long long x = s[a];
+        const unsigned long long y = s[a + stride];
+        const bool up = (a & size) == 0;
+        if (up ? y < x : x < y) {
+          s[a] = y;
+          s[a + stride] = x;
+        }
+      }
+      __syncthreads();
+    }
+    for (int seg = t >> 5; seg < segs; seg += n_warps) {
+      unsigned long long v[8];
+      const int g0 = seg * kSortSegment;
+#pragma unroll
+      for (int h = 0; h < 8; ++h) v[h] = s[g0 + lane + 32 * h];
+      segment_stages(v, lane, g0, size, kSortSegment / 2);
+#pragma unroll
+      for (int h = 0; h < 8; ++h) s[g0 + lane + 32 * h] = v[h];
+    }
+    __syncthreads();
+  }
+}
+
+// The select path's selection: one block per query over its row of scores.
+//   1. The boundary: the bin of the top-11-bit histogram that holds the k-th
+//      key (counted from the top), and the count of keys above it. If the keys
+//      from that bin up do not fit the `cap` survivors, the bin's keys are
+//      counted again on the next 11 bits (a pass over the row), and if still
+//      not, on the last 10: the boundary is then the k-th key itself.
+//   2. The gather: every key from the boundary's bits up (at an exact key, every
+//      key above it) joins the survivors, in any order (a warp-aggregated
+//      counter), as a packed key; at an exact key, the keys equal to it are
+//      then taken in index order (a block scan a chunk of the row, no atomics)
+//      until k survivors are held.
+//   3. The survivors, padded with the largest key to a power of two, are
+//      sorted in shared memory (block_sort); the first K are stored, -inf
+//      with index -1.
+__global__ void __launch_bounds__(kSelectThreads)
+topk_select_kernel(const float* __restrict__ scores,
+                   const unsigned* __restrict__ hist, int N, int ld, int K, int cap,
+                   float* __restrict__ out_s, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* s_keys = reinterpret_cast<unsigned long long*>(smem);  // [cap]
+  unsigned* s_hist = reinterpret_cast<unsigned*>(s_keys + cap);  // [kSelectBins]
+  unsigned* s_warp = s_hist + kSelectBins;  // [32] block scan
+  unsigned* s_res = s_warp + 32;            // [2] boundary bin, keys above it
+  unsigned* s_cnt = s_res + 2;              // [1] survivors gathered
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int nt = blockDim.x;
+  const size_t b = blockIdx.x;
+  const float* row = scores + b * ld;
+
+  for (int l = t; l < kSelectBins; l += nt) s_hist[l] = hist[b * kSelectBins + l];
+  if (t == 0) *s_cnt = 0u;
+  __syncthreads();
+  find_boundary(s_hist, kSelectBins, K, s_warp, s_res);
+  unsigned prefix = s_res[0];  // the boundary's bits so far
+  unsigned above = s_res[1];   // keys whose bits rank above the prefix
+  unsigned count = above + s_hist[prefix];
+  int shift = 21;  // the survivors: keys with (key >> shift) >= prefix
+  if (count > static_cast<unsigned>(cap)) {  // the next 11 bits
+    __syncthreads();
+    for (int l = t; l < kSelectBins; l += nt) s_hist[l] = 0u;
+    __syncthreads();
+    refine_counts(row, N, prefix, 21, 10, s_hist);
+    find_boundary(s_hist, kSelectBins, K - above, s_warp, s_res);
+    const unsigned bin = s_res[0];
+    prefix = (prefix << 11) | bin;
+    above += s_res[1];
+    count = above + s_hist[bin];
+    shift = 10;
+    if (count > static_cast<unsigned>(cap)) {  // the last 10 bits: the key itself
+      __syncthreads();
+      for (int l = t; l < kSelectLastBins; l += nt) s_hist[l] = 0u;
+      __syncthreads();
+      refine_counts(row, N, prefix, 10, 0, s_hist);
+      find_boundary(s_hist, kSelectLastBins, K - above, s_warp, s_res);
+      prefix = (prefix << 10) | s_res[0];
+      above += s_res[1];
+      count = K;
+      shift = 0;
+    }
+  }
+  const bool exact = shift == 0;
+
+  // Gather: 16 keys a thread a pass, one counter add a warp a pass.
+  for (int base = 0; base < N; base += 4 * kRowLoads * nt) {
+    float v[4 * kRowLoads];
+    load_row(v, row, N, base);
+    unsigned keys[4 * kRowLoads];
+    unsigned mine = 0u;
+#pragma unroll
+    for (int c = 0; c < 4 * kRowLoads; ++c) {
+      keys[c] = order_key(v[c]);
+      const bool take = row_index(base, c) < N &&
+                        (exact ? keys[c] > prefix : (keys[c] >> shift) >= prefix);
+      mine |= static_cast<unsigned>(take) << c;
+    }
+    const unsigned n_mine = __popc(mine);
+    unsigned x = n_mine;  // inclusive scan of the warp's counts
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(kFullWarp, x, o);
+      if (lane >= o) x += y;
+    }
+    unsigned pos = 0u;
+    if (lane == 31 && x != 0u) pos = atomicAdd(s_cnt, x);
+    pos = __shfl_sync(kFullWarp, pos, 31) + x - n_mine;
+#pragma unroll
+    for (int c = 0; c < 4 * kRowLoads; ++c) {
+      if ((mine >> c) & 1u) {
+        if (pos < static_cast<unsigned>(cap)) s_keys[pos] = pack_key(keys[c], row_index(base, c));
+        ++pos;
+      }
+    }
+  }
+  __syncthreads();
+  if (exact) {  // the keys equal to the k-th, lowest indices first
+    const unsigned need = K - above;
+    unsigned taken = 0u;
+    for (int base = 0; base < N && taken < need; base += nt) {
+      const int j = base + t;
+      const bool tie = j < N && order_key(row[j]) == prefix;
+      unsigned total;
+      const unsigned rank = block_exclusive_sum(tie ? 1u : 0u, s_warp, &total);
+      const unsigned at = above + taken + rank;
+      if (tie && taken + rank < need && at < static_cast<unsigned>(cap)) {
+        s_keys[at] = pack_key(prefix, j);
+      }
+      taken += total;
+    }
+    __syncthreads();
+  }
+
+  int P = kSortMin;  // the counts are exact, so count <= cap; P never passes cap
+  while (P < static_cast<int>(count) && P < cap) P <<= 1;
+  for (int l = min(static_cast<int>(count), P) + t; l < P; l += nt) s_keys[l] = ~0ull;
+  __syncthreads();
+  block_sort(s_keys, P);
+
+  const size_t o = b * K;
+  for (int m = t; m < K; m += nt) {
+    const unsigned long long sk = s_keys[m];
+    const float s = key_score(~static_cast<unsigned>(sk >> 32));
+    out_s[o + m] = s;
+    out_i[o + m] = s == -CUDART_INF_F ? -1 : static_cast<int>(static_cast<unsigned>(sk));
+  }
+}
+
 // Opts `kernel` into `bytes` of dynamic shared memory on the current device,
 // once per device and size (granted[] remembers the largest size set).
 template <typename Kernel>
@@ -1284,6 +1819,8 @@ cudaError_t prepare_run_tiled(int bytes) {
                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
 }
 int g_merge_smem[kMaxDevices];
+int g_select_score_smem[kMaxDevices];
+int g_select_smem[kMaxDevices];
 
 }  // namespace
 
@@ -1406,10 +1943,59 @@ extern "C" int pio_topk_streaming(const void* q, const void* items,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The select path (256 < K <= kSelectMaxKeys by the plan's pick; any K up to
+// it when forced): scores [B, ld] f32 and hist [B, kSelectBins] u32 are the
+// scratch (hist is zeroed here), the rest as pio_topk_streaming's. The plan
+// (ops/cuda_kernels.py::topk_launch_plan, stage1 "select") is checked here:
+// n_tiles = ceil(N / 256), T tiles a scoring block (a multiple of kStepTiles,
+// or n_tiles), n_runs = ceil(n_tiles / T), ld = N rounded up to 4, score_smem = select_score_smem_bytes(R),
+// survivors a power of two from max(K, kSortMin) to kSelectMaxKeys and
+// select_smem = select_smem_bytes(survivors). Anything else returns
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int pio_topk_select(const void* q, const void* items, const void* excl,
+                               int B, int N, int R, int E, int K, int n_tiles,
+                               int T, int n_runs, int ld, int score_smem,
+                               int select_smem, int survivors, void* scores,
+                               void* hist, void* out_s, void* out_i,
+                               void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || N < 1 || R < 1 || E < 0 || K < 1 || K > N || N > kMaxK ||
+      K > kSelectMaxKeys || n_tiles != (N + kTileItems - 1) / kTileItems ||
+      T < 1 || T > n_tiles || n_runs != (n_tiles + T - 1) / T ||
+      (T % kStepTiles != 0 && T != n_tiles) ||
+      ld != ((N + 3) & ~3) || B > kTileQueries * 65535 ||
+      (E > 0 && excl == nullptr) || score_smem != select_score_smem_bytes(R) ||
+      score_smem > kMaxSmem || survivors < K || survivors < kSortMin ||
+      survivors > kSelectMaxKeys || (survivors & (survivors - 1)) != 0 ||
+      select_smem != select_smem_bytes(survivors) ||
+      reinterpret_cast<size_t>(scores) % 16 != 0) {
+    return invalid;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(hist, 0, (size_t)B * kSelectBins * sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_shared_memory(topk_select_score_kernel, score_smem, g_select_score_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid1(n_runs, (B + kTileQueries - 1) / kTileQueries);
+  topk_select_score_kernel<<<grid1, kTileItems, score_smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(items),
+      static_cast<const int*>(excl), B, N, R, E, n_tiles, T, ld,
+      static_cast<float*>(scores), static_cast<unsigned*>(hist));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_shared_memory(topk_select_kernel, select_smem, g_select_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_select_kernel<<<B, kSelectThreads, select_smem, s>>>(
+      static_cast<const float*>(scores), static_cast<const unsigned*>(hist), N, ld,
+      K, survivors, static_cast<float*>(out_s), static_cast<int*>(out_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // cudaFuncGetAttributes of every kernel here, in this order: topk_run_kernel,
 // topk_run_tiled_kernel, topk_tile_kernel, topk_merge_kernel,
-// topk_merge_round_kernel, topk_store_kernel; three ints each (registers a
-// thread, local bytes a thread, static shared bytes).
+// topk_merge_round_kernel, topk_store_kernel, topk_select_score_kernel,
+// topk_select_kernel; three ints each (registers a thread, local bytes a
+// thread, static shared bytes).
 extern "C" int pio_topk_streaming_attrs(int* out) {
   const void* kernels[] = {
       reinterpret_cast<const void*>(topk_run_kernel),
@@ -1418,6 +2004,8 @@ extern "C" int pio_topk_streaming_attrs(int* out) {
       reinterpret_cast<const void*>(topk_merge_kernel),
       reinterpret_cast<const void*>(topk_merge_round_kernel),
       reinterpret_cast<const void*>(topk_store_kernel),
+      reinterpret_cast<const void*>(topk_select_score_kernel),
+      reinterpret_cast<const void*>(topk_select_kernel),
   };
   int i = 0;
   for (const void* k : kernels) {

@@ -45,10 +45,13 @@ TOPK_MAX_K = 1 << 29
 TOPK_RUN_MAX_KT = 256
 #: stage 1's kernels by the name a plan gives them (the C entry's ``stage1``
 #: code is the index): the per-tile sort (``topk_tile_kernel``), the running
-#: list with one item a thread (``topk_run_kernel``) and the running list
+#: list with one item a thread (``topk_run_kernel``), the running list
 #: with a register tile of 4 items x 8 queries a thread
-#: (``topk_run_tiled_kernel``)
-TOPK_STAGE1 = ("tile_sort", "running_list", "running_list_tiled")
+#: (``topk_run_tiled_kernel``) and the threshold select
+#: (``topk_select_score_kernel``, then ``topk_select_kernel``: every score
+#: stored and counted in a histogram, then a block a query sorts only the
+#: keys at or above the k-th key's bin; its own C entry, ``pio_topk_select``)
+TOPK_STAGE1 = ("tile_sort", "running_list", "running_list_tiled", "select")
 #: the plan's own pick: ``running_list`` for k up to this, the tiled
 #: running list above it up to :data:`TOPK_RUN_MAX_KT`
 TOPK_RUN_NARROW_MAX_K = 128
@@ -80,6 +83,22 @@ TOPK_MAX_ITEMS = 1 << 29
 #: launch takes at most this many queries; a larger batch is cut into
 #: consecutive slices of at most this many (:func:`topk_batch_slices`)
 TOPK_MAX_BATCH = TOPK_TILE_QUERIES * 65535
+#: the select path's histogram: a query's order keys counted by their top
+#: 11 bits (kSelectBins), then, in its boundary bin, by the next 11 and the
+#: last 10
+TOPK_SELECT_BINS = 2048
+#: the select path's scoring blocks an SM (kSelectScoreBlocksPerSm, its
+#: launch bound; its histogram's shared memory allows no more)
+TOPK_SELECT_BLOCKS_PER_SM = 2
+#: the select path's smallest survivor buffer
+TOPK_SELECT_MIN_SURVIVORS = 2048
+#: threads of the select path's block a query (kSelectThreads)
+TOPK_SELECT_THREADS = 1024
+#: the select path sorts a query's survivors in one buffer of packed 8-byte
+#: keys in shared memory, a power of two long: the longest whose keys and
+#: histogram fit :data:`TOPK_MAX_SMEM` (kSelectMaxKeys). The plan picks the
+#: path for 256 < k <= this; above it the per-tile sort answers.
+TOPK_SELECT_MAX_K = 16384
 #: the most scratch one launch may allocate on the card: its stage-1 lists
 #: (8 bytes a key) and, when the merge runs in device memory, their second
 #: copy. A slice is cut to stay within it, but never below one query tile.
@@ -96,11 +115,18 @@ class TopkPlan(NamedTuple):
     n_runs: int  #: lists per query that stage 1 writes, ceil(n_tiles / T)
     query_tile: int  #: queries per stage-1 block
     n_query_tiles: int
-    scratch_shape: Tuple[int, int, int]  #: [B, n_runs, kt], scores and ids
+    #: [B, n_runs, kt], scores and ids; on the select path [B, 1, row]: a
+    #: query's scores (N rounded up to 4) and its TOPK_SELECT_BINS counts
+    scratch_shape: Tuple[int, int, int]
     stage1: str  #: the stage-1 kernel, one of :data:`TOPK_STAGE1`
     stage1_smem: int  #: bytes; 0 = the per-tile kernel (static memory)
-    merge_smem: int  #: bytes; 0 = the rounds run between two scratches
-    merge_threads: int  #: threads of the shared-memory merge's block
+    #: bytes; 0 = the rounds run between two scratches. On the select path
+    #: the select kernel's (survivor keys and a histogram)
+    merge_smem: int
+    merge_threads: int  #: threads of the shared-memory merge's (or select's) block
+    #: the select path: keys a query's block can hold and sort; a boundary
+    #: bin whose keys do not fit is refined on the next bits (0 elsewhere)
+    survivors: int = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -130,6 +156,42 @@ def topk_run_tiled_smem(rank: int, kt: int) -> int:
                 + 2 * TOPK_TILE_QUERIES * TOPK_PEND_MAX)
 
 
+def topk_select_score_smem(rank: int) -> int:
+    """``topk_select_score_kernel``'s dynamic shared memory
+    (select_score_smem_bytes in the .cu): q rows, the step's rank chunk
+    (the tiled running list's, :data:`TOPK_TILED_CHUNK` rows of
+    :data:`TOPK_STEP_STRIDE` floats), a histogram of
+    :data:`TOPK_SELECT_BINS` counts for each of the block's queries and a
+    step's exclusion bits."""
+    return 4 * (TOPK_TILE_QUERIES * rank + TOPK_TILED_CHUNK * TOPK_STEP_STRIDE
+                + TOPK_TILE_QUERIES * TOPK_SELECT_BINS
+                + TOPK_TILE_QUERIES * (TOPK_STEP_TILES * TOPK_TILE_ITEMS // 32))
+
+
+def topk_select_survivors(k_eff: int) -> int:
+    """Keys the select kernel's block holds and sorts for one query: the
+    bitonic network's length for k keys, the power of two at or above k,
+    and 2,048 at least. Keys from the boundary bin up that do not fit are
+    counted again on the next bits: at k = 4,096 those passes over the
+    query's scores cost less than sorting twice as many keys; up to k =
+    1,024 the boundary bin's keys beside the k above it fit 2,048 without
+    a pass (measured on the card: PERF.md)."""
+    return max(TOPK_SELECT_MIN_SURVIVORS, 1 << (k_eff - 1).bit_length())
+
+
+def topk_select_smem(survivors: int) -> int:
+    """``topk_select_kernel``'s (select_smem_bytes in the .cu): the
+    survivors as packed 8-byte keys, one histogram and 64 ints of block
+    scan and counters."""
+    return 8 * survivors + 4 * (TOPK_SELECT_BINS + 64)
+
+
+def topk_select_row(n_items: int) -> int:
+    """Floats of a query's select scratch: its scores, N rounded up to 4
+    (16-byte stores and loads), then its histogram."""
+    return 4 * _cdiv(n_items, 4) + TOPK_SELECT_BINS
+
+
 @functools.lru_cache(maxsize=256)
 def topk_launch_plan(b: int, n_items: int, k_eff: int, sm_count: int,
                      rank: int, stage1: Optional[str] = None) -> TopkPlan:
@@ -146,15 +208,22 @@ def topk_launch_plan(b: int, n_items: int, k_eff: int, sm_count: int,
     item tile) fits the card in one wave (the blocks an SM holds at once:
     :data:`TOPK_BLOCKS_PER_SM`, or :data:`TOPK_TILED_BLOCKS_PER_SM`, or
     fewer by their shared memory), and grows with the batch beyond that;
-    the runs are then evened out, and the tiled kernel's T is rounded up
-    to whole steps of :data:`TOPK_STEP_TILES` tiles (or the whole
-    catalog). For k above :data:`TOPK_RUN_MAX_KT`, or a rank whose q rows
-    do not fit in shared memory, stage 1 sorts every tile (``tile_sort``,
-    T = 1). ``stage1`` names the kernel instead of the plan's pick (any
-    of them takes k up to :data:`TOPK_RUN_MAX_KT`); it raises where that
-    kernel cannot run. The merge rounds run in shared memory when two
-    copies of a query's lists fit, else between the scratch and a second
-    one."""
+    the runs are then evened out, and the tiled kernel's (and the select
+    path's) T is rounded up to whole steps of :data:`TOPK_STEP_TILES`
+    tiles (or the whole catalog). For 256 < k <=
+    :data:`TOPK_SELECT_MAX_K` the plan picks the threshold select
+    (``select``): its scoring blocks walk runs of T tiles as the tiled
+    running list does, store every score and count it, and one block of
+    :data:`TOPK_SELECT_THREADS` a query then sorts only the keys from the
+    k-th key's bin up (``survivors`` of them at most,
+    :func:`topk_select_survivors`; ``merge_smem`` and ``merge_threads``
+    are that block's). Above it, or for a rank whose q rows do not fit in
+    shared memory, stage 1 sorts every tile (``tile_sort``, T = 1).
+    ``stage1`` names the kernel instead of the plan's pick (the running
+    lists take k up to :data:`TOPK_RUN_MAX_KT`, the select path up to
+    :data:`TOPK_SELECT_MAX_K`); it raises where that kernel cannot run.
+    The merge rounds run in shared memory when two copies of a query's
+    lists fit, else between the scratch and a second one."""
     if min(b, n_items, k_eff, sm_count, rank) < 1 or k_eff > n_items:
         raise ValueError(
             f"no launch plan for b={b}, n_items={n_items}, k_eff={k_eff}, "
@@ -164,29 +233,42 @@ def topk_launch_plan(b: int, n_items: int, k_eff: int, sm_count: int,
     n_tiles = _cdiv(n_items, TOPK_TILE_ITEMS)
     n_query_tiles = _cdiv(b, TOPK_TILE_QUERIES)
     smem = {"running_list": topk_run_smem(rank, kt),
-            "running_list_tiled": topk_run_tiled_smem(rank, kt)}
+            "running_list_tiled": topk_run_tiled_smem(rank, kt),
+            "select": topk_select_score_smem(rank)}
+    max_k = {"tile_sort": TOPK_MAX_K, "running_list": TOPK_RUN_MAX_KT,
+             "running_list_tiled": TOPK_RUN_MAX_KT, "select": TOPK_SELECT_MAX_K}
     if stage1 is None:
-        stage1 = ("tile_sort" if k_eff > TOPK_RUN_MAX_KT
-                  else "running_list" if k_eff <= TOPK_RUN_NARROW_MAX_K
-                  else "running_list_tiled")
+        stage1 = ("running_list" if k_eff <= TOPK_RUN_NARROW_MAX_K
+                  else "running_list_tiled" if k_eff <= TOPK_RUN_MAX_KT
+                  else "select" if k_eff <= TOPK_SELECT_MAX_K else "tile_sort")
         if stage1 != "tile_sort" and smem[stage1] > TOPK_MAX_SMEM:
             stage1 = "tile_sort"
-    elif stage1 not in TOPK_STAGE1 or (stage1 != "tile_sort" and (
-            k_eff > TOPK_RUN_MAX_KT or smem[stage1] > TOPK_MAX_SMEM)):
+    elif stage1 not in TOPK_STAGE1 or k_eff > max_k[stage1] or (
+            stage1 != "tile_sort" and smem[stage1] > TOPK_MAX_SMEM):
         raise ValueError(f"stage 1 {stage1!r} cannot take k={k_eff} at rank {rank}")
     if stage1 == "tile_sort":
         stage1_smem, tiles_per_block, n_runs = 0, 1, n_tiles
     else:
         stage1_smem = smem[stage1]
-        per_sm = TOPK_BLOCKS_PER_SM if stage1 == "running_list" else TOPK_TILED_BLOCKS_PER_SM
+        per_sm = {"running_list": TOPK_BLOCKS_PER_SM,
+                  "running_list_tiled": TOPK_TILED_BLOCKS_PER_SM,
+                  "select": TOPK_SELECT_BLOCKS_PER_SM}[stage1]
         # as many runs as fit the card in one wave of blocks, evened out
         resident = min(per_sm, TOPK_SM_SMEM // (stage1_smem + TOPK_BLOCK_SMEM_RESERVE))
         n_runs = (resident * sm_count) // n_query_tiles
         tiles_per_block = _cdiv(n_tiles, min(max(1, n_runs), n_tiles))
-        if stage1 == "running_list_tiled":  # whole steps, or the whole catalog
+        if stage1 != "running_list":  # whole steps, or the whole catalog
             tiles_per_block = min(n_tiles, _cdiv(tiles_per_block, TOPK_STEP_TILES)
                                   * TOPK_STEP_TILES)
         n_runs = _cdiv(n_tiles, tiles_per_block)
+    if stage1 == "select":
+        survivors = topk_select_survivors(k_eff)
+        return TopkPlan(
+            kt=kt, n_tiles=n_tiles, tiles_per_block=tiles_per_block, n_runs=n_runs,
+            query_tile=TOPK_TILE_QUERIES, n_query_tiles=n_query_tiles,
+            scratch_shape=(b, 1, topk_select_row(n_items)), stage1=stage1,
+            stage1_smem=stage1_smem, merge_smem=topk_select_smem(survivors),
+            merge_threads=TOPK_SELECT_THREADS, survivors=survivors)
     keys = n_runs * kt
     merge_smem = 16 * keys if 16 * keys <= TOPK_MAX_SMEM else 0
     return TopkPlan(
@@ -227,6 +309,7 @@ _ATTRS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
 #: resident attention path and the ``cudaFuncGetAttributes`` reports
 _EXTRA_ENTRIES = {
     "topk_streaming": {
+        "pio_topk_select": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 5,
         "pio_topk_streaming_attrs": _ATTRS_ARGTYPES,
         "pio_topk_streaming_occupancy": [ctypes.c_int, ctypes.c_int,
                                          ctypes.POINTER(ctypes.c_int)],
@@ -344,8 +427,12 @@ def top_k_streaming_reference(
 def topk_scratch_bytes(plan: TopkPlan) -> int:
     """Device memory the launch of ``plan`` allocates for its stage-1
     lists: scores and ids (8 bytes a key), twice when the merge rounds
-    run between two scratches (``merge_smem == 0``)."""
+    run between two scratches (``merge_smem == 0``). On the select path
+    a query's scores and histogram, 4 bytes each (:func:`topk_select_row`:
+    about 4·N bytes a query); its survivors stay in shared memory."""
     b, n_runs, kt = plan.scratch_shape
+    if plan.stage1 == "select":
+        return 4 * b * n_runs * kt
     return b * n_runs * kt * (16 if plan.merge_smem == 0 else 8)
 
 
@@ -366,9 +453,12 @@ def topk_batch_slices(b: int, max_batch: int = TOPK_MAX_BATCH, *,
     :data:`TOPK_TILE_QUERIES` rows, whatever one query's lists take. On
     a running list (k <= :data:`TOPK_RUN_MAX_KT`) a launch keeps about one
     wave of lists, far below the budget, so those plans keep the
-    ``max_batch`` ranges; the per-tile path (k above it, or forced) keeps
-    every tile's list, about 8·N bytes a query (16·N with the merge in
-    device memory), and is cut. Pure arithmetic."""
+    ``max_batch`` ranges; the select path (256 < k <=
+    :data:`TOPK_SELECT_MAX_K`) keeps every score and a histogram, about
+    4·N + 8 KB a query, and is cut past about 18,500 queries on 27,000
+    items; the per-tile path (above it, or forced) keeps every tile's
+    list, about 8·N bytes a query (16·N with the merge in device memory),
+    and is cut sooner. Pure arithmetic."""
     if b < 0 or max_batch < 1:
         raise ValueError(f"no batch slices for b={b}, max_batch={max_batch}")
     rows = max_batch
@@ -460,6 +550,10 @@ def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i,
     e = 0 if exclude_idx is None else exclude_idx.shape[1]
     index = device.index if device.index is not None else torch.cuda.current_device()
     plan = topk_launch_plan(b, n_items, k_eff, _sm_count(index), r, stage1)
+    lib = _configured("topk_streaming", _TOPK_ARGTYPES)
+    if plan.stage1 == "select":
+        _topk_select_slice(lib, plan, q, item_factors, k_eff, exclude_idx, e, out_s, out_i)
+        return
     # one allocation: scores and ids of the stage-1 lists, and a second
     # copy of both when the merge rounds do not fit in shared memory
     keys = b * plan.n_runs * plan.kt
@@ -468,7 +562,6 @@ def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i,
     )
     base, step = scratch.data_ptr(), 4 * keys
     alt = (base + 2 * step, base + 3 * step) if plan.merge_smem == 0 else (None, None)
-    lib = _configured("topk_streaming", _TOPK_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.pio_topk_streaming(
@@ -481,16 +574,44 @@ def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i,
             out_s.data_ptr(), out_i.data_ptr(), stream,
         )
     top_k_streaming.launches += 1
+    top_k_streaming.launches_by_stage1[plan.stage1] += 1
     _raise_on_error(lib, "topk_streaming", code)
 
 
-#: kernel launches since the count was last reset (CUDA tensors only)
+def _topk_select_slice(lib, plan, q, item_factors, k_eff, exclude_idx, e, out_s,
+                       out_i) -> None:
+    """One launch of the select path (``pio_topk_select``): its scratch
+    is a query's scores and histogram (:func:`topk_select_row`), one
+    allocation; it raises if the launch fails."""
+    b, r = q.shape
+    n_items = item_factors.shape[0]
+    row = plan.scratch_shape[2]
+    ld = row - TOPK_SELECT_BINS
+    scratch = torch.empty((b, row), dtype=torch.float32, device=q.device)
+    base = scratch.data_ptr()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.pio_topk_select(
+            q.data_ptr(), item_factors.data_ptr(),
+            exclude_idx.data_ptr() if e else None,
+            b, n_items, r, e, k_eff, plan.n_tiles, plan.tiles_per_block, plan.n_runs,
+            ld, plan.stage1_smem, plan.merge_smem, plan.survivors,
+            base, base + 4 * b * ld, out_s.data_ptr(), out_i.data_ptr(), stream,
+        )
+    top_k_streaming.launches += 1
+    top_k_streaming.launches_by_stage1["select"] += 1
+    _raise_on_error(lib, "topk_select", code)
+
+
+#: kernel launches since the count was last reset (CUDA tensors only), and
+#: the same launches by the plan's stage-1 kernel
 top_k_streaming.launches = 0
+top_k_streaming.launches_by_stage1 = dict.fromkeys(TOPK_STAGE1, 0)
 
 _TOPK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 7
 #: the kernels ``pio_topk_streaming_attrs`` reports on, in its order
 TOPK_KERNELS = ("running_list", "running_list_tiled", "tile_sort", "merge",
-                "merge_round", "store")
+                "merge_round", "store", "select_score", "select")
 
 
 def topk_blocks_per_sm(stage1: str, smem: int, device=None) -> int:

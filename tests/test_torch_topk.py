@@ -35,6 +35,7 @@ from predictionio_tpu_torch.ops.cuda_kernels import (
     TOPK_PEND_MAX,
     TOPK_RUN_MAX_KT,
     TOPK_RUN_NARROW_MAX_K,
+    TOPK_SELECT_MAX_K,
     TOPK_STAGE1,
     TOPK_STEP_STRIDE,
     TOPK_STEP_TILES,
@@ -48,6 +49,9 @@ from predictionio_tpu_torch.ops.cuda_kernels import (
     topk_batch_slices,
     topk_launch_plan,
     topk_scratch_bytes,
+    topk_select_row,
+    topk_select_score_smem,
+    topk_select_smem,
 )
 
 RTOL = ATOL = 1e-5
@@ -228,17 +232,23 @@ def test_launch_plan(b, k, n):
     assert (plan.n_runs - 1) * plan.tiles_per_block < plan.n_tiles
     assert plan.query_tile == TOPK_TILE_QUERIES
     assert plan.n_query_tiles == -(-b // TOPK_TILE_QUERIES)
-    assert plan.scratch_shape == (b, plan.n_runs, plan.kt)
     assert 0 <= plan.stage1_smem <= TOPK_MAX_SMEM
     assert 0 <= plan.merge_smem <= TOPK_MAX_SMEM
-    keys = plan.n_runs * plan.kt
-    assert plan.merge_smem in (0, 16 * keys)
-    # the merge leaves shared memory only when two copies do not fit
-    assert (plan.merge_smem == 0) == (16 * keys > TOPK_MAX_SMEM)
-    assert plan.merge_threads == (64 if keys <= 128 else 256 if keys <= 1024 else 1024)
-    if k_eff > TOPK_RUN_MAX_KT:  # every tile sorted on its own
-        assert plan.stage1 == "tile_sort"
-        assert plan.stage1_smem == 0 and plan.tiles_per_block == 1
+    if plan.stage1 == "select":  # a row of scores and counts a query, no lists
+        assert plan.scratch_shape == (b, 1, topk_select_row(n))
+        assert k_eff <= plan.survivors <= TOPK_SELECT_MAX_K
+        assert plan.merge_smem == topk_select_smem(plan.survivors)
+        assert plan.merge_threads == 1024
+    else:
+        assert plan.scratch_shape == (b, plan.n_runs, plan.kt)
+        keys = plan.n_runs * plan.kt
+        assert plan.merge_smem in (0, 16 * keys)
+        # the merge leaves shared memory only when two copies do not fit
+        assert (plan.merge_smem == 0) == (16 * keys > TOPK_MAX_SMEM)
+        assert plan.merge_threads == (64 if keys <= 128 else 256 if keys <= 1024 else 1024)
+    if k_eff > TOPK_RUN_MAX_KT:  # the threshold select up to its ceiling
+        assert plan.stage1 == "select" and k_eff <= TOPK_SELECT_MAX_K
+        assert plan.stage1_smem == topk_select_score_smem(PLAN_RANK)
     elif k_eff <= TOPK_RUN_NARROW_MAX_K:  # one item a thread
         assert plan.stage1 == "running_list"
         assert plan.stage1_smem == _run_smem(plan.kt)
@@ -249,9 +259,9 @@ def test_launch_plan(b, k, n):
         assert (plan.tiles_per_block % TOPK_STEP_TILES == 0
                 or plan.tiles_per_block == plan.n_tiles)
     blocks = plan.n_runs * plan.n_query_tiles
-    # the blocks an SM holds at once: four (two for the tiled kernel) by
-    # their registers, fewer by their shared memory
-    per_sm = 2 if plan.stage1 == "running_list_tiled" else 4
+    # the blocks an SM holds at once: four (two for the tiled kernel and the
+    # select path's scoring) by their registers, fewer by their shared memory
+    per_sm = 2 if plan.stage1 in ("running_list_tiled", "select") else 4
     resident = min(per_sm, 233472 // (plan.stage1_smem + 1024))
     if plan.stage1 == "running_list_tiled":
         assert resident == 2  # at R = 50, by its shared memory as well
@@ -259,7 +269,8 @@ def test_launch_plan(b, k, n):
         # one block per (query tile, item tile) fits in one wave: one
         # tile a block, one step for the tiled kernel
         assert plan.tiles_per_block == (min(TOPK_STEP_TILES, plan.n_tiles)
-                                        if plan.stage1 == "running_list_tiled" else 1)
+                                        if plan.stage1 in ("running_list_tiled", "select")
+                                        else 1)
     elif plan.stage1_smem:
         # runs grow with the batch: one wave of blocks, or one run a query
         assert plan.tiles_per_block > 1
@@ -305,7 +316,7 @@ def test_a_forced_stage1_kernel_is_planned_or_refused():
         if stage1 == "running_list_tiled":
             assert plan.tiles_per_block % TOPK_STEP_TILES == 0
     # the running lists keep k keys a run: none above 256
-    for stage1 in TOPK_STAGE1[1:]:
+    for stage1 in ("running_list", "running_list_tiled"):
         with pytest.raises(ValueError):
             topk_launch_plan(64, 27000, 257, PLAN_SMS, PLAN_RANK, stage1)
     with pytest.raises(ValueError):
@@ -675,7 +686,12 @@ def _selection_case(name):
 #: cases whose stage-1 kernel is forced, not the plan's pick
 _FORCED_STAGE1 = {"k200_per_tile_sort": "tile_sort",
                   "k256_running_list_forced": "running_list",
-                  "k16_tiled_forced": "running_list_tiled"}
+                  "k16_tiled_forced": "running_list_tiled",
+                  # the per-tile sort and its tree merge, which the select
+                  # path (the plan's pick for these k) is held to on the card
+                  "k300_lists_grow_in_the_merge": "tile_sort",
+                  "k4096_merge_in_shared_memory": "tile_sort",
+                  "k_equals_catalog_merge_in_device_memory": "tile_sort"}
 
 
 @pytest.mark.parametrize("name", [
@@ -813,16 +829,20 @@ def test_plans_that_ran_before_keep_their_slices(b, n, r, k):
     (9, 27000, 27000), (17, 1 << 22, 300),
 ])
 def test_per_tile_plans_are_cut_to_the_scratch_budget(b, n, k):
-    got = topk_batch_slices(b, n_items=n, k_eff=k, rank=50, sm_count=SLICE_SMS)
+    # below the select path's ceiling the per-tile sort is forced, as the
+    # card's checks force it
+    stage1 = "tile_sort"
+    got = topk_batch_slices(b, n_items=n, k_eff=k, rank=50, sm_count=SLICE_SMS,
+                            stage1=stage1)
     _slices_cover(got, b)
     assert {stop - start for start, stop in got[:-1]} <= {got[0][1]}  # equal but the last
     for start, stop in got:
-        plan = topk_launch_plan(stop - start, n, k, SLICE_SMS, 50)
+        plan = topk_launch_plan(stop - start, n, k, SLICE_SMS, 50, stage1)
         assert plan.stage1_smem == 0
         assert topk_scratch_bytes(plan) <= TOPK_MAX_SCRATCH_BYTES
     rows = got[0][1]
     assert rows % TOPK_TILE_QUERIES == 0 or rows == b
-    per_query = topk_scratch_bytes(topk_launch_plan(8, n, k, SLICE_SMS, 50)) // 8
+    per_query = topk_scratch_bytes(topk_launch_plan(8, n, k, SLICE_SMS, 50, stage1)) // 8
     if rows < b:  # the budget binds: as many query tiles as fit it, no fewer
         assert (rows + TOPK_TILE_QUERIES) * per_query > TOPK_MAX_SCRATCH_BYTES
     if (n, k) == (27000, 27000):
@@ -903,7 +923,8 @@ def test_the_c_entry_and_the_plan_agree_on_the_running_lists():
     assert env["kTiledSparseMax"] == TOPK_TILED_SPARSE_MAX == 2 * SPARSE_MAX
     assert env["kPendMax"] == TOPK_PEND_MAX == 2 * TOPK_TILED_SPARSE_MAX
     assert [env[f"kStage1{n}"] for n in ("TileSort", "Run", "RunTiled")] == [0, 1, 2]
-    assert TOPK_STAGE1 == ("tile_sort", "running_list", "running_list_tiled")
+    # the select path has its own C entry (pio_topk_select), no stage-1 code
+    assert TOPK_STAGE1 == ("tile_sort", "running_list", "running_list_tiled", "select")
     for fn, plan_name in (("run_smem_bytes", "running_list"),
                           ("run_tiled_smem_bytes", "running_list_tiled")):
         body = re.search(fn + r"\(int R, int kt\) \{\s*return ([^;]+);", src).group(1)
