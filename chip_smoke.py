@@ -3748,22 +3748,26 @@ def wide_spd_systems(torch, gen, dev, bsz: int, n: int, k: int):
 
 
 def gramian_wide_case(torch, dev, gen, sm: int, b: int, k: int, n: int, r: int):
-    """One bucket of the build's general-rank path (``b`` rows of width
-    ``k`` over an ``[n, r]`` table) as training launches it, in the row
-    slices the systems budget cuts: held to the plain version on its first
-    WIDE_CHECK_ROWS rows, timed whole (events and device) beside the bound,
-    and the check rows alone beside the plain version and the library call;
-    the library call also over the whole bucket in slices of the check
-    rows, their times summed. Returns (the case's line, whether it held)."""
+    """One bucket of the build above rank 128 (``b`` rows of width ``k``
+    over an ``[n, r]`` table) as training launches it, in the row slices the
+    systems budget cuts: on its first WIDE_CHECK_ROWS rows held to the plain
+    version, to a second call, and (on the rows path) ``torch.equal`` to PR
+    12's tile kernel at the rows plan's chunks; the whole bucket timed
+    (events and device) on its plan's path and, on the same tensors, on the
+    tile kernel's own plan (rows, tile, tile, rows) beside the bound; the
+    check rows alone beside the plain version and the library call, and the
+    library call over the whole bucket in slices of the check rows, their
+    times summed. Returns (the case's line, whether it held)."""
     from predictionio_tpu_torch.ops import cuda_kernels as ck
     from predictionio_tpu_torch.ops.cuda_kernels import gramian_fused, gramian_fused_reference
 
     y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, b, k, n, r)
     slices = ck.gramian_row_slices(b, k, r, sm)
 
-    def whole():
+    def whole(tile=False):
         for s0, s1 in slices:
-            gramian_fused(y, idx[s0:s1], w2[s0:s1], rhs[s0:s1], ridge[s0:s1])
+            plan = ck.gramian_wide_launch_plan(s1 - s0, k, r, sm) if tile else None
+            gramian_fused(y, idx[s0:s1], w2[s0:s1], rhs[s0:s1], ridge[s0:s1], plan=plan)
 
     before = gramian_fused.launches
     whole()
@@ -3771,6 +3775,7 @@ def gramian_wide_case(torch, dev, gen, sm: int, b: int, k: int, n: int, r: int):
     launches = gramian_fused.launches - before
     rows = min(b, WIDE_CHECK_ROWS)
     part = (y, idx[:rows], w2[:rows], rhs[:rows], ridge[:rows])
+    plan = ck.gramian_plan(rows, k, r, sm)
     a_k, b_k = gramian_fused(*part)
     a_2, b_2 = gramian_fused(*part)
     a_p, b_p = gramian_fused_reference(*part)
@@ -3780,53 +3785,233 @@ def gramian_wide_case(torch, dev, gen, sm: int, b: int, k: int, n: int, r: int):
               and torch.equal(a_k, a_k.transpose(1, 2)))
     same = bool(torch.equal(a_k, a_2) and torch.equal(b_k, b_2))
     err = max(float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max()))
-    del a_k, b_k, a_2, b_2, a_p, b_p
+    del a_2, b_2, a_p, b_p
+    tile_bits = None
+    if plan.path == "rows":  # PR 12's tile kernel at the same chunks
+        at_kc = ck.gramian_wide_launch_plan(rows, k, r, sm, chunk=plan.chunk)
+        a_t, b_t = gramian_fused(*part, plan=at_kc)
+        tile_bits = bool(torch.equal(a_k, a_t) and torch.equal(b_k, b_t))
+        del a_t, b_t
+    del a_k, b_k
     valid = int(w2.sum())
-    plan = ck.gramian_plan(slices[0][1] - slices[0][0], k, r, sm)
+    first = ck.gramian_plan(slices[0][1] - slices[0][0], k, r, sm)
+    tile = ck.gramian_wide_launch_plan(slices[0][1] - slices[0][0], k, r, sm)
     out = {"B": b, "K": k, "N": n, "slices": len(slices),
            "launches": launches, "check_rows": rows,
-           "plan": {"path": plan.path, "tiles": plan.tiles, "kc": plan.chunk,
-                    "S": plan.n_chunks, "blocks": plan.blocks,
-                    "blocks_per_sm": plan.blocks_per_sm},
-           "max_abs_err": err, "symmetric": ok, "bit_identical": same}
-    out["kernel_ms"] = time_ms(torch, whole, 2, 1)
-    out["kernel_device_ms"] = traced_device_ms(
-        torch, whole, 2, len(slices) * (2 if plan.n_chunks > 1 else 1))
+           "plan": {"path": first.path, "tiles": first.tiles, "threads": first.threads,
+                    "kc": first.chunk, "S": first.n_chunks, "blocks": first.blocks,
+                    "smem": first.chunk_smem, "blocks_per_sm": first.blocks_per_sm},
+           "earlier_plan": {"tiles": tile.tiles, "kc": tile.chunk, "S": tile.n_chunks,
+                            "blocks": tile.blocks},
+           "max_abs_err": err, "symmetric": ok, "bit_identical": same,
+           "equal_to_tile_kernel_at_kc": tile_bits}
+    ops = len(slices) * (2 if first.n_chunks > 1 else 1)
+    tile_ops = len(slices) * (2 if tile.n_chunks > 1 else 1)
+    kernel, earlier = whole, lambda: whole(tile=True)
+    if first.path == "rows":
+        abba = [time_ms(torch, kernel, 2, 1), time_ms(torch, earlier, 2, 1),
+                time_ms(torch, earlier, 2, 1), time_ms(torch, kernel, 2, 1)]
+        out["abba_ms"] = abba
+        out["kernel_ms"], out["earlier_kernel_ms"] = (abba[0] + abba[3]) / 2, (abba[1] + abba[2]) / 2
+        dev_abba = [traced_device_ms(torch, kernel, 2, ops),
+                    traced_device_ms(torch, earlier, 2, tile_ops),
+                    traced_device_ms(torch, earlier, 2, tile_ops),
+                    traced_device_ms(torch, kernel, 2, ops)]
+        out["abba_device_ms"] = dev_abba
+        pairs = ((dev_abba[0], dev_abba[3]), (dev_abba[1], dev_abba[2]))
+        out["kernel_device_ms"], out["earlier_kernel_device_ms"] = (
+            None if None in pair else (pair[0] + pair[1]) / 2 for pair in pairs)
+    else:
+        out["kernel_ms"] = time_ms(torch, kernel, 2, 1)
+        out["kernel_device_ms"] = traced_device_ms(torch, kernel, 2, ops)
     bound_ms, out["bound_by"] = gramian_bound(b, k, n, r, valid, False)
     out["bound_us"] = bound_ms * 1e3
+    for key in ("kernel", "earlier_kernel"):
+        if out.get(f"{key}_device_ms"):
+            out[f"{key}_device_over_bound"] = out[f"{key}_device_ms"] / bound_ms
+    if out.get("kernel_device_ms") and out.get("earlier_kernel_device_ms"):
+        out["device_over_earlier_kernel"] = out["kernel_device_ms"] / out["earlier_kernel_device_ms"]
     # the check rows alone: kernel, plain and library on the same inputs
     sub_valid = int(w2[:rows].sum())
     out["rows_kernel_ms"] = time_ms(torch, lambda: gramian_fused(*part), 3, 1)
     out["rows_plain_ms"] = time_ms(torch, lambda: gramian_fused_reference(*part), 2, 1)
     out["rows_library_ms"] = time_ms(
         torch, lambda: _gramian_library(torch, *part[:4]), 2, 1)
-    out["rows_bound_us"] = gramian_bound(rows, k, n, r, sub_valid, False)[0] * 1e3
+    rows_bound_ms, out["rows_bound_by"] = gramian_bound(rows, k, n, r, sub_valid, False)
+    out["rows_bound_us"] = rows_bound_ms * 1e3
     # the library over the whole bucket: its time in slices of the check rows, summed
     out["library_ms"] = sum(time_ms(torch, lambda s0=s0: _gramian_library(
         torch, y, idx[s0:s0 + rows], w2[s0:s0 + rows], rhs[s0:s0 + rows]), 2, 1)
         for s0 in range(0, b, rows))
     del y, idx, w2, rhs, ridge
     torch.cuda.empty_cache()
-    return out, ok and same and launches == len(slices)
+    held = ok and same and launches == len(slices) and tile_bits is not False
+    return out, held
 
 
-def gramian_wide_variants(torch, dev, seed: int = 0,
-                          cases=(("by_user", 200), ("by_item", 129), ("by_item", 256))) -> None:
-    """The build's general-rank path alone at some of ``wide_kernels``'
-    buckets (side, rank): the same tensors from the same seed, a fresh
-    process's traces. Builds only the build's library."""
+def gramian_wide_variants(torch, dev, seed: int = 0, cases=None) -> None:
+    """The build above rank 128 alone at ``wide_kernels``' buckets (side,
+    rank; default all six): the kernels' attributes, then each case, the
+    same tensors from the same seed as ``wide_kernels``, a fresh process's
+    traces. Builds only the build's library. To compare two trees in one
+    call, unpack the other under ``chip_compare/`` (gitignored) and run
+    this in each."""
     from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
 
     build.build_all(["gramian_fused"])
+    emit({"phase": "gramian_wide_variant", "tree": os.path.basename(os.getcwd()),
+          "attributes": ck.gramian_kernel_attributes(dev)})
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(seed + 21)
     for r in WIDE_RANKS:
         for side, b, k, n in WIDE_BUCKETS:
-            if (side, r) not in cases:  # the same draws, so each case's tensors are wide_kernels'
+            if cases is not None and (side, r) not in cases:  # the same draws as wide_kernels'
                 wide_bucket(torch, gen, dev, b, k, n, r)
                 continue
             out, ok = gramian_wide_case(torch, dev, gen, sm, b, k, n, r)
             emit({"phase": "gramian_wide_variant", "case": f"{side}_R{r}", "held": ok, **out})
+
+
+#: where the rows path's time goes: each entry cuts one phase of
+#: gramian_rows_kernel by replacing text of the .cu (every occurrence; the
+#: strings are markers a refactor must keep): the row copies, the FMAs of the
+#: tiles of A with their shared loads, and the writes of A and b (the sums
+#: stay live behind a test no input passes)
+GRAMIAN_ROWS_PHASES = {
+    "gather": [("    const int m = s_m[p];\n    const int* js", "    const int m = 0;\n    const int* js")],
+    "fmas": [("for (int kk = 0; kk < m; ++kk, yi += RP, yj += RP) {",
+              "for (int kk = 0; kk < 0; ++kk, yi += RP, yj += RP) {")],
+    "stores": [("rows_store_tile(v, bi, bj, R, rdg, yty, a_row, vec);",
+                "if (v[0][0] == 1234.5f) rows_store_tile(v, bi, bj, R, rdg, yty, a_row, vec);"),
+               ("rows_put(b_out + row * R + ib * kRTile, v, R - ib * kRTile, vec);",
+                "if (v[0] == 1234.5f) rows_put(b_out + row * R + ib * kRTile, v, R - ib * kRTile, vec);")],
+}
+#: variants tried against the rows kernel in the same call, each held bit for
+#: bit: the two-step kernel copying the next step's rows only after this
+#: step's (no copy ahead), the 4 x 4 register tiles of stage 1, and the kk
+#: loop unrolled by 2. Each runs in the plan's shape; the whole kernel also
+#: runs in the other shape (two steps of rows at the fewest rounds, or one
+#: step at twice the rounds), as "other_shape"
+GRAMIAN_ROWS_TRIALS = {
+    "no_copy_ahead": [("rows_wait<1>();", "rows_wait<0>();")],
+    "tile4": [("constexpr int kRTile = 8;", "constexpr int kRTile = 4;"),
+              ("constexpr int kRMaxRounds = 4;", "constexpr int kRMaxRounds = 5;")],
+    "unroll2": [("#pragma unroll 1\n        for (int kk = 0; kk < m; ++kk, yi",
+                 "#pragma unroll 2\n        for (int kk = 0; kk < m; ++kk, yi")],
+}
+#: (case, rows, width, table rows, rank) of the knock-outs: part of the
+#: users' K = 128 bucket at each wide rank, and the items' split bucket
+GRAMIAN_ROWS_KNOCKOUT_SHAPES = tuple(
+    (f"users_R{r}", 16384, 128, N_ITEMS, r) for r in WIDE_RANKS) + (
+    ("items_R200", 216, 32768, N_USERS, 200),)
+
+
+def _ptxas_kernels(log: str) -> dict:
+    """``nvcc -Xptxas -v``'s registers and spill stores by entry function."""
+    import re
+
+    out = {}
+    for part in log.split("Compiling entry function")[1:]:
+        name = re.match(r"\s*'(\S+)'", part).group(1)
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out[name] = {"regs": int(regs.group(1)) if regs else None,
+                     "spill_stores": int(spill.group(1)) if spill else None}
+    return out
+
+
+def gramian_rows_knockouts(torch, dev, source: str = GRAMIAN_SOURCE,
+                           variants: dict = None, shapes=GRAMIAN_ROWS_KNOCKOUT_SHAPES) -> None:
+    """Where the rows path's time goes: ``source`` built as it is and once
+    for each of ``variants`` (default GRAMIAN_ROWS_PHASES and
+    GRAMIAN_ROWS_TRIALS), all with ``nvcc -Xptxas -v`` at once (each build's
+    registers and spills printed), then each launched through its own
+    ``pio_gramian_rows`` at ``shapes`` with the whole kernel's chunks (CUDA
+    events, and whether its answer equals the whole kernel's bit for bit).
+    A knock-out's time less the whole kernel's is what that phase costs
+    where nothing hides it; a trial's is what it would gain."""
+    import ctypes
+    import re
+
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    variants = variants or {**GRAMIAN_ROWS_PHASES, **GRAMIAN_ROWS_TRIALS}
+    text = open(source).read()
+    sources = {"whole": text}
+    for name, pairs in variants.items():
+        src = text
+        for old, new in pairs:
+            if old not in src:
+                raise AssertionError(f"variant {name}: {old!r} is not in {source}")
+            src = src.replace(old, new)
+        sources[name] = src
+    tmp = tempfile.mkdtemp(prefix="gramian_knockouts_")
+    procs = {}
+    for name, src in sources.items():
+        path = os.path.join(tmp, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"lib{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, shapes_of = {}, {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"variant {name} did not build: {log[-2000:]}")
+        emit({"phase": "gramian_rows_knockout", "variant": name, "ptxas": {
+            k: v for k, v in _ptxas_kernels(log).items() if "gramian_rows" in k}})
+        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
+        lib.pio_gramian_rows.argtypes = ck._EXTRA_ENTRIES["gramian_fused"]["pio_gramian_rows"]
+        libs[name] = lib
+        shapes_of[name] = tuple(int(re.search(rf"constexpr int {c} = (\d+);", sources[name]).group(1))
+                                for c in ("kRTile", "kRMaxRounds"))
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for case, b, k, n, r in shapes:
+        y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, b, k, n, r)
+        plan = ck.gramian_rows_launch_plan(b, k, r, sm)
+        a = torch.empty((b, r, r), dtype=torch.float32, device=dev)
+        bv = torch.empty((b, r), dtype=torch.float32, device=dev)
+        stages = plan.chunk_smem == ck.gramian_rows_smem(r, stages=1) and 1 or 2
+        times, same, ref = {}, {}, None
+        # each variant in the plan's shape; the whole kernel also in the other
+        runs = [(name, lib, stages) for name, lib in libs.items()] + [
+            ("other_shape", libs["whole"], 3 - stages)]
+        for name, lib, st in runs:
+            tile, max_rounds = shapes_of[name if name in shapes_of else "whole"]
+            rounds = -(-ck.gramian_rows_tiles(r, tile)[1] // ck.GRAMIAN_ROWS_MAX_THREADS)
+            part = (torch.empty((b, plan.n_chunks, ck.gramian_rows_partial(r, tile)),
+                                dtype=torch.float32, device=dev) if plan.n_chunks > 1 else None)
+            threads = ck.gramian_rows_threads(r, tile, min(rounds * (3 - st), max_rounds),
+                                              max_rounds)
+            smem = ck.gramian_rows_smem(r, tile, st)
+
+            def launch(lib=lib, part=part, name=name, threads=threads, smem=smem):
+                code = lib.pio_gramian_rows(
+                    y.data_ptr(), idx.data_ptr(), w2.data_ptr(), rhs.data_ptr(),
+                    ridge.data_ptr(), None, b, k, n, r, plan.chunk, plan.n_chunks,
+                    threads, smem, None if part is None else part.data_ptr(), a.data_ptr(),
+                    bv.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                if code:
+                    raise AssertionError(f"variant {name} failed to launch: {code}")
+            times[name] = time_ms(torch, launch, 3, 1)
+            if ref is None:
+                ref = (a.clone(), bv.clone())
+            else:
+                same[name] = bool(torch.equal(a, ref[0]) and torch.equal(bv, ref[1]))
+            del part
+        emit({"phase": "gramian_rows_knockout", "case": case, "B": b, "K": k, "R": r,
+              "kc": plan.chunk, "S": plan.n_chunks, "stages": stages, "threads": plan.threads,
+              "ms": times,
+              "phase_ms": {v: times["whole"] - t for v, t in times.items() if v != "whole"},
+              "equal_to_whole": same})
+        del y, idx, w2, rhs, ridge, a, bv, ref
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def spd_blocked_variants(torch, dev, seed: int = 0) -> None:
@@ -3951,8 +4136,9 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
     through ``plan=``) and within KERNEL_TOL of the plain version, then
     event and device times of the blocked kernel and ``cholesky_solve`` in
     the order A B B A after a warm-up, the wide kernel's and the plain
-    version's beside them; both sides of the blocked path's ceiling; the
-    zero-and-singular case; n = 400 on the wide path's scratch; and the
+    version's beside them; both sides of the blocked path's ceiling (above
+    it PR 12's wide kernel, timed against ``cholesky_solve`` A B B A beside
+    its bound and the plain version); the zero-and-singular case; n = 400 on the wide path's scratch; and the
     users' K = 128 bucket at rank 200, built by ``gramian_fused`` in
     ``gramian_row_slices``' slices as ALS builds it, solved slice by slice
     by each of the three."""
@@ -4020,11 +4206,32 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
         held("spd_solve", f"n{n}", out,
              ok and out["equal_to_wide_kernel"] and plan.path == "blocked")
         del a, b
-    # both sides of the blocked path's ceiling
+    # both sides of the blocked path's ceiling; above it PR 12's wide kernel
+    # is the path, timed beside its bound and the library call
     for n in (ck.SPD_BLOCKED_MAX_N, ck.SPD_BLOCKED_MAX_N + 1):
         a, b = spd_systems(WIDE_CEIL_B, n, 2 * n)
         out, ok, plan, _ = against_wide(a, b, n)
         blocked = n <= ck.SPD_BLOCKED_MAX_N
+        if not blocked:
+            kernel = lambda: spd_solve(a, b)  # noqa: E731
+            lib = lambda: library(a, b)  # noqa: E731
+            kernel(), lib()  # warm-up, then A B B A
+            abba = [time_ms(torch, kernel, 5, 1), time_ms(torch, lib, 3, 1),
+                    time_ms(torch, lib, 3, 1), time_ms(torch, kernel, 5, 1)]
+            dev_abba = [traced_device_ms(torch, kernel, 5), traced_device_ms(torch, lib, 3),
+                        traced_device_ms(torch, lib, 3), traced_device_ms(torch, kernel, 5)]
+            out["abba_ms"], out["abba_device_ms"] = abba, dev_abba
+            out["kernel_ms"], out["library_ms"] = (abba[0] + abba[3]) / 2, (abba[1] + abba[2]) / 2
+            pairs = ((dev_abba[0], dev_abba[3]), (dev_abba[1], dev_abba[2]))
+            out["kernel_device_ms"], out["library_device_ms"] = (
+                None if None in pair else (pair[0] + pair[1]) / 2 for pair in pairs)
+            out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 1, 1)
+            bound_ms, out["bound_by"] = spd_bound(WIDE_CEIL_B, n)
+            out["bound_us"] = bound_ms * 1e3
+            if out["kernel_device_ms"] is not None:
+                out["device_over_bound"] = out["kernel_device_ms"] / bound_ms
+                if out["library_device_ms"]:
+                    out["device_over_library"] = out["kernel_device_ms"] / out["library_device_ms"]
         held("spd_solve", f"n{n}_{plan.path}", out,
              ok and plan.path == ("blocked" if blocked else "wide")
              and (out["equal_to_wide_kernel"] or not blocked))
@@ -4119,7 +4326,7 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed + 21)
     spd_attrs = ck.spd_kernel_attributes(dev)
     attrs = {"gramian_fused": {k: v for k, v in ck.gramian_kernel_attributes(dev).items()
-                               if k.startswith("wide")},
+                               if k.startswith(("wide", "rows"))},
              "spd_solve": {k: spd_attrs[k] for k in ("blocked", "wide")},
              "flash_attention": ck.flash_wide_kernel_attributes(dev),
              "flash_attention_resident": ck.flash_resident_kernel_attributes(dev),
@@ -4128,7 +4335,10 @@ def wide_kernels(torch, dev, seed: int) -> dict:
             attrs["flash_attention"], *attrs["flash_attention_resident"].values(),
             attrs["flash_attention_streamed"]]
     emit({"phase": "wide", "attributes": attrs})
-    regs_ok = (all(a["regs"] <= ck.GRAMIAN_WIDE_REGS for a in attrs["gramian_fused"].values())
+    regs_ok = (all(attrs["gramian_fused"][k]["regs"] <= ck.GRAMIAN_WIDE_REGS
+                   for k in ("wide_one_pass", "wide_split"))
+               and all(attrs["gramian_fused"][k]["regs"] == regs
+                       for k, regs in ck.GRAMIAN_ROWS_REGS.items())
                and attrs["spd_solve"]["wide"]["regs"] <= ck.SPD_WIDE_REGS
                and attrs["spd_solve"]["blocked"]["regs"] == ck.SPD_BLOCKED_REGS
                and attrs["flash_attention"]["regs"] == ck.FLASH_WIDE_REGS
@@ -4155,17 +4365,25 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     # a bucket of a few rows is split into chunks and reduced in chunk order
     y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, 16, 8193, 5000, 200)
     w2[3], rhs[3], ridge[3] = 0.0, 0.0, 0.0
-    a_k, b_k = gramian_fused(y, idx, w2, rhs, ridge, y.T @ y)
-    a_p, b_p = gramian_fused_reference(y, idx, w2, rhs, ridge, y.T @ y)
+    yty = y.T @ y
+    a_k, b_k = gramian_fused(y, idx, w2, rhs, ridge, yty)
+    a_2, b_2 = gramian_fused(y, idx, w2, rhs, ridge, yty)
+    a_p, b_p = gramian_fused_reference(y, idx, w2, rhs, ridge, yty)
     plan = ck.gramian_plan(16, 8193, 200, sm)
+    a_t, b_t = gramian_fused(y, idx, w2, rhs, ridge, yty, plan=ck.gramian_wide_launch_plan(
+        16, 8193, 200, sm, chunk=plan.chunk))
+    tile_bits = bool(torch.equal(a_k, a_t) and torch.equal(b_k, b_t))
     ok = bool(torch.allclose(a_k, a_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
               and torch.allclose(b_k, b_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
               and torch.equal(a_k, a_k.transpose(1, 2)) and plan.n_chunks > 1
-              and torch.equal(b_k[3], torch.zeros_like(b_k[3])))
+              and torch.equal(b_k[3], torch.zeros_like(b_k[3])) and plan.path == "rows"
+              and torch.equal(a_k, a_2) and torch.equal(b_k, b_2) and tile_bits)
     held("gramian_fused", "split_R200_K8193", {
-        "S": plan.n_chunks, "kc": plan.chunk,
+        "path": plan.path, "S": plan.n_chunks, "kc": plan.chunk,
+        "equal_to_tile_kernel_at_kc": tile_bits,
         "max_abs_err": max(float((a_k - a_p).abs().max()), float((b_k - b_p).abs().max()))},
         ok)
+    del y, idx, w2, rhs, ridge, yty, a_k, b_k, a_2, b_2, a_p, b_p, a_t, b_t
 
     wide_spd_cases(torch, dev, gen, sm, held)
 
@@ -4532,6 +4750,7 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
         params = rec.ALSAlgorithmParams(rank=WIDE_ALS_RANK, num_iterations=PARITY_ITERS,
                                         lambda_=LAMBDA, seed=TRAIN_SEED)
         gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+        gramian_fused.launches_by_path.update(dict.fromkeys(gramian_fused.launches_by_path, 0))
         t = time.monotonic()
         instance = run_train(rec.engine_factory(),
                              EngineParams(data_source_params=source,
@@ -4539,6 +4758,7 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
                              registry, engine_id="wide-als", ctx=WorkflowContext(device=dev))
         seconds["als_run_train"] = time.monotonic() - t
         launches["als_run_train"] = {"gramian_fused": gramian_fused.launches,
+                                     "gramian_rows": gramian_fused.launches_by_path["rows"],
                                      "spd_solve": spd_solve.launches}  # main path ends here
         (model,) = load_models(registry, instance)
         td = rec.RecDataSource(source[1]).read_training(None)
@@ -4559,6 +4779,8 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
               and all(against[s]["finite"] and against[s]["beyond_tol"] == 0
                       for s in ("user", "item"))
               and min(launches["als_run_train"].values()) >= 2 * PARITY_ITERS
+              and launches["als_run_train"]["gramian_rows"] == launches["als_run_train"][
+                  "gramian_fused"]
               and np.isfinite(holdout))
         if not ok:
             raise AssertionError(f"ALS at rank {WIDE_ALS_RANK}: {als_out}")
@@ -4574,6 +4796,7 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
     out = {"phase": "wide", "kernels": kernels, "als": als_out, "seqrec": seq_out,
            "seqrec_d320": seq_streamed, "seconds": seconds, "by_kernel": {
                "gramian_fused": launches["als_run_train"]["gramian_fused"],
+               "gramian_rows": launches["als_run_train"]["gramian_rows"],
                "spd_solve": launches["als_run_train"]["spd_solve"],
                "flash_attention": sum(sum(x["launches"].values())
                                       for x in (seq_out, seq_streamed)),
@@ -4909,7 +5132,7 @@ def wide_lines(wide: dict, name: str) -> dict:
     keys = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms", "library_device_ms",
             "bound_us", "bound_by", "launches", "slices", "rows_kernel_ms", "rows_plain_ms",
             "rows_library_ms", "rows_bound_us", "max_abs_err", "max_rel_err", "abba_ms",
-            "equal_to_wide_kernel",
+            "equal_to_wide_kernel", "abba_device_ms", "equal_to_tile_kernel_at_kc",
             "earlier_kernel_ms", "earlier_kernel_device_ms", "device_over_bound",
             "device_over_library", "device_over_earlier_kernel", "equal_to_resident",
             "streamed_ms", "streamed_device_ms", "resident_ms", "resident_device_ms")
@@ -5134,9 +5357,37 @@ def main(argv=None) -> int:
             "streamed": wide["kernels"]["attributes"]["flash_attention_streamed"],
             "passes": wide["kernels"]["attributes"]["flash_attention"]},
     })
+    # the build's rows path (128 < R <= GRAMIAN_ROWS_MAX_RANK) on its own line:
+    # launched by ALS at rank 200 in the wide phase; timed on the users'
+    # bucket's first WIDE_CHECK_ROWS rows at R = 200 beside the plain version
+    # and the library call, the whole bucket beside PR 12's tile kernel
+    cases = wide["kernels"]["cases"]
+    ref = cases[f"gramian_fused:by_user_R{WIDE_ALS_RANK}"]
+    rows_cases = {name.split(":", 1)[1]: out for name, out in cases.items()
+                  if name.startswith("gramian_fused:") and out.get("plan", {}).get("path") == "rows"}
+    lines.append({
+        "name": "gramian_rows",
+        "route": "cuda",
+        "source": GRAMIAN_SOURCE,
+        "replaces": GRAMIAN_REPLACES,
+        "launches": wide["by_kernel"]["gramian_rows"],
+        "launches_by_path": {"wide_als_run_train": wide["by_kernel"]["gramian_rows"]},
+        "max_abs_err": max(out["max_abs_err"] for out in rows_cases.values()),
+        "ms": ref["rows_kernel_ms"],
+        "plain_ms": ref["rows_plain_ms"],
+        "bound_ms": ref["rows_bound_us"] / 1e3,
+        "bound_by": ref["rows_bound_by"],
+        "library_ms": ref["rows_library_ms"],
+        "shape": {"B": ref["check_rows"], "K": ref["K"], "N": ref["N"], "R": WIDE_ALS_RANK},
+        "bucket": {case: {k: out.get(k) for k in (
+            "B", "slices", "plan", "kernel_ms", "kernel_device_ms", "earlier_kernel_ms",
+            "earlier_kernel_device_ms", "bound_us", "bound_by", "library_ms",
+            "equal_to_tile_kernel_at_kc")} for case, out in rows_cases.items()},
+        "attributes": {k: v for k, v in wide["kernels"]["attributes"]["gramian_fused"].items()
+                       if k.startswith("rows")},
+    })
     # the streamed path (272 < D <= 320) on its own line: launched by seqrec at
     # D = 320 in the wide phase, timed at D = 320, L = 2,048 causal
-    cases = wide["kernels"]["cases"]
     ref = cases[f"flash_attention:D{WIDE_STREAMED_HEAD}_8x4x2048_causal_True"]
     streamed = {name: out for name, out in cases.items()
                 if name.startswith("flash_attention:") and out["plan"]["path"] == "streamed"}

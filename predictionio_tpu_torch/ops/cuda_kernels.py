@@ -314,7 +314,10 @@ _EXTRA_ENTRIES = {
         "pio_topk_streaming_occupancy": [ctypes.c_int, ctypes.c_int,
                                          ctypes.POINTER(ctypes.c_int)],
     },
-    "gramian_fused": {"pio_gramian_fused_attrs": _ATTRS_ARGTYPES},
+    "gramian_fused": {
+        "pio_gramian_rows": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4,
+        "pio_gramian_fused_attrs": _ATTRS_ARGTYPES,
+    },
     "spd_solve": {
         "pio_spd_solve_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "pio_spd_solve_blocked": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
@@ -704,8 +707,9 @@ class GramianPlan(NamedTuple):
     scratch_shape: Tuple[int, int, int]  #: [B, S, P] f32; (0, 0, 0) when S = 1
     reduce_smem: int  #: dynamic shared memory of a reduce block, bytes
     blocks_per_sm: int  #: chunk blocks an SM holds at once
-    path: str = "tuned"  #: "tuned" (R <= GRAMIAN_MAX_RANK) or "wide"
-    tiles: int = 1  #: output tiles of a row's [A | b] (the wide path's blocks a chunk)
+    path: str = "tuned"  #: "tuned" (R <= GRAMIAN_MAX_RANK), "rows" or "wide" (tiles)
+    tiles: int = 1  #: output tiles of a row's [A | b] (the wide path's blocks a
+    #: chunk; the rows path's register tiles a row)
 
 
 @functools.lru_cache(maxsize=256)
@@ -790,14 +794,18 @@ def gramian_wide_tiles(r: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def gramian_wide_launch_plan(b: int, k: int, r: int, sm_count: int) -> GramianPlan:
-    """The launch plan of the build's general-rank path (``r`` above
-    :data:`GRAMIAN_MAX_RANK`): one block of :data:`GRAMIAN_WIDE_THREADS`
-    per (row, output tile, chunk). The chunks follow
-    :func:`gramian_launch_plan`'s rule with ``b * tiles`` blocks in place
-    of ``b``: one pass while they fill every SM, else ``S`` chunks a row
-    of at least :data:`GRAMIAN_MIN_CHUNK` ratings and the chunk-order
-    reduce. Pure arithmetic, checked again by the C entry point."""
+def gramian_wide_launch_plan(b: int, k: int, r: int, sm_count: int,
+                             chunk: Optional[int] = None) -> GramianPlan:
+    """The launch plan of the build's tile path (``r`` above
+    :data:`GRAMIAN_ROWS_MAX_RANK`, or any ``r`` above
+    :data:`GRAMIAN_MAX_RANK` to compare it with the rows path): one block
+    of :data:`GRAMIAN_WIDE_THREADS` per (row, output tile, chunk). The
+    chunks follow :func:`gramian_launch_plan`'s rule with ``b * tiles``
+    blocks in place of ``b``: one pass while they fill every SM, else ``S``
+    chunks a row of at least :data:`GRAMIAN_MIN_CHUNK` ratings and the
+    chunk-order reduce; ``chunk`` forces ``kc`` (the rows path's, for
+    bits at equal chunks). Pure arithmetic, checked again by the C entry
+    point."""
     if (min(b, sm_count) < 1 or k < 0 or not GRAMIAN_MAX_RANK < r <= GRAMIAN_WIDE_MAX_RANK):
         raise ValueError(
             f"no gramian wide launch plan for b={b}, k={k}, r={r}, sm_count={sm_count}"
@@ -811,15 +819,18 @@ def gramian_wide_launch_plan(b: int, k: int, r: int, sm_count: int) -> GramianPl
         _SM_MAX_BLOCKS, _SM_MAX_THREADS // threads,
     )
     resident = blocks_per_sm * sm_count
-    n_chunks = 1
-    if b * tiles < resident and k > GRAMIAN_MIN_CHUNK:
-        want = _cdiv(GRAMIAN_WAVES * resident, b * tiles)
-        kc = max(GRAMIAN_MIN_CHUNK, _cdiv(_cdiv(k, want), kt) * kt)
-        n_chunks = _cdiv(k, kc)
-    kc = _cdiv(max(k, 1), n_chunks * kt) * kt
-    if n_chunks > 1:
-        kc = max(GRAMIAN_MIN_CHUNK, kc)
-    n_chunks = max(1, _cdiv(k, kc))
+    if chunk is not None:
+        kc, n_chunks = _forced_chunks(k, chunk)
+    else:
+        n_chunks = 1
+        if b * tiles < resident and k > GRAMIAN_MIN_CHUNK:
+            want = _cdiv(GRAMIAN_WAVES * resident, b * tiles)
+            kc = max(GRAMIAN_MIN_CHUNK, _cdiv(_cdiv(k, want), kt) * kt)
+            n_chunks = _cdiv(k, kc)
+        kc = _cdiv(max(k, 1), n_chunks * kt) * kt
+        if n_chunks > 1:
+            kc = max(GRAMIAN_MIN_CHUNK, kc)
+        n_chunks = max(1, _cdiv(k, kc))
     split = n_chunks > 1
     return GramianPlan(
         threads=threads, chunk=kc, n_chunks=n_chunks,
@@ -829,13 +840,170 @@ def gramian_wide_launch_plan(b: int, k: int, r: int, sm_count: int) -> GramianPl
     )
 
 
+# the rows path (GRAMIAN_MAX_RANK < R <= GRAMIAN_ROWS_MAX_RANK)
+#: a thread's register tile of A is kRTile x kRTile (a tile of b kRTile x 1);
+#: the thread map walks groups of kRGroup block rows
+GRAMIAN_ROWS_TILE, GRAMIAN_ROWS_GROUP = 8, 4
+#: the most threads a block (kRMaxThreads: the launch bound, 128 registers a
+#: thread) and register tiles a thread walks a step (kRMaxRounds)
+GRAMIAN_ROWS_MAX_THREADS, GRAMIAN_ROWS_MAX_ROUNDS = 512, 4
+#: steps of live weights, rhs and rows in shared memory (kRMeta)
+GRAMIAN_ROWS_META = 3
+#: the shared memory one block may opt into (kMaxSmem, H100)
+GRAMIAN_MAX_SMEM = 232448
+#: registers a thread of each rows-path kernel takes, read off the card
+#: (``gramian_kernel_attributes``; chip_smoke holds the card to every entry):
+#: one pass and split, holding two steps of rows or one, and the reduce
+GRAMIAN_ROWS_REGS = {"rows_one_pass": 118, "rows_split": 118, "rows_one_pass_s1": 125,
+                     "rows_split_s1": 116, "rows_reduce": 128}
+#: a split row's chunks aim at this many waves of resident blocks (a row's
+#: live length varies, so more, shorter blocks even out the SMs' work)
+GRAMIAN_ROWS_WAVES = 16
+
+
+def gramian_rows_tiles(r: int, tile: int = GRAMIAN_ROWS_TILE) -> Tuple[int, int]:
+    """(T, register tiles a row) on the rows path at rank ``r``: T =
+    ceil(r / tile) block rows, T(T+1)/2 tiles of A's upper triangle and T
+    of b."""
+    t = _cdiv(r, tile)
+    return t, t * (t + 1) // 2 + t
+
+
+def gramian_rows_partial(r: int, tile: int = GRAMIAN_ROWS_TILE) -> int:
+    """Floats of one chunk's sums on the rows path (rows_partial in the
+    .cu): tile² a tile of A, tile a tile of b."""
+    t, _ = gramian_rows_tiles(r, tile)
+    return tile * tile * (t * (t + 1) // 2) + tile * t
+
+
+def gramian_rows_smem(r: int, tile: int = GRAMIAN_ROWS_TILE, stages: int = 2) -> int:
+    """Dynamic shared memory of a rows-path block (rows_smem_bytes in the
+    .cu): the chunk's sums, ``stages`` steps of gathered rows (tile·T
+    floats a rating: 2 copies the next step during this one's FMAs),
+    GRAMIAN_ROWS_META steps of live weights, rhs and rows, and the counts."""
+    t, _ = gramian_rows_tiles(r, tile)
+    meta = GRAMIAN_ROWS_META
+    return 4 * (gramian_rows_partial(r, tile) + stages * GRAMIAN_K_TILE * tile * t
+                + 3 * meta * GRAMIAN_K_TILE + meta + 1)
+
+
+def _gramian_rows_max_rank() -> int:
+    r = GRAMIAN_MAX_RANK
+    while gramian_rows_smem(r + 1) <= GRAMIAN_MAX_SMEM:
+        r += 1
+    return r
+
+
+#: the widest rank of the rows path (kRMaxR): the widest R whose block, with
+#: two steps of rows, fits in GRAMIAN_MAX_SMEM; wider R take the tile path
+GRAMIAN_ROWS_MAX_RANK = _gramian_rows_max_rank()
+
+
+def gramian_rows_threads(r: int, tile: int = GRAMIAN_ROWS_TILE, rounds: int = 0,
+                         max_rounds: int = GRAMIAN_ROWS_MAX_ROUNDS) -> int:
+    """Threads of a rows-path block: a row's register tiles over ``rounds``
+    rounds (at least the fewest of at most GRAMIAN_ROWS_MAX_THREADS, at most
+    ``max_rounds``), rounded up to a warp."""
+    _, items = gramian_rows_tiles(r, tile)
+    rounds = max(rounds, _cdiv(items, GRAMIAN_ROWS_MAX_THREADS))
+    if rounds > max_rounds:
+        raise ValueError(f"{items} register tiles take more than {max_rounds} rounds")
+    return _cdiv(_cdiv(items, rounds), 32) * 32
+
+
+def _forced_chunks(k: int, chunk: int) -> Tuple[int, int]:
+    """(kc, S) for a forced chunk width: a positive multiple of
+    GRAMIAN_K_TILE, at least GRAMIAN_MIN_CHUNK when the row is split."""
+    kt = GRAMIAN_K_TILE
+    if chunk < kt or chunk % kt:
+        raise ValueError(f"a chunk is a positive multiple of {kt}, got {chunk}")
+    n_chunks = max(1, _cdiv(k, chunk))
+    if n_chunks > 1 and chunk < GRAMIAN_MIN_CHUNK:
+        raise ValueError(f"a split chunk is at least {GRAMIAN_MIN_CHUNK} wide, got {chunk}")
+    return chunk, n_chunks
+
+
+def _chunks(b: int, k: int, resident: int, waves: int) -> Tuple[int, int]:
+    """(kc, S): one chunk unless ``b`` rows make fewer than ``waves`` waves
+    of ``resident`` blocks, then S chunks (at least GRAMIAN_MIN_CHUNK wide)
+    that do, evened out."""
+    kt = GRAMIAN_K_TILE
+    n_chunks = 1
+    if b < waves * resident and k > GRAMIAN_MIN_CHUNK:
+        want = _cdiv(waves * resident, b)
+        kc = max(GRAMIAN_MIN_CHUNK, _cdiv(_cdiv(k, want), kt) * kt)
+        n_chunks = _cdiv(k, kc)
+    kc = _cdiv(max(k, 1), n_chunks * kt) * kt
+    if n_chunks > 1:
+        kc = max(GRAMIAN_MIN_CHUNK, kc)
+    return kc, max(1, _cdiv(k, kc))
+
+
+def gramian_rows_blocks_per_sm(threads: int, smem: int) -> int:
+    """Rows-path blocks an SM holds: by registers (the most any rows
+    kernel takes, :data:`GRAMIAN_ROWS_REGS`, in granules of 8), shared
+    memory and threads."""
+    regs = _cdiv(max(GRAMIAN_ROWS_REGS.values()), 8) * 8
+    return min(_SM_REGS // (threads * regs), _SM_SMEM // (smem + _BLOCK_SMEM_RESERVE),
+               _SM_MAX_BLOCKS, _SM_MAX_THREADS // threads)
+
+
+def gramian_rows_shape(r: int) -> Tuple[int, int, int]:
+    """(steps of rows a block holds, threads, blocks an SM holds) on the
+    rows path at rank ``r``: two steps of rows (the next one copied during
+    this one's FMAs) at the fewest rounds of register tiles, unless one
+    step and twice the rounds fits more blocks on an SM, whose latencies
+    then hide behind each other's FMAs (on an H100: R <= 200 but 161-168)."""
+    threads = gramian_rows_threads(r)
+    best = (2, threads, gramian_rows_blocks_per_sm(threads, gramian_rows_smem(r, stages=2)))
+    _, items = gramian_rows_tiles(r)
+    rounds = _cdiv(items, GRAMIAN_ROWS_MAX_THREADS) * 2
+    if rounds <= GRAMIAN_ROWS_MAX_ROUNDS:
+        threads = gramian_rows_threads(r, rounds=rounds)
+        per_sm = gramian_rows_blocks_per_sm(threads, gramian_rows_smem(r, stages=1))
+        if per_sm > best[2]:
+            best = (1, threads, per_sm)
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def gramian_rows_launch_plan(b: int, k: int, r: int, sm_count: int) -> GramianPlan:
+    """The launch plan of the build's rows path (``GRAMIAN_MAX_RANK < r <=
+    GRAMIAN_ROWS_MAX_RANK``): one block per (row, chunk) of the threads and
+    steps of rows :func:`gramian_rows_shape` picks, each thread a register
+    tile or a few of the row's ``[A | b]``. One pass while the rows make
+    :data:`GRAMIAN_ROWS_WAVES` waves of resident blocks, else ``S`` chunks
+    a row and the chunk-order reduce. Pure arithmetic, checked again by the
+    C entry point."""
+    if (min(b, sm_count) < 1 or k < 0 or not GRAMIAN_MAX_RANK < r <= GRAMIAN_ROWS_MAX_RANK):
+        raise ValueError(
+            f"no gramian rows launch plan for b={b}, k={k}, r={r}, sm_count={sm_count}"
+        )
+    stages, threads, blocks_per_sm = gramian_rows_shape(r)
+    smem = gramian_rows_smem(r, stages=stages)
+    partial = gramian_rows_partial(r)
+    kc, n_chunks = _chunks(b, k, blocks_per_sm * sm_count, GRAMIAN_ROWS_WAVES)
+    split = n_chunks > 1
+    return GramianPlan(
+        threads=threads, chunk=kc, n_chunks=n_chunks, blocks=b * n_chunks,
+        chunk_smem=smem, partial=partial,
+        scratch_shape=(b, n_chunks, partial) if split else (0, 0, 0),
+        reduce_smem=0, blocks_per_sm=blocks_per_sm, path="rows",
+        tiles=gramian_rows_tiles(r)[1],
+    )
+
+
 def gramian_plan(b: int, k: int, r: int, sm_count: int) -> GramianPlan:
     """The build's launch plan, its path picked by the rank alone: the
     tuned path (:func:`gramian_launch_plan`) up to
-    :data:`GRAMIAN_MAX_RANK`, the general-rank path
+    :data:`GRAMIAN_MAX_RANK`, the rows path
+    (:func:`gramian_rows_launch_plan`) up to
+    :data:`GRAMIAN_ROWS_MAX_RANK`, the tile path
     (:func:`gramian_wide_launch_plan`) above it."""
-    if r > GRAMIAN_MAX_RANK:
+    if r > GRAMIAN_ROWS_MAX_RANK:
         return gramian_wide_launch_plan(b, k, r, sm_count)
+    if r > GRAMIAN_MAX_RANK:
+        return gramian_rows_launch_plan(b, k, r, sm_count)
     return gramian_launch_plan(b, k, r, sm_count)
 
 
@@ -938,6 +1106,7 @@ def gramian_fused(
     rhs: torch.Tensor,  # [B, K] f32 — rhs weight (masked rating / c·p)
     ridge: torch.Tensor,  # [B] f32 — per-row diagonal ridge (λ·n_u)
     yty: Optional[torch.Tensor] = None,  # [R, R] f32 — implicit-mode base
+    plan: Optional[GramianPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused normal-equation build: ``(A [B, R, R], b [B, R])`` with
     ``A_b = yty + ridge_b·I + Σ_k w2[b,k]·y[idx[b,k]]⊗y[idx[b,k]]`` and
@@ -951,8 +1120,12 @@ def gramian_fused(
     by :func:`gramian_launch_plan` (wide rows are split into chunks whose
     partial systems a second kernel adds in chunk order; one launch is
     counted either way); CPU tensors run :func:`gramian_fused_reference`.
-    Any R: up to :data:`GRAMIAN_MAX_RANK` the tuned path, above it the
-    general-rank path (:func:`gramian_plan` picks by R alone)."""
+    Any R: up to :data:`GRAMIAN_MAX_RANK` the tuned path, up to
+    :data:`GRAMIAN_ROWS_MAX_RANK` the rows path, above it the tile path
+    (:func:`gramian_plan` picks by R alone). ``plan`` overrides the pick on
+    the card (a :func:`gramian_wide_launch_plan` at any R > 128 launches the
+    tile kernel, to compare it with the rows path; the C entry point still
+    checks it); CPU tensors ignore it."""
     _check_gramian_inputs(y, idx, w2, rhs, ridge, yty)
     if y.shape[1] > GRAMIAN_WIDE_MAX_RANK:
         raise ValueError(
@@ -971,45 +1144,51 @@ def gramian_fused(
     b_out = torch.empty((b, r), dtype=torch.float32, device=device)
     if b == 0:
         return a_out, b_out
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    plan = gramian_plan(b, k, r, _sm_count(index))
+    if plan is None:
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        plan = gramian_plan(b, k, r, _sm_count(index))
     if plan.blocks > 2**31 - 1:
         raise ValueError(f"gramian_fused: {plan.blocks} blocks are past the grid")
     # the chunk partials of a split row, from PyTorch's caching allocator
     part = (torch.empty(plan.scratch_shape, dtype=torch.float32, device=device)
             if plan.n_chunks > 1 else None)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib = _configured("gramian_fused", [p] * 6 + [i] * 10 + [p] * 4)
+    lib = _configured("gramian_fused", _GRAMIAN_ARGTYPES)
+    args = (y.data_ptr(), idx.data_ptr(), w2.data_ptr(), rhs.data_ptr(),
+            ridge.data_ptr(), None if yty is None else yty.data_ptr(),
+            b, k, n, r, plan.chunk, plan.n_chunks, plan.threads)
+    outs = (None if part is None else part.data_ptr(), a_out.data_ptr(), b_out.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.pio_gramian_fused(
-            y.data_ptr(), idx.data_ptr(), w2.data_ptr(), rhs.data_ptr(),
-            ridge.data_ptr(), None if yty is None else yty.data_ptr(),
-            b, k, n, r, plan.chunk, plan.n_chunks, plan.threads,
-            plan.chunk_smem, GRAMIAN_REDUCE_THREADS, plan.reduce_smem,
-            None if part is None else part.data_ptr(),
-            a_out.data_ptr(), b_out.data_ptr(), stream,
-        )
+        if plan.path == "rows":
+            code = lib.pio_gramian_rows(*args, plan.chunk_smem, *outs, stream)
+        else:
+            code = lib.pio_gramian_fused(*args, plan.chunk_smem, GRAMIAN_REDUCE_THREADS,
+                                         plan.reduce_smem, *outs, stream)
     gramian_fused.launches += 1
+    gramian_fused.launches_by_path[plan.path] += 1
     _raise_on_error(lib, "gramian_fused", code)
     return a_out, b_out
 
 
-#: kernel launches since the count was last reset (CUDA tensors only)
+#: kernel launches since the count was last reset (CUDA tensors only), in
+#: all and by path (a split launch's reduce counts with its chunk kernel)
 gramian_fused.launches = 0
+gramian_fused.launches_by_path = dict.fromkeys(("tuned", "rows", "wide"), 0)
 
+_GRAMIAN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 4
 
-#: the chunk kernels ``pio_gramian_fused_attrs`` reports on, in its order
-GRAMIAN_KERNELS = ("one_pass", "split", "wide_one_pass", "wide_split")
+#: the kernels ``pio_gramian_fused_attrs`` reports on, in its order: the
+#: tuned path's chunk kernels, the tile path's, the rows path's (two steps of
+#: rows, then one) and its reduce
+GRAMIAN_KERNELS = ("one_pass", "split", "wide_one_pass", "wide_split", "rows_one_pass",
+                   "rows_split", "rows_one_pass_s1", "rows_split_s1", "rows_reduce")
 
 
 def gramian_kernel_attributes(device=None) -> dict:
     """Registers per thread, spilled (local) bytes and static shared
-    memory of the build's chunk kernels (:data:`GRAMIAN_KERNELS`: the
-    tuned path's one pass and split, the general-rank path's), as
+    memory of the build's kernels (:data:`GRAMIAN_KERNELS`), as
     ``cudaFuncGetAttributes`` reports them on the card."""
-    lib = _configured("gramian_fused", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-                      + [ctypes.c_void_p] * 4)
+    lib = _configured("gramian_fused", _GRAMIAN_ARGTYPES)
     out = (ctypes.c_int * (3 * len(GRAMIAN_KERNELS)))()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
         _raise_on_error(lib, "gramian_fused_attrs", lib.pio_gramian_fused_attrs(out))

@@ -368,7 +368,8 @@ def test_wide_tiles_cover_the_upper_triangle_of_a_and_b_once():
 def test_the_path_is_picked_by_the_rank_alone(r):
     for b, k in BUCKETS + [(1, 1), (3, 0)]:
         plan = gramian_plan(b, k, r, 132)
-        assert plan.path == ("wide" if r > GRAMIAN_MAX_RANK else "tuned")
+        assert plan.path == ("wide" if r > cuda_kernels.GRAMIAN_ROWS_MAX_RANK else
+                             "rows" if r > GRAMIAN_MAX_RANK else "tuned")
         if r <= GRAMIAN_MAX_RANK:
             assert plan == gramian_launch_plan(b, k, r, 132)  # today's plan, unchanged
 

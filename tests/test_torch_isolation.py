@@ -152,7 +152,11 @@ def test_build_command_targets_sm90a_from_repo_sources():
      {"kMaxR": cuda_kernels.GRAMIAN_MAX_RANK, "kKTile": cuda_kernels.GRAMIAN_K_TILE,
       "kTile": cuda_kernels.GRAMIAN_BLOCK_TILE, "kMinChunk": cuda_kernels.GRAMIAN_MIN_CHUNK,
       "kWTile": cuda_kernels.GRAMIAN_WIDE_TILE, "kWThreads": cuda_kernels.GRAMIAN_WIDE_THREADS,
-      "kWMaxR": cuda_kernels.GRAMIAN_WIDE_MAX_RANK}),
+      "kWMaxR": cuda_kernels.GRAMIAN_WIDE_MAX_RANK, "kRTile": cuda_kernels.GRAMIAN_ROWS_TILE,
+      "kRGroup": cuda_kernels.GRAMIAN_ROWS_GROUP,
+      "kRMaxThreads": cuda_kernels.GRAMIAN_ROWS_MAX_THREADS,
+      "kRMaxRounds": cuda_kernels.GRAMIAN_ROWS_MAX_ROUNDS, "kRMeta": cuda_kernels.GRAMIAN_ROWS_META,
+      "kMaxSmem": cuda_kernels.GRAMIAN_MAX_SMEM}),
     ("spd_solve", "pallas_kernels.py::_spd_kernel",
      {"kMaxN": cuda_kernels.SPD_MAX_N, "kWideThreads": cuda_kernels.SPD_WIDE_THREADS,
       "kWideMaxN": cuda_kernels.SPD_WIDE_MAX_N, "kBlkNb": cuda_kernels.SPD_BLOCKED_NB,
