@@ -195,7 +195,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    exactly symmetric, two calls bit-identical) and beside the einsum build
    over the whole bucket in 4,096-row slices, a split bucket; the solve
    at n = 129, 200, 256 (B = 4,096, relative error 1e-4, bit-identical),
-   zero and singular systems, n = 400 through the device-memory scratch;
+   the cluster path at n = 305, 384, 512 and its ceiling 768 (B = 1,024;
+   bit for bit the wide kernel on the same tensors, timed A B B A against
+   ``cholesky_solve``, each plan beside ``cudaOccupancyMaxActiveClusters``,
+   a doctored plan refused with an error), the wide kernel at 769 beside
+   its bound, zero and singular systems on the blocked and cluster paths,
+   n = 400 through the wide kernel's device-memory scratch;
    attention at D = 136, 192, 256 (the resident path) and D = 320 (the
    streamed path) at the training shape and at L = 2,048 causal and not,
    and at D = 384 (the passes path) at the training shape (rtol 2e-4 /
@@ -206,11 +211,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    streamed path at D = 256, ``torch.equal`` to the resident kernel;
    every general-width kernel's registers and local bytes (no local
    memory; each attention kernel's registers equal to its plan constant).
-   Then ALS at rank 200 by ``run_train`` from the store (3 iterations,
-   build and solve launches counted) held to 3 plain iterations (rtol
-   2e-3 / atol 2e-4), with the holdout RMSE of 3 iterations on 95 % of
-   the ratings; seqrec at d_model 256 / 1 head (D = 256, 20 steps, 64
-   queries) and at d_model 320 / 1 head (D = 320, 10 steps, 16 queries)
+   Then ALS at rank 200 (the build's rows path, the blocked solve) and at
+   rank 384 (the build's tile path, the cluster solve) by ``run_train``
+   from the store (3 iterations, build and solve launches counted in all
+   and by path) held to 3 plain iterations (rtol 2e-3 / atol 2e-4), each
+   with the holdout RMSE of 3 iterations on 95 % of the ratings; seqrec
+   at d_model 256 / 1 head (D = 256, 20 steps, 64 queries) and at
+   d_model 320 / 1 head (D = 320, 10 steps, 16 queries)
    by ``run_train`` and served for a burst held to the plain forward,
    attention launches counted in all and on the head's path.
 16. ``console`` — the quickstart's lifecycle through ``python -m
@@ -3703,7 +3710,14 @@ WIDE_RANKS = (129, 200, 256)
 WIDE_BUCKETS = (("by_user", 97972, 128, N_ITEMS), ("by_item", 216, 32768, N_USERS))
 WIDE_CHECK_ROWS, WIDE_SPD_B = 4096, 4096
 #: systems of the solve's cases on both sides of the blocked path's ceiling
+#: and on the cluster path
 WIDE_CEIL_B = 1024
+#: the cluster path's timed widths (its ceiling, SPD_CLUSTER_MAX_N, beside
+#: them), the systems of the wide kernel's case above that ceiling, and ALS
+#: at a rank the cluster path solves (the build's tile path above R = 272)
+WIDE_CLUSTER_NS = (305, 384, 512)
+WIDE_CLUSTER_CEIL_B = 64
+WIDE_CLUSTER_ALS_RANK = 384
 WIDE_HEADS = (136, 192, 256)
 WIDE_ATTN_SHAPES = ((64, 4, 64, 64, True), (8, 4, 2048, 2048, True),
                     (8, 4, 2048, 2048, False))
@@ -3745,6 +3759,61 @@ def wide_spd_systems(torch, gen, dev, bsz: int, n: int, k: int):
     a = torch.bmm(g.transpose(1, 2), g)
     a += LAMBDA * k * torch.eye(n, device=dev)
     return a, torch.randn((bsz, n), generator=gen, device=dev)
+
+
+def spd_abba(torch, out: dict, kernel, lib, k_iters: int, l_iters: int) -> None:
+    """Event and device times of a solve ``kernel`` and the library call
+    ``lib`` into ``out``, A B B A after a warm-up, and their means."""
+    kernel(), lib()
+    ev = [time_ms(torch, kernel, k_iters, 1), time_ms(torch, lib, l_iters, 1),
+          time_ms(torch, lib, l_iters, 1), time_ms(torch, kernel, k_iters, 1)]
+    dv = [traced_device_ms(torch, kernel, k_iters), traced_device_ms(torch, lib, l_iters),
+          traced_device_ms(torch, lib, l_iters), traced_device_ms(torch, kernel, k_iters)]
+    out["abba_ms"], out["abba_device_ms"] = ev, dv
+    out["kernel_ms"], out["library_ms"] = (ev[0] + ev[3]) / 2, (ev[1] + ev[2]) / 2
+    pairs = ((dv[0], dv[3]), (dv[1], dv[2]))
+    out["kernel_device_ms"], out["library_device_ms"] = (
+        None if None in pair else (pair[0] + pair[1]) / 2 for pair in pairs)
+
+
+def spd_over_bound(out: dict, bsz: int, n: int) -> None:
+    """The solve's bound at ``bsz`` systems of ``n`` into ``out``, and the
+    kernel's device time over it, over the library call's and over the
+    earlier kernel's where ``out`` has them."""
+    bound_ms, out["bound_by"] = spd_bound(bsz, n)
+    out["bound_us"] = bound_ms * 1e3
+    if out.get("kernel_device_ms") is not None:
+        out["device_over_bound"] = out["kernel_device_ms"] / bound_ms
+        for key in ("library", "earlier_kernel"):
+            if out.get(f"{key}_device_ms"):
+                out[f"device_over_{key}"] = out["kernel_device_ms"] / out[f"{key}_device_ms"]
+
+
+def spd_cluster_waves(ck, plan, dev, sm: int) -> dict:
+    """A cluster plan's clusters at once and waves, as the plan estimates
+    them (SMs · blocks an SM // cluster) and as the card places them
+    (``cudaOccupancyMaxActiveClusters``)."""
+    occupancy = ck.spd_cluster_occupancy(plan, dev)
+    systems = plan.blocks // plan.cluster
+    return {"plan_clusters": sm * plan.blocks_per_sm // plan.cluster, "plan_waves": plan.waves,
+            "occupancy_clusters": occupancy,
+            "occupancy_waves": -(-systems // occupancy) if occupancy else None}
+
+
+def forced_cluster_plan(ck, b: int, n: int, sm: int, c: int):
+    """The cluster kernel's plan at ``n`` on a forced cluster of ``c``
+    blocks (the kernel takes any n above SPD_MAX_N whose blocks fit), to
+    compare the sizes: the plan of the narrowest n that takes ``c``, with
+    n's width, tiles and shared memory. None where the blocks do not fit."""
+    if ck.spd_cluster_smem(n, c) > ck.SPD_MAX_SMEM:
+        return None
+    nb, t = ck.SPD_BLOCKED_NB, -(-n // ck.SPD_BLOCKED_NB)
+    first = next(m for m in range(ck.SPD_BLOCKED_MAX_N + 1, ck.SPD_CLUSTER_MAX_N + 1)
+                 if ck.spd_cluster_size(m) == c)
+    return ck.spd_launch_plan(b, first, sm)._replace(
+        np_=t * nb, slots=-(-t * nb // ck.SPD_CLUSTER_THREADS), blocks=b * c,
+        smem=ck.spd_cluster_smem(n, c), tiles=max(ck.spd_cluster_tiles(t, c, r) for r in range(c)),
+        cluster=c)
 
 
 def gramian_wide_case(torch, dev, gen, sm: int, b: int, k: int, n: int, r: int):
@@ -3801,8 +3870,8 @@ def gramian_wide_case(torch, dev, gen, sm: int, b: int, k: int, n: int, r: int):
            "plan": {"path": first.path, "tiles": first.tiles, "threads": first.threads,
                     "kc": first.chunk, "S": first.n_chunks, "blocks": first.blocks,
                     "smem": first.chunk_smem, "blocks_per_sm": first.blocks_per_sm},
-           "earlier_plan": {"tiles": tile.tiles, "kc": tile.chunk, "S": tile.n_chunks,
-                            "blocks": tile.blocks},
+           "earlier_plan": ({"tiles": tile.tiles, "kc": tile.chunk, "S": tile.n_chunks,
+                             "blocks": tile.blocks} if first.path == "rows" else None),
            "max_abs_err": err, "symmetric": ok, "bit_identical": same,
            "equal_to_tile_kernel_at_kc": tile_bits}
     ops = len(slices) * (2 if first.n_chunks > 1 else 1)
@@ -4129,6 +4198,164 @@ def spd_blocked_knockouts(torch, dev, source: str = SPD_SOURCE) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: the cluster solve's widths alone, its ceiling (SPD_CLUSTER_MAX_N) last:
+#: held and timed by spd_cluster_variants and spd_cluster_knockouts (B =
+#: WIDE_CEIL_B)
+SPD_CLUSTER_SHAPES = (*WIDE_CLUSTER_NS, 768)
+
+
+def spd_cluster_variants(torch, dev, seed: int = 0, shapes=SPD_CLUSTER_SHAPES,
+                         sizes=(None,)) -> None:
+    """The cluster solve alone at ``shapes`` (B = WIDE_CEIL_B): its
+    registers, then at each n and cluster size (``None`` the plan's own)
+    the plan beside ``cudaOccupancyMaxActiveClusters``, its bits against the
+    wide kernel and a second call, its error against the plain version, and
+    event and device ms A B B A against ``cholesky_solve``. Builds only the
+    solve's library. The inputs come from the seed, so two trees unpacked
+    under ``chip_compare/`` (gitignored) see the same tensors."""
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    build.build_all(["spd_solve"])
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    emit({"phase": "spd_cluster_variant", "tree": os.path.basename(os.getcwd()),
+          "attributes": ck.spd_cluster_kernel_attributes(dev)})
+
+    def library(a, b):
+        return torch.cholesky_solve(b[:, :, None], torch.linalg.cholesky(a))
+
+    for n in shapes:
+        a, b = wide_spd_systems(torch, gen, dev, WIDE_CEIL_B, n, 2 * n)
+        x_w = ck.spd_solve(a, b, plan=ck.spd_wide_launch_plan(WIDE_CEIL_B, n, sm))
+        x_p = ck.spd_solve_reference(a, b) if n <= 512 else None
+        for c in sizes:
+            plan = (ck.spd_launch_plan(WIDE_CEIL_B, n, sm) if c is None
+                    else forced_cluster_plan(ck, WIDE_CEIL_B, n, sm, c))
+            if plan is None:
+                continue
+            x = ck.spd_solve(a, b, plan=plan)
+            kernel = lambda: ck.spd_solve(a, b, plan=plan)  # noqa: E731
+            rel = (None if x_p is None else
+                   float(((x - x_p).norm(dim=1) / x_p.norm(dim=1).clamp_min(1e-30)).max()))
+            out = {"phase": "spd_cluster_variant", "tree": os.path.basename(os.getcwd()), "n": n,
+                   "B": WIDE_CEIL_B, "cluster": plan.cluster, "smem": plan.smem,
+                   "tiles": plan.tiles, "blocks_per_sm": plan.blocks_per_sm,
+                   **spd_cluster_waves(ck, plan, dev, sm),
+                   "equal_to_wide_kernel": bool(torch.equal(x, x_w)),
+                   "bit_identical": bool(torch.equal(x, kernel())), "max_rel_err": rel}
+            spd_abba(torch, out, kernel, lambda: library(a, b), 5, 3)
+            emit(out)
+            del x
+        del a, b, x_w, x_p
+        torch.cuda.empty_cache()
+
+
+#: the cluster solve's phases as the knock-outs cut them: each a text of
+#: ``spd_cluster_kernel`` removed (a call), or the first ``if``/``for``
+#: statement after it cut (the strip, the trailing update, back
+#: substitution); "load" replaces the copy of A by a store, "barriers" every
+#: cluster barrier after the copy's by a block barrier (one cluster barrier
+#: kept at the end, so that no block leaves while another may write to it)
+SPD_CLUSTER_PHASES = {
+    "panel": ("blk_panel<NB>(s_u + static_cast<size_t>(qd) * TF, s_y + e, s_ld, s_inv, s_z, "
+              "lane);", None),
+    "strip_exchange": ("cl_push_column<NB, C>(cluster, rank, s_l + c, np);", None),
+    "panel_exchange": ("cl_push_panel<NB, C>(cluster, rank, s_ld, lane);", None),
+    "strip": (None, "const int q0 = cl_row_start(p, m, C, rank) + f - cl_first(p, C, rank);"),
+    "trailing": (None, "const int count = (own - first) * G * G;"),
+    "back_substitution": (None, "float* s_x = s_l;"),
+}
+SPD_CLUSTER_FIRST_SYNC = "cluster.sync();  // every block has started and holds its tiles"
+
+
+def spd_cluster_variants_source(text: str) -> dict:
+    """The knock-out sources of :func:`spd_cluster_knockouts`, by name,
+    from the solve's source ``text`` ("whole" is ``text``)."""
+    section = text.index("// ---- the cluster path")
+    kernel_at = text.index("spd_cluster_kernel(const float*")
+    kernel_end = text.index("// The launch of a cluster", kernel_at)
+    variants = {"whole": text}
+    for name, (call, marker) in SPD_CLUSTER_PHASES.items():
+        if call is not None:
+            at = text.index(call, section)
+            variants[name] = text[:at] + text[at + len(call):]
+        else:
+            at = text.index(marker, section)
+            variants[name] = text[:at] + _without_statement(text[at:], marker)
+    body = text[kernel_at:kernel_end]
+    first = body.index(SPD_CLUSTER_FIRST_SYNC) + len(SPD_CLUSTER_FIRST_SYNC)
+    body = body[:first] + body[first:].replace("cluster.sync();", "__syncthreads();")
+    close = body.rindex("}")
+    variants["barriers"] = (text[:kernel_at] + body[:close] + "  cluster.sync();\n"
+                            + body[close:] + text[kernel_end:])
+    variants["load"] = text[:kernel_at] + text[kernel_at:].replace(
+        "copy4(dst, a_g + static_cast<size_t>(r) * n + c);", "*dst = 1.f;", 1)
+    return variants
+
+
+def spd_cluster_knockouts(torch, dev, source: str = SPD_SOURCE,
+                          shapes=SPD_CLUSTER_SHAPES[:3], compare=()) -> None:
+    """Where the cluster solve's time goes: ``source`` built as it is and
+    once without each phase (:func:`spd_cluster_variants_source`), and each
+    path of ``compare`` (another version of the source) built whole, all
+    with ``nvcc -Xptxas -v`` at once; then each timed at ``shapes`` (B =
+    WIDE_CEIL_B, the plan's own cluster size, CUDA events), in one order and
+    then the reverse, the two means averaged. A knock-out's answer is
+    wrong; its time less the whole kernel's is what that phase costs where
+    nothing hides it. Prints each build's registers and spills."""
+    import ctypes
+    import re
+
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    variants = spd_cluster_variants_source(open(source).read())
+    variants.update({f"compare_{os.path.basename(path)}": open(path).read() for path in compare})
+    tmp = tempfile.mkdtemp(prefix="spd_cluster_knockouts_")
+    procs = {}
+    for name, src in variants.items():
+        path = os.path.join(tmp, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"lib{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"knock-out {name} did not build: {log[-2000:]}")
+        cluster = log[log.index("spd_cluster_kernel"):]
+        emit({"phase": "spd_cluster_knockout", "variant": name,
+              "ptxas": re.findall(r"(\d+ bytes spill stores|Used \d+ registers)", cluster)[:6]})
+        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
+        lib.pio_spd_solve_cluster.argtypes = (
+            ck._EXTRA_ENTRIES["spd_solve"]["pio_spd_solve_cluster"])
+        libs[name] = lib
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for n in shapes:
+        a, b = wide_spd_systems(torch, gen, dev, WIDE_CEIL_B, n, 2 * n)
+        x = torch.empty_like(b)
+        plan = ck.spd_launch_plan(WIDE_CEIL_B, n, sm)
+        times = dict.fromkeys(libs, 0.0)
+        for name in [*libs, *reversed(libs)]:
+            def launch(lib=libs[name], name=name):
+                code = lib.pio_spd_solve_cluster(
+                    a.data_ptr(), b.data_ptr(), x.data_ptr(), WIDE_CEIL_B, n, plan.nb,
+                    32 * plan.warps, plan.cluster, plan.tiles, plan.blocks, plan.smem,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if code:
+                    raise AssertionError(f"knock-out {name} failed to launch: {code}")
+            times[name] += time_ms(torch, launch, 5, 1) / 2
+        emit({"phase": "spd_cluster_knockout", "n": n, "cluster": plan.cluster, "ms": times,
+              "phase_ms": {k: times["whole"] - v for k, v in times.items() if k != "whole"}})
+        del a, b, x
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
     """The solve above n = 128, each case handed to ``held(name, case, out,
     ok)``: at n = 129, 200, 256 (B = 4,096) the plan, the blocked kernel
@@ -4136,12 +4363,16 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
     through ``plan=``) and within KERNEL_TOL of the plain version, then
     event and device times of the blocked kernel and ``cholesky_solve`` in
     the order A B B A after a warm-up, the wide kernel's and the plain
-    version's beside them; both sides of the blocked path's ceiling (above
-    it PR 12's wide kernel, timed against ``cholesky_solve`` A B B A beside
-    its bound and the plain version); the zero-and-singular case; n = 400 on the wide path's scratch; and the
-    users' K = 128 bucket at rank 200, built by ``gramian_fused`` in
-    ``gramian_row_slices``' slices as ALS builds it, solved slice by slice
-    by each of the three."""
+    version's beside them; the blocked path's widest system; the cluster
+    path at WIDE_CLUSTER_NS and its ceiling (B = WIDE_CEIL_B) held the same
+    way, each plan beside ``cudaOccupancyMaxActiveClusters`` and the wide
+    kernel timed once on the same tensors; above that ceiling the wide
+    kernel beside its bound; a doctored cluster plan, which must raise; the
+    zero-and-singular cases on the blocked and cluster paths; n = 400 on the
+    wide kernel's scratch; and the users' K = 128 bucket at rank 200, built
+    by ``gramian_fused`` in ``gramian_row_slices``' slices as ALS builds it,
+    solved slice by slice by each of the three."""
+    from predictionio_tpu_torch.kernels import build
     from predictionio_tpu_torch.ops import cuda_kernels as ck
     from predictionio_tpu_torch.ops.cuda_kernels import (
         gramian_fused,
@@ -4161,6 +4392,7 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
     def plan_line(plan):
         return {"path": plan.path, "nb": plan.nb, "tiles": plan.tiles, "np": plan.np_,
                 "threads": 32 * plan.warps, "smem": plan.smem, "scratch": plan.scratch,
+                "cluster": plan.cluster, "blocks": plan.blocks,
                 "blocks_per_sm": plan.blocks_per_sm, "waves": plan.waves}
 
     def against_wide(a, b, n):
@@ -4183,76 +4415,80 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
     for n in WIDE_RANKS:
         a, b = spd_systems(WIDE_SPD_B, n, 2 * n)
         out, ok, plan, wide = against_wide(a, b, n)
-        kernel = lambda: spd_solve(a, b)  # noqa: E731
+        spd_abba(torch, out, lambda: spd_solve(a, b), lambda: library(a, b), 5, 3)
         earlier = lambda: spd_solve(a, b, plan=wide)  # noqa: E731
-        lib = lambda: library(a, b)  # noqa: E731
-        kernel(), lib()  # warm-up, then A B B A
-        abba = [time_ms(torch, kernel, 5, 1), time_ms(torch, lib, 3, 1),
-                time_ms(torch, lib, 3, 1), time_ms(torch, kernel, 5, 1)]
-        out["abba_ms"] = abba
-        out["kernel_ms"], out["library_ms"] = (abba[0] + abba[3]) / 2, (abba[1] + abba[2]) / 2
-        out["kernel_device_ms"] = traced_device_ms(torch, kernel, 5)
-        out["library_device_ms"] = traced_device_ms(torch, lib, 3)
         out["earlier_kernel_ms"] = time_ms(torch, earlier, 2, 1)
         out["earlier_kernel_device_ms"] = traced_device_ms(torch, earlier, 2)
         out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 2, 1)
-        bound_ms, out["bound_by"] = spd_bound(WIDE_SPD_B, n)
-        out["bound_us"] = bound_ms * 1e3
-        if out["kernel_device_ms"] is not None:
-            out["device_over_bound"] = out["kernel_device_ms"] / bound_ms
-            for key in ("library", "earlier_kernel"):
-                if out.get(f"{key}_device_ms"):
-                    out[f"device_over_{key}"] = out["kernel_device_ms"] / out[f"{key}_device_ms"]
+        spd_over_bound(out, WIDE_SPD_B, n)
         held("spd_solve", f"n{n}", out,
              ok and out["equal_to_wide_kernel"] and plan.path == "blocked")
         del a, b
-    # both sides of the blocked path's ceiling; above it PR 12's wide kernel
-    # is the path, timed beside its bound and the library call
-    for n in (ck.SPD_BLOCKED_MAX_N, ck.SPD_BLOCKED_MAX_N + 1):
+
+    # the blocked path's widest system
+    n = ck.SPD_BLOCKED_MAX_N
+    a, b = spd_systems(WIDE_CEIL_B, n, 2 * n)
+    out, ok, plan, _ = against_wide(a, b, n)
+    held("spd_solve", f"n{n}_blocked", out,
+         ok and plan.path == "blocked" and out["equal_to_wide_kernel"])
+    # the cluster path at its timed widths and its ceiling: bit for bit the
+    # wide kernel, A B B A against cholesky_solve, the wide kernel (and below
+    # the ceiling the plain version) timed beside it
+    for n in (*WIDE_CLUSTER_NS, ck.SPD_CLUSTER_MAX_N):
         a, b = spd_systems(WIDE_CEIL_B, n, 2 * n)
-        out, ok, plan, _ = against_wide(a, b, n)
-        blocked = n <= ck.SPD_BLOCKED_MAX_N
-        if not blocked:
-            kernel = lambda: spd_solve(a, b)  # noqa: E731
-            lib = lambda: library(a, b)  # noqa: E731
-            kernel(), lib()  # warm-up, then A B B A
-            abba = [time_ms(torch, kernel, 5, 1), time_ms(torch, lib, 3, 1),
-                    time_ms(torch, lib, 3, 1), time_ms(torch, kernel, 5, 1)]
-            dev_abba = [traced_device_ms(torch, kernel, 5), traced_device_ms(torch, lib, 3),
-                        traced_device_ms(torch, lib, 3), traced_device_ms(torch, kernel, 5)]
-            out["abba_ms"], out["abba_device_ms"] = abba, dev_abba
-            out["kernel_ms"], out["library_ms"] = (abba[0] + abba[3]) / 2, (abba[1] + abba[2]) / 2
-            pairs = ((dev_abba[0], dev_abba[3]), (dev_abba[1], dev_abba[2]))
-            out["kernel_device_ms"], out["library_device_ms"] = (
-                None if None in pair else (pair[0] + pair[1]) / 2 for pair in pairs)
-            out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 1, 1)
-            bound_ms, out["bound_by"] = spd_bound(WIDE_CEIL_B, n)
-            out["bound_us"] = bound_ms * 1e3
-            if out["kernel_device_ms"] is not None:
-                out["device_over_bound"] = out["kernel_device_ms"] / bound_ms
-                if out["library_device_ms"]:
-                    out["device_over_library"] = out["kernel_device_ms"] / out["library_device_ms"]
-        held("spd_solve", f"n{n}_{plan.path}", out,
-             ok and plan.path == ("blocked" if blocked else "wide")
-             and (out["equal_to_wide_kernel"] or not blocked))
-    a, b = spd_systems(256, 200, 400)
-    a[128:] = 0.0
-    dead = [0, 77, 199]
-    a[:64, dead, :] = 0.0
-    a[:64, :, dead] = 0.0
-    x_k, x_p = spd_solve(a, b), spd_solve_reference(a, b)
-    ok = (bool((x_k[128:] == 0).all()) and bool((x_k[:64, dead] == 0).all())
-          and bool(torch.isfinite(x_k).all()) and rel_err(x_k[:128], x_p[:128]) < KERNEL_TOL
-          and ck.spd_launch_plan(256, 200, sm).path == "blocked")
-    held("spd_solve", "n200_zero_and_singular",
-         {"max_abs_err": float((x_k - x_p).abs().max()),
-          "max_rel_err": rel_err(x_k[:128], x_p[:128]),
-          "equal_to_wide_kernel": bool(torch.equal(
-              x_k, spd_solve(a, b, plan=ck.spd_wide_launch_plan(256, 200, sm))))}, ok)
-    a, b = spd_systems(64, 400, 800)  # the packed triangle in device memory
-    x_k, x_p = spd_solve(a, b), spd_solve_reference(a, b)
+        out, ok, plan, wide = against_wide(a, b, n)
+        out.update(spd_cluster_waves(ck, plan, dev, sm))
+        spd_abba(torch, out, lambda: spd_solve(a, b), lambda: library(a, b), 5, 3)
+        earlier = lambda: spd_solve(a, b, plan=wide)  # noqa: E731
+        out["earlier_kernel_ms"] = time_ms(torch, earlier, 1, 0)
+        out["earlier_kernel_device_ms"] = traced_device_ms(torch, earlier, 1)
+        if n < ck.SPD_CLUSTER_MAX_N:
+            out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 1, 0)
+        spd_over_bound(out, WIDE_CEIL_B, n)
+        held("spd_solve", f"n{n}_cluster", out,
+             ok and plan.path == "cluster" and out["equal_to_wide_kernel"])
+        del a, b
+        torch.cuda.empty_cache()
+    # above the cluster path's ceiling the wide kernel, beside its bound
+    n = ck.SPD_CLUSTER_MAX_N + 1
+    a, b = spd_systems(WIDE_CLUSTER_CEIL_B, n, 2 * n)
+    out, ok, plan, _ = against_wide(a, b, n)
+    kernel = lambda: spd_solve(a, b)  # noqa: E731
+    out["kernel_ms"] = time_ms(torch, kernel, 1, 0)
+    out["kernel_device_ms"] = traced_device_ms(torch, kernel, 1)
+    out["library_ms"] = time_ms(torch, lambda: library(a, b), 3, 1)
+    spd_over_bound(out, WIDE_CLUSTER_CEIL_B, n)
+    held("spd_solve", f"n{n}_wide", out, ok and plan.path == "wide")
+    # a plan the C entry does not take is an error, never a fallback
+    a, b = spd_systems(8, 400, 800)
+    doctored = ck.spd_launch_plan(8, 400, sm)._replace(smem=ck.spd_launch_plan(8, 400, sm).smem + 16)
+    try:
+        spd_solve(a, b, plan=doctored)
+        refused = False
+    except build.KernelLaunchError:
+        refused = True
+    held("spd_solve", "n400_cluster_doctored_plan", {"max_abs_err": 0.0, "refused": refused},
+         refused)
+    # zero systems and dead pivots on the blocked and the cluster path
+    for n, path, dead in ((200, "blocked", [0, 77, 199]), (320, "cluster", [0, 160, 319])):
+        a, b = spd_systems(256, n, 2 * n)
+        a[128:] = 0.0
+        a[:64, dead, :] = 0.0
+        a[:64, :, dead] = 0.0
+        x_k, x_p = spd_solve(a, b), spd_solve_reference(a, b)
+        ok = (bool((x_k[128:] == 0).all()) and bool((x_k[:64, dead] == 0).all())
+              and bool(torch.isfinite(x_k).all()) and rel_err(x_k[:128], x_p[:128]) < KERNEL_TOL
+              and ck.spd_launch_plan(256, n, sm).path == path)
+        same = bool(torch.equal(x_k, spd_solve(a, b, plan=ck.spd_wide_launch_plan(256, n, sm))))
+        held("spd_solve", f"n{n}_zero_and_singular",
+             {"path": path, "max_abs_err": float((x_k - x_p).abs().max()),
+              "max_rel_err": rel_err(x_k[:128], x_p[:128]), "equal_to_wide_kernel": same},
+             ok and same)
+    a, b = spd_systems(64, 400, 800)  # the wide kernel's packed triangle in device memory
+    scratch = ck.spd_wide_launch_plan(64, 400, sm)
+    x_k, x_p = spd_solve(a, b, plan=scratch), spd_solve_reference(a, b)
     held("spd_solve", "n400_scratch",
-         {"scratch": ck.spd_launch_plan(64, 400, sm).scratch, "max_rel_err": rel_err(x_k, x_p),
+         {"scratch": scratch.scratch, "max_rel_err": rel_err(x_k, x_p),
           "max_abs_err": float((x_k - x_p).abs().max())},
          rel_err(x_k, x_p) < KERNEL_TOL)
     del a, b, x_k, x_p
@@ -4303,14 +4539,15 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     """The general-width paths against their plain versions: the build at
     R = 129, 200, 256 at both ML-20M bucket shapes (the users' bucket in
     the slices training cuts it into) and a split bucket, the solve at n =
-    129, 200, 256 with its edge cases, attention at D = 136, 192, 256
+    129, 200, 256 and on the cluster path (``wide_spd_cases``) with its
+    edge cases, attention at D = 136, 192, 256
     causal and not on the resident path, at D = 320 causal and not and at
     D = 280 and 302 on the streamed path, a plan forcing the streamed path
     at D = 256 (``torch.equal`` to the resident kernel), and at D = 384 on
     the passes path. Each kernel's registers and local bytes first (no
     local memory; the attention kernels' and the blocked solve's registers
-    equal to their plan constants, the build's and the wide solve's within
-    their launch bounds); each case prints its plan and its error, the
+    equal to their plan constants, the build's and the wide and cluster
+    solves' within their launch bounds); each case prints its plan and its error, the
     timed ones the kernel's event and device time beside the plain
     version's, the library call's and the bound, and the resident and
     streamed cases the passes kernel's time on the same tensors."""
@@ -4328,11 +4565,12 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     attrs = {"gramian_fused": {k: v for k, v in ck.gramian_kernel_attributes(dev).items()
                                if k.startswith(("wide", "rows"))},
              "spd_solve": {k: spd_attrs[k] for k in ("blocked", "wide")},
+             "spd_solve_cluster": ck.spd_cluster_kernel_attributes(dev),
              "flash_attention": ck.flash_wide_kernel_attributes(dev),
              "flash_attention_resident": ck.flash_resident_kernel_attributes(dev),
              "flash_attention_streamed": ck.flash_streamed_kernel_attributes(dev)}
     flat = [*attrs["gramian_fused"].values(), *attrs["spd_solve"].values(),
-            attrs["flash_attention"], *attrs["flash_attention_resident"].values(),
+            *attrs["spd_solve_cluster"].values(), attrs["flash_attention"], *attrs["flash_attention_resident"].values(),
             attrs["flash_attention_streamed"]]
     emit({"phase": "wide", "attributes": attrs})
     regs_ok = (all(attrs["gramian_fused"][k]["regs"] <= ck.GRAMIAN_WIDE_REGS
@@ -4341,6 +4579,8 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                        for k, regs in ck.GRAMIAN_ROWS_REGS.items())
                and attrs["spd_solve"]["wide"]["regs"] <= ck.SPD_WIDE_REGS
                and attrs["spd_solve"]["blocked"]["regs"] == ck.SPD_BLOCKED_REGS
+               and all(-(-attrs["spd_solve_cluster"][f"cluster_c{c}"]["regs"] // 8) * 8 == regs
+                       for c, regs in ck.SPD_CLUSTER_REGS.items())
                and attrs["flash_attention"]["regs"] == ck.FLASH_WIDE_REGS
                and all(a["regs"] == ck.FLASH_WIDE_RES_REGS[g]
                        for g, a in attrs["flash_attention_resident"].items())
@@ -4357,8 +4597,9 @@ def wide_kernels(torch, dev, seed: int) -> dict:
         worst[name] = max(worst[name], out["max_abs_err"])
         cases[f"{name}:{case}"] = out
 
-    # the build, at both bucket shapes, every wide rank
-    for r in WIDE_RANKS:
+    # the build, at both bucket shapes, every wide rank and the cluster
+    # solve's ALS rank (the tile path)
+    for r in (*WIDE_RANKS, WIDE_CLUSTER_ALS_RANK):
         for side, b, k, n in WIDE_BUCKETS:
             out, ok = gramian_wide_case(torch, dev, gen, sm, b, k, n, r)
             held("gramian_fused", f"{side}_R{r}", {"R": r, "side": side, **out}, ok)
@@ -4725,79 +4966,99 @@ def seq_burst(torch, dev, port: int, seq_model, seq_params, rng, launch_count=No
             "launches": launches}
 
 
-def phase_wide(torch, dev, seed: int, base: str) -> dict:
-    """The general-width paths: :func:`wide_kernels`, then over the events
-    phase's store ALS at rank 200 trained by ``run_train`` (3 iterations;
-    build and solve launches reset just before and read just after) held
-    to 3 iterations of the plain build and solve, with its holdout RMSE
-    (3 iterations through the kernels on 95 % of the ratings), and seqrec
-    by :func:`seqrec_wide` at d_model 256 / 1 head (D = 256, the resident
-    path; 20 steps, 64 queries) and at d_model 320 / 1 head (D = 320, the
-    streamed path; 10 steps, 16 queries)."""
+def als_wide(torch, dev, registry, source, rank: int) -> dict:
+    """ALS at ``rank`` over the events phase's store, trained by
+    ``run_train`` (PARITY_ITERS iterations; build and solve launches, in all
+    and by path, reset just before and read just after) and held to as many
+    iterations of the plain build and solve, with its holdout RMSE (the
+    same iterations through the kernels on 95 % of the ratings). Every build
+    must take the build's path at this rank and every solve the solve's."""
     from predictionio_tpu_torch.controller import EngineParams
     from predictionio_tpu_torch.models import recommendation as rec
     from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
     from predictionio_tpu_torch.ops.cuda_kernels import gramian_fused, spd_solve
     from predictionio_tpu_torch.workflow import WorkflowContext, load_models, run_train
+
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    build_path = ck.gramian_plan(1, 128, rank, sm).path
+    solve_path = ck.spd_launch_plan(1, rank, sm).path
+    params = rec.ALSAlgorithmParams(rank=rank, num_iterations=PARITY_ITERS,
+                                    lambda_=LAMBDA, seed=TRAIN_SEED)
+    gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+    for by_path in (gramian_fused.launches_by_path, spd_solve.launches_by_path):
+        by_path.update(dict.fromkeys(by_path, 0))
+    t = time.monotonic()
+    instance = run_train(rec.engine_factory(),
+                         EngineParams(data_source_params=source,
+                                      algorithm_params_list=[("als", params)]),
+                         registry, engine_id=f"wide-als-{rank}", ctx=WorkflowContext(device=dev))
+    seconds = time.monotonic() - t
+    launches = {"gramian_fused": gramian_fused.launches,
+                f"gramian_{build_path}": gramian_fused.launches_by_path[build_path],
+                "spd_solve": spd_solve.launches,
+                f"spd_{solve_path}": spd_solve.launches_by_path[solve_path]}  # main path ends here
+    (model,) = load_models(registry, instance)
+    td = rec.RecDataSource(source[1]).read_training(None)
+    cfg = rec.als_config(params)
+    against = als_against_plain(torch, dev, model, td, cfg)
+    keep = ~holdout_mask(len(td.users))
+    n_u, n_i = len(td.user_map), len(td.item_map)
+    split = als.als_train_coo(td.users[keep], td.items[keep], td.ratings[keep],
+                              n_u, n_i, cfg, device=dev)
+    holdout = als.rmse(split, td.users[~keep], td.items[~keep], td.ratings[~keep])
+    train_rmse = als.rmse(split, td.users[keep], td.items[keep], td.ratings[keep])
+    out = {"instance": instance, "rank": rank, "iterations": PARITY_ITERS,
+           "build_path": build_path, "solve_path": solve_path, "launches": launches,
+           "holdout_rmse": holdout, "train_rmse": train_rmse, **against}
+    emit({"phase": "wide", "stage": f"als_rank{rank}", **out, "seconds": seconds})
+    ok = (against["first_user_solve"]["beyond_tol"] == 0
+          and all(against[s]["finite"] and against[s]["beyond_tol"] == 0
+                  for s in ("user", "item"))
+          and min(launches.values()) >= 2 * PARITY_ITERS
+          and launches[f"gramian_{build_path}"] == launches["gramian_fused"]
+          and launches[f"spd_{solve_path}"] == launches["spd_solve"]
+          and np.isfinite(holdout))
+    if not ok:
+        raise AssertionError(f"ALS at rank {rank}: {out}")
+    return {**out, "seconds": seconds}
+
+
+def phase_wide(torch, dev, seed: int, base: str) -> dict:
+    """The general-width paths: :func:`wide_kernels`, then over the events
+    phase's store :func:`als_wide` at rank 200 (the build's rows path, the
+    blocked solve) and at rank 384 (the build's tile path, the cluster
+    solve), and seqrec by :func:`seqrec_wide` at d_model 256 / 1 head (D =
+    256, the resident path; 20 steps, 64 queries) and at d_model 320 / 1
+    head (D = 320, the streamed path; 10 steps, 16 queries)."""
+    from predictionio_tpu_torch.models import recommendation as rec
 
     t0 = time.monotonic()
     kernels = wide_kernels(torch, dev, seed)
     seconds = {"kernels": time.monotonic() - t0}
-    launches = {}
     rng = np.random.default_rng(seed + 13)
     source = ("", rec.RecDataSourceParams(app_id=EVENTS_APP, event_names=("rate",)))
     with events_store(base) as registry:
-        params = rec.ALSAlgorithmParams(rank=WIDE_ALS_RANK, num_iterations=PARITY_ITERS,
-                                        lambda_=LAMBDA, seed=TRAIN_SEED)
-        gramian_fused.launches = spd_solve.launches = 0  # main path starts here
-        gramian_fused.launches_by_path.update(dict.fromkeys(gramian_fused.launches_by_path, 0))
-        t = time.monotonic()
-        instance = run_train(rec.engine_factory(),
-                             EngineParams(data_source_params=source,
-                                          algorithm_params_list=[("als", params)]),
-                             registry, engine_id="wide-als", ctx=WorkflowContext(device=dev))
-        seconds["als_run_train"] = time.monotonic() - t
-        launches["als_run_train"] = {"gramian_fused": gramian_fused.launches,
-                                     "gramian_rows": gramian_fused.launches_by_path["rows"],
-                                     "spd_solve": spd_solve.launches}  # main path ends here
-        (model,) = load_models(registry, instance)
-        td = rec.RecDataSource(source[1]).read_training(None)
-        cfg = rec.als_config(params)
-        against = als_against_plain(torch, dev, model, td, cfg)
-        keep = ~holdout_mask(len(td.users))
-        n_u, n_i = len(td.user_map), len(td.item_map)
-        split = als.als_train_coo(td.users[keep], td.items[keep], td.ratings[keep],
-                                  n_u, n_i, cfg, device=dev)
-        holdout = als.rmse(split, td.users[~keep], td.items[~keep], td.ratings[~keep])
-        train_rmse = als.rmse(split, td.users[keep], td.items[keep], td.ratings[keep])
-        als_out = {"instance": instance, "rank": WIDE_ALS_RANK, "iterations": PARITY_ITERS,
-                   "launches": launches["als_run_train"], "holdout_rmse": holdout,
-                   "train_rmse": train_rmse, **against}
-        emit({"phase": "wide", "stage": "als_rank200", **als_out,
-              "seconds": seconds["als_run_train"]})
-        ok = (against["first_user_solve"]["beyond_tol"] == 0
-              and all(against[s]["finite"] and against[s]["beyond_tol"] == 0
-                      for s in ("user", "item"))
-              and min(launches["als_run_train"].values()) >= 2 * PARITY_ITERS
-              and launches["als_run_train"]["gramian_rows"] == launches["als_run_train"][
-                  "gramian_fused"]
-              and np.isfinite(holdout))
-        if not ok:
-            raise AssertionError(f"ALS at rank {WIDE_ALS_RANK}: {als_out}")
-
+        als_out = als_wide(torch, dev, registry, source, WIDE_ALS_RANK)
+        als_cluster = als_wide(torch, dev, registry, source, WIDE_CLUSTER_ALS_RANK)
         seq_out = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ, EVENTS_SEQ_STEPS,
                               HTTP_QUERIES, "wide-seqrec")
         seq_streamed = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ_STREAMED,
                                    WIDE_SEQ_STREAMED_STEPS, WIDE_SEQ_STREAMED_QUERIES,
                                    "wide-seqrec-d320")
-    seconds.update(seqrec_run_train=seq_out["train_s"],
+    seconds.update(als_run_train=als_out["seconds"],
+                   als_rank384_run_train=als_cluster["seconds"],
+                   seqrec_run_train=seq_out["train_s"],
                    seqrec_d320_run_train=seq_streamed["train_s"],
                    seqrec_d320_serve=seq_streamed["serve_s"])
-    out = {"phase": "wide", "kernels": kernels, "als": als_out, "seqrec": seq_out,
-           "seqrec_d320": seq_streamed, "seconds": seconds, "by_kernel": {
-               "gramian_fused": launches["als_run_train"]["gramian_fused"],
-               "gramian_rows": launches["als_run_train"]["gramian_rows"],
-               "spd_solve": launches["als_run_train"]["spd_solve"],
+    runs = (als_out["launches"], als_cluster["launches"])
+    out = {"phase": "wide", "kernels": kernels, "als": als_out, "als_rank384": als_cluster,
+           "seqrec": seq_out, "seqrec_d320": seq_streamed, "seconds": seconds, "by_kernel": {
+               "gramian_fused": sum(x["gramian_fused"] for x in runs),
+               "gramian_rows": als_out["launches"]["gramian_rows"],
+               "spd_solve": sum(x["spd_solve"] for x in runs),
+               "spd_cluster": als_cluster["launches"]["spd_cluster"],
+               "gramian_wide": als_cluster["launches"]["gramian_wide"],
                "flash_attention": sum(sum(x["launches"].values())
                                       for x in (seq_out, seq_streamed)),
                "flash_attention_streamed": sum(seq_streamed["path_launches"].values())}}
@@ -5308,7 +5569,8 @@ def main(argv=None) -> int:
                          wide_path=wide_lines(wide, name))
         if name == "gramian_fused":
             lines[-1].update(widest_bucket=kernels["widest"],
-                             attributes=kernels["attributes"])
+                             attributes=kernels["attributes"],
+                             tile_path_launches=wide["by_kernel"]["gramian_wide"])
         else:
             lines[-1].update(bound_whole_a_ms=it["bound_whole_a_ms"],
                              plan_n50=spd_plan(torch, dev, data["n_users"], RANK),
@@ -5412,6 +5674,39 @@ def main(argv=None) -> int:
         "plan": ref["plan"],
         "cases": sorted(name.split(":", 1)[1] for name in streamed),
         "attributes": wide["kernels"]["attributes"]["flash_attention_streamed"],
+    })
+    # the solve's cluster path (304 < n <= 768) on its own line: launched by
+    # ALS at rank 384 in the wide phase, timed at n = 384 (B = 1,024) beside
+    # cholesky_solve and the wide kernel on the same tensors
+    ref = cases["spd_solve:n384_cluster"]
+    timed = {name.split(":", 1)[1]: out for name, out in cases.items()
+             if name.startswith("spd_solve:") and out.get("plan", {}).get("path") == "cluster"}
+    lines.append({
+        "name": "spd_cluster_kernel",
+        "route": "cuda",
+        "source": SPD_SOURCE,
+        "replaces": SPD_REPLACES,
+        "launches": wide["by_kernel"]["spd_cluster"],
+        "launches_by_path": {"wide_als_rank384": wide["by_kernel"]["spd_cluster"]},
+        "max_abs_err": max(out["max_abs_err"] for out in timed.values()),
+        "ms": ref["kernel_ms"],
+        "plain_ms": ref["plain_ms"],
+        "bound_ms": ref["bound_us"] / 1e3,
+        "bound_by": ref["bound_by"],
+        "library_ms": ref["library_ms"],
+        "device_ms": ref["kernel_device_ms"],
+        "library_device_ms": ref["library_device_ms"],
+        "wide_kernel_ms": ref["earlier_kernel_ms"],
+        "wide_kernel_device_ms": ref["earlier_kernel_device_ms"],
+        "shape": {"B": ref["B"], "n": ref["n"]},
+        "plan": ref["plan"],
+        "timed": {case: {k: out.get(k) for k in (
+            "B", "plan", "occupancy_clusters", "plan_clusters", "occupancy_waves", "plan_waves",
+            "abba_ms", "abba_device_ms",
+            "kernel_ms", "kernel_device_ms", "library_ms", "library_device_ms",
+            "earlier_kernel_ms", "earlier_kernel_device_ms", "plain_ms", "bound_us", "bound_by",
+            "max_rel_err", "equal_to_wide_kernel")} for case, out in timed.items()},
+        "attributes": wide["kernels"]["attributes"]["spd_solve_cluster"],
     })
     emit({"kernels": lines})
     print(smi, flush=True)

@@ -20,11 +20,13 @@
 // chip_smoke.py against the plain PyTorch version on the card): a [B, n, n]
 // and b [B, n] f32, batch-major (the layout the gramian_fused kernel writes),
 // any B and any n >= 1: n up to kMaxN = 128 through pio_spd_solve, wider n
-// through pio_spd_solve_blocked while its tiles fit in shared memory (n <=
-// 304) and pio_spd_solve_wide above (the general-n path). The launch plan
-// (path, padded width, warps a block, blocks, shared memory) is
-// spd_launch_plan's in ops/cuda_kernels.py, which picks the path by n alone;
-// each entry checks it against its own arithmetic.
+// through pio_spd_solve_blocked while its tiles fit in one block's shared
+// memory (n <= 304), through pio_spd_solve_cluster while they fit in a
+// cluster's (n <= 768) and pio_spd_solve_wide above (the general-n path).
+// The launch plan (path, padded width, warps a block, blocks, shared
+// memory, cluster size) is spd_launch_plan's in ops/cuda_kernels.py, which
+// picks the path by n alone; each entry checks it against its own
+// arithmetic.
 //
 // Design, n <= 64 (the "registers" path; ALS at rank 50). One warp owns one
 // system, held in registers: lane c owns column c (slot 0) and column c + 32
@@ -80,7 +82,41 @@
 // the FP32 rate (chip_smoke.py::spd_blocked_knockouts times each phase).
 // 64 registers, no local memory (its launch bound; 4 blocks an SM at n = 129).
 //
-// Design, n > 304 (the "wide" path, the first version): one block a system,
+// Design, 304 < n <= 768 (the "cluster" path; ALS at ranks 305-768): the
+// blocked path's tiles, steps and order spread over a thread-block cluster
+// of C = 2, 4 or 8 blocks a system (the smallest C whose largest block fits
+// in 227 KB: n <= 432, 576, 768), launched with cudaLaunchKernelEx and the
+// cluster-dimension attribute. Tile column J, its tiles (I, J) for I <= J
+// and y's segment J live in block J mod C, which copies them in with
+// cp.async (the input is never written); L's strip rows [nb][np] and the
+// diagonal tile's L rows, inv_d and z_j are copied in every block. Panel
+// p: the strip, each block its own columns right of the panel against the
+// diagonal tile's L rows, each column's L rows pushed into every block's
+// strip buffer (distributed shared memory, DSMEM); a cluster barrier; the
+// trailing update, each block its own tiles in 4 x 4 register tiles from
+// its own copy of the strip, while warp 0 of the owner of panel p + 1
+// brings that diagonal tile up to date, steps it and pushes its L rows
+// (lookahead); a cluster barrier (its release and acquire make the pushed
+// stores visible). A block writes another's strip buffer only in a strip
+// and its diagonal rows only in a trailing update, and reads each only in
+// the other phase, so one buffer of each and two barriers a panel do. Back
+// substitution by panels, one cluster barrier a panel: the owner of panel p
+// takes panel p + 1's x off the panel's rows and solves the panel on warp
+// 0 (that x pushed to it, its row of tile (p, p + 1) read a panel ahead, so
+// no DSMEM load waits in the chain); meanwhile the owner of panel p + 1
+// takes its x off every row above panel p (column p + 1's tiles are its
+// own), each y_r read and written in the block that holds it. Every element of U and y has one owner and takes the blocked path's
+// FMAs in its order, so the answer is the wide kernel's bit for bit
+// (chip_smoke.py holds them equal). A last cluster barrier keeps every block
+// until no other can touch its memory. No fallback: a cluster launch the
+// card refuses returns its error. What sets the pace (one 136-226 KB block
+// an SM; chip_smoke.py::spd_cluster_knockouts times each phase): the
+// cluster barriers and the waits at them (26-37 %), back substitution's
+// barrier a panel (16-20 %) and the diagonal warp's chain, not the FMAs.
+// 166-168 registers (184 at C = 8), no local memory; a launch bound of two
+// blocks an SM spilled.
+//
+// Design, n > 768 (the "wide" path, the first version): one block a system,
 // min(256, n rounded up to 32) threads, thread t owning columns t, t + T, ...
 // of U. The upper triangle is packed row by row (n(n+1)/2 floats) in shared
 // memory while it fits beside y and L's column (n <= 338 at 227 KB), and in
@@ -103,6 +139,7 @@
 // bound of each launch, and the whole A's for comparison, beside its time.
 // All arithmetic is fp32 on the CUDA cores.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -681,6 +718,294 @@ spd_blocked_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// ---- the cluster path (the blocked ceiling < n <= the cluster ceiling) ------
+constexpr int kClThreads = 256;   // threads a block
+constexpr int kClMinBlocks = 1;   // launch bound: a block an SM (its shared memory allows no more)
+constexpr int kClSizes[] = {2, 4, 8};  // cluster sizes, smallest first
+
+// Tile columns block `rank` of a cluster of c owns at t tiles a side: J =
+// rank, rank + c, ... < t.
+__host__ __device__ constexpr int cl_cols(int t, int c, int rank) {
+  return rank < t ? (t - 1 - rank) / c + 1 : 0;
+}
+// its tiles: (I, J), I <= J, over those columns
+__host__ __device__ constexpr long long cl_tiles(int t, int c, int rank) {
+  return static_cast<long long>(cl_cols(t, c, rank)) * (rank + 1) +
+         static_cast<long long>(c) * cl_cols(t, c, rank) * (cl_cols(t, c, rank) - 1) / 2;
+}
+__host__ __device__ constexpr long long cl_max_tiles(int t, int c) {
+  long long most = 0;
+  for (int r = 0; r < c; ++r) most = cl_tiles(t, c, r) > most ? cl_tiles(t, c, r) : most;
+  return most;
+}
+// Dynamic shared memory of every block of the cluster, bytes: the blocked
+// path's terms with the largest block's tiles (every block lays its memory
+// out alike, so a buffer lies at the same offset in each and a block
+// addresses another's through the offset of its own).
+__host__ __device__ constexpr long long cl_smem_bytes(int t, int c, int nb) {
+  return 4 * (cl_max_tiles(t, c) * nb * nb + static_cast<long long>(nb) * t * nb + t * nb +
+              nb * nb + 2LL * nb + cl_max_tiles(t, c));
+}
+// this block's columns left of tile column i: the index, among its
+// columns, of its first column at or right of i
+__device__ __forceinline__ int cl_first(int i, int c, int rank) {
+  return i <= rank ? 0 : (i - rank + c - 1) / c;
+}
+// The index of this block's first tile of row i (its tiles lie row-major:
+// row i holds m - cl_first(i) of them, m its columns).
+__device__ __forceinline__ int cl_row_start(int i, int m, int c, int rank) {
+  const int u = i - 1 - rank;  // rows rank + 1 .. i - 1 start right of an own column
+  if (u <= 0) return i * m;
+  const int q = u / c, r = u % c;
+  return i * m - (c * q * (q + 1) / 2 + r * (q + 1));
+}
+// the index of tile (i, j) of the block `rank` that holds column j
+__device__ __forceinline__ int cl_tile(int i, int j, int m, int c, int rank) {
+  return cl_row_start(i, m, c, rank) + (j - rank) / c - cl_first(i, c, rank);
+}
+
+// A strip column's L rows (NB floats at pitch np, just written by this
+// thread) into the same place in every other block of the cluster.
+template <int NB, int C>
+__device__ __forceinline__ void cl_push_column(const cooperative_groups::cluster_group& cluster,
+                                               int rank, float* lcol, int np) {
+  float v[NB];
+#pragma unroll
+  for (int r = 0; r < NB; ++r) v[r] = lcol[r * np];
+#pragma unroll
+  for (int q = 1; q < C; ++q) {
+    float* dst = cluster.map_shared_rank(lcol, (rank + q) % C);
+#pragma unroll
+    for (int r = 0; r < NB; ++r) dst[r * np] = v[r];
+  }
+}
+
+// The panel's diagonal L rows, inv_d and z_j (s_ld, s_inv, s_z: NB * NB +
+// 2 NB floats in a row) into every other block, by one warp in 16-byte words.
+template <int NB, int C>
+__device__ __forceinline__ void cl_push_panel(const cooperative_groups::cluster_group& cluster,
+                                              int rank, float* s_ld, int lane) {
+  constexpr int V = (NB * NB + 2 * NB) / 4;
+  const float4* src = reinterpret_cast<const float4*>(s_ld);
+  for (int i = lane; i < (C - 1) * V; i += kWarp) {
+    float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(s_ld, (rank + 1 + i / V) % C));
+    dst[i % V] = src[i % V];
+  }
+}
+
+// One system on a cluster of C blocks, the blocked path's arithmetic: tile
+// column J (the tiles (I, J), I <= J) and y's segment J in block J mod C.
+template <int NB, int C>
+__global__ void __launch_bounds__(kClThreads, kClMinBlocks)
+spd_cluster_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   float* __restrict__ x, int n, int t, int tmax) {
+  constexpr int TF = NB * NB;  // floats a tile, row-major
+  constexpr int G = NB / 4;    // 4 x 4 register tiles a tile side
+  constexpr int kWarps = kClThreads / kWarp;
+  extern __shared__ __align__(16) float smem[];
+  const cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int np = t * NB;
+  const int m = cl_cols(t, C, rank);                  // this block's tile columns
+  const int own = static_cast<int>(cl_tiles(t, C, rank));
+  float* s_u = smem;                                  // its tiles, row-major
+  float* s_l = s_u + static_cast<size_t>(tmax) * TF;  // [NB][np]: row k, l_c of the panel's step k
+  float* s_y = s_l + NB * np;                         // [np] (its segments)
+  float* s_ld = s_y + np;                             // [NB][NB] the diagonal tile's L rows
+  float* s_inv = s_ld + TF;                           // [NB] inv_d of the panel's steps
+  float* s_z = s_inv + NB;                            // [NB] z_j of the panel's steps
+  int* s_ij = reinterpret_cast<int*>(s_z + NB);       // [own] (I << 16) | J
+  const size_t sys = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+
+  for (int i = tid; i < t; i += kClThreads) {
+    const int f = cl_first(i, C, rank);
+    const int q0 = cl_row_start(i, m, C, rank);
+    for (int jl = f; jl < m; ++jl) s_ij[q0 + jl - f] = (i << 16) | (rank + jl * C);
+  }
+  for (int c = tid; c < np; c += kClThreads) s_y[c] = c < n ? b[sys * n + c] : 0.f;
+  // its tiles of the upper triangle, a warp a row, as on the blocked path
+  const float* a_g = a + sys * n * n;
+  for (int r = warp; r < np; r += kWarps) {
+    const int ti = r / NB;
+    const int f = cl_first(ti, C, rank);
+    float* row = s_u + static_cast<size_t>(cl_row_start(ti, m, C, rank)) * TF + (r % NB) * NB;
+    for (int k = lane; k < (m - f) * NB; k += kWarp) {
+      const int c = (rank + (f + k / NB) * C) * NB + k % NB;
+      float* dst = row + (k / NB) * TF + k % NB;
+      if (c >= r && c < n) {
+        copy4(dst, a_g + static_cast<size_t>(r) * n + c);
+      } else {
+        *dst = r == c ? 1.f : 0.f;
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cluster.sync();  // every block has started and holds its tiles
+
+  // Panel p, two cluster barriers: the strip (each block its columns right
+  // of the panel, L's rows pushed to every block), then the trailing update
+  // (each block its tiles) while the owner of panel p + 1 brings that
+  // diagonal tile up to date, steps it and pushes its L rows, inv_d and z_j.
+  // A block writes another's s_l only in a strip and its s_ld only in a
+  // trailing update, and reads each only in the other phase, so one buffer
+  // of each does.
+  for (int p = -1; p < t; ++p) {
+    const int e = (p + 1) * NB;  // the first column right of panel p
+    if (p >= 0) {
+      // the strip: this block's columns right of the panel, a thread a column
+      const int f = cl_first(p + 1, C, rank);
+      const int q0 = cl_row_start(p, m, C, rank) + f - cl_first(p, C, rank);
+      for (int k = tid; k < (m - f) * NB; k += kClThreads) {
+        const int c = (rank + (f + k / NB) * C) * NB + k % NB;
+        s_y[c] = blk_strip<NB>(s_u + static_cast<size_t>(q0 + k / NB) * TF + k % NB, s_l + c, np,
+                               s_ld, s_inv, s_z, s_y[c]);
+        cl_push_column<NB, C>(cluster, rank, s_l + c, np);
+      }
+      cluster.sync();
+    }
+    if (p + 1 < t) {
+      const bool mine = (p + 1) % C == rank;
+      const int qd = cl_row_start(p + 1, m, C, rank);  // the next diagonal tile, if mine
+      if (mine && warp == 0) {
+        const int me = lane_id();
+        const int rg = me / G, cg = me % G;
+        if (p >= 0 && me < G * G && rg <= cg) {
+          blk_update4<NB>(s_u + static_cast<size_t>(qd) * TF + 4 * rg * NB + 4 * cg,
+                          s_l + e + 4 * rg, s_l + e + 4 * cg, np, rg == cg);
+        }
+        __syncwarp();
+        blk_panel<NB>(s_u + static_cast<size_t>(qd) * TF, s_y + e, s_ld, s_inv, s_z, lane);
+        __syncwarp();
+        cl_push_panel<NB, C>(cluster, rank, s_ld, lane);
+      } else if (p >= 0) {
+        // the trailing update: this block's tiles below the panel, a 4 x 4
+        // register tile a thread (the next diagonal tile is its owner's warp 0's)
+        const int first = mine ? qd + 1 : qd;
+        const int lead = mine ? kWarp : 0;
+        const int count = (own - first) * G * G;
+        for (int f = tid - lead; f < count; f += kClThreads - lead) {
+          const int q = first + f / (G * G);
+          const int rg = f / G % G, cg = f % G;
+          const int ij = s_ij[q];
+          const int ti = ij >> 16, tj = ij & 0xffff;
+          if (ti == tj && rg > cg) continue;  // below the diagonal
+          blk_update4<NB>(s_u + static_cast<size_t>(q) * TF + 4 * rg * NB + 4 * cg,
+                          s_l + ti * NB + 4 * rg, s_l + tj * NB + 4 * cg, np,
+                          ti == tj && rg == cg);
+        }
+      }
+    }
+    cluster.sync();
+  }
+
+  // Back substitution by panels from the last, one cluster barrier a panel:
+  // the owner of panel p takes panel p + 1's x off the panel's rows and
+  // solves it on warp 0, with that x pushed into its memory by the owner of
+  // panel p + 1 and its lanes' rows of tile (p, p + 1) read from that block
+  // a panel ahead, so that nothing remote waits in the chain; meanwhile the
+  // owner of panel p + 1, whose column those tiles are, takes that x off
+  // every row above panel p, each y_r in the block of its segment. Each y_r
+  // takes its x_j with j descending, as on the wide path. L's buffer holds x.
+  float* s_x = s_l;
+  float urem[NB];  // warp 0 of the owner of panel p: its lane's row of tile (p, p + 1)
+  for (int p = t - 1; p >= 0; --p) {
+    const int s = p * NB;
+    const int e = s + NB;
+    const int next = (p + 1) % C;
+    if (p % C == rank && warp == 0) {
+      const float* diag = s_u + static_cast<size_t>(cl_row_start(p, m, C, rank)) * TF;
+      float urow[NB];
+#pragma unroll
+      for (int g = 0; g < NB / 4; ++g) load4(diag + (lane % NB) * NB, g, urow + 4 * g);
+      float yv = lane < NB ? s_y[s + lane] : 0.f;
+      const float d = lane < NB ? diag[lane * (NB + 1)] : 0.f;
+      const float dinv = d > 0.f ? 1.f / d : 0.f;
+      if (p + 1 < t && lane < NB) {
+        float xv[NB];
+#pragma unroll
+        for (int g = 0; g < NB / 4; ++g) load4(s_x + e, g, xv + 4 * g);
+#pragma unroll
+        for (int j = NB - 1; j >= 0; --j) yv = __fmaf_rn(-urem[j], xv[j], yv);
+      }
+      float xs = 0.f;
+#pragma unroll
+      for (int j = NB - 1; j >= 0; --j) {
+        const float xj = __shfl_sync(kFull, yv * dinv, j);
+        if (lane == j) xs = xj;
+        if (lane < j) yv = __fmaf_rn(-urow[j], xj, yv);
+      }
+      if (lane < NB) {
+        s_x[s + lane] = xs;
+        if (p > 0) *cluster.map_shared_rank(s_x + s + lane, (p - 1) % C) = xs;
+        if (s + lane < n) x[sys * n + s + lane] = xs;
+      }
+    } else if (next == rank && p + 1 < t) {
+      for (int r = tid; r < s; r += kClThreads) {
+        const int ti = r / NB;
+        float* yr = cluster.map_shared_rank(s_y, ti % C) + r;
+        *yr = take_panel<NB>(s_u + static_cast<size_t>(cl_tile(ti, p + 1, m, C, rank)) * TF +
+                                 (r % NB) * NB,
+                             s_x + e, *yr);
+      }
+    }
+    if (p > 0 && (p - 1) % C == rank && warp == 0) {  // the next panel's owner reads ahead
+      const int o = p % C;
+      const float* tile = cluster.map_shared_rank(s_u, o) +
+                          static_cast<size_t>(cl_tile(p - 1, p, cl_cols(t, C, o), C, o)) * TF;
+#pragma unroll
+      for (int g = 0; g < NB / 4; ++g) load4(tile + (lane % NB) * NB, g, urem + 4 * g);
+    }
+    cluster.sync();  // and no block leaves while another may use its memory
+  }
+}
+
+// The launch of a cluster of C blocks a system (cudaLaunchKernelEx with
+// the cluster-dimension attribute), or the config the occupancy query asks
+// about; the kernel's shared memory opt-in first.
+template <int C>
+cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int blocks,
+                           int smem, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      spd_cluster_kernel<kBlkNb, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(kClThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int C>
+cudaError_t launch_cluster(const float* a, const float* b, float* x, int blocks, int n, int t,
+                           int tmax, int smem, cudaStream_t st) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<C>(&cfg, &attr, blocks, smem, st);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, spd_cluster_kernel<kBlkNb, C>, a, b, x, n, t, tmax);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t cluster_occupancy(int smem, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err = cluster_config<C>(&cfg, &attr, C, smem, nullptr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out, spd_cluster_kernel<kBlkNb, C>, &cfg);
+}
+
 template <int NP>
 cudaError_t launch_reg(const float* a, const float* b, float* x, int B, int n,
                        int smem, cudaStream_t st) {
@@ -797,6 +1122,73 @@ extern "C" int pio_spd_solve_blocked(const void* a, const void* b, void* x, int 
   spd_blocked_kernel<kBlkNb><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(x), n, t);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the cluster path (kMaxN < n, as long as the largest block's share
+// fits in shared memory) on `stream` and returns its first error (0 = ok; a
+// cluster launch the card refuses is an error). Device pointers as
+// pio_spd_solve's. The plan: the tile width nb, threads a block, blocks a
+// cluster (2, 4 or 8), the largest block's tiles at t = ceil(n / nb), blocks
+// (= B * cluster) and dynamic shared memory in bytes; a plan that does not
+// match this arithmetic is refused (cudaErrorInvalidValue).
+extern "C" int pio_spd_solve_cluster(const void* a, const void* b, void* x, int B, int n,
+                                     int nb, int threads, int cluster, int tiles, int blocks,
+                                     int smem, void* stream) {
+  if (B < 1 || n <= kMaxN || n > kWideMaxN || nb != kBlkNb || threads != kClThreads ||
+      (cluster != kClSizes[0] && cluster != kClSizes[1] && cluster != kClSizes[2])) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int t = (n + nb - 1) / nb;
+  const long long want = cl_smem_bytes(t, cluster, nb);
+  if (want > kMaxSmem || tiles != cl_max_tiles(t, cluster) ||
+      blocks != static_cast<long long>(B) * cluster || smem != want) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  float* xf = static_cast<float*>(x);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (cluster) {
+    case 2: err = launch_cluster<2>(af, bf, xf, blocks, n, t, tiles, smem, st); break;
+    case 4: err = launch_cluster<4>(af, bf, xf, blocks, n, t, tiles, smem, st); break;
+    case 8: err = launch_cluster<8>(af, bf, xf, blocks, n, t, tiles, smem, st); break;
+  }
+  return static_cast<int>(err);
+}
+
+// Clusters of `cluster` blocks with `smem` bytes of dynamic shared memory
+// each that the card holds at once (cudaOccupancyMaxActiveClusters), into
+// *out. Returns the first error.
+extern "C" int pio_spd_solve_cluster_occupancy(int cluster, int smem, int* out) {
+  if (smem < 0 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  switch (cluster) {
+    case 2: return static_cast<int>(cluster_occupancy<2>(smem, out));
+    case 4: return static_cast<int>(cluster_occupancy<4>(smem, out));
+    case 8: return static_cast<int>(cluster_occupancy<8>(smem, out));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread, local (spilled) bytes and static shared memory of the
+// cluster kernel at each cluster size (2, 4, 8), three ints each. Returns the
+// first error of cudaFuncGetAttributes.
+extern "C" int pio_spd_solve_cluster_attrs(int* out) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(spd_cluster_kernel<kBlkNb, 2>),
+      reinterpret_cast<const void*>(spd_cluster_kernel<kBlkNb, 4>),
+      reinterpret_cast<const void*>(spd_cluster_kernel<kBlkNb, 8>),
+  };
+  int i = 0;
+  for (const void* k : kernels) {
+    cudaFuncAttributes at;
+    const cudaError_t err = cudaFuncGetAttributes(&at, k);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[i++] = at.numRegs;
+    out[i++] = static_cast<int>(at.localSizeBytes);
+    out[i++] = static_cast<int>(at.sharedSizeBytes);
+  }
+  return 0;
 }
 
 // Registers a thread, local (spilled) bytes and static shared memory of every

@@ -321,7 +321,11 @@ _EXTRA_ENTRIES = {
     "spd_solve": {
         "pio_spd_solve_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "pio_spd_solve_blocked": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        "pio_spd_solve_cluster": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
         "pio_spd_solve_attrs": _ATTRS_ARGTYPES,
+        "pio_spd_solve_cluster_attrs": _ATTRS_ARGTYPES,
+        "pio_spd_solve_cluster_occupancy": [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)],
     },
     "flash_attention": {
         "pio_flash_attention_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -1248,28 +1252,95 @@ def _spd_blocked_max_n(nb: int) -> int:
 
 
 #: the widest system of the blocked path: the widest n whose block fits in
-#: SPD_MAX_SMEM; wider systems take the wide path
+#: SPD_MAX_SMEM; wider systems take the cluster path
 SPD_BLOCKED_MAX_N = _spd_blocked_max_n(SPD_BLOCKED_NB)
+
+#: the cluster path: threads a block (kClThreads) and the cluster sizes it
+#: takes, smallest first (kClSizes)
+SPD_CLUSTER_THREADS, SPD_CLUSTER_SIZES = 256, (2, 4, 8)
+#: registers a thread of the cluster kernel at each cluster size, as the
+#: card allocates them (``cudaFuncGetAttributes``' count rounded up to the
+#: granule of 8; chip_smoke holds the card to every entry). Its launch bound
+#: is one block an SM: at the plan's own sizes a block's shared memory
+#: allows no second, and at a bound of two blocks ptxas spilled.
+SPD_CLUSTER_REGS = {2: 168, 4: 168, 8: 184}
+
+
+def spd_cluster_columns(t: int, c: int, rank: int) -> int:
+    """Tile columns block ``rank`` of a cluster of ``c`` owns at ``t`` tiles
+    a side (``cl_cols`` in the .cu): J = rank, rank + c, ... < t."""
+    return (t - 1 - rank) // c + 1 if rank < t else 0
+
+
+def spd_cluster_tiles(t: int, c: int, rank: int) -> int:
+    """Tiles of block ``rank`` (``cl_tiles``): (I, J) for I <= J over its
+    columns, J + 1 a column."""
+    m = spd_cluster_columns(t, c, rank)
+    return m * (rank + 1) + c * m * (m - 1) // 2
+
+
+def spd_cluster_table(t: int, c: int, rank: int) -> list:
+    """Block ``rank``'s tile table: its tiles (I, J) in the order they lie in
+    its shared memory, row-major (I ascending, then J)."""
+    return [(i, j) for i in range(t) for j in range(rank, t, c) if j >= i]
+
+
+def spd_cluster_smem(n: int, c: int, nb: int = SPD_BLOCKED_NB) -> int:
+    """Dynamic shared memory of each block of a cluster of ``c`` at system
+    size ``n`` (``cl_smem_bytes``): the blocked path's terms, with the
+    largest block's tiles in place of the whole triangle's (every block lays
+    its memory out alike, so a buffer lies at the same offset in each)."""
+    t = _cdiv(n, nb)
+    tiles = max(spd_cluster_tiles(t, c, r) for r in range(c))
+    return 4 * (tiles * nb * nb + nb * t * nb + t * nb + nb * nb + 2 * nb + tiles)
+
+
+def spd_cluster_size(n: int) -> int:
+    """The cluster size at system size ``n``: the smallest of
+    :data:`SPD_CLUSTER_SIZES` whose largest block fits in SPD_MAX_SMEM, or
+    0 where none does."""
+    return next((c for c in SPD_CLUSTER_SIZES if spd_cluster_smem(n, c) <= SPD_MAX_SMEM), 0)
+
+
+def _spd_cluster_max_n(nb: int) -> int:
+    t = 1
+    while spd_cluster_size((t + 1) * nb):
+        t += 1
+    return t * nb
+
+
+#: the widest system of the cluster path (a cluster of 8 blocks); wider
+#: systems take the wide path
+SPD_CLUSTER_MAX_N = _spd_cluster_max_n(SPD_BLOCKED_NB)
+#: the solve's paths, in the order of the widths they take
+SPD_PATHS = ("registers", "shared", "blocked", "cluster", "wide")
 
 
 class SpdPlan(NamedTuple):
     """What one launch of ``csrc/spd_solve.cu`` needs beyond its tensors
     (see :func:`spd_launch_plan`)."""
 
-    path: str  #: "registers" (n <= 64), "shared" (n <= 128), "blocked" or "wide"
-    np_: int  #: the padded width, a multiple of 8 and at least n (blocked: of
-    #: nb; wide: n)
+    path: str  #: "registers" (n <= 64), "shared" (n <= 128), "blocked",
+    #: "cluster" or "wide"
+    np_: int  #: the padded width, a multiple of 8 and at least n (blocked,
+    #: cluster: of nb; wide: n)
     slots: int  #: column slots a lane holds, ceil(np_ / 32) (blocked, wide:
     #: columns a thread)
     warps: int  #: systems (one warp each) a block holds; 1 on the registers
-    #: path; on the blocked and wide paths the warps of its one system's block
-    blocks: int  #: ceil(B / warps) (blocked, wide: B)
+    #: path; on the blocked, cluster and wide paths the warps of a block
+    blocks: int  #: ceil(B / warps) (blocked, wide: B; cluster: B · cluster)
     smem: int  #: dynamic shared memory of a block, bytes
     blocks_per_sm: int  #: blocks an SM holds at once
-    waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
+    waves: int  #: ceil(blocks / (SMs · blocks_per_sm)); cluster path: ceil(B
+    #: / (SMs · blocks_per_sm // cluster)), a lower estimate: it ignores how
+    #: the card packs clusters into GPCs, so the card may hold fewer clusters
+    #: at once (``cudaOccupancyMaxActiveClusters``, :func:`spd_cluster_occupancy`)
+    #: and run more waves. Nothing launches from it.
     scratch: int = 0  #: floats a system in device memory (wide path, large n)
-    nb: int = 0  #: the tile width (blocked path)
-    tiles: int = 0  #: tiles of the upper triangle, t(t+1)/2 (blocked path)
+    nb: int = 0  #: the tile width (blocked, cluster)
+    tiles: int = 0  #: tiles of the upper triangle, t(t+1)/2 (blocked path);
+    #: the largest block's tiles (cluster path)
+    cluster: int = 0  #: blocks a system (cluster path)
 
 
 def _spd_blocks_per_sm(warps: int, smem: int, regs: Optional[int]) -> int:
@@ -1291,12 +1362,15 @@ def spd_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
     blocks an SM holds follow from :data:`SPD_REGS` and the block's shared
     memory), n <= :data:`SPD_MAX_N` the shared path (warps a block from 48
     KB of shared memory), n <= :data:`SPD_BLOCKED_MAX_N` the blocked path
-    (:func:`spd_blocked_launch_plan`) and wider n the wide path
-    (:func:`spd_wide_launch_plan`)."""
+    (:func:`spd_blocked_launch_plan`), n <= :data:`SPD_CLUSTER_MAX_N` the
+    cluster path (:func:`spd_cluster_launch_plan`) and wider n the wide
+    path (:func:`spd_wide_launch_plan`)."""
     if min(b, n, sm_count) < 1 or n > SPD_WIDE_MAX_N:
         raise ValueError(f"no spd launch plan for b={b}, n={n}, sm_count={sm_count}")
-    if n > SPD_BLOCKED_MAX_N:
+    if n > SPD_CLUSTER_MAX_N:
         return spd_wide_launch_plan(b, n, sm_count)
+    if n > SPD_BLOCKED_MAX_N:
+        return spd_cluster_launch_plan(b, n, sm_count)
     if n > SPD_MAX_N:
         return spd_blocked_launch_plan(b, n, sm_count)
     np_ = _cdiv(n, 8) * 8
@@ -1331,6 +1405,28 @@ def spd_blocked_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
     return SpdPlan(path="blocked", np_=t * nb, slots=_cdiv(t * nb, threads),
                    warps=threads // 32, blocks=b, smem=smem, blocks_per_sm=per_sm,
                    waves=_cdiv(b, sm_count * per_sm), nb=nb, tiles=t * (t + 1) // 2)
+
+
+@functools.lru_cache(maxsize=256)
+def spd_cluster_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
+    """The cluster path's plan (``SPD_BLOCKED_MAX_N < n <=
+    SPD_CLUSTER_MAX_N``): one system a cluster of :func:`spd_cluster_size`
+    blocks of :data:`SPD_CLUSTER_THREADS` (the smallest cluster whose
+    largest block fits), tile column J of the blocked path's tiles in block
+    J mod cluster. The blocks an SM holds follow from the shared memory,
+    :data:`SPD_CLUSTER_REGS` and the threads. Pure arithmetic, checked again
+    by the C entry point."""
+    if min(b, sm_count) < 1 or not SPD_BLOCKED_MAX_N < n <= SPD_CLUSTER_MAX_N:
+        raise ValueError(f"no spd cluster plan for b={b}, n={n}, sm_count={sm_count}")
+    nb, threads, c = SPD_BLOCKED_NB, SPD_CLUSTER_THREADS, spd_cluster_size(n)
+    t = _cdiv(n, nb)
+    smem = spd_cluster_smem(n, c, nb)
+    per_sm = _spd_blocks_per_sm(threads // 32, smem, SPD_CLUSTER_REGS[c])
+    clusters = max(1, sm_count * per_sm // c)
+    return SpdPlan(path="cluster", np_=t * nb, slots=_cdiv(t * nb, threads),
+                   warps=threads // 32, blocks=b * c, smem=smem, blocks_per_sm=per_sm,
+                   waves=_cdiv(b, clusters), nb=nb,
+                   tiles=max(spd_cluster_tiles(t, c, r) for r in range(c)), cluster=c)
 
 
 @functools.lru_cache(maxsize=256)
@@ -1407,11 +1503,12 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor, plan: Optional[SpdPlan] = None) 
     and any n. CUDA tensors launch ``csrc/spd_solve.cu`` by
     :func:`spd_launch_plan` (n <= 64 with each system in one warp's
     registers, n <= 128 through shared memory, n <= SPD_BLOCKED_MAX_N on
-    the blocked path, wider n on the wide path; one launch is counted
-    either way); ``plan`` overrides it (a :func:`spd_wide_launch_plan` at
-    any n > 128 launches the wide kernel, to compare it with the blocked
-    one; the C entry point still checks it). CPU tensors run
-    :func:`spd_solve_reference`."""
+    the blocked path, n <= SPD_CLUSTER_MAX_N on a cluster of blocks, wider
+    n on the wide path; one launch is counted either way, and by path);
+    ``plan`` overrides it (a :func:`spd_wide_launch_plan` at any n > 128
+    launches the wide kernel, to compare it with the blocked and cluster
+    ones; the C entry point still checks it). A cluster launch the card
+    refuses raises. CPU tensors run :func:`spd_solve_reference`."""
     _check_spd_inputs(a, b)
     if a.shape[-1] > SPD_WIDE_MAX_N:
         raise ValueError(
@@ -1446,6 +1543,11 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor, plan: Optional[SpdPlan] = None) 
                 a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, n, plan.nb,
                 32 * plan.warps, plan.tiles, plan.blocks, plan.smem, stream,
             )
+        elif plan.path == "cluster":
+            code = lib.pio_spd_solve_cluster(
+                a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, n, plan.nb,
+                32 * plan.warps, plan.cluster, plan.tiles, plan.blocks, plan.smem, stream,
+            )
         else:
             code = lib.pio_spd_solve(
                 a.data_ptr(), b.data_ptr(), x.data_ptr(), bsz, n,
@@ -1453,16 +1555,48 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor, plan: Optional[SpdPlan] = None) 
                 plan.blocks, plan.smem, stream,
             )
     spd_solve.launches += 1
+    spd_solve.launches_by_path[plan.path] += 1
     _raise_on_error(lib, "spd_solve", code)
     return x
 
 
-#: kernel launches since the count was last reset (CUDA tensors only)
+#: kernel launches since the count was last reset (CUDA tensors only), in
+#: all and by the plan's path
 spd_solve.launches = 0
+spd_solve.launches_by_path = dict.fromkeys(SPD_PATHS, 0)
 
 _SPD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 #: the kernels ``pio_spd_solve_attrs`` reports on, in its order
 SPD_KERNELS = (*(f"registers_np{w}" for w in SPD_REGS), "shared", "blocked", "wide")
+#: the cluster kernels ``pio_spd_solve_cluster_attrs`` reports on, in its
+#: order: one a cluster size
+SPD_CLUSTER_KERNELS = tuple(f"cluster_c{c}" for c in SPD_CLUSTER_SIZES)
+
+
+def spd_cluster_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of the cluster kernel at each cluster size
+    (:data:`SPD_CLUSTER_KERNELS`), as ``cudaFuncGetAttributes`` reports
+    them on the card."""
+    lib = _configured("spd_solve", _SPD_ARGTYPES)
+    out = (ctypes.c_int * (3 * len(SPD_CLUSTER_KERNELS)))()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "spd_solve_cluster_attrs", lib.pio_spd_solve_cluster_attrs(out))
+    keys = ("regs", "local_bytes", "static_smem")
+    return {name: dict(zip(keys, out[3 * k:3 * k + 3]))
+            for k, name in enumerate(SPD_CLUSTER_KERNELS)}
+
+
+def spd_cluster_occupancy(plan: SpdPlan, device=None) -> int:
+    """Clusters of ``plan``'s size and shared memory the card holds at once,
+    as ``cudaOccupancyMaxActiveClusters`` says (the plan's own estimate:
+    SMs · ``blocks_per_sm`` // ``cluster``)."""
+    lib = _configured("spd_solve", _SPD_ARGTYPES)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "spd_solve_cluster_occupancy", lib.pio_spd_solve_cluster_occupancy(
+            plan.cluster, plan.smem, ctypes.byref(out)))
+    return out.value
 
 
 def spd_kernel_attributes(device=None) -> dict:

@@ -81,8 +81,8 @@ def test_the_path_by_n_alone_and_the_c_entry_check_at_every_size(sm_count):
     for n in range(SPD_MAX_N + 1, SPD_BLOCKED_MAX_N + 2):
         for b in (1, 3, 4096, 97972):
             plan = spd_launch_plan(b, n, sm_count)
-            if n > SPD_BLOCKED_MAX_N:
-                assert plan.path == "wide" and plan.np_ == n
+            if n > SPD_BLOCKED_MAX_N:  # the cluster path above the ceiling
+                assert plan.path == "cluster" and plan.np_ == -(-n // SPD_BLOCKED_NB) * SPD_BLOCKED_NB
                 continue
             t = -(-n // SPD_BLOCKED_NB)
             assert plan.path == "blocked" and plan.nb == SPD_BLOCKED_NB
