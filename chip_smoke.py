@@ -3376,7 +3376,9 @@ def als_against_plain(torch, dev, model, td, cfg) -> dict:
     plain build and solve from the same initial table, on the same
     ratings (the data of ``td``), as ``phase_train`` holds its own run;
     and the first user solve (before any solved table is rounded to the
-    gather's dtype) through the kernels against the plain versions."""
+    gather's dtype) through the kernels against the plain versions. The
+    plain iterations start from that plain first user solve, which is
+    their first step (``als._train_loop``'s order), so it is made once."""
     from predictionio_tpu_torch.ops import als
     from predictionio_tpu_torch.ops.cuda_kernels import (
         gramian_fused,
@@ -3391,12 +3393,18 @@ def als_against_plain(torch, dev, model, td, cfg) -> dict:
     ib = als.stage(als.sort_bucket_indices(
         als.bucketize(td.items, td.users, td.ratings, n_i, n_u)), dev)
     y0 = als.init_factors(n_i, cfg.rank, cfg.seed, dev)
-    x, y = als._train_loop(ub, ib, y0, cfg, gramian_fused_reference, spd_solve_reference)
-    first = [als._solve_side(y0, ub, cfg.rank, cfg.implicit_prefs, cfg.lambda_, cfg.alpha,
-                             y0.T @ y0 if cfg.implicit_prefs else None, cfg.gather_dtype,
-                             build, solve)
-             for build, solve in ((gramian_fused, spd_solve),
-                                  (gramian_fused_reference, spd_solve_reference))]
+    plain = (gramian_fused_reference, spd_solve_reference)
+
+    def side(table, staged, build, solve):
+        return als._solve_side(table, staged, cfg.rank, cfg.implicit_prefs, cfg.lambda_,
+                               cfg.alpha, table.T @ table if cfg.implicit_prefs else None,
+                               cfg.gather_dtype, build, solve)
+
+    first = [side(y0, ub, gramian_fused, spd_solve), side(y0, ub, *plain)]
+    x, y = first[1], side(first[1], ib, *plain)
+    if cfg.iterations > 1:
+        rest = dataclasses.replace(cfg, iterations=cfg.iterations - 1)
+        x, y = als._train_loop(ub, ib, y, rest, *plain)
     torch.cuda.synchronize()
     diff = (first[0] - first[1]).abs()
     out = {"first_user_solve": {
@@ -3718,6 +3726,16 @@ WIDE_CEIL_B = 1024
 WIDE_CLUSTER_NS = (305, 384, 512)
 WIDE_CLUSTER_CEIL_B = 64
 WIDE_CLUSTER_ALS_RANK = 384
+#: the tiled solve's cases above the cluster path's ceiling, (n, B): its
+#: first width and ALS's rank 1,024 at B = 64 (WIDE_CLUSTER_CEIL_B), two
+#: wider systems, and rank 1,024 at a training slice's B; ALS at rank 1,024
+#: from the events store solves on it, held to WIDE_TILED_ALS_ITERS
+#: iterations of the plain build and solve
+SPD_TILED_CASES = ((769, 64), (1024, 64), (1536, 64), (2048, 64), (1024, 1024))
+#: two iterations, not PARITY_ITERS: at n = 1,024 the plain solve updates a
+#: [B, 1024, 1024] block a step, about 35 s an iteration on the card, and a
+#: third took the phase past its share of the run
+WIDE_TILED_ALS_RANK, WIDE_TILED_ALS_ITERS = 1024, 2
 WIDE_HEADS = (136, 192, 256)
 WIDE_ATTN_SHAPES = ((64, 4, 64, 64, True), (8, 4, 2048, 2048, True),
                     (8, 4, 2048, 2048, False))
@@ -4251,6 +4269,206 @@ def spd_cluster_variants(torch, dev, seed: int = 0, shapes=SPD_CLUSTER_SHAPES,
         torch.cuda.empty_cache()
 
 
+def spd_tiled_by_kernel(torch, kernel, iters: int = 3) -> dict:
+    """Where a tiled solve's device time goes: each of its kernels' device
+    ms a call (summed over the call's launches, from one profiler trace of
+    ``iters`` calls) and the launches a call; each phase of the path is a
+    kernel of its own, so this is the phase's time where a fused kernel
+    needs knock-outs."""
+    prof = device_profile(torch, lambda: [kernel() for _ in range(iters)], top=8)
+    out = {}
+    for op in prof["top_device_ops"]:
+        name = op["name"].split("spd_tiled_", 1)[-1].split("_kernel", 1)[0]
+        out[name] = {"ms": op["ms"] / iters, "launches": op["count"] / iters}
+    return out
+
+
+def spd_tiled_variants(torch, dev, seed: int = 0, shapes=SPD_TILED_CASES[:2]) -> None:
+    """The tiled solve alone at ``shapes`` ((n, B) pairs): its kernels'
+    registers and local bytes, then at each shape its bits against the wide
+    kernel and a second call, its
+    error against the plain version (n <= 1,024), event and device ms A B B
+    A against ``cholesky_solve``, and the wide kernel's one timed call.
+    Builds only the solve's library. The inputs come from the seed, so two
+    trees unpacked under ``chip_compare/`` (gitignored) see the same
+    tensors."""
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    build.build_all(["spd_solve"])
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    emit({"phase": "spd_tiled_variant", "tree": os.path.basename(os.getcwd()),
+          "attributes": ck.spd_tiled_kernel_attributes(dev)})
+
+    def library(a, b):
+        return torch.cholesky_solve(b[:, :, None], torch.linalg.cholesky(a))
+
+    for n, bsz in shapes:
+        a, b = wide_spd_systems(torch, gen, dev, bsz, n, 2 * n)
+        wide = lambda: ck.spd_solve(a, b, plan=ck.spd_wide_launch_plan(bsz, n, sm))  # noqa: E731
+        x_w = wide()
+        x_p = ck.spd_solve_reference(a, b) if bsz * n * n <= 64 * 1024 * 1024 else None
+        plan = ck.spd_tiled_launch_plan(bsz, n, sm)
+        x = ck.spd_solve(a, b, plan=plan)
+        kernel = lambda: ck.spd_solve(a, b, plan=plan)  # noqa: E731
+        rel = (None if x_p is None else
+               float(((x - x_p).norm(dim=1) / x_p.norm(dim=1).clamp_min(1e-30)).max()))
+        out = {"phase": "spd_tiled_variant", "tree": os.path.basename(os.getcwd()), "n": n,
+               "B": bsz, "nb": plan.nb, "launches_a_call": len(plan.launch_blocks),
+               "calls": -(-bsz // plan.systems),
+               "equal_to_wide_kernel": bool(torch.equal(x, x_w)),
+               "bit_identical": bool(torch.equal(x, kernel())), "max_rel_err": rel,
+               "finite": bool(torch.isfinite(x).all())}
+        spd_abba(torch, out, kernel, lambda: library(a, b), 5, 3)
+        spd_over_bound(out, bsz, n)
+        out["by_kernel"] = spd_tiled_by_kernel(torch, kernel)
+        emit(out)
+        del x
+        emit({"phase": "spd_tiled_variant", "n": n, "B": bsz,
+              "wide_kernel_ms": time_ms(torch, wide, 1, 0),
+              "wide_kernel_device_ms": traced_device_ms(torch, wide, 1)})
+        del a, b, x_w, x_p
+        torch.cuda.empty_cache()
+
+
+def spd_tiled_compare(torch, dev, variants: dict, shapes=SPD_TILED_CASES[:2],
+                      seed: int = 0) -> None:
+    """Other versions of the solve's source against the tree's own, on the
+    same tensors: ``variants`` maps a name to (path of a ``.cu``, threads a
+    block of each tiled kernel where they differ from the plan's, as a
+    dict by kernel name, or None[, a function of (t, nb) giving the blocks
+    a system of each launch where they differ]). A variant whose answer is
+    wrong on purpose (a knock-out: its time less the whole's is what the
+    part it cuts costs where nothing hides it) shows as not equal to
+    "whole". Every source is built with ``nvcc
+    -Xptxas -v`` at once (the tree's own as "whole"); then at each (n, B) of
+    ``shapes`` each is checked bit for bit against "whole" and timed by CUDA
+    events in one order and then the reverse (the two means averaged), with
+    its device ms by kernel from one trace. Prints each build's registers
+    and spills."""
+    import ctypes
+    import re
+
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    sources = {"whole": (SPD_SOURCE, None), **variants}
+    tmp = tempfile.mkdtemp(prefix="spd_tiled_compare_")
+    procs = {}
+    for name, (path, *_) in sources.items():
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"lib{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"variant {name} did not build: {log[-3000:]}")
+        tiled = log[log.find("spd_tiled"):]
+        emit({"phase": "spd_tiled_compare", "variant": name,
+              "ptxas": re.findall(
+                  r"(spd_tiled_\w+_kernel|\d+ bytes spill stores|Used \d+ registers)", tiled)[:40]})
+        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
+        lib.pio_spd_solve_tiled.argtypes = ck._EXTRA_ENTRIES["spd_solve"]["pio_spd_solve_tiled"]
+        libs[name] = lib
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    for n, bsz in shapes:
+        a, b = wide_spd_systems(torch, gen, dev, bsz, n, 2 * n)
+        base = ck.spd_tiled_launch_plan(bsz, n, sm)
+        work = torch.empty((base.systems, base.scratch), dtype=torch.float32, device=dev)
+        xs = {}
+
+        def launch(name):
+            threads = dict(zip(ck.SPD_TILED_KERNELS, base.threads))
+            threads.update(sources[name][1] or {})
+            th = (ctypes.c_int * 5)(*(threads[k] for k in ck.SPD_TILED_KERNELS))
+            per_sys = (sources[name][2](base.panels, base.nb) if len(sources[name]) > 2
+                       else base.launch_blocks)
+            blocks = (ctypes.c_int * len(per_sys))(*per_sys)
+            x = xs.setdefault(name, torch.empty_like(b))
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for s0 in range(0, bsz, base.systems):
+                s1 = min(bsz, s0 + base.systems)
+                code = libs[name].pio_spd_solve_tiled(
+                    a[s0:s1].data_ptr(), b[s0:s1].data_ptr(), x[s0:s1].data_ptr(),
+                    work.data_ptr(), s1 - s0, n, base.nb, base.tiles, base.panels, base.scratch,
+                    th, 5, blocks, len(per_sys), stream)
+                if code:
+                    raise AssertionError(f"variant {name} failed to launch: {code}")
+
+        times = dict.fromkeys(libs, 0.0)
+        for name in [*libs, *reversed(libs)]:
+            times[name] += time_ms(torch, lambda name=name: launch(name), 5, 1) / 2
+        bits = {name: bool(torch.equal(xs[name], xs["whole"])) for name in libs}
+        by_kernel = {name: spd_tiled_by_kernel(torch, lambda name=name: launch(name))
+                     for name in libs}
+        emit({"phase": "spd_tiled_compare", "n": n, "B": bsz, "nb": base.nb, "ms": times,
+              "equal_to_whole": bits, "by_kernel": by_kernel})
+        del a, b, work
+        xs.clear()
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: the tiled solve's phases as the knock-outs cut them, each a list of (a
+#: text of ``spd_solve.cu``, its replacement): a kernel's launches left out
+#: (its device time and the launch gaps it costs), or inside the trailing
+#: update its FMAs (all but the first step's), its tile's loads and stores
+#: (the sums kept live by stores that never run) or its copies of L's rows
+#: (shared memory filled instead)
+SPD_TILED_PHASES = {
+    "copy": [("case kTlCopy: spd_tiled_copy_kernel<NB><<<blocks, threads, 0, st>>>(a, b, w, n, t);",
+              "case kTlCopy:")],
+    "diag": [("case kTlDiag: spd_tiled_diag_kernel<NB><<<blocks, threads, 0, st>>>(w, t, p);",
+              "case kTlDiag:")],
+    "strip": [("spd_tiled_strip_kernel<NB><<<blocks, threads, 0, st>>>(w, t, p, per_sys);", "")],
+    "update": [("spd_tiled_update_kernel<NB><<<blocks, threads, 0, st>>>(w, t, p, per_sys);", "")],
+    "back": [("default: spd_tiled_back_kernel<NB><<<blocks, threads, 0, st>>>(w, x, n, t);",
+              "default:")],
+    "update_fmas": [("acc[r][c] = __fmaf_rn(-rv[r], cv[c], acc[r][c]);",
+                     "acc[r][c] = k == 0 ? __fmaf_rn(-rv[r], cv[c], acc[r][c]) : acc[r][c];")],
+    "update_tile_traffic": [
+        ("for (int r = 0; r < 4; ++r) load4(tu + r * NB, 0, acc[r]);",
+         "for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;"),
+        ("  if (i == j && rg == cg) {\n#pragma unroll\n    for (int r = 0; r < 4; ++r) {",
+         "  if (acc[0][0] == 12345.f) {\n#pragma unroll\n    for (int r = 0; r < 4; ++r) {"),
+        ("  } else {\n#pragma unroll\n    for (int r = 0; r < 4; ++r) {\n"
+         "      *reinterpret_cast<float4*>(tu + r * NB)",
+         "  } else if (acc[1][1] == 12345.f) {\n#pragma unroll\n    for (int r = 0; r < 4; ++r) {\n"
+         "      *reinterpret_cast<float4*>(tu + r * NB)")],
+    "update_l_copies": [
+        ("    copy16(s_li + k * NB + 4 * g, s.l + k * np + i * NB + 4 * g);\n"
+         "    if (i != j) copy16(s_lj + k * NB + 4 * g, s.l + k * np + j * NB + 4 * g);",
+         "    s_li[k * NB + 4 * g] = 0.5f;\n    s_lj[k * NB + 4 * g] = 0.5f;")],
+}
+
+
+def spd_tiled_knockouts(torch, dev, source: str = SPD_SOURCE, shapes=SPD_TILED_CASES) -> None:
+    """Where the tiled solve's time goes: ``source`` built once without each
+    phase of SPD_TILED_PHASES and timed against itself by
+    :func:`spd_tiled_compare` at ``shapes`` (forward then reverse, device ms
+    by kernel). A knock-out's answer is wrong; its time less the whole's is
+    what the phase costs where nothing hides it."""
+    text = open(source).read()
+    tmp = tempfile.mkdtemp(prefix="spd_tiled_knockouts_")
+    variants = {}
+    for name, edits in SPD_TILED_PHASES.items():
+        variant = text
+        for cut, keep in edits:
+            if variant.count(cut) != 1:
+                raise AssertionError(f"knock-out {name}: its text is not in {source} once")
+            variant = variant.replace(cut, keep)
+        path = os.path.join(tmp, f"no_{name}.cu")
+        with open(path, "w") as f:
+            f.write(variant)
+        variants[f"no_{name}"] = (path, None)
+    spd_tiled_compare(torch, dev, variants, shapes)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 #: the cluster solve's phases as the knock-outs cut them: each a text of
 #: ``spd_cluster_kernel`` removed (a call), or the first ``if``/``for``
 #: statement after it cut (the strip, the trailing update, back
@@ -4366,10 +4584,12 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
     version's beside them; the blocked path's widest system; the cluster
     path at WIDE_CLUSTER_NS and its ceiling (B = WIDE_CEIL_B) held the same
     way, each plan beside ``cudaOccupancyMaxActiveClusters`` and the wide
-    kernel timed once on the same tensors; above that ceiling the wide
-    kernel beside its bound; a doctored cluster plan, which must raise; the
-    zero-and-singular cases on the blocked and cluster paths; n = 400 on the
-    wide kernel's scratch; and the users' K = 128 bucket at rank 200, built
+    kernel timed once on the same tensors; above that ceiling the tiled path
+    at SPD_TILED_CASES held the same way, its device time by kernel beside
+    it; a doctored cluster plan and a doctored tiled plan, which must raise;
+    the zero-and-singular cases on the blocked, cluster and tiled paths; n
+    = 400 on the wide kernel's scratch; and the users' K = 128 bucket at
+    rank 200, built
     by ``gramian_fused`` in ``gramian_row_slices``' slices as ALS builds it,
     solved slice by slice by each of the three."""
     from predictionio_tpu_torch.kernels import build
@@ -4390,10 +4610,14 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
         return torch.cholesky_solve(b[:, :, None], torch.linalg.cholesky(a))
 
     def plan_line(plan):
-        return {"path": plan.path, "nb": plan.nb, "tiles": plan.tiles, "np": plan.np_,
+        line = {"path": plan.path, "nb": plan.nb, "tiles": plan.tiles, "np": plan.np_,
                 "threads": 32 * plan.warps, "smem": plan.smem, "scratch": plan.scratch,
                 "cluster": plan.cluster, "blocks": plan.blocks,
                 "blocks_per_sm": plan.blocks_per_sm, "waves": plan.waves}
+        if plan.path == "tiled":
+            line.update(panels=plan.panels, kernel_threads=plan.threads,
+                        launches_a_call=len(plan.launch_blocks), systems_a_call=plan.systems)
+        return line
 
     def against_wide(a, b, n):
         """The plan, the solve, the wide kernel's solve on the same tensors
@@ -4408,7 +4632,9 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
                "max_rel_err": rel_err(x_k, x_p), "max_abs_err": float((x_k - x_p).abs().max()),
                "equal_to_wide_kernel": bool(torch.equal(x_k, x_w)),
                "bit_identical": bool(torch.equal(x_k, spd_solve(a, b)))}
-        ok = (out["max_rel_err"] < KERNEL_TOL and out["bit_identical"] and launches == 1
+        # the tiled path calls its C entry once a slice of its working copies' budget
+        calls = len(ck.spd_tiled_slices(bsz, n)) if plan.path == "tiled" else 1
+        ok = (out["max_rel_err"] < KERNEL_TOL and out["bit_identical"] and launches == calls
               and bool(torch.isfinite(x_k).all()))
         return out, ok, plan, wide
 
@@ -4449,16 +4675,27 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
              ok and plan.path == "cluster" and out["equal_to_wide_kernel"])
         del a, b
         torch.cuda.empty_cache()
-    # above the cluster path's ceiling the wide kernel, beside its bound
-    n = ck.SPD_CLUSTER_MAX_N + 1
-    a, b = spd_systems(WIDE_CLUSTER_CEIL_B, n, 2 * n)
-    out, ok, plan, _ = against_wide(a, b, n)
-    kernel = lambda: spd_solve(a, b)  # noqa: E731
-    out["kernel_ms"] = time_ms(torch, kernel, 1, 0)
-    out["kernel_device_ms"] = traced_device_ms(torch, kernel, 1)
-    out["library_ms"] = time_ms(torch, lambda: library(a, b), 3, 1)
-    spd_over_bound(out, WIDE_CLUSTER_CEIL_B, n)
-    held("spd_solve", f"n{n}_wide", out, ok and plan.path == "wide")
+    # above the cluster path's ceiling the tiled path: bit for bit the wide
+    # kernel, A B B A against cholesky_solve, the wide kernel timed by one
+    # call on the same tensors (and traced, which takes two more, and the
+    # plain version timed, at B = 64 up to n = 1,024), and the device time
+    # by kernel
+    for n, bsz in SPD_TILED_CASES:
+        a, b = spd_systems(bsz, n, 2 * n)
+        out, ok, plan, wide = against_wide(a, b, n)
+        kernel = lambda: spd_solve(a, b)  # noqa: E731
+        spd_abba(torch, out, kernel, lambda: library(a, b), 5, 3)
+        earlier = lambda: spd_solve(a, b, plan=wide)  # noqa: E731
+        out["earlier_kernel_ms"] = time_ms(torch, earlier, 1, 0)
+        if bsz * n <= 64 * 1024:
+            out["earlier_kernel_device_ms"] = traced_device_ms(torch, earlier, 1)
+            out["plain_ms"] = time_ms(torch, lambda: spd_solve_reference(a, b), 1, 0)
+        out["by_kernel"] = spd_tiled_by_kernel(torch, kernel)
+        spd_over_bound(out, bsz, n)
+        held("spd_solve", f"n{n}_B{bsz}_tiled", out,
+             ok and plan.path == "tiled" and out["equal_to_wide_kernel"])
+        del a, b
+        torch.cuda.empty_cache()
     # a plan the C entry does not take is an error, never a fallback
     a, b = spd_systems(8, 400, 800)
     doctored = ck.spd_launch_plan(8, 400, sm)._replace(smem=ck.spd_launch_plan(8, 400, sm).smem + 16)
@@ -4469,8 +4706,18 @@ def wide_spd_cases(torch, dev, gen, sm: int, held) -> None:
         refused = True
     held("spd_solve", "n400_cluster_doctored_plan", {"max_abs_err": 0.0, "refused": refused},
          refused)
-    # zero systems and dead pivots on the blocked and the cluster path
-    for n, path, dead in ((200, "blocked", [0, 77, 199]), (320, "cluster", [0, 160, 319])):
+    a, b = spd_systems(8, 800, 1600)
+    tiled = ck.spd_launch_plan(8, 800, sm)
+    try:
+        spd_solve(a, b, plan=tiled._replace(scratch=tiled.scratch + 4))
+        refused = False
+    except build.KernelLaunchError:
+        refused = True
+    held("spd_solve", "n800_tiled_doctored_plan", {"max_abs_err": 0.0, "refused": refused},
+         refused and tiled.path == "tiled")
+    # zero systems and dead pivots on the blocked, the cluster and the tiled path
+    for n, path, dead in ((200, "blocked", [0, 77, 199]), (320, "cluster", [0, 160, 319]),
+                          (800, "tiled", [0, 400, 799])):
         a, b = spd_systems(256, n, 2 * n)
         a[128:] = 0.0
         a[:64, dead, :] = 0.0
@@ -4566,11 +4813,13 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                                if k.startswith(("wide", "rows"))},
              "spd_solve": {k: spd_attrs[k] for k in ("blocked", "wide")},
              "spd_solve_cluster": ck.spd_cluster_kernel_attributes(dev),
+             "spd_solve_tiled": ck.spd_tiled_kernel_attributes(dev),
              "flash_attention": ck.flash_wide_kernel_attributes(dev),
              "flash_attention_resident": ck.flash_resident_kernel_attributes(dev),
              "flash_attention_streamed": ck.flash_streamed_kernel_attributes(dev)}
     flat = [*attrs["gramian_fused"].values(), *attrs["spd_solve"].values(),
-            *attrs["spd_solve_cluster"].values(), attrs["flash_attention"], *attrs["flash_attention_resident"].values(),
+            *attrs["spd_solve_cluster"].values(), *attrs["spd_solve_tiled"].values(),
+            attrs["flash_attention"], *attrs["flash_attention_resident"].values(),
             attrs["flash_attention_streamed"]]
     emit({"phase": "wide", "attributes": attrs})
     regs_ok = (all(attrs["gramian_fused"][k]["regs"] <= ck.GRAMIAN_WIDE_REGS
@@ -4581,6 +4830,8 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                and attrs["spd_solve"]["blocked"]["regs"] == ck.SPD_BLOCKED_REGS
                and all(-(-attrs["spd_solve_cluster"][f"cluster_c{c}"]["regs"] // 8) * 8 == regs
                        for c, regs in ck.SPD_CLUSTER_REGS.items())
+               and all(-(-attrs["spd_solve_tiled"][k]["regs"] // 8) * 8 == regs
+                       for k, regs in ck.SPD_TILED_REGS.items())
                and attrs["flash_attention"]["regs"] == ck.FLASH_WIDE_REGS
                and all(a["regs"] == ck.FLASH_WIDE_RES_REGS[g]
                        for g, a in attrs["flash_attention_resident"].items())
@@ -4966,10 +5217,10 @@ def seq_burst(torch, dev, port: int, seq_model, seq_params, rng, launch_count=No
             "launches": launches}
 
 
-def als_wide(torch, dev, registry, source, rank: int) -> dict:
+def als_wide(torch, dev, registry, source, rank: int, iterations: int = PARITY_ITERS) -> dict:
     """ALS at ``rank`` over the events phase's store, trained by
-    ``run_train`` (PARITY_ITERS iterations; build and solve launches, in all
-    and by path, reset just before and read just after) and held to as many
+    ``run_train`` (``iterations``; build and solve launches, in all and by
+    path, reset just before and read just after) and held to as many
     iterations of the plain build and solve, with its holdout RMSE (the
     same iterations through the kernels on 95 % of the ratings). Every build
     must take the build's path at this rank and every solve the solve's."""
@@ -4983,7 +5234,7 @@ def als_wide(torch, dev, registry, source, rank: int) -> dict:
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     build_path = ck.gramian_plan(1, 128, rank, sm).path
     solve_path = ck.spd_launch_plan(1, rank, sm).path
-    params = rec.ALSAlgorithmParams(rank=rank, num_iterations=PARITY_ITERS,
+    params = rec.ALSAlgorithmParams(rank=rank, num_iterations=iterations,
                                     lambda_=LAMBDA, seed=TRAIN_SEED)
     gramian_fused.launches = spd_solve.launches = 0  # main path starts here
     for by_path in (gramian_fused.launches_by_path, spd_solve.launches_by_path):
@@ -5008,14 +5259,14 @@ def als_wide(torch, dev, registry, source, rank: int) -> dict:
                               n_u, n_i, cfg, device=dev)
     holdout = als.rmse(split, td.users[~keep], td.items[~keep], td.ratings[~keep])
     train_rmse = als.rmse(split, td.users[keep], td.items[keep], td.ratings[keep])
-    out = {"instance": instance, "rank": rank, "iterations": PARITY_ITERS,
+    out = {"instance": instance, "rank": rank, "iterations": iterations,
            "build_path": build_path, "solve_path": solve_path, "launches": launches,
            "holdout_rmse": holdout, "train_rmse": train_rmse, **against}
     emit({"phase": "wide", "stage": f"als_rank{rank}", **out, "seconds": seconds})
     ok = (against["first_user_solve"]["beyond_tol"] == 0
           and all(against[s]["finite"] and against[s]["beyond_tol"] == 0
                   for s in ("user", "item"))
-          and min(launches.values()) >= 2 * PARITY_ITERS
+          and min(launches.values()) >= 2 * iterations
           and launches[f"gramian_{build_path}"] == launches["gramian_fused"]
           and launches[f"spd_{solve_path}"] == launches["spd_solve"]
           and np.isfinite(holdout))
@@ -5027,8 +5278,9 @@ def als_wide(torch, dev, registry, source, rank: int) -> dict:
 def phase_wide(torch, dev, seed: int, base: str) -> dict:
     """The general-width paths: :func:`wide_kernels`, then over the events
     phase's store :func:`als_wide` at rank 200 (the build's rows path, the
-    blocked solve) and at rank 384 (the build's tile path, the cluster
-    solve), and seqrec by :func:`seqrec_wide` at d_model 256 / 1 head (D =
+    blocked solve), at rank 384 (the build's tile path, the cluster solve)
+    and at rank 1,024 (the tile path, the tiled solve; WIDE_TILED_ALS_ITERS
+    iterations), and seqrec by :func:`seqrec_wide` at d_model 256 / 1 head (D =
     256, the resident path; 20 steps, 64 queries) and at d_model 320 / 1
     head (D = 320, the streamed path; 10 steps, 16 queries)."""
     from predictionio_tpu_torch.models import recommendation as rec
@@ -5039,8 +5291,14 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
     rng = np.random.default_rng(seed + 13)
     source = ("", rec.RecDataSourceParams(app_id=EVENTS_APP, event_names=("rate",)))
     with events_store(base) as registry:
+        t0 = time.monotonic()
         als_out = als_wide(torch, dev, registry, source, WIDE_ALS_RANK)
+        t1 = time.monotonic()
         als_cluster = als_wide(torch, dev, registry, source, WIDE_CLUSTER_ALS_RANK)
+        t2 = time.monotonic()
+        als_tiled = als_wide(torch, dev, registry, source, WIDE_TILED_ALS_RANK,
+                             WIDE_TILED_ALS_ITERS)
+        seconds.update(als=t1 - t0, als_rank384=t2 - t1, als_rank1024=time.monotonic() - t2)
         seq_out = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ, EVENTS_SEQ_STEPS,
                               HTTP_QUERIES, "wide-seqrec")
         seq_streamed = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ_STREAMED,
@@ -5048,17 +5306,21 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
                                    "wide-seqrec-d320")
     seconds.update(als_run_train=als_out["seconds"],
                    als_rank384_run_train=als_cluster["seconds"],
+                   als_rank1024_run_train=als_tiled["seconds"],
                    seqrec_run_train=seq_out["train_s"],
                    seqrec_d320_run_train=seq_streamed["train_s"],
                    seqrec_d320_serve=seq_streamed["serve_s"])
-    runs = (als_out["launches"], als_cluster["launches"])
+    runs = (als_out["launches"], als_cluster["launches"], als_tiled["launches"])
     out = {"phase": "wide", "kernels": kernels, "als": als_out, "als_rank384": als_cluster,
+           "als_rank1024": als_tiled,
            "seqrec": seq_out, "seqrec_d320": seq_streamed, "seconds": seconds, "by_kernel": {
                "gramian_fused": sum(x["gramian_fused"] for x in runs),
                "gramian_rows": als_out["launches"]["gramian_rows"],
                "spd_solve": sum(x["spd_solve"] for x in runs),
                "spd_cluster": als_cluster["launches"]["spd_cluster"],
-               "gramian_wide": als_cluster["launches"]["gramian_wide"],
+               "spd_tiled": als_tiled["launches"]["spd_tiled"],
+               "gramian_wide": (als_cluster["launches"]["gramian_wide"]
+                                + als_tiled["launches"]["gramian_wide"]),
                "flash_attention": sum(sum(x["launches"].values())
                                       for x in (seq_out, seq_streamed)),
                "flash_attention_streamed": sum(seq_streamed["path_launches"].values())}}
@@ -5707,6 +5969,41 @@ def main(argv=None) -> int:
             "earlier_kernel_ms", "earlier_kernel_device_ms", "plain_ms", "bound_us", "bound_by",
             "max_rel_err", "equal_to_wide_kernel")} for case, out in timed.items()},
         "attributes": wide["kernels"]["attributes"]["spd_solve_cluster"],
+    })
+    # the solve's tiled path (n > 768) on its own line: launched by ALS at
+    # rank 1,024 in the wide phase, timed at n = 1,024 (B = 64) beside
+    # cholesky_solve and the wide kernel on the same tensors
+    ref = cases["spd_solve:n1024_B64_tiled"]
+    timed = {name.split(":", 1)[1]: out for name, out in cases.items()
+             if name.startswith("spd_solve:") and out.get("plan", {}).get("path") == "tiled"}
+    lines.append({
+        "name": "spd_tiled",
+        "route": "cuda",
+        "source": SPD_SOURCE,
+        "replaces": SPD_REPLACES,
+        "launches": wide["by_kernel"]["spd_tiled"],
+        "launches_by_path": {"wide_als_rank1024": wide["by_kernel"]["spd_tiled"]},
+        "max_abs_err": max(out["max_abs_err"] for out in timed.values()),
+        "ms": ref["kernel_ms"],
+        "plain_ms": ref["plain_ms"],
+        "bound_ms": ref["bound_us"] / 1e3,
+        "bound_by": ref["bound_by"],
+        "library_ms": ref["library_ms"],
+        "device_ms": ref["kernel_device_ms"],
+        "library_device_ms": ref["library_device_ms"],
+        "wide_kernel_ms": ref["earlier_kernel_ms"],
+        "wide_kernel_device_ms": ref["earlier_kernel_device_ms"],
+        "shape": {"B": ref["B"], "n": ref["n"]},
+        "plan": ref["plan"],
+        "timed": {case: {k: out.get(k) for k in (
+            "B", "plan", "launches", "abba_ms", "abba_device_ms", "kernel_ms", "kernel_device_ms",
+            "library_ms", "library_device_ms", "earlier_kernel_ms", "earlier_kernel_device_ms",
+            "plain_ms", "bound_us", "bound_by", "max_rel_err", "equal_to_wide_kernel",
+            "by_kernel")} for case, out in timed.items()},
+        "als_rank1024": {k: wide["als_rank1024"][k] for k in (
+            "iterations", "launches", "holdout_rmse", "first_user_solve", "user", "item",
+            "seconds")},
+        "attributes": wide["kernels"]["attributes"]["spd_solve_tiled"],
     })
     emit({"kernels": lines})
     print(smi, flush=True)

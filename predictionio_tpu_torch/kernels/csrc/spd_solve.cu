@@ -22,11 +22,14 @@
 // any B and any n >= 1: n up to kMaxN = 128 through pio_spd_solve, wider n
 // through pio_spd_solve_blocked while its tiles fit in one block's shared
 // memory (n <= 304), through pio_spd_solve_cluster while they fit in a
-// cluster's (n <= 768) and pio_spd_solve_wide above (the general-n path).
-// The launch plan (path, padded width, warps a block, blocks, shared
-// memory, cluster size) is spd_launch_plan's in ops/cuda_kernels.py, which
-// picks the path by n alone; each entry checks it against its own
-// arithmetic.
+// cluster's (n <= 768) and pio_spd_solve_tiled above (tiles in device
+// memory). pio_spd_solve_wide (the general-n first version) takes no n of
+// its own: a plan forces it as the yardstick every path above n = 128 is
+// held to bit for bit. The launch plan (path, padded width, warps a block,
+// blocks, shared memory, cluster size; the tiled path's tiles, panels,
+// threads and blocks of each launch) is spd_launch_plan's in
+// ops/cuda_kernels.py, which picks the path by n alone; each entry checks
+// it against its own arithmetic.
 //
 // Design, n <= 64 (the "registers" path; ALS at rank 50). One warp owns one
 // system, held in registers: lane c owns column c (slot 0) and column c + 32
@@ -116,7 +119,43 @@
 // 166-168 registers (184 at C = 8), no local memory; a launch bound of two
 // blocks an SM spilled.
 //
-// Design, n > 768 (the "wide" path, the first version): one block a system,
+// Design, n > 768 (the "tiled" path; ALS at ranks 769 and up): the upper
+// triangle, padded to t * nb columns with the identity (b = 0 there; nb =
+// 64), is copied once into a working copy in device memory as nb x nb
+// tiles (I <= J), beside y, one panel's rows of L
+// [nb][t nb] and the panel's diagonal L rows, inv_d and z_j
+// (tl_system_floats: about 60 % of A's bytes; the wrapper cuts a call so
+// that the working copies stay within 2 GiB). The input is never written.
+// One C entry issues every launch of a call on the caller's stream, 3t
+// launches (tl_for_each_launch): the copy (a block a tile); for each panel
+// p its diagonal tile (one warp a system: the TPU kernel's steps on
+// lane-owned columns, as two 32-wide sub-panels with their strip and
+// rank-32 update between them, so that the unrolled code stays short),
+// its strip (128 columns a block, each column's nb rows stepped in
+// registers, L's rows written to the panel buffer) and its trailing update
+// (one block a (system, tile (I, J), p < I <= J), so that B = 64 still
+// fills the card: L's rows at the tile's rows and columns copied into
+// shared memory by cp.async while each thread loads its 4 x 4 register
+// tile, then k over the panel's steps ascending); back substitution (one
+// block a system, sub-panels of 32 rows from the last, as on the blocked
+// path). Offsets past a system are 64-bit. Every element of U and y takes
+// the wide kernel's FMAs in its order, so the answer is the wide kernel's
+// bit for bit (chip_smoke.py holds them equal). What sets the pace
+// (chip_smoke.py's device time by kernel, n = 1,024, B = 64; each phase is
+// a kernel of its own): the trailing update 53 %, the diagonal chains 15 %,
+// the strips 14 %, back substitution 11 %, the copy 7 %. The update is bound
+// by its memory traffic and the latency around it, not by its FMAs: cut of
+// them it keeps 71-78 % of its time (spd_tiled_knockouts; each panel reads
+// and writes the trailing tiles and reads L's rows from L2). Registers: the
+// update 50, the strip 144, the diagonal tile 168, back substitution 68, the
+// copy 32; no local memory. Tried and dropped (PERF.md, Findings): nb = 32 (no
+// faster at n = 769, 6-25 % slower above), the next panel's diagonal tile
+// and strip on a second stream beside the trailing update (4-7 % slower:
+// the one-warp chain slows beside the update's blocks), 8 x 8 register
+// tiles in the update (6 % slower), two rows a thread in back substitution.
+//
+// Design, the "wide" path (the first version; the tiled path's yardstick,
+// launched only when a plan forces it): one block a system,
 // min(256, n rounded up to 32) threads, thread t owning columns t, t + T, ...
 // of U. The upper triangle is packed row by row (n(n+1)/2 floats) in shared
 // memory while it fits beside y and L's column (n <= 338 at 227 KB), and in
@@ -126,7 +165,7 @@
 // of column c updates U[r][c] -= m_r * l_c for j <= r <= c and its y_c, two
 // barriers a step. Back substitution runs column by column, as on the
 // registers path: x_j = y_j * (d > 0 ? 1/d : 0), then every r < j takes
-// U[r][j] x_j off y_r, one barrier a step. Picked by n alone.
+// U[r][j] x_j off y_r, one barrier a step.
 //
 // Bound at the training slice's shapes (165,000 systems an iteration at
 // n = 50; H100 SXM data sheet: 3.35 TB/s, about 67 TFLOP/s fp32): reading
@@ -1006,6 +1045,419 @@ cudaError_t cluster_occupancy(int smem, int* out) {
   return cudaOccupancyMaxActiveClusters(out, spd_cluster_kernel<kBlkNb, C>, &cfg);
 }
 
+// ---- the tiled path (the cluster ceiling < n <= kWideMaxN) ----------------
+constexpr int kTlThreads = 256;   // threads of the copy and back-substitution blocks
+constexpr int kTlStripThreads = 128;  // threads (columns) of a strip block: three blocks an SM
+constexpr int kTlSub = kWarp;     // back substitution's sub-panel: one warp's rows
+constexpr int kTlNb = 64;         // the tile width: a panel's columns
+// the kernels of a call, in the order of the plan's threads: the copy, the
+// diagonal tile, the strip, the trailing update, back substitution
+enum TlKernel { kTlCopy, kTlDiag, kTlStrip, kTlUpdate, kTlBack, kTlKernels };
+
+// threads a block of each kernel at tile width nb: the trailing update
+// takes a 4 x 4 register tile a thread, the diagonal tile one warp
+__host__ __device__ constexpr int tl_threads(int kernel, int nb) {
+  return kernel == kTlDiag     ? kWarp
+         : kernel == kTlUpdate ? (nb / 4) * (nb / 4)
+         : kernel == kTlStrip  ? kTlStripThreads
+                               : kTlThreads;
+}
+// One system's working copy, floats: the tiles (I <= J, row-major over the
+// upper triangle, each nb x nb row-major), y [t nb], L's rows of the
+// current panel [nb][t nb] (back substitution's x at the end), then the
+// panel's diagonal L rows [nb][nb], inv_d [nb] and z_j [nb]. Every part
+// starts at a multiple of 32 floats.
+__host__ __device__ constexpr long long tl_system_floats(int t, int nb) {
+  return blk_tiles(t) * nb * nb + static_cast<long long>(t) * nb * (1 + nb) + nb * nb + 2LL * nb;
+}
+
+struct TlSystem {
+  float* u;   // the tiles
+  float* y;   // [t nb]
+  float* l;   // [nb][t nb]
+  float* ld;  // [nb][nb], then inv_d [nb] and z_j [nb]
+};
+__device__ __forceinline__ TlSystem tl_system(float* w, long long sys, int t, int nb) {
+  TlSystem s;
+  s.u = w + sys * tl_system_floats(t, nb);
+  s.y = s.u + blk_tiles(t) * nb * nb;
+  s.l = s.y + static_cast<long long>(t) * nb;
+  s.ld = s.l + static_cast<long long>(t) * nb * nb;
+  return s;
+}
+// tile (i, j) of a system, i <= j
+__device__ __forceinline__ float* tl_tile(const TlSystem& s, int i, int j, int t, int nb) {
+  return s.u + static_cast<long long>(blk_tile(i, j, t)) * nb * nb;
+}
+
+// One 16-byte copy from device memory into shared memory (cp.async, L2 only).
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src) : "memory");
+}
+
+// A 32-wide sub-panel of a diagonal tile (row-major at `tile` with row
+// pitch P, U's rows; L's rows into s_ld at the same pitch) on one warp,
+// lane c on column c (rows 0..c held in registers): the TPU kernel's 32
+// right-looking steps. Step j publishes L's row j (l_c, 0 left of j) to
+// s_ld, and its inv_d and z_j; every lane reads the m_r of its updates from
+// that row in 16-byte broadcasts (m_j = l_j - 1), and the next pivot comes
+// from its owner's own l (m_{j+1} = l_{j+1}: the bits of its row update) by
+// one shuffle. Rows below a lane's column are never written back. The
+// rows go back (row j as updated by step j, which back substitution
+// reads), and y's segment to yseg. Not inlined: the diagonal kernel calls
+// it twice, and its unrolled steps are long.
+template <int P>
+__device__ __noinline__ void tl_diag(float* tile, float* yseg, float* s_ld, float* s_inv,
+                                     float* s_z, int lane) {
+  float col[kWarp];
+#pragma unroll
+  for (int r = 0; r < kWarp; ++r) col[r] = r <= lane ? tile[r * P + lane] : 0.f;
+  float yv = yseg[lane];
+  float d2 = __shfl_sync(kFull, col[0], 0);
+#pragma unroll
+  for (int j = 0; j < kWarp; ++j) {
+    const float inv_d = d2 > 0.f ? rsqrtf(d2) : 0.f;
+    const float zj = __shfl_sync(kFull, yv, j) * inv_d;
+    const float l = lane >= j ? col[j] * inv_d : 0.f;
+    s_ld[j * P + lane] = l;
+    if (lane == 0) s_inv[j] = inv_d, s_z[j] = zj;
+    if (j + 1 < kWarp) d2 = __shfl_sync(kFull, __fmaf_rn(-l, l, col[j + 1]), j + 1);
+    __syncwarp();
+#pragma unroll
+    for (int g = j / 4; g < kWarp / 4; ++g) {
+      float m[4];
+      load4(s_ld + j * P, g, m);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * g + i;
+        if (r >= j) col[r] = __fmaf_rn(-(r == j ? m[i] - 1.f : m[i]), l, col[r]);
+      }
+    }
+    if (lane >= j) yv = __fmaf_rn(-(lane == j ? l - 1.f : l), zj, yv);
+  }
+#pragma unroll
+  for (int r = 0; r < kWarp; ++r) {
+    if (r <= lane) tile[r * P + lane] = col[r];
+  }
+  yseg[lane] = yv;
+}
+
+// One strip column c of a panel (its NB rows at tcol, row pitch NB): the
+// panel's NB steps against the diagonal tile's L rows (s_ld), l_c of step j
+// = U[j][c] * inv_d into L's buffer (lcol, row pitch np), y_c = fma(-l_c,
+// z_j, y_c); blk_strip's arithmetic, each row of s_ld read 16 bytes at a
+// time as it is used.
+template <int NB>
+__device__ __forceinline__ float tl_strip(float* __restrict__ tcol, float* __restrict__ lcol,
+                                          int np, const float* __restrict__ s_ld,
+                                          const float* __restrict__ s_inv,
+                                          const float* __restrict__ s_z, float yc) {
+  float col[NB];
+#pragma unroll
+  for (int r = 0; r < NB; ++r) col[r] = tcol[r * NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float lc = col[j] * s_inv[j];
+    lcol[j * np] = lc;
+#pragma unroll
+    for (int g = j / 4; g < NB / 4; ++g) {
+      float m[4];
+      load4(s_ld + j * NB, g, m);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * g + i;
+        if (r >= j) col[r] = __fmaf_rn(-(r == j ? m[i] - 1.f : m[i]), lc, col[r]);
+      }
+    }
+    yc = __fmaf_rn(-lc, s_z[j], yc);
+  }
+#pragma unroll
+  for (int r = 0; r < NB; ++r) tcol[r * NB] = col[r];
+  return yc;
+}
+
+// The copy: one block a (system, tile (I, J)). The tile's part of A's upper
+// triangle, the padding the identity and the part of a diagonal tile below
+// its diagonal 0 (never read); a diagonal tile's block also copies y's
+// segment (b, 0 in the padding). A is never written and its lower triangle
+// never read.
+template <int NB>
+__global__ void __launch_bounds__(kTlThreads)
+spd_tiled_copy_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      float* __restrict__ w, int n, int t) {
+  const int tiles = t * (t + 1) / 2;
+  const long long sys = blockIdx.x / tiles;
+  const int q = blockIdx.x % tiles;
+  int i = 0, r = q;
+  while (r >= t - i) r -= t - i++;
+  const int j = i + r;
+  const TlSystem s = tl_system(w, sys, t, NB);
+  float* tile = s.u + static_cast<long long>(q) * NB * NB;
+  const float* a_g = a + sys * n * n;
+  for (int e = threadIdx.x; e < NB * NB; e += kTlThreads) {
+    const int row = i * NB + e / NB, c = j * NB + e % NB;
+    tile[e] = c >= row && c < n ? a_g[static_cast<long long>(row) * n + c] : (row == c ? 1.f : 0.f);
+  }
+  if (i == j) {
+    for (int c = threadIdx.x; c < NB; c += kTlThreads) {
+      s.y[i * NB + c] = i * NB + c < n ? b[sys * n + i * NB + c] : 0.f;
+    }
+  }
+}
+
+// Panel p's diagonal tile, one warp a system, as 2 x 2 sub-tiles of 32, so
+// that the unrolled code stays short: sub-tile (0, 0)'s steps (tl_diag), the
+// strip of its rows over columns 32..63 (lane c on column 32 + c, its l
+// kept), the rank-32 update of sub-tile (1, 1), then that sub-tile's steps;
+// every element takes the FMAs of the NB steps in their order. Its L rows,
+// inv_d and z_j then go to the system's diagonal buffer for the strip.
+template <int NB>
+__global__ void __launch_bounds__(kWarp)
+spd_tiled_diag_kernel(float* __restrict__ w, int t, int p) {
+  __shared__ __align__(16) float s_d[NB * NB + 2 * NB];  // L rows, inv_d, z_j
+  const TlSystem s = tl_system(w, blockIdx.x, t, NB);
+  const int lane = threadIdx.x;
+  float* tile = tl_tile(s, p, p, t, NB);
+  float* yseg = s.y + p * NB;
+  float* s_inv = s_d + NB * NB;
+  float* s_z = s_inv + NB;
+  static_assert(NB == 2 * kWarp, "the diagonal tile is two sub-panels of a warp's width");
+  constexpr int H = kWarp;
+  tl_diag<NB>(tile, yseg, s_d, s_inv, s_z, lane);
+  __syncwarp();
+  float col[H], lcs[H];
+#pragma unroll
+  for (int r = 0; r < H; ++r) col[r] = tile[r * NB + H + lane];
+  float yc = yseg[H + lane];
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float lc = col[j] * s_inv[j];
+    lcs[j] = lc;
+    s_d[j * NB + H + lane] = lc;
+#pragma unroll
+    for (int g = j / 4; g < H / 4; ++g) {
+      float m[4];
+      load4(s_d + j * NB, g, m);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * g + i;
+        if (r >= j) col[r] = __fmaf_rn(-(r == j ? m[i] - 1.f : m[i]), lc, col[r]);
+      }
+    }
+    yc = __fmaf_rn(-lc, s_z[j], yc);
+  }
+#pragma unroll
+  for (int r = 0; r < H; ++r) tile[r * NB + H + lane] = col[r];
+  yseg[H + lane] = yc;
+  __syncwarp();
+  float u[H];
+#pragma unroll
+  for (int r = 0; r < H; ++r) u[r] = r <= lane ? tile[(H + r) * NB + H + lane] : 0.f;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+#pragma unroll
+    for (int g = 0; g < H / 4; ++g) {
+      float lr[4];
+      load4(s_d + k * NB + H, g, lr);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) u[4 * g + i] = __fmaf_rn(-lr[i], lcs[k], u[4 * g + i]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    if (r <= lane) tile[(H + r) * NB + H + lane] = u[r];
+  }
+  __syncwarp();
+  tl_diag<NB>(tile + H * NB + H, yseg + H, s_d + H * NB + H, s_inv + H, s_z + H, lane);
+  __syncwarp();
+  for (int e = 4 * lane; e < NB * NB + 2 * NB; e += 4 * kWarp) {
+    *reinterpret_cast<float4*>(s.ld + e) = *reinterpret_cast<const float4*>(s_d + e);
+  }
+}
+
+// Panel p's strip: the columns right of the panel, a thread a column
+// (tl_strip), per_sys blocks a system; y right of the panel with them. The
+// column's NB rows in registers (144 at nb = 64) allow one block of 256 an
+// SM, so a block takes 128 columns: three an SM.
+template <int NB>
+__global__ void __launch_bounds__(kTlStripThreads)
+spd_tiled_strip_kernel(float* __restrict__ w, int t, int p, int per_sys) {
+  __shared__ __align__(16) float s_d[NB * NB + 2 * NB];
+  const long long sys = blockIdx.x / per_sys;
+  const int sb = blockIdx.x % per_sys;
+  const TlSystem s = tl_system(w, sys, t, NB);
+  for (int e = 4 * threadIdx.x; e < NB * NB + 2 * NB; e += 4 * kTlStripThreads) {
+    copy16(s_d + e, s.ld + e);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const int np = t * NB;
+  const int c = (p + 1) * NB + sb * kTlStripThreads + static_cast<int>(threadIdx.x);
+  if (c < np) {
+    s.y[c] = tl_strip<NB>(tl_tile(s, p, c / NB, t, NB) + c % NB, s.l + c, np, s_d, s_d + NB * NB,
+                          s_d + NB * NB + NB, s.y[c]);
+  }
+}
+
+// Panel p's trailing update: one block a (system, tile (I, J), p < I <=
+// J), per_sys tiles a system in row-major order. L's rows of the panel at
+// the tile's rows and columns are copied into shared memory; a thread takes
+// one 4 x 4 register tile, k over the panel's steps ascending
+// (blk_update4); a diagonal tile keeps its upper part.
+template <int NB>
+__global__ void __launch_bounds__((NB / 4) * (NB / 4))
+spd_tiled_update_kernel(float* __restrict__ w, int t, int p, int per_sys) {
+  constexpr int G = NB / 4;
+  constexpr int T = G * G;
+  __shared__ __align__(16) float s_li[NB * NB];
+  __shared__ __align__(16) float s_lj[NB * NB];
+  const long long sys = blockIdx.x / per_sys;
+  int f = blockIdx.x % per_sys;
+  int i = p + 1;
+  while (f >= t - i) f -= t - i++;
+  const int j = i + f;
+  const TlSystem s = tl_system(w, sys, t, NB);
+  const int np = t * NB;
+  const int tid = threadIdx.x;
+  for (int e = tid; e < NB * G; e += T) {
+    const int k = e / G, g = e % G;
+    copy16(s_li + k * NB + 4 * g, s.l + k * np + i * NB + 4 * g);
+    if (i != j) copy16(s_lj + k * NB + 4 * g, s.l + k * np + j * NB + 4 * g);
+  }
+  const int rg = tid / G, cg = tid % G;
+  float* tu = tl_tile(s, i, j, t, NB) + 4 * rg * NB + 4 * cg;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) load4(tu + r * NB, 0, acc[r]);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (i == j && rg > cg) return;  // below the diagonal
+  const float* lr = s_li + 4 * rg;
+  const float* lc = (i == j ? s_li : s_lj) + 4 * cg;
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    float rv[4], cv[4];
+    load4(lr + k * NB, 0, rv);
+    load4(lc + k * NB, 0, cv);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = __fmaf_rn(-rv[r], cv[c], acc[r][c]);
+    }
+  }
+  if (i == j && rg == cg) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = r; c < 4; ++c) tu[r * NB + c] = acc[r][c];
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      *reinterpret_cast<float4*>(tu + r * NB) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+  }
+}
+
+// Back substitution, one block a system, by sub-panels of kTlSub rows from
+// the last, one barrier a sub-panel: warp 0 takes sub-panel q + 1's x off
+// the rows of sub-panel q and then solves it, x_j = y_j * (d > 0 ? 1/d :
+// 0) with j descending, lane r on row r; meanwhile the other warps take
+// sub-panel q + 1's x off every row above sub-panel q. Each y_r takes its
+// x_j with j descending, as on the wide path. x goes to L's buffer (padded)
+// and to the output.
+template <int NB>
+__global__ void __launch_bounds__(kTlThreads)
+spd_tiled_back_kernel(float* __restrict__ w, float* __restrict__ x, int n, int t) {
+  const long long sys = blockIdx.x;
+  const TlSystem s = tl_system(w, sys, t, NB);
+  const int np = t * NB;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp, warp = tid / kWarp;
+  float* xp = s.l;
+  for (int q = np / kTlSub - 1; q >= 0; --q) {
+    const int s0 = q * kTlSub;
+    const int e = s0 + kTlSub;
+    if (warp == 0) {
+      const int row = s0 + lane;
+      const float* urow = tl_tile(s, row / NB, s0 / NB, t, NB) + (row % NB) * NB + s0 % NB;
+      float u[kTlSub];
+#pragma unroll
+      for (int g = 0; g < kTlSub / 4; ++g) load4(urow, g, u + 4 * g);
+      float yv = s.y[row];
+      const float d = urow[lane];
+      const float dinv = d > 0.f ? 1.f / d : 0.f;
+      if (e < np) {
+        yv = take_panel<kTlSub>(tl_tile(s, row / NB, e / NB, t, NB) + (row % NB) * NB + e % NB,
+                                xp + e, yv);
+      }
+      float xs = 0.f;
+#pragma unroll
+      for (int j = kTlSub - 1; j >= 0; --j) {
+        const float xj = __shfl_sync(kFull, yv * dinv, j);
+        if (lane == j) xs = xj;
+        if (lane < j) yv = __fmaf_rn(-u[j], xj, yv);
+      }
+      xp[row] = xs;
+      if (row < n) x[sys * n + row] = xs;
+    } else if (e < np) {
+      for (int r = tid - kWarp; r < s0; r += kTlThreads - kWarp) {
+        s.y[r] = take_panel<kTlSub>(tl_tile(s, r / NB, e / NB, t, NB) + (r % NB) * NB + e % NB,
+                                    xp + e, s.y[r]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The launches of one call at t tiles a side and tile width nb, in order,
+// each handed to f(kernel, panel, blocks a system): the copy (a block a
+// tile); for each panel p its diagonal tile (one warp a system), then, but
+// for the last panel, its strip (a block of kTlStripThreads columns) and its
+// trailing update (a block a tile right of and below the panel); back
+// substitution (a block a system). 3t launches.
+template <class F>
+void tl_for_each_launch(int t, int nb, F f) {
+  const int np = t * nb;
+  f(kTlCopy, -1, t * (t + 1) / 2);
+  for (int p = 0; p < t; ++p) {
+    f(kTlDiag, p, 1);
+    if (p + 1 < t) {
+      const int m = t - p - 1;
+      f(kTlStrip, p, (np - (p + 1) * nb + kTlStripThreads - 1) / kTlStripThreads);
+      f(kTlUpdate, p, m * (m + 1) / 2);
+    }
+  }
+  f(kTlBack, -1, 1);
+}
+
+template <int NB>
+cudaError_t launch_tiled(const float* a, const float* b, float* x, float* w, int B, int n,
+                         cudaStream_t st) {
+  const int t = (n + NB - 1) / NB;
+  cudaError_t err = cudaSuccess;
+  tl_for_each_launch(t, NB, [&](int kernel, int p, int per_sys) {
+    if (err != cudaSuccess) return;
+    const int blocks = B * per_sys;
+    const int threads = tl_threads(kernel, NB);
+    switch (kernel) {
+      case kTlCopy: spd_tiled_copy_kernel<NB><<<blocks, threads, 0, st>>>(a, b, w, n, t); break;
+      case kTlDiag: spd_tiled_diag_kernel<NB><<<blocks, threads, 0, st>>>(w, t, p); break;
+      case kTlStrip:
+        spd_tiled_strip_kernel<NB><<<blocks, threads, 0, st>>>(w, t, p, per_sys);
+        break;
+      case kTlUpdate:
+        spd_tiled_update_kernel<NB><<<blocks, threads, 0, st>>>(w, t, p, per_sys);
+        break;
+      default: spd_tiled_back_kernel<NB><<<blocks, threads, 0, st>>>(w, x, n, t); break;
+    }
+    err = cudaGetLastError();
+  });
+  return err;
+}
+
 template <int NP>
 cudaError_t launch_reg(const float* a, const float* b, float* x, int B, int n,
                        int smem, cudaStream_t st) {
@@ -1178,6 +1630,65 @@ extern "C" int pio_spd_solve_cluster_attrs(int* out) {
       reinterpret_cast<const void*>(spd_cluster_kernel<kBlkNb, 2>),
       reinterpret_cast<const void*>(spd_cluster_kernel<kBlkNb, 4>),
       reinterpret_cast<const void*>(spd_cluster_kernel<kBlkNb, 8>),
+  };
+  int i = 0;
+  for (const void* k : kernels) {
+    cudaFuncAttributes at;
+    const cudaError_t err = cudaFuncGetAttributes(&at, k);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[i++] = at.numRegs;
+    out[i++] = static_cast<int>(at.localSizeBytes);
+    out[i++] = static_cast<int>(at.sharedSizeBytes);
+  }
+  return 0;
+}
+
+// Launches the tiled path (kMaxN < n <= kWideMaxN) on `stream` and returns
+// the first error (0 = ok). Device pointers as pio_spd_solve's, plus work
+// [B, work_floats] f32, the working copy (tl_system_floats). The plan: the
+// tile width nb (kTlNb), tiles of the upper triangle and panels at t =
+// ceil(n / nb), the working copy's floats a system, the threads a block of
+// each kernel (kernels ints, in TlKernel's order) and the blocks a system of
+// each launch (launches ints, in tl_for_each_launch's order); a plan that
+// does not match this arithmetic is refused (cudaErrorInvalidValue) before
+// anything is launched.
+extern "C" int pio_spd_solve_tiled(const void* a, const void* b, void* x, void* work, int B,
+                                   int n, int nb, int tiles, int panels, int work_floats,
+                                   const int* threads, int kernels, const int* blocks,
+                                   int launches, void* stream) {
+  if (B < 1 || n <= kMaxN || n > kWideMaxN || nb != kTlNb || kernels != kTlKernels ||
+      threads == nullptr || blocks == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int t = (n + nb - 1) / nb;
+  bool ok = tiles == blk_tiles(t) && panels == t && work_floats == tl_system_floats(t, nb);
+  for (int k = 0; k < kTlKernels; ++k) ok = ok && threads[k] == tl_threads(k, nb);
+  int count = 0;
+  tl_for_each_launch(t, nb, [&](int, int, int per_sys) {
+    ok = ok && count < launches && blocks[count] == per_sys &&
+         static_cast<long long>(B) * per_sys <= 0x7fffffffLL;
+    ++count;
+  });
+  if (!ok || count != launches) return static_cast<int>(cudaErrorInvalidValue);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  float* xf = static_cast<float*>(x);
+  float* wf = static_cast<float*>(work);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(launch_tiled<kTlNb>(af, bf, xf, wf, B, n, st));
+}
+
+// Registers a thread, local (spilled) bytes and static shared memory of the
+// tiled path's kernels, three ints each, in TlKernel's order: the copy,
+// diagonal, strip, update and back-substitution kernels. Returns the first
+// error of cudaFuncGetAttributes.
+extern "C" int pio_spd_solve_tiled_attrs(int* out) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(spd_tiled_copy_kernel<kTlNb>),
+      reinterpret_cast<const void*>(spd_tiled_diag_kernel<kTlNb>),
+      reinterpret_cast<const void*>(spd_tiled_strip_kernel<kTlNb>),
+      reinterpret_cast<const void*>(spd_tiled_update_kernel<kTlNb>),
+      reinterpret_cast<const void*>(spd_tiled_back_kernel<kTlNb>),
   };
   int i = 0;
   for (const void* k : kernels) {

@@ -322,6 +322,9 @@ _EXTRA_ENTRIES = {
         "pio_spd_solve_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "pio_spd_solve_blocked": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         "pio_spd_solve_cluster": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        "pio_spd_solve_tiled": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] * 2 + [ctypes.c_void_p],
+        "pio_spd_solve_tiled_attrs": _ATTRS_ARGTYPES,
         "pio_spd_solve_attrs": _ATTRS_ARGTYPES,
         "pio_spd_solve_cluster_attrs": _ATTRS_ARGTYPES,
         "pio_spd_solve_cluster_occupancy": [ctypes.c_int, ctypes.c_int,
@@ -1310,10 +1313,77 @@ def _spd_cluster_max_n(nb: int) -> int:
 
 
 #: the widest system of the cluster path (a cluster of 8 blocks); wider
-#: systems take the wide path
+#: systems take the tiled path
 SPD_CLUSTER_MAX_N = _spd_cluster_max_n(SPD_BLOCKED_NB)
-#: the solve's paths, in the order of the widths they take
-SPD_PATHS = ("registers", "shared", "blocked", "cluster", "wide")
+#: the solve's paths, in the order of the widths they take; the wide path
+#: takes none of its own since the tiled path (only a plan forces it)
+SPD_PATHS = ("registers", "shared", "blocked", "cluster", "tiled", "wide")
+
+#: the tiled path: the tile width (kTlNb), threads of its copy and
+#: back-substitution blocks (kTlThreads) and of a strip block
+#: (kTlStripThreads, a column each), back substitution's sub-panel (kTlSub,
+#: one warp's rows), and its kernels in the order of the plan's threads
+#: (TlKernel)
+SPD_TILED_NB = 64
+SPD_TILED_THREADS, SPD_TILED_STRIP_THREADS, SPD_TILED_SUB = 256, 128, 32
+SPD_TILED_KERNELS = ("copy", "diag", "strip", "update", "back")
+#: device memory one call of the tiled path keeps for its working copy: a
+#: call of more systems is cut into calls that stay within it (never below
+#: one system), as the top-k cuts a batch (TOPK_MAX_SCRATCH_BYTES)
+SPD_TILED_MAX_SCRATCH_BYTES = 2 << 30
+
+
+def spd_tiled_threads(nb: int = SPD_TILED_NB) -> Tuple[int, ...]:
+    """Threads a block of each tiled kernel (:data:`SPD_TILED_KERNELS`) at
+    tile width ``nb`` (``tl_threads``): the diagonal tile one warp, the
+    trailing update a 4 × 4 register tile a thread, the strip
+    :data:`SPD_TILED_STRIP_THREADS`, the others :data:`SPD_TILED_THREADS`."""
+    return tuple(32 if k == "diag" else (nb // 4) ** 2 if k == "update"
+                 else SPD_TILED_STRIP_THREADS if k == "strip" else SPD_TILED_THREADS
+                 for k in SPD_TILED_KERNELS)
+
+
+def spd_tiled_system_floats(n: int, nb: int) -> int:
+    """Floats of one system's working copy on the tiled path
+    (``tl_system_floats``): the t(t+1)/2 tiles of nb × nb at t =
+    ceil(n / nb), y ``[t·nb]``, L's rows of a panel ``[nb, t·nb]``, the
+    panel's diagonal L rows ``[nb, nb]``, its inv_d and z_j ``[nb]`` each."""
+    t = _cdiv(n, nb)
+    return t * (t + 1) // 2 * nb * nb + t * nb * (1 + nb) + nb * nb + 2 * nb
+
+
+def spd_tiled_schedule(t: int, nb: int) -> list:
+    """The launches of one tiled call at ``t`` tiles a side (``tl_for_each_launch``),
+    in order, as (kernel, panel, blocks a system): the copy (a block a
+    tile); for each panel p its diagonal tile (one warp), then, but for the
+    last panel, its strip (a block of :data:`SPD_TILED_STRIP_THREADS`
+    columns right of the panel) and its trailing update (a block a tile right of
+    and below it); back substitution (a block). 3t launches."""
+    np_ = t * nb
+    out = [("copy", -1, t * (t + 1) // 2)]
+    for p in range(t):
+        out.append(("diag", p, 1))
+        if p + 1 < t:
+            m = t - p - 1
+            out.append(("strip", p, _cdiv(np_ - (p + 1) * nb, SPD_TILED_STRIP_THREADS)))
+            out.append(("update", p, m * (m + 1) // 2))
+    out.append(("back", -1, 1))
+    return out
+
+
+def spd_tiled_systems(n: int) -> int:
+    """Systems one tiled call takes at most: as many working copies as fit
+    in :data:`SPD_TILED_MAX_SCRATCH_BYTES`, never fewer than one."""
+    return max(1, SPD_TILED_MAX_SCRATCH_BYTES // (4 * spd_tiled_system_floats(n, SPD_TILED_NB)))
+
+
+def spd_tiled_slices(b: int, n: int) -> list:
+    """The ``[start, stop)`` ranges of systems a tiled solve of ``b`` is
+    cut into, one call each: consecutive, covering every system once, at
+    most :func:`spd_tiled_systems` each. Systems are independent, so the
+    cut changes no bit."""
+    rows = spd_tiled_systems(n)
+    return [(s, min(s + rows, b)) for s in range(0, b, rows)]
 
 
 class SpdPlan(NamedTuple):
@@ -1321,7 +1391,7 @@ class SpdPlan(NamedTuple):
     (see :func:`spd_launch_plan`)."""
 
     path: str  #: "registers" (n <= 64), "shared" (n <= 128), "blocked",
-    #: "cluster" or "wide"
+    #: "cluster", "tiled" or "wide"
     np_: int  #: the padded width, a multiple of 8 and at least n (blocked,
     #: cluster: of nb; wide: n)
     slots: int  #: column slots a lane holds, ceil(np_ / 32) (blocked, wide:
@@ -1336,11 +1406,19 @@ class SpdPlan(NamedTuple):
     #: the card packs clusters into GPCs, so the card may hold fewer clusters
     #: at once (``cudaOccupancyMaxActiveClusters``, :func:`spd_cluster_occupancy`)
     #: and run more waves. Nothing launches from it.
-    scratch: int = 0  #: floats a system in device memory (wide path, large n)
-    nb: int = 0  #: the tile width (blocked, cluster)
-    tiles: int = 0  #: tiles of the upper triangle, t(t+1)/2 (blocked path);
-    #: the largest block's tiles (cluster path)
+    scratch: int = 0  #: floats a system in device memory (wide path, large
+    #: n; tiled path: the working copy)
+    nb: int = 0  #: the tile width (blocked, cluster, tiled)
+    tiles: int = 0  #: tiles of the upper triangle, t(t+1)/2 (blocked, tiled
+    #: path); the largest block's tiles (cluster path)
     cluster: int = 0  #: blocks a system (cluster path)
+    panels: int = 0  #: panels, t (tiled path)
+    threads: Tuple[int, ...] = ()  #: threads a block of each kernel, in
+    #: :data:`SPD_TILED_KERNELS`' order (tiled path)
+    launch_blocks: Tuple[int, ...] = ()  #: blocks a system of each launch of
+    #: a call, in :func:`spd_tiled_schedule`'s order (tiled path)
+    systems: int = 0  #: systems a call takes at most (tiled path:
+    #: :func:`spd_tiled_systems`; a solve of more is cut into calls)
 
 
 def _spd_blocks_per_sm(warps: int, smem: int, regs: Optional[int]) -> int:
@@ -1363,12 +1441,13 @@ def spd_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
     memory), n <= :data:`SPD_MAX_N` the shared path (warps a block from 48
     KB of shared memory), n <= :data:`SPD_BLOCKED_MAX_N` the blocked path
     (:func:`spd_blocked_launch_plan`), n <= :data:`SPD_CLUSTER_MAX_N` the
-    cluster path (:func:`spd_cluster_launch_plan`) and wider n the wide
-    path (:func:`spd_wide_launch_plan`)."""
+    cluster path (:func:`spd_cluster_launch_plan`) and wider n the tiled
+    path (:func:`spd_tiled_launch_plan`). No n takes the wide path, which
+    :func:`spd_wide_launch_plan` still forces."""
     if min(b, n, sm_count) < 1 or n > SPD_WIDE_MAX_N:
         raise ValueError(f"no spd launch plan for b={b}, n={n}, sm_count={sm_count}")
     if n > SPD_CLUSTER_MAX_N:
-        return spd_wide_launch_plan(b, n, sm_count)
+        return spd_tiled_launch_plan(b, n, sm_count)
     if n > SPD_BLOCKED_MAX_N:
         return spd_cluster_launch_plan(b, n, sm_count)
     if n > SPD_MAX_N:
@@ -1429,11 +1508,49 @@ def spd_cluster_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
                    tiles=max(spd_cluster_tiles(t, c, r) for r in range(c)), cluster=c)
 
 
+#: registers a thread of each tiled kernel, as the card allocates them
+#: (``cudaFuncGetAttributes``' count rounded up to the granule of 8;
+#: chip_smoke holds the card to every entry); with the threads and the
+#: static shared memory they set the blocks an SM holds
+SPD_TILED_REGS = {"copy": 32, "diag": 168, "strip": 144, "update": 56, "back": 72}
+
+
+@functools.lru_cache(maxsize=256)
+def spd_tiled_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
+    """The tiled path's plan (n > :data:`SPD_CLUSTER_MAX_N`; any n >
+    :data:`SPD_MAX_N` to compare it with the blocked and cluster paths):
+    the upper triangle copied into a working copy in device memory as nb ×
+    nb tiles (nb = :data:`SPD_TILED_NB`, padded to ``np_`` = t·nb with
+    identity columns), each panel of nb columns three launches (its
+    diagonal tile, its strip, its trailing update: one block a tile), then
+    back substitution (:func:`spd_tiled_schedule`). ``blocks`` counts every
+    launch's blocks for the whole call of ``b``; ``blocks_per_sm`` and
+    ``waves`` are the first trailing update's, the largest launch. A call
+    takes at most ``systems`` systems (the working copies' budget); the
+    wrapper cuts a larger one. Pure arithmetic, checked again by the C
+    entry point."""
+    nb = SPD_TILED_NB
+    if min(b, sm_count) < 1 or not SPD_MAX_N < n <= SPD_WIDE_MAX_N:
+        raise ValueError(f"no spd tiled plan for b={b}, n={n}, sm_count={sm_count}")
+    t = _cdiv(n, nb)
+    threads = spd_tiled_threads(nb)
+    launch_blocks = tuple(blocks for _, _, blocks in spd_tiled_schedule(t, nb))
+    update = threads[SPD_TILED_KERNELS.index("update")]
+    per_sm = _spd_blocks_per_sm(update // 32, 8 * nb * nb, SPD_TILED_REGS["update"])
+    first = (t - 1) * t // 2  # tiles of the first trailing update
+    return SpdPlan(path="tiled", np_=t * nb, slots=_cdiv(t * nb, SPD_TILED_THREADS),
+                   warps=update // 32, blocks=b * sum(launch_blocks), smem=0,
+                   blocks_per_sm=per_sm, waves=_cdiv(b * max(first, 1), sm_count * per_sm),
+                   scratch=spd_tiled_system_floats(n, nb), nb=nb, tiles=t * (t + 1) // 2,
+                   panels=t, threads=threads, launch_blocks=launch_blocks,
+                   systems=min(b, spd_tiled_systems(n)))
+
+
 @functools.lru_cache(maxsize=256)
 def spd_wide_launch_plan(b: int, n: int, sm_count: int) -> SpdPlan:
-    """The wide path's plan, the first version (the path above
-    :data:`SPD_BLOCKED_MAX_N`; any n > :data:`SPD_MAX_N` to compare it with
-    the blocked path): one block a system, its packed upper triangle in
+    """The wide path's plan, the first version (no n takes it since the
+    tiled path; any n > :data:`SPD_MAX_N` to compare it with the blocked,
+    cluster and tiled paths): one block a system, its packed upper triangle in
     shared memory while it fits (beside y and L's column), else in a ``[B,
     n(n+1)/2]`` scratch. Pure arithmetic, checked again by the C entry
     point."""
@@ -1504,11 +1621,13 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor, plan: Optional[SpdPlan] = None) 
     :func:`spd_launch_plan` (n <= 64 with each system in one warp's
     registers, n <= 128 through shared memory, n <= SPD_BLOCKED_MAX_N on
     the blocked path, n <= SPD_CLUSTER_MAX_N on a cluster of blocks, wider
-    n on the wide path; one launch is counted either way, and by path);
-    ``plan`` overrides it (a :func:`spd_wide_launch_plan` at any n > 128
-    launches the wide kernel, to compare it with the blocked and cluster
-    ones; the C entry point still checks it). A cluster launch the card
-    refuses raises. CPU tensors run :func:`spd_solve_reference`."""
+    n on the tiled path; one launch is counted a call of a C entry, in all
+    and by path: the tiled path makes one call for each
+    :func:`spd_tiled_slices` range); ``plan`` overrides it (a
+    :func:`spd_wide_launch_plan` at any n > 128 launches the wide kernel,
+    a :func:`spd_tiled_launch_plan` the tiled path, to compare them with
+    the other paths; the C entry point still checks it). A cluster launch
+    the card refuses raises. CPU tensors run :func:`spd_solve_reference`."""
     _check_spd_inputs(a, b)
     if a.shape[-1] > SPD_WIDE_MAX_N:
         raise ValueError(
@@ -1528,6 +1647,9 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor, plan: Optional[SpdPlan] = None) 
         index = device.index if device.index is not None else torch.cuda.current_device()
         plan = spd_launch_plan(bsz, n, _sm_count(index))
     lib = _configured("spd_solve", _SPD_ARGTYPES)
+    if plan.path == "tiled":
+        _spd_solve_tiled(lib, a, b, x, plan)
+        return x
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if plan.path == "wide":
@@ -1560,6 +1682,29 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor, plan: Optional[SpdPlan] = None) 
     return x
 
 
+def _spd_solve_tiled(lib, a, b, x, plan: SpdPlan) -> None:
+    """The tiled path: one call of ``pio_spd_solve_tiled`` (3t launches on
+    the current stream) for each range of at most ``plan.systems`` systems,
+    one working copy reused by every call, each call counted."""
+    bsz, n, _ = a.shape
+    work = torch.empty((min(bsz, plan.systems), plan.scratch), dtype=torch.float32,
+                       device=a.device)
+    threads = (ctypes.c_int * len(plan.threads))(*plan.threads)
+    blocks = (ctypes.c_int * len(plan.launch_blocks))(*plan.launch_blocks)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        for s0 in range(0, bsz, plan.systems):
+            s1 = min(bsz, s0 + plan.systems)
+            code = lib.pio_spd_solve_tiled(
+                a[s0:s1].data_ptr(), b[s0:s1].data_ptr(), x[s0:s1].data_ptr(), work.data_ptr(),
+                s1 - s0, n, plan.nb, plan.tiles, plan.panels, plan.scratch, threads,
+                len(plan.threads), blocks, len(plan.launch_blocks), stream,
+            )
+            spd_solve.launches += 1
+            spd_solve.launches_by_path["tiled"] += 1
+            _raise_on_error(lib, "spd_solve", code)
+
+
 #: kernel launches since the count was last reset (CUDA tensors only), in
 #: all and by the plan's path
 spd_solve.launches = 0
@@ -1571,6 +1716,19 @@ SPD_KERNELS = (*(f"registers_np{w}" for w in SPD_REGS), "shared", "blocked", "wi
 #: the cluster kernels ``pio_spd_solve_cluster_attrs`` reports on, in its
 #: order: one a cluster size
 SPD_CLUSTER_KERNELS = tuple(f"cluster_c{c}" for c in SPD_CLUSTER_SIZES)
+
+
+def spd_tiled_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of each tiled kernel (:data:`SPD_TILED_KERNELS`), as
+    ``cudaFuncGetAttributes`` reports them on the card."""
+    lib = _configured("spd_solve", _SPD_ARGTYPES)
+    out = (ctypes.c_int * (3 * len(SPD_TILED_KERNELS)))()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "spd_solve_tiled_attrs", lib.pio_spd_solve_tiled_attrs(out))
+    keys = ("regs", "local_bytes", "static_smem")
+    return {name: dict(zip(keys, out[3 * k:3 * k + 3]))
+            for k, name in enumerate(SPD_TILED_KERNELS)}
 
 
 def spd_cluster_kernel_attributes(device=None) -> dict:

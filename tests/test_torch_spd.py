@@ -306,8 +306,8 @@ def test_wide_plan_passes_the_c_entry_points_check(sm_count):
         for b in (1, 3, 4096, 97972):
             plan = cuda_kernels.spd_wide_launch_plan(b, n, sm_count)
             assert plan.path == "wide" and plan.np_ == n
-            if n > cuda_kernels.SPD_CLUSTER_MAX_N:  # the plan's own pick above the cluster path
-                assert spd_launch_plan(b, n, sm_count) == plan
+            if n > cuda_kernels.SPD_CLUSTER_MAX_N:  # above the cluster path the plan picks tiles
+                assert spd_launch_plan(b, n, sm_count).path == "tiled"
             assert plan.blocks_per_sm >= 1
             assert plan.waves == -(-b // (sm_count * plan.blocks_per_sm))
             assert _wide_c_entry_accepts(plan, b, n), (b, n, plan)
@@ -331,7 +331,7 @@ def test_wide_constants_are_the_kernels():
 def test_the_path_is_picked_by_the_system_size_alone(n):
     want = ("registers" if n <= 64 else "shared" if n <= SPD_MAX_N
             else "blocked" if n <= cuda_kernels.SPD_BLOCKED_MAX_N
-            else "cluster" if n <= cuda_kernels.SPD_CLUSTER_MAX_N else "wide")
+            else "cluster" if n <= cuda_kernels.SPD_CLUSTER_MAX_N else "tiled")
     for b in BUCKET_SIZES + [1, 3]:
         assert spd_launch_plan(b, n, 132).path == want
 

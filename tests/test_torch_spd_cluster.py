@@ -110,8 +110,8 @@ def test_the_plan_at_every_size_and_the_c_entry_check(sm_count):
     for n in range(SPD_BLOCKED_MAX_N + 1, SPD_CLUSTER_MAX_N + 2):
         for b in (1, 3, 1024, 97972):
             plan = spd_launch_plan(b, n, sm_count)
-            if n > SPD_CLUSTER_MAX_N:
-                assert plan.path == "wide" and plan.np_ == n
+            if n > SPD_CLUSTER_MAX_N:  # the tiled path above the ceiling
+                assert plan.path == "tiled" and plan.np_ == -(-n // plan.nb) * plan.nb
                 continue
             t = -(-n // SPD_BLOCKED_NB)
             c = 2 if n <= C2_MAX_N else 4 if n <= 576 else 8
@@ -180,7 +180,7 @@ def test_plan_refuses_bad_inputs():
 @pytest.mark.parametrize("n", [1, 64, 65, 128, 129, 304, 305, 432, 433, 768, 769, 1000])
 def test_the_path_is_picked_by_n_alone(n):
     want = ("registers" if n <= 64 else "shared" if n <= 128 else "blocked" if n <= 304
-            else "cluster" if n <= 768 else "wide")
+            else "cluster" if n <= 768 else "tiled")
     for b in (1, 3, 128, 1024, 97972):
         assert spd_launch_plan(b, n, 132).path == want
 
