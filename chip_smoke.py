@@ -201,25 +201,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    a doctored plan refused with an error), the wide kernel at 769 beside
    its bound, zero and singular systems on the blocked and cluster paths,
    n = 400 through the wide kernel's device-memory scratch;
-   attention at D = 136, 192, 256 (the resident path) and D = 320 (the
-   streamed path) at the training shape and at L = 2,048 causal and not,
-   and at D = 384 (the passes path) at the training shape (rtol 2e-4 /
-   atol 2e-5, bit-identical, one launch), each timed beside the plain
-   version, the library call and the bound, and the resident and streamed
-   cases beside the passes kernel on the same tensors; D = 280 and 302 on
-   the streamed path at two ragged cross shapes; a plan forcing the
-   streamed path at D = 256, ``torch.equal`` to the resident kernel;
-   every general-width kernel's registers and local bytes (no local
-   memory; each attention kernel's registers equal to its plan constant).
+   attention at D = 136, 192, 256 (the resident path), D = 320 (the
+   streamed path) and D = 384, 512 (the wide streamed path) at the
+   training shape and at L = 2,048 causal and not, and at D = 576 (the
+   passes path) at the training shape (rtol 2e-4 / atol 2e-5,
+   bit-identical, one launch), each timed beside the plain version, the
+   library call and the bound, and the resident and streamed cases beside
+   the passes kernel on the same tensors (the wide streamed path's A B B
+   A); D = 280 and 302 on the streamed path and D = 330 and 502 on the
+   wide streamed path at two ragged cross shapes; plans forcing the
+   streamed path at D = 256 and the wide streamed path at D = 320,
+   ``torch.equal`` to the kernel each width's own plan takes, and a
+   doctored wide streamed plan, refused with an error; every
+   general-width kernel's registers and local bytes (no local memory;
+   each attention kernel's registers equal to its plan constant).
    Then ALS at rank 200 (the build's rows path, the blocked solve) and at
    rank 384 (the build's tile path, the cluster solve) by ``run_train``
    from the store (3 iterations, build and solve launches counted in all
    and by path) held to 3 plain iterations (rtol 2e-3 / atol 2e-4), each
    with the holdout RMSE of 3 iterations on 95 % of the ratings; seqrec
-   at d_model 256 / 1 head (D = 256, 20 steps, 64 queries) and at
-   d_model 320 / 1 head (D = 320, 10 steps, 16 queries)
-   by ``run_train`` and served for a burst held to the plain forward,
-   attention launches counted in all and on the head's path.
+   at d_model 256 / 1 head (D = 256, 20 steps, 64 queries), at d_model
+   320 / 1 head (D = 320, 10 steps, 16 queries) and at d_model 384 / 1
+   head (D = 384, 10 steps, 16 queries) by ``run_train`` and served for a
+   burst held to the plain forward, attention launches counted in all and
+   on the head's path.
 16. ``console`` — the quickstart's lifecycle through ``python -m
    predictionio_tpu_torch.tools.console``, each command its own process:
    ``app new``, ``import`` of ``examples/movielens_quickstart/gen_events.py``'s
@@ -248,6 +253,7 @@ import gc
 import http.client
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3747,15 +3753,22 @@ WIDE_ATTN_SHAPES = ((64, 4, 64, 64, True), (8, 4, 2048, 2048, True),
 WIDE_STREAMED_HEAD = 320
 WIDE_STREAMED_CHECKS = (280, 302)
 WIDE_CHECK_SHAPES = ((3, 2, 130, 200, True), (2, 3, 200, 130, False))
-#: a head above the streamed path's widest (FLASH_STREAMED_MAX_D), so the
-#: passes path is still launched and held: the training shape, timed
-WIDE_PASSES_HEAD = 384
+#: heads above the streamed path's widest on the wide streamed path (up to
+#: FLASH_WIDE_STREAMED_MAX_D), timed at WIDE_ATTN_SHAPES beside the passes
+#: kernel on the same tensors, and two more held at WIDE_CHECK_SHAPES (the
+#: last chunk 16 and 56 columns wide; both copied 4 bytes at a time)
+WIDE_WS_HEADS = (384, 512)
+WIDE_WS_CHECKS = (330, 502)
+#: a head above the wide streamed path's widest (FLASH_WIDE_STREAMED_MAX_D),
+#: so the passes path is still launched and held: the training shape, timed
+WIDE_PASSES_HEAD = 576
 WIDE_PASSES_SHAPES = WIDE_ATTN_SHAPES[:1]
 WIDE_ALS_RANK, WIDE_SEQ = 200, dict(d_model=256, n_heads=1)
-#: seqrec on the streamed path (D = 320) from the events store: steps
-#: trained and queries served
+#: seqrec on the streamed path (D = 320) and on the wide streamed path (D =
+#: 384) from the events store: steps trained and queries served
 WIDE_SEQ_STREAMED, WIDE_SEQ_STREAMED_STEPS, WIDE_SEQ_STREAMED_QUERIES = (
     dict(d_model=320, n_heads=1), 10, 16)
+WIDE_SEQ_WS = dict(d_model=384, n_heads=1)
 
 
 def wide_bucket(torch, gen, dev, b: int, k: int, n: int, r: int):
@@ -3958,6 +3971,70 @@ def gramian_wide_variants(torch, dev, seed: int = 0, cases=None) -> None:
                 continue
             out, ok = gramian_wide_case(torch, dev, gen, sm, b, k, n, r)
             emit({"phase": "gramian_wide_variant", "case": f"{side}_R{r}", "held": ok, **out})
+
+
+#: the einsum build's gather a slice, floats (2 GiB), where a bucket's is larger
+LIBRARY_GATHER_FLOATS = 1 << 29
+
+
+def gramian_tile_at_rank(torch, dev, r: int = WIDE_TILED_ALS_RANK, seed: int = 0) -> None:
+    """The build's tile path at rank ``r`` (default the tiled solve's ALS
+    rank) on the leading rows of each of WIDE_BUCKETS that one call of the
+    systems budget allows (the first of ``gramian_row_slices``' slices, at
+    most WIDE_CHECK_ROWS): its plan, its answer against the plain version
+    (and a second call, bit for bit), the event and device ms of the kernel
+    A B B A with the einsum build, the plain version's event ms and the
+    bound. The einsum runs over row slices whose gather stays within
+    LIBRARY_GATHER_FLOATS, its times summed. Builds only the build's
+    library."""
+    from predictionio_tpu_torch.kernels import build
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+    from predictionio_tpu_torch.ops.cuda_kernels import gramian_fused, gramian_fused_reference
+
+    build.build_all(["gramian_fused"])
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    emit({"phase": "gramian_tile_rank", "R": r, "attributes": {
+        key: a for key, a in ck.gramian_kernel_attributes(dev).items() if key.startswith("wide")}})
+    for side, b, k, n in WIDE_BUCKETS:
+        rows = min(WIDE_CHECK_ROWS, ck.gramian_row_slices(b, k, r, sm)[0][1])
+        y, idx, w2, rhs, ridge = wide_bucket(torch, gen, dev, rows, k, n, r)
+        plan = ck.gramian_plan(rows, k, r, sm)
+        a_k, b_k = gramian_fused(y, idx, w2, rhs, ridge)
+        a_2, b_2 = gramian_fused(y, idx, w2, rhs, ridge)
+        a_p, b_p = gramian_fused_reference(y, idx, w2, rhs, ridge)
+        line = {"phase": "gramian_tile_rank", "side": side, "R": r, "B": rows, "K": k, "N": n,
+                "plan": {"path": plan.path, "tiles": plan.tiles, "kc": plan.chunk,
+                         "S": plan.n_chunks, "blocks": plan.blocks,
+                         "blocks_per_sm": plan.blocks_per_sm},
+                "max_abs_err": max(float((a_k - a_p).abs().max()),
+                                   float((b_k - b_p).abs().max())),
+                "held": bool(torch.allclose(a_k, a_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+                             and torch.allclose(b_k, b_p, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+                             and torch.equal(a_k, a_k.transpose(1, 2))),
+                "bit_identical": bool(torch.equal(a_k, a_2) and torch.equal(b_k, b_2))}
+        del a_k, b_k, a_2, b_2, a_p, b_p
+        step = max(1, LIBRARY_GATHER_FLOATS // (k * r))
+        kernel = lambda: gramian_fused(y, idx, w2, rhs, ridge)  # noqa: E731
+
+        def library():
+            for s0 in range(0, rows, step):
+                _gramian_library(torch, y, idx[s0:s0 + step], w2[s0:s0 + step],
+                                 rhs[s0:s0 + step])
+
+        ops = 2 if plan.n_chunks > 1 else 1
+        for name, fn, n_ops in (("kernel", kernel, ops), ("library", library, 0),
+                                ("library", library, 0), ("kernel", kernel, ops)):
+            line.setdefault(f"{name}_ms", []).append(time_ms(torch, fn, 3, 1))
+            line.setdefault(f"{name}_device_ms", []).append(
+                traced_device_ms(torch, fn, 3, n_ops))
+        line["plain_ms"] = time_ms(
+            torch, lambda: gramian_fused_reference(y, idx, w2, rhs, ridge), 2, 1)
+        bound_ms, line["bound_by"] = gramian_bound(rows, k, n, r, int(w2.sum()), False)
+        line["bound_ms"] = bound_ms
+        emit(line)
+        del y, idx, w2, rhs, ridge
+        torch.cuda.empty_cache()
 
 
 #: where the rows path's time goes: each entry cuts one phase of
@@ -4790,14 +4867,18 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     edge cases, attention at D = 136, 192, 256
     causal and not on the resident path, at D = 320 causal and not and at
     D = 280 and 302 on the streamed path, a plan forcing the streamed path
-    at D = 256 (``torch.equal`` to the resident kernel), and at D = 384 on
-    the passes path. Each kernel's registers and local bytes first (no
-    local memory; the attention kernels' and the blocked solve's registers
-    equal to their plan constants, the build's and the wide and cluster
-    solves' within their launch bounds); each case prints its plan and its error, the
-    timed ones the kernel's event and device time beside the plain
-    version's, the library call's and the bound, and the resident and
-    streamed cases the passes kernel's time on the same tensors."""
+    at D = 256 (``torch.equal`` to the resident kernel), at D = 384 and 512
+    causal and not and at D = 330 and 502 on the wide streamed path, a plan
+    forcing it at D = 320 (``torch.equal`` to the streamed kernel) and a
+    doctored plan of it (refused with an error), and at WIDE_PASSES_HEAD on
+    the passes path. Each kernel's registers and local
+    bytes first (no local memory; the attention kernels' and the blocked
+    solve's registers equal to their plan constants, the build's and the
+    wide and cluster solves' within their launch bounds); each case prints
+    its plan and its error, the timed ones the kernel's event and device
+    time beside the plain version's, the library call's and the bound, and
+    the resident and streamed cases the passes kernel's time on the same
+    tensors (the wide streamed path's A B B A)."""
     from predictionio_tpu_torch.ops import cuda_kernels as ck
     from predictionio_tpu_torch.ops.cuda_kernels import (
         flash_attention_fwd,
@@ -4816,11 +4897,12 @@ def wide_kernels(torch, dev, seed: int) -> dict:
              "spd_solve_tiled": ck.spd_tiled_kernel_attributes(dev),
              "flash_attention": ck.flash_wide_kernel_attributes(dev),
              "flash_attention_resident": ck.flash_resident_kernel_attributes(dev),
-             "flash_attention_streamed": ck.flash_streamed_kernel_attributes(dev)}
+             "flash_attention_streamed": ck.flash_streamed_kernel_attributes(dev),
+             "flash_attention_wide_streamed": ck.flash_wide_streamed_kernel_attributes(dev)}
     flat = [*attrs["gramian_fused"].values(), *attrs["spd_solve"].values(),
             *attrs["spd_solve_cluster"].values(), *attrs["spd_solve_tiled"].values(),
             attrs["flash_attention"], *attrs["flash_attention_resident"].values(),
-            attrs["flash_attention_streamed"]]
+            attrs["flash_attention_streamed"], attrs["flash_attention_wide_streamed"]]
     emit({"phase": "wide", "attributes": attrs})
     regs_ok = (all(attrs["gramian_fused"][k]["regs"] <= ck.GRAMIAN_WIDE_REGS
                    for k in ("wide_one_pass", "wide_split"))
@@ -4835,7 +4917,9 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                and attrs["flash_attention"]["regs"] == ck.FLASH_WIDE_REGS
                and all(a["regs"] == ck.FLASH_WIDE_RES_REGS[g]
                        for g, a in attrs["flash_attention_resident"].items())
-               and attrs["flash_attention_streamed"]["regs"] == ck.FLASH_STREAMED_REGS)
+               and attrs["flash_attention_streamed"]["regs"] == ck.FLASH_STREAMED_REGS
+               and attrs["flash_attention_wide_streamed"]["regs"]
+               == ck.FLASH_WIDE_STREAMED_REGS)
     if any(a["local_bytes"] for a in flat) or not regs_ok:
         raise AssertionError(f"the general-width kernels take {attrs}")
     worst = {"gramian_fused": 0.0, "spd_solve": 0.0, "flash_attention": 0.0}
@@ -4882,6 +4966,11 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     # attention
     import torch.nn.functional as F
 
+    def path_of(d):
+        return ("resident" if d <= ck.FLASH_WIDE_RES_MAX_D else
+                "streamed" if d <= ck.FLASH_STREAMED_MAX_D else
+                "wide_streamed" if d <= ck.FLASH_WIDE_STREAMED_MAX_D else "passes")
+
     def attention_case(d, b, h, lq, lk, causal, timed=True):
         q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
                    for n_ in (lq, lk, lk))
@@ -4899,21 +4988,28 @@ def wide_kernels(torch, dev, seed: int) -> dict:
         if timed:
             kernel = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
             library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
-            out["kernel_ms"] = time_ms(torch, kernel, 10, 2)
-            out["kernel_device_ms"] = traced_device_ms(torch, kernel, 10)
+            runs = [("kernel", kernel)]
             if plan.path != "passes":  # the passes kernel on the same tensors
                 passes = ck.flash_wide_launch_plan(b, h, lq, lk, d, sm)
                 earlier = lambda: flash_attention_fwd(q, k, v, causal, plan=passes)  # noqa: E731
                 o_e = earlier()
                 ok = ok and bool(torch.allclose(o_e, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL))
                 out["earlier_max_abs_err"] = float((o_e - o_p).abs().max())
-                out["earlier_kernel_ms"] = time_ms(torch, earlier, 10, 2)
-                out["earlier_kernel_device_ms"] = traced_device_ms(torch, earlier, 10)
                 del o_e
+                runs.append(("earlier_kernel", earlier))
+            runs.append(("library", library))
+            if plan.path == "wide_streamed":  # A B B A: the runs, then in reverse
+                runs += runs[::-1]
+            for name, fn in runs:
+                out.setdefault(f"{name}_runs_ms", []).append(time_ms(torch, fn, 10, 2))
+                out.setdefault(f"{name}_runs_device_ms", []).append(
+                    traced_device_ms(torch, fn, 10))
+            for name, _ in runs:
+                event, device = out[f"{name}_runs_ms"], out[f"{name}_runs_device_ms"]
+                out[f"{name}_ms"] = sum(event) / len(event)
+                out[f"{name}_device_ms"] = None if None in device else sum(device) / len(device)
             out["plain_ms"] = time_ms(
                 torch, lambda: flash_attention_fwd_reference(q, k, v, causal), 3, 1)
-            out["library_ms"] = time_ms(torch, library, 10, 2)
-            out["library_device_ms"] = traced_device_ms(torch, library, 10)
             bound_ms, out["bound_by"] = flash_attention_bound(b, h, lq, lk, d, causal)
             out["bound_us"] = bound_ms * 1e3
             on_card = out["kernel_device_ms"]
@@ -4922,46 +5018,63 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                 for key in ("library", "earlier_kernel"):
                     if out.get(f"{key}_device_ms"):
                         out[f"device_over_{key}"] = on_card / out[f"{key}_device_ms"]
-        path = ("resident" if d <= ck.FLASH_WIDE_RES_MAX_D else
-                "streamed" if d <= ck.FLASH_STREAMED_MAX_D else "passes")
         shape = f"{b}x{h}x{lq}" if timed else f"{b}x{h}x{lq}x{lk}"
         held("flash_attention", f"D{d}_{shape}_causal_{causal}", out,
-             ok and out["bit_identical"] and launched == 1 and plan.path == path)
+             ok and out["bit_identical"] and launched == 1 and plan.path == path_of(d))
 
-    def streamed_at_resident_width(d, b, h, lq, lk, causal):
-        """A plan forcing the streamed path at a resident width: the
-        resident kernel's bits, and both kernels' times on the same tensors."""
+    def forced_below(path, d, b, h, lq, lk, causal):
+        """A plan forcing a streamed ``path`` at a width below it: the bits
+        of the kernel the width's own plan takes, and both kernels' times on
+        the same tensors."""
         q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
                    for n_ in (lq, lk, lk))
-        streamed = ck.flash_streamed_launch_plan(
-            b, h, lq, lk, d, sm, attrs["flash_attention_streamed"]["regs"])
+        forced = getattr(ck, f"flash_{path}_launch_plan")(
+            b, h, lq, lk, d, sm, attrs[f"flash_attention_{path}"]["regs"])
         o_r = flash_attention_fwd(q, k, v, causal)
-        o_s = flash_attention_fwd(q, k, v, causal, plan=streamed)
+        o_s = flash_attention_fwd(q, k, v, causal, plan=forced)
         o_p = flash_attention_fwd_reference(q, k, v, causal)
-        forced = lambda: flash_attention_fwd(q, k, v, causal, plan=streamed)  # noqa: E731
-        resident = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
+        forced_fn = lambda: flash_attention_fwd(q, k, v, causal, plan=forced)  # noqa: E731
+        own = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
         out = {"D": d, "B": b, "H": h, "Lq": lq, "Lk": lk, "causal": causal,
-               "plan": flash_plan_line(streamed),
+               "plan": flash_plan_line(forced), "own_path": path_of(d),
                "max_abs_err": float((o_s - o_p).abs().max()),
-               "equal_to_resident": bool(torch.equal(o_s, o_r)),
-               "streamed_ms": time_ms(torch, forced, 10, 2),
-               "streamed_device_ms": traced_device_ms(torch, forced, 10),
-               "resident_ms": time_ms(torch, resident, 10, 2),
-               "resident_device_ms": traced_device_ms(torch, resident, 10)}
-        held("flash_attention", f"D{d}_forced_streamed_{b}x{h}x{lq}_causal_{causal}", out,
-             out["equal_to_resident"] and bool(torch.allclose(o_s, o_p, rtol=ATTN_RTOL,
-                                                              atol=ATTN_ATOL)))
+               "equal_to_own_kernel": bool(torch.equal(o_s, o_r)),
+               "forced_ms": time_ms(torch, forced_fn, 10, 2),
+               "forced_device_ms": traced_device_ms(torch, forced_fn, 10),
+               "own_ms": time_ms(torch, own, 10, 2),
+               "own_device_ms": traced_device_ms(torch, own, 10)}
+        held("flash_attention", f"D{d}_forced_{path}_{b}x{h}x{lq}_causal_{causal}", out,
+             out["equal_to_own_kernel"] and bool(torch.allclose(o_s, o_p, rtol=ATTN_RTOL,
+                                                                atol=ATTN_ATOL)))
 
     for d in WIDE_HEADS:
         for shape in WIDE_ATTN_SHAPES:
             attention_case(d, *shape)
     for shape in WIDE_ATTN_SHAPES:
         attention_case(WIDE_STREAMED_HEAD, *shape)
-    for d in WIDE_STREAMED_CHECKS:
+    for d in (*WIDE_STREAMED_CHECKS, *WIDE_WS_CHECKS):
         for shape in WIDE_CHECK_SHAPES:
             attention_case(d, *shape, timed=False)
     for shape in WIDE_ATTN_SHAPES[:2]:
-        streamed_at_resident_width(256, *shape)
+        forced_below("streamed", 256, *shape)
+    for d in WIDE_WS_HEADS:
+        for shape in WIDE_ATTN_SHAPES:
+            attention_case(d, *shape)
+    for shape in WIDE_ATTN_SHAPES[:2]:
+        forced_below("wide_streamed", WIDE_STREAMED_HEAD, *shape)
+    # a wide streamed plan off the C entry's arithmetic must raise
+    from predictionio_tpu_torch.kernels import build
+
+    q = torch.randn((1, 1, 64, WIDE_WS_HEADS[0]), generator=gen, device=dev)
+    plan = ck.flash_plan_for(q, q, True)
+    try:
+        flash_attention_fwd(q, q, q, True, plan=plan._replace(smem=plan.smem + 16))
+        refused = False
+    except build.KernelLaunchError:
+        refused = True
+    held("flash_attention", f"D{WIDE_WS_HEADS[0]}_doctored_plan",
+         {"max_abs_err": 0.0, "refused": refused, "plan": flash_plan_line(plan)},
+         refused and plan.path == "wide_streamed")
     for shape in WIDE_PASSES_SHAPES:
         attention_case(WIDE_PASSES_HEAD, *shape)
     return {"cases": cases, "max_abs_err": worst, "attributes": attrs}
@@ -5000,17 +5113,29 @@ def flash_path_times(torch, dev, seed: int = 0) -> None:
             del q, k, v
 
 
-def flash_streamed_variants(torch, dev, seed: int = 0) -> None:
-    """The streamed path alone at D = WIDE_STREAMED_HEAD and the shapes of
-    WIDE_ATTN_SHAPES: the kernel's attributes, then at each shape its
-    answer against the plain version and the passes kernel's, the event
-    and device ms of both and of SDPA on the same tensors (SDPA, passes,
-    streamed, streamed, passes, SDPA), the plain version's event ms and the
-    bound; last a plan forcing the streamed path at D = 256 against the
-    resident kernel (bits, and both kernels' and SDPA's ms). Builds
-    only the attention library. To compare two kernel versions in one call,
-    unpack the other tree under ``chip_compare/`` (gitignored) and run this
-    in each: the inputs come from the seed, so both see the same tensors."""
+#: the streamed paths' cases alone (``flash_streamed_variants``): (D, shapes)
+#: on the path, the last a width below it, where the path is held bit for bit
+#: to the kernel the width's own plan takes
+FLASH_VARIANT_CASES = {
+    "streamed": ((WIDE_STREAMED_HEAD, WIDE_ATTN_SHAPES), (256, WIDE_ATTN_SHAPES[:2])),
+    "wide_streamed": (*((d, WIDE_ATTN_SHAPES) for d in WIDE_WS_HEADS),
+                      (WIDE_STREAMED_HEAD, WIDE_ATTN_SHAPES[:2])),
+}
+
+
+def flash_streamed_variants(torch, dev, seed: int = 0, path: str = "streamed") -> None:
+    """A streamed path (``path``: "streamed", 272 < D <= 320, or
+    "wide_streamed", 320 < D <= FLASH_WIDE_STREAMED_MAX_D) alone at its
+    FLASH_VARIANT_CASES: the kernel's attributes, then at each shape its
+    answer against the plain version and against the other kernel (the one
+    the width's own plan takes, else the passes kernel), the event and
+    device ms of both and of SDPA on the same tensors (SDPA, other, path,
+    path, other, SDPA), the plain version's event ms and the bound; the
+    last width, below the path's, is held bit for bit to its own kernel.
+    Builds only the attention library. To compare two kernel versions in
+    one call, unpack the other tree under ``chip_compare/`` (gitignored) and
+    run this in each: the inputs come from the seed, so both see the same
+    tensors."""
     import torch.nn.functional as F
 
     from predictionio_tpu_torch.kernels import build
@@ -5023,24 +5148,27 @@ def flash_streamed_variants(torch, dev, seed: int = 0) -> None:
     build.build_all(["flash_attention"])
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(seed + 21)
-    attrs = ck.flash_streamed_kernel_attributes(dev)
+    attrs = getattr(ck, f"flash_{path}_kernel_attributes")(dev)
+    launch_plan = getattr(ck, f"flash_{path}_launch_plan")
     tree = os.path.basename(os.getcwd())
-    emit({"phase": "flash_streamed_variant", "tree": tree, "attributes": attrs})
-    for d, shapes in ((WIDE_STREAMED_HEAD, WIDE_ATTN_SHAPES), (256, WIDE_ATTN_SHAPES[:2])):
+    phase = f"flash_{path}_variant"
+    emit({"phase": phase, "tree": tree, "attributes": attrs})
+    for d, shapes in FLASH_VARIANT_CASES[path]:
         for b, h, lq, lk, causal in shapes:
             q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
                        for n_ in (lq, lk, lk))
-            streamed = ck.flash_streamed_launch_plan(b, h, lq, lk, d, sm, attrs["regs"])
-            other = (ck.flash_wide_launch_plan(b, h, lq, lk, d, sm) if d > ck.FLASH_WIDE_RES_MAX_D
-                     else ck.flash_plan_for(q, k, causal))
-            o_s = flash_attention_fwd(q, k, v, causal, plan=streamed)
+            plan = launch_plan(b, h, lq, lk, d, sm, attrs["regs"])
+            other = ck.flash_plan_for(q, k, causal)
+            if other.path == path:
+                other = ck.flash_wide_launch_plan(b, h, lq, lk, d, sm)
+            o_s = flash_attention_fwd(q, k, v, causal, plan=plan)
             o_o = flash_attention_fwd(q, k, v, causal, plan=other)
             o_p = flash_attention_fwd_reference(q, k, v, causal)
-            kernel = lambda: flash_attention_fwd(q, k, v, causal, plan=streamed)  # noqa: E731
+            kernel = lambda: flash_attention_fwd(q, k, v, causal, plan=plan)  # noqa: E731
             earlier = lambda: flash_attention_fwd(q, k, v, causal, plan=other)  # noqa: E731
             library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
             bound_ms, bound_by = flash_attention_bound(b, h, lq, lk, d, causal)
-            line = {"phase": "flash_streamed_variant", "tree": tree, "D": d, "B": b, "H": h,
+            line = {"phase": phase, "tree": tree, "D": d, "B": b, "H": h,
                     "L": lq, "causal": causal, "other": other.path,
                     "max_abs_err": float((o_s - o_p).abs().max()),
                     "held": bool(torch.allclose(o_s, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL)),
@@ -5049,8 +5177,8 @@ def flash_streamed_variants(torch, dev, seed: int = 0) -> None:
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "plain_ms": time_ms(
                         torch, lambda: flash_attention_fwd_reference(q, k, v, causal), 3, 1)}
-            order = (("library", library), ("other", earlier), ("streamed", kernel),
-                     ("streamed", kernel), ("other", earlier), ("library", library))
+            order = (("library", library), ("other", earlier), (path, kernel),
+                     (path, kernel), ("other", earlier), ("library", library))
             for name, fn in order:
                 line.setdefault(f"{name}_ms", []).append(time_ms(torch, fn, 10, 2))
                 line.setdefault(f"{name}_device_ms", []).append(traced_device_ms(torch, fn, 10))
@@ -5078,28 +5206,64 @@ FLASH_STREAMED_TRIALS = {
     "stages3_unroll4": [("constexpr int kSStages = 2;", "constexpr int kSStages = 3;"),
                         ("#pragma unroll 2", "#pragma unroll 4")],
 }
+#: variants of the wide streamed kernel tried against it the same way: V's
+#: chunks 64 columns wide (each probability loaded once a column group),
+#: K's 128 (half the barriers of K), and the QK^T and PV loops not unrolled
+FLASH_WIDE_STREAMED_TRIALS = {
+    "v64": [("constexpr int kWSVChunk = 128;", "constexpr int kWSVChunk = 64;")],
+    "k128": [("constexpr int kWSKChunk = 64;", "constexpr int kWSKChunk = 128;")],
+    "s_unroll1": [("#pragma unroll 2\n      for (int x = 0;",
+                   "#pragma unroll 1\n      for (int x = 0;")],
+    "pv_unroll1": [("#pragma unroll 2\n      for (int kk = 0;",
+                    "#pragma unroll 1\n      for (int kk = 0;")],
+}
+#: what the knock-outs need of each streamed path: its kernel's first line
+#: and the line that follows its body, and the heads they time
+FLASH_KNOCKOUT_PATHS = {
+    "streamed": ("flash_attention_streamed_kernel(const", "\nstatic_assert(kSRows",
+                 (WIDE_STREAMED_HEAD,)),
+    "wide_streamed": ("flash_attention_wide_streamed_kernel(const", "\nstatic_assert(kWSRows",
+                      WIDE_WS_HEADS),
+}
+
+
+def _knockout_smem(src: str, path: str, d: int) -> int:
+    """A streamed path's shared memory at head width ``d`` as the build of
+    ``src`` (a variant of the .cu) computes it, from that source's own
+    stages and chunk widths."""
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    w = -(-d // 8) * 8
+    rows_floats = 64 * (w + 4) + 64 * 68 + 2 * 64  # Q, P and the row vectors
+    if path == "streamed":
+        return 4 * (rows_floats + const("kSStages") * 64 * (const("kSChunk") + 4))
+    chunk = max(const("kWSKChunk"), const("kWSVChunk")) + 4
+    return 4 * (rows_floats + const("kWSStages") * 64 * chunk)
 
 
 def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE,
-                             variants: dict = FLASH_STREAMED_PHASES) -> None:
-    """Where the streamed kernel's time goes: ``source`` built as it is and
-    once for each of ``variants`` (FLASH_STREAMED_PHASES cuts a phase; text
-    found in the streamed kernel's body is replaced there only), all with
-    ``nvcc -Xptxas -v`` at once, then each launched through its own
-    ``pio_flash_attention_streamed`` at D = WIDE_STREAMED_HEAD and the
-    shapes of WIDE_ATTN_SHAPES (CUDA events, and whether its answer equals
-    the whole kernel's bit for bit). A knock-out's time less the whole
-    kernel's is what that phase costs where nothing hides it. Prints each
-    build's registers and spills."""
+                             variants: dict = FLASH_STREAMED_PHASES,
+                             path: str = "streamed") -> None:
+    """Where a streamed path's kernel's time goes (``path``: "streamed" or
+    "wide_streamed"): ``source`` built as it is and once for each of
+    ``variants`` (FLASH_STREAMED_PHASES cuts a phase; text found in the
+    kernel's body is replaced there only), all with ``nvcc -Xptxas -v`` at
+    once, then each launched through its own ``pio_flash_attention_<path>``
+    at the path's heads (FLASH_KNOCKOUT_PATHS) and the shapes of
+    WIDE_ATTN_SHAPES (CUDA events, and whether its answer equals the whole
+    kernel's bit for bit). A knock-out's time less the whole kernel's is
+    what that phase costs where nothing hides it. Prints each build's
+    registers and spills."""
     import ctypes
-    import re
 
     from predictionio_tpu_torch.kernels import build
     from predictionio_tpu_torch.ops import cuda_kernels as ck
 
+    first, after, heads = FLASH_KNOCKOUT_PATHS[path]
+    entry = f"pio_flash_attention_{path}"
     text = open(source).read()
-    start = text.index("flash_attention_streamed_kernel(const")
-    end = text.index("\nstatic_assert(kSRows", start)
+    start = text.index(first)
+    end = text.index(after, start)
     sources = {"whole": text}
     for name, pairs in variants.items():
         src = text
@@ -5111,59 +5275,60 @@ def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE,
                 src = src.replace(old, new)
             else:
                 raise AssertionError(f"variant {name}: {old!r} is not in {source}")
-            end = src.index("\nstatic_assert(kSRows", start)
+            end = src.index(after, start)
         sources[name] = src
-        end = text.index("\nstatic_assert(kSRows", start)
+        end = text.index(after, start)
     tmp = tempfile.mkdtemp(prefix="flash_knockouts_")
     procs = {}
     for name, src in sources.items():
-        path = os.path.join(tmp, f"{name}.cu")
-        with open(path, "w") as f:
+        path_cu = os.path.join(tmp, f"{name}.cu")
+        with open(path_cu, "w") as f:
             f.write(src)
         procs[name] = subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             os.path.join(tmp, f"lib{name}.so"), path],
+             os.path.join(tmp, f"lib{name}.so"), path_cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs, stages = {}, {}
+    libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise AssertionError(f"variant {name} did not build: {log[-2000:]}")
-        kernel_log = log[log.index("flash_attention_streamed_kernel"):]
-        emit({"phase": "flash_streamed_knockout", "variant": name, "ptxas": re.findall(
-            r"(\d+ bytes spill stores|Used \d+ registers)", kernel_log)[:2]})
+        kernel_log = log[log.index(first.split("(")[0]):]
+        emit({"phase": "flash_streamed_knockout", "path": path, "variant": name,
+              "ptxas": re.findall(r"(\d+ bytes spill stores|Used \d+ registers)",
+                                  kernel_log)[:2]})
         lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
-        lib.pio_flash_attention_streamed.argtypes = (
-            ck._EXTRA_ENTRIES["flash_attention"]["pio_flash_attention_streamed"])
+        getattr(lib, entry).argtypes = ck._EXTRA_ENTRIES["flash_attention"][entry]
         libs[name] = lib
-        stages[name] = int(re.search(r"constexpr int kSStages = (\d+);", sources[name]).group(1))
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(21)
-    d = WIDE_STREAMED_HEAD
-    for b, h, lq, lk, causal in WIDE_ATTN_SHAPES:
-        q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev) for n_ in (lq, lk, lk))
-        plan = ck.flash_streamed_launch_plan(b, h, lq, lk, d, sm, ck.FLASH_STREAMED_REGS)
-        times, outs = {}, {}
-        for name, lib in libs.items():
-            o = torch.empty_like(q)
-            smem = plan.smem + (stages[name] - ck.FLASH_STREAMED_STAGES) * 4 * (
-                ck.FLASH_STREAMED_KEYS * ck.FLASH_STREAMED_C_STRIDE)
+    launch_plan = getattr(ck, f"flash_{path}_launch_plan")
+    for d in heads:
+        for b, h, lq, lk, causal in WIDE_ATTN_SHAPES:
+            q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
+                       for n_ in (lq, lk, lk))
+            plan = launch_plan(b, h, lq, lk, d, sm, getattr(ck, f"FLASH_{path.upper()}_REGS"))
+            times, outs = {}, {}
+            for name, lib in libs.items():
+                o = torch.empty_like(q)
+                smem = _knockout_smem(sources[name], path, d)
 
-            def launch(lib=lib, o=o, smem=smem, name=name):
-                code = lib.pio_flash_attention_streamed(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, lq, lk, d,
-                    int(causal), plan.threads, smem, plan.blocks,
-                    torch.cuda.current_stream(dev).cuda_stream)
-                if code:
-                    raise AssertionError(f"variant {name} failed to launch: {code}")
-            times[name] = time_ms(torch, launch, 10, 2)
-            outs[name] = o
-        emit({"phase": "flash_streamed_knockout", "B": b, "L": lq, "causal": causal,
-              "ms": times,
-              "phase_ms": {k_: times["whole"] - t for k_, t in times.items() if k_ != "whole"},
-              "equal_to_whole": {k_: bool(torch.equal(o_, outs["whole"]))
-                                 for k_, o_ in outs.items() if k_ != "whole"}})
-        del q, k, v, outs
+                def launch(lib=lib, o=o, smem=smem, name=name):
+                    code = getattr(lib, entry)(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, lq,
+                        lk, d, int(causal), plan.threads, smem, plan.blocks,
+                        torch.cuda.current_stream(dev).cuda_stream)
+                    if code:
+                        raise AssertionError(f"variant {name} failed to launch: {code}")
+                times[name] = time_ms(torch, launch, 10, 2)
+                outs[name] = o
+            emit({"phase": "flash_streamed_knockout", "path": path, "D": d, "B": b, "L": lq,
+                  "causal": causal, "ms": times,
+                  "phase_ms": {k_: times["whole"] - t for k_, t in times.items()
+                               if k_ != "whole"},
+                  "equal_to_whole": {k_: bool(torch.equal(o_, outs["whole"]))
+                                     for k_, o_ in outs.items() if k_ != "whole"}})
+            del q, k, v, outs
     shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -5281,8 +5446,9 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
     blocked solve), at rank 384 (the build's tile path, the cluster solve)
     and at rank 1,024 (the tile path, the tiled solve; WIDE_TILED_ALS_ITERS
     iterations), and seqrec by :func:`seqrec_wide` at d_model 256 / 1 head (D =
-    256, the resident path; 20 steps, 64 queries) and at d_model 320 / 1
-    head (D = 320, the streamed path; 10 steps, 16 queries)."""
+    256, the resident path; 20 steps, 64 queries), at d_model 320 / 1 head
+    (D = 320, the streamed path; 10 steps, 16 queries) and at d_model 384 /
+    1 head (D = 384, the wide streamed path; 10 steps, 16 queries)."""
     from predictionio_tpu_torch.models import recommendation as rec
 
     t0 = time.monotonic()
@@ -5304,16 +5470,21 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
         seq_streamed = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ_STREAMED,
                                    WIDE_SEQ_STREAMED_STEPS, WIDE_SEQ_STREAMED_QUERIES,
                                    "wide-seqrec-d320")
+        seq_ws = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ_WS, WIDE_SEQ_STREAMED_STEPS,
+                             WIDE_SEQ_STREAMED_QUERIES, "wide-seqrec-d384")
     seconds.update(als_run_train=als_out["seconds"],
                    als_rank384_run_train=als_cluster["seconds"],
                    als_rank1024_run_train=als_tiled["seconds"],
                    seqrec_run_train=seq_out["train_s"],
                    seqrec_d320_run_train=seq_streamed["train_s"],
-                   seqrec_d320_serve=seq_streamed["serve_s"])
+                   seqrec_d320_serve=seq_streamed["serve_s"],
+                   seqrec_d384_run_train=seq_ws["train_s"],
+                   seqrec_d384_serve=seq_ws["serve_s"])
     runs = (als_out["launches"], als_cluster["launches"], als_tiled["launches"])
     out = {"phase": "wide", "kernels": kernels, "als": als_out, "als_rank384": als_cluster,
            "als_rank1024": als_tiled,
-           "seqrec": seq_out, "seqrec_d320": seq_streamed, "seconds": seconds, "by_kernel": {
+           "seqrec": seq_out, "seqrec_d320": seq_streamed, "seqrec_d384": seq_ws,
+           "seconds": seconds, "by_kernel": {
                "gramian_fused": sum(x["gramian_fused"] for x in runs),
                "gramian_rows": als_out["launches"]["gramian_rows"],
                "spd_solve": sum(x["spd_solve"] for x in runs),
@@ -5322,8 +5493,9 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
                "gramian_wide": (als_cluster["launches"]["gramian_wide"]
                                 + als_tiled["launches"]["gramian_wide"]),
                "flash_attention": sum(sum(x["launches"].values())
-                                      for x in (seq_out, seq_streamed)),
-               "flash_attention_streamed": sum(seq_streamed["path_launches"].values())}}
+                                      for x in (seq_out, seq_streamed, seq_ws)),
+               "flash_attention_streamed": sum(seq_streamed["path_launches"].values()),
+               "flash_attention_wide_streamed": sum(seq_ws["path_launches"].values())}}
     emit({k: v for k, v in out.items() if k != "kernels"})
     return out
 
@@ -5350,7 +5522,8 @@ def seqrec_wide(torch, dev, registry, rng, shape: dict, steps: int, queries: int
 
     head = shape["d_model"] // shape["n_heads"]
     path = ("resident" if head <= ck.FLASH_WIDE_RES_MAX_D else
-            "streamed" if head <= ck.FLASH_STREAMED_MAX_D else "passes")
+            "streamed" if head <= ck.FLASH_STREAMED_MAX_D else
+            "wide_streamed" if head <= ck.FLASH_WIDE_STREAMED_MAX_D else "passes")
     seq_params = seq.SeqRecAlgorithmParams(**dict(SEQ_PARAMS, **shape, steps=steps))
     seq_ep = EngineParams(
         data_source_params=("", seq.SeqDataSourceParams(app_id=EVENTS_APP,
@@ -5657,11 +5830,13 @@ def wide_lines(wide: dict, name: str) -> dict:
             "rows_library_ms", "rows_bound_us", "max_abs_err", "max_rel_err", "abba_ms",
             "equal_to_wide_kernel", "abba_device_ms", "equal_to_tile_kernel_at_kc",
             "earlier_kernel_ms", "earlier_kernel_device_ms", "device_over_bound",
-            "device_over_library", "device_over_earlier_kernel", "equal_to_resident",
-            "streamed_ms", "streamed_device_ms", "resident_ms", "resident_device_ms")
+            "device_over_library", "device_over_earlier_kernel", "kernel_runs_ms",
+            "kernel_runs_device_ms", "earlier_kernel_runs_ms", "earlier_kernel_runs_device_ms",
+            "library_runs_ms", "library_runs_device_ms", "own_path", "equal_to_own_kernel",
+            "forced_ms", "forced_device_ms", "own_ms", "own_device_ms")
     return {case.split(":", 1)[1]: {k: out[k] for k in keys if k in out}
             for case, out in wide["kernels"]["cases"].items()
-            if case.startswith(name + ":") and ("kernel_ms" in out or "streamed_ms" in out)}
+            if case.startswith(name + ":") and ("kernel_ms" in out or "forced_ms" in out)}
 
 
 def main(argv=None) -> int:
@@ -5879,6 +6054,7 @@ def main(argv=None) -> int:
         "wide_attributes": {
             "resident": wide["kernels"]["attributes"]["flash_attention_resident"],
             "streamed": wide["kernels"]["attributes"]["flash_attention_streamed"],
+            "wide_streamed": wide["kernels"]["attributes"]["flash_attention_wide_streamed"],
             "passes": wide["kernels"]["attributes"]["flash_attention"]},
     })
     # the build's rows path (128 < R <= GRAMIAN_ROWS_MAX_RANK) on its own line:
@@ -5936,6 +6112,39 @@ def main(argv=None) -> int:
         "plan": ref["plan"],
         "cases": sorted(name.split(":", 1)[1] for name in streamed),
         "attributes": wide["kernels"]["attributes"]["flash_attention_streamed"],
+    })
+    # the wide streamed path (320 < D <= FLASH_WIDE_STREAMED_MAX_D) on its own
+    # line: launched by seqrec at D = 384 in the wide phase, timed A B B A with
+    # the passes kernel and SDPA at D = 384 on the training shape
+    ref = cases[f"flash_attention:D{WIDE_WS_HEADS[0]}_64x4x64_causal_True"]
+    ws = {name.split(":", 1)[1]: out for name, out in cases.items()
+          if name.startswith("flash_attention:") and out["plan"]["path"] == "wide_streamed"}
+    lines.append({
+        "name": "flash_attention_wide_streamed",
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": wide["by_kernel"]["flash_attention_wide_streamed"],
+        "launches_by_path": wide["seqrec_d384"]["path_launches"],
+        "max_abs_err": max(out["max_abs_err"] for out in ws.values()),
+        "ms": ref["kernel_ms"],
+        "plain_ms": ref["plain_ms"],
+        "bound_ms": ref["bound_us"] / 1e3,
+        "bound_by": ref["bound_by"],
+        "library_ms": ref["library_ms"],
+        "device_ms": ref["kernel_device_ms"],
+        "library_device_ms": ref["library_device_ms"],
+        "passes_ms": ref["earlier_kernel_ms"],
+        "passes_device_ms": ref["earlier_kernel_device_ms"],
+        "shape": {k: ref[k] for k in ("B", "H", "Lq", "Lk", "D", "causal")},
+        "plan": ref["plan"],
+        "timed": {case: {k: out.get(k) for k in (
+            "kernel_runs_ms", "kernel_runs_device_ms", "earlier_kernel_runs_ms",
+            "earlier_kernel_runs_device_ms", "library_runs_ms", "library_runs_device_ms",
+            "plain_ms", "bound_us", "bound_by", "max_abs_err", "equal_to_own_kernel",
+            "forced_ms", "forced_device_ms", "own_ms", "own_device_ms")}
+            for case, out in ws.items()},
+        "attributes": wide["kernels"]["attributes"]["flash_attention_wide_streamed"],
     })
     # the solve's cluster path (304 < n <= 768) on its own line: launched by
     # ALS at rank 384 in the wide phase, timed at n = 384 (B = 1,024) beside

@@ -34,8 +34,9 @@
 // 128 it zero-pads q, k and v to the next multiple of 8, passes the true width
 // for the scale, and slices o back; above 128, unpadded, it takes the resident
 // path below up to kRMaxD = 272 (pio_flash_attention_resident), the streamed
-// path up to kSMaxD = 320 (pio_flash_attention_streamed) and the passes path
-// above it (pio_flash_attention_wide), picked by D alone. It raises on
+// path up to kSMaxD = 320 (pio_flash_attention_streamed), the wide streamed
+// path up to kWSMaxD = 512 (pio_flash_attention_wide_streamed) and the passes
+// path above it (pio_flash_attention_wide), picked by D alone. It raises on
 // anything else.
 //
 // Resident path (kMaxD < D <= kRMaxD). A block takes kRRows = 64 query rows of
@@ -97,16 +98,51 @@
 // Shared memory at D = 320 is 135,680 bytes (the Q tile 82,944, the ring
 // 34,816, P 17,408, two row vectors), one block an SM, as its registers (216
 // a thread on the card) also allow. One instantiation, G = kSGroups = 5,
-// sets kSMaxD = 320; wider heads take the passes path. The same rules as the
-// other paths: the finite -1e30 mask on every tile, key tiles ascending from
-// tile 0 and causal tiles above the diagonal skipped, a masked key's V row
-// zero, o / max(l, 1e-30), heaviest query tiles first, fp32 FMAs on the CUDA
-// cores, no atomics; 16-byte copies when D is a multiple of 4 and the tensors
-// 16-byte aligned, else 4-byte ones. Bound at (8, 4, 2048, 320): 85.9 GFLOP
+// sets kSMaxD = 320; wider heads take the wide streamed path. The same rules
+// as the other paths: the finite -1e30 mask on every tile, key tiles
+// ascending from tile 0 and causal tiles above the diagonal skipped, a masked
+// key's V row zero, o / max(l, 1e-30), heaviest query tiles first, fp32 FMAs
+// on the CUDA cores, no atomics; 16-byte copies when D is a multiple of 4 and
+// the tensors 16-byte aligned, else 4-byte ones (the wide streamed path keeps
+// all of these). Bound at (8, 4, 2048, 320): 85.9 GFLOP
 // causal, 1.28 ms at 67 TFLOP/s, set by operations; bytes set it at the
 // sequence recommender's training batch.
 //
-// Passes path (D > kSMaxD), the first wide-head design. Of the two designs
+// Wide streamed path (kSMaxD < D <= kWSMaxD). What is hard: a sixth float4
+// group of O a thread would spill the streamed path's 256 threads, so its
+// block cannot go past D = 320, and the passes path, which took those heads
+// before, computes each key tile's scores again for every pass of 128 of O's
+// columns (three times at D = 384), with one scalar shared load per FMA.
+// Design: the streamed path's block at kWSThreads = 512 threads, so each
+// thread holds half the rows:
+//   - 64 query rows a block, 64-key tiles, the Q tile scaled once and kept in
+//     shared memory (64 x 516 floats at D = 512), K's column chunks of
+//     kWSKChunk = 64 then V's of kWSVChunk = 128 through a ring of kWSStages =
+//     2 buffers, each chunk copied with cp.async while the one before is
+//     used, one barrier a chunk; so each key tile's scores are computed once
+//     for all of O's columns;
+//   - S in 2 rows x 4 keys a thread (rows 2 (tid / 16) + i, keys kx + 16 t,
+//     kx = lane % 16): a row sits in one half-warp and a thread holds the
+//     streamed path's keys, so the row's max and sum take the streamed path's
+//     order (a thread's keys in t order, then xor shuffles 1, 2, 4, 8) and a
+//     plan that forces this path at D <= kSMaxD gives the streamed kernel's
+//     answer bit for bit;
+//   - O in 2 rows x G float4 column groups a thread (rows pr + 32 i, groups
+//     cx + 16 g, a warp 8 rows by 4 groups), G = kWSGroups = 8 one
+//     instantiation (64 registers of O; a V chunk wholly past D is skipped);
+//     V's chunk of 128 columns feeds two groups, each probability loaded once
+//     for both (with 64-column chunks: 5 % slower and 24 bytes spilled on the
+//     card).
+// Registers: 128 a thread, the cap of __launch_bounds__(512, 1), with no local
+// memory; G = 9 and 10 spilled (16 and 56 bytes, with 64-column V chunks),
+// which sets kWSMaxD = 512. Shared memory at D = 512 is 217,600 bytes, one
+// block an SM. S is bound by shared loads (2 Q and 4 K float4 a thread for 32
+// FMAs, 10 wavefronts a warp for 8 issue cycles), which makes the block slower
+// than the streamed path's at the same width (on an H100 at 700 W, forced at
+// D = 320: 4.41 against 3.19-3.24 ms at L = 2,048 causal). Bound at (8, 4, 2048, 384): 103 GFLOP causal, 1.54 ms at 67
+// TFLOP/s, set by operations; bytes set it at the training batch.
+//
+// Passes path (D > kWSMaxD), the first wide-head design. Of the two designs
 // at hand (O's columns in passes with the scores recomputed each pass, or one
 // warp a query row with O spread over its lanes) it takes the passes: a
 // thread's O columns stay a fixed 16 registers whatever D is, so one
@@ -128,7 +164,8 @@
 // tiles first; no atomics, and every register array is indexed by constants.
 // Its cost over the tuned path: QK^T once per pass (twice at D = 256), one
 // shared load per FMA in QK^T, and 32-key tiles; the resident path took its
-// place wherever its tiles fit, and the streamed path up to kSMaxD.
+// place wherever its tiles fit, the streamed path up to kSMaxD and the wide
+// streamed path up to kWSMaxD.
 //
 // Design. A block takes BQ = 64 or 128 query rows of one (batch * head) and
 // walks the keys in tiles of kTile = 64, with 2 * BQ threads. Thread (ry, kx)
@@ -187,7 +224,7 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;        // dynamic shared memory a block may opt into
 constexpr int kSmSmem = 233472;         // shared memory of an SM, bytes
 constexpr int kBlockSmemReserve = 1024;  // what the card keeps of it a block
-// the passes path (D > kRMaxD)
+// the passes path (D > kWSMaxD)
 constexpr int kWRows = 32;     // query rows a block
 constexpr int kWKeys = 32;     // keys a tile
 constexpr int kWThreads = 256;  // kWRows x kKeyThreads
@@ -210,6 +247,18 @@ constexpr int kSCStride = 68;   // floats of a chunk row
 constexpr int kSStages = 2;     // chunk buffers: chunks are copied kSStages - 1 ahead
 constexpr int kSGroups = 5;     // O's float4 column groups a thread
 constexpr int kSMaxD = 320;     // the widest head of kSGroups
+// the wide streamed path (kSMaxD < D <= kWSMaxD): the streamed path's block at
+// 512 threads, two query rows a thread in S and in O
+constexpr int kWSRows = 64;      // query rows a block (bq)
+constexpr int kWSKeys = 64;      // keys a tile (bk)
+constexpr int kWSThreads = 512;
+constexpr int kWSKChunk = 64;    // columns of a K chunk
+constexpr int kWSVChunk = 128;   // columns of a V chunk, a multiple of 64
+constexpr int kWSKStride = kWSKChunk + 4;  // floats of a K chunk row
+constexpr int kWSVStride = kWSVChunk + 4;  // floats of a V chunk row
+constexpr int kWSStages = 2;     // chunk buffers: chunks are copied kWSStages - 1 ahead
+constexpr int kWSGroups = 8;     // O's float4 column groups a thread
+constexpr int kWSMaxD = 512;     // the widest head of kWSGroups
 
 // Floats of shared memory of a block of BQ rows at head width d: the Q tile
 // [bq][d + kPad], two K tiles [kTile][d + kPad] and two V tiles [kTile][d]
@@ -614,19 +663,21 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) 
 // Starts the copy of `rows` rows of a [*, D] device array (row r at src + r *
 // D) into shared rows of `stride` floats, res_width(D) columns each: zeros at
 // or past `valid` rows and past D columns. 16-byte copies when `vec` (D a
-// multiple of 4 and the array 16-byte aligned), else 4-byte ones.
+// multiple of 4 and the array 16-byte aligned), else 4-byte ones. The block's
+// kThreads threads share the copies.
+template <int kThreads = kRThreads>
 __device__ __forceinline__ void res_copy(const float* __restrict__ src, float* dst,
                                          int rows, int stride, int valid, int D,
                                          bool vec, int tid) {
   const int w = res_width(D);
   if (vec) {
-    for (int e = tid; e < rows * (w / 4); e += kRThreads) {
+    for (int e = tid; e < rows * (w / 4); e += kThreads) {
       const int r = e / (w / 4), c = (e % (w / 4)) * 4;
       const bool in = r < valid && c < D;
       copy16(dst + r * stride + c, in ? src + static_cast<size_t>(r) * D + c : src, in);
     }
   } else {
-    for (int e = tid; e < rows * w; e += kRThreads) {
+    for (int e = tid; e < rows * w; e += kThreads) {
       const int r = e / w, c = e % w;
       const bool in = r < valid && c < D;
       copy4(dst + r * stride + c, in ? src + static_cast<size_t>(r) * D + c : src, in);
@@ -635,17 +686,18 @@ __device__ __forceinline__ void res_copy(const float* __restrict__ src, float* d
 }
 
 // Scales the Q tile's elements this thread copied (res_copy's split of the
-// work) by `qscale`, after its copies have landed.
+// work among kThreads threads) by `qscale`, after its copies have landed.
+template <int kThreads = kRThreads>
 __device__ __forceinline__ void res_scale(float* s_q, int stride, int D, bool vec,
                                           float qscale, int tid) {
   const int w = res_width(D);
   if (vec) {
-    for (int e = tid; e < kRRows * (w / 4); e += kRThreads) {
+    for (int e = tid; e < kRRows * (w / 4); e += kThreads) {
       float4* x = reinterpret_cast<float4*>(s_q + (e / (w / 4)) * stride + (e % (w / 4)) * 4);
       x->x *= qscale; x->y *= qscale; x->z *= qscale; x->w *= qscale;
     }
   } else {
-    for (int e = tid; e < kRRows * w; e += kRThreads) s_q[(e / w) * stride + e % w] *= qscale;
+    for (int e = tid; e < kRRows * w; e += kThreads) s_q[(e / w) * stride + e % w] *= qscale;
   }
 }
 
@@ -892,27 +944,29 @@ __device__ __forceinline__ void copies_wait_until() {
 }
 
 // Starts the copy of one column chunk of a key tile: columns c0 .. c0 +
-// kSChunk - 1 of the kSKeys rows of a [*, D] device array (row r at src + r *
-// D) into shared rows of kSCStride floats, zeros at or past `valid` rows and
-// at or past column D. 16-byte copies when `vec`, else 4-byte ones.
+// kChunk - 1 of the kSKeys rows of a [*, D] device array (row r at src + r *
+// D) into shared rows of kStride floats, zeros at or past `valid` rows and
+// at or past column D, shared by the block's kThreads threads. 16-byte copies
+// when `vec`, else 4-byte ones.
+template <int kChunk = kSChunk, int kStride = kSCStride, int kThreads = kSThreads>
 __device__ __forceinline__ void chunk_copy(const float* __restrict__ src, float* dst,
                                            int valid, int c0, int D, bool vec, int tid) {
   if (vec) {
 #pragma unroll
-    for (int x = 0; x < kSKeys * kSChunk / 4 / kSThreads; ++x) {
-      const int e = tid + x * kSThreads;
-      const int r = e / (kSChunk / 4), c = (e % (kSChunk / 4)) * 4;
+    for (int x = 0; x < kSKeys * kChunk / 4 / kThreads; ++x) {
+      const int e = tid + x * kThreads;
+      const int r = e / (kChunk / 4), c = (e % (kChunk / 4)) * 4;
       const bool in = r < valid && c0 + c < D;
-      copy16(dst + r * kSCStride + c, in ? src + static_cast<size_t>(r) * D + c0 + c : src,
+      copy16(dst + r * kStride + c, in ? src + static_cast<size_t>(r) * D + c0 + c : src,
              in);
     }
   } else {
 #pragma unroll 4
-    for (int x = 0; x < kSKeys * kSChunk / kSThreads; ++x) {
-      const int e = tid + x * kSThreads;
-      const int r = e / kSChunk, c = e % kSChunk;
+    for (int x = 0; x < kSKeys * kChunk / kThreads; ++x) {
+      const int e = tid + x * kThreads;
+      const int r = e / kChunk, c = e % kChunk;
       const bool in = r < valid && c0 + c < D;
-      copy4(dst + r * kSCStride + c, in ? src + static_cast<size_t>(r) * D + c0 + c : src, in);
+      copy4(dst + r * kStride + c, in ? src + static_cast<size_t>(r) * D + c0 + c : src, in);
     }
   }
 }
@@ -1142,6 +1196,263 @@ static_assert(str_smem_floats(kSMaxD) * 4 <= kMaxSmem && res_groups(kSMaxD) == k
               "kSMaxD is the widest head of the streamed path's register plan, and its "
               "tiles fit a block");
 
+// Floats of shared memory of a wide-streamed-path block: the Q tile
+// [64][res_width + kPad], kWSStages chunk buffers that K's [64][kWSKStride]
+// and V's [64][kWSVStride] column chunks take in turn, the probabilities
+// [64][kRPStride], and two [64] row vectors (the rescale factor and l).
+__host__ __device__ constexpr int ws_buffer_floats() {
+  return kWSKeys * (kWSKStride > kWSVStride ? kWSKStride : kWSVStride);
+}
+__host__ __device__ constexpr int ws_smem_floats(int d) {
+  return kWSRows * (res_width(d) + kPad) + kWSStages * ws_buffer_floats() +
+         kWSRows * kRPStride + 2 * kWSRows;
+}
+
+// The wide streamed path: one block per (query tile of kWSRows, batch * head),
+// heaviest query tiles first, taking all of D. A key tile is walked as a
+// sequence of chunks: K's nk column chunks of kWSKChunk (S summed over them
+// in ascending D), then V's nv of kWSVChunk (O's column group g from the
+// chunk that holds columns 64 g .. 64 g + 63). G sizes O's registers.
+template <int G>
+__global__ void __launch_bounds__(kWSThreads, 1)
+    flash_attention_wide_streamed_kernel(const float* __restrict__ q,
+                                         const float* __restrict__ k,
+                                         const float* __restrict__ v,
+                                         float* __restrict__ o, int BH, int Lq, int Lk,
+                                         int D, int q_tiles, int causal, int vec,
+                                         float qscale) {
+  constexpr int kGroupsPerV = kWSVChunk / 64;  // O's column groups a V chunk feeds
+  const int w = res_width(D), ds = w + kPad;
+  const int nk = (w + kWSKChunk - 1) / kWSKChunk;  // K's column chunks a tile
+  const int nv = (w + kWSVChunk - 1) / kWSVChunk;  // V's column chunks a tile
+  const int ng = (w + 63) / 64;                    // O's column groups that hold a column
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                                 // [kWSRows][ds], pre-scaled
+  float* s_c = s_q + kWSRows * ds;                   // kWSStages chunk buffers
+  float* s_p = s_c + kWSStages * ws_buffer_floats();  // [kWSRows][kRPStride]
+  float* s_corr = s_p + kWSRows * kRPStride;         // [kWSRows]: this tile's rescale
+  float* s_l = s_corr + kWSRows;                     // [kWSRows]: l after the last tile
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // S: rows s_row0 + i (i < 2) and keys kx + 16 t, a row in one half-warp,
+  // a warp four rows
+  const int kx = lane & 15;
+  const int s_row0 = 2 * (tid >> 4);
+  // O: rows pr + 32 i and float4 column groups cx + 16 g; a warp takes 8 rows
+  // (one 16-byte probability load of 8 distinct rows) by 4 column groups (one
+  // 64-byte run of a V row)
+  const int pr = (warp >> 2) * 8 + (lane >> 2);
+  const int cx = (warp & 3) * 4 + (lane & 3);
+  const int bh = static_cast<int>(blockIdx.x % static_cast<unsigned>(BH));
+  const int q_tile = q_tiles - 1 - static_cast<int>(blockIdx.x / static_cast<unsigned>(BH));
+  const int q0 = q_tile * kWSRows;
+  const float* q_bh = q + static_cast<size_t>(bh) * Lq * D;
+  const float* k_bh = k + static_cast<size_t>(bh) * Lk * D;
+  const float* v_bh = v + static_cast<size_t>(bh) * Lk * D;
+
+  float m[2], l[2];
+  float4 acc[2][G];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = kNegBig;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int n_kv = (Lk + kWSKeys - 1) / kWSKeys;
+  const int hi = causal ? min((q0 + kWSRows + kWSKeys - 1) / kWSKeys, n_kv) : n_kv;
+  const int steps = nk + nv;  // a key tile's chunks: K's nk, then V's nv
+  const int total = hi * steps;
+
+  // Starts the copy of chunk n of the block's sequence into its buffer (none
+  // past the last) and commits it as one group.
+  const auto issue = [&](int n) {
+    if (n < total) {
+      const int j = n / steps, r = n - j * steps;
+      const size_t k0 = static_cast<size_t>(j) * kWSKeys;
+      float* buf = s_c + (n % kWSStages) * ws_buffer_floats();
+      if (r < nk) {
+        chunk_copy<kWSKChunk, kWSKStride, kWSThreads>(k_bh + k0 * D, buf, Lk - j * kWSKeys,
+                                                      r * kWSKChunk, D, vec != 0, tid);
+      } else {
+        chunk_copy<kWSVChunk, kWSVStride, kWSThreads>(v_bh + k0 * D, buf, Lk - j * kWSKeys,
+                                                      (r - nk) * kWSVChunk, D, vec != 0, tid);
+      }
+    }
+    copies_commit();
+  };
+  // Returns chunk n's buffer once every thread can read it (at n = 0 the Q
+  // tile too, scaled), and starts the copy of chunk n + kWSStages - 1 into
+  // the buffer that chunk n - 1 used.
+  const auto next_chunk = [&](int n) -> const float* {
+    copies_wait_until<kWSStages - 2>();  // this thread's copies of chunk n (and Q) landed
+    if (n == 0) res_scale<kWSThreads>(s_q, ds, D, vec, qscale, tid);
+    // chunk n is visible to every thread, and every thread is done with
+    // chunk n - 1
+    __syncthreads();
+    issue(n + kWSStages - 1);
+    return s_c + (n % kWSStages) * ws_buffer_floats();
+  };
+
+  // the Q tile and the first kWSStages - 1 chunks in flight, Q with chunk 0
+  res_copy<kWSThreads>(q_bh + static_cast<size_t>(q0) * D, s_q, kWSRows, ds, Lq - q0, D,
+                       vec, tid);
+#pragma unroll
+  for (int n = 0; n < kWSStages - 1; ++n) issue(n);
+  for (int j = 0; j < hi; ++j) {
+    const int k0 = j * kWSKeys, n0 = j * steps;
+    // S = Q K^T, 2 rows x 4 keys a thread, each score one FMA chain over D
+    // ascending, continued from chunk to chunk
+    float s[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) s[i][t] = 0.f;
+    for (int c = 0; c < nk; ++c) {
+      const float* s_k = next_chunk(n0 + c);
+      const float* q_c = s_q + c * kWSKChunk;
+      const int cw = min(kWSKChunk, w - c * kWSKChunk);
+#pragma unroll 2
+      for (int x = 0; x < cw; x += 4) {
+        float4 qv[2], kv[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(q_c + (s_row0 + i) * ds + x);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          kv[t] = *reinterpret_cast<const float4*>(s_k + (kx + 16 * t) * kWSKStride + x);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            s[i][t] = fmaf(qv[i].x, kv[t].x, s[i][t]);
+            s[i][t] = fmaf(qv[i].y, kv[t].y, s[i][t]);
+            s[i][t] = fmaf(qv[i].z, kv[t].z, s[i][t]);
+            s[i][t] = fmaf(qv[i].w, kv[t].w, s[i][t]);
+          }
+      }
+    }
+    // the masks, the row's max and sum over its 16 threads (a thread's keys
+    // in t order, then four xor shuffles), p to shared memory: as the
+    // streamed path
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q_pos = q0 + s_row0 + i;
+      float mx = kNegBig;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int k_pos = k0 + kx + 16 * t;
+        const bool keep = k_pos < Lk && (!causal || q_pos >= k_pos);
+        s[i][t] = keep ? s[i][t] : kNegBig;
+        mx = fmaxf(mx, s[i][t]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float* p_row = s_p + (s_row0 + i) * kRPStride + kx;
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float p = expf(s[i][t] - m_new);
+        p_row[16 * t] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+      l[i] = fmaf(l[i], corr, sum);
+      m[i] = m_new;
+      if (kx == 0) s_corr[s_row0 + i] = corr;
+    }
+
+    // O = corr * O + P V, 2 rows x one float4 of each of the chunk's column
+    // groups a thread from V's chunk, keys ascending, each probability
+    // loaded once for all of the chunk's groups. The first V chunk's barrier
+    // also makes P and the rescale factors visible to every warp.
+#pragma unroll
+    for (int g0 = 0; g0 < G; g0 += kGroupsPerV) {
+      if (g0 >= ng) break;
+      const float* s_v = next_chunk(n0 + nk + g0 / kGroupsPerV) + 4 * cx;
+      if (g0 == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float corr = s_corr[pr + 32 * i];
+#pragma unroll
+          for (int h = 0; h < G; ++h) {
+            acc[i][h].x *= corr; acc[i][h].y *= corr; acc[i][h].z *= corr; acc[i][h].w *= corr;
+          }
+        }
+      }
+#pragma unroll 2
+      for (int kk = 0; kk < kWSKeys; kk += 4) {
+        float pv[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) load_vec<4>(s_p + (pr + 32 * i) * kRPStride + kk, pv[i]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int gg = 0; gg < kGroupsPerV; ++gg) {
+            const int g = g0 + gg;
+            const float4 vv =
+                *reinterpret_cast<const float4*>(s_v + (kk + u) * kWSVStride + 64 * gg);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              acc[i][g].x = fmaf(pv[i][u], vv.x, acc[i][g].x);
+              acc[i][g].y = fmaf(pv[i][u], vv.y, acc[i][g].y);
+              acc[i][g].z = fmaf(pv[i][u], vv.z, acc[i][g].z);
+              acc[i][g].w = fmaf(pv[i][u], vv.w, acc[i][g].w);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if (kx == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) s_l[s_row0 + i] = l[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q_pos = q0 + pr + 32 * i;
+    if (q_pos >= Lq) continue;
+    const float denom = fmaxf(s_l[pr + 32 * i], 1e-30f);
+    float* o_row = o + (static_cast<size_t>(bh) * Lq + q_pos) * D;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int c = 4 * (cx + 16 * g);
+      if (c >= D) continue;
+      const float out[4] = {acc[i][g].x / denom, acc[i][g].y / denom, acc[i][g].z / denom,
+                            acc[i][g].w / denom};
+      if (vec) {
+        store_vec<4>(o_row + c, out);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (c + x < D) o_row[c + x] = out[x];
+      }
+    }
+  }
+}
+
+static_assert(kWSRows == kRRows && kWSKeys == kSKeys,
+              "the wide streamed path copies and scales its Q tile as the resident path "
+              "does, and its chunks as the streamed path does");
+static_assert(kWSKeys * kWSKChunk % (4 * kWSThreads) == 0 && kWSVChunk % 64 == 0 &&
+                  kWSGroups % (kWSVChunk / 64) == 0 && kWSKStride % 8 == 4 &&
+                  kWSVStride % 8 == 4,
+              "a chunk is whole 16-byte copies a thread, a V chunk whole column groups of "
+              "O's; a chunk row is an odd number of 16-byte groups");
+static_assert(ws_smem_floats(kWSMaxD) * 4 <= kMaxSmem && kWSGroups * 64 == kWSMaxD &&
+                  kWSMaxD > kSMaxD,
+              "kWSMaxD is the widest head of the wide streamed path's register plan, and "
+              "its tiles fit a block");
+
 template <int D, int BQ>
 int launch(const float* q, const float* k, const float* v, float* o, int BH,
            int Lq, int Lk, int causal, int blocks, int smem, float qscale,
@@ -1223,8 +1534,8 @@ extern "C" int pio_flash_attention(const void* q, const void* k, const void* v,
 }
 
 // Launches the passes path on `stream` (it takes any D > kMaxD; the wrapper
-// picks it above kRMaxD, and on request to compare it with the resident
-// path) and returns cudaGetLastError() (0 = ok). Device pointers: q [BH, Lq, D], k and v
+// picks it above kWSMaxD, and on request to compare it with the other paths)
+// and returns cudaGetLastError() (0 = ok). Device pointers: q [BH, Lq, D], k and v
 // [BH, Lk, D], o [BH, Lq, D], f32 and contiguous, unpadded; q is scaled by
 // 1/sqrt(D). The plan (ops/cuda_kernels.py::flash_wide_launch_plan): threads
 // a block (kWThreads) and blocks (ceil(Lq / kWRows) * BH * ceil(D / kWCols)).
@@ -1359,6 +1670,58 @@ extern "C" int pio_flash_attention_streamed_attrs(int* out) {
   cudaFuncAttributes at;
   const cudaError_t err = cudaFuncGetAttributes(
       &at, reinterpret_cast<const void*>(flash_attention_streamed_kernel<kSGroups>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = static_cast<int>(at.sharedSizeBytes);
+  return 0;
+}
+
+// Launches the wide streamed path (kMaxD < D <= kWSMaxD; the wrapper picks it
+// above kSMaxD, and on request to compare it with the streamed path) on
+// `stream` and returns cudaGetLastError() (0 = ok). Device pointers: q [BH,
+// Lq, D], k and v [BH, Lk, D], o [BH, Lq, D], f32 and contiguous, unpadded
+// (16-byte copies when D is a multiple of 4 and all four are 16-byte aligned,
+// else 4-byte ones); q is scaled by 1/sqrt(D). The plan (ops/cuda_kernels.py::
+// flash_wide_streamed_launch_plan): threads a block (kWSThreads), dynamic
+// shared memory in bytes (ws_smem_floats(D) floats) and blocks (ceil(Lq /
+// kWSRows) * BH). A plan that does not match this arithmetic is refused
+// (cudaErrorInvalidValue), as are BH, Lq, Lk < 1, D outside (kMaxD, kWSMaxD]
+// and more than 2^31 - 1 blocks.
+extern "C" int pio_flash_attention_wide_streamed(const void* q, const void* k,
+                                                 const void* v, void* o, int BH, int Lq,
+                                                 int Lk, int D, int causal, int threads,
+                                                 int smem, int blocks, void* stream) {
+  if (BH < 1 || Lq < 1 || Lk < 1 || D <= kMaxD || D > kWSMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long want_blocks = static_cast<long long>((Lq + kWSRows - 1) / kWSRows) * BH;
+  if (want_blocks > kMaxBlocks || blocks != want_blocks || threads != kWSThreads ||
+      smem != ws_smem_floats(D) * static_cast<int>(sizeof(float)) || smem > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wide_streamed_kernel<kWSGroups>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  const int vec = D % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(o);
+  const double width = D;  // unpadded: the true head width
+  flash_attention_wide_streamed_kernel<kWSGroups>
+      <<<blocks, kWSThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), BH, Lq, Lk, D,
+          (Lq + kWSRows - 1) / kWSRows, causal != 0, vec,
+          static_cast<float>(1.0 / std::sqrt(width)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, local (spilled) bytes and static shared memory of the
+// wide streamed kernel, three ints. Returns the error of cudaFuncGetAttributes.
+extern "C" int pio_flash_attention_wide_streamed_attrs(int* out) {
+  cudaFuncAttributes at;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &at, reinterpret_cast<const void*>(flash_attention_wide_streamed_kernel<kWSGroups>));
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = at.numRegs;
   out[1] = static_cast<int>(at.localSizeBytes);

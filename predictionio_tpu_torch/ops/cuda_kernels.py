@@ -337,10 +337,13 @@ _EXTRA_ENTRIES = {
         + [ctypes.c_void_p],
         "pio_flash_attention_streamed": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
         + [ctypes.c_void_p],
+        "pio_flash_attention_wide_streamed": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        + [ctypes.c_void_p],
         "pio_flash_attention_attrs": _ATTRS_ARGTYPES,
         "pio_flash_attention_wide_attrs": _ATTRS_ARGTYPES,
         "pio_flash_attention_resident_attrs": _ATTRS_ARGTYPES,
         "pio_flash_attention_streamed_attrs": _ATTRS_ARGTYPES,
+        "pio_flash_attention_wide_streamed_attrs": _ATTRS_ARGTYPES,
     },
 }
 
@@ -1793,7 +1796,8 @@ FLASH_BQS = (64, 128)
 #: of FLASH_D_MULTIPLE; the wrapper takes any D from 1 to FLASH_MAX_D there
 #: and zero-pads q, k and v up to the next multiple. Wider heads take the
 #: resident path up to FLASH_WIDE_RES_MAX_D, the streamed path up to
-#: FLASH_STREAMED_MAX_D and the passes path above it, unpadded.
+#: FLASH_STREAMED_MAX_D, the wide streamed path up to
+#: FLASH_WIDE_STREAMED_MAX_D and the passes path above it, unpadded.
 FLASH_MAX_D = 128
 FLASH_D_MULTIPLE = 8
 #: query tiles of one (batch · head) (kMaxQTiles); the grid is one-dimensional
@@ -1808,7 +1812,7 @@ FLASH_ROWS, FLASH_KEY_THREADS = 4, 8
 FLASH_PAD, FLASH_P_STRIDE = 4, FLASH_TILE + 8
 #: the most dynamic shared memory a block may opt into on the card
 FLASH_MAX_SMEM = 232448
-#: the passes path (heads wider than FLASH_WIDE_RES_MAX_D): query rows and
+#: the passes path (heads wider than FLASH_WIDE_STREAMED_MAX_D): query rows and
 #: keys a tile (kWRows, kWKeys), threads a block (kWThreads), O's columns a
 #: pass (kWCols), registers a thread (its launch bound of 4 blocks an SM caps
 #: it there, and the card reports that many), and its static shared memory (Q
@@ -1840,13 +1844,29 @@ FLASH_STREAMED_THREADS, FLASH_STREAMED_CHUNK, FLASH_STREAMED_C_STRIDE = 256, 64,
 FLASH_STREAMED_STAGES = 2
 FLASH_STREAMED_GROUPS, FLASH_STREAMED_MAX_D = 5, 320
 FLASH_STREAMED_REGS = 216
+#: the wide streamed path (FLASH_STREAMED_MAX_D < D <=
+#: FLASH_WIDE_STREAMED_MAX_D): the streamed path's block (query rows and keys
+#: a tile, kWSRows and kWSKeys) at 512 threads (kWSThreads), two query rows a
+#: thread in S and in O, with K streamed in column chunks of
+#: FLASH_WIDE_STREAMED_K_CHUNK (kWSKChunk) and V in chunks of
+#: FLASH_WIDE_STREAMED_V_CHUNK (kWSVChunk), each row 4 floats longer, in
+#: FLASH_WIDE_STREAMED_STAGES buffers (kWSStages); one instantiation,
+#: FLASH_WIDE_STREAMED_GROUPS float4 column groups of O a thread (kWSGroups),
+#: which sets its widest head (kWSMaxD), and the registers a thread takes on
+#: the card (chip_smoke.py holds the card's count to it)
+FLASH_WIDE_STREAMED_ROWS = FLASH_WIDE_STREAMED_KEYS = 64
+FLASH_WIDE_STREAMED_THREADS = 512
+FLASH_WIDE_STREAMED_K_CHUNK, FLASH_WIDE_STREAMED_V_CHUNK = 64, 128
+FLASH_WIDE_STREAMED_STAGES = 2
+FLASH_WIDE_STREAMED_GROUPS, FLASH_WIDE_STREAMED_MAX_D = 8, 512
+FLASH_WIDE_STREAMED_REGS = 128
 #: every instantiation, in the order ``pio_flash_attention_attrs`` reports them
 FLASH_KERNELS = tuple((d, bq) for d in range(FLASH_D_MULTIPLE, FLASH_MAX_D + 1,
                                              FLASH_D_MULTIPLE) for bq in FLASH_BQS)
 
 
 #: the kernel paths a plan names (``FlashPlan.path``), by head width
-FLASH_PATHS = ("tuned", "resident", "streamed", "passes")
+FLASH_PATHS = ("tuned", "resident", "streamed", "wide_streamed", "passes")
 
 
 class FlashPlan(NamedTuple):
@@ -1866,7 +1886,8 @@ class FlashPlan(NamedTuple):
     blocks: int  #: the grid, BH · q_tiles (· passes), heaviest query tiles first
     waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
     passes: int = 1  #: blocks a query tile, each taking FLASH_WIDE_COLS of O (passes path)
-    path: str = "tuned"  #: the kernel: "tuned" (D <= 128), "resident", "streamed" or "passes"
+    path: str = "tuned"  #: the kernel: "tuned" (D <= 128), "resident", "streamed",
+    #: "wide_streamed" or "passes"
 
 
 def flash_smem_bytes(bq: int, d: int) -> int:
@@ -1940,8 +1961,8 @@ def flash_launch_plan(b: int, h: int, lq: int, lk: int, d: int, causal: bool,
 def flash_wide_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
                            sm_count: int) -> FlashPlan:
     """The launch plan of the passes path (``d`` above
-    :data:`FLASH_WIDE_RES_MAX_D`, or any ``d`` above :data:`FLASH_MAX_D`
-    to compare it with the resident path): one block of
+    :data:`FLASH_WIDE_STREAMED_MAX_D`, or any ``d`` above :data:`FLASH_MAX_D`
+    to compare it with the other paths): one block of
     :data:`FLASH_WIDE_THREADS` per (query tile of :data:`FLASH_WIDE_ROWS`
     rows, batch · head, pass of :data:`FLASH_WIDE_COLS` of O's columns).
     Pure arithmetic, checked again by the C entry point."""
@@ -1998,17 +2019,27 @@ def flash_resident_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
             f"no flash resident launch plan for b={b}, h={h}, lq={lq}, lk={lk}, d={d}, "
             f"sm_count={sm_count}, regs={regs}"
         )
-    threads, smem = FLASH_WIDE_RES_THREADS, flash_resident_smem_bytes(d)
+    return _whole_width_plan("resident", b * h, lq, lk, FLASH_WIDE_RES_ROWS,
+                             FLASH_WIDE_RES_KEYS, FLASH_WIDE_RES_THREADS,
+                             flash_resident_smem_bytes(d), regs, sm_count, (4, 4),
+                             (4, 4 * flash_resident_groups(d)))
+
+
+def _whole_width_plan(path: str, bh: int, lq: int, lk: int, rows: int, keys: int,
+                      threads: int, smem: int, regs: int, sm_count: int,
+                      s_tile: Tuple[int, int], o_tile: Tuple[int, int]) -> FlashPlan:
+    """The plan of a path that takes all of D in one block per (query tile
+    of ``rows`` rows, batch · head), heaviest query tiles first: blocks an
+    SM from the registers, the shared memory and the threads of a block."""
     per_sm = min(_SM_REGS // (threads * _cdiv(regs, 8) * 8),
                  _SM_SMEM // (smem + _BLOCK_SMEM_RESERVE),
                  _SM_MAX_BLOCKS, _SM_MAX_THREADS // threads)
-    q_tiles = _cdiv(lq, FLASH_WIDE_RES_ROWS)
-    blocks = b * h * q_tiles
+    q_tiles = _cdiv(lq, rows)
+    blocks = bh * q_tiles
     return FlashPlan(
-        bq=FLASH_WIDE_RES_ROWS, bk=FLASH_WIDE_RES_KEYS, threads=threads,
-        s_tile=(4, 4), o_tile=(4, 4 * flash_resident_groups(d)), smem=smem, regs=regs,
-        blocks_per_sm=per_sm, q_tiles=q_tiles, kv_tiles=_cdiv(lk, FLASH_WIDE_RES_KEYS),
-        blocks=blocks, waves=_cdiv(blocks, sm_count * per_sm), path="resident",
+        bq=rows, bk=keys, threads=threads, s_tile=s_tile, o_tile=o_tile, smem=smem,
+        regs=regs, blocks_per_sm=per_sm, q_tiles=q_tiles, kv_tiles=_cdiv(lk, keys),
+        blocks=blocks, waves=_cdiv(blocks, sm_count * per_sm), path=path,
     )
 
 
@@ -2040,18 +2071,46 @@ def flash_streamed_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
             f"no flash streamed launch plan for b={b}, h={h}, lq={lq}, lk={lk}, d={d}, "
             f"sm_count={sm_count}, regs={regs}"
         )
-    threads, smem = FLASH_STREAMED_THREADS, flash_streamed_smem_bytes(d)
-    per_sm = min(_SM_REGS // (threads * _cdiv(regs, 8) * 8),
-                 _SM_SMEM // (smem + _BLOCK_SMEM_RESERVE),
-                 _SM_MAX_BLOCKS, _SM_MAX_THREADS // threads)
-    q_tiles = _cdiv(lq, FLASH_STREAMED_ROWS)
-    blocks = b * h * q_tiles
-    return FlashPlan(
-        bq=FLASH_STREAMED_ROWS, bk=FLASH_STREAMED_KEYS, threads=threads,
-        s_tile=(4, 4), o_tile=(4, 4 * FLASH_STREAMED_GROUPS), smem=smem, regs=regs,
-        blocks_per_sm=per_sm, q_tiles=q_tiles, kv_tiles=_cdiv(lk, FLASH_STREAMED_KEYS),
-        blocks=blocks, waves=_cdiv(blocks, sm_count * per_sm), path="streamed",
-    )
+    return _whole_width_plan("streamed", b * h, lq, lk, FLASH_STREAMED_ROWS,
+                             FLASH_STREAMED_KEYS, FLASH_STREAMED_THREADS,
+                             flash_streamed_smem_bytes(d), regs, sm_count, (4, 4),
+                             (4, 4 * FLASH_STREAMED_GROUPS))
+
+
+def flash_wide_streamed_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of a wide-streamed-path block
+    (``ws_smem_floats`` in the .cu): the Q tile at a row stride of D rounded
+    up to 8 plus FLASH_PAD floats, FLASH_WIDE_STREAMED_STAGES chunk buffers
+    of 64 rows of the wider of a K and a V chunk (plus 4 floats), the
+    probabilities [64, 68] and two row vectors."""
+    w = _cdiv(d, 8) * 8
+    chunk = max(FLASH_WIDE_STREAMED_K_CHUNK, FLASH_WIDE_STREAMED_V_CHUNK) + FLASH_PAD
+    return 4 * (FLASH_WIDE_STREAMED_ROWS * (w + FLASH_PAD)
+                + FLASH_WIDE_STREAMED_STAGES * FLASH_WIDE_STREAMED_KEYS * chunk
+                + FLASH_WIDE_STREAMED_ROWS * FLASH_WIDE_RES_P_STRIDE
+                + 2 * FLASH_WIDE_STREAMED_ROWS)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_wide_streamed_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
+                                    sm_count: int, regs: int) -> FlashPlan:
+    """The launch plan of the wide streamed path (``FLASH_MAX_D < d <=
+    FLASH_WIDE_STREAMED_MAX_D``; :func:`flash_plan_for` picks it above
+    :data:`FLASH_STREAMED_MAX_D`) on a card of ``sm_count`` SMs, where
+    ``regs`` are the registers a thread of its kernel takes (read off the
+    card): one block of :data:`FLASH_WIDE_STREAMED_THREADS` per (query tile
+    of :data:`FLASH_WIDE_STREAMED_ROWS` rows, batch · head), taking all of
+    D. Pure arithmetic, checked again by the C entry point."""
+    if (min(b, h, lq, lk, sm_count, regs) < 1
+            or not FLASH_MAX_D < d <= FLASH_WIDE_STREAMED_MAX_D):
+        raise ValueError(
+            f"no flash wide streamed launch plan for b={b}, h={h}, lq={lq}, lk={lk}, d={d}, "
+            f"sm_count={sm_count}, regs={regs}"
+        )
+    return _whole_width_plan("wide_streamed", b * h, lq, lk, FLASH_WIDE_STREAMED_ROWS,
+                             FLASH_WIDE_STREAMED_KEYS, FLASH_WIDE_STREAMED_THREADS,
+                             flash_wide_streamed_smem_bytes(d), regs, sm_count, (2, 4),
+                             (2, 4 * FLASH_WIDE_STREAMED_GROUPS))
 
 
 #: the serving path calls the wrapper from several batch threads at once
@@ -2164,6 +2223,18 @@ def _flash_streamed_regs(index: int) -> int:
     return flash_streamed_kernel_attributes(index)["regs"]
 
 
+def flash_wide_streamed_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of the wide streamed kernel, as ``cudaFuncGetAttributes``
+    reports them on the card."""
+    return _flash_one_kernel_attributes("wide_streamed", device)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_wide_streamed_regs(index: int) -> int:
+    return flash_wide_streamed_kernel_attributes(index)["regs"]
+
+
 def flash_plan_for(q: torch.Tensor, k: torch.Tensor, causal: bool,
                    bq: Optional[int] = None) -> FlashPlan:
     """The launch plan for these CUDA tensors, with the SM count and the
@@ -2171,12 +2242,17 @@ def flash_plan_for(q: torch.Tensor, k: torch.Tensor, causal: bool,
     to :data:`FLASH_MAX_D` :func:`flash_launch_plan` (``bq`` forces its
     query tile), up to :data:`FLASH_WIDE_RES_MAX_D`
     :func:`flash_resident_launch_plan`, up to :data:`FLASH_STREAMED_MAX_D`
-    :func:`flash_streamed_launch_plan`, above it
-    :func:`flash_wide_launch_plan` (``bq`` applies to none of the three)."""
+    :func:`flash_streamed_launch_plan`, up to
+    :data:`FLASH_WIDE_STREAMED_MAX_D` :func:`flash_wide_streamed_launch_plan`,
+    above it :func:`flash_wide_launch_plan` (``bq`` applies to none of the
+    four)."""
     b, h, lq, d = q.shape
     index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    if d > FLASH_STREAMED_MAX_D:
+    if d > FLASH_WIDE_STREAMED_MAX_D:
         return flash_wide_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index))
+    if d > FLASH_STREAMED_MAX_D:
+        return flash_wide_streamed_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index),
+                                               _flash_wide_streamed_regs(index))
     if d > FLASH_WIDE_RES_MAX_D:
         return flash_streamed_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index),
                                           _flash_streamed_regs(index))
@@ -2211,8 +2287,10 @@ def flash_attention_fwd(
     by the true D, and o is sliced back; wider heads unpadded, up to
     :data:`FLASH_WIDE_RES_MAX_D` on the resident path
     (:func:`flash_resident_launch_plan`), up to :data:`FLASH_STREAMED_MAX_D`
-    on the streamed path (:func:`flash_streamed_launch_plan`), above it on
-    the passes path (:func:`flash_wide_launch_plan`), picked by D alone."""
+    on the streamed path (:func:`flash_streamed_launch_plan`), up to
+    :data:`FLASH_WIDE_STREAMED_MAX_D` on the wide streamed path
+    (:func:`flash_wide_streamed_launch_plan`), above it on the passes path
+    (:func:`flash_wide_launch_plan`), picked by D alone."""
     _check_flash_inputs(q, k, v)
     device = q.device
     if device.type == "cpu":
@@ -2253,15 +2331,15 @@ def flash_attention_fwd(
 def _flash_attention_wide(q, k, v, causal, plan) -> torch.Tensor:
     """The paths of :func:`flash_attention_fwd` above :data:`FLASH_MAX_D`
     (CUDA tensors): one launch of the entry the plan's path names
-    (``pio_flash_attention_resident``, ``pio_flash_attention_streamed`` or,
-    for the passes path, ``pio_flash_attention_wide``), counted on the
-    wrapper."""
+    (``pio_flash_attention_resident``, ``pio_flash_attention_streamed``,
+    ``pio_flash_attention_wide_streamed`` or, for the passes path,
+    ``pio_flash_attention_wide``), counted on the wrapper."""
     b, h, lq, d = q.shape
     device = q.device
     out = torch.empty_like(q)
     if plan is None:
         plan = flash_plan_for(q, k, causal)
-    if plan.path not in ("resident", "streamed", "passes"):
+    if plan.path not in ("resident", "streamed", "wide_streamed", "passes"):
         raise ValueError(f"a {plan.path} plan does not take a head of width {d}")
     if plan.blocks > 2**31 - 1:
         raise ValueError(f"flash attention shape {tuple(q.shape)} is past the grid's limits")
@@ -2270,7 +2348,7 @@ def _flash_attention_wide(q, k, v, causal, plan) -> torch.Tensor:
             d, int(bool(causal)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if plan.path in ("resident", "streamed"):
+        if plan.path != "passes":
             entry = getattr(lib, f"pio_flash_attention_{plan.path}")
             code = entry(*args, plan.threads, plan.smem, plan.blocks, stream)
         else:

@@ -128,7 +128,7 @@ def test_plan_refuses_widths_outside_the_path(d):
 
 @pytest.mark.parametrize("d,path", [(128, "tuned"), (129, "resident"), (136, "resident"),
                                     (256, "resident"), (D_RES, "resident"),
-                                    (D_RES + 8, "streamed"), (512, "passes")])
+                                    (D_RES + 8, "streamed"), (512, "wide_streamed")])
 def test_flash_plan_for_picks_the_path_by_the_head_width_alone(d, path, monkeypatch):
     monkeypatch.setattr(ck, "_sm_count", lambda index: 132)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
@@ -136,6 +136,7 @@ def test_flash_plan_for_picks_the_path_by_the_head_width_alone(d, path, monkeypa
     monkeypatch.setattr(ck, "_flash_resident_regs",
                         lambda index: {g: 160 + g for g in ck.FLASH_WIDE_RES_REGS})
     monkeypatch.setattr(ck, "_flash_streamed_regs", lambda index: 250)
+    monkeypatch.setattr(ck, "_flash_wide_streamed_regs", lambda index: 128)
     for b, h, lq, lk in ((64, 4, 64, 64), (1, 1, 1, 1), (8, 4, 2048, 2048)):
         q = torch.zeros((b, h, lq, d), device="meta")
         k = torch.zeros((b, h, lk, d), device="meta")
