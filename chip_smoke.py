@@ -202,29 +202,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    its bound, zero and singular systems on the blocked and cluster paths,
    n = 400 through the wide kernel's device-memory scratch;
    attention at D = 136, 192, 256 (the resident path), D = 320 (the
-   streamed path) and D = 384, 512 (the wide streamed path) at the
-   training shape and at L = 2,048 causal and not, and at D = 576 (the
-   passes path) at the training shape (rtol 2e-4 / atol 2e-5,
-   bit-identical, one launch), each timed beside the plain version, the
-   library call and the bound, and the resident and streamed cases beside
-   the passes kernel on the same tensors (the wide streamed path's A B B
-   A); D = 280 and 302 on the streamed path and D = 330 and 502 on the
-   wide streamed path at two ragged cross shapes; plans forcing the
-   streamed path at D = 256 and the wide streamed path at D = 320,
-   ``torch.equal`` to the kernel each width's own plan takes, and a
-   doctored wide streamed plan, refused with an error; every
-   general-width kernel's registers and local bytes (no local memory;
-   each attention kernel's registers equal to its plan constant).
+   streamed path), D = 384, 512 (the wide streamed path) and D = 576,
+   768, 1,024 (the cluster path, each plan's clusters at once beside
+   ``cudaOccupancyMaxActiveClusters``) at the training shape and at L =
+   2,048 causal and not, and at D = 1,040 (the passes path) at the
+   training shape (rtol 2e-4 / atol 2e-5, bit-identical, one launch),
+   each timed beside the plain version, the library call and the bound,
+   and beside the passes kernel on the same tensors (the wide streamed and
+   cluster paths' A B B A); D = 280 and 302 on the streamed path, D = 330
+   and 502 on the wide streamed path and D = 650 and 900 on the cluster
+   path at two ragged cross shapes; plans forcing the streamed path at D
+   = 256 and the wide streamed path at D = 320, ``torch.equal`` to the
+   kernel each width's own plan takes, plans forcing the cluster path at
+   D = 384 and 512 (held to the plain version, timed beside the wide
+   streamed kernel), and doctored wide streamed and cluster plans (shared
+   memory, slices), refused with an error; every general-width kernel's
+   registers and local bytes (no local memory; each attention kernel's
+   registers equal to its plan constant).
    Then ALS at rank 200 (the build's rows path, the blocked solve) and at
    rank 384 (the build's tile path, the cluster solve) by ``run_train``
    from the store (3 iterations, build and solve launches counted in all
    and by path) held to 3 plain iterations (rtol 2e-3 / atol 2e-4), each
    with the holdout RMSE of 3 iterations on 95 % of the ratings; seqrec
    at d_model 256 / 1 head (D = 256, 20 steps, 64 queries), at d_model
-   320 / 1 head (D = 320, 10 steps, 16 queries) and at d_model 384 / 1
-   head (D = 384, 10 steps, 16 queries) by ``run_train`` and served for a
-   burst held to the plain forward, attention launches counted in all and
-   on the head's path.
+   320 / 1 head (D = 320, 10 steps, 16 queries), at d_model 384 / 1 head
+   (D = 384, 10 steps, 16 queries) and at d_model 768 / 1 head (D = 768,
+   the cluster path, 10 steps, 16 queries) by ``run_train`` and served for
+   a burst held to the plain forward, attention launches counted in all
+   and on the head's path; and at D = 768 3 training steps through the
+   kernel held to 3 through the plain attention from one seeded init
+   (``embed``, ``pos`` and a fixed batch's logits at rtol 1e-3 / atol
+   1e-4, the margin printed).
 16. ``console`` — the quickstart's lifecycle through ``python -m
    predictionio_tpu_torch.tools.console``, each command its own process:
    ``app new``, ``import`` of ``examples/movielens_quickstart/gen_events.py``'s
@@ -3738,10 +3746,10 @@ WIDE_CLUSTER_ALS_RANK = 384
 #: from the events store solves on it, held to WIDE_TILED_ALS_ITERS
 #: iterations of the plain build and solve
 SPD_TILED_CASES = ((769, 64), (1024, 64), (1536, 64), (2048, 64), (1024, 1024))
-#: two iterations, not PARITY_ITERS: at n = 1,024 the plain solve updates a
-#: [B, 1024, 1024] block a step, about 35 s an iteration on the card, and a
-#: third took the phase past its share of the run
-WIDE_TILED_ALS_RANK, WIDE_TILED_ALS_ITERS = 1024, 2
+#: one iteration, not PARITY_ITERS: at n = 1,024 the plain solve updates a
+#: [B, 1024, 1024] block a step, about 35 s an iteration on the card, and
+#: each iteration past the first took the run further past half its limit
+WIDE_TILED_ALS_RANK, WIDE_TILED_ALS_ITERS = 1024, 1
 WIDE_HEADS = (136, 192, 256)
 WIDE_ATTN_SHAPES = ((64, 4, 64, 64, True), (8, 4, 2048, 2048, True),
                     (8, 4, 2048, 2048, False))
@@ -3759,9 +3767,15 @@ WIDE_CHECK_SHAPES = ((3, 2, 130, 200, True), (2, 3, 200, 130, False))
 #: last chunk 16 and 56 columns wide; both copied 4 bytes at a time)
 WIDE_WS_HEADS = (384, 512)
 WIDE_WS_CHECKS = (330, 502)
-#: a head above the wide streamed path's widest (FLASH_WIDE_STREAMED_MAX_D),
-#: so the passes path is still launched and held: the training shape, timed
-WIDE_PASSES_HEAD = 576
+#: heads above the wide streamed path's widest on the cluster path (up to
+#: FLASH_CLUSTER_MAX_D, the last), timed at WIDE_ATTN_SHAPES beside the
+#: passes kernel on the same tensors, and two more held at WIDE_CHECK_SHAPES
+#: (650 is copied 4 bytes at a time; rank 1's slice of 900 is 448 columns)
+WIDE_CLUSTER_HEADS = (576, 768, 1024)
+WIDE_CLUSTER_CHECKS = (650, 900)
+#: a head above the cluster path's widest (FLASH_CLUSTER_MAX_D), so the
+#: passes path is still launched and held: the training shape, timed
+WIDE_PASSES_HEAD = 1040
 WIDE_PASSES_SHAPES = WIDE_ATTN_SHAPES[:1]
 WIDE_ALS_RANK, WIDE_SEQ = 200, dict(d_model=256, n_heads=1)
 #: seqrec on the streamed path (D = 320) and on the wide streamed path (D =
@@ -3769,6 +3783,10 @@ WIDE_ALS_RANK, WIDE_SEQ = 200, dict(d_model=256, n_heads=1)
 WIDE_SEQ_STREAMED, WIDE_SEQ_STREAMED_STEPS, WIDE_SEQ_STREAMED_QUERIES = (
     dict(d_model=320, n_heads=1), 10, 16)
 WIDE_SEQ_WS = dict(d_model=384, n_heads=1)
+#: seqrec on the cluster path (D = 768) from the events store, 10 steps and
+#: 16 queries, and SEQ_PARITY_STEPS steps through the kernel held to as many
+#: through the plain attention from the one seeded init
+WIDE_SEQ_CLUSTER = dict(d_model=768, n_heads=1)
 
 
 def wide_bucket(torch, gen, dev, b: int, k: int, n: int, r: int):
@@ -3829,6 +3847,17 @@ def spd_cluster_waves(ck, plan, dev, sm: int) -> dict:
     return {"plan_clusters": sm * plan.blocks_per_sm // plan.cluster, "plan_waves": plan.waves,
             "occupancy_clusters": occupancy,
             "occupancy_waves": -(-systems // occupancy) if occupancy else None}
+
+
+def flash_cluster_waves(ck, plan, dev, sm: int) -> dict:
+    """The attention cluster plan's clusters at once and waves, as the plan
+    estimates them (SMs · blocks an SM // cluster) and as the card places
+    them (``cudaOccupancyMaxActiveClusters``)."""
+    occupancy = ck.flash_cluster_occupancy(plan, dev)
+    clusters = plan.blocks // plan.cluster
+    return {"plan_clusters": sm * plan.blocks_per_sm // plan.cluster, "plan_waves": plan.waves,
+            "occupancy_clusters": occupancy,
+            "occupancy_waves": -(-clusters // occupancy) if occupancy else None}
 
 
 def forced_cluster_plan(ck, b: int, n: int, sm: int, c: int):
@@ -4870,8 +4899,11 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     at D = 256 (``torch.equal`` to the resident kernel), at D = 384 and 512
     causal and not and at D = 330 and 502 on the wide streamed path, a plan
     forcing it at D = 320 (``torch.equal`` to the streamed kernel) and a
-    doctored plan of it (refused with an error), and at WIDE_PASSES_HEAD on
-    the passes path. Each kernel's registers and local
+    doctored plan of it (refused with an error), at D = 576, 768 and 1,024
+    causal and not and at D = 650 and 900 on the cluster path, plans
+    forcing it at D = 384 and 512 (held to the plain version, beside the
+    wide streamed kernel) and doctored plans of it (refused), and at
+    WIDE_PASSES_HEAD on the passes path. Each kernel's registers and local
     bytes first (no local memory; the attention kernels' and the blocked
     solve's registers equal to their plan constants, the build's and the
     wide and cluster solves' within their launch bounds); each case prints
@@ -4898,11 +4930,13 @@ def wide_kernels(torch, dev, seed: int) -> dict:
              "flash_attention": ck.flash_wide_kernel_attributes(dev),
              "flash_attention_resident": ck.flash_resident_kernel_attributes(dev),
              "flash_attention_streamed": ck.flash_streamed_kernel_attributes(dev),
-             "flash_attention_wide_streamed": ck.flash_wide_streamed_kernel_attributes(dev)}
+             "flash_attention_wide_streamed": ck.flash_wide_streamed_kernel_attributes(dev),
+             "flash_attention_cluster": ck.flash_cluster_kernel_attributes(dev)}
     flat = [*attrs["gramian_fused"].values(), *attrs["spd_solve"].values(),
             *attrs["spd_solve_cluster"].values(), *attrs["spd_solve_tiled"].values(),
             attrs["flash_attention"], *attrs["flash_attention_resident"].values(),
-            attrs["flash_attention_streamed"], attrs["flash_attention_wide_streamed"]]
+            attrs["flash_attention_streamed"], attrs["flash_attention_wide_streamed"],
+            attrs["flash_attention_cluster"]]
     emit({"phase": "wide", "attributes": attrs})
     regs_ok = (all(attrs["gramian_fused"][k]["regs"] <= ck.GRAMIAN_WIDE_REGS
                    for k in ("wide_one_pass", "wide_split"))
@@ -4919,7 +4953,8 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                        for g, a in attrs["flash_attention_resident"].items())
                and attrs["flash_attention_streamed"]["regs"] == ck.FLASH_STREAMED_REGS
                and attrs["flash_attention_wide_streamed"]["regs"]
-               == ck.FLASH_WIDE_STREAMED_REGS)
+               == ck.FLASH_WIDE_STREAMED_REGS
+               and attrs["flash_attention_cluster"]["regs"] == ck.FLASH_CLUSTER_REGS)
     if any(a["local_bytes"] for a in flat) or not regs_ok:
         raise AssertionError(f"the general-width kernels take {attrs}")
     worst = {"gramian_fused": 0.0, "spd_solve": 0.0, "flash_attention": 0.0}
@@ -4966,10 +5001,7 @@ def wide_kernels(torch, dev, seed: int) -> dict:
     # attention
     import torch.nn.functional as F
 
-    def path_of(d):
-        return ("resident" if d <= ck.FLASH_WIDE_RES_MAX_D else
-                "streamed" if d <= ck.FLASH_STREAMED_MAX_D else
-                "wide_streamed" if d <= ck.FLASH_WIDE_STREAMED_MAX_D else "passes")
+    path_of = flash_path_of
 
     def attention_case(d, b, h, lq, lk, causal, timed=True):
         q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
@@ -4985,6 +5017,8 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                "plan": flash_plan_line(plan), "launches": launched,
                "max_abs_err": float((o_k - o_p).abs().max()),
                "bit_identical": bool(torch.equal(o_k, flash_attention_fwd(q, k, v, causal)))}
+        if plan.path == "cluster":
+            out.update(flash_cluster_waves(ck, plan, dev, sm))
         if timed:
             kernel = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
             library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
@@ -4998,7 +5032,7 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                 del o_e
                 runs.append(("earlier_kernel", earlier))
             runs.append(("library", library))
-            if plan.path == "wide_streamed":  # A B B A: the runs, then in reverse
+            if plan.path in ("wide_streamed", "cluster"):  # A B B A: the runs, then reversed
                 runs += runs[::-1]
             for name, fn in runs:
                 out.setdefault(f"{name}_runs_ms", []).append(time_ms(torch, fn, 10, 2))
@@ -5022,10 +5056,11 @@ def wide_kernels(torch, dev, seed: int) -> dict:
         held("flash_attention", f"D{d}_{shape}_causal_{causal}", out,
              ok and out["bit_identical"] and launched == 1 and plan.path == path_of(d))
 
-    def forced_below(path, d, b, h, lq, lk, causal):
+    def forced_below(path, d, b, h, lq, lk, causal, bits=True):
         """A plan forcing a streamed ``path`` at a width below it: the bits
-        of the kernel the width's own plan takes, and both kernels' times on
-        the same tensors."""
+        of the kernel the width's own plan takes (held equal unless ``bits``
+        is false: the cluster path sums a score in two halves), and both
+        kernels' times on the same tensors."""
         q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
                    for n_ in (lq, lk, lk))
         forced = getattr(ck, f"flash_{path}_launch_plan")(
@@ -5044,8 +5079,8 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                "own_ms": time_ms(torch, own, 10, 2),
                "own_device_ms": traced_device_ms(torch, own, 10)}
         held("flash_attention", f"D{d}_forced_{path}_{b}x{h}x{lq}_causal_{causal}", out,
-             out["equal_to_own_kernel"] and bool(torch.allclose(o_s, o_p, rtol=ATTN_RTOL,
-                                                                atol=ATTN_ATOL)))
+             (out["equal_to_own_kernel"] or not bits)
+             and bool(torch.allclose(o_s, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL)))
 
     for d in WIDE_HEADS:
         for shape in WIDE_ATTN_SHAPES:
@@ -5062,22 +5097,46 @@ def wide_kernels(torch, dev, seed: int) -> dict:
             attention_case(d, *shape)
     for shape in WIDE_ATTN_SHAPES[:2]:
         forced_below("wide_streamed", WIDE_STREAMED_HEAD, *shape)
-    # a wide streamed plan off the C entry's arithmetic must raise
+    for d in WIDE_CLUSTER_HEADS:
+        for shape in WIDE_ATTN_SHAPES:
+            attention_case(d, *shape)
+    for d in WIDE_CLUSTER_CHECKS:
+        for shape in WIDE_CHECK_SHAPES:
+            attention_case(d, *shape, timed=False)
+    for d in WIDE_WS_HEADS:  # for information: the wide streamed kernel beside it
+        for shape in WIDE_ATTN_SHAPES[:2]:
+            forced_below("cluster", d, *shape, bits=False)
+    # a plan off the C entry's arithmetic must raise: the wide streamed
+    # path's shared memory, the cluster path's shared memory and its slices
     from predictionio_tpu_torch.kernels import build
 
-    q = torch.randn((1, 1, 64, WIDE_WS_HEADS[0]), generator=gen, device=dev)
-    plan = ck.flash_plan_for(q, q, True)
-    try:
-        flash_attention_fwd(q, q, q, True, plan=plan._replace(smem=plan.smem + 16))
-        refused = False
-    except build.KernelLaunchError:
-        refused = True
-    held("flash_attention", f"D{WIDE_WS_HEADS[0]}_doctored_plan",
-         {"max_abs_err": 0.0, "refused": refused, "plan": flash_plan_line(plan)},
-         refused and plan.path == "wide_streamed")
+    for d, field in ((WIDE_WS_HEADS[0], "smem"), (WIDE_CLUSTER_HEADS[0], "smem"),
+                     (WIDE_CLUSTER_HEADS[0], "slices")):
+        q = torch.randn((1, 1, 64, d), generator=gen, device=dev)
+        plan = ck.flash_plan_for(q, q, True)
+        doctored = (plan._replace(smem=plan.smem + 16) if field == "smem" else
+                    plan._replace(slices=(plan.slices[0] + 8, plan.slices[1] - 8)))
+        try:
+            flash_attention_fwd(q, q, q, True, plan=doctored)
+            refused = False
+        except build.KernelLaunchError:
+            refused = True
+        held("flash_attention", f"D{d}_doctored_{field}",
+             {"max_abs_err": 0.0, "refused": refused, "plan": flash_plan_line(doctored)},
+             refused and plan.path == path_of(d))
     for shape in WIDE_PASSES_SHAPES:
         attention_case(WIDE_PASSES_HEAD, *shape)
     return {"cases": cases, "max_abs_err": worst, "attributes": attrs}
+
+
+def flash_path_of(d: int) -> str:
+    """The attention path a head of width ``d`` > FLASH_MAX_D takes."""
+    from predictionio_tpu_torch.ops import cuda_kernels as ck
+
+    return ("resident" if d <= ck.FLASH_WIDE_RES_MAX_D else
+            "streamed" if d <= ck.FLASH_STREAMED_MAX_D else
+            "wide_streamed" if d <= ck.FLASH_WIDE_STREAMED_MAX_D else
+            "cluster" if d <= ck.FLASH_CLUSTER_MAX_D else "passes")
 
 
 def flash_path_times(torch, dev, seed: int = 0) -> None:
@@ -5120,13 +5179,19 @@ FLASH_VARIANT_CASES = {
     "streamed": ((WIDE_STREAMED_HEAD, WIDE_ATTN_SHAPES), (256, WIDE_ATTN_SHAPES[:2])),
     "wide_streamed": (*((d, WIDE_ATTN_SHAPES) for d in WIDE_WS_HEADS),
                       (WIDE_STREAMED_HEAD, WIDE_ATTN_SHAPES[:2])),
+    "cluster": (*((d, WIDE_ATTN_SHAPES) for d in WIDE_CLUSTER_HEADS),
+                *((d, WIDE_CHECK_SHAPES) for d in WIDE_CLUSTER_CHECKS),
+                *((d, WIDE_ATTN_SHAPES[:2]) for d in WIDE_WS_HEADS)),
 }
 
 
-def flash_streamed_variants(torch, dev, seed: int = 0, path: str = "streamed") -> None:
-    """A streamed path (``path``: "streamed", 272 < D <= 320, or
-    "wide_streamed", 320 < D <= FLASH_WIDE_STREAMED_MAX_D) alone at its
-    FLASH_VARIANT_CASES: the kernel's attributes, then at each shape its
+def flash_streamed_variants(torch, dev, seed: int = 0, path: str = "streamed",
+                            cases=None) -> None:
+    """A streamed path (``path``: "streamed", 272 < D <= 320,
+    "wide_streamed", 320 < D <= FLASH_WIDE_STREAMED_MAX_D, or "cluster",
+    FLASH_WIDE_STREAMED_MAX_D < D <= FLASH_CLUSTER_MAX_D) alone at its
+    FLASH_VARIANT_CASES (or ``cases``): the kernel's attributes (and, for the
+    cluster path, the plan's clusters at once beside the card's), then at each shape its
     answer against the plain version and against the other kernel (the one
     the width's own plan takes, else the passes kernel), the event and
     device ms of both and of SDPA on the same tensors (SDPA, other, path,
@@ -5153,11 +5218,14 @@ def flash_streamed_variants(torch, dev, seed: int = 0, path: str = "streamed") -
     tree = os.path.basename(os.getcwd())
     phase = f"flash_{path}_variant"
     emit({"phase": phase, "tree": tree, "attributes": attrs})
-    for d, shapes in FLASH_VARIANT_CASES[path]:
+    for d, shapes in cases or FLASH_VARIANT_CASES[path]:
         for b, h, lq, lk, causal in shapes:
             q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
                        for n_ in (lq, lk, lk))
             plan = launch_plan(b, h, lq, lk, d, sm, attrs["regs"])
+            if path == "cluster":
+                emit({"phase": phase, "tree": tree, "D": d, "B": b, "L": lq,
+                      **flash_cluster_waves(ck, plan, dev, sm)})
             other = ck.flash_plan_for(q, k, causal)
             if other.path == path:
                 other = ck.flash_wide_launch_plan(b, h, lq, lk, d, sm)
@@ -5217,6 +5285,45 @@ FLASH_WIDE_STREAMED_TRIALS = {
     "pv_unroll1": [("#pragma unroll 2\n      for (int kk = 0;",
                     "#pragma unroll 1\n      for (int kk = 0;")],
 }
+#: the cluster kernel's phases as the knock-outs cut them: the stores of
+#: the partials into the partner's memory, the barrier phase that publishes
+#: them, every cluster barrier of the tile loop (a full cluster barrier is
+#: kept at the start and the end, so neither block stores into a partner
+#: that has not started or has left), and the arithmetic as for the
+#: streamed kernels
+FLASH_CLUSTER_PHASES = {
+    "exchange_stores": [('asm volatile("st.shared::cluster.f32', 'if (0) asm volatile("st.shared::cluster.f32')],
+    "publish_barrier": [("cluster_arrive();\n    cluster_wait();", "")],
+    "cluster_barriers": [
+        ("cluster_arrive();\n    cluster_wait();", ""),
+        ("cluster_wait();\n    // the places the partner's", "// the places the partner's"),
+        ("cluster_arrive();  // this thread is done with s_p for this tile", ""),
+        ("cluster_arrive();  // this block has started",
+         "cluster_arrive();\n  cluster_wait();  // this block has started"),
+        ("cluster_wait();  // neither block leaves",
+         "cluster_arrive();\n  cluster_wait();  // neither block leaves")],
+    "qk_fmas": FLASH_STREAMED_PHASES["qk_fmas"],
+    "pv_fmas": FLASH_STREAMED_PHASES["pv_fmas"],
+    "block_barriers": FLASH_STREAMED_PHASES["barriers"],
+}
+#: variants of the cluster kernel tried against it the same way: the
+#: partials exchanged through a buffer of their own (64 x 68 floats more a
+#: block, so the reuse phase's arrive comes right after the read; it fits
+#: to D = 992), and V's chunks 64 columns wide
+FLASH_CLUSTER_TRIALS = {
+    "own_buffer": [
+        ("return ws_smem_floats(cl_slice0(d));",
+         "return ws_smem_floats(cl_slice0(d)) + kWSRows * kRPStride;"),
+        ("float* s_l = s_corr + kWSRows;                     // [kWSRows]: l after the last tile",
+         "float* s_l = s_corr + kWSRows;\n  float* s_x = s_l + kWSRows;"),
+        ("cluster_map(s_p + s_row0", "cluster_map(s_x + s_row0"),
+        ("s[i][t] = __fadd_rn(s[i][t], s_p[", "s[i][t] = __fadd_rn(s[i][t], s_x["),
+        ("    // the masks, the row's max and sum over its 16 threads (a thread's keys",
+         "    cluster_arrive();\n    // the masks, the row's max and sum over its 16 threads"),
+        ("cluster_arrive();  // this thread is done with s_p for this tile", ""),
+        ("cl_smem_floats(kCMaxD) * 4 <= kMaxSmem", "cl_smem_floats(992) * 4 <= kMaxSmem")],
+    "v64": FLASH_WIDE_STREAMED_TRIALS["v64"],
+}
 #: what the knock-outs need of each streamed path: its kernel's first line
 #: and the line that follows its body, and the heads they time
 FLASH_KNOCKOUT_PATHS = {
@@ -5224,6 +5331,8 @@ FLASH_KNOCKOUT_PATHS = {
                  (WIDE_STREAMED_HEAD,)),
     "wide_streamed": ("flash_attention_wide_streamed_kernel(const", "\nstatic_assert(kWSRows",
                       WIDE_WS_HEADS),
+    "cluster": ("flash_attention_cluster_kernel(const", "\nstatic_assert(kCBlocks",
+                WIDE_CLUSTER_HEADS[:2]),
 }
 
 
@@ -5234,18 +5343,25 @@ def _knockout_smem(src: str, path: str, d: int) -> int:
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
     w = -(-d // 8) * 8
+    if path == "cluster":  # the wider slice, and a buffer of the partials' own if it has one
+        w = -(-(w // 2) // 8) * 8
     rows_floats = 64 * (w + 4) + 64 * 68 + 2 * 64  # Q, P and the row vectors
     if path == "streamed":
         return 4 * (rows_floats + const("kSStages") * 64 * (const("kSChunk") + 4))
+    if path == "cluster" and "ws_smem_floats(cl_slice0(d)) + kWSRows * kRPStride;" in src:
+        rows_floats += 64 * 68
     chunk = max(const("kWSKChunk"), const("kWSVChunk")) + 4
     return 4 * (rows_floats + const("kWSStages") * 64 * chunk)
 
 
 def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE,
                              variants: dict = FLASH_STREAMED_PHASES,
-                             path: str = "streamed") -> None:
-    """Where a streamed path's kernel's time goes (``path``: "streamed" or
-    "wide_streamed"): ``source`` built as it is and once for each of
+                             path: str = "streamed", heads=None, shapes=None,
+                             abba: bool = False) -> None:
+    """Where a streamed path's kernel's time goes (``path``: "streamed",
+    "wide_streamed" or "cluster"; ``heads`` and ``shapes`` override the
+    path's heads and WIDE_ATTN_SHAPES; ``abba`` times the builds in order
+    and then in reverse): ``source`` built as it is and once for each of
     ``variants`` (FLASH_STREAMED_PHASES cuts a phase; text found in the
     kernel's body is replaced there only), all with ``nvcc -Xptxas -v`` at
     once, then each launched through its own ``pio_flash_attention_<path>``
@@ -5259,7 +5375,8 @@ def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE,
     from predictionio_tpu_torch.kernels import build
     from predictionio_tpu_torch.ops import cuda_kernels as ck
 
-    first, after, heads = FLASH_KNOCKOUT_PATHS[path]
+    first, after, heads = FLASH_KNOCKOUT_PATHS[path] if heads is None else (
+        *FLASH_KNOCKOUT_PATHS[path][:2], heads)
     entry = f"pio_flash_attention_{path}"
     text = open(source).read()
     start = text.index(first)
@@ -5304,26 +5421,32 @@ def flash_streamed_knockouts(torch, dev, source: str = FLASH_SOURCE,
     gen = torch.Generator(device=dev).manual_seed(21)
     launch_plan = getattr(ck, f"flash_{path}_launch_plan")
     for d in heads:
-        for b, h, lq, lk, causal in WIDE_ATTN_SHAPES:
+        for b, h, lq, lk, causal in shapes or WIDE_ATTN_SHAPES:
             q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
                        for n_ in (lq, lk, lk))
             plan = launch_plan(b, h, lq, lk, d, sm, getattr(ck, f"FLASH_{path.upper()}_REGS"))
-            times, outs = {}, {}
+            launches, outs = {}, {}
             for name, lib in libs.items():
                 o = torch.empty_like(q)
                 smem = _knockout_smem(sources[name], path, d)
+                # the cluster entry also takes the cluster size and the slices
+                shape_args = ((plan.threads, plan.cluster, *plan.slices, smem)
+                              if path == "cluster" else (plan.threads, smem))
 
-                def launch(lib=lib, o=o, smem=smem, name=name):
+                def launch(lib=lib, o=o, shape_args=shape_args, name=name):
                     code = getattr(lib, entry)(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, lq,
-                        lk, d, int(causal), plan.threads, smem, plan.blocks,
+                        lk, d, int(causal), *shape_args, plan.blocks,
                         torch.cuda.current_stream(dev).cuda_stream)
                     if code:
                         raise AssertionError(f"variant {name} failed to launch: {code}")
-                times[name] = time_ms(torch, launch, 10, 2)
-                outs[name] = o
+                launches[name], outs[name] = launch, o
+            runs = {}
+            for name in [*libs, *reversed(libs)] if abba else libs:
+                runs.setdefault(name, []).append(time_ms(torch, launches[name], 10, 2))
+            times = {name: sum(t) / len(t) for name, t in runs.items()}
             emit({"phase": "flash_streamed_knockout", "path": path, "D": d, "B": b, "L": lq,
-                  "causal": causal, "ms": times,
+                  "causal": causal, "ms": times, **({"runs_ms": runs} if abba else {}),
                   "phase_ms": {k_: times["whole"] - t for k_, t in times.items()
                                if k_ != "whole"},
                   "equal_to_whole": {k_: bool(torch.equal(o_, outs["whole"]))
@@ -5447,8 +5570,10 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
     and at rank 1,024 (the tile path, the tiled solve; WIDE_TILED_ALS_ITERS
     iterations), and seqrec by :func:`seqrec_wide` at d_model 256 / 1 head (D =
     256, the resident path; 20 steps, 64 queries), at d_model 320 / 1 head
-    (D = 320, the streamed path; 10 steps, 16 queries) and at d_model 384 /
-    1 head (D = 384, the wide streamed path; 10 steps, 16 queries)."""
+    (D = 320, the streamed path; 10 steps, 16 queries), at d_model 384 / 1
+    head (D = 384, the wide streamed path; 10 steps, 16 queries) and at
+    d_model 768 / 1 head (D = 768, the cluster path; 10 steps, 16 queries,
+    then :func:`seqrec_parity`'s 3 steps against the plain attention)."""
     from predictionio_tpu_torch.models import recommendation as rec
 
     t0 = time.monotonic()
@@ -5472,6 +5597,12 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
                                    "wide-seqrec-d320")
         seq_ws = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ_WS, WIDE_SEQ_STREAMED_STEPS,
                              WIDE_SEQ_STREAMED_QUERIES, "wide-seqrec-d384")
+        seq_cluster = seqrec_wide(torch, dev, registry, rng, WIDE_SEQ_CLUSTER,
+                                  WIDE_SEQ_STREAMED_STEPS, WIDE_SEQ_STREAMED_QUERIES,
+                                  "wide-seqrec-d768")
+        t0 = time.monotonic()
+        parity = seqrec_parity(torch, dev, WIDE_SEQ_CLUSTER)
+        seconds["seqrec_d768_parity"] = time.monotonic() - t0
     seconds.update(als_run_train=als_out["seconds"],
                    als_rank384_run_train=als_cluster["seconds"],
                    als_rank1024_run_train=als_tiled["seconds"],
@@ -5479,11 +5610,14 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
                    seqrec_d320_run_train=seq_streamed["train_s"],
                    seqrec_d320_serve=seq_streamed["serve_s"],
                    seqrec_d384_run_train=seq_ws["train_s"],
-                   seqrec_d384_serve=seq_ws["serve_s"])
+                   seqrec_d384_serve=seq_ws["serve_s"],
+                   seqrec_d768_run_train=seq_cluster["train_s"],
+                   seqrec_d768_serve=seq_cluster["serve_s"])
     runs = (als_out["launches"], als_cluster["launches"], als_tiled["launches"])
     out = {"phase": "wide", "kernels": kernels, "als": als_out, "als_rank384": als_cluster,
            "als_rank1024": als_tiled,
            "seqrec": seq_out, "seqrec_d320": seq_streamed, "seqrec_d384": seq_ws,
+           "seqrec_d768": seq_cluster, "seqrec_d768_parity": parity,
            "seconds": seconds, "by_kernel": {
                "gramian_fused": sum(x["gramian_fused"] for x in runs),
                "gramian_rows": als_out["launches"]["gramian_rows"],
@@ -5493,10 +5627,65 @@ def phase_wide(torch, dev, seed: int, base: str) -> dict:
                "gramian_wide": (als_cluster["launches"]["gramian_wide"]
                                 + als_tiled["launches"]["gramian_wide"]),
                "flash_attention": sum(sum(x["launches"].values())
-                                      for x in (seq_out, seq_streamed, seq_ws)),
+                                      for x in (seq_out, seq_streamed, seq_ws, seq_cluster)),
                "flash_attention_streamed": sum(seq_streamed["path_launches"].values()),
-               "flash_attention_wide_streamed": sum(seq_ws["path_launches"].values())}}
+               "flash_attention_wide_streamed": sum(seq_ws["path_launches"].values()),
+               "flash_attention_cluster": sum(seq_cluster["path_launches"].values())}}
     emit({k: v for k, v in out.items() if k != "kernels"})
+    return out
+
+
+def seqrec_parity(torch, dev, shape: dict, steps: int = SEQ_PARITY_STEPS) -> dict:
+    """``steps`` training steps of seqrec at ``shape`` over the events
+    phase's store (the process-wide registry), through the attention kernel
+    and through the plain attention, each from the one seeded init: the
+    ``embed`` and ``pos`` weights and the logits of a fixed batch held at
+    seqrec's tolerance (rtol SEQ_TRAIN_RTOL, atol SEQ_TRAIN_ATOL). The
+    margin is the largest |kernel - plain| over its allowance (atol + rtol
+    · |plain|): below 1 it holds. Every kernel launch must be on the path
+    the head width takes."""
+    from predictionio_tpu_torch.models import sequencerec as seq
+    from predictionio_tpu_torch.ops.attention import flash_attention
+    from predictionio_tpu_torch.ops.cuda_kernels import flash_attention_fwd
+
+    head = shape["d_model"] // shape["n_heads"]
+    path = flash_path_of(head)
+    td = seq.SeqDataSource(seq.SeqDataSourceParams(app_id=EVENTS_APP,
+                                                    event_names=("rate",))).read_training(None)
+    pd = seq.SeqPreparator(seq.SeqPreparatorParams(seq_len=SEQ_LEN,
+                                                   window_stride=SEQ_STRIDE)).prepare(None, td)
+    params = seq.SeqRecAlgorithmParams(**dict(SEQ_PARAMS, **shape, steps=steps))
+    fixed = torch.from_numpy(np.ascontiguousarray(pd.windows[-params.batch_size:, :-1])).to(dev)
+    runs, launches = {}, {}
+    for name, fn in (("kernel", None), ("plain", flash_attention)):
+        by_path = flash_attention_fwd.launches_by_path
+        flash_attention_fwd.launches = by_path[path] = 0
+        t = time.monotonic()
+        trained = seq.train_transformer(pd, params, dev, attention_fn=fn)
+        with torch.no_grad():
+            logits = trained(fixed, attention_fn=fn)
+        torch.cuda.synchronize()
+        launches[name] = (flash_attention_fwd.launches, by_path[path])
+        runs[name] = (dict(seq._leaves(trained.to_numpy())), logits.cpu().numpy(),
+                      time.monotonic() - t)
+    (wk, lk, kernel_s), (wp, lp, plain_s) = runs["kernel"], runs["plain"]
+
+    def margin(got, want):
+        return float(np.max(np.abs(got - want) / (SEQ_TRAIN_ATOL + SEQ_TRAIN_RTOL * np.abs(want))))
+
+    margins = {"logits": margin(lk, lp), **{n: margin(wk[n], wp[n]) for n in ("embed", "pos")}}
+    want = params.n_layers * (steps + 1)  # a forward a step, and the fixed batch's
+    out = {"head_width": head, "path": path, "steps": steps, "windows": int(pd.windows.shape[0]),
+           "margin": max(margins.values()), "margins": margins,
+           "max_abs_diff": {"logits": float(np.abs(lk - lp).max()),
+                            **{n: float(np.abs(wk[n] - wp[n]).max()) for n in wk}},
+           "launches": {"kernel": launches["kernel"], "plain": launches["plain"]},
+           "kernel_s": kernel_s, "plain_s": plain_s}
+    out["agree"] = out["margin"] < 1.0 and launches["kernel"] == (want, want) \
+        and launches["plain"] == (0, 0)
+    emit({"phase": "wide", "stage": f"seqrec_d{head}_parity", **out})
+    if not out["agree"]:
+        raise AssertionError(f"seqrec at D = {head}: kernel and plain training disagree: {out}")
     return out
 
 
@@ -5510,7 +5699,6 @@ def seqrec_wide(torch, dev, registry, rng, shape: dict, steps: int, queries: int
     and a forward."""
     from predictionio_tpu_torch.controller import EngineParams
     from predictionio_tpu_torch.models import sequencerec as seq
-    from predictionio_tpu_torch.ops import cuda_kernels as ck
     from predictionio_tpu_torch.ops.cuda_kernels import flash_attention_fwd
     from predictionio_tpu_torch.workflow import (
         ServerConfig,
@@ -5521,9 +5709,7 @@ def seqrec_wide(torch, dev, registry, rng, shape: dict, steps: int, queries: int
     )
 
     head = shape["d_model"] // shape["n_heads"]
-    path = ("resident" if head <= ck.FLASH_WIDE_RES_MAX_D else
-            "streamed" if head <= ck.FLASH_STREAMED_MAX_D else
-            "wide_streamed" if head <= ck.FLASH_WIDE_STREAMED_MAX_D else "passes")
+    path = flash_path_of(head)
     seq_params = seq.SeqRecAlgorithmParams(**dict(SEQ_PARAMS, **shape, steps=steps))
     seq_ep = EngineParams(
         data_source_params=("", seq.SeqDataSourceParams(app_id=EVENTS_APP,
@@ -5833,7 +6019,8 @@ def wide_lines(wide: dict, name: str) -> dict:
             "device_over_library", "device_over_earlier_kernel", "kernel_runs_ms",
             "kernel_runs_device_ms", "earlier_kernel_runs_ms", "earlier_kernel_runs_device_ms",
             "library_runs_ms", "library_runs_device_ms", "own_path", "equal_to_own_kernel",
-            "forced_ms", "forced_device_ms", "own_ms", "own_device_ms")
+            "forced_ms", "forced_device_ms", "own_ms", "own_device_ms", "plan_clusters",
+            "occupancy_clusters")
     return {case.split(":", 1)[1]: {k: out[k] for k in keys if k in out}
             for case, out in wide["kernels"]["cases"].items()
             if case.startswith(name + ":") and ("kernel_ms" in out or "forced_ms" in out)}
@@ -5843,6 +6030,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_run = time.monotonic()
 
     import torch
 
@@ -5890,7 +6078,7 @@ def main(argv=None) -> int:
         consoled = timed("console", phase_console, torch, dev, args.seed, base)
     large = timed("kernel_large", topk_large_batches, torch, dev,
                   np.random.default_rng(args.seed + 7))
-    emit({"phase_seconds": seconds})
+    emit({"phase_seconds": seconds, "wall_s": time.monotonic() - t_run})
 
     from predictionio_tpu_torch.ops.cuda_kernels import topk_kernel_attributes
 
@@ -6055,6 +6243,7 @@ def main(argv=None) -> int:
             "resident": wide["kernels"]["attributes"]["flash_attention_resident"],
             "streamed": wide["kernels"]["attributes"]["flash_attention_streamed"],
             "wide_streamed": wide["kernels"]["attributes"]["flash_attention_wide_streamed"],
+            "cluster": wide["kernels"]["attributes"]["flash_attention_cluster"],
             "passes": wide["kernels"]["attributes"]["flash_attention"]},
     })
     # the build's rows path (128 < R <= GRAMIAN_ROWS_MAX_RANK) on its own line:
@@ -6145,6 +6334,42 @@ def main(argv=None) -> int:
             "forced_ms", "forced_device_ms", "own_ms", "own_device_ms")}
             for case, out in ws.items()},
         "attributes": wide["kernels"]["attributes"]["flash_attention_wide_streamed"],
+    })
+    # the cluster path (FLASH_WIDE_STREAMED_MAX_D < D <= FLASH_CLUSTER_MAX_D)
+    # on its own line: launched by seqrec at D = 768 in the wide phase, timed
+    # A B B A with the passes kernel and SDPA at D = 576 on the training shape
+    ref = cases[f"flash_attention:D{WIDE_CLUSTER_HEADS[0]}_64x4x64_causal_True"]
+    cl = {name.split(":", 1)[1]: out for name, out in cases.items()
+          if name.startswith("flash_attention:") and out["plan"]["path"] == "cluster"}
+    lines.append({
+        "name": "flash_attention_cluster",
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": wide["by_kernel"]["flash_attention_cluster"],
+        "launches_by_path": wide["seqrec_d768"]["path_launches"],
+        "max_abs_err": max(out["max_abs_err"] for out in cl.values()),
+        "ms": ref["kernel_ms"],
+        "plain_ms": ref["plain_ms"],
+        "bound_ms": ref["bound_us"] / 1e3,
+        "bound_by": ref["bound_by"],
+        "library_ms": ref["library_ms"],
+        "device_ms": ref["kernel_device_ms"],
+        "library_device_ms": ref["library_device_ms"],
+        "passes_ms": ref["earlier_kernel_ms"],
+        "passes_device_ms": ref["earlier_kernel_device_ms"],
+        "shape": {k: ref[k] for k in ("B", "H", "Lq", "Lk", "D", "causal")},
+        "plan": ref["plan"],
+        "timed": {case: {k: out.get(k) for k in (
+            "kernel_runs_ms", "kernel_runs_device_ms", "earlier_kernel_runs_ms",
+            "earlier_kernel_runs_device_ms", "library_runs_ms", "library_runs_device_ms",
+            "plain_ms", "bound_us", "bound_by", "max_abs_err", "equal_to_own_kernel",
+            "forced_ms", "forced_device_ms", "own_ms", "own_device_ms", "plan_clusters",
+            "occupancy_clusters", "plan_waves", "occupancy_waves")}
+            for case, out in cl.items()},
+        "seqrec_d768_parity": {k: wide["seqrec_d768_parity"][k] for k in (
+            "steps", "margin", "margins", "max_abs_diff", "launches")},
+        "attributes": wide["kernels"]["attributes"]["flash_attention_cluster"],
     })
     # the solve's cluster path (304 < n <= 768) on its own line: launched by
     # ALS at rank 384 in the wide phase, timed at n = 384 (B = 1,024) beside

@@ -35,8 +35,9 @@
 // for the scale, and slices o back; above 128, unpadded, it takes the resident
 // path below up to kRMaxD = 272 (pio_flash_attention_resident), the streamed
 // path up to kSMaxD = 320 (pio_flash_attention_streamed), the wide streamed
-// path up to kWSMaxD = 512 (pio_flash_attention_wide_streamed) and the passes
-// path above it (pio_flash_attention_wide), picked by D alone. It raises on
+// path up to kWSMaxD = 512 (pio_flash_attention_wide_streamed), the cluster
+// path up to kCMaxD = 1024 (pio_flash_attention_cluster) and the passes path
+// above it (pio_flash_attention_wide), picked by D alone. It raises on
 // anything else.
 //
 // Resident path (kMaxD < D <= kRMaxD). A block takes kRRows = 64 query rows of
@@ -142,7 +143,53 @@
 // D = 320: 4.41 against 3.19-3.24 ms at L = 2,048 causal). Bound at (8, 4, 2048, 384): 103 GFLOP causal, 1.54 ms at 67
 // TFLOP/s, set by operations; bytes set it at the training batch.
 //
-// Passes path (D > kWSMaxD), the first wide-head design. Of the two designs
+// Cluster path (kWSMaxD < D <= kCMaxD). What is hard: past D = 512 the wide
+// streamed block runs out of both registers (a ninth float4 group of O a
+// thread spills under the 128 registers of 512 threads) and shared memory
+// (its Q tile of 64 rows x D), and the passes path, which took those heads
+// before, computes each key tile's scores again for every 128 of O's
+// columns (five times at D = 576, eight at 1,024). Design: a query tile is
+// split across a thread-block cluster of kCBlocks = 2 blocks, launched with
+// cudaLaunchKernelEx and the cluster-dimension attribute; block rank r owns
+// a contiguous slice of the columns (rank 0 the first cl_slice0(D) = D
+// rounded up to 8, halved and rounded up to 8; rank 1 the rest), of Q, K, V
+// and O, and is the wide streamed block on its slice (both blocks lay out
+// their shared memory as rank 0's, so that a buffer lies at one offset in
+// both):
+//   - 512 threads, 64 query rows, 64-key tiles, the Q slice scaled once and
+//     kept in shared memory, K's column chunks of 64 then V's of 128 through
+//     the same two-buffer cp.async ring, S in 2 rows x 4 keys a thread, O in
+//     2 rows x G = kCGroups = 8 float4 groups a thread (a slice of at most
+//     512 columns, which sets kCMaxD = 1024);
+//   - each block computes the partial score of its slice, one FMA chain over
+//     its columns in ascending order; each thread stores its 8 partials
+//     through distributed shared memory (mapa + st.shared::cluster) into the
+//     partner block's probability buffer, at the places the partner's thread
+//     of the same index reads them, and after a cluster barrier (arrive with
+//     release, wait with acquire) adds the partner's to its own: s = s_0 +
+//     s_1, one rounded add, which is commutative, so both blocks hold the
+//     same S, m, l and P bit for bit;
+//   - then the masks, the row max and sum and P exactly as the wide streamed
+//     path, and PV on the block's own columns. P overwrites the partials in
+//     place (each thread its own 8), so the exchange needs no shared memory
+//     of its own: 217,600 bytes at a slice of 512, one block an SM;
+//   - the buffer is reused next tile only after a second barrier phase: a
+//     thread arrives once its block's PV has read P, and waits just before
+//     its next exchange store, so the QK^T of the next tile hides that
+//     phase. An arrive before the first tile, waited on before the first
+//     store, makes sure the partner has started, and a wait after the last
+//     tile keeps either block from leaving while the other may still store
+//     into its memory.
+// The finite -1e30 mask on every tile, key tiles ascending from tile 0 and
+// causal tiles above the diagonal skipped (both blocks of a cluster walk the
+// same tiles), a masked key's V row zero, o / max(l, 1e-30), q scaled by
+// 1/sqrt(D) of the true width, heaviest query tiles first, 16-byte copies
+// when D is a multiple of 4 and the tensors are aligned, fp32 FMAs on the
+// CUDA cores, no atomics: two calls give the same bits. Bound at (8, 4,
+// 2048, 1024): 275 GFLOP causal, 4.10 ms at 67 TFLOP/s, set by operations;
+// bytes set it at the training batch.
+//
+// Passes path (D > kCMaxD), the first wide-head design. Of the two designs
 // at hand (O's columns in passes with the scores recomputed each pass, or one
 // warp a query row with O spread over its lanes) it takes the passes: a
 // thread's O columns stay a fixed 16 registers whatever D is, so one
@@ -164,8 +211,8 @@
 // tiles first; no atomics, and every register array is indexed by constants.
 // Its cost over the tuned path: QK^T once per pass (twice at D = 256), one
 // shared load per FMA in QK^T, and 32-key tiles; the resident path took its
-// place wherever its tiles fit, the streamed path up to kSMaxD and the wide
-// streamed path up to kWSMaxD.
+// place wherever its tiles fit, the streamed path up to kSMaxD, the wide
+// streamed path up to kWSMaxD and the cluster path up to kCMaxD.
 //
 // Design. A block takes BQ = 64 or 128 query rows of one (batch * head) and
 // walks the keys in tiles of kTile = 64, with 2 * BQ threads. Thread (ry, kx)
@@ -224,7 +271,7 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;        // dynamic shared memory a block may opt into
 constexpr int kSmSmem = 233472;         // shared memory of an SM, bytes
 constexpr int kBlockSmemReserve = 1024;  // what the card keeps of it a block
-// the passes path (D > kWSMaxD)
+// the passes path (D > kCMaxD)
 constexpr int kWRows = 32;     // query rows a block
 constexpr int kWKeys = 32;     // keys a tile
 constexpr int kWThreads = 256;  // kWRows x kKeyThreads
@@ -259,6 +306,11 @@ constexpr int kWSVStride = kWSVChunk + 4;  // floats of a V chunk row
 constexpr int kWSStages = 2;     // chunk buffers: chunks are copied kWSStages - 1 ahead
 constexpr int kWSGroups = 8;     // O's float4 column groups a thread
 constexpr int kWSMaxD = 512;     // the widest head of kWSGroups
+// the cluster path (kWSMaxD < D <= kCMaxD): a cluster of kCBlocks wide
+// streamed blocks a query tile, each block a slice of D's columns
+constexpr int kCBlocks = 2;      // blocks a cluster, one slice of D each
+constexpr int kCGroups = 8;      // O's float4 column groups a thread
+constexpr int kCMaxD = 1024;     // kCBlocks slices of kCGroups * 64 columns
 
 // Floats of shared memory of a block of BQ rows at head width d: the Q tile
 // [bq][d + kPad], two K tiles [kTile][d + kPad] and two V tiles [kTile][d]
@@ -660,45 +712,62 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) 
                : "memory");
 }
 
-// Starts the copy of `rows` rows of a [*, D] device array (row r at src + r *
-// D) into shared rows of `stride` floats, res_width(D) columns each: zeros at
-// or past `valid` rows and past D columns. 16-byte copies when `vec` (D a
-// multiple of 4 and the array 16-byte aligned), else 4-byte ones. The block's
-// kThreads threads share the copies.
-template <int kThreads = kRThreads>
-__device__ __forceinline__ void res_copy(const float* __restrict__ src, float* dst,
-                                         int rows, int stride, int valid, int D,
-                                         bool vec, int tid) {
-  const int w = res_width(D);
+// Starts the copy of `rows` rows of a device array of row stride D (row r at
+// src + r * D) into shared rows of `stride` floats, `width` columns each (a
+// multiple of 8): zeros at or past `valid` rows and at or past column `lim`.
+// 16-byte copies when `vec` (D a multiple of 4 and the array 16-byte
+// aligned), else 4-byte ones. The block's kThreads threads share the copies.
+template <int kThreads>
+__device__ __forceinline__ void slice_copy(const float* __restrict__ src, float* dst,
+                                           int rows, int stride, int valid, int D, int width,
+                                           int lim, bool vec, int tid) {
   if (vec) {
-    for (int e = tid; e < rows * (w / 4); e += kThreads) {
-      const int r = e / (w / 4), c = (e % (w / 4)) * 4;
-      const bool in = r < valid && c < D;
+    for (int e = tid; e < rows * (width / 4); e += kThreads) {
+      const int r = e / (width / 4), c = (e % (width / 4)) * 4;
+      const bool in = r < valid && c < lim;
       copy16(dst + r * stride + c, in ? src + static_cast<size_t>(r) * D + c : src, in);
     }
   } else {
-    for (int e = tid; e < rows * w; e += kThreads) {
-      const int r = e / w, c = e % w;
-      const bool in = r < valid && c < D;
+    for (int e = tid; e < rows * width; e += kThreads) {
+      const int r = e / width, c = e % width;
+      const bool in = r < valid && c < lim;
       copy4(dst + r * stride + c, in ? src + static_cast<size_t>(r) * D + c : src, in);
     }
   }
 }
 
-// Scales the Q tile's elements this thread copied (res_copy's split of the
-// work among kThreads threads) by `qscale`, after its copies have landed.
+// slice_copy of whole rows of a [*, D] device array: res_width(D) columns,
+// zeros past D.
 template <int kThreads = kRThreads>
-__device__ __forceinline__ void res_scale(float* s_q, int stride, int D, bool vec,
-                                          float qscale, int tid) {
-  const int w = res_width(D);
+__device__ __forceinline__ void res_copy(const float* __restrict__ src, float* dst,
+                                         int rows, int stride, int valid, int D,
+                                         bool vec, int tid) {
+  slice_copy<kThreads>(src, dst, rows, stride, valid, D, res_width(D), D, vec, tid);
+}
+
+// Scales the `width` columns of the kRRows rows of a Q tile that this thread
+// copied (slice_copy's split of the work among kThreads threads) by
+// `qscale`, after its copies have landed.
+template <int kThreads>
+__device__ __forceinline__ void slice_scale(float* s_q, int stride, int width, bool vec,
+                                            float qscale, int tid) {
   if (vec) {
-    for (int e = tid; e < kRRows * (w / 4); e += kThreads) {
-      float4* x = reinterpret_cast<float4*>(s_q + (e / (w / 4)) * stride + (e % (w / 4)) * 4);
+    for (int e = tid; e < kRRows * (width / 4); e += kThreads) {
+      float4* x = reinterpret_cast<float4*>(s_q + (e / (width / 4)) * stride + (e % (width / 4)) * 4);
       x->x *= qscale; x->y *= qscale; x->z *= qscale; x->w *= qscale;
     }
   } else {
-    for (int e = tid; e < kRRows * w; e += kThreads) s_q[(e / w) * stride + e % w] *= qscale;
+    for (int e = tid; e < kRRows * width; e += kThreads) {
+      s_q[(e / width) * stride + e % width] *= qscale;
+    }
   }
+}
+
+// slice_scale of a Q tile of whole rows (res_copy's).
+template <int kThreads = kRThreads>
+__device__ __forceinline__ void res_scale(float* s_q, int stride, int D, bool vec,
+                                          float qscale, int tid) {
+  slice_scale<kThreads>(s_q, stride, res_width(D), vec, qscale, tid);
 }
 
 // The resident path: one block per (query tile of kRRows, batch * head),
@@ -944,19 +1013,20 @@ __device__ __forceinline__ void copies_wait_until() {
 }
 
 // Starts the copy of one column chunk of a key tile: columns c0 .. c0 +
-// kChunk - 1 of the kSKeys rows of a [*, D] device array (row r at src + r *
-// D) into shared rows of kStride floats, zeros at or past `valid` rows and
-// at or past column D, shared by the block's kThreads threads. 16-byte copies
-// when `vec`, else 4-byte ones.
-template <int kChunk = kSChunk, int kStride = kSCStride, int kThreads = kSThreads>
-__device__ __forceinline__ void chunk_copy(const float* __restrict__ src, float* dst,
-                                           int valid, int c0, int D, bool vec, int tid) {
+// kChunk - 1 of the kSKeys rows of a device array of row stride D (row r at
+// src + r * D) into shared rows of kStride floats, zeros at or past `valid`
+// rows and at or past column `lim`, shared by the block's kThreads threads.
+// 16-byte copies when `vec`, else 4-byte ones.
+template <int kChunk, int kStride, int kThreads>
+__device__ __forceinline__ void slice_chunk_copy(const float* __restrict__ src, float* dst,
+                                                 int valid, int c0, int D, int lim, bool vec,
+                                                 int tid) {
   if (vec) {
 #pragma unroll
     for (int x = 0; x < kSKeys * kChunk / 4 / kThreads; ++x) {
       const int e = tid + x * kThreads;
       const int r = e / (kChunk / 4), c = (e % (kChunk / 4)) * 4;
-      const bool in = r < valid && c0 + c < D;
+      const bool in = r < valid && c0 + c < lim;
       copy16(dst + r * kStride + c, in ? src + static_cast<size_t>(r) * D + c0 + c : src,
              in);
     }
@@ -965,10 +1035,17 @@ __device__ __forceinline__ void chunk_copy(const float* __restrict__ src, float*
     for (int x = 0; x < kSKeys * kChunk / kThreads; ++x) {
       const int e = tid + x * kThreads;
       const int r = e / kChunk, c = e % kChunk;
-      const bool in = r < valid && c0 + c < D;
+      const bool in = r < valid && c0 + c < lim;
       copy4(dst + r * kStride + c, in ? src + static_cast<size_t>(r) * D + c0 + c : src, in);
     }
   }
+}
+
+// slice_chunk_copy of a [*, D] device array's rows, zeros past D.
+template <int kChunk = kSChunk, int kStride = kSCStride, int kThreads = kSThreads>
+__device__ __forceinline__ void chunk_copy(const float* __restrict__ src, float* dst,
+                                           int valid, int c0, int D, bool vec, int tid) {
+  slice_chunk_copy<kChunk, kStride, kThreads>(src, dst, valid, c0, D, D, vec, tid);
 }
 
 // The streamed path: one block per (query tile of kSRows, batch * head),
@@ -1453,6 +1530,319 @@ static_assert(ws_smem_floats(kWSMaxD) * 4 <= kMaxSmem && kWSGroups * 64 == kWSMa
               "kWSMaxD is the widest head of the wide streamed path's register plan, and "
               "its tiles fit a block");
 
+// The cluster path's slices: rank 0 takes the first cl_slice0(d) columns (D
+// rounded up to 8, halved, rounded up to 8), rank 1 the rest, each a
+// multiple of 8 so that a slice row of width + kPad floats is an odd number
+// of 16-byte groups and a slice starts 16-byte aligned.
+__host__ __device__ constexpr int cl_slice0(int d) { return (res_width(d) / 2 + 7) / 8 * 8; }
+__host__ __device__ constexpr int cl_slice_width(int d, int rank) {
+  return rank == 0 ? cl_slice0(d) : res_width(d) - cl_slice0(d);
+}
+// Floats of shared memory of a cluster-path block: a wide-streamed-path
+// block's at the wider slice (rank 0's; both blocks take as much). The
+// probabilities double as the exchange buffer, so there is nothing else.
+__host__ __device__ constexpr int cl_smem_floats(int d) { return ws_smem_floats(cl_slice0(d)); }
+
+// The cluster barrier split in two (sm_90): an arrive that releases this
+// thread's earlier writes, shared::cluster ones included, and a wait that
+// acquires every write released by the arrives of the phase it waits for.
+// Every thread of both blocks takes them in turn, arrive then wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// This block's rank in its cluster, read where it is used (so that it
+// holds no register across the tile loop).
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank`: the same offset in that block's shared memory.
+__device__ __forceinline__ unsigned cluster_map(const float* p, unsigned rank) {
+  unsigned addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))), "r"(rank));
+  return addr;
+}
+
+// The cluster path: a cluster of kCBlocks blocks per (query tile of kWSRows,
+// batch * head), heaviest query tiles first (cluster c takes query tile
+// q_tiles - 1 - c / BH of head c % BH); block rank r is the wide streamed
+// block on its slice of D (cl_slice_width(D, r) columns from r *
+// cl_slice0(D)). Per key tile each block sums its slice's partial scores,
+// the two blocks exchange them through distributed shared memory, and each
+// takes the softmax of the sum and P V on its own columns. G sizes O's
+// registers.
+template <int G>
+__global__ void __launch_bounds__(kWSThreads, 1)
+    flash_attention_cluster_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   float* __restrict__ o, int BH, int Lq, int Lk,
+                                   int D, int q_tiles, int causal, int vec,
+                                   float qscale) {
+  constexpr int kGroupsPerV = kWSVChunk / 64;  // O's column groups a V chunk feeds
+  const int rank = static_cast<int>(cluster_rank());
+  const int c_base = rank * cl_slice0(D);        // the slice's first column
+  const int sw = cl_slice_width(D, rank);        // its columns (zeros past D)
+  const int lim = min(D - c_base, sw);           // its columns that hold data
+  // rank 0's Q row stride in both blocks, so that s_p lies at one offset in
+  // both and a store mapped to the partner lands in its s_p
+  const int ds = cl_slice0(D) + kPad;
+  const int nk = (sw + kWSKChunk - 1) / kWSKChunk;  // K's column chunks a tile
+  const int nv = (sw + kWSVChunk - 1) / kWSVChunk;  // V's column chunks a tile
+  const int ng = (sw + 63) / 64;                    // O's column groups that hold a column
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                                 // [kWSRows][ds], pre-scaled
+  float* s_c = s_q + kWSRows * ds;                   // kWSStages chunk buffers
+  float* s_p = s_c + kWSStages * ws_buffer_floats();  // [kWSRows][kRPStride]: the
+                                                     // partner's partial scores, then P
+  float* s_corr = s_p + kWSRows * kRPStride;         // [kWSRows]: this tile's rescale
+  float* s_l = s_corr + kWSRows;                     // [kWSRows]: l after the last tile
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // S: rows s_row0 + i (i < 2) and keys kx + 16 t, a row in one half-warp
+  const int kx = lane & 15;
+  const int s_row0 = 2 * (tid >> 4);
+  // O: rows pr + 32 i and float4 column groups cx + 16 g of the slice
+  const int pr = (warp >> 2) * 8 + (lane >> 2);
+  const int cx = (warp & 3) * 4 + (lane & 3);
+  const int cl = static_cast<int>(blockIdx.x / kCBlocks);
+  const int bh = static_cast<int>(cl % BH);
+  const int q_tile = q_tiles - 1 - cl / BH;
+  const int q0 = q_tile * kWSRows;
+  const float* q_bh = q + static_cast<size_t>(bh) * Lq * D + c_base;
+  const float* k_bh = k + static_cast<size_t>(bh) * Lk * D + c_base;
+  const float* v_bh = v + static_cast<size_t>(bh) * Lk * D + c_base;
+
+  float m[2], l[2];
+  float4 acc[2][G];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = kNegBig;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int n_kv = (Lk + kWSKeys - 1) / kWSKeys;
+  const int hi = causal ? min((q0 + kWSRows + kWSKeys - 1) / kWSKeys, n_kv) : n_kv;
+  const int steps = nk + nv;  // a key tile's chunks: K's nk, then V's nv
+  const int total = hi * steps;
+
+  // Starts the copy of chunk n of the block's sequence into its buffer (none
+  // past the last) and commits it as one group.
+  const auto issue = [&](int n) {
+    if (n < total) {
+      const int j = n / steps, r = n - j * steps;
+      const size_t k0 = static_cast<size_t>(j) * kWSKeys;
+      float* buf = s_c + (n % kWSStages) * ws_buffer_floats();
+      if (r < nk) {
+        slice_chunk_copy<kWSKChunk, kWSKStride, kWSThreads>(
+            k_bh + k0 * D, buf, Lk - j * kWSKeys, r * kWSKChunk, D, lim, vec != 0, tid);
+      } else {
+        slice_chunk_copy<kWSVChunk, kWSVStride, kWSThreads>(
+            v_bh + k0 * D, buf, Lk - j * kWSKeys, (r - nk) * kWSVChunk, D, lim, vec != 0, tid);
+      }
+    }
+    copies_commit();
+  };
+  // Returns chunk n's buffer once every thread can read it (at n = 0 the Q
+  // slice too, scaled), and starts the copy of chunk n + kWSStages - 1 into
+  // the buffer that chunk n - 1 used.
+  const auto next_chunk = [&](int n) -> const float* {
+    copies_wait_until<kWSStages - 2>();  // this thread's copies of chunk n (and Q) landed
+    if (n == 0) slice_scale<kWSThreads>(s_q, ds, sw, vec, qscale, tid);
+    // chunk n is visible to every thread, and every thread is done with
+    // chunk n - 1
+    __syncthreads();
+    issue(n + kWSStages - 1);
+    return s_c + (n % kWSStages) * ws_buffer_floats();
+  };
+
+  // the Q slice and the first kWSStages - 1 chunks in flight, Q with chunk 0
+  slice_copy<kWSThreads>(q_bh + static_cast<size_t>(q0) * D, s_q, kWSRows, ds, Lq - q0, D, sw,
+                         lim, vec, tid);
+#pragma unroll
+  for (int n = 0; n < kWSStages - 1; ++n) issue(n);
+  cluster_arrive();  // this block has started (waited for before the first exchange)
+  for (int j = 0; j < hi; ++j) {
+    const int k0 = j * kWSKeys, n0 = j * steps;
+    // the slice's partial S = Q K^T, 2 rows x 4 keys a thread, each one FMA
+    // chain over the slice's columns ascending, continued from chunk to chunk
+    float s[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) s[i][t] = 0.f;
+    for (int c = 0; c < nk; ++c) {
+      const float* s_k = next_chunk(n0 + c);
+      const float* q_c = s_q + c * kWSKChunk;
+      const int cw = min(kWSKChunk, sw - c * kWSKChunk);
+#pragma unroll 2
+      for (int x = 0; x < cw; x += 4) {
+        float4 qv[2], kv[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(q_c + (s_row0 + i) * ds + x);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          kv[t] = *reinterpret_cast<const float4*>(s_k + (kx + 16 * t) * kWSKStride + x);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            s[i][t] = fmaf(qv[i].x, kv[t].x, s[i][t]);
+            s[i][t] = fmaf(qv[i].y, kv[t].y, s[i][t]);
+            s[i][t] = fmaf(qv[i].z, kv[t].z, s[i][t]);
+            s[i][t] = fmaf(qv[i].w, kv[t].w, s[i][t]);
+          }
+      }
+    }
+    // the exchange: the partner has read its s_p of the last tile (and has
+    // started), this thread's partials go into it, and after the phase that
+    // publishes them the partner's are added: s = s_0 + s_1 (one add, the
+    // same bits in both blocks)
+    cluster_wait();
+    // the places the partner's thread tid reads
+    const unsigned x_remote = cluster_map(s_p + s_row0 * kRPStride + kx, cluster_rank() ^ 1u);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(
+                         x_remote + 4u * static_cast<unsigned>(i * kRPStride + 16 * t)),
+                     "f"(s[i][t])
+                     : "memory");
+      }
+    cluster_arrive();
+    cluster_wait();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        s[i][t] = __fadd_rn(s[i][t], s_p[(s_row0 + i) * kRPStride + kx + 16 * t]);
+    // the masks, the row's max and sum over its 16 threads (a thread's keys
+    // in t order, then four xor shuffles), p to shared memory over the
+    // partials it was made from: as the wide streamed path
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q_pos = q0 + s_row0 + i;
+      float mx = kNegBig;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int k_pos = k0 + kx + 16 * t;
+        const bool keep = k_pos < Lk && (!causal || q_pos >= k_pos);
+        s[i][t] = keep ? s[i][t] : kNegBig;
+        mx = fmaxf(mx, s[i][t]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float* p_row = s_p + (s_row0 + i) * kRPStride + kx;
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float p = expf(s[i][t] - m_new);
+        p_row[16 * t] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+      l[i] = fmaf(l[i], corr, sum);
+      m[i] = m_new;
+      if (kx == 0) s_corr[s_row0 + i] = corr;
+    }
+
+    // O = corr * O + P V on the slice's columns, as the wide streamed path.
+    // The first V chunk's barrier also makes P and the rescale factors
+    // visible to every warp.
+#pragma unroll
+    for (int g0 = 0; g0 < G; g0 += kGroupsPerV) {
+      if (g0 >= ng) break;
+      const float* s_v = next_chunk(n0 + nk + g0 / kGroupsPerV) + 4 * cx;
+      if (g0 == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float corr = s_corr[pr + 32 * i];
+#pragma unroll
+          for (int h = 0; h < G; ++h) {
+            acc[i][h].x *= corr; acc[i][h].y *= corr; acc[i][h].z *= corr; acc[i][h].w *= corr;
+          }
+        }
+      }
+#pragma unroll 2
+      for (int kk = 0; kk < kWSKeys; kk += 4) {
+        float pv[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) load_vec<4>(s_p + (pr + 32 * i) * kRPStride + kk, pv[i]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int gg = 0; gg < kGroupsPerV; ++gg) {
+            const int g = g0 + gg;
+            const float4 vv =
+                *reinterpret_cast<const float4*>(s_v + (kk + u) * kWSVStride + 64 * gg);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              acc[i][g].x = fmaf(pv[i][u], vv.x, acc[i][g].x);
+              acc[i][g].y = fmaf(pv[i][u], vv.y, acc[i][g].y);
+              acc[i][g].z = fmaf(pv[i][u], vv.z, acc[i][g].z);
+              acc[i][g].w = fmaf(pv[i][u], vv.w, acc[i][g].w);
+            }
+          }
+        }
+      }
+    }
+    cluster_arrive();  // this thread is done with s_p for this tile
+  }
+
+  if (kx == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) s_l[s_row0 + i] = l[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q_pos = q0 + pr + 32 * i;
+    if (q_pos >= Lq) continue;
+    const float denom = fmaxf(s_l[pr + 32 * i], 1e-30f);
+    float* o_row = o + (static_cast<size_t>(bh) * Lq + q_pos) * D +
+                   static_cast<int>(cluster_rank()) * cl_slice0(D);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int c = 4 * (cx + 16 * g);
+      if (c >= lim) continue;
+      const float out[4] = {acc[i][g].x / denom, acc[i][g].y / denom, acc[i][g].z / denom,
+                            acc[i][g].w / denom};
+      if (vec) {
+        store_vec<4>(o_row + c, out);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (c + x < lim) o_row[c + x] = out[x];
+      }
+    }
+  }
+  cluster_wait();  // neither block leaves while the other may still store into it
+}
+
+static_assert(kCBlocks == 2 && kCGroups == kWSGroups,
+              "the cluster path is two wide streamed blocks, each on its slice of D");
+static_assert(cl_smem_floats(kCMaxD) * 4 <= kMaxSmem && cl_slice0(kCMaxD) == kCGroups * 64 &&
+                  cl_slice0(kCMaxD + 1) > kCGroups * 64 && kCMaxD > kWSMaxD,
+              "kCMaxD is the widest head whose slices fit the cluster path's register plan, "
+              "and its tiles fit a block");
+
 template <int D, int BQ>
 int launch(const float* q, const float* k, const float* v, float* o, int BH,
            int Lq, int Lk, int causal, int blocks, int smem, float qscale,
@@ -1470,6 +1860,29 @@ int launch(const float* q, const float* k, const float* v, float* o, int BH,
 
 using LaunchFn = int (*)(const float*, const float*, const float*, float*, int,
                          int, int, int, int, int, float, cudaStream_t);
+
+// The cluster path's launch: blocks of kWSThreads in clusters of kCBlocks
+// along x (cudaLaunchKernelEx with the cluster-dimension attribute), or the
+// configuration the occupancy query asks about; the kernel's shared memory
+// opt-in first.
+cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int blocks,
+                           int smem, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(flash_attention_cluster_kernel<kCGroups>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCBlocks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(kWSThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
 
 #define PIO_FLASH_ROW(d) {launch<d, 64>, launch<d, 128>}
 // [D / 8 - 1][BQ == 128]
@@ -1534,7 +1947,7 @@ extern "C" int pio_flash_attention(const void* q, const void* k, const void* v,
 }
 
 // Launches the passes path on `stream` (it takes any D > kMaxD; the wrapper
-// picks it above kWSMaxD, and on request to compare it with the other paths)
+// picks it above kCMaxD, and on request to compare it with the other paths)
 // and returns cudaGetLastError() (0 = ok). Device pointers: q [BH, Lq, D], k and v
 // [BH, Lk, D], o [BH, Lq, D], f32 and contiguous, unpadded; q is scaled by
 // 1/sqrt(D). The plan (ops/cuda_kernels.py::flash_wide_launch_plan): threads
@@ -1722,6 +2135,74 @@ extern "C" int pio_flash_attention_wide_streamed_attrs(int* out) {
   cudaFuncAttributes at;
   const cudaError_t err = cudaFuncGetAttributes(
       &at, reinterpret_cast<const void*>(flash_attention_wide_streamed_kernel<kWSGroups>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = static_cast<int>(at.sharedSizeBytes);
+  return 0;
+}
+
+// Launches the cluster path (kMaxD < D <= kCMaxD; the wrapper picks it above
+// kWSMaxD, and on request to compare it with the wide streamed path) on
+// `stream` and returns the launch's error (0 = ok). Device pointers: q [BH,
+// Lq, D], k and v [BH, Lk, D], o [BH, Lq, D], f32 and contiguous, unpadded
+// (16-byte copies when D is a multiple of 4 and all four are 16-byte
+// aligned, else 4-byte ones); q is scaled by 1/sqrt(D). The plan
+// (ops/cuda_kernels.py::flash_cluster_launch_plan): threads a block
+// (kWSThreads), blocks a cluster (kCBlocks), the two slices' widths
+// (cl_slice_width), dynamic shared memory in bytes (cl_smem_floats(D)
+// floats) and blocks (ceil(Lq / kWSRows) * BH * kCBlocks). A plan that does
+// not match this arithmetic is refused (cudaErrorInvalidValue), as are BH,
+// Lq, Lk < 1, D outside (kMaxD, kCMaxD] and more than 2^31 - 1 blocks.
+extern "C" int pio_flash_attention_cluster(const void* q, const void* k, const void* v,
+                                           void* o, int BH, int Lq, int Lk, int D, int causal,
+                                           int threads, int cluster, int slice0, int slice1,
+                                           int smem, int blocks, void* stream) {
+  if (BH < 1 || Lq < 1 || Lk < 1 || D <= kMaxD || D > kCMaxD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long q_tiles = (Lq + kWSRows - 1) / kWSRows;
+  const long long want_blocks = q_tiles * BH * kCBlocks;
+  if (want_blocks > kMaxBlocks || blocks != want_blocks || threads != kWSThreads ||
+      cluster != kCBlocks || slice0 != cl_slice_width(D, 0) || slice1 != cl_slice_width(D, 1) ||
+      smem != cl_smem_floats(D) * static_cast<int>(sizeof(float)) || smem > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(&cfg, &attr, blocks, smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  const int vec = D % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(o);
+  const double width = D;  // unpadded: the true head width
+  err = cudaLaunchKernelEx(&cfg, flash_attention_cluster_kernel<kCGroups>,
+                           static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<float*>(o), BH, Lq, Lk, D,
+                           static_cast<int>(q_tiles), causal != 0 ? 1 : 0, vec,
+                           static_cast<float>(1.0 / std::sqrt(width)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of the cluster path with `smem` bytes of dynamic shared memory a
+// block that the card holds at once (cudaOccupancyMaxActiveClusters), into
+// *out. Returns the first error.
+extern "C" int pio_flash_attention_cluster_occupancy(int smem, int* out) {
+  if (smem < 0 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err = cluster_config(&cfg, &attr, kCBlocks, smem, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, flash_attention_cluster_kernel<kCGroups>, &cfg));
+}
+
+// Registers a thread, local (spilled) bytes and static shared memory of the
+// cluster kernel, three ints. Returns the error of cudaFuncGetAttributes.
+extern "C" int pio_flash_attention_cluster_attrs(int* out) {
+  cudaFuncAttributes at;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &at, reinterpret_cast<const void*>(flash_attention_cluster_kernel<kCGroups>));
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = at.numRegs;
   out[1] = static_cast<int>(at.localSizeBytes);

@@ -339,6 +339,10 @@ _EXTRA_ENTRIES = {
         + [ctypes.c_void_p],
         "pio_flash_attention_wide_streamed": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
         + [ctypes.c_void_p],
+        "pio_flash_attention_cluster": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+        + [ctypes.c_void_p],
+        "pio_flash_attention_cluster_occupancy": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+        "pio_flash_attention_cluster_attrs": _ATTRS_ARGTYPES,
         "pio_flash_attention_attrs": _ATTRS_ARGTYPES,
         "pio_flash_attention_wide_attrs": _ATTRS_ARGTYPES,
         "pio_flash_attention_resident_attrs": _ATTRS_ARGTYPES,
@@ -1797,7 +1801,8 @@ FLASH_BQS = (64, 128)
 #: and zero-pads q, k and v up to the next multiple. Wider heads take the
 #: resident path up to FLASH_WIDE_RES_MAX_D, the streamed path up to
 #: FLASH_STREAMED_MAX_D, the wide streamed path up to
-#: FLASH_WIDE_STREAMED_MAX_D and the passes path above it, unpadded.
+#: FLASH_WIDE_STREAMED_MAX_D, the cluster path up to FLASH_CLUSTER_MAX_D and
+#: the passes path above it, unpadded.
 FLASH_MAX_D = 128
 FLASH_D_MULTIPLE = 8
 #: query tiles of one (batch · head) (kMaxQTiles); the grid is one-dimensional
@@ -1812,7 +1817,7 @@ FLASH_ROWS, FLASH_KEY_THREADS = 4, 8
 FLASH_PAD, FLASH_P_STRIDE = 4, FLASH_TILE + 8
 #: the most dynamic shared memory a block may opt into on the card
 FLASH_MAX_SMEM = 232448
-#: the passes path (heads wider than FLASH_WIDE_STREAMED_MAX_D): query rows and
+#: the passes path (heads wider than FLASH_CLUSTER_MAX_D): query rows and
 #: keys a tile (kWRows, kWKeys), threads a block (kWThreads), O's columns a
 #: pass (kWCols), registers a thread (its launch bound of 4 blocks an SM caps
 #: it there, and the card reports that many), and its static shared memory (Q
@@ -1860,13 +1865,23 @@ FLASH_WIDE_STREAMED_K_CHUNK, FLASH_WIDE_STREAMED_V_CHUNK = 64, 128
 FLASH_WIDE_STREAMED_STAGES = 2
 FLASH_WIDE_STREAMED_GROUPS, FLASH_WIDE_STREAMED_MAX_D = 8, 512
 FLASH_WIDE_STREAMED_REGS = 128
+#: the cluster path (FLASH_WIDE_STREAMED_MAX_D < D <= FLASH_CLUSTER_MAX_D): a
+#: cluster of FLASH_CLUSTER_BLOCKS blocks (kCBlocks) a query tile, each the
+#: wide streamed path's block (its rows, keys, threads, chunks and stages) on
+#: a slice of D's columns (:func:`flash_cluster_slices`), with
+#: FLASH_CLUSTER_GROUPS float4 column groups of O a thread (kCGroups), which
+#: sets its widest head (kCMaxD), and the registers a thread takes on the
+#: card (chip_smoke.py holds the card's count to it)
+FLASH_CLUSTER_BLOCKS, FLASH_CLUSTER_GROUPS, FLASH_CLUSTER_MAX_D = 2, 8, 1024
+FLASH_CLUSTER_THREADS = FLASH_WIDE_STREAMED_THREADS
+FLASH_CLUSTER_REGS = 128
 #: every instantiation, in the order ``pio_flash_attention_attrs`` reports them
 FLASH_KERNELS = tuple((d, bq) for d in range(FLASH_D_MULTIPLE, FLASH_MAX_D + 1,
                                              FLASH_D_MULTIPLE) for bq in FLASH_BQS)
 
 
 #: the kernel paths a plan names (``FlashPlan.path``), by head width
-FLASH_PATHS = ("tuned", "resident", "streamed", "wide_streamed", "passes")
+FLASH_PATHS = ("tuned", "resident", "streamed", "wide_streamed", "cluster", "passes")
 
 
 class FlashPlan(NamedTuple):
@@ -1887,7 +1902,9 @@ class FlashPlan(NamedTuple):
     waves: int  #: ceil(blocks / (SMs · blocks_per_sm))
     passes: int = 1  #: blocks a query tile, each taking FLASH_WIDE_COLS of O (passes path)
     path: str = "tuned"  #: the kernel: "tuned" (D <= 128), "resident", "streamed",
-    #: "wide_streamed" or "passes"
+    #: "wide_streamed", "cluster" or "passes"
+    cluster: int = 1  #: blocks a cluster (the cluster path's FLASH_CLUSTER_BLOCKS)
+    slices: Tuple[int, ...] = ()  #: each block's columns of D (cluster path)
 
 
 def flash_smem_bytes(bq: int, d: int) -> int:
@@ -2113,6 +2130,49 @@ def flash_wide_streamed_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
                              (2, 4 * FLASH_WIDE_STREAMED_GROUPS))
 
 
+def flash_cluster_slices(d: int) -> Tuple[int, int]:
+    """The cluster path's slices of a head of width ``d`` (``cl_slice_width``
+    in the .cu): rank 0 the first D rounded up to 8, halved and rounded up
+    to 8 columns, rank 1 the rest (zeros past D), each a multiple of 8."""
+    w = _cdiv(d, 8) * 8
+    first = _cdiv(w // 2, 8) * 8
+    return first, w - first
+
+
+def flash_cluster_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of a cluster-path block (``cl_smem_floats`` in
+    the .cu): a wide-streamed-path block's at the wider slice; the
+    probabilities double as the exchange buffer of the partial scores."""
+    return flash_wide_streamed_smem_bytes(flash_cluster_slices(d)[0])
+
+
+@functools.lru_cache(maxsize=256)
+def flash_cluster_launch_plan(b: int, h: int, lq: int, lk: int, d: int,
+                              sm_count: int, regs: int) -> FlashPlan:
+    """The launch plan of the cluster path (``FLASH_MAX_D < d <=
+    FLASH_CLUSTER_MAX_D``; :func:`flash_plan_for` picks it above
+    :data:`FLASH_WIDE_STREAMED_MAX_D`) on a card of ``sm_count`` SMs, where
+    ``regs`` are the registers a thread of its kernel takes (read off the
+    card): a cluster of :data:`FLASH_CLUSTER_BLOCKS` blocks of
+    :data:`FLASH_CLUSTER_THREADS` per (query tile of
+    :data:`FLASH_WIDE_STREAMED_ROWS` rows, batch · head), block r taking
+    slice r of D (:func:`flash_cluster_slices`). Blocks an SM and waves as
+    :func:`flash_wide_streamed_launch_plan` counts them; the card may hold
+    fewer clusters at once (:func:`flash_cluster_occupancy`). Pure
+    arithmetic, checked again by the C entry point."""
+    if (min(b, h, lq, lk, sm_count, regs) < 1
+            or not FLASH_MAX_D < d <= FLASH_CLUSTER_MAX_D):
+        raise ValueError(
+            f"no flash cluster launch plan for b={b}, h={h}, lq={lq}, lk={lk}, d={d}, "
+            f"sm_count={sm_count}, regs={regs}"
+        )
+    plan = _whole_width_plan("cluster", b * h * FLASH_CLUSTER_BLOCKS, lq, lk,
+                             FLASH_WIDE_STREAMED_ROWS, FLASH_WIDE_STREAMED_KEYS,
+                             FLASH_CLUSTER_THREADS, flash_cluster_smem_bytes(d), regs, sm_count,
+                             (2, 4), (2, 4 * FLASH_CLUSTER_GROUPS))
+    return plan._replace(cluster=FLASH_CLUSTER_BLOCKS, slices=flash_cluster_slices(d))
+
+
 #: the serving path calls the wrapper from several batch threads at once
 _flash_launch_lock = threading.Lock()
 
@@ -2235,6 +2295,30 @@ def _flash_wide_streamed_regs(index: int) -> int:
     return flash_wide_streamed_kernel_attributes(index)["regs"]
 
 
+def flash_cluster_kernel_attributes(device=None) -> dict:
+    """Registers per thread, spilled (local) bytes and static shared
+    memory of the cluster kernel, as ``cudaFuncGetAttributes`` reports them
+    on the card."""
+    return _flash_one_kernel_attributes("cluster", device)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_cluster_regs(index: int) -> int:
+    return flash_cluster_kernel_attributes(index)["regs"]
+
+
+def flash_cluster_occupancy(plan: FlashPlan, device=None) -> int:
+    """Clusters of the cluster path at ``plan``'s shared memory that the
+    card holds at once, as ``cudaOccupancyMaxActiveClusters`` says (the
+    plan's own estimate: SMs · ``blocks_per_sm`` // ``cluster``)."""
+    lib = _configured("flash_attention", _FLASH_ARGTYPES)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on_error(lib, "flash_attention_cluster_occupancy",
+                        lib.pio_flash_attention_cluster_occupancy(plan.smem, ctypes.byref(out)))
+    return out.value
+
+
 def flash_plan_for(q: torch.Tensor, k: torch.Tensor, causal: bool,
                    bq: Optional[int] = None) -> FlashPlan:
     """The launch plan for these CUDA tensors, with the SM count and the
@@ -2244,12 +2328,16 @@ def flash_plan_for(q: torch.Tensor, k: torch.Tensor, causal: bool,
     :func:`flash_resident_launch_plan`, up to :data:`FLASH_STREAMED_MAX_D`
     :func:`flash_streamed_launch_plan`, up to
     :data:`FLASH_WIDE_STREAMED_MAX_D` :func:`flash_wide_streamed_launch_plan`,
+    up to :data:`FLASH_CLUSTER_MAX_D` :func:`flash_cluster_launch_plan`,
     above it :func:`flash_wide_launch_plan` (``bq`` applies to none of the
-    four)."""
+    five)."""
     b, h, lq, d = q.shape
     index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    if d > FLASH_WIDE_STREAMED_MAX_D:
+    if d > FLASH_CLUSTER_MAX_D:
         return flash_wide_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index))
+    if d > FLASH_WIDE_STREAMED_MAX_D:
+        return flash_cluster_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index),
+                                         _flash_cluster_regs(index))
     if d > FLASH_STREAMED_MAX_D:
         return flash_wide_streamed_launch_plan(b, h, lq, k.shape[2], d, _sm_count(index),
                                                _flash_wide_streamed_regs(index))
@@ -2289,7 +2377,9 @@ def flash_attention_fwd(
     (:func:`flash_resident_launch_plan`), up to :data:`FLASH_STREAMED_MAX_D`
     on the streamed path (:func:`flash_streamed_launch_plan`), up to
     :data:`FLASH_WIDE_STREAMED_MAX_D` on the wide streamed path
-    (:func:`flash_wide_streamed_launch_plan`), above it on the passes path
+    (:func:`flash_wide_streamed_launch_plan`), up to
+    :data:`FLASH_CLUSTER_MAX_D` on the cluster path
+    (:func:`flash_cluster_launch_plan`), above it on the passes path
     (:func:`flash_wide_launch_plan`), picked by D alone."""
     _check_flash_inputs(q, k, v)
     device = q.device
@@ -2332,14 +2422,15 @@ def _flash_attention_wide(q, k, v, causal, plan) -> torch.Tensor:
     """The paths of :func:`flash_attention_fwd` above :data:`FLASH_MAX_D`
     (CUDA tensors): one launch of the entry the plan's path names
     (``pio_flash_attention_resident``, ``pio_flash_attention_streamed``,
-    ``pio_flash_attention_wide_streamed`` or, for the passes path,
-    ``pio_flash_attention_wide``), counted on the wrapper."""
+    ``pio_flash_attention_wide_streamed``, ``pio_flash_attention_cluster``
+    or, for the passes path, ``pio_flash_attention_wide``), counted on the
+    wrapper."""
     b, h, lq, d = q.shape
     device = q.device
     out = torch.empty_like(q)
     if plan is None:
         plan = flash_plan_for(q, k, causal)
-    if plan.path not in ("resident", "streamed", "wide_streamed", "passes"):
+    if plan.path not in ("resident", "streamed", "wide_streamed", "cluster", "passes"):
         raise ValueError(f"a {plan.path} plan does not take a head of width {d}")
     if plan.blocks > 2**31 - 1:
         raise ValueError(f"flash attention shape {tuple(q.shape)} is past the grid's limits")
@@ -2348,11 +2439,14 @@ def _flash_attention_wide(q, k, v, causal, plan) -> torch.Tensor:
             d, int(bool(causal)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if plan.path != "passes":
+        if plan.path == "passes":
+            code = lib.pio_flash_attention_wide(*args, plan.threads, plan.blocks, stream)
+        elif plan.path == "cluster":
+            code = lib.pio_flash_attention_cluster(*args, plan.threads, plan.cluster,
+                                                   *plan.slices, plan.smem, plan.blocks, stream)
+        else:
             entry = getattr(lib, f"pio_flash_attention_{plan.path}")
             code = entry(*args, plan.threads, plan.smem, plan.blocks, stream)
-        else:
-            code = lib.pio_flash_attention_wide(*args, plan.threads, plan.blocks, stream)
     with _flash_launch_lock:
         flash_attention_fwd.launches += 1
         flash_attention_fwd.launches_by_path[plan.path] += 1

@@ -599,13 +599,15 @@ def test_wide_plan_refuses_the_tuned_widths(d):
 
 
 @pytest.mark.parametrize("d", [6, 64, 128, 129, 136, 256, 512,
-                               cuda_kernels.FLASH_WIDE_STREAMED_MAX_D + 8])
+                               cuda_kernels.FLASH_WIDE_STREAMED_MAX_D + 8,
+                               cuda_kernels.FLASH_CLUSTER_MAX_D,
+                               cuda_kernels.FLASH_CLUSTER_MAX_D + 8])
 def test_the_path_is_picked_by_the_head_width_alone(d, monkeypatch):
     """``flash_plan_for`` takes a wide-head plan exactly above 128 (the
     resident path up to FLASH_WIDE_RES_MAX_D, the streamed path up to
     FLASH_STREAMED_MAX_D, the wide streamed path up to
-    FLASH_WIDE_STREAMED_MAX_D, the passes path above it), whatever the
-    other dimensions are."""
+    FLASH_WIDE_STREAMED_MAX_D, the cluster path up to FLASH_CLUSTER_MAX_D,
+    the passes path above it), whatever the other dimensions are."""
     monkeypatch.setattr(cuda_kernels, "_sm_count", lambda index: 132)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(cuda_kernels, "_flash_regs",
@@ -614,14 +616,19 @@ def test_the_path_is_picked_by_the_head_width_alone(d, monkeypatch):
                         lambda index: {g: 168 for g in cuda_kernels.FLASH_WIDE_RES_REGS})
     monkeypatch.setattr(cuda_kernels, "_flash_streamed_regs", lambda index: 216)
     monkeypatch.setattr(cuda_kernels, "_flash_wide_streamed_regs", lambda index: 128)
+    monkeypatch.setattr(cuda_kernels, "_flash_cluster_regs", lambda index: 128)
     for b, h, lq, lk in ((64, 4, 64, 64), (1, 1, 1, 1), (8, 4, 2048, 2048)):
         q = torch.zeros((b, h, lq, d), device="meta")
         k = torch.zeros((b, h, lk, d), device="meta")
         d_k = -(-d // 8) * 8
-        if d > cuda_kernels.FLASH_WIDE_STREAMED_MAX_D:
+        if d > cuda_kernels.FLASH_CLUSTER_MAX_D:
             plan = cuda_kernels.flash_plan_for(q, k, True)
             assert plan.passes >= 2 and plan.threads == cuda_kernels.FLASH_WIDE_THREADS
             assert plan.path == "passes"
+        elif d > cuda_kernels.FLASH_WIDE_STREAMED_MAX_D:
+            plan = cuda_kernels.flash_plan_for(q, k, True)
+            assert plan.passes == 1 and plan.path == "cluster"
+            assert plan.cluster == 2 and plan.threads == cuda_kernels.FLASH_CLUSTER_THREADS
         elif d > cuda_kernels.FLASH_STREAMED_MAX_D:
             plan = cuda_kernels.flash_plan_for(q, k, True)
             assert plan.passes == 1 and plan.path == "wide_streamed"

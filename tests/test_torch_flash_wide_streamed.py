@@ -130,13 +130,15 @@ def test_plan_refuses_widths_outside_the_path(d):
 
 @pytest.mark.parametrize("d,path", [(D_STR, "streamed"), (D_STR + 1, "wide_streamed"),
                                     (384, "wide_streamed"), (502, "wide_streamed"),
-                                    (D_MAX, "wide_streamed"), (D_MAX + 1, "passes"),
-                                    (1024, "passes")])
+                                    (D_MAX, "wide_streamed"), (D_MAX + 1, "cluster"),
+                                    (1024, "cluster"), (ck.FLASH_CLUSTER_MAX_D + 1, "passes"),
+                                    (1536, "passes")])
 def test_flash_plan_for_picks_the_path_by_the_head_width_alone(d, path, monkeypatch):
     monkeypatch.setattr(ck, "_sm_count", lambda index: 132)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(ck, "_flash_streamed_regs", lambda index: 216)
     monkeypatch.setattr(ck, "_flash_wide_streamed_regs", lambda index: 120)
+    monkeypatch.setattr(ck, "_flash_cluster_regs", lambda index: 128)
     for b, h, lq, lk in ((64, 4, 64, 64), (1, 1, 1, 1), (8, 4, 2048, 2048)):
         q = torch.zeros((b, h, lq, d), device="meta")
         k = torch.zeros((b, h, lk, d), device="meta")
