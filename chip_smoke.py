@@ -67,6 +67,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    under ``torch.profiler``, and 3 iterations through the kernels against
    3 through their plain versions from one initial table (factors rtol
    2e-3 / atol 2e-4, train RMSE within 1e-3).
+6b. ``resume`` — ``run_train``'s tail and checkpoint resume, on the train
+   phase's engine and params with a store of its own: run A asks for 6
+   iterations with a checkpoint every 3 under a pinned ``PIO_CKPT_DIR``,
+   ``PIO_PROFILE_DIR`` and ``PIO_PERF_LEDGER`` (steps 3 and 6 committed, a
+   trace that parses and holds CUDA kernel events, its build and solve
+   kernel events counted, one ledger record on ``cuda:`` with ``read``,
+   ``prepare`` and ``train[0]``); run B asks for 10 and resumes from step
+   6: 4 iterations, exactly 4 × run A's build and solve launches an
+   iteration (counts reset just before each ``run_train`` and read just
+   after), steps 9 and 10 committed, its stored factors equal bit for bit
+   to the train phase's. Then the train phase's own ``run_train`` split
+   from its instance's ``PIO_TRAIN_PHASES``: read, prepare, ``train[0]``
+   (bucketize, sort, stage, the iterations, the rest), the rest of
+   ``engine.train`` and the time outside it, and beside it the pickle of
+   that run's model and its insert into a model store, timed again.
 7. ``slice``   — serving: the instance ``run_train`` wrote, deployed by
    ``create_query_server`` on the card with the default
    ``streaming_top_k`` ("auto"); bursts of 64 concurrent
@@ -215,8 +230,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    = 256 and the wide streamed path at D = 320, ``torch.equal`` to the
    kernel each width's own plan takes, plans forcing the cluster path at
    D = 384 and 512 (held to the plain version, timed beside the wide
-   streamed kernel), and doctored wide streamed and cluster plans (shared
-   memory, slices), refused with an error; every general-width kernel's
+   streamed kernel and SDPA on the same tensors), and doctored wide
+   streamed and cluster plans (shared memory, slices), refused with an
+   error; every general-width kernel's
    registers and local bytes (no local memory; each attention kernel's
    registers equal to its plan constant).
    Then ALS at rank 200 (the build's rows path, the blocked solve) and at
@@ -261,6 +277,7 @@ import gc
 import http.client
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -1914,37 +1931,25 @@ def gramian_plan_variants(torch, dev, data: dict, seed: int = 0,
         ck.gramian_launch_plan.cache_clear()
 
 
-def phase_train(torch, dev, data: dict, registry) -> dict:
-    from predictionio_tpu_torch.controller import (
-        DataSource,
-        Engine,
-        EngineParams,
-        FirstServing,
-    )
+def als_smoke_engine(data: dict):
+    """(engine, params): the recommendation engine over a DataSource of the
+    training split, and the main path's ALS params (rank 50, 10
+    iterations, λ 0.05, seed 0)."""
+    from predictionio_tpu_torch.controller import DataSource, Engine, FirstServing
     from predictionio_tpu_torch.models.recommendation import (
         ALSAlgorithm,
         ALSAlgorithmParams,
         RecPreparator,
         TrainingData,
     )
-    from predictionio_tpu_torch.ops import als
-    from predictionio_tpu_torch.ops.cuda_kernels import (
-        gramian_fused,
-        gramian_fused_reference,
-        spd_solve,
-        spd_solve_reference,
-    )
     from predictionio_tpu_torch.storage import BiMap
-    from predictionio_tpu_torch.workflow import WorkflowContext, load_models, run_train
 
-    users, items, ratings = data["users"], data["items"], data["ratings"]
-    tr, test = data["train"], data["test"]
-    n_users, n_items = data["n_users"], data["n_items"]
+    users, items, ratings, tr = data["users"], data["items"], data["ratings"], data["train"]
     training = TrainingData(
         users=users[tr].astype(np.int32), items=items[tr].astype(np.int32),
         ratings=ratings[tr],
-        user_map=BiMap({f"u{i}": i for i in range(n_users)}),
-        item_map=BiMap({f"i{i}": i for i in range(n_items)}),
+        user_map=BiMap({f"u{i}": i for i in range(data["n_users"])}),
+        item_map=BiMap({f"i{i}": i for i in range(data["n_items"])}),
     )
 
     class SmokeDataSource(DataSource):
@@ -1953,8 +1958,25 @@ def phase_train(torch, dev, data: dict, registry) -> dict:
 
     engine = Engine({"": SmokeDataSource}, {"": RecPreparator},
                     {"als": ALSAlgorithm}, {"": FirstServing})
-    params = ALSAlgorithmParams(rank=RANK, num_iterations=TRAIN_ITERS,
-                                lambda_=LAMBDA, seed=TRAIN_SEED)
+    return engine, ALSAlgorithmParams(rank=RANK, num_iterations=TRAIN_ITERS,
+                                      lambda_=LAMBDA, seed=TRAIN_SEED)
+
+
+def phase_train(torch, dev, data: dict, registry) -> dict:
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        gramian_fused,
+        gramian_fused_reference,
+        spd_solve,
+        spd_solve_reference,
+    )
+    from predictionio_tpu_torch.workflow import WorkflowContext, load_models, run_train
+
+    users, items, ratings = data["users"], data["items"], data["ratings"]
+    tr, test = data["train"], data["test"]
+    n_users, n_items = data["n_users"], data["n_items"]
+    engine, params = als_smoke_engine(data)
     ctx = WorkflowContext(device=dev)
     ctx.profile = {}
     gramian_fused.launches = spd_solve.launches = 0  # main path starts here
@@ -2048,6 +2070,136 @@ def phase_train(torch, dev, data: dict, registry) -> dict:
     emit(out)
     if not ok:
         raise AssertionError(f"kernel and plain training disagree: {parity}")
+    return out
+
+
+@contextlib.contextmanager
+def env_set(values: dict):
+    """``os.environ`` updated with ``values`` for the block, then restored."""
+    prior = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+RESUME_EVERY, RESUME_FIRST = 3, 6  # run A: 6 iterations, a checkpoint every 3
+
+
+def phase_resume(torch, dev, data: dict, registry, trained: dict) -> dict:
+    """``run_train``'s tail and checkpoint resume on the card. Run A trains
+    the train phase's engine for 6 iterations with a checkpoint every 3
+    under a pinned ``PIO_CKPT_DIR``, ``PIO_PROFILE_DIR`` and
+    ``PIO_PERF_LEDGER``; run B asks for the train phase's 10 and resumes
+    from step 6. Each run's build and solve counts are reset just before
+    its ``run_train`` and read just after. Then the split of the train
+    phase's own ``run_train`` from its instance's ``PIO_TRAIN_PHASES``."""
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.obs import perfledger
+    from predictionio_tpu_torch.ops.cuda_kernels import gramian_fused, spd_solve
+    from predictionio_tpu_torch.storage import Model, StorageRegistry
+    from predictionio_tpu_torch.utils.profiling import phases_from_env, profile_from_env
+    from predictionio_tpu_torch.workflow import WorkflowContext, load_models, run_train
+    from predictionio_tpu_torch.workflow.checkpoint import CheckpointManager
+
+    engine, params = als_smoke_engine(data)
+    out = {"phase": "resume", "runs": {}}
+    (want,) = load_models(registry, trained["instance"])
+    with tempfile.TemporaryDirectory(prefix="pio_resume_") as tmp:
+        own = StorageRegistry({"PIO_FS_BASEDIR": os.path.join(tmp, "store")})
+        ck, ledger = os.path.join(tmp, "ck"), os.path.join(tmp, "perf.jsonl")
+        for name, iterations in (("A", RESUME_FIRST), ("B", TRAIN_ITERS)):
+            trace_dir = os.path.join(tmp, f"trace_{name}")
+            ep = EngineParams(algorithm_params_list=[("als", dataclasses.replace(
+                params, num_iterations=iterations, checkpoint_every=RESUME_EVERY))])
+            ctx = WorkflowContext(device=dev)
+            ctx.profile = {}
+            with env_set({"PIO_CKPT_DIR": ck, "PIO_PROFILE_DIR": trace_dir,
+                          "PIO_PERF_LEDGER": ledger}):
+                gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+                t0 = time.monotonic()
+                instance_id = run_train(engine, ep, own, ctx=ctx)
+                wall_s = time.monotonic() - t0
+                launches = {"gramian_fused": gramian_fused.launches,
+                            "spd_solve": spd_solve.launches}  # main path ends here
+            (path,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+                       if f.endswith(".pt.trace.json")]
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            records = perfledger.load_ledger(ledger)
+            run = {"instance": instance_id, "iterations": iterations, "wall_s": wall_s,
+                   "resumed_from": ctx.profile["resumed_from"],
+                   "iteration_s": ctx.profile["iteration_s"],
+                   "launches": launches, "launches_per_iteration": ctx.profile["launches"],
+                   "steps": CheckpointManager(os.path.join(ck, "algo_0")).all_steps(),
+                   "trace_events": len(events), "trace_cuda_kernels": len(kernels),
+                   "trace_build_solve_kernels": sum(
+                       1 for e in kernels if re.search("gramian|spd", e.get("name", ""))),
+                   "ledger_records": len(records), "ledger_last": records[-1] if records else None,
+                   "phases": phases_from_env(own.get_metadata().engine_instance_get(
+                       instance_id).env)}
+            out["runs"][name] = run
+            record = run["ledger_last"] or {}
+            if not (kernels and len(records) == (1 if name == "A" else 2)
+                    and record.get("device", "").startswith("cuda:")
+                    and {"read", "prepare", "train[0]"} <= set(record.get("phases", {}))
+                    and {"read", "prepare", "train[0]"} <= set(run["phases"])):
+                emit(out)
+                raise AssertionError(f"run {name}: no CUDA kernel in the trace, or the "
+                                     f"ledger or the phases are not as expected")
+        a, b = out["runs"]["A"], out["runs"]["B"]
+        per_iter = a["launches_per_iteration"][0]
+        (got,) = load_models(own, b["instance"])
+        # what run_train does after engine.train, again on the train
+        # phase's model: the pickle, and the insert into a store
+        t0 = time.monotonic()
+        blob = pickle.dumps([want])
+        pickle_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        own.get_models().insert(Model(id="split-probe", models=blob))
+        insert_s = time.monotonic() - t0
+    out["resume_equal_to_train"] = bool(
+        np.array_equal(got.user_factors, want.user_factors)
+        and np.array_equal(got.item_factors, want.item_factors))
+    left = TRAIN_ITERS - RESUME_FIRST
+    ok = (a["resumed_from"] == 0 and a["steps"] == [RESUME_EVERY, RESUME_FIRST]
+          and all(it == per_iter for it in a["launches_per_iteration"])
+          and b["resumed_from"] == RESUME_FIRST and len(b["iteration_s"]) == left
+          and b["launches"] == {k: left * v for k, v in per_iter.items()}
+          and {9, TRAIN_ITERS} <= set(b["steps"]) and out["resume_equal_to_train"])
+
+    # the train phase's own run_train, split
+    env = registry.get_metadata().engine_instance_get(trained["instance"]).env
+    phases = phases_from_env(env)
+    engine_train_s = profile_from_env(env)["train_wall_s"]
+    host = trained["host_prep_s"]
+    iterations_s = sum(trained["iteration_s"])
+    train0 = phases["train[0]"]
+    out["split"] = {
+        "run_train_s": trained["wall_s"],
+        "read_s": phases["read"],
+        "prepare_s": phases["prepare"],
+        "train[0]_s": train0,
+        "train[0]": {"bucketize_s": host["bucketize"], "sort_s": host["sort"],
+                     "stage_s": host["stage"], "iterations_s": iterations_s,
+                     "rest_s": train0 - host["bucketize"] - host["sort"] - host["stage"]
+                     - iterations_s},
+        "engine_train_rest_s": engine_train_s - phases["read"] - phases["prepare"] - train0,
+        "outside_engine_train_s": trained["wall_s"] - engine_train_s,
+        "outside_engine_train_again": {"pickle_s": pickle_s, "model_insert_s": insert_s,
+                                       "blob_bytes": len(blob)},
+    }
+    emit(out)
+    if not ok:
+        raise AssertionError(f"resume: A {a['steps']}, B resumed from {b['resumed_from']} "
+                             f"with {b['launches']} launches ({per_iter} an iteration), "
+                             f"steps {b['steps']}, equal {out['resume_equal_to_train']}")
     return out
 
 
@@ -5060,7 +5212,7 @@ def wide_kernels(torch, dev, seed: int) -> dict:
         """A plan forcing a streamed ``path`` at a width below it: the bits
         of the kernel the width's own plan takes (held equal unless ``bits``
         is false: the cluster path sums a score in two halves), and both
-        kernels' times on the same tensors."""
+        kernels' and SDPA's times on the same tensors."""
         q, k, v = (torch.randn((b, h, n_, d), generator=gen, device=dev)
                    for n_ in (lq, lk, lk))
         forced = getattr(ck, f"flash_{path}_launch_plan")(
@@ -5078,6 +5230,9 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                "forced_device_ms": traced_device_ms(torch, forced_fn, 10),
                "own_ms": time_ms(torch, own, 10, 2),
                "own_device_ms": traced_device_ms(torch, own, 10)}
+        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        out.update(library_ms=time_ms(torch, library, 10, 2),
+                   library_device_ms=traced_device_ms(torch, library, 10))
         held("flash_attention", f"D{d}_forced_{path}_{b}x{h}x{lq}_causal_{causal}", out,
              (out["equal_to_own_kernel"] or not bits)
              and bool(torch.allclose(o_s, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL)))
@@ -6063,6 +6218,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="pio_chip_smoke_") as base:
         registry = StorageRegistry({"PIO_FS_BASEDIR": base})
         trained = timed("train", phase_train, torch, dev, data, registry)
+        resumed = timed("resume", phase_resume, torch, dev, data, registry, trained)
         sliced = timed("slice", phase_slice, torch, dev, args.seed, registry,
                        trained["instance"])
         attn = timed("attention_kernel", phase_attention_kernel, torch, dev, args.seed)
@@ -6161,6 +6317,8 @@ def main(argv=None) -> int:
         "served_num4096": persisted["checks"]["num4096"],
         "attributes": {name: lines[0]["attributes"][name] for name in ("select_score", "select")},
     })
+    resume_launches = {k: sum(r["launches"][k] for r in resumed["runs"].values())
+                       for k in ("gramian_fused", "spd_solve")}
     for name, source, replaces in (
         ("gramian_fused", GRAMIAN_SOURCE, GRAMIAN_REPLACES),
         ("spd_solve", SPD_SOURCE, SPD_REPLACES),
@@ -6171,10 +6329,12 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": (trained["launches"][name] + events["als"]["launches"][name]
+            "launches": (trained["launches"][name] + resume_launches[name]
+                         + events["als"]["launches"][name]
                          + evaluated["launches"][name] + persisted["by_kernel"][name]
                          + wide["by_kernel"][name] + consoled["by_kernel"][name]),
             "launches_by_path": {"train": trained["launches"][name],
+                                 "resume": resume_launches[name],
                                  "events_als": events["als"]["launches"][name],
                                  "eval": evaluated["launches"][name],
                                  "persist": persisted["by_kernel"][name],
@@ -6364,8 +6524,9 @@ def main(argv=None) -> int:
             "kernel_runs_ms", "kernel_runs_device_ms", "earlier_kernel_runs_ms",
             "earlier_kernel_runs_device_ms", "library_runs_ms", "library_runs_device_ms",
             "plain_ms", "bound_us", "bound_by", "max_abs_err", "equal_to_own_kernel",
-            "forced_ms", "forced_device_ms", "own_ms", "own_device_ms", "plan_clusters",
-            "occupancy_clusters", "plan_waves", "occupancy_waves")}
+            "forced_ms", "forced_device_ms", "own_ms", "own_device_ms", "library_ms",
+            "library_device_ms", "plan_clusters", "occupancy_clusters", "plan_waves",
+            "occupancy_waves")}
             for case, out in cl.items()},
         "seqrec_d768_parity": {k: wide["seqrec_d768_parity"][k] for k in (
             "steps", "margin", "margins", "max_abs_diff", "launches")},

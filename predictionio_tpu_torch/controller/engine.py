@@ -13,11 +13,13 @@ models passed through), the engine-variant
 JSON parser ``json_to_engine_params`` (``Engine.scala:313-370``) and the
 rebuild of ``EngineParams`` from a stored engine instance
 (``Engine.scala:372-425``), plus ``serialize_engine_params`` to write
-one. The per-phase timer waits (ROADMAP.md).
+one. ``Engine.train`` times ``read``, ``prepare`` and each ``train[i]``
+on the context's phase timer (``WorkflowContext.timer``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -41,6 +43,10 @@ logger = logging.getLogger(__name__)
 ClassMap = Dict[str, Type]
 
 
+def _null_phase(name: str):
+    return contextlib.nullcontext()
+
+
 @dataclasses.dataclass(frozen=True)
 class WorkflowParams:
     """Per-run workflow knobs (``workflow/WorkflowParams.scala``; CLI
@@ -53,8 +59,8 @@ class WorkflowParams:
     #: hyperparameter-sweep parallelism: 0 = auto (one sweep thread per
     #: candidate, bounded by ``WorkflowContext.slices``), 1 = serial
     eval_parallelism: int = 0
-    #: per-run checkpoint cadence (``pio train --checkpoint-every``);
-    #: checkpoint resume is not ported, so a cadence > 0 is refused
+    #: per-run checkpoint cadence (``pio train --checkpoint-every``); it
+    #: sits between the engine params and ``PIO_CKPT_EVERY``
     checkpoint_every: Optional[int] = None
 
 
@@ -140,8 +146,11 @@ class Engine:
         data_source = self._data_source(engine_params)
         preparator = self._preparator(engine_params)
         algorithms = self._algorithms(engine_params)
+        timer = getattr(ctx, "timer", None)
+        timed = timer.time if timer is not None else _null_phase
         try:
-            training_data = data_source.read_training(ctx)
+            with timed("read"):
+                training_data = data_source.read_training(ctx)
         except Exception as exc:
             # Engine.scala:517-524 wraps read errors with a storage hint
             raise RuntimeError(
@@ -153,15 +162,21 @@ class Engine:
         if workflow_params.stop_after_read:
             raise StopAfterReadInterruption()
 
-        prepared_data = preparator.prepare(ctx, training_data)
+        with timed("prepare"):
+            prepared_data = preparator.prepare(ctx, training_data)
         if not workflow_params.skip_sanity_check:
             run_sanity_check(prepared_data, "prepared data")
         if workflow_params.stop_after_prepare:
             raise StopAfterPrepareInterruption()
 
         models = []
-        for algo in algorithms:
-            model = algo.train(ctx, prepared_data)
+        for i, algo in enumerate(algorithms):
+            if ctx is not None:
+                # lets an algorithm namespace its per-run resources
+                # (checkpoints) by its slot
+                ctx.algorithm_index = i
+            with timed(f"train[{i}]"):
+                model = algo.train(ctx, prepared_data)
             if not workflow_params.skip_sanity_check:
                 run_sanity_check(model, "model")
             models.append(model)

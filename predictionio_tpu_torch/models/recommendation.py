@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import threading
 import weakref
 from typing import List, Optional, Sequence, Tuple
@@ -53,7 +54,7 @@ from ..controller import (
     Params,
     Preparator,
 )
-from ..ckpt import resolve_every
+from ..ckpt import resolve_every, resolve_resume
 from ..device import DeviceLike, resolve_device
 from ..ops.als import ALSConfig, als_train_coo
 from ..ops.als_sharded import resolve_shards
@@ -219,10 +220,11 @@ class RecPreparator(Preparator):
 @dataclasses.dataclass(frozen=True)
 class ALSAlgorithmParams(Params):
     """The JAX package's fields, unchanged. Training reads the ALS fields
-    (``ALSConfig.resolve_levers`` says what runs on the device) and
-    refuses ``shards > 1``, ``distributed`` and a checkpoint cadence (not
-    ported yet), whether set here or through ``PIO_TRAIN_SHARDS`` /
-    ``PIO_CKPT_EVERY``; serving reads ``streaming_top_k`` (on the card
+    (``ALSConfig.resolve_levers`` says what runs on the device) and the
+    checkpoint cadence (here, else the workflow run's, else
+    ``PIO_CKPT_EVERY``), and refuses ``shards > 1`` and ``distributed``
+    (not ported yet), whether set here or through ``PIO_TRAIN_SHARDS``;
+    serving reads ``streaming_top_k`` (on the card
     "auto"/"always" stream through the kernel and "never" is refused; see
     ``use_streaming_topk``) and refuses ``quantized_serving``."""
 
@@ -349,8 +351,12 @@ class ALSAlgorithm(Algorithm):
     def train(self, ctx, pd: PreparedData) -> ALSModel:
         """Single-device ALS on the context's device (``ALSAlgorithm.scala:
         45-70``). A serving-lever typo or a lever that is not ported fails
-        the training run, not the first query after deploy. Returns the
-        factor tables as numpy arrays with the id maps."""
+        the training run, not the first query after deploy. With a
+        checkpoint cadence above 0 and a context that has a checkpoint
+        directory (``run_train``'s), the tables are checkpointed under
+        ``algo_<i>`` and a rerun resumes from them (``PIO_CKPT_RESUME=0``
+        clears them first). Returns the factor tables as numpy arrays with
+        the id maps."""
         p = self.params
         device = self.device or (ctx.device if ctx is not None else resolve_device(None))
         use_streaming_topk(p.streaming_top_k, device)
@@ -363,12 +369,19 @@ class ALSAlgorithm(Algorithm):
                 "sharded and distributed ALS are not ported yet (ROADMAP.md, "
                 "queue 1: sharded ALS on torch.distributed)"
             )
-        if resolve_every(p.checkpoint_every,
-                         workflow=getattr(ctx, "checkpoint_every", None)):
-            raise NotImplementedError(
-                "checkpointed training is not ported yet (ROADMAP.md, "
-                "queue 1: checkpoint resume in the port's trainer)"
-            )
+        every = resolve_every(p.checkpoint_every,
+                              workflow=getattr(ctx, "checkpoint_every", None))
+        checkpoint = None
+        manager_factory = getattr(ctx, "checkpoint_manager", None)
+        if every > 0 and manager_factory is not None:
+            # one namespace per algorithm slot: a second ALS block of the
+            # same engine never resumes from this one's factors
+            checkpoint = manager_factory(subdir=f"algo_{getattr(ctx, 'algorithm_index', 0)}")
+            if checkpoint is not None and not resolve_resume():
+                # --no-resume: train fresh (the manager lists the empty
+                # directory it expects)
+                shutil.rmtree(checkpoint.directory, ignore_errors=True)
+                os.makedirs(checkpoint.directory, exist_ok=True)
         cfg = als_config(p)
         factors = als_train_coo(
             pd.users,
@@ -379,6 +392,8 @@ class ALSAlgorithm(Algorithm):
             cfg=cfg,
             device=device,
             profile=getattr(ctx, "profile", None),
+            checkpoint=checkpoint,
+            checkpoint_every=every,
         )
         return ALSModel(
             rank=p.rank,

@@ -20,9 +20,15 @@ the build writes — so the TPU path's ``[B, R, R] → [R, R, B]`` transpose,
 and the width ≥ rank gate that priced it, do not exist here. On the CPU
 the plain PyTorch versions of both kernels run.
 
-Not ported here (ROADMAP.md): meshes and sharded training, checkpoint
-resume, the jit telemetry and the first-iteration half split of the JAX
-trainer (the same math).
+With a ``CheckpointManager`` and a cadence, :func:`als_train` saves both
+factor tables every ``checkpoint_every`` iterations and at the last, and
+a rerun resumes from the newest step whose training identity and shapes
+match (the JAX package's format and identity keys, so a step the JAX
+package wrote resumes here too).
+
+Not ported here (ROADMAP.md): meshes and sharded training, the jit
+telemetry and the first-iteration half split of the JAX trainer (the
+same math).
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import ctypes
 import dataclasses
 import os
 import time
-from typing import List, Optional, Sequence
+import zipfile
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -601,15 +608,18 @@ def _kernel_launches() -> dict:
 
 
 def _train_loop(by_user: StagedMatrix, by_item: StagedMatrix, y: torch.Tensor,
-                cfg: ALSConfig, build, solve, profile: Optional[dict] = None):
+                cfg: ALSConfig, build, solve, profile: Optional[dict] = None,
+                start: int = 0, x: Optional[torch.Tensor] = None,
+                on_step: Optional[Callable[[int, torch.Tensor, torch.Tensor], None]] = None):
     """The iterations: users solved first from the item table ``y``, then
-    items from the new users, ``cfg.iterations`` times (MLlib's order).
-    ``build``/``solve`` are the two kernel wrappers on the public path; a
-    comparison passes their plain versions here. With ``profile`` each
-    iteration is synchronised and timed, and its kernel launches
-    counted. Returns (user, item) factor tables."""
-    x = None
-    for _ in range(cfg.iterations):
+    items from the new users, from iteration ``start`` (0, or the step a
+    checkpoint restored ``x`` and ``y`` at) to ``cfg.iterations`` (MLlib's
+    order). ``build``/``solve`` are the two kernel wrappers on the public
+    path; a comparison passes their plain versions here. With ``profile``
+    each iteration is synchronised and timed, and its kernel launches
+    counted. ``on_step(done, x, y)`` runs after each iteration, outside
+    its timing. Returns (user, item) factor tables."""
+    for i in range(start, cfg.iterations):
         t0 = time.monotonic()
         before = _kernel_launches()
         yty = y.T @ y if cfg.implicit_prefs else None
@@ -624,7 +634,44 @@ def _train_loop(by_user: StagedMatrix, by_item: StagedMatrix, y: torch.Tensor,
             profile["iteration_s"].append(time.monotonic() - t0)
             after = _kernel_launches()
             profile["launches"].append({k: after[k] - before[k] for k in after})
+        if on_step is not None:
+            on_step(i + 1, x, y)
     return x, y
+
+
+def _checkpoint_identity(cfg: ALSConfig, nnz: int) -> dict:
+    """What makes a checkpoint this run's: the JAX package's keys and
+    values (``iterations`` is not among them, so a longer run continues a
+    shorter one)."""
+    return {
+        "rank": cfg.rank,
+        "lambda": float(cfg.lambda_),
+        "alpha": float(cfg.alpha),
+        "implicit": bool(cfg.implicit_prefs),
+        "seed": int(cfg.seed),
+        "nnz": int(nnz),
+    }
+
+
+def _restore(checkpoint, cfg: ALSConfig, ck_meta: dict, n_users: int, n_items: int):
+    """(step, x, y) of the newest usable checkpoint, else None. Steps are
+    scanned newest first; one is skipped when it lies beyond
+    ``cfg.iterations`` (a stale step of a longer run must not block an
+    in-range one), when it cannot be read (a torn or corrupt save is
+    absent, not fatal), or when its identity or its shapes differ."""
+    for step in reversed(checkpoint.all_steps()):
+        if step > cfg.iterations:
+            continue
+        try:
+            step, tree, meta = checkpoint.restore(step, like={"x": 0, "y": 0})
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            continue
+        x, y = tree["x"], tree["y"]
+        if (all(meta.get(k) == v for k, v in ck_meta.items())
+                and tuple(x.shape) == (n_users, cfg.rank)
+                and tuple(y.shape) == (n_items, cfg.rank)):
+            return step, x, y
+    return None
 
 
 def als_train(
@@ -634,6 +681,8 @@ def als_train(
     device: DeviceLike = None,
     init_item_factors=None,
     profile: Optional[dict] = None,
+    checkpoint=None,
+    checkpoint_every: int = 0,
 ) -> ALSFactors:
     """Alternating solves, items initialised and users solved first, for
     ``cfg.iterations``. ``by_user``/``by_item`` are both
@@ -645,7 +694,16 @@ def als_train(
     :func:`init_factors`, so a run can start from another package's
     table. ``profile`` (optional dict) receives the resolved levers,
     ``sort_s``, ``stage_s``, per-iteration ``iteration_s`` (synchronised)
-    and ``launches``, and the FLOP and byte estimates of one iteration."""
+    and ``launches``, and the FLOP and byte estimates of one iteration.
+
+    ``checkpoint`` (a ``workflow.checkpoint.CheckpointManager``) resumes
+    the run from its newest usable step (:func:`_restore`): both tables
+    are restored to the run's device and the loop enters at that step, so
+    ``iteration_s`` holds only the iterations this run executes and
+    ``resumed_from`` names the step (0: a fresh start). With
+    ``checkpoint_every`` > 0 both tables are saved (host copies, meta the
+    identity and ``iteration``) every ``checkpoint_every`` iterations and
+    at the last."""
     if cfg.iterations < 1:
         raise ValueError(f"ALS iterations must be >= 1, got {cfg.iterations}")
     host = isinstance(by_user, BucketedMatrix) and isinstance(by_item, BucketedMatrix)
@@ -703,7 +761,24 @@ def als_train(
         )
         profile.setdefault("iteration_s", [])
         profile.setdefault("launches", [])
-    x, y = _train_loop(by_user, by_item, y, cfg, build, solve, profile)
+    ck_meta = _checkpoint_identity(cfg, by_user.nnz)
+    start, x = 0, None
+    if checkpoint is not None:
+        restored = _restore(checkpoint, cfg, ck_meta, by_user.n_rows, by_item.n_rows)
+        if restored is not None:
+            start = restored[0]
+            x, y = (torch.from_numpy(np.ascontiguousarray(t, dtype=np.float32)).to(device)
+                    for t in restored[1:])
+    if profile is not None:
+        profile["resumed_from"] = start
+    on_step = None
+    if checkpoint is not None and checkpoint_every > 0:
+        def on_step(done, x, y):
+            if done % checkpoint_every == 0 or done == cfg.iterations:
+                checkpoint.save(done, {"x": x.cpu().numpy(), "y": y.cpu().numpy()},
+                                {**ck_meta, "iteration": done})
+    x, y = _train_loop(by_user, by_item, y, cfg, build, solve, profile,
+                       start=start, x=x, on_step=on_step)
     return ALSFactors(user_factors=x, item_factors=y, rank=rank)
 
 
@@ -717,6 +792,8 @@ def als_train_coo(
     device: DeviceLike = None,
     init_item_factors=None,
     profile: Optional[dict] = None,
+    checkpoint=None,
+    checkpoint_every: int = 0,
 ) -> ALSFactors:
     """COO triplets → bucketized both ways → :func:`als_train`. Buckets
     are not padded to blocks: the port launches one kernel per bucket,
@@ -730,7 +807,8 @@ def als_train_coo(
         profile["bucketize_s"] = time.monotonic() - t0
         profile["host_prep_path"] = host_prep_path()
     return als_train(by_user, by_item, cfg, device=device,
-                     init_item_factors=init_item_factors, profile=profile)
+                     init_item_factors=init_item_factors, profile=profile,
+                     checkpoint=checkpoint, checkpoint_every=checkpoint_every)
 
 
 def predict_pairs(user_factors: torch.Tensor, item_factors: torch.Tensor,

@@ -14,6 +14,7 @@ consoles). Run it as ``python -m predictionio_tpu_torch.tools.console
     status                     — storage verification (Storage.scala:230-250)
     import | export            — events ↔ JSON-lines files
     template list|get          — bundled engine templates
+    ckpt ls|verify|gc          — checkpoint stores (alias ``checkpoint``)
 
 ``train``, ``eval`` and ``deploy`` take ``--device`` (default ``cuda:0``,
 which raises where there is no CUDA; ``--device cpu`` runs on the host).
@@ -24,7 +25,7 @@ and receive ``--device``; without it, in this process. ``train`` and
 ``eval`` report the CUDA kernels' launches of the run (a child's counts
 are its own; a deployed server reports its own on ``/status.json``).
 The commands that need no device (apps, keys, ``build``, ``status``,
-``import``, ``export``, ``template``, ``undeploy``) do not import torch. The commands of
+``import``, ``export``, ``template``, ``undeploy``, ``ckpt``) do not import torch. The commands of
 modules that are not ported stay in the parser and exit 1 with a
 message naming their ROADMAP item (:data:`NOT_PORTED`).
 """
@@ -65,7 +66,6 @@ NOT_PORTED = {
     "perf": ("the perf tooling", 14),
     "quality": ("the quality plane", 14),
     "trace": ("traces", 6),
-    "ckpt": ("checkpoints", 5),
     "upgrade": ("storage upgrades", 14),
 }
 
@@ -289,9 +289,11 @@ def build_parser() -> argparse.ArgumentParser:
     tp_get.add_argument("template_name")
     tp_get.add_argument("directory")
 
+    # forwarded verbatim to ckpt.cli, which owns its flags (see main)
+    sub.add_parser("ckpt", aliases=["checkpoint"], add_help=False,
+                   help="checkpoint stores: ls | verify | gc")
     for name, (what, item) in NOT_PORTED.items():
-        sub.add_parser(name, aliases=["checkpoint"] if name == "ckpt" else [],
-                       help=f"{what}: not ported (ROADMAP.md, queue 1 item {item})")
+        sub.add_parser(name, help=f"{what}: not ported (ROADMAP.md, queue 1 item {item})")
     return p
 
 
@@ -355,9 +357,15 @@ def _workflow_argv(args: argparse.Namespace, extra: Sequence[str] = ()) -> List[
 def main(argv: Optional[Sequence[str]] = None,
          registry: Optional[StorageRegistry] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    name = argv[0] if argv else None
+    if name in ("ckpt", "checkpoint"):
+        # forwarded before argparse: the ckpt CLI owns its option surface
+        # and is pure filesystem, so it works on an unconfigured host
+        from ..ckpt import cli as ckpt_cli
+
+        return ckpt_cli.main(argv[1:])
     # a command that is not ported is refused before its own flags are
     # parsed (the JAX console forwards several of them verbatim)
-    name = {"checkpoint": "ckpt"}.get(argv[0], argv[0]) if argv else None
     if name in NOT_PORTED:
         what, item = NOT_PORTED[name]
         _emit({"error": str(not_ported(f"`pio {name}` ({what})", item))})

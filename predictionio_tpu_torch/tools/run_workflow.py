@@ -14,9 +14,11 @@ the run).
 ``--device`` picks the card or the host (default: ``cuda:0``, which
 raises where there is no CUDA; ``--device cpu`` runs on the host). The
 JAX package's platform and compilation-cache plumbing has no
-counterpart. ``--shards`` above 1 and ``--checkpoint-every`` above 0 are
-refused (sharded ALS and checkpointed training are not ported);
-``--resume`` sets ``PIO_CKPT_RESUME`` as the JAX package does.
+counterpart. ``--shards`` above 1 is refused (sharded ALS is not
+ported). ``--checkpoint-every N`` is the run's checkpoint cadence (the
+trainer checkpoints every N iterations), and ``--resume/--no-resume``
+sets ``PIO_CKPT_RESUME`` for the run, as in the JAX package: resume from
+the newest usable checkpoint, or clear them and train fresh.
 """
 
 from __future__ import annotations
@@ -76,12 +78,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--checkpoint-every", type=int, default=None, metavar="N",
-        help="the run's checkpoint cadence; above 0 the port refuses "
-             "(checkpointed training is not ported)",
+        help="checkpoint the factor tables every N iterations (0 = off; "
+             "default: the engine params, else PIO_CKPT_EVERY)",
     )
     p.add_argument(
         "--resume", default=None, action=argparse.BooleanOptionalAction,
-        help="sets PIO_CKPT_RESUME for this run (1 or 0)",
+        help="resume from the newest usable checkpoint, or clear the "
+             "checkpoints and train fresh (sets PIO_CKPT_RESUME for this run)",
     )
     return p
 

@@ -12,8 +12,14 @@ models trained elsewhere (weights carried over from the JAX package, see
 ``models.sequencerec.seqrec_model_from_numpy``) as a COMPLETED instance.
 What the blob holds for each algorithm is its ``make_persistent``'s
 answer: the model, a persistent-model manifest, or ``RETRAIN``.
-The perf-ledger append, device traces and checkpoint directories wait
-(ROADMAP.md).
+
+The end of a training run is the JAX package's: the phase summary goes
+into the instance env (``PIO_TRAIN_PHASES``), with the run's profile
+(``PIO_TRAIN_PROFILE``); ``PIO_PERF_LEDGER`` names a ledger file that
+gets one record; ``PIO_PROFILE_DIR`` has ``engine.train`` traced by
+``torch.profiler``; the run's checkpoint directory is ``PIO_CKPT_DIR``
+(kept) or one derived under the storage base directory (deleted after a
+successful run); ``ctx.stop()`` runs in ``finally``.
 
 A blob pickled by the JAX package names ``predictionio_tpu.`` classes,
 and unpickling it would import jax; :func:`load_models` refuses such a
@@ -25,13 +31,15 @@ from __future__ import annotations
 
 import dataclasses
 import io
-import json
 import logging
+import os
 import pickle
+import re
+import shutil
 import time
 from typing import Any, List, Optional, Sequence
 
-from ..ckpt import resolve_every
+from ..ckpt import DIR_ENV
 from ..controller.dase import FOREIGN_ROOTS, ForeignModelError
 from ..controller.engine import (
     Engine,
@@ -40,6 +48,7 @@ from ..controller.engine import (
     serialize_engine_params,
 )
 from ..controller.evaluation import EngineParamsGenerator, Evaluation
+from ..obs import perfledger
 from ..storage import (
     STATUS_COMPLETED,
     STATUS_EVALCOMPLETED,
@@ -50,13 +59,21 @@ from ..storage import (
     new_engine_instance,
     utcnow,
 )
+from ..storage.registry import base_dir
+from ..utils.profiling import (
+    TRAIN_PHASES_ENV_KEY,
+    TRAIN_PROFILE_ENV_KEY,
+    device_trace,
+    phases_to_env,
+    profile_to_env,
+)
 from .context import WorkflowContext, pio_env_vars
 from .version_check import check_upgrade
 
 logger = logging.getLogger(__name__)
 
-#: instance-env key of the run's profile (the JAX package's key and JSON)
-TRAIN_PROFILE_ENV_KEY = "PIO_TRAIN_PROFILE"
+#: env naming the directory ``engine.train`` is traced into
+PROFILE_DIR_ENV = "PIO_PROFILE_DIR"
 
 class _PortUnpickler(pickle.Unpickler):
     """Unpickles the port's own blobs (models, the ``RETRAIN`` sentinel,
@@ -118,16 +135,6 @@ def persist_instance(
     return instance_id
 
 
-def _refuse_run_cadence(workflow_params: WorkflowParams) -> None:
-    """The run's own checkpoint cadence is refused before any instance
-    row; the algorithm resolves its params and ``PIO_CKPT_EVERY``."""
-    if resolve_every(None, workflow=workflow_params.checkpoint_every, env={}):
-        raise NotImplementedError(
-            "checkpointed training is not ported yet (ROADMAP.md, queue 1: "
-            "checkpoint resume in the port's trainer)"
-        )
-
-
 def run_train(
     engine: Engine,
     engine_params: EngineParams,
@@ -144,51 +151,109 @@ def run_train(
 
     The context (default: a training context on ``cuda:0``, which raises
     where there is no CUDA) is resolved before the instance row is
-    written. The row goes in as INIT, the models are trained
-    (``Engine.train``) and pickled into the model store, and the row
-    flips to COMPLETED with ``train_wall_s`` in its env. An interrupted
-    run leaves the INIT row behind (``CoreWorkflow.scala:83-88``)."""
-    _refuse_run_cadence(workflow_params)
+    written. The row goes in as INIT; the models are trained
+    (``Engine.train``, traced into ``PIO_PROFILE_DIR`` when it is set)
+    and pickled into the model store; the row flips to COMPLETED with
+    the phase summary (``PIO_TRAIN_PHASES``) and ``{"train_wall_s": …}``
+    (``PIO_TRAIN_PROFILE``; the port keeps no jit-compile telemetry, so
+    the JAX package's compile counts have no counterpart) in its env; a
+    ledger record goes to ``PIO_PERF_LEDGER`` when it is set.
+
+    ``ctx.checkpoint_every`` comes from ``workflow_params`` unless the
+    caller set it. ``ctx.checkpoint_dir`` is ``PIO_CKPT_DIR`` when set
+    (never deleted), else ``<base>/checkpoints/<engine id>/<engine
+    version>/<batch>``, stable across reruns of one workflow so that a
+    crashed run's rerun resumes from it, and deleted after a successful
+    run. An interrupted run leaves the INIT row and its checkpoints
+    behind (``CoreWorkflow.scala:83-88``). ``ctx.stop()`` runs in
+    ``finally``."""
     ctx = ctx or WorkflowContext(mode="Training", batch=workflow_params.batch)
-    check_upgrade("training", engine_factory)  # CoreWorkflow.scala:51
-    if ctx.checkpoint_every is None:
-        ctx.checkpoint_every = workflow_params.checkpoint_every
-    md = registry.get_metadata()
-    instance = new_engine_instance(
-        engine_id=engine_id,
-        engine_version=engine_version,
-        engine_variant=engine_variant,
-        engine_factory=engine_factory,
-        batch=workflow_params.batch,
-        env=pio_env_vars(),
-        **serialize_engine_params(engine_params),
-    )
-    instance_id = md.engine_instance_insert(instance)
     try:
-        t0 = time.monotonic()
-        models = engine.train(ctx, engine_params, workflow_params)
-        train_wall_s = time.monotonic() - t0
-        persisted = engine.make_serializable_models(
-            ctx, engine_params, instance_id, models
+        check_upgrade("training", engine_factory)  # CoreWorkflow.scala:51
+        if ctx.checkpoint_every is None:
+            ctx.checkpoint_every = workflow_params.checkpoint_every
+        derived_checkpoint_dir = False
+        if ctx.checkpoint_dir is None:
+            pinned = os.environ.get(DIR_ENV)
+            if pinned:
+                ctx.checkpoint_dir = pinned
+            else:
+                slug = re.sub(r"[^A-Za-z0-9_.-]", "_", workflow_params.batch) or "default"
+                ctx.checkpoint_dir = os.path.join(
+                    base_dir(), "checkpoints", engine_id, engine_version, slug)
+                derived_checkpoint_dir = True
+        md = registry.get_metadata()
+        instance = new_engine_instance(
+            engine_id=engine_id,
+            engine_version=engine_version,
+            engine_variant=engine_variant,
+            engine_factory=engine_factory,
+            batch=workflow_params.batch,
+            env=pio_env_vars(),
+            **serialize_engine_params(engine_params),
         )
-        registry.get_models().insert(
-            Model(id=instance_id, models=pickle.dumps(persisted))
-        )
-        stored = md.engine_instance_get(instance_id)
-        env = dict(stored.env)
-        env[TRAIN_PROFILE_ENV_KEY] = json.dumps(
-            {"train_wall_s": round(train_wall_s, 3)}, sort_keys=True
-        )
-        md.engine_instance_update(
-            dataclasses.replace(
-                stored, status=STATUS_COMPLETED, end_time=utcnow(), env=env
+        instance_id = md.engine_instance_insert(instance)
+        try:
+            t0 = time.monotonic()
+            with device_trace(os.environ.get(PROFILE_DIR_ENV)):
+                models = engine.train(ctx, engine_params, workflow_params)
+            train_wall_s = time.monotonic() - t0
+            logger.info("train phases: %s", ctx.timer.format_summary())
+            persisted = engine.make_serializable_models(
+                ctx, engine_params, instance_id, models
             )
-        )
-        logger.info("Training completed; engine instance %s", instance_id)
-        return instance_id
-    except KeyboardInterrupt:
-        logger.warning("Training interrupted; instance %s stays INIT", instance_id)
-        raise
+            registry.get_models().insert(
+                Model(id=instance_id, models=pickle.dumps(persisted))
+            )
+            stored = md.engine_instance_get(instance_id)
+            phases = ctx.timer.summary()
+            profile = {"train_wall_s": round(train_wall_s, 3)}
+            env = dict(stored.env)
+            env[TRAIN_PHASES_ENV_KEY] = phases_to_env(phases)
+            env[TRAIN_PROFILE_ENV_KEY] = profile_to_env(profile)
+            md.engine_instance_update(
+                dataclasses.replace(
+                    stored, status=STATUS_COMPLETED, end_time=utcnow(), env=env
+                )
+            )
+            _append_perf_ledger(ctx, instance_id, train_wall_s, phases, profile)
+            logger.info("Training completed; engine instance %s", instance_id)
+            if derived_checkpoint_dir:
+                # resume data serves a crashed run's rerun only; a caller's
+                # PIO_CKPT_DIR may be shared and is left alone
+                shutil.rmtree(ctx.checkpoint_dir, ignore_errors=True)
+            return instance_id
+        except KeyboardInterrupt:
+            logger.warning("Training interrupted; instance %s stays INIT", instance_id)
+            raise
+    finally:
+        ctx.stop()
+
+
+def _append_perf_ledger(ctx: WorkflowContext, instance_id: str, train_wall_s: float,
+                        phases: dict, profile: dict) -> None:
+    """One ``train_wall_s`` record for this run in the ledger that
+    ``PIO_PERF_LEDGER`` names. Best-effort: ledger trouble never fails a
+    finished training run."""
+    path = os.environ.get(perfledger.LEDGER_ENV)
+    if not path:
+        return
+    try:
+        device = "cpu"
+        if ctx.device.type == "cuda":
+            import torch
+
+            device = f"{ctx.device} ({torch.cuda.get_device_name(ctx.device)})"
+        perfledger.append_record(path, perfledger.make_record(
+            source="train",
+            metric="train_wall_s",
+            value=train_wall_s,
+            device=device,
+            phases={name: round(s["total_s"], 4) for name, s in phases.items()},
+            extra={"instanceId": instance_id, "profile": profile},
+        ))
+    except Exception:
+        logger.exception("perf-ledger append failed (ignored)")
 
 
 def run_evaluation(
@@ -208,39 +273,43 @@ def run_evaluation(
     generator is evaluated (``Engine.batch_eval``, ``eval_parallelism``
     sweep threads, 0 = one per candidate), the evaluator scores them and
     picks the best, and the row flips to EVALCOMPLETED with the result's
-    one-liner, HTML and JSON. A failed run leaves the EVALUATING row. A
-    run checkpoint cadence above 0 is refused, as in :func:`run_train`."""
-    _refuse_run_cadence(workflow_params)
+    one-liner, HTML and JSON. A failed run leaves the EVALUATING row.
+    An evaluation assigns no checkpoint directory, so its candidates
+    train without checkpoints whatever the cadence says. ``ctx.stop()``
+    runs in ``finally``."""
     ctx = ctx or WorkflowContext(mode="Evaluation", batch=workflow_params.batch)
-    check_upgrade("evaluation", type(evaluation).__name__)  # CoreWorkflow.scala:108
-    md = registry.get_metadata()
-    now = utcnow()
-    instance_id = md.evaluation_instance_insert(EvaluationInstance(
-        id="",
-        status=STATUS_EVALUATING,
-        start_time=now,
-        end_time=now,
-        evaluation_class=type(evaluation).__name__,
-        engine_params_generator_class=type(engine_params_generator).__name__,
-        batch=workflow_params.batch,
-        env=pio_env_vars(),
-    ))
-    engine, evaluator = evaluation.engine_evaluator
-    params_list = engine_params_generator.engine_params_list
-    parallelism = (workflow_params.eval_parallelism
-                   if workflow_params.eval_parallelism > 0 else len(params_list))
-    engine_eval_data = engine.batch_eval(ctx, params_list, workflow_params,
-                                         parallelism=parallelism)
-    result = evaluator.evaluate_base(ctx, evaluation, engine_eval_data,
-                                     workflow_params, parallelism=parallelism)
-    stored = md.evaluation_instance_get(instance_id)
-    md.evaluation_instance_update(dataclasses.replace(
-        stored,
-        status=STATUS_EVALCOMPLETED,
-        end_time=utcnow(),
-        evaluator_results=result.one_liner(),
-        evaluator_results_html=result.to_html(),
-        evaluator_results_json=result.to_json(),
-    ))
-    logger.info("Evaluation completed; instance %s", instance_id)
-    return instance_id
+    try:
+        check_upgrade("evaluation", type(evaluation).__name__)  # CoreWorkflow.scala:108
+        md = registry.get_metadata()
+        now = utcnow()
+        instance_id = md.evaluation_instance_insert(EvaluationInstance(
+            id="",
+            status=STATUS_EVALUATING,
+            start_time=now,
+            end_time=now,
+            evaluation_class=type(evaluation).__name__,
+            engine_params_generator_class=type(engine_params_generator).__name__,
+            batch=workflow_params.batch,
+            env=pio_env_vars(),
+        ))
+        engine, evaluator = evaluation.engine_evaluator
+        params_list = engine_params_generator.engine_params_list
+        parallelism = (workflow_params.eval_parallelism
+                       if workflow_params.eval_parallelism > 0 else len(params_list))
+        engine_eval_data = engine.batch_eval(ctx, params_list, workflow_params,
+                                             parallelism=parallelism)
+        result = evaluator.evaluate_base(ctx, evaluation, engine_eval_data,
+                                         workflow_params, parallelism=parallelism)
+        stored = md.evaluation_instance_get(instance_id)
+        md.evaluation_instance_update(dataclasses.replace(
+            stored,
+            status=STATUS_EVALCOMPLETED,
+            end_time=utcnow(),
+            evaluator_results=result.one_liner(),
+            evaluator_results_html=result.to_html(),
+            evaluator_results_json=result.to_json(),
+        ))
+        logger.info("Evaluation completed; instance %s", instance_id)
+        return instance_id
+    finally:
+        ctx.stop()

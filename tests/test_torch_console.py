@@ -25,6 +25,7 @@ import pytest
 
 from predictionio_tpu.models import recommendation as jrec
 from predictionio_tpu.storage.bimap import BiMap as JaxBiMap
+from predictionio_tpu_torch.ckpt import CheckpointStore
 from predictionio_tpu_torch.models import recommendation as rec
 from predictionio_tpu_torch.storage import Event, EventFilter, get_registry
 from predictionio_tpu_torch.tools import console
@@ -386,17 +387,21 @@ def test_eventserver_command_takes_events_into_the_apps_store(registry, tmp_path
 
 
 def test_commands_that_need_no_device_do_not_import_torch(registry, tmp_path):
-    """Apps, keys, status, templates and import run without torch (a
-    console process spends its start-up on what its command needs)."""
+    """Apps, keys, status, templates, import and ``ckpt`` run without
+    torch (a console process spends its start-up on what its command
+    needs)."""
+    (tmp_path / "ck").mkdir()
     code = (
         "import sys\n"
         "from predictionio_tpu_torch.tools import console\n"
         "for argv in (['app', 'new', 'a'], ['status'], ['template', 'list'],\n"
-        "             ['template', 'get', 'recommendation', sys.argv[1]]):\n"
+        "             ['template', 'get', 'recommendation', sys.argv[1]],\n"
+        "             ['ckpt', 'ls', '--dir', sys.argv[2]]):\n"
         "    assert console.main(argv) == 0, argv\n"
         "assert 'torch' not in sys.modules\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "proj")],
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "proj"),
+                           str(tmp_path / "ck")],
                           capture_output=True, text=True, timeout=120, cwd=str(REPO))
     assert proc.returncode == 0, proc.stderr[-2000:]
 
@@ -412,12 +417,22 @@ def test_train_without_a_device_raises_on_a_cpu_box(registry, tmp_path, capsys):
 
 
 # -- what is not ported ---------------------------------------------------------------
-@pytest.mark.parametrize("name", sorted(console.NOT_PORTED) + ["checkpoint"])
+@pytest.mark.parametrize("name", sorted(console.NOT_PORTED))
 def test_commands_of_modules_not_ported_name_their_roadmap_item(name, registry, capsys):
-    item = console.NOT_PORTED["ckpt" if name == "checkpoint" else name][1]
+    item = console.NOT_PORTED[name][1]
     assert console.main([name, "--some", "args"], registry) == 1
     error = json.loads(capsys.readouterr().out)["error"]
     assert f"ROADMAP.md, queue 1 item {item})" in error
+
+
+@pytest.mark.parametrize("argv,key", [(["ckpt", "ls", "--json"], "uncommitted"),
+                                      (["checkpoint", "verify", "--json"], "ok")])
+def test_ckpt_and_its_alias_reach_the_checkpoint_cli(argv, key, tmp_path, capsys):
+    store = CheckpointStore(str(tmp_path / "store"))
+    store.save(4, {"x": np.ones((3, 2), np.float32)}, {"iteration": 4})
+    assert console.main(argv + ["--dir", store.root]) == 0
+    doc = json.loads(capsys.readouterr().out)
+    assert [s["step"] for s in doc["steps"]] == [4] and key in doc
 
 
 @pytest.mark.parametrize("flags,env,item", [

@@ -322,13 +322,25 @@ def test_precision_points_differ_from_the_jax_package_only_at_named_ties(
             assert np.isclose(score, kth, rtol=SCORE_RTOL, atol=SCORE_ATOL), differing
 
 
-def test_run_evaluation_refuses_a_run_cadence_before_its_row(tmp_path):
-    registry = StorageRegistry({"PIO_FS_BASEDIR": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_evaluation(rec.RecEvaluation(), rec.RecParamsGenerator(), registry,
-                       workflow_params=WorkflowParams(checkpoint_every=2),
-                       ctx=WorkflowContext(mode="Evaluation", device="cpu"))
-    assert registry.get_metadata().evaluation_instance_get_completed() == []
+def test_run_evaluation_refuses_a_run_cadence_before_its_row(stores, tmp_path, monkeypatch):
+    """A run checkpoint cadence no longer refuses: an evaluation assigns
+    no checkpoint directory, so its candidates train without checkpoints
+    (none is written, even under a pinned ``PIO_CKPT_DIR``) and the result
+    is the run's without a cadence."""
+    ours, _ = stores()
+    monkeypatch.setenv("PIO_CKPT_DIR", str(tmp_path / "ck"))
+    results = []
+    for every in (2, None):
+        iid = run_evaluation(
+            rec.RecEvaluation(), rec.RecParamsGenerator(app_id=APP, ranks=RANKS[:1],
+                                                        lambdas=LAMBDAS[:1]),
+            ours, workflow_params=WorkflowParams(checkpoint_every=every, eval_parallelism=1),
+            ctx=WorkflowContext(mode="Evaluation", device="cpu"))
+        row = ours.get_metadata().evaluation_instance_get(iid)
+        assert row.status == STATUS_EVALCOMPLETED
+        results.append(row.evaluator_results_json)
+    assert results[0] == results[1]
+    assert not (tmp_path / "ck").exists()
 
 
 def test_a_failed_evaluation_leaves_its_evaluating_row(tmp_path, monkeypatch):

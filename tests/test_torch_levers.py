@@ -5,18 +5,22 @@
 - The environment levers: ``PIO_TRAIN_SHARDS`` resolves the shard count
   (explicit > env > 1) and ``PIO_CKPT_EVERY`` the checkpoint cadence
   (params > workflow run > env > 0) with the JAX package's resolvers'
-  results; a resolved ``shards > 1`` or cadence > 0 is refused like the
-  explicit params, and a value that is not an integer raises.
+  results; a resolved ``shards > 1`` is refused like the explicit
+  params, a resolved cadence > 0 checkpoints, and a value that is not an
+  integer raises.
 
 Everything runs on the CPU at a tiny size (40 users, 20 items, rank 4).
 """
+
+import os
+import shutil
 
 import numpy as np
 import pytest
 
 from predictionio_tpu.ckpt.settings import resolve_every as jax_resolve_every
 from predictionio_tpu.ops.als_sharded import resolve_shards as jax_resolve_shards
-from predictionio_tpu_torch.ckpt import EVERY_ENV, resolve_every
+from predictionio_tpu_torch.ckpt import DIR_ENV, EVERY_ENV, resolve_every
 from predictionio_tpu_torch.controller import (
     DataSource,
     Engine,
@@ -117,12 +121,22 @@ def test_a_nan_run_is_stopped_before_it_is_stored(tmp_path, monkeypatch):
 
 
 # -- the environment levers ----------------------------------------------------
-@pytest.mark.parametrize("env,value", [(SHARDS_ENV, "4"), (EVERY_ENV, "2")])
+@pytest.mark.parametrize("env,value", [(SHARDS_ENV, "4")])
 def test_an_env_lever_that_is_not_ported_is_refused(tmp_path, monkeypatch, env, value):
     monkeypatch.setenv(env, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(tmp_path)
     assert all(r.status == STATUS_INIT for r in _run.rows)
+
+
+@pytest.mark.parametrize("env,value", [(EVERY_ENV, "2")])
+def test_an_env_cadence_checkpoints(tmp_path, monkeypatch, env, value):
+    monkeypatch.setenv(env, value)
+    monkeypatch.setenv(DIR_ENV, str(tmp_path / "ck"))
+    _run(tmp_path)
+    (row,) = _run.rows
+    assert row.status == STATUS_COMPLETED
+    assert os.listdir(tmp_path / "ck" / "algo_0") == ["step_2"]
 
 
 @pytest.mark.parametrize("env,value", [
@@ -154,9 +168,15 @@ def test_explicit_params_win_over_the_env(tmp_path, monkeypatch):
 
 def test_the_workflow_cadence_sits_between_params_and_env(tmp_path, monkeypatch):
     monkeypatch.setenv(EVERY_ENV, "2")
+    ck = tmp_path / "ck"
+    monkeypatch.setenv(DIR_ENV, str(ck))
     _run(tmp_path, workflow_params=WorkflowParams(checkpoint_every=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(tmp_path, workflow_params=WorkflowParams(checkpoint_every=3))
+    assert not ck.exists()
+    _run(tmp_path, workflow_params=WorkflowParams(checkpoint_every=1))
+    assert sorted(os.listdir(ck / "algo_0")) == ["step_1", "step_2"]
+    shutil.rmtree(ck)
+    _run(tmp_path, checkpoint_every=2, workflow_params=WorkflowParams(checkpoint_every=1))
+    assert os.listdir(ck / "algo_0") == ["step_2"]
     with pytest.raises(ValueError, match="checkpoint-every"):
         _run(tmp_path, workflow_params=WorkflowParams(checkpoint_every=-1))
 

@@ -8,9 +8,9 @@ cpu``, in process and through ``python -m
 predictionio_tpu_torch.tools.run_workflow`` in a subprocess (the two give
 the same evaluation result). Without ``--device`` the run raises where
 there is no CUDA; ``runtimeConf`` keys of the JAX runtime are refused,
-naming the key; ``--shards`` and ``--checkpoint-every`` reach the
-refusals of what is not ported; ``--resume`` sets ``PIO_CKPT_RESUME``
-for the run only. The upgrade check makes no request unless
+naming the key; ``--shards`` reaches the refusal of what is not ported
+and ``--checkpoint-every`` the trainer; ``--resume`` sets
+``PIO_CKPT_RESUME`` for the run only. The upgrade check makes no request unless
 ``PIO_VERSIONS_HOST`` is set (tried against a local server only).
 """
 
@@ -19,6 +19,7 @@ import http.server
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import threading
@@ -251,7 +252,10 @@ def test_runtime_conf_env_is_applied(tmp_path, project, monkeypatch):
     assert loader.apply_runtime_conf({}) == {}
 
 
-def test_shards_and_checkpoint_cadence_reach_the_refusals(project):
+def test_shards_and_checkpoint_cadence_reach_the_refusals(project, tmp_path, monkeypatch):
+    """``--shards`` above 1 reaches the refusal; ``--checkpoint-every``
+    reaches the trainer: a training run checkpoints every iteration into
+    the pinned directory, an evaluation trains without checkpoints."""
     engine_dir, registry, _ = project
     base = ("--engine-dir", str(engine_dir), "--device", "cpu")
     assert "PIO_TRAIN_SHARDS" not in os.environ
@@ -260,9 +264,15 @@ def test_shards_and_checkpoint_cadence_reach_the_refusals(project):
     with pytest.raises(ValueError, match="PIO_TRAIN_SHARDS"):
         run_workflow.run(_args(*base, "--shards", "0"), registry)
     assert "PIO_TRAIN_SHARDS" not in os.environ  # scoped to the run
-    for extra in ((), EVAL_ARGS):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            run_workflow.run(_args(*base, "--checkpoint-every", "1", *extra), registry)
+    ck = tmp_path / "ck"
+    monkeypatch.setenv("PIO_CKPT_DIR", str(ck))
+    iid = run_workflow.run(_args(*base, "--checkpoint-every", "1"), registry)
+    assert registry.get_metadata().engine_instance_get(iid).status == STATUS_COMPLETED
+    assert sorted(os.listdir(ck / "algo_0")) == ["step_1", "step_2", "step_3"]
+    shutil.rmtree(ck)
+    eid = run_workflow.run(_args(*base, "--checkpoint-every", "1", *EVAL_ARGS), registry)
+    assert registry.get_metadata().evaluation_instance_get(eid).status == "EVALCOMPLETED"
+    assert not ck.exists()
     # --shards 1 and cadence 0 train as usual
     iid = run_workflow.run(_args(*base, "--shards", "1", "--checkpoint-every", "0"),
                            registry)

@@ -15,6 +15,7 @@ equal or tied).
 
 import http.client
 import json
+import os
 
 import numpy as np
 import pytest
@@ -183,17 +184,24 @@ def test_what_is_not_ported_is_refused(tmp_path, monkeypatch):
                       algorithm_params_list=[("als", ALSAlgorithmParams(rank=RANK))])
     with pytest.raises(ValueError, match="No rating events found"):
         run_train(engine_factory(), ep, registry, ctx=ctx)
-    for bad in (dict(shards=2), dict(distributed=True), dict(checkpoint_every=1)):
+    for bad in (dict(shards=2), dict(distributed=True)):
         ep = EngineParams(algorithm_params_list=[
             ("als", ALSAlgorithmParams(rank=RANK, **bad))])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_train(_engine(_training_data()), ep, registry, ctx=ctx)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_train(_engine(_training_data()), ep, registry, ctx=ctx,
-                  workflow_params=WorkflowParams(checkpoint_every=1))
+    # a checkpoint cadence is ported: from the params or from the workflow
+    # run it trains and checkpoints into the pinned directory
+    monkeypatch.setenv("PIO_CKPT_DIR", str(tmp_path / "ck"))
+    for params, wp in ((dict(checkpoint_every=1), WorkflowParams()),
+                       ({}, WorkflowParams(checkpoint_every=1))):
+        ep = EngineParams(algorithm_params_list=[
+            ("als", ALSAlgorithmParams(rank=RANK, num_iterations=3, **params))])
+        run_train(_engine(_training_data()), ep, registry,
+                  ctx=WorkflowContext(device="cpu"), workflow_params=wp)
+        assert sorted(os.listdir(tmp_path / "ck" / "algo_0")) == ["step_1", "step_2", "step_3"]
     # failed runs leave their INIT rows behind, as the reference does
     rows = registry.get_metadata().engine_instance_get_all()
-    assert rows and all(r.status == STATUS_INIT for r in rows)
+    assert sorted(r.status for r in rows) == [STATUS_COMPLETED] * 2 + [STATUS_INIT] * 3
 
 
 def test_engine_train_runs_the_sanity_checks_and_stops_where_asked():
