@@ -192,6 +192,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    against the plain forward; and one ``POST /queries.json`` with ``num``
    = 4096 to the slice phase's ML-20M-shaped instance, its 4,096 items
    held to the plain top-k. Each stage's seconds are printed.
+13b. ``templates`` — the similar-product and e-commerce templates over
+   ML-1M's users and items with 18 categories (ML-1M's genre count, 1-3
+   an item), made from ``--seed``: about 250,000 ``view`` and 50,000
+   ``like``/``dislike`` events, and about 250,000 ``rate`` and 50,000
+   ``view``/``buy`` events (200 visitors never ``$set`` who only view),
+   bulk-written into two apps of the events phase's native log. Each
+   template is trained by ``run_train`` through its DataSource (``als``
+   and ``likealgo``, then explicit ALS; rank 10, 10 iterations; build and
+   solve launches counted; ``run_train`` split into read, prepare,
+   ``train[i]`` and the model-store insert), deployed by
+   ``create_query_server`` and queried over HTTP in blocks: single
+   queries (1-5 items, a black list), queries on the category nearest 10 %
+   of the catalog (about 3,300 excluded ids), white-list queries and a
+   concurrent burst of 64; then known users (``unseen_only``), new users
+   answered from their recent views, category and white-list queries and a
+   burst; then a live ``buy`` and an ``unavailableItems`` ``$set``, after
+   which the next answers drop those items with no retrain. The top-k
+   launches are reset before each block and read after it (none may be
+   0). Every answer is held to the port's plain path on CPU copies of the
+   same tables (ids outside ties; scores to 1e-5, carried through the
+   similar-product z-score sum), and each similar-product algorithm alone
+   at 1e-5. Then one constrained batch (B = 64, the category's exclusion
+   lists) timed per call and on the device beside the same batch without
+   the filter and ``torch.topk`` of the masked product.
 14. ``kernel_large`` — the top-k at B = 262,144 and at B = 600,000 (above
    one launch's 524,280 queries: two launches into one output), N =
    3,706, R = 16, k = 16, and at B = 32,768, k = 256 over 27,000 items
@@ -3872,6 +3896,454 @@ def phase_persist(torch, dev, seed: int, base: str, registry, slice_instance: st
     return out
 
 
+#: the templates phase: the similar-product and e-commerce templates over
+#: ML-1M's users and items with 18 categories (ML-1M's genre count), each
+#: item in 1-3 of them, in two apps of the events phase's native log; the
+#: templates' variants (rank 10, 10 iterations; tools/templates.py)
+TEMPLATE_CATEGORIES, SP_APP, EC_APP = 18, 3, 4
+SP_VIEWS, SP_LIKES, EC_RATES, EC_VIEW_BUYS, EC_VISITORS = 250_000, 50_000, 250_000, 50_000, 200
+TEMPLATE_RANK, TEMPLATE_ITERS = 10, 10
+#: queries of a block of single, category and white-list queries, the
+#: concurrent burst, the served num, the constrained batch timed
+TEMPLATE_QUERIES, TEMPLATE_BURST, TEMPLATE_NUM, TEMPLATE_TIMED_B = 16, 64, 10, 64
+
+
+def synth_template_events(seed: int) -> dict:
+    """The two templates' stores from ``seed``: ``$set`` users ``u<n>``
+    and items ``i<n>`` (categories ``g0``..``g17``, 1-3 an item), Zipf-like
+    user and item activity; the similar-product app's ``view`` and
+    ``like``/``dislike`` events (like with probability 0.8), the
+    e-commerce app's ``rate`` events (a rank-8 latent model rounded to 1-5)
+    and ``view``/``buy`` events (buy with probability 0.2), and visitors
+    ``v<n>`` never ``$set`` who only view (the new users). Event times rise
+    by one second an event."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.storage import Event
+
+    rng = np.random.default_rng(seed + 11)
+    n_users, n_items = ML1M_USERS, ML1M_ITEMS
+    n_cats = rng.integers(1, 4, n_items)
+    cats = [sorted(rng.choice(TEMPLATE_CATEGORIES, size=c, replace=False).tolist())
+            for c in n_cats]
+    u_w = 1.0 / np.arange(1, n_users + 1) ** 0.8
+    i_w = 1.0 / np.arange(1, n_items + 1) ** 0.9
+    t0 = dt.datetime(2001, 1, 1, tzinfo=dt.timezone.utc)
+    clock = [0]
+
+    def at():
+        clock[0] += 1
+        return t0 + dt.timedelta(seconds=clock[0])
+
+    def entities():
+        return ([Event(event="$set", entity_type="user", entity_id=f"u{u}", properties={},
+                       event_time=t0) for u in range(n_users)]
+                + [Event(event="$set", entity_type="item", entity_id=f"i{i}",
+                         properties={"categories": [f"g{c}" for c in cats[i]]},
+                         event_time=t0) for i in range(n_items)])
+
+    def pairs(n):
+        return (rng.choice(n_users, size=n, p=u_w / u_w.sum()),
+                rng.choice(n_items, size=n, p=i_w / i_w.sum()))
+
+    def acts(names, users, items, props=None):
+        return [Event(event=name, entity_type="user", entity_id=user,
+                      target_entity_type="item", target_entity_id=f"i{i}",
+                      properties={} if props is None else props[j], event_time=at())
+                for j, (name, user, i) in enumerate(zip(names, users, items))]
+
+    users, items = pairs(SP_VIEWS)
+    sp_events = entities() + acts(["view"] * SP_VIEWS, [f"u{u}" for u in users], items)
+    users, items = pairs(SP_LIKES)
+    sp_events += acts(np.where(rng.random(SP_LIKES) < 0.8, "like", "dislike"),
+                      [f"u{u}" for u in users], items)
+    users, items = pairs(EC_RATES)
+    x = rng.normal(size=(n_users, 8)) / np.sqrt(8)
+    y = rng.normal(size=(n_items, 8)) / np.sqrt(8)
+    ratings = np.clip(np.rint((x[users] * y[items]).sum(1) * 2 + 3.5
+                              + rng.normal(0, 0.5, EC_RATES)), 1, 5)
+    ec_events = entities() + acts(["rate"] * EC_RATES, [f"u{u}" for u in users], items,
+                                  [{"rating": float(r)} for r in ratings])
+    users, items = pairs(EC_VIEW_BUYS)
+    ec_events += acts(np.where(rng.random(EC_VIEW_BUYS) < 0.2, "buy", "view"),
+                      [f"u{u}" for u in users], items)
+    visitors = [f"v{j}" for j in range(EC_VISITORS) for _ in range(int(3 + j % 10))]
+    ec_events += acts(["view"] * len(visitors), visitors,
+                      rng.choice(n_items, size=len(visitors), p=i_w / i_w.sum()))
+    members = {f"g{c}": [i for i in range(n_items) if c in cats[i]]
+               for c in range(TEMPLATE_CATEGORIES)}
+    return {"sp": sp_events, "ec": ec_events, "members": members,
+            "visitors": sorted(set(visitors)), "n_users": n_users, "n_items": n_items}
+
+
+def answer_errors(got, want, tol: float) -> dict:
+    """``got`` against ``want`` (lists of (item, score)): the largest
+    score error, and the slots whose id differs while ``want``'s score
+    there has no other slot within ``tol`` holding that id (a wrong id
+    outside ties). A length mismatch counts every slot wrong."""
+    if len(got) != len(want):
+        return {"max_abs_err": float("inf"), "wrong": max(len(got), len(want)), "n": len(want)}
+    ws = np.array([s for _, s in want], np.float64)
+    gs = np.array([s for _, s in got], np.float64)
+    wrong = 0
+    for j, ((g, _), (w, _)) in enumerate(zip(got, want)):
+        if g != w and g not in {want[t][0] for t in np.flatnonzero(np.abs(ws - ws[j]) <= tol)}:
+            wrong += 1
+    err = float(np.abs(gs - ws).max()) if len(ws) else 0.0
+    return {"max_abs_err": err, "wrong": wrong + int(err > tol), "n": len(want)}
+
+
+def zscore_tolerance(preds, num: int) -> float:
+    """The 1e-5 score tolerance carried through the ensemble's z-score sum:
+    a score moved by at most ε moves ``(s - mean) / std`` by at most
+    ``ε (2 + max|z|) / std`` (std is 1-Lipschitz in the largest move), summed
+    over the algorithms; ε itself where the serving sums raw scores
+    (``num == 1``)."""
+    if num == 1:
+        return ATOL * len(preds)
+    tol = 0.0
+    for scores in preds:
+        s = np.array(scores, np.float64)
+        std = s.std() if s.size else 0.0
+        if std > 0:
+            tol += ATOL * (2 + np.abs(s - s.mean()).max() / std) / std
+    return max(tol, ATOL)
+
+
+def phase_templates(torch, dev, seed: int, base: str) -> dict:
+    """The similar-product and e-commerce templates end to end on the card:
+    both stores bulk-written into the events phase's
+    native log, each template trained by ``run_train`` through its own
+    DataSource (build and solve launches counted), deployed by
+    ``create_query_server`` and queried over HTTP in blocks (top-k
+    launches reset before each block and read after it; none may be 0),
+    every answer held to the port's plain path on CPU copies of the same
+    tables; live ``buy`` and ``unavailableItems`` events change the next
+    e-commerce answer without a retrain; then one category-constrained
+    batch timed beside the same batch unconstrained and beside
+    ``torch.topk`` of the masked product."""
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.models import ecommerce as ec
+    from predictionio_tpu_torch.models import similarproduct as sp
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        gramian_fused,
+        spd_solve,
+        top_k_streaming,
+        top_k_streaming_reference,
+    )
+    from predictionio_tpu_torch.ops.scoring import exclusion_matrix
+    from predictionio_tpu_torch.storage import Event
+    from predictionio_tpu_torch.utils.profiling import phases_from_env, profile_from_env
+    from predictionio_tpu_torch.workflow import (
+        ServerConfig,
+        WorkflowContext,
+        create_query_server,
+        load_models,
+        run_train,
+    )
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(seed + 12)
+    seconds, launches, checks = {}, {}, {}
+    t = time.monotonic()
+    data = synth_template_events(seed)
+    seconds["generate"] = time.monotonic() - t
+    members = data["members"]
+    n_items = data["n_items"]
+    # the category nearest 10 % of the catalog: its queries exclude ~90 %
+    cat = min(members, key=lambda c: abs(len(members[c]) - 0.1 * n_items))
+    bad = []
+
+    def train(registry, engine, ep, name):
+        ctx = WorkflowContext(device=dev)
+        ctx.profile = {}
+        gramian_fused.launches = spd_solve.launches = 0  # main path starts here
+        t = time.monotonic()
+        instance = run_train(engine, ep, registry, engine_id=name, ctx=ctx)
+        wall = time.monotonic() - t
+        counts = {"gramian_fused": gramian_fused.launches,
+                  "spd_solve": spd_solve.launches}  # main path ends here
+        env = registry.get_metadata().engine_instance_get(instance).env
+        engine_s = profile_from_env(env)["train_wall_s"]
+        launches[f"{name}_train"] = counts
+        seconds[f"{name}_run_train"] = wall
+        if min(counts.values()) < 1:
+            bad.append((name, counts))
+        return instance, {"run_train_s": wall, **phases_from_env(env),
+                          "engine_train_s": engine_s,
+                          "model_store_insert_and_rows_s": wall - engine_s,
+                          "host_prep_path": ctx.profile.get("host_prep_path")}
+
+    def deploy(engine, registry, instance):
+        return create_query_server(engine, ServerConfig(
+            ip="127.0.0.1", port=0, device=dev, engine_instance_id=instance),
+            registry=registry, block=False)
+
+    def block(name, server, bodies, plain, concurrent=False):
+        """POST ``bodies``; launches counted over the block alone; each
+        answer against ``plain(body)`` -> (items and scores, tolerance)."""
+        top_k_streaming.launches = 0  # main path starts here
+        t = time.monotonic()
+        if concurrent:
+            with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+                answers = list(pool.map(lambda b: _post_query(server.bound_port, b), bodies))
+        else:
+            answers = [_post_query(server.bound_port, b) for b in bodies]
+        wall = time.monotonic() - t
+        launches[name] = top_k_streaming.launches  # main path ends here
+        errs, empty, tols = [], 0, []
+        for body, (status, out, _) in zip(bodies, answers):
+            if status != 200:
+                bad.append((name, body, status, out))
+                continue
+            got = [(x["item"], x["score"]) for x in out["itemScores"]]
+            want, tol = plain(body)
+            tols.append(tol)
+            e = answer_errors(got, want, tol)
+            errs.append(e)
+            empty += not got
+            if e["wrong"]:
+                bad.append((name, body, got[:4], want[:4], e))
+        checks[name] = {"queries": len(bodies), "seconds": wall, "launches": launches[name],
+                        "wrong": sum(e["wrong"] for e in errs), "empty_answers": empty,
+                        "max_abs_err": max((e["max_abs_err"] for e in errs), default=0.0),
+                        "max_tolerance": max(tols, default=ATOL)}
+        if launches[name] < 1:
+            bad.append((name, "no top-k launch"))
+        return answers
+
+    with events_store(base) as registry:
+        store = registry.get_events()
+        t = time.monotonic()
+        for app, key in ((SP_APP, "sp"), (EC_APP, "ec")):
+            store.init(app)
+            for j in range(0, len(data[key]), EVENTS_WRITE_CHUNK):
+                store.write(data[key][j:j + EVENTS_WRITE_CHUNK], app)
+        seconds["bulk_write"] = time.monotonic() - t
+
+        # -- similar product: als (views) and likealgo (like/dislike) -------
+        params = dict(rank=TEMPLATE_RANK, num_iterations=TEMPLATE_ITERS)
+        sp_ep = EngineParams(
+            data_source_params=("", sp.SimilarProductDataSourceParams(app_id=SP_APP)),
+            algorithm_params_list=[("als", sp.SimilarALSParams(**params)),
+                                   ("likealgo", sp.SimilarALSParams(**params))])
+        sp_instance, sp_split = train(registry, sp.engine_factory(), sp_ep, "similarproduct")
+        sp_models = load_models(registry, sp_instance)
+        plain_algos = [sp.SimilarALSAlgorithm(sp.SimilarALSParams(**params), device="cpu"),
+                       sp.LikeAlgorithm(sp.SimilarALSParams(**params), device="cpu")]
+        serving = sp.SimilarProductServing()
+
+        def sp_plain(body):
+            q = sp.Query(**body)
+            preds = [a.predict(m, q) for a, m in zip(plain_algos, sp_models)]
+            want = serving.serve(q, preds)
+            tol = zscore_tolerance([[s.score for s in p.item_scores] for p in preds], q.num)
+            return [(s.item, s.score) for s in want.item_scores], tol
+
+        def sp_body(n_query=None, **kw):
+            n_query = n_query or int(rng.integers(1, 6))
+            items = [f"i{i}" for i in rng.choice(n_items, size=n_query, replace=False)]
+            return {"items": items, "num": TEMPLATE_NUM, **kw}
+
+        def black():
+            return [f"i{i}" for i in rng.choice(n_items, size=int(rng.integers(1, 20)),
+                                                 replace=False)]
+
+        def white():
+            return [f"i{i}" for i in rng.choice(n_items, size=int(rng.integers(20, 200)),
+                                                 replace=False)]
+
+        server = deploy(sp.engine_factory(), registry, sp_instance)
+        try:
+            t = time.monotonic()
+            singles = [sp_body(black_list=black()) for _ in range(TEMPLATE_QUERIES)]
+            category = [sp_body(categories=[cat]) for _ in range(TEMPLATE_QUERIES)]
+            whites = [sp_body(white_list=white(), black_list=black())
+                      for _ in range(TEMPLATE_QUERIES)]
+            burst = [sp_body(**([{"categories": [cat]}, {"black_list": black()},
+                                 {"white_list": white()}][j % 3]))
+                     for j in range(TEMPLATE_BURST)]
+            block("sp_single", server, singles, sp_plain)
+            block("sp_category", server, category, sp_plain)
+            block("sp_white_list", server, whites, sp_plain)
+            block("sp_burst", server, burst, sp_plain, concurrent=True)
+            seconds["sp_serve"] = time.monotonic() - t
+            # each algorithm on the card alone, against its plain version
+            # at the score tolerance (the served answers are z-score sums)
+            prof = device_profile(torch, lambda: block("sp_burst_profiled", server, burst,
+                                                       sp_plain, concurrent=True), top=3)
+            checks["sp_burst_profiled"].update(
+                device_busy_share=prof["device_busy_share"], wall_ms=prof["wall_ms"],
+                top_device_ops=prof["top_device_ops"])
+            dep = server.deployment
+            queries = [(j, sp.Query(**b)) for j, b in enumerate(
+                singles + category + whites + burst)]
+            per_algo = {}
+            for name, algo, model, plain_algo, cpu_model in zip(
+                    ("als", "likealgo"), dep.algorithms, dep.models, plain_algos, sp_models):
+                got = dict(algo.batch_predict(model, queries))
+                want = dict(plain_algo.batch_predict(cpu_model, queries))
+                errs = [answer_errors([(s.item, s.score) for s in got[j].item_scores],
+                                      [(s.item, s.score) for s in want[j].item_scores], ATOL)
+                        for j, _ in queries]
+                per_algo[name] = {"queries": len(queries),
+                                  "wrong": sum(e["wrong"] for e in errs),
+                                  "max_abs_err": max(e["max_abs_err"] for e in errs),
+                                  "topk_path": algo.topk_path}
+                if per_algo[name]["wrong"] or algo.topk_path != "streaming":
+                    bad.append(("sp_per_algorithm", name, per_algo[name]))
+            checks["sp_per_algorithm"] = per_algo
+            status = _get_json(server.bound_port, "/status.json")
+            checks["sp_topk_path"] = status.get("topkPath")
+
+            # -- the constrained batch, timed: kernel 1 with the category's
+            # exclusion lists, without them, and torch.topk of the masked product
+            unit = dep.algorithms[0]._device_unit(dep.models[0])
+            model = dep.models[0]
+            q_rows = rng.choice(n_items, size=TEMPLATE_TIMED_B, replace=False)
+            qvecs = unit[torch.from_numpy(q_rows).to(dev)].contiguous()
+            excl_c = torch.from_numpy(exclusion_matrix([sp._exclusions(
+                model, sp.Query(items=(f"i{i}",), categories=(cat,)), [int(i)])
+                for i in q_rows])).to(dev)
+            excl_u = torch.from_numpy(exclusion_matrix([[int(i)] for i in q_rows])).to(dev)
+            mask = torch.zeros((TEMPLATE_TIMED_B, n_items), dtype=torch.bool, device=dev)
+            rows = torch.arange(TEMPLATE_TIMED_B, device=dev)[:, None].expand_as(excl_c)
+            hit = excl_c >= 0
+            mask[rows[hit], excl_c[hit].long()] = True
+            k = 16
+            calls = {
+                "constrained": lambda: top_k_streaming(qvecs, unit, k, excl_c),
+                "unconstrained": lambda: top_k_streaming(qvecs, unit, k, excl_u),
+                "library": lambda: torch.topk(
+                    (qvecs @ unit.T).masked_fill_(mask, float("-inf")), k),
+            }
+            err, ok = agreement(calls["constrained"](),
+                                top_k_streaming_reference(qvecs, unit, k, excl_c))
+            lib_s, lib_i = calls["library"]()
+            lib_err, lib_ok = agreement(calls["constrained"](), (lib_s, lib_i.int()))
+            runs = {name: [] for name in calls}
+            for name in ("constrained", "unconstrained", "library", "library",
+                         "unconstrained", "constrained"):
+                runs[name].append(time_ms(torch, calls[name], iters=200, warmup=10))
+            device_ms = {name: device_time(torch, fn, iters=50, ops_per_call=1)["ms"]
+                         for name, fn in calls.items()}
+            plain_ms = time_ms(torch, lambda: top_k_streaming_reference(qvecs, unit, k, excl_c),
+                               iters=20)
+            widths = (excl_c >= 0).sum(1).float()
+            bound_ms, bound_by = topk_bound(TEMPLATE_TIMED_B, n_items, TEMPLATE_RANK, k,
+                                            int(excl_c.shape[1]))
+            checks["constrained_batch"] = {
+                "B": TEMPLATE_TIMED_B, "N": n_items, "R": TEMPLATE_RANK, "k": k,
+                "category": cat, "category_items": len(members[cat]),
+                "E_padded": int(excl_c.shape[1]), "E_mean": float(widths.mean()),
+                "E_max": int(widths.max()), "max_abs_err": err, "agrees_with_plain": ok,
+                "library_max_abs_err": lib_err, "agrees_with_library": lib_ok,
+                "order": "constrained, unconstrained, library, library, unconstrained, "
+                         "constrained",
+                "runs_ms": runs, "ms": {n: sum(v) / len(v) for n, v in runs.items()},
+                "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+            if not (ok and lib_ok):
+                bad.append(("constrained_batch", err, lib_err))
+        finally:
+            server.shutdown()
+            server.server_close()
+
+        # -- e-commerce: explicit ALS on rate events, live filters ----------
+        ec_params = ec.ECommerceALSParams(app_id=EC_APP, **params)
+        ec_ep = EngineParams(
+            data_source_params=("", ec.ECommerceDataSourceParams(app_id=EC_APP)),
+            algorithm_params_list=[("als", ec_params)])
+        ec_instance, ec_split = train(registry, ec.engine_factory(), ec_ep, "ecommerce")
+        (ec_model,) = load_models(registry, ec_instance)
+        ec_plain_algo = ec.ECommerceALSAlgorithm(ec_params, device="cpu")
+
+        def ec_plain(body):
+            want = ec_plain_algo.predict(ec_model, ec.Query(**body))
+            return [(s.item, s.score) for s in want.item_scores], ATOL
+
+        def users(n):
+            return [f"u{u}" for u in rng.choice(data["n_users"], size=n, replace=False)]
+
+        server = deploy(ec.engine_factory(), registry, ec_instance)
+        try:
+            t = time.monotonic()
+            known = [{"user": u, "num": TEMPLATE_NUM} for u in users(TEMPLATE_QUERIES)]
+            new = [{"user": v, "num": TEMPLATE_NUM}
+                   for v in rng.choice(data["visitors"], size=TEMPLATE_QUERIES, replace=False)]
+            filtered = [{"user": u, "num": TEMPLATE_NUM,
+                         **([{"categories": [cat]}, {"white_list": white()}][j % 2])}
+                        for j, u in enumerate(users(TEMPLATE_QUERIES // 2)
+                                              + [str(v) for v in rng.choice(
+                                                  data["visitors"], TEMPLATE_QUERIES // 2)])]
+            burst = [{"user": u, "num": TEMPLATE_NUM, **({"black_list": black()} if j % 2
+                                                          else {})}
+                     for j, u in enumerate(users(TEMPLATE_BURST - 8)
+                                           + [str(v) for v in data["visitors"][:8]])]
+            answers = block("ec_known", server, known, ec_plain)
+            block("ec_new_users", server, new, ec_plain)
+            block("ec_filtered", server, filtered, ec_plain)
+            block("ec_burst", server, burst, ec_plain, concurrent=True)
+            seconds["ec_serve"] = time.monotonic() - t
+            prof = device_profile(torch, lambda: block("ec_burst_profiled", server, burst,
+                                                       ec_plain, concurrent=True), top=3)
+            checks["ec_burst_profiled"].update(
+                device_busy_share=prof["device_busy_share"], wall_ms=prof["wall_ms"],
+                top_device_ops=prof["top_device_ops"])
+            # a query's live reads on the host, each timed alone (ms a read)
+            algo = server.deployment.algorithms[0]
+            sample = [b["user"] for b in known[:8]]
+            live = {}
+            for name, read, who in (
+                    ("seen_items", algo._seen_items, sample),
+                    ("unavailable_items", lambda _u: algo._unavailable_items(), sample),
+                    ("recent_views", algo._recent_view_items, [b["user"] for b in new[:8]])):
+                t0 = time.monotonic()
+                for u in who:
+                    read(u)
+                live[f"{name}_ms"] = (time.monotonic() - t0) / len(who) * 1e3
+            checks["ec_live_read_ms"] = live
+            # live events: a buy of a user's top item and the second user's
+            # top item made unavailable drop them from the next answers
+            (u1, a1), (u2, a2) = [(b["user"], out["itemScores"]) for b, (_, out, _)
+                                  in zip(known, answers) if out["itemScores"]][:2]
+            bought, gone = a1[0]["item"], a2[0]["item"]
+            store.insert(Event(event="buy", entity_type="user", entity_id=u1,
+                               target_entity_type="item", target_entity_id=bought), EC_APP)
+            store.insert(Event(event="$set", entity_type="constraint",
+                               entity_id="unavailableItems", properties={"items": [gone]}),
+                         EC_APP)
+            again = block("ec_live", server, [{"user": u1, "num": TEMPLATE_NUM},
+                                              {"user": u2, "num": TEMPLATE_NUM}], ec_plain)
+            after = [{x["item"] for x in out["itemScores"]} for _, out, _ in again]
+            checks["ec_live"].update(bought=bought, unavailable=gone,
+                                     dropped=bool(bought not in after[0]
+                                                  and gone not in after[1]
+                                                  and gone not in after[0]))
+            if not checks["ec_live"]["dropped"]:
+                bad.append(("ec_live", checks["ec_live"]))
+            checks["ec_topk_path"] = _get_json(server.bound_port, "/status.json").get("topkPath")
+        finally:
+            server.shutdown()
+            server.server_close()
+    for name in ("sp_topk_path", "ec_topk_path"):
+        if set((checks[name] or {}).values()) != {"streaming"}:
+            bad.append((name, checks[name]))
+    seconds["phase"] = time.monotonic() - t_phase
+    out = {"phase": "templates", "category": {"name": cat, "items": len(members[cat])},
+           "events": {"similarproduct": len(data["sp"]), "ecommerce": len(data["ec"])},
+           "split": {"similarproduct": sp_split, "ecommerce": ec_split},
+           "launches": launches, "checks": checks, "seconds": seconds,
+           "by_kernel": {
+               "topk_streaming": sum(v for v in launches.values() if isinstance(v, int)),
+               **{k: sum(v[k] for v in launches.values() if isinstance(v, dict))
+                  for k in ("gramian_fused", "spd_solve")}}}
+    emit(out)
+    if bad:
+        raise AssertionError(f"templates: {bad[:4]}")
+    return out
+
+
 #: the wide phase: ranks above the build's and the solve's tuned paths (R, n
 #: = 129, 200, 256) at ML-20M's bucket shapes (the users' K = 128 bucket of
 #: 97,972 rows, cut by the wrapper's systems budget as training cuts it, over
@@ -6231,6 +6703,7 @@ def main(argv=None) -> int:
         evaluated = timed("eval", phase_eval, torch, dev, args.seed, base)
         persisted = timed("persist", phase_persist, torch, dev, args.seed, base, registry,
                           trained["instance"])
+        templated = timed("templates", phase_templates, torch, dev, args.seed, base)
         consoled = timed("console", phase_console, torch, dev, args.seed, base)
     large = timed("kernel_large", topk_large_batches, torch, dev,
                   np.random.default_rng(args.seed + 7))
@@ -6248,11 +6721,13 @@ def main(argv=None) -> int:
         "launches": (sliced["launches"] + events["serve"]["launches"]
                      + evaluated["launches"]["topk_streaming"]
                      + persisted["by_kernel"]["topk_streaming"]
+                     + templated["by_kernel"]["topk_streaming"]
                      + consoled["by_kernel"]["topk_streaming"]),
         "launches_by_path": {"slice": sliced["launches"],
                              "events_serve": events["serve"]["launches"],
                              "eval": evaluated["launches"]["topk_streaming"],
                              "persist": persisted["by_kernel"]["topk_streaming"],
+                             "templates": templated["by_kernel"]["topk_streaming"],
                              "console": consoled["by_kernel"]["topk_streaming"]},
         "max_abs_err": max(m["max_abs_err"] for m in [*main_shapes.values(),
                                                       *large.values()]),
@@ -6269,6 +6744,7 @@ def main(argv=None) -> int:
             "library_ms", "library_device_ms", "bound_us", "bound_by",
             "wrong_ids_outside_ties")} for b, v in large.items()},
         "eval_shape": evaluated["topk_at_eval_shape"],
+        "constrained_batch": templated["checks"]["constrained_batch"],
         "k_above_2048": {name: {k: main_shapes[name][k] for k in (
             "B", "N", "k", "E", "T", "n_runs", "merge_in", "kernel_ms", "kernel_device_ms",
             "plain_ms", "library_ms", "library_device_ms", "bound_us", "bound_by",
@@ -6332,12 +6808,14 @@ def main(argv=None) -> int:
             "launches": (trained["launches"][name] + resume_launches[name]
                          + events["als"]["launches"][name]
                          + evaluated["launches"][name] + persisted["by_kernel"][name]
+                         + templated["by_kernel"][name]
                          + wide["by_kernel"][name] + consoled["by_kernel"][name]),
             "launches_by_path": {"train": trained["launches"][name],
                                  "resume": resume_launches[name],
                                  "events_als": events["als"]["launches"][name],
                                  "eval": evaluated["launches"][name],
                                  "persist": persisted["by_kernel"][name],
+                                 "templates": templated["by_kernel"][name],
                                  "wide": wide["by_kernel"][name],
                                  "console": consoled["by_kernel"][name]},
             "max_abs_err": kernels["max_abs_err"][name],

@@ -1,2 +1,6 @@
-"""Engine templates of the port. Ported so far: recommendation (ALS)
-serving."""
+"""Engine templates of the port: recommendation (ALS), the sequence
+recommender, similar product and e-commerce."""
+
+from . import ecommerce, recommendation, sequencerec, similarproduct
+
+__all__ = ["ecommerce", "recommendation", "sequencerec", "similarproduct"]

@@ -61,6 +61,7 @@ from ..ops.als_sharded import resolve_shards
 from ..ops.scoring import (
     pad_pow2,
     resolve_topk_path,
+    results_to_host,
     top_k_for_users_fused,
     use_streaming_topk,
 )
@@ -464,13 +465,7 @@ class ALSAlgorithm(Algorithm):
         mode = self.params.streaming_top_k
         self._topk_path = resolve_topk_path(mode, itf.device)
         scores, items = top_k_for_users_fused(uf, itf, padded, k=k_pad, mode=mode)
-        # one device→host copy for both arrays: the int32 indices ride
-        # as float32 bit patterns beside the scores
-        packed = torch.cat(
-            [scores[:b, :max_k], items[:b, :max_k].view(torch.float32)], dim=1
-        ).cpu()
-        s_rows = packed[:, :max_k].tolist()
-        i_rows = packed[:, max_k:].view(torch.int32).tolist()
+        s_rows, i_rows = results_to_host(scores, items, b, max_k)
         inv = model.item_map.inverse
         for row, (i, q) in enumerate(known):
             k = min(q.num, max_k)

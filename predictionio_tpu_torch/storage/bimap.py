@@ -3,12 +3,12 @@
 Trimmed copy of ``predictionio_tpu/storage/bimap.py`` (``BiMap``, with
 the accessors serving uses, the ``string_int`` constructor the
 sequence recommender indexes its items with and ``from_ids``, which the
-weight carries build their id maps with, and the native batch id hash
-``_fnv1a64_batch`` the event log indexes its records by; ``HashedIdMap``,
-``EntityMap`` and the vectorized constructors wait): the boundary
-between host-side string ids and the device's dense indices — the
-forward map turns a query's user id into a factor row, the inverse
-decodes top-k indices.
+weight carries build their id maps with; ``HashedIdMap``, the hashed
+big-id map of the training infeed; and the native batch id hash
+``_fnv1a64_batch`` both it and the event log index by; ``EntityMap`` and
+the vectorized constructors wait): the boundary between host-side string
+ids and the device's dense indices — the forward map turns a query's
+user id into a factor row, the inverse decodes top-k indices.
 """
 
 from __future__ import annotations
@@ -123,13 +123,74 @@ class BiMap(Generic[K, V]):
         return BiMap(mapping)
 
 
-def _fnv1a64_batch(keys: Sequence[str]) -> np.ndarray:
+class HashedIdMap:
+    """Fixed-capacity hashed id → index map for huge id spaces (the
+    hashing trick): an id's index is ``fnv1a64(id, salt) & (capacity -
+    1)``, computed natively in batch, so the map stores nothing per id.
+
+    Aliased ids share a factor row: the fraction of ids sharing a slot
+    with another is about ``1 - exp(-n / capacity)`` (size capacity >= 16n
+    to keep it under about 6 %). Capacity is a power of two of at most
+    2^31 (int32 indices) and is the factor table's row count downstream.
+    There is no inverse, so keep an exact :class:`BiMap` for the side whose
+    ids results must name (items). Forward-only ``BiMap`` interface:
+    ``map_array``, ``[]``, ``get``, ``len`` (the capacity)."""
+
+    _MAX_CAPACITY = 1 << 31
+
+    def __init__(self, capacity: int, salt: int = 0):
+        if capacity <= 0 or capacity & (capacity - 1):
+            raise ValueError(f"capacity must be a power of two, got {capacity}")
+        if capacity > self._MAX_CAPACITY:
+            raise ValueError(
+                f"capacity {capacity} exceeds 2^31 (int32 indices); shard "
+                "the id space across hosts instead of growing one map"
+            )
+        self.capacity = capacity
+        self.salt = salt
+
+    def __len__(self) -> int:
+        return self.capacity
+
+    def __getitem__(self, key: str) -> int:
+        return int(self.map_array([key])[0])
+
+    def get(self, key: str) -> int:
+        # every key hashes somewhere: a hashed map has no unknown id
+        return self[key]
+
+    def __contains__(self, key: str) -> bool:
+        return True
+
+    @property
+    def inverse(self):
+        raise TypeError(
+            "HashedIdMap cannot be inverted (indices do not decode to ids);"
+            " use an exact BiMap for the side whose ids must be recovered"
+        )
+
+    def expected_collision_fraction(self, n_ids: int) -> float:
+        """Fraction of ``n_ids`` ids expected to share a slot with another
+        (about 1 - exp(-n / capacity))."""
+        return 1.0 - float(np.exp(-n_ids / self.capacity))
+
+    def map_array(self, keys: Iterable[str], missing: int = -1) -> np.ndarray:
+        """int32 slot of each id of a chunk (one native call). ``missing``
+        is accepted for ``BiMap`` compatibility and unused: every id has a
+        slot."""
+        keys = list(keys)
+        if not keys:
+            return np.zeros(0, dtype=np.int32)
+        hashes = _fnv1a64_batch(keys, self.salt)
+        return (hashes & np.uint64(self.capacity - 1)).astype(np.int32)
+
+
+def _fnv1a64_batch(keys: Sequence[str], salt: int = 0) -> np.ndarray:
     """uint64 FNV-1a hashes of ``keys`` (UTF-8) in one threaded native
-    call (``native/idhash.cc``): the event log's ``evlog_fnv1a64``. A
-    hash of 0 reads as 1 (0 means "no value" in a log header). The
-    library's salt stays 0 until ``HashedIdMap`` (ROADMAP.md, queue 1
-    item 7) needs it. A library that fails to build raises
-    ``NativeBuildError``: there is no slower Python path."""
+    call (``native/idhash.cc``), the offset basis XOR-ed with ``salt``:
+    with salt 0, the event log's ``evlog_fnv1a64``. A hash of 0 reads as 1
+    (0 means "no value" in a log header). A library that fails to build
+    raises ``NativeBuildError``: there is no slower Python path."""
     lib = load_library("idhash")
     if not getattr(lib, "_pio_configured", False):
         lib.pio_fnv1a64_batch.restype = None
@@ -144,6 +205,6 @@ def _fnv1a64_batch(keys: Sequence[str]) -> np.ndarray:
     out = np.empty(len(encoded), dtype=np.uint64)
     if encoded:
         lib.pio_fnv1a64_batch(
-            buf.ctypes.data, ends.ctypes.data, len(encoded), 0, out.ctypes.data
+            buf.ctypes.data, ends.ctypes.data, len(encoded), salt, out.ctypes.data
         )
     return out

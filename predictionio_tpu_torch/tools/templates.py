@@ -5,9 +5,9 @@ Trimmed copy of ``predictionio_tpu/tools/templates.py`` (a rebuild of
 <dir>`` writes a ready-to-run engine project (``engine.json`` +
 ``engine.py``, and the recommendation template's ``evaluation.py``)
 whose ``engine.py`` imports the port's own
-:mod:`predictionio_tpu_torch.models` engine. The templates whose models
-are not ported yet (classification, similar products, e-commerce) stay in
-the listing and refuse ``get`` with the ROADMAP item that ports them.
+:mod:`predictionio_tpu_torch.models` engine. The template whose model is
+not ported yet (classification) stays in the listing and refuses ``get``
+with the ROADMAP item that ports it.
 There is no remote gallery.
 """
 
@@ -73,7 +73,16 @@ from predictionio_tpu_torch.models.recommendation import (  # noqa: F401
     },
     "similarproduct": {
         "blurb": "Item similarity from ALS factors (view/like events)",
-        "not_ported": "ROADMAP.md, queue 1 item 7 (the similar-items template)",
+        "factory": "predictionio_tpu_torch.models.similarproduct",
+        "variant": {
+            "id": "default",
+            "description": "Similar-product engine (item-factor cosine on CUDA)",
+            "engineFactory": "engine:engine_factory",
+            "datasource": {"params": {"app_id": 1}},
+            "algorithms": [
+                {"name": "als", "params": {"rank": 10, "num_iterations": 10}}
+            ],
+        },
     },
     "sequencerec": {
         "blurb": "Transformer next-item prediction over interaction histories",
@@ -97,7 +106,16 @@ from predictionio_tpu_torch.models.recommendation import (  # noqa: F401
     },
     "ecommerce": {
         "blurb": "E-commerce recommendation with live serving-time filters",
-        "not_ported": "ROADMAP.md, queue 1 item 7 (the e-commerce template)",
+        "factory": "predictionio_tpu_torch.models.ecommerce",
+        "variant": {
+            "id": "default",
+            "description": "E-commerce engine (ALS + live filters on CUDA)",
+            "engineFactory": "engine:engine_factory",
+            "datasource": {"params": {"app_id": 1}},
+            "algorithms": [
+                {"name": "als", "params": {"rank": 10, "num_iterations": 10}}
+            ],
+        },
     },
 }
 

@@ -1,7 +1,6 @@
 """Streaming training infeed: event store → dense rating index arrays.
 
-Copy of the JAX package's ``workflow/infeed.py`` (the ``hashed_users``
-big-id path waits for ``HashedIdMap``, ROADMAP.md queue 1 item 7).
+Copy of the JAX package's ``workflow/infeed.py``.
 
 The reference feeds training through ``newAPIHadoopRDD`` region splits —
 events stream from HBase regionservers into executor partitions without any
@@ -20,11 +19,11 @@ map-all → bucketize pipeline.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..storage.bimap import BiMap
+from ..storage.bimap import BiMap, HashedIdMap
 from ..storage.events import EventFilter, EventStore
 
 
@@ -96,7 +95,7 @@ class RatingBatch:
     users: np.ndarray  # int32 [nnz]
     items: np.ndarray  # int32 [nnz]
     ratings: np.ndarray  # float32 [nnz]
-    user_map: BiMap
+    user_map: BiMap  # a HashedIdMap under ``hashed_users``
     item_map: BiMap
 
 
@@ -119,14 +118,15 @@ def stream_ratings(
     and gives the same arrays and maps as the chunked path
     (:func:`_stream_ratings_chunked`), which every other store takes.
 
-    ``hashed_users`` (the JAX package's hashed big-id user map) is not
-    ported: a nonzero value raises.
+    ``hashed_users`` (a power-of-two capacity) switches the user side to
+    :class:`~predictionio_tpu_torch.storage.bimap.HashedIdMap`, the
+    big-id path for catalogs whose unique-user dict would not fit one
+    host (see its aliasing trade-off); it takes the chunked path. Items
+    keep the exact map: serving must decode item indices back to ids.
     """
     if hashed_users:
-        raise NotImplementedError(
-            "hashed_users (HashedIdMap) is not ported yet (ROADMAP.md, "
-            "queue 1 item 7)"
-        )
+        return _stream_ratings_chunked(store, app_id, value_rules, chunk_rows,
+                                       HashedIdMap(hashed_users))
     # Native fast path: the event log's C++ ratings scan does the whole
     # chunked loop in one pass (ratings.cc) — only the unique-id strings
     # cross into Python. Constraint: one distinct property name.
@@ -159,11 +159,14 @@ def _stream_ratings_chunked(
     app_id: int,
     value_rules: ValueRule,
     chunk_rows: int = 1_000_000,
+    hashed: Optional[HashedIdMap] = None,
 ) -> RatingBatch:
     """The generic path of :func:`stream_ratings`: ``scan_columnar_iter``
     chunks of at most ``chunk_rows`` events, each translated by
-    :class:`StreamingIndexer` — the native scan's oracle."""
-    user_ix = StreamingIndexer()
+    :class:`StreamingIndexer` (users by ``hashed`` when given) — the
+    native scan's oracle."""
+    user_ix = StreamingIndexer() if hashed is None else None
+    index_users = user_ix.index_chunk if hashed is None else hashed.map_array
     item_ix = StreamingIndexer()
     u_parts: List[np.ndarray] = []
     i_parts: List[np.ndarray] = []
@@ -174,7 +177,7 @@ def _stream_ratings_chunked(
         uids, tids, vals = _extract_chunk(cols, value_rules)
         if not uids:
             continue
-        u_parts.append(user_ix.index_chunk(uids))
+        u_parts.append(index_users(uids))
         i_parts.append(item_ix.index_chunk(tids))
         v_parts.append(np.asarray(vals, dtype=np.float32))
 
@@ -187,6 +190,6 @@ def _stream_ratings_chunked(
             if v_parts
             else np.zeros(0, dtype=np.float32)
         ),
-        user_map=user_ix.to_bimap(),
+        user_map=hashed if hashed is not None else user_ix.to_bimap(),
         item_map=item_ix.to_bimap(),
     )

@@ -156,8 +156,9 @@ def test_template_commands(registry, tmp_path, capsys):
     assert console.main(["template", "get", "sequencerec", str(tmp_path / "s")], registry) == 0
     assert (tmp_path / "s" / "engine.py").exists()
     capsys.readouterr()
-    assert console.main(["template", "get", "ecommerce", str(tmp_path / "e")], registry) == 1
-    assert "queue 1 item 7" in json.loads(capsys.readouterr().out)["error"]
+    assert console.main(["template", "get", "classification", str(tmp_path / "e")],
+                        registry) == 1
+    assert "queue 1 item 14" in json.loads(capsys.readouterr().out)["error"]
 
 
 # -- end to end: build → train → deploy → query → reload → undeploy --------------------

@@ -204,8 +204,9 @@ def test_empty_store_and_hashed_users(tmp_path):
     store.init(1)
     got = stream_ratings(store, 1, {"rate": "rating"})
     assert got.users.shape == (0,) and len(got.user_map) == 0
-    with pytest.raises(NotImplementedError, match="HashedIdMap"):
-        stream_ratings(store, 1, {"rate": "rating"}, hashed_users=1024)
+    hashed = stream_ratings(store, 1, {"rate": "rating"}, hashed_users=1024)
+    assert hashed.users.shape == (0,) and len(hashed.user_map) == 1024
+    assert len(hashed.item_map) == 0
 
 
 # -- the DataSources ------------------------------------------------------------

@@ -32,7 +32,8 @@ def test_the_source_scan_reaches_the_evaluation_slice():
             "controller/fast_eval.py", "parallel/sweep.py", "workflow/version_check.py",
             "workflow/loader.py", "tools/register.py", "tools/run_workflow.py",
             "tools/console.py", "tools/run_server.py", "tools/templates.py",
-            "tools/import_events.py", "tools/export_events.py"} <= scanned
+            "tools/import_events.py", "tools/export_events.py", "models/similarproduct.py",
+            "models/ecommerce.py", "storage/batch_view.py"} <= scanned
 
 
 def test_importing_every_port_module_pulls_in_no_jax():
@@ -61,7 +62,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "controller.fast_eval", "parallel.sweep", "workflow.version_check",
         "workflow.loader", "tools.register", "tools.run_workflow", "tools.console",
         "tools.run_server", "tools.templates", "tools.import_events",
-        "tools.export_events")} <= names
+        "tools.export_events", "models.similarproduct", "models.ecommerce",
+        "storage.batch_view")} <= names
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():

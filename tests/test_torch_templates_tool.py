@@ -1,8 +1,8 @@
 """The port's bundled template gallery (``tools/templates.py``) and its
 event import and export, held against the JAX package's
 (``tests/test_tools.py``'s cases): the same listing, scaffolds whose
-``engine.py`` imports the port's models, the templates whose models are
-not ported refused with their ROADMAP item, and JSON-lines files that
+``engine.py`` imports the port's models and that ``build`` accepts, the
+template whose model is not ported refused with its ROADMAP item, and JSON-lines files that
 cross between the two packages' stores.
 """
 
@@ -66,9 +66,31 @@ def test_a_scaffold_imports_the_ports_model(name, module, tmp_path):
         assert "from predictionio_tpu_torch.models.recommendation import" in evaluation
 
 
-@pytest.mark.parametrize("name,item", [
-    ("classification", "item 14"), ("similarproduct", "item 7"), ("ecommerce", "item 7"),
+@pytest.mark.parametrize("name,module", [
+    ("similarproduct", "predictionio_tpu_torch.models.similarproduct"),
+    ("ecommerce", "predictionio_tpu_torch.models.ecommerce"),
 ])
+def test_a_ported_template_scaffolds_an_engine_that_build_accepts(name, module, tmp_path,
+                                                                   capsys):
+    from predictionio_tpu_torch.tools import console
+
+    target = tmp_path / name
+    get_template(name, str(target))
+    assert f"from {module} import engine_factory" in (target / "engine.py").read_text()
+    variant = json.loads((target / "engine.json").read_text())
+    assert variant["algorithms"] == [
+        {"name": "als", "params": {"rank": 10, "num_iterations": 10}}]
+    engine = get_engine(variant["engineFactory"], search_dir=str(target))
+    assert engine.__class__.__module__.startswith("predictionio_tpu_torch.")
+    assert all(cls.__module__ == module for cls in engine.algorithm_class_map.values())
+    registry = StorageRegistry({"PIO_FS_BASEDIR": str(tmp_path / "store")})
+    assert console.main(["build", "--engine-dir", str(target)], registry) == 0
+    capsys.readouterr()
+    listed = {t["name"]: t for t in list_templates()}
+    assert "ported" not in listed[name]
+
+
+@pytest.mark.parametrize("name,item", [("classification", "item 14")])
 def test_templates_whose_models_are_not_ported_are_refused(name, item, tmp_path):
     with pytest.raises(TemplateNotPorted, match=rf"ROADMAP.md, queue 1 {item}"):
         get_template(name, str(tmp_path / name))
