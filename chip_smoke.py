@@ -95,6 +95,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    top-k kernel's launch count is reset just before the first burst and
    read after the last batch.
 
+7b. ``plane`` — the query server's request plane on the slice phase's
+   instance: one server with feedback to the port's own Event Server
+   (over a store of its own), the health plane and the flight recorder
+   armed in ``PIO_FLIGHT_DIR`` (``flight_dumps/plane``). A burst of 64
+   concurrent queries, each with ``X-PIO-Trace`` and a 60 s
+   ``X-PIO-Deadline-Ms``: every answer held to the plain version, kernel
+   1's launches (reset just before the burst, read just after) equal to
+   the batches, each answer's ``predict`` event (its 64-character prId)
+   read back exactly once, one query's trace holding the admission
+   (``POST /queries.json``), batch (``batch.queue-wait``), predict
+   (``batch.device``) and feedback spans with the Event Server's span
+   under the same id, ``/health.json`` firing nothing. A 1 ms deadline
+   sent while a burst holds the batcher: 504 with its stage, counted.
+   Feedback to a closed port (``PIO_BREAKER_FAILURES`` 3): every query
+   answered, the ``event-server`` breaker open, ``pio_breaker_state`` 2,
+   the open on ``/blackbox.json``. Four shard servers (``shard_count`` 4)
+   in this process on the card, each burst with its launches counted,
+   each shard's kernel held to its plain version and timed on the device
+   beside the unsharded table; the merged answers equal the unsharded
+   server's (``merged_matches_reference``, or the plain version's but for
+   a tie at the k-th place). The same burst with the planes on and off,
+   A B B A (wall, p50, p99). Then a spawned ``run_server`` with
+   ``PIO_FLIGHT_DIR``, one query and a ``/reload``, SIGTERM: its
+   ``flight-<pid>.jsonl`` (reason ``signal-15``) and
+   ``faulthandler-<pid>.txt`` must be there.
+
 8. ``attention_kernel`` — the flash-attention kernel against its plain
    PyTorch version on the card (rtol 2e-4 / atol 2e-5, the JAX
    ``TestFlashPallas`` tolerance). First every instantiation's registers
@@ -2412,6 +2438,474 @@ def phase_slice(torch, dev, seed: int, registry, instance_id: str) -> dict:
                                 "tracked_objects": len(gc.get_objects())}},
         "launches": total_launches,
     }
+    emit(out)
+    return out
+
+
+#: the plane phase: four shard servers; a generous budget for the traced
+#: burst; the deadline the held query is sent with; the dead Event
+#: Server's breaker threshold; the overhead rounds, A B B A
+PLANE_SHARDS, PLANE_DEADLINE_MS, PLANE_SHORT_MS, PLANE_BREAKER_FAILURES = 4, 60000, 1, 3
+PLANE_ROUNDS = ("on", "off", "off", "on")
+PLANE_WAIT_S = 60.0
+PLANE_FLIGHT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "flight_dumps",
+                                "plane")
+
+
+def _plane_post(port: int, body: dict, headers=None):
+    """One ``POST /queries.json`` with extra headers: (status, body,
+    response headers, seconds)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t0 = time.monotonic()
+        conn.request("POST", "/queries.json", json.dumps(body),
+                     {"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        data = json.loads(resp.read())
+        return resp.status, data, dict(resp.getheaders()), time.monotonic() - t0
+    finally:
+        conn.close()
+
+
+def _get_text(port: int, path: str) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        return conn.getresponse().read().decode()
+    finally:
+        conn.close()
+
+
+def _wait_for(predicate, what: str, timeout: float = PLANE_WAIT_S):
+    """Poll ``predicate`` every 10 ms until it is truthy; fail after
+    ``timeout`` seconds. Returns its value."""
+    deadline = time.monotonic() + timeout
+    while True:
+        value = predicate()
+        if value:
+            return value
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.01)
+
+
+def _burst(port: int, bodies, headers_of=lambda j: None):
+    """The bodies as one concurrent burst: (answers, wall seconds)."""
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+        answers = list(pool.map(lambda jb: _plane_post(port, jb[1], headers_of(jb[0])),
+                                enumerate(bodies)))
+    return answers, time.monotonic() - t0
+
+
+def _latency(answers, wall: float) -> dict:
+    lat = np.array([a[3] for a in answers]) * 1e3
+    return {"wall_ms": wall * 1e3, "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def _read_line(stream, timeout: float) -> str:
+    """One line from a child's pipe, waited for at most ``timeout`` s."""
+    box = []
+    reader = threading.Thread(target=lambda: box.append(stream.readline()), daemon=True)
+    reader.start()
+    reader.join(timeout)
+    if not box:
+        raise AssertionError(f"no line from the child within {timeout} s")
+    return box[0]
+
+
+def plane_killed_server(torch, base: str, device: str) -> dict:
+    """``python -m predictionio_tpu_torch.tools.run_server`` on the card
+    with ``PIO_FLIGHT_DIR`` set, one query and a ``/reload``, then SIGTERM:
+    it must leave ``flight-<pid>.jsonl`` (reason ``signal-15``, the reload
+    on its timeline) and ``faulthandler-<pid>.txt``."""
+    import signal
+
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithmParams,
+        als_model_from_numpy,
+    )
+    from predictionio_tpu_torch.obs.flight import load_dump
+    from predictionio_tpu_torch.storage import StorageRegistry
+    from predictionio_tpu_torch.tools.register import load_engine_dir
+    from predictionio_tpu_torch.tools.templates import get_template
+    from predictionio_tpu_torch.workflow import persist_instance
+
+    engine_dir = os.path.join(base, "engine")
+    flight_dir = os.path.join(base, "flight")
+    get_template("recommendation", engine_dir)
+    manifest = load_engine_dir(engine_dir).manifest
+    rng = np.random.default_rng(0)
+    small = als_model_from_numpy(RANK, rng.normal(size=(1000, RANK)),
+                                 rng.normal(size=(2000, RANK)),
+                                 [f"u{i}" for i in range(1000)], [f"i{i}" for i in range(2000)])
+    persist_instance(StorageRegistry({"PIO_FS_BASEDIR": os.path.join(base, "store")}),
+                     EngineParams(algorithm_params_list=[("als", ALSAlgorithmParams(rank=RANK))]),
+                     [small], engine_id=manifest.id, engine_version=manifest.version)
+    env = dict(os.environ, PIO_FS_BASEDIR=os.path.join(base, "store"),
+               PIO_FLIGHT_DIR=flight_dir)
+    t0 = time.monotonic()
+    with open(os.path.join(base, "run_server.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.tools.run_server", "--engine-dir",
+             engine_dir, "--ip", "127.0.0.1", "--port", "0", "--device", device],
+            stdout=subprocess.PIPE, stderr=log, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            port = json.loads(_read_line(proc.stdout, 300))["port"]
+            up_s = time.monotonic() - t0
+            status, answer, _, _ = _plane_post(port, {"user": "u3", "num": 10})
+            if status != 200 or len(answer["itemScores"]) != 10:
+                raise AssertionError(f"the spawned server answered {status}: {answer}")
+            topk = _get_json(port, "/status.json").get("topkPath")
+            if _http(port, "POST", "/reload")[0] != 200:
+                raise AssertionError("the spawned server's /reload failed")
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            proc.stdout.close()
+    if code != -signal.SIGTERM:
+        raise AssertionError(f"the SIGTERMed server exited {code}")
+    dump_path = os.path.join(flight_dir, f"flight-{proc.pid}.jsonl")
+    doc = load_dump(dump_path)
+    faulthandler_path = os.path.join(flight_dir, f"faulthandler-{proc.pid}.txt")
+    if doc is None or doc["header"].get("reason") != "signal-15":
+        raise AssertionError(f"no signal-15 flight dump at {dump_path}: {doc}")
+    sites = [e.get("site") for e in doc["events"]]
+    if "serving.reload" not in sites or not os.path.exists(faulthandler_path):
+        raise AssertionError(f"the dump's timeline {sites} or the faulthandler file is missing")
+    if topk != {"0:ALSAlgorithm": "streaming" if device.startswith("cuda") else "dense"}:
+        raise AssertionError(f"the spawned server served through {topk}")
+    return {"exit_code": code, "dump": os.path.basename(dump_path),
+            "reason": doc["header"]["reason"], "events": sites,
+            "faulthandler": os.path.basename(faulthandler_path), "topkPath": topk,
+            "up_s": up_s, "seconds": time.monotonic() - t0}
+
+
+def phase_plane(torch, dev, seed: int, registry, instance_id: str, base: str, smi: str) -> dict:
+    from predictionio_tpu_torch.api.event_server import EventServerConfig, create_event_server
+    from predictionio_tpu_torch.fleet.merge import merge_predictions, merged_matches_reference
+    from predictionio_tpu_torch.models.recommendation import engine_factory
+    from predictionio_tpu_torch.obs.slo import HealthConfig, load_alerts
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        top_k_streaming,
+        top_k_streaming_reference,
+    )
+    from predictionio_tpu_torch.storage import EventFilter, StorageRegistry
+    from predictionio_tpu_torch.storage.metadata import AccessKey, App
+    from predictionio_tpu_torch.workflow import ServerConfig, create_query_server, load_models
+
+    t_phase = time.monotonic()
+    seconds = {}
+    rng = np.random.default_rng(seed + 25)
+    plane_dir = os.path.join(base, "plane")
+    (model,) = load_models(registry, instance_id)  # what run_train wrote
+    n_users, n_items = model.user_factors.shape[0], model.item_factors.shape[0]
+    uf = torch.from_numpy(model.user_factors).to(dev)
+    itf = torch.from_numpy(model.item_factors).to(dev)
+
+    def same_answer(items_scores, want_s, want_i, num) -> bool:
+        k = min(num, n_items)
+        if len(items_scores) != k:
+            return False
+        got_s = np.array([x["score"] for x in items_scores], dtype=np.float32)
+        got_i = np.array([int(x["item"][1:]) for x in items_scores])
+        close = np.isclose(got_s, want_s[:k], rtol=RTOL, atol=ATOL)
+        return bool(close.all() and ((got_i == want_i[:k]) | close).all())
+
+    def check_plain(bodies, answers, what):
+        """Every answer of a burst against the plain version (status 200)."""
+        users = [int(b["user"][1:]) for b in bodies]
+        idx = torch.tensor(users, device=dev, dtype=torch.long)
+        want_s, want_i = (t.cpu().numpy() for t in top_k_streaming_reference(
+            uf[idx].contiguous(), itf, max(b["num"] for b in bodies)))
+        bad = [(b, a[0], a[1] if a[0] != 200 else a[1]["itemScores"][:2])
+               for j, (b, a) in enumerate(zip(bodies, answers))
+               if a[0] != 200 or not same_answer(a[1]["itemScores"], want_s[j], want_i[j],
+                                                  b["num"])]
+        if bad:
+            raise AssertionError(f"{what}: answers disagree with the plain version: {bad[:3]}")
+
+    picked = rng.choice(n_users, size=HTTP_QUERIES + 8, replace=False)
+    warm = [{"user": f"u{u}", "num": 5} for u in picked[:8]]
+    bodies = [{"user": f"u{u}", "num": 1 + j % 50} for j, u in enumerate(picked[8:])]
+    trace_of = {j: f"plane-{seed}-{j}" for j in range(len(bodies))}
+
+    def traced(j):
+        return {"X-PIO-Trace": trace_of[j], "X-PIO-Deadline-Ms": str(PLANE_DEADLINE_MS)}
+
+    # the port's own Event Server over a store of its own: the feedback target
+    ev_registry = StorageRegistry({"PIO_FS_BASEDIR": os.path.join(plane_dir, "events")})
+    md = ev_registry.get_metadata()
+    app_id = md.app_insert(App(id=0, name="plane"))
+    md.access_key_insert(AccessKey(key="plane-key", appid=app_id))
+    ev_registry.get_events().init(app_id)
+    servers = []
+    out = {"phase": "plane", "card": smi, "users": n_users, "items": n_items,
+           "rank": model.rank, "instance": instance_id}
+    try:
+        events = create_event_server(EventServerConfig(ip="127.0.0.1", port=0),
+                                     registry=ev_registry, block=False)
+        servers.append(events)
+        ledger = os.path.join(plane_dir, "alerts.jsonl")
+        # 1. one server with every plane on: feedback, health (ticked here),
+        # the flight recorder armed in PIO_FLIGHT_DIR, traces and deadlines
+        t = time.monotonic()
+        with env_set({"PIO_FLIGHT_DIR": PLANE_FLIGHT_DIR, "PIO_ALERT_LEDGER": ledger}):
+            planes = create_query_server(engine_factory(), ServerConfig(
+                ip="127.0.0.1", port=0, device=dev, feedback=True,
+                event_server_ip="127.0.0.1", event_server_port=events.bound_port,
+                access_key="plane-key", health=HealthConfig(
+                    alert_ledger=ledger, flight_dir=PLANE_FLIGHT_DIR, tick_s=0)),
+                registry=registry, block=False)
+        servers.append(planes)
+        armed = os.path.join(PLANE_FLIGHT_DIR, f"faulthandler-{os.getpid()}.txt")
+        if not os.path.exists(armed):
+            raise AssertionError(f"PIO_FLIGHT_DIR did not arm the flight recorder: no {armed}")
+        port = planes.bound_port
+        check_plain(warm, _burst(port, warm)[0], "warm-up")
+        _wait_for(lambda: planes.stats.count("feedback_sent") == len(warm), "warm-up feedback")
+        seconds["deploy_and_warm"] = time.monotonic() - t
+        batches0 = planes._batcher.stats["batches"]
+        top_k_streaming.launches = 0  # main path starts here
+        answers, wall = _burst(port, bodies, traced)
+        launches = top_k_streaming.launches  # main path ends here
+        batches = planes._batcher.stats["batches"] - batches0
+        check_plain(bodies, answers, "the traced burst")
+        echoed = [a[2].get("X-PIO-Trace") == trace_of[j] for j, a in enumerate(answers)]
+        if not all(echoed) or launches != batches or launches < 1:
+            raise AssertionError(f"trace echoed {sum(echoed)}/{len(bodies)}; kernel 1 launched "
+                                 f"{launches} times for {batches} batches")
+        out["burst"] = {"queries": len(bodies), "launches": launches, "batches": batches,
+                        **_latency(answers, wall)}
+        # feedback: every answer's predict event read back once
+        t = time.monotonic()
+        _wait_for(lambda: planes.stats.count("feedback_sent") == len(warm) + len(bodies),
+                  "the burst's feedback deliveries")
+        stored = list(ev_registry.get_events().find(
+            app_id, EventFilter(event_names=["predict"], limit=-1)))
+        by_user = {}
+        for ev in stored:
+            by_user.setdefault(ev.properties.to_dict()["query"]["user"], []).append(ev)
+        wrong = []
+        for body, answer in zip(bodies, answers):
+            evs = by_user.get(body["user"], [])
+            if (len(evs) != 1 or len(evs[0].entity_id) != 64
+                    or evs[0].properties.to_dict()["prediction"] != answer[1]
+                    or evs[0].properties.to_dict()["variant"] != "baseline"):
+                wrong.append(body["user"])
+        pr_ids = {ev.entity_id for ev in stored}
+        if wrong or len(stored) != len(warm) + len(bodies) or len(pr_ids) != len(stored):
+            raise AssertionError(f"feedback: {len(stored)} events, {len(pr_ids)} prIds, "
+                                 f"answers without exactly one event: {wrong[:5]}")
+        out["feedback"] = {"events": len(stored), "distinct_prIds": len(pr_ids),
+                           "burst_answers_read_back": len(bodies) - len(wrong),
+                           "wait_s": time.monotonic() - t}
+        # one query's trace: admission, batch and predict under one id
+        tid = trace_of[7]
+        _wait_for(lambda: any(s["name"] == "serving.feedback"
+                              for s in planes.tracer.store.for_trace(tid)), "the feedback span")
+        spans = [s for s in _get_json(port, "/traces.json")["spans"] if s["traceId"] == tid]
+        ev_spans = [s for s in _get_json(events.bound_port, "/traces.json")["spans"]
+                    if s["traceId"] == tid]
+        names = {s["name"] for s in spans}
+        need = {"POST /queries.json", "batch.queue-wait", "batch.device", "serving.feedback"}
+        root = [s for s in spans if s["name"] == "POST /queries.json"]
+        if (not need <= names or [s["name"] for s in ev_spans] != ["POST /events.json"]
+                or any(s["parentId"] != root[0]["spanId"] for s in spans if s is not root[0])):
+            raise AssertionError(f"trace {tid}: {sorted(names)}, event server {ev_spans}")
+        out["trace"] = {"id": tid, "spans": {s["name"]: s["durationMs"] for s in spans},
+                        "event_server_spans": [s["name"] for s in ev_spans]}
+        # the health plane: no objective firing
+        planes.health.tick()
+        health_doc = _get_json(port, "/health.json")
+        if health_doc["firing"] != 0:
+            raise AssertionError(f"/health.json firing: {health_doc}")
+        out["health"] = {"firing": health_doc["firing"],
+                         "objectives": {o["name"]: [o["state"], o["abstaining"], o["burnFast"]]
+                                        for o in health_doc["objectives"]},
+                         "stalls": health_doc["stalls"], "alerts": len(load_alerts(ledger))}
+        # 2. a 1 ms deadline sent while a burst holds the batcher
+        t = time.monotonic()
+        expired0 = planes.stats.count("deadline_expired")
+        for attempt in range(3):
+            with ThreadPoolExecutor(max_workers=len(bodies) + 1) as pool:
+                held = [pool.submit(_plane_post, port, b) for b in bodies]
+                late = pool.submit(_plane_post, port, {"user": bodies[0]["user"], "num": 10},
+                                   {"X-PIO-Deadline-Ms": str(PLANE_SHORT_MS)})
+                held = [f.result() for f in held]
+                late = late.result()
+            check_plain(bodies, held, "the held burst")
+            if late[0] == 504:
+                break
+        metrics = _get_text(port, "/metrics")
+        expired = planes.stats.count("deadline_expired") - expired0
+        if (late[0] != 504 or late[1].get("stage") not in ("admission", "dispatch", "batch-wait")
+                or expired != 1
+                or f'pio_serving_events_total{{kind="deadline_expired"}} {expired0 + 1}'
+                not in metrics):
+            raise AssertionError(f"the 1 ms query: {late[:2]}, counted {expired}")
+        out["deadline"] = {"status": late[0], "stage": late[1]["stage"], "attempts": attempt + 1,
+                           "counted": expired, "answer_ms": late[3] * 1e3}
+        seconds["feedback_trace_health_deadline"] = time.monotonic() - t
+
+        # 3. a dead feedback target: the event-server breaker opens
+        t = time.monotonic()
+        with env_set({"PIO_BREAKER_FAILURES": str(PLANE_BREAKER_FAILURES)}):
+            dead = create_query_server(engine_factory(), ServerConfig(
+                ip="127.0.0.1", port=0, device=dev, feedback=True, event_server_ip="127.0.0.1",
+                event_server_port=_free_port(), access_key="plane-key"),
+                registry=registry, block=False)
+        servers.append(dead)
+        statuses = []
+        for rnd in range(3):
+            got, _ = _burst(dead.bound_port, bodies[:16])
+            check_plain(bodies[:16], got, f"dead-target round {rnd}")
+            statuses += [a[0] for a in got]
+            _wait_for(lambda: sum(dead.stats.count(k) for k in (
+                "feedback_failures", "feedback_skipped")) == len(statuses),
+                "every delivery's outcome")
+        metrics = _get_text(dead.bound_port, "/metrics")
+        status = _get_json(dead.bound_port, "/status.json")
+        if (statuses != [200] * len(statuses) or dead.feedback_breaker.state != "open"
+                or 'pio_breaker_state{dep="event-server"} 2' not in metrics
+                or not status["degraded"]):
+            raise AssertionError(f"dead target: breaker {dead.feedback_breaker.snapshot()}, "
+                                 f"degraded {status['degraded']}")
+        out["breaker"] = {"queries": len(statuses), "answered_200": statuses.count(200),
+                          "state": dead.feedback_breaker.state, "gauge": 2,
+                          "opens": dead.feedback_breaker.open_count,
+                          "failures": dead.stats.count("feedback_failures"),
+                          "skipped": dead.stats.count("feedback_skipped"),
+                          "retries": dead.stats.count("retries"),
+                          "degraded": status["degraded"]}
+        seconds["breaker"] = time.monotonic() - t
+        # the process flight recorder, served on /blackbox.json, holds the open
+        blackbox = _get_json(port, "/blackbox.json")
+        opened = [e for e in blackbox["events"] if e["site"] == "breaker.event-server"
+                  and (e.get("details") or {}).get("state") == "open"]
+        if not blackbox["enabled"] or not opened:
+            raise AssertionError(f"/blackbox.json lacks the breaker's open: {blackbox}")
+        out["blackbox"] = {"enabled": blackbox["enabled"], "events": len(blackbox["events"]),
+                           "breaker_opens": len(opened), "armed": os.path.basename(armed)}
+
+        # 4. sharded serving: four shard servers in this process on the card
+        t = time.monotonic()
+        shards = []
+        for i in range(PLANE_SHARDS):
+            shards.append(create_query_server(engine_factory(), ServerConfig(
+                ip="127.0.0.1", port=0, device=dev, shard_index=i, shard_count=PLANE_SHARDS),
+                registry=registry, block=False))
+            servers.append(shards[-1])
+        shard_answers, shard_lines = [], []
+        for i, shard in enumerate(shards):
+            _burst(shard.bound_port, warm)  # its first batch
+            batches0 = shard._batcher.stats["batches"]
+            top_k_streaming.launches = 0  # main path starts here
+            got, wall = _burst(shard.bound_port, bodies)
+            launches_i = top_k_streaming.launches  # main path ends here
+            batches_i = shard._batcher.stats["batches"] - batches0
+            if any(a[0] != 200 for a in got) or launches_i != batches_i or launches_i < 1:
+                raise AssertionError(f"shard {i}: kernel 1 launched {launches_i} times for "
+                                     f"{batches_i} batches")
+            shard_answers.append(got)
+            dep = shard.deployment
+            su, si = dep.algorithms[0]._device_tables(dep.models[0])
+            info = _get_json(shard.bound_port, "/shard.json")
+            topk = _get_json(shard.bound_port, "/status.json").get("topkPath")
+            # the shard's kernel against its plain version at the burst's shape
+            idx = torch.tensor([dep.models[0].user_map[b["user"]] for b in bodies],
+                               device=dev, dtype=torch.long)
+            q = su[idx].contiguous()
+            k = 64
+            got_k = top_k_streaming(q, si, k)
+            want_k = top_k_streaming_reference(q, si, k)
+            err, ok = agreement(got_k, want_k)
+            if (not ok or si.device != itf.device or info["models"][0]["items"] != si.shape[0]
+                    or topk != {"0:ALSAlgorithm": "streaming"}):
+                raise AssertionError(f"shard {i}: agreement {ok} ({err}), table on "
+                                     f"{si.device}, {info}, {topk}")
+            shard_lines.append({"index": i, "items": si.shape[0], "launches": launches_i,
+                                "batches": batches_i, "max_abs_err": err,
+                                "wrong_ids_outside_ties": wrong_outside_ties(got_k, want_k),
+                                "kernel_device_ms": device_time(
+                                    torch, lambda: top_k_streaming(q, si, k), ops_per_call=1)["ms"],
+                                **_latency(got, wall)})
+        # merged answers: equal to the unsharded server's (merged_matches_reference),
+        # or, where a tie sits at the k-th place, equal to the plain version's
+        # but for that tie
+        idx = torch.tensor([int(b["user"][1:]) for b in bodies], device=dev, dtype=torch.long)
+        q = uf[idx].contiguous()
+        want_s, want_i = (t.cpu().numpy() for t in top_k_streaming_reference(q, itf, 64))
+        strict, mismatched = 0, []
+        for j, body in enumerate(bodies):
+            merged = merge_predictions([sa[j][1] for sa in shard_answers], k=body["num"])
+            if merged_matches_reference(merged, answers[j][1]):
+                strict += 1
+            elif not same_answer(merged["itemScores"], want_s[j], want_i[j], body["num"]):
+                mismatched.append((body, merged["itemScores"][:3]))
+        if mismatched:
+            raise AssertionError(f"merged shard answers differ from the unsharded server's: "
+                                 f"{mismatched[:3]}")
+        # the kernel, its plain version and torch.topk, per call, on shard 0's
+        # table and on the whole one at the burst's shape (B = 64, k = 64)
+        s0 = shards[0].deployment
+        su0, si0 = s0.algorithms[0]._device_tables(s0.models[0])
+        q0 = su0[idx].contiguous()
+        timed_calls = {}
+        for name, table, qq in (("shard", si0, q0), ("unsharded", itf, q)):
+            timed_calls[name] = {
+                "kernel_ms": time_ms(torch, lambda: top_k_streaming(qq, table, 64)),
+                "plain_ms": time_ms(torch, lambda: top_k_streaming_reference(qq, table, 64),
+                                    iters=10),
+                "library_ms": time_ms(torch, lambda: torch.topk(qq @ table.T, 64, dim=1)),
+                "library_device_ms": device_time(
+                    torch, lambda: torch.topk(qq @ table.T, 64, dim=1))["ms"]}
+        out["shards"] = {"count": PLANE_SHARDS, "merged_matches_reference": strict,
+                         "timed": timed_calls,
+                         "merged_equal_but_for_ties": len(bodies),
+                         "per_shard": shard_lines,
+                         "unsharded_kernel_device_ms": device_time(
+                             torch, lambda: top_k_streaming(q, itf, 64), ops_per_call=1)["ms"],
+                         "shard_bound_ms": topk_bound(len(bodies), shard_lines[0]["items"],
+                                                      model.rank, 64)[0],
+                         "unsharded_bound_ms": topk_bound(len(bodies), n_items, model.rank, 64)[0]}
+        seconds["shards"] = time.monotonic() - t
+
+        # 5. overhead: the same burst with the planes on and off, A B B A
+        t = time.monotonic()
+        plain_server = create_query_server(engine_factory(), ServerConfig(
+            ip="127.0.0.1", port=0, device=dev), registry=registry, block=False)
+        servers.append(plain_server)
+        _burst(plain_server.bound_port, warm)
+        rounds = []
+        for which in PLANE_ROUNDS:
+            srv, hdr = (planes, traced) if which == "on" else (plain_server, lambda j: None)
+            got, wall = _burst(srv.bound_port, bodies, hdr)
+            check_plain(bodies, got, f"overhead round {which}")
+            rounds.append({"planes": which, **_latency(got, wall)})
+        out["overhead"] = rounds
+        # every answered query's feedback delivered before the Event Server closes
+        _wait_for(lambda: planes.stats.count("feedback_sent") == planes.stats.request_count,
+                  "the planes server's last deliveries")
+        out["feedback"]["delivered_in_phase"] = planes.stats.count("feedback_sent")
+        seconds["overhead"] = time.monotonic() - t
+    finally:
+        for server in reversed(servers):
+            server.shutdown()
+            server.server_close()
+    # 6. a killed server leaves its flight dump
+    t = time.monotonic()
+    out["killed"] = plane_killed_server(torch, os.path.join(plane_dir, "killed"), str(dev))
+    seconds["killed"] = time.monotonic() - t
+    out["seconds"] = {**seconds, "phase": time.monotonic() - t_phase}
+    out["launches"] = out["burst"]["launches"] + sum(s["launches"]
+                                                    for s in out["shards"]["per_shard"])
     emit(out)
     return out
 
@@ -6693,6 +7187,8 @@ def main(argv=None) -> int:
         resumed = timed("resume", phase_resume, torch, dev, data, registry, trained)
         sliced = timed("slice", phase_slice, torch, dev, args.seed, registry,
                        trained["instance"])
+        planed = timed("plane", phase_plane, torch, dev, args.seed, registry,
+                       trained["instance"], base, smi)
         attn = timed("attention_kernel", phase_attention_kernel, torch, dev, args.seed)
         seq_trained = timed("seqrec_train", phase_seqrec_train, torch, dev, args.seed,
                             registry)
@@ -6718,19 +7214,21 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": TOPK_SOURCE,
         "replaces": TOPK_REPLACES,
-        "launches": (sliced["launches"] + events["serve"]["launches"]
+        "launches": (sliced["launches"] + planed["launches"] + events["serve"]["launches"]
                      + evaluated["launches"]["topk_streaming"]
                      + persisted["by_kernel"]["topk_streaming"]
                      + templated["by_kernel"]["topk_streaming"]
                      + consoled["by_kernel"]["topk_streaming"]),
         "launches_by_path": {"slice": sliced["launches"],
+                             "plane_burst": planed["burst"]["launches"],
+                             "plane_shards": [s["launches"] for s in planed["shards"]["per_shard"]],
                              "events_serve": events["serve"]["launches"],
                              "eval": evaluated["launches"]["topk_streaming"],
                              "persist": persisted["by_kernel"]["topk_streaming"],
                              "templates": templated["by_kernel"]["topk_streaming"],
                              "console": consoled["by_kernel"]["topk_streaming"]},
-        "max_abs_err": max(m["max_abs_err"] for m in [*main_shapes.values(),
-                                                      *large.values()]),
+        "max_abs_err": max(m["max_abs_err"] for m in [*main_shapes.values(), *large.values(),
+                                                      *planed["shards"]["per_shard"]]),
         "ms": ref["kernel_ms"],
         "plain_ms": ref["plain_ms"],
         "bound_ms": bound_ms,
@@ -6745,6 +7243,12 @@ def main(argv=None) -> int:
             "wrong_ids_outside_ties")} for b, v in large.items()},
         "eval_shape": evaluated["topk_at_eval_shape"],
         "constrained_batch": templated["checks"]["constrained_batch"],
+        # one shard's table (N = 6,750) against the whole catalog at the
+        # plane phase's burst (B = 64, k = 64), device ms
+        "shard": {k: planed["shards"][k] for k in (
+            "unsharded_kernel_device_ms", "shard_bound_ms", "unsharded_bound_ms", "timed")}
+        | {"kernel_device_ms": [s["kernel_device_ms"] for s in planed["shards"]["per_shard"]],
+           "max_abs_err": max(s["max_abs_err"] for s in planed["shards"]["per_shard"])},
         "k_above_2048": {name: {k: main_shapes[name][k] for k in (
             "B", "N", "k", "E", "T", "n_runs", "merge_in", "kernel_ms", "kernel_device_ms",
             "plain_ms", "library_ms", "library_device_ms", "bound_us", "bound_by",

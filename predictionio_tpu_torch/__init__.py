@@ -21,7 +21,11 @@ Ported so far: the recommendation query-serving path
 ALS and sequence-recommender training (:func:`.workflow.run_train`), the
 Event Server, event stores and training infeed, and evaluation with the
 train/eval entry point (:func:`.workflow.run_evaluation`,
-``python -m predictionio_tpu_torch.tools.run_workflow``).
+``python -m predictionio_tpu_torch.tools.run_workflow``), and the query
+server's request plane: traces (:mod:`.obs.trace`), deadlines, retries
+and breakers (:mod:`.utils.resilience`), feedback events and the error
+log, the flight recorder and SLO health (:mod:`.obs.flight`,
+:mod:`.obs.slo`), and sharded serving (:mod:`.fleet.merge`).
 """
 
 __version__ = "0.1.0"

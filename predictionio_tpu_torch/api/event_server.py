@@ -12,7 +12,9 @@ Event Server (``data/src/main/scala/io/prediction/data/api/EventAPI.scala``):
 - ``DELETE /events/<id>.json``   → ``{"message": "Found"/"Not Found"}`` (``EventAPI.scala:202-226``)
 - ``GET /stats.json``            → hourly + lifetime counters (``stats`` only)
                                                                       (``EventAPI.scala:327-345``)
-- ``GET /metrics``               → the server's counters and latency histogram
+- ``GET /metrics``, ``/traces.json``, ``/health.json``, ``/blackbox.json``
+                                 → counters and latency histogram, the span
+                                   ring, the health plane, the flight recorder
 
 ``POST /events.json`` (and each element of the batch route) accepts an
 optional client-supplied ``idempotencyKey``: duplicate POSTs with the same
@@ -25,9 +27,13 @@ Every route authenticates via the ``accessKey`` query parameter resolved to an
 401 ``{"message": "Invalid accessKey."}``. Defaults: localhost:7070
 (``EventServerConfig``, ``EventAPI.scala:422-425``).
 
-Not ported here (ROADMAP.md, queue 1 items 6 and 12): the trace header
-and spans, the ingest quality monitor, the partitioned and migrating
-remote stores (their 503 shedding and ``/replication.json``).
+Every request opens an admission span under the caller's
+``X-PIO-Trace`` id (the query server's feedback delivery forwards its
+request's id, so both servers' spans share one trace), recorded by the
+server's ``Tracer("event-server")``; the server carries the ``event``
+health plane. Not ported here (ROADMAP.md, queue 1 items 6 and 12): the
+ingest quality monitor, the partitioned and migrating remote stores
+(their 503 shedding and ``/replication.json``).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..obs.metrics import MetricsRegistry
+from ..obs.trace import TRACE_HEADER, Tracer
 from ..storage.event import (
     Event,
     EventValidationError,
@@ -241,7 +248,11 @@ class _EventServiceHandler(JsonHTTPHandler):
         route = self._route_label(method, path)
         started = time.monotonic()
         try:
-            self._dispatch(method, path, query)
+            # admission span: joins the caller's X-PIO-Trace
+            with self.server.tracer.server_span(
+                route, header_value=self.headers.get(TRACE_HEADER)
+            ):
+                self._dispatch(method, path, query)
         except _HTTPError as err:
             self.respond(err.status, err.body)
         except Exception as exc:  # route-level catch-all (rejectionHandler)
@@ -409,7 +420,8 @@ class EventServer(BackgroundHTTPServer):
             StatsTracker() if config.stats else None
         )
         super().__init__(
-            (config.ip, config.port), _EventServiceHandler, metrics=MetricsRegistry()
+            (config.ip, config.port), _EventServiceHandler, metrics=MetricsRegistry(),
+            tracer=Tracer("event-server"), health_kind="event",
         )
 
 

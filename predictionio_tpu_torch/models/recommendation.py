@@ -13,7 +13,9 @@ streams the catalog through the hand-written CUDA top-k kernel.
 A live model's factor tables move to the algorithm's device once, when
 the model is attached (``prepare_serving`` at deploy, or the first
 query), and stay there; each batch copies only its user indices in and
-its ``[B, k]`` results out, in one copy each way.
+its ``[B, k]`` results out, in one copy each way. ``shard_model`` cuts
+a model to one partition of its item table for sharded serving
+(``ServerConfig(shard_index=..., shard_count=...)``).
 
 ``RecDataSource.read_training`` reads the rate/buy events of its app
 from the registry's event store (``get_registry().get_events()``)
@@ -432,6 +434,23 @@ class ALSAlgorithm(Algorithm):
             ).to(self.device)
             self._tables = (weakref.ref(model), uf, itf)
             return uf, itf
+
+    def shard_model(self, model: ALSModel, shard_index: int, shard_count: int) -> ALSModel:
+        """One item-table partition for sharded serving (JAX
+        ``models/recommendation.py:771-795``): item row ``i`` lives on
+        shard ``i % shard_count``, so popular head items spread across
+        shards; the user table stays whole and the item map is rebuilt
+        over the kept rows. The union of the shards' local top-ks holds
+        the global top-k, which ``fleet.merge`` rebuilds exactly."""
+        keep = np.arange(shard_index, model.item_factors.shape[0], shard_count)
+        inv = model.item_map.inverse
+        return ALSModel(
+            rank=model.rank,
+            user_factors=model.user_factors,
+            item_factors=np.ascontiguousarray(model.item_factors[keep]),
+            user_map=model.user_map,
+            item_map=BiMap({inv[int(old)]: new for new, old in enumerate(keep)}),
+        )
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         return self.batch_predict(model, [(0, query)])[0][1]

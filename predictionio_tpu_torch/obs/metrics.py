@@ -2,11 +2,14 @@
 
 Trimmed copy of ``predictionio_tpu/obs/metrics.py`` — the instruments
 the serving path records (request latency, shed and HTTP-status
-counters, micro-batch sizes and waits, the kernel-launch gauge).
-Instruments are created idempotently by name with a fixed label-name
-schema; past ``max_label_sets`` label sets a metric collapses new ones
-into one ``_overflow`` series instead of growing without bound. Tracing,
-the flight recorder, quality and SLO planes wait for later slices.
+counters, micro-batch sizes and waits, breaker gauges, the kernel-launch
+gauge) and the in-process read path the SLO engine evaluates
+(``instrument``, ``Counter.samples``, ``Gauge.samples``,
+``Histogram.label_snapshots``). Instruments are created idempotently by
+name with a fixed label-name schema; past ``max_label_sets`` label sets
+a metric collapses new ones into one ``_overflow`` series instead of
+growing without bound. The registry's ``clock`` is injectable: breaker,
+SLO and stall windows read it, so their tests never sleep.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import math
 import re
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
@@ -107,6 +111,18 @@ class _Instrument:
         with self._lock:
             return sorted(self._children.items())
 
+    def _labels_of(self, key: Tuple[str, ...]) -> Dict[str, str]:
+        return dict(zip(self.labelnames, key))
+
+    def clear(self) -> None:
+        """Drop every series (re-exported state whose label sets change,
+        such as a reload's train phases); the unlabelled series is
+        re-created at zero."""
+        with self._lock:
+            self._children.clear()
+            if not self.labelnames:
+                self._children[()] = self._new_child()
+
 
 class _Value:
     __slots__ = ("value",)
@@ -115,13 +131,29 @@ class _Value:
         self.value = 0.0
 
 
-class Counter(_Instrument):
-    """Monotonically increasing count."""
-
-    kind = "counter"
+class _Scalar(_Instrument):
+    """A counter's or a gauge's series: one float each."""
 
     def _new_child(self):
         return _Value()
+
+    def value(self, **labels) -> float:
+        child = self._child(labels)
+        with self._lock:
+            return child.value
+
+    def samples(self) -> List[Tuple[Dict[str, str], float]]:
+        """Every series as ``(labels, value)`` — the in-process twin of a
+        scraped exposition (the SLO engine reads them this way)."""
+        with self._lock:
+            return [(self._labels_of(key), child.value)
+                    for key, child in sorted(self._children.items())]
+
+
+class Counter(_Scalar):
+    """Monotonically increasing count."""
+
+    kind = "counter"
 
     def inc(self, amount: float = 1.0, **labels) -> None:
         if amount < 0:
@@ -131,19 +163,24 @@ class Counter(_Instrument):
             child.value += amount
 
 
-class Gauge(_Instrument):
+class Gauge(_Scalar):
     """Point-in-time value; may be backed by a collect-time callback
     (:meth:`MetricsRegistry.gauge_callback`)."""
 
     kind = "gauge"
 
-    def _new_child(self):
-        return _Value()
-
     def set(self, value: float, **labels) -> None:
         child = self._child(labels)
         with self._lock:
             child.value = float(value)
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        child = self._child(labels)
+        with self._lock:
+            child.value += amount
+
+    def dec(self, amount: float = 1.0, **labels) -> None:
+        self.inc(-amount, **labels)
 
 
 class _HistogramChild:
@@ -206,13 +243,33 @@ class Histogram(_Instrument):
         cums = [n for _, n in snap["buckets"]]
         return percentile_from_buckets(uppers, cums, q)
 
+    def label_snapshots(self) -> List[Tuple[Dict[str, str], Dict[str, object]]]:
+        """Every series as ``(labels, snapshot)`` in :meth:`snapshot`'s
+        cumulative shape, so the SLO engine can count under-threshold
+        observations across the whole family."""
+        with self._lock:
+            raw = [(self._labels_of(key), list(child.counts), child.sum, child.count)
+                   for key, child in sorted(self._children.items())]
+        out = []
+        for labels, counts, total_sum, total in raw:
+            cumulative = []
+            running = 0
+            for bound, n in zip(self.buckets, counts[:-1]):
+                running += n
+                cumulative.append((bound, running))
+            cumulative.append((math.inf, total))
+            out.append((labels, {"buckets": cumulative, "sum": total_sum, "count": total}))
+        return out
+
 
 class MetricsRegistry:
     """One server's instrument set. ``counter(name)`` twice returns the
     same object; a name re-used with another kind, label schema or
     bucket set raises."""
 
-    def __init__(self, max_label_sets: int = 64):
+    def __init__(self, clock: Callable[[], float] = time.monotonic,
+                 max_label_sets: int = 64):
+        self.clock = clock
         self.max_label_sets = max_label_sets
         self._lock = threading.Lock()
         self._instruments: Dict[str, _Instrument] = {}
@@ -248,6 +305,12 @@ class MetricsRegistry:
     def histogram(self, name: str, help: str = "", labelnames: Sequence[str] = (),
                   buckets: Optional[Sequence[float]] = None) -> Histogram:
         return self._get_or_create(Histogram, name, help, labelnames, buckets=buckets)
+
+    def instrument(self, name: str) -> Optional[_Instrument]:
+        """The registered instrument of that name, or None (the SLO
+        engine reads absence as abstention, never as an error)."""
+        with self._lock:
+            return self._instruments.get(name)
 
     def gauge_callback(self, name: str, fn: Callable[[], float], help: str = "",
                        labels: Optional[Dict[str, str]] = None) -> Gauge:

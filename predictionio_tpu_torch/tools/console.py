@@ -15,6 +15,8 @@ consoles). Run it as ``python -m predictionio_tpu_torch.tools.console
     import | export            — events ↔ JSON-lines files
     template list|get          — bundled engine templates
     ckpt ls|verify|gc          — checkpoint stores (alias ``checkpoint``)
+    health | alerts | blackbox — the health plane (``tools/health.py``)
+    trace <id>                 — one X-PIO-Trace id's spans across nodes
 
 ``train``, ``eval`` and ``deploy`` take ``--device`` (default ``cuda:0``,
 which raises where there is no CUDA; ``--device cpu`` runs on the host).
@@ -25,7 +27,8 @@ and receive ``--device``; without it, in this process. ``train`` and
 ``eval`` report the CUDA kernels' launches of the run (a child's counts
 are its own; a deployed server reports its own on ``/status.json``).
 The commands that need no device (apps, keys, ``build``, ``status``,
-``import``, ``export``, ``template``, ``undeploy``, ``ckpt``) do not import torch. The commands of
+``import``, ``export``, ``template``, ``undeploy``, ``ckpt``, ``health``,
+``alerts``, ``blackbox``, ``trace``) do not import torch. The commands of
 modules that are not ported stay in the parser and exit 1 with a
 message naming their ROADMAP item (:data:`NOT_PORTED`).
 """
@@ -55,7 +58,7 @@ EXIT_FAIL = 1
 #: the JAX console's commands whose modules are not ported: name → (what,
 #: ROADMAP queue 1 item)
 NOT_PORTED = {
-    "rollout": ("rollouts", 6),
+    "rollout": ("rollouts, the second half of item 6", 6),
     "continuous": ("the continuous-learning loop", 9),
     "migrate": ("live storage migration", 12),
     "autoscale": ("the fleet autoscaler", 13),
@@ -65,9 +68,12 @@ NOT_PORTED = {
     "top": ("pio top", 14),
     "perf": ("the perf tooling", 14),
     "quality": ("the quality plane", 14),
-    "trace": ("traces", 6),
     "upgrade": ("storage upgrades", 14),
 }
+
+
+#: forwarded verbatim, subcommand included, to ``tools/health.py``
+HEALTH_COMMANDS = ("health", "alerts", "blackbox")
 
 
 # -- app / accesskey consoles (console/App.scala, console/AccessKey.scala) ----
@@ -289,9 +295,19 @@ def build_parser() -> argparse.ArgumentParser:
     tp_get.add_argument("template_name")
     tp_get.add_argument("directory")
 
-    # forwarded verbatim to ckpt.cli, which owns its flags (see main)
+    # forwarded verbatim to ckpt.cli and tools/health.py, which own
+    # their flags (see main)
     sub.add_parser("ckpt", aliases=["checkpoint"], add_help=False,
                    help="checkpoint stores: ls | verify | gc")
+    for name in HEALTH_COMMANDS:
+        sub.add_parser(name, add_help=False, help=f"pio {name} (tools/health.py)")
+    tr = sub.add_parser("trace", help="stitch one X-PIO-Trace id's spans across a "
+                        "node list (GET /traces.json)")
+    tr.add_argument("trace_id")
+    tr.add_argument("--nodes", default=None, metavar="HOST:PORT,...",
+                    help="nodes to query (default: localhost query/event/storage ports)")
+    tr.add_argument("--json", action="store_true", help="emit raw spans as JSON")
+    tr.add_argument("--timeout", type=float, default=5.0)
     for name, (what, item) in NOT_PORTED.items():
         sub.add_parser(name, help=f"{what}: not ported (ROADMAP.md, queue 1 item {item})")
     return p
@@ -364,6 +380,12 @@ def main(argv: Optional[Sequence[str]] = None,
         from ..ckpt import cli as ckpt_cli
 
         return ckpt_cli.main(argv[1:])
+    if name in HEALTH_COMMANDS:
+        # the health CLIs are pure scrapers and ledger readers: forwarded
+        # with the subcommand, before argparse, storage-free
+        from . import health
+
+        return health.main(argv)
     # a command that is not ported is refused before its own flags are
     # parsed (the JAX console forwards several of them verbatim)
     if name in NOT_PORTED:
@@ -415,6 +437,11 @@ def _deploy(spawn: bool, srv_argv: List[str], registry: Optional[StorageRegistry
 
 def _dispatch(args: argparse.Namespace, registry: Optional[StorageRegistry]) -> int:
     cmd = args.command
+    if cmd == "trace":  # a scraper: no storage
+        from ..obs.top import DEFAULT_NODES, run_trace
+
+        return run_trace(args.trace_id, args.nodes or DEFAULT_NODES,
+                         timeout=args.timeout, as_json=args.json)
     registry = registry or get_registry()
     if cmd == "app":
         sub = args.app_command

@@ -12,11 +12,17 @@ predictionio_tpu_torch.tools.run_server --engine-dir DIR``.
 raises where there is no CUDA). On a CUDA device every kernel library is
 built through ``kernels/build.py`` before the server binds (the
 counterpart of the JAX package's ``tools/prewarm_cache.py``, which warms
-a compilation cache); a build failure ends the deploy. The flags of
-modules that are not ported raise, naming their ROADMAP item: feedback
-events, the error log URL and sharded serving (queue 1 item 6), the
-continuous loop (item 9); so do a flight-recorder directory
-(``PIO_FLIGHT_DIR``, item 6) and a partitioned event store
+a compilation cache); a build failure ends the deploy.
+
+The request plane's flags: ``--feedback`` with ``--event-server-ip``,
+``--event-server-port`` and ``--accesskey`` (a ``predict`` event per
+answer), ``--log-url`` (failures posted there), ``--shard-index`` and
+``--shard-count`` (serve one partition of the item table). With
+``PIO_FLIGHT_DIR`` set, :func:`main` arms the flight recorder: an atexit
+dump, ``faulthandler`` and a SIGTERM dump (``flight-<pid>.jsonl``,
+``faulthandler-<pid>.txt``). The flags and settings of modules that are
+not ported raise, naming their ROADMAP item: the continuous loop
+(``--continuous-*``, queue 1 item 9) and a partitioned event store
 (``PIO_STORAGE_SOURCES_*_PARTITIONS``, item 12).
 """
 
@@ -31,6 +37,7 @@ from typing import Optional, Sequence
 
 from ..device import resolve_device
 from ..kernels import build
+from ..obs import flight
 from ..storage import StorageRegistry, get_registry
 from ..workflow import loader
 from ..workflow.serving import QueryServer, ServerConfig, create_query_server
@@ -56,14 +63,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="micro-batch size cap (default 512)")
     p.add_argument("--batch-pipeline-depth", type=int, default=None,
                    help="batches in flight at once (default 2)")
-    # the reference's flags whose planes are not ported: each raises
-    p.add_argument("--feedback", action="store_true")
+    p.add_argument("--feedback", action="store_true",
+                   help="post a predict event per answer to the Event Server")
     p.add_argument("--event-server-ip", default="localhost")
     p.add_argument("--event-server-port", type=int, default=7070)
     p.add_argument("--accesskey", default=None)
-    p.add_argument("--log-url", default=None)
+    p.add_argument("--log-url", default=None,
+                   help="POST serving failures to this URL")
     p.add_argument("--shard-index", type=int, default=0, metavar="I")
-    p.add_argument("--shard-count", type=int, default=1, metavar="N")
+    p.add_argument("--shard-count", type=int, default=1, metavar="N",
+                   help="serve item rows i %% N == I only (sharded serving)")
+    # the continuous loop is not ported (queue 1 item 9): these raise
     p.add_argument("--continuous-app", type=int, default=None, metavar="APP_ID")
     p.add_argument("--continuous-feed", default=None, metavar="URL")
     p.add_argument("--verbose", action="store_true")
@@ -75,14 +85,6 @@ def check_ported(args: argparse.Namespace, env=None) -> None:
     env = os.environ if env is None else env
     if args.continuous_app is not None or args.continuous_feed:
         raise not_ported("the continuous-learning loop (--continuous-*)", 9)
-    if args.feedback or args.accesskey:
-        raise not_ported("feedback events (--feedback, --accesskey)", 6)
-    if args.log_url:
-        raise not_ported("the serving error log (--log-url)", 6)
-    if args.shard_count != 1 or args.shard_index != 0:
-        raise not_ported("sharded serving (--shard-index, --shard-count)", 6)
-    if env.get("PIO_FLIGHT_DIR"):
-        raise not_ported("the flight recorder (PIO_FLIGHT_DIR)", 6)
     if any(k.startswith("PIO_STORAGE_SOURCES_") and k.endswith("_PARTITIONS")
            for k in env):
         raise not_ported("a partitioned event store (PIO_STORAGE_SOURCES_*_PARTITIONS)", 12)
@@ -114,7 +116,14 @@ def make_server(args: argparse.Namespace, registry: Optional[StorageRegistry] = 
         engine_id=ed.manifest.id,
         engine_version=ed.manifest.version,
         engine_variant=args.engine_variant,
+        feedback=args.feedback,
+        event_server_ip=args.event_server_ip,
+        event_server_port=args.event_server_port,
+        access_key=args.accesskey,
         batch=args.batch,
+        log_url=args.log_url,
+        shard_index=args.shard_index,
+        shard_count=args.shard_count,
         device=args.device,
         **{k: v for k, v in (("batch_max", args.batch_max),
                              ("batch_pipeline_depth", args.batch_pipeline_depth))
@@ -124,6 +133,10 @@ def make_server(args: argparse.Namespace, registry: Optional[StorageRegistry] = 
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    # with PIO_FLIGHT_DIR set, a dying server leaves its flight-recorder
+    # timeline and faulthandler stacks behind; the SIGTERM dump only
+    # from an entry point (a library import never takes a signal)
+    flight.arm(signals=True)
     args = build_parser().parse_args(argv)
     server = make_server(args, block=False)
     print(json.dumps({"engineInstanceId": server.deployment.instance.id,

@@ -1,7 +1,6 @@
 """Micro-batching aggregator for the serving hot path.
 
-Copy of ``predictionio_tpu/workflow/batching.py`` without the trace
-spans (tracing waits for its slice). Concurrent request threads
+Copy of ``predictionio_tpu/workflow/batching.py``. Concurrent request threads
 ``submit()`` work items; a dispatcher thread collects what arrives
 within ``max_wait_ms`` (or up to ``max_batch``) and hands the batch to
 one of ``pipeline_depth`` worker threads, so one batch's results travel
@@ -11,7 +10,10 @@ fills and the wait never triggers.
 
 The processor must be thread-safe under ``pipeline_depth`` concurrent
 calls. Batches may complete out of order; per-item futures make that
-invisible to callers.
+invisible to callers. With a ``tracer``, each item whose submitting
+thread carried a span context gets two child spans, ``batch.queue-wait``
+(submit → dispatch) and ``batch.device`` (the processor call); ``clock``
+is injectable.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from ..obs.metrics import MetricsRegistry
+from ..obs.trace import Tracer, current_context
 
 __all__ = ["MicroBatcher"]
 
@@ -41,7 +44,8 @@ class MicroBatcher:
 
     Into ``metrics`` every flush records its size, reason
     (``full``/``wait``/``close``) and per-item queue wait, and the live
-    queue depth is a gauge."""
+    queue depth is a gauge. ``submit(item, timeout)`` bounds one wait
+    (a request's remaining deadline)."""
 
     def __init__(
         self,
@@ -52,6 +56,8 @@ class MicroBatcher:
         pipeline_depth: int = 2,
         *,
         metrics: MetricsRegistry,
+        tracer: Optional[Tracer] = None,
+        clock: Callable[[], float] = time.monotonic,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -61,6 +67,8 @@ class MicroBatcher:
         self._max_batch = max_batch
         self._max_wait_s = max(0.0, max_wait_ms) / 1000.0
         self._pipeline_depth = pipeline_depth
+        self._clock = clock
+        self._tracer = tracer
         self._obs_size = metrics.histogram(
             "pio_batch_size",
             "Queries per dispatched micro-batch",
@@ -85,7 +93,8 @@ class MicroBatcher:
         self._nonempty = threading.Condition(self._lock)
         self._items: List[Any] = []
         self._futures: List[Future] = []
-        self._enqueued: List[float] = []  # parallel to _items
+        #: parallel to _items: (enqueue time, submitter's SpanContext or None)
+        self._meta: List[Tuple[float, Any]] = []
         self._closed = False
         # registered only now: a scrape can fire the callback at once
         metrics.gauge_callback(
@@ -113,19 +122,23 @@ class MicroBatcher:
         with self._lock:
             return len(self._items)
 
-    def submit(self, item: Any) -> Any:
+    def submit(self, item: Any, timeout: Optional[float] = None) -> Any:
         """Block until the batched processor has handled ``item``; returns
-        its result (or raises that item's exception)."""
+        its result (or raises that item's exception). ``timeout`` (default
+        :data:`SUBMIT_TIMEOUT_S`) raises ``concurrent.futures.TimeoutError``."""
+        # the submitter's trace context, captured here: the threads that
+        # record this item's spans cannot see its contextvars
+        span_ctx = current_context() if self._tracer is not None else None
         fut: Future = Future()
         with self._nonempty:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")
             self._items.append(item)
             self._futures.append(fut)
-            self._enqueued.append(time.monotonic())
+            self._meta.append((self._clock(), span_ctx))
             self._submitted += 1
             self._nonempty.notify()
-        return fut.result(timeout=SUBMIT_TIMEOUT_S)
+        return fut.result(timeout=SUBMIT_TIMEOUT_S if timeout is None else timeout)
 
     def _take_batch(self) -> tuple:
         """Wait for one item, linger up to max_wait for more (or until the
@@ -149,18 +162,16 @@ class MicroBatcher:
             else:
                 reason = "wait"
             n = self._max_batch
-            items, futures, enqueued = (
-                self._items[:n], self._futures[:n], self._enqueued[:n]
-            )
-            del self._items[:n], self._futures[:n], self._enqueued[:n]
-            return items, futures, enqueued, reason
+            items, futures, metas = self._items[:n], self._futures[:n], self._meta[:n]
+            del self._items[:n], self._futures[:n], self._meta[:n]
+            return items, futures, metas, reason
 
     def _run(self) -> None:
         while True:
             # take a pipeline slot BEFORE draining: while every slot is
             # busy, arrivals keep topping up the next batch
             self._slots.acquire()
-            items, futures, enqueued, reason = self._take_batch()
+            items, futures, metas, reason = self._take_batch()
             if not items:
                 self._slots.release()
                 with self._lock:
@@ -171,7 +182,7 @@ class MicroBatcher:
             with self._lock:
                 self._inflight += 1
                 self._inflight_hwm = max(self._inflight_hwm, self._inflight)
-            self._work.put((items, futures, enqueued, reason))
+            self._work.put((items, futures, metas, reason))
 
     def _worker(self) -> None:
         while True:
@@ -180,21 +191,44 @@ class MicroBatcher:
                 return
             self._execute(*task)
 
-    def _record_obs(self, enqueued: Sequence[float], reason: str,
-                    dispatch_ts: float, batch_size: int) -> None:
+    def _record_obs(self, metas: Sequence[Tuple[float, Any]], reason: str,
+                    dispatch_ts: float, device_s: float, batch_size: int) -> None:
         self._obs_size.observe(batch_size)
         self._obs_flush.inc(1, reason=reason)
         self._obs_items.inc(batch_size)
-        for ts in enqueued:
-            self._obs_wait.observe(max(0.0, dispatch_ts - ts))
+        for enqueue_ts, span_ctx in metas:
+            wait_s = max(0.0, dispatch_ts - enqueue_ts)
+            self._obs_wait.observe(wait_s)
+            if self._tracer is not None and span_ctx is not None:
+                wall = self._tracer.wall()
+                tags = {"batch_size": batch_size, "flush": reason}
+                self._tracer.record(
+                    "batch.queue-wait", self._tracer.child_context(span_ctx),
+                    span_ctx.span_id, start_wall=wall - wait_s - device_s,
+                    duration_s=wait_s, tags=tags,
+                )
+                self._tracer.record(
+                    "batch.device", self._tracer.child_context(span_ctx),
+                    span_ctx.span_id, start_wall=wall - device_s,
+                    duration_s=device_s, tags=tags,
+                )
 
     def _execute(self, items: Sequence[Any], futures: Sequence[Future],
-                 enqueued: Sequence[float] = (), reason: str = "") -> None:
-        """Run one batch on a worker thread and fan results out."""
-        dispatch_ts = time.monotonic()
+                 metas: Sequence[Tuple[float, Any]] = (), reason: str = "") -> None:
+        """Run one batch on a worker thread and fan results out. Metrics
+        and spans are recorded before the fan-out, failed batches
+        included: a client that reads /metrics or /traces.json right
+        after its answer must find this batch there."""
+        dispatch_ts = self._clock()
+
+        def record() -> None:
+            try:
+                self._record_obs(metas, reason, dispatch_ts,
+                                 self._clock() - dispatch_ts, len(items))
+            except Exception:
+                pass  # observability must never wedge a pipeline slot
+
         try:
-            # metrics are recorded before the fan-out: a client that reads
-            # /metrics right after its answer must find this batch there
             try:
                 results = self._process(items)
                 if len(results) != len(items):
@@ -204,14 +238,14 @@ class MicroBatcher:
                     )
             except Exception as exc:
                 self._obs_failures.inc(1)
-                self._record_obs(enqueued, reason, dispatch_ts, len(items))
+                record()
                 for fut in futures:
                     if not fut.done():
                         fut.set_exception(exc)
                 return
             with self._lock:
                 self._batches += 1
-            self._record_obs(enqueued, reason, dispatch_ts, len(items))
+            record()
             for fut, result in zip(futures, results):
                 if fut.done():
                     continue
@@ -245,7 +279,7 @@ class MicroBatcher:
                     fut.set_exception(RuntimeError("MicroBatcher closed"))
             self._items.clear()
             self._futures.clear()
-            self._enqueued.clear()
+            self._meta.clear()
 
     @property
     def stats(self) -> dict:

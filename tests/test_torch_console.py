@@ -388,8 +388,8 @@ def test_eventserver_command_takes_events_into_the_apps_store(registry, tmp_path
 
 
 def test_commands_that_need_no_device_do_not_import_torch(registry, tmp_path):
-    """Apps, keys, status, templates, import and ``ckpt`` run without
-    torch (a console process spends its start-up on what its command
+    """Apps, keys, status, templates, import, ``ckpt``, ``trace`` and
+    ``health`` run without torch (a console process spends its start-up on what its command
     needs)."""
     (tmp_path / "ck").mkdir()
     code = (
@@ -399,6 +399,8 @@ def test_commands_that_need_no_device_do_not_import_torch(registry, tmp_path):
         "             ['template', 'get', 'recommendation', sys.argv[1]],\n"
         "             ['ckpt', 'ls', '--dir', sys.argv[2]]):\n"
         "    assert console.main(argv) == 0, argv\n"
+        "assert console.main(['trace', 'x', '--nodes', '127.0.0.1:9', '--timeout', '0.2']) == 1\n"
+        "assert console.main(['health', '--nodes', '127.0.0.1:9', '--timeout', '0.2']) == 2\n"
         "assert 'torch' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "proj"),
@@ -439,12 +441,9 @@ def test_ckpt_and_its_alias_reach_the_checkpoint_cli(argv, key, tmp_path, capsys
 @pytest.mark.parametrize("flags,env,item", [
     (["--continuous-app", "1"], {}, 9),
     (["--continuous-feed", "http://127.0.0.1:1"], {}, 9),
-    (["--feedback"], {}, 6),
-    (["--accesskey", "k"], {}, 6),
-    (["--log-url", "http://127.0.0.1:1"], {}, 6),
-    (["--shard-count", "2"], {}, 6),
-    ([], {"PIO_FLIGHT_DIR": "/tmp/x"}, 6),
+    (["--continuous-app", "1", "--feedback"], {}, 9),
     ([], {"PIO_STORAGE_SOURCES_S_PARTITIONS": "a:1;b:2"}, 12),
+    (["--shard-count", "2"], {"PIO_STORAGE_SOURCES_EV_PARTITIONS": "a:1"}, 12),
 ])
 def test_deploy_flags_of_modules_not_ported_name_their_roadmap_item(
         flags, env, item, registry, tmp_path, capsys, monkeypatch):
@@ -458,6 +457,49 @@ def test_deploy_flags_of_modules_not_ported_name_their_roadmap_item(
     assert console.main(["deploy", "--engine-dir", str(target), "--device", "cpu",
                          "--spawn", *flags], registry) == 1
     assert f"queue 1 item {item})" in json.loads(capsys.readouterr().out)["error"]
+
+
+@pytest.mark.parametrize("flags,env,field,value", [
+    (["--feedback"], {}, "feedback", True),
+    (["--accesskey", "k", "--event-server-port", "7171"], {}, "access_key", "k"),
+    (["--log-url", "http://127.0.0.1:1/log"], {}, "log_url", "http://127.0.0.1:1/log"),
+    (["--shard-index", "1", "--shard-count", "2"], {}, "shard_count", 2),
+    ([], {"PIO_FLIGHT_DIR": "/tmp/x"}, "feedback", False),
+])
+def test_deploy_takes_the_request_plane_flags(flags, env, field, value, registry, tmp_path,
+                                              monkeypatch):
+    """The flags and settings of the request plane (queue 1 item 6) are
+    accepted and reach ``ServerConfig``."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    target = tmp_path / "proj"
+    get_template("recommendation", str(target))
+    args = run_server.build_parser().parse_args(["--engine-dir", str(target), "--device",
+                                                 "cpu", *flags])
+    run_server.check_ported(args)
+    seen = {}
+    monkeypatch.setattr(run_server, "create_query_server",
+                        lambda engine, config, reg, block: seen.setdefault("config", config))
+    config = run_server.make_server(args, registry, block=False)
+    assert config is seen["config"] and getattr(config, field) == value
+    assert config.event_server_port == (7171 if "--event-server-port" in flags else 7070)
+    assert config.shard_index == (1 if "--shard-index" in flags else 0)
+
+
+@pytest.mark.parametrize("argv,code", [
+    (["trace", "abc", "--nodes", "127.0.0.1:9", "--timeout", "0.5"], 1),
+    (["health", "--nodes", "127.0.0.1:9", "--timeout", "0.5"], 2),
+    (["alerts"], 2),
+    (["blackbox", "show", "--file", "/nonexistent/flight.jsonl"], 2),
+])
+def test_the_health_and_trace_commands_are_ported(argv, code, capsys, monkeypatch):
+    """``trace`` left ``NOT_PORTED``; it and the health commands answer
+    with their own pinned exit codes (here: nothing reachable)."""
+    monkeypatch.delenv("PIO_ALERT_LEDGER", raising=False)
+    assert argv[0] not in console.NOT_PORTED
+    assert console.main(argv) == code
+    captured = capsys.readouterr()
+    assert "not ported" not in captured.out + captured.err
 
 
 def test_the_kernels_are_built_before_a_card_deploy_binds(monkeypatch):

@@ -33,7 +33,9 @@ def test_the_source_scan_reaches_the_evaluation_slice():
             "workflow/loader.py", "tools/register.py", "tools/run_workflow.py",
             "tools/console.py", "tools/run_server.py", "tools/templates.py",
             "tools/import_events.py", "tools/export_events.py", "models/similarproduct.py",
-            "models/ecommerce.py", "storage/batch_view.py"} <= scanned
+            "models/ecommerce.py", "storage/batch_view.py", "obs/trace.py", "obs/flight.py",
+            "obs/slo.py", "obs/top.py", "utils/resilience.py", "testing/clock.py",
+            "testing/faults.py", "fleet/merge.py", "tools/health.py"} <= scanned
 
 
 def test_importing_every_port_module_pulls_in_no_jax():
@@ -63,7 +65,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "workflow.loader", "tools.register", "tools.run_workflow", "tools.console",
         "tools.run_server", "tools.templates", "tools.import_events",
         "tools.export_events", "models.similarproduct", "models.ecommerce",
-        "storage.batch_view")} <= names
+        "storage.batch_view", "obs.trace", "obs.flight", "obs.slo", "obs.top",
+        "utils.resilience", "testing.clock", "testing.faults", "fleet.merge",
+        "tools.health")} <= names
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
