@@ -120,6 +120,36 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It drives
    ``PIO_FLIGHT_DIR``, one query and a ``/reload``, SIGTERM: its
    ``flight-<pid>.jsonl`` (reason ``signal-15``) and
    ``faulthandler-<pid>.txt`` must be there.
+7c. ``rollout`` — staged deploys between two ALS models resident on the
+   card behind one ``create_query_server``, in a store of its own: the
+   baseline is the train phase's instance, the candidate a second
+   ``run_train`` of the same data with seed 1 (its build and solve
+   launches counted). Feedback goes to the port's Event Server and
+   ``PIO_QUALITY_SNAPSHOTS`` is set; gate holds are 10 s, 32 samples.
+   SHADOW: two bursts of 32 (the shadow pool's pending cap: nothing
+   dropped), every answer ``X-PIO-Variant: baseline`` and equal to
+   ``top_k_streaming_reference`` on the baseline's tables (rtol/atol
+   1e-5, ids equal or tied), every duplicate run on the candidate through
+   kernel 1, one ``pio_rollout_divergence`` sample each, their mean equal
+   to ``prediction_divergence`` of the two plain answers on the host
+   (atol 1e-4); the shadow's cost: bursts of 64 on this server and on a
+   plain one with no rollout, A B B A. CANARY at 10 %: after the hold the
+   next query promotes; four bursts of 64, each query's variant equal to
+   ``variant_for_key(salt, key, 10)`` and its answer to the plain answer
+   of the model that served it, the candidate's share inside a binomial
+   4σ band; ``pio_quality_score_psi{variant}`` exported for both variants
+   and read by ``pio quality --node``. LIVE: after the hold the next query
+   promotes; the deployment is the candidate, the stored history SHADOW,
+   CANARY, LIVE, a burst of 64 equal to the candidate's plain answers, and
+   a fresh server on the store serves the candidate with no rollout
+   active. A sick candidate: a new rollout of the first baseline, promoted
+   to CANARY at 50 %, ``testing/faults.py`` refusing its every predict:
+   ROLLED_BACK with every answer 200. Every ``predict`` event is read back
+   tagged with the variant (and instance) that answered; a skewed batch of
+   ingest events raises ``pio_quality_event_mix_psi``. Kernel 1's count is
+   reset before each stage and must equal the baseline's batches plus the
+   candidate's after it, read from both batchers. Each stage prints its
+   wall, p50 and p99 and its launches, beside the card.
 
 8. ``attention_kernel`` — the flash-attention kernel against its plain
    PyTorch version on the card (rtol 2e-4 / atol 2e-5, the JAX
@@ -325,6 +355,7 @@ import contextlib
 import dataclasses
 import gc
 import http.client
+import io
 import json
 import os
 import pickle
@@ -2906,6 +2937,445 @@ def phase_plane(torch, dev, seed: int, registry, instance_id: str, base: str, sm
     out["seconds"] = {**seconds, "phase": time.monotonic() - t_phase}
     out["launches"] = out["burst"]["launches"] + sum(s["launches"]
                                                     for s in out["shards"]["per_shard"])
+    emit(out)
+    return out
+
+
+#: the rollout phase: the candidate's training seed, the gate holds (s: a
+#: stage's bursts must end inside its hold; SHADOW's took 6.3 s on a busy
+#: host), the canary share (%), the canary bursts of 64, the shadow-cost
+#: rounds (A B B A) and the gates: min_samples a shadow check burst meets; the
+#: divergence and p99 gates opened wide, since the candidate is a healthy
+#: model of another seed (its answers differ by design, and its shadow
+#: duplicates wait in a pool of two)
+ROLLOUT_CAND_SEED, ROLLOUT_HOLD_S, ROLLOUT_PERCENT, ROLLOUT_CANARY_BURSTS = 1, 10.0, 10.0, 4
+ROLLOUT_ROUNDS = ("off", "shadow", "shadow", "off")
+ROLLOUT_GATES = {"window_s": 600.0, "min_samples": 32, "shadow_hold_s": ROLLOUT_HOLD_S,
+                 "canary_hold_s": ROLLOUT_HOLD_S, "max_divergence": 1.0,
+                 "max_p99_latency_ratio": 50.0}
+ROLLOUT_SICK_GATES = dict(ROLLOUT_GATES, canary_hold_s=3600.0)
+ROLLOUT_SHADOW_HALF = 32  # the shadow check's two bursts: at the pending cap, nothing dropped
+ROLLOUT_DIVERGENCE_ATOL = 1e-4
+
+
+def _answer_matches(items_scores, want_s, want_i, num: int, n_items: int) -> bool:
+    """A served ``itemScores`` list against a plain top-k row: the same
+    items but for ties, scores to RTOL/ATOL."""
+    k = min(num, n_items)
+    if len(items_scores) != k:
+        return False
+    got_s = np.array([x["score"] for x in items_scores], dtype=np.float32)
+    got_i = np.array([int(x["item"][1:]) for x in items_scores])
+    close = np.isclose(got_s, want_s[:k], rtol=RTOL, atol=ATOL)
+    return bool(close.all() and ((got_i == want_i[:k]) | close).all())
+
+
+def phase_rollout(torch, dev, seed: int, data: dict, registry, instance_id: str, base: str,
+                  smi: str) -> dict:
+    """Shadow, canary and gated promotion between two ALS models resident
+    on the card behind one query server (see the module docstring, 7c)."""
+    from predictionio_tpu_torch.api.event_server import EventServerConfig, create_event_server
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.models.recommendation import engine_factory
+    from predictionio_tpu_torch.obs.quality import QualityConfig, load_snapshots
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        gramian_fused,
+        spd_solve,
+        top_k_streaming,
+        top_k_streaming_reference,
+    )
+    from predictionio_tpu_torch.rollout.plan import prediction_divergence, variant_for_key
+    from predictionio_tpu_torch.storage import EventFilter, StorageRegistry
+    from predictionio_tpu_torch.storage.metadata import (
+        ROLLOUT_CANARY,
+        ROLLOUT_LIVE,
+        ROLLOUT_ROLLED_BACK,
+        ROLLOUT_SHADOW,
+        AccessKey,
+        App,
+    )
+    from predictionio_tpu_torch.testing import faults
+    from predictionio_tpu_torch.tools import console
+    from predictionio_tpu_torch.workflow import (
+        ServerConfig,
+        WorkflowContext,
+        create_query_server,
+        load_models,
+        persist_instance,
+        run_train,
+    )
+
+    t_phase = time.monotonic()
+    seconds = {}
+    rng = np.random.default_rng(seed + 26)
+    ro_dir = os.path.join(base, "rollout")
+    ro_reg = StorageRegistry({"PIO_FS_BASEDIR": os.path.join(ro_dir, "store")})
+    snapshots = os.path.join(ro_dir, "quality.jsonl")
+    out = {"phase": "rollout", "card": smi}
+
+    # the baseline: the train phase's instance; the candidate: run_train of
+    # the same data and params with another seed, on kernels 2 and 3
+    t = time.monotonic()
+    engine, params = als_smoke_engine(data)
+    (base_model,) = load_models(registry, instance_id)
+    base_id = persist_instance(ro_reg, EngineParams(algorithm_params_list=[("als", params)]),
+                               [base_model])
+    cand_params = dataclasses.replace(params, seed=ROLLOUT_CAND_SEED)
+    gramian_fused.launches = spd_solve.launches = 0  # the candidate's training starts here
+    cand_id = run_train(engine, EngineParams(algorithm_params_list=[("als", cand_params)]),
+                        ro_reg, ctx=WorkflowContext(device=dev))
+    train_launches = {"gramian_fused": gramian_fused.launches,
+                      "spd_solve": spd_solve.launches}  # and ends here
+    if min(train_launches.values()) < TRAIN_ITERS:
+        raise AssertionError(f"the candidate's run_train launched {train_launches}")
+    (cand_model,) = load_models(ro_reg, cand_id)
+    seconds["candidate_train"] = time.monotonic() - t
+    n_users, n_items = base_model.user_factors.shape[0], base_model.item_factors.shape[0]
+    tables = {name: (torch.from_numpy(m.user_factors).to(dev),
+                     torch.from_numpy(m.item_factors).to(dev))
+              for name, m in (("baseline", base_model), ("candidate", cand_model))}
+    out.update(users=n_users, items=n_items, rank=base_model.rank,
+               baseline=base_id, candidate=cand_id, candidate_train_launches=train_launches)
+
+    def plain(bodies, model):
+        uf, itf = tables[model]
+        idx = torch.tensor([int(b["user"][1:]) for b in bodies], device=dev, dtype=torch.long)
+        return tuple(t.cpu().numpy() for t in top_k_streaming_reference(
+            uf[idx].contiguous(), itf, max(b["num"] for b in bodies)))
+
+    def check(bodies, answers, what, served_by):
+        """Every answer 200, its ``X-PIO-Variant`` one of the ``|``-separated
+        variants of ``served_by(j)``, and equal to that model's plain answer."""
+        want = {m: plain(bodies, m) for m in ("baseline", "candidate")}
+        bad = []
+        for j, (body, a) in enumerate(zip(bodies, answers)):
+            variant, model = served_by(j)
+            if a[0] != 200 or a[2].get("X-PIO-Variant") not in variant.split("|") or not _answer_matches(
+                    a[1]["itemScores"], want[model][0][j], want[model][1][j], body["num"],
+                    n_items):
+                bad.append((body, a[0], a[2].get("X-PIO-Variant"), variant, model))
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} answers wrong: {bad[:3]}")
+        return want
+
+    users = iter(rng.permutation(n_users))
+
+    def bodies_of(n):
+        return [{"user": f"u{next(users)}", "num": 1 + int(rng.integers(0, 50))}
+                for _ in range(n)]
+
+    served = {}  # user → (variant, instance) of every rollout-server answer
+
+    def note(bodies, answers):
+        for b, a in zip(bodies, answers):
+            v = a[2].get("X-PIO-Variant")
+            served[b["user"]] = (v, cand_id if v == "candidate" or stage_live[0] else base_id)
+
+    stage_live = [False]
+    servers = []
+    with env_set({"PIO_QUALITY_SNAPSHOTS": snapshots}):
+        try:
+            ev_reg = StorageRegistry({"PIO_FS_BASEDIR": os.path.join(ro_dir, "events")})
+            md = ev_reg.get_metadata()
+            fb_app = md.app_insert(App(id=0, name="rollout"))
+            md.access_key_insert(AccessKey(key="rollout-key", appid=fb_app))
+            ingest_app = md.app_insert(App(id=0, name="ingest"))
+            md.access_key_insert(AccessKey(key="ingest-key", appid=ingest_app))
+            for app in (fb_app, ingest_app):
+                ev_reg.get_events().init(app)
+            events = create_event_server(EventServerConfig(
+                ip="127.0.0.1", port=0, quality_dir=os.path.join(ro_dir, "ingest")),
+                registry=ev_reg, block=False)
+            servers.append(events)
+            t = time.monotonic()
+            srv = create_query_server(engine_factory(), ServerConfig(
+                ip="127.0.0.1", port=0, device=dev, engine_instance_id=base_id, feedback=True,
+                event_server_ip="127.0.0.1", event_server_port=events.bound_port,
+                access_key="rollout-key",
+                quality=QualityConfig(pin_min_samples=200, min_psi_samples=100)),
+                registry=ro_reg, block=False)
+            servers.append(srv)
+            plain_srv = create_query_server(engine_factory(), ServerConfig(
+                ip="127.0.0.1", port=0, device=dev, engine_instance_id=base_id),
+                registry=ro_reg, block=False)
+            servers.append(plain_srv)
+            port, rollout = srv.bound_port, srv.rollout
+            for s in (srv, plain_srv):
+                warm = bodies_of(8)
+                got, _ = _burst(s.bound_port, warm)
+                check(warm, got, "warm-up", lambda j: ("-", "baseline"))
+                if s is srv:
+                    note(warm, got)
+            seconds["deploy"] = time.monotonic() - t
+
+            def batches():
+                return srv._batcher.stats["batches"], rollout.candidate_batches
+
+            def stage_line(name, bodies_n, launches, before, wall_answers):
+                b0, c0 = before
+                b1, c1 = batches()
+                line = {"queries": bodies_n, "launches": launches, "baseline_batches": b1 - b0,
+                        "candidate_batches": c1 - c0}
+                if launches != line["baseline_batches"] + line["candidate_batches"]:
+                    raise AssertionError(f"{name}: kernel 1 launched {launches} times for "
+                                         f"{line['baseline_batches']} baseline and "
+                                         f"{line['candidate_batches']} candidate batches")
+                if wall_answers is not None:
+                    line.update(_latency(*wall_answers))
+                return line
+
+            def div_hist():
+                text = _get_text(port, "/metrics")
+                get = lambda name: float(re.search(rf"^{name} (\S+)$", text, re.M).group(1))  # noqa: E731
+                return get("pio_rollout_divergence_count"), get("pio_rollout_divergence_sum")
+
+            # 1. SHADOW: the candidate resident beside the baseline
+            t = time.monotonic()
+            started = rollout.start(candidate_instance_id=cand_id, percent=ROLLOUT_PERCENT,
+                                    gates=ROLLOUT_GATES)
+            t_stage = time.monotonic()
+            salt = started["plan"]["salt"]
+            count0, sum0 = 0.0, 0.0  # the server's first rollout: nothing observed yet
+            before = batches()
+            shadow_bodies, shadow_answers, wall = [], [], 0.0
+            top_k_streaming.launches = 0  # the shadow stage starts here
+            for _half in range(2):
+                bodies = bodies_of(ROLLOUT_SHADOW_HALF)
+                got, w = _burst(port, bodies)
+                rollout.drain_shadow()
+                shadow_bodies += bodies
+                shadow_answers += got
+                wall += w
+            launches = top_k_streaming.launches  # and ends here
+            out["shadow"] = stage_line("shadow", len(shadow_bodies), launches, before,
+                                       (shadow_answers, wall))
+            want = check(shadow_bodies, shadow_answers, "SHADOW", lambda j: ("baseline",
+                                                                              "baseline"))
+            note(shadow_bodies, shadow_answers)
+            status = rollout.status()
+            count1, sum1 = div_hist()
+            host = [prediction_divergence(
+                {"itemScores": [{"item": f"i{i}", "score": float(s)} for s, i in zip(
+                    want["baseline"][0][j][:min(b["num"], n_items)],
+                    want["baseline"][1][j][:min(b["num"], n_items)])]},
+                {"itemScores": [{"item": f"i{i}", "score": float(s)} for s, i in zip(
+                    want["candidate"][0][j][:min(b["num"], n_items)],
+                    want["candidate"][1][j][:min(b["num"], n_items)])]})
+                for j, b in enumerate(shadow_bodies)]
+            measured = (sum1 - sum0) / max(1.0, count1 - count0)
+            if (rollout.stage != ROLLOUT_SHADOW or status["shadow"]["ok"] != len(shadow_bodies)
+                    or status["shadow"]["errors"] or status["shadow"]["dropped"]
+                    or count1 - count0 != len(shadow_bodies)
+                    or out["shadow"]["candidate_batches"] < 1
+                    or abs(measured - float(np.mean(host))) > ROLLOUT_DIVERGENCE_ATOL):
+                raise AssertionError(f"SHADOW: stage {rollout.stage}, shadow {status['shadow']}, "
+                                     f"divergence samples {count1 - count0}, mean {measured} "
+                                     f"against the host's {np.mean(host)}")
+            out["shadow"].update(duplicates=status["shadow"], divergence_samples=count1 - count0,
+                                 mean_divergence=measured, host_mean_divergence=float(
+                                     np.mean(host)))
+            # the shadow's cost: the baseline's latency with a rollout in
+            # SHADOW (this server) and with none (the plain one), A B B A
+            rounds = []
+            for which in ROLLOUT_ROUNDS:
+                s = srv if which == "shadow" else plain_srv
+                bodies = bodies_of(HTTP_QUERIES)
+                got, w = _burst(s.bound_port, bodies)
+                check(bodies, got, f"cost round {which}",
+                      lambda j, v=("baseline" if which == "shadow" else "-"): (v, "baseline"))
+                if s is srv:
+                    note(bodies, got)
+                    rollout.drain_shadow()
+                rounds.append({"rollout": which, **_latency(got, wall=w)})
+            out["shadow_cost"] = rounds
+            if rollout.stage != ROLLOUT_SHADOW:
+                raise AssertionError(f"the shadow hold ({ROLLOUT_HOLD_S} s) ran out during the "
+                                     f"stage: {rollout.stage} after "
+                                     f"{time.monotonic() - t_stage:.2f} s")
+            seconds["shadow"] = time.monotonic() - t
+
+            # 2. CANARY at 10 %: the first request after the hold promotes
+            t = time.monotonic()
+            time.sleep(max(0.0, ROLLOUT_HOLD_S - (time.monotonic() - t_stage)) + 0.05)
+            trigger = bodies_of(1)
+            got, _ = _burst(port, trigger)
+            check(trigger, got, "the shadow stage's last query", lambda j: ("baseline",
+                                                                             "baseline"))
+            note(trigger, got)
+            if rollout.stage != ROLLOUT_CANARY:
+                raise AssertionError(f"no promotion to CANARY: {rollout.status()}")
+            t_stage = time.monotonic()
+            canary_bodies, canary_answers, wall = [], [], 0.0
+            before = batches()
+            top_k_streaming.launches = 0  # the canary stage starts here
+            for _burst_i in range(ROLLOUT_CANARY_BURSTS):
+                bodies = bodies_of(HTTP_QUERIES)
+                got, w = _burst(port, bodies)
+                canary_bodies += bodies
+                canary_answers += got
+                wall += w
+            launches = top_k_streaming.launches  # and ends here
+            out["canary"] = stage_line("canary", len(canary_bodies), launches, before,
+                                       (canary_answers, wall))
+            expect = [variant_for_key(salt, f"user={b['user']}", ROLLOUT_PERCENT)
+                      for b in canary_bodies]
+            check(canary_bodies, canary_answers, "CANARY", lambda j: (expect[j], expect[j]))
+            note(canary_bodies, canary_answers)
+            n = len(canary_bodies)
+            share = expect.count("candidate")
+            mean, sigma = n * ROLLOUT_PERCENT / 100, (n * 0.1 * 0.9) ** 0.5
+            if rollout.stage != ROLLOUT_CANARY or abs(share - mean) > 4 * sigma:
+                raise AssertionError(f"CANARY: stage {rollout.stage}, the candidate served "
+                                     f"{share} of {n} (band {mean} ± {4 * sigma})")
+            out["canary"].update(candidate_answers=share, band=[mean - 4 * sigma,
+                                                                mean + 4 * sigma])
+            # quality: both variants' score PSI exported, read by `pio quality --node`
+            metrics = _get_text(port, "/metrics")
+            psi_lines = dict(re.findall(r'^pio_quality_score_psi\{variant="(\w+)"\} (\S+)$',
+                                        metrics, re.M))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code = console.main(["quality", "--node", f"127.0.0.1:{port}", "--json"])
+            node = json.loads(buf.getvalue())
+            if (code != 0 or set(psi_lines) != {"baseline", "candidate"}
+                    or min(float(v) for v in psi_lines.values()) < 0
+                    or set(node.get("scorePsi", {})) != {"baseline", "candidate"}):
+                raise AssertionError(f"score PSI: /metrics {psi_lines}, pio quality {node}")
+            out["quality"] = {"score_psi": {k: float(v) for k, v in psi_lines.items()},
+                              "pio_quality_node": node}
+            seconds["canary"] = time.monotonic() - t
+
+            # 3. LIVE: after the canary hold the next request promotes
+            t = time.monotonic()
+            time.sleep(max(0.0, ROLLOUT_HOLD_S - (time.monotonic() - t_stage)) + 0.05)
+            trigger = bodies_of(1)
+            got, _ = _burst(port, trigger)
+            v = variant_for_key(salt, f"user={trigger[0]['user']}", ROLLOUT_PERCENT)
+            check(trigger, got, "the canary stage's last query", lambda j: (v, v))
+            note(trigger, got)
+            stored = ro_reg.get_metadata().rollout_plan_get_all()[0]
+            history = [h["stage"] for h in stored.history]
+            if (rollout.stage != ROLLOUT_LIVE or srv.deployment.instance.id != cand_id
+                    or history != [ROLLOUT_SHADOW, ROLLOUT_CANARY, ROLLOUT_LIVE]):
+                raise AssertionError(f"LIVE: stage {rollout.stage}, deployment "
+                                     f"{srv.deployment.instance.id}, stored history {history}")
+            stage_live[0] = True
+            before = batches()
+            top_k_streaming.launches = 0  # the live stage starts here
+            bodies = bodies_of(HTTP_QUERIES)
+            got, w = _burst(port, bodies)
+            launches = top_k_streaming.launches  # and ends here
+            out["live"] = stage_line("live", len(bodies), launches, before, (got, w))
+            check(bodies, got, "LIVE", lambda j: ("-", "candidate"))
+            note(bodies, got)
+            if out["live"]["candidate_batches"] != 0:
+                raise AssertionError("the retired candidate batcher still dispatched")
+            # a fresh server on the same store serves the candidate, no rollout active
+            fresh = create_query_server(engine_factory(), ServerConfig(
+                ip="127.0.0.1", port=0, device=dev), registry=ro_reg, block=False)
+            servers.append(fresh)
+            probe = bodies_of(8)
+            got, _ = _burst(fresh.bound_port, probe)
+            check(probe, got, "the fresh server", lambda j: ("-", "candidate"))
+            fresh_status = _get_json(fresh.bound_port, "/status.json")
+            if (fresh.deployment.instance.id != cand_id or fresh.rollout.active
+                    or fresh_status.get("topkPath") != {"0:ALSAlgorithm": "streaming"}):
+                raise AssertionError(f"the fresh server: {fresh.deployment.instance.id}, "
+                                     f"{fresh_status.get('rollout')}, {fresh_status.get('topkPath')}")
+            out["live"].update(history=history, fresh_server=fresh.deployment.instance.id)
+            seconds["live"] = time.monotonic() - t
+
+            # 4. a sick candidate: its predict raises; rolled back, no client error
+            t = time.monotonic()
+            rollout.start(candidate_instance_id=base_id, percent=50.0, gates=ROLLOUT_SICK_GATES,
+                          reason="sick candidate")
+            rollout.promote("straight to canary")
+            before = batches()
+            sick_answers, statuses, wall = [], [], 0.0
+            top_k_streaming.launches = 0  # the sick stage starts here
+            with faults.inject(faults.FaultSpec(site="serving.candidate", kind="refuse")) as plan:
+                for _round in range(4):
+                    bodies = bodies_of(HTTP_QUERIES)
+                    got, w = _burst(port, bodies)
+                    # "baseline" while the plan is active (the candidate's
+                    # queries served again from it), "-" once rolled back
+                    check(bodies, got, "the sick canary", lambda j: ("baseline|-", "candidate"))
+                    for b in bodies:  # every answer from the live model (the first candidate)
+                        served[b["user"]] = ("baseline", cand_id)
+                    statuses += [a[0] for a in got]
+                    sick_answers += got
+                    wall += w
+                    if rollout.stage == ROLLOUT_ROLLED_BACK:
+                        break
+            launches = top_k_streaming.launches  # and ends here
+            out["sick"] = stage_line("sick", len(statuses), launches, before,
+                                     (sick_answers, wall))
+            durable = ro_reg.get_metadata().rollout_plan_get_latest(
+                stored.engine_id, stored.engine_version, stored.engine_variant)
+            if (rollout.stage != ROLLOUT_ROLLED_BACK or durable.stage != ROLLOUT_ROLLED_BACK
+                    or statuses != [200] * len(statuses) or plan.fired("serving.candidate") < 1
+                    or "error-rate" not in durable.history[-1]["reason"]):
+                raise AssertionError(f"the sick candidate: stage {rollout.stage}, stored "
+                                     f"{durable.stage}, statuses {set(statuses)}")
+            out["sick"].update(non_200=0, faults_fired=plan.fired("serving.candidate"),
+                               reason=durable.history[-1]["reason"])
+            seconds["sick"] = time.monotonic() - t
+
+            # feedback: every predict event read back, tagged with its variant
+            t = time.monotonic()
+            _wait_for(lambda: srv.stats.count("feedback_sent") == srv.stats.request_count,
+                      "the rollout server's feedback deliveries")
+            stored_events = list(ev_reg.get_events().find(
+                fb_app, EventFilter(event_names=["predict"], limit=-1)))
+            wrong = []
+            for ev in stored_events:
+                props = ev.properties.to_dict()
+                user = props["query"]["user"]
+                if user in served and (props["variant"], props["engineInstanceId"]) != (
+                        served[user][0].replace("-", "baseline"), served[user][1]):
+                    wrong.append((user, props["variant"], served[user]))
+            tagged = {}
+            for ev in stored_events:
+                v = ev.properties.to_dict()["variant"]
+                tagged[v] = tagged.get(v, 0) + 1
+            if wrong or len(stored_events) != srv.stats.request_count or not tagged.get(
+                    "candidate"):
+                raise AssertionError(f"feedback: {len(stored_events)} events for "
+                                     f"{srv.stats.request_count} answers, mis-tagged {wrong[:3]}")
+            out["feedback"] = {"events": len(stored_events), "by_variant": tagged}
+            # ingest quality: a baseline mix pins, a skewed batch drifts it
+            path = "/batches/events.json?accessKey=ingest-key"
+
+            def ev_body(name, i):
+                body = {"event": name, "entityType": "user", "entityId": f"u{i}"}
+                if name == "rate":
+                    body["properties"] = {"rating": float(1 + i % 5)}
+                return body
+
+            for i in range(0, 200, 50):
+                _http(events.bound_port, "POST", path, [
+                    ev_body("rate" if j % 4 else "view", j) for j in range(i, i + 50)])
+            pinned = _get_text(events.bound_port, "/metrics")
+            for i in range(0, 300, 50):
+                _http(events.bound_port, "POST", path, [ev_body("buy", j) for j in range(i, i + 50)])
+            skewed = _get_text(events.bound_port, "/metrics")
+            series = re.escape(f'pio_quality_event_mix_psi{{app="{ingest_app}"}}')
+            mix = [float(re.search(rf"^{series} (\S+)$", text, re.M).group(1))
+                   for text in (pinned, skewed)]
+            if not (0 <= mix[0] < 0.1 < 0.25 < mix[1]):
+                raise AssertionError(f"pio_quality_event_mix_psi {mix}")
+            snaps = [s["source"] for s in load_snapshots(snapshots)]
+            if "baseline-pin" not in snaps or f"model-live:{cand_id}" not in snaps:
+                raise AssertionError(f"quality snapshots: {snaps}")
+            out["quality"].update(event_mix_psi={"pinned": mix[0], "skewed": mix[1]},
+                                  snapshots=snaps)
+            seconds["feedback_and_ingest"] = time.monotonic() - t
+        finally:
+            for server in reversed(servers):
+                server.shutdown()
+                server.server_close()
+    out["launches"] = sum(out[s]["launches"] for s in ("shadow", "canary", "live", "sick"))
+    out["seconds"] = {**seconds, "phase": time.monotonic() - t_phase}
     emit(out)
     return out
 
@@ -7189,6 +7659,8 @@ def main(argv=None) -> int:
                        trained["instance"])
         planed = timed("plane", phase_plane, torch, dev, args.seed, registry,
                        trained["instance"], base, smi)
+        rolled = timed("rollout", phase_rollout, torch, dev, args.seed, data, registry,
+                       trained["instance"], base, smi)
         attn = timed("attention_kernel", phase_attention_kernel, torch, dev, args.seed)
         seq_trained = timed("seqrec_train", phase_seqrec_train, torch, dev, args.seed,
                             registry)
@@ -7214,7 +7686,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": TOPK_SOURCE,
         "replaces": TOPK_REPLACES,
-        "launches": (sliced["launches"] + planed["launches"] + events["serve"]["launches"]
+        "launches": (sliced["launches"] + planed["launches"] + rolled["launches"]
+                     + events["serve"]["launches"]
                      + evaluated["launches"]["topk_streaming"]
                      + persisted["by_kernel"]["topk_streaming"]
                      + templated["by_kernel"]["topk_streaming"]
@@ -7222,6 +7695,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"slice": sliced["launches"],
                              "plane_burst": planed["burst"]["launches"],
                              "plane_shards": [s["launches"] for s in planed["shards"]["per_shard"]],
+                             "rollout": {st: rolled[st]["launches"]
+                                         for st in ("shadow", "canary", "live", "sick")},
                              "events_serve": events["serve"]["launches"],
                              "eval": evaluated["launches"]["topk_streaming"],
                              "persist": persisted["by_kernel"]["topk_streaming"],
@@ -7310,12 +7785,14 @@ def main(argv=None) -> int:
             "source": source,
             "replaces": replaces,
             "launches": (trained["launches"][name] + resume_launches[name]
+                         + rolled["candidate_train_launches"][name]
                          + events["als"]["launches"][name]
                          + evaluated["launches"][name] + persisted["by_kernel"][name]
                          + templated["by_kernel"][name]
                          + wide["by_kernel"][name] + consoled["by_kernel"][name]),
             "launches_by_path": {"train": trained["launches"][name],
                                  "resume": resume_launches[name],
+                                 "rollout_candidate_train": rolled["candidate_train_launches"][name],
                                  "events_als": events["als"]["launches"][name],
                                  "eval": evaluated["launches"][name],
                                  "persist": persisted["by_kernel"][name],

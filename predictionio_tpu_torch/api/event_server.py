@@ -31,9 +31,13 @@ Every request opens an admission span under the caller's
 ``X-PIO-Trace`` id (the query server's feedback delivery forwards its
 request's id, so both servers' spans share one trace), recorded by the
 server's ``Tracer("event-server")``; the server carries the ``event``
-health plane. Not ported here (ROADMAP.md, queue 1 items 6 and 12): the
-ingest quality monitor, the partitioned and migrating remote stores
-(their 503 shedding and ``/replication.json``).
+health plane. Every event the store accepted (and every 400) goes through
+the :class:`~..obs.quality.IngestQualityMonitor`: per-app schema, range
+and poison counters and the event-type mix against a per-app baseline
+kept under ``quality_dir`` (``PIO_QUALITY_DIR``),
+``pio_quality_event_mix_psi{app}``. Not ported here (ROADMAP.md, queue 1
+item 12): the partitioned and migrating remote stores (their 503 shedding
+and ``/replication.json``).
 """
 
 from __future__ import annotations
@@ -42,12 +46,14 @@ import dataclasses
 import datetime as _dt
 import json
 import logging
+import os
 import threading
 import time
 from typing import Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..obs.metrics import MetricsRegistry
+from ..obs.quality import IngestQualityMonitor
 from ..obs.trace import TRACE_HEADER, Tracer
 from ..storage.event import (
     Event,
@@ -173,6 +179,9 @@ class EventServerConfig:
     ip: str = "localhost"
     port: int = 7070
     stats: bool = False
+    #: directory of the ingest quality monitor's per-app event-mix
+    #: baselines; None reads ``PIO_QUALITY_DIR`` (unset = in memory only)
+    quality_dir: Optional[str] = None
 
 
 class _HTTPError(Exception):
@@ -307,9 +316,13 @@ class _EventServiceHandler(JsonHTTPHandler):
             event = _parse_event(json.loads(self._body.decode("utf-8")), app_id)
         except _BAD_EVENT as exc:
             # MalformedRequestContentRejection → 400 (EventAPI.scala:135-137)
+            self.server._observe_quality(app_id)
             self.respond(400, {"message": str(exc)})
             return
         event_id = self.server.events.insert(event, app_id)
+        # quality accounting only after the store accepted the event: a
+        # storage failure must not feed the mix window or pin a baseline
+        self.server._observe_quality(app_id, event)
         if self.server.stats_tracker is not None:
             self.server.stats_tracker.bookkeeping(app_id, 201, event)
         self.respond(201, {"eventId": event_id})
@@ -337,6 +350,7 @@ class _EventServiceHandler(JsonHTTPHandler):
             try:
                 event = _parse_event(obj, app_id)
             except _BAD_EVENT as exc:
+                self.server._observe_quality(app_id)
                 results[pos] = {"status": 400, "message": str(exc)}
                 continue
             if event.event_id is None:
@@ -349,6 +363,9 @@ class _EventServiceHandler(JsonHTTPHandler):
             self.server.events.write_new(fresh, app_id)
         if upserts:
             self.server.events.write(upserts, app_id)
+        # after the batched writes landed, as on the single route
+        for event in fresh + upserts:
+            self.server._observe_quality(app_id, event)
         if self.server.stats_tracker is not None:
             for event in fresh + upserts:
                 self.server.stats_tracker.bookkeeping(app_id, 201, event)
@@ -423,6 +440,29 @@ class EventServer(BackgroundHTTPServer):
             (config.ip, config.port), _EventServiceHandler, metrics=MetricsRegistry(),
             tracer=Tracer("event-server"), health_kind="event",
         )
+        self.quality = IngestQualityMonitor(
+            self.metrics, clock=self.metrics.clock,
+            baseline_dir=config.quality_dir or os.environ.get("PIO_QUALITY_DIR"),
+        )
+        self._observer_errors = self.metrics.counter(
+            "pio_observer_errors_total",
+            "Swallowed observer/monitor exceptions by site",
+            labelnames=("site",),
+        )
+
+    def _observe_quality(self, app_id: int, event: Optional[Event] = None) -> None:
+        """Quality accounting (a rejected event when ``event`` is None).
+        A monitor fault is counted on ``pio_observer_errors_total`` and
+        never raised: after the store committed, a 500 would invite a
+        client retry and a duplicate."""
+        try:
+            if event is None:
+                self.quality.record_rejected(app_id)
+            else:
+                self.quality.record_event(app_id, event)
+        except Exception:
+            self._observer_errors.inc(1, site="ingest.quality")
+            logger.debug("ingest quality accounting failed", exc_info=True)
 
 
 def create_event_server(

@@ -37,6 +37,11 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
     # keep-alive small responses with Nagle on wait ~40 ms for the
     # peer's delayed ACK
     disable_nagle_algorithm = True
+    #: extra labels of every ``pio_http_responses_total`` sample of this
+    #: handler class (the label names are the schema; a request may set
+    #: other values in ``self.response_labels``): the query server adds
+    #: ``{"variant": "-"}``
+    response_label_defaults: dict = {}
 
     def respond(
         self,
@@ -54,11 +59,14 @@ class JsonHTTPHandler(BaseHTTPRequestHandler):
             body = payload.encode("utf-8")
         else:
             body = json.dumps(payload).encode("utf-8")
+        labels = dict(self.response_label_defaults)
+        labels.update(getattr(self, "response_labels", None) or {})
+        labels["status"] = status
         self.server.metrics.counter(
             "pio_http_responses_total",
             "Responses by HTTP status",
-            labelnames=("status",),
-        ).inc(1, status=status)
+            labelnames=tuple(sorted(labels)),
+        ).inc(1, **labels)
         self.send_response(status)
         self.send_header("Content-Type", f"{content_type}; charset=UTF-8")
         self.send_header("Content-Length", str(len(body)))

@@ -1,16 +1,20 @@
-"""``pio trace``: one ``X-PIO-Trace`` id's spans across a node list.
+"""``pio trace`` and the ``/metrics`` scrape: read-only fleet scrapers.
 
 Trimmed copy of ``predictionio_tpu/obs/top.py`` (``pio top`` itself is
-ROADMAP.md queue 1 item 14): pull ``GET /traces.json`` from each node
-and stitch every process's spans for one trace id into a single
-start-time-ordered timeline. A read-only scraper: no storage, no torch.
+ROADMAP.md queue 1 item 14): :func:`collect_trace` pulls ``GET
+/traces.json`` from each node and stitches every process's spans for one
+trace id into a single start-time-ordered timeline; :func:`fetch_metrics`
+parses one node's ``GET /metrics`` (``pio quality --node``). No storage,
+no torch.
 """
 
 from __future__ import annotations
 
 import http.client
 import json
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
+
+from .expo import parse_text
 
 #: default node list: one of each server on localhost (query, event,
 #: storage) — the quickstart topology
@@ -39,6 +43,13 @@ def _fetch(node: str, path: str, timeout: float = 5.0) -> Optional[str]:
         return None
     finally:
         conn.close()
+
+
+def fetch_metrics(node: str, timeout: float = 5.0) -> Optional[Dict]:
+    """``GET /metrics`` on ``host:port`` → parsed samples (None when the
+    node is down)."""
+    body = _fetch(node, "/metrics", timeout=timeout)
+    return None if body is None else parse_text(body)
 
 
 def collect_trace(trace_id: str, nodes: str = DEFAULT_NODES,

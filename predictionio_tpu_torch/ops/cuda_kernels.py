@@ -590,8 +590,9 @@ def _topk_slice(q, item_factors, k_eff, exclude_idx, out_s, out_i,
             base, base + step, alt[0], alt[1],
             out_s.data_ptr(), out_i.data_ptr(), stream,
         )
-    top_k_streaming.launches += 1
-    top_k_streaming.launches_by_stage1[plan.stage1] += 1
+    with _topk_launch_lock:
+        top_k_streaming.launches += 1
+        top_k_streaming.launches_by_stage1[plan.stage1] += 1
     _raise_on_error(lib, "topk_streaming", code)
 
 
@@ -615,13 +616,16 @@ def _topk_select_slice(lib, plan, q, item_factors, k_eff, exclude_idx, e, out_s,
             ld, plan.stage1_smem, plan.merge_smem, plan.survivors,
             base, base + 4 * b * ld, out_s.data_ptr(), out_i.data_ptr(), stream,
         )
-    top_k_streaming.launches += 1
-    top_k_streaming.launches_by_stage1["select"] += 1
+    with _topk_launch_lock:
+        top_k_streaming.launches += 1
+        top_k_streaming.launches_by_stage1["select"] += 1
     _raise_on_error(lib, "topk_select", code)
 
 
 #: kernel launches since the count was last reset (CUDA tensors only), and
-#: the same launches by the plan's stage-1 kernel
+#: the same launches by the plan's stage-1 kernel; several batchers (a
+#: rollout's baseline and candidate) count at once, under one lock
+_topk_launch_lock = threading.Lock()
 top_k_streaming.launches = 0
 top_k_streaming.launches_by_stage1 = dict.fromkeys(TOPK_STAGE1, 0)
 

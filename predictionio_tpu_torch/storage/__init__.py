@@ -1,7 +1,7 @@
 """Storage plane of the port: the event model and event stores (SQLite
 and the native C++ log), id maps, app/access-key, manifest, engine- and
-evaluation-instance metadata, model blobs and the environment-driven
-registry."""
+evaluation-instance and rollout-plan metadata, model blobs and the
+environment-driven registry."""
 
 from .aggregator import aggregate_properties, aggregate_single
 from .bimap import BiMap, IdsLike
@@ -20,6 +20,7 @@ from .metadata import (
     EngineManifest,
     EvaluationInstance,
     MetadataStore,
+    RolloutPlan,
     new_engine_instance,
     utcnow,
 )
@@ -49,6 +50,7 @@ __all__ = [
     "NativeEventStore",
     "NativeScanUnsupported",
     "PropertyMap",
+    "RolloutPlan",
     "STATUS_COMPLETED",
     "STATUS_EVALCOMPLETED",
     "STATUS_EVALUATING",

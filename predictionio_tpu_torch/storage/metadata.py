@@ -8,7 +8,8 @@ engine project (``manifest_update``/``manifest_get``), the
 ``EngineInstance`` record, its status constants, ``new_engine_instance``
 and the engine-instance table (what training and deploying need), and
 the ``EvaluationInstance`` record of a ``pio eval`` run with its table
-(``evaluation_instance_*``). Rollout plans wait for their slice. The
+(``evaluation_instance_*``), and the ``RolloutPlan`` record of a staged
+deploy with its stage constants and table (``rollout_plan_*``). The
 table layout is the JAX package's, so both packages can share one
 metadata file.
 """
@@ -33,6 +34,16 @@ STATUS_TRAINING = "TRAINING"
 STATUS_COMPLETED = "COMPLETED"
 STATUS_EVALUATING = "EVALUATING"
 STATUS_EVALCOMPLETED = "EVALCOMPLETED"
+
+# RolloutPlan stages: SHADOW and CANARY are in flight (a restarted query
+# server resumes them); the other three are terminal.
+ROLLOUT_SHADOW = "SHADOW"
+ROLLOUT_CANARY = "CANARY"
+ROLLOUT_LIVE = "LIVE"
+ROLLOUT_ROLLED_BACK = "ROLLED_BACK"
+ROLLOUT_ABORTED = "ABORTED"
+ROLLOUT_ACTIVE_STAGES = (ROLLOUT_SHADOW, ROLLOUT_CANARY)
+ROLLOUT_TERMINAL_STAGES = (ROLLOUT_LIVE, ROLLOUT_ROLLED_BACK, ROLLOUT_ABORTED)
 
 
 def utcnow() -> _dt.datetime:
@@ -101,6 +112,28 @@ class EngineInstance:
 
 
 @dataclasses.dataclass(frozen=True)
+class RolloutPlan:
+    """Durable record of one staged deploy. ``salt`` and ``percent`` are
+    the whole routing function, so a restarted server resumes the same
+    sticky split; ``gates`` holds the resolved ``GateConfig`` values and
+    ``history`` one ``{"stage", "atMs", "reason"}`` entry a transition."""
+
+    id: str
+    stage: str
+    engine_id: str
+    engine_version: str
+    engine_variant: str
+    baseline_instance_id: str
+    candidate_instance_id: str
+    percent: float
+    salt: str
+    created_time: _dt.datetime
+    updated_time: _dt.datetime
+    gates: Dict[str, float] = dataclasses.field(default_factory=dict)
+    history: List[dict] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass(frozen=True)
 class EvaluationInstance:
     """Record of one evaluation run (``EvaluationInstances.scala:21-49``)."""
 
@@ -148,11 +181,21 @@ CREATE TABLE IF NOT EXISTS pio_evaluation_instances (
   evaluator_results_json TEXT NOT NULL DEFAULT '');
 CREATE TABLE IF NOT EXISTS pio_sequences (
   name TEXT PRIMARY KEY, value INTEGER NOT NULL);
+CREATE TABLE IF NOT EXISTS pio_rollout_plans (
+  id TEXT PRIMARY KEY, stage TEXT NOT NULL,
+  engine_id TEXT NOT NULL, engine_version TEXT NOT NULL,
+  engine_variant TEXT NOT NULL,
+  baseline_instance_id TEXT NOT NULL,
+  candidate_instance_id TEXT NOT NULL,
+  percent REAL NOT NULL, salt TEXT NOT NULL,
+  created_ms INTEGER NOT NULL, updated_ms INTEGER NOT NULL,
+  gates TEXT NOT NULL DEFAULT '{}',
+  history TEXT NOT NULL DEFAULT '[]');
 """
 
 
 class MetadataStore:
-    """The app, access-key, manifest, engine-instance and
+    """The app, access-key, manifest, engine-instance, rollout-plan and
     evaluation-instance DAOs over one SQLite database (WAL, so a training process, an Event Server and a query
     server can share the file)."""
 
@@ -400,6 +443,94 @@ class MetadataStore:
             self._conn.commit()
             return cur.rowcount > 0
 
+    # -- rollout plans ------------------------------------------------------
+    def rollout_plan_upsert(self, plan: RolloutPlan) -> str:
+        """Insert or replace one plan; a blank id is minted ``RO-<hex>``
+        (random, not sequential: ordering comes from ``updated_ms``)."""
+        pid = plan.id or f"RO-{secrets.token_hex(6)}"
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR REPLACE INTO pio_rollout_plans "
+                "VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?)",
+                (
+                    pid,
+                    plan.stage,
+                    plan.engine_id,
+                    plan.engine_version,
+                    plan.engine_variant,
+                    plan.baseline_instance_id,
+                    plan.candidate_instance_id,
+                    float(plan.percent),
+                    plan.salt,
+                    _to_ms(plan.created_time),
+                    _to_ms(plan.updated_time),
+                    json.dumps(plan.gates),
+                    json.dumps(list(plan.history)),
+                ),
+            )
+            self._conn.commit()
+        return pid
+
+    @staticmethod
+    def _row_to_rollout_plan(row) -> RolloutPlan:
+        return RolloutPlan(
+            id=row[0],
+            stage=row[1],
+            engine_id=row[2],
+            engine_version=row[3],
+            engine_variant=row[4],
+            baseline_instance_id=row[5],
+            candidate_instance_id=row[6],
+            percent=row[7],
+            salt=row[8],
+            created_time=_from_ms(row[9]),
+            updated_time=_from_ms(row[10]),
+            gates=json.loads(row[11]),
+            history=json.loads(row[12]),
+        )
+
+    def rollout_plan_get(self, id: str) -> Optional[RolloutPlan]:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT * FROM pio_rollout_plans WHERE id = ?", (id,)
+            ).fetchone()
+        return self._row_to_rollout_plan(row) if row else None
+
+    def rollout_plan_get_all(self) -> List[RolloutPlan]:
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT * FROM pio_rollout_plans ORDER BY updated_ms DESC, id DESC"
+            ).fetchall()
+        return [self._row_to_rollout_plan(r) for r in rows]
+
+    def rollout_plan_get_latest(
+        self, engine_id: str, engine_version: str, engine_variant: str
+    ) -> Optional[RolloutPlan]:
+        """The most recently updated plan of one engine tuple, any stage
+        (how a restarted server learns a candidate was rolled back)."""
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT * FROM pio_rollout_plans WHERE "
+                "engine_id = ? AND engine_version = ? AND engine_variant = ? "
+                "ORDER BY updated_ms DESC LIMIT 1",
+                (engine_id, engine_version, engine_variant),
+            ).fetchone()
+        return self._row_to_rollout_plan(row) if row else None
+
+    def rollout_plan_get_active(
+        self, engine_id: str, engine_version: str, engine_variant: str
+    ) -> Optional[RolloutPlan]:
+        """The in-flight (SHADOW or CANARY) plan of one engine tuple: what
+        a restarted query server resumes."""
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT * FROM pio_rollout_plans WHERE stage IN (?, ?) AND "
+                "engine_id = ? AND engine_version = ? AND engine_variant = ? "
+                "ORDER BY updated_ms DESC LIMIT 1",
+                (ROLLOUT_SHADOW, ROLLOUT_CANARY, engine_id, engine_version,
+                 engine_variant),
+            ).fetchone()
+        return self._row_to_rollout_plan(row) if row else None
 
     # -- evaluation instances ---------------------------------------------
     def evaluation_instance_insert(self, inst: EvaluationInstance) -> str:

@@ -13,9 +13,11 @@ activates a plan that makes those boundaries fail in scripted ways:
 Each kind takes an optional ``*N``: fire on the first N hits, then stop
 (N failures, then ok). ``PIO_FAULTS="serving.feedback=refuse*3"`` is the
 environment's syntax. The port's sites: ``serving.feedback`` (query
-server → Event Server), ``serving.error_log`` (→ ``--log-url``) and
-``serving.predict`` (just before the batched dispatch). No randomness,
-no wall-clock reads.
+server → Event Server), ``serving.error_log`` (→ ``--log-url``),
+``serving.predict`` (just before the batched dispatch) and
+``serving.candidate`` (a rollout candidate's query, shadow or canary,
+just before its dispatch: a sick candidate). No randomness, no
+wall-clock reads.
 """
 
 from __future__ import annotations

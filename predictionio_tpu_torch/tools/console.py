@@ -17,6 +17,10 @@ consoles). Run it as ``python -m predictionio_tpu_torch.tools.console
     ckpt ls|verify|gc          — checkpoint stores (alias ``checkpoint``)
     health | alerts | blackbox — the health plane (``tools/health.py``)
     trace <id>                 — one X-PIO-Trace id's spans across nodes
+    rollout start|status|promote|abort — staged deploys on a running
+                                 query server (``/rollout/*`` over HTTP)
+    quality                    — score drift, feedback and ingest quality
+                                 (``tools/quality.py``)
 
 ``train``, ``eval`` and ``deploy`` take ``--device`` (default ``cuda:0``,
 which raises where there is no CUDA; ``--device cpu`` runs on the host).
@@ -28,9 +32,10 @@ and receive ``--device``; without it, in this process. ``train`` and
 are its own; a deployed server reports its own on ``/status.json``).
 The commands that need no device (apps, keys, ``build``, ``status``,
 ``import``, ``export``, ``template``, ``undeploy``, ``ckpt``, ``health``,
-``alerts``, ``blackbox``, ``trace``) do not import torch. The commands of
-modules that are not ported stay in the parser and exit 1 with a
-message naming their ROADMAP item (:data:`NOT_PORTED`).
+``alerts``, ``blackbox``, ``trace``, ``rollout``, ``quality``) do not
+import torch. The JAX console's commands whose modules are not ported
+exit 1 with a message naming their ROADMAP item (:data:`NOT_PORTED`),
+before their own flags are parsed.
 """
 
 from __future__ import annotations
@@ -56,18 +61,19 @@ EXIT_OK = 0
 EXIT_FAIL = 1
 
 #: the JAX console's commands whose modules are not ported: name → (what,
-#: ROADMAP queue 1 item)
+#: ROADMAP queue 1 item). Each exits 1 with that message.
 NOT_PORTED = {
-    "rollout": ("rollouts, the second half of item 6", 6),
     "continuous": ("the continuous-learning loop", 9),
     "migrate": ("live storage migration", 12),
     "autoscale": ("the fleet autoscaler", 13),
+    "router": ("the serving-fleet router tier", 13),
+    "sharedcache": ("the router fleet's shared response cache", 13),
     "dashboard": ("the evaluation dashboard", 14),
     "storageserver": ("the storage server", 12),
     "lint": ("pio lint", 14),
     "top": ("pio top", 14),
     "perf": ("the perf tooling", 14),
-    "quality": ("the quality plane", 14),
+    "profile": ("the profiling tooling", 14),
     "upgrade": ("storage upgrades", 14),
 }
 
@@ -169,6 +175,51 @@ def undeploy(ip: str = "localhost", port: int = 8000) -> dict:
             return {"url": url, "status": resp.status}
     except (urllib.error.URLError, OSError) as exc:
         raise RuntimeError(f"Nothing to undeploy at {url}: {exc}") from exc
+
+
+# -- rollout: a thin HTTP client over the query server's /rollout routes ----------
+def _rollout_request(ip: str, port: int, method: str, path: str,
+                     body: Optional[dict] = None) -> dict:
+    url = f"http://{ip}:{port}{path}"
+    data = json.dumps(body).encode("utf-8") if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return json.loads(resp.read().decode("utf-8"))
+    except urllib.error.HTTPError as exc:
+        raw = exc.read().decode("utf-8", "replace")
+        try:
+            message = json.loads(raw).get("message", raw)
+        except ValueError:
+            message = raw
+        raise RuntimeError(f"query server answered {exc.code}: {message}") from exc
+    except (urllib.error.URLError, OSError) as exc:
+        raise RuntimeError(f"no query server at {url}: {exc}") from exc
+
+
+def rollout_command(args: argparse.Namespace) -> dict:
+    """``pio rollout start|status|promote|abort``."""
+    sub = args.rollout_command
+    if sub == "start":
+        gates = {}
+        for item in args.gate:
+            key, sep, value = item.partition("=")
+            if not sep:
+                raise ValueError(f"bad --gate {item!r}: expected KEY=VALUE")
+            gates[key.strip()] = float(value)
+        body: dict = {}
+        if args.instance_id:
+            body["instanceId"] = args.instance_id
+        if args.percent is not None:
+            body["percent"] = args.percent
+        if gates:
+            body["gates"] = gates
+        return _rollout_request(args.ip, args.port, "POST", "/rollout/start", body)
+    if sub == "status":
+        return _rollout_request(args.ip, args.port, "GET", "/rollout.json")
+    return _rollout_request(args.ip, args.port, "POST", f"/rollout/{sub}",
+                            {"reason": args.reason})
 
 
 def status(registry: StorageRegistry) -> dict:
@@ -295,10 +346,35 @@ def build_parser() -> argparse.ArgumentParser:
     tp_get.add_argument("template_name")
     tp_get.add_argument("directory")
 
-    # forwarded verbatim to ckpt.cli and tools/health.py, which own
-    # their flags (see main)
+    ro = sub.add_parser("rollout", help="staged deploys against a running query "
+                        "server: shadow -> canary -> live with metric gates")
+    ro_sub = ro.add_subparsers(dest="rollout_command", required=True)
+    ro_start = ro_sub.add_parser("start", help="load a candidate instance and enter SHADOW")
+    ro_start.add_argument("--instance-id", default=None,
+                          help="candidate engine instance (default: the latest "
+                          "COMPLETED one newer than the deployed baseline)")
+    ro_start.add_argument("--percent", type=float, default=None,
+                          help="canary traffic share (default 10)")
+    ro_start.add_argument("--gate", action="append", default=[], metavar="KEY=VALUE",
+                          help="gate override, repeatable (window_s, min_samples, "
+                          "max_error_rate_delta, max_p99_latency_ratio, max_divergence, "
+                          "shadow_hold_s, canary_hold_s, canary_percent, max_score_psi)")
+    ro_status = ro_sub.add_parser("status", help="active plan, windows, gate verdict")
+    ro_prom = ro_sub.add_parser("promote", help="advance one stage regardless of gates")
+    ro_prom.add_argument("--reason", default="manual promote")
+    ro_abort = ro_sub.add_parser("abort", help="retire the candidate; baseline takes 100%%")
+    ro_abort.add_argument("--reason", default="manual abort")
+    for sp in (ro_start, ro_status, ro_prom, ro_abort):
+        sp.add_argument("--ip", default="localhost")
+        sp.add_argument("--port", type=int, default=8000)
+
+    # forwarded verbatim to ckpt.cli, tools/health.py and tools/quality.py,
+    # which own their flags (see main)
     sub.add_parser("ckpt", aliases=["checkpoint"], add_help=False,
                    help="checkpoint stores: ls | verify | gc")
+    sub.add_parser("quality", add_help=False, help="score drift (PSI), feedback hit "
+                   "rate and ingest mix from a live /metrics scrape or the "
+                   "quality-snapshot file; --diff is the drift gate (tools/quality.py)")
     for name in HEALTH_COMMANDS:
         sub.add_parser(name, add_help=False, help=f"pio {name} (tools/health.py)")
     tr = sub.add_parser("trace", help="stitch one X-PIO-Trace id's spans across a "
@@ -386,6 +462,11 @@ def main(argv: Optional[Sequence[str]] = None,
         from . import health
 
         return health.main(argv)
+    if name == "quality":
+        # a scraper and snapshot reader: forwarded verbatim, storage-free
+        from . import quality
+
+        return quality.main(argv[1:])
     # a command that is not ported is refused before its own flags are
     # parsed (the JAX console forwards several of them verbatim)
     if name in NOT_PORTED:
@@ -442,6 +523,9 @@ def _dispatch(args: argparse.Namespace, registry: Optional[StorageRegistry]) -> 
 
         return run_trace(args.trace_id, args.nodes or DEFAULT_NODES,
                          timeout=args.timeout, as_json=args.json)
+    if cmd == "rollout":  # an HTTP client: no storage
+        _emit(rollout_command(args))
+        return EXIT_OK
     registry = registry or get_registry()
     if cmd == "app":
         sub = args.app_command

@@ -183,6 +183,9 @@ class MicroBatcher:
                 self._inflight += 1
                 self._inflight_hwm = max(self._inflight_hwm, self._inflight)
             self._work.put((items, futures, metas, reason))
+            # drop this frame's references to the batch while the next
+            # one is awaited: an item can hold a retired deployment
+            del items, futures, metas
 
     def _worker(self) -> None:
         while True:
@@ -190,6 +193,7 @@ class MicroBatcher:
             if task is None:  # close() sentinel
                 return
             self._execute(*task)
+            task = None  # as in _run: keep no batch alive between batches
 
     def _record_obs(self, metas: Sequence[Tuple[float, Any]], reason: str,
                     dispatch_ts: float, device_s: float, batch_size: int) -> None:

@@ -7,7 +7,12 @@ Counterpart of ``predictionio_tpu/workflow/serving.py`` (rebuild of
   neighbours into one ``batch_predict`` per algorithm, combine through
   ``serve`` (``CreateServer.scala:458-577``);
 - ``POST /reload`` (and the deprecated ``GET``) — hot-swap to the latest
-  completed engine instance (``CreateServer.scala:300-321``);
+  completed engine instance (``CreateServer.scala:300-321``); refused
+  with 409 while a rollout is active;
+- ``POST /rollout/start|promote|abort`` and ``GET /rollout.json`` — staged
+  deploys (:mod:`..rollout`): the candidate resident on the card beside
+  the baseline, shadowed, then served to a sticky canary share, then
+  live, or rolled back when a gate fails;
 - ``GET /status.json`` — engine, device, serving stats, breakers and the
   resolved top-k path (``topkPath``); ``GET /`` — the HTML status page
   (JSON with ``Accept: application/json``); ``GET /shard.json`` — the
@@ -30,9 +35,13 @@ from the tables on the card, ``degraded``. With ``shard_count > 1`` the
 server holds item rows ``i % shard_count == shard_index`` only and
 answers with their local top-k (``fleet/merge.py`` rebuilds the global
 one). The deployment travels with each micro-batched item, so a reload
-mid-batch is safe. The routes of rollouts and of the continuous loop
-answer 404 naming their ROADMAP item (queue 1 items 6 and 9); the quality
-plane is not ported (item 6).
+mid-batch is safe. Every answer carries ``X-PIO-Variant`` (the variant
+that served it, ``-`` with no rollout), which also labels
+``pio_http_responses_total``; its scores feed the
+:class:`~..obs.quality.QualityMonitor` (served-score drift
+``pio_quality_score_psi{variant}``), and its ``predict`` event is tagged
+with that variant. The routes of the continuous loop answer 404 naming
+their ROADMAP item (queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeoutError
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 from urllib.parse import urlparse, urlsplit
 
 from ..api.http import BackgroundHTTPServer, JsonHTTPHandler
@@ -58,10 +67,13 @@ from ..controller.engine import Engine, EngineParams
 from ..device import DeviceLike, describe_device
 from ..obs.flight import record as flight_record
 from ..obs.metrics import MetricsRegistry
+from ..obs.quality import QualityMonitor
 from ..obs.trace import TRACE_HEADER, SpanContext, Tracer, current_context
 from ..ops.cuda_kernels import kernel_launches, top_k_streaming
+from ..rollout.manager import RolloutError, RolloutManager
+from ..rollout.plan import BASELINE, CANDIDATE, VARIANT_HEADER
 from ..storage import StorageRegistry, utcnow
-from ..storage.metadata import STATUS_COMPLETED, EngineInstance
+from ..storage.metadata import ROLLOUT_SHADOW, STATUS_COMPLETED, EngineInstance
 from ..testing.faults import fault_point
 from ..tools import not_ported
 from ..utils.profiling import phases_from_env
@@ -125,6 +137,9 @@ class ServerConfig:
     #: implement ``shard_model``, or the deploy fails
     shard_index: int = 0
     shard_count: int = 1
+    #: the quality monitor's knobs, an ``obs.quality.QualityConfig``;
+    #: None = its defaults (snapshots to ``PIO_QUALITY_SNAPSHOTS``)
+    quality: Optional[Any] = None
     #: where the models' tables live: None = ``cuda:0`` (raises without
     #: CUDA); "cpu" only when asked for
     device: DeviceLike = None
@@ -345,27 +360,31 @@ class QueryDecodeError(ValueError):
 
 #: routes of modules that are not ported: path → (what, ROADMAP item)
 _NOT_PORTED_ROUTES = {
-    "/rollout/start": ("rollouts", 6),
-    "/rollout/promote": ("rollouts", 6),
-    "/rollout/abort": ("rollouts", 6),
-    "/rollout.json": ("rollouts", 6),
     "/continuous/start": ("the continuous-learning loop", 9),
     "/continuous/pause": ("the continuous-learning loop", 9),
     "/continuous/trigger": ("the continuous-learning loop", 9),
     "/continuous.json": ("the continuous-learning loop", 9),
 }
 
+_ROLLOUT_ROUTES = ("/rollout/start", "/rollout/promote", "/rollout/abort")
+
 
 class _QueryHandler(JsonHTTPHandler):
     server: "QueryServer"
 
+    #: every response carries a variant label ("-" = no rollout involved)
+    response_label_defaults = {"variant": "-"}
+
     def do_POST(self) -> None:  # noqa: N802
+        self.response_labels = None  # a handler serves a whole connection
         raw = self.read_body()
         path = urlparse(self.path).path
         if path == "/queries.json":
             self._handle_queries(raw)
         elif path == "/reload":
             self._handle_reload()
+        elif path in _ROLLOUT_ROUTES:
+            self._handle_rollout(path, raw)
         else:
             self._not_found(path)
 
@@ -396,6 +415,9 @@ class _QueryHandler(JsonHTTPHandler):
             self.headers.get(DEADLINE_HEADER), clock=self.server.clock
         )
         span = None
+        # handle_query fills in the serving variant; the admission span
+        # tags it and the response counter labels it
+        info: dict = {"variant": "-"}
         try:
             if deadline is not None:
                 # a budget already gone spends no decode or supplement work
@@ -404,26 +426,38 @@ class _QueryHandler(JsonHTTPHandler):
             # a fresh trace) and is ambient for the request, so the
             # batcher's spans and the feedback delivery join it
             with self.server.tracer.server_span(
-                "POST /queries.json", header_value=self.headers.get(TRACE_HEADER)
+                "POST /queries.json", header_value=self.headers.get(TRACE_HEADER),
+                tags=info,
             ) as span:
-                result = self.server.handle_query(payload, deadline)
-            self.respond(200, result, headers={TRACE_HEADER: span.trace_id})
+                result = self.server.handle_query(payload, deadline, info=info)
+            self.response_labels = {"variant": info["variant"]}
+            self.respond(200, result, headers={TRACE_HEADER: span.trace_id,
+                                               VARIANT_HEADER: info["variant"]})
         except DeadlineExceeded as exc:
+            self.response_labels = {"variant": info["variant"]}
             self.server.stats.inc("deadline_expired")
             self.respond(504, {"message": str(exc), "stage": exc.stage})
         except QueryDecodeError as exc:
             # the reference posts the bad-query branch to the log too
             # (CreateServer.scala:583-590)
+            self.response_labels = {"variant": info["variant"]}
             self.server.post_error_log(str(exc), payload, trace_ctx=span)
             self.respond(400, {"message": str(exc)})
         except Exception as exc:
             logger.exception("Query failed")
+            self.response_labels = {"variant": info["variant"]}
             self.server.post_error_log(str(exc), payload, trace_ctx=span)
             self.respond(500, {"message": str(exc)})
         finally:
             self.server.release()
 
     def _handle_reload(self) -> None:
+        rollout = self.server.rollout
+        if rollout.active:
+            self.respond(409, {"message": (
+                f"rollout {rollout.plan.id} in progress (stage {rollout.stage}); "
+                "promote or abort it before reloading")})
+            return
         try:
             self.server.reload()
             self.respond(200, {"message": "Reloaded"})
@@ -431,7 +465,38 @@ class _QueryHandler(JsonHTTPHandler):
             logger.exception("Reload failed")
             self.respond(500, {"message": str(exc)})
 
+    def _handle_rollout(self, path: str, raw: bytes) -> None:
+        """``POST /rollout/start|promote|abort``: 409 for lifecycle misuse
+        (and a candidate that fails to load), 400 for a bad body or an
+        unknown gate option."""
+        rollout = self.server.rollout
+        try:
+            body = json.loads(raw.decode("utf-8")) if raw else {}
+        except ValueError as exc:
+            self.respond(400, {"message": str(exc)})
+            return
+        if not isinstance(body, dict):
+            self.respond(400, {"message": "expected a JSON object body"})
+            return
+        try:
+            if path == "/rollout/start":
+                out = rollout.start(candidate_instance_id=body.get("instanceId"),
+                                    percent=body.get("percent"), gates=body.get("gates"))
+            elif path == "/rollout/promote":
+                out = rollout.promote(body.get("reason", "manual promote"))
+            else:
+                out = rollout.abort(body.get("reason", "manual abort"))
+            self.respond(200, out)
+        except RolloutError as exc:
+            self.respond(409, {"message": str(exc)})
+        except ValueError as exc:  # an unknown gate option
+            self.respond(400, {"message": str(exc)})
+        except Exception as exc:
+            logger.exception("rollout %s failed", path)
+            self.respond(500, {"message": str(exc)})
+
     def do_GET(self) -> None:  # noqa: N802
+        self.response_labels = None
         path = urlparse(self.path).path
         if self.serve_obs(path):
             return
@@ -441,6 +506,8 @@ class _QueryHandler(JsonHTTPHandler):
             self.respond(200, self.server.status_json())
         elif path == "/":
             self.respond(200, self.server.status_html(), content_type="text/html")
+        elif path == "/rollout.json":
+            self.respond(200, self.server.rollout.status())
         elif path == "/shard.json":
             self.respond(200, self.server.shard_json())
         elif path == "/reload":
@@ -456,7 +523,10 @@ class _QueryHandler(JsonHTTPHandler):
 class QueryServer(BackgroundHTTPServer):
     """The serving process (``CreateServer.scala:250-628``). ``clock``,
     ``retry_policy`` and the three breakers are injectable (defaults: the
-    monotonic clock, 3 attempts with 50 ms base backoff, ``PIO_BREAKER_*``)."""
+    monotonic clock, 3 attempts with 50 ms base backoff, ``PIO_BREAKER_*``);
+    the clock also drives the quality windows and the rollout gates.
+    ``rollout`` (a :class:`~..rollout.RolloutManager`) resumes any active
+    plan of the deployed engine at construction."""
 
     def __init__(
         self,
@@ -479,6 +549,9 @@ class QueryServer(BackgroundHTTPServer):
         self.deployment = prepare_deployment(engine, registry, config, self.ctx)
         metrics = MetricsRegistry(clock=clock)
         self.stats = ServingStats(metrics)
+        # per-variant served-score sketches (drift against a baseline
+        # pinned at model go-live) and the feedback join
+        self.quality = QualityMonitor(metrics, clock=clock, config=config.quality)
         metrics.gauge_callback(
             "pio_topk_kernel_launches",
             lambda: top_k_streaming.launches,
@@ -522,16 +595,7 @@ class QueryServer(BackgroundHTTPServer):
         self._feedback_pool = ThreadPoolExecutor(max_workers=2,
                                                  thread_name_prefix="feedback")
         tracer = Tracer("query-server", clock=clock)
-        self._batcher = MicroBatcher(
-            self._predict_batch,
-            max_batch=config.batch_max,
-            max_wait_ms=config.batch_wait_ms,
-            name="predict-batch",
-            pipeline_depth=config.batch_pipeline_depth,
-            metrics=metrics,
-            tracer=tracer,
-            clock=clock,
-        )
+        self._batcher = self._new_batcher("predict-batch", metrics, tracer)
         self.server_start_time = utcnow()
         try:
             super().__init__((config.ip, config.port), _QueryHandler, metrics=metrics,
@@ -542,6 +606,31 @@ class QueryServer(BackgroundHTTPServer):
             self._feedback_pool.shutdown(wait=False)
             raise
         self._export_train_phases()
+        # staged deploys: resume() re-resolves an active plan from the
+        # metadata store (same salt, same split); a broken plan leaves
+        # plain baseline serving, never a failed boot
+        self.rollout = RolloutManager(self)
+        try:
+            self.rollout.resume()
+        except Exception:
+            logger.exception("rollout resume failed; serving the baseline only")
+
+    def _new_batcher(self, name: str, metrics: Optional[MetricsRegistry] = None,
+                     tracer: Optional[Tracer] = None) -> MicroBatcher:
+        """A micro-batcher over :meth:`_predict_batch` with this server's
+        batching knobs. The rollout manager opens one for the candidate
+        deployment, with a registry of its own: its flushes are counted
+        apart from the server's (``pio_batch_*`` describes the baseline)."""
+        return MicroBatcher(
+            self._predict_batch,
+            max_batch=self.config.batch_max,
+            max_wait_ms=self.config.batch_wait_ms,
+            name=name,
+            pipeline_depth=self.config.batch_pipeline_depth,
+            metrics=metrics if metrics is not None else MetricsRegistry(clock=self.clock),
+            tracer=tracer if tracer is not None else self.tracer,
+            clock=self.clock,
+        )
 
     def _breakers(self):
         return (("event-server", self.feedback_breaker),
@@ -577,9 +666,12 @@ class QueryServer(BackgroundHTTPServer):
         return any(b.state != CircuitBreaker.CLOSED for _, b in self._breakers())
 
     # -- query path (CreateServer.scala:458-577) --------------------------
-    def handle_query(self, payload: Any, deadline: Optional[Deadline] = None) -> Any:
+    def handle_query(self, payload: Any, deadline: Optional[Deadline] = None,
+                     info: Optional[dict] = None) -> Any:
         """One query end to end, tracked by the stall watchdog with its
-        deadline's budget."""
+        deadline's budget. ``info`` (when given) receives the serving
+        ``variant`` (and ``fallback`` when a failed candidate was served
+        again from the baseline)."""
         watchdog = self.health.watchdog if self.health is not None else None
         token = None
         if watchdog is not None:
@@ -588,16 +680,97 @@ class QueryServer(BackgroundHTTPServer):
                 budget_s=deadline.remaining_s() if deadline is not None else None,
             )
         try:
-            return self._handle_query_tracked(payload, deadline)
+            return self._handle_query_tracked(payload, deadline, info)
         finally:
             if watchdog is not None:
                 watchdog.exit(token)
 
-    def _handle_query_tracked(self, payload: Any, deadline: Optional[Deadline]) -> Any:
+    def _handle_query_tracked(self, payload: Any, deadline: Optional[Deadline],
+                              info: Optional[dict]) -> Any:
         started = time.monotonic()
         query_time = utcnow()
-        with self._deploy_lock:
-            dep = self.deployment
+        rollout = self.rollout
+        # land a transition whose metadata write failed: a terminal one
+        # has no later observe() to ride
+        rollout.retry_pending_persist()
+        rollout_active = rollout.active
+        variant = BASELINE
+        variant_started = started
+        dep = None
+        if rollout_active:
+            # the sticky split: CANARY routes the plan's share of keys to
+            # the candidate; SHADOW serves the baseline (the duplicate is
+            # submitted after the answer)
+            variant = rollout.variant_for(payload)
+            if variant == CANDIDATE:
+                dep = rollout.candidate_deployment()
+                if dep is None:  # a rollback won the race
+                    variant = BASELINE
+        if dep is None:
+            with self._deploy_lock:
+                dep = self.deployment
+        if info is not None and rollout_active:
+            info["variant"] = variant
+        try:
+            query, prediction = self._serve_one(dep, payload, deadline, variant)
+        except DeadlineExceeded as exc:
+            # only the batch-wait stage is the variant's doing: a budget
+            # gone at admission or dispatch is the client's
+            if rollout_active and exc.stage == "batch-wait":
+                rollout.observe(variant, time.monotonic() - started, ok=False)
+            raise
+        except Exception as exc:
+            if variant != CANDIDATE:
+                # baseline failures count too, or the delta gate turns into
+                # an absolute threshold on the candidate
+                if rollout_active:
+                    rollout.observe(BASELINE, time.monotonic() - started, ok=False)
+                raise
+            # canary containment: a sick candidate is a rollout signal
+            # (its error gate), never a client error — the same request is
+            # served again from the resident baseline
+            rollout.observe(CANDIDATE, time.monotonic() - started, ok=False)
+            logger.warning("candidate %s failed (%s: %s); serving the baseline",
+                           dep.instance.id, type(exc).__name__, exc)
+            variant = BASELINE
+            variant_started = time.monotonic()
+            if info is not None:
+                info["variant"] = variant
+                info["fallback"] = True
+            with self._deploy_lock:
+                dep = self.deployment
+            try:
+                query, prediction = self._serve_one(dep, payload, deadline, variant)
+            except Exception:
+                if rollout_active:
+                    rollout.observe(BASELINE, time.monotonic() - variant_started, ok=False)
+                raise
+        result = encode_result(prediction)
+        # the score distribution and the served list, before the prId
+        # stamp; an observer failure is counted, never raised
+        try:
+            self.quality.observe_result(variant, payload, result)
+        except Exception:
+            self._observer_errors.inc(1, site="serving.quality")
+            logger.debug("quality observe failed", exc_info=True)
+        # the shadow duplicate before the prId stamp too: divergence
+        # compares model outputs, not per-request ids
+        if rollout_active and rollout.stage == ROLLOUT_SHADOW:
+            rollout.submit_shadow(payload, result)
+        if self.config.feedback:
+            result = self._send_feedback(dep, query_time, query, prediction, result, variant)
+        now = time.monotonic()
+        if rollout_active:
+            rollout.observe(variant, now - variant_started, ok=True)
+        self.stats.record_request(now - started)
+        return result
+
+    def _serve_one(self, dep: Deployment, payload: Any, deadline: Optional[Deadline],
+                   variant: str) -> Tuple[Any, Any]:
+        """Decode → supplement → batched predict → combine against one
+        deployment: the live request, the canary fallback and a shadow
+        duplicate. A candidate's query goes through the candidate's own
+        batcher. Returns ``(query, prediction)``."""
         with deadline_scope(deadline):
             try:
                 query = decode_query(dep.algorithms, payload)
@@ -608,8 +781,14 @@ class QueryServer(BackgroundHTTPServer):
                 # an expired query never takes a slot on the card
                 deadline.check("dispatch")
             fault_point("serving.predict", instance=dep.instance.id)
+            batcher = self._batcher
+            if variant == CANDIDATE:
+                # where a sick candidate is made to fail
+                fault_point("serving.candidate", instance=dep.instance.id)
+                # its own batcher, or the server's once it was retired
+                batcher = self.rollout.candidate_batcher or batcher
             try:
-                predictions = self._batcher.submit(
+                predictions = batcher.submit(
                     (dep, query),
                     timeout=deadline.remaining_s() if deadline is not None else None,
                 )
@@ -618,11 +797,7 @@ class QueryServer(BackgroundHTTPServer):
                     "deadline exceeded waiting for batched dispatch", stage="batch-wait"
                 ) from None
             prediction = dep.serving.serve(query, predictions)
-        result = encode_result(prediction)
-        if self.config.feedback:
-            result = self._send_feedback(dep, query_time, query, prediction, result)
-        self.stats.record_request(time.monotonic() - started)
-        return result
+        return query, prediction
 
     @staticmethod
     def _predict_one(dep: Deployment, query: Any) -> List[Any]:
@@ -723,11 +898,12 @@ class QueryServer(BackgroundHTTPServer):
             logger.debug("error-log skipped: the pool is closed")
 
     def _send_feedback(self, dep: Deployment, query_time: _dt.datetime, query: Any,
-                       prediction: Any, result: Any) -> Any:
+                       prediction: Any, result: Any, variant: str = BASELINE) -> Any:
         """A ``predict`` event to the Event Server, delivered on the pool
         (``CreateServer.scala:505-565``). Its ``prId`` is also its
-        ``idempotencyKey``, so a retried POST inserts one event. With no
-        rollout in the port every event's variant is the baseline."""
+        ``idempotencyKey``, so a retried POST inserts one event. It is
+        tagged with the ``variant`` that answered, so canary and baseline
+        can be scored apart from the event store."""
         new_pr_id = _get_pr_id(prediction) or _gen_pr_id()
         data = {
             "event": "predict",
@@ -738,7 +914,7 @@ class QueryServer(BackgroundHTTPServer):
                 "engineInstanceId": dep.instance.id,
                 "query": encode_result(query),
                 "prediction": encode_result(prediction),
-                "variant": "baseline",
+                "variant": variant,
             },
             "idempotencyKey": new_pr_id,
         }
@@ -775,13 +951,45 @@ class QueryServer(BackgroundHTTPServer):
     def server_close(self) -> None:
         self._batcher.close()  # fail queued requests fast, join thread
         self._feedback_pool.shutdown(wait=False)
+        if getattr(self, "rollout", None) is not None:
+            self.rollout.close()
         super().server_close()
+
+    def _adopt_deployment(self, dep: Deployment) -> None:
+        """Install ``dep`` as THE deployment (a rollout's go-live). The
+        retired deployment's last server reference goes with the swap, so
+        its tables on the card can be freed; in-flight queries finish on
+        the deployment they were routed to."""
+        with self._deploy_lock:
+            old = self.deployment.instance.id
+            self.deployment = dep
+        self._export_train_phases()
+        self._quality_live(dep.instance.id)
+        flight_record("deploy", "serving.adopt", fromInstance=old,
+                      toInstance=dep.instance.id)
+        logger.info("Deployment swapped: engine instance %s -> %s", old, dep.instance.id)
+
+    def _quality_live(self, instance_id: str) -> None:
+        """A model went live: the quality monitor writes its closing
+        snapshot and re-pins its baseline on the new model's traffic."""
+        try:
+            self.quality.model_live(instance_id)
+        except Exception:
+            self._observer_errors.inc(1, site="serving.quality")
+            logger.debug("quality re-pin failed", exc_info=True)
 
     def reload(self) -> None:
         """Hot-swap to the latest completed instance of the deployed
         engine (``CreateServer.scala:300-321``): the new tables are
         staged on the device first, then the reference swaps. Failures
-        ride ``reload_breaker``; the resident tables keep serving."""
+        ride ``reload_breaker``; the resident tables keep serving. Refused
+        while a rollout is active: the latest completed instance is its
+        candidate."""
+        rollout = getattr(self, "rollout", None)
+        if rollout is not None and rollout.active:
+            raise RuntimeError(
+                f"rollout {rollout.plan.id} in progress (stage {rollout.stage}); "
+                "promote or abort it before reloading")
         cur = self.deployment.instance
         cfg = dataclasses.replace(
             self.config,
@@ -796,6 +1004,7 @@ class QueryServer(BackgroundHTTPServer):
             old = self.deployment.instance.id
             self.deployment = fresh
         self._export_train_phases()
+        self._quality_live(fresh.instance.id)
         flight_record("deploy", "serving.reload", fromInstance=old,
                       toInstance=fresh.instance.id)
         logger.info("Reloaded: engine instance %s -> %s", old, fresh.instance.id)
@@ -878,6 +1087,8 @@ class QueryServer(BackgroundHTTPServer):
         if topk:
             out["topkPath"] = topk
         out["batching"] = self._batcher.stats
+        out["quality"] = self.quality.summary()
+        out["rollout"] = self.rollout.status()
         phases = phases_from_env(dep.instance.env)
         if phases:
             out["trainPhases"] = phases
@@ -907,6 +1118,7 @@ class QueryServer(BackgroundHTTPServer):
             ("Expired deadlines", str(stats["deadlineExpired"])),
             ("Breakers", ", ".join(f"{name}={b.state}" for name, b in self._breakers())),
             ("Shard", f"{self.config.shard_index} of {self.config.shard_count}"),
+            ("Rollout", self.rollout.stage or "none"),
             ("Micro-batching",
              f"{bs['batches']} batches, avg {bs['avg_batch']:.1f} queries/batch"),
         ]

@@ -428,6 +428,32 @@ def test_commands_of_modules_not_ported_name_their_roadmap_item(name, registry, 
     assert f"ROADMAP.md, queue 1 item {item})" in error
 
 
+@pytest.mark.parametrize("name,item", [("router", 13), ("sharedcache", 13), ("profile", 14)])
+def test_router_sharedcache_and_profile_exit_1_naming_their_item(name, item, registry,
+                                                                  capsys):
+    """The JAX console's ``router``, ``sharedcache`` and ``profile`` are
+    refused by name (exit 1), not by argparse (exit 2)."""
+    assert console.main([name, "--port", "9"], registry) == 1
+    error = json.loads(capsys.readouterr().out)["error"]
+    assert f"`pio {name}`" in error and f"ROADMAP.md, queue 1 item {item})" in error
+
+
+@pytest.mark.parametrize("argv,code,needle", [
+    (["rollout", "status", "--ip", "127.0.0.1", "--port", "CLOSED"], 1, "no query server"),
+    (["quality", "--diff", "--snapshots", "/nonexistent/q.jsonl"], 2, ""),
+])
+def test_rollout_and_quality_are_ported(argv, code, needle, capsys):
+    """``rollout`` and ``quality`` left ``NOT_PORTED``: an HTTP client and
+    the quality CLI, each with its own exit codes (nothing to reach here)."""
+    from torch_plane import closed_port
+
+    argv = [str(closed_port()) if a == "CLOSED" else a for a in argv]
+    assert argv[0] not in console.NOT_PORTED
+    assert console.main(argv) == code
+    captured = capsys.readouterr()
+    assert needle in captured.out and "not ported" not in captured.out + captured.err
+
+
 @pytest.mark.parametrize("argv,key", [(["ckpt", "ls", "--json"], "uncommitted"),
                                       (["checkpoint", "verify", "--json"], "ok")])
 def test_ckpt_and_its_alias_reach_the_checkpoint_cli(argv, key, tmp_path, capsys):

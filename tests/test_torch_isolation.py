@@ -38,6 +38,38 @@ def test_the_source_scan_reaches_the_evaluation_slice():
             "testing/faults.py", "fleet/merge.py", "tools/health.py"} <= scanned
 
 
+ROLLOUT_QUALITY_SLICE = ("rollout/__init__.py", "rollout/plan.py", "rollout/controller.py",
+                         "rollout/manager.py", "obs/sketch.py", "obs/quality.py",
+                         "tools/quality.py")
+
+
+def test_the_source_scan_reaches_the_rollout_and_quality_slice():
+    """The rollouts and the quality plane are scanned, import nothing of
+    jax or the JAX package (at any depth: no function-level import
+    either), and import in a process that has no jax."""
+    scanned = {p.relative_to(PORT).as_posix(): p for p in _port_sources() if PORT in p.parents}
+    assert set(ROLLOUT_QUALITY_SLICE) <= set(scanned)
+    for rel in ROLLOUT_QUALITY_SLICE:
+        for node in ast.walk(ast.parse(scanned[rel].read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not [n for n in names if n.split(".")[0] in FORBIDDEN_ROOTS], (rel, names)
+    code = ("import sys\n"
+            "import predictionio_tpu_torch.rollout, predictionio_tpu_torch.obs.quality\n"
+            "import predictionio_tpu_torch.obs.sketch, predictionio_tpu_torch.tools.quality\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'predictionio_tpu'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_importing_every_port_module_pulls_in_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -254,7 +254,7 @@ def test_admission_sheds_past_max_queue(served):
     assert _request(port, "POST", "/queries.json", {"user": "u0", "num": 2})[0] == 200
     _, metrics, _ = _request(port, "GET", "/metrics")
     assert 'pio_serving_events_total{kind="shed"} 1' in metrics
-    assert 'pio_http_responses_total{status="503"} 1' in metrics
+    assert 'pio_http_responses_total{status="503",variant="-"} 1' in metrics
     assert "pio_topk_kernel_launches 0" in metrics
 
 

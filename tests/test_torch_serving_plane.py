@@ -15,7 +15,7 @@ the port on ``device="cpu"``) and get the same requests:
   deliveries on both, every query still answers, ``/metrics`` shows
   ``pio_breaker_state{dep="event-server"} 2``;
 - ``GET /``, ``/shard.json``, ``pio_train_phase_seconds`` and the routes
-  of modules that are not ported;
+  of modules that are not ported (the continuous loop's);
 - a seeded concurrent burst answered alike (items equal but for ties,
   scores 1e-5).
 """
@@ -275,7 +275,7 @@ def test_status_page_shard_json_and_train_phases(tmp_path):
 
 
 @pytest.mark.parametrize("method,path,item", [
-    ("POST", "/rollout/start", 6), ("GET", "/rollout.json", 6),
+    ("POST", "/continuous/start", 9), ("POST", "/continuous/pause", 9),
     ("POST", "/continuous/trigger", 9), ("GET", "/continuous.json", 9),
 ])
 def test_routes_of_modules_not_ported_name_their_item(method, path, item, tmp_path):

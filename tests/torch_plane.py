@@ -210,3 +210,55 @@ def same_ranking(got: dict, want: dict, tol: float = 1e-5) -> bool:
     close = np.isclose(gs, ws, rtol=tol, atol=tol)
     same = np.array([a == b for (a, _), (b, _) in zip(g, w)], dtype=bool)
     return bool(close.all() and (same | close).all())
+
+
+def _staggered(md, iid: str, order: int) -> None:
+    """Start instance ``iid`` ``order`` seconds after the epoch of the
+    store's first one, so "latest completed" follows the order of
+    creation even within one millisecond."""
+    import datetime as dt
+
+    inst = md.engine_instance_get(iid)
+    when = dt.datetime(2026, 1, 1, tzinfo=dt.timezone.utc) + dt.timedelta(seconds=order)
+    md.engine_instance_update(dataclasses.replace(inst, start_time=when))
+
+
+def port_store(tmp_path, models, name: str = "port"):
+    """A port store holding ``models`` as COMPLETED instances, started in
+    list order: (registry, instance ids)."""
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithmParams
+    from predictionio_tpu_torch.storage import StorageRegistry
+    from predictionio_tpu_torch.workflow import persist_instance
+
+    registry = StorageRegistry({"PIO_FS_BASEDIR": str(tmp_path / name)})
+    ids = []
+    for order, model in enumerate(models):
+        ep = EngineParams(algorithm_params_list=[("als", ALSAlgorithmParams(rank=model.rank))])
+        ids.append(persist_instance(registry, ep, [model]))
+        _staggered(registry.get_metadata(), ids[-1], order)
+    return registry, ids
+
+
+def jax_store(tmp_path, models, name: str = "jax"):
+    """The JAX package's store holding ``models`` the way its
+    ``run_train`` stores them, started in list order: (registry, ids)."""
+    from predictionio_tpu.controller.engine import EngineParams, serialize_engine_params
+    from predictionio_tpu.models.recommendation import ALSAlgorithmParams
+    from predictionio_tpu.storage import Model, StorageRegistry
+    from predictionio_tpu.storage.metadata import STATUS_COMPLETED, new_engine_instance
+
+    registry = StorageRegistry(env={"PIO_FS_BASEDIR": str(tmp_path / name)})
+    md = registry.get_metadata()
+    ids = []
+    for order, model in enumerate(models):
+        ep = EngineParams(algorithm_params_list=[("als", ALSAlgorithmParams(rank=model.rank))])
+        iid = md.engine_instance_insert(new_engine_instance(
+            engine_id="default", engine_version="1", engine_variant="engine.json",
+            engine_factory="", **serialize_engine_params(ep)))
+        registry.get_models().insert(Model(id=iid, models=pickle.dumps([model])))
+        inst = md.engine_instance_get(iid)
+        md.engine_instance_update(dataclasses.replace(inst, status=STATUS_COMPLETED))
+        _staggered(md, iid, order)
+        ids.append(iid)
+    return registry, ids
