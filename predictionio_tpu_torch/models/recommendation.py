@@ -17,6 +17,16 @@ its ``[B, k]`` results out, in one copy each way. ``shard_model`` cuts
 a model to one partition of its item table for sharded serving
 (``ServerConfig(shard_index=..., shard_count=...)``).
 
+With ``quantized_serving`` on (params, else ``PIO_SERVE_QUANT``), the
+attach also quantizes the item table to int8 and runs the exactness gate
+(:func:`..quant.quantize_serving_table`: the f32 leg through the top-k
+kernel) before any quantized answer; a refusal raises
+:class:`..quant.QuantGateError`, at train time or on the first query.
+Quantized batches are scored by :func:`..quant.top_k_quantized`, plain
+PyTorch (``topkPath`` "quant"). ``fold_in`` and ``fold_in_partitioned``
+re-solve only the rows a delta touched (:mod:`..continuous.foldin`,
+kernels 3 and 2 on the card) and re-gate the folded model.
+
 ``RecDataSource.read_training`` reads the rate/buy events of its app
 from the registry's event store (``get_registry().get_events()``)
 through :func:`..workflow.infeed.stream_ratings` — on the native event
@@ -34,12 +44,15 @@ and the two id maps' ``to_dict()``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import logging
 import os
 import shutil
 import threading
+import time
 import weakref
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,7 +71,7 @@ from ..controller import (
 )
 from ..ckpt import resolve_every, resolve_resume
 from ..device import DeviceLike, resolve_device
-from ..ops.als import ALSConfig, als_train_coo
+from ..ops.als import ALSConfig, ALSFactors, als_train_coo, rmse
 from ..ops.als_sharded import resolve_shards
 from ..ops.scoring import (
     pad_pow2,
@@ -67,13 +80,11 @@ from ..ops.scoring import (
     top_k_for_users_fused,
     use_streaming_topk,
 )
+from ..quant import quantize_serving_table, resolve_quantized_serving, top_k_quantized
 from ..storage import BiMap, IdsLike, get_registry
 from ..workflow.infeed import stream_ratings
 
-QUANT_NOT_PORTED = (
-    "quantized_serving is not ported yet (ROADMAP.md, queue 1); deploy "
-    "with quantized_serving false"
-)
+_logger = logging.getLogger(__name__)
 
 
 # -- queries / results (template's Query.scala / PredictedResult) -----------
@@ -229,7 +240,8 @@ class ALSAlgorithmParams(Params):
     (not ported yet), whether set here or through ``PIO_TRAIN_SHARDS``;
     serving reads ``streaming_top_k`` (on the card
     "auto"/"always" stream through the kernel and "never" is refused; see
-    ``use_streaming_topk``) and refuses ``quantized_serving``."""
+    ``use_streaming_topk``), ``quantized_serving`` (params, else
+    ``PIO_SERVE_QUANT``, else off) and ``quant_gate_min_match``."""
 
     rank: int = 10
     num_iterations: int = 10
@@ -315,14 +327,6 @@ def als_model_from_numpy(
     )
 
 
-def _quantized_serving_requested(flag: Optional[bool]) -> bool:
-    """The JAX package's tri-state: explicit flag, else
-    ``PIO_SERVE_QUANT``, else off."""
-    if flag is not None:
-        return flag
-    return os.environ.get("PIO_SERVE_QUANT", "0").strip() == "1"
-
-
 class ALSAlgorithm(Algorithm):
     """ALS training and serving on the card (``ALSAlgorithm.scala``).
 
@@ -340,16 +344,51 @@ class ALSAlgorithm(Algorithm):
         self.device: Optional[torch.device] = (
             None if device is None else resolve_device(device)
         )
-        #: the top-k path the LAST batch took ("streaming" | "dense";
-        #: None before the first query), read by /status.json
+        #: the top-k path the LAST batch took ("streaming" | "dense" |
+        #: "quant"; None before the first query), read by /status.json
         self._topk_path: Optional[str] = None
         #: (weakref to the attached model, its device user/item tables)
         self._tables = None
         self._tables_lock = threading.Lock()
+        # quantized serving: the gated table of the attached model (a
+        # weakref to it: a fold-in's new model gates again) and its status
+        self._quant = None
+        self._quant_model_ref = None
+        self._quant_status: Optional[dict] = None
+        self._quant_lock = threading.Lock()
 
     @property
     def topk_path(self) -> Optional[str]:
         return self._topk_path
+
+    @property
+    def quant_status(self) -> Optional[dict]:
+        """The gate status of the attached model's quantized table
+        (dtype, bytes, compression, matchRate, minMatch); None while the
+        lever is off. Read by /status.json (``quantServing``)."""
+        return self._quant_status
+
+    def _attach_quant(self, model: ALSModel) -> None:
+        """Resolve the ``quantized_serving`` lever against THIS model: once
+        a model (weakref identity), at train and fold-in and on the first
+        serve of a loaded model, always before any quantized answer, the
+        item table is quantized to int8 on this algorithm's device and the
+        exactness gate runs. A refusal propagates (loud and counted); it
+        never falls back to f32 silently."""
+        with self._quant_lock:
+            if not resolve_quantized_serving(self.params.quantized_serving):
+                self._quant = self._quant_model_ref = self._quant_status = None
+                return
+            if (self._quant is not None and self._quant_model_ref is not None
+                    and self._quant_model_ref() is model):
+                return
+            uf, itf = self._device_tables(model)
+            qtable, status = quantize_serving_table(
+                itf, uf, min_match=self.params.quant_gate_min_match)
+            status["minMatch"] = self.params.quant_gate_min_match
+            self._quant = qtable
+            self._quant_model_ref = weakref.ref(model)
+            self._quant_status = status
 
     def train(self, ctx, pd: PreparedData) -> ALSModel:
         """Single-device ALS on the context's device (``ALSAlgorithm.scala:
@@ -363,8 +402,7 @@ class ALSAlgorithm(Algorithm):
         p = self.params
         device = self.device or (ctx.device if ctx is not None else resolve_device(None))
         use_streaming_topk(p.streaming_top_k, device)
-        if _quantized_serving_requested(p.quantized_serving):
-            raise NotImplementedError(QUANT_NOT_PORTED)
+        quantized = resolve_quantized_serving(p.quantized_serving)  # a bad env fails here
         # the JAX package's resolution: params > PIO_TRAIN_SHARDS > 1, and
         # params > workflow run > PIO_CKPT_EVERY > 0 for the cadence
         if resolve_shards(p.shards) > 1 or p.distributed:
@@ -398,13 +436,19 @@ class ALSAlgorithm(Algorithm):
             checkpoint=checkpoint,
             checkpoint_every=every,
         )
-        return ALSModel(
+        model = ALSModel(
             rank=p.rank,
             user_factors=factors.user_factors.cpu().numpy(),
             item_factors=factors.item_factors.cpu().numpy(),
             user_map=pd.user_map,
             item_map=pd.item_map,
         )
+        if quantized:
+            # the gate refuses here, at train time, not on the first query
+            if self.device is None:
+                self.device = device
+            self._attach_quant(model)
+        return model
 
     def prepare_serving(self, model: ALSModel, ctx) -> None:
         """Deploy-time attach: validate the serving levers and move the
@@ -420,8 +464,6 @@ class ALSAlgorithm(Algorithm):
             cached = self._tables
             if cached is not None and cached[0]() is model:
                 return cached[1], cached[2]
-            if _quantized_serving_requested(self.params.quantized_serving):
-                raise NotImplementedError(QUANT_NOT_PORTED)
             if self.device is None:
                 self.device = resolve_device(None)
             # a config typo fails at attach, not mid-serving
@@ -434,6 +476,238 @@ class ALSAlgorithm(Algorithm):
             ).to(self.device)
             self._tables = (weakref.ref(model), uf, itf)
             return uf, itf
+
+    @property
+    def fold_in_supported(self) -> bool:
+        """Fold-in solves the EXPLICIT normal equations; an implicit-prefs
+        model would get wrong row updates, so it retrains fully instead."""
+        return not self.params.implicit_prefs
+
+    def _fold_device(self, ctx) -> torch.device:
+        if self.device is None:
+            self.device = ctx.device if ctx is not None else resolve_device(None)
+        return self.device
+
+    def _fold_base(self, model: ALSModel, pd: PreparedData,
+                   new_rows: Optional[Callable] = None) -> dict:
+        """The prologue of :meth:`fold_in` and :meth:`fold_in_partitioned`:
+        extend the model's id maps with pd's universe (stable indices),
+        translate pd's COO into the combined space, and seed rows for new
+        entities (``new_rows(n_new, rank, seed, offset)``, by default
+        :func:`..continuous.foldin.seeded_rows`; a parity check passes the
+        JAX package's rows here). Deterministic in (model, pd): every
+        partition's fold starts from this same base, so their results
+        merge."""
+        from ..continuous.foldin import extend_bimap_indexing, seeded_rows
+
+        new_rows = new_rows or seeded_rows
+        p = self.params
+        rank = model.user_factors.shape[1]
+        old_u, old_i = len(model.user_map), len(model.item_map)
+        pd_u_ids = [pd.user_map.inverse[i] for i in range(len(pd.user_map))]
+        pd_i_ids = [pd.item_map.inverse[i] for i in range(len(pd.item_map))]
+        comb_u, new_u = extend_bimap_indexing(model.user_map.to_dict(), pd_u_ids)
+        comb_i, new_i = extend_bimap_indexing(model.item_map.to_dict(), pd_i_ids)
+        t_u = np.asarray([comb_u[k] for k in pd_u_ids], dtype=np.int32)
+        t_i = np.asarray([comb_i[k] for k in pd_i_ids], dtype=np.int32)
+        uf = np.concatenate([np.asarray(model.user_factors, dtype=np.float32),
+                             np.asarray(new_rows(new_u, rank, p.seed, offset=old_u),
+                                        dtype=np.float32)])
+        itf = np.concatenate([np.asarray(model.item_factors, dtype=np.float32),
+                              np.asarray(new_rows(new_i, rank, p.seed + 1, offset=old_i),
+                                         dtype=np.float32)])
+        return {"rank": rank, "old_u": old_u, "old_i": old_i, "new_u": new_u,
+                "new_i": new_i, "comb_u": comb_u, "comb_i": comb_i,
+                "users": t_u[pd.users], "items": t_i[pd.items], "uf": uf, "itf": itf}
+
+    def _fold_rmse(self, uf, itf, rank, users, items, ratings, device) -> float:
+        return rmse(ALSFactors(torch.from_numpy(uf).to(device),
+                               torch.from_numpy(itf).to(device), rank),
+                    users, items, ratings)
+
+    def _refuse_implicit(self) -> None:
+        if not self.fold_in_supported:
+            raise ValueError(
+                "fold_in solves explicit normal equations; "
+                "implicit_prefs=True models must retrain fully"
+            )
+
+    def fold_in(
+        self,
+        ctx,
+        model: ALSModel,
+        pd: PreparedData,
+        changed_user_ids: Sequence[str],
+        changed_item_ids: Sequence[str],
+        policy=None,
+        new_rows: Optional[Callable] = None,
+    ):
+        """ALX-style incremental update (JAX ``models/recommendation.py``
+        ``fold_in``): re-solve only the changed and new user and item rows
+        against fixed counterpart factors, over the full current data
+        ``pd``, on this algorithm's device (the context's, else ``cuda:0``)
+        — each side's rows one bucket through the build and solve kernels
+        on the card. Existing entities keep their indices (untouched rows
+        stay byte-identical); new entities get appended, seeded rows
+        (``new_rows``: see :meth:`_fold_base`). The folded model is gated
+        again when quantized serving is on. Returns ``(ALSModel,
+        FoldInStats)``."""
+        from ..continuous import foldin
+
+        self._refuse_implicit()
+        device = self._fold_device(ctx)
+        policy = policy or foldin.FoldInPolicy()
+        base = self._fold_base(model, pd, new_rows)
+        rank, users, items = base["rank"], base["users"], base["items"]
+        comb_u, comb_i = base["comb_u"], base["comb_i"]
+        changed_u = sorted(
+            {comb_u[k] for k in changed_user_ids if k in comb_u}
+            | set(range(base["old_u"], base["old_u"] + base["new_u"]))
+        )
+        changed_i = sorted(
+            {comb_i[k] for k in changed_item_ids if k in comb_i}
+            | set(range(base["old_i"], base["old_i"] + base["new_i"]))
+        )
+        before = self._fold_rmse(base["uf"], base["itf"], rank, users, items,
+                                 pd.ratings, device)
+        uf, itf, counts = foldin.fold_in_factors(
+            base["uf"], base["itf"], users, items, pd.ratings,
+            changed_u, changed_i, self.params.lambda_, policy=policy, device=device,
+        )
+        after = self._fold_rmse(uf, itf, rank, users, items, pd.ratings, device)
+        folded = ALSModel(rank=model.rank, user_factors=uf, item_factors=itf,
+                          user_map=BiMap(comb_u), item_map=BiMap(comb_i))
+        stats = foldin.FoldInStats(
+            folded_users=counts["solved_users"], folded_items=counts["solved_items"],
+            new_users=base["new_u"], new_items=base["new_i"],
+            rmse_before=before, rmse_after=after,
+        )
+        # fold-in moved item rows: the old quantized table is stale, and
+        # the new one must prove itself again before it serves
+        self._attach_quant(folded)
+        return folded, stats
+
+    def fold_in_partitioned(
+        self,
+        ctx,
+        model: ALSModel,
+        pd: PreparedData,
+        parts,
+        policy=None,
+        max_workers: int = 2,
+        timeout_s: float = 0.0,
+        clock=None,
+        new_rows: Optional[Callable] = None,
+    ):
+        """Fold per-partition deltas CONCURRENTLY on a bounded pool (JAX
+        ``fold_in_partitioned``). ``parts`` maps partition index →
+        ``(user_ids, item_ids)``. Every partition folds the SAME extended
+        base tables, so results merge by row copy: changed-user row sets
+        are disjoint when the write path partitions users; changed items
+        may overlap and merge last-partition-wins. New entities that no
+        partition named go to every partition (identical inputs, identical
+        rows).
+
+        ``timeout_s > 0`` bounds the wait: a partition whose fold has not
+        finished by then (or raised) is SKIPPED — left out of the merge
+        and of the returned ``completed`` list, so its delta folds again
+        next cycle. ``timeout_s == 0`` waits for every partition. Returns
+        ``(ALSModel, FoldInStats, completed)``, the stats measured on the
+        merged model; raises ``RuntimeError`` when no partition
+        completed."""
+        from ..continuous import foldin
+
+        self._refuse_implicit()
+        device = self._fold_device(ctx)
+        policy = policy or foldin.FoldInPolicy()
+        clock = clock or time.monotonic
+        base = self._fold_base(model, pd, new_rows)
+        rank, users, items = base["rank"], base["users"], base["items"]
+        comb_u, comb_i = base["comb_u"], base["comb_i"]
+        new_u_rows = set(range(base["old_u"], base["old_u"] + base["new_u"]))
+        new_i_rows = set(range(base["old_i"], base["old_i"] + base["new_i"]))
+        changed: dict = {}
+        claimed_u: set = set()
+        claimed_i: set = set()
+        for idx in sorted(parts):
+            user_ids, item_ids = parts[idx]
+            cu = {comb_u[k] for k in user_ids if k in comb_u}
+            ci = {comb_i[k] for k in item_ids if k in comb_i}
+            changed[idx] = (cu, ci)
+            claimed_u |= cu
+            claimed_i |= ci
+        orphan_u = new_u_rows - claimed_u
+        orphan_i = new_i_rows - claimed_i
+        for cu, ci in changed.values():
+            cu |= orphan_u
+            ci |= orphan_i
+
+        before = self._fold_rmse(base["uf"], base["itf"], rank, users, items,
+                                 pd.ratings, device)
+        pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=max(1, min(len(changed), int(max_workers))),
+            thread_name_prefix="fold-part",
+        )
+        futures = {
+            idx: pool.submit(
+                foldin.fold_in_factors,
+                base["uf"], base["itf"], users, items, pd.ratings,
+                sorted(cu), sorted(ci), self.params.lambda_, policy=policy,
+                device=device,
+            )
+            for idx, (cu, ci) in sorted(changed.items())
+        }
+        deadline = clock() + timeout_s if timeout_s > 0 else None
+        concurrent.futures.wait(
+            futures.values(),
+            timeout=None if deadline is None else max(0.0, deadline - clock()),
+        )
+        # a wedged fold thread runs on past the deadline (threads cannot be
+        # killed), holding only the shared read-only base; queued folds
+        # are cancelled
+        pool.shutdown(wait=False, cancel_futures=True)
+        uf = np.array(base["uf"], dtype=np.float32, copy=True)
+        itf = np.array(base["itf"], dtype=np.float32, copy=True)
+        completed = []
+        folded_users = folded_items = 0
+        for idx in sorted(futures):
+            fut = futures[idx]
+            if not fut.done() or fut.cancelled():
+                _logger.warning(
+                    "fold_in_partitioned: partition %d missed the %.1fs "
+                    "deadline; skipped (delta re-folds)", idx, timeout_s)
+                continue
+            if fut.exception() is not None:
+                _logger.warning(
+                    "fold_in_partitioned: partition %d fold failed; skipped "
+                    "(delta re-folds)", idx, exc_info=fut.exception())
+                continue
+            uf_p, itf_p, counts = fut.result()
+            cu, ci = changed[idx]
+            cu_rows = np.asarray(sorted(cu), dtype=np.int64)
+            ci_rows = np.asarray(sorted(ci), dtype=np.int64)
+            if len(cu_rows):
+                uf[cu_rows] = uf_p[cu_rows]
+            if len(ci_rows):
+                itf[ci_rows] = itf_p[ci_rows]
+            completed.append(idx)
+            folded_users += counts["solved_users"]
+            folded_items += counts["solved_items"]
+        if not completed:
+            raise RuntimeError(
+                f"no partition fold completed within {timeout_s}s "
+                f"(partitions {sorted(futures)}) — nothing to commit"
+            )
+        after = self._fold_rmse(uf, itf, rank, users, items, pd.ratings, device)
+        folded = ALSModel(rank=model.rank, user_factors=uf, item_factors=itf,
+                          user_map=BiMap(comb_u), item_map=BiMap(comb_i))
+        stats = foldin.FoldInStats(
+            folded_users=folded_users, folded_items=folded_items,
+            new_users=base["new_u"], new_items=base["new_i"],
+            rmse_before=before, rmse_after=after,
+        )
+        self._attach_quant(folded)  # the merged table gates again
+        return folded, stats, completed
 
     def shard_model(self, model: ALSModel, shard_index: int, shard_count: int) -> ALSModel:
         """One item-table partition for sharded serving (JAX
@@ -481,9 +755,17 @@ class ALSAlgorithm(Algorithm):
         b_pad = pad_pow2(b)
         k_pad = min(pad_pow2(max_k, lo=8), n_items)
         padded = torch.from_numpy(np.pad(user_idx, (0, b_pad - b))).to(itf.device)
-        mode = self.params.streaming_top_k
-        self._topk_path = resolve_topk_path(mode, itf.device)
-        scores, items = top_k_for_users_fused(uf, itf, padded, k=k_pad, mode=mode)
+        # gate or refuse BEFORE any answer when the lever is on and this
+        # model has not been gated yet
+        self._attach_quant(model)
+        quant = self._quant
+        if quant is not None:
+            self._topk_path = "quant"
+            scores, items = top_k_quantized(uf, quant, padded, k=k_pad)
+        else:
+            mode = self.params.streaming_top_k
+            self._topk_path = resolve_topk_path(mode, itf.device)
+            scores, items = top_k_for_users_fused(uf, itf, padded, k=k_pad, mode=mode)
         s_rows, i_rows = results_to_host(scores, items, b, max_k)
         inv = model.item_map.inverse
         for row, (i, q) in enumerate(known):

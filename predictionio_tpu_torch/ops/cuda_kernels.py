@@ -1182,14 +1182,18 @@ def gramian_fused(
         else:
             code = lib.pio_gramian_fused(*args, plan.chunk_smem, GRAMIAN_REDUCE_THREADS,
                                          plan.reduce_smem, *outs, stream)
-    gramian_fused.launches += 1
-    gramian_fused.launches_by_path[plan.path] += 1
+    with _als_launch_lock:
+        gramian_fused.launches += 1
+        gramian_fused.launches_by_path[plan.path] += 1
     _raise_on_error(lib, "gramian_fused", code)
     return a_out, b_out
 
 
 #: kernel launches since the count was last reset (CUDA tensors only), in
-#: all and by path (a split launch's reduce counts with its chunk kernel)
+#: all and by path (a split launch's reduce counts with its chunk kernel);
+#: the build's and the solve's counts move under one lock, since
+#: partitioned fold-ins launch from several threads at once
+_als_launch_lock = threading.Lock()
 gramian_fused.launches = 0
 gramian_fused.launches_by_path = dict.fromkeys(("tuned", "rows", "wide"), 0)
 
@@ -1687,8 +1691,9 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor, plan: Optional[SpdPlan] = None) 
                 0 if plan.path == "registers" else 1, plan.np_, plan.warps,
                 plan.blocks, plan.smem, stream,
             )
-    spd_solve.launches += 1
-    spd_solve.launches_by_path[plan.path] += 1
+    with _als_launch_lock:
+        spd_solve.launches += 1
+        spd_solve.launches_by_path[plan.path] += 1
     _raise_on_error(lib, "spd_solve", code)
     return x
 
@@ -1711,8 +1716,9 @@ def _spd_solve_tiled(lib, a, b, x, plan: SpdPlan) -> None:
                 s1 - s0, n, plan.nb, plan.tiles, plan.panels, plan.scratch, threads,
                 len(plan.threads), blocks, len(plan.launch_blocks), stream,
             )
-            spd_solve.launches += 1
-            spd_solve.launches_by_path["tiled"] += 1
+            with _als_launch_lock:
+                spd_solve.launches += 1
+                spd_solve.launches_by_path["tiled"] += 1
             _raise_on_error(lib, "spd_solve", code)
 
 

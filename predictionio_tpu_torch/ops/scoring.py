@@ -1,10 +1,8 @@
 """Serving-side scoring: the fused score+select entries of the
 recommendation, similar-product and e-commerce templates.
 
-Counterpart of ``predictionio_tpu/ops/scoring.py`` (the serving subset;
-the unfused ``top_k_for_users`` and ``top_k_similar_items``, which no
-template calls, are not ported). One entry per query kind dispatches on
-:func:`resolve_topk_path`:
+Counterpart of ``predictionio_tpu/ops/scoring.py``. One entry per query
+kind dispatches on :func:`resolve_topk_path`:
 
 - ``"streaming"``: the hand-written CUDA kernel
   (:func:`.cuda_kernels.top_k_streaming`) — the ``[B, N]`` score matrix
@@ -20,7 +18,11 @@ index with it. Equal scores keep the lowest item index first.
 Exclusions reach both paths as ``[B, E]`` int32 index lists, -1 padded
 (:func:`exclusion_matrix`): a dense ``[B, N]`` mask, where a caller has
 one, is turned into lists first (:func:`mask_to_exclusion_lists`), so the
-kernel takes filters as large as the catalog.
+kernel takes filters as large as the catalog. The unfused entries of the
+JAX package (:func:`top_k_for_users`, :func:`top_k_for_vectors`,
+:func:`top_k_similar_items`), which score the whole ``[B, I]`` product
+there, take the same path here; where ``lax.top_k`` returns an excluded
+item's index beside its -inf score, they return (-inf, -1).
 """
 
 from __future__ import annotations
@@ -44,9 +46,11 @@ __all__ = [
     "resolve_topk_path",
     "standardize",
     "summed_rows",
+    "top_k_for_users",
     "top_k_for_users_fused",
     "top_k_for_vectors",
     "top_k_fused_vectors",
+    "top_k_similar_items",
     "top_k_similar_items_fused",
     "unit_rows",
     "use_streaming_topk",
@@ -221,6 +225,25 @@ def top_k_for_vectors(
     return top_k_fused_vectors(query_vectors, item_factors, k, excl)
 
 
+def top_k_for_users(
+    user_factors: torch.Tensor,  # [U, R]
+    item_factors: torch.Tensor,  # [I, R]
+    user_idx: torch.Tensor,  # [B] int
+    k: int,
+    exclude_mask: Optional[torch.Tensor] = None,  # [B, I] bool, True = exclude
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k items for a batch of known users under a dense exclusion
+    mask (the JAX package's unfused entry, ``_score_topk`` over
+    ``user_factors[user_idx]``): the rows are gathered on the tables'
+    device, the mask becomes exclusion lists, and the streaming kernel
+    takes them on a CUDA device, :func:`dense_topk_with_sentinels` on the
+    CPU. An excluded slot is (-inf, -1), where ``lax.top_k`` returns the
+    excluded item's index beside -inf."""
+    idx = torch.as_tensor(user_idx, device=item_factors.device)
+    return top_k_for_vectors(ragged_gather(user_factors, idx), item_factors, k,
+                             exclude_mask)
+
+
 def unit_rows(table: torch.Tensor) -> torch.Tensor:
     """Rows scaled to unit length, ``f / max(||f||, 1e-12)`` (the JAX
     package's cosine normalisation)."""
@@ -243,6 +266,23 @@ def top_k_similar_items_fused(
     idx = item_idx.to(device=unit.device, dtype=torch.int32)
     excl = idx[:, None].contiguous() if exclude_self else None
     return _fused_dispatch(ragged_gather(unit, idx), unit, k, excl, mode)
+
+
+def top_k_similar_items(
+    item_factors: torch.Tensor,  # [I, R]
+    item_idx: torch.Tensor,  # [B] int
+    k: int,
+    exclude_self: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cosine-similar items, the JAX package's unfused entry: the catalog
+    normalised (``f / max(||f||, 1e-12)``), each query's own row scored
+    against it and, with ``exclude_self``, its own index excluded. On a
+    CUDA device the streaming kernel, on the CPU the dense leg
+    (:func:`top_k_similar_items_fused` with ``mode="auto"``). The excluded
+    self, where it would fill a slot (k >= I), is (-inf, -1); ``lax.top_k``
+    returns its index beside -inf."""
+    return top_k_similar_items_fused(item_factors, torch.as_tensor(item_idx), k,
+                                     exclude_self=exclude_self, mode="auto")
 
 
 def standardize(scores: torch.Tensor) -> torch.Tensor:

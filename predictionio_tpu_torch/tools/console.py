@@ -54,7 +54,7 @@ from typing import List, Optional, Sequence
 from ..storage import Event, Model, StorageRegistry, get_registry, utcnow
 from ..storage.metadata import AccessKey, App
 from ..storage.registry import base_dir
-from . import not_ported
+from . import CONTINUOUS_LOOP, not_ported
 from . import register as register_mod
 
 EXIT_OK = 0
@@ -63,7 +63,7 @@ EXIT_FAIL = 1
 #: the JAX console's commands whose modules are not ported: name → (what,
 #: ROADMAP queue 1 item). Each exits 1 with that message.
 NOT_PORTED = {
-    "continuous": ("the continuous-learning loop", 9),
+    "continuous": (CONTINUOUS_LOOP, 9),
     "migrate": ("live storage migration", 12),
     "autoscale": ("the fleet autoscaler", 13),
     "router": ("the serving-fleet router tier", 13),

@@ -22,7 +22,8 @@ answer), ``--log-url`` (failures posted there), ``--shard-index`` and
 dump, ``faulthandler`` and a SIGTERM dump (``flight-<pid>.jsonl``,
 ``faulthandler-<pid>.txt``). The flags and settings of modules that are
 not ported raise, naming their ROADMAP item: the continuous loop
-(``--continuous-*``, queue 1 item 9) and a partitioned event store
+(``--continuous-*``, queue 1 item 9's second half: the watcher and
+the controller; fold-in is ported) and a partitioned event store
 (``PIO_STORAGE_SOURCES_*_PARTITIONS``, item 12).
 """
 
@@ -41,7 +42,7 @@ from ..obs import flight
 from ..storage import StorageRegistry, get_registry
 from ..workflow import loader
 from ..workflow.serving import QueryServer, ServerConfig, create_query_server
-from . import not_ported
+from . import CONTINUOUS_LOOP, not_ported
 from .register import load_engine_dir
 
 
@@ -73,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-index", type=int, default=0, metavar="I")
     p.add_argument("--shard-count", type=int, default=1, metavar="N",
                    help="serve item rows i %% N == I only (sharded serving)")
-    # the continuous loop is not ported (queue 1 item 9): these raise
+    # the continuous loop is not ported (queue 1 item 9's second half): these raise
     p.add_argument("--continuous-app", type=int, default=None, metavar="APP_ID")
     p.add_argument("--continuous-feed", default=None, metavar="URL")
     p.add_argument("--verbose", action="store_true")
@@ -84,7 +85,7 @@ def check_ported(args: argparse.Namespace, env=None) -> None:
     """Raise for a flag or an environment whose module is not ported."""
     env = os.environ if env is None else env
     if args.continuous_app is not None or args.continuous_feed:
-        raise not_ported("the continuous-learning loop (--continuous-*)", 9)
+        raise not_ported(f"{CONTINUOUS_LOOP} (--continuous-*)", 9)
     if any(k.startswith("PIO_STORAGE_SOURCES_") and k.endswith("_PARTITIONS")
            for k in env):
         raise not_ported("a partitioned event store (PIO_STORAGE_SOURCES_*_PARTITIONS)", 12)

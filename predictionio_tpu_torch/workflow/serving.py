@@ -13,8 +13,12 @@ Counterpart of ``predictionio_tpu/workflow/serving.py`` (rebuild of
   deploys (:mod:`..rollout`): the candidate resident on the card beside
   the baseline, shadowed, then served to a sticky canary share, then
   live, or rolled back when a gate fails;
-- ``GET /status.json`` — engine, device, serving stats, breakers and the
-  resolved top-k path (``topkPath``); ``GET /`` — the HTML status page
+- ``GET /status.json`` — engine, device, serving stats, breakers, the
+  resolved top-k path (``topkPath``: "streaming", "dense" or "quant", the
+  plain scoring of a quantized table) and, while quantized serving is on,
+  each algorithm's gate status (``quantServing``) and the process's gate
+  outcomes (``quantGate``, also ``pio_quant_gate_runs_total`` and
+  ``pio_quant_gate_refusals_total`` on ``/metrics``); ``GET /`` — the HTML status page
   (JSON with ``Accept: application/json``); ``GET /shard.json`` — the
   item partition this server holds; ``GET /stop``;
 - ``GET /metrics``, ``/traces.json``, ``/health.json``, ``/blackbox.json``
@@ -41,7 +45,8 @@ that served it, ``-`` with no rollout), which also labels
 :class:`~..obs.quality.QualityMonitor` (served-score drift
 ``pio_quality_score_psi{variant}``), and its ``predict`` event is tagged
 with that variant. The routes of the continuous loop answer 404 naming
-their ROADMAP item (queue 1 item 9).
+their ROADMAP item (queue 1 item 9's second half: the watcher and the
+controller).
 """
 
 from __future__ import annotations
@@ -70,12 +75,13 @@ from ..obs.metrics import MetricsRegistry
 from ..obs.quality import QualityMonitor
 from ..obs.trace import TRACE_HEADER, SpanContext, Tracer, current_context
 from ..ops.cuda_kernels import kernel_launches, top_k_streaming
+from ..quant import gate_counts
 from ..rollout.manager import RolloutError, RolloutManager
 from ..rollout.plan import BASELINE, CANDIDATE, VARIANT_HEADER
 from ..storage import StorageRegistry, utcnow
 from ..storage.metadata import ROLLOUT_SHADOW, STATUS_COMPLETED, EngineInstance
 from ..testing.faults import fault_point
-from ..tools import not_ported
+from ..tools import CONTINUOUS_LOOP, not_ported
 from ..utils.profiling import phases_from_env
 from ..utils.resilience import (
     DEADLINE_HEADER,
@@ -360,10 +366,10 @@ class QueryDecodeError(ValueError):
 
 #: routes of modules that are not ported: path → (what, ROADMAP item)
 _NOT_PORTED_ROUTES = {
-    "/continuous/start": ("the continuous-learning loop", 9),
-    "/continuous/pause": ("the continuous-learning loop", 9),
-    "/continuous/trigger": ("the continuous-learning loop", 9),
-    "/continuous.json": ("the continuous-learning loop", 9),
+    "/continuous/start": (CONTINUOUS_LOOP, 9),
+    "/continuous/pause": (CONTINUOUS_LOOP, 9),
+    "/continuous/trigger": (CONTINUOUS_LOOP, 9),
+    "/continuous.json": (CONTINUOUS_LOOP, 9),
 }
 
 _ROLLOUT_ROUTES = ("/rollout/start", "/rollout/promote", "/rollout/abort")
@@ -556,6 +562,18 @@ class QueryServer(BackgroundHTTPServer):
             "pio_topk_kernel_launches",
             lambda: top_k_streaming.launches,
             "Streaming top-k CUDA kernel launches in this process",
+        )
+        # quantized-serving gate outcomes, process-wide: a refusal is a
+        # visible series, not only a stack trace in the deploy log
+        metrics.gauge_callback(
+            "pio_quant_gate_runs_total",
+            lambda: gate_counts().get("runs", 0),
+            "Quantized-serving exactness gate evaluations",
+        )
+        metrics.gauge_callback(
+            "pio_quant_gate_refusals_total",
+            lambda: gate_counts().get("refusals", 0),
+            "Quantized-serving tables refused by the exactness gate",
         )
         self._retry = retry_policy or RetryPolicy(
             attempts=3, base_delay_s=0.05, max_delay_s=1.0,
@@ -1086,6 +1104,16 @@ class QueryServer(BackgroundHTTPServer):
         }
         if topk:
             out["topkPath"] = topk
+        # the gate status of each algorithm serving from a quantized
+        # table, present only while the lever is on
+        quant = {
+            f"{idx}:{type(algo).__name__}": algo.quant_status
+            for idx, algo in enumerate(dep.algorithms)
+            if getattr(algo, "quant_status", None) is not None
+        }
+        if quant:
+            out["quantServing"] = quant
+            out["quantGate"] = gate_counts()
         out["batching"] = self._batcher.stats
         out["quality"] = self.quality.summary()
         out["rollout"] = self.rollout.status()

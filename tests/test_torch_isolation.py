@@ -1,4 +1,4 @@
-"""The port stands alone: no jax, no ``predictionio_tpu``, no quiet CPU.
+"""The port stands alone: no jax, no ``ml_dtypes``, no ``predictionio_tpu``, no quiet CPU.
 
 ``tests/conftest.py`` imports jax into every test process, so the import
 check runs in a subprocess of its own.
@@ -19,7 +19,7 @@ from predictionio_tpu_torch.ops import cuda_kernels
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "predictionio_tpu_torch"
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "predictionio_tpu"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "ml_dtypes", "predictionio_tpu"}
 
 
 def _port_sources():
@@ -78,7 +78,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'predictionio_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu'))\n"
         "assert not bad, bad\n"
         "print(' '.join(names))\n"
     )

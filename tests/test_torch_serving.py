@@ -154,21 +154,29 @@ def test_algorithm_params_keep_the_jax_fields():
         jax_params_to_json(jax_extract_params(JaxParams, params))
 
 
-def test_training_and_quantized_serving_are_refused(jax_model):
+def test_training_and_quantized_serving_are_refused(jax_model, monkeypatch):
     """Training runs in the port now (tests/test_torch_train.py), from the
     event store too (tests/test_torch_infeed.py); what is still refused is
     an event name the template has no rule for, before any read, and the
-    unported levers."""
+    unported levers. Quantized serving is ported
+    (tests/test_torch_quant.py): it answers through the quantized path
+    once the exactness gate admits the table, and an invalid
+    ``PIO_SERVE_QUANT`` is still refused."""
     with pytest.raises(ValueError, match="Unsupported event 'like'"):
         RecDataSource(RecDataSourceParams(event_names=("like",))).read_training(None)
     algo = ALSAlgorithm(ALSAlgorithmParams(rank=RANK, shards=2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         algo.train(None, None)
     quant = ALSAlgorithm(
-        ALSAlgorithmParams(rank=RANK, quantized_serving=True), device="cpu"
+        ALSAlgorithmParams(rank=RANK, quantized_serving=True, quant_gate_min_match=0.0),
+        device="cpu",
     )
-    with pytest.raises(NotImplementedError, match="quantized_serving"):
-        quant.predict(_carry(jax_model), Query(user="u1", num=3))
+    assert len(quant.predict(_carry(jax_model), Query(user="u1", num=3)).item_scores) == 3
+    assert quant.topk_path == "quant"
+    monkeypatch.setenv("PIO_SERVE_QUANT", "yes")
+    env_quant = ALSAlgorithm(ALSAlgorithmParams(rank=RANK), device="cpu")
+    with pytest.raises(ValueError, match="PIO_SERVE_QUANT"):
+        env_quant.predict(_carry(jax_model), Query(user="u1", num=3))
 
 
 def _request(port, method, path, body=None):
