@@ -5401,6 +5401,505 @@ TEMPLATE_RANK, TEMPLATE_ITERS = 10, 10
 TEMPLATE_QUERIES, TEMPLATE_BURST, TEMPLATE_NUM, TEMPLATE_TIMED_B = 16, 64, 10, 64
 
 
+#: the continuous phase (queue 1 item 9's second half, with item 12's
+#: single-primary core): the delta over the events app — CONT_USERS known
+#: users x CONT_RATES ratings, CONT_NEW_USERS new users x CONT_NEW_USER_RATES
+#: and CONT_NEW_ITEMS new items x CONT_NEW_ITEM_RATES, under FoldInPolicy's
+#: 0.2 delta and new-entity fractions — posted CONT_BATCH events a batch
+#: POST; the rollout gates of the CPU tests (holds passed on the server's
+#: FakeClock, min_samples a stage's burst meets)
+CONT_USERS, CONT_RATES = 100, (10, 31)
+CONT_NEW_USERS, CONT_NEW_USER_RATES, CONT_NEW_ITEMS, CONT_NEW_ITEM_RATES = 40, 20, 5, 30
+CONT_BATCH, CONT_MIN_EVENTS, CONT_HOLD_S = 50, 100, 10.0
+CONT_GATES = {"window_s": 600.0, "min_samples": 32, "shadow_hold_s": CONT_HOLD_S,
+              "canary_hold_s": CONT_HOLD_S, "max_divergence": 1.0,
+              "max_p99_latency_ratio": 1000.0}
+
+
+def _cont_plain(torch, dev, model, users, k: int):
+    """Plain top-k of ``model``'s tables for ``users`` (string ids): the
+    scores and item ids, on the card."""
+    from predictionio_tpu_torch.ops.cuda_kernels import top_k_streaming_reference
+
+    uf = torch.from_numpy(model.user_factors).to(dev)
+    itf = torch.from_numpy(model.item_factors).to(dev)
+    rows = torch.tensor([model.user_map[u] for u in users], device=dev)
+    s, i = top_k_streaming_reference(uf[rows].contiguous(), itf, k)
+    inv = model.item_map.inverse
+    return s.cpu().numpy(), [[inv[int(x)] for x in row] for row in i.cpu().numpy()]
+
+
+def _cont_check(torch, dev, what: str, bodies, answers, model_of) -> int:
+    """Every answer 200 and equal to the plain top-k of the model that
+    served it (``model_of(j, answer)``): ids exactly outside ties, scores
+    to RTOL/ATOL. Returns the number checked; fails on the first bad."""
+    by_model = {}
+    for j, a in enumerate(answers):
+        by_model.setdefault(id(model_of(j, a)), (model_of(j, a), []))[1].append(j)
+    bad = []
+    for model, idx in by_model.values():
+        k = max(bodies[j]["num"] for j in idx)
+        want_s, want_i = _cont_plain(torch, dev, model, [bodies[j]["user"] for j in idx], k)
+        for row, j in enumerate(idx):
+            status, data = answers[j][0], answers[j][1]
+            n = min(bodies[j]["num"], len(model.item_map))
+            got = data.get("itemScores", []) if status == 200 else []
+            got_s = np.array([x["score"] for x in got], dtype=np.float32)
+            close = len(got) == n and np.isclose(got_s, want_s[row][:n], rtol=RTOL, atol=ATOL)
+            same = np.array([x["item"] == w for x, w in zip(got, want_i[row])])
+            if status != 200 or not (len(got) == n and np.all(close) and np.all(same | close)):
+                bad.append((bodies[j], status, got[:2]))
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} answers wrong: {bad[:3]}")
+    return len(answers)
+
+
+def phase_continuous(torch, dev, seed: int, base: str, smi: str) -> dict:
+    """The continuous-learning loop behind the storage primary, on the
+    events phase's store (1,000,209 rate events of 6,040 users and 3,706
+    items; ALS rank 50, 10 iterations):
+
+    1. setup — ``create_storage_server(oplog_dir=...)`` in front of the
+       store; a ``type=remote`` registry on its URL as the process's; the
+       baseline ``run_train`` through ``RecDataSource`` over the remote
+       store's ``scan_columnar``; the Event Server on the remote registry;
+       the query server deployed with ``--continuous-app 1
+       --continuous-feed <primary>`` (``run_server``'s parser and
+       ``_continuous_config``), feedback on, the loop's autostart off (the
+       phase ticks it; no thread launches inside another stage's count);
+    2. attached — ``/continuous.json`` 200, ``/status.json`` carries it, a
+       burst's answers equal a server of the same instance over the local
+       store's, bit for bit, and the plain top-k;
+    3. the delta — rate events through the Event Server's batch route while
+       the loop is paused: the oplog advances by one op a POST holding
+       exactly the events posted, and ``pio_continuous_feed_lag_ops``
+       reports those ops;
+    4. the fold cycle — one ``tick()``: a ``fold_in`` candidate submitted,
+       kernels 3 and 2 launched ``fold_launch_plan`` times, its factors =
+       ``ALSAlgorithm.fold_in`` called directly (bit for bit), within
+       FACTOR_RTOL/ATOL of the plain build and solve, untouched rows the
+       baseline's; the offline score's kernel-1 launches = its batches;
+    5. the rollout — SHADOW → CANARY → LIVE on the server's FakeClock,
+       launches = both batchers' batches a stage, every answer the plain
+       top-k of the model that served it; at LIVE the cursor commits to the
+       candidate's ``uptoSeq`` (``continuous_cursor.json`` too);
+    6. restart — a second controller over the state directory resumes at
+       the committed cursor, feed lag 0, no cycle;
+    7. full retrain — ``pio continuous trigger --full`` (the console as a
+       subprocess) then ``tick()``: a ``full_retrain`` candidate whose
+       factors equal a ``run_train`` of the same data over the local store
+       (bit for bit, the same launches an iteration); ``pio continuous
+       status`` and ``pause`` exit 0."""
+    import datetime as dt
+
+    import predictionio_tpu_torch.storage.registry as regmod
+    from predictionio_tpu_torch.api.event_server import EventServerConfig, create_event_server
+    from predictionio_tpu_torch.continuous import ContinuousController, foldin
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.models import recommendation as rec
+    from predictionio_tpu_torch.ops.cuda_kernels import (
+        gramian_fused,
+        gramian_fused_reference,
+        spd_solve,
+        spd_solve_reference,
+        top_k_streaming,
+    )
+    from predictionio_tpu_torch.rollout.plan import variant_for_key
+    from predictionio_tpu_torch.storage import AccessKey, App, Event, get_registry
+    from predictionio_tpu_torch.storage.metadata import (
+        ROLLOUT_CANARY,
+        ROLLOUT_LIVE,
+        ROLLOUT_SHADOW,
+    )
+    from predictionio_tpu_torch.storage.remote import RemoteEventStore
+    from predictionio_tpu_torch.storage.storage_server import create_storage_server
+    from predictionio_tpu_torch.testing.clock import FakeClock
+    from predictionio_tpu_torch.tools import run_server
+    from predictionio_tpu_torch.workflow import (
+        QueryServer,
+        ServerConfig,
+        WorkflowContext,
+        create_query_server,
+        load_models,
+        run_train,
+    )
+
+    rng = np.random.default_rng(seed + 29)
+    seconds, out = {}, {"phase": "continuous", "card": smi}
+    cont_dir = os.path.join(base, "continuous")
+    oplog_bytes = {}
+    launches = {"topk_streaming": 0, "gramian_fused": 0, "spd_solve": 0}
+    params = rec.ALSAlgorithmParams(rank=RANK, num_iterations=TRAIN_ITERS, lambda_=LAMBDA,
+                                    seed=TRAIN_SEED)
+    ep = EngineParams(
+        data_source_params=("", rec.RecDataSourceParams(app_id=EVENTS_APP,
+                                                        event_names=("rate",))),
+        algorithm_params_list=[("als", params)])
+    servers = []
+    with events_store(base) as local_reg:
+        t = time.monotonic()
+        primary = create_storage_server("127.0.0.1", 0, local_reg,
+                                        oplog_dir=os.path.join(cont_dir, "oplog"))
+        primary.start_background()
+        servers.append(primary)
+        url = f"http://127.0.0.1:{primary.bound_port}"
+        oplog = primary.changefeed.oplog
+        remote_env = {"PIO_STORAGE_SOURCES_PRIMARY_TYPE": "remote",
+                      "PIO_STORAGE_SOURCES_PRIMARY_URL": url,
+                      **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "PRIMARY"
+                         for r in ("EVENTDATA", "METADATA", "MODELDATA")}}
+        try:
+            with env_set(remote_env):
+                reg = get_registry(refresh=True)
+                if not isinstance(reg.get_events(), RemoteEventStore):
+                    raise AssertionError(f"EVENTDATA resolved to {type(reg.get_events())}")
+                md = reg.get_metadata()
+                if md.app_get(EVENTS_APP) is None:
+                    md.app_insert(App(id=EVENTS_APP, name="continuous"))
+                key = md.access_key_insert(AccessKey(key="", appid=EVENTS_APP))
+                # 1. the baseline, read over the remote store's scan_columnar
+                ctx = WorkflowContext(device=dev)
+                ctx.profile = {}
+                gramian_fused.launches = spd_solve.launches = 0  # baseline starts here
+                t1 = time.monotonic()
+                baseline_id = run_train(rec.engine_factory(), ep, reg,
+                                        engine_id="continuous-als", ctx=ctx)
+                seconds["baseline_run_train"] = time.monotonic() - t1
+                base_launches = {"gramian_fused": gramian_fused.launches,
+                                 "spd_solve": spd_solve.launches}  # and ends here
+                if min(base_launches.values()) < TRAIN_ITERS:
+                    raise AssertionError(f"the baseline launched {base_launches}")
+                for k, v in base_launches.items():
+                    launches[k] += v
+                (baseline,) = load_models(reg, baseline_id)
+                events = create_event_server(EventServerConfig(ip="127.0.0.1", port=0),
+                                             registry=reg, block=False)
+                servers.append(events)
+                args = run_server.build_parser().parse_args([
+                    "--continuous-app", str(EVENTS_APP), "--continuous-feed", url,
+                    "--continuous-min-events", str(CONT_MIN_EVENTS)])
+                cfg = dataclasses.replace(run_server._continuous_config(args, reg),
+                                          autostart=False, rollout_gates=CONT_GATES,
+                                          state_dir=os.path.join(cont_dir, "state"))
+                clock = FakeClock()
+                srv = QueryServer(ServerConfig(
+                    ip="127.0.0.1", port=0, device=dev, engine_id="continuous-als",
+                    engine_instance_id=baseline_id, feedback=True,
+                    event_server_ip="127.0.0.1", event_server_port=events.bound_port,
+                    access_key=key, continuous=cfg), rec.engine_factory(), reg, clock=clock)
+                srv.start_background()
+                servers.append(srv)
+                port, ctl, rollout = srv.bound_port, srv.continuous, srv.rollout
+                seconds["setup"] = time.monotonic() - t
+                out["setup"] = {"primary": url, "baseline": baseline_id,
+                                "baseline_launches": base_launches,
+                                "feed_url": cfg.feed_url, "min_events": cfg.min_events}
+
+                # 2. attached: the routes, and the same answers as the local store's
+                t = time.monotonic()
+                code, doc = _http(port, "GET", "/continuous.json")
+                status = _get_json(port, "/status.json")
+                if (code != 200 or ctl is None or not doc.get("enabled")
+                        or "continuous" not in status):
+                    raise AssertionError(f"the loop is not attached: {code} {doc}, "
+                                         f"status keys {sorted(status)}")
+                local_srv = create_query_server(rec.engine_factory(), ServerConfig(
+                    ip="127.0.0.1", port=0, device=dev, engine_instance_id=baseline_id),
+                    registry=local_reg, block=False)
+                servers.append(local_srv)
+                known = list(baseline.user_map.to_dict())
+                bodies = [{"user": str(u), "num": 1 + j % 50}
+                          for j, u in enumerate(rng.choice(known, HTTP_QUERIES, replace=False))]
+                remote_answers, _ = _burst(port, bodies)
+                local_answers, _ = _burst(local_srv.bound_port, bodies)
+                # the feedback server's answers carry their prId besides
+                if ([a[1].get("itemScores") for a in remote_answers]
+                        != [a[1].get("itemScores") for a in local_answers]):
+                    diff = [(b, r[:2], l[:2]) for b, r, l in zip(bodies, remote_answers,
+                                                                 local_answers)
+                            if r[1].get("itemScores") != l[1].get("itemScores")]
+                    raise AssertionError(f"the remote registry's answers differ from the "
+                                         f"local store's: {len(diff)}, {diff[:2]}")
+                _cont_check(torch, dev, "attached", bodies, remote_answers,
+                            lambda j, a: baseline)
+                _wait_for(lambda: srv.stats.snapshot().get("feedbackSent", 0)
+                          >= HTTP_QUERIES, "the burst's feedback events")
+                status = ctl.tick()  # reads the feed to its head: nothing to fold
+                if status["cycles"] or status.get("lastError") or status["feedLagOps"]:
+                    raise AssertionError(f"the first tick: {status}")
+                seconds["attached"] = time.monotonic() - t
+
+                # 3. the delta, posted while the loop is paused
+                t = time.monotonic()
+                _http(port, "POST", "/continuous/pause", {})
+                items = list(baseline.item_map.to_dict())
+                changed = rng.choice(known, CONT_USERS, replace=False)
+                per = rng.integers(*CONT_RATES, size=CONT_USERS)
+                triples = [(str(u), str(rng.choice(items))) for u, n in zip(changed, per)
+                           for _ in range(n)]
+                triples += [(f"cu{k}", str(rng.choice(items))) for k in range(CONT_NEW_USERS)
+                            for _ in range(CONT_NEW_USER_RATES)]
+                triples += [(str(rng.choice(changed)), f"ci{k}") for k in range(CONT_NEW_ITEMS)
+                            for _ in range(CONT_NEW_ITEM_RATES)]
+                # feedback arriving now: freshness runs from these times
+                t_delta = dt.datetime.now(dt.timezone.utc).replace(microsecond=0)
+                delta = [Event(event="rate", entity_type="user", entity_id=u,
+                               target_entity_type="item", target_entity_id=i,
+                               properties={"rating": float(rng.integers(1, 11)) / 2},
+                               event_time=t_delta + dt.timedelta(seconds=k)).to_json_dict()
+                         for k, (u, i) in enumerate(triples)]
+                seq0 = oplog.last_seq
+                posts = 0
+                for j in range(0, len(delta), CONT_BATCH):
+                    code, results = _http(events.bound_port, "POST",
+                                          f"/batches/events.json?accessKey={key}",
+                                          delta[j:j + CONT_BATCH])
+                    posts += 1
+                    if code != 200 or any(r["status"] != 201 for r in results):
+                        raise AssertionError(f"delta batch {j}: {code} {results[:2]}")
+                ops, _ = oplog.read_since(seq0, limit=10_000)
+                logged = [e for _, op in ops for e in op.get("events", [])]
+                lag_status = ctl.tick()  # paused: reads nothing, learns the head
+                metrics = _get_text(port, "/metrics")
+                lag = float(re.search(r"^pio_continuous_feed_lag_ops (\S+)$", metrics,
+                                      re.M).group(1))
+                if (oplog.last_seq - seq0 != posts or len(ops) != posts
+                        or any(op["kind"] != "event_write" or op["app"] != EVENTS_APP
+                               for _, op in ops)
+                        or sorted((e["entityId"], e["targetEntityId"], e["eventTime"])
+                                  for e in logged)
+                        != sorted((e["entityId"], e["targetEntityId"], e["eventTime"])
+                                  for e in delta)
+                        or lag != posts or lag_status["feedLagOps"] != posts):
+                    raise AssertionError(f"the delta: {len(delta)} events in {posts} POSTs, "
+                                         f"oplog +{oplog.last_seq - seq0} ops holding "
+                                         f"{len(logged)} events, feed lag {lag}")
+                ctl.resume_watching()
+                out["delta"] = {"events": len(delta), "posts": posts, "known_users": CONT_USERS,
+                                "new_users": CONT_NEW_USERS, "new_items": CONT_NEW_ITEMS,
+                                "oplog_ops": oplog.last_seq - seq0, "feed_lag_ops": lag}
+                seconds["delta"] = time.monotonic() - t
+
+                # 4. the fold cycle: one tick
+                t = time.monotonic()
+                captured = {}
+
+                def keep_pd(original):
+                    def read(dep):
+                        captured["pd"] = original(dep)
+                        return captured["pd"]
+                    return read
+
+                oplog_bytes["before_fold"] = oplog.size_bytes
+                gramian_fused.launches = spd_solve.launches = 0  # the cycle starts here
+                top_k_streaming.launches = 0
+                with patched(ctl, "_read_prepared", keep_pd):
+                    status = ctl.tick()
+                fold_launches = {"gramian_fused": gramian_fused.launches,
+                                 "spd_solve": spd_solve.launches,
+                                 "topk_streaming": top_k_streaming.launches}  # and ends here
+                oplog_bytes["after_fold"] = oplog.size_bytes
+                cycle = status.get("lastCycle", {})
+                if (cycle.get("mode") != "fold_in" or cycle.get("outcome") != "submitted"
+                        or status.get("lastError") or rollout.stage != ROLLOUT_SHADOW):
+                    raise AssertionError(f"the fold cycle: {status}")
+                cand_id = status["candidate"]["instanceId"]
+                upto = status["candidate"]["uptoSeq"]
+                (folded,) = load_models(reg, cand_id)
+                pd, batch = captured["pd"], ctl.watcher.take_batch()
+                algo = srv.deployment.algorithms[0]
+                base_tables = algo._fold_base(baseline, pd)
+                comb_u, comb_i = base_tables["comb_u"], base_tables["comb_i"]
+                changed_u = sorted({comb_u[x] for x in batch.user_ids})
+                changed_i = sorted({comb_i[x] for x in batch.item_ids})
+                sm = torch.cuda.get_device_properties(dev).multi_processor_count
+                expected = fold_launch_plan(base_tables["users"], base_tables["items"],
+                                            changed_u, changed_i, cfg.policy, sm)
+                score = cycle["offlineScore"]
+                direct, _stats = algo.fold_in(srv.ctx, baseline, pd, batch.user_ids,
+                                              batch.item_ids, policy=cfg.policy)
+                with patched(foldin, "gramian_fused", lambda _f: gramian_fused_reference), \
+                        patched(foldin, "spd_solve", lambda _f: spd_solve_reference):
+                    p_uf, p_itf, _ = foldin.fold_in_factors(
+                        base_tables["uf"], base_tables["itf"], base_tables["users"],
+                        base_tables["items"], pd.ratings, changed_u, changed_i, LAMBDA,
+                        policy=cfg.policy, device=dev)
+                parity = {}
+                for name, got, want, rows in (("user", folded.user_factors, p_uf, changed_u),
+                                              ("item", folded.item_factors, p_itf, changed_i)):
+                    diff = np.abs(got[rows] - want[rows])
+                    excess = diff - (FACTOR_ATOL + FACTOR_RTOL * np.abs(want[rows]))
+                    parity[name] = {"rows": len(rows), "max_abs_diff": float(diff.max()),
+                                    "beyond_tol": int((excess > 0).sum())}
+                n_u, n_i = len(baseline.user_map), len(baseline.item_map)
+                old_u = [r for r in changed_u if r < n_u]
+                old_i = [r for r in changed_i if r < n_i]
+                untouched_equal = bool(
+                    np.array_equal(np.delete(folded.user_factors[:n_u], old_u, axis=0),
+                                   np.delete(baseline.user_factors, old_u, axis=0))
+                    and np.array_equal(np.delete(folded.item_factors[:n_i], old_i, axis=0),
+                                       np.delete(baseline.item_factors, old_i, axis=0)))
+                equal_direct = bool(np.array_equal(folded.user_factors, direct.user_factors)
+                                    and np.array_equal(folded.item_factors,
+                                                       direct.item_factors)
+                                    and folded.user_map.to_dict() == direct.user_map.to_dict())
+                if (fold_launches["gramian_fused"] != expected
+                        or fold_launches["spd_solve"] != expected
+                        or fold_launches["topk_streaming"] != score.get("batches")
+                        or score.get("samples", 0) < HTTP_QUERIES or not score.get("ok")
+                        or not equal_direct or not untouched_equal
+                        or any(p["beyond_tol"] for p in parity.values())):
+                    raise AssertionError(
+                        f"the fold: launches {fold_launches} against {expected} and "
+                        f"{score.get('batches')} score batches, score {score}, equal to "
+                        f"fold_in {equal_direct}, untouched {untouched_equal}, plain {parity}")
+                for k in launches:
+                    launches[k] += fold_launches[k]
+                out["fold_cycle"] = {"candidate": cand_id, "upto_seq": upto,
+                                     "reason": cycle["reason"], "split_s": cycle["splitS"],
+                                     "fold_in": cycle.get("foldIn"), "offline_score": score,
+                                     "launches": fold_launches, "expected": expected,
+                                     "equal_to_fold_in": equal_direct,
+                                     "untouched_equal": untouched_equal, "plain": parity}
+                seconds["fold_cycle"] = time.monotonic() - t
+
+                # 5. the rollout to LIVE on the server's FakeClock
+                t = time.monotonic()
+
+                def batches():
+                    return srv._batcher.stats["batches"], rollout.candidate_batches
+
+                def stage(name: str):
+                    before = batches()
+                    bodies = [{"user": str(u), "num": 1 + j % 50} for j, u in
+                              enumerate(rng.choice(known, HTTP_QUERIES, replace=False))]
+                    top_k_streaming.launches = 0  # the stage starts here
+                    answers, wall = _burst(port, bodies)
+                    rollout.drain_shadow()
+                    n = top_k_streaming.launches  # and ends here
+                    b1, c1 = batches()
+                    line = {"launches": n, "baseline_batches": b1 - before[0],
+                            "candidate_batches": c1 - before[1], **_latency(answers, wall)}
+                    if n != line["baseline_batches"] + line["candidate_batches"]:
+                        raise AssertionError(f"{name}: kernel 1 launched {n} times for "
+                                             f"{line}")
+                    launches["topk_streaming"] += n
+                    return bodies, answers, line
+
+                def promote(to: str) -> None:
+                    clock.advance(CONT_HOLD_S + 1.0)
+                    trigger = [{"user": str(rng.choice(known)), "num": 5}]
+                    got, _ = _burst(port, trigger)
+                    rollout.drain_shadow()  # the trigger's shadow duplicate lands first
+                    if rollout.stage != to or got[0][0] != 200:
+                        raise AssertionError(f"no promotion to {to}: {rollout.status()}")
+
+                stages = {}
+                bodies, answers, stages["shadow"] = stage("shadow")
+                _cont_check(torch, dev, "SHADOW", bodies, answers, lambda j, a: baseline)
+                promote(ROLLOUT_CANARY)
+                salt = rollout.plan.salt
+                bodies, answers, stages["canary"] = stage("canary")
+                _cont_check(torch, dev, "CANARY", bodies, answers, lambda j, a: (
+                    folded if variant_for_key(salt, f"user={bodies[j]['user']}",
+                                              rollout.plan.percent) == "candidate"
+                    else baseline))
+                promote(ROLLOUT_LIVE)
+                status = ctl.tick()  # LIVE: the cursor commits
+                with open(os.path.join(cfg.state_dir, "continuous_cursor.json")) as fh:
+                    on_disk = json.load(fh)
+                if (srv.deployment.instance.id != cand_id or status["cursorSeq"] != upto
+                        or on_disk["seq"] != upto
+                        or status["lastCycle"].get("outcome") != "live"):
+                    raise AssertionError(f"LIVE: {status}, cursor file {on_disk}")
+                bodies, answers, stages["live"] = stage("live")
+                _cont_check(torch, dev, "LIVE", bodies, answers, lambda j, a: folded)
+                out["rollout"] = {**stages, "cursor_seq": status["cursorSeq"],
+                                  "freshness_s": status.get("lastFreshnessS")}
+                seconds["rollout"] = time.monotonic() - t
+
+                # 6. restart: a second controller over the same state
+                t = time.monotonic()
+                ctl2 = ContinuousController(srv, cfg)
+                srv.continuous = ctl2
+                status = ctl2.tick()
+                if (status["cursorSeq"] != upto or status["feedLagOps"] != 0
+                        or status["cycles"] or status["state"] != "WATCHING"
+                        or status.get("lastError")):
+                    raise AssertionError(f"the restarted controller: {status}")
+                out["restart"] = {"cursor_seq": status["cursorSeq"],
+                                  "feed_lag_ops": status["feedLagOps"]}
+                seconds["restart"] = time.monotonic() - t
+
+                # 7. the full retrain, asked for by the console
+                t = time.monotonic()
+                here = os.path.dirname(os.path.abspath(__file__))
+                env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                    [here, os.environ.get("PYTHONPATH", "")]))
+                triggered = pio(env, "continuous", "trigger", "--full", "--ip", "127.0.0.1",
+                                "--port", str(port))
+                oplog_bytes["before_retrain"] = oplog.size_bytes
+                gramian_fused.launches = spd_solve.launches = 0  # the retrain starts here
+                top_k_streaming.launches = 0
+                status = ctl2.tick()
+                retrain_launches = {"gramian_fused": gramian_fused.launches,
+                                    "spd_solve": spd_solve.launches,
+                                    "topk_streaming": top_k_streaming.launches}  # ends here
+                oplog_bytes["after_retrain"] = oplog.size_bytes
+                cycle = status.get("lastCycle", {})
+                if (not triggered.get("enabled") or cycle.get("mode") != "full_retrain"
+                        or cycle.get("outcome") != "submitted" or status.get("lastError")):
+                    raise AssertionError(f"the retrain cycle: {status}")
+                (retrained,) = load_models(reg, status["candidate"]["instanceId"])
+                seconds["retrain_cycle"] = time.monotonic() - t
+                t = time.monotonic()
+                with patched(regmod, "_default_registry", lambda _r: local_reg):
+                    ref_ctx = WorkflowContext(device=dev)
+                    ref_ctx.profile = {}
+                    gramian_fused.launches = spd_solve.launches = 0
+                    ref_id = run_train(rec.engine_factory(), ep, local_reg,
+                                       engine_id="continuous-reference", ctx=ref_ctx)
+                    ref_launches = {"gramian_fused": gramian_fused.launches,
+                                    "spd_solve": spd_solve.launches}
+                    (reference,) = load_models(local_reg, ref_id)
+                per_iter = ref_ctx.profile["launches"]
+                equal_run_train = bool(
+                    np.array_equal(retrained.user_factors, reference.user_factors)
+                    and np.array_equal(retrained.item_factors, reference.item_factors)
+                    and retrained.user_map.to_dict() == reference.user_map.to_dict())
+                status_cli = pio(env, "continuous", "status", "--ip", "127.0.0.1",
+                                 "--port", str(port))
+                paused = pio(env, "continuous", "pause", "--ip", "127.0.0.1", "--port",
+                             str(port))
+                if (not equal_run_train or len(per_iter) != TRAIN_ITERS
+                        or any(it != per_iter[0] for it in per_iter)
+                        or {k: retrain_launches[k] for k in ref_launches} != ref_launches
+                        or retrain_launches["topk_streaming"] != cycle["offlineScore"].get(
+                            "batches") or paused.get("state") != "PAUSED"
+                        or status_cli.get("candidate", {}).get("mode") != "full_retrain"):
+                    raise AssertionError(
+                        f"the retrain: equal to run_train {equal_run_train}, launches "
+                        f"{retrain_launches} against {ref_launches} ({per_iter[0]} an "
+                        f"iteration), status {status_cli}, pause {paused}")
+                for k in launches:
+                    launches[k] += retrain_launches[k]
+                out["retrain"] = {"candidate": status["candidate"]["instanceId"],
+                                  "reason": cycle["reason"], "split_s": cycle["splitS"],
+                                  "launches": retrain_launches,
+                                  "per_iteration": per_iter[0],
+                                  "equal_to_run_train": equal_run_train,
+                                  "offline_score": cycle["offlineScore"]}
+                seconds["retrain_check"] = time.monotonic() - t
+        finally:
+            for s in reversed(servers):
+                s.shutdown()
+                s.server_close()
+            get_registry(refresh=True)
+    out.update(oplog_bytes=oplog_bytes, launches=launches, seconds=seconds)
+    emit(out)
+    return out
+
+
 def synth_template_events(seed: int) -> dict:
     """The two templates' stores from ``seed``: ``$set`` users ``u<n>``
     and items ``i<n>`` (categories ``g0``..``g17``, 1-3 an item), Zipf-like
@@ -5893,6 +6392,9 @@ WIDE_CLUSTER_HEADS = (576, 768, 1024)
 WIDE_CLUSTER_CHECKS = (650, 900)
 #: a head above the cluster path's widest (FLASH_CLUSTER_MAX_D), so the
 #: passes path is still launched and held: the training shape, timed
+#: iterations of the passes kernel's one timed run beside the wide
+#: streamed and cluster cases (10 each way, A B B A, until PR 29)
+WIDE_EARLIER_ITERS = 3
 WIDE_PASSES_HEAD = 1040
 WIDE_PASSES_SHAPES = WIDE_ATTN_SHAPES[:1]
 WIDE_ALS_RANK, WIDE_SEQ = 200, dict(d_model=256, n_heads=1)
@@ -7077,8 +7579,12 @@ def wide_kernels(torch, dev, seed: int) -> dict:
         raise AssertionError(f"the general-width kernels take {attrs}")
     worst = {"gramian_fused": 0.0, "spd_solve": 0.0, "flash_attention": 0.0}
     cases = {}
+    last = [time.monotonic()]
 
     def held(name, case, out, ok):
+        # the seconds since the previous case: where the phase's time goes
+        now = time.monotonic()
+        out["case_s"], last[0] = now - last[0], now
         emit({"phase": "wide", "kernel": name, "case": case, **out})
         if not ok:
             raise AssertionError(f"{name} {case} disagrees with plain: {out}")
@@ -7140,7 +7646,10 @@ def wide_kernels(torch, dev, seed: int) -> dict:
         if timed:
             kernel = lambda: flash_attention_fwd(q, k, v, causal)  # noqa: E731
             library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
-            runs = [("kernel", kernel)]
+            runs = [("kernel", kernel), ("library", library)]
+            abba = plan.path in ("wide_streamed", "cluster")
+            if abba:  # A B B A: the kernel and the library call, then reversed
+                runs += runs[::-1]
             if plan.path != "passes":  # the passes kernel on the same tensors
                 passes = ck.flash_wide_launch_plan(b, h, lq, lk, d, sm)
                 earlier = lambda: flash_attention_fwd(q, k, v, causal, plan=passes)  # noqa: E731
@@ -7148,14 +7657,15 @@ def wide_kernels(torch, dev, seed: int) -> dict:
                 ok = ok and bool(torch.allclose(o_e, o_p, rtol=ATTN_RTOL, atol=ATTN_ATOL))
                 out["earlier_max_abs_err"] = float((o_e - o_p).abs().max())
                 del o_e
-                runs.append(("earlier_kernel", earlier))
-            runs.append(("library", library))
-            if plan.path in ("wide_streamed", "cluster"):  # A B B A: the runs, then reversed
-                runs += runs[::-1]
+                runs.insert(1, ("earlier_kernel", earlier))
             for name, fn in runs:
-                out.setdefault(f"{name}_runs_ms", []).append(time_ms(torch, fn, 10, 2))
+                # beside the wide streamed and cluster kernels the passes
+                # kernel (10-100x slower, on no main path) is timed once,
+                # at WIDE_EARLIER_ITERS: its A B B A at 10 took a minute
+                iters = WIDE_EARLIER_ITERS if abba and name == "earlier_kernel" else 10
+                out.setdefault(f"{name}_runs_ms", []).append(time_ms(torch, fn, iters, 2))
                 out.setdefault(f"{name}_runs_device_ms", []).append(
-                    traced_device_ms(torch, fn, 10))
+                    traced_device_ms(torch, fn, iters))
             for name, _ in runs:
                 event, device = out[f"{name}_runs_ms"], out[f"{name}_runs_device_ms"]
                 out[f"{name}_ms"] = sum(event) / len(event)
@@ -8211,6 +8721,7 @@ def main(argv=None) -> int:
             evaluated = timed("eval", phase_eval, torch, dev, args.seed, base)
             persisted = timed("persist", phase_persist, torch, dev, args.seed, base, registry,
                               trained["instance"])
+        continued = timed("continuous", phase_continuous, torch, dev, args.seed, base, smi)
         templated = timed("templates", phase_templates, torch, dev, args.seed, base)
         consoled = timed("console", phase_console, torch, dev, args.seed, base)
     large = timed("kernel_large", topk_large_batches, torch, dev,
@@ -8233,6 +8744,7 @@ def main(argv=None) -> int:
                      + evaluated["launches"]["topk_streaming"]
                      + persisted["by_kernel"]["topk_streaming"]
                      + templated["by_kernel"]["topk_streaming"]
+                     + continued["launches"]["topk_streaming"]
                      + consoled["by_kernel"]["topk_streaming"]),
         "launches_by_path": {**quant_fold["launches"]["topk_streaming"],
                              "slice": sliced["launches"],
@@ -8244,6 +8756,7 @@ def main(argv=None) -> int:
                              "eval": evaluated["launches"]["topk_streaming"],
                              "persist": persisted["by_kernel"]["topk_streaming"],
                              "templates": templated["by_kernel"]["topk_streaming"],
+                             "continuous": continued["launches"]["topk_streaming"],
                              "console": consoled["by_kernel"]["topk_streaming"]},
         "max_abs_err": max(m["max_abs_err"] for m in [*main_shapes.values(), *large.values(),
                                                       *planed["shards"]["per_shard"]]),
@@ -8332,7 +8845,7 @@ def main(argv=None) -> int:
                          + rolled["candidate_train_launches"][name]
                          + events["als"]["launches"][name]
                          + evaluated["launches"][name] + persisted["by_kernel"][name]
-                         + templated["by_kernel"][name]
+                         + templated["by_kernel"][name] + continued["launches"][name]
                          + wide["by_kernel"][name] + consoled["by_kernel"][name]),
             "launches_by_path": {"train": trained["launches"][name],
                                  "fold_in": quant_fold["launches"][name],
@@ -8342,6 +8855,7 @@ def main(argv=None) -> int:
                                  "eval": evaluated["launches"][name],
                                  "persist": persisted["by_kernel"][name],
                                  "templates": templated["by_kernel"][name],
+                                 "continuous": continued["launches"][name],
                                  "wide": wide["by_kernel"][name],
                                  "console": consoled["by_kernel"][name]},
             "max_abs_err": kernels["max_abs_err"][name],

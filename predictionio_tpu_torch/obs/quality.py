@@ -384,6 +384,20 @@ class QualityMonitor:
                 return None
             return psi(reference, current)
 
+    def psi_for_sketch(self, sketch: QuantileSketch) -> Optional[float]:
+        """PSI of an externally built score sketch against the reference
+        :meth:`score_psi` uses: the continuous loop scores a candidate's
+        offline replay here before submitting it. The sketch must be built
+        with this monitor's ``config.rel_err``."""
+        with self._lock:
+            reference = self._pinned
+            if reference is None:
+                reference = self._merged_locked(_BASELINE)
+            if (reference.count < self.config.min_psi_samples
+                    or sketch.count < self.config.min_psi_samples):
+                return None
+            return psi(reference, sketch)
+
     def score_quantile(self, variant: str, q: float) -> float:
         if variant not in self._windows:
             return 0.0

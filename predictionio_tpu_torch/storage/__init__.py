@@ -1,7 +1,9 @@
 """Storage plane of the port: the event model and event stores (SQLite
 and the native C++ log), id maps, app/access-key, manifest, engine- and
 evaluation-instance and rollout-plan metadata, model blobs and the
-environment-driven registry."""
+environment-driven registry; the storage primary
+(:mod:`.storage_server`, its :mod:`.oplog` and :mod:`.changefeed`) and
+its client, the ``remote`` family (:mod:`.remote`)."""
 
 from .aggregator import aggregate_properties, aggregate_single
 from .bimap import BiMap, IdsLike

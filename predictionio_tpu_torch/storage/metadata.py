@@ -233,6 +233,19 @@ class MetadataStore:
             self._conn.commit()
             return int(value)
 
+    def sequence_advance_to(self, name: str, value: int) -> None:
+        """Make ``gen_next(name)`` never issue a value <= ``value``: the
+        replay of a logged ``gen_next`` (``storage/changefeed.py``), so
+        re-applying a log suffix cannot advance the counter twice."""
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO pio_sequences (name, value) VALUES (?, ?) "
+                "ON CONFLICT(name) DO UPDATE SET value = "
+                "max(pio_sequences.value, excluded.value)",
+                (name, int(value)),
+            )
+            self._conn.commit()
+
     # -- apps (Apps.scala DAO) --------------------------------------------
     def app_insert(self, app: App) -> Optional[int]:
         """Insert an app (``id`` 0 takes the next free id); None when the

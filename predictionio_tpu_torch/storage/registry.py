@@ -6,10 +6,13 @@ metadata and model repositories, read from the same variables:
 ``PIO_STORAGE_REPOSITORIES_{EVENTDATA,METADATA,MODELDATA}_SOURCE`` binds
 a repository to it. Source types: ``sqlite`` and ``localfs`` (events in
 ``events.db``), ``memory``, and ``native`` (events only: the C++ event
-log under ``<path>/events_native``). With no configuration a single
-SQLite source under ``$PIO_FS_BASEDIR`` (default ``~/.predictionio_tpu``)
-backs all three, so the port reads and writes the same files as the JAX
-package. The remote and partitioned families wait (ROADMAP.md).
+log under ``<path>/events_native``), and ``remote`` (all three over a
+storage primary's HTTP API, ``_URL`` or ``_HOST``/``_PORT``:
+``storage/remote.py``). With no configuration a single SQLite source
+under ``$PIO_FS_BASEDIR`` (default ``~/.predictionio_tpu``) backs all
+three, so the port reads and writes the same files as the JAX package.
+The partitioned and high-availability remote sets wait (ROADMAP.md queue
+1 item 12).
 """
 
 from __future__ import annotations
@@ -128,11 +131,18 @@ class StorageRegistry:
             if name not in cache:
                 conf = self._sources[name]
                 stype = conf.get("type", "sqlite")
+                if stype == "remote":
+                    # imported on first use: the HTTP client is the
+                    # remote family's alone
+                    from . import remote
+
+                    cache[name] = remote.FAMILY[kind](remote.base_url(conf))
+                    return cache[name]
                 family = _FAMILIES.get(stype)
                 if family is None:
                     raise StorageError(
                         f"source {name}: storage type {stype!r} is not "
-                        f"available in the port (have {sorted(_FAMILIES)})"
+                        f"available in the port (have {sorted([*_FAMILIES, 'remote'])})"
                     )
                 if kind not in family:
                     raise StorageError(

@@ -4,9 +4,10 @@ train/eval entry point (``run_workflow``), the serving entry point
 (``run_server``), the bundled templates and event import/export."""
 
 
-#: what the continuous loop's refusals name: fold-in is ported, the
-#: changefeed watcher and the controller wait for the storage oplog
-CONTINUOUS_LOOP = "the continuous-learning loop's watcher and controller, item 9's second half"
+#: what is left of the continuous loop: the watcher, the controller and
+#: fold-in are ported; tailing a partitioned store's feeds is item 12's
+CONTINUOUS_LOOP = ("the continuous loop over a partitioned store's feeds "
+                   "(PartitionedFeedWatcher, partitioned folds)")
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:

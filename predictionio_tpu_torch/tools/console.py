@@ -21,6 +21,10 @@ consoles). Run it as ``python -m predictionio_tpu_torch.tools.console
                                  query server (``/rollout/*`` over HTTP)
     quality                    — score drift, feedback and ingest quality
                                  (``tools/quality.py``)
+    continuous start|status|pause|trigger [--full] — the continuous loop
+                                 of a running query server (``/continuous*``)
+    storageserver              — the storage primary (``--oplog-dir``: its
+                                 changefeed, tailed by the continuous loop)
 
 ``train``, ``eval`` and ``deploy`` take ``--device`` (default ``cuda:0``,
 which raises where there is no CUDA; ``--device cpu`` runs on the host).
@@ -32,10 +36,11 @@ and receive ``--device``; without it, in this process. ``train`` and
 are its own; a deployed server reports its own on ``/status.json``).
 The commands that need no device (apps, keys, ``build``, ``status``,
 ``import``, ``export``, ``template``, ``undeploy``, ``ckpt``, ``health``,
-``alerts``, ``blackbox``, ``trace``, ``rollout``, ``quality``) do not
-import torch. The JAX console's commands whose modules are not ported
-exit 1 with a message naming their ROADMAP item (:data:`NOT_PORTED`),
-before their own flags are parsed.
+``alerts``, ``blackbox``, ``trace``, ``rollout``, ``quality``,
+``continuous``, ``storageserver``) do not import torch. The JAX
+console's commands whose modules are not ported exit 1 with a message
+naming their ROADMAP item (:data:`NOT_PORTED`), before their own flags
+are parsed.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from typing import List, Optional, Sequence
 from ..storage import Event, Model, StorageRegistry, get_registry, utcnow
 from ..storage.metadata import AccessKey, App
 from ..storage.registry import base_dir
-from . import CONTINUOUS_LOOP, not_ported
+from . import not_ported
 from . import register as register_mod
 
 EXIT_OK = 0
@@ -63,13 +68,11 @@ EXIT_FAIL = 1
 #: the JAX console's commands whose modules are not ported: name → (what,
 #: ROADMAP queue 1 item). Each exits 1 with that message.
 NOT_PORTED = {
-    "continuous": (CONTINUOUS_LOOP, 9),
     "migrate": ("live storage migration", 12),
     "autoscale": ("the fleet autoscaler", 13),
     "router": ("the serving-fleet router tier", 13),
     "sharedcache": ("the router fleet's shared response cache", 13),
     "dashboard": ("the evaluation dashboard", 14),
-    "storageserver": ("the storage server", 12),
     "lint": ("pio lint", 14),
     "top": ("pio top", 14),
     "perf": ("the perf tooling", 14),
@@ -196,6 +199,33 @@ def _rollout_request(ip: str, port: int, method: str, path: str,
         raise RuntimeError(f"query server answered {exc.code}: {message}") from exc
     except (urllib.error.URLError, OSError) as exc:
         raise RuntimeError(f"no query server at {url}: {exc}") from exc
+
+
+def continuous_command(args: argparse.Namespace) -> dict:
+    """``pio continuous start|status|pause|trigger [--full]``: an HTTP
+    client of the query server's ``/continuous*`` routes."""
+    sub = args.continuous_command
+    if sub == "status":
+        return _rollout_request(args.ip, args.port, "GET", "/continuous.json")
+    body = {"full": True} if sub == "trigger" and args.full else {}
+    return _rollout_request(args.ip, args.port, "POST", f"/continuous/{sub}", body)
+
+
+def storage_server(args: argparse.Namespace, registry: StorageRegistry):
+    """``pio storageserver``: a storage primary over ``registry``, with a
+    changefeed under ``--oplog-dir`` (default ``$PIO_FS_BASEDIR/oplog``)
+    unless ``--no-changefeed``. Replicas and partitions raise (item 12)."""
+    from ..storage.storage_server import REPLICAS, create_storage_server
+
+    if args.replica_of:
+        raise not_ported(f"{REPLICAS}: --replica-of {args.replica_of}", 12)
+    oplog_dir = None
+    if not args.no_changefeed:
+        oplog_dir = args.oplog_dir or os.path.join(base_dir(), "oplog")
+    return create_storage_server(args.ip, args.port, registry, oplog_dir=oplog_dir,
+                                 partition_index=args.partition_index,
+                                 partition_count=args.partition_count,
+                                 sync_every=args.sync_every)
 
 
 def rollout_command(args: argparse.Namespace) -> dict:
@@ -368,6 +398,35 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--ip", default="localhost")
         sp.add_argument("--port", type=int, default=8000)
 
+    co = sub.add_parser("continuous", help="the continuous-learning loop of a running "
+                        "query server: changefeed-driven fold-in with automatic rollouts")
+    co_sub = co.add_subparsers(dest="continuous_command", required=True)
+    co_start = co_sub.add_parser("start", help="(re)start the background watch/train loop")
+    co_status = co_sub.add_parser("status", help="cursor, feed lag, pending delta, last cycle")
+    co_pause = co_sub.add_parser("pause", help="stop triggering cycles (the cursor stays)")
+    co_trig = co_sub.add_parser("trigger", help="force a training cycle on the next tick")
+    co_trig.add_argument("--full", action="store_true",
+                         help="force a full retrain instead of fold-in")
+    for sp in (co_start, co_status, co_pause, co_trig):
+        sp.add_argument("--ip", default="localhost")
+        sp.add_argument("--port", type=int, default=8000)
+
+    ss = sub.add_parser("storageserver", help="serve this host's storage over HTTP as a "
+                        "primary (the peer of type=remote sources)")
+    ss.add_argument("--ip", default="localhost")
+    ss.add_argument("--port", type=int, default=7079)
+    ss.add_argument("--oplog-dir", default=None,
+                    help="changefeed op-log directory (default $PIO_FS_BASEDIR/oplog)")
+    ss.add_argument("--no-changefeed", action="store_true",
+                    help="serve without a changefeed (no X-PIO-Seq, nothing to tail)")
+    ss.add_argument("--sync-every", type=int, default=None, metavar="N",
+                    help="oplog fsync cadence (default 256; 1 = fsync before every ack)")
+    ss.add_argument("--replica-of", default=None, metavar="URL",
+                    help="a warm-standby replica: not ported (ROADMAP.md, queue 1 item 12)")
+    ss.add_argument("--partition-index", type=int, default=0, metavar="I")
+    ss.add_argument("--partition-count", type=int, default=1, metavar="N",
+                    help="a partitioned primary (N > 1): not ported (item 12)")
+
     # forwarded verbatim to ckpt.cli, tools/health.py and tools/quality.py,
     # which own their flags (see main)
     sub.add_parser("ckpt", aliases=["checkpoint"], add_help=False,
@@ -526,6 +585,9 @@ def _dispatch(args: argparse.Namespace, registry: Optional[StorageRegistry]) -> 
     if cmd == "rollout":  # an HTTP client: no storage
         _emit(rollout_command(args))
         return EXIT_OK
+    if cmd == "continuous":  # an HTTP client: no storage
+        _emit(continuous_command(args))
+        return EXIT_OK
     registry = registry or get_registry()
     if cmd == "app":
         sub = args.app_command
@@ -597,6 +659,18 @@ def _dispatch(args: argparse.Namespace, registry: Optional[StorageRegistry]) -> 
 
         create_event_server(EventServerConfig(ip=args.ip, port=args.port, stats=args.stats),
                             registry=registry, block=True)
+        return EXIT_OK
+
+    if cmd == "storageserver":
+        server = storage_server(args, registry)
+        _emit({"status": "serving", "role": "primary", "port": server.bound_port,
+               "changefeed": server.changefeed is not None})
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
         return EXIT_OK
 
     if cmd == "status":

@@ -20,11 +20,16 @@ answer), ``--log-url`` (failures posted there), ``--shard-index`` and
 ``--shard-count`` (serve one partition of the item table). With
 ``PIO_FLIGHT_DIR`` set, :func:`main` arms the flight recorder: an atexit
 dump, ``faulthandler`` and a SIGTERM dump (``flight-<pid>.jsonl``,
-``faulthandler-<pid>.txt``). The flags and settings of modules that are
-not ported raise, naming their ROADMAP item: the continuous loop
-(``--continuous-*``, queue 1 item 9's second half: the watcher and
-the controller; fold-in is ported) and a partitioned event store
-(``PIO_STORAGE_SOURCES_*_PARTITIONS``, item 12).
+``faulthandler-<pid>.txt``).
+
+The continuous loop: ``--continuous-app APP`` attaches its controller,
+tailing ``--continuous-feed URL`` (a storage primary, ``pio
+storageserver``), or, without the flag, the ``_URL`` (or
+``_HOST``/``_PORT``) of the registry's ``remote`` source;
+``--continuous-min-events`` and ``--continuous-staleness-s`` set its
+trigger. A partitioned store (``PIO_STORAGE_SOURCES_*_PARTITIONS``, or a
+partitioned or ``pio+ha://`` feed URL) raises, naming ROADMAP.md queue 1
+item 12.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from ..obs import flight
 from ..storage import StorageRegistry, get_registry
 from ..workflow import loader
 from ..workflow.serving import QueryServer, ServerConfig, create_query_server
-from . import CONTINUOUS_LOOP, not_ported
+from . import not_ported
 from .register import load_engine_dir
 
 
@@ -74,9 +79,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-index", type=int, default=0, metavar="I")
     p.add_argument("--shard-count", type=int, default=1, metavar="N",
                    help="serve item rows i %% N == I only (sharded serving)")
-    # the continuous loop is not ported (queue 1 item 9's second half): these raise
-    p.add_argument("--continuous-app", type=int, default=None, metavar="APP_ID")
-    p.add_argument("--continuous-feed", default=None, metavar="URL")
+    p.add_argument("--continuous-app", type=int, default=None, metavar="APP_ID",
+                   help="attach the continuous-learning loop for this app")
+    p.add_argument("--continuous-feed", default=None, metavar="URL",
+                   help="storage primary whose GET /replicate/changes the loop tails "
+                        "(default: the remote registry's URL)")
+    p.add_argument("--continuous-min-events", type=int, default=10,
+                   help="delta size that triggers a training cycle")
+    p.add_argument("--continuous-staleness-s", type=float, default=300.0,
+                   help="trigger below min-events once the oldest pending event is "
+                        "this stale")
     p.add_argument("--verbose", action="store_true")
     return p
 
@@ -84,11 +96,43 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args: argparse.Namespace, env=None) -> None:
     """Raise for a flag or an environment whose module is not ported."""
     env = os.environ if env is None else env
-    if args.continuous_app is not None or args.continuous_feed:
-        raise not_ported(f"{CONTINUOUS_LOOP} (--continuous-*)", 9)
     if any(k.startswith("PIO_STORAGE_SOURCES_") and k.endswith("_PARTITIONS")
            for k in env):
         raise not_ported("a partitioned event store (PIO_STORAGE_SOURCES_*_PARTITIONS)", 12)
+    if args.continuous_feed:
+        from ..storage.remote import single_endpoint
+
+        single_endpoint(args.continuous_feed)  # a partitioned feed raises
+
+
+def _continuous_config(args: argparse.Namespace, registry):
+    """The ``ContinuousConfig`` of the ``--continuous-*`` flags (None
+    without ``--continuous-app``). The feed is ``--continuous-feed``, else
+    the registry's ``remote`` source; with neither, the deploy ends."""
+    if args.continuous_app is None:
+        return None
+    from ..continuous.controller import ContinuousConfig
+    from ..storage import remote
+
+    feed_url = args.continuous_feed
+    if not feed_url:
+        # the storage primary every other plane of this deployment talks to
+        env = getattr(registry, "_env", None) or {}
+        for key, value in sorted(env.items()):
+            if key.startswith("PIO_STORAGE_SOURCES_") and key.endswith("_TYPE") \
+                    and value == "remote":
+                prefix = key[:-len("TYPE")]
+                feed_url = remote.base_url({k[len(prefix):].lower(): v
+                                            for k, v in env.items() if k.startswith(prefix)})
+                break
+    if not feed_url:
+        raise SystemExit("--continuous-app needs a changefeed source: pass "
+                         "--continuous-feed URL (the storage primary) or configure a "
+                         "remote storage registry")
+    return ContinuousConfig(app_id=args.continuous_app,
+                            feed_url=remote.single_endpoint(feed_url),
+                            min_events=args.continuous_min_events,
+                            max_staleness_s=args.continuous_staleness_s)
 
 
 def prebuild_kernels(device) -> list:
@@ -106,6 +150,7 @@ def make_server(args: argparse.Namespace, registry: Optional[StorageRegistry] = 
     check_ported(args)
     loader.modify_logging(args.verbose)
     registry = registry or get_registry()
+    continuous = _continuous_config(args, registry)
     ed = load_engine_dir(args.engine_dir)
     loader.apply_runtime_conf(ed.variant)
     engine = loader.get_engine(ed.engine_factory, search_dir=ed.path)
@@ -126,6 +171,7 @@ def make_server(args: argparse.Namespace, registry: Optional[StorageRegistry] = 
         shard_index=args.shard_index,
         shard_count=args.shard_count,
         device=args.device,
+        continuous=continuous,
         **{k: v for k, v in (("batch_max", args.batch_max),
                              ("batch_pipeline_depth", args.batch_pipeline_depth))
            if v is not None},

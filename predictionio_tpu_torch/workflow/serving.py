@@ -21,6 +21,8 @@ Counterpart of ``predictionio_tpu/workflow/serving.py`` (rebuild of
   ``pio_quant_gate_refusals_total`` on ``/metrics``); ``GET /`` — the HTML status page
   (JSON with ``Accept: application/json``); ``GET /shard.json`` — the
   item partition this server holds; ``GET /stop``;
+- ``POST /continuous/start|pause|trigger`` and ``GET /continuous.json`` —
+  the continuous loop (below);
 - ``GET /metrics``, ``/traces.json``, ``/health.json``, ``/blackbox.json``
   (``api/http.py``).
 
@@ -44,9 +46,15 @@ that served it, ``-`` with no rollout), which also labels
 ``pio_http_responses_total``; its scores feed the
 :class:`~..obs.quality.QualityMonitor` (served-score drift
 ``pio_quality_score_psi{variant}``), and its ``predict`` event is tagged
-with that variant. The routes of the continuous loop answer 404 naming
-their ROADMAP item (queue 1 item 9's second half: the watcher and the
-controller).
+with that variant.
+
+With ``continuous`` set (a ``continuous.ContinuousConfig``; ``pio deploy
+--continuous-app``) the server carries the continuous loop's controller
+(:mod:`..continuous.controller`): ``POST /continuous/start|pause|trigger``
+and ``GET /continuous.json`` drive and read it, ``/status.json`` embeds
+its status, and shutdown stops it. Without one, the POST routes answer
+409 and ``GET /continuous.json`` ``{"enabled": false}``. A controller
+that fails to attach is logged and the server serves without it.
 """
 
 from __future__ import annotations
@@ -81,7 +89,6 @@ from ..rollout.plan import BASELINE, CANDIDATE, VARIANT_HEADER
 from ..storage import StorageRegistry, utcnow
 from ..storage.metadata import ROLLOUT_SHADOW, STATUS_COMPLETED, EngineInstance
 from ..testing.faults import fault_point
-from ..tools import CONTINUOUS_LOOP, not_ported
 from ..utils.profiling import phases_from_env
 from ..utils.resilience import (
     DEADLINE_HEADER,
@@ -149,6 +156,9 @@ class ServerConfig:
     #: where the models' tables live: None = ``cuda:0`` (raises without
     #: CUDA); "cpu" only when asked for
     device: DeviceLike = None
+    #: the continuous loop: a ``continuous.ContinuousConfig`` attaches a
+    #: changefeed-driven controller to this server; None = off
+    continuous: Optional[Any] = None
 
 
 def decode_query(algorithms: Sequence[Any], payload: Any) -> Any:
@@ -364,15 +374,8 @@ class QueryDecodeError(ValueError):
     (``CreateServer.scala:578-585``)."""
 
 
-#: routes of modules that are not ported: path → (what, ROADMAP item)
-_NOT_PORTED_ROUTES = {
-    "/continuous/start": (CONTINUOUS_LOOP, 9),
-    "/continuous/pause": (CONTINUOUS_LOOP, 9),
-    "/continuous/trigger": (CONTINUOUS_LOOP, 9),
-    "/continuous.json": (CONTINUOUS_LOOP, 9),
-}
-
 _ROLLOUT_ROUTES = ("/rollout/start", "/rollout/promote", "/rollout/abort")
+_CONTINUOUS_ROUTES = ("/continuous/start", "/continuous/pause", "/continuous/trigger")
 
 
 class _QueryHandler(JsonHTTPHandler):
@@ -391,13 +394,8 @@ class _QueryHandler(JsonHTTPHandler):
             self._handle_reload()
         elif path in _ROLLOUT_ROUTES:
             self._handle_rollout(path, raw)
-        else:
-            self._not_found(path)
-
-    def _not_found(self, path: str) -> None:
-        if path in _NOT_PORTED_ROUTES:
-            what, item = _NOT_PORTED_ROUTES[path]
-            self.respond(404, {"message": str(not_ported(f"`{path}` ({what})", item))})
+        elif path in _CONTINUOUS_ROUTES:
+            self._handle_continuous(path, raw)
         else:
             self.respond(404, {"message": "Not Found"})
 
@@ -501,6 +499,35 @@ class _QueryHandler(JsonHTTPHandler):
             logger.exception("rollout %s failed", path)
             self.respond(500, {"message": str(exc)})
 
+    def _handle_continuous(self, path: str, raw: bytes) -> None:
+        """``POST /continuous/start|pause|trigger`` (``{"full": true}``
+        forces a full retrain); 409 without a controller."""
+        continuous = self.server.continuous
+        if continuous is None:
+            self.respond(409, {"message": "no continuous controller attached; deploy "
+                                          "with --continuous-app"})
+            return
+        try:
+            body = json.loads(raw.decode("utf-8")) if raw else {}
+        except ValueError as exc:
+            self.respond(400, {"message": str(exc)})
+            return
+        if not isinstance(body, dict):
+            self.respond(400, {"message": "expected a JSON object body"})
+            return
+        try:
+            if path == "/continuous/start":
+                continuous.start()
+                out = continuous.status()
+            elif path == "/continuous/pause":
+                out = continuous.pause()
+            else:
+                out = continuous.trigger(full=bool(body.get("full")))
+            self.respond(200, out)
+        except Exception as exc:
+            logger.exception("continuous %s failed", path)
+            self.respond(500, {"message": str(exc)})
+
     def do_GET(self) -> None:  # noqa: N802
         self.response_labels = None
         path = urlparse(self.path).path
@@ -516,6 +543,10 @@ class _QueryHandler(JsonHTTPHandler):
             self.respond(200, self.server.rollout.status())
         elif path == "/shard.json":
             self.respond(200, self.server.shard_json())
+        elif path == "/continuous.json":
+            continuous = self.server.continuous
+            self.respond(200, {"enabled": False} if continuous is None
+                         else continuous.status())
         elif path == "/reload":
             # deprecated spelling, kept for CreateServer parity
             self._handle_reload()
@@ -523,7 +554,7 @@ class _QueryHandler(JsonHTTPHandler):
             self.respond(200, {"message": "Shutting down"})
             self.server.stop_async()
         else:
-            self._not_found(path)
+            self.respond(404, {"message": "Not Found"})
 
 
 class QueryServer(BackgroundHTTPServer):
@@ -632,6 +663,20 @@ class QueryServer(BackgroundHTTPServer):
             self.rollout.resume()
         except Exception:
             logger.exception("rollout resume failed; serving the baseline only")
+        # the continuous loop resumes its durable cursor and any in-flight
+        # candidate; a loop that cannot attach leaves plain serving
+        self.continuous = None
+        if config.continuous is not None:
+            try:
+                from ..continuous.controller import ContinuousController
+
+                self.continuous = ContinuousController(self, config.continuous)
+                if config.continuous.autostart:
+                    self.continuous.start()
+            except Exception:
+                self.continuous = None
+                logger.exception("continuous controller failed to attach; serving "
+                                 "without the continuous-learning loop")
 
     def _new_batcher(self, name: str, metrics: Optional[MetricsRegistry] = None,
                      tracer: Optional[Tracer] = None) -> MicroBatcher:
@@ -969,6 +1014,8 @@ class QueryServer(BackgroundHTTPServer):
     def server_close(self) -> None:
         self._batcher.close()  # fail queued requests fast, join thread
         self._feedback_pool.shutdown(wait=False)
+        if getattr(self, "continuous", None) is not None:
+            self.continuous.stop()
         if getattr(self, "rollout", None) is not None:
             self.rollout.close()
         super().server_close()
@@ -1117,6 +1164,8 @@ class QueryServer(BackgroundHTTPServer):
         out["batching"] = self._batcher.stats
         out["quality"] = self.quality.summary()
         out["rollout"] = self.rollout.status()
+        if getattr(self, "continuous", None) is not None:
+            out["continuous"] = self.continuous.status()
         phases = phases_from_env(dep.instance.env)
         if phases:
             out["trainPhases"] = phases

@@ -27,7 +27,7 @@ from predictionio_tpu.models import recommendation as jrec
 from predictionio_tpu.storage.bimap import BiMap as JaxBiMap
 from predictionio_tpu_torch.ckpt import CheckpointStore
 from predictionio_tpu_torch.models import recommendation as rec
-from predictionio_tpu_torch.storage import Event, EventFilter, get_registry
+from predictionio_tpu_torch.storage import Event, EventFilter, StorageRegistry, get_registry
 from predictionio_tpu_torch.tools import console
 from predictionio_tpu_torch.tools import register as register_mod
 from predictionio_tpu_torch.tools import run_server
@@ -465,9 +465,9 @@ def test_ckpt_and_its_alias_reach_the_checkpoint_cli(argv, key, tmp_path, capsys
 
 
 @pytest.mark.parametrize("flags,env,item", [
-    (["--continuous-app", "1"], {}, 9),
-    (["--continuous-feed", "http://127.0.0.1:1"], {}, 9),
-    (["--continuous-app", "1", "--feedback"], {}, 9),
+    (["--continuous-app", "1", "--continuous-feed", "pio+ha://a:1,b:2"], {}, 12),
+    (["--continuous-feed", "http://127.0.0.1:1;http://127.0.0.1:2"], {}, 12),
+    (["--continuous-app", "1", "--feedback", "--continuous-feed", "pio+ha://a:1"], {}, 12),
     ([], {"PIO_STORAGE_SOURCES_S_PARTITIONS": "a:1;b:2"}, 12),
     (["--shard-count", "2"], {"PIO_STORAGE_SOURCES_EV_PARTITIONS": "a:1"}, 12),
 ])
@@ -510,6 +510,47 @@ def test_deploy_takes_the_request_plane_flags(flags, env, field, value, registry
     assert config is seen["config"] and getattr(config, field) == value
     assert config.event_server_port == (7171 if "--event-server-port" in flags else 7070)
     assert config.shard_index == (1 if "--shard-index" in flags else 0)
+
+
+@pytest.mark.parametrize("flags,env,feed_url,min_events", [
+    (["--continuous-app", "1", "--continuous-feed", "http://127.0.0.1:7079/"], {},
+     "http://127.0.0.1:7079", 10),
+    (["--continuous-app", "1", "--continuous-min-events", "5", "--continuous-staleness-s",
+      "30"], {"PIO_STORAGE_SOURCES_RS_TYPE": "remote",
+              "PIO_STORAGE_SOURCES_RS_URL": "http://10.0.0.2:7079"}, "http://10.0.0.2:7079", 5),
+    (["--continuous-app", "1"], {"PIO_STORAGE_SOURCES_RS_TYPE": "remote",
+                                 "PIO_STORAGE_SOURCES_RS_PORT": "7171"},
+     "http://127.0.0.1:7171", 10),
+    ([], {}, None, None),
+])
+def test_deploy_takes_the_continuous_flags(flags, env, feed_url, min_events, registry,
+                                           tmp_path, monkeypatch):
+    """``--continuous-*`` (queue 1 item 9) reach ``ServerConfig.continuous``:
+    the feed from the flag, else from the remote registry's source."""
+    target = tmp_path / "proj"
+    get_template("recommendation", str(target))
+    args = run_server.build_parser().parse_args(["--engine-dir", str(target), "--device",
+                                                 "cpu", *flags])
+    run_server.check_ported(args)
+    monkeypatch.setattr(run_server, "create_query_server",
+                        lambda engine, config, reg, block: config)
+    config = run_server.make_server(args, StorageRegistry({**env, "PIO_FS_BASEDIR": str(
+        tmp_path / "s")}) if env else registry, block=False)
+    if feed_url is None:
+        assert config.continuous is None
+        return
+    cont = config.continuous
+    assert (cont.app_id, cont.feed_url, cont.min_events) == (1, feed_url, min_events)
+    assert cont.max_staleness_s == (30.0 if "--continuous-staleness-s" in flags else 300.0)
+
+
+def test_deploy_with_the_loop_and_no_feed_ends(registry, tmp_path):
+    target = tmp_path / "proj"
+    get_template("recommendation", str(target))
+    args = run_server.build_parser().parse_args(["--engine-dir", str(target), "--device",
+                                                 "cpu", "--continuous-app", "1"])
+    with pytest.raises(SystemExit, match="needs a changefeed source"):
+        run_server.make_server(args, registry, block=False)
 
 
 @pytest.mark.parametrize("argv,code", [

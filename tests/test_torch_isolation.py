@@ -70,6 +70,41 @@ def test_the_source_scan_reaches_the_rollout_and_quality_slice():
     assert proc.returncode == 0, proc.stderr
 
 
+CONTINUOUS_STORAGE_SLICE = ("storage/wire.py", "storage/oplog.py", "storage/changefeed.py",
+                            "storage/storage_server.py", "storage/remote.py",
+                            "continuous/watcher.py", "continuous/controller.py")
+
+
+def test_the_source_scan_reaches_the_continuous_loop_and_the_storage_primary():
+    """The continuous loop and the storage primary it tails are scanned,
+    import nothing of jax or the JAX package at any depth, leave TF32
+    alone, and import in a process that has no jax."""
+    scanned = {p.relative_to(PORT).as_posix(): p for p in _port_sources() if PORT in p.parents}
+    assert set(CONTINUOUS_STORAGE_SLICE) <= set(scanned)
+    for rel in CONTINUOUS_STORAGE_SLICE:
+        text = scanned[rel].read_text()
+        assert "allow_tf32" not in text, rel
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not [n for n in names if n.split(".")[0] in FORBIDDEN_ROOTS], (rel, names)
+    code = ("import sys\n"
+            "import predictionio_tpu_torch.continuous.controller\n"
+            "import predictionio_tpu_torch.storage.remote, predictionio_tpu_torch.storage.oplog\n"
+            "import predictionio_tpu_torch.storage.storage_server\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'predictionio_tpu'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_importing_every_port_module_pulls_in_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -569,7 +569,8 @@ def test_the_port_quant_modules_import_no_jax_and_no_ml_dtypes():
 
     root = pathlib.Path(ptable.__file__).resolve().parent.parent
     for rel in ("quant/table.py", "quant/__init__.py", "continuous/foldin.py",
-                "continuous/__init__.py"):
+                "continuous/__init__.py", "continuous/watcher.py",
+                "continuous/controller.py"):
         for node in ast.walk(ast.parse((root / rel).read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

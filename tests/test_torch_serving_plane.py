@@ -274,15 +274,23 @@ def test_status_page_shard_json_and_train_phases(tmp_path):
                      'pio_train_phase_seconds{phase="train[0]"} 3']
 
 
-@pytest.mark.parametrize("method,path,item", [
-    ("POST", "/continuous/start", 9), ("POST", "/continuous/pause", 9),
-    ("POST", "/continuous/trigger", 9), ("GET", "/continuous.json", 9),
+@pytest.mark.parametrize("method,path,code", [
+    ("POST", "/continuous/start", 409), ("POST", "/continuous/pause", 409),
+    ("POST", "/continuous/trigger", 409), ("GET", "/continuous.json", 200),
 ])
-def test_routes_of_modules_not_ported_name_their_item(method, path, item, tmp_path):
+def test_routes_of_modules_not_ported_name_their_item(method, path, code, tmp_path):
+    """The continuous loop's routes on a server deployed without it answer
+    as the JAX package's do (its ``test_routes_409_without_controller``):
+    the POSTs 409 naming ``--continuous-app``, ``GET /continuous.json``
+    ``{"enabled": false}``; other paths stay 404."""
     with port_server(tmp_path, port_model(SEED)) as server:
         status, body, _ = request(server.bound_port, method, path, {})
-        assert status == 404
-        assert f"queue 1 item {item})" in body["message"]
+        assert status == code
+        if code == 409:
+            assert "--continuous-app" in body["message"]
+        else:
+            assert body == {"enabled": False}
+        assert "continuous" not in request(server.bound_port, "GET", "/status.json")[1]
         assert request(server.bound_port, "GET", "/nowhere")[1] == {"message": "Not Found"}
 
 
